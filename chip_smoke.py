@@ -1,0 +1,344 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one NVIDIA GPU.
+
+Run from the root of a checkout, on a machine with a CUDA card and the CUDA
+toolkit:
+
+    python3 chip_smoke.py
+
+Phases (any failure raises and the script exits non-zero):
+
+1. build the stepper kernel (``exciting_environments_torch/csrc/stepper.cu``)
+   with nvcc and report the build time and the compiler's resource report;
+2. hold the kernel against its plain PyTorch version on the card at
+   B = 65,536, T = 64, float32, in every mode the port uses;
+3. replay the pendulum golden fixture (``tests/envs/pendulum/data``) through
+   the kernel in float64 and check it with the fixture test's own allclose;
+4. drive the main path: ``Pendulum(batch_size=65536, tau=1e-4)`` and
+   ``env.fused_rollout`` over T = 4,096 steps in float32, in both action
+   layouts, plus ``env.fused_sim_ahead`` (RK4) at the same size; show through
+   the launch counts that it ran the kernel, time it with CUDA events and
+   compare it with the plain version on the same inputs;
+5. print the kernel table, the card's name and power limit, and last the
+   result line ``{"ok": true, "device": {...}}``.
+
+Imports nothing of JAX and nothing of the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+SEED = 0
+DEVICE = "cuda"
+B_MAIN, T_MAIN = 65536, 4096
+T_CHECK = 64
+SOURCE = "exciting_environments_torch/csrc/stepper.cu"
+REPLACES = "exciting_environments_tpu/ops/pallas/stepper.py:122"
+# H100 SXM published peaks (NVIDIA data sheet), used for the bound
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_PER_S = 67e12
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def time_ms(fn, reps=5, warmup=1):
+    """Median time of ``fn`` over ``reps`` runs, CUDA events around each."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def max_abs(xs, ys):
+    return max(float((x.double() - y.double()).abs().max()) for x, y in zip(xs, ys))
+
+
+def ops_per_step(env, solver, sim_ahead):
+    """Arithmetic operations of one step of one instance, counting each add,
+    multiply, divide, compare and each sin/cos/fmod call as one."""
+    from exciting_environments_torch.ops.kernels.stepper import _stage_rows
+
+    ode_ops = {0: 4, 1: 5, 2: 31}[env._kernel_env_id]
+    a_rows, b = _stage_rows(solver)
+    n = len(env._ode_state_fields)
+    comb = lambda coeffs: sum(2 - (c == 1.0) for c in coeffs if c != 0.0) + 1 if any(coeffs) else 0
+    per_step = 4 * env.action_dim * (2 if sim_ahead else 1)  # in-kernel denormalization
+    per_step += len(b) * ode_ops + n * (sum(comb(r) for r in a_rows) + comb(b))
+    if not sim_ahead:
+        per_step += 5 * len(env._angle_fields)  # wrap: add, fmod, compare, add, sub
+    return per_step
+
+
+def bound(env, solver, batch, n_steps, n_rows, n_saves, sim_ahead, itemsize=4):
+    """Least time for the work: bytes moved once (actions, initial and final
+    state, saves) over the memory rate, or operations over the float32 rate."""
+    n = len(env._ode_state_fields)
+    nbytes = itemsize * (n_rows * batch * env.action_dim + 2 * n * batch + n_saves * n * batch)
+    ops = ops_per_step(env, solver, sim_ahead) * batch * n_steps
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_FP32_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def make_env(cls, batch, dtype=torch.float32, **kwargs):
+    return cls(batch_size=batch, device=DEVICE, dtype=dtype, **kwargs)
+
+
+def random_state(env, gen):
+    y0 = tuple(
+        (torch.rand(env.batch_size, generator=gen, device=DEVICE, dtype=torch.float64) * 2 - 1).to(env.dtype)
+        for _ in env._ode_state_fields
+    )
+    return y0
+
+
+def random_actions(env, n_rows, gen, lim=0.9):
+    u = torch.rand((n_rows, env.batch_size, env.action_dim), generator=gen, device=DEVICE, dtype=torch.float64)
+    return ((u * 2 - 1) * lim).to(env.dtype)
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+
+def phase_build(K):
+    t0 = time.perf_counter()
+    path = K.build()
+    K.KERNEL.lib()
+    log(f"[build] {path.name} ready in {time.perf_counter() - t0:.1f} s")
+    report = path.with_suffix(".log")
+    if report.exists():
+        lines = report.read_text().splitlines()
+        regs = [int(l.split("Used ")[1].split(" registers")[0]) for l in lines if "registers" in l]
+        stack = [l.strip() for l in lines if "bytes stack frame" in l and not l.strip().startswith("0 bytes")]
+        log(f"[build] {len(regs)} kernels, registers per thread {min(regs, default=0)}..{max(regs, default=0)}, "
+            f"non-zero stack frames: {len(stack)}")
+        for line in stack[:4]:
+            log(f"[build]   {line}")
+
+
+def phase_kernel_vs_plain(ex, K):
+    """Kernel against its plain version, f32, B = 65,536, T = 64."""
+    from exciting_environments_torch.utils import MinMaxNormalization
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    B, T = B_MAIN, T_CHECK
+    lengths = (1.0 + torch.rand(B, generator=gen, device=DEVICE)).to(torch.float32)
+    masses = (0.5 + torch.rand(B, generator=gen, device=DEVICE)).to(torch.float32)
+    torque_max = (10.0 + 10 * torch.rand(B, generator=gen, device=DEVICE)).to(torch.float32)
+    # (label, env, rollout kwargs).  The tolerance is 0.0 for every case: the
+    # kernel performs the plain version's operations in the same order and
+    # precision (built with --fmad=false, PyTorch's CUDA division rule).
+    cases = [
+        ("pendulum euler", make_env(ex.Pendulum, B), {}),
+        ("pendulum rk4", make_env(ex.Pendulum, B, solver="rk4"), {}),
+        ("pendulum tsit5", make_env(ex.Pendulum, B, solver="tsit5"), {}),
+        ("mass_spring_damper rk4", make_env(ex.MassSpringDamper, B, solver="rk4"), {}),
+        ("cart_pole tsit5", make_env(ex.CartPole, B, solver="tsit5"), {}),
+        ("pendulum per-batch l, m, torque max", make_env(
+            ex.Pendulum, B, static_params={"l": lengths, "m": masses, "g": 9.81},
+            action_normalizations={"torque": MinMaxNormalization(min=-20, max=torque_max)}), {}),
+        ("pendulum noise slab", make_env(ex.Pendulum, B), {"noise": True}),
+        ("pendulum rk4 obs_stride=4", make_env(ex.Pendulum, B, solver="rk4"), {"obs_stride": 4}),
+        ("pendulum rk4 sim-ahead ratio 1", make_env(ex.Pendulum, B, solver="rk4"),
+         {"sim_ahead": True, "hold": 1, "obs_stride": 8}),
+        ("pendulum rk4 sim-ahead ratio 2", make_env(ex.Pendulum, B, solver="rk4"),
+         {"sim_ahead": True, "hold": 2, "obs_stride": 8}),
+        ("cart_pole euler ragged B=1000", make_env(ex.CartPole, 1000), {}),
+    ]
+    failures = []
+    for label, env, kw in cases:
+        kw = dict(kw)
+        hold = kw.get("hold", 1)
+        y0 = random_state(env, gen)
+        acts = random_actions(env, T // hold, gen)
+        if kw.pop("noise", False):
+            kw["noise_tm"] = (0.01 * torch.randn((T, env.batch_size, 2), generator=gen, device=DEVICE)).to(env.dtype)
+            kw["noise_idx"] = (0, 1)
+        tau = env.tau
+        yk, tk = K.kernel_rollout(env, y0, acts, tau=tau, **kw)
+        yp, tp = K.plain_rollout(env, y0, acts, tau=tau, **kw)
+        torch.cuda.synchronize()
+        err = max_abs(yk, yp)
+        if tk is not None:
+            err = max(err, max_abs(tk, tp))
+        finite = all(bool(torch.isfinite(y).all()) for y in yk)
+        ok = finite and err == 0.0
+        log(f"[kernel vs plain] {label}: max abs deviation {err!r} (tolerance 0.0) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(label)
+    if failures:
+        raise AssertionError(f"kernel disagrees with its plain version: {failures}")
+
+
+def phase_golden(ex, K):
+    """Pendulum golden fixture, float64, B = 1, 10,000 steps, one launch."""
+    from exciting_environments_torch.utils import load_sim_properties_from_json
+
+    data = ROOT / "tests" / "envs" / "pendulum" / "data"
+    params, action_norms, physical_norms, tau = load_sim_properties_from_json(data / "sim_properties.json")
+    env = ex.Pendulum(batch_size=1, tau=tau, solver="euler", static_params=params,
+                      physical_normalizations=physical_norms, action_normalizations=action_norms,
+                      device=DEVICE, dtype=torch.float64)
+    stored = torch.as_tensor(np.load(data / "observations.npy"), device=DEVICE)
+    actions = torch.as_tensor(np.load(data / "actions.npy"), device=DEVICE)
+    n = actions.shape[0]
+    state = env.generate_state_from_observation(stored[0][None], env.env_properties)
+    y0 = tuple(getattr(state.physical_state, f) for f in env._ode_state_fields)
+    _, traj = K.kernel_rollout(env, y0, actions[:, None, :], tau=env.tau, obs_stride=1)
+    traj_state = ex.Pendulum.PhysicalState(**dict(zip(env._ode_state_fields, traj)))
+    obs = env.generate_observation(
+        env.State(physical_state=traj_state, PRNGKey=None, additions=None,
+                  reference=env._nan_reference((n, 1))), env.env_properties)[:, 0]
+    generated = torch.cat([stored[:1], obs], dim=0)
+    dev = float((generated - stored).abs().max())
+    ok = bool(torch.allclose(generated, stored, 1e-16))
+    log(f"[golden] pendulum fixture, {n} float64 steps in one launch: max abs deviation {dev!r}, "
+        f"allclose(rtol=1e-16) {ok}")
+    if not ok:
+        raise AssertionError("golden pendulum replay through the kernel deviates from the fixture")
+
+
+def phase_main(ex, K):
+    """Main path at full size; returns the kernel table entries."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    B, T = B_MAIN, T_MAIN
+    env = ex.Pendulum(batch_size=B, tau=1e-4, device=DEVICE)
+    env_sa = ex.Pendulum(batch_size=B, tau=1e-4, solver="rk4", device=DEVICE)
+    _, state = env.vmap_reset(rng=gen)
+    actions_tm = random_actions(env, T, gen)
+    actions_bm = actions_tm.transpose(0, 1).contiguous()
+    sa_stride = 64
+    log(f"[main] Pendulum B={B} T={T} float32: actions {actions_tm.numel() * 4 / 1e9:.3f} GB per layout")
+
+    K.KERNEL.reset_counts()
+    obs_tm, last_tm = env.fused_rollout(state, actions_tm, time_major=True, strict=True)
+    obs_bm, last_bm = env.fused_rollout(state, actions_bm, strict=True)
+    obs_sa, last_sa = env_sa.fused_sim_ahead(state, actions_bm, env_sa.tau, env_sa.tau,
+                                             obs_stride=sa_stride, strict=True)
+    torch.cuda.synchronize()
+    launches = dict(K.KERNEL.launches)
+    log(f"[main] launches during the main path: {launches}")
+    if launches["step"] < 1 or launches["sim_ahead"] < 1:
+        raise AssertionError(f"the main path did not go through the kernel: {launches}")
+    if tuple(obs_tm.shape) != (B, 2) or tuple(obs_sa.shape) != (B, 1 + T // sa_stride, 2):
+        raise AssertionError(f"unexpected shapes {tuple(obs_tm.shape)}, {tuple(obs_sa.shape)}")
+    if not (torch.isfinite(obs_tm).all() and torch.isfinite(obs_sa).all()):
+        raise AssertionError("non-finite observations on the main path")
+    if not torch.equal(obs_tm, obs_bm):
+        raise AssertionError("time-major and batch-major layouts disagree")
+    if float(obs_tm[:, 0].abs().max()) > 1.0:
+        raise AssertionError("wrapped angle left the normalized band")
+
+    y0 = tuple(getattr(state.physical_state, f) for f in env._ode_state_fields)
+    step_kernel = lambda: K.kernel_rollout(env, y0, actions_tm, tau=env.tau)
+    sa_kernel = lambda: K.kernel_rollout(env_sa, y0, actions_tm, tau=env_sa.tau, sim_ahead=True,
+                                         obs_stride=sa_stride)
+    # one untimed run each for the comparison, then the timings
+    yk, _ = step_kernel()
+    t0 = time.perf_counter()
+    yp, _ = K.plain_rollout(env, y0, actions_tm, tau=env.tau)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err_step = max_abs(yk, yp)
+    yks, tks = sa_kernel()
+    t0 = time.perf_counter()
+    yps, tps = K.plain_rollout(env_sa, y0, actions_tm, tau=env_sa.tau, sim_ahead=True, obs_stride=sa_stride)
+    torch.cuda.synchronize()
+    plain_sa_ms = (time.perf_counter() - t0) * 1e3
+    err_sa = max(max_abs(yks, yps), max_abs(tks, tps))
+    log(f"[main] kernel vs plain at full size: step max abs {err_step!r}, sim-ahead max abs {err_sa!r}")
+    if err_step != 0.0 or err_sa != 0.0:
+        raise AssertionError("kernel disagrees with its plain version at the main size")
+
+    ms = time_ms(step_kernel)
+    sa_ms = time_ms(sa_kernel)
+    env_tm_ms = time_ms(lambda: env.fused_rollout(state, actions_tm, time_major=True, strict=True))
+    env_bm_ms = time_ms(lambda: env.fused_rollout(state, actions_bm, strict=True))
+    t_short = 256
+    t0 = time.perf_counter()
+    env.vmap_rollout(state, actions_bm[:, :t_short], t_short)
+    torch.cuda.synchronize()
+    vmap_ms = (time.perf_counter() - t0) * 1e3
+
+    bound_ms, bound_by = bound(env, env._solver, B, T, T, 0, False)
+    sa_bound_ms, sa_bound_by = bound(env_sa, env_sa._solver, B, T, T, T // sa_stride, True)
+    steps = B * T
+    slab_bytes = actions_tm.numel() * actions_tm.element_size()
+    log(f"[main] kernel (time-major slab): {ms!r} ms = {steps / ms * 1e3:.4e} env-steps/s; "
+        f"bound {bound_ms!r} ms ({bound_by}); {bound_ms / ms:.1%} of the bound; "
+        f"slab read at {slab_bytes / ms / 1e9:.3f} TB/s")
+    log(f"[main] env.fused_rollout time-major: {env_tm_ms!r} ms = {steps / env_tm_ms * 1e3:.4e} env-steps/s")
+    log(f"[main] env.fused_rollout batch-major (transposed copy): {env_bm_ms!r} ms = "
+        f"{steps / env_bm_ms * 1e3:.4e} env-steps/s")
+    log(f"[main] plain version, T={T}: {plain_ms!r} ms (one run)")
+    log(f"[main] sim-ahead rk4 kernel: {sa_ms!r} ms; bound {sa_bound_ms!r} ms ({sa_bound_by}); "
+        f"plain {plain_sa_ms!r} ms (one run)")
+    log(f"[main] vmap_rollout, T={t_short}: {vmap_ms!r} ms (one run) = "
+        f"{B * t_short / vmap_ms * 1e3:.4e} env-steps/s")
+    entry = lambda name, n, err, t, plain, bms, bby: {
+        "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES, "launches": n,
+        "max_abs_err": err, "ms": t, "plain_ms": plain, "bound_ms": bms, "bound_by": bby, "library_ms": None,
+    }
+    return [
+        entry("stepper_step", launches["step"], err_step, ms, plain_ms, bound_ms, bound_by),
+        entry("stepper_sim_ahead", launches["sim_ahead"], err_sa, sa_ms, plain_sa_ms, sa_bound_ms, sa_bound_by),
+    ]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    if not (ROOT / "exciting_environments_torch" / "csrc" / "stepper.cu").is_file():
+        print("chip_smoke: run it from a checkout of the repository (package not found)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import exciting_environments_torch as ex
+    from exciting_environments_torch.ops.kernels import stepper as K
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}, "
+        f"device {torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    phase_build(K)
+    phase_kernel_vs_plain(ex, K)
+    phase_golden(ex, K)
+    kernels = phase_main(ex, K)
+    if "jax" in sys.modules or any(m.startswith("exciting_environments_tpu") for m in sys.modules):
+        raise AssertionError("the port pulled in JAX or the JAX package")
+    log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                            "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

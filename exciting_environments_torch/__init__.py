@@ -1,0 +1,19 @@
+"""exciting-environments-torch: the PyTorch and CUDA port of
+exciting-environments-tpu.
+
+Batched ODE environments with the same classes, registry ids and
+step/reset/sim_ahead/rollout surface as the JAX package; the fused rollout
+runs through a hand-written CUDA kernel (``csrc/stepper.cu``) on an NVIDIA
+Hopper GPU.  Entry points run on the CUDA device unless the caller passes
+``device="cpu"``.
+"""
+
+__version__ = "0.1.0"
+
+from exciting_environments_torch.core import spaces
+from exciting_environments_torch.core.classic import ClassicODEEnvironment
+from exciting_environments_torch.core.env import CoreEnvironment
+from exciting_environments_torch.core.registration import EnvironmentRegistry
+from exciting_environments_torch.models import CartPole, MassSpringDamper, Pendulum
+from exciting_environments_torch.ops import solvers
+from exciting_environments_torch.utils import MinMaxNormalization

@@ -1,0 +1,530 @@
+"""Core batched ODE-environment runtime (counterpart of
+``exciting_environments_tpu/core/env.py``), for the deterministic path.
+
+The JAX package writes single-instance methods and ``vmap``s them; here every
+method is written elementwise over tensors, so the same code serves one
+instance (0-dim leaves) and a batch (``(batch_size,)`` leaves).  Per-batch
+``(batch_size,)`` parameter and normalization leaves broadcast against the
+batch dimension directly; for batch-major trajectories ``(B, T)`` they are
+viewed as ``(B, 1)`` (:meth:`CoreEnvironment._props_for`).  A Python loop
+takes the place of ``lax.scan``.
+
+Entry points run on the CUDA device unless the caller passes
+``device="cpu"``; without a GPU and without that explicit choice the
+constructor raises.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import fields
+
+import numpy as np
+import torch
+
+from exciting_environments_torch.core import structures
+from exciting_environments_torch.core.structures import dataclass
+from exciting_environments_torch.ops.rollout import solve_trajectory, zoh_action
+from exciting_environments_torch.ops.solvers import Euler, make_solver
+
+
+def resolve_device(device) -> torch.device:
+    """The device an environment runs on: CUDA unless ``device`` says
+    otherwise.  Never falls back to the CPU on its own."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run on the CPU explicitly"
+            )
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+class _Components:
+    """Indexable view of an action ``(..., A)``: ``[i]`` is component ``i``
+    over all leading dimensions (the env ODEs index ``action(t)[dim]``)."""
+
+    def __init__(self, action):
+        self._action = action
+
+    def __getitem__(self, i):
+        return self._action[..., i]
+
+
+def _state_shape(physical_state):
+    """Shape of the stacked physical state with the field axis last."""
+    stacked = torch.stack([torch.as_tensor(leaf) for leaf in structures.leaves(physical_state)])
+    return tuple(stacked.shape[1:]) + (stacked.shape[0],)
+
+
+class CoreEnvironment:
+    """Base class for batched physical-simulation environments.
+
+    Subclasses provide the ``PhysicalState``, ``Additions``, ``StaticParams``
+    and ``Action`` dataclasses, the vector field ``_ode(t, y, args, action)``
+    over a tuple state ``y``, ``_ode_state_fields``, optionally
+    ``_angle_fields`` and ``_clip_state``, and the observation/reward/reset
+    hooks.
+    """
+
+    _ode_state_fields: tuple = ()
+    _angle_fields: tuple = ()
+
+    def __init__(self, batch_size: int, env_properties, tau: float = 1e-4, solver=None,
+                 device=None, dtype: torch.dtype = torch.float32):
+        """
+        Args:
+            batch_size: Number of parallel environment instances.
+            env_properties: ``EnvProperties`` with all normalizations and
+                static parameters.  Leaves are Python scalars or
+                ``(batch_size,)`` arrays; arrays move to ``device`` in
+                ``dtype``.
+            tau: Duration of one control step in seconds.
+            solver: An ``ODESolver`` instance or registry name (default Euler).
+            device: Torch device; ``None`` means CUDA, and raises without it.
+            dtype: Floating dtype of states made by the environment.
+        """
+        self.batch_size = batch_size
+        self.tau = tau
+        self.device = resolve_device(device)
+        self.dtype = dtype
+        self._solver = make_solver(solver) if solver is not None else Euler()
+        self.env_properties = self._place_properties(env_properties)
+        self.action_dim = len(fields(self.Action))
+        self.physical_state_dim = len(fields(self.PhysicalState))
+
+    @dataclass
+    class State:
+        """Full environment state: physical state + key placeholder + solver
+        carry + tracking reference."""
+
+        physical_state: object
+        PRNGKey: object
+        additions: object
+        reference: object
+
+    @dataclass
+    class EnvProperties:
+        """Constant-per-simulation properties."""
+
+        physical_normalizations: object
+        action_normalizations: object
+        static_params: object
+
+    # ------------------------------------------------------------------
+    # per-batch property leaves (the JAX package infers vmap in-axes here)
+    # ------------------------------------------------------------------
+
+    def _place_properties(self, obj, name="env_properties"):
+        """Validate property leaves and move array leaves to the device.
+
+        Scalars stay Python numbers (numpy and 0-dim scalars become Python
+        floats) so that products of scalar parameters fold in float64 before
+        they meet a tensor, as they do in the JAX package.
+        """
+        if structures.is_dataclass(obj):
+            new = object.__new__(type(obj))
+            for f in fields(obj):
+                object.__setattr__(new, f.name, self._place_properties(getattr(obj, f.name), f.name))
+            return new
+        if obj is None or isinstance(obj, (bool, int, float)):
+            return obj
+        if isinstance(obj, list):
+            raise ValueError(
+                f'Passed env property "{name}" needs to be a tensor to have '
+                "different setting per batch, but list is given."
+            )
+        if isinstance(obj, (np.ndarray, np.generic, torch.Tensor)):
+            if np.ndim(obj) == 0:
+                return float(obj)
+            if tuple(np.shape(obj)) != (self.batch_size,):
+                raise ValueError(
+                    f'Passed env property "{name}" must be a scalar or of shape '
+                    f"(batch_size,) = {(self.batch_size,)}, but {tuple(np.shape(obj))} is given."
+                )
+            return torch.as_tensor(np.asarray(obj) if not isinstance(obj, torch.Tensor) else obj,
+                                   dtype=self.dtype).to(self.device)
+        raise ValueError(
+            f'Passed env property "{name}" needs to be a scalar, tensor or '
+            f"dataclass, but {type(obj)} is given."
+        )
+
+    @staticmethod
+    def _props_for(props, trailing: int):
+        """``props`` with each per-batch ``(B,)`` leaf viewed as
+        ``(B,) + (1,) * trailing`` — for batch-major ``(B, T, ...)`` data."""
+        if trailing == 0:
+            return props
+        return structures.map_leaves(
+            lambda leaf: leaf.reshape(leaf.shape + (1,) * trailing)
+            if isinstance(leaf, torch.Tensor) and leaf.ndim == 1 else leaf,
+            props,
+        )
+
+    def _full(self, shape, value):
+        return torch.full(shape, value, dtype=self.dtype, device=self.device)
+
+    # ------------------------------------------------------------------
+    # normalization
+    # ------------------------------------------------------------------
+
+    def normalize_state(self, state, env_properties):
+        """Map physical state and reference into the normalized [-1, 1] band."""
+        norms = env_properties.physical_normalizations
+        with structures.copy_and_mutate(state) as norm_state:
+            for field in fields(norm_state.physical_state):
+                name = field.name
+                norm = getattr(norms, name)
+                setattr(norm_state.physical_state, name, norm.normalize(getattr(state.physical_state, name)))
+                setattr(norm_state.reference, name, norm.normalize(getattr(state.reference, name)))
+        return norm_state
+
+    def denormalize_state(self, norm_state, env_properties):
+        """Inverse of :meth:`normalize_state`."""
+        norms = env_properties.physical_normalizations
+        with structures.copy_and_mutate(norm_state) as state:
+            for field in fields(state.physical_state):
+                name = field.name
+                norm = getattr(norms, name)
+                setattr(state.physical_state, name, norm.denormalize(getattr(norm_state.physical_state, name)))
+                setattr(state.reference, name, norm.denormalize(getattr(norm_state.reference, name)))
+        return state
+
+    def denormalize_action(self, action_norm, env_properties):
+        """Denormalize an action ``(..., action_dim)`` component-wise."""
+        normalizations = env_properties.action_normalizations
+        comps = [
+            getattr(normalizations, field.name).denormalize(action_norm[..., i])
+            for i, field in enumerate(fields(normalizations))
+        ]
+        return torch.stack(comps, dim=-1)
+
+    # ------------------------------------------------------------------
+    # generic ODE integration
+    # ------------------------------------------------------------------
+
+    def _ode(self, t, y, args, action):
+        """Vector field ``dy/dt``; provided by the environment."""
+        raise NotImplementedError
+
+    def _clip_state(self, y):
+        """Optional post-step saturation of the integrated tuple state."""
+        return y
+
+    def _vector_field(self, action_callable):
+        return lambda t, y, args: self._ode(t, y, args, lambda tt: _Components(action_callable(tt)))
+
+    def _physical_to_y(self, physical_state):
+        return tuple(getattr(physical_state, name) for name in self._ode_state_fields)
+
+    def _wrap_angles(self, y):
+        if not self._angle_fields:
+            return y
+        y = list(y)
+        for name in self._angle_fields:
+            i = self._ode_state_fields.index(name)
+            y[i] = ((y[i] + math.pi) % (2 * math.pi)) - math.pi
+        return tuple(y)
+
+    def _ode_solver_step(self, state, action, static_params):
+        """One fixed-step integration over ``[0, tau]``.  The solver carry is
+        re-initialized against the CURRENT action every step (the reference's
+        net behavior), so ``k1`` is always a fresh evaluation."""
+        f = self._vector_field(lambda t: action)
+        y0 = self._physical_to_y(state.physical_state)
+        args = static_params
+        carry = self._solver.init(f, 0.0, self.tau, y0, args)
+        y1, solver_state = self._solver.step(f, 0.0, self.tau, y0, args, carry)
+        y1 = self._clip_state(self._wrap_angles(y1))
+        return structures.replace(
+            state,
+            physical_state=self.PhysicalState(**dict(zip(self._ode_state_fields, y1))),
+            additions=self.Additions(
+                solver_state=solver_state,
+                active_solver_state=torch.ones(y1[0].shape, dtype=torch.bool, device=y1[0].device),
+            ),
+        )
+
+    def _ode_solver_simulate_ahead(self, init_state, actions, static_params, obs_stepsize, action_stepsize):
+        """Trajectory integration over time-major physical ``actions``
+        ``(n_action_steps, ..., action_dim)``; returns a ``State`` whose
+        leaves carry a leading ``obs_len`` axis."""
+        f = self._vector_field(zoh_action(actions, action_stepsize))
+        y0 = self._physical_to_y(init_state.physical_state)
+        args = static_params
+        t1 = action_stepsize * actions.shape[0]
+        n_steps = int(t1 / obs_stepsize)
+
+        ys, _ = solve_trajectory(self._solver, f, y0, args, n_steps, obs_stepsize)
+        ys = self._clip_state(self._wrap_angles(ys))
+        obs_len = n_steps + 1
+
+        def tile(leaf):
+            leaf = torch.as_tensor(leaf, device=ys[0].device)
+            return leaf.expand((obs_len,) + leaf.shape)
+
+        y_last = tuple(leaf[-1] for leaf in ys)
+        solver_state = self._solver.init(f, t1, t1 + self.tau, y_last, args)
+        return self.State(
+            physical_state=self.PhysicalState(**dict(zip(self._ode_state_fields, ys))),
+            PRNGKey=tile(init_state.PRNGKey),
+            additions=self.Additions(
+                solver_state=None if solver_state is None else tuple(tile(k) for k in solver_state),
+                active_solver_state=torch.ones(ys[0].shape, dtype=torch.bool, device=ys[0].device),
+            ),
+            reference=structures.map_leaves(tile, init_state.reference),
+        )
+
+    def _init_solver_additions(self, env_properties, physical_state, nan_fill=True):
+        """The ``Additions`` carry of a fresh state: the solver carry under a
+        zero action, NaN-poisoned so a first ``step`` visibly re-initializes."""
+        zero_action = torch.zeros(self.action_dim, dtype=self.dtype, device=self.device)
+        f = self._vector_field(lambda t: zero_action)
+        y0 = self._physical_to_y(physical_state)
+        solver_state = self._solver.init(f, 0.0, self.tau, y0, env_properties.static_params)
+        if nan_fill and solver_state is not None:
+            solver_state = tuple(k * math.nan for k in solver_state)
+        return self.Additions(solver_state=solver_state, active_solver_state=False)
+
+    def _nan_reference(self, batch_shape=()):
+        """NaN-filled reference ``PhysicalState`` (no tracking target)."""
+        return self.PhysicalState(**{f.name: self._full(batch_shape, math.nan) for f in fields(self.PhysicalState)})
+
+    # ------------------------------------------------------------------
+    # reset / step / sim_ahead
+    # ------------------------------------------------------------------
+
+    def reset(self, env_properties, rng=None, initial_state=None):
+        """Reset to the default, a random, or a caller-provided initial state."""
+        if initial_state is not None:
+            assert structures.structure(self.init_state(env_properties)) == structures.structure(
+                initial_state
+            ), "initial_state should have the same dataclass structure as init_state()"
+            state = initial_state
+        else:
+            state = self.init_state(env_properties, rng)
+        return self.generate_observation(state, env_properties), state
+
+    def _step(self, state, action_norm, env_properties):
+        """Shape-agnostic body of :meth:`step` and :meth:`vmap_step`."""
+        action = self.denormalize_action(action_norm, env_properties)
+        state = self._ode_solver_step(state, action, env_properties.static_params)
+        return self.generate_observation(state, env_properties), state
+
+    def step(self, state, action_norm, env_properties):
+        """One control step for a single environment instance; returns
+        ``(observation, next_state)``.  Actions arrive normalized."""
+        assert tuple(action_norm.shape) == (self.action_dim,), (
+            "The action needs to be of shape (action_dim,) which is "
+            f"{(self.action_dim,)}, but {tuple(action_norm.shape)} is given"
+        )
+        physical_state_shape = _state_shape(state.physical_state)
+        assert physical_state_shape == (self.physical_state_dim,), (
+            "The physical state needs to be of shape (physical_state_dim,) which is "
+            f"{(self.physical_state_dim,)}, but {physical_state_shape} is given"
+        )
+        return self._step(state, action_norm, env_properties)
+
+    def _sim_ahead(self, init_state, actions_tm, env_properties, obs_stepsize, action_stepsize):
+        """Shape-agnostic sim-ahead over time-major normalized actions;
+        returns time-major ``(observations, states, last_state)``."""
+        actions = self.denormalize_action(actions_tm, env_properties)
+        states = self._ode_solver_simulate_ahead(
+            init_state, actions, env_properties.static_params, obs_stepsize, action_stepsize
+        )
+        observations = self.generate_observation(states, env_properties)
+        last_state = structures.map_leaves(lambda leaf: leaf[-1], states)
+        return observations, states, last_state
+
+    def sim_ahead(self, init_state, actions, env_properties, obs_stepsize, action_stepsize):
+        """Integrate a whole action sequence ``(n_action_steps, action_dim)``
+        for one instance (zero-order hold).  Multistage solvers read future
+        actions in their late stages, so this equals repeated ``step`` calls
+        for Euler only.  Returns ``(observations, states, last_state)``."""
+        assert actions.ndim == 2, "The actions need to have two dimensions: (n_action_steps, action_dim)"
+        assert actions.shape[-1] == self.action_dim, (
+            f"The last dimension does not correspond to the action dim which is "
+            f"{self.action_dim}, but {actions.shape[-1]} is given"
+        )
+        init_physical_state_shape = _state_shape(init_state.physical_state)
+        assert init_physical_state_shape == (self.physical_state_dim,), (
+            "The initial physical state needs to be of shape (env.physical_state_dim,) which is "
+            f"{(self.physical_state_dim,)}, but {init_physical_state_shape} is given"
+        )
+        return self._sim_ahead(init_state, actions, env_properties, obs_stepsize, action_stepsize)
+
+    def _rew_trunc_term(self, states_tm, actions_tm, env_properties):
+        """Rewards/flags over a time-major trajectory and its actions."""
+        actions = self.denormalize_action(actions_tm, env_properties)
+        obs_len = structures.leaves(states_tm.physical_state)[0].shape[0]
+        states_wo_init = structures.map_leaves(lambda leaf: leaf[1:], states_tm)
+        repeats = int((obs_len - 1) / actions.shape[0])
+        reward = self.generate_reward(states_wo_init, torch.repeat_interleave(actions, repeats, dim=0), env_properties)
+        truncated = self.generate_truncated(states_tm, env_properties)
+        terminated = self.generate_terminated(states_wo_init, reward, env_properties)
+        return reward, truncated, terminated
+
+    def generate_rew_trunc_term_ahead(self, states, actions, env_properties):
+        """Rewards/truncated/terminated flags for a ``sim_ahead`` trajectory."""
+        assert actions.ndim == 2, "The actions need to have two dimensions: (n_action_steps, action_dim)"
+        assert actions.shape[-1] == self.action_dim, (
+            f"The last dimension does not correspond to the action dim which is "
+            f"{self.action_dim}, but {actions.shape[-1]} is given"
+        )
+        return self._rew_trunc_term(states, actions, env_properties)
+
+    # ------------------------------------------------------------------
+    # batched API
+    # ------------------------------------------------------------------
+
+    def vmap_step(self, state, action):
+        """One control step for all ``batch_size`` instances."""
+        assert tuple(action.shape) == (self.batch_size, self.action_dim), (
+            "The action needs to be of shape (batch_size, action_dim) which is "
+            f"{(self.batch_size, self.action_dim)}, but {tuple(action.shape)} is given"
+        )
+        physical_state_shape = _state_shape(state.physical_state)
+        assert physical_state_shape == (self.batch_size, self.physical_state_dim), (
+            "The physical state needs to be of shape (batch_size, physical_state_dim) which is "
+            f"{(self.batch_size, self.physical_state_dim)}, but {physical_state_shape} is given"
+        )
+        return self._step(state, action, self.env_properties)
+
+    def vmap_sim_ahead(self, init_state, actions, obs_stepsize, action_stepsize):
+        """Trajectory integration for all batches; ``actions`` of shape
+        ``(batch_size, n_action_steps, action_dim)``.  Returns batch-major
+        ``(observations, states, last_state)``."""
+        assert obs_stepsize <= action_stepsize, (
+            "The action stepsize should be greater or equal to the observation stepsize."
+        )
+        assert actions.ndim == 3, (
+            "The actions need to have three dimensions: (batch_size, n_action_steps, action_dim)"
+        )
+        assert actions.shape[0] == self.batch_size, (
+            f"The first dimension does not correspond to the batch size which is "
+            f"{self.batch_size}, but {actions.shape[0]} is given"
+        )
+        assert actions.shape[-1] == self.action_dim, (
+            f"The last dimension does not correspond to the action dim which is "
+            f"{self.action_dim}, but {actions.shape[-1]} is given"
+        )
+        init_physical_state_shape = _state_shape(init_state.physical_state)
+        assert init_physical_state_shape == (self.batch_size, self.physical_state_dim), (
+            "The initial physical state needs to be of shape (batch_size, physical_state_dim,) which is "
+            f"{(self.batch_size, self.physical_state_dim)}, but {init_physical_state_shape} is given"
+        )
+        obs, states, last_state = self._sim_ahead(
+            init_state, actions.transpose(0, 1), self.env_properties, obs_stepsize, action_stepsize
+        )
+        to_batch_major = lambda leaf: leaf.movedim(0, 1) if isinstance(leaf, torch.Tensor) and leaf.ndim >= 2 else leaf
+        return obs.movedim(0, 1), structures.map_leaves(to_batch_major, states), last_state
+
+    def vmap_rollout(self, init_state, actions, obs_stride: int = 1):
+        """Multi-step batched rollout: exactly a loop of :meth:`vmap_step`.
+
+        Args:
+            init_state: batched initial state.
+            actions: normalized actions ``(batch_size, n_steps, action_dim)``.
+            obs_stride: keep every ``obs_stride``-th observation; ``n_steps``
+                must be divisible by it.
+
+        Returns:
+            ``(observations, final_state)`` with observations of shape
+            ``(batch_size, n_steps // obs_stride, obs_dim)``.
+        """
+        assert actions.ndim == 3 and actions.shape[0] == self.batch_size and actions.shape[2] == self.action_dim, (
+            "The actions need shape (batch_size, n_steps, action_dim) = "
+            f"{(self.batch_size, 'T', self.action_dim)}, but {tuple(actions.shape)} is given"
+        )
+        n_steps = actions.shape[1]
+        assert n_steps % obs_stride == 0, "n_steps must be divisible by obs_stride"
+        state = init_state
+        saved = []
+        for t in range(n_steps):
+            obs, state = self._step(state, actions[:, t], self.env_properties)
+            if (t + 1) % obs_stride == 0:
+                saved.append(obs)
+        return torch.stack(saved, dim=1), state
+
+    def fused_rollout(self, init_state, actions, obs_stride: int = None,
+                      time_major: bool = False, strict: bool = False):
+        """:meth:`vmap_rollout` through the hand-written stepper kernel when
+        the environment is in its scope (falls back to the loop otherwise;
+        ``strict=True`` raises instead).  Returns ``(obs, final_state)``
+        with ``obs`` of shape ``(B, obs_dim)``, or ``(B, n_steps //
+        obs_stride, obs_dim)`` with ``obs_stride`` set."""
+        from exciting_environments_torch.ops.kernels.stepper import env_fused_rollout
+
+        return env_fused_rollout(self, init_state, actions, obs_stride=obs_stride,
+                                 time_major=time_major, strict=strict)
+
+    def fused_sim_ahead(self, init_state, actions, obs_stepsize, action_stepsize,
+                        obs_stride: int = 1, time_major: bool = False, strict: bool = False):
+        """:meth:`vmap_sim_ahead` semantics through the stepper kernel in
+        sim-ahead mode for any integral ``action_stepsize / obs_stepsize``;
+        returns ``(observations, last_state)``."""
+        from exciting_environments_torch.ops.kernels.stepper import env_fused_sim_ahead
+
+        return env_fused_sim_ahead(self, init_state, actions, obs_stepsize, action_stepsize,
+                                   obs_stride=obs_stride, time_major=time_major, strict=strict)
+
+    def vmap_generate_rew_trunc_term_ahead(self, states, actions):
+        """Batched :meth:`generate_rew_trunc_term_ahead` over the batch-major
+        output of :meth:`vmap_sim_ahead`."""
+        assert actions.ndim == 3, (
+            "The actions need to have three dimensions: (batch_size, n_action_steps, action_dim)"
+        )
+        assert actions.shape[0] == self.batch_size, (
+            f"The first dimension does not correspond to the batch size which is "
+            f"{self.batch_size}, but {actions.shape[0]} is given"
+        )
+        assert actions.shape[-1] == self.action_dim, (
+            f"The last dimension does not correspond to the action dim which is "
+            f"{self.action_dim}, but {actions.shape[-1]} is given"
+        )
+        to_time_major = lambda leaf: leaf.movedim(1, 0) if isinstance(leaf, torch.Tensor) and leaf.ndim >= 2 else leaf
+        reward, truncated, terminated = self._rew_trunc_term(
+            structures.map_leaves(to_time_major, states), actions.transpose(0, 1), self.env_properties
+        )
+        return reward.movedim(0, 1), truncated.movedim(0, 1), terminated.movedim(0, 1)
+
+    def vmap_init_state(self, rng: torch.Generator = None):
+        """Default or random initial state for all batches."""
+        return self.init_state(self.env_properties, rng, batch_shape=(self.batch_size,))
+
+    def vmap_reset(self, rng: torch.Generator = None, initial_state=None):
+        """Batched :meth:`reset`.  ``rng`` is a ``torch.Generator`` on the
+        environment's device."""
+        if initial_state is not None:
+            assert structures.structure(self.vmap_init_state()) == structures.structure(
+                initial_state
+            ), "initial_state should have the same dataclass structure as self.vmap_init_state()"
+            return self.generate_observation(initial_state, self.env_properties), initial_state
+        state = self.vmap_init_state(rng)
+        return self.generate_observation(state, self.env_properties), state
+
+    def vmap_generate_state_from_observation(self, obs):
+        """Batched observation -> state reconstruction."""
+        return self.generate_state_from_observation(obs, self.env_properties)
+
+    # ------------------------------------------------------------------
+    # abstract observation/reward hooks
+    # ------------------------------------------------------------------
+
+    def init_state(self, env_properties, rng=None, batch_shape=()):
+        raise NotImplementedError
+
+    def generate_observation(self, state, env_properties):
+        raise NotImplementedError
+
+    def generate_state_from_observation(self, obs, env_properties, key=None):
+        raise NotImplementedError
+
+    def generate_reward(self, state, action, env_properties):
+        raise NotImplementedError
+
+    def generate_truncated(self, state, env_properties):
+        raise NotImplementedError
+
+    def generate_terminated(self, state, reward, env_properties):
+        raise NotImplementedError

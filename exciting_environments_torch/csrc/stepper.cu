@@ -1,0 +1,450 @@
+// Fused open-loop rollout of a classic ODE environment: the whole horizon of
+// T explicit Runge-Kutta steps in one launch.
+//
+// Replaces the TPU kernel exciting_environments_tpu/ops/pallas/stepper.py::
+// _make_kernel (+ _launch), in both of its modes:
+//   * step mode: identical to T repeated vmap_step calls (wrap angles and
+//     clip after every step, optional process-noise increments added after
+//     wrap/clip and followed by a second wrap/clip);
+//   * sim-ahead mode: identical to vmap_sim_ahead (the carry is never
+//     wrapped, stages at c == 1 read the next zero-order-hold action).
+//
+// What bounds it on an H100: the action slab.  Each instance streams
+// T * A action values once; the state is a handful of registers.  At the
+// main size (pendulum, B = 65,536, T = 4,096, float32) that is 1.07 GB, or
+// 0.32 ms at 3.35 TB/s, against a few dozen float32 operations per step and
+// instance (well under 0.1 ms at 67 TFLOP/s).  So the kernel is bound by
+// bytes, and in practice by the latency of each step's dependent load.
+//
+// What the design does about it: one thread per instance keeps its state in
+// registers for all T steps and reads the time-major slab a[t, b, :], so
+// neighbouring threads read neighbouring addresses and every action byte is
+// read exactly once.  The denormalization of the action is folded into the
+// kernel (no pre-pass over the slab), the next-action stream of sim-ahead
+// mode is read from the same slab one row ahead (no shifted copy), and an
+// action held for R solver steps is read R times from cache (no repeated
+// copy).  The TPU kernel's (8, 128) tiles, VMEM chunk budgets and revisited
+// output blocks have no counterpart; any batch size works (the ragged edge
+// is masked).  Load prefetching across steps is left for later work.
+//
+// Exactness: every operation mirrors the PyTorch plain version
+// (exciting_environments_torch/ops/kernels/stepper.py::plain_rollout) in
+// order and in working precision.  Build with --fmad=false so that y + h*f
+// is not contracted into an FMA.  Scalar parameters arrive as host doubles
+// and fold in double precision where the Python code folds Python numbers
+// (Weak below); per-batch parameters arrive as device pointers.
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+#define MAX_STAGES 7
+#define MAX_STATE 4
+#define MAX_ACTION 2
+#define MAX_PARAMS 8
+
+// Mirrored field for field by StepperArgs in ops/kernels/stepper.py.
+struct StepperArgs {
+    double tau;
+    double a[MAX_STAGES][MAX_STAGES];  // a[s][j]: weight of stage j in stage s's input
+    double b[MAX_STAGES];
+    double param_value[MAX_PARAMS];    // scalar parameter (param_ptr null)
+    double act_min_value[MAX_ACTION];  // scalar normalization bound (ptr null)
+    double act_max_value[MAX_ACTION];
+    const void* param_ptr[MAX_PARAMS];  // per-batch parameter (B,), or null
+    const void* act_min_ptr[MAX_ACTION];
+    const void* act_max_ptr[MAX_ACTION];
+    const void* y0[MAX_STATE];          // (B,) per state leaf
+    void* y_out[MAX_STATE];             // (B,) per state leaf
+    void* traj[MAX_STATE];              // (T / traj_stride, B) per leaf, or null
+    const void* actions;                // normalized, (T / hold, B, A)
+    const void* noise;                  // (T, B, n_noise), or null
+    long long batch;
+    int n_steps;
+    int n_stages;                       // stages evaluated (the FSAL last one is skipped)
+    int hold;                           // solver steps per action row
+    int sim_ahead;
+    int wrap[MAX_STATE];
+    int use_next[MAX_STAGES];           // stage reads the next action (sim-ahead, c == 1)
+    int noise_idx[MAX_STATE];
+    int n_noise;
+    int traj_stride;                    // 0: no trajectory saves
+    int env_id;
+};
+
+// ---------------------------------------------------------------------------
+// Python-number folding.  An expression over scalar parameters is computed in
+// Python (double precision) and rounded to the working type only when it
+// meets a tensor; once a per-batch leaf takes part, the rest is computed in
+// the working type.  Weak carries a value in either state.
+// ---------------------------------------------------------------------------
+
+template <typename T>
+struct Weak {
+    bool py;
+    double d;
+    T v;
+};
+
+template <typename T>
+__device__ __forceinline__ T value(const Weak<T>& w) { return w.py ? (T)w.d : w.v; }
+
+template <typename T>
+__device__ __forceinline__ Weak<T> weak_load(const void* ptr, double scalar, long long b) {
+    Weak<T> w;
+    w.py = ptr == nullptr;
+    w.d = scalar;
+    w.v = w.py ? T(0) : static_cast<const T*>(ptr)[b];
+    return w;
+}
+
+template <typename T>
+__device__ __forceinline__ Weak<T> param(const StepperArgs& args, int i, long long b) {
+    return weak_load<T>(args.param_ptr[i], args.param_value[i], b);
+}
+
+template <typename T>
+__device__ __forceinline__ Weak<T> wmul(const Weak<T>& x, const Weak<T>& y) {
+    Weak<T> r;
+    r.py = x.py && y.py;
+    r.d = r.py ? x.d * y.d : 0.0;
+    r.v = r.py ? T(0) : value(x) * value(y);
+    return r;
+}
+
+template <typename T>
+__device__ __forceinline__ Weak<T> wadd(const Weak<T>& x, const Weak<T>& y) {
+    Weak<T> r;
+    r.py = x.py && y.py;
+    r.d = r.py ? x.d + y.d : 0.0;
+    r.v = r.py ? T(0) : value(x) + value(y);
+    return r;
+}
+
+template <typename T>
+__device__ __forceinline__ Weak<T> wsub(const Weak<T>& x, const Weak<T>& y) {
+    Weak<T> r;
+    r.py = x.py && y.py;
+    r.d = r.py ? x.d - y.d : 0.0;
+    r.v = r.py ? T(0) : value(x) - value(y);
+    return r;
+}
+
+// Division by a parameter expression.  PyTorch's CUDA eager division by a
+// host scalar (a Python number) multiplies by the scalar's reciprocal, taken
+// in double precision and rounded to the working type (measured on an H100
+// with PyTorch 2.11); by a tensor it divides.  The kernel does the same, so that it agrees bit for bit with the
+// plain version, and hence with vmap_rollout, on the card.  (On the CPU,
+// PyTorch and the JAX reference divide in both cases; see ROADMAP.md Queue 3.)
+template <typename T>
+struct Divisor {
+    bool recip;
+    T v;  // the reciprocal for a host scalar, the divisor otherwise
+};
+
+template <typename T>
+__device__ __forceinline__ Divisor<T> divisor(const Weak<T>& w) {
+    Divisor<T> d;
+    d.recip = w.py;
+    d.v = w.py ? (T)(1.0 / w.d) : w.v;
+    return d;
+}
+
+template <typename T>
+__device__ __forceinline__ T operator/(T x, const Divisor<T>& d) {
+    return d.recip ? x * d.v : x / d.v;
+}
+
+__device__ __forceinline__ float dsin(float x) { return sinf(x); }
+__device__ __forceinline__ double dsin(double x) { return sin(x); }
+__device__ __forceinline__ float dcos(float x) { return cosf(x); }
+__device__ __forceinline__ double dcos(double x) { return cos(x); }
+__device__ __forceinline__ float dfmod(float x, float y) { return fmodf(x, y); }
+__device__ __forceinline__ double dfmod(double x, double y) { return fmod(x, y); }
+
+// torch.sign: (0 < x) - (x < 0)
+template <typename T>
+__device__ __forceinline__ T dsign(T x) { return (T)((T(0) < x) - (x < T(0))); }
+
+// ((y + pi) % (2 pi)) - pi with the floored remainder of torch.remainder /
+// jnp.remainder: fmod, then add the divisor where the signs differ and the
+// result is non-zero.  Constants are Python floats rounded to T.
+template <typename T>
+__device__ __forceinline__ T wrap_angle(T y) {
+    const T pi = (T)3.141592653589793;
+    const T two_pi = (T)6.283185307179586;
+    const T s = y + pi;
+    T m = dfmod(s, two_pi);
+    if (m != T(0) && ((m < T(0)) != (two_pi < T(0)))) m = m + two_pi;
+    return m - pi;
+}
+
+// ---------------------------------------------------------------------------
+// Environment functors.  prepare() folds the parameters once per instance;
+// ode() mirrors the environment's _ode operation for operation; clip() is the
+// post-step saturation hook (_clip_state), the identity for these three.
+// ---------------------------------------------------------------------------
+
+// models/pendulum.py::_ode, parameters (l, m, g)
+struct PendulumEnv {
+    static constexpr int N_STATE = 2;
+    static constexpr int N_ACTION = 1;
+    template <typename T>
+    struct Consts {
+        T lmg;           // params.l * params.m * params.g
+        Divisor<T> ml2;  // params.m * (params.l) ** 2
+    };
+    template <typename T>
+    __device__ static Consts<T> prepare(const StepperArgs& args, long long b) {
+        const Weak<T> l = param<T>(args, 0, b), m = param<T>(args, 1, b), g = param<T>(args, 2, b);
+        Consts<T> k;
+        k.lmg = value(wmul(wmul(l, m), g));
+        k.ml2 = divisor(wmul(m, wmul(l, l)));
+        return k;
+    }
+    template <typename T>
+    __device__ static void ode(const Consts<T>& k, const T* y, const T* u, T* dy) {
+        dy[0] = y[1];
+        dy[1] = (u[0] + k.lmg * dsin(y[0])) / k.ml2;
+    }
+    template <typename T>
+    __device__ static void clip(T*) {}
+};
+
+// models/mass_spring_damper.py::_ode, parameters (d, k, m)
+struct MassSpringDamperEnv {
+    static constexpr int N_STATE = 2;
+    static constexpr int N_ACTION = 1;
+    template <typename T>
+    struct Consts {
+        T d, k;
+        Divisor<T> m;
+    };
+    template <typename T>
+    __device__ static Consts<T> prepare(const StepperArgs& args, long long b) {
+        Consts<T> c;
+        c.d = value(param<T>(args, 0, b));
+        c.k = value(param<T>(args, 1, b));
+        c.m = divisor(param<T>(args, 2, b));
+        return c;
+    }
+    template <typename T>
+    __device__ static void ode(const Consts<T>& c, const T* y, const T* u, T* dy) {
+        dy[0] = y[1];
+        dy[1] = ((u[0] - c.d * y[1]) - c.k * y[0]) / c.m;
+    }
+    template <typename T>
+    __device__ static void clip(T*) {}
+};
+
+// models/cart_pole.py::_ode, parameters (mu_p, mu_c, l, m_p, m_c, g)
+struct CartPoleEnv {
+    static constexpr int N_STATE = 4;
+    static constexpr int N_ACTION = 1;
+    template <typename T>
+    struct Consts {
+        T mu_p, mu_c, l, m_p, g;
+        T mp_l;             // params.m_p * params.l
+        Divisor<T> mp_l_d;  // ... as a divisor
+        Divisor<T> mc_mp;   // params.m_c + params.m_p
+        T four_thirds;
+    };
+    template <typename T>
+    __device__ static Consts<T> prepare(const StepperArgs& args, long long b) {
+        const Weak<T> mu_p = param<T>(args, 0, b), mu_c = param<T>(args, 1, b), l = param<T>(args, 2, b),
+                      m_p = param<T>(args, 3, b), m_c = param<T>(args, 4, b), g = param<T>(args, 5, b);
+        Consts<T> c;
+        c.mu_p = value(mu_p);
+        c.mu_c = value(mu_c);
+        c.l = value(l);
+        c.m_p = value(m_p);
+        c.g = value(g);
+        c.mp_l = value(wmul(m_p, l));
+        c.mp_l_d = divisor(wmul(m_p, l));
+        c.mc_mp = divisor(wadd(m_c, m_p));
+        c.four_thirds = (T)(4.0 / 3.0);
+        return c;
+    }
+    template <typename T>
+    __device__ static void ode(const Consts<T>& c, const T* y, const T* u, T* dy) {
+        const T velocity = y[1], theta = y[2], omega = y[3];
+        const T s = dsin(theta), co = dcos(theta), sg = dsign(velocity);
+        const T om2 = omega * omega;
+        const T inner = (((-u[0]) - (c.mp_l * om2) * s) + c.mu_c * sg) / c.mc_mp;
+        const T num = ((c.g * s) + co * inner) - (c.mu_p * omega) / c.mp_l_d;
+        const T den = c.l * (c.four_thirds - (c.m_p * (co * co)) / c.mc_mp);
+        const T d_omega = num / den;
+        const T d_velocity = ((u[0] + c.mp_l * ((om2 * s) - d_omega * co)) - c.mu_c * sg) / c.mc_mp;
+        dy[0] = velocity;
+        dy[1] = d_velocity;
+        dy[2] = omega;
+        dy[3] = d_omega;
+    }
+    template <typename T>
+    __device__ static void clip(T*) {}
+};
+
+// ---------------------------------------------------------------------------
+// The rollout kernel
+// ---------------------------------------------------------------------------
+
+// y + tau * sum_j coeffs[j] * ks[j][leaf]: zero coefficients skipped, unit
+// coefficients not multiplied, left-to-right sum; no stage at all leaves y.
+template <typename T, int NS, int N>
+__device__ __forceinline__ T lincomb(T y, const T (&ks)[NS][N], int leaf, const double* coeffs, int n, T tau) {
+    bool any = false;
+    T acc = T(0);
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+        if (j < n) {
+            const double c = coeffs[j];
+            if (c != 0.0) {
+                const T term = (c == 1.0) ? ks[j][leaf] : (T)c * ks[j][leaf];
+                acc = any ? acc + term : term;
+                any = true;
+            }
+        }
+    }
+    return any ? y + tau * acc : y;
+}
+
+template <typename T, class Env>
+__device__ __forceinline__ void postprocess(T* y, const StepperArgs& args) {
+#pragma unroll
+    for (int i = 0; i < Env::N_STATE; ++i)
+        if (args.wrap[i]) y[i] = wrap_angle(y[i]);
+    Env::clip(y);
+}
+
+// MinMaxNormalization.denormalize: (x + 1) / 2 * (max - min) + min
+template <typename T, int A>
+__device__ __forceinline__ void load_action(T* u, const T* slab, long long row, long long b, long long batch,
+                                            const T* span, const T* lo) {
+#pragma unroll
+    for (int j = 0; j < A; ++j) {
+        const T x = slab[(row * batch + b) * A + j];
+        u[j] = (x + T(1)) / T(2) * span[j] + lo[j];
+    }
+}
+
+template <typename T, class Env, int NS>
+__global__ void __launch_bounds__(128) stepper_kernel(const __grid_constant__ StepperArgs args) {
+    constexpr int N = Env::N_STATE;
+    constexpr int A = Env::N_ACTION;
+    const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (b >= args.batch) return;
+    const long long batch = args.batch;
+
+    const typename Env::template Consts<T> k = Env::template prepare<T>(args, b);
+    T span[A], lo[A];
+#pragma unroll
+    for (int j = 0; j < A; ++j) {
+        const Weak<T> mn = weak_load<T>(args.act_min_ptr[j], args.act_min_value[j], b);
+        const Weak<T> mx = weak_load<T>(args.act_max_ptr[j], args.act_max_value[j], b);
+        span[j] = value(wsub(mx, mn));
+        lo[j] = value(mn);
+    }
+
+    T y[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) y[i] = static_cast<const T*>(args.y0[i])[b];
+
+    const T tau = (T)args.tau;
+    const T* slab = static_cast<const T*>(args.actions);
+    const T* noise = static_cast<const T*>(args.noise);
+    const int n_rows = args.n_steps / args.hold;
+    bool has_next = false;
+#pragma unroll
+    for (int s = 0; s < NS; ++s) has_next = has_next || args.use_next[s];
+
+    for (int t = 0; t < args.n_steps; ++t) {
+        T u[A], un[A];
+        load_action<T, A>(u, slab, t / args.hold, b, batch, span, lo);
+        if (has_next) {
+            const int row_next = min((t + 1) / args.hold, n_rows - 1);
+            load_action<T, A>(un, slab, row_next, b, batch, span, lo);
+        }
+
+        T ks[NS][N];
+        Env::ode(k, y, u, ks[0]);
+#pragma unroll
+        for (int s = 1; s < NS; ++s) {
+            T yi[N], us[A];
+#pragma unroll
+            for (int i = 0; i < N; ++i) yi[i] = lincomb<T, NS, N>(y[i], ks, i, args.a[s], s, tau);
+#pragma unroll
+            for (int j = 0; j < A; ++j) us[j] = args.use_next[s] ? un[j] : u[j];
+            Env::ode(k, yi, us, ks[s]);
+        }
+#pragma unroll
+        for (int i = 0; i < N; ++i) y[i] = lincomb<T, NS, N>(y[i], ks, i, args.b, NS, tau);
+
+        if (!args.sim_ahead) {
+            postprocess<T, Env>(y, args);
+            if (args.n_noise > 0) {
+#pragma unroll
+                for (int j = 0; j < MAX_STATE; ++j) {
+                    if (j < args.n_noise) {
+                        const T dn = noise[((long long)t * batch + b) * args.n_noise + j];
+#pragma unroll
+                        for (int i = 0; i < N; ++i)
+                            if (args.noise_idx[j] == i) y[i] = y[i] + dn;
+                    }
+                }
+                postprocess<T, Env>(y, args);
+            }
+        }
+        if (args.traj_stride > 0 && (t + 1) % args.traj_stride == 0) {
+            const long long slot = (t + 1) / args.traj_stride - 1;
+#pragma unroll
+            for (int i = 0; i < N; ++i) static_cast<T*>(args.traj[i])[slot * batch + b] = y[i];
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) static_cast<T*>(args.y_out[i])[b] = y[i];
+}
+
+// ---------------------------------------------------------------------------
+// Host entry point (plain C interface, loaded with ctypes)
+// ---------------------------------------------------------------------------
+
+static constexpr int THREADS = 128;
+
+template <typename T, class Env, int NS>
+static void launch_one(const StepperArgs& args, cudaStream_t stream) {
+    const unsigned blocks = (unsigned)((args.batch + THREADS - 1) / THREADS);
+    stepper_kernel<T, Env, NS><<<blocks, THREADS, 0, stream>>>(args);
+}
+
+template <typename T, class Env>
+static int launch_env(const StepperArgs& args, cudaStream_t stream) {
+    switch (args.n_stages) {
+        case 1: launch_one<T, Env, 1>(args, stream); break;
+        case 2: launch_one<T, Env, 2>(args, stream); break;
+        case 3: launch_one<T, Env, 3>(args, stream); break;
+        case 4: launch_one<T, Env, 4>(args, stream); break;
+        case 5: launch_one<T, Env, 5>(args, stream); break;
+        case 6: launch_one<T, Env, 6>(args, stream); break;
+        case 7: launch_one<T, Env, 7>(args, stream); break;
+        default: return (int)cudaErrorInvalidValue;
+    }
+    return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int launch_dtype(const StepperArgs& args, cudaStream_t stream) {
+    switch (args.env_id) {
+        case 0: return launch_env<T, PendulumEnv>(args, stream);
+        case 1: return launch_env<T, MassSpringDamperEnv>(args, stream);
+        case 2: return launch_env<T, CartPoleEnv>(args, stream);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+extern "C" int stepper_args_size() { return (int)sizeof(StepperArgs); }
+
+// dtype: 0 float32, 1 float64.  Returns cudaGetLastError() after the launch.
+extern "C" int stepper_launch(const StepperArgs* args, int dtype, void* stream) {
+    if (args->batch <= 0) return 0;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return dtype == 0 ? launch_dtype<float>(*args, s) : launch_dtype<double>(*args, s);
+}

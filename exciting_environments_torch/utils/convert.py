@@ -1,0 +1,68 @@
+"""Carry states and properties across from the JAX package as numpy arrays.
+
+Both functions take plain numpy values (scalars or ``(B,)`` arrays), so a
+caller holding JAX arrays converts them with ``np.asarray`` first; nothing
+here imports JAX.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import fields
+
+import numpy as np
+import torch
+
+from exciting_environments_torch.utils import MinMaxNormalization
+
+
+def state_from_numpy(env, arrays: dict, reference: dict = None):
+    """Build ``env``'s batched ``State`` from physical-state leaves.
+
+    Args:
+        env: a port environment.
+        arrays: ``{field: (B,) array}`` for every physical-state field.
+        reference: optional ``{field: (B,) array}`` tracking references
+            (NaN where missing).
+
+    Returns:
+        A ``State`` on ``env.device`` in ``env.dtype`` with the fresh-state
+        solver carry and key placeholder of a reset.
+    """
+    names = [f.name for f in fields(env.PhysicalState)]
+    missing = set(names) - set(arrays)
+    if missing:
+        raise ValueError(f"missing physical-state leaves: {sorted(missing)}")
+    to_t = lambda v: torch.as_tensor(np.asarray(v), dtype=env.dtype).to(env.device)
+    phys = env.PhysicalState(**{n: to_t(arrays[n]) for n in names})
+    batch_shape = tuple(phys.__dict__[names[0]].shape)
+    ref = env._nan_reference(batch_shape)
+    for name, value in (reference or {}).items():
+        setattr(ref, name, to_t(value))
+    return env.State(
+        physical_state=phys,
+        PRNGKey=env._full(batch_shape, math.nan),
+        additions=env._init_solver_additions(env.env_properties, phys),
+        reference=ref,
+    )
+
+
+def properties_from_numpy(env, static_params: dict, physical_normalizations: dict,
+                          action_normalizations: dict):
+    """Build ``env``'s ``EnvProperties`` from numpy values.
+
+    Normalizations are given as ``{field: (min, max)}``.  Scalars (Python or
+    numpy, or 0-dim arrays) become Python floats, so they fold like Python
+    numbers; ``(B,)`` arrays become tensors on ``env.device`` in ``env.dtype``.
+    """
+
+    def norms(cls, d):
+        return cls(**{k: MinMaxNormalization(min=lo, max=hi) for k, (lo, hi) in d.items()})
+
+    return env._place_properties(
+        env.EnvProperties(
+            physical_normalizations=norms(env.PhysicalState, physical_normalizations),
+            action_normalizations=norms(env.Action, action_normalizations),
+            static_params=env.StaticParams(**static_params),
+        )
+    )
