@@ -8,18 +8,30 @@ toolkit:
 
 Phases (any failure raises and the script exits non-zero):
 
-1. build the stepper kernel (``exciting_environments_torch/csrc/stepper.cu``)
-   with nvcc and report the build time and the compiler's resource report;
-2. hold the kernel against its plain PyTorch version on the card at
+1. build both kernel libraries (``exciting_environments_torch/csrc/
+   stepper.cu`` and ``pmsm_stepper.cu``), one nvcc each, started together,
+   and report the build time and each compiler resource report;
+2. hold the stepper kernel against its plain PyTorch version on the card at
    B = 65,536, T = 64, float32, in every mode the port uses;
 3. replay the pendulum golden fixture (``tests/envs/pendulum/data``) through
    the kernel in float64 and check it with the fixture test's own allclose;
-4. drive the main path: ``Pendulum(batch_size=65536, tau=1e-4)`` and
+4. drive the pendulum main path: ``Pendulum(batch_size=65536, tau=1e-4)`` and
    ``env.fused_rollout`` over T = 4,096 steps in float32, in both action
    layouts, plus ``env.fused_sim_ahead`` (RK4) at the same size; show through
    the launch counts that it ran the kernel, time it with CUDA events and
    compare it with the plain version on the same inputs;
-5. print the kernel table, the card's name and power limit, and last the
+5. hold the PMSM kernel against its plain version at B = 65,536, T = 64,
+   float32 (and one float64 case), tolerance 0.0, over the motor variants,
+   solvers, deadtimes, per-batch parameters, saves, sim-ahead and a ragged B;
+6. replay the PMSM golden fixture (``tests/envs/pmsm/data``) through the
+   kernel in one float64 launch, checked with the fixture test's allclose;
+7. drive the PMSM main path: ``PMSM(batch_size=65536, saturated=True,
+   motor_variant=BRUSA, tau=1e-4)``, ``env.fused_rollout`` over T = 256 in
+   both layouts and with ``obs_stride=16``, and ``env.fused_sim_ahead``
+   (RK4); launch counts, shapes, kernel vs plain at full size, and the time
+   split between the eager pre-pass and the kernel, plus the kernel alone
+   at T = 4,096;
+8. print the kernel table, the card's name and power limit, and last the
    result line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -28,6 +40,7 @@ Imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -42,8 +55,11 @@ SEED = 0
 DEVICE = "cuda"
 B_MAIN, T_MAIN = 65536, 4096
 T_CHECK = 64
+T_PMSM, T_PMSM_LONG = 256, 4096
 SOURCE = "exciting_environments_torch/csrc/stepper.cu"
 REPLACES = "exciting_environments_tpu/ops/pallas/stepper.py:122"
+PMSM_SOURCE = "exciting_environments_torch/csrc/pmsm_stepper.cu"
+PMSM_REPLACES = "exciting_environments_tpu/ops/pallas/pmsm_stepper.py:365"
 # H100 SXM published peaks (NVIDIA data sheet), used for the bound
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
@@ -123,16 +139,18 @@ def random_actions(env, n_rows, gen, lim=0.9):
 
 def phase_build(K):
     t0 = time.perf_counter()
-    path = K.build()
+    paths = K.build_all()
     K.KERNEL.lib()
-    log(f"[build] {path.name} ready in {time.perf_counter() - t0:.1f} s")
-    report = path.with_suffix(".log")
-    if report.exists():
-        lines = report.read_text().splitlines()
-        regs = [int(l.split("Used ")[1].split(" registers")[0]) for l in lines if "registers" in l]
-        stack = [l.strip() for l in lines if "bytes stack frame" in l and not l.strip().startswith("0 bytes")]
-        log(f"[build] {len(regs)} kernels, registers per thread {min(regs, default=0)}..{max(regs, default=0)}, "
-            f"non-zero stack frames: {len(stack)}")
+    log(f"[build] {', '.join(p.name for p in paths.values())} ready in {time.perf_counter() - t0:.1f} s")
+    for path in paths.values():
+        report = path.with_suffix(".log").read_text()
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", report)]
+        smem = sorted({int(b) for b in re.findall(r"(\d+) bytes smem", report)})
+        stack = [l.strip() for l in report.splitlines()
+                 if "bytes stack frame" in l and not l.strip().startswith("0 bytes")]
+        log(f"[build] {path.stem.rsplit('_', 1)[0]}: {len(regs)} kernels, registers per thread "
+            f"{min(regs, default=0)}..{max(regs, default=0)}, static shared memory bytes {smem or [0]} "
+            f"(the LUT is dynamic), non-zero stack frames: {len(stack)}")
         for line in stack[:4]:
             log(f"[build]   {line}")
 
@@ -306,15 +324,267 @@ def phase_main(ex, K):
     ]
 
 
+# ---------------------------------------------------------------------------
+# PMSM drive phases
+# ---------------------------------------------------------------------------
+
+
+def pmsm_ops(env, solver, n_steps, n_saves):
+    """Arithmetic operations of one instance over a rollout of the PMSM
+    kernel, counted from csrc/pmsm_stepper.cu with each add, multiply,
+    divide, negation, compare, floor and clamp bound as one."""
+    from exciting_environments_torch.ops.kernels.stepper import _stage_rows
+
+    gather = 4 + 2 + 4 + 2 + 2 + 6 * 11  # offsets and scales, floor, clamp, weights, 6 blends
+    saturated = bool(env.env_properties.saturated)
+    ode = gather + 23 if saturated else 13
+    torque = gather + 4 if saturated else 4
+    a_rows, b = _stage_rows(solver)
+    comb = lambda coeffs: sum(2 - (c == 1.0) for c in coeffs if c != 0.0) + 1 if any(coeffs) else 0
+    per_step = len(b) * ode + 2 * (sum(comb(r) for r in a_rows) + comb(b))
+    return per_step * n_steps + torque * (n_saves + 1)
+
+
+def pmsm_bound(env, solver, batch, n_steps, n_saves, itemsize=4):
+    """Least time for the PMSM kernel's work: the voltage stream, the initial
+    state and buffers, per-batch parameters and the table read once, the
+    final state and the saves written once; or its operations at the float32
+    rate, whichever is larger."""
+    from exciting_environments_torch.ops.kernels.pmsm_stepper import PMSM_PARAMS
+
+    params = env.env_properties.static_params
+    n_pb = sum(isinstance(getattr(params, n), torch.Tensor) for n in PMSM_PARAMS)
+    lut = env._lut.values.numel() if env._lut is not None else 0
+    nbytes = itemsize * (n_steps * batch * 2 + (5 + n_pb) * batch + lut + 3 * batch + 3 * n_saves * batch)
+    ops = pmsm_ops(env, solver, n_steps, n_saves) * batch
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_FP32_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def pmsm_env(ex, batch, variant="BRUSA", saturated=True, dtype=torch.float32, static=None, **kwargs):
+    params = None
+    if static:
+        params = dict(ex.MotorVariant[variant].get_params().static_params.__dict__)
+        if saturated:
+            params.update(l_d=float("nan"), l_q=float("nan"), psi_p=float("nan"))
+        params.update(static)
+    return ex.PMSM(batch_size=batch, saturated=saturated, motor_variant=ex.MotorVariant[variant],
+                   static_params=params, device=DEVICE, dtype=dtype, **kwargs)
+
+
+def pmsm_inputs(env, n_steps, gen, sim_ahead=False, lim=0.9):
+    """A reset state and the constrained voltage stream of uniform actions
+    in +-lim, through the same pre-pass as env.fused_rollout."""
+    from exciting_environments_torch.models.pmsm.pmsm_env import extrapolated_angles
+    from exciting_environments_torch.ops.kernels import pmsm_stepper as PK
+
+    _, state = env.vmap_reset(rng=gen)
+    u = torch.rand((n_steps, env.batch_size, 2), generator=gen, device=DEVICE, dtype=torch.float64)
+    acts = ((u * 2 - 1) * lim).to(env.dtype)
+    phys = state.physical_state
+    if sim_ahead:
+        eps = extrapolated_angles(phys.epsilon, phys.omega_el, env.tau, n_steps)
+        u_con = PK._constraint_denorm_batched(env, env.env_properties, acts, eps, phys.omega_el)
+    else:
+        u_con, _, _ = PK._constrained_voltages(env, state, acts, env.env_properties)
+    return state, acts, u_con
+
+
+def pmsm_run(PK, env, state, u_con, kernel, **kw):
+    phys = state.physical_state
+    fn = PK.pmsm_kernel_rollout if kernel else PK.plain_pmsm_rollout
+    return fn(env, u_con, phys.i_d, phys.i_q, phys.omega_el, (phys.u_d_buffer, phys.u_q_buffer),
+              tau=env.tau, **kw)
+
+
+def pmsm_deviation(PK, env, state, u_con, **kw):
+    yk, tk = pmsm_run(PK, env, state, u_con, True, **kw)
+    yp, tp = pmsm_run(PK, env, state, u_con, False, **kw)
+    torch.cuda.synchronize()
+    err = max_abs(yk, yp)
+    if tk is not None:
+        err = max(err, max_abs(tk, tp))
+    return err, all(bool(torch.isfinite(y).all()) for y in yk)
+
+
+def phase_pmsm_kernel_vs_plain(ex, PK):
+    """PMSM kernel against its plain version, B = 65,536, T = 64, tolerance 0.0."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    B, T = B_MAIN, T_CHECK
+    uni = lambda lo, hi: (lo + (hi - lo) * torch.rand(B, generator=gen, device=DEVICE, dtype=torch.float64)).float()
+    # (label, env, rollout kwargs).  The kernel performs the plain version's
+    # operations in the same order and precision, so every case is 0.0.
+    cases = [
+        ("BRUSA saturated euler", pmsm_env(ex, B), {}),
+        ("BRUSA saturated rk4", pmsm_env(ex, B, solver="rk4"), {}),
+        ("BRUSA saturated tsit5", pmsm_env(ex, B, solver="tsit5"), {}),
+        ("SEW saturated euler", pmsm_env(ex, B, "SEW"), {}),
+        ("DEFAULT linear euler deadtime 1", pmsm_env(ex, B, "DEFAULT", saturated=False), {}),
+        ("DEFAULT linear euler deadtime 0", pmsm_env(ex, B, "DEFAULT", saturated=False, static={"deadtime": 0}), {}),
+        ("BRUSA saturated per-batch r_s and p", pmsm_env(
+            ex, B, static={"r_s": uni(15e-3, 21e-3), "p": uni(2.0, 4.0)}), {}),
+        ("DEFAULT linear per-batch l_d and l_q", pmsm_env(
+            ex, B, "DEFAULT", saturated=False, static={"l_d": uni(0.3e-3, 0.45e-3), "l_q": uni(1.0e-3, 1.4e-3)}), {}),
+        ("BRUSA saturated euler obs_stride=4", pmsm_env(ex, B), {"obs_stride": 4}),
+        ("BRUSA saturated rk4 sim-ahead deadtime 1", pmsm_env(ex, B, solver="rk4"),
+         {"sim_ahead": True, "obs_stride": 1}),
+        ("BRUSA saturated euler ragged B=1000", pmsm_env(ex, 1000), {}),
+        ("BRUSA saturated rk4 float64 (dynamic shared memory above 48 KB)",
+         pmsm_env(ex, B, dtype=torch.float64, solver="rk4"), {"obs_stride": 8}),
+    ]
+    failures = []
+    for label, env, kw in cases:
+        state, _, u_con = pmsm_inputs(env, T, gen, sim_ahead=kw.get("sim_ahead", False))
+        err, finite = pmsm_deviation(PK, env, state, u_con, **kw)
+        ok = finite and err == 0.0
+        log(f"[pmsm kernel vs plain] {label}: max abs deviation {err!r} (tolerance 0.0) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(label)
+    if failures:
+        raise AssertionError(f"PMSM kernel disagrees with its plain version: {failures}")
+
+
+def phase_pmsm_golden(ex, PK):
+    """PMSM golden fixture (linear magnetics, deadtime 1), float64, B = 1,
+    1,000 steps through env.fused_rollout: one kernel launch."""
+    from exciting_environments_torch.utils import load_sim_properties_from_json
+
+    data = ROOT / "tests" / "envs" / "pmsm" / "data"
+    params, action_norms, physical_norms, tau = load_sim_properties_from_json(data / "sim_properties.json")
+    env = ex.PMSM(batch_size=1, tau=tau, solver="euler", static_params=params,
+                  physical_normalizations=physical_norms, action_normalizations=action_norms,
+                  device=DEVICE, dtype=torch.float64)
+    stored = torch.as_tensor(np.load(data / "observations.npy"), device=DEVICE)
+    actions = torch.as_tensor(np.load(data / "actions.npy"), device=DEVICE)
+    n = actions.shape[0]
+    state = env.generate_state_from_observation(stored[0][None], env.env_properties)
+    before = PK.KERNEL.launches["pmsm_step"]
+    obs, _ = env.fused_rollout(state, actions[None], obs_stride=1, strict=True)
+    torch.cuda.synchronize()
+    launches = PK.KERNEL.launches["pmsm_step"] - before
+    generated = torch.cat([stored[:1], obs[0]], dim=0)
+    dev = float((generated - stored).abs().max())
+    ok = bool(torch.allclose(generated, stored, 1e-8)) and launches == 1
+    log(f"[pmsm golden] fixture, {n} float64 steps in {launches} launch: max abs deviation {dev!r}, "
+        f"allclose(rtol=1e-8) {ok}")
+    if not ok:
+        raise AssertionError("golden PMSM replay through the kernel deviates from the fixture")
+
+
+def phase_pmsm_main(ex, PK):
+    """PMSM main path at full width: BRUSA saturated, B = 65,536, T = 256,
+    float32; returns the kernel table entries."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    B, T, stride = B_MAIN, T_PMSM, 16
+    env = ex.PMSM(batch_size=B, saturated=True, motor_variant=ex.MotorVariant.BRUSA, tau=1e-4, device=DEVICE)
+    env_sa = ex.PMSM(batch_size=B, saturated=True, motor_variant=ex.MotorVariant.BRUSA, tau=1e-4,
+                     solver="rk4", device=DEVICE)
+    _, state = env.vmap_reset(rng=gen)
+    u = torch.rand((B, T, 2), generator=gen, device=DEVICE, dtype=torch.float64)
+    actions = ((u * 2 - 1) * 0.3).float()
+    actions_tm = actions.transpose(0, 1).contiguous()
+    log(f"[pmsm main] PMSM BRUSA saturated B={B} T={T} float32: normalized slab "
+        f"{actions.numel() * 4 / 1e6:.1f} MB per layout")
+
+    PK.KERNEL.reset_counts()
+    obs_tm, last_tm = env.fused_rollout(state, actions_tm, time_major=True, strict=True)
+    obs_bm, last_bm = env.fused_rollout(state, actions, strict=True)
+    obs_tr, _ = env.fused_rollout(state, actions, obs_stride=stride, strict=True)
+    obs_sa, last_sa = env_sa.fused_sim_ahead(state, actions, env_sa.tau, env_sa.tau, strict=True)
+    torch.cuda.synchronize()
+    launches = dict(PK.KERNEL.launches)
+    log(f"[pmsm main] launches during the main path: {launches}")
+    if launches["pmsm_step"] < 1 or launches["pmsm_sim_ahead"] < 1:
+        raise AssertionError(f"the PMSM main path did not go through the kernel: {launches}")
+    shapes = (tuple(obs_tm.shape), tuple(obs_tr.shape), tuple(obs_sa.shape))
+    if shapes != ((B, 8), (B, T // stride, 8), (B, T + 1, 8)):
+        raise AssertionError(f"unexpected shapes {shapes}")
+    if not all(bool(torch.isfinite(o).all()) for o in (obs_tm, obs_tr, obs_sa)):
+        raise AssertionError("non-finite observations on the PMSM main path")
+    if not (torch.equal(obs_tm, obs_bm) and torch.equal(last_tm.physical_state.i_d, last_bm.physical_state.i_d)):
+        raise AssertionError("time-major and batch-major layouts disagree")
+    if not torch.equal(obs_tr[:, -1], obs_tm):
+        raise AssertionError("the last strided observation differs from the final one")
+
+    props = env.env_properties
+    prepass = lambda: PK._constrained_voltages(env, state, actions_tm, props)
+    u_con, _, _ = prepass()
+    phys = state.physical_state
+    eps_ext = ex.models.pmsm.pmsm_env.extrapolated_angles(phys.epsilon, phys.omega_el, env.tau, T)
+    u_con_sa = PK._constraint_denorm_batched(env_sa, props, actions_tm, eps_ext, phys.omega_el)
+    step_kernel = lambda: pmsm_run(PK, env, state, u_con, True)
+    sa_kernel = lambda: pmsm_run(PK, env_sa, state, u_con_sa, True, obs_stride=1, sim_ahead=True)
+    err_step, _ = pmsm_deviation(PK, env, state, u_con)
+    err_sa, _ = pmsm_deviation(PK, env_sa, state, u_con_sa, obs_stride=1, sim_ahead=True)
+    log(f"[pmsm main] kernel vs plain at full size: step max abs {err_step!r}, sim-ahead max abs {err_sa!r}")
+    if err_step != 0.0 or err_sa != 0.0:
+        raise AssertionError("PMSM kernel disagrees with its plain version at the main size")
+
+    t0 = time.perf_counter()
+    pmsm_run(PK, env, state, u_con, False)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    pmsm_run(PK, env_sa, state, u_con_sa, False, obs_stride=1, sim_ahead=True)
+    torch.cuda.synchronize()
+    plain_sa_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    env.vmap_rollout(state, actions, T)
+    torch.cuda.synchronize()
+    vmap_ms = (time.perf_counter() - t0) * 1e3
+
+    ms = time_ms(step_kernel)
+    sa_ms = time_ms(sa_kernel)
+    prepass_ms = time_ms(prepass)
+    env_tm_ms = time_ms(lambda: env.fused_rollout(state, actions_tm, time_major=True, strict=True))
+    env_bm_ms = time_ms(lambda: env.fused_rollout(state, actions, strict=True))
+    env_sa_ms = time_ms(lambda: env_sa.fused_sim_ahead(state, actions, env_sa.tau, env_sa.tau, strict=True))
+
+    # the kernel alone over a long synthetic stream of physical voltages
+    # (no pre-pass), so that launch overhead drops out
+    u_long = ((torch.rand((T_PMSM_LONG, B, 2), generator=gen, device=DEVICE) * 2 - 1) * 150.0).contiguous()
+    long_kernel = lambda: pmsm_run(PK, env, state, u_long, True)
+    long_ms = time_ms(long_kernel, reps=3)
+    del u_long
+    long_bound_ms, long_bound_by = pmsm_bound(env, env._solver, B, T_PMSM_LONG, 0)
+
+    bound_ms, bound_by = pmsm_bound(env, env._solver, B, T, 0)
+    sa_bound_ms, sa_bound_by = pmsm_bound(env_sa, env_sa._solver, B, T, T)
+    steps = B * T
+    log(f"[pmsm main] kernel alone, euler step mode: {ms!r} ms = {steps / ms * 1e3:.4e} env-steps/s; "
+        f"bound {bound_ms!r} ms ({bound_by}); {bound_ms / ms:.1%} of the bound")
+    log(f"[pmsm main] eager pre-pass alone (angle loop + constraint over (T, B)): {prepass_ms!r} ms")
+    log(f"[pmsm main] env.fused_rollout time-major: {env_tm_ms!r} ms = {steps / env_tm_ms * 1e3:.4e} env-steps/s "
+        f"(kernel {ms / env_tm_ms:.1%}, pre-pass {prepass_ms / env_tm_ms:.1%})")
+    log(f"[pmsm main] env.fused_rollout batch-major: {env_bm_ms!r} ms = {steps / env_bm_ms * 1e3:.4e} env-steps/s")
+    log(f"[pmsm main] sim-ahead rk4 kernel alone: {sa_ms!r} ms; bound {sa_bound_ms!r} ms ({sa_bound_by}); "
+        f"env.fused_sim_ahead {env_sa_ms!r} ms")
+    log(f"[pmsm main] plain version: step {plain_ms!r} ms, sim-ahead {plain_sa_ms!r} ms (one run each)")
+    log(f"[pmsm main] vmap_rollout, T={T}: {vmap_ms!r} ms (one run) = {steps / vmap_ms * 1e3:.4e} env-steps/s")
+    log(f"[pmsm main] kernel alone, T={T_PMSM_LONG} synthetic voltages: {long_ms!r} ms = "
+        f"{B * T_PMSM_LONG / long_ms * 1e3:.4e} env-steps/s; bound {long_bound_ms!r} ms ({long_bound_by}); "
+        f"{long_bound_ms / long_ms:.1%} of the bound")
+    entry = lambda name, n, err, t, plain, bms, bby: {
+        "name": name, "route": "cuda", "source": PMSM_SOURCE, "replaces": PMSM_REPLACES, "launches": n,
+        "max_abs_err": err, "ms": t, "plain_ms": plain, "bound_ms": bms, "bound_by": bby, "library_ms": None,
+    }
+    return [
+        entry("pmsm_step", launches["pmsm_step"], err_step, ms, plain_ms, bound_ms, bound_by),
+        entry("pmsm_sim_ahead", launches["pmsm_sim_ahead"], err_sa, sa_ms, plain_sa_ms, sa_bound_ms, sa_bound_by),
+    ]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    if not (ROOT / "exciting_environments_torch" / "csrc" / "stepper.cu").is_file():
+    csrc = ROOT / "exciting_environments_torch" / "csrc"
+    if not ((csrc / "stepper.cu").is_file() and (csrc / "pmsm_stepper.cu").is_file()):
         print("chip_smoke: run it from a checkout of the repository (package not found)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
     import exciting_environments_torch as ex
+    from exciting_environments_torch.ops.kernels import pmsm_stepper as PK
     from exciting_environments_torch.ops.kernels import stepper as K
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -326,6 +596,9 @@ def main() -> int:
     phase_kernel_vs_plain(ex, K)
     phase_golden(ex, K)
     kernels = phase_main(ex, K)
+    phase_pmsm_kernel_vs_plain(ex, PK)
+    phase_pmsm_golden(ex, PK)
+    kernels += phase_pmsm_main(ex, PK)
     if "jax" in sys.modules or any(m.startswith("exciting_environments_tpu") for m in sys.modules):
         raise AssertionError("the port pulled in JAX or the JAX package")
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")

@@ -2,8 +2,9 @@
 exciting-environments-tpu.
 
 Batched ODE environments with the same classes, registry ids and
-step/reset/sim_ahead/rollout surface as the JAX package; the fused rollout
-runs through a hand-written CUDA kernel (``csrc/stepper.cu``) on an NVIDIA
+step/reset/sim_ahead/rollout surface as the JAX package; the fused rollouts
+run through hand-written CUDA kernels (``csrc/stepper.cu`` for the classic
+environments, ``csrc/pmsm_stepper.cu`` for the PMSM drive) on an NVIDIA
 Hopper GPU.  Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``.
 """
@@ -14,6 +15,6 @@ from exciting_environments_torch.core import spaces
 from exciting_environments_torch.core.classic import ClassicODEEnvironment
 from exciting_environments_torch.core.env import CoreEnvironment
 from exciting_environments_torch.core.registration import EnvironmentRegistry
-from exciting_environments_torch.models import CartPole, MassSpringDamper, Pendulum
+from exciting_environments_torch.models import PMSM, CartPole, MassSpringDamper, MotorVariant, Pendulum
 from exciting_environments_torch.ops import solvers
 from exciting_environments_torch.utils import MinMaxNormalization

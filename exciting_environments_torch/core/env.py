@@ -164,6 +164,27 @@ class CoreEnvironment:
     def _full(self, shape, value):
         return torch.full(shape, value, dtype=self.dtype, device=self.device)
 
+    def repeat_values(self, x, n_repeat):
+        """Tile a solver carry (``None`` or a tuple of tensors) over a new
+        leading time axis of length ``n_repeat``."""
+        if x is None:
+            return None
+        if isinstance(x, tuple):
+            return tuple(self.repeat_values(i, n_repeat) for i in x)
+        if isinstance(x, torch.Tensor):
+            return x.expand((n_repeat,) + tuple(x.shape))
+        raise ValueError(f"State needs to consist of tensors or tuples, but {type(x)} is given.")
+
+    def _tile_time(self, x, n):
+        """Broadcast a leaf of any shape to a new leading time axis of length ``n``."""
+        x = torch.as_tensor(x, device=self.device)
+        return x.expand((n,) + tuple(x.shape))
+
+    @staticmethod
+    def _index_time(states, idx):
+        """Index every tensor leaf of a time-major ``State`` along its time axis."""
+        return structures.map_leaves(lambda leaf: leaf[idx] if isinstance(leaf, torch.Tensor) else leaf, states)
+
     # ------------------------------------------------------------------
     # normalization
     # ------------------------------------------------------------------

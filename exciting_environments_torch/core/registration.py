@@ -38,7 +38,7 @@ def _builtin(name: str) -> Callable:
     return resolver
 
 
-for _name in ("Pendulum", "CartPole", "MassSpringDamper"):
+for _name in ("Pendulum", "CartPole", "MassSpringDamper", "PMSM"):
     register(f"{_name}-v0", _builtin(_name))
 
 
@@ -48,6 +48,7 @@ class EnvironmentRegistry(Enum):
     CART_POLE = "CartPole-v0"
     MASS_SPRING_DAMPER = "MassSpringDamper-v0"
     PENDULUM = "Pendulum-v0"
+    PMSM = "PMSM-v0"
 
     def make(self, **env_kwargs):
         """Instantiate the environment class behind this registry id."""

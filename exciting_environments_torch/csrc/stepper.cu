@@ -32,10 +32,12 @@
 // order and in working precision.  Build with --fmad=false so that y + h*f
 // is not contracted into an FMA.  Scalar parameters arrive as host doubles
 // and fold in double precision where the Python code folds Python numbers
-// (Weak below); per-batch parameters arrive as device pointers.
+// (Weak in eager_rules.cuh); per-batch parameters arrive as device pointers.
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "eager_rules.cuh"
 
 #define MAX_STAGES 7
 #define MAX_STATE 4
@@ -71,87 +73,9 @@ struct StepperArgs {
     int env_id;
 };
 
-// ---------------------------------------------------------------------------
-// Python-number folding.  An expression over scalar parameters is computed in
-// Python (double precision) and rounded to the working type only when it
-// meets a tensor; once a per-batch leaf takes part, the rest is computed in
-// the working type.  Weak carries a value in either state.
-// ---------------------------------------------------------------------------
-
-template <typename T>
-struct Weak {
-    bool py;
-    double d;
-    T v;
-};
-
-template <typename T>
-__device__ __forceinline__ T value(const Weak<T>& w) { return w.py ? (T)w.d : w.v; }
-
-template <typename T>
-__device__ __forceinline__ Weak<T> weak_load(const void* ptr, double scalar, long long b) {
-    Weak<T> w;
-    w.py = ptr == nullptr;
-    w.d = scalar;
-    w.v = w.py ? T(0) : static_cast<const T*>(ptr)[b];
-    return w;
-}
-
 template <typename T>
 __device__ __forceinline__ Weak<T> param(const StepperArgs& args, int i, long long b) {
     return weak_load<T>(args.param_ptr[i], args.param_value[i], b);
-}
-
-template <typename T>
-__device__ __forceinline__ Weak<T> wmul(const Weak<T>& x, const Weak<T>& y) {
-    Weak<T> r;
-    r.py = x.py && y.py;
-    r.d = r.py ? x.d * y.d : 0.0;
-    r.v = r.py ? T(0) : value(x) * value(y);
-    return r;
-}
-
-template <typename T>
-__device__ __forceinline__ Weak<T> wadd(const Weak<T>& x, const Weak<T>& y) {
-    Weak<T> r;
-    r.py = x.py && y.py;
-    r.d = r.py ? x.d + y.d : 0.0;
-    r.v = r.py ? T(0) : value(x) + value(y);
-    return r;
-}
-
-template <typename T>
-__device__ __forceinline__ Weak<T> wsub(const Weak<T>& x, const Weak<T>& y) {
-    Weak<T> r;
-    r.py = x.py && y.py;
-    r.d = r.py ? x.d - y.d : 0.0;
-    r.v = r.py ? T(0) : value(x) - value(y);
-    return r;
-}
-
-// Division by a parameter expression.  PyTorch's CUDA eager division by a
-// host scalar (a Python number) multiplies by the scalar's reciprocal, taken
-// in double precision and rounded to the working type (measured on an H100
-// with PyTorch 2.11); by a tensor it divides.  The kernel does the same, so that it agrees bit for bit with the
-// plain version, and hence with vmap_rollout, on the card.  (On the CPU,
-// PyTorch and the JAX reference divide in both cases; see ROADMAP.md Queue 3.)
-template <typename T>
-struct Divisor {
-    bool recip;
-    T v;  // the reciprocal for a host scalar, the divisor otherwise
-};
-
-template <typename T>
-__device__ __forceinline__ Divisor<T> divisor(const Weak<T>& w) {
-    Divisor<T> d;
-    d.recip = w.py;
-    d.v = w.py ? (T)(1.0 / w.d) : w.v;
-    return d;
-}
-
-template <typename T>
-__device__ __forceinline__ T operator/(T x, const Divisor<T>& d) {
-    return d.recip ? x * d.v : x / d.v;
 }
 
 __device__ __forceinline__ float dsin(float x) { return sinf(x); }
@@ -286,26 +210,6 @@ struct CartPoleEnv {
 // ---------------------------------------------------------------------------
 // The rollout kernel
 // ---------------------------------------------------------------------------
-
-// y + tau * sum_j coeffs[j] * ks[j][leaf]: zero coefficients skipped, unit
-// coefficients not multiplied, left-to-right sum; no stage at all leaves y.
-template <typename T, int NS, int N>
-__device__ __forceinline__ T lincomb(T y, const T (&ks)[NS][N], int leaf, const double* coeffs, int n, T tau) {
-    bool any = false;
-    T acc = T(0);
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-        if (j < n) {
-            const double c = coeffs[j];
-            if (c != 0.0) {
-                const T term = (c == 1.0) ? ks[j][leaf] : (T)c * ks[j][leaf];
-                acc = any ? acc + term : term;
-                any = true;
-            }
-        }
-    }
-    return any ? y + tau * acc : y;
-}
 
 template <typename T, class Env>
 __device__ __forceinline__ void postprocess(T* y, const StepperArgs& args) {

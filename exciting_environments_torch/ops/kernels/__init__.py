@@ -6,12 +6,20 @@ from __future__ import annotations
 
 def rollout_path(env, obs_stepsize: float = None, action_stepsize: float = None) -> str:
     """Which execution path a ``fused_rollout`` (or, with stepsizes given, a
-    ``fused_sim_ahead``) call on ``env`` selects: ``"fused"`` for the stepper
-    kernel (its plain version on CPU tensors), ``"scan"`` for the Python-loop
-    fallback (``strict=True`` raises instead of taking it)."""
+    ``fused_sim_ahead``) call on ``env`` selects: ``"pmsm_fused"`` for the
+    PMSM drive kernel, ``"fused"`` for the stepper kernel (each its plain
+    version on CPU tensors), ``"scan"`` for the Python-loop fallback
+    (``strict=True`` raises instead of taking it)."""
+    from exciting_environments_torch.models.pmsm import PMSM
+
+    from .pmsm_stepper import supports_pmsm_fused
     from .stepper import supports_fused_rollout, supports_fused_sim_ahead
 
-    if obs_stepsize is not None:
+    sim_ahead = obs_stepsize is not None
+    if isinstance(env, PMSM):
+        in_scope = supports_pmsm_fused(env) and (not sim_ahead or obs_stepsize == action_stepsize)
+        return "pmsm_fused" if in_scope else "scan"
+    if sim_ahead:
         in_scope = supports_fused_sim_ahead(env, obs_stepsize, action_stepsize)
     else:
         in_scope = supports_fused_rollout(env)

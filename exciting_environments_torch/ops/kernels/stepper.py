@@ -46,8 +46,9 @@ MAX_ACTION = 2
 MAX_PARAMS = 8
 
 _PKG = Path(__file__).resolve().parents[2]
-_SRC = _PKG / "csrc" / "stepper.cu"
-#: build directory of the kernel library (listed in .gitignore)
+#: CUDA sources; each ``csrc/<name>.cu`` builds into its own library
+CSRC = _PKG / "csrc"
+#: build directory of the kernel libraries (listed in .gitignore)
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "--fmad=false",
@@ -99,37 +100,66 @@ def _nvcc() -> str:
         return found
     if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
         return os.path.join(CUDA_HOME, "bin", "nvcc")
-    raise RuntimeError("nvcc not found: the stepper kernel is built with the CUDA toolkit")
+    raise RuntimeError("nvcc not found: the kernels are built with the CUDA toolkit")
 
 
-def build() -> Path:
-    """Compile ``csrc/stepper.cu`` into a content-hashed shared library in
-    :data:`BUILD_DIR` (once per source and flag set); returns its path.  The
-    compiler's resource report is kept beside it as ``<name>.log``."""
-    tag = hashlib.sha256(_SRC.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"stepper_{tag}.so"
-    if out.exists():
-        return out
+def _library_path(name: str) -> Path:
+    """Content-hashed library path of ``csrc/<name>.cu``: the hash covers the
+    source, the shared headers and the compiler flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
+
+
+def build_all(names=None) -> dict:
+    """Compile ``csrc/<name>.cu`` (every source by default) into
+    content-hashed shared libraries in :data:`BUILD_DIR`, one ``nvcc`` per
+    missing library, all started together.  The compiler's resource report
+    is kept beside each library as ``<name>.log``.  Returns ``{name: path}``."""
+    names = sorted(p.stem for p in CSRC.glob("*.cu")) if names is None else list(names)
+    outs = {name: _library_path(name) for name in names}
+    todo = {name: out for name, out in outs.items() if not out.exists()}
+    if not todo:
+        return outs
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        tmp_out = Path(tmp) / out.name
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp_out), str(_SRC)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build {_SRC.name}:\n{proc.stderr}")
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp_out, out)
-    return out
+        procs = {
+            name: subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(Path(tmp) / out.name), str(CSRC / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            )
+            for name, out in todo.items()
+        }
+        failed = []
+        for name, proc in procs.items():
+            stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed to build {name}.cu:\n{stderr}")
+                continue
+            todo[name].with_suffix(".log").write_text(stdout + stderr)
+            os.replace(Path(tmp) / todo[name].name, todo[name])
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    return outs
 
 
-class _StepperKernel:
-    """The loaded kernel library and its launch counts (one per mode)."""
+def build(name: str = "stepper") -> Path:
+    """Compile ``csrc/<name>.cu`` at first use; returns the library's path."""
+    return build_all([name])[name]
 
-    def __init__(self):
+
+class KernelLibrary:
+    """A kernel library built from ``csrc/<name>.cu`` and loaded with ctypes at
+    first use, with its launch counts (one per mode).  The library exports
+    ``<entry>_launch(args*, dtype, stream)``, which returns the CUDA error of
+    the launch, and ``<entry>_args_size()``, checked against ``args_type``."""
+
+    def __init__(self, name: str, entry: str, args_type, modes):
+        self.name, self.entry, self.args_type = name, entry, args_type
         self._lib = None
-        self.launches = {"step": 0, "sim_ahead": 0}
+        self.launches = {mode: 0 for mode in modes}
 
     def reset_counts(self):
         for mode in self.launches:
@@ -137,18 +167,29 @@ class _StepperKernel:
 
     def lib(self):
         if self._lib is None:
-            lib = ctypes.CDLL(str(build()))
-            lib.stepper_launch.argtypes = [_c_void_p, _c_int, _c_void_p]
-            lib.stepper_launch.restype = _c_int
-            lib.stepper_args_size.argtypes = []
-            lib.stepper_args_size.restype = _c_int
-            if lib.stepper_args_size() != ctypes.sizeof(StepperArgs):
-                raise RuntimeError("StepperArgs layout differs between Python and CUDA")
+            lib = ctypes.CDLL(str(build(self.name)))
+            launch, size = getattr(lib, f"{self.entry}_launch"), getattr(lib, f"{self.entry}_args_size")
+            launch.argtypes = [_c_void_p, _c_int, _c_void_p]
+            launch.restype = _c_int
+            size.argtypes = []
+            size.restype = _c_int
+            if size() != ctypes.sizeof(self.args_type):
+                raise RuntimeError(f"{self.args_type.__name__} layout differs between Python and CUDA")
             self._lib = lib
         return self._lib
 
+    def launch(self, args, dtype: torch.dtype, device: torch.device, mode: str, detail: str = ""):
+        """Launch on the current stream of ``device``; a refused launch raises
+        (it never runs, and only its return code reports it)."""
+        stream = torch.cuda.current_stream(device).cuda_stream
+        launch = getattr(self.lib(), f"{self.entry}_launch")
+        rc = launch(ctypes.byref(args), 0 if dtype == torch.float32 else 1, stream)
+        if rc != 0:
+            raise RuntimeError(f"{self.name} kernel launch failed with CUDA error {rc}{detail}")
+        self.launches[mode] += 1
 
-KERNEL = _StepperKernel()
+
+KERNEL = KernelLibrary("stepper", "stepper", StepperArgs, ("step", "sim_ahead"))
 
 
 # ---------------------------------------------------------------------------
@@ -350,12 +391,7 @@ def kernel_rollout(env, y0, actions_tm, *, tau, solver=None, props=None, obs_str
     args.traj_stride = obs_stride or 0
     args.env_id = env._kernel_env_id
 
-    lib = KERNEL.lib()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = lib.stepper_launch(ctypes.byref(args), 0 if dtype == torch.float32 else 1, stream)
-    if rc != 0:
-        raise RuntimeError(f"stepper kernel launch failed with CUDA error {rc}")
-    KERNEL.launches["sim_ahead" if sim_ahead else "step"] += 1
+    KERNEL.launch(args, dtype, device, "sim_ahead" if sim_ahead else "step")
     return tuple(y_out), (tuple(traj) if traj is not None else None)
 
 

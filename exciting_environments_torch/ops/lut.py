@@ -1,0 +1,141 @@
+"""Regular-grid lookup tables for saturated motor magnetics (counterpart of
+``exciting_environments_tpu/ops/lut.py``).
+
+The six flux/inductance maps of a measured machine share one uniform grid, so
+they are stacked into one ``(C, nx, ny)`` tensor and interpolated with one
+gather of the four cell corners and one bilinear blend
+(:class:`StackedBilinearLUT`).  Beyond the padded edges the cell index clamps
+while the fractional weight keeps growing: the linear extrapolation of
+``RegularGridInterpolator`` with ``fill_value=None``, constant here because
+the padded edge cells are.
+
+The host-side preparation (:func:`fill_nan_nearest`, :func:`pad_edges`) runs
+once at construction in numpy.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def fill_nan_nearest(grid: np.ndarray) -> np.ndarray:
+    """Replace NaNs by the value of the nearest (index-space) valid grid point
+    (the reference's ``griddata`` nearest fill, ``pmsm_env.py:333-340``)."""
+    grid = np.array(grid, dtype=np.float64, copy=True)
+    nan_mask = np.isnan(grid)
+    if not nan_mask.any():
+        return grid
+    valid_idx = np.argwhere(~nan_mask)
+    nan_idx = np.argwhere(nan_mask)
+    d2 = ((nan_idx[:, None, :] - valid_idx[None, :, :]) ** 2).sum(-1)
+    nearest = valid_idx[np.argmin(d2, axis=1)]
+    grid[nan_mask] = grid[nearest[:, 0], nearest[:, 1]]
+    return grid
+
+
+def pad_edges(grid: np.ndarray) -> np.ndarray:
+    """Duplicate the border rows/columns once so that the linear extrapolation
+    beyond the measured range is constant (``pmsm_env.py:342-346``)."""
+    a = np.vstack([grid[0, :], grid, grid[-1, :]])
+    return np.hstack([a[:, :1], a, a[:, -1:]])
+
+
+def bilinear_gather(values, x0, dx, y0, dy, nx, ny, px, py):
+    """Stacked bilinear gather of all ``C`` channels at points ``(px, py)``.
+
+    ``values`` is ``(C, nx, ny)``; ``px``/``py`` are tensors of one shape
+    ``S``, and the result is ``(C,) + S``.  ``x0``/``dx``/``y0``/``dy`` are
+    Python numbers.  The operations and their order are those of the JAX
+    function: the offset and the division by the grid step, ``floor``, the
+    clamp to ``[0, n - 2]``, the conversion to integer, ``w = f - i`` in the
+    working type, direct indexing of the four corners, and the blend summed
+    left to right.
+    """
+    fx = (px - x0) / dx
+    fy = (py - y0) / dy
+    ix = torch.clamp(torch.floor(fx), 0, nx - 2).long()
+    iy = torch.clamp(torch.floor(fy), 0, ny - 2).long()
+    wx = fx - ix
+    wy = fy - iy
+    v00 = values[:, ix, iy]
+    v01 = values[:, ix, iy + 1]
+    v10 = values[:, ix + 1, iy]
+    v11 = values[:, ix + 1, iy + 1]
+    return (
+        v00 * (1 - wx) * (1 - wy)
+        + v01 * (1 - wx) * wy
+        + v10 * wx * (1 - wy)
+        + v11 * wx * wy
+    )
+
+
+class StackedBilinearLUT:
+    """Bilinear interpolation of ``C`` channels sharing one uniform 2-D grid.
+
+    Args:
+        x: uniform grid along the first point coordinate, ``(nx,)``.
+        y: uniform grid along the second point coordinate, ``(ny,)``.
+        values: stacked channel maps ``(C, nx, ny)`` (numpy).
+        channel_names: names addressing the leading axis.
+        device, dtype: where and in which type the table lives.
+    """
+
+    def __init__(self, x: np.ndarray, y: np.ndarray, values: np.ndarray, channel_names,
+                 device=None, dtype: torch.dtype = torch.float32):
+        self.x0 = float(x[0])
+        self.y0 = float(y[0])
+        self.dx = float(x[1] - x[0])
+        self.dy = float(y[1] - y[0])
+        self.nx = int(len(x))
+        self.ny = int(len(y))
+        self.values = torch.as_tensor(np.asarray(values), dtype=dtype, device=device).contiguous()
+        self.channel_names = tuple(channel_names)
+        self._index = {n: i for i, n in enumerate(self.channel_names)}
+
+    def interpolate_all(self, px, py):
+        """Every channel at the points ``(px, py)``: ``(C,) + px.shape``."""
+        return bilinear_gather(self.values, self.x0, self.dx, self.y0, self.dy, self.nx, self.ny, px, py)
+
+    def channel(self, name: str):
+        """A callable ``point (2, ...) -> (1, ...)`` for one channel, like the
+        reference's per-quantity ``LUT_interpolators[q]``."""
+        idx = self._index[name]
+
+        def interp(point):
+            return self.interpolate_all(point[0], point[1])[idx][None]
+
+        return interp
+
+    def as_dict(self):
+        """Dict of per-channel callables (reference-compatible API)."""
+        return {name: self.channel(name) for name in self.channel_names}
+
+
+SATURATED_QUANTITIES = ("L_dd", "L_dq", "L_qd", "L_qq", "Psi_d", "Psi_q")
+
+
+def build_pmsm_lut(pmsm_lut: dict, device=None, dtype: torch.dtype = torch.float32):
+    """Prepare a raw measured LUT dict into a :class:`StackedBilinearLUT`:
+    NaN fill, edge padding, and a uniform padded grid from
+    ``i_d_vec``/``i_q_vec`` (``pmsm_env.py:316-363``).  Returns ``(lut,
+    processed_dict)``, the latter holding the padded per-quantity maps."""
+    i_d_vec = np.asarray(pmsm_lut["i_d_vec"], dtype=np.float64)
+    i_q_vec = np.asarray(pmsm_lut["i_q_vec"], dtype=np.float64)
+    i_d_min, i_d_max = i_d_vec.min(), i_d_vec.max()
+    i_q_min, i_q_max = i_q_vec.min(), i_q_vec.max()
+    i_d_step = (i_d_max - i_d_min) / (i_d_vec.shape[1] - 1)
+    i_q_step = (i_q_max - i_q_min) / (i_q_vec.shape[1] - 1)
+
+    processed = dict(pmsm_lut)
+    padded = []
+    for q in SATURATED_QUANTITIES:
+        qmap = pad_edges(fill_nan_nearest(np.asarray(pmsm_lut[q], dtype=np.float64)))
+        processed[q] = qmap
+        padded.append(qmap.T)  # (nx = i_d, ny = i_q) orientation
+
+    n_y, n_x = processed[SATURATED_QUANTITIES[0]].shape
+    x = np.linspace(i_d_min - i_d_step, i_d_max + i_d_step, n_x)
+    y = np.linspace(i_q_min - i_q_step, i_q_max + i_q_step, n_y)
+    lut = StackedBilinearLUT(x, y, np.stack(padded), SATURATED_QUANTITIES, device=device, dtype=dtype)
+    return lut, processed

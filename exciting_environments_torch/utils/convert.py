@@ -1,6 +1,6 @@
 """Carry states and properties across from the JAX package as numpy arrays.
 
-Both functions take plain numpy values (scalars or ``(B,)`` arrays), so a
+The functions take plain numpy values (scalars or ``(B,)`` arrays), so a
 caller holding JAX arrays converts them with ``np.asarray`` first; nothing
 here imports JAX.
 """
@@ -27,13 +27,14 @@ def state_from_numpy(env, arrays: dict, reference: dict = None):
 
     Returns:
         A ``State`` on ``env.device`` in ``env.dtype`` with the fresh-state
-        solver carry and key placeholder of a reset.
+        solver carry (from the environment's own ``_init_solver_additions``,
+        the PMSM's included) and the key placeholder of a reset.
     """
     names = [f.name for f in fields(env.PhysicalState)]
     missing = set(names) - set(arrays)
     if missing:
         raise ValueError(f"missing physical-state leaves: {sorted(missing)}")
-    to_t = lambda v: torch.as_tensor(np.asarray(v), dtype=env.dtype).to(env.device)
+    to_t = lambda v: torch.as_tensor(np.array(v), dtype=env.dtype).to(env.device)
     phys = env.PhysicalState(**{n: to_t(arrays[n]) for n in names})
     batch_shape = tuple(phys.__dict__[names[0]].shape)
     ref = env._nan_reference(batch_shape)
@@ -48,21 +49,37 @@ def state_from_numpy(env, arrays: dict, reference: dict = None):
 
 
 def properties_from_numpy(env, static_params: dict, physical_normalizations: dict,
-                          action_normalizations: dict):
+                          action_normalizations: dict, saturated: bool = None):
     """Build ``env``'s ``EnvProperties`` from numpy values.
 
     Normalizations are given as ``{field: (min, max)}``.  Scalars (Python or
     numpy, or 0-dim arrays) become Python floats, so they fold like Python
     numbers; ``(B,)`` arrays become tensors on ``env.device`` in ``env.dtype``.
+    ``saturated`` is the PMSM's magnetics flag (default: the environment's
+    own); environments without it take ``None``.
     """
 
     def norms(cls, d):
         return cls(**{k: MinMaxNormalization(min=lo, max=hi) for k, (lo, hi) in d.items()})
 
+    extra = {}
+    if "saturated" in {f.name for f in fields(env.EnvProperties)}:
+        extra["saturated"] = bool(env.env_properties.saturated if saturated is None else saturated)
+    elif saturated is not None:
+        raise ValueError(f"{type(env).__name__} has no saturated flag")
     return env._place_properties(
         env.EnvProperties(
             physical_normalizations=norms(env.PhysicalState, physical_normalizations),
             action_normalizations=norms(env.Action, action_normalizations),
             static_params=env.StaticParams(**static_params),
+            **extra,
         )
     )
+
+
+def lut_values(env) -> np.ndarray:
+    """The PMSM's stacked magnetics table ``(6, nx, ny)`` as numpy (the
+    counterpart of ``np.asarray(jax_env._lut.values)``)."""
+    if getattr(env, "_lut", None) is None:
+        raise ValueError(f"{type(env).__name__} has no magnetics table")
+    return env._lut.values.detach().cpu().numpy()

@@ -1,6 +1,6 @@
-"""The stepper kernel against its plain version on a CUDA card.
+"""The stepper and PMSM kernels against their plain versions on a CUDA card.
 
-The kernel has no CPU mode, so these tests carry the ``gpu`` marker and skip
+The kernels have no CPU mode, so these tests carry the ``gpu`` marker and skip
 without a card.  The file imports neither JAX nor the JAX package, so on a
 machine without JAX it runs with the JAX-free conftest skipped:
 
@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import exciting_environments_torch as P
+from exciting_environments_torch.ops.kernels import pmsm_stepper as PK
 from exciting_environments_torch.ops.kernels import stepper as K
 
 CASES = [
@@ -25,7 +26,7 @@ CASES = [
 
 def _cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the stepper kernel has no CPU mode")
+        pytest.skip("needs a CUDA card: the hand-written kernels have no CPU mode")
 
 
 @pytest.mark.gpu
@@ -92,5 +93,116 @@ def test_eager_scalar_division_is_a_reciprocal_multiply(dtype):
     _cuda()
     gen = torch.Generator(device="cuda").manual_seed(1)
     x = (torch.rand(1 << 16, generator=gen, device="cuda", dtype=torch.float64) * 8 - 4).to(dtype)
-    for c in (1.1, 0.05, 0.3):
+    # the pendulum's and cart-pole's divisors, then the PMSM's grid steps and
+    # DEFAULT inductances
+    for c in (1.1, 0.05, 0.3, 10.0, 1.0, 0.37e-3, 1.2e-3):
         assert torch.equal(x / c, x * torch.tensor(1.0 / c, dtype=dtype, device="cuda"))
+
+
+PMSM_CASES = [
+    ("BRUSA", True, "euler", 1, False, None),
+    ("SEW", True, "rk4", 1, False, 2),
+    ("BRUSA", True, "tsit5", 0, False, None),
+    ("DEFAULT", False, "euler", 1, False, 4),
+    ("DEFAULT", False, "rk4", 0, True, 1),
+    ("BRUSA", True, "rk4", 1, True, 1),
+]
+
+
+def _pmsm_inputs(env, n_steps, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    _, state = env.vmap_reset(rng=gen)
+    acts = ((torch.rand((n_steps, env.batch_size, 2), generator=gen, device="cuda", dtype=torch.float64)
+             * 1.8 - 0.9).to(env.dtype))
+    u_con, _, _ = PK._constrained_voltages(env, state, acts, env.env_properties)
+    phys = state.physical_state
+    return u_con, (phys.i_d, phys.i_q, phys.omega_el, (phys.u_d_buffer, phys.u_q_buffer))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant,saturated,solver,deadtime,sim_ahead,stride", PMSM_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pmsm_kernel_matches_plain_version(variant, saturated, solver, deadtime, sim_ahead, stride, dtype):
+    _cuda()
+    params = dict(P.MotorVariant[variant].get_params().static_params.__dict__, deadtime=deadtime)
+    if saturated:
+        params.update(l_d=float("nan"), l_q=float("nan"), psi_p=float("nan"))
+    env = P.PMSM(batch_size=2048 + 45, saturated=saturated, motor_variant=P.MotorVariant[variant],
+                 solver=solver, static_params=params, dtype=dtype)
+    u_con, (i_d, i_q, omega, buf0) = _pmsm_inputs(env, 32, 3)
+    kw = dict(tau=env.tau, obs_stride=stride, sim_ahead=sim_ahead)
+    mode = "pmsm_sim_ahead" if sim_ahead else "pmsm_step"
+    before = PK.KERNEL.launches[mode]
+    yk, tk = PK.pmsm_kernel_rollout(env, u_con, i_d, i_q, omega, buf0, **kw)
+    yp, tp = PK.plain_pmsm_rollout(env, u_con, i_d, i_q, omega, buf0, **kw)
+    torch.cuda.synchronize()
+    assert PK.KERNEL.launches[mode] == before + 1
+    for a, b in zip(yk + (tk or ()), yp + (tp or ())):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_pmsm_per_batch_parameters_match_plain_version():
+    _cuda()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    B = 1500
+    uni = lambda lo, hi: lo + (hi - lo) * torch.rand(B, generator=gen, device="cuda")
+    params = dict(P.MotorVariant.BRUSA.get_params().static_params.__dict__,
+                  l_d=float("nan"), l_q=float("nan"), psi_p=float("nan"), r_s=uni(15e-3, 21e-3), p=uni(2.0, 4.0))
+    env = P.PMSM(batch_size=B, saturated=True, motor_variant=P.MotorVariant.BRUSA, static_params=params)
+    u_con, (i_d, i_q, omega, buf0) = _pmsm_inputs(env, 16, 5)
+    yk, _ = PK.pmsm_kernel_rollout(env, u_con, i_d, i_q, omega, buf0, tau=env.tau)
+    yp, _ = PK.plain_pmsm_rollout(env, u_con, i_d, i_q, omega, buf0, tau=env.tau)
+    for a, b in zip(yk, yp):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_pmsm_refused_launch_raises():
+    """A table too large for shared memory is refused at launch, and the
+    wrapper raises instead of returning unwritten outputs."""
+    _cuda()
+    from exciting_environments_torch.ops.lut import StackedBilinearLUT
+
+    env = P.PMSM(batch_size=256, saturated=True, motor_variant=P.MotorVariant.BRUSA, dtype=torch.float64)
+    grid = np.linspace(-300.0, 300.0, 120)
+    env._lut = StackedBilinearLUT(grid, grid, np.ones((6, 120, 120)), env._lut.channel_names,
+                                  device="cuda", dtype=torch.float64)  # 691,200 B
+    u_con, (i_d, i_q, omega, buf0) = _pmsm_inputs(env, 4, 6)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        PK.pmsm_kernel_rollout(env, u_con, i_d, i_q, omega, buf0, tau=env.tau)
+    with pytest.raises(NotImplementedError, match="backward"):
+        PK.pmsm_kernel_rollout(env, u_con.clone().requires_grad_(True), i_d, i_q, omega, buf0, tau=env.tau)
+
+
+@pytest.mark.gpu
+def test_pmsm_env_paths_run_on_the_card():
+    _cuda()
+    env = P.PMSM(batch_size=512, saturated=True, motor_variant=P.MotorVariant.BRUSA, solver="rk4")
+    _, state = env.vmap_reset(rng=torch.Generator(device="cuda").manual_seed(7))
+    acts = 0.3 * torch.ones((512, 8, 2), device="cuda")
+    PK.KERNEL.reset_counts()
+    obs, last = env.fused_rollout(state, acts, obs_stride=2, strict=True)
+    obs_sa, _ = env.fused_sim_ahead(state, acts, env.tau, env.tau, strict=True)
+    assert PK.KERNEL.launches == {"pmsm_step": 1, "pmsm_sim_ahead": 1}
+    assert obs.shape == (512, 4, 8) and obs_sa.shape == (512, 9, 8)
+    assert bool(torch.isfinite(obs).all()) and bool(torch.isfinite(obs_sa).all())
+
+
+@pytest.mark.gpu
+def test_golden_pmsm_fixture_through_kernel_float64():
+    _cuda()
+    from pathlib import Path
+
+    from exciting_environments_torch.utils import load_sim_properties_from_json
+
+    data = Path(__file__).parent / "envs" / "pmsm" / "data"
+    params, an, pn, tau = load_sim_properties_from_json(data / "sim_properties.json")
+    env = P.PMSM(batch_size=1, tau=tau, static_params=params, physical_normalizations=pn,
+                 action_normalizations=an, dtype=torch.float64)
+    stored = torch.as_tensor(np.load(data / "observations.npy"), device="cuda")
+    actions = torch.as_tensor(np.load(data / "actions.npy"), device="cuda")
+    state = env.generate_state_from_observation(stored[0][None], env.env_properties)
+    obs, _ = env.fused_rollout(state, actions[None], obs_stride=1, strict=True)
+    generated = torch.cat([stored[:1], obs[0]], dim=0)
+    assert torch.allclose(generated, stored, 1e-8)

@@ -18,6 +18,7 @@ def test_port_imports_no_jax():
     code = (
         "import sys\n"
         "import exciting_environments_torch, exciting_environments_torch.ops.kernels.stepper\n"
+        "import exciting_environments_torch.models.pmsm, exciting_environments_torch.ops.kernels.pmsm_stepper\n"
         "import exciting_environments_torch.utils.convert\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'exciting_environments_tpu'))\n"
         "assert not bad, bad\n"
@@ -28,7 +29,7 @@ def test_port_imports_no_jax():
     assert out.returncode == 0 and "clean" in out.stdout, out.stderr
 
 
-@pytest.mark.parametrize("name", ["Pendulum", "CartPole", "MassSpringDamper"])
+@pytest.mark.parametrize("name", ["Pendulum", "CartPole", "MassSpringDamper", "PMSM"])
 def test_default_device_is_cuda_and_never_falls_back(name):
     cls = getattr(P, name)
     if torch.cuda.is_available():
