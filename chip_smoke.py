@@ -8,9 +8,10 @@ toolkit:
 
 Phases (any failure raises and the script exits non-zero):
 
-1. build both kernel libraries (``exciting_environments_torch/csrc/
-   stepper.cu`` and ``pmsm_stepper.cu``), one nvcc each, started together,
-   and report the build time and each compiler resource report;
+1. build the three kernel libraries (``exciting_environments_torch/csrc/
+   stepper.cu``, ``pmsm_stepper.cu`` and ``closed_loop.cu``), one nvcc each,
+   started together, and report the build time and each compiler resource
+   report;
 2. hold the stepper kernel against its plain PyTorch version on the card at
    B = 65,536, T = 64, float32, in every mode the port uses;
 3. replay the pendulum golden fixture (``tests/envs/pendulum/data``) through
@@ -31,8 +32,21 @@ Phases (any failure raises and the script exits non-zero):
    (RK4); launch counts, shapes, kernel vs plain at full size, and the time
    split between the eager pre-pass and the kernel, plus the kernel alone
    at T = 4,096;
-8. print the kernel table, the card's name and power limit, and last the
-   result line ``{"ok": true, "device": {...}}``.
+8. hold the closed-loop kernel (``csrc/closed_loop.cu``, the policy inside
+   the loop) against its plain version at B = 65,536, T = 64, float32 (and
+   one float64 case), tolerance 0.0: PD and PI laws (``AffinePolicy``) on
+   the pendulum over Euler and RK4, CartPole Tsit5, MassSpringDamper Heun,
+   per-batch lengths, injected noise slabs, the PPO actor exploring and
+   deterministic, a ragged B and ``obs_stride = 4``;
+9. drive the closed-loop main path: ``Pendulum(batch_size=65536,
+   control_state=["theta"])`` tracking ``linspace(-1.5, 1.5)`` with the PD
+   law and with the PI law through ``env.fused_closed_loop`` over
+   T = 4,096, and the exploring actor (hidden (16, 16), ``tau = 2e-2``)
+   through ``RolloutCollector.collect_policy_fused`` over T = 64; each with
+   the launch count set to 0 just before and read just after, kernel vs
+   plain at full size, kernel and entry-point times and the bound;
+10. print the kernel table, the card's name and power limit, and last the
+    result line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -60,6 +74,8 @@ SOURCE = "exciting_environments_torch/csrc/stepper.cu"
 REPLACES = "exciting_environments_tpu/ops/pallas/stepper.py:122"
 PMSM_SOURCE = "exciting_environments_torch/csrc/pmsm_stepper.cu"
 PMSM_REPLACES = "exciting_environments_tpu/ops/pallas/pmsm_stepper.py:365"
+CL_SOURCE = "exciting_environments_torch/csrc/closed_loop.cu"
+CL_REPLACES = "exciting_environments_tpu/ops/pallas/stepper.py:1281"
 # H100 SXM published peaks (NVIDIA data sheet), used for the bound
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
@@ -146,13 +162,16 @@ def phase_build(K):
         report = path.with_suffix(".log").read_text()
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", report)]
         smem = sorted({int(b) for b in re.findall(r"(\d+) bytes smem", report)})
-        stack = [l.strip() for l in report.splitlines()
-                 if "bytes stack frame" in l and not l.strip().startswith("0 bytes")]
+        frames = [(name, int(stack), int(spill)) for name, stack, spill in re.findall(
+            r"Function properties for (\S*_kernel\S*)\s+(\d+) bytes stack frame, (\d+) bytes spill stores", report)]
         log(f"[build] {path.stem.rsplit('_', 1)[0]}: {len(regs)} kernels, registers per thread "
-            f"{min(regs, default=0)}..{max(regs, default=0)}, static shared memory bytes {smem or [0]} "
-            f"(the LUT is dynamic), non-zero stack frames: {len(stack)}")
-        for line in stack[:4]:
-            log(f"[build]   {line}")
+            f"{min(regs, default=0)}..{max(regs, default=0)}, static shared memory bytes {smem or [0]}, "
+            f"non-zero stack frames: {sum(s > 0 for _, s, _ in frames)}")
+        # by policy family where the kernel has one (closed_loop.cu), else all together
+        for family in sorted({next((f for f in ("AffineLaw", "ActorLaw") if f in n), "all") for n, _, _ in frames}):
+            group = [(s, sp) for n, s, sp in frames if family == "all" or family in n]
+            log(f"[build]   {family}: stack frames {min(s for s, _ in group)}..{max(s for s, _ in group)} bytes, "
+                f"{sum(sp > 0 for _, sp in group)} of {len(group)} kernels spill")
 
 
 def phase_kernel_vs_plain(ex, K):
@@ -574,16 +593,254 @@ def phase_pmsm_main(ex, PK):
     ]
 
 
+# ---------------------------------------------------------------------------
+# closed-loop phases
+# ---------------------------------------------------------------------------
+
+PD_GAINS = [[-0.9, -0.25, 0.9]]  # benchmarks/r03/closed_loop_device.py's PD law
+PI_LAW = dict(K=[[-0.9, -0.25, 0.9]], Ki=[[-2e-3, 0.0, 2e-3]], clip=1.0)  # ... stateful_closed_loop_device.py
+
+
+def actor_tree(n_obs, hidden=(16, 16), n_action=1, seed=SEED, log_std=-1.0):
+    """Actor weights made from ``seed`` with numpy, in the JAX package's
+    layout (``{"actor": [{"w", "b"}, ...], "log_std", "seed"}``)."""
+    rng = np.random.default_rng(seed)
+    sizes = (n_obs, *hidden, n_action)
+    layers = [{"w": rng.normal(0.0, 1.0 / np.sqrt(m), (m, n)), "b": rng.normal(0.0, 0.1, n)}
+              for m, n in zip(sizes[:-1], sizes[1:])]
+    return {"actor": layers, "log_std": np.full(n_action, log_std), "seed": float(seed + 101)}
+
+
+def cl_policy_ops(spec, n_action):
+    """Operations of one policy evaluation, counted from csrc/closed_loop.cu:
+    each add, multiply, compare, integer shift/xor/multiply, conversion and
+    each tanh/exp/log/sqrt/cos call as one."""
+    o = spec.options
+    if spec.policy_id == 0:  # AffineLaw
+        per_action = 2 * spec.n_obs + (2 * spec.n_obs + 1) * o["has_integral"] + 2 * o["has_clip"]
+        return n_action * per_action
+    widths = o["widths"]
+    ops = sum(2 * m * n for m, n in zip(widths[:-1], widths[1:])) + sum(widths[1:-1]) + 1
+    hash_ops = 8 + 2 * 8 + 3 + 2 + 3 + 6  # counter, two mix32, shifts and salt, conversions, uniforms, Box-Muller
+    return ops + n_action * (2 + (0 if o["deterministic"] else hash_ops + 3))
+
+
+def cl_bound(env, spec, batch, n_steps, n_saves, n_carry, n_refs, n_obs_noise=0, n_proc_noise=0, itemsize=4):
+    """Least time for the closed-loop kernel's work: its inputs (state,
+    references, carry, per-batch parameters, policy parameters, noise slabs)
+    read once and its outputs (final state and carry, saves) written once,
+    over the memory rate; or its operations over the float32 rate (integer
+    operations counted at that rate too), whichever is larger."""
+    from exciting_environments_torch.ops.kernels.stepper import _stage_rows
+
+    n, a = len(env._ode_state_fields), env.action_dim
+    params = env.env_properties.static_params
+    n_pb = sum(isinstance(getattr(params, p), torch.Tensor) for p in env._kernel_params)
+    nbytes = itemsize * (batch * (2 * n + n_refs + 2 * n_carry + n_pb) + spec.flat.numel()
+                         + n_saves * batch * (n + a + n_carry) + n_steps * batch * (n_obs_noise + n_proc_noise))
+    ode_ops = {0: 4, 1: 5, 2: 31}[env._kernel_env_id]
+    a_rows, b = _stage_rows(env._solver)
+    comb = lambda coeffs: sum(2 - (c == 1.0) for c in coeffs if c != 0.0) + 1 if any(coeffs) else 0
+    wrap = 5 * len(env._angle_fields)
+    per_step = 4 * n + n_obs_noise + cl_policy_ops(spec, a) + 4 * a
+    per_step += len(b) * ode_ops + n * (sum(comb(r) for r in a_rows) + comb(b)) + wrap
+    per_step += (n_proc_noise + wrap) if n_proc_noise else 0
+    ops = per_step * batch * n_steps
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_FP32_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"), per_step
+
+
+def cl_run(CL, env, policy, n_steps, y0, refs, kernel, **kw):
+    fn = CL.kernel_closed_loop if kernel else CL.plain_closed_loop
+    return fn(env, y0, policy, n_steps, tau=env.tau, solver=env._solver, props=env.env_properties,
+              ref_leaves=refs, **kw)
+
+
+def cl_flat(out):
+    """Every tensor of a closed-loop result (final, carry, saves)."""
+    return [t for part in out if part is not None for t in part]
+
+
+def cl_deviation(CL, env, policy, n_steps, y0, refs, **kw):
+    outk = cl_flat(cl_run(CL, env, policy, n_steps, y0, refs, True, **kw))
+    outp = cl_flat(cl_run(CL, env, policy, n_steps, y0, refs, False, **kw))
+    torch.cuda.synchronize()
+    if len(outk) != len(outp) or any(k.shape != p.shape for k, p in zip(outk, outp)):
+        raise AssertionError("kernel and plain closed loops return different structures")
+    return max_abs(outk, outp), all(bool(torch.isfinite(t).all()) for t in outk)
+
+
+def phase_cl_kernel_vs_plain(ex, CL):
+    """Closed-loop kernel against its plain version, B = 65,536, T = 64,
+    float32 unless stated, tolerance 0.0."""
+    from exciting_environments_torch.utils.convert import actor_params_from_numpy
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+    B, T = B_MAIN, T_CHECK
+    pend = lambda batch=B, **kw: make_env(ex.Pendulum, batch, control_state=["theta"], **kw)
+    zeros = lambda env: (torch.zeros(env.batch_size, device=DEVICE, dtype=env.dtype),)
+    lengths = (1.0 + torch.rand(B, generator=gen, device=DEVICE)).to(torch.float32)
+    pd, pi = ex.AffinePolicy(PD_GAINS), ex.AffinePolicy(**PI_LAW)
+    rl_env = pend(tau=2e-2)
+    actor, ids = ex.make_actor_tile(rl_env)
+    greedy, _ = ex.make_actor_tile(rl_env, deterministic=True)
+    weights = actor_params_from_numpy(rl_env, actor_tree(3))
+    noisy = pend(solver="rk4")
+    noise = dict(
+        obs_noise_tm=(0.05 * torch.randn((T, B, 2), generator=gen, device=DEVICE)), obs_noise_cols=(0, 2),
+        proc_noise_tm=(0.01 * torch.randn((T, B, 2), generator=gen, device=DEVICE)), proc_noise_idx=(0, 1),
+    )
+    pi64 = pend(solver="rk4", dtype=torch.float64)
+    # (label, env, policy, loop kwargs)
+    cases = [
+        ("pendulum euler PD obs_stride=1", pend(), pd, {"traj_stride": 1}),
+        ("pendulum rk4 PI (integrator carry, clip, carry saves)", pend(solver="rk4"), pi, {"traj_stride": 1}),
+        ("cart_pole tsit5 affine over 4 state + 1 reference columns",
+         make_env(ex.CartPole, B, solver="tsit5", control_state=["deflection"]),
+         ex.AffinePolicy([[-0.5, -0.3, 0.8, 0.2, 0.5]]), {"traj_stride": 8}),
+        ("mass_spring_damper heun affine with offset",
+         make_env(ex.MassSpringDamper, B, solver="heun", control_state=["deflection"]),
+         ex.AffinePolicy([[-0.6, -0.2, 0.6]], b=[0.05]), {}),
+        ("pendulum euler per-batch l", pend(static_params={"l": lengths, "m": 1.0, "g": 9.81}), pd,
+         {"traj_stride": 1}),
+        ("pendulum rk4 obs-noise and process-noise slabs", noisy, pd, {"traj_stride": 1, **noise}),
+        ("pendulum tau=2e-2 actor (16, 16) exploring", rl_env, actor, {"traj_stride": 1, "policy_params": weights}),
+        ("pendulum tau=2e-2 actor (16, 16) deterministic", rl_env, greedy,
+         {"traj_stride": 1, "policy_params": weights}),
+        ("pendulum rk4 PI float64", pi64, pi, {"traj_stride": 1}),
+        ("pendulum rk4 PD ragged B=1000", pend(1000, solver="rk4"), pd, {"traj_stride": 1}),
+        ("pendulum rk4 PI obs_stride=4", pend(solver="rk4"), pi, {"traj_stride": 4}),
+    ]
+    failures = []
+    for label, env, policy, kw in cases:
+        kw = dict(kw)
+        if policy.n_carry:
+            kw["policy_carry"] = ids if policy in (actor, greedy) else zeros(env)
+        y0 = random_state(env, gen)
+        refs = tuple((torch.rand(env.batch_size, generator=gen, device=DEVICE, dtype=torch.float64) * 2 - 1)
+                     .to(env.dtype) for _ in env.control_state)
+        err, finite = cl_deviation(CL, env, policy, T, y0, refs, **kw)
+        ok = finite and err == 0.0
+        log(f"[closed loop vs plain] {label}: max abs deviation {err!r} (tolerance 0.0) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(label)
+    if failures:
+        raise AssertionError(f"closed-loop kernel disagrees with its plain version: {failures}")
+
+
+def phase_cl_main(ex, CL):
+    """Closed-loop main path at full width: Pendulum B = 65,536 tracking
+    linspace(-1.5, 1.5) references with the PD law and the PI law over
+    T = 4,096 (final state only), and the exploring actor collected through
+    RolloutCollector.collect_policy_fused over T = 64 (tau = 2e-2, a save
+    every step); returns the kernel table entries."""
+    from exciting_environments_torch.utils.convert import actor_params_from_numpy
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    B, T, T_RL = B_MAIN, T_MAIN, T_CHECK
+
+    def tracking_env(**kw):
+        env = ex.Pendulum(batch_size=B, control_state=["theta"], device=DEVICE, **kw)
+        _, state = env.vmap_reset(rng=gen)
+        state.reference.theta = torch.linspace(-1.5, 1.5, B, device=DEVICE, dtype=env.dtype)
+        y0 = tuple(getattr(state.physical_state, f) for f in env._ode_state_fields)
+        refs = (env.env_properties.physical_normalizations.theta.normalize(state.reference.theta),)
+        return env, state, y0, refs
+
+    env, state, y0, refs = tracking_env()
+    pd, pi = ex.AffinePolicy(PD_GAINS), ex.AffinePolicy(**PI_LAW)
+    c0 = (torch.zeros(B, device=DEVICE),)
+    log(f"[closed loop main] Pendulum B={B} tau={env.tau} float32 euler, references linspace(-1.5, 1.5); "
+        f"PD and PI over T={T}, the actor over T={T_RL}")
+    entries = []
+
+    def run_case(name, drive, kernel_fn, plain_fn, check, spec, n_steps, n_saves, n_carry, cl_env):
+        CL.CL_KERNEL.reset_counts()
+        out = drive()
+        torch.cuda.synchronize()
+        launches = CL.CL_KERNEL.launches["closed_loop"]
+        log(f"[closed loop main] {name}: launches during the main path {launches}")
+        if launches < 1:
+            raise AssertionError(f"the {name} main path did not go through the closed-loop kernel")
+        check(out)
+        outk = cl_flat(kernel_fn())
+        t0 = time.perf_counter()
+        outp = cl_flat(plain_fn())
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max_abs(outk, outp)
+        if err != 0.0:
+            raise AssertionError(f"{name}: kernel disagrees with its plain version at the main size ({err!r})")
+        ms = time_ms(kernel_fn)
+        env_ms = time_ms(drive)
+        (bound_ms, bound_by), per_step = cl_bound(cl_env, spec, B, n_steps, n_saves, n_carry, 1)
+        steps = B * n_steps
+        log(f"[closed loop main] {name}: kernel {ms!r} ms = {steps / ms * 1e3:.4e} env-steps/s; "
+            f"entry point {env_ms!r} ms = {steps / env_ms * 1e3:.4e} env-steps/s (kernel {ms / env_ms:.1%}); "
+            f"bound {bound_ms!r} ms ({bound_by}, {per_step} operations per step and instance); "
+            f"{bound_ms / ms:.1%} of the bound; plain {plain_ms!r} ms (one run); max abs {err!r}")
+        entries.append({
+            "name": name, "route": "cuda", "source": CL_SOURCE, "replaces": CL_REPLACES, "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,
+        })
+
+    def check_final(out, n_extra=0):
+        obs = out[0]
+        if tuple(obs.shape) != (B, 3) or len(out) != 2 + n_extra or not bool(torch.isfinite(obs).all()):
+            raise AssertionError(f"unexpected final-only closed-loop result: {tuple(obs.shape)}")
+        if float(obs[:, 0].abs().max()) > 1.0:
+            raise AssertionError("wrapped angle left the normalized band")
+        log(f"[closed loop main]   mean |ref - theta| of the normalized angle after {T} steps: "
+            f"{float((obs[:, 2] - obs[:, 0]).abs().mean()):.4f}")
+
+    kw = dict(tau=env.tau, solver=env._solver, props=env.env_properties, ref_leaves=refs)
+    run_case("closed_loop_pd", lambda: env.fused_closed_loop(state, pd, T),
+             lambda: CL.kernel_closed_loop(env, y0, pd, T, **kw), lambda: CL.plain_closed_loop(env, y0, pd, T, **kw),
+             check_final, pd.kernel_spec(torch.float32, DEVICE), T, 0, 0, env)
+    run_case("closed_loop_pi", lambda: env.fused_closed_loop(state, pi, T, policy_carry=c0),
+             lambda: CL.kernel_closed_loop(env, y0, pi, T, policy_carry=c0, **kw),
+             lambda: CL.plain_closed_loop(env, y0, pi, T, policy_carry=c0, **kw),
+             lambda out: check_final(out, 1), pi.kernel_spec(torch.float32, DEVICE), T, 0, 1, env)
+
+    rl_env, rl_state, rl_y0, rl_refs = tracking_env(tau=2e-2)
+    actor, ids = ex.make_actor_tile(rl_env)
+    weights = actor_params_from_numpy(rl_env, actor_tree(3))
+    collector = ex.RolloutCollector(rl_env)
+    rl_kw = dict(tau=rl_env.tau, solver=rl_env._solver, props=rl_env.env_properties, ref_leaves=rl_refs,
+                 traj_stride=1, policy_params=weights, policy_carry=ids)
+
+    def check_batch(out):
+        batch, final, carry = out
+        shapes = (tuple(batch.observations.shape), tuple(batch.actions.shape), tuple(batch.rewards.shape))
+        if shapes != ((B, T_RL, 3), (B, T_RL, 1), (B, T_RL, 1)):
+            raise AssertionError(f"unexpected trajectory batch shapes {shapes}")
+        if not all(bool(torch.isfinite(x).all()) for x in (batch.observations, batch.actions, batch.rewards)):
+            raise AssertionError("non-finite trajectory batch")
+        if float(batch.actions.abs().max()) > 1.0 or not torch.equal(carry[0], ids[0]):
+            raise AssertionError("actor actions left [-1, 1] or the id carry changed")
+        log(f"[closed loop main]   collected {B}x{T_RL} steps, mean reward {float(batch.rewards.mean()):.4f}, "
+            f"action std {float(batch.actions.std()):.4f}")
+
+    run_case("closed_loop_actor",
+             lambda: collector.collect_policy_fused(actor, rl_state, T_RL, policy_params=weights, policy_carry=ids),
+             lambda: CL.kernel_closed_loop(rl_env, rl_y0, actor, T_RL, **rl_kw),
+             lambda: CL.plain_closed_loop(rl_env, rl_y0, actor, T_RL, **rl_kw),
+             check_batch, actor.kernel_spec(torch.float32, DEVICE, weights), T_RL, T_RL, 1, rl_env)
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     csrc = ROOT / "exciting_environments_torch" / "csrc"
-    if not ((csrc / "stepper.cu").is_file() and (csrc / "pmsm_stepper.cu").is_file()):
+    if not all((csrc / f"{name}.cu").is_file() for name in ("stepper", "pmsm_stepper", "closed_loop")):
         print("chip_smoke: run it from a checkout of the repository (package not found)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
     import exciting_environments_torch as ex
+    from exciting_environments_torch.ops.kernels import closed_loop as CL
     from exciting_environments_torch.ops.kernels import pmsm_stepper as PK
     from exciting_environments_torch.ops.kernels import stepper as K
 
@@ -599,6 +856,8 @@ def main() -> int:
     phase_pmsm_kernel_vs_plain(ex, PK)
     phase_pmsm_golden(ex, PK)
     kernels += phase_pmsm_main(ex, PK)
+    phase_cl_kernel_vs_plain(ex, CL)
+    kernels += phase_cl_main(ex, CL)
     if "jax" in sys.modules or any(m.startswith("exciting_environments_tpu") for m in sys.modules):
         raise AssertionError("the port pulled in JAX or the JAX package")
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")

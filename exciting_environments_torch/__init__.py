@@ -5,8 +5,10 @@ Batched ODE environments with the same classes, registry ids and
 step/reset/sim_ahead/rollout surface as the JAX package; the fused rollouts
 run through hand-written CUDA kernels (``csrc/stepper.cu`` for the classic
 environments, ``csrc/pmsm_stepper.cu`` for the PMSM drive) on an NVIDIA
-Hopper GPU.  Entry points run on the CUDA device unless the caller passes
-``device="cpu"``.
+Hopper GPU, and the closed loops (``fused_closed_loop``,
+``RolloutCollector.collect_policy_fused``) with the policy inside
+``csrc/closed_loop.cu``.  Entry points run on the CUDA device unless the
+caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"
@@ -17,4 +19,7 @@ from exciting_environments_torch.core.env import CoreEnvironment
 from exciting_environments_torch.core.registration import EnvironmentRegistry
 from exciting_environments_torch.models import PMSM, CartPole, MassSpringDamper, MotorVariant, Pendulum
 from exciting_environments_torch.ops import solvers
+from exciting_environments_torch.ops.policies import AffinePolicy
 from exciting_environments_torch.utils import MinMaxNormalization
+from exciting_environments_torch.utils.collect import RolloutCollector
+from exciting_environments_torch.utils.rl_fused import make_actor_tile

@@ -489,6 +489,25 @@ class CoreEnvironment:
         return env_fused_sim_ahead(self, init_state, actions, obs_stepsize, action_stepsize,
                                    obs_stride=obs_stride, time_major=time_major, strict=strict)
 
+    def fused_closed_loop(self, init_state, policy, n_steps: int, obs_stride: int = None,
+                          policy_params=None, return_traj_states: bool = False, policy_carry=None):
+        """Closed loop with the policy inside the hand-written closed-loop
+        kernel (``csrc/closed_loop.cu``; its plain version on CPU tensors):
+        observation -> ``policy(obs, step[, carry][, params])`` -> action ->
+        step, ``n_steps`` times in one launch.  On CUDA the policy is an
+        ``AffinePolicy`` or the actor of ``make_actor_tile``; on the CPU any
+        callable with that contract.  ``policy_carry`` (tuple of ``(B,)``
+        leaves) makes the policy stateful, and every return shape then gains
+        the final carry as its last element.  Raises out of kernel scope (a
+        closed loop has no open-loop fallback).  See
+        :func:`~exciting_environments_torch.ops.kernels.closed_loop.env_fused_closed_loop`."""
+        from exciting_environments_torch.ops.kernels.closed_loop import env_fused_closed_loop
+
+        return env_fused_closed_loop(
+            self, init_state, policy, n_steps, obs_stride=obs_stride,
+            return_traj_states=return_traj_states, policy_params=policy_params, policy_carry=policy_carry,
+        )
+
     def vmap_generate_rew_trunc_term_ahead(self, states, actions):
         """Batched :meth:`generate_rew_trunc_term_ahead` over the batch-major
         output of :meth:`vmap_sim_ahead`."""

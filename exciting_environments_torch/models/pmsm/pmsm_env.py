@@ -460,6 +460,14 @@ class PMSM(CoreEnvironment):
                                          time_major=time_major, strict=strict)
         return (obs[:, ::obs_stride] if obs_stride != 1 else obs), last
 
+    def fused_closed_loop(self, *args, **kwargs):
+        """The PMSM drive's closed-loop kernel (observation, policy, in-kernel
+        hexagon, deadtime and LUT step) is not ported yet."""
+        raise NotImplementedError(
+            "PMSM.fused_closed_loop needs the PMSM closed-loop kernel, which is not ported yet "
+            "(ROADMAP.md, Queue 2 item 6)"
+        )
+
     # ------------------------------------------------------------------
     # inverter constraint + deadtime
     # ------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Hand-written Hopper kernels and their dispatch rule (counterpart of
+"""Hand-written Hopper kernels and their dispatch rules (counterpart of
 ``exciting_environments_tpu/ops/pallas/__init__.py``)."""
 
 from __future__ import annotations
@@ -24,3 +24,19 @@ def rollout_path(env, obs_stepsize: float = None, action_stepsize: float = None)
     else:
         in_scope = supports_fused_rollout(env)
     return "fused" if in_scope else "scan"
+
+
+def select_closed_loop(env):
+    """The closed-loop dispatch rule shared by
+    :meth:`RolloutCollector.collect_policy_fused`: ``(kernel_fn, extra_kwargs)``
+    with the generic closed-loop kernel for classic environments in its
+    scope, ``(None, {})`` otherwise (a closed loop has no open-loop fallback:
+    callers raise).  The PMSM drive's closed-loop kernel is not ported yet,
+    so a PMSM gets ``(None, {})``."""
+    from exciting_environments_torch.models.pmsm import PMSM
+
+    from .closed_loop import env_fused_closed_loop, supports_fused_closed_loop
+
+    if isinstance(env, PMSM) or not supports_fused_closed_loop(env):
+        return None, {}
+    return env_fused_closed_loop, {}

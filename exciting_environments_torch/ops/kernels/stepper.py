@@ -358,7 +358,7 @@ def kernel_rollout(env, y0, actions_tm, *, tau, solver=None, props=None, obs_str
     if any(t.requires_grad for t in grads):
         raise NotImplementedError(
             "the stepper kernel has no backward yet: its VJP (checkpointed recompute "
-            "through plain_step) is the next slice of the port, ROADMAP.md Queue 2"
+            "through plain_step) comes with the training slice, ROADMAP.md Queue 2 item 3"
         )
 
     y_out = [torch.empty(batch, dtype=dtype, device=device) for _ in y0]

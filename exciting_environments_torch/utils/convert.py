@@ -83,3 +83,17 @@ def lut_values(env) -> np.ndarray:
     if getattr(env, "_lut", None) is None:
         raise ValueError(f"{type(env).__name__} has no magnetics table")
     return env._lut.values.detach().cpu().numpy()
+
+
+def actor_params_from_numpy(env, tree: dict) -> dict:
+    """The JAX package's in-kernel actor parameters (``{"actor": [{"w", "b"},
+    ...], "log_std", "seed"}`` of ``utils/rl_fused.py``, as numpy values) as
+    the same structure of tensors on ``env.device`` in ``env.dtype``, for
+    :class:`~exciting_environments_torch.utils.rl_fused.ActorPolicy`.
+    ``seed`` stays a float-encoded integer, as in the JAX package."""
+    to_t = lambda v: torch.as_tensor(np.array(v, dtype=np.float64), dtype=env.dtype).to(env.device)
+    return {
+        "actor": [{"w": to_t(layer["w"]), "b": to_t(layer["b"])} for layer in tree["actor"]],
+        "log_std": to_t(tree["log_std"]),
+        "seed": to_t(tree["seed"]),
+    }

@@ -1,4 +1,5 @@
-"""The stepper and PMSM kernels against their plain versions on a CUDA card.
+"""The stepper, PMSM and closed-loop kernels against their plain versions on
+a CUDA card.
 
 The kernels have no CPU mode, so these tests carry the ``gpu`` marker and skip
 without a card.  The file imports neither JAX nor the JAX package, so on a
@@ -12,6 +13,7 @@ import pytest
 import torch
 
 import exciting_environments_torch as P
+from exciting_environments_torch.ops.kernels import closed_loop as CL
 from exciting_environments_torch.ops.kernels import pmsm_stepper as PK
 from exciting_environments_torch.ops.kernels import stepper as K
 
@@ -206,3 +208,86 @@ def test_golden_pmsm_fixture_through_kernel_float64():
     obs, _ = env.fused_rollout(state, actions[None], obs_stride=1, strict=True)
     generated = torch.cat([stored[:1], obs[0]], dim=0)
     assert torch.allclose(generated, stored, 1e-8)
+
+
+PD_GAINS = [[-0.9, -0.25, 0.9]]
+
+
+def _actor_params(env, hidden=(16, 16), seed=0):
+    """Actor weights from a numpy seed, carried across as the JAX package's
+    actor pytree would be."""
+    from exciting_environments_torch.utils.convert import actor_params_from_numpy
+
+    rng = np.random.default_rng(seed)
+    sizes = (3, *hidden, 1)
+    layers = [{"w": rng.normal(0.0, 1.0 / np.sqrt(m), (m, n)), "b": rng.normal(0.0, 0.1, n)}
+              for m, n in zip(sizes[:-1], sizes[1:])]
+    return actor_params_from_numpy(env, {"actor": layers, "log_std": np.full(1, -1.0), "seed": 77.0})
+
+
+def _cl_case(kind, dtype, n_steps):
+    """(env, policy, y0, refs, loop kwargs) of one closed-loop case."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    env = P.Pendulum(batch_size=1000 if kind == "ragged" else 2048 + 45, control_state=["theta"], dtype=dtype,
+                     solver="rk4" if kind in ("pi", "noise") else "euler", **({"tau": 2e-2} if kind == "actor" else {}))
+    rand = lambda *shape: (torch.rand(shape, generator=gen, device="cuda", dtype=torch.float64) * 2 - 1).to(dtype)
+    B = env.batch_size
+    loop = {"traj_stride": 1}
+    if kind == "pi":
+        policy = P.AffinePolicy(PD_GAINS, Ki=[[-2e-3, 0.0, 2e-3]], clip=1.0)
+        loop["policy_carry"] = (torch.zeros(B, device="cuda", dtype=dtype),)
+    elif kind == "actor":
+        policy, ids = P.make_actor_tile(env)
+        loop.update(policy_carry=ids, policy_params=_actor_params(env))
+    else:
+        policy = P.AffinePolicy(PD_GAINS)
+    if kind == "noise":
+        loop.update(obs_noise_tm=0.05 * rand(n_steps, B, 2), obs_noise_cols=(0, 2),
+                    proc_noise_tm=0.01 * rand(n_steps, B, 2), proc_noise_idx=(0, 1))
+    return env, policy, (rand(B), rand(B)), (rand(B),), loop
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["pd", "pi", "actor", "noise", "ragged"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_closed_loop_kernel_matches_plain_version(kind, dtype):
+    _cuda()
+    n_steps = 32
+    env, policy, y0, refs, loop = _cl_case(kind, dtype, n_steps)
+    kw = dict(tau=env.tau, solver=env._solver, props=env.env_properties, ref_leaves=refs, **loop)
+    before = CL.CL_KERNEL.launches["closed_loop"]
+    outk = CL.kernel_closed_loop(env, y0, policy, n_steps, **kw)
+    outp = CL.plain_closed_loop(env, y0, policy, n_steps, **kw)
+    torch.cuda.synchronize()
+    assert CL.CL_KERNEL.launches["closed_loop"] == before + 1
+    flat = lambda out: [t for part in out if part is not None for t in part]
+    assert len(flat(outk)) == len(flat(outp))
+    for a, b in zip(flat(outk), flat(outp)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_closed_loop_entry_points_launch_and_refuse():
+    _cuda()
+    env = P.Pendulum(batch_size=256, control_state=["theta"])
+    _, state = env.vmap_reset(rng=torch.Generator(device="cuda").manual_seed(9))
+    state.reference.theta = torch.linspace(-1.0, 1.0, 256, device="cuda")
+    pd = P.AffinePolicy(PD_GAINS)
+    CL.CL_KERNEL.reset_counts()
+    obs, last = env.fused_closed_loop(state, pd, 8)
+    batch, _ = P.RolloutCollector(env).collect_policy_fused(pd, state, 8)
+    assert CL.CL_KERNEL.launches == {"closed_loop": 2}
+    assert obs.is_cuda and obs.shape == (256, 3) and batch.rewards.shape == (256, 8, 1)
+    assert bool(torch.isfinite(batch.observations).all())
+    with pytest.raises(ValueError, match="plain callable"):
+        env.fused_closed_loop(state, lambda obs, t: (-0.9 * obs[0],), 8)
+    y0 = (state.physical_state.theta.clone().requires_grad_(True), state.physical_state.omega)
+    kw = dict(tau=env.tau, solver=env._solver, props=env.env_properties, ref_leaves=(state.reference.theta,))
+    with pytest.raises(NotImplementedError, match="backward"):
+        CL.kernel_closed_loop(env, y0, pd, 8, **kw)
+    gains = pd.flat_params().float().cuda().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="backward"):
+        CL.kernel_closed_loop(env, (state.physical_state.theta, state.physical_state.omega),
+                              P.AffinePolicy(np.zeros((1, 3))), 8,
+                              policy_params=gains, **kw)
+    assert CL.CL_KERNEL.launches == {"closed_loop": 2}

@@ -20,6 +20,8 @@ def test_port_imports_no_jax():
         "import exciting_environments_torch, exciting_environments_torch.ops.kernels.stepper\n"
         "import exciting_environments_torch.models.pmsm, exciting_environments_torch.ops.kernels.pmsm_stepper\n"
         "import exciting_environments_torch.utils.convert\n"
+        "import exciting_environments_torch.ops.kernels.closed_loop, exciting_environments_torch.ops.policies\n"
+        "import exciting_environments_torch.utils.rl_fused, exciting_environments_torch.utils.collect\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'exciting_environments_tpu'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"
