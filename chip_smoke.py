@@ -8,10 +8,10 @@ toolkit:
 
 Phases (any failure raises and the script exits non-zero):
 
-1. build the three kernel libraries (``exciting_environments_torch/csrc/
-   stepper.cu``, ``pmsm_stepper.cu`` and ``closed_loop.cu``), one nvcc each,
-   started together, and report the build time and each compiler resource
-   report;
+1. build the four kernel libraries (``exciting_environments_torch/csrc/
+   stepper.cu``, ``pmsm_stepper.cu``, ``closed_loop.cu`` and
+   ``pmsm_closed_loop.cu``), one nvcc each, started together, and report the
+   build time and each compiler resource report;
 2. hold the stepper kernel against its plain PyTorch version on the card at
    B = 65,536, T = 64, float32, in every mode the port uses;
 3. replay the pendulum golden fixture (``tests/envs/pendulum/data``) through
@@ -45,7 +45,23 @@ Phases (any failure raises and the script exits non-zero):
    through ``RolloutCollector.collect_policy_fused`` over T = 64; each with
    the launch count set to 0 just before and read just after, kernel vs
    plain at full size, kernel and entry-point times and the bound;
-10. print the kernel table, the card's name and power limit, and last the
+10. hold the PMSM closed-loop kernel (``csrc/pmsm_closed_loop.cu``) against
+    its plain version at B = 4,096, T = 64, float32 (and one float64 case),
+    tolerance 0.0: P and PI laws on saturated BRUSA and linear DEFAULT,
+    deadtime 0 and 1, Euler, RK4 and Tsit5, saves every step and every 16,
+    per-batch ``r_s``/``u_dc`` planes and an action band, both noise slabs,
+    the linear sensorless tile at deadtime 0 and 1, the gain-scheduled
+    sensorless tile, a ragged B;
+11. drive the PMSM closed-loop main cases at full width (saturated BRUSA,
+    B = 65,536, float32, Euler, ``tau = 1e-4``, deadtime 1): A the P law and
+    B the PI law through ``env.fused_closed_loop`` over T = 2,048; C the
+    gain-scheduled sensorless tile at ``omega_el = 1200`` with a 3 A sensor
+    slab drawn on the card through ``pmsm_closed_loop`` over T = 2,048, with
+    its settling error and belief RMSE; D the PI law through
+    ``RolloutCollector.collect_policy_fused`` over T = 256; each with one
+    launch, kernel vs plain at full size, kernel and entry-point times and
+    the bound;
+12. print the kernel table, the card's name and power limit, and last the
     result line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -168,7 +184,8 @@ def phase_build(K):
             f"{min(regs, default=0)}..{max(regs, default=0)}, static shared memory bytes {smem or [0]}, "
             f"non-zero stack frames: {sum(s > 0 for _, s, _ in frames)}")
         # by policy family where the kernel has one (closed_loop.cu), else all together
-        for family in sorted({next((f for f in ("AffineLaw", "ActorLaw") if f in n), "all") for n, _, _ in frames}):
+        families = ("AffineLaw", "ActorLaw", "AffineAdapter", "SensorlessLaw", "ScheduledLaw")
+        for family in sorted({next((f for f in families if f in n), "all") for n, _, _ in frames}):
             group = [(s, sp) for n, s, sp in frames if family == "all" or family in n]
             log(f"[build]   {family}: stack frames {min(s for s, _ in group)}..{max(s for s, _ in group)} bytes, "
                 f"{sum(sp > 0 for _, sp in group)} of {len(group)} kernels spill")
@@ -830,17 +847,328 @@ def phase_cl_main(ex, CL):
     return entries
 
 
+# ---------------------------------------------------------------------------
+# PMSM closed-loop phases
+# ---------------------------------------------------------------------------
+
+PCL_SOURCE = "exciting_environments_torch/csrc/pmsm_closed_loop.cu"
+PCL_REPLACES = "exciting_environments_tpu/ops/pallas/pmsm_stepper.py:1832"
+B_PCL_CHECK, T_PCL = 4096, 2048
+# the P law a = -0.6 (obs_i - ref_i) of benchmarks/r03/pmsm_closed_loop_device.py and the PI law
+# a = 0.6 e + int, int += 0.01 e of benchmarks/r03/pmsm_stateful_closed_loop_device.py:47-52, over
+# the 8 drive columns and the (i_d, i_q) references
+PCL_P = [[-0.6, 0, 0, 0, 0, 0, 0, 0, 0.6, 0], [0, -0.6, 0, 0, 0, 0, 0, 0, 0, 0.6]]
+PCL_KI = [[-0.01, 0, 0, 0, 0, 0, 0, 0, 0.01, 0], [0, -0.01, 0, 0, 0, 0, 0, 0, 0, 0.01]]
+SENSOR_SIGMA, OMEGA_SENSORLESS = 3.0, 1200.0  # benchmarks/r05/saturated_sensorless_device.py:36-39
+#: operations of one evaluation of the sensorless laws, counted from csrc/pmsm_closed_loop.cu
+SENSORLESS_LAW_OPS = {2: 76, 3: 105}
+
+
+def pmsm_cl_ops_per_step(env, spec, n_refs, n_sched, n_obs_noise, n_proc_noise):
+    """Arithmetic operations of one closed-loop step of one drive, counted
+    from csrc/pmsm_closed_loop.cu as pmsm_ops counts the open loop (each add,
+    multiply, divide, negation, compare, floor, clamp bound, sqrt, sin, cos
+    and fmod as one)."""
+    from exciting_environments_torch.ops.kernels.stepper import _stage_rows
+
+    gather = lambda nc: 4 + 2 + 4 + 2 + 2 + nc * 11
+    saturated = bool(env.env_properties.saturated)
+    torque = gather(6) + 4 if saturated else 4
+    obs = 5 * 4 + 2 + n_obs_noise  # five normalized columns (omega once per run), cos, sin
+    sched = (8 + gather(n_sched)) if n_sched else 0
+    if spec.policy_id == 0:
+        o = spec.options
+        policy = 2 * (2 * spec.n_obs + (2 * spec.n_obs + 1) * o["has_integral"] + 2 * o["has_clip"])
+    else:
+        policy = SENSORLESS_LAW_OPS[spec.policy_id]
+    hexagon = 65
+    a_rows, b = _stage_rows(env._solver)
+    ode_first = 23 if saturated else 13  # the first stage reuses the torque's gather
+    ode_more = gather(6) + 23 if saturated else 13
+    comb = lambda coeffs: sum(2 - (c == 1.0) for c in coeffs if c != 0.0) + 1 if any(coeffs) else 0
+    rk = ode_first + (len(b) - 1) * ode_more + 2 * (sum(comb(r) for r in a_rows) + comb(b))
+    angle = 7
+    return torque + obs + sched + policy + hexagon + rk + n_proc_noise + angle
+
+
+def pmsm_cl_bound(env, spec, batch, n_steps, n_saves, n_carry, n_refs, n_sched=0, n_obs_noise=0, n_proc_noise=0,
+                  itemsize=4):
+    """Least time for the PMSM closed-loop kernel's work: its inputs (state,
+    speed, references, carry, per-batch parameters and bands, policy
+    parameters, the tables, the slabs) read once and its outputs (finals,
+    last voltage, carry, saves) written once, over the memory rate; or its
+    operations over the float32 rate, whichever is larger."""
+    from exciting_environments_torch.ops.kernels.pmsm_closed_loop import cl_bands
+    from exciting_environments_torch.ops.kernels.pmsm_stepper import PMSM_PARAMS
+
+    props = env.env_properties
+    n_pb = sum(isinstance(getattr(props.static_params, n), torch.Tensor) for n in PMSM_PARAMS)
+    n_pb += sum(isinstance(leaf, torch.Tensor) for leaf in cl_bands(props).values())
+    cells = env._lut.nx * env._lut.ny if env._lut is not None else 0
+    tables = (6 * cells if props.saturated else 0) + n_sched * cells
+    nbytes = itemsize * (batch * (6 + n_refs + 2 * n_carry + n_pb + 8) + spec.flat.numel() + tables
+                         + n_saves * batch * (7 + n_carry) + n_steps * batch * (n_obs_noise + n_proc_noise))
+    per_step = pmsm_cl_ops_per_step(env, spec, n_refs, n_sched, n_obs_noise, n_proc_noise)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, per_step * batch * n_steps / PEAK_FP32_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"), per_step
+
+
+def pcl_run(PCL, env, policy, n_steps, state0, omega, kernel, **kw):
+    fn = PCL.kernel_pmsm_closed_loop if kernel else PCL.plain_pmsm_closed_loop
+    return fn(env, state0, omega, policy, n_steps, tau=env.tau, solver=env._solver, props=env.env_properties, **kw)
+
+
+def pcl_deviation(PCL, env, policy, n_steps, state0, omega, **kw):
+    outk = cl_flat(pcl_run(PCL, env, policy, n_steps, state0, omega, True, **kw))
+    outp = cl_flat(pcl_run(PCL, env, policy, n_steps, state0, omega, False, **kw))
+    torch.cuda.synchronize()
+    if len(outk) != len(outp) or any(k.shape != p.shape for k, p in zip(outk, outp)):
+        raise AssertionError("kernel and plain PMSM closed loops return different structures")
+    return max_abs(outk, outp), all(bool(torch.isfinite(t).all()) for t in outk)
+
+
+def pcl_inputs(env, gen, omega=None):
+    """A reset drive state (random currents, angle and speed, or the speed
+    pinned to ``omega``), its (i_d, i_q) references spread over the bands,
+    and their normalized leaves."""
+    _, state = env.vmap_reset(rng=gen)
+    B = env.batch_size
+    phys = state.physical_state
+    if omega is not None:
+        phys.omega_el = torch.full((B,), omega, device=DEVICE, dtype=env.dtype)
+    state.reference.i_d = torch.linspace(-200.0, -10.0, B, device=DEVICE, dtype=env.dtype)
+    state.reference.i_q = torch.linspace(-150.0, 150.0, B, device=DEVICE, dtype=env.dtype)
+    pn = env.env_properties.physical_normalizations
+    refs = tuple(getattr(pn, n).normalize(getattr(state.reference, n)) for n in env.control_state)
+    state0 = (phys.i_d, phys.i_q, phys.epsilon, phys.u_d_buffer, phys.u_q_buffer)
+    return state, state0, phys.omega_el, refs
+
+
+def sensor_slab(env, n_steps, gen, sigma=SENSOR_SIGMA):
+    """A sigma-A current-sensor slab (n_steps, B, 2) in normalized units,
+    drawn on the card; row 0 is zero (the first observation is exact)."""
+    pn = env.env_properties.physical_normalizations
+    scale = torch.tensor([2 * sigma / (pn.i_d.max - pn.i_d.min), 2 * sigma / (pn.i_q.max - pn.i_q.min)],
+                         device=DEVICE, dtype=env.dtype)
+    slab = torch.randn((n_steps, env.batch_size, 2), generator=gen, device=DEVICE, dtype=env.dtype) * scale
+    slab[0] = 0.0
+    return slab
+
+
+def phase_pcl_kernel_vs_plain(ex, PCL):
+    """PMSM closed-loop kernel against its plain version, B = 4,096, T = 64,
+    float32 unless stated, tolerance 0.0."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+    B, T = B_PCL_CHECK, T_CHECK
+    uni = lambda lo, hi: (lo + (hi - lo) * torch.rand(B, generator=gen, device=DEVICE, dtype=torch.float64)).float()
+    tracking = lambda variant="BRUSA", saturated=True, **kw: pmsm_env(ex, B, variant, saturated,
+                                                                       control_state=["i_d", "i_q"], **kw)
+    p_law, pi_law = ex.AffinePolicy(PCL_P), ex.AffinePolicy(PCL_P, Ki=PCL_KI, clip=1.0)
+    noise = dict(obs_noise_tm=0.02 * torch.randn((T, B, 2), generator=gen, device=DEVICE), obs_noise_cols=(0, 9),
+                 proc_noise_tm=0.5 * torch.randn((T, B, 2), generator=gen, device=DEVICE), proc_noise_idx=(0, 1))
+    an = dict(ex.MotorVariant.BRUSA.get_params().action_normalizations.__dict__)
+    an["u_d"] = ex.MinMaxNormalization(min=an["u_d"].min, max=uni(200.0, 300.0))
+    brusa_pb = tracking(static={"r_s": uni(15e-3, 21e-3), "u_dc": uni(350.0, 450.0)}, action_normalizations=an)
+    sensorless_env = lambda deadtime, solver="euler": pmsm_env(ex, B, "DEFAULT", False, static={"deadtime": deadtime},
+                                                               solver=solver)
+    sched_env = pmsm_env(ex, B)
+    sched_tile, sched_c0, sched_lut = ex.make_pmsm_saturated_sensorless_current_tile(
+        sched_env, i_d_ref=-100.0, i_q_ref=150.0, omega_el=OMEGA_SENSORLESS,
+        measurement_std={"i_d": SENSOR_SIGMA, "i_q": SENSOR_SIGMA})
+    # (label, env, policy, loop kwargs, pinned omega)
+    cases = [
+        ("BRUSA euler P deadtime 1, a save every step", tracking(), p_law, {"traj_stride": 1}, None),
+        ("BRUSA rk4 PI (carry, clip), saves every 16", tracking(solver="rk4"), pi_law, {"traj_stride": 16}, None),
+        ("BRUSA tsit5 PI deadtime 0 (u_last)", tracking(solver="tsit5", static={"deadtime": 0}), pi_law,
+         {"traj_stride": 1}, None),
+        ("DEFAULT linear euler P deadtime 0", tracking("DEFAULT", False, static={"deadtime": 0}), p_law,
+         {"traj_stride": 1}, None),
+        ("DEFAULT linear rk4 PI deadtime 1", tracking("DEFAULT", False, solver="rk4"), pi_law, {"traj_stride": 1},
+         None),
+        ("BRUSA euler PI per-batch r_s, u_dc and u_d max", brusa_pb, pi_law, {"traj_stride": 1}, None),
+        ("BRUSA euler PI sensor and process slabs", tracking(), pi_law, {"traj_stride": 1, **noise}, None),
+        ("DEFAULT linear sensorless tile deadtime 0", sensorless_env(0), "linear", {"traj_stride": 1},
+         OMEGA_SENSORLESS),
+        ("DEFAULT linear rk4 sensorless tile deadtime 1", sensorless_env(1, "rk4"), "linear", {"traj_stride": 4},
+         OMEGA_SENSORLESS),
+        ("BRUSA scheduled sensorless tile deadtime 1", sched_env, sched_tile, {"traj_stride": 1, "sched_lut": sched_lut},
+         OMEGA_SENSORLESS),
+        ("BRUSA rk4 PI float64 (shared memory above 48 KB)", tracking(solver="rk4", dtype=torch.float64), pi_law,
+         {"traj_stride": 8}, None),
+        ("BRUSA euler P ragged B=1000", pmsm_env(ex, 1000, control_state=["i_d", "i_q"]), p_law, {}, None),
+    ]
+    failures = []
+    for label, env, policy, kw, omega in cases:
+        kw = dict(kw)
+        if policy == "linear":
+            policy, carry0 = ex.make_pmsm_sensorless_current_tile(
+                env, i_d_ref=-30.0, i_q_ref=60.0, omega_el=omega, measurement_std={"i_d": 5.0, "i_q": 5.0})
+            kw["policy_carry"] = carry0
+        elif policy is sched_tile:
+            kw["policy_carry"] = sched_c0
+        elif policy.n_carry:
+            kw["policy_carry"] = tuple(torch.zeros(env.batch_size, device=DEVICE, dtype=env.dtype) for _ in range(2))
+        _, state0, omega_t, refs = pcl_inputs(env, gen, omega)
+        if policy.policy_id:
+            kw["obs_noise_tm"], kw["obs_noise_cols"] = sensor_slab(env, T, gen), (0, 1)
+        for name in ("obs_noise_tm", "proc_noise_tm"):
+            if name in kw:
+                kw[name] = kw[name].to(env.dtype)
+        err, finite = pcl_deviation(PCL, env, policy, T, state0, omega_t, ref_leaves=refs, **kw)
+        ok = finite and err == 0.0
+        log(f"[pmsm closed loop vs plain] {label}: max abs deviation {err!r} (tolerance 0.0) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(label)
+    if failures:
+        raise AssertionError(f"PMSM closed-loop kernel disagrees with its plain version: {failures}")
+
+
+def phase_pcl_main(ex, PCL):
+    """PMSM closed-loop main cases at full width: saturated BRUSA, B = 65,536,
+    float32, Euler, tau = 1e-4, deadtime 1, control_state (i_d, i_q); returns
+    the kernel table entries.  A: the P law over T = 2,048, final state only;
+    B: the PI law over T = 2,048; C: the gain-scheduled sensorless tile over
+    T = 2,048 with a 3 A sensor slab; D: the PI law collected through
+    RolloutCollector.collect_policy_fused over T = 256."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+    B, T, T_D = B_MAIN, T_PCL, T_PMSM
+    env = ex.PMSM(batch_size=B, saturated=True, motor_variant=ex.MotorVariant.BRUSA, tau=1e-4,
+                  control_state=["i_d", "i_q"], device=DEVICE)
+    state, state0, omega, refs = pcl_inputs(env, gen)
+    p_law, pi_law = ex.AffinePolicy(PCL_P), ex.AffinePolicy(PCL_P, Ki=PCL_KI)
+    zeros2 = lambda: tuple(torch.zeros(B, device=DEVICE) for _ in range(2))
+    log(f"[pmsm closed loop main] PMSM BRUSA saturated B={B} float32 euler tau={env.tau} deadtime "
+        f"{env.env_properties.static_params.deadtime}; P and PI over T={T}, the sensorless tile over T={T}, "
+        f"collection over T={T_D}")
+    entries = []
+
+    def run_case(name, drive, kernel_fn, plain_fn, check, bound_args, n_steps):
+        PCL.PMSM_CL_KERNEL.reset_counts()
+        out = drive()
+        torch.cuda.synchronize()
+        launches = PCL.PMSM_CL_KERNEL.launches["pmsm_closed_loop"]
+        log(f"[pmsm closed loop main] {name}: launches during the main path {launches}")
+        if launches != 1:
+            raise AssertionError(f"the {name} main path made {launches} pmsm_closed_loop launches, not 1")
+        check(out)
+        outk = cl_flat(kernel_fn())
+        t0 = time.perf_counter()
+        outp = cl_flat(plain_fn())
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max_abs(outk, outp)
+        del outp
+        if err != 0.0:
+            raise AssertionError(f"{name}: kernel disagrees with its plain version at the main size ({err!r})")
+        ms = time_ms(kernel_fn)
+        env_ms = time_ms(drive)
+        (bound_ms, bound_by), per_step = pmsm_cl_bound(*bound_args)
+        steps = B * n_steps
+        log(f"[pmsm closed loop main] {name}: kernel {ms!r} ms = {steps / ms * 1e3:.4e} env-steps/s; "
+            f"entry point {env_ms!r} ms = {steps / env_ms * 1e3:.4e} env-steps/s (kernel {ms / env_ms:.1%}); "
+            f"bound {bound_ms!r} ms ({bound_by}, {per_step} operations per step and drive); "
+            f"{bound_ms / ms:.1%} of the bound; plain {plain_ms!r} ms (one run, full size); max abs {err!r}")
+        entries.append({
+            "name": name, "route": "cuda", "source": PCL_SOURCE, "replaces": PCL_REPLACES, "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,
+        })
+
+    def check_final(out, n_extra=0):
+        obs = out[0]
+        if tuple(obs.shape) != (B, 10) or len(out) != 2 + n_extra or not bool(torch.isfinite(obs).all()):
+            raise AssertionError(f"unexpected final-only closed-loop result: {tuple(obs.shape)}")
+        phys = out[1].physical_state
+        err_d = (phys.i_d - state.reference.i_d).abs().mean()
+        err_q = (phys.i_q - state.reference.i_q).abs().mean()
+        log(f"[pmsm closed loop main]   mean |i_ref - i| after {T} steps: d {float(err_d):.3f} A, "
+            f"q {float(err_q):.3f} A")
+
+    kw = dict(tau=env.tau, solver=env._solver, props=env.env_properties, ref_leaves=refs)
+    run_case("pmsm_closed_loop_p", lambda: env.fused_closed_loop(state, p_law, T),
+             lambda: PCL.kernel_pmsm_closed_loop(env, state0, omega, p_law, T, **kw),
+             lambda: PCL.plain_pmsm_closed_loop(env, state0, omega, p_law, T, **kw), check_final,
+             (env, p_law.kernel_spec(torch.float32, DEVICE), B, T, 0, 0, 2), T)
+    c0 = zeros2()
+    run_case("pmsm_closed_loop_pi", lambda: env.fused_closed_loop(state, pi_law, T, policy_carry=c0),
+             lambda: PCL.kernel_pmsm_closed_loop(env, state0, omega, pi_law, T, policy_carry=c0, **kw),
+             lambda: PCL.plain_pmsm_closed_loop(env, state0, omega, pi_law, T, policy_carry=c0, **kw),
+             lambda out: check_final(out, 1), (env, pi_law.kernel_spec(torch.float32, DEVICE), B, T, 0, 2, 2), T)
+
+    # C: gain-scheduled sensorless control, the fleet pinned at omega_el = 1200 rad/s
+    senv = ex.PMSM(batch_size=B, saturated=True, motor_variant=ex.MotorVariant.BRUSA, tau=1e-4, device=DEVICE)
+    tile, sc0, sched = ex.make_pmsm_saturated_sensorless_current_tile(
+        senv, i_d_ref=-100.0, i_q_ref=150.0, omega_el=OMEGA_SENSORLESS,
+        measurement_std={"i_d": SENSOR_SIGMA, "i_q": SENSOR_SIGMA})
+    _, s_state0, s_omega, _ = pcl_inputs(senv, gen, OMEGA_SENSORLESS)
+    slab = sensor_slab(senv, T, gen)
+    log(f"[pmsm closed loop main] sensorless: {SENSOR_SIGMA} A sensor slab {tuple(slab.shape)}, "
+        f"{slab.numel() * slab.element_size() / 1e9:.3f} GB, drawn on the card")
+    skw = dict(policy_carry=sc0, sched_lut=sched, obs_noise_tm=slab, obs_noise_cols=(0, 1))
+    pn = senv.env_properties.physical_normalizations
+
+    def check_sensorless(out):
+        final, _, carry, _, _ = out
+        i_d, i_q = final[0].double(), final[1].double()
+        b_d = (carry[0].double() + 1) / 2 * (pn.i_d.max - pn.i_d.min) + pn.i_d.min
+        b_q = (carry[1].double() + 1) / 2 * (pn.i_q.max - pn.i_q.min) + pn.i_q.min
+        mean_d, mean_q = float(i_d.mean()), float(i_q.mean())
+        rmse_d = float(((b_d - i_d) ** 2).mean().sqrt())
+        rmse_q = float(((b_q - i_q) ** 2).mean().sqrt())
+        log(f"[pmsm closed loop main]   sensorless after {T} steps: mean i_d {mean_d:.4f} A (setpoint -100), "
+            f"mean i_q {mean_q:.4f} A (setpoint 150), mean |error| d {float((i_d + 100).abs().mean()):.4f} A, "
+            f"q {float((i_q - 150).abs().mean()):.4f} A; belief RMSE d {rmse_d:.4f} A, q {rmse_q:.4f} A "
+            f"(sensor {SENSOR_SIGMA} A)")
+        if not (abs(mean_d + 100) < 1.0 and abs(mean_q - 150) < 1.5 and max(rmse_d, rmse_q) < SENSOR_SIGMA):
+            raise AssertionError("the sensorless fleet did not settle, or its belief is worse than the sensor")
+
+    sensorless = lambda kernel: pcl_run(PCL, senv, tile, T, s_state0, s_omega, kernel, **skw)
+    run_case("pmsm_closed_loop_sensorless", lambda: PCL.pmsm_closed_loop(senv, s_state0, s_omega, tile, T, **skw),
+             lambda: sensorless(True), lambda: sensorless(False), check_sensorless,
+             (senv, tile.kernel_spec(torch.float32, DEVICE), B, T, 0, 6, 0, 10, 2), T)
+    del slab, skw
+
+    # D: the PI law collected with rewards and flags, a save every step
+    collector = ex.RolloutCollector(env)
+    dkw = dict(kw, traj_stride=1, policy_carry=c0)
+
+    def check_batch(out):
+        batch, final, carry = out
+        shapes = (tuple(batch.observations.shape), tuple(batch.actions.shape), tuple(batch.rewards.shape))
+        if shapes != ((B, T_D, 10), (B, T_D, 2), (B, T_D, 1)):
+            raise AssertionError(f"unexpected trajectory batch shapes {shapes}")
+        if not all(bool(torch.isfinite(x).all()) for x in (batch.observations, batch.actions, batch.rewards)):
+            raise AssertionError("non-finite trajectory batch")
+        log(f"[pmsm closed loop main]   collected {B}x{T_D} steps, mean reward {float(batch.rewards.mean()):.6f}, "
+            f"terminated share {float(batch.terminated.float().mean()):.4f}")
+
+    run_case("pmsm_closed_loop_collect",
+             lambda: collector.collect_policy_fused(pi_law, state, T_D, policy_carry=c0),
+             lambda: PCL.kernel_pmsm_closed_loop(env, state0, omega, pi_law, T_D, **dkw),
+             lambda: PCL.plain_pmsm_closed_loop(env, state0, omega, pi_law, T_D, **dkw), check_batch,
+             (env, pi_law.kernel_spec(torch.float32, DEVICE), B, T_D, T_D, 2, 2), T_D)
+    from exciting_environments_torch.ops.kernels.pmsm_stepper import _eps_trajectory
+
+    replay_ms = time_ms(lambda: _eps_trajectory(state0[2], omega, env.tau, T_D, env._solver))
+    log(f"[pmsm closed loop main] pmsm_closed_loop_collect: the eager {T_D}-step angle replay of the trajectory "
+        f"alone {replay_ms!r} ms")
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     csrc = ROOT / "exciting_environments_torch" / "csrc"
-    if not all((csrc / f"{name}.cu").is_file() for name in ("stepper", "pmsm_stepper", "closed_loop")):
+    if not all((csrc / f"{name}.cu").is_file() for name in ("stepper", "pmsm_stepper", "closed_loop",
+                                                           "pmsm_closed_loop")):
         print("chip_smoke: run it from a checkout of the repository (package not found)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
     import exciting_environments_torch as ex
     from exciting_environments_torch.ops.kernels import closed_loop as CL
+    from exciting_environments_torch.ops.kernels import pmsm_closed_loop as PCL
     from exciting_environments_torch.ops.kernels import pmsm_stepper as PK
     from exciting_environments_torch.ops.kernels import stepper as K
 
@@ -858,6 +1186,8 @@ def main() -> int:
     kernels += phase_pmsm_main(ex, PK)
     phase_cl_kernel_vs_plain(ex, CL)
     kernels += phase_cl_main(ex, CL)
+    phase_pcl_kernel_vs_plain(ex, PCL)
+    kernels += phase_pcl_main(ex, PCL)
     if "jax" in sys.modules or any(m.startswith("exciting_environments_tpu") for m in sys.modules):
         raise AssertionError("the port pulled in JAX or the JAX package")
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")

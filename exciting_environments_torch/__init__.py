@@ -7,7 +7,9 @@ run through hand-written CUDA kernels (``csrc/stepper.cu`` for the classic
 environments, ``csrc/pmsm_stepper.cu`` for the PMSM drive) on an NVIDIA
 Hopper GPU, and the closed loops (``fused_closed_loop``,
 ``RolloutCollector.collect_policy_fused``) with the policy inside
-``csrc/closed_loop.cu``.  Entry points run on the CUDA device unless the
+``csrc/closed_loop.cu`` (classic environments) or
+``csrc/pmsm_closed_loop.cu`` (the PMSM drive, with the sensorless current
+tiles of ``utils/foc.py``).  Entry points run on the CUDA device unless the
 caller passes ``device="cpu"``.
 """
 
@@ -19,7 +21,12 @@ from exciting_environments_torch.core.env import CoreEnvironment
 from exciting_environments_torch.core.registration import EnvironmentRegistry
 from exciting_environments_torch.models import PMSM, CartPole, MassSpringDamper, MotorVariant, Pendulum
 from exciting_environments_torch.ops import solvers
+from exciting_environments_torch.ops.lut import ScheduledLUT
 from exciting_environments_torch.ops.policies import AffinePolicy
 from exciting_environments_torch.utils import MinMaxNormalization
 from exciting_environments_torch.utils.collect import RolloutCollector
+from exciting_environments_torch.utils.foc import (
+    make_pmsm_saturated_sensorless_current_tile,
+    make_pmsm_sensorless_current_tile,
+)
 from exciting_environments_torch.utils.rl_fused import make_actor_tile

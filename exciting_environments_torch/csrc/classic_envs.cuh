@@ -24,29 +24,9 @@ __device__ __forceinline__ Weak<T> param(const ParamView& p, int i, long long b)
     return weak_load<T>(p.ptr[i], p.value[i], b);
 }
 
-__device__ __forceinline__ float dsin(float x) { return sinf(x); }
-__device__ __forceinline__ double dsin(double x) { return sin(x); }
-__device__ __forceinline__ float dcos(float x) { return cosf(x); }
-__device__ __forceinline__ double dcos(double x) { return cos(x); }
-__device__ __forceinline__ float dfmod(float x, float y) { return fmodf(x, y); }
-__device__ __forceinline__ double dfmod(double x, double y) { return fmod(x, y); }
-
 // torch.sign: (0 < x) - (x < 0)
 template <typename T>
 __device__ __forceinline__ T dsign(T x) { return (T)((T(0) < x) - (x < T(0))); }
-
-// ((y + pi) % (2 pi)) - pi with the floored remainder of torch.remainder /
-// jnp.remainder: fmod, then add the divisor where the signs differ and the
-// result is non-zero.  Constants are Python floats rounded to T.
-template <typename T>
-__device__ __forceinline__ T wrap_angle(T y) {
-    const T pi = (T)3.141592653589793;
-    const T two_pi = (T)6.283185307179586;
-    const T s = y + pi;
-    T m = dfmod(s, two_pi);
-    if (m != T(0) && ((m < T(0)) != (two_pi < T(0)))) m = m + two_pi;
-    return m - pi;
-}
 
 // ---------------------------------------------------------------------------
 // Environment functors.  prepare() folds the parameters once per instance;

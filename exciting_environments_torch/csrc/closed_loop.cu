@@ -15,9 +15,9 @@
 // The policy.  Pallas traces any Python function into the kernel; a CUDA
 // kernel cannot, so the policy families the library's users run are compiled
 // in as functors (ops/policies.py holds their plain versions):
-//   * AffineLaw: a_j = b_j + sum_i K[j][i] obs_i, optionally a carried
-//     integrator c_j += sum_i Ki[j][i] obs_i added to a_j, and a clamp
-//     (the PD and PI tracking laws);
+//   * AffineLaw (policy_laws.cuh): a_j = b_j + sum_i K[j][i] obs_i,
+//     optionally a carried integrator c_j += sum_i Ki[j][i] obs_i added to
+//     a_j, and a clamp (the PD and PI tracking laws);
 //   * ActorLaw: the PPO actor of utils/rl_fused.py, a tanh MLP with a linear
 //     head, plus exp(log_std_j) * z with z a counter-hash normal draw of
 //     (instance id, step, action dim, seed), clamped to [-1, 1].
@@ -56,6 +56,7 @@
 
 #include "classic_envs.cuh"
 #include "eager_rules.cuh"
+#include "policy_laws.cuh"
 
 #define MAX_STAGES 7
 #define MAX_STATE 4
@@ -116,16 +117,8 @@ __device__ __forceinline__ float dexp(float x) { return expf(x); }
 __device__ __forceinline__ double dexp(double x) { return exp(x); }
 __device__ __forceinline__ float dlog(float x) { return logf(x); }
 __device__ __forceinline__ double dlog(double x) { return log(x); }
-__device__ __forceinline__ float dsqrt(float x) { return sqrtf(x); }
-__device__ __forceinline__ double dsqrt(double x) { return sqrt(x); }
 __device__ __forceinline__ float dtanh(float x) { return tanhf(x); }
 __device__ __forceinline__ double dtanh(double x) { return tanh(x); }
-
-// torch.clamp(x, lo, hi): a NaN stays NaN (fminf/fmaxf would drop it)
-template <typename T>
-__device__ __forceinline__ T clampv(T x, T lo, T hi) {
-    return x < lo ? lo : (x > hi ? hi : x);
-}
 
 // ---------------------------------------------------------------------------
 // The counter-hash normal draw of utils/rl_fused.py::_hash_normal
@@ -161,39 +154,11 @@ __device__ __forceinline__ T hash_normal(int id, int t, int j, int seed) {
 // policy carry (updated in place) and a the normalized actions (out).
 // ---------------------------------------------------------------------------
 
-// ops/policies.py::AffinePolicy; pp = K (A x n_obs), b (A), [Ki (A x n_obs)]
-struct AffineLaw {
-    template <typename T, int A>
-    __device__ __forceinline__ static void act(const ClosedLoopArgs& args, const T* pp, const T* obs, int n_obs, int,
-                               T* carry, T* a) {
-        const T* K = pp;
-        const T* bias = pp + A * n_obs;
-        const T* Ki = bias + A;
-#pragma unroll
-        for (int j = 0; j < A; ++j) {
-            T acc = bias[j];
-#pragma unroll
-            for (int i = 0; i < MAX_OBS; ++i)
-                if (i < n_obs) acc = acc + K[j * n_obs + i] * obs[i];
-            if (args.has_integral) {
-                T c = carry[j];
-#pragma unroll
-                for (int i = 0; i < MAX_OBS; ++i)
-                    if (i < n_obs) c = c + Ki[j * n_obs + i] * obs[i];
-                carry[j] = c;
-                acc = acc + c;
-            }
-            if (args.has_clip) acc = clampv(acc, (T)(-args.clip), (T)args.clip);
-            a[j] = acc;
-        }
-    }
-};
-
 // utils/rl_fused.py::make_actor_tile; pp = per layer w (m x n, [i][j]) and
 // b (n), then log_std (A), then the float-encoded seed; carry[0] is the
 // instance id
 struct ActorLaw {
-    template <typename T, int A>
+    template <typename T, int A, int MAX_N>
     __device__ __forceinline__ static void act(const ClosedLoopArgs& args, const T* pp, const T* obs, int n_obs, int t,
                                T* carry, T* a) {
         T h[MAX_WIDTH], out[MAX_WIDTH];
@@ -302,7 +267,7 @@ __global__ void __launch_bounds__(128) closed_loop_kernel(const __grid_constant_
             }
         }
         T a[A];
-        Policy::template act<T, A>(args, pp, obs, n_obs, t, c, a);
+        Policy::template act<T, A, MAX_OBS>(args, pp, obs, n_obs, t, c, a);
 
         // MinMaxNormalization.denormalize, then the RK step under the held action
         T u[A];

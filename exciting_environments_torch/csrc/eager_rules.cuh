@@ -1,12 +1,13 @@
 // PyTorch eager arithmetic rules that a kernel mirrors to agree bit for bit
-// with its plain PyTorch version on the card.  Shared by stepper.cu and
-// pmsm_stepper.cu.
+// with its plain PyTorch version on the card.  Shared by every kernel in
+// csrc/.
 //
 // Build with --fmad=false, so that a * b + c is not contracted into an FMA
 // (PyTorch's elementwise kernels round the product and the sum apart).
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math.h>
 
 // ---------------------------------------------------------------------------
 // Python-number folding.  An expression over scalar parameters is computed in
@@ -114,4 +115,41 @@ __device__ __forceinline__ T lincomb(T y, const T (&ks)[NS][N], int leaf, const 
         }
     }
     return any ? y + tau * acc : y;
+}
+
+// ---------------------------------------------------------------------------
+// Elementwise functions as PyTorch's CUDA kernels compute them
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float dsin(float x) { return sinf(x); }
+__device__ __forceinline__ double dsin(double x) { return sin(x); }
+__device__ __forceinline__ float dcos(float x) { return cosf(x); }
+__device__ __forceinline__ double dcos(double x) { return cos(x); }
+__device__ __forceinline__ float dfmod(float x, float y) { return fmodf(x, y); }
+__device__ __forceinline__ double dfmod(double x, double y) { return fmod(x, y); }
+__device__ __forceinline__ float dsqrt(float x) { return sqrtf(x); }
+__device__ __forceinline__ double dsqrt(double x) { return sqrt(x); }
+
+// torch.remainder / jnp.remainder (floored): fmod, then add the divisor
+// where the signs differ and the result is non-zero
+template <typename T>
+__device__ __forceinline__ T floored_mod(T x, T m) {
+    T r = dfmod(x, m);
+    if (r != T(0) && ((r < T(0)) != (m < T(0)))) r = r + m;
+    return r;
+}
+
+// ((y + pi) % (2 pi)) - pi, the solver step's angle wrap.  Constants are
+// Python floats rounded to T.
+template <typename T>
+__device__ __forceinline__ T wrap_angle(T y) {
+    const T pi = (T)3.141592653589793;
+    const T two_pi = (T)6.283185307179586;
+    return floored_mod(y + pi, two_pi) - pi;
+}
+
+// torch.clamp(x, lo, hi): a NaN stays NaN (fminf/fmaxf would drop it)
+template <typename T>
+__device__ __forceinline__ T clampv(T x, T lo, T hi) {
+    return x < lo ? lo : (x > hi ? hi : x);
 }

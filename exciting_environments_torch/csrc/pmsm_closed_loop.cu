@@ -1,0 +1,616 @@
+// Closed-loop rollout of the PMSM drive with the policy inside the kernel:
+// every step builds the observation from the drive state, evaluates the
+// policy, constrains its action into the inverter hexagon, swaps the
+// deadtime buffer and takes the RK step of the currents over the magnetics
+// table, for the whole horizon of T steps in one launch.
+//
+// Replaces the TPU kernel exciting_environments_tpu/ops/pallas/pmsm_stepper.py::
+// _make_cl_kernel (launcher _pmsm_cl_launch, constraint _hex_constrain).
+// Per step, in this order (the TPU kernel's body):
+//   1. torque from the currents (its gather is the first RK stage's);
+//   2. obs = normalized i_d, i_q, omega, torque, raw cos/sin eps, normalized
+//      buffers, then the normalized references; + the sensor-noise row;
+//   3. the scheduled gather (ScheduledLUT) of n_sched maps at the policy's
+//      denormalized belief currents (two carry leaves);
+//   4. a = policy(obs, sched, t, carry), carry updated;
+//   5. u_con = the hexagon constraint of a at the deadtime-advanced angle;
+//   6. deadtime 1: the buffer drives the plant and takes u_con; else u_con;
+//   7. the RK step of (i_d, i_q); + the process-noise row on the currents;
+//   8. eps += tau * rate, wrapped into [-pi, pi).
+// Every traj_stride steps it saves the post-step i_d, i_q and torque (the
+// torque from the next step's gather, or after the loop), u_con, a and the
+// carry; at the end the five state values, the torque, the last applied
+// voltage (for an FSAL solver's final carry) and the carry.
+//
+// The policy families are compiled in as functors (ops/policies.py and
+// utils/foc.py hold their plain versions): AffineLaw (policy_laws.cuh, the
+// P and PI laws), SensorlessLaw (a constant-gain Kalman current observer and
+// a decoupled PI on its belief, linear magnetics) and ScheduledLaw (the
+// gain-scheduled observer and PI of the saturated drive, which reads the
+// scheduled gather).  Their flat parameters are copied into shared memory
+// once per block and read as broadcasts.
+//
+// What bounds it on an H100: operations.  Without saves or slabs a drive
+// reads its state, parameters and references once and writes its finals
+// once; in between each step does a few hundred float32 operations: two
+// bilinear gathers of six channels (the torque's, which is also the first
+// stage's, and one per further stage), the observation, the policy, two
+// sincos pairs and the hexagon.  The sensorless case streams its sensor
+// slab, 8 B per step and drive in float32.
+//
+// What the design does about it: one thread per drive keeps the state,
+// omega and up to six carry leaves in registers for all T steps.  The
+// magnetics table (6 nx ny values, 35,616 B for BRUSA in float32) sits in
+// dynamic shared memory as in pmsm_stepper.cu.  The scheduled maps (10
+// channels, 59,360 B more for BRUSA) are read from device memory through the
+// read-only data cache: both tables in shared memory would leave room for
+// two 128-thread blocks per SM (one in float64), while the table alone
+// leaves it to the registers.  Slabs are read time-major (T, B, n) and saves
+// written time-major (n_saves, B); any B works (the ragged edge is masked).
+// The TPU kernel's (8, 128) tiles, time chunks, revisited output blocks,
+// VMEM budgets, SMEM scalar tree and one-hot gathers have no counterpart.
+//
+// Exactness: every operation mirrors the plain version
+// (ops/kernels/pmsm_closed_loop.py::plain_pmsm_cl_step with the policies'
+// forward) in order and working precision, under PyTorch's CUDA eager rules
+// (eager_rules.cuh): a division by a Python number (a scalar band's
+// max - min, a grid step) is a multiply by its reciprocal taken in double,
+// a division by a per-batch band is a true division, `u_lim / m` is
+// reciprocal(m) * u_lim as Tensor.__rtruediv__ computes it, and the
+// policies' Python-float constants arrive folded in the flat vector.  Build
+// with --fmad=false.
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+#include "eager_rules.cuh"
+#include "pmsm_drive.cuh"
+#include "policy_laws.cuh"
+
+#define MAX_STAGES 7
+#define MAX_REFS 4
+#define N_BASE_OBS 8
+#define MAX_OBS (N_BASE_OBS + MAX_REFS)
+#define MAX_CARRY 6
+#define MAX_SCHED 10
+#define N_BANDS 17
+#define MAX_POLICY_PARAMS 256
+
+// band slots, in the order of PBN_FIELDS in ops/kernels/pmsm_closed_loop.py:
+// u_dc, the action bands, then (min, max) of the six observation bands
+// (i_d, i_q, omega_el, torque, u_d_buffer, u_q_buffer)
+enum { B_UDC = 0, B_AD_MN = 1, B_AD_MX = 2, B_AQ_MN = 3, B_AQ_MX = 4, B_OBS = 5 };
+
+// Mirrored field for field by PmsmClArgs in ops/kernels/pmsm_closed_loop.py.
+struct PmsmClArgs {
+    double tau;
+    double a[MAX_STAGES][MAX_STAGES];  // a[s][j]: weight of stage j in stage s's input
+    double b[MAX_STAGES];
+    double rate_b[MAX_STAGES];         // the full tableau's b, for the angle rate
+    double param_value[N_PARAMS];      // scalar parameter (param_ptr null)
+    double x0, dx, y0, dy;             // LUT grid (Python numbers)
+    double band_value[N_BANDS];        // scalar band (band_ptr null)
+    double adv_scale;                  // deadtime + 0.5
+    double rot_re[8], rot_im[8];       // ops/transforms.py ROTATION_RE/IM at [b0][b1][b2]
+    double clip;                       // AffineLaw clamp bound (with has_clip)
+    const void* param_ptr[N_PARAMS];   // per-batch parameter (B,), or null
+    const void* band_ptr[N_BANDS];     // per-batch band (B,), or null
+    const void* lut;                   // (6, nx, ny), saturated only
+    const void* sched;                 // (n_sched, nx, ny), or null
+    const void* state0[5];             // (B,) i_d, i_q, eps, u_d_buffer, u_q_buffer
+    const void* omega;                 // (B,)
+    const void* carry0[MAX_CARRY];     // (B,) per policy-carry leaf
+    const void* refs[MAX_REFS];        // normalized references, (B,) each
+    const void* policy_params;         // flat (n_pp,), or null
+    const void* obs_noise;             // (T, B, n_obs_noise), or null
+    const void* proc_noise;            // (T, B, n_proc_noise), or null
+    void* out[6];                      // (B,) i_d, i_q, eps, u_d_buffer, u_q_buffer, torque
+    void* u_last[2];                   // (B,) last applied voltage, or null
+    void* carry_out[MAX_CARRY];
+    void* traj[7];                     // (n_saves, B) i_d, i_q, torque, u_con_d, u_con_q, a_d, a_q, or null
+    void* traj_carry[MAX_CARRY];
+    long long batch;
+    int nx, ny;
+    int n_steps;
+    int n_stages;                      // stages evaluated (the FSAL last one is skipped)
+    int n_rate;                        // entries of rate_b
+    int saturated;
+    int deadtime;                      // 0 or 1
+    int n_refs;
+    int n_carry;
+    int n_pp;
+    int n_sched;                       // 0 or MAX_SCHED
+    int sched_c0, sched_c1;            // carry leaves of the normalized belief currents
+    int policy_id;                     // 0 AffineLaw, 2 SensorlessLaw, 3 ScheduledLaw
+    int has_integral;                  // AffineLaw: Ki follows K and b
+    int has_clip;                      // AffineLaw
+    int delayed;                       // sensorless laws: the applied voltage is last step's command
+    int obs_cols[MAX_OBS];
+    int n_obs_noise;
+    int noise_idx[2];
+    int n_proc_noise;
+    int traj_stride;                   // 0: no trajectory saves
+};
+
+// ---------------------------------------------------------------------------
+// Policy functors: act(args, pp, obs, n_obs, sv, carry, a) with sv the
+// scheduled gather's channels
+// ---------------------------------------------------------------------------
+
+struct AffineAdapter {
+    template <typename T>
+    __device__ __forceinline__ static void act(const PmsmClArgs& args, const T* pp, const T* obs, int n_obs,
+                                               const T*, int t, T* c, T* a) {
+        AffineLaw::template act<T, 2, MAX_OBS>(args, pp, obs, n_obs, t, c, a);
+    }
+};
+
+// The inscribed-circle vector limit of both sensorless tiles: the scale
+// torch.clamp(u_lim / torch.clamp(|u|, min=1e-9), max=1.0), with the
+// division as reciprocal(m) * u_lim.
+template <typename T>
+__device__ __forceinline__ T vector_scale(T u_d, T u_q, T u_lim) {
+    const T mag = dsqrt(u_d * u_d + u_q * u_q);
+    const T floor = (T)1e-9;
+    const T m = mag < floor ? floor : mag;
+    const T s = (T(1) / m) * u_lim;
+    return s > T(1) ? T(1) : s;
+}
+
+// utils/foc.py::make_pmsm_sensorless_current_tile (SensorlessPolicy); the
+// slots of pp are SENSORLESS_SLOTS there.  carry = (belief d, belief q,
+// integrator d, integrator q[, delayed command d, q]).
+struct SensorlessLaw {
+    enum { K00, K01, K10, K11, A00, A01, A10, A11, B00, B01, B10, B11, C0, C1, SPAN_D, MN_D, SPAN_Q, MN_Q,
+           REF_D, REF_Q, KP_D, KP_Q, FF_D, FF_Q, W_LQ, OMEGA, L_D, PSI_P, U_LIM, KITAU_D, KITAU_Q, AW_D, AW_Q,
+           AMN_D, AINV_D, AMN_Q, AINV_Q, N_SLOTS };
+    template <typename T>
+    __device__ __forceinline__ static void act(const PmsmClArgs& args, const T* pp, const T* obs, int,
+                                               const T*, int, T* c, T* a) {
+        const T xh_d = c[0], xh_q = c[1], int_d = c[2], int_q = c[3];
+        const T in_d = obs[0] - xh_d;
+        const T in_q = obs[1] - xh_q;
+        const T xc_d = xh_d + pp[K00] * in_d + pp[K01] * in_q;
+        const T xc_q = xh_q + pp[K10] * in_d + pp[K11] * in_q;
+        const T i_d = (xc_d + T(1)) * (T)0.5 * pp[SPAN_D] + pp[MN_D];
+        const T i_q = (xc_q + T(1)) * (T)0.5 * pp[SPAN_Q] + pp[MN_Q];
+        const T e_d = pp[REF_D] - i_d;
+        const T e_q = pp[REF_Q] - i_q;
+        const T ud_unsat = pp[KP_D] * e_d + int_d + pp[FF_D] - pp[W_LQ] * i_q;
+        const T uq_unsat = pp[KP_Q] * e_q + int_q + pp[FF_Q] + pp[OMEGA] * (pp[L_D] * i_d + pp[PSI_P]);
+        const T s = vector_scale(ud_unsat, uq_unsat, pp[U_LIM]);
+        const T u_d = ud_unsat * s;
+        const T u_q = uq_unsat * s;
+        const T int_d1 = int_d + pp[KITAU_D] * e_d + pp[AW_D] * (u_d - ud_unsat);
+        const T int_q1 = int_q + pp[KITAU_Q] * e_q + pp[AW_Q] * (u_q - uq_unsat);
+        const T a_d = (T)2 * (u_d - pp[AMN_D]) * pp[AINV_D] - T(1);
+        const T a_q = (T)2 * (u_q - pp[AMN_Q]) * pp[AINV_Q] - T(1);
+        const T ap_d = args.delayed ? c[4] : a_d;
+        const T ap_q = args.delayed ? c[5] : a_q;
+        c[0] = pp[C0] + pp[A00] * xc_d + pp[A01] * xc_q + pp[B00] * ap_d + pp[B01] * ap_q;
+        c[1] = pp[C1] + pp[A10] * xc_d + pp[A11] * xc_q + pp[B10] * ap_d + pp[B11] * ap_q;
+        c[2] = int_d1;
+        c[3] = int_q1;
+        if (args.delayed) {
+            c[4] = a_d;
+            c[5] = a_q;
+        }
+        a[0] = a_d;
+        a[1] = a_q;
+    }
+};
+
+// utils/foc.py::make_pmsm_saturated_sensorless_current_tile
+// (ScheduledSensorlessPolicy); the slots of pp are SCHEDULED_SLOTS there.
+// sv = L_dd, L_dq, L_qd, L_qq, Psi_d, Psi_q, K00, K01, K10, K11 gathered at
+// the belief.
+struct ScheduledLaw {
+    enum { SPAN_D, MN_D, SPAN_Q, MN_Q, BANDWIDTH, INV_TI, REF_D, REF_Q, FF_D, FF_Q, OMEGA, U_LIM, TAU, TAU_TI,
+           AMN_D, AINV_D, AMN_Q, AINV_Q, ASPAN_D, ASPAN_Q, R_S, INV_SPAN_D, INV_SPAN_Q, N_SLOTS };
+    template <typename T>
+    __device__ __forceinline__ static void act(const PmsmClArgs& args, const T* pp, const T* obs, int,
+                                               const T* sv, int, T* c, T* a) {
+        const T xh_d = c[0], xh_q = c[1], int_d = c[2], int_q = c[3];
+        const T l_dd = sv[0], l_dq = sv[1], l_qd = sv[2], l_qq = sv[3], psi_d = sv[4], psi_q = sv[5];
+        const T k00 = sv[6], k01 = sv[7], k10 = sv[8], k11 = sv[9];
+        // 1. assimilate
+        const T in_d = obs[0] - xh_d;
+        const T in_q = obs[1] - xh_q;
+        const T xc_d = xh_d + k00 * in_d + k01 * in_q;
+        const T xc_q = xh_q + k10 * in_d + k11 * in_q;
+        const T i_d = (xc_d + T(1)) * (T)0.5 * pp[SPAN_D] + pp[MN_D];
+        const T i_q = (xc_q + T(1)) * (T)0.5 * pp[SPAN_Q] + pp[MN_Q];
+        // 2. constant-bandwidth PI with the saturated back-EMF feedforward
+        const T kp_d = pp[BANDWIDTH] * l_dd;
+        const T kp_q = pp[BANDWIDTH] * l_qq;
+        const T ki_d = kp_d * pp[INV_TI];
+        const T ki_q = kp_q * pp[INV_TI];
+        const T e_d = pp[REF_D] - i_d;
+        const T e_q = pp[REF_Q] - i_q;
+        const T ud_unsat = kp_d * e_d + int_d + pp[FF_D] - pp[OMEGA] * psi_q;
+        const T uq_unsat = kp_q * e_q + int_q + pp[FF_Q] + pp[OMEGA] * psi_d;
+        // 3. inscribed-circle limit, back-calculation anti-windup
+        const T s = vector_scale(ud_unsat, uq_unsat, pp[U_LIM]);
+        const T u_d = ud_unsat * s;
+        const T u_q = uq_unsat * s;
+        const T int_d1 = int_d + ki_d * pp[TAU] * e_d + pp[TAU_TI] * (u_d - ud_unsat);
+        const T int_q1 = int_q + ki_q * pp[TAU] * e_q + pp[TAU_TI] * (u_q - uq_unsat);
+        const T a_d = (T)2 * (u_d - pp[AMN_D]) * pp[AINV_D] - T(1);
+        const T a_q = (T)2 * (u_q - pp[AMN_Q]) * pp[AINV_Q] - T(1);
+        const T ap_d = args.delayed ? c[4] : a_d;
+        const T ap_q = args.delayed ? c[5] : a_q;
+        // 4. predict: one Euler step of the saturated ODE at the applied voltage
+        const T u_ap_d = (ap_d + T(1)) * (T)0.5 * pp[ASPAN_D] + pp[AMN_D];
+        const T u_ap_q = (ap_q + T(1)) * (T)0.5 * pp[ASPAN_Q] + pp[AMN_Q];
+        const T det = l_dd * l_qq - l_dq * l_qd;
+        const T inv_dd = l_qq / det, inv_dq = -l_dq / det;
+        const T inv_qd = -l_qd / det, inv_qq = l_dd / det;
+        const T rhs_d = u_ap_d - pp[R_S] * i_d + pp[OMEGA] * psi_q;
+        const T rhs_q = u_ap_q - pp[R_S] * i_q - pp[OMEGA] * psi_d;
+        const T i_d1 = i_d + pp[TAU] * (inv_dd * rhs_d + inv_dq * rhs_q);
+        const T i_q1 = i_q + pp[TAU] * (inv_qd * rhs_d + inv_qq * rhs_q);
+        c[0] = (T)2 * (i_d1 - pp[MN_D]) * pp[INV_SPAN_D] - T(1);
+        c[1] = (T)2 * (i_q1 - pp[MN_Q]) * pp[INV_SPAN_Q] - T(1);
+        c[2] = int_d1;
+        c[3] = int_q1;
+        if (args.delayed) {
+            c[4] = a_d;
+            c[5] = a_q;
+        }
+        a[0] = a_d;
+        a[1] = a_q;
+    }
+};
+
+// ---------------------------------------------------------------------------
+// Per-instance bands and the hexagon
+// ---------------------------------------------------------------------------
+
+// The effective bands of one drive (eff_cl_norms): scalars folded in double
+// as Python folds them, per-batch planes in the working type.
+template <typename T>
+struct Bands {
+    T obs_lo[6];
+    Divisor<T> obs_span[6];  // 2 * (x - lo) / span
+    T obs_dlo[2], obs_dspan[2];  // (c + 1) / 2 * (max - min) + min for i_d, i_q
+    T act_lo[2], act_span[2];
+    T inv_half_dc;           // 1 / (u_dc / 2)
+    T half_dc;               // u_dc / 2
+};
+
+template <typename T>
+__device__ __forceinline__ Bands<T> bands(const PmsmClArgs& args, long long b) {
+    Weak<T> w[N_BANDS];
+#pragma unroll
+    for (int i = 0; i < N_BANDS; ++i) w[i] = weak_load<T>(args.band_ptr[i], args.band_value[i], b);
+    Bands<T> k;
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+        const Weak<T> mn = w[B_OBS + 2 * i], mx = w[B_OBS + 2 * i + 1];
+        k.obs_lo[i] = value(mn);
+        k.obs_span[i] = divisor(wsub(mx, mn));
+        if (i < 2) {
+            k.obs_dlo[i] = value(mn);
+            k.obs_dspan[i] = value(wsub(mx, mn));
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+        const Weak<T> mn = w[B_AD_MN + 2 * j], mx = w[B_AD_MX + 2 * j];
+        k.act_lo[j] = value(mn);
+        k.act_span[j] = value(wsub(mx, mn));
+    }
+    const Weak<T> u_dc = w[B_UDC];
+    if (u_dc.py) {
+        k.inv_half_dc = (T)(1.0 / (u_dc.d / 2.0));
+        k.half_dc = (T)(u_dc.d / 2.0);
+    } else {
+        k.half_dc = u_dc.v * (T)0.5;
+        k.inv_half_dc = T(1) / k.half_dc;
+    }
+    return k;
+}
+
+// 2 * (x - min) / (max - min) - 1
+template <typename T>
+__device__ __forceinline__ T normalize(const Bands<T>& k, int i, T x) {
+    return (T)2 * (x - k.obs_lo[i]) / k.obs_span[i] - T(1);
+}
+
+// pmsm_closed_loop.py::hex_constrain (the TPU kernel's _hex_constrain):
+// denormalize, rotate to alpha/beta at the deadtime-advanced angle, clip into
+// the hexagon with the linear sector test, rotate back
+template <typename T>
+__device__ __forceinline__ void hex_constrain(const PmsmClArgs& args, const Bands<T>& k, T a_d, T a_q, T eps,
+                                              T omega, T& u_con_d, T& u_con_q) {
+    const T u_d = (a_d + T(1)) * (T)0.5 * k.act_span[0] + k.act_lo[0];
+    const T u_q = (a_q + T(1)) * (T)0.5 * k.act_span[1] + k.act_lo[1];
+    const T nd = u_d * k.inv_half_dc;
+    const T nq = u_q * k.inv_half_dc;
+
+    const T two_pi = (T)6.283185307179586;
+    T adv = eps + omega * (T)args.tau * (T)args.adv_scale;
+    adv = floored_mod(adv, two_pi);
+    adv = adv + (adv > (T)3.141592653589793 ? -two_pi : -T(0));  // (adv > pi) * (-2 pi)
+
+    const T ca = dcos(-adv), sa = dsin(-adv);
+    const T alpha = ca * nd + sa * nq;
+    const T beta = -sa * nd + ca * nq;
+    const T s120 = (T)0.8660254037844386;
+    const int b0 = beta >= T(0);
+    const int b1 = (T)-0.5 * beta - s120 * alpha >= T(0);
+    const int b2 = (T)-0.5 * beta + s120 * alpha >= T(0);
+    const int idx = b0 * 4 + b1 * 2 + b2;
+    const T rot_re = (T)args.rot_re[idx], rot_im = (T)args.rot_im[idx];
+    T ra = alpha * rot_re - beta * rot_im;
+    T rb = alpha * rot_im + beta * rot_re;
+    ra = clampv(ra, (T)(-2.0 / 3.0), (T)(2.0 / 3.0));
+    rb = clampv(rb, T(0), (T)(2.0 / 3.0 * 1.7320508075688772));
+    const T oa = ra * rot_re + rb * rot_im;
+    const T ob = rb * rot_re - ra * rot_im;
+
+    const T cb = dcos(adv), sb = dsin(adv);
+    u_con_d = (cb * oa + sb * ob) * k.half_dc;
+    u_con_q = (-sb * oa + cb * ob) * k.half_dc;
+}
+
+// ---------------------------------------------------------------------------
+// The closed-loop kernel
+// ---------------------------------------------------------------------------
+
+template <typename T, int NS, bool SAT, class Policy>
+__global__ void __launch_bounds__(128) pmsm_closed_loop_kernel(const __grid_constant__ PmsmClArgs args) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    T* pp = reinterpret_cast<T*>(smem_raw);
+    T* lut = pp + args.n_pp;
+    {
+        // every thread of the block takes part before any returns
+        const T* src = static_cast<const T*>(args.policy_params);
+        for (int i = threadIdx.x; i < args.n_pp; i += blockDim.x) pp[i] = src[i];
+        if (SAT) {
+            const int n = N_CHANNELS * args.nx * args.ny;
+            const T* tab = static_cast<const T*>(args.lut);
+            for (int i = threadIdx.x; i < n; i += blockDim.x) lut[i] = tab[i];
+        }
+        __syncthreads();
+    }
+    const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (b >= args.batch) return;
+    const long long batch = args.batch;
+
+    const Drive<T> k = prepare<T>(args, b);  // pmsm_drive.cuh
+    const Bands<T> bd = bands<T>(args, b);
+    const T* sched = static_cast<const T*>(args.sched);
+    const T* obs_noise = static_cast<const T*>(args.obs_noise);
+    const T* proc_noise = static_cast<const T*>(args.proc_noise);
+    const T tau = (T)args.tau;
+    const T omega = k.omega;
+    const int n_obs = N_BASE_OBS + args.n_refs;
+
+    // the angle rate sum_j b_j * omega (unit weights not multiplied, zeros skipped)
+    T rate = T(0);
+    {
+        bool any = false;
+#pragma unroll
+        for (int j = 0; j < MAX_STAGES; ++j) {
+            if (j < args.n_rate && args.rate_b[j] != 0.0) {
+                const T term = args.rate_b[j] == 1.0 ? omega : (T)args.rate_b[j] * omega;
+                rate = any ? rate + term : term;
+                any = true;
+            }
+        }
+    }
+    const T obs_omega = normalize(bd, 2, omega);
+    T ref[MAX_REFS];
+#pragma unroll
+    for (int r = 0; r < MAX_REFS; ++r)
+        if (r < args.n_refs) ref[r] = static_cast<const T*>(args.refs[r])[b];
+
+    T i_d = static_cast<const T*>(args.state0[0])[b];
+    T i_q = static_cast<const T*>(args.state0[1])[b];
+    T eps = static_cast<const T*>(args.state0[2])[b];
+    T buf_d = static_cast<const T*>(args.state0[3])[b];
+    T buf_q = static_cast<const T*>(args.state0[4])[b];
+    T c[MAX_CARRY];
+#pragma unroll
+    for (int i = 0; i < MAX_CARRY; ++i) c[i] = i < args.n_carry ? static_cast<const T*>(args.carry0[i])[b] : T(0);
+    T u_app_d = T(0), u_app_q = T(0);
+
+    for (int t = 0; t < args.n_steps; ++t) {
+        // 1. torque from the currents; the gather feeds the first RK stage
+        T vals[N_CHANNELS];
+        T trq;
+        if (SAT) {
+            gather(lut, k, i_d, i_q, vals);
+            trq = saturated_torque(vals, k, i_d, i_q);
+        } else {
+            trq = linear_torque(k, i_d, i_q);
+        }
+        // the pending save's torque: this state is step t - 1's post-step state
+        if (args.traj_stride > 0 && t > 0 && t % args.traj_stride == 0)
+            static_cast<T*>(args.traj[2])[(long long)(t / args.traj_stride - 1) * batch + b] = trq;
+
+        // 2. observation (+ sensor noise)
+        T obs[MAX_OBS];
+        obs[0] = normalize(bd, 0, i_d);
+        obs[1] = normalize(bd, 1, i_q);
+        obs[2] = obs_omega;
+        obs[3] = normalize(bd, 3, trq);
+        obs[4] = dcos(eps);
+        obs[5] = dsin(eps);
+        obs[6] = normalize(bd, 4, buf_d);
+        obs[7] = normalize(bd, 5, buf_q);
+#pragma unroll
+        for (int r = 0; r < MAX_REFS; ++r) obs[N_BASE_OBS + r] = r < args.n_refs ? ref[r] : T(0);
+        if (args.n_obs_noise > 0) {
+#pragma unroll
+            for (int j = 0; j < MAX_OBS; ++j) {
+                if (j < args.n_obs_noise) {
+                    const T e = obs_noise[((long long)t * batch + b) * args.n_obs_noise + j];
+#pragma unroll
+                    for (int i = 0; i < MAX_OBS; ++i)
+                        if (args.obs_cols[j] == i) obs[i] = obs[i] + e;
+                }
+            }
+        }
+
+        // 3. the scheduled gather at the denormalized belief currents
+        T sv[MAX_SCHED];
+        if (args.n_sched > 0) {
+            T bc0 = c[0], bc1 = c[1];
+#pragma unroll
+            for (int i = 0; i < MAX_CARRY; ++i) {
+                if (args.sched_c0 == i) bc0 = c[i];
+                if (args.sched_c1 == i) bc1 = c[i];
+            }
+            const T bi_d = (bc0 + T(1)) * (T)0.5 * bd.obs_dspan[0] + bd.obs_dlo[0];
+            const T bi_q = (bc1 + T(1)) * (T)0.5 * bd.obs_dspan[1] + bd.obs_dlo[1];
+            gather_n<MAX_SCHED, true>(sched, k, bi_d, bi_q, sv);
+        }
+
+        // 4. the policy
+        T a[2];
+        Policy::template act<T>(args, pp, obs, n_obs, sv, t, c, a);
+
+        // 5. hexagon, 6. deadtime swap
+        T u_con_d, u_con_q;
+        hex_constrain(args, bd, a[0], a[1], eps, omega, u_con_d, u_con_q);
+        if (args.deadtime) {
+            u_app_d = buf_d;
+            u_app_q = buf_q;
+            buf_d = u_con_d;
+            buf_q = u_con_q;
+        } else {
+            u_app_d = u_con_d;
+            u_app_q = u_con_q;
+        }
+
+        // 7. the RK step of the currents (+ process noise)
+        const T y[2] = {i_d, i_q};
+        T ks[NS][2];
+        if (SAT)
+            saturated_rhs(vals, k, i_d, i_q, u_app_d, u_app_q, ks[0]);
+        else
+            linear_rhs(k, i_d, i_q, u_app_d, u_app_q, ks[0]);
+#pragma unroll
+        for (int s = 1; s < NS; ++s) {
+            const T yi[2] = {lincomb<T, NS, 2>(y[0], ks, 0, args.a[s], s, tau),
+                             lincomb<T, NS, 2>(y[1], ks, 1, args.a[s], s, tau)};
+            ode<T, SAT>(lut, k, yi, u_app_d, u_app_q, ks[s]);
+        }
+        i_d = lincomb<T, NS, 2>(y[0], ks, 0, args.b, NS, tau);
+        i_q = lincomb<T, NS, 2>(y[1], ks, 1, args.b, NS, tau);
+        if (args.n_proc_noise > 0) {
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+                if (j < args.n_proc_noise) {
+                    const T e = proc_noise[((long long)t * batch + b) * args.n_proc_noise + j];
+                    if (args.noise_idx[j] == 0) i_d = i_d + e;
+                    if (args.noise_idx[j] == 1) i_q = i_q + e;
+                }
+            }
+        }
+
+        // 8. the angle
+        eps = wrap_angle(eps + tau * rate);
+
+        if (args.traj_stride > 0 && (t + 1) % args.traj_stride == 0) {
+            const long long slot = (long long)((t + 1) / args.traj_stride - 1) * batch + b;
+            static_cast<T*>(args.traj[0])[slot] = i_d;
+            static_cast<T*>(args.traj[1])[slot] = i_q;
+            static_cast<T*>(args.traj[3])[slot] = u_con_d;
+            static_cast<T*>(args.traj[4])[slot] = u_con_q;
+            static_cast<T*>(args.traj[5])[slot] = a[0];
+            static_cast<T*>(args.traj[6])[slot] = a[1];
+#pragma unroll
+            for (int i = 0; i < MAX_CARRY; ++i)
+                if (i < args.n_carry) static_cast<T*>(args.traj_carry[i])[slot] = c[i];
+        }
+    }
+
+    const T trq = torque<T, SAT>(lut, k, i_d, i_q);
+    if (args.traj_stride > 0 && args.n_steps > 0)
+        static_cast<T*>(args.traj[2])[(long long)(args.n_steps / args.traj_stride - 1) * batch + b] = trq;
+    static_cast<T*>(args.out[0])[b] = i_d;
+    static_cast<T*>(args.out[1])[b] = i_q;
+    static_cast<T*>(args.out[2])[b] = eps;
+    static_cast<T*>(args.out[3])[b] = buf_d;
+    static_cast<T*>(args.out[4])[b] = buf_q;
+    static_cast<T*>(args.out[5])[b] = trq;
+    if (args.u_last[0] != nullptr) {
+        static_cast<T*>(args.u_last[0])[b] = u_app_d;
+        static_cast<T*>(args.u_last[1])[b] = u_app_q;
+    }
+#pragma unroll
+    for (int i = 0; i < MAX_CARRY; ++i)
+        if (i < args.n_carry) static_cast<T*>(args.carry_out[i])[b] = c[i];
+}
+
+// ---------------------------------------------------------------------------
+// Host entry point (plain C interface, loaded with ctypes)
+// ---------------------------------------------------------------------------
+
+static constexpr int THREADS = 128;
+static constexpr size_t STATIC_SMEM_LIMIT = 48 * 1024;
+
+template <typename T, int NS, bool SAT, class Policy>
+static int launch_one(const PmsmClArgs& args, cudaStream_t stream) {
+    const size_t smem = ((size_t)args.n_pp + (SAT ? (size_t)N_CHANNELS * args.nx * args.ny : 0)) * sizeof(T);
+    if (smem > STATIC_SMEM_LIMIT) {
+        // above 48 KB a launch is refused unless the kernel opts in
+        const cudaError_t err = cudaFuncSetAttribute(pmsm_closed_loop_kernel<T, NS, SAT, Policy>,
+                                                     cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) {
+            cudaGetLastError();  // clear it, so that no later launch reports it
+            return (int)err;
+        }
+    }
+    const unsigned blocks = (unsigned)((args.batch + THREADS - 1) / THREADS);
+    pmsm_closed_loop_kernel<T, NS, SAT, Policy><<<blocks, THREADS, smem, stream>>>(args);
+    return (int)cudaGetLastError();
+}
+
+template <typename T, bool SAT, class Policy>
+static int launch_stages(const PmsmClArgs& args, cudaStream_t stream) {
+    // the stage counts of the registered explicit solvers (FSAL last stage
+    // skipped): Euler 1, Midpoint and Heun 2, RK4 4, Tsit5 and Dopri5 6
+    switch (args.n_stages) {
+        case 1: return launch_one<T, 1, SAT, Policy>(args, stream);
+        case 2: return launch_one<T, 2, SAT, Policy>(args, stream);
+        case 4: return launch_one<T, 4, SAT, Policy>(args, stream);
+        case 6: return launch_one<T, 6, SAT, Policy>(args, stream);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+template <typename T>
+static int launch_dtype(const PmsmClArgs& args, cudaStream_t stream) {
+    switch (args.policy_id) {
+        case 0:
+            return args.saturated ? launch_stages<T, true, AffineAdapter>(args, stream)
+                                  : launch_stages<T, false, AffineAdapter>(args, stream);
+        case 2:  // built for linear magnetics, any stage count
+            if (args.saturated) return (int)cudaErrorInvalidValue;
+            return launch_stages<T, false, SensorlessLaw>(args, stream);
+        case 3:  // built for the saturated drive with a one-stage solver
+            if (!args.saturated || args.n_stages != 1 || args.n_sched != MAX_SCHED) return (int)cudaErrorInvalidValue;
+            return launch_one<T, 1, true, ScheduledLaw>(args, stream);
+        default:
+            return (int)cudaErrorInvalidValue;
+    }
+}
+
+extern "C" int pmsm_closed_loop_args_size() { return (int)sizeof(PmsmClArgs); }
+
+extern "C" int pmsm_closed_loop_slots(int policy_id) {
+    return policy_id == 2 ? (int)SensorlessLaw::N_SLOTS : policy_id == 3 ? (int)ScheduledLaw::N_SLOTS : -1;
+}
+
+// dtype: 0 float32, 1 float64.  Returns the CUDA error of the launch (0 on
+// success): a refused launch never runs, and only this code reports it.
+extern "C" int pmsm_closed_loop_launch(const PmsmClArgs* args, int dtype, void* stream) {
+    if (args->batch <= 0) return 0;
+    if (args->n_pp > MAX_POLICY_PARAMS) return (int)cudaErrorInvalidValue;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return dtype == 0 ? launch_dtype<float>(*args, s) : launch_dtype<double>(*args, s);
+}

@@ -1,0 +1,165 @@
+// The PMSM drive's electrical model on the device, shared by the open-loop
+// kernel (pmsm_stepper.cu) and the closed-loop kernel (pmsm_closed_loop.cu):
+// the per-instance constants, the bilinear gather of stacked maps on the
+// magnetics table's grid, the saturated and linear vector fields of the
+// currents, and the torque maps.
+//
+// Every function mirrors the environment's own arithmetic
+// (models/pmsm/pmsm_env.py: nonlinear_ode, linear_ode, the torque maps;
+// ops/lut.py::bilinear_gather) operation for operation, in the working
+// precision, under the rules of eager_rules.cuh.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+#include "eager_rules.cuh"
+
+#define N_PARAMS 5
+#define N_CHANNELS 6
+
+// parameter slots, in the order of PMSM_PARAMS in ops/kernels/pmsm_stepper.py
+enum { P_P = 0, P_RS = 1, P_LD = 2, P_LQ = 3, P_PSI = 4 };
+
+// Per-instance constants, folded once.
+template <typename T>
+struct Drive {
+    T r_s, omega;
+    T p15;                  // 3 / 2 * p (== 1.5 * p)
+    T l_d, l_q, psi_p, dl;  // linear magnetics; dl = l_d - l_q
+    Divisor<T> l_d_div, l_q_div;
+    T x0, y0;
+    Divisor<T> dx, dy;
+    int nx, ny;
+};
+
+// Args: a kernel argument struct with param_ptr/param_value (PMSM_PARAMS
+// order), omega, and the grid x0, dx, y0, dy, nx, ny.
+template <typename T, class Args>
+__device__ __forceinline__ Drive<T> prepare(const Args& args, long long b) {
+    Weak<T> w[N_PARAMS];
+#pragma unroll
+    for (int i = 0; i < N_PARAMS; ++i) w[i] = weak_load<T>(args.param_ptr[i], args.param_value[i], b);
+    Drive<T> k;
+    k.r_s = value(w[P_RS]);
+    k.omega = static_cast<const T*>(args.omega)[b];
+    k.p15 = value(wmul(weak_const<T>(1.5), w[P_P]));
+    k.l_d = value(w[P_LD]);
+    k.l_q = value(w[P_LQ]);
+    k.psi_p = value(w[P_PSI]);
+    k.dl = value(wsub(w[P_LD], w[P_LQ]));
+    k.l_d_div = divisor(w[P_LD]);
+    k.l_q_div = divisor(w[P_LQ]);
+    k.x0 = (T)args.x0;
+    k.y0 = (T)args.y0;
+    k.dx = divisor(weak_const<T>(args.dx));
+    k.dy = divisor(weak_const<T>(args.dy));
+    k.nx = args.nx;
+    k.ny = args.ny;
+    return k;
+}
+
+// floor, then torch.clamp to [0, n - 2] (NaN passes), then the conversion
+__device__ __forceinline__ int cell(float f, int n) {
+    float c = floorf(f);
+    if (!isnan(c)) c = fminf(fmaxf(c, 0.0f), (float)(n - 2));
+    return (int)c;
+}
+__device__ __forceinline__ int cell(double f, int n) {
+    double c = floor(f);
+    if (!isnan(c)) c = fmin(fmax(c, 0.0), (double)(n - 2));
+    return (int)c;
+}
+
+// A table read: a plain load (shared memory), or through the read-only
+// data cache (RO, a table left in device memory).
+template <bool RO, typename T>
+__device__ __forceinline__ T table_load(const T* p) {
+    if (RO) return __ldg(p);
+    return *p;
+}
+
+// lut.py::bilinear_gather of NC stacked channels (C, nx, ny) at (px, py).
+template <int NC, bool RO = false, typename T>
+__device__ __forceinline__ void gather_n(const T* __restrict__ lut, const Drive<T>& k, T px, T py, T (&v)[NC]) {
+    const T fx = (px - k.x0) / k.dx;
+    const T fy = (py - k.y0) / k.dy;
+    const int ix = cell(fx, k.nx);
+    const int iy = cell(fy, k.ny);
+    const T wx = fx - (T)ix;
+    const T wy = fy - (T)iy;
+    const T owx = T(1) - wx;
+    const T owy = T(1) - wy;
+    const int plane = k.nx * k.ny;
+    const int i00 = ix * k.ny + iy;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+        const T* p = lut + c * plane + i00;
+        const T v00 = table_load<RO>(p), v01 = table_load<RO>(p + 1);
+        const T v10 = table_load<RO>(p + k.ny), v11 = table_load<RO>(p + k.ny + 1);
+        v[c] = v00 * owx * owy + v01 * owx * wy + v10 * wx * owy + v11 * wx * wy;
+    }
+}
+
+// the six magnetics channels at (i_d, i_q), from the table in shared memory
+template <typename T>
+__device__ __forceinline__ void gather(const T* __restrict__ lut, const Drive<T>& k, T i_d, T i_q,
+                                       T (&v)[N_CHANNELS]) {
+    gather_n<N_CHANNELS>(lut, k, i_d, i_q, v);
+}
+
+// PMSM.nonlinear_ode for the currents, from gathered channels
+template <typename T>
+__device__ __forceinline__ void saturated_rhs(const T (&v)[N_CHANNELS], const Drive<T>& k, T i_d, T i_q, T u_d,
+                                              T u_q, T (&dy)[2]) {
+    const T l_dd = v[0], l_dq = v[1], l_qd = v[2], l_qq = v[3], psi_d = v[4], psi_q = v[5];
+    const T det = l_dd * l_qq - l_dq * l_qd;
+    const T inv_dd = l_qq / det, inv_dq = -l_dq / det;
+    const T inv_qd = -l_qd / det, inv_qq = l_dd / det;
+    const T rhs_d = u_d - k.r_s * i_d + k.omega * psi_q;
+    const T rhs_q = u_q - k.r_s * i_q - k.omega * psi_d;
+    dy[0] = inv_dd * rhs_d + inv_dq * rhs_q;
+    dy[1] = inv_qd * rhs_d + inv_qq * rhs_q;
+}
+
+// PMSM.linear_ode for the currents
+template <typename T>
+__device__ __forceinline__ void linear_rhs(const Drive<T>& k, T i_d, T i_q, T u_d, T u_q, T (&dy)[2]) {
+    dy[0] = (u_d + k.omega * k.l_q * i_q - k.r_s * i_d) / k.l_d_div;
+    dy[1] = (u_q - k.omega * (k.l_d * i_d + k.psi_p) - k.r_s * i_q) / k.l_q_div;
+}
+
+// PMSM.nonlinear_ode / PMSM.linear_ode for the currents
+template <typename T, bool SAT>
+__device__ __forceinline__ void ode(const T* lut, const Drive<T>& k, const T (&y)[2], T u_d, T u_q, T (&dy)[2]) {
+    if (SAT) {
+        T v[N_CHANNELS];
+        gather(lut, k, y[0], y[1], v);
+        saturated_rhs(v, k, y[0], y[1], u_d, u_q, dy);
+    } else {
+        linear_rhs(k, y[0], y[1], u_d, u_q, dy);
+    }
+}
+
+// PMSM.currents_to_torque_saturated from gathered channels
+template <typename T>
+__device__ __forceinline__ T saturated_torque(const T (&v)[N_CHANNELS], const Drive<T>& k, T i_d, T i_q) {
+    return k.p15 * (v[4] * i_q - v[5] * i_d);
+}
+
+// PMSM.currents_to_torque
+template <typename T>
+__device__ __forceinline__ T linear_torque(const Drive<T>& k, T i_d, T i_q) {
+    return k.p15 * (k.psi_p + k.dl * i_d) * i_q;
+}
+
+// PMSM.currents_to_torque_saturated / PMSM.currents_to_torque
+template <typename T, bool SAT>
+__device__ __forceinline__ T torque(const T* lut, const Drive<T>& k, T i_d, T i_q) {
+    if (SAT) {
+        T v[N_CHANNELS];
+        gather(lut, k, i_d, i_q, v);
+        return saturated_torque(v, k, i_d, i_q);
+    }
+    return linear_torque(k, i_d, i_q);
+}

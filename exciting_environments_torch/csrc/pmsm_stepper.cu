@@ -45,6 +45,9 @@
 // blocks and VMEM budgets have no counterpart; any B works (the ragged edge
 // is masked).
 //
+// The drive model (Drive, prepare, the gather, ode and torque) lives in
+// pmsm_drive.cuh, shared with the closed-loop kernel pmsm_closed_loop.cu.
+//
 // Exactness: every operation mirrors the plain version
 // (ops/kernels/pmsm_stepper.py::plain_pmsm_rollout, which calls the
 // environment's own nonlinear_ode / linear_ode and torque maps) in order and
@@ -66,13 +69,9 @@
 #include <math.h>
 
 #include "eager_rules.cuh"
+#include "pmsm_drive.cuh"
 
 #define MAX_STAGES 7
-#define N_PARAMS 5
-#define N_CHANNELS 6
-
-// parameter slots, in the order of PMSM_PARAMS in ops/kernels/pmsm_stepper.py
-enum { P_P = 0, P_RS = 1, P_LD = 2, P_LQ = 3, P_PSI = 4 };
 
 // Mirrored field for field by PmsmArgs in ops/kernels/pmsm_stepper.py.
 struct PmsmArgs {
@@ -99,109 +98,6 @@ struct PmsmArgs {
     int traj_stride;                   // 0: no trajectory saves
     int use_next[MAX_STAGES];          // stage reads the next voltage (sim-ahead, c == 1)
 };
-
-// Per-instance constants, folded once.
-template <typename T>
-struct Drive {
-    T r_s, omega;
-    T p15;            // 3 / 2 * p (== 1.5 * p)
-    T l_d, l_q, psi_p, dl;  // linear magnetics; dl = l_d - l_q
-    Divisor<T> l_d_div, l_q_div;
-    T x0, y0;
-    Divisor<T> dx, dy;
-    int nx, ny;
-};
-
-template <typename T>
-__device__ __forceinline__ Drive<T> prepare(const PmsmArgs& args, long long b) {
-    Weak<T> w[N_PARAMS];
-#pragma unroll
-    for (int i = 0; i < N_PARAMS; ++i) w[i] = weak_load<T>(args.param_ptr[i], args.param_value[i], b);
-    Drive<T> k;
-    k.r_s = value(w[P_RS]);
-    k.omega = static_cast<const T*>(args.omega)[b];
-    k.p15 = value(wmul(weak_const<T>(1.5), w[P_P]));
-    k.l_d = value(w[P_LD]);
-    k.l_q = value(w[P_LQ]);
-    k.psi_p = value(w[P_PSI]);
-    k.dl = value(wsub(w[P_LD], w[P_LQ]));
-    k.l_d_div = divisor(w[P_LD]);
-    k.l_q_div = divisor(w[P_LQ]);
-    k.x0 = (T)args.x0;
-    k.y0 = (T)args.y0;
-    k.dx = divisor(weak_const<T>(args.dx));
-    k.dy = divisor(weak_const<T>(args.dy));
-    k.nx = args.nx;
-    k.ny = args.ny;
-    return k;
-}
-
-// floor, then torch.clamp to [0, n - 2] (NaN passes), then the conversion
-__device__ __forceinline__ int cell(float f, int n) {
-    float c = floorf(f);
-    if (!isnan(c)) c = fminf(fmaxf(c, 0.0f), (float)(n - 2));
-    return (int)c;
-}
-__device__ __forceinline__ int cell(double f, int n) {
-    double c = floor(f);
-    if (!isnan(c)) c = fmin(fmax(c, 0.0), (double)(n - 2));
-    return (int)c;
-}
-
-// lut.py::bilinear_gather of all six channels at (i_d, i_q), from the table
-// in shared memory.
-template <typename T>
-__device__ __forceinline__ void gather(const T* __restrict__ lut, const Drive<T>& k, T i_d, T i_q,
-                                       T (&v)[N_CHANNELS]) {
-    const T fx = (i_d - k.x0) / k.dx;
-    const T fy = (i_q - k.y0) / k.dy;
-    const int ix = cell(fx, k.nx);
-    const int iy = cell(fy, k.ny);
-    const T wx = fx - (T)ix;
-    const T wy = fy - (T)iy;
-    const T owx = T(1) - wx;
-    const T owy = T(1) - wy;
-    const int plane = k.nx * k.ny;
-    const int i00 = ix * k.ny + iy;
-#pragma unroll
-    for (int c = 0; c < N_CHANNELS; ++c) {
-        const T* p = lut + c * plane + i00;
-        const T v00 = p[0], v01 = p[1], v10 = p[k.ny], v11 = p[k.ny + 1];
-        v[c] = v00 * owx * owy + v01 * owx * wy + v10 * wx * owy + v11 * wx * wy;
-    }
-}
-
-// PMSM.nonlinear_ode / PMSM.linear_ode for the currents
-template <typename T, bool SAT>
-__device__ __forceinline__ void ode(const T* lut, const Drive<T>& k, const T (&y)[2], T u_d, T u_q, T (&dy)[2]) {
-    const T i_d = y[0], i_q = y[1];
-    if (SAT) {
-        T v[N_CHANNELS];
-        gather(lut, k, i_d, i_q, v);
-        const T l_dd = v[0], l_dq = v[1], l_qd = v[2], l_qq = v[3], psi_d = v[4], psi_q = v[5];
-        const T det = l_dd * l_qq - l_dq * l_qd;
-        const T inv_dd = l_qq / det, inv_dq = -l_dq / det;
-        const T inv_qd = -l_qd / det, inv_qq = l_dd / det;
-        const T rhs_d = u_d - k.r_s * i_d + k.omega * psi_q;
-        const T rhs_q = u_q - k.r_s * i_q - k.omega * psi_d;
-        dy[0] = inv_dd * rhs_d + inv_dq * rhs_q;
-        dy[1] = inv_qd * rhs_d + inv_qq * rhs_q;
-    } else {
-        dy[0] = (u_d + k.omega * k.l_q * i_q - k.r_s * i_d) / k.l_d_div;
-        dy[1] = (u_q - k.omega * (k.l_d * i_d + k.psi_p) - k.r_s * i_q) / k.l_q_div;
-    }
-}
-
-// PMSM.currents_to_torque_saturated / PMSM.currents_to_torque
-template <typename T, bool SAT>
-__device__ __forceinline__ T torque(const T* lut, const Drive<T>& k, T i_d, T i_q) {
-    if (SAT) {
-        T v[N_CHANNELS];
-        gather(lut, k, i_d, i_q, v);
-        return k.p15 * (v[4] * i_q - v[5] * i_d);
-    }
-    return k.p15 * (k.psi_p + k.dl * i_d) * i_q;
-}
 
 // The voltage applied at step `row`: the deadtime buffer at row 0, else the
 // constrained voltage `deadtime` rows earlier.
@@ -232,7 +128,7 @@ __global__ void __launch_bounds__(128) pmsm_kernel(const __grid_constant__ PmsmA
     const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (b >= args.batch) return;
 
-    const Drive<T> k = prepare<T>(args, b);
+    const Drive<T> k = prepare<T>(args, b);  // pmsm_drive.cuh
     const T* u_con = static_cast<const T*>(args.u_con);
     const T buf_d = static_cast<const T*>(args.buf0[0])[b];
     const T buf_q = static_cast<const T*>(args.buf0[1])[b];

@@ -13,7 +13,9 @@ Methods are elementwise over tensors, so one code path serves a single
 instance, a batch ``(B,)`` and time-major trajectories ``(T, B)``.  The fused
 entry points run the current integration through the hand-written CUDA
 kernel ``csrc/pmsm_stepper.cu`` (see
-:mod:`exciting_environments_torch.ops.kernels.pmsm_stepper`).
+:mod:`exciting_environments_torch.ops.kernels.pmsm_stepper`), and the closed
+loop through ``csrc/pmsm_closed_loop.cu`` (see
+:mod:`exciting_environments_torch.ops.kernels.pmsm_closed_loop`).
 """
 
 from __future__ import annotations
@@ -460,12 +462,25 @@ class PMSM(CoreEnvironment):
                                          time_major=time_major, strict=strict)
         return (obs[:, ::obs_stride] if obs_stride != 1 else obs), last
 
-    def fused_closed_loop(self, *args, **kwargs):
-        """The PMSM drive's closed-loop kernel (observation, policy, in-kernel
-        hexagon, deadtime and LUT step) is not ported yet."""
-        raise NotImplementedError(
-            "PMSM.fused_closed_loop needs the PMSM closed-loop kernel, which is not ported yet "
-            "(ROADMAP.md, Queue 2 item 6)"
+    def fused_closed_loop(self, init_state, policy, n_steps: int, obs_stride: int = None,
+                          policy_params=None, return_traj_states: bool = False, policy_carry=None,
+                          sched_lut=None):
+        """Closed loop with the policy inside the PMSM closed-loop kernel
+        (``csrc/pmsm_closed_loop.cu``; its plain version on CPU tensors):
+        observation -> policy -> hexagon at the deadtime-advanced angle ->
+        deadtime buffer -> LUT step, ``n_steps`` times in one launch.  On CUDA
+        the policy is an ``AffinePolicy`` or a sensorless tile of
+        ``utils/foc.py``; on the CPU any callable with the tile contract.
+        ``policy_carry`` makes the policy stateful (every return shape then
+        ends with the final carry) and ``sched_lut`` appends the scheduled
+        gather at the belief currents to the observation.  Raises out of
+        kernel scope.  See
+        :func:`~exciting_environments_torch.ops.kernels.pmsm_closed_loop.pmsm_fused_closed_loop`."""
+        from exciting_environments_torch.ops.kernels.pmsm_closed_loop import pmsm_fused_closed_loop
+
+        return pmsm_fused_closed_loop(
+            self, init_state, policy, n_steps, obs_stride=obs_stride, return_traj_states=return_traj_states,
+            policy_params=policy_params, policy_carry=policy_carry, sched_lut=sched_lut,
         )
 
     # ------------------------------------------------------------------

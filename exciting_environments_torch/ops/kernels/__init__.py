@@ -29,14 +29,17 @@ def rollout_path(env, obs_stepsize: float = None, action_stepsize: float = None)
 def select_closed_loop(env):
     """The closed-loop dispatch rule shared by
     :meth:`RolloutCollector.collect_policy_fused`: ``(kernel_fn, extra_kwargs)``
-    with the generic closed-loop kernel for classic environments in its
-    scope, ``(None, {})`` otherwise (a closed loop has no open-loop fallback:
-    callers raise).  The PMSM drive's closed-loop kernel is not ported yet,
-    so a PMSM gets ``(None, {})``."""
+    with the PMSM closed-loop kernel for a PMSM drive in its scope, the
+    generic closed-loop kernel for classic environments in its scope, and
+    ``(None, {})`` otherwise (a closed loop has no open-loop fallback:
+    callers raise)."""
     from exciting_environments_torch.models.pmsm import PMSM
 
     from .closed_loop import env_fused_closed_loop, supports_fused_closed_loop
+    from .pmsm_closed_loop import pmsm_fused_closed_loop, supports_pmsm_fused_closed_loop
 
-    if isinstance(env, PMSM) or not supports_fused_closed_loop(env):
+    if isinstance(env, PMSM):
+        return (pmsm_fused_closed_loop, {}) if supports_pmsm_fused_closed_loop(env) else (None, {})
+    if not supports_fused_closed_loop(env):
         return None, {}
     return env_fused_closed_loop, {}

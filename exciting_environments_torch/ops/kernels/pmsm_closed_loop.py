@@ -1,0 +1,683 @@
+"""Fused closed-loop PMSM drive: the counterpart of the closed-loop part of
+``exciting_environments_tpu/ops/pallas/pmsm_stepper.py``.
+
+The policy runs inside the drive loop.  Every step builds the observation
+from the drive state (:meth:`PMSM.generate_observation`'s columns, then the
+normalized tracked references), adds the sensor-noise row, appends the
+scheduled gather of a :class:`~exciting_environments_torch.ops.lut.ScheduledLUT`
+at the policy's belief currents, evaluates the policy, constrains its action
+into the inverter hexagon at the deadtime-advanced angle
+(:func:`hex_constrain`), swaps the deadtime buffer, takes the RK step of the
+currents over the magnetics and advances the angle.  For CUDA tensors the
+whole horizon is one launch of the kernel in ``csrc/pmsm_closed_loop.cu``;
+beside it lives the plain PyTorch version, :func:`plain_pmsm_closed_loop`, a
+Python loop of :func:`plain_pmsm_cl_step` that performs the kernel's
+arithmetic operation for operation.  :func:`pmsm_closed_loop` takes the plain
+version only for CPU tensors.
+
+On CUDA tensors the policy is one of the families compiled into the kernel:
+:class:`~exciting_environments_torch.ops.policies.AffinePolicy` (P and PI
+laws) and the two sensorless tiles of ``utils/foc.py``.  Any other callable,
+the PPO actor included, raises before a launch; on CPU tensors any callable
+with the tile contract runs.
+
+Scalar bands and DC-link voltages fold into the arithmetic as Python numbers;
+per-batch ``(B,)`` leaves (:data:`PBN_FIELDS`, and the drive parameters of
+``PMSM_PARAMS``) reach the kernel as pointers.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import numpy as np
+import torch
+
+from exciting_environments_torch.core import structures
+from exciting_environments_torch.models.pmsm.pmsm_env import wrap_angle
+from exciting_environments_torch.ops.kernels.pmsm_stepper import (
+    N_CHANNELS,
+    PMSM_PARAMS,
+    _eps_rate,
+    _eps_trajectory,
+    _pmsm_final_solver_state,
+    plain_pmsm_step,
+    supports_pmsm_fused,
+)
+from exciting_environments_torch.ops.kernels.stepper import MAX_STAGES, KernelLibrary, _check_leaf, _stage_rows
+from exciting_environments_torch.ops.lut import bilinear_gather
+from exciting_environments_torch.ops.policies import KernelPolicy
+from exciting_environments_torch.ops.transforms import ROTATION_IM, ROTATION_RE, _rotation_tables
+
+#: observation bands of the closed loop, in the order of the observation
+OBS_BAND_FIELDS = ("i_d", "i_q", "omega_el", "torque", "u_d_buffer", "u_q_buffer")
+#: per-batch-capable constraint and normalization leaves, in the kernel's
+#: band-slot order: the DC-link voltage, the action bands and the
+#: observation bands
+PBN_FIELDS = ("u_dc", "a_d_mn", "a_d_mx", "a_q_mn", "a_q_mx") + tuple(
+    f"o{i}_{s}" for i in range(len(OBS_BAND_FIELDS)) for s in ("mn", "mx")
+)
+N_BASE_OBS = 8
+MAX_REFS = 4
+MAX_OBS = N_BASE_OBS + MAX_REFS
+MAX_CARRY = 6
+MAX_SCHED = 10
+MAX_POLICY_PARAMS = 256
+#: stage counts the kernel is instantiated for (FSAL last stage skipped)
+KERNEL_STAGES = (1, 2, 4, 6)
+#: policy families compiled into the kernel, by ``KernelSpec.policy_id``
+FAMILIES = {0: "AffinePolicy", 2: "SensorlessPolicy", 3: "ScheduledSensorlessPolicy"}
+
+_c_double = ctypes.c_double
+_c_void_p = ctypes.c_void_p
+_c_int = ctypes.c_int
+
+
+class PmsmClArgs(ctypes.Structure):
+    """Field-for-field mirror of ``struct PmsmClArgs`` in ``csrc/pmsm_closed_loop.cu``."""
+
+    _fields_ = [
+        ("tau", _c_double),
+        ("a", (_c_double * MAX_STAGES) * MAX_STAGES),
+        ("b", _c_double * MAX_STAGES),
+        ("rate_b", _c_double * MAX_STAGES),
+        ("param_value", _c_double * len(PMSM_PARAMS)),
+        ("x0", _c_double),
+        ("dx", _c_double),
+        ("y0", _c_double),
+        ("dy", _c_double),
+        ("band_value", _c_double * len(PBN_FIELDS)),
+        ("adv_scale", _c_double),
+        ("rot_re", _c_double * 8),
+        ("rot_im", _c_double * 8),
+        ("clip", _c_double),
+        ("param_ptr", _c_void_p * len(PMSM_PARAMS)),
+        ("band_ptr", _c_void_p * len(PBN_FIELDS)),
+        ("lut", _c_void_p),
+        ("sched", _c_void_p),
+        ("state0", _c_void_p * 5),
+        ("omega", _c_void_p),
+        ("carry0", _c_void_p * MAX_CARRY),
+        ("refs", _c_void_p * MAX_REFS),
+        ("policy_params", _c_void_p),
+        ("obs_noise", _c_void_p),
+        ("proc_noise", _c_void_p),
+        ("out", _c_void_p * 6),
+        ("u_last", _c_void_p * 2),
+        ("carry_out", _c_void_p * MAX_CARRY),
+        ("traj", _c_void_p * 7),
+        ("traj_carry", _c_void_p * MAX_CARRY),
+        ("batch", ctypes.c_longlong),
+        ("nx", _c_int),
+        ("ny", _c_int),
+        ("n_steps", _c_int),
+        ("n_stages", _c_int),
+        ("n_rate", _c_int),
+        ("saturated", _c_int),
+        ("deadtime", _c_int),
+        ("n_refs", _c_int),
+        ("n_carry", _c_int),
+        ("n_pp", _c_int),
+        ("n_sched", _c_int),
+        ("sched_c0", _c_int),
+        ("sched_c1", _c_int),
+        ("policy_id", _c_int),
+        ("has_integral", _c_int),
+        ("has_clip", _c_int),
+        ("delayed", _c_int),
+        ("obs_cols", _c_int * MAX_OBS),
+        ("n_obs_noise", _c_int),
+        ("noise_idx", _c_int * 2),
+        ("n_proc_noise", _c_int),
+        ("traj_stride", _c_int),
+    ]
+
+
+PMSM_CL_KERNEL = KernelLibrary("pmsm_closed_loop", "pmsm_closed_loop", PmsmClArgs, ("pmsm_closed_loop",))
+
+_PLAIN_CALLABLE_ON_CUDA = (
+    "on CUDA tensors the PMSM closed loop runs inside the kernel, which compiles in the policy "
+    "families AffinePolicy (ops/policies.py) and the sensorless tiles of utils/foc.py; a plain "
+    "callable runs the loop on the CPU only (an environment made with device='cpu')"
+)
+
+
+# ---------------------------------------------------------------------------
+# bands and the hexagon
+# ---------------------------------------------------------------------------
+
+
+def _is_batched(leaf) -> bool:
+    return isinstance(leaf, torch.Tensor) and leaf.ndim >= 1
+
+
+def cl_bands(props) -> dict:
+    """The closed loop's bands of ``props`` by :data:`PBN_FIELDS` name: a
+    Python number for a scalar leaf (it folds as Python folds it), the
+    ``(B,)`` tensor for a per-batch one."""
+    pn, an = props.physical_normalizations, props.action_normalizations
+    leaves = [props.static_params.u_dc]
+    leaves += [getattr(getattr(an, n), bound) for n in ("u_d", "u_q") for bound in ("min", "max")]
+    leaves += [getattr(getattr(pn, n), bound) for n in OBS_BAND_FIELDS for bound in ("min", "max")]
+    return {name: leaf if _is_batched(leaf) else float(leaf) for name, leaf in zip(PBN_FIELDS, leaves)}
+
+
+def eff_cl_norms(bands: dict):
+    """The effective ``(obs_norms, act_norms, u_dc)`` of a :func:`cl_bands`
+    dict: ``(min, max)`` pairs of the six observation bands and the two
+    action bands, scalars and ``(B,)`` leaves mixed (every consumer is
+    elementwise)."""
+    obs = tuple((bands[f"o{i}_mn"], bands[f"o{i}_mx"]) for i in range(len(OBS_BAND_FIELDS)))
+    act = ((bands["a_d_mn"], bands["a_d_mx"]), (bands["a_q_mn"], bands["a_q_mx"]))
+    return obs, act, bands["u_dc"]
+
+
+def hex_constrain(a_d, a_q, eps, omega, tau, act_norms, u_dc, deadtime):
+    """The closed loop's inverter constraint over same-shape tensors, the
+    counterpart of the JAX kernel's ``_hex_constrain``: denormalize the
+    policy's action, rotate it to alpha/beta at the deadtime-advanced angle,
+    clip it into the voltage hexagon, rotate back.  Not the environment's
+    ``apply_hex_constraint``: the sector comes from a linear test in place
+    of ``atan2``, the angle from a floored ``%`` and a shift above pi, and
+    the sector rotation from a direct index of the float32 table (equal to
+    the JAX package's multilinear combination for bits in {0, 1}, up to the
+    sign of a zero)."""
+    (mnd, mxd), (mnq, mxq) = act_norms
+    u_d = (a_d + 1) / 2 * (mxd - mnd) + mnd
+    u_q = (a_q + 1) / 2 * (mxq - mnq) + mnq
+    scale = 1 / (u_dc / 2)
+    nd = u_d * scale
+    nq = u_q * scale
+
+    adv = eps + omega * tau * (deadtime + 0.5)
+    adv = adv % (2 * math.pi)
+    adv = adv + (adv > math.pi).to(adv.dtype) * (-2 * math.pi)
+
+    ca = torch.cos(-adv)
+    sa = torch.sin(-adv)
+    alpha = ca * nd + sa * nq
+    beta = -sa * nd + ca * nq
+
+    s120 = float(np.sqrt(3.0) / 2)
+    b0 = (beta >= 0).long()
+    b1 = (-0.5 * beta - s120 * alpha >= 0).long()
+    b2 = (-0.5 * beta + s120 * alpha >= 0).long()
+    table_re, table_im = _rotation_tables(alpha.device)
+    rot_re = table_re[b0, b1, b2].to(alpha.dtype)
+    rot_im = table_im[b0, b1, b2].to(alpha.dtype)
+    ra = alpha * rot_re - beta * rot_im
+    rb = alpha * rot_im + beta * rot_re
+    ra = torch.clamp(ra, -2 / 3, 2 / 3)
+    rb = torch.clamp(rb, 0, float(2 / 3 * np.sqrt(3.0)))
+    oa = ra * rot_re + rb * rot_im
+    ob = rb * rot_re - ra * rot_im
+
+    cb = torch.cos(adv)
+    sb = torch.sin(adv)
+    half_dc = u_dc / 2
+    u_con_d = (cb * oa + sb * ob) * half_dc
+    u_con_q = (-sb * oa + cb * ob) * half_dc
+    return u_con_d, u_con_q
+
+
+# ---------------------------------------------------------------------------
+# the plain version
+# ---------------------------------------------------------------------------
+
+
+def _sched_config(sched_lut, dtype, device):
+    """``(values, c0, c1)`` of a scheduled gather, or ``None``."""
+    if sched_lut is None:
+        return None
+    return (sched_lut.tensor(dtype, device),) + sched_lut.carry_idx
+
+
+def plain_pmsm_cl_step(env, policy, state, carry, t, refs, pparams=None, *, tau, solver, props, omega, bands,
+                       deadtime, has_carry, eo=None, ep=None, obs_cols=(), noise_idx=(), sched=None):
+    """One step of the kernel's computation in plain PyTorch over ``(B,)``
+    leaves.  ``state`` is ``(i_d, i_q, eps, u_d_buffer, u_q_buffer)``,
+    ``bands`` the effective ``(obs_norms, act_norms, u_dc)``
+    (:func:`eff_cl_norms`), ``eo``/``ep`` the step's noise rows ``(B, n)``
+    and ``sched`` the scheduled gather ``(values, c0, c1)``.  Returns
+    ``(state1, carry1, (a_d, a_q, u_con_d, u_con_q), u_applied)`` with
+    ``carry1 = ()`` for a stateless policy."""
+    i_d, i_q, eps, bd, bq = state
+    obs_norms, act_norms, u_dc = bands
+
+    def norm(leaf, idx):
+        mn, mx = obs_norms[idx]
+        return 2 * (leaf - mn) / (mx - mn) - 1
+
+    torque = env._torque(i_d, i_q, props)
+    obs = (
+        norm(i_d, 0), norm(i_q, 1), norm(omega, 2), norm(torque, 3),
+        torch.cos(eps), torch.sin(eps), norm(bd, 4), norm(bq, 5),
+    ) + tuple(refs)
+    if obs_cols:
+        obs = list(obs)
+        for j, col in enumerate(obs_cols):
+            obs[col] = obs[col] + eo[..., j]
+        obs = tuple(obs)
+    if sched is not None:
+        values, c0, c1 = sched
+        lut = env._lut
+        (mn0, mx0), (mn1, mx1) = obs_norms[0], obs_norms[1]
+        bi_d = (carry[c0] + 1) / 2 * (mx0 - mn0) + mn0
+        bi_q = (carry[c1] + 1) / 2 * (mx1 - mn1) + mn1
+        vals = bilinear_gather(values, lut.x0, lut.dx, lut.y0, lut.dy, lut.nx, lut.ny, bi_d, bi_q)
+        obs = obs + tuple(vals[c] for c in range(values.shape[0]))
+    args = (obs, t) + ((carry,) if has_carry else ()) + ((pparams,) if pparams is not None else ())
+    out = policy(*args)
+    a, carry1 = (tuple(out[0]), tuple(out[1])) if has_carry else (tuple(out), ())
+    a_d, a_q = a[0], a[1]
+    u_con_d, u_con_q = hex_constrain(a_d, a_q, eps, omega, tau, act_norms, u_dc, deadtime)
+    if deadtime:
+        u_app, bd1, bq1 = (bd, bq), u_con_d, u_con_q
+    else:
+        u_app, bd1, bq1 = (u_con_d, u_con_q), bd, bq
+    i_d1, i_q1 = plain_pmsm_step(env, solver, tau, props, omega, (i_d, i_q), torch.stack(u_app, dim=-1))
+    if noise_idx:
+        y1 = [i_d1, i_q1]
+        for j, idx in enumerate(noise_idx):
+            y1[idx] = y1[idx] + ep[..., j]
+        i_d1, i_q1 = y1
+    eps1 = wrap_angle(eps + tau * _eps_rate(solver, omega))
+    return (i_d1, i_q1, eps1, bd1, bq1), carry1, (a_d, a_q, u_con_d, u_con_q), u_app
+
+
+def plain_pmsm_closed_loop(env, state0, omega, policy, n_steps, *, tau, solver, props, ref_leaves=(),
+                           traj_stride=None, policy_params=None, policy_carry=None, obs_noise_tm=None,
+                           proc_noise_tm=None, obs_noise_cols=(), proc_noise_idx=(), sched_lut=None):
+    """The kernel's loop as a Python loop of :func:`plain_pmsm_cl_step`
+    (argument contract: :func:`pmsm_closed_loop`).  Runs on any device and
+    is differentiable by autograd."""
+    has_carry = policy_carry is not None
+    state, carry = tuple(state0), tuple(policy_carry) if has_carry else ()
+    deadtime = int(props.static_params.deadtime)
+    bands = eff_cl_norms(cl_bands(props))
+    sched = _sched_config(sched_lut, state[0].dtype, state[0].device)
+    u_app = (state[3], state[4])
+    saves = []
+    for t in range(n_steps):
+        state, carry, (a_d, a_q, u_con_d, u_con_q), u_app = plain_pmsm_cl_step(
+            env, policy, state, carry, t, ref_leaves, policy_params, tau=tau, solver=solver, props=props,
+            omega=omega, bands=bands, deadtime=deadtime, has_carry=has_carry,
+            eo=None if obs_noise_tm is None else obs_noise_tm[t],
+            ep=None if proc_noise_tm is None else proc_noise_tm[t],
+            obs_cols=obs_noise_cols, noise_idx=proc_noise_idx, sched=sched,
+        )
+        if traj_stride is not None and (t + 1) % traj_stride == 0:
+            i_d, i_q = state[0], state[1]
+            saves.append(((i_d, i_q, env._torque(i_d, i_q, props), u_con_d, u_con_q, a_d, a_q), carry))
+    final = state + (env._torque(state[0], state[1], props),)
+    if traj_stride is None:
+        return final, u_app, carry, None, None
+    stack = lambda group: tuple(torch.stack(leaf, dim=0) for leaf in zip(*group))
+    trajs, carries = zip(*saves)
+    return final, u_app, carry, stack(trajs), (stack(carries) if has_carry else ())
+
+
+# ---------------------------------------------------------------------------
+# the kernel's wrapper
+# ---------------------------------------------------------------------------
+
+
+def kernel_pmsm_closed_loop(env, state0, omega, policy, n_steps, *, tau, solver, props, ref_leaves=(),
+                            traj_stride=None, policy_params=None, policy_carry=None, obs_noise_tm=None,
+                            proc_noise_tm=None, obs_noise_cols=(), proc_noise_idx=(), sched_lut=None):
+    """Launch the CUDA PMSM closed-loop kernel (argument contract:
+    :func:`pmsm_closed_loop`; returns as :func:`plain_pmsm_closed_loop`).
+    Every check runs before the launch; outputs are allocated here and the
+    launch is asynchronous on the current stream."""
+    state0 = tuple(state0)
+    dtype, device = state0[0].dtype, state0[0].device
+    batch = state0[0].shape[0]
+    params = props.static_params
+    saturated = bool(props.saturated)
+    a_rows, b = _stage_rows(solver)
+    n_refs = len(ref_leaves)
+    carry0 = tuple(policy_carry) if policy_carry is not None else ()
+    n_carry = len(carry0)
+
+    if not isinstance(policy, KernelPolicy):
+        raise ValueError(_PLAIN_CALLABLE_ON_CUDA)
+    if policy.policy_id not in FAMILIES:
+        raise ValueError(f"the PMSM closed-loop kernel is built with the families {sorted(FAMILIES.values())}, "
+                         f"not {type(policy).__name__}")
+    if device.type != "cuda":
+        raise ValueError(f"the PMSM closed-loop kernel runs on CUDA tensors, got {device}")
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"the PMSM closed-loop kernel takes float32 or float64, got {dtype}")
+    if len(b) not in KERNEL_STAGES or n_refs > MAX_REFS or n_carry > MAX_CARRY:
+        raise ValueError("configuration exceeds the PMSM closed-loop kernel's stage/reference/carry limits")
+    if isinstance(params.deadtime, torch.Tensor) or int(params.deadtime) not in (0, 1):
+        raise ValueError("the PMSM closed-loop kernel takes a scalar deadtime of 0 or 1")
+    if saturated and env._lut is None:
+        raise ValueError("a saturated drive needs the motor variant's tables")
+    if n_carry != policy.n_carry:
+        raise ValueError(f"{type(policy).__name__} carries {policy.n_carry} leaves, policy_carry has {n_carry}")
+    if policy.policy_id == 2 and saturated:
+        raise ValueError("the kernel's SensorlessPolicy is built for linear magnetics")
+    if policy.policy_id == 3 and (not saturated or len(b) != 1 or sched_lut is None):
+        raise ValueError("the kernel's ScheduledSensorlessPolicy is built for the saturated drive with a "
+                         "one-stage solver and its sched_lut")
+    n_sched = 0
+    if sched_lut is not None:
+        if policy.policy_id != 3:
+            raise ValueError("the kernel's scheduled gather feeds the ScheduledSensorlessPolicy family only")
+        if sched_lut.values.shape != (MAX_SCHED, env._lut.nx, env._lut.ny):
+            raise ValueError(f"the kernel gathers {MAX_SCHED} scheduled channels on the drive's grid, got "
+                             f"{sched_lut.values.shape}")
+        if not all(0 <= c < n_carry for c in sched_lut.carry_idx):
+            raise ValueError(f"sched_lut carry_idx {sched_lut.carry_idx} out of the {n_carry} carry leaves")
+        n_sched = MAX_SCHED
+    names = ("i_d0", "i_q0", "eps0", "u_d_buffer0", "u_q_buffer0")
+    for name, leaf in zip(names + ("omega",), state0 + (omega,)):
+        _check_leaf(name, leaf, dtype, device, (batch,))
+    for i, leaf in enumerate(ref_leaves):
+        _check_leaf(f"reference {i}", leaf, dtype, device, (batch,))
+    for i, leaf in enumerate(carry0):
+        _check_leaf(f"policy carry leaf {i}", leaf, dtype, device, (batch,))
+    grads = [*state0, omega, *ref_leaves, *carry0, *policy.parameters()]
+    if isinstance(policy_params, torch.Tensor):
+        grads.append(policy_params)
+
+    spec = policy.kernel_spec(dtype, device, policy_params)
+    flat = spec.flat
+    n_obs = N_BASE_OBS + n_refs + n_sched
+    if flat.numel() > MAX_POLICY_PARAMS:
+        raise ValueError(f"{flat.numel()} policy parameters exceed the kernel's {MAX_POLICY_PARAMS}")
+    if spec.n_obs != n_obs:
+        raise ValueError(f"the policy reads {spec.n_obs} observation columns, the drive gives {n_obs}")
+
+    args = PmsmClArgs()
+    keep = []  # tensors whose pointers the launch reads
+
+    def ptr(t):
+        t = t.contiguous()
+        keep.append(t)
+        return t.data_ptr()
+
+    args.tau = float(tau)
+    for s, row in enumerate(a_rows, start=1):
+        for j, coef in enumerate(row):
+            args.a[s][j] = float(coef)
+    for j, coef in enumerate(b):
+        args.b[j] = float(coef)
+    for j, coef in enumerate(solver.b):
+        args.rate_b[j] = float(coef)
+    args.n_rate = len(solver.b)
+    for i, name in enumerate(PMSM_PARAMS):
+        leaf = getattr(params, name)
+        if isinstance(leaf, torch.Tensor):
+            _check_leaf(f"parameter {name}", leaf, dtype, device, (batch,))
+            grads.append(leaf)
+            args.param_ptr[i] = ptr(leaf)
+        else:
+            args.param_value[i] = float(leaf)
+    for i, (name, leaf) in enumerate(cl_bands(props).items()):
+        if isinstance(leaf, torch.Tensor):
+            _check_leaf(f"band {name}", leaf, dtype, device, (batch,))
+            grads.append(leaf)
+            args.band_ptr[i] = ptr(leaf)
+        else:
+            args.band_value[i] = leaf
+    args.adv_scale = int(params.deadtime) + 0.5
+    for i, (re, im) in enumerate(zip(ROTATION_RE.reshape(-1), ROTATION_IM.reshape(-1))):
+        args.rot_re[i], args.rot_im[i] = float(re), float(im)
+    if (obs_noise_tm is not None) != bool(obs_noise_cols) or (proc_noise_tm is not None) != bool(proc_noise_idx):
+        raise ValueError("each noise slab and its columns must be set together")
+    if obs_noise_tm is not None:
+        base = N_BASE_OBS + n_refs
+        if len(obs_noise_cols) > MAX_OBS or not all(0 <= col < base for col in obs_noise_cols):
+            raise ValueError(f"obs_noise_cols {obs_noise_cols} out of the {base} observation columns")
+        _check_leaf("obs_noise_tm", obs_noise_tm, dtype, device, (n_steps, batch, len(obs_noise_cols)))
+        grads.append(obs_noise_tm)
+        args.obs_noise = ptr(obs_noise_tm)
+        for j, col in enumerate(obs_noise_cols):
+            args.obs_cols[j] = col
+        args.n_obs_noise = len(obs_noise_cols)
+    if proc_noise_tm is not None:
+        if len(proc_noise_idx) > 2 or not all(i in (0, 1) for i in proc_noise_idx):
+            raise ValueError(f"proc_noise_idx {proc_noise_idx} must index the currents (0 = i_d, 1 = i_q)")
+        _check_leaf("proc_noise_tm", proc_noise_tm, dtype, device, (n_steps, batch, len(proc_noise_idx)))
+        grads.append(proc_noise_tm)
+        args.proc_noise = ptr(proc_noise_tm)
+        for j, idx in enumerate(proc_noise_idx):
+            args.noise_idx[j] = idx
+        args.n_proc_noise = len(proc_noise_idx)
+    if any(t.requires_grad for t in grads):
+        raise NotImplementedError(
+            "the PMSM closed-loop kernel has no backward yet: its VJP (checkpointed recompute "
+            "through plain_pmsm_cl_step) comes with the training slice, ROADMAP.md Queue 2 item 3"
+        )
+
+    smem_bytes = flat.numel() * flat.element_size()
+    if saturated:
+        lut = env._lut
+        _check_leaf("LUT", lut.values, dtype, device, (N_CHANNELS, lut.nx, lut.ny))
+        args.lut = ptr(lut.values)
+        args.x0, args.dx, args.y0, args.dy = lut.x0, lut.dx, lut.y0, lut.dy
+        args.nx, args.ny = lut.nx, lut.ny
+        smem_bytes += lut.values.numel() * lut.values.element_size()
+    if n_sched:
+        args.sched = ptr(sched_lut.tensor(dtype, device))
+        args.n_sched = n_sched
+        args.sched_c0, args.sched_c1 = sched_lut.carry_idx
+
+    new = lambda: torch.empty(batch, dtype=dtype, device=device)
+    out = [new() for _ in range(6)]
+    u_last = [new(), new()]
+    c_out = [new() for _ in carry0]
+    for i in range(6):
+        args.out[i] = out[i].data_ptr()
+    args.u_last[0], args.u_last[1] = u_last[0].data_ptr(), u_last[1].data_ptr()
+    traj = traj_carry = None
+    if traj_stride is not None:
+        n_saves = n_steps // traj_stride
+        new_traj = lambda: torch.empty((n_saves, batch), dtype=dtype, device=device)
+        traj = [new_traj() for _ in range(7)]
+        traj_carry = [new_traj() for _ in carry0]
+        for i, t in enumerate(traj):
+            args.traj[i] = t.data_ptr()
+        for i, t in enumerate(traj_carry):
+            args.traj_carry[i] = t.data_ptr()
+    for i, leaf in enumerate(state0):
+        args.state0[i] = ptr(leaf)
+    args.omega = ptr(omega)
+    for i, leaf in enumerate(carry0):
+        args.carry0[i] = ptr(leaf)
+        args.carry_out[i] = c_out[i].data_ptr()
+    for r, leaf in enumerate(ref_leaves):
+        args.refs[r] = ptr(leaf)
+    args.policy_params = ptr(flat) if flat.numel() else None
+    args.batch = batch
+    args.n_steps = n_steps
+    args.n_stages = len(b)
+    args.saturated = int(saturated)
+    args.deadtime = int(params.deadtime)
+    args.n_refs = n_refs
+    args.n_carry = n_carry
+    args.n_pp = flat.numel()
+    args.policy_id = spec.policy_id
+    for name, value in spec.options.items():
+        setattr(args, name, value)
+    args.traj_stride = traj_stride or 0
+
+    PMSM_CL_KERNEL.launch(args, dtype, device, "pmsm_closed_loop",
+                          detail=f" (dynamic shared memory asked: {smem_bytes} B)")
+    if traj_stride is None:
+        return tuple(out), tuple(u_last), tuple(c_out), None, None
+    return tuple(out), tuple(u_last), tuple(c_out), tuple(traj), tuple(traj_carry)
+
+
+def pmsm_closed_loop(env, state0, omega, policy, n_steps, *, tau=None, solver=None, props=None, ref_leaves=(),
+                     traj_stride=None, policy_params=None, policy_carry=None, obs_noise_tm=None, obs_noise_cols=(),
+                     proc_noise_tm=None, proc_noise_idx=(), sched_lut=None):
+    """Closed loop of the PMSM drive with ``policy`` inside: the kernel for
+    CUDA tensors, :func:`plain_pmsm_closed_loop` for CPU tensors.
+
+    Args:
+        env: a :class:`~exciting_environments_torch.models.pmsm.PMSM` in
+            :func:`supports_pmsm_fused` scope.
+        state0: ``(i_d, i_q, epsilon, u_d_buffer, u_q_buffer)``, ``(B,)`` each.
+        omega: ``(B,)`` frozen electrical speed.
+        policy: the tile contract ``policy(obs, step[, carry][, params])``
+            returning ``(a_d, a_q)`` (and the carry); on CUDA a family the
+            kernel is built with (:data:`FAMILIES`).
+        n_steps: horizon.
+        tau, solver, props: step size, explicit RK solver and
+            ``EnvProperties`` (default: the environment's).
+        ref_leaves: normalized tracked references, ``(B,)`` each.
+        traj_stride: also save every ``traj_stride``-th step.
+        policy_params: passed to the policy as its last argument.
+        policy_carry: tuple of ``(B,)`` carry leaves (a stateful policy).
+        obs_noise_tm, obs_noise_cols: sensor-noise slab ``(n_steps, B,
+            len(obs_noise_cols))`` added to those observation columns
+            before the policy (row ``i`` is what the policy sees at step
+            ``i``).
+        proc_noise_tm, proc_noise_idx: process-noise slab ``(n_steps, B,
+            len(proc_noise_idx))`` added to the currents (0 = ``i_d``,
+            1 = ``i_q``) after each step.
+        sched_lut: a :class:`~exciting_environments_torch.ops.lut.ScheduledLUT`
+            gathered at the belief currents in the carry and appended to
+            the observation.
+
+    Returns:
+        ``(final, u_last, final_carry, traj, traj_carry)``: ``final`` the
+        ``(B,)`` leaves ``(i_d, i_q, epsilon, u_d_buffer, u_q_buffer,
+        torque)``, ``u_last`` the voltage applied in the last step,
+        ``final_carry`` a tuple (empty without a carry); with
+        ``traj_stride`` the time-major ``(n_saves, B)`` saves ``(i_d, i_q,
+        torque, u_con_d, u_con_q, a_d, a_q)`` and carry, else ``None``.
+    """
+    if traj_stride is not None and n_steps % traj_stride:
+        raise ValueError("n_steps must be divisible by traj_stride")
+    kwargs = dict(
+        tau=env.tau if tau is None else tau, solver=env._solver if solver is None else solver,
+        props=env.env_properties if props is None else props, ref_leaves=tuple(ref_leaves),
+        traj_stride=traj_stride, policy_params=policy_params,
+        policy_carry=None if policy_carry is None else tuple(policy_carry), obs_noise_tm=obs_noise_tm,
+        proc_noise_tm=proc_noise_tm, obs_noise_cols=tuple(obs_noise_cols), proc_noise_idx=tuple(proc_noise_idx),
+        sched_lut=sched_lut,
+    )
+    if state0[0].device.type == "cuda":
+        return kernel_pmsm_closed_loop(env, state0, omega, policy, n_steps, **kwargs)
+    return plain_pmsm_closed_loop(env, state0, omega, policy, n_steps, **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# scope and the environment-level entry point
+# ---------------------------------------------------------------------------
+
+
+def supports_pmsm_fused_closed_loop(env) -> bool:
+    """Scope of the PMSM closed-loop kernel: :func:`supports_pmsm_fused`
+    with a stage count the kernel is built for, scalar-or-``(B,)``
+    observation and action bands and DC-link voltage, and at most
+    ``MAX_REFS`` tracked references.  Any batch size is in scope."""
+    if not supports_pmsm_fused(env):
+        return False
+    props = env.env_properties
+    leaves = (structures.leaves(props.physical_normalizations) + structures.leaves(props.action_normalizations)
+              + [props.static_params.u_dc])
+    return (
+        len(_stage_rows(env._solver)[1]) in KERNEL_STAGES
+        and all(not isinstance(v, torch.Tensor) or tuple(v.shape) in ((), (env.batch_size,)) for v in leaves)
+        and len(env.control_state) <= MAX_REFS
+    )
+
+
+def pmsm_fused_closed_loop(env, init_state, policy, n_steps: int, obs_stride: int = None,
+                           return_traj_states: bool = False, policy_params=None, policy_carry=None,
+                           sched_lut=None):
+    """Closed-loop PMSM rollout with the policy inside the drive kernel
+    (:meth:`PMSM.fused_closed_loop`).
+
+    The policy sees :meth:`PMSM.generate_observation`'s columns (normalized
+    ``i_d, i_q, omega_el, torque``, raw ``cos/sin eps``, normalized buffers),
+    then the normalized tracked references and, with ``sched_lut``, the
+    scheduled channels.  Its action is constrained into the hexagon and
+    applied with :meth:`PMSM.step`'s deadtime semantics.
+
+    Returns ``(obs, final_state)``, or with ``obs_stride`` ``(obs_traj,
+    actions_traj, final_state)`` with ``obs_traj`` ``(B, n_saves, obs_dim)``
+    and ``actions_traj`` ``(B, n_saves, 2)`` (the policy's normalized
+    actions); ``return_traj_states`` adds the per-save states before
+    ``final_state``.  With ``policy_carry`` each gains the final carry tuple
+    as its last element.  Raises out of scope: a closed loop has no
+    open-loop fallback.
+    """
+    if return_traj_states and obs_stride is None:
+        raise ValueError("return_traj_states requires obs_stride")
+    if not supports_pmsm_fused_closed_loop(env):
+        raise ValueError(
+            "pmsm_fused_closed_loop out of kernel scope (supports_pmsm_fused, a kernel stage count, "
+            "scalar-or-(batch,) bands and at most 4 tracked references are required)"
+        )
+    if sched_lut is not None:
+        if not bool(env.env_properties.saturated) or env._lut is None:
+            raise ValueError("sched_lut rides the saturated drive's LUT grid: construct the env with "
+                             "saturated=True and a motor variant with tables")
+        lut = env._lut
+        if sched_lut.values.shape[1:] != (lut.nx, lut.ny):
+            raise ValueError(f"sched_lut values {sched_lut.values.shape[1:]} must live on the env LUT grid "
+                             f"({lut.nx}, {lut.ny})")
+        if policy_carry is None:
+            raise ValueError("sched_lut indexes the gather by belief planes in the policy carry: pass policy_carry")
+    props = env.env_properties
+    pn = props.physical_normalizations
+    phys = init_state.physical_state
+    state0 = (phys.i_d, phys.i_q, phys.epsilon, phys.u_d_buffer, phys.u_q_buffer)
+    omega = phys.omega_el
+    # normalized tracked references, constant along the rollout
+    ref_leaves = tuple(getattr(pn, name).normalize(getattr(init_state.reference, name))
+                       for name in env.control_state)
+    has_carry = policy_carry is not None
+    final, u_last, final_carry, traj, _ = pmsm_closed_loop(
+        env, state0, omega, policy, n_steps, props=props, ref_leaves=ref_leaves, traj_stride=obs_stride,
+        policy_params=policy_params, policy_carry=policy_carry, sched_lut=sched_lut,
+    )
+    i_d, i_q, eps_final, buf_d, buf_q, torque = final
+    batch = env.batch_size
+    device = i_d.device
+    final_state = structures.replace(
+        init_state,
+        physical_state=env.PhysicalState(u_d_buffer=buf_d, u_q_buffer=buf_q, epsilon=eps_final, i_d=i_d, i_q=i_q,
+                                         torque=torque, omega_el=omega),
+        additions=env.Additions(
+            solver_state=_pmsm_final_solver_state(env, props, i_d, i_q, eps_final, torch.stack(u_last, dim=-1),
+                                                  omega),
+            active_solver_state=torch.ones(batch, dtype=torch.bool, device=device),
+        ),
+    )
+    tail = (tuple(final_carry),) if has_carry else ()
+    if obs_stride is None:
+        return (env.generate_observation(final_state, props), final_state) + tail
+
+    i_d_t, i_q_t, torque_t, ucd_t, ucq_t, a_d_t, a_q_t = (leaf.transpose(0, 1) for leaf in traj)
+    n_saves = n_steps // obs_stride
+    # the saved post-step angles: the state-independent replay of the open loop
+    eps_pre, eps_last = _eps_trajectory(phys.epsilon, omega, env.tau, n_steps, env._solver)
+    eps_post = torch.cat([eps_pre[1:], eps_last[None]], dim=0)
+    eps_saves = eps_post[obs_stride - 1 :: obs_stride].transpose(0, 1)
+    expand = lambda leaf: torch.as_tensor(leaf)[:, None].expand(batch, n_saves)
+    if int(props.static_params.deadtime):
+        buf_d_t, buf_q_t = ucd_t, ucq_t  # the buffer after step k holds u_con[k]
+    else:
+        buf_d_t, buf_q_t = expand(phys.u_d_buffer), expand(phys.u_q_buffer)
+    traj_state = structures.replace(
+        final_state,
+        physical_state=env.PhysicalState(u_d_buffer=buf_d_t, u_q_buffer=buf_q_t, epsilon=eps_saves, i_d=i_d_t,
+                                         i_q=i_q_t, torque=torque_t, omega_el=expand(omega)),
+        PRNGKey=expand(init_state.PRNGKey),
+        additions=env.Additions(solver_state=None,
+                                active_solver_state=torch.ones((batch, n_saves), dtype=torch.bool, device=device)),
+        reference=structures.map_leaves(expand, init_state.reference),
+    )
+    obs_traj = env.generate_observation(traj_state, env._props_for(props, 1))
+    actions_traj = torch.stack([a_d_t, a_q_t], dim=-1)
+    if return_traj_states:
+        return (obs_traj, actions_traj, traj_state, final_state) + tail
+    return (obs_traj, actions_traj, final_state) + tail

@@ -10,7 +10,8 @@ while the fractional weight keeps growing: the linear extrapolation of
 the padded edge cells are.
 
 The host-side preparation (:func:`fill_nan_nearest`, :func:`pad_edges`) runs
-once at construction in numpy.
+once at construction in numpy.  :class:`ScheduledLUT` holds further maps on
+the same grid for the PMSM closed loop's scheduled gather.
 """
 
 from __future__ import annotations
@@ -110,6 +111,41 @@ class StackedBilinearLUT:
     def as_dict(self):
         """Dict of per-channel callables (reference-compatible API)."""
         return {name: self.channel(name) for name in self.channel_names}
+
+
+class ScheduledLUT:
+    """Extra maps for the PMSM closed loop's scheduled gather (counterpart of
+    ``exciting_environments_tpu/ops/pallas/pmsm_stepper.py::ScheduledLUT``).
+
+    Each step of the closed loop gathers these channels on the drive's OWN
+    magnetics grid at the policy's denormalized belief currents and appends
+    them to the observation the policy sees; the gain-scheduled sensorless
+    tile (``utils/foc.py``) reads its Kalman gains and magnetics this way.
+
+    Args:
+        values: stacked channel maps ``(C, nx, ny)`` (numpy or a tensor) on
+            exactly the grid of the environment's ``_lut``.
+        carry_idx: ``(c0, c1)``, the positions of the NORMALIZED belief
+            currents ``(i_d, i_q)`` in the policy carry; the loop
+            denormalizes them with the ``i_d``/``i_q`` observation bands.
+    """
+
+    def __init__(self, values, carry_idx=(0, 1)):
+        if isinstance(values, torch.Tensor):
+            values = values.detach().cpu().numpy()
+        self.values = np.asarray(values, dtype=np.float64)
+        if self.values.ndim != 3:
+            raise ValueError("ScheduledLUT values must be (C, nx, ny)")
+        self.carry_idx = (int(carry_idx[0]), int(carry_idx[1]))
+        self._placed = {}
+
+    def tensor(self, dtype: torch.dtype, device) -> torch.Tensor:
+        """The maps as a contiguous tensor in ``dtype`` on ``device`` (copied
+        there once)."""
+        key = (dtype, torch.device(device))
+        if key not in self._placed:
+            self._placed[key] = torch.as_tensor(self.values, dtype=dtype, device=device).contiguous()
+        return self._placed[key]
 
 
 SATURATED_QUANTITIES = ("L_dd", "L_dq", "L_qd", "L_qq", "Psi_d", "Psi_q")

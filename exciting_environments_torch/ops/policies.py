@@ -3,7 +3,8 @@
 In the JAX package a closed-loop policy is any Python function over tiles,
 which Pallas traces into the kernel body.  A hand-written CUDA kernel cannot
 trace Python, so the port compiles the policy families the library's users
-run into ``csrc/closed_loop.cu`` as functors.  Each family is an
+run into the closed-loop kernels (``csrc/closed_loop.cu``,
+``csrc/pmsm_closed_loop.cu``) as functors.  Each family is an
 ``nn.Module`` here: its ``forward`` is the plain version under the JAX tile
 contract, and :meth:`KernelPolicy.kernel_spec` gives the kernel its family
 id, its options and its flat parameter vector.
@@ -15,9 +16,10 @@ columns, or ``(actions, carry)`` for a stateful policy (``n_carry > 0``).
 Any callable with that contract runs the closed loop on CPU tensors; on CUDA
 tensors only a :class:`KernelPolicy` does.
 
-The families: :class:`AffinePolicy` here (PD and PI tracking laws) and
-``utils/rl_fused.py::ActorPolicy`` (the PPO actor with counter-hash
-exploration).
+The families: :class:`AffinePolicy` here (PD and PI tracking laws, in both
+kernels), ``utils/rl_fused.py::ActorPolicy`` (the PPO actor with
+counter-hash exploration, classic environments) and the sensorless PMSM
+tiles of ``utils/foc.py`` (the PMSM drive).
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ class KernelSpec(NamedTuple):
 
 
 class KernelPolicy(nn.Module):
-    """A policy family with a functor in ``csrc/closed_loop.cu``.
+    """A policy family with a functor in a closed-loop kernel.
 
     Subclasses set ``policy_id`` and ``n_carry`` (the number of ``(B,)``
     carry leaves the policy threads from step to step) and implement

@@ -15,10 +15,11 @@ import torch
 
 from exciting_environments_torch.core import structures
 from exciting_environments_torch.core.structures import dataclass
+from exciting_environments_torch.ops.lut import bilinear_gather
 
 
 def tile_policy_scan(env, state, n_steps, policy_tile, policy_params, collect_trajectory: bool,
-                     policy_carry=None):
+                     policy_carry=None, sched_lut=None):
     """Closed loop over a tile-contract policy as a loop of ``vmap_step``.
 
     The policy gets the observation as a tuple of ``(B,)`` columns and the
@@ -26,6 +27,12 @@ def tile_policy_scan(env, state, n_steps, policy_tile, policy_params, collect_tr
     action columns; with ``policy_carry`` the stateful contract
     ``policy(obs, step, carry[, params]) -> (actions, carry)``.  The first
     observation is the reset observation.  Deterministic environments only.
+
+    ``sched_lut`` (a :class:`~exciting_environments_torch.ops.lut.ScheduledLUT`
+    on a saturated PMSM's grid) mirrors the PMSM closed loop's scheduled
+    gather: its channels, gathered at the denormalized belief currents held
+    in the carry leaves ``sched_lut.carry_idx``, are appended to the
+    observation columns the policy sees.
 
     Returns ``(final_obs, final_state)``, or with ``collect_trajectory`` the
     batch-major ``(obs, actions, traj_states, final_state)`` with post-step
@@ -36,10 +43,25 @@ def tile_policy_scan(env, state, n_steps, policy_tile, policy_params, collect_tr
     props = env.env_properties
     obs = env.generate_observation(state, props)
     has_carry = policy_carry is not None
+    sched_cols = None
+    if sched_lut is not None:
+        if not has_carry:
+            raise ValueError("sched_lut requires a stateful policy (policy_carry)")
+        lut, pn = env._lut, props.physical_normalizations
+        values = sched_lut.tensor(obs.dtype, obs.device)
+        c0, c1 = sched_lut.carry_idx
+
+        def sched_cols(pc):
+            bi_d = (pc[c0] + 1) / 2 * (pn.i_d.max - pn.i_d.min) + pn.i_d.min
+            bi_q = (pc[c1] + 1) / 2 * (pn.i_q.max - pn.i_q.min) + pn.i_q.min
+            vals = bilinear_gather(values, lut.x0, lut.dx, lut.y0, lut.dy, lut.nx, lut.ny, bi_d, bi_q)
+            return tuple(vals[c] for c in range(values.shape[0]))
     pc = tuple(policy_carry) if has_carry else ()
     obs_t, act_t, states = [], [], []
     for t in range(n_steps):
         cols = tuple(obs[:, i] for i in range(obs.shape[1]))
+        if sched_cols is not None:
+            cols = cols + sched_cols(pc)
         extra = (policy_params,) if policy_params is not None else ()
         if has_carry:
             a, pc = policy_tile(cols, t, pc, *extra)
@@ -100,6 +122,8 @@ class RolloutCollector:
         kernel's per-step states.  Returns ``(TrajectoryBatch,
         final_state)`` with post-step observations and the policy's
         normalized actions, plus the final carry with ``policy_carry``.
+        A PMSM drive runs on its own closed-loop kernel
+        (:func:`~exciting_environments_torch.ops.kernels.select_closed_loop`).
         Raises when the environment is out of the kernel's scope."""
         from exciting_environments_torch.ops.kernels import select_closed_loop
 

@@ -97,3 +97,18 @@ def actor_params_from_numpy(env, tree: dict) -> dict:
         "log_std": to_t(tree["log_std"]),
         "seed": to_t(tree["seed"]),
     }
+
+
+def scheduled_lut_from_numpy(env, values, carry_idx=(0, 1)):
+    """The JAX package's ``ScheduledLUT`` maps (``np.asarray(sched.values)``,
+    e.g. the gain schedule of its ``make_pmsm_saturated_sensorless_current_tile``)
+    as the port's :class:`~exciting_environments_torch.ops.lut.ScheduledLUT`,
+    checked against ``env``'s magnetics grid."""
+    from exciting_environments_torch.ops.lut import ScheduledLUT
+
+    if getattr(env, "_lut", None) is None:
+        raise ValueError(f"{type(env).__name__} has no magnetics table to schedule on")
+    values = np.asarray(values, dtype=np.float64)
+    if values.ndim != 3 or values.shape[1:] != (env._lut.nx, env._lut.ny):
+        raise ValueError(f"scheduled maps {values.shape} must be (C, {env._lut.nx}, {env._lut.ny})")
+    return ScheduledLUT(values, carry_idx)

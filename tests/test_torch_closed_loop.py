@@ -297,12 +297,3 @@ def test_out_of_scope_and_errors():
         CL.kernel_closed_loop(pe, y0, pd_pendulum, 4, **kw)
     assert CL.CL_KERNEL.launches == {"closed_loop": 0}
 
-
-def test_pmsm_closed_loop_is_not_ported_yet():
-    env = P.PMSM(batch_size=4, **F64)
-    _, state = env.vmap_reset()
-    assert select_closed_loop(env) == (None, {})
-    with pytest.raises(NotImplementedError, match="Queue 2 item 6"):
-        env.fused_closed_loop(state, pd_pendulum, 4)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 6"):
-        P.RolloutCollector(env).collect_policy_fused(pd_pendulum, state, 4)

@@ -1,5 +1,5 @@
-"""The stepper, PMSM and closed-loop kernels against their plain versions on
-a CUDA card.
+"""The stepper, PMSM, closed-loop and PMSM closed-loop kernels against their
+plain versions on a CUDA card.
 
 The kernels have no CPU mode, so these tests carry the ``gpu`` marker and skip
 without a card.  The file imports neither JAX nor the JAX package, so on a
@@ -291,3 +291,99 @@ def test_closed_loop_entry_points_launch_and_refuse():
                               P.AffinePolicy(np.zeros((1, 3))), 8,
                               policy_params=gains, **kw)
     assert CL.CL_KERNEL.launches == {"closed_loop": 2}
+
+
+PCL_P = [[-0.6, 0, 0, 0, 0, 0, 0, 0, 0.6, 0], [0, -0.6, 0, 0, 0, 0, 0, 0, 0, 0.6]]
+PCL_KI = [[-0.01, 0, 0, 0, 0, 0, 0, 0, 0.01, 0], [0, -0.01, 0, 0, 0, 0, 0, 0, 0, 0.01]]
+
+
+def _pcl_case(kind, dtype, n_steps):
+    """(env, policy, state0, omega, loop kwargs) of one PMSM closed-loop case."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    B = 2048 + 45
+    saturated = kind != "linear"
+    variant = P.MotorVariant.BRUSA if saturated else P.MotorVariant.DEFAULT
+    params = dict(variant.get_params().static_params.__dict__)
+    if saturated:
+        params.update(l_d=float("nan"), l_q=float("nan"), psi_p=float("nan"))
+    if kind == "per_batch":
+        params.update(r_s=0.015 + 0.006 * torch.rand(B, generator=gen, device="cuda", dtype=dtype),
+                      u_dc=350.0 + 100.0 * torch.rand(B, generator=gen, device="cuda", dtype=dtype))
+    control = ["i_d", "i_q"] if kind in ("p", "pi", "per_batch") else []
+    env = P.PMSM(batch_size=B, saturated=saturated, motor_variant=variant, static_params=params, dtype=dtype,
+                 solver="rk4" if kind == "pi" else "euler", control_state=control)
+    _, state = env.vmap_reset(rng=gen)
+    phys = state.physical_state
+    pn = env.env_properties.physical_normalizations
+    loop = {"traj_stride": 1, "ref_leaves": tuple(
+        (torch.rand(B, generator=gen, device="cuda", dtype=torch.float64) * 1.8 - 0.9).to(dtype) for _ in control)}
+    if kind == "p":
+        policy = P.AffinePolicy(PCL_P)
+    elif kind in ("pi", "per_batch"):
+        policy = P.AffinePolicy(PCL_P, Ki=PCL_KI, clip=1.0)
+        loop["policy_carry"] = (torch.zeros(B, device="cuda", dtype=dtype),) * 2
+    else:
+        phys.omega_el = torch.full((B,), 1200.0, device="cuda", dtype=dtype)
+        sensors = {"i_d": 3.0, "i_q": 3.0}
+        if kind == "linear":
+            policy, loop["policy_carry"] = P.make_pmsm_sensorless_current_tile(
+                env, i_d_ref=-30.0, i_q_ref=60.0, omega_el=1200.0, measurement_std=sensors)
+        else:
+            policy, loop["policy_carry"], loop["sched_lut"] = P.make_pmsm_saturated_sensorless_current_tile(
+                env, i_d_ref=-100.0, i_q_ref=150.0, omega_el=1200.0, measurement_std=sensors)
+        scale = torch.tensor([6.0 / (pn.i_d.max - pn.i_d.min), 6.0 / (pn.i_q.max - pn.i_q.min)], device="cuda",
+                             dtype=dtype)
+        loop["obs_noise_tm"] = torch.randn((n_steps, B, 2), generator=gen, device="cuda", dtype=dtype) * scale
+        loop["obs_noise_cols"] = (0, 1)
+    state0 = (phys.i_d, phys.i_q, phys.epsilon, phys.u_d_buffer, phys.u_q_buffer)
+    return env, policy, state0, phys.omega_el, loop
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["p", "pi", "per_batch", "linear", "scheduled"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pmsm_closed_loop_kernel_matches_plain_version(kind, dtype):
+    _cuda()
+    from exciting_environments_torch.ops.kernels import pmsm_closed_loop as PCL
+
+    n_steps = 32
+    env, policy, state0, omega, loop = _pcl_case(kind, dtype, n_steps)
+    kw = dict(tau=env.tau, solver=env._solver, props=env.env_properties, **loop)
+    before = PCL.PMSM_CL_KERNEL.launches["pmsm_closed_loop"]
+    outk = PCL.kernel_pmsm_closed_loop(env, state0, omega, policy, n_steps, **kw)
+    outp = PCL.plain_pmsm_closed_loop(env, state0, omega, policy, n_steps, **kw)
+    torch.cuda.synchronize()
+    assert PCL.PMSM_CL_KERNEL.launches["pmsm_closed_loop"] == before + 1
+    flat = lambda out: [t for part in out if part is not None for t in part]
+    assert len(flat(outk)) == len(flat(outp))
+    for a, b in zip(flat(outk), flat(outp)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_pmsm_closed_loop_entry_points_launch_and_refuse():
+    _cuda()
+    from exciting_environments_torch.ops.kernels import pmsm_closed_loop as PCL
+
+    env = P.PMSM(batch_size=256, saturated=True, motor_variant=P.MotorVariant.BRUSA, control_state=["i_d", "i_q"])
+    _, state = env.vmap_reset(rng=torch.Generator(device="cuda").manual_seed(11))
+    state.reference.i_d = torch.linspace(-200.0, -10.0, 256, device="cuda")
+    state.reference.i_q = torch.linspace(-150.0, 150.0, 256, device="cuda")
+    p_law = P.AffinePolicy(PCL_P)
+    PCL.PMSM_CL_KERNEL.reset_counts()
+    obs, last = env.fused_closed_loop(state, p_law, 8)
+    batch, _ = P.RolloutCollector(env).collect_policy_fused(p_law, state, 8)
+    assert PCL.PMSM_CL_KERNEL.launches == {"pmsm_closed_loop": 2}
+    assert obs.is_cuda and obs.shape == (256, 10) and batch.rewards.shape == (256, 8, 1)
+    assert bool(torch.isfinite(batch.observations).all())
+    actor, ids = P.make_actor_tile(env)
+    for policy, match in ((lambda obs, t: (-0.6 * obs[0], -0.6 * obs[1]), "plain callable"),
+                          (actor, "built with")):
+        with pytest.raises(ValueError, match=match):
+            env.fused_closed_loop(state, policy, 8)
+    phys = state.physical_state
+    state0 = (phys.i_d.clone().requires_grad_(True), phys.i_q, phys.epsilon, phys.u_d_buffer, phys.u_q_buffer)
+    with pytest.raises(NotImplementedError, match="backward"):
+        PCL.kernel_pmsm_closed_loop(env, state0, phys.omega_el, p_law, 8, tau=env.tau, solver=env._solver,
+                                    props=env.env_properties, ref_leaves=(torch.zeros(256, device="cuda"),) * 2)
+    assert PCL.PMSM_CL_KERNEL.launches == {"pmsm_closed_loop": 2}

@@ -2,6 +2,7 @@
 and it never picks the CPU on its own."""
 
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -22,6 +23,7 @@ def test_port_imports_no_jax():
         "import exciting_environments_torch.utils.convert\n"
         "import exciting_environments_torch.ops.kernels.closed_loop, exciting_environments_torch.ops.policies\n"
         "import exciting_environments_torch.utils.rl_fused, exciting_environments_torch.utils.collect\n"
+        "import exciting_environments_torch.ops.kernels.pmsm_closed_loop, exciting_environments_torch.utils.foc\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'exciting_environments_tpu'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"
@@ -29,6 +31,32 @@ def test_port_imports_no_jax():
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and "clean" in out.stdout, out.stderr
+
+
+CSRC = ROOT / "exciting_environments_torch" / "csrc"
+#: the shared device headers each kernel source builds on
+HEADERS = {
+    "stepper.cu": ("classic_envs.cuh", "eager_rules.cuh"),
+    "closed_loop.cu": ("classic_envs.cuh", "eager_rules.cuh", "policy_laws.cuh"),
+    "pmsm_stepper.cu": ("eager_rules.cuh", "pmsm_drive.cuh"),
+    "pmsm_closed_loop.cu": ("eager_rules.cuh", "pmsm_drive.cuh", "policy_laws.cuh"),
+}
+
+
+@pytest.mark.parametrize("source", sorted(HEADERS))
+def test_kernel_sources_share_their_headers_and_stand_alone(source):
+    """Each kernel includes the shared headers (one gather, one affine law),
+    defines no copy of what they hold, and includes no PyTorch header (the
+    libraries have a plain C interface, loaded with ctypes)."""
+    text = (CSRC / source).read_text()
+    includes = set(re.findall(r'#include "([^"]+)"', text))
+    assert includes == set(HEADERS[source])
+    for header in ("pmsm_drive.cuh", "policy_laws.cuh"):
+        for definition in re.findall(r"^struct (\w+) \{|^__device__ __forceinline__ \w+ (\w+)\(",
+                                     (CSRC / header).read_text(), flags=re.M):
+            name = next(n for n in definition if n)
+            assert not re.search(rf"^struct {name} \{{", text, flags=re.M), (source, name)
+    assert not re.search(r"#include <(torch|ATen|c10|pybind11)", text)
 
 
 @pytest.mark.parametrize("name", ["Pendulum", "CartPole", "MassSpringDamper", "PMSM"])
