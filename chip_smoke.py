@@ -8,10 +8,11 @@ toolkit:
 
 Phases (any failure raises and the script exits non-zero):
 
-1. build the four kernel libraries (``exciting_environments_torch/csrc/
-   stepper.cu``, ``pmsm_stepper.cu``, ``closed_loop.cu`` and
-   ``pmsm_closed_loop.cu``), one nvcc each, started together, and report the
-   build time and each compiler resource report;
+1. build the six kernel libraries (``exciting_environments_torch/csrc/
+   stepper.cu``, ``pmsm_stepper.cu``, ``closed_loop.cu``,
+   ``pmsm_closed_loop.cu``, ``pendulum_fast.cu`` and ``pmsm_fast.cu``), one
+   nvcc each, started together, and report the build time and each compiler
+   resource report;
 2. hold the stepper kernel against its plain PyTorch version on the card at
    B = 65,536, T = 64, float32, in every mode the port uses;
 3. replay the pendulum golden fixture (``tests/envs/pendulum/data``) through
@@ -61,7 +62,26 @@ Phases (any failure raises and the script exits non-zero):
     ``RolloutCollector.collect_policy_fused`` over T = 256; each with one
     launch, kernel vs plain at full size, kernel and entry-point times and
     the bound;
-12. print the kernel table, the card's name and power limit, and last the
+12. hold ``fast_math=True`` in the stepper and closed-loop kernels against
+    the plain versions at B = 65,536, T = 64 (Pendulum Euler and RK4 in step
+    and sim-ahead modes, CartPole Tsit5, one float64 case, the PD law, ragged
+    B), tolerance 0.0, then time the fast pendulum's step mode and PD law at
+    T = 4,096;
+13. the fast pendulum kernel (``csrc/pendulum_fast.cu``): kernel vs plain at
+    0.0 (both layouts, a ragged B), the main case ``Pendulum(batch_size=65536,
+    tau=1e-4)`` over T = 4,096 through ``pendulum_fast_rollout`` in both
+    layouts with one launch each, bench.py's gate (six chained rollouts
+    within 1e-2 rad of the exact chain) and the sustained T = 16,384 slab;
+14. the trig-free PMSM kernel (``csrc/pmsm_fast.cu``): kernel vs plain at 0.0
+    (B = 4,096, T = 64, DEFAULT, BRUSA and SEW, deadtime 0 and 1, both
+    layouts, float64, ragged B), the main case saturated BRUSA B = 65,536,
+    T = 256 through ``env.fast_rollout`` in both layouts with one launch
+    each, its deviation from the exact ``env.fused_rollout`` (float32 within
+    1e-4 over T = 32; over T = 256 float64 within 1e-9, and the float32 fast
+    path no farther from the float64 exact path than 4 times the float32
+    exact path is; a holding fleet that stays inside its current bands
+    within 1e-3 in float32 over T = 256) and the kernel alone at T = 4,096;
+15. print the kernel table, the card's name and power limit, and last the
     result line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -121,17 +141,38 @@ def max_abs(xs, ys):
     return max(float((x.double() - y.double()).abs().max()) for x, y in zip(xs, ys))
 
 
+def entry(name, launches, err, ms, plain_ms, bound_ms, bound_by, source, replaces):
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
+def roofline(nbytes, ops):
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_FP32_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ode_ops(env):
+    """Operations of one vector-field evaluation, counted from
+    csrc/classic_envs.cuh: each add, multiply, divide, compare and each
+    sin/cos/sign call as one; with fast_math each poly_sin is 16 operations,
+    each wrap_angle_fast 5, the cosine's shift 1 and fast_sign 3."""
+    if getattr(env, "fast_math", False):
+        return {0: 3 + 21, 1: 5, 2: 28 + 21 + 22 + 3}[env._kernel_env_id]
+    return {0: 4, 1: 5, 2: 31}[env._kernel_env_id]
+
+
 def ops_per_step(env, solver, sim_ahead):
     """Arithmetic operations of one step of one instance, counting each add,
-    multiply, divide, compare and each sin/cos/fmod call as one."""
+    multiply, divide, compare and each sin/cos/fmod call as one (the wrap,
+    exact or fast, as 5)."""
     from exciting_environments_torch.ops.kernels.stepper import _stage_rows
 
-    ode_ops = {0: 4, 1: 5, 2: 31}[env._kernel_env_id]
     a_rows, b = _stage_rows(solver)
     n = len(env._ode_state_fields)
     comb = lambda coeffs: sum(2 - (c == 1.0) for c in coeffs if c != 0.0) + 1 if any(coeffs) else 0
     per_step = 4 * env.action_dim * (2 if sim_ahead else 1)  # in-kernel denormalization
-    per_step += len(b) * ode_ops + n * (sum(comb(r) for r in a_rows) + comb(b))
+    per_step += len(b) * ode_ops(env) + n * (sum(comb(r) for r in a_rows) + comb(b))
     if not sim_ahead:
         per_step += 5 * len(env._angle_fields)  # wrap: add, fmod, compare, add, sub
     return per_step
@@ -143,8 +184,7 @@ def bound(env, solver, batch, n_steps, n_rows, n_saves, sim_ahead, itemsize=4):
     n = len(env._ode_state_fields)
     nbytes = itemsize * (n_rows * batch * env.action_dim + 2 * n * batch + n_saves * n * batch)
     ops = ops_per_step(env, solver, sim_ahead) * batch * n_steps
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_FP32_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return roofline(nbytes, ops)
 
 
 def make_env(cls, batch, dtype=torch.float32, **kwargs):
@@ -350,13 +390,10 @@ def phase_main(ex, K):
         f"plain {plain_sa_ms!r} ms (one run)")
     log(f"[main] vmap_rollout, T={t_short}: {vmap_ms!r} ms (one run) = "
         f"{B * t_short / vmap_ms * 1e3:.4e} env-steps/s")
-    entry = lambda name, n, err, t, plain, bms, bby: {
-        "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES, "launches": n,
-        "max_abs_err": err, "ms": t, "plain_ms": plain, "bound_ms": bms, "bound_by": bby, "library_ms": None,
-    }
     return [
-        entry("stepper_step", launches["step"], err_step, ms, plain_ms, bound_ms, bound_by),
-        entry("stepper_sim_ahead", launches["sim_ahead"], err_sa, sa_ms, plain_sa_ms, sa_bound_ms, sa_bound_by),
+        entry("stepper_step", launches["step"], err_step, ms, plain_ms, bound_ms, bound_by, SOURCE, REPLACES),
+        entry("stepper_sim_ahead", launches["sim_ahead"], err_sa, sa_ms, plain_sa_ms, sa_bound_ms, sa_bound_by,
+              SOURCE, REPLACES),
     ]
 
 
@@ -393,8 +430,7 @@ def pmsm_bound(env, solver, batch, n_steps, n_saves, itemsize=4):
     lut = env._lut.values.numel() if env._lut is not None else 0
     nbytes = itemsize * (n_steps * batch * 2 + (5 + n_pb) * batch + lut + 3 * batch + 3 * n_saves * batch)
     ops = pmsm_ops(env, solver, n_steps, n_saves) * batch
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_FP32_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return roofline(nbytes, ops)
 
 
 def pmsm_env(ex, batch, variant="BRUSA", saturated=True, dtype=torch.float32, static=None, **kwargs):
@@ -600,13 +636,11 @@ def phase_pmsm_main(ex, PK):
     log(f"[pmsm main] kernel alone, T={T_PMSM_LONG} synthetic voltages: {long_ms!r} ms = "
         f"{B * T_PMSM_LONG / long_ms * 1e3:.4e} env-steps/s; bound {long_bound_ms!r} ms ({long_bound_by}); "
         f"{long_bound_ms / long_ms:.1%} of the bound")
-    entry = lambda name, n, err, t, plain, bms, bby: {
-        "name": name, "route": "cuda", "source": PMSM_SOURCE, "replaces": PMSM_REPLACES, "launches": n,
-        "max_abs_err": err, "ms": t, "plain_ms": plain, "bound_ms": bms, "bound_by": bby, "library_ms": None,
-    }
     return [
-        entry("pmsm_step", launches["pmsm_step"], err_step, ms, plain_ms, bound_ms, bound_by),
-        entry("pmsm_sim_ahead", launches["pmsm_sim_ahead"], err_sa, sa_ms, plain_sa_ms, sa_bound_ms, sa_bound_by),
+        entry("pmsm_step", launches["pmsm_step"], err_step, ms, plain_ms, bound_ms, bound_by, PMSM_SOURCE,
+              PMSM_REPLACES),
+        entry("pmsm_sim_ahead", launches["pmsm_sim_ahead"], err_sa, sa_ms, plain_sa_ms, sa_bound_ms, sa_bound_by,
+              PMSM_SOURCE, PMSM_REPLACES),
     ]
 
 
@@ -655,16 +689,14 @@ def cl_bound(env, spec, batch, n_steps, n_saves, n_carry, n_refs, n_obs_noise=0,
     n_pb = sum(isinstance(getattr(params, p), torch.Tensor) for p in env._kernel_params)
     nbytes = itemsize * (batch * (2 * n + n_refs + 2 * n_carry + n_pb) + spec.flat.numel()
                          + n_saves * batch * (n + a + n_carry) + n_steps * batch * (n_obs_noise + n_proc_noise))
-    ode_ops = {0: 4, 1: 5, 2: 31}[env._kernel_env_id]
     a_rows, b = _stage_rows(env._solver)
     comb = lambda coeffs: sum(2 - (c == 1.0) for c in coeffs if c != 0.0) + 1 if any(coeffs) else 0
     wrap = 5 * len(env._angle_fields)
     per_step = 4 * n + n_obs_noise + cl_policy_ops(spec, a) + 4 * a
-    per_step += len(b) * ode_ops + n * (sum(comb(r) for r in a_rows) + comb(b)) + wrap
+    per_step += len(b) * ode_ops(env) + n * (sum(comb(r) for r in a_rows) + comb(b)) + wrap
     per_step += (n_proc_noise + wrap) if n_proc_noise else 0
     ops = per_step * batch * n_steps
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_FP32_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"), per_step
+    return roofline(nbytes, ops), per_step
 
 
 def cl_run(CL, env, policy, n_steps, y0, refs, kernel, **kw):
@@ -796,11 +828,7 @@ def phase_cl_main(ex, CL):
             f"entry point {env_ms!r} ms = {steps / env_ms * 1e3:.4e} env-steps/s (kernel {ms / env_ms:.1%}); "
             f"bound {bound_ms!r} ms ({bound_by}, {per_step} operations per step and instance); "
             f"{bound_ms / ms:.1%} of the bound; plain {plain_ms!r} ms (one run); max abs {err!r}")
-        entries.append({
-            "name": name, "route": "cuda", "source": CL_SOURCE, "replaces": CL_REPLACES, "launches": launches,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None,
-        })
+        entries.append(entry(name, launches, err, ms, plain_ms, bound_ms, bound_by, CL_SOURCE, CL_REPLACES))
 
     def check_final(out, n_extra=0):
         obs = out[0]
@@ -909,8 +937,7 @@ def pmsm_cl_bound(env, spec, batch, n_steps, n_saves, n_carry, n_refs, n_sched=0
     nbytes = itemsize * (batch * (6 + n_refs + 2 * n_carry + n_pb + 8) + spec.flat.numel() + tables
                          + n_saves * batch * (7 + n_carry) + n_steps * batch * (n_obs_noise + n_proc_noise))
     per_step = pmsm_cl_ops_per_step(env, spec, n_refs, n_sched, n_obs_noise, n_proc_noise)
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, per_step * batch * n_steps / PEAK_FP32_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"), per_step
+    return roofline(nbytes, per_step * batch * n_steps), per_step
 
 
 def pcl_run(PCL, env, policy, n_steps, state0, omega, kernel, **kw):
@@ -1069,11 +1096,7 @@ def phase_pcl_main(ex, PCL):
             f"entry point {env_ms!r} ms = {steps / env_ms * 1e3:.4e} env-steps/s (kernel {ms / env_ms:.1%}); "
             f"bound {bound_ms!r} ms ({bound_by}, {per_step} operations per step and drive); "
             f"{bound_ms / ms:.1%} of the bound; plain {plain_ms!r} ms (one run, full size); max abs {err!r}")
-        entries.append({
-            "name": name, "route": "cuda", "source": PCL_SOURCE, "replaces": PCL_REPLACES, "launches": launches,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None,
-        })
+        entries.append(entry(name, launches, err, ms, plain_ms, bound_ms, bound_by, PCL_SOURCE, PCL_REPLACES))
 
     def check_final(out, n_extra=0):
         obs = out[0]
@@ -1156,19 +1179,451 @@ def phase_pcl_main(ex, PCL):
     return entries
 
 
+# ---------------------------------------------------------------------------
+# fast-math phases
+# ---------------------------------------------------------------------------
+
+FAST_SOURCE = "exciting_environments_torch/csrc/pendulum_fast.cu"
+FAST_REPLACES = "exciting_environments_tpu/ops/pallas/pendulum_fast.py:40"
+PMSM_FAST_SOURCE = "exciting_environments_torch/csrc/pmsm_fast.cu"
+PMSM_FAST_REPLACES = "exciting_environments_tpu/ops/pallas/pmsm_fast_kernel.py:78"
+ATOL_FAST, CHAIN = 1e-2, 6  # bench.py:39-42, the fast pendulum's gate over six chained rollouts
+T_SUSTAINED = 16384  # bench.py's path 4b
+PENDULUM_FAST_OPS = 30  # per step, counted from csrc/pendulum_fast.cu
+#: per step of csrc/pmsm_fast.cu (saturated: with the 80-operation gather), and the final torque
+PMSM_FAST_OPS = {True: (166, 84), False: (80, 4)}
+B_FAST_CHECK = 4096
+
+
+def wrapped_gap(a, b):
+    """max |a - b| of two angle tensors, modulo 2 pi."""
+    d = (a.double() - b.double() + np.pi).remainder(2 * np.pi) - np.pi
+    return float(d.abs().max())
+
+
+def phase_fast_flag(ex, K, CL):
+    """fast_math=True through the stepper and closed-loop kernels: kernel vs
+    plain at B = 65,536, T = 64 (float32, one float64 case, a ragged B),
+    tolerance 0.0; then the fast pendulum's step mode and PD law at the main
+    size (T = 4,096); returns the kernel table entries."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 8)
+    B, T = B_MAIN, T_CHECK
+    fast = lambda cls, batch=B, **kw: make_env(cls, batch, fast_math=True, **kw)
+    # (label, env, rollout kwargs); states span +-4 so that the wraps fire
+    cases = [
+        ("pendulum fast euler", fast(ex.Pendulum), {}),
+        ("pendulum fast rk4 obs_stride=4", fast(ex.Pendulum, solver="rk4"), {"obs_stride": 4}),
+        ("pendulum fast euler sim-ahead ratio 2", fast(ex.Pendulum), {"sim_ahead": True, "hold": 2, "obs_stride": 8}),
+        ("pendulum fast rk4 sim-ahead ratio 1", fast(ex.Pendulum, solver="rk4"),
+         {"sim_ahead": True, "hold": 1, "obs_stride": 8}),
+        ("cart_pole fast tsit5", fast(ex.CartPole, solver="tsit5"), {}),
+        ("pendulum fast rk4 float64", fast(ex.Pendulum, solver="rk4", dtype=torch.float64), {}),
+        ("cart_pole fast euler ragged B=1000", fast(ex.CartPole, 1000), {}),
+    ]
+    failures = []
+    for label, env, kw in cases:
+        y0 = tuple(4 * y for y in random_state(env, gen))
+        acts = random_actions(env, T // kw.get("hold", 1), gen)
+        yk, tk = K.kernel_rollout(env, y0, acts, tau=env.tau, **kw)
+        yp, tp = K.plain_rollout(env, y0, acts, tau=env.tau, **kw)
+        torch.cuda.synchronize()
+        err = max(max_abs(yk, yp), max_abs(tk, tp) if tk is not None else 0.0)
+        ok = err == 0.0 and all(bool(torch.isfinite(y).all()) for y in yk)
+        log(f"[fast flag vs plain] {label}: max abs deviation {err!r} (tolerance 0.0) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(label)
+    pd = ex.AffinePolicy(PD_GAINS)
+    for label, env in (("pendulum fast euler PD closed loop, saves every step",
+                        fast(ex.Pendulum, control_state=["theta"])),
+                       ("pendulum fast rk4 PD closed loop ragged B=1000",
+                        fast(ex.Pendulum, 1000, control_state=["theta"], solver="rk4"))):
+        y0 = tuple(4 * y for y in random_state(env, gen))
+        refs = ((torch.rand(env.batch_size, generator=gen, device=DEVICE) * 2 - 1),)
+        err, finite = cl_deviation(CL, env, pd, T, y0, refs, traj_stride=1)
+        ok = finite and err == 0.0
+        log(f"[fast flag vs plain] {label}: max abs deviation {err!r} (tolerance 0.0) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(label)
+    if failures:
+        raise AssertionError(f"fast-math kernels disagree with their plain versions: {failures}")
+
+    # the main size: Pendulum(fast_math=True), step mode and the PD law, T = 4,096
+    Tm = T_MAIN
+    env = ex.Pendulum(batch_size=B, tau=1e-4, fast_math=True, device=DEVICE)
+    _, state = env.vmap_reset(rng=gen)
+    actions_tm = random_actions(env, Tm, gen)
+    K.KERNEL.reset_counts()
+    obs, last = env.fused_rollout(state, actions_tm, time_major=True, strict=True)
+    torch.cuda.synchronize()
+    launches = K.KERNEL.launches["step"]
+    if launches != 1 or tuple(obs.shape) != (B, 2) or not bool(torch.isfinite(obs).all()):
+        raise AssertionError(f"the fast-math rollout did not run once through the stepper kernel: {launches}")
+    y0 = tuple(getattr(state.physical_state, f) for f in env._ode_state_fields)
+    kernel = lambda: K.kernel_rollout(env, y0, actions_tm, tau=env.tau)
+    yk, _ = kernel()
+    t0 = time.perf_counter()
+    yp, _ = K.plain_rollout(env, y0, actions_tm, tau=env.tau)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max_abs(yk, yp)
+    if err != 0.0:
+        raise AssertionError(f"fast-math stepper kernel disagrees with its plain version at the main size ({err!r})")
+    ms = time_ms(kernel)
+    env_ms = time_ms(lambda: env.fused_rollout(state, actions_tm, time_major=True, strict=True))
+    bound_ms, bound_by = bound(env, env._solver, B, Tm, Tm, 0, False)
+    log(f"[fast flag main] Pendulum(fast_math=True) B={B} T={Tm} step mode: kernel {ms!r} ms = "
+        f"{B * Tm / ms * 1e3:.4e} env-steps/s; env.fused_rollout time-major {env_ms!r} ms; bound {bound_ms!r} ms "
+        f"({bound_by}, {ops_per_step(env, env._solver, False)} operations per step); plain {plain_ms!r} ms; "
+        f"launches {launches}")
+    entries = [entry("stepper_step_fast", launches, err, ms, plain_ms, bound_ms, bound_by, SOURCE, REPLACES)]
+
+    cl_env = ex.Pendulum(batch_size=B, control_state=["theta"], fast_math=True, device=DEVICE)
+    _, cl_state = cl_env.vmap_reset(rng=gen)
+    cl_state.reference.theta = torch.linspace(-1.5, 1.5, B, device=DEVICE)
+    cy0 = tuple(getattr(cl_state.physical_state, f) for f in cl_env._ode_state_fields)
+    refs = (cl_env.env_properties.physical_normalizations.theta.normalize(cl_state.reference.theta),)
+    CL.CL_KERNEL.reset_counts()
+    obs, _ = cl_env.fused_closed_loop(cl_state, pd, Tm)
+    torch.cuda.synchronize()
+    cl_launches = CL.CL_KERNEL.launches["closed_loop"]
+    if cl_launches != 1 or not bool(torch.isfinite(obs).all()):
+        raise AssertionError(f"the fast-math PD loop did not run once through the closed-loop kernel: {cl_launches}")
+    kw = dict(tau=cl_env.tau, solver=cl_env._solver, props=cl_env.env_properties, ref_leaves=refs)
+    cl_kernel = lambda: CL.kernel_closed_loop(cl_env, cy0, pd, Tm, **kw)
+    outk = cl_flat(cl_kernel())
+    t0 = time.perf_counter()
+    outp = cl_flat(CL.plain_closed_loop(cl_env, cy0, pd, Tm, **kw))
+    torch.cuda.synchronize()
+    cl_plain_ms = (time.perf_counter() - t0) * 1e3
+    cl_err = max_abs(outk, outp)
+    if cl_err != 0.0:
+        raise AssertionError(f"fast-math closed-loop kernel disagrees with its plain version ({cl_err!r})")
+    cl_ms = time_ms(cl_kernel)
+    cl_env_ms = time_ms(lambda: cl_env.fused_closed_loop(cl_state, pd, Tm))
+    (cl_bound_ms, cl_bound_by), per_step = cl_bound(cl_env, pd.kernel_spec(torch.float32, DEVICE), B, Tm, 0, 0, 1)
+    log(f"[fast flag main] PD law, fast_math=True, T={Tm}: kernel {cl_ms!r} ms; env.fused_closed_loop "
+        f"{cl_env_ms!r} ms; bound {cl_bound_ms!r} ms ({cl_bound_by}, {per_step} operations per step); "
+        f"plain {cl_plain_ms!r} ms; launches {cl_launches}; mean |ref - theta| (normalized) "
+        f"{float((obs[:, 2] - obs[:, 0]).abs().mean()):.4f}")
+    entries.append(entry("closed_loop_pd_fast", cl_launches, cl_err, cl_ms, cl_plain_ms, cl_bound_ms, cl_bound_by,
+                         CL_SOURCE, CL_REPLACES))
+    return entries
+
+
+def phase_pendulum_fast(ex, PFK):
+    """Kernel 5: kernel vs plain at 0.0 (B = 65,536 and a ragged B, T = 64,
+    both layouts); the main case Pendulum(batch_size=65536, tau=1e-4), actions
+    in +-1, T = 4,096 in both layouts; the bench gate against six chained
+    exact rollouts; the sustained T = 16,384 time-major slab.  Returns the
+    kernel table entry."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
+    uniform = lambda *shape: torch.rand(shape, generator=gen, device=DEVICE) * 2 - 1
+
+    def plain(env, state, acts_tm):
+        phys = state.physical_state
+        return PFK.plain_pendulum_fast_rollout(phys.theta, phys.omega, acts_tm[..., 0], **PFK.fast_constants(env))
+
+    failures = []
+    for label, batch, time_major in (("B=65536 batch-major", B_MAIN, False), ("B=65536 time-major", B_MAIN, True),
+                                     ("ragged B=65531 time-major", B_MAIN - 5, True)):
+        env = ex.Pendulum(batch_size=batch, tau=1e-4, device=DEVICE)
+        _, state = env.vmap_reset(rng=gen)
+        acts_tm = uniform(T_CHECK, batch, 1)
+        acts = acts_tm if time_major else acts_tm.transpose(0, 1).contiguous()
+        got = ex.pendulum_fast_rollout(env, state, acts, time_major=time_major)
+        ref = plain(env, state, acts_tm)
+        torch.cuda.synchronize()
+        err = max_abs(got, ref)
+        ok = err == 0.0 and all(bool(torch.isfinite(x).all()) for x in got)
+        log(f"[pendulum fast vs plain] {label}: max abs deviation {err!r} (tolerance 0.0) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(label)
+    if failures:
+        raise AssertionError(f"the fast pendulum kernel disagrees with its plain version: {failures}")
+
+    B, T = B_MAIN, T_MAIN
+    env = ex.Pendulum(batch_size=B, tau=1e-4, device=DEVICE)
+    _, state = env.vmap_reset(rng=gen)
+    actions_tm = uniform(T, B, 1)
+    actions_bm = actions_tm.transpose(0, 1).contiguous()
+    launches = {}
+    for layout, acts, tm in (("time-major", actions_tm, True), ("batch-major", actions_bm, False)):
+        PFK.KERNEL.reset_counts()
+        th, om = ex.pendulum_fast_rollout(env, state, acts, time_major=tm)
+        torch.cuda.synchronize()
+        launches[layout] = PFK.KERNEL.launches["pendulum_fast"]
+        if launches[layout] != 1 or tuple(th.shape) != (B,) or not bool(torch.isfinite(th).all()):
+            raise AssertionError(f"the fast pendulum ({layout}) did not run once through its kernel: {launches}")
+    log(f"[pendulum fast main] Pendulum B={B} T={T} float32, actions in +-1: launches {launches}")
+    consts = PFK.fast_constants(env)
+    phys = state.physical_state
+    kernel = lambda: PFK.kernel_pendulum_fast_rollout(phys.theta, phys.omega, actions_tm[..., 0], **consts)
+    got = kernel()
+    t0 = time.perf_counter()
+    ref = plain(env, state, actions_tm)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max_abs(got, ref)
+    if err != 0.0:
+        raise AssertionError(f"the fast pendulum kernel disagrees with its plain version at the main size ({err!r})")
+    ms = time_ms(kernel)
+    tm_ms = time_ms(lambda: ex.pendulum_fast_rollout(env, state, actions_tm, time_major=True))
+    bm_ms = time_ms(lambda: ex.pendulum_fast_rollout(env, state, actions_bm))
+    exact_ms = time_ms(lambda: env.fused_rollout(state, actions_tm, time_major=True, strict=True))
+    bound_ms, bound_by = roofline(4 * (T * B + 4 * B), PENDULUM_FAST_OPS * B * T)
+    steps = B * T
+    log(f"[pendulum fast main] kernel: {ms!r} ms = {steps / ms * 1e3:.4e} env-steps/s; bound {bound_ms!r} ms "
+        f"({bound_by}); {bound_ms / ms:.1%} of the bound; slab read at {4 * T * B / ms / 1e9:.3f} TB/s")
+    log(f"[pendulum fast main] pendulum_fast_rollout time-major {tm_ms!r} ms, batch-major {bm_ms!r} ms; the exact "
+        f"env.fused_rollout time-major {exact_ms!r} ms; plain version {plain_ms!r} ms (one run)")
+
+    # bench.py's gate: six chained rollouts, fast against exact, from one state
+    fast_state, exact_state = state, state
+    for _ in range(CHAIN):
+        th, om = ex.pendulum_fast_rollout(env, fast_state, actions_tm, time_major=True)
+        fast_state = ex.core.structures.replace(
+            fast_state, physical_state=env.PhysicalState(theta=th, omega=om))
+        _, exact_state = env.fused_rollout(exact_state, actions_tm, time_major=True, strict=True)
+    gate = wrapped_gap(th, exact_state.physical_state.theta)
+    log(f"[pendulum fast main] bench gate: max wrapped |d theta| after {CHAIN} x {T} chained steps {gate!r} rad "
+        f"(limit {ATOL_FAST}) {'ok' if gate < ATOL_FAST else 'FAIL'}")
+    if not gate < ATOL_FAST:
+        raise AssertionError("the fast pendulum left the bench gate")
+    del actions_bm, ref, got
+
+    # sustained: one T = 16,384 time-major slab (4.3 GB)
+    a_long = uniform(T_SUSTAINED, B)
+    long_ms = time_ms(lambda: PFK.kernel_pendulum_fast_rollout(phys.theta, phys.omega, a_long, **consts), reps=3)
+    long_bound, _ = roofline(4 * (T_SUSTAINED * B + 4 * B), PENDULUM_FAST_OPS * B * T_SUSTAINED)
+    log(f"[pendulum fast main] sustained T={T_SUSTAINED} time-major ({a_long.numel() * 4 / 1e9:.2f} GB slab): "
+        f"{long_ms!r} ms = {B * T_SUSTAINED / long_ms * 1e3:.4e} env-steps/s; bound {long_bound!r} ms; "
+        f"{long_bound / long_ms:.1%} of the bound")
+    del a_long
+    return [entry("pendulum_fast", launches["time-major"], err, ms, plain_ms, bound_ms, bound_by,
+                  FAST_SOURCE, FAST_REPLACES)]
+
+
+def pmsm_fast_bound(env, batch, n_steps, itemsize=4):
+    """Least time for the fast PMSM kernel's work: the action slab, the nine
+    per-drive inputs and the table read once, the five outputs written once;
+    or its operations at the float32 rate."""
+    saturated = bool(env.env_properties.saturated)
+    lut = env._lut.values.numel() if saturated else 0
+    per_step, final = PMSM_FAST_OPS[saturated]
+    return roofline(itemsize * (n_steps * batch * 2 + 14 * batch + lut), (per_step * n_steps + final) * batch)
+
+
+def exact_and_fast(env, state, acts):
+    """The final physical states of the exact env.fused_rollout and of
+    env.fast_rollout on the same inputs."""
+    _, exact = env.fused_rollout(state, acts, strict=True)
+    return exact.physical_state, env.fast_rollout(state, acts).physical_state
+
+
+def current_scale(phys):
+    """The largest final current, at least 1 A: what the gaps are divided by."""
+    return max(1.0, float(phys.i_d.abs().max()), float(phys.i_q.abs().max()))
+
+
+def current_gap(a, b, scale):
+    """max |d i_d|, |d i_q| between two final states, in float64, over ``scale``."""
+    return max(float((a.i_d.double() - b.i_d.double()).abs().max()),
+               float((a.i_q.double() - b.i_q.double()).abs().max())) / scale
+
+
+def out_of_band(env, phys):
+    """The share of drives whose currents end outside their i_d/i_q bands."""
+    pn = env.env_properties.physical_normalizations
+    out = (phys.i_d < pn.i_d.min) | (phys.i_d > pn.i_d.max) | (phys.i_q < pn.i_q.min) | (phys.i_q > pn.i_q.max)
+    return float(out.float().mean())
+
+
+def holding_fleet(ex, env, gen, n_steps, dither=0.005):
+    """A fleet that stays inside its current bands and so reads the whole
+    table: start currents across the inner 80% of the i_d/i_q bands, speeds
+    up to 30% of the band (the holding voltages stay inside the hexagon's
+    inscribed circle), and actions that hold each drive at its start
+    currents (the steady-state dq voltages from the table there, also in
+    the deadtime buffer) plus a uniform dither.  Returns the state and the
+    batch-major actions."""
+    B = env.batch_size
+    pn = env.env_properties.physical_normalizations
+    rand = lambda *shape: torch.rand(shape, generator=gen, device=DEVICE, dtype=torch.float64)
+    i_d = (rand(B) * 0.8 + 0.1) * pn.i_d.min
+    i_q = (rand(B) * 1.6 - 0.8) * pn.i_q.max
+    omega = rand(B) * 0.3 * pn.omega_el.max
+    lut = env._lut
+    vals = ex.ops.lut.bilinear_gather(lut.values.double(), lut.x0, lut.dx, lut.y0, lut.dy, lut.nx, lut.ny, i_d, i_q)
+    r_s = float(env.env_properties.static_params.r_s)
+    u_d, u_q = r_s * i_d - omega * vals[5], r_s * i_q + omega * vals[4]
+    an = env.env_properties.action_normalizations
+    hold = torch.stack([u_d / an.u_d.max, u_q / an.u_q.max], -1)
+    actions = (hold[:, None, :] + (rand(B, n_steps, 2) * 2 - 1) * dither).to(env.dtype)
+    _, state = env.vmap_reset(rng=gen)
+    with ex.core.structures.copy_and_mutate(state) as state:
+        for name, v in (("i_d", i_d), ("i_q", i_q), ("omega_el", omega), ("u_d_buffer", u_d), ("u_q_buffer", u_q)):
+            setattr(state.physical_state, name, v.to(env.dtype))
+    return state, actions
+
+
+def phase_pmsm_fast(ex, PF, PMK):
+    """Kernel 6: kernel vs plain at 0.0 (B = 4,096, T = 64, over DEFAULT,
+    BRUSA and SEW, deadtime 0 and 1, both layouts, a float64 case, a ragged
+    B); the main case, saturated BRUSA B = 65,536, actions in +-0.3, T = 256,
+    through env.fast_rollout in both layouts; the deviation from the exact
+    env.fused_rollout on that fleet and on a holding fleet inside the
+    current bands; the kernel alone on the holding fleet and at T = 4,096.
+    Returns the kernel table entry."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 10)
+    B, T = B_FAST_CHECK, T_CHECK
+    fields = ("i_d", "i_q", "epsilon", "torque", "u_d_buffer", "u_q_buffer", "omega_el")
+
+    def deviation(env, state, acts, time_major=False):
+        got = env.fast_rollout(state, acts, time_major=time_major)
+        ref = PF.pmsm_fast_rollout(env, state, acts, time_major=time_major)
+        torch.cuda.synchronize()
+        g = [getattr(got.physical_state, n) for n in fields]
+        return max_abs(g, [getattr(ref.physical_state, n) for n in fields]), all(bool(torch.isfinite(x).all()) for x in g)
+
+    cases = [
+        ("DEFAULT linear deadtime 1", pmsm_env(ex, B, "DEFAULT", saturated=False), False),
+        ("DEFAULT linear deadtime 0 time-major", pmsm_env(ex, B, "DEFAULT", saturated=False, static={"deadtime": 0}),
+         True),
+        ("BRUSA saturated deadtime 1", pmsm_env(ex, B), False),
+        ("BRUSA saturated deadtime 0 time-major", pmsm_env(ex, B, static={"deadtime": 0}), True),
+        ("SEW saturated deadtime 1", pmsm_env(ex, B, "SEW"), False),
+        ("BRUSA saturated float64 (shared memory above 48 KB)", pmsm_env(ex, B, dtype=torch.float64), False),
+        ("BRUSA saturated ragged B=1000 time-major", pmsm_env(ex, 1000), True),
+    ]
+    failures = []
+    for label, env, time_major in cases:
+        _, state = env.vmap_reset(rng=gen)
+        u = torch.rand((T, env.batch_size, 2), generator=gen, device=DEVICE, dtype=torch.float64)
+        acts = ((u * 2 - 1) * 0.9).to(env.dtype)
+        err, finite = deviation(env, state, acts if time_major else acts.transpose(0, 1).contiguous(), time_major)
+        ok = finite and err == 0.0
+        log(f"[pmsm fast vs plain] {label}: max abs deviation {err!r} (tolerance 0.0) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(label)
+    if failures:
+        raise AssertionError(f"the fast PMSM kernel disagrees with its plain version: {failures}")
+
+    B, T = B_MAIN, T_PMSM
+    env = ex.PMSM(batch_size=B, saturated=True, motor_variant=ex.MotorVariant.BRUSA, tau=1e-4, device=DEVICE)
+    _, state = env.vmap_reset(rng=gen)
+    u = torch.rand((B, T, 2), generator=gen, device=DEVICE, dtype=torch.float64)
+    actions = ((u * 2 - 1) * 0.3).float()
+    actions_tm = actions.transpose(0, 1).contiguous()
+    del u
+    launches = {}
+    finals = {}
+    for layout, acts, tm in (("time-major", actions_tm, True), ("batch-major", actions, False)):
+        PMK.KERNEL.reset_counts()
+        finals[layout] = env.fast_rollout(state, acts, time_major=tm)
+        torch.cuda.synchronize()
+        launches[layout] = PMK.KERNEL.launches["pmsm_fast"]
+        if launches[layout] != 1:
+            raise AssertionError(f"env.fast_rollout ({layout}) made {launches[layout]} pmsm_fast launches, not 1")
+    a, b = finals["time-major"].physical_state, finals["batch-major"].physical_state
+    if not all(torch.equal(getattr(a, n), getattr(b, n)) for n in fields):
+        raise AssertionError("time-major and batch-major fast rollouts disagree")
+    if not all(bool(torch.isfinite(getattr(a, n)).all()) and tuple(getattr(a, n).shape) == (B,) for n in fields):
+        raise AssertionError("non-finite or misshapen fast PMSM state")
+    log(f"[pmsm fast main] PMSM BRUSA saturated B={B} T={T} float32, actions in +-0.3: launches {launches}")
+    t0 = time.perf_counter()
+    ref = PF.pmsm_fast_rollout(env, state, actions_tm, time_major=True)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max_abs([getattr(a, n) for n in fields], [getattr(ref.physical_state, n) for n in fields])
+    if err != 0.0:
+        raise AssertionError(f"the fast PMSM kernel disagrees with its plain version at the main size ({err!r})")
+    def kernel_args(st, acts_tm):
+        """The kernel's own arguments, built as env.fast_rollout builds them."""
+        consts, acts_tm, lv = PF.fast_inputs(env, st, acts_tm, True)
+        s0 = PF.fast_start(lv["epsilon"], lv["omega_el"], consts)
+        return (env, acts_tm, lv["i_d"], lv["i_q"], s0[0], s0[1], lv["u_d_buffer"], lv["u_q_buffer"], lv["omega_el"],
+                s0[2], s0[3], consts)
+
+    args = kernel_args(state, actions_tm)
+    ms = time_ms(lambda: PMK.kernel_pmsm_fast_rollout(*args))
+    tm_ms = time_ms(lambda: env.fast_rollout(state, actions_tm, time_major=True))
+    bm_ms = time_ms(lambda: env.fast_rollout(state, actions))
+    exact_ms = time_ms(lambda: env.fused_rollout(state, actions_tm, time_major=True, strict=True))
+    bound_ms, bound_by = pmsm_fast_bound(env, B, T)
+    steps = B * T
+    log(f"[pmsm fast main] kernel alone: {ms!r} ms = {steps / ms * 1e3:.4e} env-steps/s; bound {bound_ms!r} ms "
+        f"({bound_by}); {bound_ms / ms:.1%} of the bound")
+    log(f"[pmsm fast main] env.fast_rollout time-major {tm_ms!r} ms = {steps / tm_ms * 1e3:.4e} env-steps/s "
+        f"(kernel {ms / tm_ms:.1%}), batch-major {bm_ms!r} ms; the exact env.fused_rollout time-major {exact_ms!r} ms; "
+        f"plain version {plain_ms!r} ms (one run)")
+
+    # fast vs exact, max |d i| / max |i|.  float32 over 32 steps at the JAX
+    # test's 1e-4.  Over 256 steps most drives of this random fleet run away
+    # (currents far outside their bands, the table extrapolated), and the
+    # runaway grows every float32 rounding: float64 holds the semantics (the
+    # paths agree to rounding), and the float32 fast path stays within 4
+    # times the exact path's own float32 distance from float64.
+    e, f = exact_and_fast(env, state, actions[:, :32])
+    gap32 = current_gap(f, e, current_scale(e))
+    e32, f32 = exact_and_fast(env, state, actions)
+    env64 = ex.PMSM(batch_size=B, saturated=True, motor_variant=ex.MotorVariant.BRUSA, tau=1e-4, device=DEVICE,
+                    dtype=torch.float64)
+    state64 = ex.core.structures.map_leaves(
+        lambda leaf: leaf.double() if isinstance(leaf, torch.Tensor) and leaf.is_floating_point() else leaf, state)
+    e64, f64 = exact_and_fast(env64, state64, actions.double())
+    scale = current_scale(e64)
+    gap256, fast_drift = current_gap(f32, e32, scale), current_gap(f32, e64, scale)
+    exact_drift, gap256_64 = current_gap(e32, e64, scale), current_gap(f64, e64, scale)
+    runaway = out_of_band(env64, e64)
+    del env64, state64, e, f, e32, f32, e64, f64
+    # float32 over 256 steps at 1e-3, on traffic that stays inside the table
+    hold_state, hold_actions = holding_fleet(ex, env, gen, T)
+    e, f = exact_and_fast(env, hold_state, hold_actions)
+    gap_hold, out_hold = current_gap(f, e, current_scale(e)), out_of_band(env, e)
+    del e, f
+    ok = (gap32 < 1e-4 and gap256_64 < 1e-9 and fast_drift <= 4 * exact_drift
+          and gap_hold < 1e-3 and out_hold == 0.0)
+    log(f"[pmsm fast main] fast vs exact, max |d i| / max |i|: float32 T=32 {gap32!r} (limit 1e-4); float64 T={T} "
+        f"{gap256_64!r} (limit 1e-9); holding fleet float32 T={T} {gap_hold!r} (limit 1e-3, {out_hold:.1%} of it "
+        f"out of band, limit 0) {'ok' if ok else 'FAIL'}")
+    log(f"[pmsm fast main] random fleet T={T} ({runaway:.1%} of the drives end outside their current bands): "
+        f"float32 fast vs float32 exact {gap256!r}; against float64 exact: float32 exact {exact_drift!r}, "
+        f"float32 fast {fast_drift!r} (limit 4 x {exact_drift!r})")
+    if not ok:
+        raise AssertionError("the fast PMSM rollout left its tolerance against the exact path")
+    hold_args = kernel_args(hold_state, hold_actions.transpose(0, 1).contiguous())
+    hold_ms = time_ms(lambda: PMK.kernel_pmsm_fast_rollout(*hold_args))
+    log(f"[pmsm fast main] kernel alone on the holding fleet (gathers inside the table), T={T}: {hold_ms!r} ms "
+        f"(random fleet {ms!r} ms)")
+    del hold_actions, hold_args
+
+    a_long = ((torch.rand((T_PMSM_LONG, B, 2), generator=gen, device=DEVICE) * 2 - 1) * 0.3).contiguous()
+    long_args = kernel_args(state, a_long)
+    long_ms = time_ms(lambda: PMK.kernel_pmsm_fast_rollout(*long_args), reps=3)
+    long_bound, long_by = pmsm_fast_bound(env, B, T_PMSM_LONG)
+    log(f"[pmsm fast main] kernel alone, T={T_PMSM_LONG}: {long_ms!r} ms = {B * T_PMSM_LONG / long_ms * 1e3:.4e} "
+        f"env-steps/s; bound {long_bound!r} ms ({long_by}); {long_bound / long_ms:.1%} of the bound")
+    del a_long, long_args
+    return [entry("pmsm_fast", launches["time-major"], err, ms, plain_ms, bound_ms, bound_by,
+                  PMSM_FAST_SOURCE, PMSM_FAST_REPLACES)]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     csrc = ROOT / "exciting_environments_torch" / "csrc"
     if not all((csrc / f"{name}.cu").is_file() for name in ("stepper", "pmsm_stepper", "closed_loop",
-                                                           "pmsm_closed_loop")):
+                                                           "pmsm_closed_loop", "pendulum_fast", "pmsm_fast")):
         print("chip_smoke: run it from a checkout of the repository (package not found)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
     import exciting_environments_torch as ex
+    from exciting_environments_torch.ops import pmsm_fast as PF
     from exciting_environments_torch.ops.kernels import closed_loop as CL
+    from exciting_environments_torch.ops.kernels import pendulum_fast as PFK
     from exciting_environments_torch.ops.kernels import pmsm_closed_loop as PCL
+    from exciting_environments_torch.ops.kernels import pmsm_fast_kernel as PMK
     from exciting_environments_torch.ops.kernels import pmsm_stepper as PK
     from exciting_environments_torch.ops.kernels import stepper as K
 
@@ -1188,6 +1643,9 @@ def main() -> int:
     kernels += phase_cl_main(ex, CL)
     phase_pcl_kernel_vs_plain(ex, PCL)
     kernels += phase_pcl_main(ex, PCL)
+    kernels += phase_fast_flag(ex, K, CL)
+    kernels += phase_pendulum_fast(ex, PFK)
+    kernels += phase_pmsm_fast(ex, PF, PMK)
     if "jax" in sys.modules or any(m.startswith("exciting_environments_tpu") for m in sys.modules):
         raise AssertionError("the port pulled in JAX or the JAX package")
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")

@@ -9,8 +9,12 @@ Hopper GPU, and the closed loops (``fused_closed_loop``,
 ``RolloutCollector.collect_policy_fused``) with the policy inside
 ``csrc/closed_loop.cu`` (classic environments) or
 ``csrc/pmsm_closed_loop.cu`` (the PMSM drive, with the sensorless current
-tiles of ``utils/foc.py``).  Entry points run on the CUDA device unless the
-caller passes ``device="cpu"``.
+tiles of ``utils/foc.py``).  The fast-math paths, tolerance-gated against
+the exact ones, run in their own kernels: ``pendulum_fast_rollout``
+(``csrc/pendulum_fast.cu``) and ``PMSM.fast_rollout``
+(``csrc/pmsm_fast.cu``); ``fast_math=True`` on the classic environments runs
+through the stepper and closed-loop kernels.  Entry points run on the CUDA
+device unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"
@@ -21,6 +25,7 @@ from exciting_environments_torch.core.env import CoreEnvironment
 from exciting_environments_torch.core.registration import EnvironmentRegistry
 from exciting_environments_torch.models import PMSM, CartPole, MassSpringDamper, MotorVariant, Pendulum
 from exciting_environments_torch.ops import solvers
+from exciting_environments_torch.ops.kernels import pendulum_fast_rollout
 from exciting_environments_torch.ops.lut import ScheduledLUT
 from exciting_environments_torch.ops.policies import AffinePolicy
 from exciting_environments_torch.utils import MinMaxNormalization

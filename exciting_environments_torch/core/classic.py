@@ -20,6 +20,7 @@ import torch
 
 from exciting_environments_torch.core import structures
 from exciting_environments_torch.core.env import CoreEnvironment
+from exciting_environments_torch.ops import fastmath
 
 
 class ClassicODEEnvironment(CoreEnvironment):
@@ -78,20 +79,28 @@ class ClassicODEEnvironment(CoreEnvironment):
             control_state: Physical-state components tracked by the reward.
             solver: ODE solver instance or registry name (default Euler).
             tau: Duration of one control step in seconds.
-            fast_math, process_noise, observation_noise, noise_mode: not
-                ported yet; a truthy value raises ``NotImplementedError``.
+            fast_math: Replace ``sin``/``cos``/``sign`` in the vector field
+                and the solver step's angle wrap by their fast-math
+                counterparts (``ops/fastmath.py``); tolerance-gated against
+                the exact path, never exact.
+            process_noise, observation_noise, noise_mode: not ported yet; a
+                truthy value raises ``NotImplementedError``.
             device: Torch device (default CUDA; raises without a GPU).
             dtype: Floating dtype of the states the environment makes.
         """
-        if fast_math:
-            raise NotImplementedError("fast_math is not ported yet (ROADMAP.md, Queue 1 item 13)")
         if process_noise or observation_noise or noise_mode != "exact":
             raise NotImplementedError(
                 "process/observation noise is not ported yet (ROADMAP.md, Queue 1 item 3)"
             )
-        self._sin = torch.sin
-        self._cos = torch.cos
-        self._sign = torch.sign
+        self.fast_math = bool(fast_math)
+        if self.fast_math:
+            self._sin = fastmath.sin_wrapped
+            self._cos = fastmath.poly_cos
+            self._sign = fastmath.fast_sign
+        else:
+            self._sin = torch.sin
+            self._cos = torch.cos
+            self._sign = torch.sign
 
         if batch_size is None:
             batch_size = self._default_batch_size
@@ -117,6 +126,15 @@ class ClassicODEEnvironment(CoreEnvironment):
         )
         super().__init__(batch_size, env_properties=env_properties, tau=tau, solver=solver,
                          device=device, dtype=dtype)
+
+    def _wrap_angles(self, y):
+        if not self.fast_math:
+            return super()._wrap_angles(y)
+        y = list(y)
+        for name in self._angle_fields:
+            i = self._ode_state_fields.index(name)
+            y[i] = fastmath.wrap_angle_fast(y[i])
+        return tuple(y)
 
     @property
     def _physical_field_names(self):

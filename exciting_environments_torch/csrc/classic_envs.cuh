@@ -4,13 +4,19 @@
 // Every functor mirrors the environment's _ode in
 // exciting_environments_torch/models/ operation for operation, in the working
 // precision, so that a kernel agrees bit for bit with its plain PyTorch
-// version on the card (see eager_rules.cuh).
+// version on the card (see eager_rules.cuh).  The functors of environments
+// with trigonometry take a math policy: ExactMath (torch.sin, torch.cos,
+// torch.sign and the solver step's floored-remainder wrap) or FastMath (the
+// environment's fast_math=True: sin_wrapped, poly_cos, fast_sign and
+// wrap_angle_fast of fastmath.cuh).  The kernels wrap angles with
+// Env::Math::wrap.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "eager_rules.cuh"
+#include "fastmath.cuh"
 
 // The static parameters of one instance: parameter i is element b of the
 // per-batch (B,) leaf ptr[i], or the host scalar value[i] where ptr[i] is null.
@@ -28,14 +34,41 @@ __device__ __forceinline__ Weak<T> param(const ParamView& p, int i, long long b)
 template <typename T>
 __device__ __forceinline__ T dsign(T x) { return (T)((T(0) < x) - (x < T(0))); }
 
+// The environments' _sin/_cos/_sign and _wrap_angles, exact
+struct ExactMath {
+    template <typename T>
+    __device__ __forceinline__ static T sin(T x) { return dsin(x); }
+    template <typename T>
+    __device__ __forceinline__ static T cos(T x) { return dcos(x); }
+    template <typename T>
+    __device__ __forceinline__ static T sign(T x) { return dsign(x); }
+    template <typename T>
+    __device__ __forceinline__ static T wrap(T x) { return wrap_angle(x); }
+};
+
+// ... with fast_math=True (core/classic.py)
+struct FastMath {
+    template <typename T>
+    __device__ __forceinline__ static T sin(T x) { return sin_wrapped(x); }
+    template <typename T>
+    __device__ __forceinline__ static T cos(T x) { return poly_cos(x); }
+    template <typename T>
+    __device__ __forceinline__ static T sign(T x) { return fast_sign(x); }
+    template <typename T>
+    __device__ __forceinline__ static T wrap(T x) { return wrap_angle_fast(x); }
+};
+
 // ---------------------------------------------------------------------------
 // Environment functors.  prepare() folds the parameters once per instance;
 // ode() mirrors the environment's _ode operation for operation; clip() is the
-// post-step saturation hook (_clip_state), the identity for these three.
+// post-step saturation hook (_clip_state), the identity for these three;
+// Math is the policy of the environment's sin/cos/sign and angle wrap.
 // ---------------------------------------------------------------------------
 
 // models/pendulum.py::_ode, parameters (l, m, g)
+template <class M>
 struct PendulumEnv {
+    using Math = M;
     static constexpr int N_STATE = 2;
     static constexpr int N_ACTION = 1;
     template <typename T>
@@ -54,14 +87,16 @@ struct PendulumEnv {
     template <typename T>
     __device__ static void ode(const Consts<T>& k, const T* y, const T* u, T* dy) {
         dy[0] = y[1];
-        dy[1] = (u[0] + k.lmg * dsin(y[0])) / k.ml2;
+        dy[1] = (u[0] + k.lmg * M::sin(y[0])) / k.ml2;
     }
     template <typename T>
     __device__ static void clip(T*) {}
 };
 
-// models/mass_spring_damper.py::_ode, parameters (d, k, m)
+// models/mass_spring_damper.py::_ode, parameters (d, k, m); no trigonometry
+// and no angle, so fast_math changes nothing
 struct MassSpringDamperEnv {
+    using Math = ExactMath;
     static constexpr int N_STATE = 2;
     static constexpr int N_ACTION = 1;
     template <typename T>
@@ -87,7 +122,9 @@ struct MassSpringDamperEnv {
 };
 
 // models/cart_pole.py::_ode, parameters (mu_p, mu_c, l, m_p, m_c, g)
+template <class M>
 struct CartPoleEnv {
+    using Math = M;
     static constexpr int N_STATE = 4;
     static constexpr int N_ACTION = 1;
     template <typename T>
@@ -117,7 +154,7 @@ struct CartPoleEnv {
     template <typename T>
     __device__ static void ode(const Consts<T>& c, const T* y, const T* u, T* dy) {
         const T velocity = y[1], theta = y[2], omega = y[3];
-        const T s = dsin(theta), co = dcos(theta), sg = dsign(velocity);
+        const T s = M::sin(theta), co = M::cos(theta), sg = M::sign(velocity);
         const T om2 = omega * omega;
         const T inner = (((-u[0]) - (c.mp_l * om2) * s) + c.mu_c * sg) / c.mc_mp;
         const T num = ((c.g * s) + co * inner) - (c.mu_p * omega) / c.mp_l_d;

@@ -48,7 +48,10 @@
 // (eager_rules.cuh): the division of the normalization by the Python number
 // (max - min) is a multiply by its reciprocal; the clamps compare, so that a
 // NaN stays NaN as in torch.clamp; the hash runs on uint32 (wrap-around
-// multiplies, logical shifts).  Build with --fmad=false.
+// multiplies, logical shifts).  Build with --fmad=false.  With fast_math=True
+// (args.fast, the JAX kernel's fast_wrap) the Pendulum and CartPole functors
+// take the FastMath policy of classic_envs.cuh and the wrap is
+// wrap_angle_fast.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -111,6 +114,7 @@ struct ClosedLoopArgs {
     int n_proc_noise;
     int traj_stride;                    // 0: no trajectory saves
     int env_id;
+    int fast;                           // the environment's fast_math (FastMath functors and wrap)
 };
 
 __device__ __forceinline__ float dexp(float x) { return expf(x); }
@@ -197,7 +201,7 @@ template <typename T, class Env>
 __device__ __forceinline__ void postprocess(T* y, const ClosedLoopArgs& args) {
 #pragma unroll
     for (int i = 0; i < Env::N_STATE; ++i)
-        if (args.wrap[i]) y[i] = wrap_angle(y[i]);
+        if (args.wrap[i]) y[i] = Env::Math::wrap(y[i]);
     Env::clip(y);
 }
 
@@ -355,9 +359,13 @@ static int launch_env(const ClosedLoopArgs& args, cudaStream_t stream) {
 template <typename T>
 static int launch_dtype(const ClosedLoopArgs& args, cudaStream_t stream) {
     switch (args.env_id) {
-        case 0: return launch_env<T, PendulumEnv>(args, stream);
+        case 0:
+            return args.fast ? launch_env<T, PendulumEnv<FastMath>>(args, stream)
+                             : launch_env<T, PendulumEnv<ExactMath>>(args, stream);
         case 1: return launch_env<T, MassSpringDamperEnv>(args, stream);
-        case 2: return launch_env<T, CartPoleEnv>(args, stream);
+        case 2:
+            return args.fast ? launch_env<T, CartPoleEnv<FastMath>>(args, stream)
+                             : launch_env<T, CartPoleEnv<ExactMath>>(args, stream);
         default: return (int)cudaErrorInvalidValue;
     }
 }

@@ -34,7 +34,10 @@
 // and fold in double precision where the Python code folds Python numbers
 // (Weak in eager_rules.cuh); per-batch parameters arrive as device pointers.
 // The environments' vector fields live in classic_envs.cuh, shared with the
-// closed-loop kernel (closed_loop.cu).
+// closed-loop kernel (closed_loop.cu).  An environment made with
+// fast_math=True (the JAX kernel's fast_wrap) runs the FastMath functors and
+// wraps with wrap_angle_fast (args.fast); only the environments with
+// trigonometry, Pendulum and CartPole, have fast instantiations.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -74,6 +77,7 @@ struct StepperArgs {
     int n_noise;
     int traj_stride;                    // 0: no trajectory saves
     int env_id;
+    int fast;                           // the environment's fast_math (FastMath functors and wrap)
 };
 
 // ---------------------------------------------------------------------------
@@ -84,7 +88,7 @@ template <typename T, class Env>
 __device__ __forceinline__ void postprocess(T* y, const StepperArgs& args) {
 #pragma unroll
     for (int i = 0; i < Env::N_STATE; ++i)
-        if (args.wrap[i]) y[i] = wrap_angle(y[i]);
+        if (args.wrap[i]) y[i] = Env::Math::wrap(y[i]);
     Env::clip(y);
 }
 
@@ -207,9 +211,13 @@ static int launch_env(const StepperArgs& args, cudaStream_t stream) {
 template <typename T>
 static int launch_dtype(const StepperArgs& args, cudaStream_t stream) {
     switch (args.env_id) {
-        case 0: return launch_env<T, PendulumEnv>(args, stream);
+        case 0:
+            return args.fast ? launch_env<T, PendulumEnv<FastMath>>(args, stream)
+                             : launch_env<T, PendulumEnv<ExactMath>>(args, stream);
         case 1: return launch_env<T, MassSpringDamperEnv>(args, stream);
-        case 2: return launch_env<T, CartPoleEnv>(args, stream);
+        case 2:
+            return args.fast ? launch_env<T, CartPoleEnv<FastMath>>(args, stream)
+                             : launch_env<T, CartPoleEnv<ExactMath>>(args, stream);
         default: return (int)cudaErrorInvalidValue;
     }
 }

@@ -13,9 +13,11 @@ Methods are elementwise over tensors, so one code path serves a single
 instance, a batch ``(B,)`` and time-major trajectories ``(T, B)``.  The fused
 entry points run the current integration through the hand-written CUDA
 kernel ``csrc/pmsm_stepper.cu`` (see
-:mod:`exciting_environments_torch.ops.kernels.pmsm_stepper`), and the closed
+:mod:`exciting_environments_torch.ops.kernels.pmsm_stepper`), the closed
 loop through ``csrc/pmsm_closed_loop.cu`` (see
-:mod:`exciting_environments_torch.ops.kernels.pmsm_closed_loop`).
+:mod:`exciting_environments_torch.ops.kernels.pmsm_closed_loop`), and the
+trig-free fast rollout through ``csrc/pmsm_fast.cu`` (see
+:mod:`exciting_environments_torch.ops.kernels.pmsm_fast_kernel`).
 """
 
 from __future__ import annotations
@@ -461,6 +463,18 @@ class PMSM(CoreEnvironment):
         obs, last = pmsm_fused_sim_ahead(self, init_state, actions, obs_stepsize, action_stepsize,
                                          time_major=time_major, strict=strict)
         return (obs[:, ::obs_stride] if obs_stride != 1 else obs), last
+
+    def fast_rollout(self, init_state, actions, time_major: bool = False):
+        """Trig-free fast-math rollout (rotation-carry semantics of
+        ``ops/pmsm_fast.py``) through the kernel ``csrc/pmsm_fast.cu``, its
+        plain version on CPU tensors; returns the final ``State``.  Tolerance
+        against :meth:`fused_rollout`: 1e-4 of the current scale over 32
+        steps.  Scope: scalar parameters, Euler, deadtime 0 or 1 (else
+        ``ValueError``).  See
+        :func:`~exciting_environments_torch.ops.kernels.pmsm_fast_kernel.pmsm_fast_fused_rollout`."""
+        from exciting_environments_torch.ops.kernels.pmsm_fast_kernel import pmsm_fast_fused_rollout
+
+        return pmsm_fast_fused_rollout(self, init_state, actions, time_major=time_major)
 
     def fused_closed_loop(self, init_state, policy, n_steps: int, obs_stride: int = None,
                           policy_params=None, return_traj_states: bool = False, policy_carry=None,

@@ -3,6 +3,9 @@
 
 from __future__ import annotations
 
+from .pendulum_fast import pendulum_fast_rollout
+from .pmsm_fast_kernel import pmsm_fast_fused_rollout
+
 
 def rollout_path(env, obs_stepsize: float = None, action_stepsize: float = None) -> str:
     """Which execution path a ``fused_rollout`` (or, with stepsizes given, a

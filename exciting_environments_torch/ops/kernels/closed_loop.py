@@ -106,6 +106,7 @@ class ClosedLoopArgs(ctypes.Structure):
         ("n_proc_noise", _c_int),
         ("traj_stride", _c_int),
         ("env_id", _c_int),
+        ("fast", _c_int),
     ]
 
 
@@ -335,6 +336,7 @@ def kernel_closed_loop(env, y0, policy, n_steps, *, tau, solver, props, ref_leav
             setattr(args, name, value)
     args.traj_stride = traj_stride or 0
     args.env_id = env._kernel_env_id
+    args.fast = int(getattr(env, "fast_math", False))
 
     CL_KERNEL.launch(args, dtype, device, "closed_loop")
     if traj_stride is None:

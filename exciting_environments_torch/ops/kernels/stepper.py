@@ -21,7 +21,10 @@ Two modes, as in the JAX package:
 
 Actions enter the kernel NORMALIZED and are denormalized in-kernel with the
 exact ``MinMaxNormalization.denormalize`` expression, so no pre-pass touches
-the action slab.
+the action slab.  An environment made with ``fast_math=True`` runs the
+kernel's fast-math functors and angle wrap (the JAX kernel's ``fast_wrap``);
+the plain version follows through the environment's own ``_sin``/``_cos``/
+``_sign`` and ``_wrap_angles``.
 """
 
 from __future__ import annotations
@@ -89,6 +92,7 @@ class StepperArgs(ctypes.Structure):
         ("n_noise", _c_int),
         ("traj_stride", _c_int),
         ("env_id", _c_int),
+        ("fast", _c_int),
     ]
 
 
@@ -390,6 +394,7 @@ def kernel_rollout(env, y0, actions_tm, *, tau, solver=None, props=None, obs_str
             args.use_next[s] = int(s > 0 and c == 1.0)
     args.traj_stride = obs_stride or 0
     args.env_id = env._kernel_env_id
+    args.fast = int(getattr(env, "fast_math", False))
 
     KERNEL.launch(args, dtype, device, "sim_ahead" if sim_ahead else "step")
     return tuple(y_out), (tuple(traj) if traj is not None else None)

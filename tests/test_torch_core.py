@@ -21,6 +21,7 @@ import exciting_environments_tpu as J
 import exciting_environments_torch as P
 from exciting_environments_tpu.core import structures as jstructures
 from exciting_environments_torch.core import spaces, structures
+from exciting_environments_torch.ops.kernels import rollout_path
 from exciting_environments_torch.utils import (
     MinMaxNormalization,
     dump_sim_properties_to_json,
@@ -280,8 +281,8 @@ def test_property_validation_and_unported_options():
         P.Pendulum(batch_size=4, device="cpu", static_params={"l": np.ones(3), "m": 1, "g": 9.81})
     with pytest.raises(NotImplementedError, match="noise"):
         P.Pendulum(device="cpu", process_noise={"omega": 0.1})
-    with pytest.raises(NotImplementedError, match="fast_math"):
-        P.Pendulum(device="cpu", fast_math=True)
+    fast = P.Pendulum(device="cpu", fast_math=True)
+    assert fast.fast_math and rollout_path(fast) == "fused"
     assert P.Pendulum(device="cpu", static_params={"l": np.float64(2.0), "m": 1, "g": 9.81}).env_properties.static_params.l == 2.0
 
 

@@ -1,5 +1,6 @@
-"""The stepper, PMSM, closed-loop and PMSM closed-loop kernels against their
-plain versions on a CUDA card.
+"""The stepper, PMSM, closed-loop and PMSM closed-loop kernels, the fast-math
+flag in the first and third, and the fast pendulum and fast PMSM kernels
+against their plain versions on a CUDA card.
 
 The kernels have no CPU mode, so these tests carry the ``gpu`` marker and skip
 without a card.  The file imports neither JAX nor the JAX package, so on a
@@ -387,3 +388,128 @@ def test_pmsm_closed_loop_entry_points_launch_and_refuse():
         PCL.kernel_pmsm_closed_loop(env, state0, phys.omega_el, p_law, 8, tau=env.tau, solver=env._solver,
                                     props=env.env_properties, ref_leaves=(torch.zeros(256, device="cuda"),) * 2)
     assert PCL.PMSM_CL_KERNEL.launches == {"pmsm_closed_loop": 2}
+
+
+FAST_CASES = [
+    ("Pendulum", "euler", False),
+    ("Pendulum", "rk4", False),
+    ("Pendulum", "rk4", True),
+    ("CartPole", "tsit5", False),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,solver,sim_ahead", FAST_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fast_math_stepper_kernel_matches_plain_version(name, solver, sim_ahead, dtype):
+    """fast_math=True: the FastMath functors and the fast wrap in csrc/stepper.cu."""
+    _cuda()
+    env = getattr(P, name)(batch_size=2048 + 45, solver=solver, fast_math=True, dtype=dtype)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    y0 = tuple((torch.rand(env.batch_size, generator=gen, device="cuda", dtype=torch.float64) * 8 - 4).to(dtype)
+               for _ in env._ode_state_fields)
+    acts = (torch.rand((32, env.batch_size, 1), generator=gen, device="cuda", dtype=torch.float64)
+            * 1.8 - 0.9).to(dtype)
+    kw = dict(tau=env.tau, obs_stride=4, sim_ahead=sim_ahead)
+    yk, tk = K.kernel_rollout(env, y0, acts, **kw)
+    yp, tp = K.plain_rollout(env, y0, acts, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(yk + tk, yp + tp):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fast_math_closed_loop_kernel_matches_plain_version(dtype):
+    _cuda()
+    env = P.Pendulum(batch_size=2048 + 45, control_state=["theta"], fast_math=True, dtype=dtype, solver="rk4")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rand = lambda: (torch.rand(env.batch_size, generator=gen, device="cuda", dtype=torch.float64) * 6 - 3).to(dtype)
+    kw = dict(tau=env.tau, solver=env._solver, props=env.env_properties, ref_leaves=(rand() / 3,), traj_stride=1)
+    pd = P.AffinePolicy(PD_GAINS)
+    y0 = (rand(), rand())
+    outk = CL.kernel_closed_loop(env, y0, pd, 32, **kw)
+    outp = CL.plain_closed_loop(env, y0, pd, 32, **kw)
+    torch.cuda.synchronize()
+    flat = lambda out: [t for part in out if part is not None for t in part]
+    for a, b in zip(flat(outk), flat(outp)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch,time_major", [(4096, False), (4096 - 5, True)])
+def test_pendulum_fast_kernel_matches_plain_version(batch, time_major):
+    _cuda()
+    from exciting_environments_torch.ops.kernels import pendulum_fast as PFK
+
+    env = P.Pendulum(batch_size=batch, tau=1e-4)
+    _, state = env.vmap_reset(rng=torch.Generator(device="cuda").manual_seed(14))
+    acts = torch.rand((batch, 64, 1), generator=torch.Generator(device="cuda").manual_seed(15), device="cuda") * 2 - 1
+    if time_major:
+        acts = acts.transpose(0, 1).contiguous()
+    before = PFK.KERNEL.launches["pendulum_fast"]
+    th, om = P.pendulum_fast_rollout(env, state, acts, time_major=time_major)
+    assert PFK.KERNEL.launches["pendulum_fast"] == before + 1
+    a_tm = acts[..., 0] if time_major else acts[..., 0].transpose(0, 1)
+    th_p, om_p = PFK.plain_pendulum_fast_rollout(state.physical_state.theta, state.physical_state.omega, a_tm,
+                                                 **PFK.fast_constants(env))
+    torch.cuda.synchronize()
+    assert torch.equal(th, th_p) and torch.equal(om, om_p)
+
+
+PMSM_FAST_CASES = [
+    ("DEFAULT", False, 0),
+    ("DEFAULT", False, 1),
+    ("BRUSA", True, 0),
+    ("BRUSA", True, 1),
+    ("SEW", True, 1),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant,saturated,deadtime", PMSM_FAST_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pmsm_fast_kernel_matches_plain_version(variant, saturated, deadtime, dtype):
+    _cuda()
+    from exciting_environments_torch.ops import pmsm_fast as PF
+    from exciting_environments_torch.ops.kernels import pmsm_fast_kernel as PFK
+
+    params = dict(P.MotorVariant[variant].get_params().static_params.__dict__, deadtime=deadtime)
+    if saturated:
+        params.update(l_d=float("nan"), l_q=float("nan"), psi_p=float("nan"))
+    env = P.PMSM(batch_size=2048 + 45, saturated=saturated, motor_variant=P.MotorVariant[variant],
+                 static_params=params, dtype=dtype)
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    _, state = env.vmap_reset(rng=gen)
+    acts = (torch.rand((env.batch_size, 32, 2), generator=gen, device="cuda", dtype=torch.float64) * 1.8 - 0.9).to(dtype)
+    before = PFK.KERNEL.launches["pmsm_fast"]
+    fast = env.fast_rollout(state, acts)
+    assert PFK.KERNEL.launches["pmsm_fast"] == before + 1
+    plain = PF.pmsm_fast_rollout(env, state, acts)
+    torch.cuda.synchronize()
+    for name in ("i_d", "i_q", "epsilon", "torque", "u_d_buffer", "u_q_buffer", "omega_el"):
+        assert torch.equal(getattr(fast.physical_state, name), getattr(plain.physical_state, name)), name
+
+
+@pytest.mark.gpu
+def test_fast_kernels_refuse_and_a_failed_build_raises(tmp_path, monkeypatch):
+    _cuda()
+    from exciting_environments_torch.ops.kernels import pendulum_fast as PFK
+
+    z = torch.zeros(256, device="cuda")
+    with pytest.raises(ValueError, match="float32"):
+        PFK.kernel_pendulum_fast_rollout(z.double(), z.double(), torch.zeros((4, 256), device="cuda").double(),
+                                         **PFK.fast_constants(P.Pendulum(batch_size=256)))
+    with pytest.raises(NotImplementedError, match="backward"):
+        PFK.kernel_pendulum_fast_rollout(z.clone().requires_grad_(True), z, torch.zeros((4, 256), device="cuda"),
+                                         **PFK.fast_constants(P.Pendulum(batch_size=256)))
+    env = P.PMSM(batch_size=256, saturated=True, motor_variant=P.MotorVariant.BRUSA, solver="rk4")
+    _, state = env.vmap_reset()
+    with pytest.raises(ValueError, match="Euler"):
+        env.fast_rollout(state, torch.zeros((256, 4, 2), device="cuda"))
+    # a source that does not compile: the build raises with nvcc's message
+    (tmp_path / "broken.cu").write_text("this is not CUDA\n")
+    monkeypatch.setattr(K, "CSRC", tmp_path)
+    monkeypatch.setattr(K, "BUILD_DIR", tmp_path / "_build")
+    with pytest.raises(RuntimeError, match="nvcc failed to build broken.cu"):
+        K.build_all(["broken"])

@@ -24,6 +24,9 @@ def test_port_imports_no_jax():
         "import exciting_environments_torch.ops.kernels.closed_loop, exciting_environments_torch.ops.policies\n"
         "import exciting_environments_torch.utils.rl_fused, exciting_environments_torch.utils.collect\n"
         "import exciting_environments_torch.ops.kernels.pmsm_closed_loop, exciting_environments_torch.utils.foc\n"
+        "import exciting_environments_torch.ops.fastmath, exciting_environments_torch.ops.pmsm_fast\n"
+        "import exciting_environments_torch.ops.kernels.pendulum_fast\n"
+        "import exciting_environments_torch.ops.kernels.pmsm_fast_kernel\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'exciting_environments_tpu'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"
@@ -40,6 +43,8 @@ HEADERS = {
     "closed_loop.cu": ("classic_envs.cuh", "eager_rules.cuh", "policy_laws.cuh"),
     "pmsm_stepper.cu": ("eager_rules.cuh", "pmsm_drive.cuh"),
     "pmsm_closed_loop.cu": ("eager_rules.cuh", "pmsm_drive.cuh", "policy_laws.cuh"),
+    "pendulum_fast.cu": ("eager_rules.cuh", "fastmath.cuh"),
+    "pmsm_fast.cu": ("eager_rules.cuh", "pmsm_drive.cuh"),
 }
 
 
@@ -51,7 +56,7 @@ def test_kernel_sources_share_their_headers_and_stand_alone(source):
     text = (CSRC / source).read_text()
     includes = set(re.findall(r'#include "([^"]+)"', text))
     assert includes == set(HEADERS[source])
-    for header in ("pmsm_drive.cuh", "policy_laws.cuh"):
+    for header in ("pmsm_drive.cuh", "policy_laws.cuh", "fastmath.cuh"):
         for definition in re.findall(r"^struct (\w+) \{|^__device__ __forceinline__ \w+ (\w+)\(",
                                      (CSRC / header).read_text(), flags=re.M):
             name = next(n for n in definition if n)
