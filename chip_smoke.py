@@ -14,14 +14,21 @@ Phases (any failure raises and the script exits non-zero):
    nvcc each, started together, and report the build time and each compiler
    resource report;
 2. hold the stepper kernel against its plain PyTorch version on the card at
-   B = 65,536, T = 64, float32, in every mode the port uses;
+   B = 65,536, T = 64, float32, in every mode the port uses, and its action
+   ring: a batch-major slab read in place, next rows across tile
+   boundaries (sim-ahead, hold 2), a horizon that ends inside a tile, slabs
+   whose rows are no 16-byte multiples (element-wise copies, ragged B) and
+   a float64 case;
 3. replay the pendulum golden fixture (``tests/envs/pendulum/data``) through
    the kernel in float64 and check it with the fixture test's own allclose;
 4. drive the pendulum main path: ``Pendulum(batch_size=65536, tau=1e-4)`` and
    ``env.fused_rollout`` over T = 4,096 steps in float32, in both action
    layouts, plus ``env.fused_sim_ahead`` (RK4) at the same size; show through
    the launch counts that it ran the kernel, time it with CUDA events and
-   compare it with the plain version on the same inputs;
+   compare it with the plain version on the same inputs; check that a
+   batch-major slab is read in place (the kernel agrees with the time-major
+   read, and the entry point allocates less than the slab); report the
+   kernel's anatomy (see below) for rows 1a and 1b;
 5. hold the PMSM kernel against its plain version at B = 65,536, T = 64,
    float32 (and one float64 case), tolerance 0.0, over the motor variants,
    solvers, deadtimes, per-batch parameters, saves, sim-ahead and a ragged B;
@@ -46,7 +53,10 @@ Phases (any failure raises and the script exits non-zero):
    through ``RolloutCollector.collect_policy_fused`` over T = 64; each with
    the launch count set to 0 just before and read just after, kernel vs
    plain at full size, kernel and entry-point times and the bound;
-10. hold the PMSM closed-loop kernel (``csrc/pmsm_closed_loop.cu``) against
+10. check the float32 sincos identities of ``csrc/pmsm_closed_loop.cu``
+    (``sincosf`` equals ``torch.sin``/``torch.cos`` of x, and of -x as
+    ``-sin``/``cos``) over every float32 |x| < 2^7 on the card; then hold
+    the PMSM closed-loop kernel (``csrc/pmsm_closed_loop.cu``) against
     its plain version at B = 4,096, T = 64, float32 (and one float64 case),
     tolerance 0.0: P and PI laws on saturated BRUSA and linear DEFAULT,
     deadtime 0 and 1, Euler, RK4 and Tsit5, saves every step and every 16,
@@ -60,13 +70,13 @@ Phases (any failure raises and the script exits non-zero):
     slab drawn on the card through ``pmsm_closed_loop`` over T = 2,048, with
     its settling error and belief RMSE; D the PI law through
     ``RolloutCollector.collect_policy_fused`` over T = 256; each with one
-    launch, kernel vs plain at full size, kernel and entry-point times and
-    the bound;
+    launch, kernel vs plain at full size, kernel and entry-point times, the
+    bound and the anatomy (rows 4a-4d);
 12. hold ``fast_math=True`` in the stepper and closed-loop kernels against
     the plain versions at B = 65,536, T = 64 (Pendulum Euler and RK4 in step
     and sim-ahead modes, CartPole Tsit5, one float64 case, the PD law, ragged
-    B), tolerance 0.0, then time the fast pendulum's step mode and PD law at
-    T = 4,096;
+    B), tolerance 0.0, then time the fast pendulum's step mode (with its
+    anatomy, row 1c) and PD law at T = 4,096;
 13. the fast pendulum kernel (``csrc/pendulum_fast.cu``): kernel vs plain at
     0.0 (both layouts, a ragged B), the main case ``Pendulum(batch_size=65536,
     tau=1e-4)`` over T = 4,096 through ``pendulum_fast_rollout`` in both
@@ -83,6 +93,19 @@ Phases (any failure raises and the script exits non-zero):
     within 1e-3 in float32 over T = 256) and the kernel alone at T = 4,096;
 15. print the kernel table, the card's name and power limit, and last the
     result line ``{"ok": true, "device": {...}}``.
+
+The anatomy of a redesigned kernel's case (``anatomy``): its registers,
+stack and spills from the build's ``-Xptxas -v`` report; the SASS
+instructions of one step, counted by ``cuobjdump -sass`` on the built
+library along the shortest way through one iteration of the time loop (a
+lower bound: slow paths and untaken blocks left out) and in the loop's
+static body (an upper bound); the issue time they imply, warps x steps x
+instructions / (132 SMs x 4 schedulers x the maximum SM clock); the ratio
+of the kernel's time to it (near 1 the kernel is issue-bound, well above 1
+latency- or memory-bound); and the kernel's share of its entry point, from
+CUDA events and from a ``torch.profiler`` trace where that shows device
+time.  ``python3 chip_smoke.py --sass LIB.so ...`` prints the SASS part for
+built libraries, for instance an earlier commit's.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -150,6 +173,316 @@ def entry(name, launches, err, ms, plain_ms, bound_ms, bound_by, source, replace
 def roofline(nbytes, ops):
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_FP32_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# kernel anatomy: registers, SASS per step, issue time, profiler share
+# ---------------------------------------------------------------------------
+
+SMS, SCHEDULERS = 132, 4  # H100 SXM: 132 SMs, 4 warp schedulers each
+STEPPER_TILE_ROWS = 16  # action rows per tile of csrc/stepper.cu's ring, float32 with one action
+_SASS = {}
+
+
+def _tool(name):
+    """A CUDA binary utility: on PATH, in the toolkit, or Triton's copy."""
+    import shutil
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    found = shutil.which(name)
+    if found:
+        return found
+    for base in [Path(CUDA_HOME or "/usr/local/cuda") / "bin"] + [
+            Path(p) / "triton" / "backends" / "nvidia" / "bin" for p in sys.path if p]:
+        if (base / name).is_file():
+            return str(base / name)
+    return None
+
+
+def _demangle(names):
+    for tool in ("c++filt", "cu++filt"):
+        path = _tool(tool)
+        if path:
+            out = subprocess.run([path], input="\n".join(names), capture_output=True, text=True).stdout.splitlines()
+            if len(out) == len(names):
+                return dict(zip(names, out))
+    return {n: n for n in names}
+
+
+def _sass_functions(lib):
+    """{demangled kernel name: [(address, instruction text)]} of a library."""
+    if lib in _SASS:
+        return _SASS[lib]
+    tool = _tool("cuobjdump")
+    funcs = {}
+    if tool:
+        text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True).stdout
+        current = None
+        for line in text.splitlines():
+            m = re.match(r"\s*Function : (\S+)", line)
+            if m:
+                current = m.group(1)
+                funcs[current] = []
+                continue
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+            if m and current is not None:
+                funcs[current].append((int(m.group(1), 16), m.group(2)))
+        names = _demangle(list(funcs))
+        funcs = {names[k]: v for k, v in funcs.items()}
+    _SASS[lib] = funcs
+    return funcs
+
+
+def _loops(code):
+    """Loops of one kernel's SASS as (start, end) address spans of the
+    backward branches before the last unconditional EXIT (out-of-line slow
+    paths after it are left out), each with its own static body: the
+    instructions of the span not inside a nested loop."""
+    exits = [a for a, ins in code if ins == "EXIT"]
+    last_exit = max(exits, default=max(a for a, _ in code))
+    spans = []
+    for addr, ins in code:
+        m = re.search(r"\bBRA(?:\.[A-Z]+)*\s[^;]*?0x([0-9a-f]+)\s*$", ins)
+        if m and int(m.group(1), 16) < addr < last_exit:
+            spans.append((int(m.group(1), 16), addr))
+    spans = sorted(set(spans))
+    inside = lambda a, s: s[0] <= a <= s[1]
+    loops = []
+    for s in spans:
+        nested = [t for t in spans if t != s and s[0] <= t[0] and t[1] <= s[1]]
+        body = [ins for a, ins in code if inside(a, s) and not any(inside(a, t) for t in nested)]
+        loops.append({"span": s, "own": len(body), "ops": {_opcode(ins) for ins in body if not ins.startswith("@!PT")}})
+    return loops
+
+
+def _opcode(ins):
+    """The opcode of a SASS instruction, its predicate stripped."""
+    return re.sub(r"^@!?U?P\w+\s+", "", ins).split(" ")[0]
+
+
+def hot_path(code, span, via=()):
+    """The fewest SASS instructions from a loop's head to its back edge,
+    passing through an instruction (its predicate stripped) that matches
+    each regex of ``via`` in turn: one iteration along its shortest way, with every
+    branch to a slow path, an inner loop's repeat or a rare block not taken.
+    A lower bound of the instructions one iteration issues."""
+    from collections import deque
+
+    start, end = span
+    idx = {a: i for i, (a, _) in enumerate(code)}
+    opcode = _opcode
+
+    def successors(i):
+        addr, ins = code[i]
+        op = opcode(ins)
+        predicated = ins.startswith("@") and not ins.startswith("@PT")
+        nxt = [code[i + 1][0]] if i + 1 < len(code) else []
+        if op in ("EXIT", "RET") or op.startswith(("EXIT.", "RET.")):
+            return nxt if predicated else []
+        m = re.search(r"0x([0-9a-f]+)\s*$", ins)
+        if op.startswith("BRA") and m:
+            conditional = predicated or re.search(r"\b!?U?P[0-6]\b", ins.split(op, 1)[1])
+            return ([int(m.group(1), 16)] + (nxt if conditional else []))
+        return nxt
+
+    n_via = len(via)
+    bare = lambda ins: re.sub(r"^@!?U?P\w+\s+", "", ins)
+    first = (start, 1 if n_via and re.search(via[0], bare(code[idx[start]][1])) else 0)
+    dist = {first: 1}
+    queue = deque([first])
+    while queue:
+        addr, stage = queue.popleft()
+        if addr == end and stage == n_via:
+            return dist[(addr, stage)]
+        if addr == end:
+            continue
+        for nxt in successors(idx[addr]):
+            if not start <= nxt <= end or nxt not in idx:
+                continue
+            ins = code[idx[nxt]][1]
+            st = stage + (1 if stage < n_via and not ins.startswith("@!PT") and re.search(via[stage], bare(ins))
+                          else 0)
+            if (nxt, st) not in dist:
+                dist[(nxt, st)] = dist[(addr, stage)] + 1
+                queue.append((nxt, st))
+    return None
+
+
+def sass_step_count(lib, kernel_re, via=(), tile_rows=None):
+    """(kernel name, SASS instructions per step on the hot path, static
+    instructions per step).  The time loop is the loop with the largest own
+    body; per step is its hot path (:func:`hot_path`, through ``via`` where
+    a case's work sits behind a branch the shortest way would skip), and
+    its own body counts every instruction once, slow paths and untaken
+    blocks included: an upper bound.  In the tiled stepper (``tile_rows``
+    action rows per tile, one step per row at hold 1) the step loop sits in
+    a row loop in a tile loop (it waits on the ring: BAR): per step is the
+    row loop's hot path through an action read (LDS) plus the tile loop's
+    extra path, through its cp.async (LDGSTS), over ``tile_rows``."""
+    funcs = {n: c for n, c in _sass_functions(lib).items() if re.search(kernel_re, n)}
+    if len(funcs) != 1:
+        return None, None, None
+    (name, code), = funcs.items()
+    loops = _loops(code)
+    if not loops:
+        return name, None, None
+    if tile_rows is None:
+        step = max(loops, key=lambda lp: lp["own"])
+        return name, hot_path(code, step["span"], via), step["own"]
+    # the tile loop waits on the ring (BAR); inside it the row loop, the
+    # outermost loop around the step loop, reads an action row (LDS)
+    within = lambda a, b: b["span"][0] <= a["span"][0] and a["span"][1] <= b["span"][1]
+    tiles = [lp for lp in loops if any(o.startswith("BAR") for o in lp["ops"])]
+    step = max(loops, key=lambda lp: lp["own"])
+    if len(tiles) != 1 or not within(step, tiles[0]):
+        return name, None, None
+    tile = tiles[0]
+    row = max((lp for lp in loops if lp is not tile and within(step, lp) and within(lp, tile)),
+              key=lambda lp: lp["span"][1] - lp["span"][0])
+    static = sum(lp["own"] for lp in loops if within(lp, row)) + tile["own"] / tile_rows
+    hot_row = hot_path(code, row["span"], ("^LDS",) + tuple(via))
+    hot_tile = hot_path(code, tile["span"], ("^LDGSTS", "^LDS") + tuple(via))
+    return name, (hot_row + (hot_tile - hot_row) / tile_rows if hot_row and hot_tile else None), static
+
+
+def ptxas_resources(lib, kernel_re):
+    """(registers, stack frame bytes, spill store bytes) of the kernel whose
+    demangled name matches, from the build's ``-Xptxas -v`` report."""
+    lines = Path(lib).with_suffix(".log").read_text().splitlines()
+    regs, frames, current = {}, {}, None
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current = m.group(1)
+        m = re.search(r"Function properties for (\S+)", line)
+        f = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", lines[i + 1]) if m and i + 1 < len(
+            lines) else None
+        if f:
+            frames[m.group(1)] = (int(f.group(1)), int(f.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current:
+            regs[current] = int(m.group(1))
+    names = _demangle(list(regs))
+    hits = [(r,) + frames.get(n, (None, None)) for n, r in regs.items() if re.search(kernel_re, names[n])]
+    return hits[0] if len(hits) == 1 else (None, None, None)
+
+
+def sm_clock_mhz():
+    """(current, maximum) SM clock in MHz, from nvidia-smi."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True).stdout.strip().splitlines()
+    cur, mx = (float(v) for v in out[0].split(","))
+    return cur, mx
+
+
+def profile_share(entry_fn, kernel_substring):
+    """torch.profiler over one call of an entry point: (the kernel's device
+    time, the entry point's wall time, the device's busy time), in ms.  None
+    where the trace shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    entry_fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        entry_fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans, kernel_us = [], 0.0
+    for ev in prof.events():
+        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            spans.append((ev.time_range.start, ev.time_range.end))
+            if kernel_substring in ev.name:
+                kernel_us += ev.time_range.elapsed_us()
+    if not spans:
+        return None, wall_ms, None
+    busy, end = 0.0, -float("inf")
+    for s, e in sorted(spans):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return kernel_us / 1e3, wall_ms, busy / 1e3
+
+
+def anatomy(row, lib, kernel_re, ms, entry_ms, batch, n_steps, entry_fn, kernel_substring, vias=((),),
+            tile_rows=None):
+    """Step 0 of a kernel redesign for one case: registers and spills, SASS
+    instructions per step of the time loop (hot path and static body), the
+    issue time they imply (warps x steps x instructions / (SMs x schedulers
+    x the maximum SM clock)), the ratio of the kernel's time to it, and the
+    kernel's share of its entry point: from a torch.profiler trace where it
+    shows device time, and from the CUDA-event times ``ms``/``entry_ms``."""
+    regs, stack, spill = ptxas_resources(lib, kernel_re)
+    for via in vias:  # the first way through the case's work that the SASS has
+        name, hot, static = sass_step_count(lib, kernel_re, via, tile_rows)
+        if hot:
+            break
+    cur, mx = sm_clock_mhz()
+    warps = -(-batch // 32)
+    issue = lambda n: warps * n_steps * n / (SMS * SCHEDULERS * mx * 1e6) * 1e3 if n else None
+    issue_ms, issue_static_ms = issue(hot), issue(static)
+    k_ms, wall_ms, busy_ms = profile_share(entry_fn, kernel_substring)
+    ratio = ms / issue_ms if issue_ms else None
+    traced = (f"kernel {k_ms!r} ms of the entry point's {wall_ms!r} ms ({k_ms / wall_ms:.1%}), device busy "
+              f"{busy_ms!r} ms" if k_ms else "no device time in the trace")
+    log(f"[anatomy] {row}: {name}: {regs} registers, {stack} B stack, {spill} B spill; SASS per step "
+        f"{hot!r} on the hot path, {static} static; issue time {issue_ms!r} ms (static {issue_static_ms!r}) at "
+        f"{mx:.0f} MHz (now {cur:.0f}); kernel {ms!r} ms = {ratio!r} x issue; kernel share of the entry "
+        f"point by CUDA events {ms!r} / {entry_ms!r} ms = {ms / entry_ms:.1%}; profiler: {traced}")
+
+
+#: the redesigned kernels' main cases: (row, library, demangled-name regex,
+#: the hot path's via alternatives); 4a, 4b and 4d share one instantiation
+#: the hot path's via alternatives, tried in turn: step mode passes through
+#: the angle wrap (its 2 pi, or the fast wrap's 1 / (2 pi)), sim-ahead RK4
+#: also reads the next action row (a second LDS in the tiled stepper), the
+#: scheduled tile gathers its maps (16-byte read-only loads, or the
+#: parent's scalar ones)
+SASS_CASES = [
+    ("1a", "stepper", r"stepper_kernel<float, PendulumEnv<ExactMath>, 1[,>]", [(r"6\.2831854",), ()]),
+    ("1b", "stepper", r"stepper_kernel<float, PendulumEnv<ExactMath>, 4[,>]", [(r"^LDS",), ()]),
+    ("1c", "stepper", r"stepper_kernel<float, PendulumEnv<FastMath>, 1[,>]", [(r"0\.1591549",), ()]),
+    ("4a/4b/4d", "pmsm_closed_loop", r"pmsm_closed_loop_kernel<float, 1, true, AffineAdapter>", [()]),
+    ("4c", "pmsm_closed_loop", r"pmsm_closed_loop_kernel<float, 1, true, ScheduledLaw>",
+     [(r"^LDG\.E\.128\.CONSTANT",), (r"^LDG\.E\.CONSTANT",)]),
+]
+
+
+def sass_report(libraries):
+    """The SASS anatomy of the main cases in built kernel libraries (this
+    tree's, or an earlier commit's): registers, stack and spills, and the
+    instructions per step on the hot path and in the static body.  A
+    library with the action ring (cp.async, LDGSTS) is counted as tiled."""
+    for lib in map(Path, libraries):
+        kind = lib.stem.rsplit("_", 1)[0]
+        for row, name, kernel_re, vias in SASS_CASES:
+            if name != kind:
+                continue
+            code = next((c for n, c in _sass_functions(lib).items() if re.search(kernel_re, n)), [])
+            tiled = any(ins.split(" ")[0].startswith("LDGSTS") for _, ins in code) and kind == "stepper"
+            for via in vias:
+                found, hot, static = sass_step_count(lib, kernel_re, via, STEPPER_TILE_ROWS if tiled else None)
+                if hot:
+                    break
+            regs, stack, spill = ptxas_resources(lib, kernel_re)
+            log(f"[sass] {lib.name} {row}: {found}: {regs} registers, {stack} B stack, {spill} B spill; "
+                f"per step {hot!r} on the hot path{' (tiled)' if tiled else ''}, {static} static")
+    return 0
+
+
+def phase_trig():
+    """The float32 trigonometric identities of csrc/pmsm_closed_loop.cu, over
+    every float32 |x| < 2^7 on the card: any mismatch fails."""
+    from exciting_environments_torch.ops.kernels import pmsm_closed_loop as PCL
+
+    t0 = time.perf_counter()
+    counts = PCL.sincos_mismatches()
+    torch.cuda.synchronize()
+    log(f"[trig] sincosf against torch.sin/cos of x and -x, every float32 |x| < 2^7: {counts} "
+        f"in {time.perf_counter() - t0:.2f} s")
+    if any(v for k, v in counts.items() if k != "inputs"):
+        raise AssertionError(f"the kernel's sincos identities fail on this card: {counts}")
 
 
 def ode_ops(env):
@@ -259,18 +592,36 @@ def phase_kernel_vs_plain(ex, K):
         ("pendulum rk4 sim-ahead ratio 2", make_env(ex.Pendulum, B, solver="rk4"),
          {"sim_ahead": True, "hold": 2, "obs_stride": 8}),
         ("cart_pole euler ragged B=1000", make_env(ex.CartPole, 1000), {}),
+        # the action ring: a batch-major slab read in place, use_next across
+        # tile boundaries, a horizon that ends inside a tile, and slabs whose
+        # rows are not 16-byte multiples (element-wise copies)
+        ("pendulum euler batch-major slab", make_env(ex.Pendulum, B), {"batch_major": True}),
+        ("pendulum rk4 sim-ahead ratio 2 batch-major, next rows across tiles", make_env(ex.Pendulum, B, solver="rk4"),
+         {"sim_ahead": True, "hold": 2, "obs_stride": 8, "batch_major": True}),
+        ("pendulum rk4 sim-ahead ratio 1, T=50 (not a multiple of the tile)", make_env(ex.Pendulum, B, solver="rk4"),
+         {"sim_ahead": True, "obs_stride": 5, "steps": 50}),
+        ("cart_pole tsit5 ragged B=1001 time-major, element-wise copies", make_env(ex.CartPole, 1001, solver="tsit5"),
+         {}),
+        ("pendulum euler ragged B=1001 batch-major, T=50, element-wise copies", make_env(ex.Pendulum, 1001),
+         {"batch_major": True, "steps": 50}),
+        ("pendulum rk4 float64 batch-major sim-ahead ratio 2", make_env(ex.Pendulum, 4096 + 77, torch.float64,
+                                                                         solver="rk4"),
+         {"sim_ahead": True, "hold": 2, "obs_stride": 4, "batch_major": True}),
     ]
     failures = []
     for label, env, kw in cases:
         kw = dict(kw)
         hold = kw.get("hold", 1)
+        steps = kw.pop("steps", T)
+        batch_major = kw.pop("batch_major", False)
         y0 = random_state(env, gen)
-        acts = random_actions(env, T // hold, gen)
+        acts = random_actions(env, steps // hold, gen)
         if kw.pop("noise", False):
             kw["noise_tm"] = (0.01 * torch.randn((T, env.batch_size, 2), generator=gen, device=DEVICE)).to(env.dtype)
             kw["noise_idx"] = (0, 1)
         tau = env.tau
-        yk, tk = K.kernel_rollout(env, y0, acts, tau=tau, **kw)
+        slab = acts.transpose(0, 1).contiguous() if batch_major else acts
+        yk, tk = K.kernel_rollout(env, y0, slab, tau=tau, batch_major=batch_major, **kw)
         yp, tp = K.plain_rollout(env, y0, acts, tau=tau, **kw)
         torch.cuda.synchronize()
         err = max_abs(yk, yp)
@@ -365,10 +716,30 @@ def phase_main(ex, K):
     if err_step != 0.0 or err_sa != 0.0:
         raise AssertionError("kernel disagrees with its plain version at the main size")
 
+    # the kernel reads a batch-major slab in place: the same results, and no
+    # transposed copy (the entry point's extra memory stays below the slab's)
+    bm_kernel = lambda: K.kernel_rollout(env, y0, actions_bm, tau=env.tau, batch_major=True)
+    err_bm = max_abs(bm_kernel()[0], yk)
+    slab_bytes = actions_tm.numel() * actions_tm.element_size()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    env.fused_rollout(state, actions_bm, strict=True)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - before
+    log(f"[main] batch-major slab read in place: kernel vs time-major max abs {err_bm!r}; env.fused_rollout "
+        f"batch-major allocated at most {extra} B beyond its inputs (slab {slab_bytes} B)")
+    if err_bm != 0.0 or extra >= slab_bytes:
+        raise AssertionError("the batch-major slab was copied, or read differently from the time-major one")
+
     ms = time_ms(step_kernel)
+    bm_ms = time_ms(bm_kernel)
     sa_ms = time_ms(sa_kernel)
     env_tm_ms = time_ms(lambda: env.fused_rollout(state, actions_tm, time_major=True, strict=True))
     env_bm_ms = time_ms(lambda: env.fused_rollout(state, actions_bm, strict=True))
+    sa_entry = lambda: env_sa.fused_sim_ahead(state, actions_bm, env_sa.tau, env_sa.tau, obs_stride=sa_stride,
+                                              strict=True)
+    env_sa_ms = time_ms(sa_entry)
     t_short = 256
     t0 = time.perf_counter()
     env.vmap_rollout(state, actions_bm[:, :t_short], t_short)
@@ -378,18 +749,28 @@ def phase_main(ex, K):
     bound_ms, bound_by = bound(env, env._solver, B, T, T, 0, False)
     sa_bound_ms, sa_bound_by = bound(env_sa, env_sa._solver, B, T, T, T // sa_stride, True)
     steps = B * T
-    slab_bytes = actions_tm.numel() * actions_tm.element_size()
     log(f"[main] kernel (time-major slab): {ms!r} ms = {steps / ms * 1e3:.4e} env-steps/s; "
         f"bound {bound_ms!r} ms ({bound_by}); {bound_ms / ms:.1%} of the bound; "
         f"slab read at {slab_bytes / ms / 1e9:.3f} TB/s")
+    log(f"[main] kernel (batch-major slab): {bm_ms!r} ms; slab read at {slab_bytes / bm_ms / 1e9:.3f} TB/s")
     log(f"[main] env.fused_rollout time-major: {env_tm_ms!r} ms = {steps / env_tm_ms * 1e3:.4e} env-steps/s")
-    log(f"[main] env.fused_rollout batch-major (transposed copy): {env_bm_ms!r} ms = "
-        f"{steps / env_bm_ms * 1e3:.4e} env-steps/s")
+    log(f"[main] env.fused_rollout batch-major: {env_bm_ms!r} ms = {steps / env_bm_ms * 1e3:.4e} env-steps/s "
+        f"({env_bm_ms / env_tm_ms:.3f} x time-major)")
     log(f"[main] plain version, T={T}: {plain_ms!r} ms (one run)")
     log(f"[main] sim-ahead rk4 kernel: {sa_ms!r} ms; bound {sa_bound_ms!r} ms ({sa_bound_by}); "
-        f"plain {plain_sa_ms!r} ms (one run)")
+        f"env.fused_sim_ahead (batch-major) {env_sa_ms!r} ms; plain {plain_sa_ms!r} ms (one run)")
     log(f"[main] vmap_rollout, T={t_short}: {vmap_ms!r} ms (one run) = "
         f"{B * t_short / vmap_ms * 1e3:.4e} env-steps/s")
+    lib = K.build("stepper")
+    pend = lambda stages, math="ExactMath": rf"stepper_kernel<float, PendulumEnv<{math}>, {stages}[,>]"
+    anatomy("1a stepper step, Pendulum Euler", lib, pend(1), ms, env_tm_ms, B, T,
+            lambda: env.fused_rollout(state, actions_tm, time_major=True, strict=True), "stepper_kernel",
+            SASS_CASES[0][3], STEPPER_TILE_ROWS)
+    anatomy("1a' the same, batch-major slab and entry", lib, pend(1), bm_ms, env_bm_ms, B, T,
+            lambda: env.fused_rollout(state, actions_bm, strict=True), "stepper_kernel", SASS_CASES[0][3],
+            STEPPER_TILE_ROWS)
+    anatomy("1b stepper sim-ahead, Pendulum RK4", lib, pend(4), sa_ms, env_sa_ms, B, T, sa_entry, "stepper_kernel",
+            SASS_CASES[1][3], STEPPER_TILE_ROWS)
     return [
         entry("stepper_step", launches["step"], err_step, ms, plain_ms, bound_ms, bound_by, SOURCE, REPLACES),
         entry("stepper_sim_ahead", launches["sim_ahead"], err_sa, sa_ms, plain_sa_ms, sa_bound_ms, sa_bound_by,
@@ -1058,6 +1439,8 @@ def phase_pcl_main(ex, PCL):
     B: the PI law over T = 2,048; C: the gain-scheduled sensorless tile over
     T = 2,048 with a 3 A sensor slab; D: the PI law collected through
     RolloutCollector.collect_policy_fused over T = 256."""
+    from exciting_environments_torch.ops.kernels.stepper import build
+
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
     B, T, T_D = B_MAIN, T_PCL, T_PMSM
     env = ex.PMSM(batch_size=B, saturated=True, motor_variant=ex.MotorVariant.BRUSA, tau=1e-4,
@@ -1070,7 +1453,8 @@ def phase_pcl_main(ex, PCL):
         f"collection over T={T_D}")
     entries = []
 
-    def run_case(name, drive, kernel_fn, plain_fn, check, bound_args, n_steps):
+    def run_case(name, drive, kernel_fn, plain_fn, check, bound_args, n_steps, row, law="AffineAdapter",
+                 vias=((),)):
         PCL.PMSM_CL_KERNEL.reset_counts()
         out = drive()
         torch.cuda.synchronize()
@@ -1096,6 +1480,8 @@ def phase_pcl_main(ex, PCL):
             f"entry point {env_ms!r} ms = {steps / env_ms * 1e3:.4e} env-steps/s (kernel {ms / env_ms:.1%}); "
             f"bound {bound_ms!r} ms ({bound_by}, {per_step} operations per step and drive); "
             f"{bound_ms / ms:.1%} of the bound; plain {plain_ms!r} ms (one run, full size); max abs {err!r}")
+        anatomy(f"{row} {name}", build("pmsm_closed_loop"), rf"pmsm_closed_loop_kernel<float, 1, true, {law}[,>]",
+                ms, env_ms, B, n_steps, drive, "pmsm_closed_loop_kernel", vias=vias)
         entries.append(entry(name, launches, err, ms, plain_ms, bound_ms, bound_by, PCL_SOURCE, PCL_REPLACES))
 
     def check_final(out, n_extra=0):
@@ -1112,12 +1498,12 @@ def phase_pcl_main(ex, PCL):
     run_case("pmsm_closed_loop_p", lambda: env.fused_closed_loop(state, p_law, T),
              lambda: PCL.kernel_pmsm_closed_loop(env, state0, omega, p_law, T, **kw),
              lambda: PCL.plain_pmsm_closed_loop(env, state0, omega, p_law, T, **kw), check_final,
-             (env, p_law.kernel_spec(torch.float32, DEVICE), B, T, 0, 0, 2), T)
+             (env, p_law.kernel_spec(torch.float32, DEVICE), B, T, 0, 0, 2), T, "4a")
     c0 = zeros2()
     run_case("pmsm_closed_loop_pi", lambda: env.fused_closed_loop(state, pi_law, T, policy_carry=c0),
              lambda: PCL.kernel_pmsm_closed_loop(env, state0, omega, pi_law, T, policy_carry=c0, **kw),
              lambda: PCL.plain_pmsm_closed_loop(env, state0, omega, pi_law, T, policy_carry=c0, **kw),
-             lambda out: check_final(out, 1), (env, pi_law.kernel_spec(torch.float32, DEVICE), B, T, 0, 2, 2), T)
+             lambda out: check_final(out, 1), (env, pi_law.kernel_spec(torch.float32, DEVICE), B, T, 0, 2, 2), T, "4b")
 
     # C: gain-scheduled sensorless control, the fleet pinned at omega_el = 1200 rad/s
     senv = ex.PMSM(batch_size=B, saturated=True, motor_variant=ex.MotorVariant.BRUSA, tau=1e-4, device=DEVICE)
@@ -1149,7 +1535,8 @@ def phase_pcl_main(ex, PCL):
     sensorless = lambda kernel: pcl_run(PCL, senv, tile, T, s_state0, s_omega, kernel, **skw)
     run_case("pmsm_closed_loop_sensorless", lambda: PCL.pmsm_closed_loop(senv, s_state0, s_omega, tile, T, **skw),
              lambda: sensorless(True), lambda: sensorless(False), check_sensorless,
-             (senv, tile.kernel_spec(torch.float32, DEVICE), B, T, 0, 6, 0, 10, 2), T)
+             (senv, tile.kernel_spec(torch.float32, DEVICE), B, T, 0, 6, 0, 10, 2), T, "4c",
+             "ScheduledLaw", SASS_CASES[4][3])
     del slab, skw
 
     # D: the PI law collected with rewards and flags, a save every step
@@ -1170,7 +1557,7 @@ def phase_pcl_main(ex, PCL):
              lambda: collector.collect_policy_fused(pi_law, state, T_D, policy_carry=c0),
              lambda: PCL.kernel_pmsm_closed_loop(env, state0, omega, pi_law, T_D, **dkw),
              lambda: PCL.plain_pmsm_closed_loop(env, state0, omega, pi_law, T_D, **dkw), check_batch,
-             (env, pi_law.kernel_spec(torch.float32, DEVICE), B, T_D, T_D, 2, 2), T_D)
+             (env, pi_law.kernel_spec(torch.float32, DEVICE), B, T_D, T_D, 2, 2), T_D, "4d")
     from exciting_environments_torch.ops.kernels.pmsm_stepper import _eps_trajectory
 
     replay_ms = time_ms(lambda: _eps_trajectory(state0[2], omega, env.tau, T_D, env._solver))
@@ -1275,6 +1662,10 @@ def phase_fast_flag(ex, K, CL):
         f"{B * Tm / ms * 1e3:.4e} env-steps/s; env.fused_rollout time-major {env_ms!r} ms; bound {bound_ms!r} ms "
         f"({bound_by}, {ops_per_step(env, env._solver, False)} operations per step); plain {plain_ms!r} ms; "
         f"launches {launches}")
+    anatomy("1c stepper step, Pendulum fast_math Euler", K.build("stepper"),
+            r"stepper_kernel<float, PendulumEnv<FastMath>, 1[,>]", ms, env_ms, B, Tm,
+            lambda: env.fused_rollout(state, actions_tm, time_major=True, strict=True), "stepper_kernel",
+            SASS_CASES[2][3], STEPPER_TILE_ROWS)
     entries = [entry("stepper_step_fast", launches, err, ms, plain_ms, bound_ms, bound_by, SOURCE, REPLACES)]
 
     cl_env = ex.Pendulum(batch_size=B, control_state=["theta"], fast_math=True, device=DEVICE)
@@ -1612,6 +2003,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--sass"]:
+        return sass_report(sys.argv[2:])
     csrc = ROOT / "exciting_environments_torch" / "csrc"
     if not all((csrc / f"{name}.cu").is_file() for name in ("stepper", "pmsm_stepper", "closed_loop",
                                                            "pmsm_closed_loop", "pendulum_fast", "pmsm_fast")):
@@ -1641,6 +2034,7 @@ def main() -> int:
     kernels += phase_pmsm_main(ex, PK)
     phase_cl_kernel_vs_plain(ex, CL)
     kernels += phase_cl_main(ex, CL)
+    phase_trig()
     phase_pcl_kernel_vs_plain(ex, PCL)
     kernels += phase_pcl_main(ex, PCL)
     kernels += phase_fast_flag(ex, K, CL)

@@ -117,6 +117,79 @@ __device__ __forceinline__ T lincomb(T y, const T (&ks)[NS][N], int leaf, const 
     return any ? y + tau * acc : y;
 }
 
+// Pin a loop-invariant value in a register.  Without it the compiler may
+// recompute the value from the kernel's parameters in every iteration
+// (reload a double, compare, convert): the empty asm makes it opaque.
+__device__ __forceinline__ void keep(unsigned& x) { asm volatile("" : "+r"(x)); }
+__device__ __forceinline__ void keep(float& x) { asm volatile("" : "+f"(x)); }
+__device__ __forceinline__ void keep(double& x) { asm volatile("" : "+d"(x)); }
+
+// The tableau in the working type with its zero and unit masks (bit j of a
+// row: coefficient j is non-zero / is exactly one), hoisted out of the loop.
+template <typename T, int NS>
+struct Tableau {
+    T a[NS][NS], b[NS];
+    unsigned a_nz[NS], a_one[NS], b_nz, b_one;
+};
+
+template <typename T, int NS, int M>
+__device__ __forceinline__ Tableau<T, NS> tableau(const double (&a)[M][M], const double (&b)[M]) {
+    Tableau<T, NS> tb;
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+        tb.a_nz[s] = tb.a_one[s] = 0u;
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+            const double c = j < s ? a[s][j] : 0.0;
+            tb.a[s][j] = (T)c;
+            tb.a_nz[s] |= (unsigned)(c != 0.0) << j;
+            tb.a_one[s] |= (unsigned)(c == 1.0) << j;
+        }
+    }
+    tb.b_nz = tb.b_one = 0u;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+        tb.b[j] = (T)b[j];
+        tb.b_nz |= (unsigned)(b[j] != 0.0) << j;
+        tb.b_one |= (unsigned)(b[j] == 1.0) << j;
+    }
+    // in registers for the whole loop: the non-zero, non-unit weights and
+    // the masks
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+        keep(tb.a_nz[s]);
+        keep(tb.a_one[s]);
+#pragma unroll
+        for (int j = 0; j < s; ++j)
+            if (a[s][j] != 0.0 && a[s][j] != 1.0) keep(tb.a[s][j]);
+    }
+    keep(tb.b_nz);
+    keep(tb.b_one);
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+        if (b[j] != 0.0 && b[j] != 1.0) keep(tb.b[j]);
+    return tb;
+}
+
+// lincomb over the hoisted weights and masks: y + tau *
+// sum_j w[j] * ks[j][leaf], zero weights skipped, unit weights not
+// multiplied, left to right; no stage at all leaves y.
+template <typename T, int NS, int N>
+__device__ __forceinline__ T lincomb_masked(T y, const T (&ks)[NS][N], int leaf, const T* w, unsigned nz,
+                                            unsigned one, int n, T tau) {
+    bool any = false;
+    T acc = T(0);
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+        if (j < n && ((nz >> j) & 1u)) {
+            const T term = ((one >> j) & 1u) ? ks[j][leaf] : w[j] * ks[j][leaf];
+            acc = any ? acc + term : term;
+            any = true;
+        }
+    }
+    return any ? y + tau * acc : y;
+}
+
 // ---------------------------------------------------------------------------
 // Elementwise functions as PyTorch's CUDA kernels compute them
 // ---------------------------------------------------------------------------
@@ -131,9 +204,19 @@ __device__ __forceinline__ float dsqrt(float x) { return sqrtf(x); }
 __device__ __forceinline__ double dsqrt(double x) { return sqrt(x); }
 
 // torch.remainder / jnp.remainder (floored): fmod, then add the divisor
-// where the signs differ and the result is non-zero
+// where the signs differ and the result is non-zero.  For m > 0 and x in
+// (-m, 2m), the range of an angle wrapped after one step, the result is
+// taken without fmod's loop, and is the same bit for bit: x itself on
+// [0, m) (-0 included); x - m on [m, 2m), which is exact (Sterbenz) and is
+// what fmod returns; on (-m, 0) fmod returns x and the floored adjustment
+// adds m, as here.  Every other input, NaN and inf included, takes fmod.
 template <typename T>
 __device__ __forceinline__ T floored_mod(T x, T m) {
+    if (m > T(0)) {
+        if (x >= T(0) && x < m) return x;
+        if (x >= m && x < m + m) return x - m;
+        if (x < T(0) && x > -m) return x + m;
+    }
     T r = dfmod(x, m);
     if (r != T(0) && ((r < T(0)) != (m < T(0)))) r = r + m;
     return r;

@@ -36,19 +36,31 @@
 // bilinear gathers of six channels (the torque's, which is also the first
 // stage's, and one per further stage), the observation, the policy, two
 // sincos pairs and the hexagon.  The sensorless case streams its sensor
-// slab, 8 B per step and drive in float32.
+// slab, 8 B per step and drive in float32.  In fact the kernel runs at 1.6
+// to 2.2 times the issue time of its 515-680 SASS instructions per step
+// (chip_smoke.py's anatomy; PERF.md section 6): one dependent chain per
+// drive at 15.5 warps per SM, between issue- and latency-bound.
 //
 // What the design does about it: one thread per drive keeps the state,
-// omega and up to six carry leaves in registers for all T steps.  The
-// magnetics table (6 nx ny values, 35,616 B for BRUSA in float32) sits in
-// dynamic shared memory as in pmsm_stepper.cu.  The scheduled maps (10
-// channels, 59,360 B more for BRUSA) are read from device memory through the
-// read-only data cache: both tables in shared memory would leave room for
-// two 128-thread blocks per SM (one in float64), while the table alone
-// leaves it to the registers.  Slabs are read time-major (T, B, n) and saves
-// written time-major (n_saves, B); any B works (the ragged edge is masked).
-// The TPU kernel's (8, 128) tiles, time chunks, revisited output blocks,
-// VMEM budgets, SMEM scalar tree and one-hot gathers have no counterpart.
+// omega and up to six carry leaves in registers for all T steps; the
+// observation stays in registers too (the noise columns feeding each
+// observation column are a bit mask, so nothing indexes the array).  The
+// magnetics table sits in dynamic shared memory channel-interleaved, (nx,
+// ny, 8): each corner of a gather is two 16-byte loads from one address
+// (ops/lut.py::interleave_channels, 47,488 B for BRUSA in float32, four
+// 128-thread blocks per SM).  The scheduled maps (10 channels, 71,232 B
+// interleaved to 12) are read from device memory through the read-only
+// data cache, three 16-byte loads per corner; a fleet near its setpoints
+// gathers a few cells, which stay in L1.  Per step there is one sincosf
+// per distinct angle (the observation's and the hexagon's, with cos(-x) ==
+// cos(x) and sin(-x) == -sin(x), which the card checked for every float32
+// |x| < 2^7; float64 keeps the literal calls), no fmod loop (floored_mod's
+// exact fast path), and the run-time constants (the sector rotations in
+// shared memory, the angle's advance and rate, the tableau, the step size)
+// are computed once.  Slabs are read time-major (T, B, n) and saves written
+// time-major (n_saves, B); any B works (the ragged edge is masked).  The
+// TPU kernel's (8, 128) tiles, time chunks, revisited output blocks, VMEM
+// budgets, SMEM scalar tree and one-hot gathers have no counterpart.
 //
 // Exactness: every operation mirrors the plain version
 // (ops/kernels/pmsm_closed_loop.py::plain_pmsm_cl_step with the policies'
@@ -95,8 +107,8 @@ struct PmsmClArgs {
     double clip;                       // AffineLaw clamp bound (with has_clip)
     const void* param_ptr[N_PARAMS];   // per-batch parameter (B,), or null
     const void* band_ptr[N_BANDS];     // per-batch band (B,), or null
-    const void* lut;                   // (6, nx, ny), saturated only
-    const void* sched;                 // (n_sched, nx, ny), or null
+    const void* lut;                   // (nx, ny, 8) interleaved, saturated only
+    const void* sched;                 // (nx, ny, 12) interleaved, or null
     const void* state0[5];             // (B,) i_d, i_q, eps, u_d_buffer, u_q_buffer
     const void* omega;                 // (B,)
     const void* carry0[MAX_CARRY];     // (B,) per policy-carry leaf
@@ -138,6 +150,7 @@ struct PmsmClArgs {
 // ---------------------------------------------------------------------------
 
 struct AffineAdapter {
+    static constexpr bool SCHEDULED = false;  // reads no scheduled gather
     template <typename T>
     __device__ __forceinline__ static void act(const PmsmClArgs& args, const T* pp, const T* obs, int n_obs,
                                                const T*, int t, T* c, T* a) {
@@ -161,6 +174,7 @@ __device__ __forceinline__ T vector_scale(T u_d, T u_q, T u_lim) {
 // slots of pp are SENSORLESS_SLOTS there.  carry = (belief d, belief q,
 // integrator d, integrator q[, delayed command d, q]).
 struct SensorlessLaw {
+    static constexpr bool SCHEDULED = false;
     enum { K00, K01, K10, K11, A00, A01, A10, A11, B00, B01, B10, B11, C0, C1, SPAN_D, MN_D, SPAN_Q, MN_Q,
            REF_D, REF_Q, KP_D, KP_Q, FF_D, FF_Q, W_LQ, OMEGA, L_D, PSI_P, U_LIM, KITAU_D, KITAU_Q, AW_D, AW_Q,
            AMN_D, AINV_D, AMN_Q, AINV_Q, N_SLOTS };
@@ -205,6 +219,7 @@ struct SensorlessLaw {
 // sv = L_dd, L_dq, L_qd, L_qq, Psi_d, Psi_q, K00, K01, K10, K11 gathered at
 // the belief.
 struct ScheduledLaw {
+    static constexpr bool SCHEDULED = true;
     enum { SPAN_D, MN_D, SPAN_Q, MN_Q, BANDWIDTH, INV_TI, REF_D, REF_Q, FF_D, FF_Q, OMEGA, U_LIM, TAU, TAU_TI,
            AMN_D, AINV_D, AMN_Q, AINV_Q, ASPAN_D, ASPAN_Q, R_S, INV_SPAN_D, INV_SPAN_Q, N_SLOTS };
     template <typename T>
@@ -311,29 +326,58 @@ __device__ __forceinline__ Bands<T> bands(const PmsmClArgs& args, long long b) {
     return k;
 }
 
+// torch.sin(x) and torch.cos(x): one sincosf in float32, whose results equal
+// sinf's and cosf's for every finite |x| < 2^7 (checked exhaustively on the
+// card, with sinf(-x) == -sinf(x) and cosf(-x) == cosf(x): chip_smoke.py's
+// trig phase and tests/test_torch_gpu.py); the two literal calls in float64
+__device__ __forceinline__ void sincos_pair(float x, float& s, float& c) { sincosf(x, &s, &c); }
+__device__ __forceinline__ void sincos_pair(double x, double& s, double& c) {
+    s = sin(x);
+    c = cos(x);
+}
+
 // 2 * (x - min) / (max - min) - 1
 template <typename T>
 __device__ __forceinline__ T normalize(const Bands<T>& k, int i, T x) {
     return (T)2 * (x - k.obs_lo[i]) / k.obs_span[i] - T(1);
 }
 
+// The hexagon's two rotations at the advanced angle: cos(-adv), sin(-adv),
+// cos(adv), sin(adv).  In float32 from one sincos_pair, with cos(-x) ==
+// cos(x) and sin(-x) == -sin(x) (checked with sincos_pair on the card); in
+// float64 the four literal calls.
+__device__ __forceinline__ void hex_angles(float adv, float& ca, float& sa, float& cb, float& sb) {
+    sincos_pair(adv, sb, cb);
+    ca = cb;
+    sa = -sb;
+}
+__device__ __forceinline__ void hex_angles(double adv, double& ca, double& sa, double& cb, double& sb) {
+    ca = cos(-adv);
+    sa = sin(-adv);
+    cb = cos(adv);
+    sb = sin(adv);
+}
+
 // pmsm_closed_loop.py::hex_constrain (the TPU kernel's _hex_constrain):
 // denormalize, rotate to alpha/beta at the deadtime-advanced angle, clip into
-// the hexagon with the linear sector test, rotate back
+// the hexagon with the linear sector test, rotate back.  adv_inc is the
+// drive's omega * tau * (deadtime + 0.5); rot the sector rotations (8 real
+// parts, then 8 imaginary ones) in the working type.
 template <typename T>
-__device__ __forceinline__ void hex_constrain(const PmsmClArgs& args, const Bands<T>& k, T a_d, T a_q, T eps,
-                                              T omega, T& u_con_d, T& u_con_q) {
+__device__ __forceinline__ void hex_constrain(const Bands<T>& k, const T* rot, T a_d, T a_q, T eps, T adv_inc,
+                                              T& u_con_d, T& u_con_q) {
     const T u_d = (a_d + T(1)) * (T)0.5 * k.act_span[0] + k.act_lo[0];
     const T u_q = (a_q + T(1)) * (T)0.5 * k.act_span[1] + k.act_lo[1];
     const T nd = u_d * k.inv_half_dc;
     const T nq = u_q * k.inv_half_dc;
 
     const T two_pi = (T)6.283185307179586;
-    T adv = eps + omega * (T)args.tau * (T)args.adv_scale;
+    T adv = eps + adv_inc;
     adv = floored_mod(adv, two_pi);
     adv = adv + (adv > (T)3.141592653589793 ? -two_pi : -T(0));  // (adv > pi) * (-2 pi)
 
-    const T ca = dcos(-adv), sa = dsin(-adv);
+    T ca, sa, cb, sb;
+    hex_angles(adv, ca, sa, cb, sb);
     const T alpha = ca * nd + sa * nq;
     const T beta = -sa * nd + ca * nq;
     const T s120 = (T)0.8660254037844386;
@@ -341,7 +385,7 @@ __device__ __forceinline__ void hex_constrain(const PmsmClArgs& args, const Band
     const int b1 = (T)-0.5 * beta - s120 * alpha >= T(0);
     const int b2 = (T)-0.5 * beta + s120 * alpha >= T(0);
     const int idx = b0 * 4 + b1 * 2 + b2;
-    const T rot_re = (T)args.rot_re[idx], rot_im = (T)args.rot_im[idx];
+    const T rot_re = rot[idx], rot_im = rot[8 + idx];
     T ra = alpha * rot_re - beta * rot_im;
     T rb = alpha * rot_im + beta * rot_re;
     ra = clampv(ra, (T)(-2.0 / 3.0), (T)(2.0 / 3.0));
@@ -349,7 +393,6 @@ __device__ __forceinline__ void hex_constrain(const PmsmClArgs& args, const Band
     const T oa = ra * rot_re + rb * rot_im;
     const T ob = rb * rot_re - ra * rot_im;
 
-    const T cb = dcos(adv), sb = dsin(adv);
     u_con_d = (cb * oa + sb * ob) * k.half_dc;
     u_con_q = (-sb * oa + cb * ob) * k.half_dc;
 }
@@ -358,19 +401,36 @@ __device__ __forceinline__ void hex_constrain(const PmsmClArgs& args, const Band
 // The closed-loop kernel
 // ---------------------------------------------------------------------------
 
+// channels of the interleaved scheduled maps (ops/lut.py::padded_channels)
+#define MAX_SCHED_PAD 12
+
+// Dynamic shared memory of one block, in elements of T: the interleaved
+// magnetics table (16-byte aligned, first), the policy's flat parameters and
+// the 16 sector rotations.
+__host__ __device__ __forceinline__ size_t lut_elems(const PmsmClArgs& args, bool sat) {
+    return sat ? (size_t)N_CHANNELS_PAD * args.nx * args.ny : 0;
+}
+
 template <typename T, int NS, bool SAT, class Policy>
 __global__ void __launch_bounds__(128) pmsm_closed_loop_kernel(const __grid_constant__ PmsmClArgs args) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    T* pp = reinterpret_cast<T*>(smem_raw);
-    T* lut = pp + args.n_pp;
+    T* lut = reinterpret_cast<T*>(smem_raw);
+    T* pp = lut + lut_elems(args, SAT);
+    T* rot = pp + args.n_pp;
     {
         // every thread of the block takes part before any returns
         const T* src = static_cast<const T*>(args.policy_params);
         for (int i = threadIdx.x; i < args.n_pp; i += blockDim.x) pp[i] = src[i];
+        if (threadIdx.x < 8) {
+            rot[threadIdx.x] = (T)args.rot_re[threadIdx.x];
+            rot[8 + threadIdx.x] = (T)args.rot_im[threadIdx.x];
+        }
         if (SAT) {
-            const int n = N_CHANNELS * args.nx * args.ny;
-            const T* tab = static_cast<const T*>(args.lut);
-            for (int i = threadIdx.x; i < n; i += blockDim.x) lut[i] = tab[i];
+            using V = typename Vec16<T>::type;
+            const int n = (int)(lut_elems(args, SAT) / Vec16<T>::N);
+            const V* tab = static_cast<const V*>(args.lut);
+            V* dst = reinterpret_cast<V*>(lut);
+            for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = tab[i];
         }
         __syncthreads();
     }
@@ -380,12 +440,14 @@ __global__ void __launch_bounds__(128) pmsm_closed_loop_kernel(const __grid_cons
 
     const Drive<T> k = prepare<T>(args, b);  // pmsm_drive.cuh
     const Bands<T> bd = bands<T>(args, b);
-    const T* sched = static_cast<const T*>(args.sched);
-    const T* obs_noise = static_cast<const T*>(args.obs_noise);
-    const T* proc_noise = static_cast<const T*>(args.proc_noise);
-    const T tau = (T)args.tau;
+    const T* __restrict__ sched = static_cast<const T*>(args.sched);
+    T tau = (T)args.tau;
+    keep(tau);
     const T omega = k.omega;
     const int n_obs = N_BASE_OBS + args.n_refs;
+    const Tableau<T, NS> tb = tableau<T, NS>(args.a, args.b);
+    const T adv_inc = omega * tau * (T)args.adv_scale;  // the hexagon's advance of the angle
+    const bool deadtime = args.deadtime != 0;
 
     // the angle rate sum_j b_j * omega (unit weights not multiplied, zeros skipped)
     T rate = T(0);
@@ -400,11 +462,32 @@ __global__ void __launch_bounds__(128) pmsm_closed_loop_kernel(const __grid_cons
             }
         }
     }
+    const T eps_inc = tau * rate;
     const T obs_omega = normalize(bd, 2, omega);
     T ref[MAX_REFS];
 #pragma unroll
-    for (int r = 0; r < MAX_REFS; ++r)
-        if (r < args.n_refs) ref[r] = static_cast<const T*>(args.refs[r])[b];
+    for (int r = 0; r < MAX_REFS; ++r) ref[r] = r < args.n_refs ? static_cast<const T*>(args.refs[r])[b] : T(0);
+
+    // the slabs, one row per step, and the saves: pointers advanced per step
+    // which noise columns feed each observation column (bit j of feed[i]),
+    // so that the observation stays in registers: the loop indexes neither
+    const int n_obs_noise = args.n_obs_noise, n_proc_noise = args.n_proc_noise;
+    unsigned feed[MAX_OBS];
+#pragma unroll
+    for (int i = 0; i < MAX_OBS; ++i) {
+        feed[i] = 0u;
+#pragma unroll
+        for (int j = 0; j < MAX_OBS; ++j) feed[i] |= (unsigned)(j < n_obs_noise && args.obs_cols[j] == i) << j;
+    }
+    int noise_idx[2];
+    noise_idx[0] = args.noise_idx[0];
+    noise_idx[1] = args.noise_idx[1];
+    const T* __restrict__ obs_noise = static_cast<const T*>(args.obs_noise) + b * n_obs_noise;
+    const T* __restrict__ proc_noise = static_cast<const T*>(args.proc_noise) + b * n_proc_noise;
+    const int traj_stride = args.traj_stride;
+    const bool saves = traj_stride > 0;
+    int until_save = traj_stride;
+    long long save_at = b;
 
     T i_d = static_cast<const T*>(args.state0[0])[b];
     T i_q = static_cast<const T*>(args.state0[1])[b];
@@ -421,14 +504,13 @@ __global__ void __launch_bounds__(128) pmsm_closed_loop_kernel(const __grid_cons
         T vals[N_CHANNELS];
         T trq;
         if (SAT) {
-            gather(lut, k, i_d, i_q, vals);
+            gather<true>(lut, k, i_d, i_q, vals);
             trq = saturated_torque(vals, k, i_d, i_q);
         } else {
             trq = linear_torque(k, i_d, i_q);
         }
         // the pending save's torque: this state is step t - 1's post-step state
-        if (args.traj_stride > 0 && t > 0 && t % args.traj_stride == 0)
-            static_cast<T*>(args.traj[2])[(long long)(t / args.traj_stride - 1) * batch + b] = trq;
+        if (saves && until_save == traj_stride && t > 0) static_cast<T*>(args.traj[2])[save_at - batch] = trq;
 
         // 2. observation (+ sensor noise)
         T obs[MAX_OBS];
@@ -436,36 +518,36 @@ __global__ void __launch_bounds__(128) pmsm_closed_loop_kernel(const __grid_cons
         obs[1] = normalize(bd, 1, i_q);
         obs[2] = obs_omega;
         obs[3] = normalize(bd, 3, trq);
-        obs[4] = dcos(eps);
-        obs[5] = dsin(eps);
+        sincos_pair(eps, obs[5], obs[4]);
         obs[6] = normalize(bd, 4, buf_d);
         obs[7] = normalize(bd, 5, buf_q);
 #pragma unroll
-        for (int r = 0; r < MAX_REFS; ++r) obs[N_BASE_OBS + r] = r < args.n_refs ? ref[r] : T(0);
-        if (args.n_obs_noise > 0) {
+        for (int r = 0; r < MAX_REFS; ++r) obs[N_BASE_OBS + r] = ref[r];
+        if (n_obs_noise > 0) {
+            // per column, its noise columns in their order (the plain
+            // version adds them column by column in that order)
 #pragma unroll
-            for (int j = 0; j < MAX_OBS; ++j) {
-                if (j < args.n_obs_noise) {
-                    const T e = obs_noise[((long long)t * batch + b) * args.n_obs_noise + j];
+            for (int i = 0; i < MAX_OBS; ++i) {
 #pragma unroll
-                    for (int i = 0; i < MAX_OBS; ++i)
-                        if (args.obs_cols[j] == i) obs[i] = obs[i] + e;
-                }
+                for (int j = 0; j < MAX_OBS; ++j)
+                    if ((feed[i] >> j) & 1u) obs[i] = obs[i] + __ldg(obs_noise + j);
             }
+            obs_noise += batch * n_obs_noise;
         }
 
-        // 3. the scheduled gather at the denormalized belief currents
+        // 3. the scheduled gather at the denormalized belief currents (the
+        // launcher pairs the maps with the ScheduledLaw family)
         T sv[MAX_SCHED];
-        if (args.n_sched > 0) {
+        if constexpr (Policy::SCHEDULED) {
             T bc0 = c[0], bc1 = c[1];
 #pragma unroll
-            for (int i = 0; i < MAX_CARRY; ++i) {
-                if (args.sched_c0 == i) bc0 = c[i];
-                if (args.sched_c1 == i) bc1 = c[i];
+            for (int i = 1; i < MAX_CARRY; ++i) {
+                bc0 = args.sched_c0 == i ? c[i] : bc0;
+                bc1 = args.sched_c1 == i ? c[i] : bc1;
             }
             const T bi_d = (bc0 + T(1)) * (T)0.5 * bd.obs_dspan[0] + bd.obs_dlo[0];
             const T bi_q = (bc1 + T(1)) * (T)0.5 * bd.obs_dspan[1] + bd.obs_dlo[1];
-            gather_n<MAX_SCHED, true>(sched, k, bi_d, bi_q, sv);
+            gather_il<MAX_SCHED, MAX_SCHED_PAD, true>(sched, k, bi_d, bi_q, sv);
         }
 
         // 4. the policy
@@ -474,8 +556,8 @@ __global__ void __launch_bounds__(128) pmsm_closed_loop_kernel(const __grid_cons
 
         // 5. hexagon, 6. deadtime swap
         T u_con_d, u_con_q;
-        hex_constrain(args, bd, a[0], a[1], eps, omega, u_con_d, u_con_q);
-        if (args.deadtime) {
+        hex_constrain(bd, rot, a[0], a[1], eps, adv_inc, u_con_d, u_con_q);
+        if (deadtime) {
             u_app_d = buf_d;
             u_app_q = buf_q;
             buf_d = u_con_d;
@@ -494,43 +576,44 @@ __global__ void __launch_bounds__(128) pmsm_closed_loop_kernel(const __grid_cons
             linear_rhs(k, i_d, i_q, u_app_d, u_app_q, ks[0]);
 #pragma unroll
         for (int s = 1; s < NS; ++s) {
-            const T yi[2] = {lincomb<T, NS, 2>(y[0], ks, 0, args.a[s], s, tau),
-                             lincomb<T, NS, 2>(y[1], ks, 1, args.a[s], s, tau)};
-            ode<T, SAT>(lut, k, yi, u_app_d, u_app_q, ks[s]);
+            const T yi[2] = {lincomb_masked<T, NS, 2>(y[0], ks, 0, tb.a[s], tb.a_nz[s], tb.a_one[s], s, tau),
+                             lincomb_masked<T, NS, 2>(y[1], ks, 1, tb.a[s], tb.a_nz[s], tb.a_one[s], s, tau)};
+            ode<T, SAT, true>(lut, k, yi, u_app_d, u_app_q, ks[s]);
         }
-        i_d = lincomb<T, NS, 2>(y[0], ks, 0, args.b, NS, tau);
-        i_q = lincomb<T, NS, 2>(y[1], ks, 1, args.b, NS, tau);
-        if (args.n_proc_noise > 0) {
+        i_d = lincomb_masked<T, NS, 2>(y[0], ks, 0, tb.b, tb.b_nz, tb.b_one, NS, tau);
+        i_q = lincomb_masked<T, NS, 2>(y[1], ks, 1, tb.b, tb.b_nz, tb.b_one, NS, tau);
+        if (n_proc_noise > 0) {
 #pragma unroll
             for (int j = 0; j < 2; ++j) {
-                if (j < args.n_proc_noise) {
-                    const T e = proc_noise[((long long)t * batch + b) * args.n_proc_noise + j];
-                    if (args.noise_idx[j] == 0) i_d = i_d + e;
-                    if (args.noise_idx[j] == 1) i_q = i_q + e;
+                if (j < n_proc_noise) {
+                    const T e = __ldg(proc_noise + j);
+                    if (noise_idx[j] == 0) i_d = i_d + e;
+                    if (noise_idx[j] == 1) i_q = i_q + e;
                 }
             }
+            proc_noise += batch * n_proc_noise;
         }
 
         // 8. the angle
-        eps = wrap_angle(eps + tau * rate);
+        eps = wrap_angle(eps + eps_inc);
 
-        if (args.traj_stride > 0 && (t + 1) % args.traj_stride == 0) {
-            const long long slot = (long long)((t + 1) / args.traj_stride - 1) * batch + b;
-            static_cast<T*>(args.traj[0])[slot] = i_d;
-            static_cast<T*>(args.traj[1])[slot] = i_q;
-            static_cast<T*>(args.traj[3])[slot] = u_con_d;
-            static_cast<T*>(args.traj[4])[slot] = u_con_q;
-            static_cast<T*>(args.traj[5])[slot] = a[0];
-            static_cast<T*>(args.traj[6])[slot] = a[1];
+        if (saves && --until_save == 0) {
+            until_save = traj_stride;
+            static_cast<T*>(args.traj[0])[save_at] = i_d;
+            static_cast<T*>(args.traj[1])[save_at] = i_q;
+            static_cast<T*>(args.traj[3])[save_at] = u_con_d;
+            static_cast<T*>(args.traj[4])[save_at] = u_con_q;
+            static_cast<T*>(args.traj[5])[save_at] = a[0];
+            static_cast<T*>(args.traj[6])[save_at] = a[1];
 #pragma unroll
             for (int i = 0; i < MAX_CARRY; ++i)
-                if (i < args.n_carry) static_cast<T*>(args.traj_carry[i])[slot] = c[i];
+                if (i < args.n_carry) static_cast<T*>(args.traj_carry[i])[save_at] = c[i];
+            save_at += batch;
         }
     }
 
-    const T trq = torque<T, SAT>(lut, k, i_d, i_q);
-    if (args.traj_stride > 0 && args.n_steps > 0)
-        static_cast<T*>(args.traj[2])[(long long)(args.n_steps / args.traj_stride - 1) * batch + b] = trq;
+    const T trq = torque<T, SAT, true>(lut, k, i_d, i_q);
+    if (saves && args.n_steps > 0) static_cast<T*>(args.traj[2])[save_at - batch] = trq;
     static_cast<T*>(args.out[0])[b] = i_d;
     static_cast<T*>(args.out[1])[b] = i_q;
     static_cast<T*>(args.out[2])[b] = eps;
@@ -555,7 +638,7 @@ static constexpr size_t STATIC_SMEM_LIMIT = 48 * 1024;
 
 template <typename T, int NS, bool SAT, class Policy>
 static int launch_one(const PmsmClArgs& args, cudaStream_t stream) {
-    const size_t smem = ((size_t)args.n_pp + (SAT ? (size_t)N_CHANNELS * args.nx * args.ny : 0)) * sizeof(T);
+    const size_t smem = (lut_elems(args, SAT) + (size_t)args.n_pp + 16) * sizeof(T);
     if (smem > STATIC_SMEM_LIMIT) {
         // above 48 KB a launch is refused unless the kernel opts in
         const cudaError_t err = cudaFuncSetAttribute(pmsm_closed_loop_kernel<T, NS, SAT, Policy>,
@@ -598,6 +681,29 @@ static int launch_dtype(const PmsmClArgs& args, cudaStream_t stream) {
         default:
             return (int)cudaErrorInvalidValue;
     }
+}
+
+// ---------------------------------------------------------------------------
+// The trigonometric identities the kernel relies on, checked on the card
+// ---------------------------------------------------------------------------
+
+// sincos_pair's results for n float32 inputs: the caller holds s and c
+// against torch.sin/torch.cos of x and of -x, bit for bit.
+__global__ void sincos_check_kernel(const float* __restrict__ x, float* __restrict__ s, float* __restrict__ c,
+                                    long long n) {
+    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+         i += (long long)gridDim.x * blockDim.x) {
+        float si, co;
+        sincos_pair(x[i], si, co);
+        s[i] = si;
+        c[i] = co;
+    }
+}
+
+extern "C" int pmsm_closed_loop_sincos(const float* x, float* s, float* c, long long n, void* stream) {
+    if (n <= 0) return 0;
+    sincos_check_kernel<<<132 * 16, 256, 0, static_cast<cudaStream_t>(stream)>>>(x, s, c, n);
+    return (int)cudaGetLastError();
 }
 
 extern "C" int pmsm_closed_loop_args_size() { return (int)sizeof(PmsmClArgs); }

@@ -1,7 +1,8 @@
 // The PMSM drive's electrical model on the device, shared by the open-loop
 // kernel (pmsm_stepper.cu) and the closed-loop kernel (pmsm_closed_loop.cu):
 // the per-instance constants, the bilinear gather of stacked maps on the
-// magnetics table's grid, the saturated and linear vector fields of the
+// magnetics table's grid (and of channel-interleaved ones, which the
+// closed loop reads), the saturated and linear vector fields of the
 // currents, and the torque maps.
 //
 // Every function mirrors the environment's own arithmetic
@@ -17,6 +18,7 @@
 
 #define N_PARAMS 5
 #define N_CHANNELS 6
+#define N_CHANNELS_PAD 8  // channels of the interleaved table (ops/lut.py::padded_channels)
 
 // parameter slots, in the order of PMSM_PARAMS in ops/kernels/pmsm_stepper.py
 enum { P_P = 0, P_RS = 1, P_LD = 2, P_LQ = 3, P_PSI = 4 };
@@ -101,11 +103,73 @@ __device__ __forceinline__ void gather_n(const T* __restrict__ lut, const Drive<
     }
 }
 
-// the six magnetics channels at (i_d, i_q), from the table in shared memory
+// A 16-byte vector of T, and its load (plain, or through the read-only
+// data cache with RO)
 template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+    using type = float4;
+    static constexpr int N = 4;
+};
+template <>
+struct Vec16<double> {
+    using type = double2;
+    static constexpr int N = 2;
+};
+
+template <bool RO, typename V>
+__device__ __forceinline__ V vec_load(const V* p) {
+    if (RO) return __ldg(p);
+    return *p;
+}
+
+// gather_n over a channel-interleaved table (nx, ny, NCP) (ops/lut.py::
+// interleave_channels; NCP a multiple of 4, the table 16-byte aligned):
+// each corner's channels come in NCP / Vec16::N 16-byte loads from one
+// address.  The offsets, weights and blend are gather_n's, term for term.
+template <int NC, int NCP, bool RO = false, typename T>
+__device__ __forceinline__ void gather_il(const T* __restrict__ table, const Drive<T>& k, T px, T py,
+                                          T (&v)[NC]) {
+    using V = typename Vec16<T>::type;
+    constexpr int W = Vec16<T>::N;
+    constexpr int G = NCP / W;  // vectors per grid point
+    static_assert(NCP % 4 == 0 && NC <= NCP, "an interleaved table pads its channels to a multiple of 4");
+    const T fx = (px - k.x0) / k.dx;
+    const T fy = (py - k.y0) / k.dy;
+    const int ix = cell(fx, k.nx);
+    const int iy = cell(fy, k.ny);
+    const T wx = fx - (T)ix;
+    const T wy = fy - (T)iy;
+    const T owx = T(1) - wx;
+    const T owy = T(1) - wy;
+    const V* p00 = reinterpret_cast<const V*>(table) + (ix * k.ny + iy) * G;
+    const V* p10 = p00 + k.ny * G;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+        const V q00 = vec_load<RO>(p00 + g), q01 = vec_load<RO>(p00 + G + g);
+        const V q10 = vec_load<RO>(p10 + g), q11 = vec_load<RO>(p10 + G + g);
+        const T* c00 = reinterpret_cast<const T*>(&q00);
+        const T* c01 = reinterpret_cast<const T*>(&q01);
+        const T* c10 = reinterpret_cast<const T*>(&q10);
+        const T* c11 = reinterpret_cast<const T*>(&q11);
+#pragma unroll
+        for (int w = 0; w < W; ++w) {
+            if (g * W + w < NC)
+                v[g * W + w] = c00[w] * owx * owy + c01[w] * owx * wy + c10[w] * wx * owy + c11[w] * wx * wy;
+        }
+    }
+}
+
+// the six magnetics channels at (i_d, i_q), from the table in shared memory:
+// stacked (6, nx, ny), or channel-interleaved (nx, ny, 8) with IL
+template <bool IL = false, typename T>
 __device__ __forceinline__ void gather(const T* __restrict__ lut, const Drive<T>& k, T i_d, T i_q,
                                        T (&v)[N_CHANNELS]) {
-    gather_n<N_CHANNELS>(lut, k, i_d, i_q, v);
+    if (IL)
+        gather_il<N_CHANNELS, N_CHANNELS_PAD>(lut, k, i_d, i_q, v);
+    else
+        gather_n<N_CHANNELS>(lut, k, i_d, i_q, v);
 }
 
 // PMSM.nonlinear_ode for the currents, from gathered channels
@@ -129,12 +193,13 @@ __device__ __forceinline__ void linear_rhs(const Drive<T>& k, T i_d, T i_q, T u_
     dy[1] = (u_q - k.omega * (k.l_d * i_d + k.psi_p) - k.r_s * i_q) / k.l_q_div;
 }
 
-// PMSM.nonlinear_ode / PMSM.linear_ode for the currents
-template <typename T, bool SAT>
+// PMSM.nonlinear_ode / PMSM.linear_ode for the currents (IL: the table is
+// channel-interleaved)
+template <typename T, bool SAT, bool IL = false>
 __device__ __forceinline__ void ode(const T* lut, const Drive<T>& k, const T (&y)[2], T u_d, T u_q, T (&dy)[2]) {
     if (SAT) {
         T v[N_CHANNELS];
-        gather(lut, k, y[0], y[1], v);
+        gather<IL>(lut, k, y[0], y[1], v);
         saturated_rhs(v, k, y[0], y[1], u_d, u_q, dy);
     } else {
         linear_rhs(k, y[0], y[1], u_d, u_q, dy);
@@ -154,11 +219,11 @@ __device__ __forceinline__ T linear_torque(const Drive<T>& k, T i_d, T i_q) {
 }
 
 // PMSM.currents_to_torque_saturated / PMSM.currents_to_torque
-template <typename T, bool SAT>
+template <typename T, bool SAT, bool IL = false>
 __device__ __forceinline__ T torque(const T* lut, const Drive<T>& k, T i_d, T i_q) {
     if (SAT) {
         T v[N_CHANNELS];
-        gather(lut, k, i_d, i_q, v);
+        gather<IL>(lut, k, i_d, i_q, v);
         return saturated_torque(v, k, i_d, i_q);
     }
     return linear_torque(k, i_d, i_q);

@@ -9,23 +9,39 @@
 //   * sim-ahead mode: identical to vmap_sim_ahead (the carry is never
 //     wrapped, stages at c == 1 read the next zero-order-hold action).
 //
-// What bounds it on an H100: the action slab.  Each instance streams
-// T * A action values once; the state is a handful of registers.  At the
-// main size (pendulum, B = 65,536, T = 4,096, float32) that is 1.07 GB, or
-// 0.32 ms at 3.35 TB/s, against a few dozen float32 operations per step and
-// instance (well under 0.1 ms at 67 TFLOP/s).  So the kernel is bound by
-// bytes, and in practice by the latency of each step's dependent load.
+// What bounds it on an H100: by the roofline, the action slab.  Each
+// instance streams T * A action values once; the state is a handful of
+// registers.  At the main size (pendulum, B = 65,536, T = 4,096, float32)
+// that is 1.07 GB, or 0.32 ms at 3.35 TB/s, against a few dozen float32
+// operations per step and instance.  What bounds it in fact is the chain of
+// dependent instructions of one step: one thread per instance gives 15.5
+// warps per SM (4 per scheduler) and nothing else to overlap, so the kernel
+// takes about 1.9 times the issue time of its ~100 SASS instructions per
+// step (chip_smoke.py's anatomy; PERF.md section 6).  The first version of
+// this kernel was bound by latency instead: one dependent 4-byte load per
+// step (the slab could alias the trajectory stores, so no load was issued
+// ahead) kept some 2 KB per SM in flight where 3.35 TB/s needs about 25 KB,
+// beside a run-time division for the action row every step.
 //
-// What the design does about it: one thread per instance keeps its state in
-// registers for all T steps and reads the time-major slab a[t, b, :], so
-// neighbouring threads read neighbouring addresses and every action byte is
-// read exactly once.  The denormalization of the action is folded into the
-// kernel (no pre-pass over the slab), the next-action stream of sim-ahead
-// mode is read from the same slab one row ahead (no shifted copy), and an
-// action held for R solver steps is read R times from cache (no repeated
-// copy).  The TPU kernel's (8, 128) tiles, VMEM chunk budgets and revisited
-// output blocks have no counterpart; any batch size works (the ragged edge
-// is masked).  Load prefetching across steps is left for later work.
+// What the design does about it: one thread per instance keeps its state
+// in registers for all T steps, and the block stages its 128 instances'
+// actions through a ring of STAGES shared-memory tiles of K rows, filled
+// with cp.async two tiles ahead of the rows being integrated: 16 KB per
+// block in flight, 64 KB per SM at four blocks, so no step waits on device
+// memory.  A tile is copied in 16-byte pieces where the slab's lines allow
+// it (else one action vector per piece), the ragged edge zero-filled, from
+// either layout: a time-major tile is K rows of 128 * A contiguous values,
+// a batch-major one 128 rows of K * A, so a batch-major slab needs no
+// transposed copy.  Each thread reads its own column from shared memory.
+// The loop advances the action row with a counter (no division), reads the
+// next row for use_next stages from the ring (the next tile is waited for
+// when a stage needs it), keeps the tableau's weights and zero/unit masks,
+// the step size and the slot offsets in registers (keep()), and wraps
+// angles through floored_mod's exact fast path (eager_rules.cuh).  The
+// denormalization of the action is folded into the kernel; an action held
+// for R solver steps is denormalized once.  The TPU kernel's (8, 128)
+// tiles, VMEM chunk budgets and revisited output blocks have no
+// counterpart; any batch size works.
 //
 // Exactness: every operation mirrors the PyTorch plain version
 // (exciting_environments_torch/ops/kernels/stepper.py::plain_rollout) in
@@ -64,7 +80,7 @@ struct StepperArgs {
     const void* y0[MAX_STATE];          // (B,) per state leaf
     void* y_out[MAX_STATE];             // (B,) per state leaf
     void* traj[MAX_STATE];              // (T / traj_stride, B) per leaf, or null
-    const void* actions;                // normalized, (T / hold, B, A)
+    const void* actions;                // normalized, (T / hold, B, A), or (B, T / hold, A) with batch_major
     const void* noise;                  // (T, B, n_noise), or null
     long long batch;
     int n_steps;
@@ -78,114 +94,289 @@ struct StepperArgs {
     int traj_stride;                    // 0: no trajectory saves
     int env_id;
     int fast;                           // the environment's fast_math (FastMath functors and wrap)
+    int batch_major;                    // layout of the action slab
 };
+
+// ---------------------------------------------------------------------------
+// The action ring
+// ---------------------------------------------------------------------------
+
+static constexpr int THREADS = 128;  // instances per block
+static constexpr int STAGES = 3;     // tiles in the ring: the one being read and two in flight
+static constexpr int TILE_BYTES = 64;  // bytes of one instance's actions per tile
+
+template <typename T, int A>
+struct Ring {
+    static constexpr int K = TILE_BYTES / (A * (int)sizeof(T));  // action rows per tile
+    static constexpr int KA = K * A;
+    static constexpr int PAD = 16 / (int)sizeof(T);  // a batch-major row's padding, one 16-byte piece
+    static constexpr int SLOT = THREADS * (KA + PAD);  // elements of one tile
+};
+
+// One cp.async of N bytes; src_bytes 0 zero-fills the destination.
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, bool valid) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    const int src_bytes = valid ? N : 0;
+    if constexpr (N == 16)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(src_bytes));
+    else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s), "l"(src), "n"(N), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// This thread's share of every tile copy.  A tile is a set of lines:
+// time-major, K rows of THREADS * A contiguous values; batch-major, THREADS
+// instance rows of K * A.  A line is copied in pieces of E elements (16
+// bytes, or one action vector of A elements), piece p of the block's tile
+// by thread p % THREADS; so a thread copies the pieces at one position
+// `pos` of every `lines_per_pass`-th line, from line `line0` on.  The slot
+// holds a time-major tile as [row][instance][a] and a batch-major one as
+// [instance][row * A + a], rows of KA + PAD elements.
+struct TileCopy {
+    long long src;       // element offset of the thread's first piece in tile 0
+    long long src_line;  // element step from one of its pieces to the next
+    long long src_tile;  // element step from one tile to the next
+    int dst, dst_line;   // the same in a slot
+    int line0, lines_per_pass, n;  // first line, line step, pieces per tile
+    int pos_elem;        // the piece's first element within its line
+};
+
+template <typename T, int A>
+__device__ __forceinline__ TileCopy tile_copy(int e, long long b0, long long batch, int n_rows, bool batch_major) {
+    using R = Ring<T, A>;
+    TileCopy c;
+    const int line_elems = batch_major ? R::KA : THREADS * A;
+    const int pieces = line_elems / e;  // per line; divides THREADS
+    c.lines_per_pass = THREADS / pieces;
+    c.line0 = threadIdx.x / pieces;
+    c.pos_elem = (threadIdx.x % pieces) * e;
+    c.n = (batch_major ? THREADS : R::K) / c.lines_per_pass;
+    if (batch_major) {
+        c.src_line = (long long)n_rows * A * c.lines_per_pass;
+        c.src = (b0 + c.line0) * n_rows * A + c.pos_elem;
+        c.src_tile = R::KA;
+        c.dst_line = (R::KA + R::PAD) * c.lines_per_pass;
+        c.dst = c.line0 * (R::KA + R::PAD) + c.pos_elem;
+    } else {
+        c.src_line = batch * A * c.lines_per_pass;
+        c.src = c.line0 * batch * A + b0 * A + c.pos_elem;
+        c.src_tile = (long long)R::K * batch * A;
+        c.dst_line = THREADS * A * c.lines_per_pass;
+        c.dst = c.line0 * THREADS * A + c.pos_elem;
+    }
+    return c;
+}
+
+// Issue tile `tile` (action rows tile*K ... tile*K + K - 1 of the block's
+// instances) into `slot` in pieces of U bytes; pieces past the batch or the
+// horizon are zero-filled.
+template <typename T, int A, int U>
+__device__ __forceinline__ void issue_tile(T* slot, const T* __restrict__ slab, const TileCopy& c, int tile,
+                                           long long b0, long long batch, int n_rows, bool batch_major) {
+    using R = Ring<T, A>;
+    const int row0 = tile * R::K;
+    // a piece is valid while its line is (rows of the horizon, instances of
+    // the batch) and its position is (instances, row elements)
+    const long long lines = batch_major ? batch - b0 : (long long)(n_rows - row0);
+    const bool pos_ok = batch_major ? row0 * A + c.pos_elem < n_rows * A : b0 * A + c.pos_elem < batch * A;
+    const T* src = slab + c.src + tile * c.src_tile;
+    T* dst = slot + c.dst;
+    int line = c.line0;
+#pragma unroll 1
+    for (int m = 0; m < c.n; ++m) {
+        const bool ok = pos_ok && line < lines;
+        cp_async<U>(dst, ok ? src : slab, ok);
+        src += c.src_line;
+        dst += c.dst_line;
+        line += c.lines_per_pass;
+    }
+}
 
 // ---------------------------------------------------------------------------
 // The rollout kernel
 // ---------------------------------------------------------------------------
 
-template <typename T, class Env>
-__device__ __forceinline__ void postprocess(T* y, const StepperArgs& args) {
+template <class Env, typename T>
+__device__ __forceinline__ void postprocess(T* y, unsigned wrap) {
 #pragma unroll
     for (int i = 0; i < Env::N_STATE; ++i)
-        if (args.wrap[i]) y[i] = Env::Math::wrap(y[i]);
+        if ((wrap >> i) & 1u) y[i] = Env::Math::wrap(y[i]);
     Env::clip(y);
 }
 
-// MinMaxNormalization.denormalize: (x + 1) / 2 * (max - min) + min
-template <typename T, int A>
-__device__ __forceinline__ void load_action(T* u, const T* slab, long long row, long long b, long long batch,
-                                            const T* span, const T* lo) {
-#pragma unroll
-    for (int j = 0; j < A; ++j) {
-        const T x = slab[(row * batch + b) * A + j];
-        u[j] = (x + T(1)) / T(2) * span[j] + lo[j];
-    }
-}
-
 template <typename T, class Env, int NS>
-__global__ void __launch_bounds__(128) stepper_kernel(const __grid_constant__ StepperArgs args) {
+__global__ void __launch_bounds__(THREADS) stepper_kernel(const __grid_constant__ StepperArgs args) {
     constexpr int N = Env::N_STATE;
     constexpr int A = Env::N_ACTION;
-    const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (b >= args.batch) return;
+    using R = Ring<T, A>;
+    __shared__ __align__(16) T ring[STAGES * R::SLOT];
+
     const long long batch = args.batch;
+    const long long b0 = (long long)blockIdx.x * THREADS;
+    const long long b = b0 + threadIdx.x;
+    const bool active = b < batch;
+    const long long bl = active ? b : batch - 1;  // an idle thread of the ragged block reads a real instance
 
     const ParamView params{args.param_value, args.param_ptr};
-    const typename Env::template Consts<T> k = Env::template prepare<T>(params, b);
+    const typename Env::template Consts<T> k = Env::template prepare<T>(params, bl);
     T span[A], lo[A];
 #pragma unroll
     for (int j = 0; j < A; ++j) {
-        const Weak<T> mn = weak_load<T>(args.act_min_ptr[j], args.act_min_value[j], b);
-        const Weak<T> mx = weak_load<T>(args.act_max_ptr[j], args.act_max_value[j], b);
+        const Weak<T> mn = weak_load<T>(args.act_min_ptr[j], args.act_min_value[j], bl);
+        const Weak<T> mx = weak_load<T>(args.act_max_ptr[j], args.act_max_value[j], bl);
         span[j] = value(wsub(mx, mn));
         lo[j] = value(mn);
     }
-
     T y[N];
 #pragma unroll
-    for (int i = 0; i < N; ++i) y[i] = static_cast<const T*>(args.y0[i])[b];
+    for (int i = 0; i < N; ++i) y[i] = static_cast<const T*>(args.y0[i])[bl];
 
-    const T tau = (T)args.tau;
-    const T* slab = static_cast<const T*>(args.actions);
-    const T* noise = static_cast<const T*>(args.noise);
-    const int n_rows = args.n_steps / args.hold;
-    bool has_next = false;
+    T tau = (T)args.tau;
+    keep(tau);
+    const Tableau<T, NS> tb = tableau<T, NS>(args.a, args.b);
+    unsigned wrap = 0u, use_next = 0u;
 #pragma unroll
-    for (int s = 0; s < NS; ++s) has_next = has_next || args.use_next[s];
+    for (int i = 0; i < N; ++i) wrap |= (unsigned)(args.wrap[i] != 0) << i;
+#pragma unroll
+    for (int s = 0; s < NS; ++s) use_next |= (unsigned)(args.use_next[s] != 0) << s;
+    const bool has_next = use_next != 0u;
+    const bool step_mode = !args.sim_ahead;
+    // which noise columns feed each state leaf (bit j of feed[i]), so that
+    // the loop indexes no register array
+    const int n_noise = args.n_noise;
+    unsigned feed[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+        feed[i] = 0u;
+#pragma unroll
+        for (int j = 0; j < MAX_STATE; ++j) feed[i] |= (unsigned)(j < n_noise && args.noise_idx[j] == i) << j;
+    }
+    const T* __restrict__ noise = static_cast<const T*>(args.noise) + bl * n_noise;
+    const long long noise_step = batch * n_noise;
+    const int traj_stride = args.traj_stride;
+    const bool saves = traj_stride > 0;
+    int until_save = traj_stride;
+    long long save_at = bl;
 
-    for (int t = 0; t < args.n_steps; ++t) {
-        T u[A], un[A];
-        load_action<T, A>(u, slab, t / args.hold, b, batch, span, lo);
-        if (has_next) {
-            const int row_next = min((t + 1) / args.hold, n_rows - 1);
-            load_action<T, A>(un, slab, row_next, b, batch, span, lo);
+    // the ring: tiles 0 and 1 in flight before the loop, tile + 2 issued
+    // when tile is read
+    const T* __restrict__ slab = static_cast<const T*>(args.actions);
+    const int hold = args.hold;
+    const int n_rows = args.n_steps / hold;
+    const int n_tiles = (n_rows + R::K - 1) / R::K;
+    const bool batch_major = args.batch_major != 0;
+    const long long row_elems = batch_major ? (long long)n_rows * A : batch * A;
+    // 16-byte pieces where every line starts on a 16-byte boundary, else one
+    // action vector (A elements) per piece
+    const bool vec16 = (reinterpret_cast<size_t>(slab) % 16 == 0) && (row_elems * (long long)sizeof(T)) % 16 == 0;
+    const TileCopy copy = tile_copy<T, A>(vec16 ? 16 / (int)sizeof(T) : A, b0, batch, n_rows, batch_major);
+    auto issue = [&](int tile) {
+        if (tile < n_tiles) {
+            T* slot = ring + (tile % STAGES) * R::SLOT;
+            if (vec16)
+                issue_tile<T, A, 16>(slot, slab, copy, tile, b0, batch, n_rows, batch_major);
+            else
+                issue_tile<T, A, A * (int)sizeof(T)>(slot, slab, copy, tile, b0, batch, n_rows, batch_major);
         }
+        cp_async_commit();
+    };
+#pragma unroll 1
+    for (int tile = 0; tile < STAGES - 1; ++tile) issue(tile);
+    // this thread's column of a slot: element (row, a) at col + row * row_step + a
+    const int col = batch_major ? threadIdx.x * (R::KA + R::PAD) : threadIdx.x * A;
+    const int row_step = batch_major ? A : THREADS * A;
 
-        T ks[NS][N];
-        Env::ode(k, y, u, ks[0]);
-#pragma unroll
-        for (int s = 1; s < NS; ++s) {
-            T yi[N], us[A];
-#pragma unroll
-            for (int i = 0; i < N; ++i) yi[i] = lincomb<T, NS, N>(y[i], ks, i, args.a[s], s, tau);
-#pragma unroll
-            for (int j = 0; j < A; ++j) us[j] = args.use_next[s] ? un[j] : u[j];
-            Env::ode(k, yi, us, ks[s]);
-        }
-#pragma unroll
-        for (int i = 0; i < N; ++i) y[i] = lincomb<T, NS, N>(y[i], ks, i, args.b, NS, tau);
+    for (int tile = 0; tile < n_tiles; ++tile) {
+        if (has_next)
+            cp_async_wait<0>();  // a stage reads the first row of the next tile
+        else
+            cp_async_wait<1>();
+        __syncthreads();
+        issue(tile + 2);  // into the slot of tile - 1, which every thread has finished
 
-        if (!args.sim_ahead) {
-            postprocess<T, Env>(y, args);
-            if (args.n_noise > 0) {
+        // this thread's column in the tile's slot and in the next one's,
+        // computed once per tile (not once per row)
+        unsigned cur = (tile % STAGES) * R::SLOT + col;
+        unsigned nxt = ((tile + 1) % STAGES) * R::SLOT + col;
+        keep(cur);
+        keep(nxt);
+        // do-while loops: a tile has at least one row, a row at least one step
+        const int rows = min(R::K, n_rows - tile * R::K);
+        int r = 0;
+        do {
+            // MinMaxNormalization.denormalize: (x + 1) / 2 * (max - min) + min
+            T u[A], un[A];
 #pragma unroll
-                for (int j = 0; j < MAX_STATE; ++j) {
-                    if (j < args.n_noise) {
-                        const T dn = noise[((long long)t * batch + b) * args.n_noise + j];
+            for (int j = 0; j < A; ++j) u[j] = (ring[cur + r * row_step + j] + T(1)) / T(2) * span[j] + lo[j];
+            if (has_next) {
+                // the next action row: in this tile, the next one's first, or
+                // this row again at the end of the horizon
+                const unsigned p = tile * R::K + r + 1 >= n_rows ? cur + r * row_step
+                                                                 : (r + 1 < R::K ? cur + (r + 1) * row_step : nxt);
 #pragma unroll
-                        for (int i = 0; i < N; ++i)
-                            if (args.noise_idx[j] == i) y[i] = y[i] + dn;
+                for (int j = 0; j < A; ++j) un[j] = (ring[p + j] + T(1)) / T(2) * span[j] + lo[j];
+            }
+            int h = 0;
+            do {
+                const bool last = h == hold - 1;  // only the row's last step sees the next row
+                T ks[NS][N];
+                Env::ode(k, y, u, ks[0]);
+#pragma unroll
+                for (int s = 1; s < NS; ++s) {
+                    T yi[N], us[A];
+#pragma unroll
+                    for (int i = 0; i < N; ++i)
+                        yi[i] = lincomb_masked<T, NS, N>(y[i], ks, i, tb.a[s], tb.a_nz[s], tb.a_one[s], s, tau);
+#pragma unroll
+                    for (int j = 0; j < A; ++j) us[j] = (last && ((use_next >> s) & 1u)) ? un[j] : u[j];
+                    Env::ode(k, yi, us, ks[s]);
+                }
+#pragma unroll
+                for (int i = 0; i < N; ++i)
+                    y[i] = lincomb_masked<T, NS, N>(y[i], ks, i, tb.b, tb.b_nz, tb.b_one, NS, tau);
+
+                if (step_mode) {
+                    postprocess<Env>(y, wrap);
+                    if (n_noise > 0) {
+                        // per leaf, its noise columns in their order
+#pragma unroll
+                        for (int i = 0; i < N; ++i) {
+#pragma unroll
+                            for (int j = 0; j < MAX_STATE; ++j)
+                                if ((feed[i] >> j) & 1u) y[i] = y[i] + __ldg(noise + j);
+                        }
+                        noise += noise_step;
+                        postprocess<Env>(y, wrap);
                     }
                 }
-                postprocess<T, Env>(y, args);
-            }
-        }
-        if (args.traj_stride > 0 && (t + 1) % args.traj_stride == 0) {
-            const long long slot = (t + 1) / args.traj_stride - 1;
+                if (saves && --until_save == 0) {
+                    until_save = traj_stride;
+                    if (active) {
 #pragma unroll
-            for (int i = 0; i < N; ++i) static_cast<T*>(args.traj[i])[slot * batch + b] = y[i];
-        }
+                        for (int i = 0; i < N; ++i) static_cast<T*>(args.traj[i])[save_at] = y[i];
+                    }
+                    save_at += batch;
+                }
+            } while (++h < hold);
+        } while (++r < rows);
     }
+    cp_async_wait<0>();
+    if (active) {
 #pragma unroll
-    for (int i = 0; i < N; ++i) static_cast<T*>(args.y_out[i])[b] = y[i];
+        for (int i = 0; i < N; ++i) static_cast<T*>(args.y_out[i])[b] = y[i];
+    }
 }
 
 // ---------------------------------------------------------------------------
 // Host entry point (plain C interface, loaded with ctypes)
 // ---------------------------------------------------------------------------
-
-static constexpr int THREADS = 128;
 
 template <typename T, class Env, int NS>
 static void launch_one(const StepperArgs& args, cudaStream_t stream) {
@@ -227,6 +418,7 @@ extern "C" int stepper_args_size() { return (int)sizeof(StepperArgs); }
 // dtype: 0 float32, 1 float64.  Returns cudaGetLastError() after the launch.
 extern "C" int stepper_launch(const StepperArgs* args, int dtype, void* stream) {
     if (args->batch <= 0) return 0;
+    if (args->hold <= 0 || args->n_steps % args->hold) return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     return dtype == 0 ? launch_dtype<float>(*args, s) : launch_dtype<double>(*args, s);
 }

@@ -294,7 +294,7 @@ def kernel_closed_loop(env, y0, policy, n_steps, *, tau, solver, props, ref_leav
     if any(t.requires_grad for t in grads):
         raise NotImplementedError(
             "the closed-loop kernel has no backward yet: its VJP (checkpointed recompute "
-            "through plain_cl_step) comes with the training slice, ROADMAP.md Queue 2 item 3"
+            "through plain_cl_step) comes with the training slice, ROADMAP.md Queue 2 item 1"
         )
 
     new = lambda: torch.empty(batch, dtype=dtype, device=device)

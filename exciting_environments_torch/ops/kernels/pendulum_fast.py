@@ -102,8 +102,8 @@ def kernel_pendulum_fast_rollout(theta0, omega0, actions_tm, *, tau, c_grav, inv
     _check_leaf("actions_tm", actions_tm, torch.float32, device, (actions_tm.shape[0], batch))
     if any(t.requires_grad for t in (theta0, omega0, actions_tm)):
         raise NotImplementedError(
-            "the fast pendulum kernel has no backward yet: its VJP comes with the training "
-            "slice, ROADMAP.md Queue 2 item 3"
+            "the fast pendulum kernel has no backward: it is forward-only, as the reference's "
+            "pendulum_fast kernel is (ROADMAP.md Queue 2 item 4)"
         )
     keep = [t.contiguous() for t in (actions_tm, theta0, omega0)]
     theta, omega = torch.empty_like(theta0), torch.empty_like(omega0)

@@ -450,19 +450,20 @@ def kernel_pmsm_closed_loop(env, state0, omega, policy, n_steps, *, tau, solver,
     if any(t.requires_grad for t in grads):
         raise NotImplementedError(
             "the PMSM closed-loop kernel has no backward yet: its VJP (checkpointed recompute "
-            "through plain_pmsm_cl_step) comes with the training slice, ROADMAP.md Queue 2 item 3"
+            "through plain_pmsm_cl_step) comes with the training slice, ROADMAP.md Queue 2 item 2"
         )
 
-    smem_bytes = flat.numel() * flat.element_size()
+    smem_bytes = (flat.numel() + 16) * flat.element_size()
     if saturated:
         lut = env._lut
         _check_leaf("LUT", lut.values, dtype, device, (N_CHANNELS, lut.nx, lut.ny))
-        args.lut = ptr(lut.values)
+        table = lut.interleaved()
+        args.lut = ptr(table)
         args.x0, args.dx, args.y0, args.dy = lut.x0, lut.dx, lut.y0, lut.dy
         args.nx, args.ny = lut.nx, lut.ny
-        smem_bytes += lut.values.numel() * lut.values.element_size()
+        smem_bytes += table.numel() * table.element_size()
     if n_sched:
-        args.sched = ptr(sched_lut.tensor(dtype, device))
+        args.sched = ptr(sched_lut.interleaved(dtype, device))
         args.n_sched = n_sched
         args.sched_c0, args.sched_c1 = sched_lut.carry_idx
 
@@ -510,6 +511,43 @@ def kernel_pmsm_closed_loop(env, state0, omega, policy, n_steps, *, tau, solver,
     if traj_stride is None:
         return tuple(out), tuple(u_last), tuple(c_out), None, None
     return tuple(out), tuple(u_last), tuple(c_out), tuple(traj), tuple(traj_carry)
+
+
+def kernel_sincos(x: torch.Tensor):
+    """The kernel's float32 ``sincos_pair`` (``csrc/pmsm_closed_loop.cu``) over
+    a contiguous float32 CUDA tensor: ``(sin, cos)``, for holding the kernel's
+    trigonometry against ``torch.sin``/``torch.cos`` on the card."""
+    if x.device.type != "cuda" or x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError("kernel_sincos takes a contiguous float32 CUDA tensor")
+    fn = PMSM_CL_KERNEL.lib().pmsm_closed_loop_sincos
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    s, c = torch.empty_like(x), torch.empty_like(x)
+    rc = fn(x.data_ptr(), s.data_ptr(), c.data_ptr(), x.numel(), torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"pmsm_closed_loop sincos launch failed with CUDA error {rc}")
+    return s, c
+
+
+def sincos_mismatches(limit: float = 2.0 ** 7, chunk: int = 1 << 27) -> dict:
+    """Every float32 ``x`` with ``|x| < limit`` through :func:`kernel_sincos`,
+    held bit for bit against PyTorch's CUDA ``torch.sin``/``torch.cos`` of
+    ``x`` and of ``-x`` (the kernel takes ``sin(-x)`` as ``-sin(x)`` and
+    ``cos(-x)`` as ``cos(x)``).  Returns the count of mismatches per identity
+    and the count of inputs."""
+    end = int(np.array(limit, dtype=np.float32).view(np.int32))
+    counts = {"sin": 0, "cos": 0, "sin(-x)": 0, "cos(-x)": 0, "inputs": 0}
+    bits = lambda t: t.view(torch.int32)
+    for start in range(0, end, chunk):
+        pattern = torch.arange(start, min(start + chunk, end), dtype=torch.int32, device="cuda")
+        for x in (pattern.view(torch.float32), -pattern.view(torch.float32)):
+            s, c = kernel_sincos(x)
+            counts["sin"] += int((bits(s) != bits(torch.sin(x))).sum())
+            counts["cos"] += int((bits(c) != bits(torch.cos(x))).sum())
+            counts["sin(-x)"] += int((bits(-s) != bits(torch.sin(-x))).sum())
+            counts["cos(-x)"] += int((bits(c) != bits(torch.cos(-x))).sum())
+            counts["inputs"] += x.numel()
+    return counts
 
 
 def pmsm_closed_loop(env, state0, omega, policy, n_steps, *, tau=None, solver=None, props=None, ref_leaves=(),

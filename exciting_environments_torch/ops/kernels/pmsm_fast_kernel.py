@@ -102,8 +102,8 @@ def kernel_pmsm_fast_rollout(env, actions_tm, i_d, i_q, cA, sA, buf_d, buf_q, om
     _check_leaf("actions_tm", actions_tm, dtype, device, (n_steps, batch, 2))
     if any(t.requires_grad for t in per_drive + (actions_tm,)):
         raise NotImplementedError(
-            "the fast PMSM kernel has no backward yet: its VJP comes with the training slice, "
-            "ROADMAP.md Queue 2 item 3"
+            "the fast PMSM kernel has no backward: it is forward-only, as the reference's "
+            "pmsm_fast_kernel is (ROADMAP.md Queue 2 item 4)"
         )
     keep = []  # tensors whose pointers the launch reads
 

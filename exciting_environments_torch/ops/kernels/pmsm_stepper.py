@@ -209,7 +209,7 @@ def pmsm_kernel_rollout(env, u_con_tm, i_d0, i_q0, omega, buf0, *, tau, solver=N
     if any(t.requires_grad for t in grads):
         raise NotImplementedError(
             "the PMSM kernel has no backward yet: its VJP (checkpointed recompute "
-            "through plain_pmsm_rollout) comes with training, ROADMAP.md Queue 2"
+            "through plain_pmsm_rollout) comes with training, ROADMAP.md Queue 2 item 4"
         )
     smem_bytes = 0
     if saturated:

@@ -93,6 +93,7 @@ class StepperArgs(ctypes.Structure):
         ("traj_stride", _c_int),
         ("env_id", _c_int),
         ("fast", _c_int),
+        ("batch_major", _c_int),
     ]
 
 
@@ -293,16 +294,18 @@ def _check_leaf(what, t, dtype, device, shape):
 
 
 def kernel_rollout(env, y0, actions_tm, *, tau, solver=None, props=None, obs_stride=None,
-                   sim_ahead=False, hold=1, noise_tm=None, noise_idx=()):
+                   sim_ahead=False, hold=1, noise_tm=None, noise_idx=(), batch_major=False):
     """Launch the CUDA stepper kernel (argument contract: :func:`fused_rollout`,
-    with time-major actions).  Outputs are allocated here; the launch is
-    asynchronous on the current stream."""
+    with time-major actions ``(n_rows, B, A)``, or batch-major ones ``(B,
+    n_rows, A)`` with ``batch_major=True``: the kernel reads either layout).
+    Outputs are allocated here; the launch is asynchronous on the current
+    stream."""
     solver = env._solver if solver is None else solver
     props = env.env_properties if props is None else props
     y0 = tuple(y0)
     dtype, device = y0[0].dtype, y0[0].device
     batch = y0[0].shape[0]
-    n_rows, n_action = actions_tm.shape[0], actions_tm.shape[-1]
+    n_rows, n_action = actions_tm.shape[1 if batch_major else 0], actions_tm.shape[-1]
     n_steps = n_rows * hold
     a_rows, b = _stage_rows(solver)
     n_params = len(env._kernel_params)
@@ -323,7 +326,8 @@ def kernel_rollout(env, y0, actions_tm, *, tau, solver=None, props=None, obs_str
         raise ValueError("noise_tm and noise_idx must be set together")
     for i, leaf in enumerate(y0):
         _check_leaf(f"state leaf {i}", leaf, dtype, device, (batch,))
-    _check_leaf("actions", actions_tm, dtype, device, (n_rows, batch, n_action))
+    _check_leaf("actions", actions_tm, dtype, device, (batch, n_rows, n_action) if batch_major else
+                (n_rows, batch, n_action))
     grads = [*y0, actions_tm] + ([noise_tm] if noise_tm is not None else [])
 
     args = StepperArgs()
@@ -395,9 +399,22 @@ def kernel_rollout(env, y0, actions_tm, *, tau, solver=None, props=None, obs_str
     args.traj_stride = obs_stride or 0
     args.env_id = env._kernel_env_id
     args.fast = int(getattr(env, "fast_math", False))
+    args.batch_major = int(batch_major)
 
     KERNEL.launch(args, dtype, device, "sim_ahead" if sim_ahead else "step")
     return tuple(y_out), (tuple(traj) if traj is not None else None)
+
+
+def _slab_layout(actions, time_major):
+    """``(slab, batch_major)``: the action slab in a layout the kernel reads
+    in place.  A slab contiguous in either orientation is passed as it lies
+    (a transposed view of a contiguous slab is read in the other layout);
+    only a slab contiguous in neither is copied."""
+    tm = actions if time_major else actions.transpose(0, 1)
+    if tm.is_contiguous():
+        return tm, False
+    bm = tm.transpose(0, 1)
+    return bm.contiguous(), True
 
 
 def fused_rollout(env, y0, actions, *, tau, solver=None, props=None, obs_stride=None,
@@ -409,8 +426,8 @@ def fused_rollout(env, y0, actions, *, tau, solver=None, props=None, obs_stride=
         env: a classic environment with a kernel functor (``_kernel_env_id``).
         y0: tuple of ``(B,)`` state leaves in ``env._ode_state_fields`` order.
         actions: NORMALIZED actions ``(B, n_rows, A)``, or ``(n_rows, B, A)``
-            with ``time_major=True`` (the layout the kernel reads; batch-major
-            input costs a transposed copy of the slab).
+            with ``time_major=True``; the kernel reads either layout in place
+            (:func:`_slab_layout`).
         tau: solver step size.
         solver: explicit RK solver (default ``env._solver``).
         props: ``EnvProperties`` (default ``env.env_properties``).
@@ -427,13 +444,13 @@ def fused_rollout(env, y0, actions, *, tau, solver=None, props=None, obs_stride=
         ``obs_stride`` set, a tuple of ``(B, n_steps // obs_stride)`` saves
         (else ``None``).
     """
-    actions_tm = actions if time_major else actions.transpose(0, 1)
     kwargs = dict(tau=tau, solver=solver, props=props, obs_stride=obs_stride,
                   sim_ahead=sim_ahead, hold=hold, noise_tm=noise_tm, noise_idx=tuple(noise_idx))
     if y0[0].device.type == "cuda":
-        final, traj = kernel_rollout(env, y0, actions_tm.contiguous(), **kwargs)
+        slab, batch_major = _slab_layout(actions, time_major)
+        final, traj = kernel_rollout(env, y0, slab, batch_major=batch_major, **kwargs)
     else:
-        final, traj = plain_rollout(env, y0, actions_tm, **kwargs)
+        final, traj = plain_rollout(env, y0, actions if time_major else actions.transpose(0, 1), **kwargs)
     return final, (tuple(s.transpose(0, 1) for s in traj) if traj is not None else None)
 
 

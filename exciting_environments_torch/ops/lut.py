@@ -11,7 +11,9 @@ the padded edge cells are.
 
 The host-side preparation (:func:`fill_nan_nearest`, :func:`pad_edges`) runs
 once at construction in numpy.  :class:`ScheduledLUT` holds further maps on
-the same grid for the PMSM closed loop's scheduled gather.
+the same grid for the PMSM closed loop's scheduled gather.  The closed-loop
+kernel reads both tables channel-interleaved (:func:`interleave_channels`,
+built once per table).
 """
 
 from __future__ import annotations
@@ -71,6 +73,24 @@ def bilinear_gather(values, x0, dx, y0, dy, nx, ny, px, py):
     )
 
 
+def padded_channels(n_channels: int) -> int:
+    """Channels of an interleaved table: ``n_channels`` rounded up to a
+    multiple of 4, so that a grid point's channels fill whole 16-byte
+    pieces in float32 (and in float64)."""
+    return -(-n_channels // 4) * 4
+
+
+def interleave_channels(values: torch.Tensor) -> torch.Tensor:
+    """A stacked ``(C, nx, ny)`` table as ``(nx, ny, C_pad)``: the channels of
+    one grid point contiguous, zero-padded to :func:`padded_channels`.  The
+    layout the PMSM closed-loop kernel gathers from (a few 16-byte loads per
+    cell corner in place of ``C`` scalar loads); the values are unchanged."""
+    c, nx, ny = values.shape
+    out = torch.zeros((nx, ny, padded_channels(c)), dtype=values.dtype, device=values.device)
+    out[..., :c] = values.permute(1, 2, 0)
+    return out
+
+
 class StackedBilinearLUT:
     """Bilinear interpolation of ``C`` channels sharing one uniform 2-D grid.
 
@@ -93,6 +113,13 @@ class StackedBilinearLUT:
         self.values = torch.as_tensor(np.asarray(values), dtype=dtype, device=device).contiguous()
         self.channel_names = tuple(channel_names)
         self._index = {n: i for i, n in enumerate(self.channel_names)}
+        self._interleaved = None
+
+    def interleaved(self) -> torch.Tensor:
+        """The table as :func:`interleave_channels` lays it out, built once."""
+        if self._interleaved is None:
+            self._interleaved = interleave_channels(self.values)
+        return self._interleaved
 
     def interpolate_all(self, px, py):
         """Every channel at the points ``(px, py)``: ``(C,) + px.shape``."""
@@ -145,6 +172,14 @@ class ScheduledLUT:
         key = (dtype, torch.device(device))
         if key not in self._placed:
             self._placed[key] = torch.as_tensor(self.values, dtype=dtype, device=device).contiguous()
+        return self._placed[key]
+
+    def interleaved(self, dtype: torch.dtype, device) -> torch.Tensor:
+        """The maps as :func:`interleave_channels` lays them out, in ``dtype``
+        on ``device`` (built there once)."""
+        key = ("interleaved", dtype, torch.device(device))
+        if key not in self._placed:
+            self._placed[key] = interleave_channels(self.tensor(dtype, device))
         return self._placed[key]
 
 

@@ -513,3 +513,69 @@ def test_fast_kernels_refuse_and_a_failed_build_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(K, "BUILD_DIR", tmp_path / "_build")
     with pytest.raises(RuntimeError, match="nvcc failed to build broken.cu"):
         K.build_all(["broken"])
+
+
+@pytest.mark.gpu
+def test_sincos_identities_hold_for_every_float32_below_2_7():
+    """The PMSM closed loop's float32 sincos_pair against torch.sin/cos of x
+    and -x, bit for bit, over every float32 |x| < 2^7."""
+    _cuda()
+    from exciting_environments_torch.ops.kernels import pmsm_closed_loop as PCL
+
+    counts = PCL.sincos_mismatches()
+    assert counts.pop("inputs") == 2 * int(np.array(2.0 ** 7, dtype=np.float32).view(np.int32))
+    assert counts == {"sin": 0, "cos": 0, "sin(-x)": 0, "cos(-x)": 0}
+
+
+RING_CASES = [
+    # (environment, solver, batch, action rows, hold, sim_ahead, batch_major, dtype)
+    ("Pendulum", "euler", 4096, 64, 1, False, True, torch.float32),
+    ("Pendulum", "rk4", 4096, 32, 2, True, True, torch.float32),  # use_next across tile boundaries
+    ("Pendulum", "rk4", 4096, 32, 2, True, False, torch.float32),
+    ("CartPole", "rk4", 4096, 50, 1, True, False, torch.float32),  # a horizon ending inside a tile
+    ("CartPole", "tsit5", 1001, 50, 1, False, True, torch.float32),  # element-wise copies, ragged B
+    ("Pendulum", "euler", 1001, 64, 1, False, False, torch.float32),
+    ("MassSpringDamper", "rk4", 999, 21, 3, True, True, torch.float64),
+    ("Pendulum", "rk4", 4096 + 77, 33, 1, True, False, torch.float64),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,solver,batch,rows,hold,sim_ahead,batch_major,dtype", RING_CASES)
+def test_stepper_action_ring_matches_plain_version(name, solver, batch, rows, hold, sim_ahead, batch_major, dtype):
+    """The stepper's action ring in both slab layouts, with next rows across
+    tile boundaries, horizons that end inside a tile and slabs whose rows
+    are no 16-byte multiples, against the plain version bit for bit."""
+    _cuda()
+    env = getattr(P, name)(batch_size=batch, solver=solver, dtype=dtype)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    y0 = tuple((torch.rand(batch, generator=gen, device="cuda", dtype=torch.float64) * 4 - 2).to(dtype)
+               for _ in env._ode_state_fields)
+    acts = (torch.rand((rows, batch, 1), generator=gen, device="cuda", dtype=torch.float64) * 1.8 - 0.9).to(dtype)
+    kw = dict(tau=env.tau, obs_stride=hold, sim_ahead=sim_ahead, hold=hold)
+    slab = acts.transpose(0, 1).contiguous() if batch_major else acts
+    yk, tk = K.kernel_rollout(env, y0, slab, batch_major=batch_major, **kw)
+    yp, tp = K.plain_rollout(env, y0, acts, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(yk + tk, yp + tp):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_batch_major_fused_rollout_reads_the_slab_in_place():
+    """env.fused_rollout on a batch-major slab at the main size (B = 65,536,
+    T = 4,096, 1.07 GB) allocates less than the slab: no transposed copy."""
+    _cuda()
+    B, T = 65536, 4096
+    env = P.Pendulum(batch_size=B, tau=1e-4)
+    _, state = env.vmap_reset(rng=torch.Generator(device="cuda").manual_seed(18))
+    acts = torch.rand((B, T, 1), generator=torch.Generator(device="cuda").manual_seed(19), device="cuda") * 2 - 1
+    slab_bytes = acts.numel() * acts.element_size()
+    obs_tm, _ = env.fused_rollout(state, acts.transpose(0, 1).contiguous(), time_major=True, strict=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    obs_bm, _ = env.fused_rollout(state, acts, strict=True)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - before < slab_bytes
+    assert torch.equal(obs_tm, obs_bm)
