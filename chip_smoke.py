@@ -29,17 +29,25 @@ Phases (any failure raises and the script exits non-zero):
    batch-major slab is read in place (the kernel agrees with the time-major
    read, and the entry point allocates less than the slab); report the
    kernel's anatomy (see below) for rows 1a and 1b;
-5. hold the PMSM kernel against its plain version at B = 65,536, T = 64,
-   float32 (and one float64 case), tolerance 0.0, over the motor variants,
-   solvers, deadtimes, per-batch parameters, saves, sim-ahead and a ragged B;
+5. check the PMSM kernel's ``atan2f`` and the hexagon's sine sign bits
+   against ``torch.atan2``/``torch.sin`` on the card (2^28 seeded pairs, the
+   axes and special values, the sector edges); then hold the PMSM kernel,
+   which takes the normalized actions and runs the angle, the
+   environment's constraint and the deadtime buffer itself, against its
+   plain version (the eager pre-pass, then the step loop) at B = 65,536,
+   T = 64, float32 (and float64 cases), tolerance 0.0, over the motor
+   variants, solvers, deadtimes, per-batch parameters, DC link and action
+   band, saves, both slab layouts, sim-ahead in both deadtimes and a
+   ragged B;
 6. replay the PMSM golden fixture (``tests/envs/pmsm/data``) through the
    kernel in one float64 launch, checked with the fixture test's allclose;
 7. drive the PMSM main path: ``PMSM(batch_size=65536, saturated=True,
    motor_variant=BRUSA, tau=1e-4)``, ``env.fused_rollout`` over T = 256 in
    both layouts and with ``obs_stride=16``, and ``env.fused_sim_ahead``
-   (RK4); launch counts, shapes, kernel vs plain at full size, and the time
-   split between the eager pre-pass and the kernel, plus the kernel alone
-   at T = 4,096;
+   (RK4), with the eager pre-pass's functions counted (none may run on the
+   card) and one launch per call; shapes, kernel vs plain at full size, the
+   entry points against their kernel, the kernel alone at T = 4,096 and on
+   a holding fleet inside its current bands, and the anatomy (rows 3a-3b);
 8. hold the closed-loop kernel (``csrc/closed_loop.cu``, the policy inside
    the loop) against its plain version at B = 65,536, T = 64, float32 (and
    one float64 case), tolerance 0.0: PD and PI laws (``AffinePolicy``) on
@@ -52,7 +60,8 @@ Phases (any failure raises and the script exits non-zero):
    T = 4,096, and the exploring actor (hidden (16, 16), ``tau = 2e-2``)
    through ``RolloutCollector.collect_policy_fused`` over T = 64; each with
    the launch count set to 0 just before and read just after, kernel vs
-   plain at full size, kernel and entry-point times and the bound;
+   plain at full size, kernel and entry-point times, the bound and the
+   anatomy (rows 2a-2c);
 10. check the float32 sincos identities of ``csrc/pmsm_closed_loop.cu``
     (``sincosf`` equals ``torch.sin``/``torch.cos`` of x, and of -x as
     ``-sin``/``cos``) over every float32 |x| < 2^7 on the card; then hold
@@ -76,7 +85,7 @@ Phases (any failure raises and the script exits non-zero):
     the plain versions at B = 65,536, T = 64 (Pendulum Euler and RK4 in step
     and sim-ahead modes, CartPole Tsit5, one float64 case, the PD law, ragged
     B), tolerance 0.0, then time the fast pendulum's step mode (with its
-    anatomy, row 1c) and PD law at T = 4,096;
+    anatomy, row 1c) and PD law (row 2d) at T = 4,096;
 13. the fast pendulum kernel (``csrc/pendulum_fast.cu``): kernel vs plain at
     0.0 (both layouts, a ragged B), the main case ``Pendulum(batch_size=65536,
     tau=1e-4)`` over T = 4,096 through ``pendulum_fast_rollout`` in both
@@ -320,6 +329,7 @@ def sass_step_count(lib, kernel_re, via=(), tile_rows=None):
     a row loop in a tile loop (it waits on the ring: BAR): per step is the
     row loop's hot path through an action read (LDS) plus the tile loop's
     extra path, through its cp.async (LDGSTS), over ``tile_rows``."""
+    kernel_re = kernel_pattern(lib, kernel_re)
     funcs = {n: c for n, c in _sass_functions(lib).items() if re.search(kernel_re, n)}
     if len(funcs) != 1:
         return None, None, None
@@ -364,6 +374,7 @@ def ptxas_resources(lib, kernel_re):
         if m and current:
             regs[current] = int(m.group(1))
     names = _demangle(list(regs))
+    kernel_re = kernel_pattern(lib, kernel_re)
     hits = [(r,) + frames.get(n, (None, None)) for n, r in regs.items() if re.search(kernel_re, names[n])]
     return hits[0] if len(hits) == 1 else (None, None, None)
 
@@ -432,21 +443,47 @@ def anatomy(row, lib, kernel_re, ms, entry_ms, batch, n_steps, entry_fn, kernel_
         f"point by CUDA events {ms!r} / {entry_ms!r} ms = {ms / entry_ms:.1%}; profiler: {traced}")
 
 
-#: the redesigned kernels' main cases: (row, library, demangled-name regex,
-#: the hot path's via alternatives); 4a, 4b and 4d share one instantiation
-#: the hot path's via alternatives, tried in turn: step mode passes through
-#: the angle wrap (its 2 pi, or the fast wrap's 1 / (2 pi)), sim-ahead RK4
-#: also reads the next action row (a second LDS in the tiled stepper), the
-#: scheduled tile gathers its maps (16-byte read-only loads, or the
-#: parent's scalar ones)
+#: the redesigned kernels' main cases: (rows, library, demangled-name regex
+#: or alternatives (this tree's name first, then an earlier tree's), the hot
+#: path's via alternatives, tried in turn).  Rows sharing an instantiation
+#: share an entry.  Step mode passes through the angle wrap (its 2 pi, or
+#: the fast wrap's 1 / (2 pi)), sim-ahead RK4 also reads the next action row
+#: (a second LDS in the tiled stepper), the scheduled tile gathers its maps
+#: (16-byte read-only loads, or the parent's scalar ones), the PMSM stepper
+#: passes through its constraint's sector test (2/3 pi)
 SASS_CASES = [
     ("1a", "stepper", r"stepper_kernel<float, PendulumEnv<ExactMath>, 1[,>]", [(r"6\.2831854",), ()]),
     ("1b", "stepper", r"stepper_kernel<float, PendulumEnv<ExactMath>, 4[,>]", [(r"^LDS",), ()]),
     ("1c", "stepper", r"stepper_kernel<float, PendulumEnv<FastMath>, 1[,>]", [(r"0\.1591549",), ()]),
+    ("2a/2b", "closed_loop", (r"closed_loop_kernel<float, PendulumEnv<ExactMath>, 1, AffineReg<3>\s?>",
+                              r"closed_loop_kernel<float, PendulumEnv<ExactMath>, 1, AffineLaw>"),
+     [(r"6\.2831854",), ()]),
+    ("2c", "closed_loop", (r"closed_loop_kernel<float, PendulumEnv<ExactMath>, 1, ActorReg<16, 16>\s?>",
+                           r"closed_loop_kernel<float, PendulumEnv<ExactMath>, 1, ActorLaw>"), [()]),
+    ("2d", "closed_loop", (r"closed_loop_kernel<float, PendulumEnv<FastMath>, 1, AffineReg<3>\s?>",
+                           r"closed_loop_kernel<float, PendulumEnv<FastMath>, 1, AffineLaw>"),
+     [(r"0\.1591549",), ()]),
+    ("3a", "pmsm_stepper", r"pmsm_kernel<float, 1, true>", [(r"2\.094395",), (r"6\.2831854",), ()]),
+    ("3b", "pmsm_stepper", r"pmsm_kernel<float, 4, true>", [(r"2\.094395",), (r"6\.2831854",), ()]),
     ("4a/4b/4d", "pmsm_closed_loop", r"pmsm_closed_loop_kernel<float, 1, true, AffineAdapter>", [()]),
     ("4c", "pmsm_closed_loop", r"pmsm_closed_loop_kernel<float, 1, true, ScheduledLaw>",
      [(r"^LDG\.E\.128\.CONSTANT",), (r"^LDG\.E\.CONSTANT",)]),
 ]
+
+
+def sass_case(row):
+    """(library name, kernel regex, vias) of the SASS_CASES row that covers
+    ``row``."""
+    return next((name, kernel_re, vias) for r, name, kernel_re, vias in SASS_CASES if row in r.split("/"))
+
+
+def kernel_pattern(lib, kernel_re):
+    """The first of a case's regexes (one, or alternatives for the kernel's
+    name in this tree and in an earlier one) that matches exactly one kernel
+    of the library."""
+    alts = (kernel_re,) if isinstance(kernel_re, str) else tuple(kernel_re)
+    names = list(_sass_functions(lib))
+    return next((alt for alt in alts if sum(bool(re.search(alt, n)) for n in names) == 1), alts[0])
 
 
 def sass_report(libraries):
@@ -459,7 +496,8 @@ def sass_report(libraries):
         for row, name, kernel_re, vias in SASS_CASES:
             if name != kind:
                 continue
-            code = next((c for n, c in _sass_functions(lib).items() if re.search(kernel_re, n)), [])
+            pattern = kernel_pattern(lib, kernel_re)
+            code = next((c for n, c in _sass_functions(lib).items() if re.search(pattern, n)), [])
             tiled = any(ins.split(" ")[0].startswith("LDGSTS") for _, ins in code) and kind == "stepper"
             for via in vias:
                 found, hot, static = sass_step_count(lib, kernel_re, via, STEPPER_TILE_ROWS if tiled else None)
@@ -782,36 +820,54 @@ def phase_main(ex, K):
 # PMSM drive phases
 # ---------------------------------------------------------------------------
 
+#: operations of the environment's constraint per step, counted from
+#: csrc/pmsm_stepper.cu::env_constrain as the closed loop's hexagon is counted
+#: (65, pmsm_cl_ops_per_step), its linear sector test (9) replaced by atan2
+#: and three (sub, sin, compare): 65; and of the angle per step (step mode:
+#: add, then the wrap's add, fmod, compare and sub; sim-ahead: the
+#: extrapolated angle's multiply and add, the accumulation, the wrap at the
+#: save): 7
+PMSM_CONSTRAINT_OPS, PMSM_ANGLE_OPS = 65, 7
+#: what the eager pre-pass alone took at this shape before the kernel took it
+#: over (PERF.md, the earlier kernel's rows)
+PMSM_EAGER_PREPASS = "19.4-27 ms"
+
 
 def pmsm_ops(env, solver, n_steps, n_saves):
     """Arithmetic operations of one instance over a rollout of the PMSM
     kernel, counted from csrc/pmsm_stepper.cu with each add, multiply,
-    divide, negation, compare, floor and clamp bound as one."""
+    divide, negation, compare, floor, clamp bound, sin, cos, atan2 and fmod
+    as one: per step the constraint and the angle, the RK stages (each a
+    gather and the ODE, or the linear ODE) and the combinations; a save's
+    torque reuses the next step's first gather, and the final torque gathers
+    once."""
     from exciting_environments_torch.ops.kernels.stepper import _stage_rows
 
     gather = 4 + 2 + 4 + 2 + 2 + 6 * 11  # offsets and scales, floor, clamp, weights, 6 blends
     saturated = bool(env.env_properties.saturated)
     ode = gather + 23 if saturated else 13
-    torque = gather + 4 if saturated else 4
     a_rows, b = _stage_rows(solver)
     comb = lambda coeffs: sum(2 - (c == 1.0) for c in coeffs if c != 0.0) + 1 if any(coeffs) else 0
-    per_step = len(b) * ode + 2 * (sum(comb(r) for r in a_rows) + comb(b))
-    return per_step * n_steps + torque * (n_saves + 1)
+    per_step = PMSM_CONSTRAINT_OPS + PMSM_ANGLE_OPS + len(b) * ode + 2 * (sum(comb(r) for r in a_rows) + comb(b))
+    return per_step * n_steps + 4 * n_saves + (gather if saturated else 0) + 4
 
 
 def pmsm_bound(env, solver, batch, n_steps, n_saves, itemsize=4):
-    """Least time for the PMSM kernel's work: the voltage stream, the initial
-    state and buffers, per-batch parameters and the table read once, the
-    final state and the saves written once; or its operations at the float32
-    rate, whichever is larger."""
-    from exciting_environments_torch.ops.kernels.pmsm_stepper import PMSM_PARAMS
+    """Least time for the PMSM kernel's work: the normalized action slab, the
+    six initial leaves (currents, angle, buffers, speed), per-batch
+    parameters and bands and the interleaved table read once, the eight
+    finals (six leaves and the last voltage) and the saves (currents,
+    torque, angle, and with deadtime the buffers) written once; or its
+    operations at the float32 rate, whichever is larger."""
+    from exciting_environments_torch.ops.kernels.pmsm_stepper import PMSM_PARAMS, kernel_bands
 
-    params = env.env_properties.static_params
-    n_pb = sum(isinstance(getattr(params, n), torch.Tensor) for n in PMSM_PARAMS)
-    lut = env._lut.values.numel() if env._lut is not None else 0
-    nbytes = itemsize * (n_steps * batch * 2 + (5 + n_pb) * batch + lut + 3 * batch + 3 * n_saves * batch)
-    ops = pmsm_ops(env, solver, n_steps, n_saves) * batch
-    return roofline(nbytes, ops)
+    props = env.env_properties
+    n_pb = sum(isinstance(getattr(props.static_params, n), torch.Tensor) for n in PMSM_PARAMS)
+    n_pb += sum(isinstance(v, torch.Tensor) for v in kernel_bands(props, batch).values())
+    table = env._lut.interleaved().numel() if props.saturated else 0
+    per_save = 4 + 2 * int(props.static_params.deadtime)
+    nbytes = itemsize * (n_steps * batch * 2 + (6 + n_pb) * batch + table + 8 * batch + per_save * n_saves * batch)
+    return roofline(nbytes, pmsm_ops(env, solver, n_steps, n_saves) * batch)
 
 
 def pmsm_env(ex, batch, variant="BRUSA", saturated=True, dtype=torch.float32, static=None, **kwargs):
@@ -825,46 +881,40 @@ def pmsm_env(ex, batch, variant="BRUSA", saturated=True, dtype=torch.float32, st
                    static_params=params, device=DEVICE, dtype=dtype, **kwargs)
 
 
-def pmsm_inputs(env, n_steps, gen, sim_ahead=False, lim=0.9):
-    """A reset state and the constrained voltage stream of uniform actions
-    in +-lim, through the same pre-pass as env.fused_rollout."""
-    from exciting_environments_torch.models.pmsm.pmsm_env import extrapolated_angles
-    from exciting_environments_torch.ops.kernels import pmsm_stepper as PK
-
+def pmsm_inputs(env, n_steps, gen, lim=0.9):
+    """A reset state and uniform normalized actions in +-lim, time-major."""
     _, state = env.vmap_reset(rng=gen)
     u = torch.rand((n_steps, env.batch_size, 2), generator=gen, device=DEVICE, dtype=torch.float64)
-    acts = ((u * 2 - 1) * lim).to(env.dtype)
-    phys = state.physical_state
-    if sim_ahead:
-        eps = extrapolated_angles(phys.epsilon, phys.omega_el, env.tau, n_steps)
-        u_con = PK._constraint_denorm_batched(env, env.env_properties, acts, eps, phys.omega_el)
-    else:
-        u_con, _, _ = PK._constrained_voltages(env, state, acts, env.env_properties)
-    return state, acts, u_con
+    return state, ((u * 2 - 1) * lim).to(env.dtype)
 
 
-def pmsm_run(PK, env, state, u_con, kernel, **kw):
-    phys = state.physical_state
+def pmsm_run(PK, env, state, acts, kernel, **kw):
+    """The PMSM kernel (or its plain version) from a State and normalized
+    actions; returns every output tensor as one flat list."""
+    state0, omega = PK._start(state)
     fn = PK.pmsm_kernel_rollout if kernel else PK.plain_pmsm_rollout
-    return fn(env, u_con, phys.i_d, phys.i_q, phys.omega_el, (phys.u_d_buffer, phys.u_q_buffer),
-              tau=env.tau, **kw)
+    final, u_last, traj = fn(env, acts, state0, omega, tau=kw.pop("tau", env.tau), **kw)
+    return [t for part in (final, u_last, traj or ()) for t in part if t is not None]
 
 
-def pmsm_deviation(PK, env, state, u_con, **kw):
-    yk, tk = pmsm_run(PK, env, state, u_con, True, **kw)
-    yp, tp = pmsm_run(PK, env, state, u_con, False, **kw)
+def pmsm_deviation(PK, env, state, acts, **kw):
+    outk = pmsm_run(PK, env, state, acts, True, **kw)
+    outp = pmsm_run(PK, env, state, acts, False, **kw)
     torch.cuda.synchronize()
-    err = max_abs(yk, yp)
-    if tk is not None:
-        err = max(err, max_abs(tk, tp))
-    return err, all(bool(torch.isfinite(y).all()) for y in yk)
+    if len(outk) != len(outp) or any(k.shape != p.shape for k, p in zip(outk, outp)):
+        raise AssertionError("kernel and plain PMSM rollouts return different structures")
+    return max_abs(outk, outp), all(bool(torch.isfinite(t).all()) for t in outk)
 
 
 def phase_pmsm_kernel_vs_plain(ex, PK):
-    """PMSM kernel against its plain version, B = 65,536, T = 64, tolerance 0.0."""
+    """PMSM kernel (angle, constraint, deadtime and currents in one launch)
+    against its plain version (the eager pre-pass, then the loop), B =
+    65,536, T = 64, tolerance 0.0."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
     B, T = B_MAIN, T_CHECK
     uni = lambda lo, hi: (lo + (hi - lo) * torch.rand(B, generator=gen, device=DEVICE, dtype=torch.float64)).float()
+    an = dict(ex.MotorVariant.BRUSA.get_params().action_normalizations.__dict__)
+    an["u_d"] = ex.MinMaxNormalization(min=an["u_d"].min, max=uni(200.0, 300.0))
     # (label, env, rollout kwargs).  The kernel performs the plain version's
     # operations in the same order and precision, so every case is 0.0.
     cases = [
@@ -878,23 +928,89 @@ def phase_pmsm_kernel_vs_plain(ex, PK):
             ex, B, static={"r_s": uni(15e-3, 21e-3), "p": uni(2.0, 4.0)}), {}),
         ("DEFAULT linear per-batch l_d and l_q", pmsm_env(
             ex, B, "DEFAULT", saturated=False, static={"l_d": uni(0.3e-3, 0.45e-3), "l_q": uni(1.0e-3, 1.4e-3)}), {}),
+        ("BRUSA saturated per-batch u_dc and u_d band, obs_stride=16", pmsm_env(
+            ex, B, static={"u_dc": uni(350.0, 450.0)}, action_normalizations=an), {"obs_stride": 16}),
         ("BRUSA saturated euler obs_stride=4", pmsm_env(ex, B), {"obs_stride": 4}),
+        ("BRUSA saturated euler deadtime 0 obs_stride=16", pmsm_env(ex, B, static={"deadtime": 0}),
+         {"obs_stride": 16}),
+        ("BRUSA saturated euler batch-major slab obs_stride=16", pmsm_env(ex, B), {"obs_stride": 16,
+                                                                               "batch_major": True}),
         ("BRUSA saturated rk4 sim-ahead deadtime 1", pmsm_env(ex, B, solver="rk4"),
+         {"sim_ahead": True, "obs_stride": 1}),
+        ("BRUSA saturated rk4 sim-ahead deadtime 0 (next row constrained ahead)",
+         pmsm_env(ex, B, solver="rk4", static={"deadtime": 0}), {"sim_ahead": True, "obs_stride": 1}),
+        ("BRUSA saturated tsit5 sim-ahead deadtime 1 batch-major", pmsm_env(ex, B, solver="tsit5"),
+         {"sim_ahead": True, "obs_stride": 1, "batch_major": True}),
+        ("DEFAULT linear rk4 sim-ahead deadtime 0", pmsm_env(ex, B, "DEFAULT", saturated=False, solver="rk4",
+                                                             static={"deadtime": 0}),
          {"sim_ahead": True, "obs_stride": 1}),
         ("BRUSA saturated euler ragged B=1000", pmsm_env(ex, 1000), {}),
         ("BRUSA saturated rk4 float64 (dynamic shared memory above 48 KB)",
          pmsm_env(ex, B, dtype=torch.float64, solver="rk4"), {"obs_stride": 8}),
+        ("BRUSA saturated rk4 float64 sim-ahead deadtime 0", pmsm_env(ex, B, dtype=torch.float64, solver="rk4",
+                                                                      static={"deadtime": 0}),
+         {"sim_ahead": True, "obs_stride": 1}),
     ]
     failures = []
     for label, env, kw in cases:
-        state, _, u_con = pmsm_inputs(env, T, gen, sim_ahead=kw.get("sim_ahead", False))
-        err, finite = pmsm_deviation(PK, env, state, u_con, **kw)
+        kw = dict(kw)
+        state, acts = pmsm_inputs(env, T, gen)
+        if kw.get("batch_major"):
+            acts = acts.transpose(0, 1).contiguous()
+        if kw.get("sim_ahead"):
+            kw["tau"] = 2 * env.tau  # the solver's step differs from the constraint's env tau
+        err, finite = pmsm_deviation(PK, env, state, acts, **kw)
         ok = finite and err == 0.0
         log(f"[pmsm kernel vs plain] {label}: max abs deviation {err!r} (tolerance 0.0) {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(label)
     if failures:
         raise AssertionError(f"PMSM kernel disagrees with its plain version: {failures}")
+
+
+def phase_sector(PK):
+    """The environment's constraint in csrc/pmsm_stepper.cu keeps atan2f and
+    three sinf sign tests: their results on the card against torch.atan2 and
+    torch.sin, bit for bit, over 2^28 seeded pairs (within the constraint's
+    range and over all magnitudes), the axes, signed zeros, infinities and
+    NaN, and the hexagon's sector edges (angles k pi / 3 and their float32
+    neighbours); any mismatch fails."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+    totals = {"atan2": 0, "sector": 0, "inputs": 0}
+
+    def check(alpha, beta):
+        counts = PK.sector_mismatches(alpha.contiguous(), beta.contiguous())
+        for key in totals:
+            totals[key] += counts[key]
+
+    chunk = 1 << 25
+    for i in range(8):
+        if i % 2 == 0:  # the constraint's range: |alpha|, |beta| up to 1.5
+            alpha, beta = ((torch.rand((2, chunk), generator=gen, device=DEVICE) * 2 - 1) * 1.5).unbind(0)
+        else:  # every magnitude: random bit patterns (NaN and infinities included)
+            bits = torch.randint(-2 ** 31, 2 ** 31 - 1, (2, chunk), generator=gen, device=DEVICE, dtype=torch.int32)
+            alpha, beta = bits.view(torch.float32).unbind(0)
+        check(alpha, beta)
+    special = torch.tensor([0.0, -0.0, 1.0, -1.0, 1e-38, -1e-38, 1e-45, -1e-45, 3.4e38, -3.4e38,
+                            float("inf"), float("-inf"), float("nan")], device=DEVICE)
+    a, b = torch.meshgrid(special, special, indexing="ij")
+    check(a.reshape(-1), b.reshape(-1))
+    # the sector edges: radius r at angle k pi / 3, beta stepped up to 64
+    # float32 ulps either way
+    r = torch.linspace(1e-3, 1.5, 1024, device=DEVICE, dtype=torch.float64)
+    k = torch.arange(-3, 4, device=DEVICE, dtype=torch.float64) * (np.pi / 3)
+    theta, rad = torch.meshgrid(k, r, indexing="ij")
+    a0 = (rad * torch.cos(theta)).float().reshape(-1)
+    b0 = (rad * torch.sin(theta)).float().reshape(-1)
+    steps = torch.arange(-64, 65, device=DEVICE, dtype=torch.int32)
+    b_near = (b0.view(torch.int32)[:, None] + steps[None, :]).view(torch.float32)
+    check(a0[:, None].expand_as(b_near).reshape(-1), b_near.reshape(-1))
+    torch.cuda.synchronize()
+    log(f"[sector] atan2f and the hexagon's sin sign bits against torch.atan2 / torch.sin: {totals} "
+        f"in {time.perf_counter() - t0:.2f} s")
+    if totals["atan2"] or totals["sector"] or totals["inputs"] < 1 << 28:
+        raise AssertionError(f"the constraint's sector function differs from PyTorch's on this card: {totals}")
 
 
 def phase_pmsm_golden(ex, PK):
@@ -924,9 +1040,32 @@ def phase_pmsm_golden(ex, PK):
         raise AssertionError("golden PMSM replay through the kernel deviates from the fixture")
 
 
+class CallCounter:
+    """Counts the calls of a module's or class's function while active, and
+    puts the function back on exit."""
+
+    def __init__(self, owner, name):
+        self.owner, self.name, self.calls = owner, name, 0
+
+    def __enter__(self):
+        self.original = getattr(self.owner, self.name)
+
+        def counted(*args, **kwargs):
+            self.calls += 1
+            return self.original(*args, **kwargs)
+
+        setattr(self.owner, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.original)
+
+
 def phase_pmsm_main(ex, PK):
     """PMSM main path at full width: BRUSA saturated, B = 65,536, T = 256,
     float32; returns the kernel table entries."""
+    from exciting_environments_torch.ops.kernels.stepper import build as K_build
+
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
     B, T, stride = B_MAIN, T_PMSM, 16
     env = ex.PMSM(batch_size=B, saturated=True, motor_variant=ex.MotorVariant.BRUSA, tau=1e-4, device=DEVICE)
@@ -939,16 +1078,28 @@ def phase_pmsm_main(ex, PK):
     log(f"[pmsm main] PMSM BRUSA saturated B={B} T={T} float32: normalized slab "
         f"{actions.numel() * 4 / 1e6:.1f} MB per layout")
 
+    # the main path, with the eager pre-pass's two functions counted: on
+    # the card it must call neither, and each entry point launches once
     PK.KERNEL.reset_counts()
-    obs_tm, last_tm = env.fused_rollout(state, actions_tm, time_major=True, strict=True)
-    obs_bm, last_bm = env.fused_rollout(state, actions, strict=True)
-    obs_tr, _ = env.fused_rollout(state, actions, obs_stride=stride, strict=True)
-    obs_sa, last_sa = env_sa.fused_sim_ahead(state, actions, env_sa.tau, env_sa.tau, strict=True)
+    per_call = []
+    with CallCounter(PK, "_eps_trajectory") as angle_loop, CallCounter(ex.PMSM, "_constrain") as constrain:
+        for fn in (lambda: env.fused_rollout(state, actions_tm, time_major=True, strict=True),
+                   lambda: env.fused_rollout(state, actions, strict=True),
+                   lambda: env.fused_rollout(state, actions, obs_stride=stride, strict=True),
+                   lambda: env_sa.fused_sim_ahead(state, actions, env_sa.tau, env_sa.tau, strict=True)):
+            before = sum(PK.KERNEL.launches.values())
+            per_call.append(fn())
+            per_call[-1] = (per_call[-1], sum(PK.KERNEL.launches.values()) - before)
     torch.cuda.synchronize()
+    (obs_tm, last_tm), (obs_bm, last_bm), (obs_tr, _), (obs_sa, last_sa) = [out for out, _ in per_call]
     launches = dict(PK.KERNEL.launches)
-    log(f"[pmsm main] launches during the main path: {launches}")
-    if launches["pmsm_step"] < 1 or launches["pmsm_sim_ahead"] < 1:
-        raise AssertionError(f"the PMSM main path did not go through the kernel: {launches}")
+    log(f"[pmsm main] launches during the main path: {launches}, per entry-point call "
+        f"{[n for _, n in per_call]}; eager pre-pass calls: _eps_trajectory {angle_loop.calls}, "
+        f"PMSM._constrain {constrain.calls}")
+    if any(n != 1 for _, n in per_call) or launches["pmsm_sim_ahead"] != 1:
+        raise AssertionError(f"a PMSM main-path call did not make exactly one kernel launch: {launches}")
+    if angle_loop.calls or constrain.calls:
+        raise AssertionError("the PMSM main path ran the eager pre-pass on the card")
     shapes = (tuple(obs_tm.shape), tuple(obs_tr.shape), tuple(obs_sa.shape))
     if shapes != ((B, 8), (B, T // stride, 8), (B, T + 1, 8)):
         raise AssertionError(f"unexpected shapes {shapes}")
@@ -959,26 +1110,23 @@ def phase_pmsm_main(ex, PK):
     if not torch.equal(obs_tr[:, -1], obs_tm):
         raise AssertionError("the last strided observation differs from the final one")
 
-    props = env.env_properties
-    prepass = lambda: PK._constrained_voltages(env, state, actions_tm, props)
-    u_con, _, _ = prepass()
-    phys = state.physical_state
-    eps_ext = ex.models.pmsm.pmsm_env.extrapolated_angles(phys.epsilon, phys.omega_el, env.tau, T)
-    u_con_sa = PK._constraint_denorm_batched(env_sa, props, actions_tm, eps_ext, phys.omega_el)
-    step_kernel = lambda: pmsm_run(PK, env, state, u_con, True)
-    sa_kernel = lambda: pmsm_run(PK, env_sa, state, u_con_sa, True, obs_stride=1, sim_ahead=True)
-    err_step, _ = pmsm_deviation(PK, env, state, u_con)
-    err_sa, _ = pmsm_deviation(PK, env_sa, state, u_con_sa, obs_stride=1, sim_ahead=True)
-    log(f"[pmsm main] kernel vs plain at full size: step max abs {err_step!r}, sim-ahead max abs {err_sa!r}")
-    if err_step != 0.0 or err_sa != 0.0:
+    step_kernel = lambda: pmsm_run(PK, env, state, actions_tm, True)
+    bm_kernel = lambda: pmsm_run(PK, env, state, actions, True, batch_major=True)
+    sa_kernel = lambda: pmsm_run(PK, env_sa, state, actions, True, obs_stride=1, sim_ahead=True, batch_major=True)
+    err_step, _ = pmsm_deviation(PK, env, state, actions_tm)
+    err_sa, _ = pmsm_deviation(PK, env_sa, state, actions, obs_stride=1, sim_ahead=True, batch_major=True)
+    err_bm = max_abs(bm_kernel(), step_kernel())
+    log(f"[pmsm main] kernel vs plain at full size: step max abs {err_step!r}, sim-ahead max abs {err_sa!r}; "
+        f"batch-major vs time-major slab {err_bm!r}")
+    if err_step != 0.0 or err_sa != 0.0 or err_bm != 0.0:
         raise AssertionError("PMSM kernel disagrees with its plain version at the main size")
 
     t0 = time.perf_counter()
-    pmsm_run(PK, env, state, u_con, False)
+    pmsm_run(PK, env, state, actions_tm, False)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
-    pmsm_run(PK, env_sa, state, u_con_sa, False, obs_stride=1, sim_ahead=True)
+    pmsm_run(PK, env_sa, state, actions_tm, False, obs_stride=1, sim_ahead=True)
     torch.cuda.synchronize()
     plain_sa_ms = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
@@ -987,36 +1135,51 @@ def phase_pmsm_main(ex, PK):
     vmap_ms = (time.perf_counter() - t0) * 1e3
 
     ms = time_ms(step_kernel)
+    bm_ms = time_ms(bm_kernel)
     sa_ms = time_ms(sa_kernel)
-    prepass_ms = time_ms(prepass)
     env_tm_ms = time_ms(lambda: env.fused_rollout(state, actions_tm, time_major=True, strict=True))
     env_bm_ms = time_ms(lambda: env.fused_rollout(state, actions, strict=True))
     env_sa_ms = time_ms(lambda: env_sa.fused_sim_ahead(state, actions, env_sa.tau, env_sa.tau, strict=True))
 
-    # the kernel alone over a long synthetic stream of physical voltages
-    # (no pre-pass), so that launch overhead drops out
-    u_long = ((torch.rand((T_PMSM_LONG, B, 2), generator=gen, device=DEVICE) * 2 - 1) * 150.0).contiguous()
-    long_kernel = lambda: pmsm_run(PK, env, state, u_long, True)
-    long_ms = time_ms(long_kernel, reps=3)
-    del u_long
+    # the kernel alone over a long slab, so that launch overhead drops out
+    a_long = ((torch.rand((T_PMSM_LONG, B, 2), generator=gen, device=DEVICE) * 2 - 1) * 0.3).contiguous()
+    long_ms = time_ms(lambda: pmsm_run(PK, env, state, a_long, True), reps=3)
+    del a_long
     long_bound_ms, long_bound_by = pmsm_bound(env, env._solver, B, T_PMSM_LONG, 0)
 
     bound_ms, bound_by = pmsm_bound(env, env._solver, B, T, 0)
     sa_bound_ms, sa_bound_by = pmsm_bound(env_sa, env_sa._solver, B, T, T)
     steps = B * T
-    log(f"[pmsm main] kernel alone, euler step mode: {ms!r} ms = {steps / ms * 1e3:.4e} env-steps/s; "
-        f"bound {bound_ms!r} ms ({bound_by}); {bound_ms / ms:.1%} of the bound")
-    log(f"[pmsm main] eager pre-pass alone (angle loop + constraint over (T, B)): {prepass_ms!r} ms")
+    per_step = pmsm_ops(env, env._solver, 2, 0) - pmsm_ops(env, env._solver, 1, 0)
+    log(f"[pmsm main] kernel alone, euler step mode (time-major slab): {ms!r} ms = {steps / ms * 1e3:.4e} "
+        f"env-steps/s; bound {bound_ms!r} ms ({bound_by}, {per_step} operations per step); "
+        f"{bound_ms / ms:.1%} of the bound; batch-major slab {bm_ms!r} ms")
     log(f"[pmsm main] env.fused_rollout time-major: {env_tm_ms!r} ms = {steps / env_tm_ms * 1e3:.4e} env-steps/s "
-        f"(kernel {ms / env_tm_ms:.1%}, pre-pass {prepass_ms / env_tm_ms:.1%})")
-    log(f"[pmsm main] env.fused_rollout batch-major: {env_bm_ms!r} ms = {steps / env_bm_ms * 1e3:.4e} env-steps/s")
+        f"(kernel {ms / env_tm_ms:.1%}; the eager pre-pass alone took {PMSM_EAGER_PREPASS} before the kernel "
+        f"took it over, PERF.md)")
+    log(f"[pmsm main] env.fused_rollout batch-major: {env_bm_ms!r} ms = {steps / env_bm_ms * 1e3:.4e} env-steps/s "
+        f"(kernel {bm_ms / env_bm_ms:.1%})")
     log(f"[pmsm main] sim-ahead rk4 kernel alone: {sa_ms!r} ms; bound {sa_bound_ms!r} ms ({sa_bound_by}); "
-        f"env.fused_sim_ahead {env_sa_ms!r} ms")
+        f"env.fused_sim_ahead {env_sa_ms!r} ms (kernel {sa_ms / env_sa_ms:.1%})")
     log(f"[pmsm main] plain version: step {plain_ms!r} ms, sim-ahead {plain_sa_ms!r} ms (one run each)")
     log(f"[pmsm main] vmap_rollout, T={T}: {vmap_ms!r} ms (one run) = {steps / vmap_ms * 1e3:.4e} env-steps/s")
-    log(f"[pmsm main] kernel alone, T={T_PMSM_LONG} synthetic voltages: {long_ms!r} ms = "
+    log(f"[pmsm main] kernel alone, T={T_PMSM_LONG}: {long_ms!r} ms = "
         f"{B * T_PMSM_LONG / long_ms * 1e3:.4e} env-steps/s; bound {long_bound_ms!r} ms ({long_bound_by}); "
         f"{long_bound_ms / long_ms:.1%} of the bound")
+    # the kernel on a fleet that stays inside its current bands (gathers
+    # across the whole table, not on its edge cells)
+    hold_state, hold_actions = holding_fleet(ex, env, gen, T)
+    hold_ms = time_ms(lambda: pmsm_run(PK, env, hold_state, hold_actions, True, batch_major=True))
+    log(f"[pmsm main] kernel alone on the holding fleet, T={T}, batch-major: {hold_ms!r} ms (random fleet "
+        f"{bm_ms!r} ms)")
+    del hold_actions
+    lib = K_build("pmsm_stepper")
+    for row, kms, ems, fn in (
+            ("3a", ms, env_tm_ms, lambda: env.fused_rollout(state, actions_tm, time_major=True, strict=True)),
+            ("3b", sa_ms, env_sa_ms, lambda: env_sa.fused_sim_ahead(state, actions, env_sa.tau, env_sa.tau,
+                                                                    strict=True))):
+        _, kernel_re, vias = sass_case(row)
+        anatomy(f"{row} pmsm_stepper", lib, kernel_re, kms, ems, B, T, fn, "pmsm_kernel", vias)
     return [
         entry("pmsm_step", launches["pmsm_step"], err_step, ms, plain_ms, bound_ms, bound_by, PMSM_SOURCE,
               PMSM_REPLACES),
@@ -1164,6 +1327,7 @@ def phase_cl_main(ex, CL):
     T = 4,096 (final state only), and the exploring actor collected through
     RolloutCollector.collect_policy_fused over T = 64 (tau = 2e-2, a save
     every step); returns the kernel table entries."""
+    from exciting_environments_torch.ops.kernels.stepper import build as K_build
     from exciting_environments_torch.utils.convert import actor_params_from_numpy
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
@@ -1184,7 +1348,7 @@ def phase_cl_main(ex, CL):
         f"PD and PI over T={T}, the actor over T={T_RL}")
     entries = []
 
-    def run_case(name, drive, kernel_fn, plain_fn, check, spec, n_steps, n_saves, n_carry, cl_env):
+    def run_case(name, drive, kernel_fn, plain_fn, check, spec, n_steps, n_saves, n_carry, cl_env, row):
         CL.CL_KERNEL.reset_counts()
         out = drive()
         torch.cuda.synchronize()
@@ -1209,6 +1373,9 @@ def phase_cl_main(ex, CL):
             f"entry point {env_ms!r} ms = {steps / env_ms * 1e3:.4e} env-steps/s (kernel {ms / env_ms:.1%}); "
             f"bound {bound_ms!r} ms ({bound_by}, {per_step} operations per step and instance); "
             f"{bound_ms / ms:.1%} of the bound; plain {plain_ms!r} ms (one run); max abs {err!r}")
+        _, kernel_re, vias = sass_case(row)
+        anatomy(f"{row} {name}", K_build("closed_loop"), kernel_re, ms, env_ms, B, n_steps, drive,
+                "closed_loop_kernel", vias)
         entries.append(entry(name, launches, err, ms, plain_ms, bound_ms, bound_by, CL_SOURCE, CL_REPLACES))
 
     def check_final(out, n_extra=0):
@@ -1223,11 +1390,11 @@ def phase_cl_main(ex, CL):
     kw = dict(tau=env.tau, solver=env._solver, props=env.env_properties, ref_leaves=refs)
     run_case("closed_loop_pd", lambda: env.fused_closed_loop(state, pd, T),
              lambda: CL.kernel_closed_loop(env, y0, pd, T, **kw), lambda: CL.plain_closed_loop(env, y0, pd, T, **kw),
-             check_final, pd.kernel_spec(torch.float32, DEVICE), T, 0, 0, env)
+             check_final, pd.kernel_spec(torch.float32, DEVICE), T, 0, 0, env, "2a")
     run_case("closed_loop_pi", lambda: env.fused_closed_loop(state, pi, T, policy_carry=c0),
              lambda: CL.kernel_closed_loop(env, y0, pi, T, policy_carry=c0, **kw),
              lambda: CL.plain_closed_loop(env, y0, pi, T, policy_carry=c0, **kw),
-             lambda out: check_final(out, 1), pi.kernel_spec(torch.float32, DEVICE), T, 0, 1, env)
+             lambda out: check_final(out, 1), pi.kernel_spec(torch.float32, DEVICE), T, 0, 1, env, "2b")
 
     rl_env, rl_state, rl_y0, rl_refs = tracking_env(tau=2e-2)
     actor, ids = ex.make_actor_tile(rl_env)
@@ -1252,7 +1419,7 @@ def phase_cl_main(ex, CL):
              lambda: collector.collect_policy_fused(actor, rl_state, T_RL, policy_params=weights, policy_carry=ids),
              lambda: CL.kernel_closed_loop(rl_env, rl_y0, actor, T_RL, **rl_kw),
              lambda: CL.plain_closed_loop(rl_env, rl_y0, actor, T_RL, **rl_kw),
-             check_batch, actor.kernel_spec(torch.float32, DEVICE, weights), T_RL, T_RL, 1, rl_env)
+             check_batch, actor.kernel_spec(torch.float32, DEVICE, weights), T_RL, T_RL, 1, rl_env, "2c")
     return entries
 
 
@@ -1696,6 +1863,9 @@ def phase_fast_flag(ex, K, CL):
         f"{cl_env_ms!r} ms; bound {cl_bound_ms!r} ms ({cl_bound_by}, {per_step} operations per step); "
         f"plain {cl_plain_ms!r} ms; launches {cl_launches}; mean |ref - theta| (normalized) "
         f"{float((obs[:, 2] - obs[:, 0]).abs().mean()):.4f}")
+    _, kernel_re, vias = sass_case("2d")
+    anatomy("2d closed_loop_pd_fast", K.build("closed_loop"), kernel_re, cl_ms, cl_env_ms, B, Tm,
+            lambda: cl_env.fused_closed_loop(cl_state, pd, Tm), "closed_loop_kernel", vias)
     entries.append(entry("closed_loop_pd_fast", cl_launches, cl_err, cl_ms, cl_plain_ms, cl_bound_ms, cl_bound_by,
                          CL_SOURCE, CL_REPLACES))
     return entries
@@ -2029,6 +2199,7 @@ def main() -> int:
     phase_kernel_vs_plain(ex, K)
     phase_golden(ex, K)
     kernels = phase_main(ex, K)
+    phase_sector(PK)
     phase_pmsm_kernel_vs_plain(ex, PK)
     phase_pmsm_golden(ex, PK)
     kernels += phase_pmsm_main(ex, PK)

@@ -315,47 +315,14 @@ __device__ __forceinline__ Bands<T> bands(const PmsmClArgs& args, long long b) {
         k.act_lo[j] = value(mn);
         k.act_span[j] = value(wsub(mx, mn));
     }
-    const Weak<T> u_dc = w[B_UDC];
-    if (u_dc.py) {
-        k.inv_half_dc = (T)(1.0 / (u_dc.d / 2.0));
-        k.half_dc = (T)(u_dc.d / 2.0);
-    } else {
-        k.half_dc = u_dc.v * (T)0.5;
-        k.inv_half_dc = T(1) / k.half_dc;
-    }
+    dc_link(w[B_UDC], k.inv_half_dc, k.half_dc);  // pmsm_drive.cuh
     return k;
-}
-
-// torch.sin(x) and torch.cos(x): one sincosf in float32, whose results equal
-// sinf's and cosf's for every finite |x| < 2^7 (checked exhaustively on the
-// card, with sinf(-x) == -sinf(x) and cosf(-x) == cosf(x): chip_smoke.py's
-// trig phase and tests/test_torch_gpu.py); the two literal calls in float64
-__device__ __forceinline__ void sincos_pair(float x, float& s, float& c) { sincosf(x, &s, &c); }
-__device__ __forceinline__ void sincos_pair(double x, double& s, double& c) {
-    s = sin(x);
-    c = cos(x);
 }
 
 // 2 * (x - min) / (max - min) - 1
 template <typename T>
 __device__ __forceinline__ T normalize(const Bands<T>& k, int i, T x) {
     return (T)2 * (x - k.obs_lo[i]) / k.obs_span[i] - T(1);
-}
-
-// The hexagon's two rotations at the advanced angle: cos(-adv), sin(-adv),
-// cos(adv), sin(adv).  In float32 from one sincos_pair, with cos(-x) ==
-// cos(x) and sin(-x) == -sin(x) (checked with sincos_pair on the card); in
-// float64 the four literal calls.
-__device__ __forceinline__ void hex_angles(float adv, float& ca, float& sa, float& cb, float& sb) {
-    sincos_pair(adv, sb, cb);
-    ca = cb;
-    sa = -sb;
-}
-__device__ __forceinline__ void hex_angles(double adv, double& ca, double& sa, double& cb, double& sb) {
-    ca = cos(-adv);
-    sa = sin(-adv);
-    cb = cos(adv);
-    sb = sin(adv);
 }
 
 // pmsm_closed_loop.py::hex_constrain (the TPU kernel's _hex_constrain):
@@ -371,10 +338,7 @@ __device__ __forceinline__ void hex_constrain(const Bands<T>& k, const T* rot, T
     const T nd = u_d * k.inv_half_dc;
     const T nq = u_q * k.inv_half_dc;
 
-    const T two_pi = (T)6.283185307179586;
-    T adv = eps + adv_inc;
-    adv = floored_mod(adv, two_pi);
-    adv = adv + (adv > (T)3.141592653589793 ? -two_pi : -T(0));  // (adv > pi) * (-2 pi)
+    const T adv = advanced_angle(eps, adv_inc);  // pmsm_drive.cuh
 
     T ca, sa, cb, sb;
     hex_angles(adv, ca, sa, cb, sb);
@@ -421,10 +385,7 @@ __global__ void __launch_bounds__(128) pmsm_closed_loop_kernel(const __grid_cons
         // every thread of the block takes part before any returns
         const T* src = static_cast<const T*>(args.policy_params);
         for (int i = threadIdx.x; i < args.n_pp; i += blockDim.x) pp[i] = src[i];
-        if (threadIdx.x < 8) {
-            rot[threadIdx.x] = (T)args.rot_re[threadIdx.x];
-            rot[8 + threadIdx.x] = (T)args.rot_im[threadIdx.x];
-        }
+        load_rotations(rot, args.rot_re, args.rot_im);
         if (SAT) {
             using V = typename Vec16<T>::type;
             const int n = (int)(lut_elems(args, SAT) / Vec16<T>::N);

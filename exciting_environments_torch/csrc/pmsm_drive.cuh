@@ -1,14 +1,16 @@
 // The PMSM drive's electrical model on the device, shared by the open-loop
 // kernel (pmsm_stepper.cu) and the closed-loop kernel (pmsm_closed_loop.cu):
 // the per-instance constants, the bilinear gather of stacked maps on the
-// magnetics table's grid (and of channel-interleaved ones, which the
-// closed loop reads), the saturated and linear vector fields of the
-// currents, and the torque maps.
+// magnetics table's grid (and of channel-interleaved ones, which both
+// kernels read), the saturated and linear vector fields of the currents,
+// the torque maps, and the pieces of the inverter constraint the two
+// kernels share (the DC-link fold, the sector rotations, the sincos and
+// the wrap of the advanced angle).
 //
 // Every function mirrors the environment's own arithmetic
-// (models/pmsm/pmsm_env.py: nonlinear_ode, linear_ode, the torque maps;
-// ops/lut.py::bilinear_gather) operation for operation, in the working
-// precision, under the rules of eager_rules.cuh.
+// (models/pmsm/pmsm_env.py: nonlinear_ode, linear_ode, the torque maps,
+// _constrain; ops/lut.py::bilinear_gather; ops/transforms.py) operation for
+// operation, in the working precision, under the rules of eager_rules.cuh.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -227,4 +229,72 @@ __device__ __forceinline__ T torque(const T* lut, const Drive<T>& k, T i_d, T i_
         return saturated_torque(v, k, i_d, i_q);
     }
     return linear_torque(k, i_d, i_q);
+}
+
+// ---------------------------------------------------------------------------
+// The inverter constraint's shared pieces
+// ---------------------------------------------------------------------------
+
+// The DC link of one drive: 1 / (u_dc / 2) and u_dc / 2, folded in double
+// for a scalar u_dc as Python folds them; for a per-batch plane u_dc / 2 is
+// a multiply by the reciprocal 0.5 and 1 / (...) is Tensor.__rtruediv__'s
+// reciprocal (times 1)
+template <typename T>
+__device__ __forceinline__ void dc_link(const Weak<T>& u_dc, T& inv_half_dc, T& half_dc) {
+    if (u_dc.py) {
+        inv_half_dc = (T)(1.0 / (u_dc.d / 2.0));
+        half_dc = (T)(u_dc.d / 2.0);
+    } else {
+        half_dc = u_dc.v * (T)0.5;
+        inv_half_dc = T(1) / half_dc;
+    }
+}
+
+// The hexagon's eight sector rotations (ops/transforms.py ROTATION_RE/IM,
+// float32 values, indexed b0 * 4 + b1 * 2 + b2) into shared memory: 8 real
+// parts, then 8 imaginary ones, in the working type.  Threads 0-7 write;
+// the caller synchronizes.
+template <typename T>
+__device__ __forceinline__ void load_rotations(T* rot, const double* re, const double* im) {
+    if (threadIdx.x < 8) {
+        rot[threadIdx.x] = (T)re[threadIdx.x];
+        rot[8 + threadIdx.x] = (T)im[threadIdx.x];
+    }
+}
+
+// torch.sin(x) and torch.cos(x): one sincosf in float32, whose results equal
+// sinf's and cosf's for every finite |x| < 2^7 (checked exhaustively on the
+// card, with sinf(-x) == -sinf(x) and cosf(-x) == cosf(x): chip_smoke.py's
+// trig phase and tests/test_torch_gpu.py); the two literal calls in float64
+__device__ __forceinline__ void sincos_pair(float x, float& s, float& c) { sincosf(x, &s, &c); }
+__device__ __forceinline__ void sincos_pair(double x, double& s, double& c) {
+    s = sin(x);
+    c = cos(x);
+}
+
+// The hexagon's two rotations at the advanced angle: cos(-adv), sin(-adv),
+// cos(adv), sin(adv).  In float32 from one sincos_pair, with cos(-x) ==
+// cos(x) and sin(-x) == -sin(x) (checked with sincos_pair on the card); in
+// float64 the four literal calls.
+__device__ __forceinline__ void hex_angles(float adv, float& ca, float& sa, float& cb, float& sb) {
+    sincos_pair(adv, sb, cb);
+    ca = cb;
+    sa = -sb;
+}
+__device__ __forceinline__ void hex_angles(double adv, double& ca, double& sa, double& cb, double& sb) {
+    ca = cos(-adv);
+    sa = sin(-adv);
+    cb = cos(adv);
+    sb = sin(adv);
+}
+
+// transforms.py::step_eps(eps, omega_el, tau, deadtime + 0.5) with the
+// advance adv_inc = omega_el * tau * (deadtime + 0.5) folded by the caller:
+// (eps + adv_inc) % 2 pi, then (adv > pi) * (-2 pi) added
+template <typename T>
+__device__ __forceinline__ T advanced_angle(T eps, T adv_inc) {
+    const T two_pi = (T)6.283185307179586;
+    T adv = eps + adv_inc;
+    adv = floored_mod(adv, two_pi);
+    return adv + (adv > (T)3.141592653589793 ? -two_pi : -T(0));
 }

@@ -44,22 +44,28 @@ def wrap_angle(eps):
     return ((eps + math.pi) % (2 * math.pi)) - math.pi
 
 
-def extrapolated_angles(eps0, omega, tau: float, n: int):
-    """``eps0 + linspace(0, tau * (n - 1), n) * omega`` over a new leading
-    time axis: the angles at which ``sim_ahead`` applies the hexagon
-    constraint.  The offsets are computed on the host in the angle's dtype
-    with ``jnp.linspace``'s formula, op by op (``start * (1 - s) + stop * s``
-    with ``s = i / (n - 1)``, then the exact endpoint); ``torch.linspace``
-    fills its upper half another way.  ``sim_ahead`` and ``fused_sim_ahead``
-    both call this one helper."""
-    dt = {torch.float32: np.float32, torch.float64: np.float64}[eps0.dtype]
+def extrapolation_offsets(tau: float, n: int, dtype, device):
+    """``linspace(0, tau * (n - 1), n)`` as an ``(n,)`` tensor, computed on
+    the host in ``dtype`` with ``jnp.linspace``'s formula, op by op
+    (``start * (1 - s) + stop * s`` with ``s = i / (n - 1)``, then the exact
+    endpoint); ``torch.linspace`` fills its upper half another way."""
+    dt = {torch.float32: np.float32, torch.float64: np.float64}[dtype]
     start, stop = dt(0.0), dt(tau * (n - 1))
     if n > 1:
         step = np.arange(n - 1, dtype=dt) / dt(n - 1)
         offsets = np.concatenate([start * (dt(1) - step) + stop * step, [stop]])
     else:
         offsets = np.full(n, start)
-    offsets = torch.as_tensor(offsets.astype(dt), device=eps0.device).reshape((n,) + (1,) * eps0.ndim)
+    return torch.as_tensor(offsets.astype(dt), device=device)
+
+
+def extrapolated_angles(eps0, omega, tau: float, n: int):
+    """``eps0 + linspace(0, tau * (n - 1), n) * omega`` over a new leading
+    time axis: the angles at which ``sim_ahead`` applies the hexagon
+    constraint, from :func:`extrapolation_offsets`.  ``sim_ahead`` and the
+    fused path's plain version call this one helper; the fused kernel takes
+    the same offsets."""
+    offsets = extrapolation_offsets(tau, n, eps0.dtype, eps0.device).reshape((n,) + (1,) * eps0.ndim)
     return eps0 + offsets * omega
 
 
@@ -444,10 +450,11 @@ class PMSM(CoreEnvironment):
 
     def fused_rollout(self, init_state, actions, obs_stride: int = None,
                       time_major: bool = False, strict: bool = False):
-        """:meth:`vmap_rollout` through the PMSM drive kernel (an eager
-        angle/constraint pre-pass, then the current integration in
-        ``csrc/pmsm_stepper.cu``; its plain version on CPU tensors).  Out of
-        kernel scope it takes the loop, or raises with ``strict=True``."""
+        """:meth:`vmap_rollout` through the PMSM drive kernel
+        (``csrc/pmsm_stepper.cu``: the angle, the constraint, the deadtime
+        buffer and the current integration in one launch; its plain version
+        on CPU tensors).  Out of kernel scope it takes the loop, or raises
+        with ``strict=True``."""
         from exciting_environments_torch.ops.kernels.pmsm_stepper import pmsm_fused_rollout
 
         return pmsm_fused_rollout(self, init_state, actions, obs_stride=obs_stride,

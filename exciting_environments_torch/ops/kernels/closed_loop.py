@@ -107,10 +107,19 @@ class ClosedLoopArgs(ctypes.Structure):
         ("traj_stride", _c_int),
         ("env_id", _c_int),
         ("fast", _c_int),
+        ("variant", _c_int),
     ]
 
 
 CL_KERNEL = KernelLibrary("closed_loop", "closed_loop", ClosedLoopArgs, ("closed_loop",))
+
+#: the kernel's policy instantiations, in ``ClosedLoopArgs.variant`` order:
+#: the affine law in registers at a compile-time observation width (the
+#: state plus 0 or 1 reference), the affine law at any width, the actor with
+#: two hidden layers of 16 in registers, the actor at any widths
+VARIANTS = ("affine", "affine_generic", "actor_16x16", "actor_generic")
+#: launches per instantiation, counted beside ``CL_KERNEL.launches``
+VARIANT_LAUNCHES = dict.fromkeys(VARIANTS, 0)
 
 _PLAIN_CALLABLE_ON_CUDA = (
     "on CUDA tensors the closed loop runs inside the kernel, which compiles in the "
@@ -177,6 +186,18 @@ def plain_closed_loop(env, y0, policy, n_steps, *, tau, solver, props, ref_leave
 # ---------------------------------------------------------------------------
 # the kernel's wrapper
 # ---------------------------------------------------------------------------
+
+
+def kernel_variant(n_state: int, spec) -> str:
+    """The instantiation of ``csrc/closed_loop.cu`` that runs a policy's
+    :class:`~exciting_environments_torch.ops.policies.KernelSpec` over an
+    environment of ``n_state`` leaves: the register versions where the
+    policy fits them, the generic ones otherwise (:data:`VARIANTS`)."""
+    if spec.policy_id == 0:
+        return "affine" if spec.n_obs - n_state in (0, 1) else "affine_generic"
+    if spec.policy_id == 1:
+        return "actor_16x16" if tuple(spec.options["widths"][1:-1]) == (16, 16) else "actor_generic"
+    raise ValueError(f"no closed-loop kernel family has policy_id {spec.policy_id}")
 
 
 def _tensors(tree):
@@ -337,8 +358,11 @@ def kernel_closed_loop(env, y0, policy, n_steps, *, tau, solver, props, ref_leav
     args.traj_stride = traj_stride or 0
     args.env_id = env._kernel_env_id
     args.fast = int(getattr(env, "fast_math", False))
+    variant = kernel_variant(n_state, spec)
+    args.variant = VARIANTS.index(variant)
 
-    CL_KERNEL.launch(args, dtype, device, "closed_loop")
+    CL_KERNEL.launch(args, dtype, device, "closed_loop", detail=f" ({variant} instantiation)")
+    VARIANT_LAUNCHES[variant] += 1
     if traj_stride is None:
         return tuple(y_out), tuple(c_out), None, None, None
     return tuple(y_out), tuple(c_out), tuple(traj_state), tuple(traj_action), tuple(traj_carry)

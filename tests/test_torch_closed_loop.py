@@ -297,3 +297,55 @@ def test_out_of_scope_and_errors():
         CL.kernel_closed_loop(pe, y0, pd_pendulum, 4, **kw)
     assert CL.CL_KERNEL.launches == {"closed_loop": 0}
 
+
+
+# ---------------------------------------------------------------------------
+# the kernel's instantiations, chosen on the host
+# ---------------------------------------------------------------------------
+
+
+def _actor_weights(n_obs, hidden, seed=0):
+    from exciting_environments_torch.utils.convert import actor_params_from_numpy
+
+    rng = np.random.default_rng(seed)
+    sizes = (n_obs, *hidden, 1)
+    layers = [{"w": rng.normal(0.0, 1.0 / np.sqrt(m), (m, n)), "b": rng.normal(0.0, 0.1, n)}
+              for m, n in zip(sizes[:-1], sizes[1:])]
+    env = P.Pendulum(batch_size=4, control_state=["theta"], **F64)
+    return actor_params_from_numpy(env, {"actor": layers, "log_std": np.full(1, -1.0), "seed": 7.0})
+
+
+@pytest.mark.parametrize("n_state,gains,variant", [
+    (2, [[-0.9, -0.25]], "affine"),                    # no reference: NOBS = N
+    (2, [[-0.9, -0.25, 0.9]], "affine"),               # one reference: NOBS = N + 1 (the PD/PI main cases)
+    (2, [[-0.9, -0.25, 0.9, 0.1]], "affine_generic"),  # two references
+    (4, [[-0.5, -0.3, 0.8, 0.2, 0.5]], "affine"),      # CartPole tracking its deflection
+    (4, [[-0.5, -0.3, 0.8, 0.2, 0.5, 0.1, 0.1]], "affine_generic"),
+])
+@pytest.mark.parametrize("integral", [False, True])
+def test_affine_policy_picks_the_register_law_at_its_width(n_state, gains, variant, integral):
+    """The affine law runs in registers at NOBS = N + n_refs for 0 or 1
+    reference, whatever its integrator and clamp; other widths take the
+    generic law of the same kernel."""
+    policy = P.AffinePolicy(gains, Ki=gains if integral else None, clip=1.0 if integral else None)
+    spec = policy.kernel_spec(torch.float32, "cpu")
+    assert CL.kernel_variant(n_state, spec) == variant
+    assert CL.VARIANTS.index(variant) in (0, 1)
+
+
+@pytest.mark.parametrize("hidden,variant", [((16, 16), "actor_16x16"), ((24, 8), "actor_generic"),
+                                            ((16,), "actor_generic"), ((16, 16, 16), "actor_generic")])
+def test_actor_picks_the_register_mlp_for_two_hidden_layers_of_16(hidden, variant):
+    actor, _ = P.make_actor_tile(P.Pendulum(batch_size=4, control_state=["theta"], **F64))
+    spec = actor.kernel_spec(torch.float64, "cpu", _actor_weights(3, hidden))
+    assert spec.options["widths"] == (3, *hidden, 1)
+    assert CL.kernel_variant(2, spec) == variant
+
+
+def test_variant_launch_counts_stay_at_zero_on_the_cpu():
+    """CPU tensors take the plain version: no instantiation is launched."""
+    je, pe = _pair("Pendulum")
+    _, ps = _states(je, pe, 5)
+    before = dict(CL.VARIANT_LAUNCHES)
+    pe.fused_closed_loop(ps, P.AffinePolicy(PD["Pendulum"][1]), 4)
+    assert CL.VARIANT_LAUNCHES == before and set(before) == set(CL.VARIANTS)

@@ -109,55 +109,73 @@ PMSM_CASES = [
     ("DEFAULT", False, "euler", 1, False, 4),
     ("DEFAULT", False, "rk4", 0, True, 1),
     ("BRUSA", True, "rk4", 1, True, 1),
+    ("BRUSA", True, "rk4", 0, True, 1),
+    ("BRUSA", True, "euler", 0, False, 8),
 ]
 
 
 def _pmsm_inputs(env, n_steps, seed):
+    """(normalized time-major actions, state0, omega) of a reset drive."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     _, state = env.vmap_reset(rng=gen)
     acts = ((torch.rand((n_steps, env.batch_size, 2), generator=gen, device="cuda", dtype=torch.float64)
              * 1.8 - 0.9).to(env.dtype))
-    u_con, _, _ = PK._constrained_voltages(env, state, acts, env.env_properties)
-    phys = state.physical_state
-    return u_con, (phys.i_d, phys.i_q, phys.omega_el, (phys.u_d_buffer, phys.u_q_buffer))
+    state0, omega = PK._start(state)
+    return acts, state0, omega
+
+
+def _flat(out):
+    return [t for part in out if part is not None for t in part if t is not None]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("variant,saturated,solver,deadtime,sim_ahead,stride", PMSM_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_pmsm_kernel_matches_plain_version(variant, saturated, solver, deadtime, sim_ahead, stride, dtype):
+    """The kernel takes the normalized actions and folds the angle, the
+    constraint and the deadtime buffer in: every output equals the plain
+    version's (the eager pre-pass, then the loop), both slab layouts."""
     _cuda()
     params = dict(P.MotorVariant[variant].get_params().static_params.__dict__, deadtime=deadtime)
     if saturated:
         params.update(l_d=float("nan"), l_q=float("nan"), psi_p=float("nan"))
     env = P.PMSM(batch_size=2048 + 45, saturated=saturated, motor_variant=P.MotorVariant[variant],
                  solver=solver, static_params=params, dtype=dtype)
-    u_con, (i_d, i_q, omega, buf0) = _pmsm_inputs(env, 32, 3)
+    acts, state0, omega = _pmsm_inputs(env, 32, 3)
     kw = dict(tau=env.tau, obs_stride=stride, sim_ahead=sim_ahead)
     mode = "pmsm_sim_ahead" if sim_ahead else "pmsm_step"
     before = PK.KERNEL.launches[mode]
-    yk, tk = PK.pmsm_kernel_rollout(env, u_con, i_d, i_q, omega, buf0, **kw)
-    yp, tp = PK.plain_pmsm_rollout(env, u_con, i_d, i_q, omega, buf0, **kw)
+    outk = PK.pmsm_kernel_rollout(env, acts, state0, omega, **kw)
+    outp = PK.plain_pmsm_rollout(env, acts, state0, omega, **kw)
+    outb = PK.pmsm_kernel_rollout(env, acts.transpose(0, 1).contiguous(), state0, omega, batch_major=True, **kw)
     torch.cuda.synchronize()
-    assert PK.KERNEL.launches[mode] == before + 1
-    for a, b in zip(yk + (tk or ()), yp + (tp or ())):
-        assert torch.equal(a, b)
+    assert PK.KERNEL.launches[mode] == before + 2
+    assert len(_flat(outk)) == len(_flat(outp)) == len(_flat(outb))
+    for a, b, c in zip(_flat(outk), _flat(outp), _flat(outb)):
+        assert torch.equal(a, b) and torch.equal(c, b)
 
 
 @pytest.mark.gpu
 def test_pmsm_per_batch_parameters_match_plain_version():
+    """Per-batch r_s, p and DC link, and a per-batch u_d action band."""
     _cuda()
     gen = torch.Generator(device="cuda").manual_seed(4)
     B = 1500
     uni = lambda lo, hi: lo + (hi - lo) * torch.rand(B, generator=gen, device="cuda")
     params = dict(P.MotorVariant.BRUSA.get_params().static_params.__dict__,
-                  l_d=float("nan"), l_q=float("nan"), psi_p=float("nan"), r_s=uni(15e-3, 21e-3), p=uni(2.0, 4.0))
-    env = P.PMSM(batch_size=B, saturated=True, motor_variant=P.MotorVariant.BRUSA, static_params=params)
-    u_con, (i_d, i_q, omega, buf0) = _pmsm_inputs(env, 16, 5)
-    yk, _ = PK.pmsm_kernel_rollout(env, u_con, i_d, i_q, omega, buf0, tau=env.tau)
-    yp, _ = PK.plain_pmsm_rollout(env, u_con, i_d, i_q, omega, buf0, tau=env.tau)
-    for a, b in zip(yk, yp):
-        assert torch.equal(a, b)
+                  l_d=float("nan"), l_q=float("nan"), psi_p=float("nan"), r_s=uni(15e-3, 21e-3), p=uni(2.0, 4.0),
+                  u_dc=uni(350.0, 450.0))
+    an = dict(P.MotorVariant.BRUSA.get_params().action_normalizations.__dict__)
+    an["u_d"] = P.MinMaxNormalization(min=an["u_d"].min, max=uni(200.0, 300.0))
+    env = P.PMSM(batch_size=B, saturated=True, motor_variant=P.MotorVariant.BRUSA, static_params=params,
+                 action_normalizations=an)
+    acts, state0, omega = _pmsm_inputs(env, 16, 5)
+    for sim_ahead in (False, True):
+        kw = dict(tau=env.tau, obs_stride=1, sim_ahead=sim_ahead)
+        outk = PK.pmsm_kernel_rollout(env, acts, state0, omega, **kw)
+        outp = PK.plain_pmsm_rollout(env, acts, state0, omega, **kw)
+        for a, b in zip(_flat(outk), _flat(outp)):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
@@ -170,24 +188,28 @@ def test_pmsm_refused_launch_raises():
     env = P.PMSM(batch_size=256, saturated=True, motor_variant=P.MotorVariant.BRUSA, dtype=torch.float64)
     grid = np.linspace(-300.0, 300.0, 120)
     env._lut = StackedBilinearLUT(grid, grid, np.ones((6, 120, 120)), env._lut.channel_names,
-                                  device="cuda", dtype=torch.float64)  # 691,200 B
-    u_con, (i_d, i_q, omega, buf0) = _pmsm_inputs(env, 4, 6)
+                                  device="cuda", dtype=torch.float64)  # 921,600 B interleaved
+    acts, state0, omega = _pmsm_inputs(env, 4, 6)
     with pytest.raises(RuntimeError, match="launch failed"):
-        PK.pmsm_kernel_rollout(env, u_con, i_d, i_q, omega, buf0, tau=env.tau)
+        PK.pmsm_kernel_rollout(env, acts, state0, omega, tau=env.tau)
     with pytest.raises(NotImplementedError, match="backward"):
-        PK.pmsm_kernel_rollout(env, u_con.clone().requires_grad_(True), i_d, i_q, omega, buf0, tau=env.tau)
+        PK.pmsm_kernel_rollout(env, acts.clone().requires_grad_(True), state0, omega, tau=env.tau)
 
 
 @pytest.mark.gpu
-def test_pmsm_env_paths_run_on_the_card():
+def test_pmsm_env_paths_run_on_the_card(monkeypatch):
+    """One launch per entry-point call, and no eager pre-pass on the card."""
     _cuda()
     env = P.PMSM(batch_size=512, saturated=True, motor_variant=P.MotorVariant.BRUSA, solver="rk4")
     _, state = env.vmap_reset(rng=torch.Generator(device="cuda").manual_seed(7))
     acts = 0.3 * torch.ones((512, 8, 2), device="cuda")
     PK.KERNEL.reset_counts()
+    prepass = []
+    monkeypatch.setattr(PK, "_eps_trajectory", lambda *a: prepass.append("angle loop"))
+    monkeypatch.setattr(P.PMSM, "_constrain", lambda *a: prepass.append("constraint"))
     obs, last = env.fused_rollout(state, acts, obs_stride=2, strict=True)
     obs_sa, _ = env.fused_sim_ahead(state, acts, env.tau, env.tau, strict=True)
-    assert PK.KERNEL.launches == {"pmsm_step": 1, "pmsm_sim_ahead": 1}
+    assert PK.KERNEL.launches == {"pmsm_step": 1, "pmsm_sim_ahead": 1} and prepass == []
     assert obs.shape == (512, 4, 8) and obs_sa.shape == (512, 9, 8)
     assert bool(torch.isfinite(obs).all()) and bool(torch.isfinite(obs_sa).all())
 
@@ -579,3 +601,62 @@ def test_batch_major_fused_rollout_reads_the_slab_in_place():
     torch.cuda.synchronize()
     assert torch.cuda.max_memory_allocated() - before < slab_bytes
     assert torch.equal(obs_tm, obs_bm)
+
+
+@pytest.mark.gpu
+def test_pmsm_sector_function_matches_torch():
+    """The kernel's atan2f and the hexagon's sin sign bits against
+    torch.atan2 and torch.sin, bit for bit, on seeded pairs and the sector
+    edges."""
+    _cuda()
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    alpha, beta = ((torch.rand((2, 1 << 22), generator=gen, device="cuda") * 2 - 1) * 1.5).unbind(0)
+    theta = torch.arange(-3, 4, device="cuda", dtype=torch.float64) * (np.pi / 3)
+    edges_a, edges_b = torch.cos(theta).float(), torch.sin(theta).float()
+    for a, b in ((alpha.contiguous(), beta.contiguous()), (edges_a, edges_b)):
+        counts = PK.sector_mismatches(a, b)
+        assert counts["atan2"] == 0 and counts["sector"] == 0
+
+
+CL_VARIANT_CASES = [
+    # (kind, hidden widths, the instantiation the wrapper picks)
+    ("pd", None, "affine"),
+    ("pi", None, "affine"),
+    ("affine_two_refs", None, "affine_generic"),
+    ("actor", (16, 16), "actor_16x16"),
+    ("actor", (24, 8), "actor_generic"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,hidden,variant", CL_VARIANT_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_closed_loop_instantiations_match_plain_version(kind, hidden, variant, dtype):
+    """Each instantiation of csrc/closed_loop.cu (the register laws and the
+    generic ones) against the plain version, and the launch counted under
+    the instantiation the wrapper picked."""
+    _cuda()
+    n_steps = 32
+    if kind == "affine_two_refs":
+        env = P.Pendulum(batch_size=2048 + 45, control_state=["theta", "omega"], dtype=dtype)
+        gen = torch.Generator(device="cuda").manual_seed(21)
+        rand = lambda: (torch.rand(env.batch_size, generator=gen, device="cuda", dtype=torch.float64) * 2
+                        - 1).to(dtype)
+        policy, y0, refs = P.AffinePolicy([[-0.9, -0.25, 0.9, 0.1]], clip=1.0), (rand(), rand()), (rand(), rand())
+        loop = {"traj_stride": 1}
+    else:
+        env, policy, y0, refs, loop = _cl_case(kind, dtype, n_steps)
+        if hidden is not None:
+            loop["policy_params"] = _actor_params(env, hidden=hidden)
+    kw = dict(tau=env.tau, solver=env._solver, props=env.env_properties, ref_leaves=refs, **loop)
+    spec = policy.kernel_spec(dtype, "cuda", loop.get("policy_params"))
+    assert CL.kernel_variant(len(y0), spec) == variant
+    before = dict(CL.VARIANT_LAUNCHES)
+    outk = CL.kernel_closed_loop(env, y0, policy, n_steps, **kw)
+    outp = CL.plain_closed_loop(env, y0, policy, n_steps, **kw)
+    torch.cuda.synchronize()
+    assert CL.VARIANT_LAUNCHES[variant] == before[variant] + 1
+    flat = lambda out: [t for part in out if part is not None for t in part]
+    assert len(flat(outk)) == len(flat(outp))
+    for a, b in zip(flat(outk), flat(outp)):
+        assert torch.equal(a, b)

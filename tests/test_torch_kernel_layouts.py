@@ -177,3 +177,66 @@ def test_floored_mod_fast_path_on_special_values(dtype):
     bits = {np.float32: np.int32, np.float64: np.int64}[dtype]
     finite = ~np.isnan(want)
     assert np.array_equal(got[finite].view(bits), want[finite].view(bits))
+
+
+# ---------------------------------------------------------------------------
+# the closed-loop actor's flat weights as ActorReg<16, 16> reads them
+# ---------------------------------------------------------------------------
+
+
+def _actor_offsets(n_in, h1, h2, n_action):
+    """csrc/closed_loop.cu::ActorReg::prepare's offsets into the flat vector."""
+    o_b0 = n_in * h1
+    o_w1 = o_b0 + h1
+    o_b1 = o_w1 + h1 * h2
+    o_w2 = o_b1 + h2
+    o_b2 = o_w2 + h2 * n_action
+    return dict(o_b0=o_b0, o_w1=o_w1, o_b1=o_b1, o_w2=o_w2, o_b2=o_b2, o_std=o_b2 + n_action)
+
+
+@pytest.mark.parametrize("n_in", [2, 3, 5, 8])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_actor_flat_layout_and_16_byte_reads(n_in, dtype):
+    """ActorPolicy.kernel_spec's flat vector read back at ActorReg's offsets
+    gives every weight, bias, log_std and the seed; the rows ActorReg reads
+    as 16-byte vectors start on 16-byte boundaries in both float types."""
+    from exciting_environments_torch.utils.rl_fused import ActorPolicy
+
+    rng = np.random.default_rng(n_in)
+    sizes = (n_in, 16, 16, 1)
+    layers = [{"w": torch.as_tensor(rng.normal(size=(m, n)), dtype=dtype),
+               "b": torch.as_tensor(rng.normal(size=n), dtype=dtype)} for m, n in zip(sizes[:-1], sizes[1:])]
+    params = {"actor": layers, "log_std": torch.full((1,), -1.0, dtype=dtype), "seed": 5.0}
+    flat = ActorPolicy(1).kernel_spec(dtype, "cpu", params).flat
+    o = _actor_offsets(n_in, 16, 16, 1)
+    w0 = flat[: o["o_b0"]].reshape(n_in, 16)
+    assert torch.equal(w0, layers[0]["w"]) and torch.equal(flat[o["o_b0"] : o["o_w1"]], layers[0]["b"])
+    assert torch.equal(flat[o["o_w1"] : o["o_b1"]].reshape(16, 16), layers[1]["w"])
+    assert torch.equal(flat[o["o_b1"] : o["o_w2"]], layers[1]["b"])
+    assert torch.equal(flat[o["o_w2"] : o["o_b2"]].reshape(16, 1), layers[2]["w"])
+    assert float(flat[o["o_std"]]) == -1.0 and float(flat[o["o_std"] + 1]) == 5.0
+    assert flat.numel() == o["o_std"] + 2
+    per_vector = 16 // flat.element_size()
+    for name in ("o_b0", "o_w1", "o_b1", "o_w2"):
+        assert o[name] % per_vector == 0, name
+
+
+# ---------------------------------------------------------------------------
+# the PMSM kernel's in-place read of either action layout
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("batch_major", [False, True])
+def test_pmsm_action_rows_are_read_in_place(batch_major):
+    """csrc/pmsm_stepper.cu's row pointer (start b * 2 time-major or
+    b * T * 2 batch-major, then one row stride per step) visits the same
+    actions as the time-major slab, for every instance and step."""
+    T, B = 7, 5
+    acts_tm = torch.arange(T * B * 2, dtype=torch.float64).reshape(T, B, 2)
+    slab = (acts_tm.transpose(0, 1) if batch_major else acts_tm).contiguous().reshape(-1)
+    row_stride = 2 if batch_major else B * 2
+    for b in range(B):
+        start = b * T * 2 if batch_major else b * 2
+        for r in range(T):
+            at = start + r * row_stride
+            assert torch.equal(slab[at : at + 2], acts_tm[r, b])

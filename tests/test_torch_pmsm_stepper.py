@@ -20,6 +20,7 @@ import exciting_environments_tpu as J
 import exciting_environments_torch as P
 from exciting_environments_tpu.core import structures as jstructures
 from exciting_environments_tpu.ops.pallas import pmsm_stepper as jpk
+from exciting_environments_torch.core import structures as pstructures
 from exciting_environments_torch.models.pmsm.pmsm_env import extrapolated_angles
 from exciting_environments_torch.ops.kernels import pmsm_stepper as PK
 from exciting_environments_torch.ops.kernels import rollout_path
@@ -278,11 +279,9 @@ def test_cpu_tensors_take_the_plain_version_only():
     pe.fused_rollout(ps, acts, strict=True)
     pe.fused_sim_ahead(ps, acts, pe.tau, pe.tau, strict=True)
     assert PK.KERNEL.launches == {"pmsm_step": 0, "pmsm_sim_ahead": 0}
-    phys = ps.physical_state
-    u_con, _, _ = PK._constrained_voltages(pe, ps, acts.transpose(0, 1), pe.env_properties)
+    state0, omega = PK._start(ps)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        PK.pmsm_kernel_rollout(pe, u_con, phys.i_d, phys.i_q, phys.omega_el, (phys.u_d_buffer, phys.u_q_buffer),
-                               tau=pe.tau)
+        PK.pmsm_kernel_rollout(pe, acts, state0, omega, tau=pe.tau, batch_major=True)
 
 
 def test_plain_version_is_differentiable_on_cpu():
@@ -292,3 +291,123 @@ def test_plain_version_is_differentiable_on_cpu():
     obs, _ = pe.fused_rollout(ps, acts, strict=True)
     obs[:, 0].sum().backward()
     assert acts.grad is not None and bool((acts.grad[:, -2] != 0).any())
+
+
+# ---------------------------------------------------------------------------
+# the plain version's by-products: what the kernel writes in place of the slab
+# ---------------------------------------------------------------------------
+
+
+def _derived_from_the_slab(pe, ps, acts_tm, tau, obs_stride, sim_ahead):
+    """The angles, buffers and last voltage as the fused path derived them
+    from the materialized pre-pass (``u_con``, ``eps_seq``) before the kernel
+    took the pre-pass over: ``(final eps, final buffers, u_last, saved eps,
+    saved buffers)``."""
+    phys = ps.physical_state
+    props = pe.env_properties
+    deadtime = int(props.static_params.deadtime)
+    n = acts_tm.shape[0]
+    if sim_ahead:
+        eps_ext = extrapolated_angles(phys.epsilon, phys.omega_el, pe.tau, n)
+        u_con = PK._constraint_denorm_batched(pe, props, acts_tm, eps_ext, phys.omega_el)
+        rate = PK._eps_rate(pe._solver, phys.omega_el)
+        eps = [phys.epsilon]
+        for _ in range(n):
+            eps.append(eps[-1] + tau * rate)
+        eps_post = PK.wrap_angle(torch.stack(eps))[1:]
+    else:
+        u_con, eps_seq, eps_final = PK._constrained_voltages(pe, ps, acts_tm, props)
+        eps_post = torch.cat([eps_seq[1:], eps_final[None]], dim=0)
+    buf0 = torch.stack((phys.u_d_buffer, phys.u_q_buffer), dim=-1)
+    buf_final = (u_con[-1, :, 0], u_con[-1, :, 1]) if deadtime else (phys.u_d_buffer, phys.u_q_buffer)
+    u_last = buf0 if (deadtime and n == 1) else u_con[n - 1 - deadtime]
+    saves = None
+    if obs_stride is not None:
+        bufs = u_con[obs_stride - 1 :: obs_stride] if deadtime else None
+        saves = (eps_post[obs_stride - 1 :: obs_stride], None if bufs is None else bufs[..., 0],
+                 None if bufs is None else bufs[..., 1])
+    return eps_post[-1], buf_final, (u_last[:, 0], u_last[:, 1]), saves
+
+
+def _banded_pmsm(dtype, solver, deadtime, per_batch, batch=8):
+    """A saturated BRUSA drive; with ``per_batch`` a (B,) DC link and a (B,)
+    u_d action band."""
+    rng = np.random.default_rng(21)
+    static = _static("BRUSA", True, deadtime=deadtime)
+    kw = {}
+    if per_batch:
+        static["u_dc"] = rng.uniform(350.0, 450.0, batch)
+        an = dict(P.MotorVariant.BRUSA.get_params().action_normalizations.__dict__)
+        an["u_d"] = P.MinMaxNormalization(min=an["u_d"].min, max=rng.uniform(200.0, 300.0, batch))
+        kw["action_normalizations"] = an
+    return P.PMSM(batch_size=batch, saturated=True, motor_variant=P.MotorVariant.BRUSA, solver=solver,
+                  static_params=static, device="cpu", dtype=dtype, **kw)
+
+
+BY_PRODUCT_MODES = [("step", 1), ("step", 16), ("sim_ahead", 1)]
+
+
+@pytest.mark.parametrize("mode,obs_stride", BY_PRODUCT_MODES)
+@pytest.mark.parametrize("solver", ["euler", "rk4"])
+@pytest.mark.parametrize("deadtime", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_plain_by_products_equal_the_slab_derivation(dtype, deadtime, solver, mode, obs_stride):
+    """plain_pmsm_rollout returns the angles, buffers and last voltage the
+    kernel writes; they equal, bit for bit, what the fused path used to
+    derive from the materialized u_con and eps_seq."""
+    pe = _banded_pmsm(dtype, solver, deadtime, per_batch=False)
+    _, ps = pe.vmap_reset(rng=torch.Generator().manual_seed(3))
+    sim_ahead = mode == "sim_ahead"
+    n = 32
+    acts_tm = torch.as_tensor(_actions(22, n=n, batch=pe.batch_size, lim=0.9).transpose(1, 0, 2), dtype=dtype)
+    state0, omega = PK._start(ps)
+    final, u_last, traj = PK.plain_pmsm_rollout(pe, acts_tm, state0, omega, tau=pe.tau, obs_stride=obs_stride,
+                                                sim_ahead=sim_ahead)
+    eps_final, buf_final, u_last_want, saves = _derived_from_the_slab(pe, ps, acts_tm, pe.tau, obs_stride, sim_ahead)
+    assert torch.equal(final[3], eps_final)
+    assert all(torch.equal(a, b) for a, b in zip(final[4:], buf_final))
+    assert all(torch.equal(a, b) for a, b in zip(u_last, u_last_want))
+    assert len(traj) == 6 and all(t.shape == (n // obs_stride, pe.batch_size) for t in traj[:4])
+    assert torch.equal(traj[3], saves[0])
+    for got, want in zip(traj[4:], saves[1:]):
+        assert (got is None) == (want is None) == (deadtime == 0)
+        assert got is None or torch.equal(got, want)
+    # the batch-major slab gives the same results
+    final_bm, _, traj_bm = PK.plain_pmsm_rollout(pe, acts_tm.transpose(0, 1), state0, omega, tau=pe.tau,
+                                                 obs_stride=obs_stride, sim_ahead=sim_ahead, batch_major=True)
+    assert all(torch.equal(a, b) for a, b in zip(final + traj[:4], final_bm + traj_bm[:4]))
+
+
+@pytest.mark.parametrize("mode,obs_stride", [("step", 16), ("sim_ahead", 1)])
+@pytest.mark.parametrize("deadtime", [0, 1])
+def test_plain_by_products_with_per_batch_dc_link_and_band(deadtime, mode, obs_stride):
+    pe = _banded_pmsm(torch.float32, "euler", deadtime, per_batch=True)
+    bands = PK.kernel_bands(pe.env_properties, pe.batch_size)
+    assert [k for k, v in bands.items() if isinstance(v, torch.Tensor)] == ["u_dc", "a_d_mx"]
+    assert PK.supports_pmsm_fused(pe)
+    _, ps = pe.vmap_reset(rng=torch.Generator().manual_seed(4))
+    sim_ahead = mode == "sim_ahead"
+    acts_tm = torch.as_tensor(_actions(23, n=32, batch=pe.batch_size, lim=0.9).transpose(1, 0, 2),
+                              dtype=torch.float32)
+    state0, omega = PK._start(ps)
+    final, u_last, traj = PK.plain_pmsm_rollout(pe, acts_tm, state0, omega, tau=pe.tau, obs_stride=obs_stride,
+                                                sim_ahead=sim_ahead)
+    eps_final, buf_final, u_last_want, saves = _derived_from_the_slab(pe, ps, acts_tm, pe.tau, obs_stride, sim_ahead)
+    assert torch.equal(final[3], eps_final)
+    assert all(torch.equal(a, b) for a, b in zip(final[4:] + u_last, buf_final + u_last_want))
+    assert torch.equal(traj[3], saves[0])
+    assert all(a is b is None or torch.equal(a, b) for a, b in zip(traj[4:], saves[1:]))
+
+
+def test_band_scope_of_the_kernel():
+    """Scalar and (B,) DC links and bands are in the kernel's scope (a 0-d
+    tensor expands to (B,)); any other shape sends the entry points to the
+    loop."""
+    pe = _banded_pmsm(torch.float64, "euler", 1, per_batch=False)
+    props = pe.env_properties
+    assert all(isinstance(v, float) for v in PK.kernel_bands(props, pe.batch_size).values())
+    with_u_dc = lambda u_dc: pstructures.replace(props, static_params=pstructures.replace(props.static_params,
+                                                                                          u_dc=u_dc))
+    assert PK.kernel_bands(with_u_dc(torch.tensor(400.0, dtype=torch.float64)), pe.batch_size)["u_dc"].shape == (
+        pe.batch_size,)
+    assert PK.kernel_bands(with_u_dc(torch.full((2, pe.batch_size), 400.0)), pe.batch_size) is None
