@@ -64,7 +64,10 @@ Phases (any failure raises and the script exits non-zero):
    anatomy (rows 2a-2c);
 10. check the float32 sincos identities of ``csrc/pmsm_closed_loop.cu``
     (``sincosf`` equals ``torch.sin``/``torch.cos`` of x, and of -x as
-    ``-sin``/``cos``) over every float32 |x| < 2^7 on the card; then hold
+    ``-sin``/``cos``) over every float32 |x| < 2^7 on the card, and the
+    start trigonometry of ``csrc/pmsm_fast.cu`` against ``torch.sin``/
+    ``torch.cos`` (every float32 |x| < 2^8, seeded float32 values beyond,
+    seeded float64 values, special values); then hold
     the PMSM closed-loop kernel (``csrc/pmsm_closed_loop.cu``) against
     its plain version at B = 4,096, T = 64, float32 (and one float64 case),
     tolerance 0.0: P and PI laws on saturated BRUSA and linear DEFAULT,
@@ -86,16 +89,27 @@ Phases (any failure raises and the script exits non-zero):
     and sim-ahead modes, CartPole Tsit5, one float64 case, the PD law, ragged
     B), tolerance 0.0, then time the fast pendulum's step mode (with its
     anatomy, row 1c) and PD law (row 2d) at T = 4,096;
-13. the fast pendulum kernel (``csrc/pendulum_fast.cu``): kernel vs plain at
-    0.0 (both layouts, a ragged B), the main case ``Pendulum(batch_size=65536,
-    tau=1e-4)`` over T = 4,096 through ``pendulum_fast_rollout`` in both
-    layouts with one launch each, bench.py's gate (six chained rollouts
-    within 1e-2 rad of the exact chain) and the sustained T = 16,384 slab;
-14. the trig-free PMSM kernel (``csrc/pmsm_fast.cu``): kernel vs plain at 0.0
-    (B = 4,096, T = 64, DEFAULT, BRUSA and SEW, deadtime 0 and 1, both
-    layouts, float64, ragged B), the main case saturated BRUSA B = 65,536,
-    T = 256 through ``env.fast_rollout`` in both layouts with one launch
-    each, its deviation from the exact ``env.fused_rollout`` (float32 within
+13. the fast pendulum kernel (``csrc/pendulum_fast.cu``, the action ring of
+    ``csrc/action_ring.cuh``): kernel vs plain at 0.0 (both layouts, a
+    ragged B, T = 4,099 and T = 4,100 whose horizons end inside a ring tile,
+    batch-major rows no 16-byte multiple, a horizon shorter than a tile),
+    the main case ``Pendulum(batch_size=65536, tau=1e-4)`` over T = 4,096
+    through ``pendulum_fast_rollout`` in both layouts with one launch each,
+    the batch-major slab read in place (extra memory below the slab), both
+    layouts timed against the kernel, the anatomy (row 5), bench.py's gate
+    (six chained rollouts within 1e-2 rad of the exact chain) and the
+    sustained T = 16,384 slab;
+14. the trig-free PMSM kernel (``csrc/pmsm_fast.cu``, its start and final
+    angle folded in): kernel vs plain at 0.0 (B = 4,096, T = 64, DEFAULT,
+    BRUSA and SEW, deadtime 0 and 1, both layouts, float64 in both
+    deadtimes with its ~95 KB table, ragged B in both layouts, T odd,
+    broadcast scalar leaves, start angles beyond 2^7), the main case
+    saturated BRUSA B = 65,536, T = 256 through ``env.fast_rollout`` in
+    both layouts with one launch each and no eager ``fast_start``,
+    ``fast_final_angle`` or ``Tensor.contiguous`` (counted), the batch-major
+    slab read in place (extra memory below the slab), the kernel's
+    occupancy, both layouts timed against the kernel, the anatomy (row 6),
+    its deviation from the exact ``env.fused_rollout`` (float32 within
     1e-4 over T = 32; over T = 256 float64 within 1e-9, and the float32 fast
     path no farther from the float64 exact path than 4 times the float32
     exact path is; a holding fleet that stays inside its current bands
@@ -108,7 +122,8 @@ stack and spills from the build's ``-Xptxas -v`` report; the SASS
 instructions of one step, counted by ``cuobjdump -sass`` on the built
 library along the shortest way through one iteration of the time loop (a
 lower bound: slow paths and untaken blocks left out) and in the loop's
-static body (an upper bound); the issue time they imply, warps x steps x
+static body (an upper bound), with the loads and conversions in that body
+(LDS, LDC, ULDC, LDG, LDGSTS, F2F); the issue time they imply, warps x steps x
 instructions / (132 SMs x 4 schedulers x the maximum SM clock); the ratio
 of the kernel's time to it (near 1 the kernel is issue-bound, well above 1
 latency- or memory-bound); and the kernel's share of its entry point, from
@@ -153,8 +168,11 @@ def log(msg):
     print(msg, flush=True)
 
 
-def time_ms(fn, reps=5, warmup=1):
-    """Median time of ``fn`` over ``reps`` runs, CUDA events around each."""
+def time_ms(fn, reps=5, warmup=1, chain=1):
+    """Median time of ``fn`` over ``reps`` runs, CUDA events around each.
+    With ``chain`` > 1 a run is ``chain`` calls back to back, and its time is
+    divided by ``chain``: the host work of a call then overlaps the device
+    work of the one before, so a short kernel's wrapper drops out."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -162,15 +180,27 @@ def time_ms(fn, reps=5, warmup=1):
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(chain):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / chain)
     return statistics.median(times)
 
 
 def max_abs(xs, ys):
     return max(float((x.double() - y.double()).abs().max()) for x, y in zip(xs, ys))
+
+
+def extra_memory(fn):
+    """The device memory that ``fn`` allocates at its peak beyond what was
+    allocated before it, in bytes."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - before
 
 
 def entry(name, launches, err, ms, plain_ms, bound_ms, bound_by, source, replaces):
@@ -190,6 +220,9 @@ def roofline(nbytes, ops):
 
 SMS, SCHEDULERS = 132, 4  # H100 SXM: 132 SMs, 4 warp schedulers each
 STEPPER_TILE_ROWS = 16  # action rows per tile of csrc/stepper.cu's ring, float32 with one action
+#: action rows per ring tile of the kernels that stream their slab through csrc/action_ring.cuh (float32, one
+#: action); a build without the ring (no cp.async, LDGSTS) is counted untiled
+TILE_ROWS = {"stepper": STEPPER_TILE_ROWS, "pendulum_fast": 32}
 _SASS = {}
 
 
@@ -261,8 +294,23 @@ def _loops(code):
     for s in spans:
         nested = [t for t in spans if t != s and s[0] <= t[0] and t[1] <= s[1]]
         body = [ins for a, ins in code if inside(a, s) and not any(inside(a, t) for t in nested)]
-        loops.append({"span": s, "own": len(body), "ops": {_opcode(ins) for ins in body if not ins.startswith("@!PT")}})
+        loops.append({"span": s, "own": len(body), "body": body,
+                      "ops": {_opcode(ins) for ins in body if not ins.startswith("@!PT")}})
     return loops
+
+
+def loop_loads(lib, kernel_re):
+    """{opcode: count} of LOOP_OPCODES (by the opcode's first word) in the
+    static body of the kernel's time loop, the loop with the largest own
+    body: which loads and conversions one pass of it issues at most."""
+    pattern = kernel_pattern(lib, kernel_re)
+    funcs = [c for n, c in _sass_functions(lib).items() if re.search(pattern, n)]
+    loops = _loops(funcs[0]) if len(funcs) == 1 else []
+    if not loops:
+        return None
+    body = max(loops, key=lambda lp: lp["own"])["body"]
+    ops = [_opcode(ins).split(".")[0] for ins in body if not ins.startswith("@!PT")]
+    return {op: ops.count(op) for op in LOOP_OPCODES if op in ops}
 
 
 def _opcode(ins):
@@ -348,6 +396,10 @@ def sass_step_count(lib, kernel_re, via=(), tile_rows=None):
     if len(tiles) != 1 or not within(step, tiles[0]):
         return name, None, None
     tile = tiles[0]
+    if step is tile:
+        # the tile's rows unrolled in its body: per step is a tile's pass over tile_rows
+        hot_tile = hot_path(code, tile["span"], ("^LDGSTS", "^LDS") + tuple(via))
+        return name, (hot_tile / tile_rows if hot_tile else None), tile["own"] / tile_rows
     row = max((lp for lp in loops if lp is not tile and within(step, lp) and within(lp, tile)),
               key=lambda lp: lp["span"][1] - lp["span"][0])
     static = sum(lp["own"] for lp in loops if within(lp, row)) + tile["own"] / tile_rows
@@ -425,6 +477,10 @@ def anatomy(row, lib, kernel_re, ms, entry_ms, batch, n_steps, entry_fn, kernel_
     kernel's share of its entry point: from a torch.profiler trace where it
     shows device time, and from the CUDA-event times ``ms``/``entry_ms``."""
     regs, stack, spill = ptxas_resources(lib, kernel_re)
+    if tile_rows is None:
+        pattern = kernel_pattern(lib, kernel_re)
+        code = next((c for n, c in _sass_functions(lib).items() if re.search(pattern, n)), [])
+        tile_rows = tile_rows_of(Path(lib).stem.rsplit("_", 1)[0], code)
     for via in vias:  # the first way through the case's work that the SASS has
         name, hot, static = sass_step_count(lib, kernel_re, via, tile_rows)
         if hot:
@@ -438,7 +494,8 @@ def anatomy(row, lib, kernel_re, ms, entry_ms, batch, n_steps, entry_fn, kernel_
     traced = (f"kernel {k_ms!r} ms of the entry point's {wall_ms!r} ms ({k_ms / wall_ms:.1%}), device busy "
               f"{busy_ms!r} ms" if k_ms else "no device time in the trace")
     log(f"[anatomy] {row}: {name}: {regs} registers, {stack} B stack, {spill} B spill; SASS per step "
-        f"{hot!r} on the hot path, {static} static; issue time {issue_ms!r} ms (static {issue_static_ms!r}) at "
+        f"{hot!r} on the hot path{' (tiled)' if tile_rows else ''}, {static} static, time-loop body loads "
+        f"{loop_loads(lib, kernel_re)}; issue time {issue_ms!r} ms (static {issue_static_ms!r}) at "
         f"{mx:.0f} MHz (now {cur:.0f}); kernel {ms!r} ms = {ratio!r} x issue; kernel share of the entry "
         f"point by CUDA events {ms!r} / {entry_ms!r} ms = {ms / entry_ms:.1%}; profiler: {traced}")
 
@@ -468,7 +525,11 @@ SASS_CASES = [
     ("4a/4b/4d", "pmsm_closed_loop", r"pmsm_closed_loop_kernel<float, 1, true, AffineAdapter>", [()]),
     ("4c", "pmsm_closed_loop", r"pmsm_closed_loop_kernel<float, 1, true, ScheduledLaw>",
      [(r"^LDG\.E\.128\.CONSTANT",), (r"^LDG\.E\.CONSTANT",)]),
+    ("5", "pendulum_fast", r"pendulum_fast_kernel", [(r"0\.1591549",), ()]),
+    ("6", "pmsm_fast", r"pmsm_fast_kernel<float, true, 1>", [()]),
 ]
+#: the loads and conversions whose count in a time loop's body the anatomy reports
+LOOP_OPCODES = ("LDS", "LDC", "ULDC", "LDG", "LDGSTS", "F2F")
 
 
 def sass_case(row):
@@ -486,6 +547,14 @@ def kernel_pattern(lib, kernel_re):
     return next((alt for alt in alts if sum(bool(re.search(alt, n)) for n in names) == 1), alts[0])
 
 
+def tile_rows_of(kind, code):
+    """Action rows per ring tile of a kernel (its library's kind and SASS)
+    that streams its slab through the ring (cp.async, LDGSTS), else None."""
+    if kind not in TILE_ROWS or not any(ins.split(" ")[0].startswith("LDGSTS") for _, ins in code):
+        return None
+    return TILE_ROWS[kind]
+
+
 def sass_report(libraries):
     """The SASS anatomy of the main cases in built kernel libraries (this
     tree's, or an earlier commit's): registers, stack and spills, and the
@@ -498,21 +567,28 @@ def sass_report(libraries):
                 continue
             pattern = kernel_pattern(lib, kernel_re)
             code = next((c for n, c in _sass_functions(lib).items() if re.search(pattern, n)), [])
-            tiled = any(ins.split(" ")[0].startswith("LDGSTS") for _, ins in code) and kind == "stepper"
+            tile_rows = tile_rows_of(kind, code)
             for via in vias:
-                found, hot, static = sass_step_count(lib, kernel_re, via, STEPPER_TILE_ROWS if tiled else None)
+                found, hot, static = sass_step_count(lib, kernel_re, via, tile_rows)
                 if hot:
                     break
             regs, stack, spill = ptxas_resources(lib, kernel_re)
             log(f"[sass] {lib.name} {row}: {found}: {regs} registers, {stack} B stack, {spill} B spill; "
-                f"per step {hot!r} on the hot path{' (tiled)' if tiled else ''}, {static} static")
+                f"per step {hot!r} on the hot path{' (tiled)' if tile_rows else ''}, {static} static; "
+                f"time-loop body loads {loop_loads(lib, kernel_re)}")
     return 0
 
 
 def phase_trig():
     """The float32 trigonometric identities of csrc/pmsm_closed_loop.cu, over
-    every float32 |x| < 2^7 on the card: any mismatch fails."""
+    every float32 |x| < 2^7 on the card; then the start trigonometry of
+    csrc/pmsm_fast.cu (sincosf below 2^7, sinf/cosf above, sin/cos in
+    float64) against torch.sin/torch.cos: every float32 |x| < 2^8, 2^26
+    seeded float32 values beyond, and in float64 2^26 seeded values over the
+    range the start meets (the wrapped angle plus 1.5 tau omega, |x| < 8)
+    and 2^24 beyond, with the special values.  Any mismatch fails."""
     from exciting_environments_torch.ops.kernels import pmsm_closed_loop as PCL
+    from exciting_environments_torch.ops.kernels import pmsm_fast_kernel as PMK
 
     t0 = time.perf_counter()
     counts = PCL.sincos_mismatches()
@@ -521,6 +597,35 @@ def phase_trig():
         f"in {time.perf_counter() - t0:.2f} s")
     if any(v for k, v in counts.items() if k != "inputs"):
         raise AssertionError(f"the kernel's sincos identities fail on this card: {counts}")
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+    special = [0.0, -0.0, float("inf"), -float("inf"), float("nan"), 128.0, -128.0, np.pi, -np.pi]
+    total = {}
+
+    def tally(name, x):
+        got = PMK.start_trig_mismatches(x)
+        acc = total.setdefault(name, {k: 0 for k in got})
+        for k, v in got.items():
+            acc[k] += v
+
+    end, chunk = int(np.array(2.0 ** 8, dtype=np.float32).view(np.int32)), 1 << 27
+    for start in range(0, end, chunk):
+        pattern = torch.arange(start, min(start + chunk, end), dtype=torch.int32, device=DEVICE).view(torch.float32)
+        tally("float32 |x| < 2^8, every value", pattern)
+        tally("float32 |x| < 2^8, every value", -pattern)
+    wide = lambda dtype, n, lo, hi: (torch.sign(torch.rand(n, generator=gen, device=DEVICE, dtype=torch.float64) - 0.5)
+                                     * torch.exp2(lo + (hi - lo) * torch.rand(n, generator=gen, device=DEVICE,
+                                                                              dtype=torch.float64))).to(dtype)
+    tally("float32 2^7 <= |x| < 2^30, seeded", wide(torch.float32, 1 << 26, 7.0, 30.0))
+    tally("float32 special", torch.tensor(special, device=DEVICE, dtype=torch.float32))
+    tally("float64 |x| < 8, seeded", (torch.rand(1 << 26, generator=gen, device=DEVICE, dtype=torch.float64) * 16 - 8))
+    tally("float64 2^3 <= |x| < 2^30, seeded", wide(torch.float64, 1 << 24, 3.0, 30.0))
+    tally("float64 special", torch.tensor(special, device=DEVICE, dtype=torch.float64))
+    torch.cuda.synchronize()
+    log(f"[trig] pmsm_fast start_sincos against torch.sin/cos: {total} in {time.perf_counter() - t0:.2f} s")
+    if any(v for counts in total.values() for k, v in counts.items() if k != "inputs"):
+        raise AssertionError(f"the fast PMSM kernel's start trigonometry differs from PyTorch's on this card: {total}")
 
 
 def ode_ops(env):
@@ -759,12 +864,7 @@ def phase_main(ex, K):
     bm_kernel = lambda: K.kernel_rollout(env, y0, actions_bm, tau=env.tau, batch_major=True)
     err_bm = max_abs(bm_kernel()[0], yk)
     slab_bytes = actions_tm.numel() * actions_tm.element_size()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    before = torch.cuda.memory_allocated()
-    env.fused_rollout(state, actions_bm, strict=True)
-    torch.cuda.synchronize()
-    extra = torch.cuda.max_memory_allocated() - before
+    extra = extra_memory(lambda: env.fused_rollout(state, actions_bm, strict=True))
     log(f"[main] batch-major slab read in place: kernel vs time-major max abs {err_bm!r}; env.fused_rollout "
         f"batch-major allocated at most {extra} B beyond its inputs (slab {slab_bytes} B)")
     if err_bm != 0.0 or extra >= slab_bytes:
@@ -1747,6 +1847,9 @@ PENDULUM_FAST_OPS = 30  # per step, counted from csrc/pendulum_fast.cu
 #: per step of csrc/pmsm_fast.cu (saturated: with the 80-operation gather), and the final torque
 PMSM_FAST_OPS = {True: (166, 84), False: (80, 4)}
 B_FAST_CHECK = 4096
+#: the fast kernels take 0.2-0.5 ms, near their wrappers' host work: each is timed over this many calls back to
+#: back (its "ms"), and over one call as the other kernels are
+FAST_CHAIN = 10
 
 
 def wrapped_gap(a, b):
@@ -1872,11 +1975,17 @@ def phase_fast_flag(ex, K, CL):
 
 
 def phase_pendulum_fast(ex, PFK):
-    """Kernel 5: kernel vs plain at 0.0 (B = 65,536 and a ragged B, T = 64,
-    both layouts); the main case Pendulum(batch_size=65536, tau=1e-4), actions
-    in +-1, T = 4,096 in both layouts; the bench gate against six chained
-    exact rollouts; the sustained T = 16,384 time-major slab.  Returns the
-    kernel table entry."""
+    """Kernel 5: kernel vs plain at 0.0 through the entry point (B = 65,536
+    and a ragged B, T = 64, both layouts; T = 4,099, which ends inside a ring
+    tile and whose batch-major rows are no 16-byte multiples, both layouts;
+    T = 4,100, 16-byte rows and a ragged last tile; a horizon shorter than a
+    tile); the main case Pendulum(batch_size=65536, tau=1e-4), actions in
+    +-1, T = 4,096 in both layouts, one launch each, the batch-major slab
+    read in place (no more extra memory than the slab); the bench gate
+    against six chained exact rollouts; the sustained T = 16,384 time-major
+    slab.  Returns the kernel table entry."""
+    from exciting_environments_torch.ops.kernels.stepper import build as K_build
+
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
     uniform = lambda *shape: torch.rand(shape, generator=gen, device=DEVICE) * 2 - 1
 
@@ -1885,11 +1994,17 @@ def phase_pendulum_fast(ex, PFK):
         return PFK.plain_pendulum_fast_rollout(phys.theta, phys.omega, acts_tm[..., 0], **PFK.fast_constants(env))
 
     failures = []
-    for label, batch, time_major in (("B=65536 batch-major", B_MAIN, False), ("B=65536 time-major", B_MAIN, True),
-                                     ("ragged B=65531 time-major", B_MAIN - 5, True)):
+    for label, batch, n_steps, time_major in (
+            ("B=65536 batch-major", B_MAIN, T_CHECK, False), ("B=65536 time-major", B_MAIN, T_CHECK, True),
+            ("ragged B=65531 time-major", B_MAIN - 5, T_CHECK, True),
+            ("ragged B=65531 batch-major", B_MAIN - 5, T_CHECK, False),
+            ("T=4099 time-major (ends inside a tile)", B_FAST_CHECK, 4099, True),
+            ("T=4099 batch-major (rows no 16-byte multiple)", B_FAST_CHECK, 4099, False),
+            ("T=4100 batch-major (16-byte rows, ragged last tile)", B_FAST_CHECK, 4100, False),
+            ("T=7 batch-major ragged B=1000 (shorter than a tile)", 1000, 7, False)):
         env = ex.Pendulum(batch_size=batch, tau=1e-4, device=DEVICE)
         _, state = env.vmap_reset(rng=gen)
-        acts_tm = uniform(T_CHECK, batch, 1)
+        acts_tm = uniform(n_steps, batch, 1)
         acts = acts_tm if time_major else acts_tm.transpose(0, 1).contiguous()
         got = ex.pendulum_fast_rollout(env, state, acts, time_major=time_major)
         ref = plain(env, state, acts_tm)
@@ -1907,15 +2022,24 @@ def phase_pendulum_fast(ex, PFK):
     _, state = env.vmap_reset(rng=gen)
     actions_tm = uniform(T, B, 1)
     actions_bm = actions_tm.transpose(0, 1).contiguous()
-    launches = {}
+    launches, finals = {}, {}
     for layout, acts, tm in (("time-major", actions_tm, True), ("batch-major", actions_bm, False)):
         PFK.KERNEL.reset_counts()
-        th, om = ex.pendulum_fast_rollout(env, state, acts, time_major=tm)
+        finals[layout] = th, om = ex.pendulum_fast_rollout(env, state, acts, time_major=tm)
         torch.cuda.synchronize()
         launches[layout] = PFK.KERNEL.launches["pendulum_fast"]
         if launches[layout] != 1 or tuple(th.shape) != (B,) or not bool(torch.isfinite(th).all()):
             raise AssertionError(f"the fast pendulum ({layout}) did not run once through its kernel: {launches}")
     log(f"[pendulum fast main] Pendulum B={B} T={T} float32, actions in +-1: launches {launches}")
+    # the batch-major slab is read in place: the same results, and no copy
+    # (the entry point's extra memory stays below the slab's)
+    err_bm = max_abs(finals["batch-major"], finals["time-major"])
+    slab_bytes = actions_bm.numel() * actions_bm.element_size()
+    extra = extra_memory(lambda: ex.pendulum_fast_rollout(env, state, actions_bm))
+    log(f"[pendulum fast main] batch-major slab read in place: vs time-major max abs {err_bm!r}; "
+        f"pendulum_fast_rollout batch-major allocated at most {extra} B beyond its inputs (slab {slab_bytes} B)")
+    if err_bm != 0.0 or extra >= slab_bytes:
+        raise AssertionError("the fast pendulum copied its batch-major slab, or read it differently")
     consts = PFK.fast_constants(env)
     phys = state.physical_state
     kernel = lambda: PFK.kernel_pendulum_fast_rollout(phys.theta, phys.omega, actions_tm[..., 0], **consts)
@@ -1927,16 +2051,27 @@ def phase_pendulum_fast(ex, PFK):
     err = max_abs(got, ref)
     if err != 0.0:
         raise AssertionError(f"the fast pendulum kernel disagrees with its plain version at the main size ({err!r})")
-    ms = time_ms(kernel)
+    ms_one = time_ms(kernel)
+    ms = time_ms(kernel, chain=FAST_CHAIN)
+    kernel_bm_ms = time_ms(lambda: PFK.kernel_pendulum_fast_rollout(phys.theta, phys.omega, actions_bm[..., 0],
+                                                                    batch_major=True, **consts), chain=FAST_CHAIN)
     tm_ms = time_ms(lambda: ex.pendulum_fast_rollout(env, state, actions_tm, time_major=True))
     bm_ms = time_ms(lambda: ex.pendulum_fast_rollout(env, state, actions_bm))
+    tm_chain_ms = time_ms(lambda: ex.pendulum_fast_rollout(env, state, actions_tm, time_major=True), chain=FAST_CHAIN)
+    bm_chain_ms = time_ms(lambda: ex.pendulum_fast_rollout(env, state, actions_bm), chain=FAST_CHAIN)
     exact_ms = time_ms(lambda: env.fused_rollout(state, actions_tm, time_major=True, strict=True))
     bound_ms, bound_by = roofline(4 * (T * B + 4 * B), PENDULUM_FAST_OPS * B * T)
     steps = B * T
-    log(f"[pendulum fast main] kernel: {ms!r} ms = {steps / ms * 1e3:.4e} env-steps/s; bound {bound_ms!r} ms "
-        f"({bound_by}); {bound_ms / ms:.1%} of the bound; slab read at {4 * T * B / ms / 1e9:.3f} TB/s")
-    log(f"[pendulum fast main] pendulum_fast_rollout time-major {tm_ms!r} ms, batch-major {bm_ms!r} ms; the exact "
+    log(f"[pendulum fast main] kernel ({FAST_CHAIN} calls back to back; one call {ms_one!r} ms): {ms!r} ms = "
+        f"{steps / ms * 1e3:.4e} env-steps/s; bound {bound_ms!r} ms "
+        f"({bound_by}); {bound_ms / ms:.1%} of the bound; slab read at {4 * T * B / ms / 1e9:.3f} TB/s; "
+        f"batch-major slab {kernel_bm_ms!r} ms ({bound_ms / kernel_bm_ms:.1%} of the bound)")
+    log(f"[pendulum fast main] pendulum_fast_rollout time-major {tm_ms!r} ms, batch-major {bm_ms!r} ms (one call; "
+        f"{FAST_CHAIN} calls back to back: {tm_chain_ms!r}, {bm_chain_ms!r} ms per call); the exact "
         f"env.fused_rollout time-major {exact_ms!r} ms; plain version {plain_ms!r} ms (one run)")
+    _, kernel_re, vias = sass_case("5")
+    anatomy("5 pendulum_fast", K_build("pendulum_fast"), kernel_re, ms, tm_ms, B, T,
+            lambda: ex.pendulum_fast_rollout(env, state, actions_tm, time_major=True), "pendulum_fast_kernel", vias)
 
     # bench.py's gate: six chained rollouts, fast against exact, from one state
     fast_state, exact_state = state, state
@@ -2027,14 +2162,32 @@ def holding_fleet(ex, env, gen, n_steps, dither=0.005):
     return state, actions
 
 
+class TensorMethodCounter(CallCounter):
+    """Counts the calls of a ``torch.Tensor`` method while active (the
+    method lives on a C base class, so the counter is set on
+    ``torch.Tensor`` and taken off again on exit)."""
+
+    def __init__(self, name):
+        super().__init__(torch.Tensor, name)
+
+    def __exit__(self, *exc):
+        delattr(torch.Tensor, self.name)
+
+
 def phase_pmsm_fast(ex, PF, PMK):
-    """Kernel 6: kernel vs plain at 0.0 (B = 4,096, T = 64, over DEFAULT,
-    BRUSA and SEW, deadtime 0 and 1, both layouts, a float64 case, a ragged
-    B); the main case, saturated BRUSA B = 65,536, actions in +-0.3, T = 256,
-    through env.fast_rollout in both layouts; the deviation from the exact
-    env.fused_rollout on that fleet and on a holding fleet inside the
-    current bands; the kernel alone on the holding fleet and at T = 4,096.
-    Returns the kernel table entry."""
+    """Kernel 6: kernel vs plain at 0.0 through env.fast_rollout (B = 4,096,
+    T = 64, over DEFAULT, BRUSA and SEW, deadtime 0 and 1 with the start
+    folded in, both layouts, float64 with its ~95 KB table in both
+    deadtimes, a ragged B, T odd batch-major, broadcast scalar leaves,
+    angles beyond 2^7); the main case, saturated BRUSA B = 65,536, actions in
+    +-0.3, T = 256, through env.fast_rollout in both layouts, one launch each
+    and no eager start, final angle or contiguous copy (counted), the
+    batch-major slab read in place; the kernel's occupancy; the deviation
+    from the exact env.fused_rollout on that fleet and on a holding fleet
+    inside the current bands; the kernel alone on the holding fleet and at
+    T = 4,096.  Returns the kernel table entry."""
+    from exciting_environments_torch.ops.kernels.stepper import build as K_build
+
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 10)
     B, T = B_FAST_CHECK, T_CHECK
     fields = ("i_d", "i_q", "epsilon", "torque", "u_d_buffer", "u_q_buffer", "omega_el")
@@ -2054,12 +2207,29 @@ def phase_pmsm_fast(ex, PF, PMK):
         ("BRUSA saturated deadtime 0 time-major", pmsm_env(ex, B, static={"deadtime": 0}), True),
         ("SEW saturated deadtime 1", pmsm_env(ex, B, "SEW"), False),
         ("BRUSA saturated float64 (shared memory above 48 KB)", pmsm_env(ex, B, dtype=torch.float64), False),
+        ("BRUSA saturated float64 deadtime 0 time-major", pmsm_env(ex, B, dtype=torch.float64, static={"deadtime": 0}),
+         True),
         ("BRUSA saturated ragged B=1000 time-major", pmsm_env(ex, 1000), True),
+        ("BRUSA saturated ragged B=1000 batch-major", pmsm_env(ex, 1000), False),
+        ("BRUSA saturated batch-major T=63 (odd)", pmsm_env(ex, B), False, 63),
+        ("BRUSA saturated broadcast scalar omega_el and epsilon", pmsm_env(ex, B), False, T, "scalar"),
+        ("BRUSA saturated angles beyond 2^7 (literal sinf/cosf)", pmsm_env(ex, B), True, T, "wide"),
+        ("DEFAULT linear float64 angles beyond 2^7", pmsm_env(ex, B, "DEFAULT", saturated=False,
+                                                             dtype=torch.float64), False, T, "wide"),
     ]
     failures = []
-    for label, env, time_major in cases:
+    for label, env, time_major, *more in cases:
+        n_steps, leaves = (more + [None])[:2] if more else (T, None)
         _, state = env.vmap_reset(rng=gen)
-        u = torch.rand((T, env.batch_size, 2), generator=gen, device=DEVICE, dtype=torch.float64)
+        if leaves == "scalar":
+            with ex.core.structures.copy_and_mutate(state) as state:
+                state.physical_state.omega_el = torch.tensor(1200.0, device=DEVICE, dtype=env.dtype)
+                state.physical_state.epsilon = torch.tensor(-2.5, device=DEVICE, dtype=env.dtype)
+        elif leaves == "wide":
+            with ex.core.structures.copy_and_mutate(state) as state:
+                wide = torch.rand(env.batch_size, generator=gen, device=DEVICE, dtype=torch.float64) * 2 - 1
+                state.physical_state.epsilon = (wide * 1e3).to(env.dtype)
+        u = torch.rand((n_steps, env.batch_size, 2), generator=gen, device=DEVICE, dtype=torch.float64)
         acts = ((u * 2 - 1) * 0.9).to(env.dtype)
         err, finite = deviation(env, state, acts if time_major else acts.transpose(0, 1).contiguous(), time_major)
         ok = finite and err == 0.0
@@ -2076,21 +2246,41 @@ def phase_pmsm_fast(ex, PF, PMK):
     actions = ((u * 2 - 1) * 0.3).float()
     actions_tm = actions.transpose(0, 1).contiguous()
     del u
-    launches = {}
-    finals = {}
+    # the main path, with the eager start, final angle and copies counted:
+    # on the card each layout is one launch and none of them
+    launches, finals, eager = {}, {}, {}
     for layout, acts, tm in (("time-major", actions_tm, True), ("batch-major", actions, False)):
         PMK.KERNEL.reset_counts()
-        finals[layout] = env.fast_rollout(state, acts, time_major=tm)
-        torch.cuda.synchronize()
+        with CallCounter(PMK, "fast_start") as start, CallCounter(PMK, "fast_final_angle") as final, \
+                CallCounter(PF, "fast_start") as pf_start, CallCounter(PF, "fast_final_angle") as pf_final, \
+                TensorMethodCounter("contiguous") as contiguous:
+            finals[layout] = env.fast_rollout(state, acts, time_major=tm)
+            torch.cuda.synchronize()
         launches[layout] = PMK.KERNEL.launches["pmsm_fast"]
+        eager[layout] = {"fast_start": start.calls + pf_start.calls, "fast_final_angle": final.calls + pf_final.calls,
+                         "Tensor.contiguous": contiguous.calls}
         if launches[layout] != 1:
             raise AssertionError(f"env.fast_rollout ({layout}) made {launches[layout]} pmsm_fast launches, not 1")
+        if any(eager[layout].values()):
+            raise AssertionError(f"env.fast_rollout ({layout}) ran eager work on the card: {eager[layout]}")
     a, b = finals["time-major"].physical_state, finals["batch-major"].physical_state
     if not all(torch.equal(getattr(a, n), getattr(b, n)) for n in fields):
         raise AssertionError("time-major and batch-major fast rollouts disagree")
     if not all(bool(torch.isfinite(getattr(a, n)).all()) and tuple(getattr(a, n).shape) == (B,) for n in fields):
         raise AssertionError("non-finite or misshapen fast PMSM state")
-    log(f"[pmsm fast main] PMSM BRUSA saturated B={B} T={T} float32, actions in +-0.3: launches {launches}")
+    log(f"[pmsm fast main] PMSM BRUSA saturated B={B} T={T} float32, actions in +-0.3: launches {launches}; "
+        f"eager calls {eager}")
+    slab_bytes = actions.numel() * actions.element_size()
+    extra = extra_memory(lambda: env.fast_rollout(state, actions))
+    log(f"[pmsm fast main] batch-major slab read in place: env.fast_rollout batch-major allocated at most {extra} B "
+        f"beyond its inputs (slab {slab_bytes} B)")
+    if extra >= slab_bytes:
+        raise AssertionError("env.fast_rollout copied its batch-major slab")
+    occupancy = {"float32": PMK.blocks_per_sm(env, torch.float32),
+                 "float64": PMK.blocks_per_sm(pmsm_env(ex, 128, dtype=torch.float64), torch.float64)}
+    log(f"[pmsm fast main] blocks of 128 threads per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), "
+        f"saturated BRUSA deadtime 1: {occupancy}; dynamic shared memory per block "
+        f"{ {k: PMK.shared_memory_bytes(env._lut.nx, env._lut.ny, getattr(torch, k)) for k in occupancy} } B")
     t0 = time.perf_counter()
     ref = PF.pmsm_fast_rollout(env, state, actions_tm, time_major=True)
     torch.cuda.synchronize()
@@ -2098,25 +2288,33 @@ def phase_pmsm_fast(ex, PF, PMK):
     err = max_abs([getattr(a, n) for n in fields], [getattr(ref.physical_state, n) for n in fields])
     if err != 0.0:
         raise AssertionError(f"the fast PMSM kernel disagrees with its plain version at the main size ({err!r})")
-    def kernel_args(st, acts_tm):
+    def kernel_args(st, acts, time_major=True):
         """The kernel's own arguments, built as env.fast_rollout builds them."""
-        consts, acts_tm, lv = PF.fast_inputs(env, st, acts_tm, True)
-        s0 = PF.fast_start(lv["epsilon"], lv["omega_el"], consts)
-        return (env, acts_tm, lv["i_d"], lv["i_q"], s0[0], s0[1], lv["u_d_buffer"], lv["u_q_buffer"], lv["omega_el"],
-                s0[2], s0[3], consts)
+        consts, _, lv = PF.fast_inputs(env, st, acts, time_major)
+        return env, acts, lv, consts, not time_major
 
     args = kernel_args(state, actions_tm)
-    ms = time_ms(lambda: PMK.kernel_pmsm_fast_rollout(*args))
+    ms_one = time_ms(lambda: PMK.kernel_pmsm_fast_rollout(*args))
+    ms = time_ms(lambda: PMK.kernel_pmsm_fast_rollout(*args), chain=FAST_CHAIN)
+    bm_args = kernel_args(state, actions, False)
+    kernel_bm_ms = time_ms(lambda: PMK.kernel_pmsm_fast_rollout(*bm_args), chain=FAST_CHAIN)
     tm_ms = time_ms(lambda: env.fast_rollout(state, actions_tm, time_major=True))
     bm_ms = time_ms(lambda: env.fast_rollout(state, actions))
+    tm_chain_ms = time_ms(lambda: env.fast_rollout(state, actions_tm, time_major=True), chain=FAST_CHAIN)
+    bm_chain_ms = time_ms(lambda: env.fast_rollout(state, actions), chain=FAST_CHAIN)
     exact_ms = time_ms(lambda: env.fused_rollout(state, actions_tm, time_major=True, strict=True))
     bound_ms, bound_by = pmsm_fast_bound(env, B, T)
     steps = B * T
-    log(f"[pmsm fast main] kernel alone: {ms!r} ms = {steps / ms * 1e3:.4e} env-steps/s; bound {bound_ms!r} ms "
-        f"({bound_by}); {bound_ms / ms:.1%} of the bound")
+    log(f"[pmsm fast main] kernel alone ({FAST_CHAIN} calls back to back; one call {ms_one!r} ms): {ms!r} ms = "
+        f"{steps / ms * 1e3:.4e} env-steps/s; bound {bound_ms!r} ms "
+        f"({bound_by}); {bound_ms / ms:.1%} of the bound; batch-major slab {kernel_bm_ms!r} ms")
     log(f"[pmsm fast main] env.fast_rollout time-major {tm_ms!r} ms = {steps / tm_ms * 1e3:.4e} env-steps/s "
-        f"(kernel {ms / tm_ms:.1%}), batch-major {bm_ms!r} ms; the exact env.fused_rollout time-major {exact_ms!r} ms; "
+        f"(kernel {ms / tm_ms:.1%}), batch-major {bm_ms!r} ms (one call; {FAST_CHAIN} calls back to back: "
+        f"{tm_chain_ms!r}, {bm_chain_ms!r} ms per call); the exact env.fused_rollout time-major {exact_ms!r} ms; "
         f"plain version {plain_ms!r} ms (one run)")
+    _, kernel_re, vias = sass_case("6")
+    anatomy("6 pmsm_fast", K_build("pmsm_fast"), kernel_re, ms, tm_ms, B, T,
+            lambda: env.fast_rollout(state, actions_tm, time_major=True), "pmsm_fast_kernel", vias)
 
     # fast vs exact, max |d i| / max |i|.  float32 over 32 steps at the JAX
     # test's 1e-4.  Over 256 steps most drives of this random fleet run away
@@ -2152,11 +2350,13 @@ def phase_pmsm_fast(ex, PF, PMK):
         f"float32 fast {fast_drift!r} (limit 4 x {exact_drift!r})")
     if not ok:
         raise AssertionError("the fast PMSM rollout left its tolerance against the exact path")
-    hold_args = kernel_args(hold_state, hold_actions.transpose(0, 1).contiguous())
-    hold_ms = time_ms(lambda: PMK.kernel_pmsm_fast_rollout(*hold_args))
-    log(f"[pmsm fast main] kernel alone on the holding fleet (gathers inside the table), T={T}: {hold_ms!r} ms "
-        f"(random fleet {ms!r} ms)")
-    del hold_actions, hold_args
+    hold_args = kernel_args(hold_state, hold_actions, False)
+    hold_ms = time_ms(lambda: PMK.kernel_pmsm_fast_rollout(*hold_args), chain=FAST_CHAIN)
+    hold_tm_args = kernel_args(hold_state, hold_actions.transpose(0, 1).contiguous())
+    hold_tm_ms = time_ms(lambda: PMK.kernel_pmsm_fast_rollout(*hold_tm_args), chain=FAST_CHAIN)
+    log(f"[pmsm fast main] kernel alone on the holding fleet (gathers inside the table), T={T}: time-major "
+        f"{hold_tm_ms!r} ms, batch-major {hold_ms!r} ms (random fleet {ms!r}, {kernel_bm_ms!r} ms)")
+    del hold_actions, hold_args, hold_tm_args
 
     a_long = ((torch.rand((T_PMSM_LONG, B, 2), generator=gen, device=DEVICE) * 2 - 1) * 0.3).contiguous()
     long_args = kernel_args(state, a_long)

@@ -1,41 +1,61 @@
 // Trig-free PMSM drive rollout: the whole drive step (action denormalization,
 // inverter hexagon at the carried deadtime-advanced angle, deadtime buffer,
 // LUT-gathered or linear Euler step of the currents, rotation carry) for T
-// steps in one launch, streaming only the normalized actions.
+// steps in one launch, streaming only the normalized actions, with the
+// carry's start and the final angle computed in the launch too.
 //
 // Replaces the TPU kernel exciting_environments_tpu/ops/pallas/pmsm_fast_kernel.py::
-// _make_kernel (+ _hex_clip_tiles; launcher _fast_core).  Per step, as the
-// plain version ops/pmsm_fast.py::plain_pmsm_fast_rollout:
-//   u = a * scale + offset, n = u * 2 / u_dc;
+// _make_kernel (+ _hex_clip_tiles; launcher _fast_core), and the eager start
+// and end that ops/pmsm_fast.py runs around its step loop.  Per drive, as
+// ops/pmsm_fast.py::pmsm_fast_rollout (fast_start, plain_pmsm_fast_rollout,
+// fast_final_angle):
+//   start: delta = omega * tau, adv0 = eps + ((deadtime + 0.5) * tau) * omega,
+//   (cA, sA) = (cos, sin)(adv0), (c_delta, s_delta) = (cos, sin)(delta);
+//   per step: u = a * scale + offset, n = u * 2 / u_dc;
 //   (alpha, beta) = rotation of n by the carried (cA, sA);
 //   the hexagon clip: sector bits from linear sign tests, the sector
-//   rotation from the table ops/transforms.py ROTATION_RE/IM at [b0][b1][b2]
-//   (passed in the arguments), the clamp to the top sector's rectangle, the
-//   rotation back;
+//   rotation from the table ops/transforms.py ROTATION_RE/IM at [b0][b1][b2],
+//   the clamp to the top sector's rectangle, the rotation back;
 //   u_c = rotation back to dq, * u_dc / 2; deadtime 1: the buffer drives the
 //   currents and takes u_c;
 //   di = L^-1 (u - r_s i - omega J psi) from the six gathered channels
 //   (saturated), or the linear ODE; i += tau di;
-//   (cA, sA) advanced by (cos, sin)(omega tau), renormalized to first order.
-// After the loop, the torque from one more gather at the final currents.
-// The wrapper computes the carry's start, the rotation constants and the
-// final angle with the plain version's eager operations, so that both start
-// from the same tensors.
+//   (cA, sA) advanced by (c_delta, s_delta), renormalized to first order;
+//   end: the torque from one more gather at the final currents, and the
+//   angle wrap_angle_fast(eps + T * delta).
 //
 // What bounds it on an H100: at the main size (saturated BRUSA, B = 65,536,
-// T = 256, float32) the normalized action slab is 134 MB, 0.040 ms at
-// 3.35 TB/s, and the step is about 160 float32 operations per drive (2.7e9
-// in all, 0.041 ms at 67 TFLOP/s): the two bounds tie.  In practice the 24
-// data-dependent shared-memory loads of each step's gather and the chain of
-// dependent operations set the time, as in pmsm_stepper.cu.
+// T = 256, float32) the step is about 166 float32 operations per drive
+// (2.8e9 in all, 0.042 ms at 67 TFLOP/s) and the normalized action slab 134
+// MB (0.040 ms at 3.35 TB/s): the operations bound it, the bytes close
+// behind.  In fact one dependent chain per drive sets the time: the
+// gather's data-dependent shared-memory loads, the sector's rotation, the
+// inductance inverse.  The first version issued 24 scalar loads per gather
+// from the stacked (6, nx, ny) table, read the sector rotation as a
+// run-time index into the kernel's double parameters (converted every
+// step), loaded each action component apart, and left the carry's start,
+// the final angle and the contiguous copies of broadcast leaves (and of a
+// batch-major slab, transposed) to eager PyTorch around the launch.
 //
-// What the design does about it: one thread per drive keeps its six state
-// values (i_d, i_q, cA, sA, buf_d, buf_q), omega and the rotation constants
-// in registers for all T steps; no per-step transcendental is left.  The
-// magnetics table sits in dynamic shared memory (35,616 B for BRUSA in
-// float32; 71,232 B in float64, above 48 KB after cudaFuncSetAttribute), with
-// the gather of pmsm_drive.cuh (0.0 against ops/lut.py::bilinear_gather).
-// The (T, B, 2) slab is read time-major, coalesced.  The TPU kernel's
+// What the design does about it: one thread per drive keeps i_d, i_q, cA,
+// sA, the deadtime buffer, omega and the rotation constants in registers
+// for all T steps (keep(): no constant is reconverted in the loop).  The
+// magnetics table sits in dynamic shared memory channel-interleaved,
+// (nx, ny, 8) (ops/lut.py::interleave_channels; 47,488 B for BRUSA in
+// float32, 94,976 B in float64), followed by the eight sector rotations as
+// (re, im) pairs in the working type: a gather is eight 16-byte loads
+// (gather_il of pmsm_drive.cuh, 0.0 against ops/lut.py::bilinear_gather),
+// the rotation one 8-byte (float32) or 16-byte (float64) load by the
+// sector index.  128 threads per block: with 47,552 B per block four blocks
+// (16 warps) share an SM in float32, two in float64 (95,104 B, after
+// cudaFuncSetAttribute).  The action pair of a step is one 8- or 16-byte
+// load, from either layout in place ((T, B, 2) rows B * 2 apart, (B, T, 2)
+// rows 2 apart: a run-time field, not a template parameter), issued one
+// step ahead.  The carry's start (one sincosf per angle in float32 below
+// 2^7, the literal sinf/cosf above; sin and cos in float64) and the final
+// angle are computed in the launch, and the per-drive leaves are read in
+// place with their element stride (0 for a broadcast scalar), so
+// PMSM.fast_rollout on the card is this one launch.  The TPU kernel's
 // one-hot gather encodings (int8x4, bf16x3), its 2 MB chunk budget, its
 // (8, 128) tiles and batch % 1024 have no counterpart: any B runs, float32
 // and float64.
@@ -43,12 +63,17 @@
 // Exactness: every operation mirrors the plain version in order and in the
 // working precision, built with --fmad=false (eager_rules.cuh): the
 // constants arrive folded in double as Python folds them, the divisions by
-// the inductance determinant are true divisions, the clamps compare.
+// the inductance determinant are true divisions, the clamps compare, a
+// multiply by a Python number rounds the number to the working type first,
+// and sincosf equals torch.sin/torch.cos for every float32 |x| < 2^7
+// (checked on the card, chip_smoke.py's trig phase, which also holds this
+// kernel's start function against PyTorch beyond 2^7 and in float64).
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "eager_rules.cuh"
+#include "fastmath.cuh"
 #include "pmsm_drive.cuh"
 
 // Mirrored field for field by PmsmFastArgs in ops/kernels/pmsm_fast_kernel.py.
@@ -62,30 +87,86 @@ struct PmsmFastArgs {
     double a_scale_d, a_off_d, a_scale_q, a_off_q;
     double to_halfdc, from_halfdc;      // 2 / u_dc, u_dc / 2
     double x0, dx, y0, dy;              // LUT grid (Python numbers)
+    double adv_scale;                   // (deadtime + 0.5) * tau, folded in Python
     double rot_re[8], rot_im[8];        // ops/transforms.py ROTATION_RE/IM at [b0][b1][b2]
-    const void* lut;                    // (6, nx, ny), saturated only
-    const void* actions;                // normalized, (T, B, 2)
-    const void* state0[6];              // (B,) i_d, i_q, cA, sA, u_d_buffer, u_q_buffer
-    const void* omega;                  // (B,)
-    const void* c_delta;                // (B,) cos(omega tau)
-    const void* s_delta;                // (B,) sin(omega tau)
-    void* out[5];                       // (B,) i_d, i_q, u_d_buffer, u_q_buffer, torque
+    const void* lut;                    // (nx, ny, 8) interleaved, saturated only
+    const void* actions;                // normalized, (T, B, 2), or (B, T, 2) with batch_major
+    const void* leaf[6];                // (B,) i_d, i_q, epsilon, omega_el, u_d_buffer, u_q_buffer
+    long long leaf_stride[6];           // their element strides (0: a broadcast scalar)
+    void* out[6];                       // (B,) i_d, i_q, u_d_buffer, u_q_buffer, torque, epsilon
     long long batch;
+    long long smem_bytes;               // dynamic shared memory, as the wrapper sizes it
     int nx, ny;
     int n_steps;
     int saturated;
     int deadtime;                       // 0 or 1
+    int batch_major;                    // layout of the action slab
 };
 
-// ops/pmsm_fast.py::hex_clip_fast
+enum { L_ID = 0, L_IQ = 1, L_EPS = 2, L_OMEGA = 3, L_BUF_D = 4, L_BUF_Q = 5 };
+
+// A pair of T in one 8-byte (float) or 16-byte (double) load.
 template <typename T>
-__device__ __forceinline__ void hex_clip_fast(const PmsmFastArgs& args, T& alpha, T& beta) {
+struct Pair;
+template <>
+struct Pair<float> {
+    using type = float2;
+};
+template <>
+struct Pair<double> {
+    using type = double2;
+};
+
+// Dynamic shared memory of one block, in elements of T: the interleaved
+// table (16-byte aligned, first), then the eight rotations as (re, im).
+__host__ __device__ __forceinline__ size_t table_elems(const PmsmFastArgs& args, bool sat) {
+    return sat ? (size_t)N_CHANNELS_PAD * args.nx * args.ny : 0;
+}
+template <typename T>
+__host__ __forceinline__ size_t smem_bytes(const PmsmFastArgs& args, bool sat) {
+    return (table_elems(args, sat) + 16) * sizeof(T);
+}
+
+// torch.sin(x) and torch.cos(x) for the carry's start: one sincosf where
+// it is proven equal to them (every float32 |x| < 2^7), else the literal
+// sinf and cosf; the literal sin and cos in float64
+__device__ __forceinline__ void start_sincos(float x, float& s, float& c) {
+    if (fabsf(x) < 128.0f) {
+        sincos_pair(x, s, c);
+    } else {
+        s = sinf(x);
+        c = cosf(x);
+    }
+}
+__device__ __forceinline__ void start_sincos(double x, double& s, double& c) { sincos_pair(x, s, c); }
+
+// ops/pmsm_fast.py::fast_start: (cA, sA) at the deadtime-advanced angle and
+// the per-step rotation (c_delta, s_delta)
+template <typename T>
+__device__ __forceinline__ void fast_start(const PmsmFastArgs& args, T eps, T omega, T& cA, T& sA, T& c_delta,
+                                           T& s_delta) {
+    const T delta = omega * (T)args.tau;
+    const T adv0 = eps + omega * (T)args.adv_scale;
+    start_sincos(adv0, sA, cA);
+    start_sincos(delta, s_delta, c_delta);
+}
+
+// ops/pmsm_fast.py::fast_final_angle: wrap_angle_fast(eps + n_steps * (omega * tau))
+template <typename T>
+__device__ __forceinline__ T fast_final_angle(const PmsmFastArgs& args, T eps, T omega) {
+    return wrap_angle_fast(eps + (omega * (T)args.tau) * (T)args.n_steps);
+}
+
+// ops/pmsm_fast.py::hex_clip_fast, the sector rotation from the (re, im)
+// pairs in shared memory
+template <typename T>
+__device__ __forceinline__ void hex_clip_fast(const typename Pair<T>::type* rot, T& alpha, T& beta) {
     const T s120 = (T)0.8660254037844386;
     const int b0 = beta >= T(0);
     const int b1 = (T)-0.5 * beta - s120 * alpha >= T(0);
     const int b2 = (T)-0.5 * beta + s120 * alpha >= T(0);
-    const int idx = b0 * 4 + b1 * 2 + b2;
-    const T rot_re = (T)args.rot_re[idx], rot_im = (T)args.rot_im[idx];
+    const typename Pair<T>::type r = rot[b0 * 4 + b1 * 2 + b2];
+    const T rot_re = r.x, rot_im = r.y;
     T ra = alpha * rot_re - beta * rot_im;
     T rb = alpha * rot_im + beta * rot_re;
     ra = clampv(ra, (T)(-2.0 / 3.0), (T)(2.0 / 3.0));
@@ -94,20 +175,40 @@ __device__ __forceinline__ void hex_clip_fast(const PmsmFastArgs& args, T& alpha
     beta = rb * rot_re - ra * rot_im;
 }
 
+// A per-drive leaf, read in place with its element stride.
+template <typename T>
+__device__ __forceinline__ T leaf(const PmsmFastArgs& args, int i, long long b) {
+    return static_cast<const T*>(args.leaf[i])[b * args.leaf_stride[i]];
+}
+
+static constexpr int THREADS = 128;
+
 template <typename T, bool SAT, int DEADTIME>
-__global__ void __launch_bounds__(128) pmsm_fast_kernel(const __grid_constant__ PmsmFastArgs args) {
+__global__ void __launch_bounds__(THREADS) pmsm_fast_kernel(const __grid_constant__ PmsmFastArgs args) {
+    using P = typename Pair<T>::type;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     T* lut = reinterpret_cast<T*>(smem_raw);
-    if (SAT) {
+    P* rot = reinterpret_cast<P*>(lut + table_elems(args, SAT));
+    {
         // every thread of the block takes part before any returns
-        const int n = N_CHANNELS * args.nx * args.ny;
-        const T* src = static_cast<const T*>(args.lut);
-        for (int i = threadIdx.x; i < n; i += blockDim.x) lut[i] = src[i];
+        if (threadIdx.x < 8) {
+            P r;
+            r.x = (T)args.rot_re[threadIdx.x];
+            r.y = (T)args.rot_im[threadIdx.x];
+            rot[threadIdx.x] = r;
+        }
+        if (SAT) {
+            using V = typename Vec16<T>::type;
+            const int n = (int)(table_elems(args, SAT) / Vec16<T>::N);
+            const V* tab = static_cast<const V*>(args.lut);
+            V* dst = reinterpret_cast<V*>(lut);
+            for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = tab[i];
+        }
         __syncthreads();
     }
     const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (b >= args.batch) return;
-    const long long batch = args.batch;
+    const int n_steps = args.n_steps;
 
     // the table's grid, for the gather of pmsm_drive.cuh
     Drive<T> grid;
@@ -117,33 +218,62 @@ __global__ void __launch_bounds__(128) pmsm_fast_kernel(const __grid_constant__ 
     grid.dy = divisor(weak_const<T>(args.dy));
     grid.nx = args.nx;
     grid.ny = args.ny;
+    keep(grid.x0);
+    keep(grid.y0);
+    keep(grid.dx.v);
+    keep(grid.dy.v);
 
-    const T tau = (T)args.tau, r_s = (T)args.r_s;
-    const T l_d = (T)args.l_d, l_q = (T)args.l_q, psi_p = (T)args.psi_p;
-    const T inv_ld = (T)args.inv_ld, inv_lq = (T)args.inv_lq;
-    const T a_scale_d = (T)args.a_scale_d, a_off_d = (T)args.a_off_d;
-    const T a_scale_q = (T)args.a_scale_q, a_off_q = (T)args.a_off_q;
-    const T to_halfdc = (T)args.to_halfdc, from_halfdc = (T)args.from_halfdc;
-    const T omega = static_cast<const T*>(args.omega)[b];
-    const T c_delta = static_cast<const T*>(args.c_delta)[b];
-    const T s_delta = static_cast<const T*>(args.s_delta)[b];
-    T i_d = static_cast<const T*>(args.state0[0])[b];
-    T i_q = static_cast<const T*>(args.state0[1])[b];
-    T cA = static_cast<const T*>(args.state0[2])[b];
-    T sA = static_cast<const T*>(args.state0[3])[b];
-    T buf_d = static_cast<const T*>(args.state0[4])[b];
-    T buf_q = static_cast<const T*>(args.state0[5])[b];
-    const T* __restrict__ act = static_cast<const T*>(args.actions);
+    T tau = (T)args.tau, r_s = (T)args.r_s;
+    T l_d = (T)args.l_d, l_q = (T)args.l_q, psi_p = (T)args.psi_p;
+    T inv_ld = (T)args.inv_ld, inv_lq = (T)args.inv_lq;
+    T a_scale_d = (T)args.a_scale_d, a_off_d = (T)args.a_off_d;
+    T a_scale_q = (T)args.a_scale_q, a_off_q = (T)args.a_off_q;
+    T to_halfdc = (T)args.to_halfdc, from_halfdc = (T)args.from_halfdc;
+    keep(tau);
+    keep(r_s);
+    keep(a_scale_d);
+    keep(a_off_d);
+    keep(a_scale_q);
+    keep(a_off_q);
+    keep(to_halfdc);
+    keep(from_halfdc);
+    if (!SAT) {
+        keep(l_d);
+        keep(l_q);
+        keep(psi_p);
+        keep(inv_ld);
+        keep(inv_lq);
+    }
 
-    for (int t = 0; t < args.n_steps; ++t) {
-        const long long i = ((long long)t * batch + b) * 2;
-        const T u_d = act[i] * a_scale_d + a_off_d;
-        const T u_q = act[i + 1] * a_scale_q + a_off_q;
+    T i_d = leaf<T>(args, L_ID, b);
+    T i_q = leaf<T>(args, L_IQ, b);
+    const T eps = leaf<T>(args, L_EPS, b);
+    const T omega = leaf<T>(args, L_OMEGA, b);
+    T buf_d = leaf<T>(args, L_BUF_D, b);
+    T buf_q = leaf<T>(args, L_BUF_Q, b);
+    T cA, sA, c_delta, s_delta;
+    fast_start(args, eps, omega, cA, sA, c_delta, s_delta);
+
+    // the action rows, read in place from either layout, one row ahead
+    const long long row_stride = args.batch_major ? 1 : args.batch;  // in pairs
+    const P* __restrict__ next_row = static_cast<const P*>(args.actions) + (args.batch_major ? b * n_steps : b);
+    P a_next{};
+    if (n_steps > 0) a_next = __ldg(next_row);
+
+#pragma unroll 1
+    for (int t = 0; t < n_steps; ++t) {
+        const P a = a_next;
+        if (t + 1 < n_steps) {
+            next_row += row_stride;
+            a_next = __ldg(next_row);  // in flight during this step
+        }
+        const T u_d = a.x * a_scale_d + a_off_d;
+        const T u_q = a.y * a_scale_q + a_off_q;
         const T nd = u_d * to_halfdc;
         const T nq = u_q * to_halfdc;
         T alpha = cA * nd - sA * nq;
         T beta = sA * nd + cA * nq;
-        hex_clip_fast(args, alpha, beta);
+        hex_clip_fast<T>(rot, alpha, beta);
         const T ud_c = (cA * alpha + sA * beta) * from_halfdc;
         const T uq_c = (-sA * alpha + cA * beta) * from_halfdc;
         T u_app_d = ud_c, u_app_q = uq_c;
@@ -156,7 +286,7 @@ __global__ void __launch_bounds__(128) pmsm_fast_kernel(const __grid_constant__ 
         T di_d, di_q;
         if (SAT) {
             T v[N_CHANNELS];
-            gather(lut, grid, i_d, i_q, v);
+            gather<true>(lut, grid, i_d, i_q, v);
             const T det = v[0] * v[3] - v[1] * v[2];
             const T rhs_d = u_app_d - r_s * i_d + omega * v[5];
             const T rhs_q = u_app_q - r_s * i_q - omega * v[4];
@@ -178,7 +308,7 @@ __global__ void __launch_bounds__(128) pmsm_fast_kernel(const __grid_constant__ 
     T torque;
     if (SAT) {
         T v[N_CHANNELS];
-        gather(lut, grid, i_d, i_q, v);
+        gather<true>(lut, grid, i_d, i_q, v);
         torque = (T)args.p15 * (v[4] * i_q - v[5] * i_d);
     } else {
         torque = (T)args.p15 * (psi_p + (T)args.dl * i_d) * i_q;
@@ -188,44 +318,53 @@ __global__ void __launch_bounds__(128) pmsm_fast_kernel(const __grid_constant__ 
     static_cast<T*>(args.out[2])[b] = buf_d;
     static_cast<T*>(args.out[3])[b] = buf_q;
     static_cast<T*>(args.out[4])[b] = torque;
+    static_cast<T*>(args.out[5])[b] = fast_final_angle(args, eps, omega);
 }
 
 // ---------------------------------------------------------------------------
 // Host entry point (plain C interface, loaded with ctypes)
 // ---------------------------------------------------------------------------
 
-static constexpr int THREADS = 128;
 static constexpr size_t STATIC_SMEM_LIMIT = 48 * 1024;
 
+// Opt the kernel in above 48 KB of dynamic shared memory; the error state
+// is cleared if that is refused, so that no later launch reports it.
 template <typename T, bool SAT, int DEADTIME>
-static int launch_one(const PmsmFastArgs& args, cudaStream_t stream) {
-    const size_t smem = SAT ? (size_t)N_CHANNELS * args.nx * args.ny * sizeof(T) : 0;
-    if (smem > STATIC_SMEM_LIMIT) {
-        // above 48 KB a launch is refused unless the kernel opts in
-        const cudaError_t err = cudaFuncSetAttribute(pmsm_fast_kernel<T, SAT, DEADTIME>,
-                                                     cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (err != cudaSuccess) {
-            cudaGetLastError();  // clear it, so that no later launch reports it
-            return (int)err;
-        }
-    }
+static cudaError_t allow_smem(size_t smem) {
+    if (smem <= STATIC_SMEM_LIMIT) return cudaSuccess;
+    const cudaError_t err = cudaFuncSetAttribute(pmsm_fast_kernel<T, SAT, DEADTIME>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) cudaGetLastError();
+    return err;
+}
+
+template <typename T, bool SAT, int DEADTIME>
+static int launch_one(const PmsmFastArgs& args, cudaStream_t stream, int* blocks_per_sm) {
+    const size_t smem = smem_bytes<T>(args, SAT);
+    if ((long long)smem != args.smem_bytes) return (int)cudaErrorInvalidValue;  // the wrapper sized it otherwise
+    const cudaError_t err = allow_smem<T, SAT, DEADTIME>(smem);
+    if (err != cudaSuccess) return (int)err;
+    if (blocks_per_sm != nullptr)  // the occupancy query: no launch
+        return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, pmsm_fast_kernel<T, SAT, DEADTIME>,
+                                                                  THREADS, smem);
     const unsigned blocks = (unsigned)((args.batch + THREADS - 1) / THREADS);
     pmsm_fast_kernel<T, SAT, DEADTIME><<<blocks, THREADS, smem, stream>>>(args);
     return (int)cudaGetLastError();
 }
 
 template <typename T, bool SAT>
-static int launch_deadtime(const PmsmFastArgs& args, cudaStream_t stream) {
+static int launch_deadtime(const PmsmFastArgs& args, cudaStream_t stream, int* blocks_per_sm) {
     switch (args.deadtime) {
-        case 0: return launch_one<T, SAT, 0>(args, stream);
-        case 1: return launch_one<T, SAT, 1>(args, stream);
+        case 0: return launch_one<T, SAT, 0>(args, stream, blocks_per_sm);
+        case 1: return launch_one<T, SAT, 1>(args, stream, blocks_per_sm);
         default: return (int)cudaErrorInvalidValue;
     }
 }
 
 template <typename T>
-static int launch_dtype(const PmsmFastArgs& args, cudaStream_t stream) {
-    return args.saturated ? launch_deadtime<T, true>(args, stream) : launch_deadtime<T, false>(args, stream);
+static int launch_dtype(const PmsmFastArgs& args, cudaStream_t stream, int* blocks_per_sm) {
+    return args.saturated ? launch_deadtime<T, true>(args, stream, blocks_per_sm)
+                          : launch_deadtime<T, false>(args, stream, blocks_per_sm);
 }
 
 extern "C" int pmsm_fast_args_size() { return (int)sizeof(PmsmFastArgs); }
@@ -235,5 +374,40 @@ extern "C" int pmsm_fast_args_size() { return (int)sizeof(PmsmFastArgs); }
 extern "C" int pmsm_fast_launch(const PmsmFastArgs* args, int dtype, void* stream) {
     if (args->batch <= 0) return 0;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return dtype == 0 ? launch_dtype<float>(*args, s) : launch_dtype<double>(*args, s);
+    return dtype == 0 ? launch_dtype<float>(*args, s, nullptr) : launch_dtype<double>(*args, s, nullptr);
+}
+
+// The blocks of the kernel that args selects which fit on one SM at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into *blocks.
+extern "C" int pmsm_fast_blocks_per_sm(const PmsmFastArgs* args, int dtype, int* blocks) {
+    return dtype == 0 ? launch_dtype<float>(*args, nullptr, blocks) : launch_dtype<double>(*args, nullptr, blocks);
+}
+
+// ---------------------------------------------------------------------------
+// The start's trigonometry, checked on the card
+// ---------------------------------------------------------------------------
+
+// start_sincos for n values: the caller holds s and c against torch.sin and
+// torch.cos bit for bit (ops/kernels/pmsm_fast_kernel.py::start_trig_mismatches)
+template <typename T>
+__global__ void start_trig_kernel(const T* __restrict__ x, T* __restrict__ s, T* __restrict__ c, long long n) {
+    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+         i += (long long)gridDim.x * blockDim.x) {
+        T si, co;
+        start_sincos(x[i], si, co);
+        s[i] = si;
+        c[i] = co;
+    }
+}
+
+extern "C" int pmsm_fast_start_trig(const void* x, void* s, void* c, long long n, int dtype, void* stream) {
+    if (n <= 0) return 0;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (dtype == 0)
+        start_trig_kernel<float><<<132 * 16, 256, 0, st>>>(static_cast<const float*>(x), static_cast<float*>(s),
+                                                           static_cast<float*>(c), n);
+    else
+        start_trig_kernel<double><<<132 * 16, 256, 0, st>>>(static_cast<const double*>(x), static_cast<double*>(s),
+                                                            static_cast<double*>(c), n);
+    return (int)cudaGetLastError();
 }

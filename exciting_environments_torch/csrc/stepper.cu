@@ -33,6 +33,8 @@
 // either layout: a time-major tile is K rows of 128 * A contiguous values,
 // a batch-major one 128 rows of K * A, so a batch-major slab needs no
 // transposed copy.  Each thread reads its own column from shared memory.
+// The ring's pieces (Ring, tile_copy, issue_tile, cp.async) live in
+// action_ring.cuh, shared with the fast pendulum (pendulum_fast.cu).
 // The loop advances the action row with a counter (no division), reads the
 // next row for use_next stages from the ring (the next tile is waited for
 // when a stage needs it), keeps the tableau's weights and zero/unit masks,
@@ -58,6 +60,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "action_ring.cuh"
 #include "classic_envs.cuh"
 #include "eager_rules.cuh"
 
@@ -106,98 +109,7 @@ static constexpr int STAGES = 3;     // tiles in the ring: the one being read an
 static constexpr int TILE_BYTES = 64;  // bytes of one instance's actions per tile
 
 template <typename T, int A>
-struct Ring {
-    static constexpr int K = TILE_BYTES / (A * (int)sizeof(T));  // action rows per tile
-    static constexpr int KA = K * A;
-    static constexpr int PAD = 16 / (int)sizeof(T);  // a batch-major row's padding, one 16-byte piece
-    static constexpr int SLOT = THREADS * (KA + PAD);  // elements of one tile
-};
-
-// One cp.async of N bytes; src_bytes 0 zero-fills the destination.
-template <int N>
-__device__ __forceinline__ void cp_async(void* dst, const void* src, bool valid) {
-    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-    const int src_bytes = valid ? N : 0;
-    if constexpr (N == 16)
-        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(src_bytes));
-    else
-        asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s), "l"(src), "n"(N), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// This thread's share of every tile copy.  A tile is a set of lines:
-// time-major, K rows of THREADS * A contiguous values; batch-major, THREADS
-// instance rows of K * A.  A line is copied in pieces of E elements (16
-// bytes, or one action vector of A elements), piece p of the block's tile
-// by thread p % THREADS; so a thread copies the pieces at one position
-// `pos` of every `lines_per_pass`-th line, from line `line0` on.  The slot
-// holds a time-major tile as [row][instance][a] and a batch-major one as
-// [instance][row * A + a], rows of KA + PAD elements.
-struct TileCopy {
-    long long src;       // element offset of the thread's first piece in tile 0
-    long long src_line;  // element step from one of its pieces to the next
-    long long src_tile;  // element step from one tile to the next
-    int dst, dst_line;   // the same in a slot
-    int line0, lines_per_pass, n;  // first line, line step, pieces per tile
-    int pos_elem;        // the piece's first element within its line
-};
-
-template <typename T, int A>
-__device__ __forceinline__ TileCopy tile_copy(int e, long long b0, long long batch, int n_rows, bool batch_major) {
-    using R = Ring<T, A>;
-    TileCopy c;
-    const int line_elems = batch_major ? R::KA : THREADS * A;
-    const int pieces = line_elems / e;  // per line; divides THREADS
-    c.lines_per_pass = THREADS / pieces;
-    c.line0 = threadIdx.x / pieces;
-    c.pos_elem = (threadIdx.x % pieces) * e;
-    c.n = (batch_major ? THREADS : R::K) / c.lines_per_pass;
-    if (batch_major) {
-        c.src_line = (long long)n_rows * A * c.lines_per_pass;
-        c.src = (b0 + c.line0) * n_rows * A + c.pos_elem;
-        c.src_tile = R::KA;
-        c.dst_line = (R::KA + R::PAD) * c.lines_per_pass;
-        c.dst = c.line0 * (R::KA + R::PAD) + c.pos_elem;
-    } else {
-        c.src_line = batch * A * c.lines_per_pass;
-        c.src = c.line0 * batch * A + b0 * A + c.pos_elem;
-        c.src_tile = (long long)R::K * batch * A;
-        c.dst_line = THREADS * A * c.lines_per_pass;
-        c.dst = c.line0 * THREADS * A + c.pos_elem;
-    }
-    return c;
-}
-
-// Issue tile `tile` (action rows tile*K ... tile*K + K - 1 of the block's
-// instances) into `slot` in pieces of U bytes; pieces past the batch or the
-// horizon are zero-filled.
-template <typename T, int A, int U>
-__device__ __forceinline__ void issue_tile(T* slot, const T* __restrict__ slab, const TileCopy& c, int tile,
-                                           long long b0, long long batch, int n_rows, bool batch_major) {
-    using R = Ring<T, A>;
-    const int row0 = tile * R::K;
-    // a piece is valid while its line is (rows of the horizon, instances of
-    // the batch) and its position is (instances, row elements)
-    const long long lines = batch_major ? batch - b0 : (long long)(n_rows - row0);
-    const bool pos_ok = batch_major ? row0 * A + c.pos_elem < n_rows * A : b0 * A + c.pos_elem < batch * A;
-    const T* src = slab + c.src + tile * c.src_tile;
-    T* dst = slot + c.dst;
-    int line = c.line0;
-#pragma unroll 1
-    for (int m = 0; m < c.n; ++m) {
-        const bool ok = pos_ok && line < lines;
-        cp_async<U>(dst, ok ? src : slab, ok);
-        src += c.src_line;
-        dst += c.dst_line;
-        line += c.lines_per_pass;
-    }
-}
+using StepRing = Ring<T, A, THREADS, TILE_BYTES>;  // action_ring.cuh
 
 // ---------------------------------------------------------------------------
 // The rollout kernel
@@ -215,7 +127,7 @@ template <typename T, class Env, int NS>
 __global__ void __launch_bounds__(THREADS) stepper_kernel(const __grid_constant__ StepperArgs args) {
     constexpr int N = Env::N_STATE;
     constexpr int A = Env::N_ACTION;
-    using R = Ring<T, A>;
+    using R = StepRing<T, A>;
     __shared__ __align__(16) T ring[STAGES * R::SLOT];
 
     const long long batch = args.batch;
@@ -275,15 +187,15 @@ __global__ void __launch_bounds__(THREADS) stepper_kernel(const __grid_constant_
     const long long row_elems = batch_major ? (long long)n_rows * A : batch * A;
     // 16-byte pieces where every line starts on a 16-byte boundary, else one
     // action vector (A elements) per piece
-    const bool vec16 = (reinterpret_cast<size_t>(slab) % 16 == 0) && (row_elems * (long long)sizeof(T)) % 16 == 0;
-    const TileCopy copy = tile_copy<T, A>(vec16 ? 16 / (int)sizeof(T) : A, b0, batch, n_rows, batch_major);
+    const bool vec16 = ring_vec16(slab, row_elems);
+    const TileCopy copy = tile_copy<R>(vec16 ? 16 / (int)sizeof(T) : A, b0, batch, n_rows, batch_major);
     auto issue = [&](int tile) {
         if (tile < n_tiles) {
             T* slot = ring + (tile % STAGES) * R::SLOT;
             if (vec16)
-                issue_tile<T, A, 16>(slot, slab, copy, tile, b0, batch, n_rows, batch_major);
+                issue_tile<R, 16>(slot, slab, copy, tile, b0, batch, n_rows, batch_major);
             else
-                issue_tile<T, A, A * (int)sizeof(T)>(slot, slab, copy, tile, b0, batch, n_rows, batch_major);
+                issue_tile<R, A * (int)sizeof(T)>(slot, slab, copy, tile, b0, batch, n_rows, batch_major);
         }
         cp_async_commit();
     };

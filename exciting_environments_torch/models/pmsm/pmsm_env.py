@@ -473,8 +473,9 @@ class PMSM(CoreEnvironment):
 
     def fast_rollout(self, init_state, actions, time_major: bool = False):
         """Trig-free fast-math rollout (rotation-carry semantics of
-        ``ops/pmsm_fast.py``) through the kernel ``csrc/pmsm_fast.cu``, its
-        plain version on CPU tensors; returns the final ``State``.  Tolerance
+        ``ops/pmsm_fast.py``) in one launch of the kernel ``csrc/pmsm_fast.cu``
+        (either action layout read in place), its plain version on CPU
+        tensors; returns the final ``State``.  Tolerance
         against :meth:`fused_rollout`: 1e-4 of the current scale over 32
         steps.  Scope: scalar parameters, Euler, deadtime 0 or 1 (else
         ``ValueError``).  See

@@ -10,8 +10,9 @@ path (``bench.py``'s ``ATOL_FAST = 1e-2`` rad over 24,576 steps), never on
 exactness.
 
 For CUDA tensors the whole horizon is one launch of the kernel in
-``csrc/pendulum_fast.cu`` (one thread per pendulum, the state in registers);
-beside it lives the plain PyTorch version,
+``csrc/pendulum_fast.cu`` (one thread per pendulum, the state in registers,
+the action slab streamed through a shared-memory ring from either layout in
+place); beside it lives the plain PyTorch version,
 :func:`plain_pendulum_fast_rollout`, a Python loop of the same operations.
 :func:`pendulum_fast_rollout` takes the plain version only for CPU tensors.
 
@@ -30,7 +31,7 @@ import torch
 
 from exciting_environments_torch.ops.fastmath import poly_sin, wrap_angle_fast
 
-from .stepper import KernelLibrary, _check_leaf
+from .stepper import KernelLibrary, _check_leaf, _slab_layout
 
 _c_double = ctypes.c_double
 _c_void_p = ctypes.c_void_p
@@ -52,6 +53,7 @@ class PendulumFastArgs(ctypes.Structure):
         ("omega_out", _c_void_p),
         ("batch", ctypes.c_longlong),
         ("n_steps", ctypes.c_int),
+        ("batch_major", ctypes.c_int),
     ]
 
 
@@ -90,27 +92,39 @@ def plain_pendulum_fast_rollout(theta0, omega0, actions_tm, *, tau, c_grav, inv_
     return th, om
 
 
-def kernel_pendulum_fast_rollout(theta0, omega0, actions_tm, *, tau, c_grav, inv_ml2, a_scale, a_offset):
+def kernel_pendulum_fast_rollout(theta0, omega0, slab, *, tau, c_grav, inv_ml2, a_scale, a_offset,
+                                 batch_major=False):
     """Launch the CUDA kernel (argument contract:
-    :func:`plain_pendulum_fast_rollout`, float32 CUDA tensors).  Outputs are
-    allocated here; the launch is asynchronous on the current stream."""
+    :func:`plain_pendulum_fast_rollout`, float32 CUDA tensors; with
+    ``batch_major=True`` the slab is ``(B, T)``: the kernel reads either
+    layout in place).  Outputs are allocated here; the launch is
+    asynchronous on the current stream."""
     device, batch = theta0.device, theta0.shape[0]
     if device.type != "cuda":
         raise ValueError(f"the fast pendulum kernel runs on CUDA tensors, got {device}")
     for name, leaf in (("theta0", theta0), ("omega0", omega0)):
         _check_leaf(name, leaf, torch.float32, device, (batch,))
-    _check_leaf("actions_tm", actions_tm, torch.float32, device, (actions_tm.shape[0], batch))
-    if any(t.requires_grad for t in (theta0, omega0, actions_tm)):
+    n_steps = slab.shape[1] if batch_major else slab.shape[0]
+    _check_leaf("actions", slab, torch.float32, device, (batch, n_steps) if batch_major else (n_steps, batch))
+    if any(t.requires_grad for t in (theta0, omega0, slab)):
         raise NotImplementedError(
             "the fast pendulum kernel has no backward: it is forward-only, as the reference's "
             "pendulum_fast kernel is (ROADMAP.md Queue 2 item 4)"
         )
-    keep = [t.contiguous() for t in (actions_tm, theta0, omega0)]
+    keep = [t.contiguous() for t in (slab, theta0, omega0)]
     theta, omega = torch.empty_like(theta0), torch.empty_like(omega0)
     args = PendulumFastArgs(tau, c_grav, inv_ml2, a_scale, a_offset, *(t.data_ptr() for t in keep),
-                            theta.data_ptr(), omega.data_ptr(), batch, actions_tm.shape[0])
+                            theta.data_ptr(), omega.data_ptr(), batch, n_steps, int(batch_major))
     KERNEL.launch(args, torch.float32, device, "pendulum_fast")
     return theta, omega
+
+
+def kernel_slab(actions_norm, time_major: bool):
+    """``(slab, batch_major)``: the normalized actions ``(B, T, 1)`` (or
+    ``(T, B, 1)`` with ``time_major``) as the kernel reads them, ``(B, T)`` or
+    ``(T, B)`` float32, in place where the slab is contiguous in either
+    layout (``_slab_layout``)."""
+    return _slab_layout(actions_norm.to(torch.float32)[..., 0], time_major)
 
 
 def pendulum_fast_rollout(env, init_state, actions_norm, chunk: int = 16, time_major: bool = False):
@@ -120,8 +134,9 @@ def pendulum_fast_rollout(env, init_state, actions_norm, chunk: int = 16, time_m
         env: a ``Pendulum`` with scalar parameters and torque bounds.
         init_state: batched state (``vmap_reset``).
         actions_norm: normalized actions ``(B, n_steps, 1)``, or ``(n_steps,
-            B, 1)`` with ``time_major=True`` (the layout the kernel reads;
-            batch-major input costs one transposed copy of the slab).
+            B, 1)`` with ``time_major=True``.  The kernel reads a slab that
+            is contiguous in either layout in place (``_slab_layout``); only
+            a slab contiguous in neither is copied.
         chunk: accepted for the JAX signature; no effect on the result.
         time_major: see ``actions_norm``.
 
@@ -142,5 +157,6 @@ def pendulum_fast_rollout(env, init_state, actions_norm, chunk: int = 16, time_m
     if actions_tm.shape[1] != theta0.shape[0]:
         raise ValueError(f"actions hold {actions_tm.shape[1]} instances, the state {theta0.shape[0]}")
     if theta0.device.type == "cuda":
-        return kernel_pendulum_fast_rollout(theta0, omega0, actions_tm.contiguous(), **consts)
+        slab, batch_major = kernel_slab(actions_norm, time_major)
+        return kernel_pendulum_fast_rollout(theta0, omega0, slab, batch_major=batch_major, **consts)
     return plain_pendulum_fast_rollout(theta0, omega0, actions_tm, **consts)

@@ -414,7 +414,7 @@ def _slab_layout(actions, time_major):
     if tm.is_contiguous():
         return tm, False
     bm = tm.transpose(0, 1)
-    return bm.contiguous(), True
+    return (bm if bm.is_contiguous() else bm.contiguous()), True
 
 
 def fused_rollout(env, y0, actions, *, tau, solver=None, props=None, obs_stride=None,

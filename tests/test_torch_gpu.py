@@ -458,17 +458,31 @@ def test_fast_math_closed_loop_kernel_matches_plain_version(dtype):
         assert torch.equal(a, b)
 
 
+PENDULUM_FAST_CASES = [
+    (4096, 64, False),
+    (4096 - 5, 64, True),
+    (4096 - 5, 64, False),  # ragged B, batch-major
+    (1024, 4099, True),  # the horizon ends inside a ring tile
+    (1024, 4099, False),  # batch-major rows no 16-byte multiple
+    (1000, 4100, False),  # 16-byte rows, a ragged last tile and a ragged B
+    (1000, 7, False),  # shorter than a tile
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("batch,time_major", [(4096, False), (4096 - 5, True)])
-def test_pendulum_fast_kernel_matches_plain_version(batch, time_major):
+@pytest.mark.parametrize("batch,n_steps,time_major", PENDULUM_FAST_CASES)
+def test_pendulum_fast_kernel_matches_plain_version(batch, n_steps, time_major):
+    """The fast pendulum's action ring in both layouts, read in place."""
     _cuda()
     from exciting_environments_torch.ops.kernels import pendulum_fast as PFK
 
     env = P.Pendulum(batch_size=batch, tau=1e-4)
     _, state = env.vmap_reset(rng=torch.Generator(device="cuda").manual_seed(14))
-    acts = torch.rand((batch, 64, 1), generator=torch.Generator(device="cuda").manual_seed(15), device="cuda") * 2 - 1
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    acts = torch.rand((batch, n_steps, 1), generator=gen, device="cuda") * 2 - 1
     if time_major:
         acts = acts.transpose(0, 1).contiguous()
+    assert PFK.kernel_slab(acts, time_major)[0].data_ptr() == acts.data_ptr()
     before = PFK.KERNEL.launches["pendulum_fast"]
     th, om = P.pendulum_fast_rollout(env, state, acts, time_major=time_major)
     assert PFK.KERNEL.launches["pendulum_fast"] == before + 1
@@ -511,6 +525,104 @@ def test_pmsm_fast_kernel_matches_plain_version(variant, saturated, deadtime, dt
     torch.cuda.synchronize()
     for name in ("i_d", "i_q", "epsilon", "torque", "u_d_buffer", "u_q_buffer", "omega_el"):
         assert torch.equal(getattr(fast.physical_state, name), getattr(plain.physical_state, name)), name
+
+
+def _pmsm_fast_case(dtype, deadtime, batch, leaves, seed):
+    static = dict(P.MotorVariant.BRUSA.get_params().static_params.__dict__, deadtime=deadtime,
+                  l_d=float("nan"), l_q=float("nan"), psi_p=float("nan"))
+    env = P.PMSM(batch_size=batch, saturated=True, motor_variant=P.MotorVariant.BRUSA, static_params=static,
+                 dtype=dtype)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    _, state = env.vmap_reset(rng=gen)
+    with P.core.structures.copy_and_mutate(state) as state:
+        if leaves == "scalar":
+            state.physical_state.omega_el = torch.tensor(1200.0, device="cuda", dtype=dtype)
+            state.physical_state.epsilon = torch.tensor(-2.5, device="cuda", dtype=dtype)
+        elif leaves == "wide":
+            wide = torch.rand(batch, generator=gen, device="cuda", dtype=torch.float64) * 2e3 - 1e3
+            state.physical_state.epsilon = wide.to(dtype)
+    return env, state, gen
+
+
+PMSM_FAST_LAYOUT_CASES = [
+    # dtype, deadtime, B, T, time_major, leaves
+    (torch.float32, 1, 2048 + 45, 32, True, None),
+    (torch.float32, 0, 1000, 63, False, None),  # ragged B, odd T
+    (torch.float64, 0, 2048, 32, True, None),  # the ~95 KB table, above 48 KB
+    (torch.float64, 1, 1000, 33, False, None),
+    (torch.float32, 1, 2048, 32, False, "scalar"),  # broadcast leaves, stride 0
+    (torch.float32, 0, 2048, 32, True, "wide"),  # start angles beyond 2^7
+    (torch.float64, 1, 2048, 32, False, "wide"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,deadtime,batch,n_steps,time_major,leaves", PMSM_FAST_LAYOUT_CASES)
+def test_pmsm_fast_layouts_and_leaves_match_plain_version(dtype, deadtime, batch, n_steps, time_major, leaves):
+    """The fast PMSM kernel, its start folded in, in both layouts read in place."""
+    _cuda()
+    from exciting_environments_torch.ops import pmsm_fast as PF
+    from exciting_environments_torch.ops.kernels import pmsm_fast_kernel as PFK
+
+    env, state, gen = _pmsm_fast_case(dtype, deadtime, batch, leaves, 17)
+    shape = (n_steps, batch, 2) if time_major else (batch, n_steps, 2)
+    acts = (torch.rand(shape, generator=gen, device="cuda", dtype=torch.float64) * 1.8 - 0.9).to(dtype)
+    assert PFK.kernel_slab(PF.fast_inputs(env, state, acts, time_major)[1])[0].data_ptr() == acts.data_ptr()
+    before = PFK.KERNEL.launches["pmsm_fast"]
+    fast = env.fast_rollout(state, acts, time_major=time_major)
+    assert PFK.KERNEL.launches["pmsm_fast"] == before + 1
+    plain = PF.pmsm_fast_rollout(env, state, acts, time_major=time_major)
+    torch.cuda.synchronize()
+    for name in ("i_d", "i_q", "epsilon", "torque", "u_d_buffer", "u_q_buffer", "omega_el"):
+        assert torch.equal(getattr(fast.physical_state, name), getattr(plain.physical_state, name)), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("time_major", [False, True])
+def test_pmsm_fast_rollout_is_one_launch_and_no_eager_work(time_major, monkeypatch):
+    """On the card PMSM.fast_rollout calls no eager start, final angle or
+    Tensor.contiguous: the kernel computes them and reads the slab in place."""
+    _cuda()
+    from exciting_environments_torch.ops import pmsm_fast as PF
+    from exciting_environments_torch.ops.kernels import pmsm_fast_kernel as PFK
+
+    env, state, gen = _pmsm_fast_case(torch.float32, 1, 4096, None, 18)
+    acts = torch.rand((16, 4096, 2) if time_major else (4096, 16, 2), generator=gen, device="cuda") * 0.6 - 0.3
+    calls = []
+
+    def refuse(name):
+        def fn(*args, **kwargs):
+            calls.append(name)
+            raise AssertionError(f"{name} ran on the card")
+        return fn
+
+    for module in (PF, PFK):
+        monkeypatch.setattr(module, "fast_start", refuse("fast_start"))
+        monkeypatch.setattr(module, "fast_final_angle", refuse("fast_final_angle"))
+    original = torch.Tensor.contiguous
+    monkeypatch.setattr(torch.Tensor, "contiguous", lambda self, *a, **k: calls.append("contiguous") or
+                        original(self, *a, **k))
+    before = PFK.KERNEL.launches["pmsm_fast"]
+    last = env.fast_rollout(state, acts, time_major=time_major)
+    torch.cuda.synchronize()
+    assert PFK.KERNEL.launches["pmsm_fast"] == before + 1 and calls == []
+    assert bool(torch.isfinite(last.physical_state.i_d).all())
+
+
+@pytest.mark.gpu
+def test_pmsm_fast_start_trigonometry_matches_torch():
+    """csrc/pmsm_fast.cu's start_sincos against torch.sin/cos, bit for bit:
+    every float32 |x| < 2^8 (sincosf below 2^7, sinf/cosf above) and seeded
+    float64 values."""
+    _cuda()
+    from exciting_environments_torch.ops.kernels import pmsm_fast_kernel as PFK
+
+    end = int(np.array(2.0 ** 8, dtype=np.float32).view(np.int32))
+    x = torch.arange(0, end, 61, dtype=torch.int32, device="cuda").view(torch.float32)
+    for xs in (x, -x, (torch.rand(1 << 22, device="cuda", dtype=torch.float64) * 16 - 8),
+               torch.tensor([0.0, -0.0, 1e3, -1e6, float("inf"), float("nan")], device="cuda", dtype=torch.float64)):
+        counts = PFK.start_trig_mismatches(xs)
+        assert counts["sin"] == 0 and counts["cos"] == 0, counts
 
 
 @pytest.mark.gpu

@@ -39,24 +39,24 @@ def test_port_imports_no_jax():
 CSRC = ROOT / "exciting_environments_torch" / "csrc"
 #: the shared device headers each kernel source builds on
 HEADERS = {
-    "stepper.cu": ("classic_envs.cuh", "eager_rules.cuh"),
+    "stepper.cu": ("action_ring.cuh", "classic_envs.cuh", "eager_rules.cuh"),
     "closed_loop.cu": ("classic_envs.cuh", "eager_rules.cuh", "policy_laws.cuh"),
     "pmsm_stepper.cu": ("eager_rules.cuh", "pmsm_drive.cuh"),
     "pmsm_closed_loop.cu": ("eager_rules.cuh", "pmsm_drive.cuh", "policy_laws.cuh"),
-    "pendulum_fast.cu": ("eager_rules.cuh", "fastmath.cuh"),
-    "pmsm_fast.cu": ("eager_rules.cuh", "pmsm_drive.cuh"),
+    "pendulum_fast.cu": ("action_ring.cuh", "eager_rules.cuh", "fastmath.cuh"),
+    "pmsm_fast.cu": ("eager_rules.cuh", "fastmath.cuh", "pmsm_drive.cuh"),
 }
 
 
 @pytest.mark.parametrize("source", sorted(HEADERS))
 def test_kernel_sources_share_their_headers_and_stand_alone(source):
-    """Each kernel includes the shared headers (one gather, one affine law),
+    """Each kernel includes the shared headers (one gather, one affine law, one action ring),
     defines no copy of what they hold, and includes no PyTorch header (the
     libraries have a plain C interface, loaded with ctypes)."""
     text = (CSRC / source).read_text()
     includes = set(re.findall(r'#include "([^"]+)"', text))
     assert includes == set(HEADERS[source])
-    for header in ("pmsm_drive.cuh", "policy_laws.cuh", "fastmath.cuh"):
+    for header in ("pmsm_drive.cuh", "policy_laws.cuh", "fastmath.cuh", "action_ring.cuh"):
         for definition in re.findall(r"^struct (\w+) \{|^__device__ __forceinline__ \w+ (\w+)\(",
                                      (CSRC / header).read_text(), flags=re.M):
             name = next(n for n in definition if n)
