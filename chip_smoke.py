@@ -582,8 +582,8 @@ def sass_report(libraries):
 def phase_trig():
     """The float32 trigonometric identities of csrc/pmsm_closed_loop.cu, over
     every float32 |x| < 2^7 on the card; then the start trigonometry of
-    csrc/pmsm_fast.cu (sincosf below 2^7, sinf/cosf above, sin/cos in
-    float64) against torch.sin/torch.cos: every float32 |x| < 2^8, 2^26
+    csrc/pmsm_fast.cu (the literal sinf/cosf, sin/cos in float64) against
+    torch.sin/torch.cos: every float32 |x| < 2^8, 2^26
     seeded float32 values beyond, and in float64 2^26 seeded values over the
     range the start meets (the wrapped angle plus 1.5 tau omega, |x| < 8)
     and 2^24 beyond, with the special values.  Any mismatch fails."""
@@ -1847,8 +1847,8 @@ PENDULUM_FAST_OPS = 30  # per step, counted from csrc/pendulum_fast.cu
 #: per step of csrc/pmsm_fast.cu (saturated: with the 80-operation gather), and the final torque
 PMSM_FAST_OPS = {True: (166, 84), False: (80, 4)}
 B_FAST_CHECK = 4096
-#: the fast kernels take 0.2-0.5 ms, near their wrappers' host work: each is timed over this many calls back to
-#: back (its "ms"), and over one call as the other kernels are
+#: the fast kernels take 0.2-0.5 ms, near their wrappers' host work: besides one call (their "ms", as every
+#: kernel's), each is also timed over this many calls back to back, where a call's host work overlaps the card's
 FAST_CHAIN = 10
 
 
@@ -2051,8 +2051,8 @@ def phase_pendulum_fast(ex, PFK):
     err = max_abs(got, ref)
     if err != 0.0:
         raise AssertionError(f"the fast pendulum kernel disagrees with its plain version at the main size ({err!r})")
-    ms_one = time_ms(kernel)
-    ms = time_ms(kernel, chain=FAST_CHAIN)
+    ms = time_ms(kernel)
+    ms_chain = time_ms(kernel, chain=FAST_CHAIN)
     kernel_bm_ms = time_ms(lambda: PFK.kernel_pendulum_fast_rollout(phys.theta, phys.omega, actions_bm[..., 0],
                                                                     batch_major=True, **consts), chain=FAST_CHAIN)
     tm_ms = time_ms(lambda: ex.pendulum_fast_rollout(env, state, actions_tm, time_major=True))
@@ -2062,10 +2062,11 @@ def phase_pendulum_fast(ex, PFK):
     exact_ms = time_ms(lambda: env.fused_rollout(state, actions_tm, time_major=True, strict=True))
     bound_ms, bound_by = roofline(4 * (T * B + 4 * B), PENDULUM_FAST_OPS * B * T)
     steps = B * T
-    log(f"[pendulum fast main] kernel ({FAST_CHAIN} calls back to back; one call {ms_one!r} ms): {ms!r} ms = "
-        f"{steps / ms * 1e3:.4e} env-steps/s; bound {bound_ms!r} ms "
-        f"({bound_by}); {bound_ms / ms:.1%} of the bound; slab read at {4 * T * B / ms / 1e9:.3f} TB/s; "
-        f"batch-major slab {kernel_bm_ms!r} ms ({bound_ms / kernel_bm_ms:.1%} of the bound)")
+    log(f"[pendulum fast main] kernel (one call) {ms!r} ms = {steps / ms * 1e3:.4e} env-steps/s; bound "
+        f"{bound_ms!r} ms ({bound_by}); {bound_ms / ms:.1%} of the bound. {FAST_CHAIN} calls back to back: "
+        f"{ms_chain!r} ms per call ({bound_ms / ms_chain:.1%} of the bound; slab read at "
+        f"{4 * T * B / ms_chain / 1e9:.3f} TB/s), batch-major slab {kernel_bm_ms!r} ms "
+        f"({bound_ms / kernel_bm_ms:.1%} of the bound)")
     log(f"[pendulum fast main] pendulum_fast_rollout time-major {tm_ms!r} ms, batch-major {bm_ms!r} ms (one call; "
         f"{FAST_CHAIN} calls back to back: {tm_chain_ms!r}, {bm_chain_ms!r} ms per call); the exact "
         f"env.fused_rollout time-major {exact_ms!r} ms; plain version {plain_ms!r} ms (one run)")
@@ -2213,7 +2214,7 @@ def phase_pmsm_fast(ex, PF, PMK):
         ("BRUSA saturated ragged B=1000 batch-major", pmsm_env(ex, 1000), False),
         ("BRUSA saturated batch-major T=63 (odd)", pmsm_env(ex, B), False, 63),
         ("BRUSA saturated broadcast scalar omega_el and epsilon", pmsm_env(ex, B), False, T, "scalar"),
-        ("BRUSA saturated angles beyond 2^7 (literal sinf/cosf)", pmsm_env(ex, B), True, T, "wide"),
+        ("BRUSA saturated angles beyond 2^7", pmsm_env(ex, B), True, T, "wide"),
         ("DEFAULT linear float64 angles beyond 2^7", pmsm_env(ex, B, "DEFAULT", saturated=False,
                                                              dtype=torch.float64), False, T, "wide"),
     ]
@@ -2276,11 +2277,10 @@ def phase_pmsm_fast(ex, PF, PMK):
         f"beyond its inputs (slab {slab_bytes} B)")
     if extra >= slab_bytes:
         raise AssertionError("env.fast_rollout copied its batch-major slab")
-    occupancy = {"float32": PMK.blocks_per_sm(env, torch.float32),
-                 "float64": PMK.blocks_per_sm(pmsm_env(ex, 128, dtype=torch.float64), torch.float64)}
-    log(f"[pmsm fast main] blocks of 128 threads per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), "
-        f"saturated BRUSA deadtime 1: {occupancy}; dynamic shared memory per block "
-        f"{ {k: PMK.shared_memory_bytes(env._lut.nx, env._lut.ny, getattr(torch, k)) for k in occupancy} } B")
+    occupancy = {"float32": PMK.occupancy(env, torch.float32),
+                 "float64": PMK.occupancy(pmsm_env(ex, 128, dtype=torch.float64), torch.float64)}
+    log(f"[pmsm fast main] saturated BRUSA deadtime 1, (blocks of 128 threads per SM by "
+        f"cudaOccupancyMaxActiveBlocksPerMultiprocessor, dynamic shared memory per block in B): {occupancy}")
     t0 = time.perf_counter()
     ref = PF.pmsm_fast_rollout(env, state, actions_tm, time_major=True)
     torch.cuda.synchronize()
@@ -2294,8 +2294,8 @@ def phase_pmsm_fast(ex, PF, PMK):
         return env, acts, lv, consts, not time_major
 
     args = kernel_args(state, actions_tm)
-    ms_one = time_ms(lambda: PMK.kernel_pmsm_fast_rollout(*args))
-    ms = time_ms(lambda: PMK.kernel_pmsm_fast_rollout(*args), chain=FAST_CHAIN)
+    ms = time_ms(lambda: PMK.kernel_pmsm_fast_rollout(*args))
+    ms_chain = time_ms(lambda: PMK.kernel_pmsm_fast_rollout(*args), chain=FAST_CHAIN)
     bm_args = kernel_args(state, actions, False)
     kernel_bm_ms = time_ms(lambda: PMK.kernel_pmsm_fast_rollout(*bm_args), chain=FAST_CHAIN)
     tm_ms = time_ms(lambda: env.fast_rollout(state, actions_tm, time_major=True))
@@ -2305,9 +2305,9 @@ def phase_pmsm_fast(ex, PF, PMK):
     exact_ms = time_ms(lambda: env.fused_rollout(state, actions_tm, time_major=True, strict=True))
     bound_ms, bound_by = pmsm_fast_bound(env, B, T)
     steps = B * T
-    log(f"[pmsm fast main] kernel alone ({FAST_CHAIN} calls back to back; one call {ms_one!r} ms): {ms!r} ms = "
-        f"{steps / ms * 1e3:.4e} env-steps/s; bound {bound_ms!r} ms "
-        f"({bound_by}); {bound_ms / ms:.1%} of the bound; batch-major slab {kernel_bm_ms!r} ms")
+    log(f"[pmsm fast main] kernel alone (one call) {ms!r} ms = {steps / ms * 1e3:.4e} env-steps/s; bound "
+        f"{bound_ms!r} ms ({bound_by}); {bound_ms / ms:.1%} of the bound. {FAST_CHAIN} calls back to back: "
+        f"{ms_chain!r} ms per call ({bound_ms / ms_chain:.1%} of the bound), batch-major slab {kernel_bm_ms!r} ms")
     log(f"[pmsm fast main] env.fast_rollout time-major {tm_ms!r} ms = {steps / tm_ms * 1e3:.4e} env-steps/s "
         f"(kernel {ms / tm_ms:.1%}), batch-major {bm_ms!r} ms (one call; {FAST_CHAIN} calls back to back: "
         f"{tm_chain_ms!r}, {bm_chain_ms!r} ms per call); the exact env.fused_rollout time-major {exact_ms!r} ms; "
@@ -2354,8 +2354,9 @@ def phase_pmsm_fast(ex, PF, PMK):
     hold_ms = time_ms(lambda: PMK.kernel_pmsm_fast_rollout(*hold_args), chain=FAST_CHAIN)
     hold_tm_args = kernel_args(hold_state, hold_actions.transpose(0, 1).contiguous())
     hold_tm_ms = time_ms(lambda: PMK.kernel_pmsm_fast_rollout(*hold_tm_args), chain=FAST_CHAIN)
-    log(f"[pmsm fast main] kernel alone on the holding fleet (gathers inside the table), T={T}: time-major "
-        f"{hold_tm_ms!r} ms, batch-major {hold_ms!r} ms (random fleet {ms!r}, {kernel_bm_ms!r} ms)")
+    log(f"[pmsm fast main] kernel alone on the holding fleet (gathers inside the table), T={T}, {FAST_CHAIN} calls "
+        f"back to back: time-major {hold_tm_ms!r} ms, batch-major {hold_ms!r} ms (random fleet {ms_chain!r}, "
+        f"{kernel_bm_ms!r} ms)")
     del hold_actions, hold_args, hold_tm_args
 
     a_long = ((torch.rand((T_PMSM_LONG, B, 2), generator=gen, device=DEVICE) * 2 - 1) * 0.3).contiguous()

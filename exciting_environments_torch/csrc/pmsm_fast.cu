@@ -40,34 +40,40 @@
 // What the design does about it: one thread per drive keeps i_d, i_q, cA,
 // sA, the deadtime buffer, omega and the rotation constants in registers
 // for all T steps (keep(): no constant is reconverted in the loop).  The
-// magnetics table sits in dynamic shared memory channel-interleaved,
-// (nx, ny, 8) (ops/lut.py::interleave_channels; 47,488 B for BRUSA in
-// float32, 94,976 B in float64), followed by the eight sector rotations as
-// (re, im) pairs in the working type: a gather is eight 16-byte loads
-// (gather_il of pmsm_drive.cuh, 0.0 against ops/lut.py::bilinear_gather),
-// the rotation one 8-byte (float32) or 16-byte (float64) load by the
-// sector index.  128 threads per block: with 47,552 B per block four blocks
-// (16 warps) share an SM in float32, two in float64 (95,104 B, after
-// cudaFuncSetAttribute).  The action pair of a step is one 8- or 16-byte
-// load, from either layout in place ((T, B, 2) rows B * 2 apart, (B, T, 2)
-// rows 2 apart: a run-time field, not a template parameter), issued one
-// step ahead.  The carry's start (one sincosf per angle in float32 below
-// 2^7, the literal sinf/cosf above; sin and cos in float64) and the final
-// angle are computed in the launch, and the per-drive leaves are read in
-// place with their element stride (0 for a broadcast scalar), so
-// PMSM.fast_rollout on the card is this one launch.  The TPU kernel's
-// one-hot gather encodings (int8x4, bf16x3), its 2 MB chunk budget, its
-// (8, 128) tiles and batch % 1024 have no counterpart: any B runs, float32
-// and float64.
+// magnetics table comes channel-interleaved, (nx, ny, 8)
+// (ops/lut.py::interleave_channels), and the block copies it to dynamic
+// shared memory with each grid point's quad (channels 0-3, 16-byte loads)
+// and pair (channels 4-5, one 8-byte load in float32, 16-byte in float64)
+// placed inside the point by its index (pair_slot, quad_half): a warp whose
+// drives gather all over the table then meets all 32 banks, where fixed
+// offsets in 32-byte points use half of them for the quad and a quarter
+// for the pair (bank conflicts that made the fixed layout, and the stacked
+// (6, nx, ny) one, slower on drives held inside their current bands).  A
+// gather is eight loads (gather_placed: gather_il's blend term for term,
+// 0.0 against ops/lut.py::bilinear_gather).  The eight sector rotations
+// follow as (re, im) pairs in the working type, one 8- or 16-byte load by
+// the sector index.  128 threads per block: with 47,552 B per block for
+// BRUSA four blocks (16 warps) share an SM in float32, two in float64
+// (95,104 B, after cudaFuncSetAttribute; pmsm_fast_smem_bytes is the one
+// sizing).  The action pair of a step is one 8- or 16-byte load, from
+// either layout in place ((T, B, 2) rows B * 2 apart, (B, T, 2) rows 2
+// apart: a run-time field, not a template parameter), issued one step
+// ahead.  The carry's start (the literal sin and cos of each angle, once
+// per drive) and the final angle are computed in the launch, and the
+// per-drive leaves are read in place with their element stride (0 for a
+// broadcast scalar), so PMSM.fast_rollout on the card is this one launch.
+// The TPU kernel's one-hot gather encodings (int8x4, bf16x3), its 2 MB
+// chunk budget, its (8, 128) tiles and batch % 1024 have no counterpart:
+// any B runs, float32 and float64.
 //
 // Exactness: every operation mirrors the plain version in order and in the
 // working precision, built with --fmad=false (eager_rules.cuh): the
 // constants arrive folded in double as Python folds them, the divisions by
 // the inductance determinant are true divisions, the clamps compare, a
 // multiply by a Python number rounds the number to the working type first,
-// and sincosf equals torch.sin/torch.cos for every float32 |x| < 2^7
-// (checked on the card, chip_smoke.py's trig phase, which also holds this
-// kernel's start function against PyTorch beyond 2^7 and in float64).
+// and the start's sinf/cosf (sin/cos) are held against torch.sin/torch.cos
+// on the card (chip_smoke.py's trig phase: every float32 |x| < 2^8, seeded
+// values beyond and in float64).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -95,7 +101,6 @@ struct PmsmFastArgs {
     long long leaf_stride[6];           // their element strides (0: a broadcast scalar)
     void* out[6];                       // (B,) i_d, i_q, u_d_buffer, u_q_buffer, torque, epsilon
     long long batch;
-    long long smem_bytes;               // dynamic shared memory, as the wrapper sizes it
     int nx, ny;
     int n_steps;
     int saturated;
@@ -117,28 +122,80 @@ struct Pair<double> {
     using type = double2;
 };
 
-// Dynamic shared memory of one block, in elements of T: the interleaved
-// table (16-byte aligned, first), then the eight rotations as (re, im).
+// Dynamic shared memory of one block, in elements of T: the table (16-byte
+// aligned, first), then the eight rotations as (re, im).  The only sizing
+// of it: the wrapper asks pmsm_fast_smem_bytes.
 __host__ __device__ __forceinline__ size_t table_elems(const PmsmFastArgs& args, bool sat) {
     return sat ? (size_t)N_CHANNELS_PAD * args.nx * args.ny : 0;
 }
 template <typename T>
-__host__ __forceinline__ size_t smem_bytes(const PmsmFastArgs& args, bool sat) {
-    return (table_elems(args, sat) + 16) * sizeof(T);
+static size_t smem_bytes(const PmsmFastArgs& args) {
+    return (table_elems(args, args.saturated) + 16) * sizeof(T);
 }
 
-// torch.sin(x) and torch.cos(x) for the carry's start: one sincosf where
-// it is proven equal to them (every float32 |x| < 2^7), else the literal
-// sinf and cosf; the literal sin and cos in float64
-__device__ __forceinline__ void start_sincos(float x, float& s, float& c) {
-    if (fabsf(x) < 128.0f) {
-        sincos_pair(x, s, c);
-    } else {
-        s = sinf(x);
-        c = cosf(x);
+// The table in shared memory holds each grid point p's eight elements of
+// ops/lut.py::interleave_channels as a quad (channels 0-3) and a pair
+// (channels 4-5) placed by p: the pair in the pair slot pair_slot(p) of
+// four, the quad in the half of the point that slot leaves free.  A warp
+// that gathers at spread points so meets all 32 banks with both loads,
+// where the points' fixed offsets would use a quarter of them for the pair
+// and half for the quad.
+__device__ __forceinline__ int pair_slot(int p) { return (p >> 2) & 3; }
+__device__ __forceinline__ int quad_half(int p) { return 1 - (pair_slot(p) >> 1); }
+
+// One grid point's six channels from the shared-memory table: the quad in
+// 16-byte loads, the pair in one 8- (float) or 16-byte (double) load.
+template <typename T>
+__device__ __forceinline__ void load_point(const T* __restrict__ table, int p, T (&c)[N_CHANNELS]) {
+    using V = typename Vec16<T>::type;
+    constexpr int W = Vec16<T>::N;
+    const T* point = table + p * N_CHANNELS_PAD;
+#pragma unroll
+    for (int g = 0; g < 4 / W; ++g) {
+        const V q = reinterpret_cast<const V*>(point + quad_half(p) * 4)[g];
+        const T* e = reinterpret_cast<const T*>(&q);
+#pragma unroll
+        for (int w = 0; w < W; ++w) c[g * W + w] = e[w];
     }
+    const typename Pair<T>::type r = reinterpret_cast<const typename Pair<T>::type*>(point)[pair_slot(p)];
+    c[4] = r.x;
+    c[5] = r.y;
 }
-__device__ __forceinline__ void start_sincos(double x, double& s, double& c) { sincos_pair(x, s, c); }
+
+// gather_il of pmsm_drive.cuh over the placed table: the cell, weights and
+// blend term for term (so 0.0 against ops/lut.py::bilinear_gather)
+template <typename T>
+__device__ __forceinline__ void gather_placed(const T* __restrict__ table, const Drive<T>& k, T px, T py,
+                                              T (&v)[N_CHANNELS]) {
+    const T fx = (px - k.x0) / k.dx;
+    const T fy = (py - k.y0) / k.dy;
+    const int ix = cell(fx, k.nx);
+    const int iy = cell(fy, k.ny);
+    const T wx = fx - (T)ix;
+    const T wy = fy - (T)iy;
+    const T owx = T(1) - wx;
+    const T owy = T(1) - wy;
+    const int p00 = ix * k.ny + iy;
+    T c00[N_CHANNELS], c01[N_CHANNELS], c10[N_CHANNELS], c11[N_CHANNELS];
+    load_point(table, p00, c00);
+    load_point(table, p00 + 1, c01);
+    load_point(table, p00 + k.ny, c10);
+    load_point(table, p00 + k.ny + 1, c11);
+#pragma unroll
+    for (int c = 0; c < N_CHANNELS; ++c)
+        v[c] = c00[c] * owx * owy + c01[c] * owx * wy + c10[c] * wx * owy + c11[c] * wx * wy;
+}
+
+// torch.sin(x) and torch.cos(x) for the carry's start: the literal calls
+// (once per drive, outside the step loop)
+__device__ __forceinline__ void start_sincos(float x, float& s, float& c) {
+    s = sinf(x);
+    c = cosf(x);
+}
+__device__ __forceinline__ void start_sincos(double x, double& s, double& c) {
+    s = sin(x);
+    c = cos(x);
+}
 
 // ops/pmsm_fast.py::fast_start: (cA, sA) at the deadtime-advanced angle and
 // the per-step rotation (c_delta, s_delta)
@@ -199,10 +256,17 @@ __global__ void __launch_bounds__(THREADS) pmsm_fast_kernel(const __grid_constan
         }
         if (SAT) {
             using V = typename Vec16<T>::type;
-            const int n = (int)(table_elems(args, SAT) / Vec16<T>::N);
-            const V* tab = static_cast<const V*>(args.lut);
-            V* dst = reinterpret_cast<V*>(lut);
-            for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = tab[i];
+            constexpr int W = Vec16<T>::N;
+            const int n = args.nx * args.ny;
+            const T* tab = static_cast<const T*>(args.lut);
+            for (int p = threadIdx.x; p < n; p += blockDim.x) {
+                const T* src = tab + p * N_CHANNELS_PAD;
+                T* dst = lut + p * N_CHANNELS_PAD;
+#pragma unroll
+                for (int g = 0; g < 4 / W; ++g)
+                    reinterpret_cast<V*>(dst + quad_half(p) * 4)[g] = reinterpret_cast<const V*>(src)[g];
+                reinterpret_cast<P*>(dst)[pair_slot(p)] = reinterpret_cast<const P*>(src)[2];
+            }
         }
         __syncthreads();
     }
@@ -286,7 +350,7 @@ __global__ void __launch_bounds__(THREADS) pmsm_fast_kernel(const __grid_constan
         T di_d, di_q;
         if (SAT) {
             T v[N_CHANNELS];
-            gather<true>(lut, grid, i_d, i_q, v);
+            gather_placed(lut, grid, i_d, i_q, v);
             const T det = v[0] * v[3] - v[1] * v[2];
             const T rhs_d = u_app_d - r_s * i_d + omega * v[5];
             const T rhs_q = u_app_q - r_s * i_q - omega * v[4];
@@ -308,7 +372,7 @@ __global__ void __launch_bounds__(THREADS) pmsm_fast_kernel(const __grid_constan
     T torque;
     if (SAT) {
         T v[N_CHANNELS];
-        gather<true>(lut, grid, i_d, i_q, v);
+        gather_placed(lut, grid, i_d, i_q, v);
         torque = (T)args.p15 * (v[4] * i_q - v[5] * i_d);
     } else {
         torque = (T)args.p15 * (psi_p + (T)args.dl * i_d) * i_q;
@@ -327,60 +391,68 @@ __global__ void __launch_bounds__(THREADS) pmsm_fast_kernel(const __grid_constan
 
 static constexpr size_t STATIC_SMEM_LIMIT = 48 * 1024;
 
+using KernelFn = void (*)(PmsmFastArgs);
+
+// The instantiation that args and dtype (0 float32, 1 float64) select, and
+// its dynamic shared memory; no kernel for a deadtime other than 0 or 1.
+struct Selected {
+    KernelFn fn;
+    size_t smem;
+};
+
+template <typename T>
+static Selected select_typed(const PmsmFastArgs& args) {
+    KernelFn fn = nullptr;
+    if (args.deadtime == 0) fn = args.saturated ? pmsm_fast_kernel<T, true, 0> : pmsm_fast_kernel<T, false, 0>;
+    if (args.deadtime == 1) fn = args.saturated ? pmsm_fast_kernel<T, true, 1> : pmsm_fast_kernel<T, false, 1>;
+    return {fn, smem_bytes<T>(args)};
+}
+
+static Selected select_kernel(const PmsmFastArgs& args, int dtype) {
+    return dtype == 0 ? select_typed<float>(args) : select_typed<double>(args);
+}
+
 // Opt the kernel in above 48 KB of dynamic shared memory; the error state
 // is cleared if that is refused, so that no later launch reports it.
-template <typename T, bool SAT, int DEADTIME>
-static cudaError_t allow_smem(size_t smem) {
-    if (smem <= STATIC_SMEM_LIMIT) return cudaSuccess;
-    const cudaError_t err = cudaFuncSetAttribute(pmsm_fast_kernel<T, SAT, DEADTIME>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+static cudaError_t allow_smem(const Selected& k) {
+    if (k.fn == nullptr) return cudaErrorInvalidValue;
+    if (k.smem <= STATIC_SMEM_LIMIT) return cudaSuccess;
+    const cudaError_t err = cudaFuncSetAttribute(reinterpret_cast<const void*>(k.fn),
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)k.smem);
     if (err != cudaSuccess) cudaGetLastError();
     return err;
 }
 
-template <typename T, bool SAT, int DEADTIME>
-static int launch_one(const PmsmFastArgs& args, cudaStream_t stream, int* blocks_per_sm) {
-    const size_t smem = smem_bytes<T>(args, SAT);
-    if ((long long)smem != args.smem_bytes) return (int)cudaErrorInvalidValue;  // the wrapper sized it otherwise
-    const cudaError_t err = allow_smem<T, SAT, DEADTIME>(smem);
-    if (err != cudaSuccess) return (int)err;
-    if (blocks_per_sm != nullptr)  // the occupancy query: no launch
-        return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, pmsm_fast_kernel<T, SAT, DEADTIME>,
-                                                                  THREADS, smem);
-    const unsigned blocks = (unsigned)((args.batch + THREADS - 1) / THREADS);
-    pmsm_fast_kernel<T, SAT, DEADTIME><<<blocks, THREADS, smem, stream>>>(args);
-    return (int)cudaGetLastError();
-}
-
-template <typename T, bool SAT>
-static int launch_deadtime(const PmsmFastArgs& args, cudaStream_t stream, int* blocks_per_sm) {
-    switch (args.deadtime) {
-        case 0: return launch_one<T, SAT, 0>(args, stream, blocks_per_sm);
-        case 1: return launch_one<T, SAT, 1>(args, stream, blocks_per_sm);
-        default: return (int)cudaErrorInvalidValue;
-    }
-}
-
-template <typename T>
-static int launch_dtype(const PmsmFastArgs& args, cudaStream_t stream, int* blocks_per_sm) {
-    return args.saturated ? launch_deadtime<T, true>(args, stream, blocks_per_sm)
-                          : launch_deadtime<T, false>(args, stream, blocks_per_sm);
-}
-
 extern "C" int pmsm_fast_args_size() { return (int)sizeof(PmsmFastArgs); }
+
+// The dynamic shared memory of one block of the kernel that args selects.
+extern "C" long long pmsm_fast_smem_bytes(const PmsmFastArgs* args, int dtype) {
+    return (long long)select_kernel(*args, dtype).smem;
+}
 
 // dtype: 0 float32, 1 float64.  Returns the CUDA error of the launch (0 on
 // success): a refused launch never runs, and only this code reports it.
 extern "C" int pmsm_fast_launch(const PmsmFastArgs* args, int dtype, void* stream) {
     if (args->batch <= 0) return 0;
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return dtype == 0 ? launch_dtype<float>(*args, s, nullptr) : launch_dtype<double>(*args, s, nullptr);
+    const Selected k = select_kernel(*args, dtype);
+    cudaError_t err = allow_smem(k);
+    if (err != cudaSuccess) return (int)err;
+    const unsigned blocks = (unsigned)((args->batch + THREADS - 1) / THREADS);
+    void* params[] = {const_cast<PmsmFastArgs*>(args)};
+    err = cudaLaunchKernel(reinterpret_cast<const void*>(k.fn), dim3(blocks), dim3(THREADS), params, k.smem,
+                           static_cast<cudaStream_t>(stream));
+    if (err != cudaSuccess) cudaGetLastError();
+    return (int)err;
 }
 
 // The blocks of the kernel that args selects which fit on one SM at once
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into *blocks.
 extern "C" int pmsm_fast_blocks_per_sm(const PmsmFastArgs* args, int dtype, int* blocks) {
-    return dtype == 0 ? launch_dtype<float>(*args, nullptr, blocks) : launch_dtype<double>(*args, nullptr, blocks);
+    const Selected k = select_kernel(*args, dtype);
+    const cudaError_t err = allow_smem(k);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, reinterpret_cast<const void*>(k.fn), THREADS,
+                                                             k.smem);
 }
 
 // ---------------------------------------------------------------------------

@@ -80,7 +80,6 @@ class PmsmFastArgs(ctypes.Structure):
         ("leaf_stride", _c_longlong * 6),
         ("out", _c_void_p * 6),
         ("batch", _c_longlong),
-        ("smem_bytes", _c_longlong),
         ("nx", _c_int),
         ("ny", _c_int),
         ("n_steps", _c_int),
@@ -96,13 +95,19 @@ _ROT_RE = (_c_double * 8)(*(float(v) for v in ROTATION_RE.reshape(-1)))
 _ROT_IM = (_c_double * 8)(*(float(v) for v in ROTATION_IM.reshape(-1)))
 
 
-def shared_memory_bytes(nx: int, ny: int, dtype: torch.dtype, saturated: bool = True) -> int:
-    """The kernel's dynamic shared memory per block: the channel-interleaved
-    table ``(nx, ny, 8)`` (saturated only), then the eight sector rotations
-    as ``(re, im)`` pairs, in ``dtype``.  BRUSA: 47,552 B in float32, 95,104 B
-    in float64 (``csrc/pmsm_fast.cu`` checks the wrapper's figure)."""
-    table = padded_channels(N_CHANNELS) * nx * ny if saturated else 0
-    return (table + 16) * torch.finfo(dtype).bits // 8
+def _dtype_code(dtype: torch.dtype) -> int:
+    return 0 if dtype == torch.float32 else 1
+
+
+def shared_memory_bytes(args: PmsmFastArgs, dtype: torch.dtype) -> int:
+    """The dynamic shared memory per block of the kernel that ``args``
+    (:func:`pack_args`) selects in ``dtype``, as ``csrc/pmsm_fast.cu`` sizes
+    it (``pmsm_fast_smem_bytes``): the table and the eight sector rotations.
+    Needs the built library."""
+    fn = KERNEL.lib().pmsm_fast_smem_bytes
+    fn.argtypes = [_c_void_p, _c_int]
+    fn.restype = _c_longlong
+    return fn(ctypes.byref(args), _dtype_code(dtype))
 
 
 def pack_args(env, slab, leaves, consts, batch_major=False):
@@ -142,7 +147,6 @@ def pack_args(env, slab, leaves, consts, batch_major=False):
         args.x0, args.dx, args.y0, args.dy = lut.x0, lut.dx, lut.y0, lut.dy
         nx, ny = lut.nx, lut.ny
     args.nx, args.ny = nx, ny
-    args.smem_bytes = shared_memory_bytes(nx, ny, dtype, c["saturated"])
     args.actions = slab.data_ptr()
     for j, name in enumerate(LEAVES):
         args.leaf[j] = leaves[name].data_ptr()
@@ -172,8 +176,11 @@ def kernel_pmsm_fast_rollout(env, slab, leaves, consts, batch_major=False):
             "pmsm_fast_kernel is (ROADMAP.md Queue 2 item 4)"
         )
     args, out, keep = pack_args(env, slab, leaves, consts, batch_major)
-    KERNEL.launch(args, leaves[LEAVES[0]].dtype, device, "pmsm_fast",
-                  detail=f" (dynamic shared memory asked: {args.smem_bytes} B)")
+    dtype = leaves[LEAVES[0]].dtype
+    try:
+        KERNEL.launch(args, dtype, device, "pmsm_fast")
+    except RuntimeError as err:
+        raise RuntimeError(f"{err} (dynamic shared memory asked: {shared_memory_bytes(args, dtype)} B)") from None
     return out
 
 
@@ -191,10 +198,11 @@ def plain_kernel_rollout(env, actions_tm, leaves, consts):
     return i_d, i_q, buf_d, buf_q, torque, fast_final_angle(eps, omega, consts, actions_tm.shape[0])
 
 
-def blocks_per_sm(env, dtype: torch.dtype) -> int:
-    """How many blocks of the kernel the card holds on one SM at once for
-    ``env`` in ``dtype`` (the occupancy that its registers and shared memory
-    leave, ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+def occupancy(env, dtype: torch.dtype) -> tuple[int, int]:
+    """``(blocks per SM, dynamic shared memory per block in bytes)`` of the
+    kernel for ``env`` in ``dtype``: how many blocks the card holds on one SM
+    at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and what
+    :func:`shared_memory_bytes` asks.  Needs the card."""
     consts = fast_constants(env)
     slab = torch.zeros((1, env.batch_size, 2), dtype=dtype, device="cuda")
     leaves = {name: torch.zeros(env.batch_size, dtype=dtype, device="cuda") for name in LEAVES}
@@ -203,10 +211,10 @@ def blocks_per_sm(env, dtype: torch.dtype) -> int:
     fn = KERNEL.lib().pmsm_fast_blocks_per_sm
     fn.argtypes = [_c_void_p, _c_int, _c_void_p]
     fn.restype = _c_int
-    rc = fn(ctypes.byref(args), 0 if dtype == torch.float32 else 1, ctypes.byref(blocks))
+    rc = fn(ctypes.byref(args), _dtype_code(dtype), ctypes.byref(blocks))
     if rc != 0:
         raise RuntimeError(f"pmsm_fast occupancy query failed with CUDA error {rc}")
-    return blocks.value
+    return blocks.value, shared_memory_bytes(args, dtype)
 
 
 def start_trig_mismatches(x: torch.Tensor) -> dict:
@@ -218,7 +226,7 @@ def start_trig_mismatches(x: torch.Tensor) -> dict:
     fn = KERNEL.lib().pmsm_fast_start_trig
     fn.argtypes = [_c_void_p, _c_void_p, _c_void_p, _c_longlong, _c_int, _c_void_p]
     fn.restype = _c_int
-    rc = fn(x.data_ptr(), s.data_ptr(), c.data_ptr(), x.numel(), 0 if x.dtype == torch.float32 else 1,
+    rc = fn(x.data_ptr(), s.data_ptr(), c.data_ptr(), x.numel(), _dtype_code(x.dtype),
             torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"pmsm_fast start trigonometry check failed with CUDA error {rc}")

@@ -14,8 +14,9 @@
 * The entry points hand a contiguous slab of either layout to the kernel
   without a copy (``_slab_layout``).
 * The fast PMSM wrapper's packed arguments: the rotation pairs, the
-  interleaved table, the shared memory the source note states, the
-  leaves' strides, the folded advance.
+  interleaved table, the leaves' strides, the folded advance; the kernel's
+  placement of the table in shared memory (every channel of every point
+  read back, the loads spread over all banks).
 * The kernel's start and final angle, written in the kernel's order,
   equal ``fast_start``/``fast_final_angle`` bit for bit.
 
@@ -245,12 +246,11 @@ def test_pmsm_fast_packed_arguments(dtype):
     for packed, table in ((args.rot_re, ROTATION_RE), (args.rot_im, ROTATION_IM)):
         in_kernel = torch.tensor(list(packed), dtype=torch.float64).to(dtype)
         assert torch.equal(in_kernel, torch.as_tensor(table.reshape(-1)).to(dtype))
-    # the interleaved table, and the shared memory the source note states
+    # the interleaved table (the kernel sizes its shared memory from nx and
+    # ny: tests/test_torch_gpu.py holds that size against the source note)
     table = env._lut.interleaved()
     assert args.lut == table.data_ptr() and torch.equal(table, interleave_channels(env._lut.values))
     assert (args.nx, args.ny) == (env._lut.nx, env._lut.ny) and env._lut.nx * env._lut.ny == 1484
-    assert args.smem_bytes == {torch.float32: 47_552, torch.float64: 95_104}[dtype]
-    assert args.smem_bytes == PMK.shared_memory_bytes(env._lut.nx, env._lut.ny, dtype)
     # the leaves in place: a broadcast scalar has stride 0
     assert [args.leaf[j] for j in range(6)] == [leaves[n].data_ptr() for n in PMK.LEAVES]
     assert list(args.leaf_stride) == [0 if n == "omega_el" else 1 for n in PMK.LEAVES]
@@ -258,11 +258,10 @@ def test_pmsm_fast_packed_arguments(dtype):
     assert args.adv_scale == (consts["deadtime"] + 0.5) * consts["tau"] and args.deadtime == 1
     assert len(out) == 6 and all(o.shape == (B,) and o.dtype == dtype for o in out)
     linear = P.PMSM(batch_size=B, motor_variant=P.MotorVariant.DEFAULT, device="cpu", dtype=dtype)
-    assert PMK.shared_memory_bytes(0, 0, dtype, saturated=False) == 16 * acts.element_size()
     _, lstate = linear.vmap_reset()
     consts, actions_tm, leaves = PF.fast_inputs(linear, lstate, acts, False)
     largs, _, _ = PMK.pack_args(linear, PMK.kernel_slab(actions_tm)[0], leaves, consts, True)
-    assert largs.smem_bytes == 16 * acts.element_size() and not largs.lut and largs.saturated == 0
+    assert not largs.lut and (largs.nx, largs.ny, largs.saturated) == (0, 0, 0)
 
 
 def test_pmsm_fast_wrapper_refuses_what_the_kernel_does_not_take():
@@ -276,6 +275,62 @@ def test_pmsm_fast_wrapper_refuses_what_the_kernel_does_not_take():
         PMK.pack_args(env, torch.zeros((4, 15, 2)), leaves, consts, False)
     with pytest.raises(ValueError, match="CUDA"):
         PMK.kernel_pmsm_fast_rollout(env, torch.zeros((4, 16, 2)), leaves, consts)
+
+
+# ---------------------------------------------------------------------------
+# the fast PMSM kernel's table in shared memory, mirrored
+# ---------------------------------------------------------------------------
+
+
+def placed_slots(p):
+    """csrc/pmsm_fast.cu's placement of grid point ``p``: (the element offset
+    of its quad, channels 0-3, and of its pair, channels 4-5, in the point)."""
+    slot = (p >> 2) & 3
+    return (1 - (slot >> 1)) * 4, slot * 2
+
+
+def placed_table(interleaved):
+    """The kernel's copy-in: each point's quad and pair from the interleaved
+    ``(nx, ny, 8)`` table to its placed offsets (unwritten elements NaN)."""
+    flat = interleaved.reshape(-1, 8).numpy()
+    out = np.full_like(flat, np.nan)
+    for p, row in enumerate(flat):
+        quad, pair = placed_slots(p)
+        out[p, quad:quad + 4] = row[:4]
+        out[p, pair:pair + 2] = row[4:6]
+    return out
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_pmsm_fast_placed_table_holds_every_channel_of_every_point(dtype):
+    """load_point's addressing reads back each point's six channels of the
+    stacked table from the placed one, and the quad and pair never overlap."""
+    env = P.PMSM(batch_size=4, saturated=True, motor_variant=P.MotorVariant.BRUSA, device="cpu", dtype=dtype)
+    lut = env._lut
+    placed = placed_table(lut.interleaved())
+    stacked = lut.values.reshape(6, -1).numpy()
+    for p in range(lut.nx * lut.ny):
+        quad, pair = placed_slots(p)
+        assert quad + 4 <= pair or pair + 2 <= quad
+        got = np.concatenate([placed[p, quad:quad + 4], placed[p, pair:pair + 2]])
+        assert np.array_equal(got, stacked[:, p])
+
+
+@pytest.mark.parametrize("itemsize", [4, 8], ids=["float32", "float64"])
+@pytest.mark.parametrize("first", [0, 5, 1471])
+def test_pmsm_fast_placed_points_spread_over_the_banks(itemsize, first):
+    """Sixteen consecutive points' quads and pairs (the loads of a warp that
+    gathers at spread points) fall evenly on the 32 four-byte banks, where
+    fixed offsets in 32- or 64-byte points would leave banks idle."""
+    points = np.arange(first, first + 16)
+    for load, width in ((0, 4), (1, 2)):  # the quad, the pair
+        words = np.concatenate([(p * 8 + placed_slots(p)[load] + np.arange(width)) * itemsize // 4 + k
+                                for p in points for k in range(itemsize // 4)])
+        counts = np.bincount(words % 32, minlength=32)
+        assert counts.min() == counts.max(), counts
+        fixed = np.concatenate([(p * 8 + 4 * load + np.arange(width)) * itemsize // 4 + k
+                                for p in points for k in range(itemsize // 4)])
+        assert np.bincount(fixed % 32, minlength=32).min() == 0
 
 
 # ---------------------------------------------------------------------------

@@ -612,8 +612,7 @@ def test_pmsm_fast_rollout_is_one_launch_and_no_eager_work(time_major, monkeypat
 @pytest.mark.gpu
 def test_pmsm_fast_start_trigonometry_matches_torch():
     """csrc/pmsm_fast.cu's start_sincos against torch.sin/cos, bit for bit:
-    every float32 |x| < 2^8 (sincosf below 2^7, sinf/cosf above) and seeded
-    float64 values."""
+    every float32 |x| < 2^8 and seeded float64 values."""
     _cuda()
     from exciting_environments_torch.ops.kernels import pmsm_fast_kernel as PFK
 
@@ -623,6 +622,19 @@ def test_pmsm_fast_start_trigonometry_matches_torch():
                torch.tensor([0.0, -0.0, 1e3, -1e6, float("inf"), float("nan")], device="cuda", dtype=torch.float64)):
         counts = PFK.start_trig_mismatches(xs)
         assert counts["sin"] == 0 and counts["cos"] == 0, counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype, smem, blocks", [(torch.float32, 47_552, 4), (torch.float64, 95_104, 2)])
+def test_pmsm_fast_shared_memory_and_occupancy(dtype, smem, blocks):
+    """The fast PMSM kernel's dynamic shared memory for BRUSA, as
+    csrc/pmsm_fast.cu sizes it and its source note states, and the blocks
+    of 128 threads that share an SM."""
+    _cuda()
+    from exciting_environments_torch.ops.kernels import pmsm_fast_kernel as PFK
+
+    env = P.PMSM(batch_size=128, saturated=True, motor_variant=P.MotorVariant.BRUSA, dtype=dtype)
+    assert PFK.occupancy(env, dtype) == (blocks, smem)
 
 
 @pytest.mark.gpu
