@@ -114,7 +114,24 @@ Phases (any failure raises and the script exits non-zero):
     path no farther from the float64 exact path than 4 times the float32
     exact path is; a holding fleet that stays inside its current bands
     within 1e-3 in float32 over T = 256) and the kernel alone at T = 4,096;
-15. print the kernel table, the card's name and power limit, and last the
+15. the four exact kernels' VJPs (``phase_grad``): each entry point
+    (``kernel_rollout``, ``kernel_closed_loop``, ``pmsm_kernel_rollout``,
+    ``kernel_pmsm_closed_loop``) with inputs that require grad, its launch
+    then the checkpointed replay, against autograd through the plain loop on
+    the card, within 1e-5 (float32) and 1e-12 (float64) of the reference's
+    max abs, over the CPU tests' cases at B = 4,096 (T = 16 or 13) and one
+    full-width float32 case per kernel (the pendulum over T = 1,024 with
+    ``obs_stride`` 64; BRUSA over T = 256, the holding fleet for the stepper
+    and the P law for the loop); every forward 0.0 from the plain version and
+    one launch, and a call without grad allocating only its outputs;
+16. ``train_policy`` at B = 65,536 (``phase_train``): the tracking pendulum
+    with the PD law over 1,024 steps and the PI law over 256 (10 iterations
+    each), saturated BRUSA with an affine P law over 128 steps (12
+    iterations, the clipped loss of benchmarks/r03/pmsm_policy_grad_device.py);
+    each loss must fall and the parameters stay finite; each iteration's
+    kernel forward, backward replay and optimizer ms are logged, and a
+    ``{"grads": [...]}`` line is printed;
+17. print the kernel table, the card's name and power limit, and last the
     result line ``{"ok": true, "device": {...}}``.
 
 The anatomy of a redesigned kernel's case (``anatomy``): its registers,
@@ -2370,6 +2387,420 @@ def phase_pmsm_fast(ex, PF, PMK):
                   PMSM_FAST_SOURCE, PMSM_FAST_REPLACES)]
 
 
+# ---------------------------------------------------------------------------
+# gradient phases: the four exact kernels' VJPs, and controller training
+# ---------------------------------------------------------------------------
+
+#: the gradient limit, max abs deviation over the reference gradient's max abs
+GRAD_LIMIT = {torch.float32: 1e-5, torch.float64: 1e-12}
+B_GRAD, T_GRAD = 4096, 16
+
+
+def flat_tensors(out):
+    """The tensors of a nest of tuples, ``None`` dropped."""
+    if out is None:
+        return []
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for part in out for t in flat_tensors(part)]
+
+
+def grad_case(run_vjp, run_plain, inputs, lib, mode, seed):
+    """One VJP case on the card: the forward through the kernel (one launch
+    with checkpoint saves) and the checkpointed replay, against autograd
+    through the plain loop on the same inputs, with a linear loss that
+    weights every output by seeded weights over its scale.  Returns the
+    gradient deviation (max abs over the reference's max abs, worst input),
+    the forward outputs' max abs deviation, the VJP forward's launches, and
+    its forward and backward ms (host clock, synchronized)."""
+    torch.cuda.synchronize()
+    before = lib.launches[mode]
+    t0 = time.perf_counter()
+    out_k = flat_tensors(run_vjp())
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    launches = lib.launches[mode] - before
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    weights = [torch.rand(t.shape, generator=gen, device=DEVICE, dtype=torch.float64).to(t.dtype)
+               / (1 + float(t.detach().abs().max())) for t in out_k]
+    t0 = time.perf_counter()
+    g_k = torch.autograd.grad(sum((t * w).sum() for t, w in zip(out_k, weights)), inputs)
+    torch.cuda.synchronize()
+    bwd_ms = (time.perf_counter() - t0) * 1e3
+    out_p = flat_tensors(run_plain())
+    g_p = torch.autograd.grad(sum((t * w).sum() for t, w in zip(out_p, weights)), inputs)
+    if len(out_k) != len(out_p) or any(k.shape != q.shape for k, q in zip(out_k, out_p)):
+        raise AssertionError("the VJP and the plain loop return different structures")
+    fwd_err = max_abs([t.detach() for t in out_k], [t.detach() for t in out_p])
+    dev = 0.0
+    for a, b in zip(g_k, g_p):
+        scale = float(b.abs().max())
+        if not (scale > 0 and bool(torch.isfinite(a).all())):
+            raise AssertionError("a reference gradient is zero, or a gradient is not finite")
+        dev = max(dev, float((a - b).abs().max()) / scale)
+    return dev, fwd_err, launches, fwd_ms, bwd_ms
+
+
+def leaf(t):
+    return t.detach().clone().requires_grad_(True)
+
+
+def grad_inputs_stepper(ex, K, name, dtype, gen, batch, n_steps, stride=None, solver="euler", sim_ahead=False,
+                        hold=1, noise=False, per_batch=False, batch_major=False):
+    extra = {}
+    if per_batch:
+        extra = dict(static_params={"l": 1.0 + torch.rand(batch, generator=gen, device=DEVICE), "m": 1.0, "g": 9.81},
+                     action_normalizations={"torque": ex.MinMaxNormalization(
+                         min=-20.0, max=15.0 + 10 * torch.rand(batch, generator=gen, device=DEVICE))})
+    env = make_env(getattr(ex, name), batch, dtype, solver=solver, **extra)
+    props = env.env_properties
+    pt = [leaf(t) for t in K.ck.prop_tensors(props)]
+    props = K.ck.props_with(props, pt)
+    y0 = tuple(leaf(t) for t in random_state(env, gen))
+    acts = leaf(random_actions(env, n_steps // hold, gen))
+    nz = leaf(0.05 * torch.randn((n_steps, batch, 1), generator=gen, device=DEVICE, dtype=dtype)) if noise else None
+    kw = dict(tau=env.tau, props=props, obs_stride=stride, sim_ahead=sim_ahead, hold=hold, noise_tm=nz,
+              noise_idx=(1,) if noise else ())
+    slab = acts.transpose(0, 1).contiguous() if batch_major else acts
+    slab = leaf(slab)
+    tm = slab.transpose(0, 1) if batch_major else slab
+    run_k = lambda: K.kernel_rollout(env, y0, slab, batch_major=batch_major, **kw)
+    run_p = lambda: K.plain_rollout(env, y0, tm, **kw)
+    inputs = [*y0, slab, *pt] + ([nz] if noise else [])
+    return run_k, run_p, inputs, K.KERNEL, "sim_ahead" if sim_ahead else "step"
+
+
+def grad_inputs_cl(ex, CL, name, dtype, gen, batch, n_steps, stride=None, solver="euler", pi=False, noise=False,
+                   per_batch=False, actor=False):
+    from exciting_environments_torch.utils.convert import actor_params_from_numpy
+
+    control = ["theta"] if name == "Pendulum" else ["deflection"]
+    extra = dict(static_params={"l": 1.0 + torch.rand(batch, generator=gen, device=DEVICE), "m": 1.0,
+                                "g": 9.81}) if per_batch else {}
+    env = make_env(getattr(ex, name), batch, dtype, solver=solver, control_state=control, **extra)
+    props = env.env_properties
+    pt = [leaf(t) for t in CL.ck.prop_tensors(props)]
+    props = CL.ck.props_with(props, pt)
+    n = len(env._ode_state_fields)
+    y0 = tuple(leaf(t) for t in random_state(env, gen))
+    refs = (leaf(random_state(env, gen)[0] * 0.8),)
+    carry = None
+    if actor:
+        policy, carry = ex.make_actor_tile(env, deterministic=True)
+        tree = actor_params_from_numpy(env, actor_tree(n + 1))
+        params = {"actor": [{k: leaf(v) for k, v in layer.items()} for layer in tree["actor"]],
+                  "log_std": tree["log_std"], "seed": tree["seed"]}
+        grads_of = [t for layer in params["actor"] for t in layer.values()]
+    else:
+        K0 = [[-0.9, -0.25] + [0.3] * (n - 2) + [0.9]]
+        policy = ex.AffinePolicy(K0, Ki=[[-0.02] + [0.0] * (n - 1) + [0.02]] if pi else None)
+        params = leaf(policy.flat_params().to(device=DEVICE, dtype=dtype))
+        grads_of = [params]
+        if pi:
+            carry = (leaf(0.1 * random_state(env, gen)[0]),)
+            grads_of += list(carry)
+    on = leaf(0.02 * torch.randn((n_steps, batch, 2), generator=gen, device=DEVICE, dtype=dtype)) if noise else None
+    pn = leaf(0.02 * torch.randn((n_steps, batch, 1), generator=gen, device=DEVICE, dtype=dtype)) if noise else None
+    kw = dict(tau=env.tau, solver=env._solver, props=props, ref_leaves=refs, traj_stride=stride,
+              policy_params=params, policy_carry=carry, obs_noise_tm=on, proc_noise_tm=pn,
+              obs_noise_cols=(0, n) if noise else (), proc_noise_idx=(1,) if noise else ())
+    run_k = lambda: CL.kernel_closed_loop(env, y0, policy, n_steps, **kw)
+    run_p = lambda: CL.plain_closed_loop(env, y0, policy, n_steps, **kw)
+    inputs = [*y0, *refs, *grads_of, *pt] + ([on, pn] if noise else [])
+    return run_k, run_p, inputs, CL.CL_KERNEL, "closed_loop"
+
+
+def pmsm_grad_state(env, gen, batch, dtype, lim_i=0.3):
+    """Start currents inside the inner ``lim_i`` of the bands, random angles,
+    speeds up to 30% of the band and buffers of a few tens of volts."""
+    pn = env.env_properties.physical_normalizations
+    rand = lambda lo, hi: leaf((lo + (hi - lo) * torch.rand(batch, generator=gen, device=DEVICE,
+                                                            dtype=torch.float64)).to(dtype))
+    state0 = (rand(lim_i * pn.i_d.min, 0.0), rand(-lim_i * pn.i_q.max, lim_i * pn.i_q.max), rand(-3.0, 3.0),
+              rand(-50.0, 50.0), rand(-50.0, 50.0))
+    return state0, rand(0.0, 0.3 * pn.omega_el.max)
+
+
+def grad_inputs_pmsm(ex, PK, dtype, gen, batch, n_steps, stride=None, solver="euler", deadtime=1, sim_ahead=False,
+                     batch_major=False, per_batch=False, variant="BRUSA", saturated=True, holding=False):
+    static = {"deadtime": deadtime}
+    if per_batch:
+        static.update(r_s=0.015 + 0.006 * torch.rand(batch, generator=gen, device=DEVICE, dtype=torch.float64),
+                      u_dc=300.0 + 150.0 * torch.rand(batch, generator=gen, device=DEVICE, dtype=torch.float64))
+    env = pmsm_env(ex, batch, variant, saturated, dtype, static=static, solver=solver)
+    props = env.env_properties
+    pt = [leaf(t) for t in PK.ck.prop_tensors(props)]
+    props = PK.ck.props_with(props, pt)
+    if holding:
+        state, acts_bm = holding_fleet(ex, env, gen, n_steps)
+        state0 = tuple(leaf(t) for t in PK._start(state)[0])
+        omega = leaf(state.physical_state.omega_el)
+        slab = leaf(acts_bm if batch_major else acts_bm.transpose(0, 1).contiguous())
+    else:
+        state0, omega = pmsm_grad_state(env, gen, batch, dtype)
+        # full-scale actions: the hexagon clips some, so the DC link gets a real cotangent
+        u = torch.rand((n_steps, batch, 2), generator=gen, device=DEVICE, dtype=torch.float64)
+        slab = (u * 2 - 1).to(dtype)
+        slab = leaf(slab.transpose(0, 1).contiguous() if batch_major else slab)
+    kw = dict(tau=env.tau, props=props, obs_stride=stride, sim_ahead=sim_ahead, batch_major=batch_major)
+    run_k = lambda: PK.pmsm_kernel_rollout(env, slab, state0, omega, **kw)
+    run_p = lambda: PK.plain_pmsm_rollout(env, slab, state0, omega, **kw)
+    return run_k, run_p, [slab, *state0, omega, *pt], PK.KERNEL, "pmsm_sim_ahead" if sim_ahead else "pmsm_step"
+
+
+def grad_inputs_pcl(ex, PCL, dtype, gen, batch, n_steps, stride=None, solver="euler", deadtime=1, pi=False,
+                    noise=False, per_batch=False, variant="BRUSA", saturated=True):
+    static = {"deadtime": deadtime}
+    if per_batch:
+        static.update(r_s=0.015 + 0.006 * torch.rand(batch, generator=gen, device=DEVICE, dtype=torch.float64),
+                      u_dc=300.0 + 150.0 * torch.rand(batch, generator=gen, device=DEVICE, dtype=torch.float64))
+    env = pmsm_env(ex, batch, variant, saturated, dtype, static=static, solver=solver, control_state=["i_d", "i_q"])
+    props = env.env_properties
+    pt = [leaf(t) for t in PCL.ck.prop_tensors(props)]
+    props = PCL.ck.props_with(props, pt)
+    state0, omega = pmsm_grad_state(env, gen, batch, dtype)
+    refs = (leaf(-0.6 * torch.rand(batch, generator=gen, device=DEVICE).to(dtype)),
+            leaf((torch.rand(batch, generator=gen, device=DEVICE) - 0.5).to(dtype)))
+    policy = ex.AffinePolicy([[3 * k for k in row] for row in PCL_P], Ki=PCL_KI if pi else None)
+    gains = leaf(policy.flat_params().to(device=DEVICE, dtype=dtype))
+    carry = tuple(leaf(0.1 * (torch.rand(batch, generator=gen, device=DEVICE) - 0.5).to(dtype))
+                  for _ in range(2)) if pi else None
+    on = leaf(0.02 * torch.randn((n_steps, batch, 2), generator=gen, device=DEVICE, dtype=dtype)) if noise else None
+    pn = leaf(0.5 * torch.randn((n_steps, batch, 1), generator=gen, device=DEVICE, dtype=dtype)) if noise else None
+    kw = dict(tau=env.tau, solver=env._solver, props=props, ref_leaves=refs, traj_stride=stride,
+              policy_params=gains, policy_carry=carry, obs_noise_tm=on, proc_noise_tm=pn,
+              obs_noise_cols=(0, 1) if noise else (), proc_noise_idx=(1,) if noise else ())
+    run_k = lambda: PCL.kernel_pmsm_closed_loop(env, state0, omega, policy, n_steps, **kw)
+    run_p = lambda: PCL.plain_pmsm_closed_loop(env, state0, omega, policy, n_steps, **kw)
+    inputs = [*state0, omega, *refs, gains, *(carry or ()), *pt] + ([on, pn] if noise else [])
+    return run_k, run_p, inputs, PCL.PMSM_CL_KERNEL, "pmsm_closed_loop"
+
+
+#: (entry point, label, keyword arguments of its inputs), the CPU tests' cases
+GRAD_CASES = [
+    ("kernel_rollout", "pendulum euler, final only", dict(name="Pendulum")),
+    ("kernel_rollout", "pendulum rk4, saves every 8 (checkpoints every 4)", dict(name="Pendulum", solver="rk4", stride=8)),
+    ("kernel_rollout", "pendulum rk4, prime T = 13", dict(name="Pendulum", solver="rk4", n_steps=13)),
+    ("kernel_rollout", "cart_pole tsit5, saves every 4", dict(name="CartPole", solver="tsit5", stride=4)),
+    ("kernel_rollout", "pendulum rk4 sim-ahead, hold 2", dict(name="Pendulum", solver="rk4", stride=4, sim_ahead=True,
+                                                             hold=2)),
+    ("kernel_rollout", "pendulum tsit5 sim-ahead", dict(name="Pendulum", solver="tsit5", stride=4, sim_ahead=True)),
+    ("kernel_rollout", "pendulum euler, process-noise slab", dict(name="Pendulum", stride=4, noise=True)),
+    ("kernel_rollout", "pendulum rk4, per-batch l and action band", dict(name="Pendulum", solver="rk4", stride=4,
+                                                                        per_batch=True)),
+    ("kernel_rollout", "pendulum rk4, batch-major slab", dict(name="Pendulum", solver="rk4", stride=4,
+                                                             batch_major=True)),
+    ("kernel_closed_loop", "pendulum euler PD, final only", dict(name="Pendulum")),
+    ("kernel_closed_loop", "pendulum rk4 PD, saves every 8", dict(name="Pendulum", solver="rk4", stride=8)),
+    ("kernel_closed_loop", "pendulum rk4 PD, prime T = 13", dict(name="Pendulum", solver="rk4", n_steps=13)),
+    ("kernel_closed_loop", "pendulum rk4 PI, both noise slabs", dict(name="Pendulum", solver="rk4", stride=4, pi=True,
+                                                                     noise=True)),
+    ("kernel_closed_loop", "pendulum euler PD, per-batch l", dict(name="Pendulum", stride=4, per_batch=True)),
+    ("kernel_closed_loop", "cart_pole tsit5 affine", dict(name="CartPole", solver="tsit5", stride=4)),
+    ("kernel_closed_loop", "pendulum rk4 actor (16, 16) deterministic", dict(name="Pendulum", solver="rk4", stride=4,
+                                                                             actor=True)),
+    ("pmsm_kernel_rollout", "BRUSA euler deadtime 1, final only", dict()),
+    ("pmsm_kernel_rollout", "BRUSA euler deadtime 0, saves every 4", dict(deadtime=0, stride=4)),
+    ("pmsm_kernel_rollout", "BRUSA euler, saves every 8", dict(stride=8)),
+    ("pmsm_kernel_rollout", "BRUSA euler, prime T = 13", dict(n_steps=13)),
+    ("pmsm_kernel_rollout", "BRUSA rk4, saves every 8", dict(solver="rk4", stride=8)),
+    ("pmsm_kernel_rollout", "BRUSA tsit5 sim-ahead deadtime 1", dict(solver="tsit5", sim_ahead=True, stride=1)),
+    ("pmsm_kernel_rollout", "BRUSA tsit5 sim-ahead deadtime 0", dict(solver="tsit5", sim_ahead=True, stride=1,
+                                                                     deadtime=0)),
+    ("pmsm_kernel_rollout", "BRUSA euler, batch-major slab", dict(stride=4, batch_major=True)),
+    ("pmsm_kernel_rollout", "BRUSA euler, per-batch r_s and DC link", dict(stride=4, per_batch=True)),
+    ("pmsm_kernel_rollout", "DEFAULT linear rk4", dict(solver="rk4", stride=4, variant="DEFAULT", saturated=False)),
+    ("kernel_pmsm_closed_loop", "BRUSA P deadtime 1, final only", dict()),
+    ("kernel_pmsm_closed_loop", "BRUSA P deadtime 0, saves every 4", dict(deadtime=0, stride=4)),
+    ("kernel_pmsm_closed_loop", "BRUSA PI, saves every 8", dict(pi=True, stride=8)),
+    ("kernel_pmsm_closed_loop", "BRUSA PI, prime T = 13", dict(pi=True, n_steps=13)),
+    ("kernel_pmsm_closed_loop", "BRUSA P rk4, both noise slabs", dict(solver="rk4", stride=4, noise=True)),
+    ("kernel_pmsm_closed_loop", "BRUSA P tsit5 deadtime 0", dict(solver="tsit5", stride=1, deadtime=0)),
+    ("kernel_pmsm_closed_loop", "BRUSA P, per-batch r_s and DC link", dict(stride=4, per_batch=True)),
+    ("kernel_pmsm_closed_loop", "DEFAULT linear P rk4", dict(solver="rk4", stride=4, variant="DEFAULT",
+                                                             saturated=False)),
+]
+
+
+def phase_grad(ex, K, CL, PK, PCL):
+    """The four VJPs on the card, float32 and float64: each case of
+    GRAD_CASES at B = 4,096 (T = 16 unless stated), then one full-width case
+    per kernel in float32; every gradient within GRAD_LIMIT of autograd
+    through the plain loop, the forward outputs 0.0 from the plain version,
+    one launch per forward, and no checkpoint saves without grad.  Returns
+    the entries of the ``grads`` line."""
+    make_inputs = {"kernel_rollout": lambda dtype, gen, kw: grad_inputs_stepper(ex, K, dtype=dtype, gen=gen, **kw),
+                "kernel_closed_loop": lambda dtype, gen, kw: grad_inputs_cl(ex, CL, dtype=dtype, gen=gen, **kw),
+                "pmsm_kernel_rollout": lambda dtype, gen, kw: grad_inputs_pmsm(ex, PK, dtype, gen, **kw),
+                "kernel_pmsm_closed_loop": lambda dtype, gen, kw: grad_inputs_pcl(ex, PCL, dtype, gen, **kw)}
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 21)
+    entries, failures = [], []
+
+    def check(entry_point, label, dtype, kw, seed):
+        kw = dict(kw)
+        kw.setdefault("batch", B_GRAD)
+        kw.setdefault("n_steps", T_GRAD)
+        run_k, run_p, inputs, lib, mode = make_inputs[entry_point](dtype, gen, kw)
+        dev, fwd_err, launches, fwd_ms, bwd_ms = grad_case(run_k, run_p, inputs, lib, mode, seed)
+        limit = GRAD_LIMIT[dtype]
+        ok = dev <= limit and fwd_err == 0.0 and launches == 1
+        name = str(dtype).replace("torch.", "")
+        log(f"[grad] {entry_point} {label}, {name}, B={kw['batch']} T={kw['n_steps']}: gradient deviation {dev!r} "
+            f"(limit {limit}), forward vs plain {fwd_err!r}, {launches} launch, forward {fwd_ms:.2f} ms, "
+            f"backward {bwd_ms:.2f} ms {'ok' if ok else 'FAIL'}")
+        entries.append({"entry": entry_point, "case": label, "dtype": name, "batch": kw["batch"],
+                        "n_steps": kw["n_steps"], "deviation": dev, "forward_deviation": fwd_err,
+                        "fwd_ms": fwd_ms, "bwd_ms": bwd_ms})
+        if not ok:
+            failures.append(f"{entry_point} {label} {name}")
+
+    for dtype in (torch.float32, torch.float64):
+        for i, (entry_point, label, kw) in enumerate(GRAD_CASES):
+            check(entry_point, label, dtype, kw, SEED + i)
+    full = [
+        ("kernel_rollout", "Pendulum main case, obs_stride 64", dict(name="Pendulum", batch=B_MAIN, n_steps=1024,
+                                                                     stride=64)),
+        ("kernel_closed_loop", "Pendulum PD tracking, obs_stride 64", dict(name="Pendulum", batch=B_MAIN,
+                                                                           n_steps=1024, stride=64)),
+        ("pmsm_kernel_rollout", "BRUSA holding fleet, obs_stride 16", dict(batch=B_MAIN, n_steps=T_PMSM, stride=16,
+                                                                          holding=True, batch_major=True)),
+        ("kernel_pmsm_closed_loop", "BRUSA P law, obs_stride 16", dict(batch=B_MAIN, n_steps=T_PMSM, stride=16)),
+    ]
+    for entry_point, label, kw in full:
+        check(entry_point, label, torch.float32, kw, SEED)
+        torch.cuda.empty_cache()
+    # without grad: one launch with the user's stride and no checkpoint saves,
+    # so the call allocates its outputs and nothing else
+    env = make_env(ex.Pendulum, B_MAIN, control_state=["theta"])
+    y0, refs = random_state(env, gen), (random_state(env, gen)[0],)
+    gains = ex.AffinePolicy(PD_GAINS).flat_params().to(device=DEVICE, dtype=torch.float32)
+    kw = dict(tau=env.tau, solver=env._solver, props=env.env_properties, ref_leaves=refs)
+    out_bytes = 2 * B_MAIN * 4
+    plain_call = extra_memory(lambda: CL.kernel_closed_loop(env, y0, ex.AffinePolicy(PD_GAINS), 1024,
+                                                            policy_params=gains, **kw))
+    with torch.enable_grad():
+        g = gains.clone().requires_grad_(True)
+        grad_call = extra_memory(lambda: CL.kernel_closed_loop(env, y0, ex.AffinePolicy(PD_GAINS), 1024,
+                                                               policy_params=g, **kw))
+    ok = plain_call < out_bytes + (1 << 16) < grad_call
+    log(f"[grad] no grad: the closed loop over T = 1,024 allocates {plain_call} B at its peak (outputs {out_bytes} "
+        f"B); with grad {grad_call} B (the checkpoint saves) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("a call without grad allocated more than its outputs")
+    if failures:
+        raise AssertionError(f"gradient checks failed: {failures}")
+    return entries
+
+
+class TimedVJP:
+    """Host-clock times (synchronized) of each forward and backward of the
+    VJP Functions, by patching their ``forward``/``backward`` for the
+    duration of a ``with`` block."""
+
+    def __init__(self, *functions):
+        self.functions = functions
+        self.fwd_ms, self.bwd_ms = [], []
+
+    def _wrap(self, fn, sink):
+        def timed(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            sink.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return timed
+
+    def __enter__(self):
+        self.saved = [(f, f.forward, f.backward) for f in self.functions]
+        for f, fwd, bwd in self.saved:
+            f.forward = staticmethod(self._wrap(fwd, self.fwd_ms))
+            f.backward = staticmethod(self._wrap(bwd, self.bwd_ms))
+        return self
+
+    def __exit__(self, *exc):
+        for f, fwd, bwd in self.saved:
+            f.forward, f.backward = staticmethod(fwd), staticmethod(bwd)
+
+
+def phase_train(ex, CL, PCL):
+    """The README's training flow at full width: ``train_policy`` on the
+    tracking pendulum (B = 65,536, references linspace(-1.5, 1.5)) with an
+    ``AffinePolicy`` PD law over 1,024 steps and 10 iterations, the PI law
+    over 256 steps and 10 iterations, and on saturated BRUSA (B = 65,536)
+    an ``AffinePolicy`` over the 10 columns from kd = kq = 0.3, 128 steps and
+    12 iterations with benchmarks/r03/pmsm_policy_grad_device.py's clipped
+    loss; each must end below its first loss with finite parameters.  Logs
+    each iteration's forward, backward and optimizer ms.  Returns the
+    entries of the ``grads`` line."""
+    from exciting_environments_torch.utils.train import train_policy
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 22)
+    pend = make_env(ex.Pendulum, B_MAIN, control_state=["theta"])
+    _, pstate = pend.vmap_reset(rng=gen)
+    pstate.reference.theta = torch.linspace(-1.5, 1.5, B_MAIN, device=DEVICE)
+    drive = pmsm_env(ex, B_MAIN, control_state=["i_d", "i_q"])
+    _, dstate = drive.vmap_reset(rng=gen)
+    dstate.reference.i_d = torch.linspace(-200.0, -10.0, B_MAIN, device=DEVICE)
+    dstate.reference.i_q = torch.linspace(-150.0, 150.0, B_MAIN, device=DEVICE)
+
+    def clipped(obs, acts):
+        e_d = torch.clamp(obs[:, :, 0] - obs[:, :, 8], -3.0, 3.0)
+        e_q = torch.clamp(obs[:, :, 1] - obs[:, :, 9], -3.0, 3.0)
+        return torch.mean(e_d ** 2 + e_q ** 2)
+
+    k_drive = [[-0.3, 0, 0, 0, 0, 0, 0, 0, 0.3, 0], [0, -0.3, 0, 0, 0, 0, 0, 0, 0, 0.3]]
+    runs = [
+        ("pendulum PD", pend, pstate, ex.AffinePolicy(PD_GAINS), 1024, 10, None, None),
+        ("pendulum PI", pend, pstate, ex.AffinePolicy(**PI_LAW), 256, 10,
+         (torch.zeros(B_MAIN, device=DEVICE),), None),
+        ("BRUSA P", drive, dstate, ex.AffinePolicy(k_drive), 128, 12, None, clipped),
+    ]
+    entries, failures = [], []
+    for label, env, state, policy, n_steps, iterations, carry, loss_fn in runs:
+        opt_ms = []
+
+        def adam(params, opt_ms=opt_ms):
+            opt = torch.optim.Adam(params, lr=0.1)
+            step = opt.step
+
+            def timed_step(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(*a, **k)
+                torch.cuda.synchronize()
+                opt_ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+            opt.step = timed_step
+            return opt
+
+        params = policy.flat_params().to(device=DEVICE, dtype=torch.float32)
+        CL.CL_KERNEL.reset_counts()
+        PCL.PMSM_CL_KERNEL.reset_counts()
+        t0 = time.perf_counter()
+        with TimedVJP(CL.ClosedLoopVJP, PCL.PmsmClosedLoopVJP) as timer:
+            res = train_policy(env, policy, params, state, n_steps=n_steps, iterations=iterations,
+                               optimizer=adam, loss_fn=loss_fn, policy_carry=carry)
+        wall = time.perf_counter() - t0
+        launches = CL.CL_KERNEL.launches["closed_loop"] + PCL.PMSM_CL_KERNEL.launches["pmsm_closed_loop"]
+        for i in range(iterations):
+            log(f"[train] {label} iteration {i}: loss {float(res.losses[i])!r}, kernel forward "
+                f"{timer.fwd_ms[i]:.2f} ms, backward replay {timer.bwd_ms[i]:.1f} ms, optimizer {opt_ms[i]:.3f} ms")
+        finite = bool(torch.isfinite(res.params).all()) and bool(torch.isfinite(res.losses).all())
+        ok = res.final_loss < float(res.losses[0]) and finite and launches == iterations + 1
+        log(f"[train] {label}, B={env.batch_size} T={n_steps}: loss {float(res.losses[0])!r} -> {res.final_loss!r}, "
+            f"{launches} launches (one per iteration and the final loss), {wall:.1f} s {'ok' if ok else 'FAIL'}")
+        entries.append({"entry": "train_policy", "case": label, "dtype": "float32", "batch": env.batch_size,
+                        "n_steps": n_steps, "first_loss": float(res.losses[0]), "final_loss": res.final_loss,
+                        "fwd_ms": statistics.median(timer.fwd_ms), "bwd_ms": statistics.median(timer.bwd_ms),
+                        "opt_ms": statistics.median(opt_ms)})
+        if not ok:
+            failures.append(label)
+    if failures:
+        raise AssertionError(f"training did not lower the loss: {failures}")
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2412,6 +2843,8 @@ def main() -> int:
     kernels += phase_fast_flag(ex, K, CL)
     kernels += phase_pendulum_fast(ex, PFK)
     kernels += phase_pmsm_fast(ex, PF, PMK)
+    grads = phase_grad(ex, K, CL, PK, PCL)
+    grads += phase_train(ex, CL, PCL)
     if "jax" in sys.modules or any(m.startswith("exciting_environments_tpu") for m in sys.modules):
         raise AssertionError("the port pulled in JAX or the JAX package")
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
@@ -2419,6 +2852,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+    print(json.dumps({"grads": grads}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

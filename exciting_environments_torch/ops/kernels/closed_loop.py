@@ -29,9 +29,12 @@ import ctypes
 from dataclasses import fields
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from exciting_environments_torch.core import structures
 from exciting_environments_torch.ops.policies import KernelPolicy
+
+from . import checkpoint as ck
 
 from .stepper import (
     MAX_ACTION,
@@ -200,24 +203,15 @@ def kernel_variant(n_state: int, spec) -> str:
     raise ValueError(f"no closed-loop kernel family has policy_id {spec.policy_id}")
 
 
-def _tensors(tree):
-    """Every tensor in a nest of dicts, lists and tuples."""
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    if isinstance(tree, dict):
-        return [t for v in tree.values() for t in _tensors(v)]
-    if isinstance(tree, (list, tuple)):
-        return [t for v in tree for t in _tensors(v)]
-    return []
-
-
 def kernel_closed_loop(env, y0, policy, n_steps, *, tau, solver, props, ref_leaves=(), traj_stride=None,
                        policy_params=None, policy_carry=None, obs_noise_tm=None, proc_noise_tm=None,
                        obs_noise_cols=(), proc_noise_idx=()):
     """Launch the CUDA closed-loop kernel (argument contract:
     :func:`fused_closed_loop`; returns as :func:`plain_closed_loop`).
     Outputs are allocated here; the launch is asynchronous on the current
-    stream."""
+    stream.  Where autograd records the call (grad mode on and an input
+    that requires grad), the launch is the forward of the checkpointed VJP
+    (:class:`ClosedLoopVJP`)."""
     y0 = tuple(y0)
     dtype, device = y0[0].dtype, y0[0].device
     batch = y0[0].shape[0]
@@ -245,10 +239,10 @@ def kernel_closed_loop(env, y0, policy, n_steps, *, tau, solver, props, ref_leav
         _check_leaf(f"reference {i}", leaf, dtype, device, (batch,))
     for i, leaf in enumerate(carry0):
         _check_leaf(f"policy carry leaf {i}", leaf, dtype, device, (batch,))
-    grads = [*y0, *ref_leaves, *carry0, *_tensors(policy_params), *policy.parameters()]
 
     spec = policy.kernel_spec(dtype, device, policy_params)
     flat = spec.flat
+    grads = [*y0, *ref_leaves, *carry0, flat]
     n_obs = n_state + n_refs
     if flat.numel() > MAX_POLICY_PARAMS:
         raise ValueError(f"{flat.numel()} policy parameters exceed the kernel's {MAX_POLICY_PARAMS}")
@@ -312,11 +306,11 @@ def kernel_closed_loop(env, y0, policy, n_steps, *, tau, solver, props, ref_leav
         for j, idx in enumerate(proc_noise_idx):
             args.noise_idx[j] = idx
         args.n_proc_noise = len(proc_noise_idx)
-    if any(t.requires_grad for t in grads):
-        raise NotImplementedError(
-            "the closed-loop kernel has no backward yet: its VJP (checkpointed recompute "
-            "through plain_cl_step) comes with the training slice, ROADMAP.md Queue 2 item 1"
-        )
+    if torch.is_grad_enabled() and any(t.requires_grad for t in grads):
+        return closed_loop_vjp(env, y0, policy, n_steps, tau=tau, solver=solver, props=props, ref_leaves=ref_leaves,
+                               traj_stride=traj_stride, policy_params=policy_params, policy_carry=policy_carry,
+                               obs_noise_tm=obs_noise_tm, proc_noise_tm=proc_noise_tm,
+                               obs_noise_cols=obs_noise_cols, proc_noise_idx=proc_noise_idx)
 
     new = lambda: torch.empty(batch, dtype=dtype, device=device)
     y_out = [new() for _ in y0]
@@ -368,6 +362,151 @@ def kernel_closed_loop(env, y0, policy, n_steps, *, tau, solver, props, ref_leav
     return tuple(y_out), tuple(c_out), tuple(traj_state), tuple(traj_action), tuple(traj_carry)
 
 
+# ---------------------------------------------------------------------------
+# the VJP: the kernel's forward with checkpoint saves, a segment replay back
+# ---------------------------------------------------------------------------
+
+
+class ClosedLoopVJP(torch.autograd.Function):
+    """The closed loop as one differentiable operation, the counterpart of the
+    JAX package's ``_cl_core`` ``custom_vjp``.
+
+    Forward: the kernel on CUDA tensors, :func:`plain_closed_loop` on CPU
+    tensors, both on detached inputs and with saves every
+    :func:`~.checkpoint.ckpt_stride` steps; the user's saves are a slice of
+    them.  Backward: the segments in reverse, each replayed through
+    :func:`plain_cl_step` from its checkpoint (``_cl_core_bwd``).  The saved
+    action of a save step is the policy's output at the segment's last step.
+    Inputs, after the configuration: the state leaves, the references, the
+    carry, the flat vector of the policy's
+    :class:`~exciting_environments_torch.ops.policies.KernelSpec` (autograd
+    carries its cotangent on into the policy's parameter tree), the floating
+    tensor leaves of ``props`` and the two noise slabs (or ``None``)."""
+
+    @staticmethod
+    def forward(ctx, cfg, *tensors):
+        ctx.set_materialize_grads(False)
+        y0, refs, carry0, pp, pt, (on,), (pn,) = cfg.split(tensors)
+        ckpt = ck.ckpt_stride(cfg.n_steps, cfg.traj_stride)
+        kwargs = dict(tau=cfg.tau, solver=cfg.solver, props=ck.props_with(cfg.props, pt), ref_leaves=refs,
+                      traj_stride=ckpt, policy_params=cfg.rebuild(pp), policy_carry=carry0 if cfg.n_carry else None,
+                      obs_noise_tm=on, proc_noise_tm=pn, obs_noise_cols=cfg.obs_cols, proc_noise_idx=cfg.noise_idx)
+        if y0[0].device.type == "cuda":
+            final, final_c, ts, ta, tc = kernel_closed_loop(cfg.env, y0, cfg.policy, cfg.n_steps, **kwargs)
+        else:
+            final, final_c, ts, ta, tc = plain_closed_loop(cfg.env, y0, cfg.policy, cfg.n_steps, **kwargs)
+        ctx.cfg = cfg
+        ctx.save_for_backward(*tensors[: cfg.n_in], *ts, *tc)
+        out = tuple(final) + tuple(final_c)
+        if cfg.traj_stride is not None:
+            at = slice(cfg.traj_stride // ckpt - 1, None, cfg.traj_stride // ckpt)
+            out += tuple(leaf[at] for leaf in (*ts, *ta, *tc))
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *grads):
+        cfg = ctx.cfg
+        saved = ctx.saved_tensors
+        inputs = saved[: cfg.n_in]
+        y0, refs, carry0, pp, pt, (on,), (pn,) = cfg.split(inputs)
+        ts = saved[cfg.n_in : cfg.n_in + cfg.n_state]
+        tc = saved[cfg.n_in + cfg.n_state :]
+        ns, nc, na = cfg.n_state, cfg.n_carry, cfg.env.action_dim
+        ckpt = ck.ckpt_stride(cfg.n_steps, cfg.traj_stride)
+        n_seg = cfg.n_steps // ckpt
+        g_y, g_c = list(grads[:ns]), list(grads[ns : ns + nc])
+        none = lambda n: (None,) * n
+        if cfg.traj_stride is not None:
+            g_ts, g_ta, g_tc = grads[ns + nc : 2 * ns + nc], grads[2 * ns + nc : 2 * ns + nc + na], grads[2 * ns + nc + na :]
+            skip = cfg.traj_stride // ckpt
+            g_ts, g_ta, g_tc = (ck.inject(g, skip, n_seg) for g in (g_ts, g_ta, g_tc))
+        else:
+            g_ts, g_ta, g_tc = none(ns), none(na), none(nc)
+        y_starts, c_starts = ck.starts(y0, ts), ck.starts(carry0, tc)
+        needs = ctx.needs_input_grad[1:]
+        i_refs = ns
+        i_carry = i_refs + len(refs)
+        i_pp = i_carry + nc
+        i_pt = i_pp + len(pp)
+        i_on = i_pt + len(pt)
+        need_refs, need_pp, need_pt = needs[i_refs:i_carry], needs[i_pp:i_pt], needs[i_pt:i_on]
+        need_on, need_pn = needs[i_on], needs[i_on + 1]
+        g_refs, g_pp, g_pt = [None] * len(refs), [None] * len(pp), [None] * len(pt)
+        g_on = torch.zeros_like(on) if need_on else None
+        g_pn = torch.zeros_like(pn) if need_pn else None
+        has_carry = nc > 0
+        at_seg = lambda g, s: None if g is None else g[s]
+        for s in reversed(range(n_seg)):
+            t0 = s * ckpt
+            if s == n_seg - 1:
+                g_y = [ck.add(g, at_seg(gs, s)) for g, gs in zip(g_y, g_ts)]
+                g_c = [ck.add(g, at_seg(gs, s)) for g, gs in zip(g_c, g_tc)]
+            # the saves at the segment's start enter as seeds of its start leaves
+            seeds = ([(j, at_seg(gs, s - 1)) for j, gs in enumerate(g_ts)]
+                     + [(i_carry + j, at_seg(gs, s - 1)) for j, gs in enumerate(g_tc)]) if s else []
+            g_a = [at_seg(g, s) for g in g_ta]
+            if all(g is None for g in (*g_y, *g_c, *g_a, *(g for _, g in seeds))):
+                g_y = [ck.add(g, gs) for g, (_, gs) in zip(g_y, seeds[:ns])] if seeds else g_y
+                g_c = [ck.add(g, gs) for g, (_, gs) in zip(g_c, seeds[ns:])] if seeds else g_c
+                continue
+            rows = slice(t0, t0 + ckpt)
+
+            def replay(*leaves, t0=t0, g_y=g_y, g_c=g_c, g_a=g_a):
+                y, rf, c, p, q, (eo,), (ep,) = cfg.split(leaves)
+                props = ck.props_with(cfg.props, q)
+                pparams = cfg.rebuild(p)
+                for k in range(ckpt):
+                    y, c, a = plain_cl_step(
+                        cfg.env, cfg.policy, y, c, t0 + k, rf, pparams, tau=cfg.tau, solver=cfg.solver,
+                        props=props, has_carry=has_carry, eo=None if eo is None else eo[k],
+                        ep=None if ep is None else ep[k], obs_cols=cfg.obs_cols, noise_idx=cfg.noise_idx,
+                    )
+                return [*zip(y, g_y), *zip(c, g_c), *zip(a, g_a)]
+
+            seg_inputs = [*(leaf[s] for leaf in y_starts), *refs, *(leaf[s] for leaf in c_starts), *pp, *pt,
+                          None if on is None else on[rows], None if pn is None else pn[rows]]
+            seg_needs = [True] * ns + list(need_refs) + [True] * nc + list(need_pp) + list(need_pt) + [need_on,
+                                                                                                      need_pn]
+            got = ck.segment_vjp(replay, seg_inputs, seg_needs, seeds)
+            gy, grf, gc, gp, gq, (gon,), (gpn,) = cfg.split(got)
+            g_y, g_c = list(gy), list(gc)
+            g_refs = [ck.add(a, b) for a, b in zip(g_refs, grf)]
+            g_pp = [ck.add(a, b) for a, b in zip(g_pp, gp)]
+            g_pt = [ck.add(a, b) for a, b in zip(g_pt, gq)]
+            if gon is not None:
+                g_on[rows] = gon
+            if gpn is not None:
+                g_pn[rows] = gpn
+        return (None, *g_y, *g_refs, *g_c, *g_pp, *g_pt, g_on, g_pn)
+
+
+def closed_loop_vjp(env, y0, policy, n_steps, *, tau, solver, props, ref_leaves=(), traj_stride=None,
+                    policy_params=None, policy_carry=None, obs_noise_tm=None, proc_noise_tm=None,
+                    obs_noise_cols=(), proc_noise_idx=()):
+    """The closed loop of a compiled policy family through
+    :class:`ClosedLoopVJP` (arguments and returns as
+    :func:`plain_closed_loop`, on any device)."""
+    y0 = tuple(y0)
+    if traj_stride is not None and n_steps % traj_stride:
+        raise ValueError("n_steps must be divisible by traj_stride")
+    carry0 = tuple(policy_carry) if policy_carry is not None else ()
+    flat = policy.kernel_spec(y0[0].dtype, y0[0].device, policy_params).flat
+    pt = ck.prop_tensors(props)
+    refs = tuple(ref_leaves)
+    cfg = ck.VJPConfig((len(y0), len(refs), len(carry0), 1, len(pt), 1, 1), env=env, policy=policy,
+                       n_steps=n_steps, tau=tau, solver=solver, props=props, traj_stride=traj_stride,
+                       rebuild=lambda p: policy.params_from_flat(p[0], policy_params), n_state=len(y0),
+                       n_carry=len(carry0), obs_cols=tuple(obs_noise_cols), noise_idx=tuple(proc_noise_idx))
+    out = ClosedLoopVJP.apply(cfg, *y0, *refs, *carry0, flat, *pt, obs_noise_tm, proc_noise_tm)
+    ns, nc, na = len(y0), len(carry0), env.action_dim
+    final, final_c = out[:ns], out[ns : ns + nc]
+    if traj_stride is None:
+        return final, final_c, None, None, None
+    rest = out[ns + nc :]
+    return final, final_c, rest[:ns], rest[ns : ns + na], rest[ns + na :]
+
+
 def fused_closed_loop(env, y0, policy, n_steps, *, tau=None, solver=None, props=None, ref_leaves=(),
                       traj_stride=None, policy_params=None, policy_carry=None, obs_noise_tm=None,
                       proc_noise_tm=None, obs_noise_cols=(), proc_noise_idx=()):
@@ -413,6 +552,8 @@ def fused_closed_loop(env, y0, policy, n_steps, *, tau=None, solver=None, props=
     )
     if y0[0].device.type == "cuda":
         out = kernel_closed_loop(env, y0, policy, n_steps, **kwargs)
+    elif isinstance(policy, KernelPolicy) and ck.records_grad(y0, policy, kwargs):
+        out = closed_loop_vjp(env, y0, policy, n_steps, **kwargs)
     else:
         out = plain_closed_loop(env, y0, policy, n_steps, **kwargs)
     final, final_carry, traj_state, traj_action, traj_carry = out

@@ -33,8 +33,10 @@ import math
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from exciting_environments_torch.core import structures
+from exciting_environments_torch.ops.kernels import checkpoint as ck
 from exciting_environments_torch.models.pmsm.pmsm_env import wrap_angle
 from exciting_environments_torch.ops.kernels.pmsm_stepper import (
     N_CHANNELS,
@@ -329,7 +331,9 @@ def kernel_pmsm_closed_loop(env, state0, omega, policy, n_steps, *, tau, solver,
     """Launch the CUDA PMSM closed-loop kernel (argument contract:
     :func:`pmsm_closed_loop`; returns as :func:`plain_pmsm_closed_loop`).
     Every check runs before the launch; outputs are allocated here and the
-    launch is asynchronous on the current stream."""
+    launch is asynchronous on the current stream.  Where autograd records
+    the call (grad mode on and an input that requires grad), the launch is
+    the forward of the checkpointed VJP (:class:`PmsmClosedLoopVJP`)."""
     state0 = tuple(state0)
     dtype, device = state0[0].dtype, state0[0].device
     batch = state0[0].shape[0]
@@ -379,12 +383,9 @@ def kernel_pmsm_closed_loop(env, state0, omega, policy, n_steps, *, tau, solver,
         _check_leaf(f"reference {i}", leaf, dtype, device, (batch,))
     for i, leaf in enumerate(carry0):
         _check_leaf(f"policy carry leaf {i}", leaf, dtype, device, (batch,))
-    grads = [*state0, omega, *ref_leaves, *carry0, *policy.parameters()]
-    if isinstance(policy_params, torch.Tensor):
-        grads.append(policy_params)
-
     spec = policy.kernel_spec(dtype, device, policy_params)
     flat = spec.flat
+    grads = [*state0, omega, *ref_leaves, *carry0, flat]
     n_obs = N_BASE_OBS + n_refs + n_sched
     if flat.numel() > MAX_POLICY_PARAMS:
         raise ValueError(f"{flat.numel()} policy parameters exceed the kernel's {MAX_POLICY_PARAMS}")
@@ -447,12 +448,12 @@ def kernel_pmsm_closed_loop(env, state0, omega, policy, n_steps, *, tau, solver,
         for j, idx in enumerate(proc_noise_idx):
             args.noise_idx[j] = idx
         args.n_proc_noise = len(proc_noise_idx)
-    if any(t.requires_grad for t in grads):
-        raise NotImplementedError(
-            "the PMSM closed-loop kernel has no backward yet: its VJP (checkpointed recompute "
-            "through plain_pmsm_cl_step) comes with the training slice, ROADMAP.md Queue 2 item 2"
-        )
-
+    if torch.is_grad_enabled() and any(t.requires_grad for t in grads):
+        return pmsm_closed_loop_vjp(env, state0, omega, policy, n_steps, tau=tau, solver=solver, props=props,
+                                    ref_leaves=ref_leaves, traj_stride=traj_stride, policy_params=policy_params,
+                                    policy_carry=policy_carry, obs_noise_tm=obs_noise_tm,
+                                    proc_noise_tm=proc_noise_tm, obs_noise_cols=obs_noise_cols,
+                                    proc_noise_idx=proc_noise_idx, sched_lut=sched_lut)
     smem_bytes = (flat.numel() + 16) * flat.element_size()
     if saturated:
         lut = env._lut
@@ -550,6 +551,184 @@ def sincos_mismatches(limit: float = 2.0 ** 7, chunk: int = 1 << 27) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the VJP: the kernel's forward with checkpoint saves, a segment replay back
+# ---------------------------------------------------------------------------
+
+
+def _eps_starts(eps0, omega, tau, solver, n_steps, ckpt):
+    """The pre-step angle at every segment start ``(n_seg, B)``, the
+    state-independent recurrence of :func:`_eps_trajectory`."""
+    rate = _eps_rate(solver, omega)
+    eps, out = eps0, []
+    for t in range(n_steps):
+        if t % ckpt == 0:
+            out.append(eps)
+        eps = wrap_angle(eps + tau * rate)
+    return torch.stack(out)
+
+
+class PmsmClosedLoopVJP(torch.autograd.Function):
+    """The PMSM closed loop as one differentiable operation, the counterpart of
+    the JAX package's ``_pmsm_cl_core`` ``custom_vjp``.
+
+    Forward: the kernel on CUDA tensors, :func:`plain_pmsm_closed_loop` on
+    CPU tensors, both on detached inputs and with saves every
+    :func:`~.checkpoint.ckpt_stride` steps; the user's saves are a slice of
+    them.  Backward: the segments in reverse, each replayed through
+    :func:`plain_pmsm_cl_step` from its checkpoint (``_pmsm_cl_core_bwd``).
+    A segment starts from the saved currents, the angle of the
+    state-independent recurrence and, with deadtime, the saved constrained
+    voltages as buffers (the initial buffers without).  The saved torque and
+    voltages and the last applied voltage are outputs whose cotangents enter
+    the replay.  The table and the scheduled maps are constants: they get no
+    cotangent, as in the reference.  Inputs, after the configuration: the
+    five state leaves, ``omega``, the references, the carry, the flat vector
+    of the policy's ``KernelSpec``, the floating tensor leaves of ``props``
+    and the two noise slabs (or ``None``)."""
+
+    @staticmethod
+    def forward(ctx, cfg, *tensors):
+        ctx.set_materialize_grads(False)
+        state0, (omega,), refs, carry0, pp, pt, (on,), (pn,) = cfg.split(tensors)
+        ckpt = ck.ckpt_stride(cfg.n_steps, cfg.traj_stride)
+        kwargs = dict(tau=cfg.tau, solver=cfg.solver, props=ck.props_with(cfg.props, pt), ref_leaves=refs,
+                      traj_stride=ckpt, policy_params=cfg.rebuild(pp), policy_carry=carry0 if cfg.n_carry else None,
+                      obs_noise_tm=on, proc_noise_tm=pn, obs_noise_cols=cfg.obs_cols, proc_noise_idx=cfg.noise_idx,
+                      sched_lut=cfg.sched_lut)
+        run = kernel_pmsm_closed_loop if omega.device.type == "cuda" else plain_pmsm_closed_loop
+        final, u_last, final_c, traj, tc = run(cfg.env, state0, omega, cfg.policy, cfg.n_steps, **kwargs)
+        ctx.cfg = cfg
+        ctx.save_for_backward(*tensors[: cfg.n_in], *traj, *tc)
+        out = tuple(final) + tuple(u_last) + tuple(final_c)
+        if cfg.traj_stride is not None:
+            at = slice(cfg.traj_stride // ckpt - 1, None, cfg.traj_stride // ckpt)
+            out += tuple(leaf[at] for leaf in (*traj, *tc))
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *grads):
+        cfg = ctx.cfg
+        saved = ctx.saved_tensors
+        state0, (omega,), refs, carry0, pp, pt, (on,), (pn,) = cfg.split(saved[: cfg.n_in])
+        traj, tc = saved[cfg.n_in : cfg.n_in + 7], saved[cfg.n_in + 7 :]
+        env, nc = cfg.env, cfg.n_carry
+        deadtime = int(cfg.props.static_params.deadtime)
+        ckpt = ck.ckpt_stride(cfg.n_steps, cfg.traj_stride)
+        n_seg = cfg.n_steps // ckpt
+        # outputs: final (i_d, i_q, eps, buf_d, buf_q, torque), u_last (2), carry, saves
+        g_state, g_tq_f, g_ul = list(grads[:5]), grads[5], grads[6:8]
+        g_c = list(grads[8 : 8 + nc])
+        if cfg.traj_stride is not None:
+            skip = cfg.traj_stride // ckpt
+            g_tr = ck.inject(grads[8 + nc : 15 + nc], skip, n_seg)  # i_d, i_q, torque, u_con_d, u_con_q, a_d, a_q
+            g_tc = ck.inject(grads[15 + nc :], skip, n_seg)
+        else:
+            g_tr, g_tc = (None,) * 7, (None,) * nc
+        i_starts = ck.starts(state0[:2], traj[:2])
+        e_starts = _eps_starts(state0[2], omega, cfg.tau, cfg.solver, cfg.n_steps, ckpt)
+        if deadtime:
+            b_starts = ck.starts(state0[3:5], traj[3:5])
+        else:
+            b_starts = tuple(leaf[None].expand((n_seg,) + tuple(leaf.shape)) for leaf in state0[3:5])
+        c_starts = ck.starts(carry0, tc)
+        sched = _sched_config(cfg.sched_lut, omega.dtype, omega.device)
+        needs = ctx.needs_input_grad[1:]
+        i_refs = 6
+        i_pp = i_refs + len(refs) + nc
+        i_pt = i_pp + len(pp)
+        i_on = i_pt + len(pt)
+        need_om, need_refs = needs[5], needs[i_refs : i_refs + len(refs)]
+        need_pp, need_pt, need_on, need_pn = needs[i_pp:i_pt], needs[i_pt:i_on], needs[i_on], needs[i_on + 1]
+        g_om = None
+        g_refs, g_pp, g_pt = [None] * len(refs), [None] * len(pp), [None] * len(pt)
+        g_on = torch.zeros_like(on) if need_on else None
+        g_pn = torch.zeros_like(pn) if need_pn else None
+        at_seg = lambda g, s: None if g is None else g[s]
+        # the saves of the carried state: the currents, and with deadtime the
+        # constrained voltages, which are the next step's buffers
+        g_sv = (g_tr[0], g_tr[1], None) + ((g_tr[3], g_tr[4]) if deadtime else (None, None))
+        i_carry = 6 + len(refs)
+        for s in reversed(range(n_seg)):
+            t0, last = s * ckpt, s == n_seg - 1
+            if last:
+                g_state = [ck.add(g, at_seg(gs, s)) for g, gs in zip(g_state, g_sv)]
+                g_c = [ck.add(g, at_seg(gs, s)) for g, gs in zip(g_c, g_tc)]
+            # the saves at the segment's start enter as seeds of its start leaves
+            seeds = ([(j, at_seg(gs, s - 1)) for j, gs in enumerate(g_sv)]
+                     + [(i_carry + j, at_seg(gs, s - 1)) for j, gs in enumerate(g_tc)]) if s else []
+            # a save's torque and the final torque are separate outputs, made in
+            # the plain loop's order
+            g_tqs = [g for g in (at_seg(g_tr[2], s), (g_tq_f if last else None)) if g is not None]
+            # the saved voltages are outputs of the segment's last step; with
+            # deadtime they are also the carried buffers (seeded above)
+            g_aux = [None if deadtime and j < 2 else at_seg(g, s) for j, g in enumerate(g_tr[3:])]
+            g_u = g_ul if last else (None, None)
+            if all(g is None for g in (*g_state, *g_c, *g_tqs, *g_aux, *g_u, *(g for _, g in seeds))):
+                if seeds:
+                    g_state = [ck.add(g, gs) for g, (_, gs) in zip(g_state, seeds[:5])]
+                    g_c = [ck.add(g, gs) for g, (_, gs) in zip(g_c, seeds[5:])]
+                continue
+            rows = slice(t0, t0 + ckpt)
+
+            def replay(*leaves, t0=t0, g_state=list(g_state), g_c=g_c, g_tqs=g_tqs, g_aux=g_aux, g_u=g_u):
+                state, (om,), rf, c, p, q, (eo,), (ep,) = cfg.split(leaves)
+                props = ck.props_with(cfg.props, q)
+                bands = eff_cl_norms(cl_bands(props))
+                pparams = cfg.rebuild(p)
+                for k in range(ckpt):
+                    state, c, (a_d, a_q, ucd, ucq), u_app = plain_pmsm_cl_step(
+                        env, cfg.policy, state, c, t0 + k, rf, pparams, tau=cfg.tau, solver=cfg.solver, props=props,
+                        omega=om, bands=bands, deadtime=deadtime, has_carry=nc > 0,
+                        eo=None if eo is None else eo[k], ep=None if ep is None else ep[k], obs_cols=cfg.obs_cols,
+                        noise_idx=cfg.noise_idx, sched=sched)
+                pairs = [*zip(state, g_state), *zip(c, g_c), *zip((ucd, ucq, a_d, a_q), g_aux), *zip(u_app, g_u)]
+                return pairs + [(env._torque(state[0], state[1], props), g) for g in g_tqs]
+
+            seg_state = (i_starts[0][s], i_starts[1][s], e_starts[s], b_starts[0][s], b_starts[1][s])
+            seg_inputs = [*seg_state, omega, *refs, *(leaf[s] for leaf in c_starts), *pp, *pt,
+                          None if on is None else on[rows], None if pn is None else pn[rows]]
+            seg_needs = [True] * 5 + [need_om, *need_refs] + [True] * nc + [*need_pp, *need_pt, need_on, need_pn]
+            got = ck.segment_vjp(replay, seg_inputs, seg_needs, seeds)
+            gs, (gom,), grf, gc, gp, gq, (gon,), (gpn,) = cfg.split(got)
+            g_state, g_c = list(gs), list(gc)
+            g_om = ck.add(g_om, gom)
+            g_refs = [ck.add(a, b) for a, b in zip(g_refs, grf)]
+            g_pp = [ck.add(a, b) for a, b in zip(g_pp, gp)]
+            g_pt = [ck.add(a, b) for a, b in zip(g_pt, gq)]
+            if gon is not None:
+                g_on[rows] = gon
+            if gpn is not None:
+                g_pn[rows] = gpn
+        return (None, *g_state, g_om, *g_refs, *g_c, *g_pp, *g_pt, g_on, g_pn)
+
+
+def pmsm_closed_loop_vjp(env, state0, omega, policy, n_steps, *, tau, solver, props, ref_leaves=(),
+                         traj_stride=None, policy_params=None, policy_carry=None, obs_noise_tm=None,
+                         proc_noise_tm=None, obs_noise_cols=(), proc_noise_idx=(), sched_lut=None):
+    """The closed loop through :class:`PmsmClosedLoopVJP` (arguments and
+    returns as :func:`plain_pmsm_closed_loop`, on any device) of a compiled
+    policy family."""
+    state0 = tuple(state0)
+    if traj_stride is not None and n_steps % traj_stride:
+        raise ValueError("n_steps must be divisible by traj_stride")
+    carry0 = tuple(policy_carry) if policy_carry is not None else ()
+    flat = policy.kernel_spec(omega.dtype, omega.device, policy_params).flat
+    pt = ck.prop_tensors(props)
+    refs = tuple(ref_leaves)
+    cfg = ck.VJPConfig((5, 1, len(refs), len(carry0), 1, len(pt), 1, 1), env=env, policy=policy,
+                       n_steps=n_steps, tau=tau, solver=solver, props=props, traj_stride=traj_stride,
+                       rebuild=lambda p: policy.params_from_flat(p[0], policy_params), n_carry=len(carry0),
+                       obs_cols=tuple(obs_noise_cols), noise_idx=tuple(proc_noise_idx), sched_lut=sched_lut)
+    out = PmsmClosedLoopVJP.apply(cfg, *state0, omega, *refs, *carry0, flat, *pt, obs_noise_tm, proc_noise_tm)
+    nc = len(carry0)
+    final, u_last, final_c = out[:6], out[6:8], out[8 : 8 + nc]
+    if traj_stride is None:
+        return final, u_last, final_c, None, None
+    return final, u_last, final_c, out[8 + nc : 15 + nc], out[15 + nc :]
+
+
 def pmsm_closed_loop(env, state0, omega, policy, n_steps, *, tau=None, solver=None, props=None, ref_leaves=(),
                      traj_stride=None, policy_params=None, policy_carry=None, obs_noise_tm=None, obs_noise_cols=(),
                      proc_noise_tm=None, proc_noise_idx=(), sched_lut=None):
@@ -602,6 +781,8 @@ def pmsm_closed_loop(env, state0, omega, policy, n_steps, *, tau=None, solver=No
     )
     if state0[0].device.type == "cuda":
         return kernel_pmsm_closed_loop(env, state0, omega, policy, n_steps, **kwargs)
+    if isinstance(policy, KernelPolicy) and ck.records_grad(state0, omega, policy, kwargs):
+        return pmsm_closed_loop_vjp(env, state0, omega, policy, n_steps, **kwargs)
     return plain_pmsm_closed_loop(env, state0, omega, policy, n_steps, **kwargs)
 
 

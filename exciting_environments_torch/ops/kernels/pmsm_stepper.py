@@ -33,6 +33,7 @@ import ctypes
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from exciting_environments_torch.core import structures
 from exciting_environments_torch.core.env import _Components
@@ -41,6 +42,7 @@ from exciting_environments_torch.models.pmsm.pmsm_env import (
     extrapolation_offsets,
     wrap_angle,
 )
+from exciting_environments_torch.ops.kernels import checkpoint as ck
 from exciting_environments_torch.ops.kernels.stepper import (
     MAX_STAGES,
     KernelLibrary,
@@ -279,7 +281,9 @@ def pmsm_kernel_rollout(env, actions, state0, omega, *, tau, solver=None, props=
                         sim_ahead=False, batch_major=False):
     """Launch the CUDA PMSM kernel (argument contract: :func:`pmsm_rollout`).
     Outputs are allocated here; the launch is asynchronous on the current
-    stream, and a refused launch raises."""
+    stream, and a refused launch raises.  Where autograd records the call
+    (grad mode on and an input that requires grad), the launch is the
+    forward of the checkpointed VJP (:class:`PmsmRolloutVJP`)."""
     solver = env._solver if solver is None else solver
     props = env.env_properties if props is None else props
     params = props.static_params
@@ -346,11 +350,9 @@ def pmsm_kernel_rollout(env, actions, state0, omega, *, tau, solver=None, props=
             args.band_ptr[i] = ptr(leaf)
         else:
             args.band_value[i] = leaf
-    if any(t.requires_grad for t in grads):
-        raise NotImplementedError(
-            "the PMSM kernel has no backward yet: its VJP (checkpointed recompute "
-            "through plain_pmsm_rollout) comes with training, ROADMAP.md Queue 2 item 4"
-        )
+    if torch.is_grad_enabled() and any(t.requires_grad for t in grads):
+        return pmsm_rollout_vjp(env, actions, state0, omega, tau=tau, solver=solver, props=props,
+                                obs_stride=obs_stride, sim_ahead=sim_ahead, batch_major=batch_major)
     args.con_tau = float(env.tau)
     args.adv_scale = int(params.deadtime) + 0.5
     for i, (re, im) in enumerate(zip(ROTATION_RE.reshape(-1), ROTATION_IM.reshape(-1))):
@@ -402,6 +404,197 @@ def pmsm_kernel_rollout(env, actions, state0, omega, *, tau, solver=None, props=
     return tuple(out), tuple(u_last), (tuple(traj) if traj is not None else None)
 
 
+# ---------------------------------------------------------------------------
+# the VJP: the kernel's forward with checkpoint saves, a segment replay back
+# ---------------------------------------------------------------------------
+
+
+class PmsmRolloutVJP(torch.autograd.Function):
+    """The PMSM rollout as one differentiable operation, the counterpart of
+    the JAX package's ``_pmsm_core_diff`` ``custom_vjp``.
+
+    Forward: the kernel on CUDA tensors, :func:`plain_pmsm_rollout` on CPU
+    tensors, both on detached inputs and with saves every
+    :func:`~.checkpoint.ckpt_stride` steps (currents, torque, angle and,
+    with deadtime, the buffers); the user's saves are a slice of them.
+    Backward: the segments in reverse, each replayed from its checkpoint
+    (``_pmsm_core_diff_bwd``).  The kernel takes the normalized actions and
+    folds the constraint in, so the replay runs the pre-pass of its segment
+    too (the angles, then :meth:`PMSM._constrain` over the segment's rows)
+    before the steps of :func:`plain_pmsm_step`, and the cotangent reaches
+    the normalized slab through the hexagon.  The state a segment carries is
+    ``(i_d, i_q, angle, u_d_buffer, u_q_buffer)``; in sim-ahead mode the
+    angle is the unwrapped sum the solver accumulates (rebuilt from the
+    initial angle, since the saves hold it wrapped), and the constraint's
+    angles are extrapolated from the initial one.  The table is a constant:
+    it gets no cotangent, as in the reference.  Inputs, after the
+    configuration: the action slab (either layout), the five state leaves,
+    ``omega`` and the floating tensor leaves of ``props``."""
+
+    @staticmethod
+    def forward(ctx, cfg, *tensors):
+        ctx.set_materialize_grads(False)
+        (slab,), state0, (omega,), pt = cfg.split(tensors)
+        ckpt = ck.ckpt_stride(cfg.n_steps, cfg.obs_stride)
+        kwargs = dict(tau=cfg.tau, solver=cfg.solver, props=ck.props_with(cfg.props, pt), obs_stride=ckpt,
+                      sim_ahead=cfg.sim_ahead, batch_major=cfg.batch_major)
+        if slab.device.type == "cuda":
+            final, u_last, traj = pmsm_kernel_rollout(cfg.env, slab, state0, omega, **kwargs)
+        else:
+            final, u_last, traj = plain_pmsm_rollout(cfg.env, slab, state0, omega, **kwargs)
+        saves = tuple(leaf for leaf in traj if leaf is not None)
+        ctx.cfg = cfg
+        ctx.save_for_backward(*tensors[: cfg.n_in], *saves)
+        out = tuple(final) + tuple(u_last)
+        if cfg.obs_stride is not None:
+            skip = cfg.obs_stride // ckpt
+            out += tuple(leaf[skip - 1 :: skip] for leaf in saves)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *grads):
+        cfg = ctx.cfg
+        saved = ctx.saved_tensors
+        (slab,), state0, (omega,), pt = cfg.split(saved[: cfg.n_in])
+        saves = saved[cfg.n_in :]
+        env, solver, tau, n_steps = cfg.env, cfg.solver, cfg.tau, cfg.n_steps
+        deadtime = int(cfg.props.static_params.deadtime)
+        ckpt = ck.ckpt_stride(n_steps, cfg.obs_stride)
+        n_seg = n_steps // ckpt
+        # outputs: final (i_d, i_q, torque, eps, buf_d, buf_q), u_last (2), saves
+        g_id, g_iq, g_tq_f, g_eps, g_bd, g_bq = grads[:6]
+        g_ul = grads[6:8]
+        g_tr = ck.inject(grads[8:], cfg.obs_stride // ckpt, n_seg) if cfg.obs_stride else (None,) * len(saves)
+        g_tr = tuple(g_tr) + (None,) * (6 - len(g_tr))  # (i_d, i_q, torque, eps, buf_d, buf_q)
+        # segment starts: the saved currents (and, with deadtime, buffers);
+        # the angle as the recurrence carries it
+        i_starts = ck.starts(state0[:2], saves[:2])
+        if deadtime:
+            b_starts = ck.starts(state0[3:5], saves[4:6])
+        else:
+            b_starts = tuple(leaf[None].expand((n_seg,) + tuple(leaf.shape)) for leaf in state0[3:5])
+        if cfg.sim_ahead:
+            rate = _eps_rate(solver, omega)
+            acc, e_starts = state0[2], []
+            for t in range(n_steps):
+                if t % ckpt == 0:
+                    e_starts.append(acc)
+                acc = acc + tau * rate
+            e_starts = torch.stack(e_starts)
+            offsets = extrapolation_offsets(env.tau, n_steps, slab.dtype, slab.device)
+        else:
+            e_starts = ck.starts(state0[2:3], saves[3:4])[0]
+        acts_tm = slab.transpose(0, 1) if cfg.batch_major else slab
+        has_next = cfg.sim_ahead and _needs_next_action(solver)
+        needs = ctx.needs_input_grad[1:]
+        need_slab, need_eps0, need_omega, need_pt = needs[0], needs[3], needs[6], needs[7:]
+        g_acts = torch.zeros_like(acts_tm) if need_slab else None
+        g_eps0 = g_omega = None
+        g_pt = [None] * len(pt)
+        g_state = [g_id, g_iq, g_eps, g_bd, g_bq]
+        at = lambda g, s: None if g is None else g[s]
+        g_sv = (g_tr[0], g_tr[1], g_tr[3], g_tr[4], g_tr[5])  # the saves of the carried state
+        # with a c == 1 stage and no deadtime, a segment's last step reads the
+        # next segment's first constrained voltage: that row is an input of the
+        # next segment's replay, and its cotangent there is added to this
+        # segment's own before the row's constraint is pulled back, once, as
+        # the plain loop pulls back the whole slab's
+        shared = has_next and not deadtime
+        g_next_row = None
+        for s in reversed(range(n_seg)):
+            t0, t1 = s * ckpt, (s + 1) * ckpt
+            last = s == n_seg - 1
+            if last:
+                g_state = [ck.add(g, at(gs, s)) for g, gs in zip(g_state, g_sv)]
+            # the saves at the segment's start enter as seeds of its start leaves
+            seeds = [(1 + j, at(gs, s - 1)) for j, gs in enumerate(g_sv)] if s else []
+            # a save's torque and the final torque are separate outputs, made in
+            # the plain loop's order
+            g_tqs = [g for g in (at(g_tr[2], s), (g_tq_f if last else None)) if g is not None]
+            g_u = g_ul if last else (None, None)
+            if all(g is None for g in (*g_state, *g_tqs, *g_u, g_next_row, *(g for _, g in seeds))):
+                g_state = [ck.add(g, gs) for g, (_, gs) in zip(g_state, seeds)] if seeds else g_state
+                g_next_row = None
+                continue
+            r1 = min(t1 + 1, n_steps) if has_next else t1
+            r0 = t0 + 1 if shared and s else t0  # the first row computed here
+            first_row = None
+            if r0 > t0:  # its values (the backward runs without grad)
+                first_row = _constraint_denorm_batched(env, ck.props_with(cfg.props, pt), acts_tm[t0:r0],
+                                                       (state0[2] + offsets[t0] * omega)[None], omega)
+
+            def replay(a, i_d, i_q, eps, bd, bq, eps0, om, row, *q, t0=t0, t1=t1, r0=r0, r1=r1, g_state=g_state,
+                       g_tqs=g_tqs, g_u=g_u, g_row=g_next_row):
+                props = ck.props_with(cfg.props, q)
+                rate = _eps_rate(solver, om)
+                if cfg.sim_ahead:
+                    angles = eps0 + offsets[r0:r1].reshape(-1, 1) * om
+                else:
+                    seq, e = [], eps
+                    for _ in range(t0, t1):
+                        seq.append(e)
+                        e = wrap_angle(e + tau * rate)
+                    angles = torch.stack(seq)
+                u_con = _constraint_denorm_batched(env, props, a, angles, om)
+                if row is not None:
+                    u_con = torch.cat([row, u_con])
+                buf = torch.stack((bd, bq), dim=-1)
+                applied = lambda t: buf if (deadtime and t == t0) else u_con[t - t0 - deadtime]
+                y, e = (i_d, i_q), eps
+                for t in range(t0, t1):
+                    u = applied(t)
+                    u_next = applied(min(t + 1, n_steps - 1)) if has_next else None
+                    y = plain_pmsm_step(env, solver, tau, props, om, y, u, u_next)
+                    e = e + tau * rate if cfg.sim_ahead else wrap_angle(e + tau * rate)
+                bufs = (u_con[t1 - 1 - t0, :, 0], u_con[t1 - 1 - t0, :, 1]) if deadtime else (bd, bq)
+                pairs = [(y[0], g_state[0]), (y[1], g_state[1]), (e, g_state[2]), (bufs[0], g_state[3]),
+                         (bufs[1], g_state[4])]
+                pairs += [(env._torque(y[0], y[1], props), g) for g in g_tqs]
+                if g_u[0] is not None or g_u[1] is not None:
+                    pairs += [(u[:, 0], g_u[0]), (u[:, 1], g_u[1])]
+                if g_row is not None:
+                    pairs.append((u_con[t1 - t0 : t1 - t0 + 1], g_row))
+                return pairs
+
+            seg_inputs = [acts_tm[r0:r1], i_starts[0][s], i_starts[1][s], e_starts[s], b_starts[0][s],
+                          b_starts[1][s], state0[2], omega, first_row, *pt]
+            got = ck.segment_vjp(replay, seg_inputs, [need_slab, True, True, True, True, True,
+                                                      cfg.sim_ahead and need_eps0, need_omega, True, *need_pt],
+                                 seeds)
+            ga, gid, giq, ge, gbd, gbq, ge0, gom, g_next_row = got[:9]
+            g_state = [gid, giq, ge, gbd, gbq]
+            g_eps0 = ck.add(g_eps0, ge0)
+            g_omega = ck.add(g_omega, gom)
+            g_pt = [ck.add(a, b) for a, b in zip(g_pt, got[9:])]
+            if ga is not None:
+                g_acts[r0:r1] += ga
+        g_eps0 = ck.add(g_eps0, g_state[2])
+        if g_acts is not None and cfg.batch_major:
+            g_acts = g_acts.transpose(0, 1)
+        return (None, g_acts, g_state[0], g_state[1], g_eps0, g_state[3], g_state[4], g_omega, *g_pt)
+
+
+def pmsm_rollout_vjp(env, actions, state0, omega, *, tau, solver=None, props=None, obs_stride=None,
+                     sim_ahead=False, batch_major=False):
+    """The rollout through :class:`PmsmRolloutVJP` (arguments and returns as
+    :func:`pmsm_rollout`, on any device)."""
+    solver = env._solver if solver is None else solver
+    props = env.env_properties if props is None else props
+    n_steps = actions.shape[1] if batch_major else actions.shape[0]
+    if obs_stride is not None and n_steps % obs_stride:
+        raise ValueError("n_steps must be divisible by obs_stride")
+    pt = ck.prop_tensors(props)
+    cfg = ck.VJPConfig((1, 5, 1, len(pt)), env=env, n_steps=n_steps, tau=tau, solver=solver, props=props,
+                       obs_stride=obs_stride, sim_ahead=sim_ahead, batch_major=batch_major)
+    out = PmsmRolloutVJP.apply(cfg, actions, *state0, omega, *pt)
+    final, u_last = out[:6], out[6:8]
+    if obs_stride is None:
+        return final, u_last, None
+    traj = out[8:]
+    return final, u_last, (traj if len(traj) == 6 else traj + (None, None))
+
+
 def pmsm_rollout(env, actions, state0, omega, *, tau, solver=None, props=None, obs_stride=None,
                  sim_ahead=False, batch_major=False):
     """Roll the drive out over ``n_steps`` fixed-``tau`` solver steps from
@@ -436,6 +629,8 @@ def pmsm_rollout(env, actions, state0, omega, *, tau, solver=None, props=None, o
                   batch_major=batch_major)
     if state0[0].device.type == "cuda":
         return pmsm_kernel_rollout(env, actions.contiguous(), state0, omega, **kwargs)
+    if ck.records_grad(actions, state0, omega, kwargs, env.env_properties):
+        return pmsm_rollout_vjp(env, actions, state0, omega, **kwargs)
     return plain_pmsm_rollout(env, actions, state0, omega, **kwargs)
 
 

@@ -38,10 +38,13 @@ import tempfile
 from pathlib import Path
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from exciting_environments_torch.core import structures
 from exciting_environments_torch.core.env import _Components
 from exciting_environments_torch.ops.solvers import ExplicitRungeKutta
+
+from . import checkpoint as ck
 
 MAX_STAGES = 7
 MAX_STATE = 4
@@ -299,7 +302,9 @@ def kernel_rollout(env, y0, actions_tm, *, tau, solver=None, props=None, obs_str
     with time-major actions ``(n_rows, B, A)``, or batch-major ones ``(B,
     n_rows, A)`` with ``batch_major=True``: the kernel reads either layout).
     Outputs are allocated here; the launch is asynchronous on the current
-    stream."""
+    stream.  Where autograd records the call (grad mode on and an input
+    that requires grad), the launch is the forward of the checkpointed VJP
+    (:class:`RolloutVJP`)."""
     solver = env._solver if solver is None else solver
     props = env.env_properties if props is None else props
     y0 = tuple(y0)
@@ -363,11 +368,10 @@ def kernel_rollout(env, y0, actions_tm, *, tau, solver=None, props=None, obs_str
                 ptrs[j] = ptr(leaf)
             else:
                 vals[j] = float(leaf)
-    if any(t.requires_grad for t in grads):
-        raise NotImplementedError(
-            "the stepper kernel has no backward yet: its VJP (checkpointed recompute "
-            "through plain_step) comes with the training slice, ROADMAP.md Queue 2 item 3"
-        )
+    if torch.is_grad_enabled() and any(t.requires_grad for t in grads):
+        return rollout_vjp(env, y0, actions_tm, tau=tau, solver=solver, props=props, obs_stride=obs_stride,
+                           sim_ahead=sim_ahead, hold=hold, noise_tm=noise_tm, noise_idx=noise_idx,
+                           batch_major=batch_major)
 
     y_out = [torch.empty(batch, dtype=dtype, device=device) for _ in y0]
     traj = (
@@ -403,6 +407,124 @@ def kernel_rollout(env, y0, actions_tm, *, tau, solver=None, props=None, obs_str
 
     KERNEL.launch(args, dtype, device, "sim_ahead" if sim_ahead else "step")
     return tuple(y_out), (tuple(traj) if traj is not None else None)
+
+
+# ---------------------------------------------------------------------------
+# the VJP: the kernel's forward with checkpoint saves, a segment replay back
+# ---------------------------------------------------------------------------
+
+
+class RolloutVJP(torch.autograd.Function):
+    """The open-loop rollout as one differentiable operation, the counterpart
+    of the JAX package's ``_fused_core`` ``custom_vjp``.
+
+    Forward: the kernel on CUDA tensors, :func:`plain_rollout` on CPU
+    tensors, both on detached inputs and with saves every
+    :func:`~.checkpoint.ckpt_stride` steps (the raw carry in sim-ahead
+    mode); the user's saves are a slice of them.  Backward: the segments in
+    reverse, each replayed through :func:`plain_step` from its checkpoint
+    (``_fused_core_bwd``).  A segment reads the action rows of its steps,
+    and in sim-ahead mode with a ``c == 1`` stage the next row too: the
+    next-action stream is the same slab one row on, so its cotangent lands
+    on that row.  Inputs, after the configuration: the state leaves, the
+    action slab (either layout), the floating tensor leaves of ``props``
+    and the noise slab (or ``None``)."""
+
+    @staticmethod
+    def forward(ctx, cfg, *tensors):
+        ctx.set_materialize_grads(False)
+        y0, (slab,), pt, (noise,) = cfg.split(tensors)
+        ckpt = ck.ckpt_stride(cfg.n_steps, cfg.obs_stride)
+        kwargs = dict(tau=cfg.tau, solver=cfg.solver, props=ck.props_with(cfg.props, pt), obs_stride=ckpt,
+                      sim_ahead=cfg.sim_ahead, hold=cfg.hold, noise_tm=noise, noise_idx=cfg.noise_idx)
+        if y0[0].device.type == "cuda":
+            final, saves = kernel_rollout(cfg.env, y0, slab, batch_major=cfg.batch_major, **kwargs)
+        else:
+            final, saves = plain_rollout(cfg.env, y0, slab.transpose(0, 1) if cfg.batch_major else slab, **kwargs)
+        ctx.cfg = cfg
+        ctx.save_for_backward(*tensors[: cfg.n_in], *saves)
+        if cfg.obs_stride is None:
+            return tuple(final)
+        skip = cfg.obs_stride // ckpt
+        return tuple(final) + tuple(leaf[skip - 1 :: skip] for leaf in saves)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *grads):
+        cfg = ctx.cfg
+        saved = ctx.saved_tensors
+        y0, (slab,), pt, (noise,) = cfg.split(saved[: cfg.n_in])
+        saves = saved[cfg.n_in :]
+        env, ns, hold = cfg.env, len(y0), cfg.hold
+        ckpt = ck.ckpt_stride(cfg.n_steps, cfg.obs_stride)
+        n_seg = cfg.n_steps // ckpt
+        g_y = list(grads[:ns])
+        g_save = ck.inject(grads[ns:], cfg.obs_stride // ckpt, n_seg) if cfg.obs_stride else (None,) * ns
+        y_starts = ck.starts(y0, saves)
+        acts_tm = slab.transpose(0, 1) if cfg.batch_major else slab
+        n_rows = acts_tm.shape[0]
+        has_next = cfg.sim_ahead and _needs_next_action(cfg.solver)
+        needs = ctx.needs_input_grad[1:]
+        need_slab, need_pt, need_noise = needs[ns], needs[ns + 1 : ns + 1 + len(pt)], needs[-1]
+        g_acts = torch.zeros_like(acts_tm) if need_slab else None
+        g_noise = torch.zeros_like(noise) if need_noise else None
+        g_pt = [None] * len(pt)
+        at = lambda g, s: None if g is None else g[s]
+        for s in reversed(range(n_seg)):
+            t0, t1 = s * ckpt, (s + 1) * ckpt
+            if s == n_seg - 1:
+                g_y = [ck.add(g, at(gs, s)) for g, gs in zip(g_y, g_save)]
+            # the saves at the segment's start enter as seeds of its start leaves
+            seeds = [(j, at(gs, s - 1)) for j, gs in enumerate(g_save)] if s else []
+            if all(g is None for g in (*g_y, *(g for _, g in seeds))):
+                g_y = [ck.add(g, gs) for g, (_, gs) in zip(g_y, seeds)] if seeds else g_y
+                continue
+            r0 = t0 // hold
+            r1 = (min(t1 // hold, n_rows - 1) if has_next else (t1 - 1) // hold) + 1
+
+            def replay(*leaves, t0=t0, t1=t1, r0=r0, g_y=g_y):
+                y, (a,), q, (nz,) = cfg.split(leaves)
+                props = ck.props_with(cfg.props, q)
+                for t in range(t0, t1):
+                    u = env.denormalize_action(a[t // hold - r0], props)
+                    u_next = (env.denormalize_action(a[min((t + 1) // hold, n_rows - 1) - r0], props)
+                              if has_next else None)
+                    y = plain_step(env, cfg.solver, cfg.tau, props.static_params, cfg.sim_ahead, y, u, u_next,
+                                   noise_row=None if nz is None else nz[t - t0], noise_idx=cfg.noise_idx)
+                return list(zip(y, g_y))
+
+            seg_inputs = [*(leaf[s] for leaf in y_starts), acts_tm[r0:r1], *pt,
+                          None if noise is None else noise[t0:t1]]
+            got = ck.segment_vjp(replay, seg_inputs, [True] * ns + [need_slab, *need_pt, need_noise], seeds)
+            gy, (ga,), gq, (gn,) = cfg.split(got)
+            g_y = list(gy)
+            g_pt = [ck.add(a, b) for a, b in zip(g_pt, gq)]
+            if ga is not None:
+                g_acts[r0:r1] += ga
+            if gn is not None:
+                g_noise[t0:t1] = gn
+        if g_acts is not None and cfg.batch_major:
+            g_acts = g_acts.transpose(0, 1)
+        return (None, *g_y, g_acts, *g_pt, g_noise)
+
+
+def rollout_vjp(env, y0, slab, *, tau, solver=None, props=None, obs_stride=None, sim_ahead=False, hold=1,
+                noise_tm=None, noise_idx=(), batch_major=False):
+    """The rollout through :class:`RolloutVJP` (arguments as
+    :func:`kernel_rollout`, on any device; returns as :func:`plain_rollout`)."""
+    solver = env._solver if solver is None else solver
+    props = env.env_properties if props is None else props
+    y0 = tuple(y0)
+    n_steps = slab.shape[1 if batch_major else 0] * hold
+    if obs_stride is not None and n_steps % obs_stride:
+        raise ValueError("n_steps must be divisible by obs_stride")
+    pt = ck.prop_tensors(props)
+    cfg = ck.VJPConfig((len(y0), 1, len(pt), 1), env=env, n_steps=n_steps, tau=tau, solver=solver, props=props,
+                       obs_stride=obs_stride, sim_ahead=sim_ahead, hold=hold, noise_idx=tuple(noise_idx),
+                       batch_major=batch_major)
+    out = RolloutVJP.apply(cfg, *y0, slab, *pt, noise_tm)
+    ns = len(y0)
+    return tuple(out[:ns]), (tuple(out[ns:]) if obs_stride is not None else None)
 
 
 def _slab_layout(actions, time_major):
@@ -450,7 +572,8 @@ def fused_rollout(env, y0, actions, *, tau, solver=None, props=None, obs_stride=
         slab, batch_major = _slab_layout(actions, time_major)
         final, traj = kernel_rollout(env, y0, slab, batch_major=batch_major, **kwargs)
     else:
-        final, traj = plain_rollout(env, y0, actions if time_major else actions.transpose(0, 1), **kwargs)
+        run = rollout_vjp if ck.records_grad(y0, actions, kwargs, env.env_properties) else plain_rollout
+        final, traj = run(env, y0, actions if time_major else actions.transpose(0, 1), **kwargs)
     return final, (tuple(s.transpose(0, 1) for s in traj) if traj is not None else None)
 
 

@@ -60,6 +60,13 @@ class KernelPolicy(nn.Module):
         argument of the loop, or ``None``."""
         raise NotImplementedError
 
+    def params_from_flat(self, flat: torch.Tensor, params=None):
+        """The ``policy_params`` that :meth:`forward` takes, built as views of
+        the flat vector of :meth:`kernel_spec` (``params`` gives the tree's
+        shapes), so that autograd carries the flat vector's cotangent into
+        the tree.  ``None`` for a family that takes no parameters."""
+        return None
+
     def _split_args(self, args):
         """``(carry, params)`` from the contract's trailing arguments."""
         if self.n_carry:
@@ -154,6 +161,9 @@ class AffinePolicy(KernelPolicy):
                 acc = torch.clamp(acc, -self.clip, self.clip)
             actions.append(acc)
         return (tuple(actions), tuple(new_carry)) if Ki is not None else tuple(actions)
+
+    def params_from_flat(self, flat, params=None):
+        return flat
 
     def kernel_spec(self, dtype, device, params=None) -> KernelSpec:
         options = {

@@ -99,6 +99,44 @@ def actor_params_from_numpy(env, tree: dict) -> dict:
     }
 
 
+def actor_params_to_numpy(tree: dict) -> dict:
+    """The inverse of :func:`actor_params_from_numpy`: the actor's tensors as
+    float64 numpy arrays in the JAX package's structure, ``seed``
+    included."""
+    return {
+        "actor": [{"w": _to_numpy(layer["w"]), "b": _to_numpy(layer["b"])} for layer in tree["actor"]],
+        "log_std": _to_numpy(tree["log_std"]),
+        "seed": _to_numpy(tree["seed"]),
+    }
+
+
+def _to_numpy(value):
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu().numpy().astype(np.float64)
+    return np.asarray(value, dtype=np.float64)
+
+
+def tree_from_numpy(tree, dtype=torch.float64, device="cpu"):
+    """A policy-parameter tree (dicts, lists and tuples of numpy values or
+    scalars, such as gains trained by the JAX package) as the same structure
+    of tensors in ``dtype`` on ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_from_numpy(v, dtype, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_from_numpy(v, dtype, device) for v in tree)
+    return torch.as_tensor(np.array(tree, dtype=np.float64), dtype=dtype).to(device)
+
+
+def tree_to_numpy(tree):
+    """The inverse of :func:`tree_from_numpy`: every tensor of the tree as a
+    float64 numpy array, for the JAX package (``jnp.asarray`` on each)."""
+    if isinstance(tree, dict):
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_to_numpy(v) for v in tree)
+    return _to_numpy(tree)
+
+
 def scheduled_lut_from_numpy(env, values, carry_idx=(0, 1)):
     """The JAX package's ``ScheduledLUT`` maps (``np.asarray(sched.values)``,
     e.g. the gain schedule of its ``make_pmsm_saturated_sensorless_current_tile``)

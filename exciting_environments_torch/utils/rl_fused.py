@@ -158,6 +158,21 @@ class ActorPolicy(KernelPolicy):
         options = {"deterministic": int(self.deterministic), "n_layers": len(layers), "widths": tuple(widths)}
         return KernelSpec(self.policy_id, widths[0], options, flat)
 
+    def params_from_flat(self, flat, params=None):
+        """The weight tree of :meth:`kernel_spec`'s flat vector, shaped as
+        ``params``; the float-encoded ``seed`` gets no cotangent (it enters
+        the hash as an integer)."""
+        if params is None:
+            raise ValueError("the actor's weights come as policy_params")
+        layers, k = [], 0
+        for layer in params["actor"]:
+            m, n = (int(d) for d in layer["w"].shape)
+            layers.append({"w": flat[k : k + m * n].reshape(m, n), "b": flat[k + m * n : k + m * n + n]})
+            k += m * n + n
+        n_std = torch.as_tensor(params["log_std"]).numel()
+        seed_shape = torch.as_tensor(params["seed"]).shape
+        return {"actor": layers, "log_std": flat[k : k + n_std], "seed": flat[k + n_std].reshape(seed_shape)}
+
     def extra_repr(self) -> str:
         return f"n_action={self.n_action}, deterministic={self.deterministic}"
 

@@ -32,6 +32,34 @@ def _cuda():
         pytest.skip("needs a CUDA card: the hand-written kernels have no CPU mode")
 
 
+def _grad_deviation(fn_kernel, fn_plain, inputs, seed=0):
+    """The largest deviation, over ``inputs``, of the gradients through the
+    kernel's VJP (its launch, then the checkpointed replay) from autograd
+    through the plain loop, each over the reference gradient's max abs; the
+    loss weights every output with seeded weights."""
+    def grads(fn):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        outs = [t for t in _nested(fn()) if t is not None]
+        loss = sum((t * torch.rand(t.shape, generator=gen, device="cuda", dtype=t.dtype)).sum() for t in outs)
+        return torch.autograd.grad(loss, inputs)
+
+    worst = 0.0
+    for a, b in zip(grads(fn_kernel), grads(fn_plain)):
+        scale = float(b.abs().max())
+        assert scale > 0
+        worst = max(worst, float((a - b).abs().max()) / scale)
+    return worst
+
+
+def _nested(out):
+    if out is None or isinstance(out, torch.Tensor):
+        return [out]
+    return [t for part in out for t in _nested(part)]
+
+
+GRAD_LIMIT = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("name,solver,hold,sim_ahead", CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -60,8 +88,15 @@ def test_kernel_refuses_what_it_cannot_do():
     env = P.Pendulum(batch_size=256)
     y0 = (torch.zeros(256, device="cuda"), torch.zeros(256, device="cuda"))
     acts = torch.zeros((8, 256, 1), device="cuda")
-    with pytest.raises(NotImplementedError, match="backward"):
-        K.kernel_rollout(env, y0, acts.clone().requires_grad_(True), tau=env.tau)
+    # an input that requires grad: the launch is the VJP's forward, and its
+    # gradient agrees with autograd through the plain loop
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    y0_g = tuple((torch.rand(256, generator=gen, device="cuda") * 2 - 1).requires_grad_(True) for _ in range(2))
+    acts_g = (torch.rand((8, 256, 1), generator=gen, device="cuda") * 1.8 - 0.9).requires_grad_(True)
+    before = K.KERNEL.launches["step"]
+    dev = _grad_deviation(lambda: K.kernel_rollout(env, y0_g, acts_g, tau=env.tau, obs_stride=4),
+                          lambda: K.plain_rollout(env, y0_g, acts_g, tau=env.tau, obs_stride=4), [*y0_g, acts_g])
+    assert dev <= GRAD_LIMIT[torch.float32] and K.KERNEL.launches["step"] == before + 1
     with pytest.raises(ValueError, match="float32"):
         K.kernel_rollout(env, y0, acts.double(), tau=env.tau)
     obs, _ = env.fused_rollout(env.vmap_reset()[1], acts.transpose(0, 1), strict=True)
@@ -192,8 +227,19 @@ def test_pmsm_refused_launch_raises():
     acts, state0, omega = _pmsm_inputs(env, 4, 6)
     with pytest.raises(RuntimeError, match="launch failed"):
         PK.pmsm_kernel_rollout(env, acts, state0, omega, tau=env.tau)
-    with pytest.raises(NotImplementedError, match="backward"):
+    # under autograd the launch is the VJP's forward: a refused launch raises
+    # there too, and never falls back to the plain loop
+    with pytest.raises(RuntimeError, match="launch failed"):
         PK.pmsm_kernel_rollout(env, acts.clone().requires_grad_(True), state0, omega, tau=env.tau)
+    # with the drive's own table the gradient agrees with the plain loop's
+    env = P.PMSM(batch_size=256, saturated=True, motor_variant=P.MotorVariant.BRUSA, dtype=torch.float64)
+    acts, state0, omega = _pmsm_inputs(env, 8, 7)
+    acts = (acts * 0.5).requires_grad_(True)
+    state0 = tuple(leaf.clone().requires_grad_(True) for leaf in state0)
+    kw = dict(tau=env.tau, obs_stride=4)
+    dev = _grad_deviation(lambda: PK.pmsm_kernel_rollout(env, acts, state0, omega, **kw),
+                          lambda: PK.plain_pmsm_rollout(env, acts, state0, omega, **kw), [acts, *state0])
+    assert dev <= GRAD_LIMIT[torch.float64]
 
 
 @pytest.mark.gpu
@@ -304,16 +350,21 @@ def test_closed_loop_entry_points_launch_and_refuse():
     assert bool(torch.isfinite(batch.observations).all())
     with pytest.raises(ValueError, match="plain callable"):
         env.fused_closed_loop(state, lambda obs, t: (-0.9 * obs[0],), 8)
+    # inputs that require grad: each launch is the VJP's forward, and the
+    # gradients in the state and in the gains agree with the plain loop's
     y0 = (state.physical_state.theta.clone().requires_grad_(True), state.physical_state.omega)
-    kw = dict(tau=env.tau, solver=env._solver, props=env.env_properties, ref_leaves=(state.reference.theta,))
-    with pytest.raises(NotImplementedError, match="backward"):
-        CL.kernel_closed_loop(env, y0, pd, 8, **kw)
+    kw = dict(tau=env.tau, solver=env._solver, props=env.env_properties, ref_leaves=(state.reference.theta,),
+              traj_stride=2)
+    dev = _grad_deviation(lambda: CL.kernel_closed_loop(env, y0, pd, 8, **kw),
+                          lambda: CL.plain_closed_loop(env, y0, pd, 8, **kw), [y0[0]])
+    assert dev <= GRAD_LIMIT[torch.float32]
     gains = pd.flat_params().float().cuda().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        CL.kernel_closed_loop(env, (state.physical_state.theta, state.physical_state.omega),
-                              P.AffinePolicy(np.zeros((1, 3))), 8,
-                              policy_params=gains, **kw)
-    assert CL.CL_KERNEL.launches == {"closed_loop": 2}
+    y0 = (state.physical_state.theta, state.physical_state.omega)
+    zero = P.AffinePolicy(np.zeros((1, 3)))
+    dev = _grad_deviation(lambda: CL.kernel_closed_loop(env, y0, zero, 8, policy_params=gains, **kw),
+                          lambda: CL.plain_closed_loop(env, y0, zero, 8, policy_params=gains, **kw), [gains])
+    assert dev <= GRAD_LIMIT[torch.float32]
+    assert CL.CL_KERNEL.launches == {"closed_loop": 4}
 
 
 PCL_P = [[-0.6, 0, 0, 0, 0, 0, 0, 0, 0.6, 0], [0, -0.6, 0, 0, 0, 0, 0, 0, 0, 0.6]]
@@ -404,12 +455,18 @@ def test_pmsm_closed_loop_entry_points_launch_and_refuse():
                           (actor, "built with")):
         with pytest.raises(ValueError, match=match):
             env.fused_closed_loop(state, policy, 8)
+    # inputs that require grad: the launch is the VJP's forward, and the
+    # gradients agree with autograd through the plain loop
     phys = state.physical_state
     state0 = (phys.i_d.clone().requires_grad_(True), phys.i_q, phys.epsilon, phys.u_d_buffer, phys.u_q_buffer)
-    with pytest.raises(NotImplementedError, match="backward"):
-        PCL.kernel_pmsm_closed_loop(env, state0, phys.omega_el, p_law, 8, tau=env.tau, solver=env._solver,
-                                    props=env.env_properties, ref_leaves=(torch.zeros(256, device="cuda"),) * 2)
-    assert PCL.PMSM_CL_KERNEL.launches == {"pmsm_closed_loop": 2}
+    gains = p_law.flat_params().float().cuda().requires_grad_(True)
+    kw = dict(tau=env.tau, solver=env._solver, props=env.env_properties, policy_params=gains, traj_stride=4,
+              ref_leaves=(torch.zeros(256, device="cuda"),) * 2)
+    dev = _grad_deviation(lambda: PCL.kernel_pmsm_closed_loop(env, state0, phys.omega_el, p_law, 8, **kw),
+                          lambda: PCL.plain_pmsm_closed_loop(env, state0, phys.omega_el, p_law, 8, **kw),
+                          [state0[0], gains])
+    assert dev <= GRAD_LIMIT[torch.float32]
+    assert PCL.PMSM_CL_KERNEL.launches == {"pmsm_closed_loop": 3}
 
 
 FAST_CASES = [
