@@ -114,7 +114,26 @@ Phases (any failure raises and the script exits non-zero):
     path no farther from the float64 exact path than 4 times the float32
     exact path is; a holding fleet that stays inside its current bands
     within 1e-3 in float32 over T = 256) and the kernel alone at T = 4,096;
-15. the four exact kernels' VJPs (``phase_grad``): each entry point
+15. stochastic simulation (``phase_draws``, ``phase_noise_pendulum``,
+    ``phase_noise_pmsm``, ``phase_noise_closed_loops``): the threefry
+    streams of ``ops/random.py`` on the card against the CPU at B = 65,536
+    (keys, ``split``/``fold_in`` chains, both modes' slab keys and uniforms
+    bit for bit, normals within ``NORMAL_ULPS``, the process increments'
+    std within 1% of sigma sqrt(tau)); the noisy pendulum
+    (``process_noise={"omega": 0.5}``, ``observation_noise={"theta":
+    0.02}``, tau = 1e-4) through ``env.fused_rollout`` in exact mode over
+    T = 256 (saves every 16) and fast mode over T = 4,096 (every 64), one
+    launch each, against the eager ``vmap_rollout`` from the same keys, the
+    kernel 0.0 from its plain version on the same slab, the draw pre-pass,
+    kernel and entry point timed; the PMSM kernel's process-noise slab
+    0.0 from its plain version in float32 and float64, Euler and RK4,
+    saturated and linear, deadtime 0 and 1, with and without saves (B =
+    65,536, T = 64), its angle, buffers and last voltage those of the
+    noiseless run; the noisy saturated BRUSA main path (T = 256, both
+    modes) likewise; and the closed loops on the environment's own slabs
+    (PD and PI pendulum over T = 4,096, the actor collected over T = 64,
+    BRUSA PI over T = 2,048), one launch each and 0.0 from the plain loop;
+16. the four exact kernels' VJPs (``phase_grad``): each entry point
     (``kernel_rollout``, ``kernel_closed_loop``, ``pmsm_kernel_rollout``,
     ``kernel_pmsm_closed_loop``) with inputs that require grad, its launch
     then the checkpointed replay, against autograd through the plain loop on
@@ -124,14 +143,16 @@ Phases (any failure raises and the script exits non-zero):
     ``obs_stride`` 64; BRUSA over T = 256, the holding fleet for the stepper
     and the P law for the loop); every forward 0.0 from the plain version and
     one launch, and a call without grad allocating only its outputs;
-16. ``train_policy`` at B = 65,536 (``phase_train``): the tracking pendulum
+17. ``train_policy`` at B = 65,536 (``phase_train``): the noisy tracking
+    pendulum of tests/test_train.py (tau = 1e-2, T = 24, 10 iterations, its
+    draws fixed by the state's keys), the tracking pendulum
     with the PD law over 1,024 steps and the PI law over 256 (10 iterations
     each), saturated BRUSA with an affine P law over 128 steps (12
     iterations, the clipped loss of benchmarks/r03/pmsm_policy_grad_device.py);
     each loss must fall and the parameters stay finite; each iteration's
     kernel forward, backward replay and optimizer ms are logged, and a
     ``{"grads": [...]}`` line is printed;
-17. print the kernel table, the card's name and power limit, and last the
+18. print the kernel table, the card's name and power limit, and last the
     result line ``{"ok": true, "device": {...}}``.
 
 The anatomy of a redesigned kernel's case (``anatomy``): its registers,
@@ -154,6 +175,7 @@ Imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -969,13 +991,14 @@ def pmsm_ops(env, solver, n_steps, n_saves):
     return per_step * n_steps + 4 * n_saves + (gather if saturated else 0) + 4
 
 
-def pmsm_bound(env, solver, batch, n_steps, n_saves, itemsize=4):
+def pmsm_bound(env, solver, batch, n_steps, n_saves, itemsize=4, n_noise=0):
     """Least time for the PMSM kernel's work: the normalized action slab, the
     six initial leaves (currents, angle, buffers, speed), per-batch
     parameters and bands and the interleaved table read once, the eight
     finals (six leaves and the last voltage) and the saves (currents,
-    torque, angle, and with deadtime the buffers) written once; or its
-    operations at the float32 rate, whichever is larger."""
+    torque, angle, and with deadtime the buffers) written once, and a
+    process-noise slab of ``n_noise`` columns read once (one add per column
+    and step); or its operations at the float32 rate, whichever is larger."""
     from exciting_environments_torch.ops.kernels.pmsm_stepper import PMSM_PARAMS, kernel_bands
 
     props = env.env_properties
@@ -983,8 +1006,9 @@ def pmsm_bound(env, solver, batch, n_steps, n_saves, itemsize=4):
     n_pb += sum(isinstance(v, torch.Tensor) for v in kernel_bands(props, batch).values())
     table = env._lut.interleaved().numel() if props.saturated else 0
     per_save = 4 + 2 * int(props.static_params.deadtime)
-    nbytes = itemsize * (n_steps * batch * 2 + (6 + n_pb) * batch + table + 8 * batch + per_save * n_saves * batch)
-    return roofline(nbytes, pmsm_ops(env, solver, n_steps, n_saves) * batch)
+    nbytes = itemsize * (n_steps * batch * (2 + n_noise) + (6 + n_pb) * batch + table + 8 * batch
+                         + per_save * n_saves * batch)
+    return roofline(nbytes, (pmsm_ops(env, solver, n_steps, n_saves) + n_noise * n_steps) * batch)
 
 
 def pmsm_env(ex, batch, variant="BRUSA", saturated=True, dtype=torch.float32, static=None, **kwargs):
@@ -2388,6 +2412,305 @@ def phase_pmsm_fast(ex, PF, PMK):
 
 
 # ---------------------------------------------------------------------------
+# stochastic simulation: draw streams, noisy main paths, slabs from the
+# environment into every exact kernel
+# ---------------------------------------------------------------------------
+
+#: tests/test_noise.py's levels: the pendulum's (:27, :203-204) and the drive's (:481-482)
+NOISE_PENDULUM = dict(process_noise={"omega": 0.5}, observation_noise={"theta": 0.02})
+NOISE_BRUSA = dict(process_noise={"i_d": 2.0, "i_q": 2.0}, observation_noise={"i_d": 0.5, "i_q": 0.5, "torque": 0.2})
+#: (mode, T, obs_stride) of the noisy pendulum main path
+NOISE_PENDULUM_RUNS = (("exact", 256, 16), ("fast", 4096, 64))
+#: the largest deviation of a normal drawn on the card from the same draw on
+#: the CPU, in ulps of max(|x|, 1): erfinv is the only operation that differs
+NORMAL_ULPS = 64
+
+
+def host_ms(fn, reps=3):
+    """Median host time of ``fn`` over ``reps`` runs, each ended by a
+    synchronize (for eager sequences of many launches)."""
+    times, out = [], None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, statistics.median(times)
+
+
+def ulps(card, cpu):
+    """The largest deviation of ``card`` from ``cpu`` in ulps of max(|x|, 1)."""
+    ref = cpu.abs().clamp_min(1.0)
+    ulp = torch.nextafter(ref, torch.full_like(ref, float("inf"))) - ref
+    return float(((card.cpu() - cpu).abs() / ulp).max())
+
+
+def noise_keys(B, seed):
+    from exciting_environments_torch.ops import random as R
+
+    return R.split(R.PRNGKey(seed, device=DEVICE), B)
+
+
+def phase_draws(ex):
+    """The threefry streams on the card against the same streams on the
+    CPU at B = 65,536: keys, ``split``/``fold_in`` chains, the exact chain's
+    and the fast mode's slab keys bit for bit, uniforms bit for bit, normals
+    within NORMAL_ULPS, and the process increments' sample std within 1% of
+    sigma * sqrt(tau)."""
+    from exciting_environments_torch.ops import random as R
+
+    B = B_MAIN
+    keys, keys_cpu = noise_keys(B, SEED), R.split(R.PRNGKey(SEED, device="cpu"), B)
+    k, kc = keys, keys_cpu
+    for t in range(32):
+        k, kc = R.fold_in(R.split(k, 3)[:, t % 3], t), R.fold_in(R.split(kc, 3)[:, t % 3], t)
+    bitwise = torch.equal(keys.cpu(), keys_cpu) and torch.equal(k.cpu(), kc)
+    uni = all(torch.equal(R.uniform(keys, 4, dt, -1.0, 1.0).cpu(), R.uniform(keys_cpu, 4, dt, -1.0, 1.0))
+              for dt in (torch.float32, torch.float64))
+    n_ulps = {str(dt): ulps(R.normal(keys, 4, dt), R.normal(keys_cpu, 4, dt)) for dt in (torch.float32, torch.float64)}
+    slab_keys, slab_ulps, stds = True, {}, {}
+    for mode in ("exact", "fast"):
+        env = make_env(ex.Pendulum, B, tau=1e-4, noise_mode=mode, **NOISE_PENDULUM)
+        env_cpu = ex.Pendulum(batch_size=B, tau=1e-4, noise_mode=mode, device="cpu", **NOISE_PENDULUM)
+        env_cpu._fast_chunk_elems = 1 << 22  # keeps the CPU's temporaries small
+        card = env._noise_slabs(keys, T_CHECK, 16)
+        cpu = env_cpu._noise_slabs(keys_cpu, T_CHECK, 16)
+        slab_keys &= torch.equal(card[2].cpu(), cpu[2]) and torch.equal(card[3].cpu(), cpu[3])
+        slab_ulps[mode] = max(ulps(card[0], cpu[0]), ulps(card[1], cpu[1]))
+        noise_tm, _ = env._process_noise_slab(card[0])
+        stds[mode] = float(noise_tm.double().std()) / (0.5 * math.sqrt(env.tau))
+    log(f"[draws] B={B}: keys and 32 split/fold_in links bitwise {bitwise}; uniforms bitwise {uni}; normals "
+        f"within {n_ulps} ulps of max(|x|, 1) of the CPU's; exact and fast slabs (T={T_CHECK}, stride 16): keys "
+        f"bitwise {slab_keys}, draws within {slab_ulps} ulps; process increments' sample std over sigma sqrt(tau): "
+        f"{stds}")
+    if not (bitwise and uni and slab_keys):
+        raise AssertionError("a threefry stream on the card differs from the CPU's")
+    if max(list(n_ulps.values()) + list(slab_ulps.values())) > NORMAL_ULPS:
+        raise AssertionError(f"normals on the card beyond {NORMAL_ULPS} ulps of the CPU's")
+    if any(abs(v - 1.0) > 0.01 for v in stds.values()):
+        raise AssertionError(f"process increments' std off sigma sqrt(tau) by more than 1%: {stds}")
+
+
+def phase_noise_pendulum(ex, K):
+    """The noisy pendulum main path (B = 65,536, tau = 1e-4, float32): exact
+    mode over T = 256 with saves every 16, fast mode over T = 4,096 with
+    saves every 64.  ``env.fused_rollout`` with the count set to 0 just
+    before and read just after (one launch), against the eager
+    ``vmap_rollout`` from the same keys; the kernel against its plain version
+    on the same slab (0.0); the draw pre-pass, the kernel and the entry point
+    timed, the pre-pass's peak memory.  Returns the kernel table entries."""
+    B = B_MAIN
+    entries = []
+    for mode, T, stride in NOISE_PENDULUM_RUNS:
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 30)
+        env = make_env(ex.Pendulum, B, tau=1e-4, noise_mode=mode, **NOISE_PENDULUM)
+        _, state = env.vmap_reset(noise_keys(B, SEED + 30))
+        acts = random_actions(env, T, gen).transpose(0, 1).contiguous()  # batch-major, as users pass it
+        K.KERNEL.reset_counts()
+        obs, last = env.fused_rollout(state, acts, obs_stride=stride, strict=True)
+        torch.cuda.synchronize()
+        launches = K.KERNEL.launches["step"]
+        if launches != 1 or tuple(obs.shape) != (B, T // stride, 2) or not bool(torch.isfinite(obs).all()):
+            raise AssertionError(f"noisy pendulum {mode}: {launches} launches, shape {tuple(obs.shape)}")
+        (obs_r, last_r), loop_ms = host_ms(lambda: env.vmap_rollout(state, acts, stride), reps=1)
+        err_loop = max_abs([obs, last.physical_state.omega], [obs_r, last_r.physical_state.omega])
+        if not torch.equal(last.PRNGKey, last_r.PRNGKey) or err_loop > 1e-5:
+            raise AssertionError(f"noisy pendulum {mode}: fused_rollout and vmap_rollout disagree ({err_loop!r})")
+        streams, pre_ms = host_ms(lambda: env._noise_streams(state, T, stride))
+        pre_mem = extra_memory(lambda: env._noise_streams(state, T, stride))
+        noise_tm, noise_idx = streams[0], streams[1]
+        y0 = tuple(getattr(state.physical_state, f) for f in env._ode_state_fields)
+        kw = dict(tau=env.tau, obs_stride=stride, noise_tm=noise_tm, noise_idx=noise_idx)
+        acts_tm = acts.transpose(0, 1).contiguous()
+        kernel = lambda: K.kernel_rollout(env, y0, acts_tm, **kw)
+        outk = kernel()
+        (outp, plain_ms) = host_ms(lambda: K.plain_rollout(env, y0, acts_tm, **kw), reps=1)
+        err = max_abs([*outk[0], *outk[1]], [*outp[0], *outp[1]])
+        if err != 0.0:
+            raise AssertionError(f"noisy pendulum {mode}: kernel disagrees with its plain version ({err!r})")
+        ms = time_ms(kernel)
+        _, env_ms = host_ms(lambda: env.fused_rollout(state, acts, obs_stride=stride, strict=True))
+        n, n_p, n_saves = len(env._ode_state_fields), noise_tm.shape[-1], T // stride
+        nbytes = 4 * (T * B * (env.action_dim + n_p) + 2 * n * B + n_saves * n * B)
+        ops = (ops_per_step(env, env._solver, False) + n_p + 5 * len(env._angle_fields)) * B * T
+        bound_ms, bound_by = roofline(nbytes, ops)
+        log(f"[noise pendulum] {mode} B={B} T={T} stride {stride}: draw pre-pass {pre_ms!r} ms "
+            f"({pre_ms / T!r} ms per step, peak {pre_mem / 1e9:.3f} GB), kernel {ms!r} ms (bound {bound_ms!r} ms, "
+            f"{bound_by}; {bound_ms / ms:.1%}), env.fused_rollout {env_ms!r} ms (kernel {ms / env_ms:.1%}, "
+            f"pre-pass {pre_ms / env_ms:.1%}), vmap_rollout {loop_ms!r} ms (one run), plain {plain_ms!r} ms; "
+            f"launches {launches}; kernel vs plain {err!r}, fused_rollout vs vmap_rollout {err_loop!r}")
+        entries.append(entry(f"step_noise_{mode}", launches, err, ms, plain_ms, bound_ms, bound_by, SOURCE, REPLACES))
+        del noise_tm, streams, outk, outp
+    return entries
+
+
+#: (dtype, solver, saturated, deadtime, obs_stride, noise mode) of the PMSM slab against its plain version
+PMSM_NOISE_CASES = [
+    (torch.float32, "euler", True, 1, None, "exact"),
+    (torch.float32, "euler", True, 0, 16, "fast"),
+    (torch.float32, "rk4", True, 1, 16, "exact"),
+    (torch.float32, "euler", False, 0, None, "exact"),
+    (torch.float32, "rk4", False, 1, 16, "fast"),
+    (torch.float64, "euler", True, 1, 16, "exact"),
+    (torch.float64, "rk4", True, 0, None, "fast"),
+    (torch.float64, "euler", False, 1, 16, "exact"),
+]
+
+
+def phase_noise_pmsm(ex, PK):
+    """The drive kernel's process-noise slab: every case of PMSM_NOISE_CASES
+    (B = 65,536, T = 64) against the plain version on the environment's own
+    slab at 0.0, the angle, buffer and last-voltage outputs equal to the
+    noiseless run's; then the noisy saturated BRUSA main path (B = 65,536,
+    T = 256, float32, both modes, deadtime 0 and 1): one launch per
+    ``env.fused_rollout``, its agreement with ``vmap_rollout`` from the same
+    keys, the kernel against its plain version, the pre-pass, kernel and
+    entry-point times.  Returns the kernel table entries."""
+    B = B_MAIN
+    worst = 0.0
+    for dtype, solver, saturated, deadtime, stride, mode in PMSM_NOISE_CASES:
+        env = pmsm_env(ex, B, "BRUSA", saturated, dtype, static={"deadtime": deadtime}, solver=solver,
+                       noise_mode=mode, **NOISE_BRUSA)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 31)
+        _, state = env.vmap_reset(noise_keys(B, SEED + 31))
+        acts = ((torch.rand((T_CHECK, B, 2), generator=gen, device=DEVICE, dtype=torch.float64) * 2 - 1)
+                * 0.9).to(dtype)
+        noise_tm, noise_idx, *_ = env._noise_streams(state, T_CHECK, stride or T_CHECK)
+        kw = dict(obs_stride=stride, noise_tm=noise_tm, noise_idx=noise_idx)
+        err, finite = pmsm_deviation(PK, env, state, acts, **kw)
+        quiet = pmsm_run(PK, env, state, acts, True, obs_stride=stride)
+        noisy = pmsm_run(PK, env, state, acts, True, **kw)
+        same = all(torch.equal(noisy[i], quiet[i]) for i in (3, 4, 5, 6, 7))
+        moved = not torch.equal(noisy[0], quiet[0])
+        log(f"[pmsm noise] {str(dtype)[6:]} {solver} {'saturated' if saturated else 'linear'} deadtime {deadtime} "
+            f"stride {stride} {mode}: kernel vs plain max abs {err!r}; angle, buffers and last voltage as without "
+            f"noise {same}; currents moved {moved}")
+        if err != 0.0 or not finite or not same or not moved:
+            raise AssertionError("the PMSM noise slab disagrees with its plain version")
+        worst = max(worst, err)
+
+    entries = []
+    for mode, deadtime in (("exact", 1), ("fast", 0)):
+        env = pmsm_env(ex, B, static={"deadtime": deadtime}, noise_mode=mode, **NOISE_BRUSA)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 32)
+        _, state = env.vmap_reset(noise_keys(B, SEED + 32))
+        acts = ((torch.rand((B, T_PMSM, 2), generator=gen, device=DEVICE) * 2 - 1) * 0.3).contiguous()
+        stride = 16
+        PK.KERNEL.reset_counts()
+        obs, last = env.fused_rollout(state, acts, obs_stride=stride, strict=True)
+        torch.cuda.synchronize()
+        launches = PK.KERNEL.launches["pmsm_step"]
+        if launches != 1 or tuple(obs.shape) != (B, T_PMSM // stride, 8) or not bool(torch.isfinite(obs).all()):
+            raise AssertionError(f"noisy BRUSA {mode}: {launches} launches, shape {tuple(obs.shape)}")
+        (obs_r, last_r), loop_ms = host_ms(lambda: env.vmap_rollout(state, acts, stride), reps=1)
+        err_loop = max_abs([obs], [obs_r])
+        if not torch.equal(last.PRNGKey, last_r.PRNGKey) or err_loop > 1e-4:
+            raise AssertionError(f"noisy BRUSA {mode}: fused_rollout and vmap_rollout disagree ({err_loop!r})")
+        streams, pre_ms = host_ms(lambda: env._noise_streams(state, T_PMSM, stride))
+        noise_tm, noise_idx = streams[0], streams[1]
+        acts_tm = acts.transpose(0, 1).contiguous()
+        kw = dict(obs_stride=stride, noise_tm=noise_tm, noise_idx=noise_idx)
+        err, _ = pmsm_deviation(PK, env, state, acts_tm, **kw)
+        if err != 0.0:
+            raise AssertionError(f"noisy BRUSA {mode}: kernel disagrees with its plain version ({err!r})")
+        _, plain_ms = host_ms(lambda: pmsm_run(PK, env, state, acts_tm, False, **kw), reps=1)
+        ms = time_ms(lambda: pmsm_run(PK, env, state, acts_tm, True, **kw))
+        quiet_ms = time_ms(lambda: pmsm_run(PK, env, state, acts_tm, True, obs_stride=stride))
+        _, env_ms = host_ms(lambda: env.fused_rollout(state, acts, obs_stride=stride, strict=True))
+        bound_ms, bound_by = pmsm_bound(env, env._solver, B, T_PMSM, T_PMSM // stride, n_noise=len(noise_idx))
+        log(f"[pmsm noise main] BRUSA {mode} deadtime {deadtime} B={B} T={T_PMSM} stride {stride}: draw pre-pass "
+            f"{pre_ms!r} ms ({pre_ms / T_PMSM!r} ms per step), kernel {ms!r} ms (without the slab {quiet_ms!r} ms; "
+            f"bound {bound_ms!r} ms, {bound_by}; {bound_ms / ms:.1%}), env.fused_rollout {env_ms!r} ms (kernel "
+            f"{ms / env_ms:.1%}), vmap_rollout {loop_ms!r} ms (one run), plain {plain_ms!r} ms; launches {launches}; "
+            f"kernel vs plain {err!r}, fused_rollout vs vmap_rollout {err_loop!r}")
+        entries.append(entry(f"pmsm_step_noise_{mode}", launches, err, ms, plain_ms, bound_ms, bound_by, PMSM_SOURCE,
+                             PMSM_REPLACES))
+        del noise_tm, streams
+    return entries
+
+
+def phase_noise_closed_loops(ex, CL, PCL):
+    """The closed loops on the environment's own slabs: the noisy tracking
+    pendulum with the PD and the PI law over T = 4,096 (fast mode), the
+    exploring actor collected over T = 64 (exact mode, tau = 2e-2) and the
+    noisy saturated BRUSA with the PI law over T = 2,048 (fast mode), all at
+    B = 65,536: one launch per entry-point call, and the kernel against its
+    plain version on the slabs the entry point streams (0.0)."""
+    from exciting_environments_torch.utils.convert import actor_params_from_numpy
+
+    B = B_MAIN
+    results = []
+
+    def pendulum(mode, tau=1e-4, seed=SEED + 33):
+        env = make_env(ex.Pendulum, B, tau=tau, control_state=["theta"], noise_mode=mode,
+                       process_noise={"omega": 0.5}, observation_noise={"theta": 0.02, "omega": 0.05})
+        _, state = env.vmap_reset(noise_keys(B, seed))
+        state.reference.theta = torch.linspace(-1.5, 1.5, B, device=DEVICE)
+        y0 = tuple(getattr(state.physical_state, f) for f in env._ode_state_fields)
+        refs = (env.env_properties.physical_normalizations.theta.normalize(state.reference.theta),)
+        return env, state, y0, refs
+
+    def case(name, lib, mode_name, drive, run, n_steps):
+        lib.reset_counts()
+        obs = drive()
+        torch.cuda.synchronize()
+        launches = lib.launches[mode_name]
+        if launches != 1 or not bool(torch.isfinite(obs).all()):
+            raise AssertionError(f"{name}: {launches} launches, finite observations {bool(torch.isfinite(obs).all())}")
+        outk, outp = cl_flat(run(True)), cl_flat(run(False))
+        torch.cuda.synchronize()
+        err = max_abs(outk, outp)
+        ms = time_ms(lambda: run(True), reps=3)
+        _, env_ms = host_ms(drive, reps=1)
+        log(f"[noise closed loop] {name} B={B} T={n_steps}: launches {launches}, kernel vs plain on the "
+            f"environment's slabs {err!r}, kernel {ms!r} ms, entry point with its draws {env_ms!r} ms (one run)")
+        if err != 0.0:
+            raise AssertionError(f"{name}: kernel disagrees with its plain version on the environment's slabs")
+        results.append((name, err))
+
+    env, state, y0, refs = pendulum("fast")
+    pd, pi = ex.AffinePolicy(PD_GAINS), ex.AffinePolicy(**PI_LAW)
+    c0 = (torch.zeros(B, device=DEVICE),)
+    noise = CL.closed_loop_noise(env, state, T_MAIN, env.env_properties)
+    for name, policy, carry in (("pendulum PD", pd, None), ("pendulum PI", pi, c0)):
+        extra = {} if carry is None else {"policy_carry": carry}
+        case(name, CL.CL_KERNEL, "closed_loop", lambda: env.fused_closed_loop(state, policy, T_MAIN, **extra)[0],
+             lambda k: cl_run(CL, env, policy, T_MAIN, y0, refs, k, **noise.slabs, **extra), T_MAIN)
+    del noise
+
+    rl_env, rl_state, rl_y0, rl_refs = pendulum("exact", tau=2e-2, seed=SEED + 34)
+    actor, ids = ex.make_actor_tile(rl_env)
+    weights = actor_params_from_numpy(rl_env, actor_tree(3))
+    collector = ex.RolloutCollector(rl_env)
+    noise = CL.closed_loop_noise(rl_env, rl_state, T_CHECK, rl_env.env_properties)
+    rl_kw = dict(traj_stride=1, policy_params=weights, policy_carry=ids, **noise.slabs)
+    case("actor collection", CL.CL_KERNEL, "closed_loop",
+         lambda: collector.collect_policy_fused(actor, rl_state, T_CHECK, policy_params=weights,
+                                                policy_carry=ids)[0].observations,
+         lambda k: cl_run(CL, rl_env, actor, T_CHECK, rl_y0, rl_refs, k, **rl_kw), T_CHECK)
+
+    drive = pmsm_env(ex, B, control_state=["i_d", "i_q"], noise_mode="fast", **NOISE_BRUSA)
+    _, dstate = drive.vmap_reset(noise_keys(B, SEED + 35))
+    dstate.reference.i_d = torch.linspace(-200.0, -10.0, B, device=DEVICE)
+    dstate.reference.i_q = torch.linspace(-150.0, 150.0, B, device=DEVICE)
+    pn = drive.env_properties.physical_normalizations
+    drefs = (pn.i_d.normalize(dstate.reference.i_d), pn.i_q.normalize(dstate.reference.i_q))
+    phys = dstate.physical_state
+    state0 = (phys.i_d, phys.i_q, phys.epsilon, phys.u_d_buffer, phys.u_q_buffer)
+    omega = phys.omega_el
+    law = ex.AffinePolicy(PCL_P, Ki=PCL_KI)
+    dc0 = (torch.zeros(B, device=DEVICE), torch.zeros(B, device=DEVICE))
+    T_D = T_MAIN // 2
+    noise = CL.closed_loop_noise(drive, dstate, T_D, drive.env_properties)
+    dkw = dict(ref_leaves=drefs, policy_carry=dc0, **noise.slabs)
+    case("BRUSA PI", PCL.PMSM_CL_KERNEL, "pmsm_closed_loop",
+         lambda: drive.fused_closed_loop(dstate, law, T_D, policy_carry=dc0)[0],
+         lambda k: pcl_run(PCL, drive, law, T_D, state0, omega, k, **dkw), T_D)
+    return results
+
+
+# ---------------------------------------------------------------------------
 # gradient phases: the four exact kernels' VJPs, and controller training
 # ---------------------------------------------------------------------------
 
@@ -2522,7 +2845,7 @@ def pmsm_grad_state(env, gen, batch, dtype, lim_i=0.3):
 
 
 def grad_inputs_pmsm(ex, PK, dtype, gen, batch, n_steps, stride=None, solver="euler", deadtime=1, sim_ahead=False,
-                     batch_major=False, per_batch=False, variant="BRUSA", saturated=True, holding=False):
+                     batch_major=False, per_batch=False, variant="BRUSA", saturated=True, holding=False, noise=()):
     static = {"deadtime": deadtime}
     if per_batch:
         static.update(r_s=0.015 + 0.006 * torch.rand(batch, generator=gen, device=DEVICE, dtype=torch.float64),
@@ -2542,10 +2865,15 @@ def grad_inputs_pmsm(ex, PK, dtype, gen, batch, n_steps, stride=None, solver="eu
         u = torch.rand((n_steps, batch, 2), generator=gen, device=DEVICE, dtype=torch.float64)
         slab = (u * 2 - 1).to(dtype)
         slab = leaf(slab.transpose(0, 1).contiguous() if batch_major else slab)
-    kw = dict(tau=env.tau, props=props, obs_stride=stride, sim_ahead=sim_ahead, batch_major=batch_major)
+    # a process-noise slab on the currents ``noise`` (indices into (i_d, i_q))
+    noise_tm = leaf(0.05 * torch.randn((n_steps, batch, len(noise)), generator=gen, device=DEVICE,
+                                       dtype=dtype)) if noise else None
+    kw = dict(tau=env.tau, props=props, obs_stride=stride, sim_ahead=sim_ahead, batch_major=batch_major,
+              noise_tm=noise_tm, noise_idx=tuple(noise))
     run_k = lambda: PK.pmsm_kernel_rollout(env, slab, state0, omega, **kw)
     run_p = lambda: PK.plain_pmsm_rollout(env, slab, state0, omega, **kw)
-    return run_k, run_p, [slab, *state0, omega, *pt], PK.KERNEL, "pmsm_sim_ahead" if sim_ahead else "pmsm_step"
+    inputs = [slab, *state0, omega, *pt] + ([noise_tm] if noise else [])
+    return run_k, run_p, inputs, PK.KERNEL, "pmsm_sim_ahead" if sim_ahead else "pmsm_step"
 
 
 def grad_inputs_pcl(ex, PCL, dtype, gen, batch, n_steps, stride=None, solver="euler", deadtime=1, pi=False,
@@ -2610,6 +2938,9 @@ GRAD_CASES = [
     ("pmsm_kernel_rollout", "BRUSA euler, batch-major slab", dict(stride=4, batch_major=True)),
     ("pmsm_kernel_rollout", "BRUSA euler, per-batch r_s and DC link", dict(stride=4, per_batch=True)),
     ("pmsm_kernel_rollout", "DEFAULT linear rk4", dict(solver="rk4", stride=4, variant="DEFAULT", saturated=False)),
+    ("pmsm_kernel_rollout", "BRUSA euler, process-noise slab on both currents", dict(stride=4, noise=(0, 1))),
+    ("pmsm_kernel_rollout", "DEFAULT linear rk4 deadtime 0, process-noise slab on i_q",
+     dict(solver="rk4", stride=4, deadtime=0, variant="DEFAULT", saturated=False, noise=(1,))),
     ("kernel_pmsm_closed_loop", "BRUSA P deadtime 1, final only", dict()),
     ("kernel_pmsm_closed_loop", "BRUSA P deadtime 0, saves every 4", dict(deadtime=0, stride=4)),
     ("kernel_pmsm_closed_loop", "BRUSA PI, saves every 8", dict(pi=True, stride=8)),
@@ -2749,8 +3080,15 @@ def phase_train(ex, CL, PCL):
         e_q = torch.clamp(obs[:, :, 1] - obs[:, :, 9], -3.0, 3.0)
         return torch.mean(e_d ** 2 + e_q ** 2)
 
+    # tests/test_train.py's stochastic pendulum: the draws follow the state's
+    # keys, the same every iteration (common random numbers)
+    noisy = make_env(ex.Pendulum, B_MAIN, tau=1e-2, control_state=["theta"], process_noise={"omega": 0.2},
+                     observation_noise={"theta": 0.03})
+    _, nstate = noisy.vmap_reset(noise_keys(B_MAIN, SEED + 22))
+    nstate.reference.theta = torch.linspace(-1.2, 1.2, B_MAIN, device=DEVICE)
     k_drive = [[-0.3, 0, 0, 0, 0, 0, 0, 0, 0.3, 0], [0, -0.3, 0, 0, 0, 0, 0, 0, 0, 0.3]]
     runs = [
+        ("noisy pendulum PD", noisy, nstate, ex.AffinePolicy([[-0.1, 0.0, 0.1]]), 24, 10, None, None),
         ("pendulum PD", pend, pstate, ex.AffinePolicy(PD_GAINS), 1024, 10, None, None),
         ("pendulum PI", pend, pstate, ex.AffinePolicy(**PI_LAW), 256, 10,
          (torch.zeros(B_MAIN, device=DEVICE),), None),
@@ -2843,6 +3181,10 @@ def main() -> int:
     kernels += phase_fast_flag(ex, K, CL)
     kernels += phase_pendulum_fast(ex, PFK)
     kernels += phase_pmsm_fast(ex, PF, PMK)
+    phase_draws(ex)
+    kernels += phase_noise_pendulum(ex, K)
+    kernels += phase_noise_pmsm(ex, PK)
+    phase_noise_closed_loops(ex, CL, PCL)
     grads = phase_grad(ex, K, CL, PK, PCL)
     grads += phase_train(ex, CL, PCL)
     if "jax" in sys.modules or any(m.startswith("exciting_environments_tpu") for m in sys.modules):

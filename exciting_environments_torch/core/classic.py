@@ -5,8 +5,8 @@ A concrete environment declares its dataclasses, default normalizations,
 static parameters and ``tau``, the vector field ``_ode`` and small metadata
 (angle fields, soft-constrained fields, sin/cos reward fields).  Semantics
 follow the JAX package: the same normalized observation layout, reward shape
-``(..., 1)``, ``truncated``/``terminated`` rules and NaN-reference
-convention.
+``(..., 1)``, ``truncated``/``terminated`` rules, NaN-reference convention
+and stochastic-simulation options.
 """
 
 from __future__ import annotations
@@ -19,8 +19,9 @@ import numpy as np
 import torch
 
 from exciting_environments_torch.core import structures
-from exciting_environments_torch.core.env import CoreEnvironment
+from exciting_environments_torch.core.env import CoreEnvironment, is_key
 from exciting_environments_torch.ops import fastmath
+from exciting_environments_torch.ops import random as prng
 
 
 class ClassicODEEnvironment(CoreEnvironment):
@@ -83,15 +84,26 @@ class ClassicODEEnvironment(CoreEnvironment):
                 and the solver step's angle wrap by their fast-math
                 counterparts (``ops/fastmath.py``); tolerance-gated against
                 the exact path, never exact.
-            process_noise, observation_noise, noise_mode: not ported yet; a
-                truthy value raises ``NotImplementedError``.
+            process_noise: Optional ``{field: sigma}`` additive diffusion on
+                integrated fields (sigma in physical units per sqrt-second):
+                each step adds ``sigma * sqrt(tau) * N(0, 1)`` drawn from the
+                per-instance key in ``State.PRNGKey`` (reset with keys,
+                :meth:`~exciting_environments_torch.core.env.CoreEnvironment.vmap_init_state`).
+                ``step``/``vmap_rollout``, the fused step-mode and closed-loop
+                kernels (the same draws, streamed as slabs) and, for one-stage
+                solvers, ``sim_ahead`` (Euler-Maruyama) are stochastic.
+            observation_noise: Optional ``{field: sigma}`` Gaussian sensor
+                noise on the observed physical components (sigma in physical
+                units, scaled by the field's normalization span); the state
+                stays exact.
+            noise_mode: ``"exact"`` (default): the per-step ``split(key, 3)``
+                chain, the same draws for chained steps, the loop and the
+                kernels.  ``"fast"``: step ``t`` draws from ``fold_in(key,
+                t)``, time-parallel; a T-step rollout and T chained ``step``
+                calls then use different streams.
             device: Torch device (default CUDA; raises without a GPU).
             dtype: Floating dtype of the states the environment makes.
         """
-        if process_noise or observation_noise or noise_mode != "exact":
-            raise NotImplementedError(
-                "process/observation noise is not ported yet (ROADMAP.md, Queue 1 item 3)"
-            )
         self.fast_math = bool(fast_math)
         if self.fast_math:
             self._sin = fastmath.sin_wrapped
@@ -119,6 +131,9 @@ class ClassicODEEnvironment(CoreEnvironment):
 
         self.control_state = control_state
         self.soft_constraints = soft_constraints
+        self._configure_noise(process_noise, observation_noise, noise_mode,
+                              process_fields=self._ode_state_fields,
+                              observation_fields=tuple(f.name for f in fields(self.PhysicalState)))
         env_properties = self.EnvProperties(
             physical_normalizations=self.PhysicalState(**physical_normalizations),
             action_normalizations=self.Action(**action_normalizations),
@@ -140,22 +155,30 @@ class ClassicODEEnvironment(CoreEnvironment):
     def _physical_field_names(self):
         return tuple(f.name for f in fields(self.PhysicalState))
 
-    def init_state(self, env_properties, rng: torch.Generator = None, batch_shape=()):
+    def init_state(self, env_properties, rng=None, batch_shape=()):
         """Default or random initial state, drawn (or taken from
-        ``_default_init_norm``) in normalized coordinates and denormalized."""
+        ``_default_init_norm``) in normalized coordinates and denormalized.
+        ``rng``: ``None``, a ``torch.Generator``, or keys ``batch_shape +
+        (2,)``: then ``uniform(key)`` gives the state and ``split(key)[1]``
+        becomes its key, as in the JAX package."""
         names = self._physical_field_names
+        key = self._full(batch_shape, math.nan)
         if rng is None:
             phys = self.PhysicalState(
                 **{n: self._full(batch_shape, self._default_init_norm.get(n, 0.0)) for n in names}
             )
         else:
-            u = torch.rand(tuple(batch_shape) + (len(names),), generator=rng, dtype=self.dtype,
-                           device=self.device)
-            state_norm = u * (1 - self._init_uniform_minval) + self._init_uniform_minval
+            if is_key(rng):
+                state_norm = prng.uniform(rng, len(names), self.dtype, self._init_uniform_minval, 1.0)
+                key = prng.split(rng)[..., 1, :]
+            else:
+                u = torch.rand(tuple(batch_shape) + (len(names),), generator=rng, dtype=self.dtype,
+                               device=self.device)
+                state_norm = u * (1 - self._init_uniform_minval) + self._init_uniform_minval
             phys = self.PhysicalState(**{n: state_norm[..., i] for i, n in enumerate(names)})
         norm_state = self.State(
             physical_state=phys,
-            PRNGKey=self._full(batch_shape, math.nan),
+            PRNGKey=key,
             additions=self._init_solver_additions(env_properties, phys),
             reference=self._nan_reference(batch_shape),
         )

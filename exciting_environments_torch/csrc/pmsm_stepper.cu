@@ -4,7 +4,8 @@
 // and the deadtime buffer are taken in the loop.
 //
 // Replaces the TPU kernel exciting_environments_tpu/ops/pallas/pmsm_stepper.py::
-// _make_kernel (with _gather_corners and _blend_channels; launcher
+// _make_kernel (with _gather_corners and _blend_channels, and its process-
+// noise slab noise_ref / add_noise; launcher
 // _pmsm_fused_core), in both of its modes, together with the angle and
 // constraint pre-pass that the JAX package runs before it (_eps_trajectory,
 // _constraint_denorm_batched):
@@ -12,6 +13,13 @@
 //     calls: per step the pre-step angle eps_t, the environment's constraint
 //     PMSM._constrain of the action at eps_t, the deadtime swap, the RK step
 //     of the currents, then eps = ((eps + tau * rate + pi) % 2 pi) - pi;
+//     With a process-noise slab (a stochastic drive; step mode only) the
+//     pre-scaled increment of step t, noise[(t B + b) n + j], is added to
+//     i_d or i_q after the RK step and before the angle and the save:
+//     saves, the final state and every later step see the post-noise
+//     currents, and so does the torque (pmsm_env.py::_apply_process_noise_eps
+//     recomputes it from them; here the next gather, which serves the save's
+//     torque, and the final torque run on them);
 //   * sim-ahead mode (pmsm_fused_sim_ahead): the constraint at the angle
 //     extrapolated with the environment's tau, eps0 + offset[t] * omega (the
 //     offsets come from the host, pmsm_env.py::extrapolated_angles), stages
@@ -115,6 +123,7 @@ struct PmsmArgs {
     const void* offsets;               // sim-ahead: (T,) constraint-angle offsets
     const void* state0[5];             // (B,) i_d, i_q, epsilon, u_d_buffer, u_q_buffer
     const void* omega;                 // (B,)
+    const void* noise;                 // step mode: pre-scaled process increments (T, B, n_noise), or null
     void* out[6];                      // (B,) final i_d, i_q, torque, epsilon, u_d_buffer, u_q_buffer
     void* u_last[2];                   // (B,) the voltage applied in the last step
     void* traj[6];                     // (n_saves, B) the same six after every traj_stride-th step
@@ -130,6 +139,8 @@ struct PmsmArgs {
     int use_next[MAX_STAGES];          // stage reads the next voltage (sim-ahead, c == 1)
     int sim_ahead;
     int batch_major;                   // layout of the action slab
+    int noise_idx[2];                  // the current (0 = i_d, 1 = i_q) each noise column perturbs
+    int n_noise;                       // columns of the noise slab (0: none)
 };
 
 // ---------------------------------------------------------------------------
@@ -284,14 +295,24 @@ __global__ void __launch_bounds__(THREADS) pmsm_kernel(const __grid_constant__ P
     const long long row_stride = args.batch_major ? 2 : batch * 2;
     const T* __restrict__ next_row = static_cast<const T*>(args.actions) + (args.batch_major ? b * n_steps * 2 : b * 2);
     const T* __restrict__ next_off = static_cast<const T*>(args.offsets);
+    // the noise rows (step mode, where the rows run in step with the
+    // actions), time-major: row t of instance b at (t B + b) n, read with
+    // the action row
+    const int n_noise = args.noise ? args.n_noise : 0;
+    const T* __restrict__ next_noise = static_cast<const T*>(args.noise) + b * n_noise;
+    const long long noise_stride = batch * n_noise;
     int rows_left = n_steps;
     T n_d = T(0), n_q = T(0), n_o = T(0);
+    T n_z[2] = {T(0), T(0)};
     auto load_row = [&]() {
         if (rows_left > 0) {
             n_d = __ldg(next_row);
             n_q = __ldg(next_row + 1);
             if (sim) n_o = __ldg(next_off++);
+            if (n_noise > 0) n_z[0] = __ldg(next_noise);
+            if (n_noise > 1) n_z[1] = __ldg(next_noise + 1);
             next_row += row_stride;
+            next_noise += noise_stride;
             --rows_left;
         }
     };
@@ -319,6 +340,7 @@ __global__ void __launch_bounds__(THREADS) pmsm_kernel(const __grid_constant__ P
 
     for (int t = 0; t < n_steps; ++t) {
         const T a_d = n_d, a_q = n_q, a_o = n_o;  // row t + ahead
+        const T z0 = n_z[0], z1 = n_z[1];         // step mode: the noise of step t
         load_row();                               // row t + ahead + 1, in flight during the step
 
         // the first stage's gather at the currents: also the torque of the
@@ -375,6 +397,15 @@ __global__ void __launch_bounds__(THREADS) pmsm_kernel(const __grid_constant__ P
         }
         i_d = lincomb_masked<T, NS, 2>(y[0], ks, 0, tb.b, tb.b_nz, tb.b_one, NS, tau);
         i_q = lincomb_masked<T, NS, 2>(y[1], ks, 1, tb.b, tb.b_nz, tb.b_one, NS, tau);
+
+        // the process noise of this step on the currents (plain_pmsm_step's
+        // y1[idx] + noise_row[:, j])
+        if (n_noise > 0) {
+            if (args.noise_idx[0] == 0) i_d = i_d + z0; else i_q = i_q + z0;
+        }
+        if (n_noise > 1) {
+            if (args.noise_idx[1] == 0) i_d = i_d + z1; else i_q = i_q + z1;
+        }
 
         // the angle
         eps = sim ? eps + eps_inc : wrap_angle(eps + eps_inc);
@@ -457,6 +488,8 @@ extern "C" int pmsm_args_size() { return (int)sizeof(PmsmArgs); }
 extern "C" int pmsm_launch(const PmsmArgs* args, int dtype, void* stream) {
     if (args->batch <= 0 || args->n_steps <= 0) return 0;
     if (args->sim_ahead && args->offsets == nullptr) return (int)cudaErrorInvalidValue;
+    if (args->noise != nullptr && (args->sim_ahead || args->n_noise < 1 || args->n_noise > 2))
+        return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     return dtype == 0 ? launch_dtype<float>(*args, s) : launch_dtype<double>(*args, s);
 }

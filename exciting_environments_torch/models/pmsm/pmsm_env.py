@@ -1,6 +1,7 @@
 """Permanent-magnet synchronous motor (PMSM) drive environment (counterpart
-of ``exciting_environments_tpu/models/pmsm/pmsm_env.py``), deterministic
-surface.
+of ``exciting_environments_tpu/models/pmsm/pmsm_env.py``), with its
+stochastic simulation (process noise on the currents, sensor noise on the
+measured columns).
 
 A 7-component dq-frame physical state (``u_d_buffer``, ``u_q_buffer``,
 ``epsilon``, ``i_d``, ``i_q``, ``torque``, ``omega_el``), one step of
@@ -31,9 +32,10 @@ import numpy as np
 import torch
 
 from exciting_environments_torch.core import structures
-from exciting_environments_torch.core.env import CoreEnvironment, _Components, resolve_device
+from exciting_environments_torch.core.env import CoreEnvironment, _Components, is_key, resolve_device
 from exciting_environments_torch.core.structures import dataclass
 from exciting_environments_torch.models.pmsm.motor_parameters import MotorVariant
+from exciting_environments_torch.ops import random as prng
 from exciting_environments_torch.ops.lut import SATURATED_QUANTITIES, build_pmsm_lut
 from exciting_environments_torch.ops.rollout import solve_trajectory, zoh_action
 from exciting_environments_torch.ops.transforms import albet2dq, apply_hex_constraint, dq2albet, step_eps
@@ -90,6 +92,11 @@ class PMSM(CoreEnvironment):
     #: circular physical field (the PMSM wraps ``epsilon`` in its own step;
     #: ``_ode_state_fields`` stays empty, so no generic wrap runs on it)
     _angle_fields = ("epsilon",)
+    #: the observation columns that take sensor noise (the observation
+    #: re-encodes epsilon as cos/sin, so the generic head layout does not apply)
+    _obs_noise_layout = ((0, "i_d"), (1, "i_q"), (2, "omega_el"), (3, "torque"))
+    #: process noise perturbs the integrated currents, in the kernels' order
+    _process_fields = ("i_d", "i_q")
 
     def __init__(
         self,
@@ -124,15 +131,17 @@ class PMSM(CoreEnvironment):
             control_state: Physical-state components tracked by references.
             solver: ODE solver instance or registry name (default Euler).
             tau: Control/simulation step duration in seconds.
-            process_noise, observation_noise, noise_mode: not ported yet; a
-                truthy value raises ``NotImplementedError``.
+            process_noise: Optional ``{"i_d" | "i_q": sigma}`` Euler-Maruyama
+                current disturbance (A per sqrt-second) after each step, the
+                torque recomputed from the perturbed currents; same key
+                semantics as the classic environments.
+            observation_noise: Optional ``{field: sigma}`` sensor noise on the
+                measured columns ``i_d``, ``i_q``, ``omega_el``, ``torque``.
+            noise_mode: ``"exact"`` (per-step ``split(key, 3)`` chain) or
+                ``"fast"`` (counter-style ``fold_in(key, t)`` draws).
             device: Torch device (default CUDA; raises without a GPU).
             dtype: Floating dtype of the states and of the tables.
         """
-        if process_noise or observation_noise or noise_mode != "exact":
-            raise NotImplementedError(
-                "process/observation noise is not ported yet (ROADMAP.md, Queue 1 item 3)"
-            )
         device = resolve_device(device)
         motor_params = motor_variant.get_params()
         default_physical_normalizations = motor_params.physical_normalizations.__dict__
@@ -183,6 +192,8 @@ class PMSM(CoreEnvironment):
 
         self.control_state = control_state
         self.soft_constraints = soft_constraints
+        self._configure_noise(process_noise, observation_noise, noise_mode, process_fields=self._process_fields,
+                              observation_fields=tuple(name for _col, name in self._obs_noise_layout))
         env_properties = self.EnvProperties(
             saturated=saturated,
             physical_normalizations=self.PhysicalState(**physical_normalizations),
@@ -315,19 +326,31 @@ class PMSM(CoreEnvironment):
         """Uniform draws in the unit disc, ``shape + (2,)``, with the
         construction of ``jax.random.ball`` (p = 2): a generalized normal
         (density ``exp(-|x|^2)``) over the root of its squared norm plus an
-        exponential draw."""
-        g = torch.randn(shape + (2,), generator=rng, dtype=self.dtype, device=self.device) * math.sqrt(0.5)
-        e = torch.empty(shape, dtype=self.dtype, device=self.device).exponential_(generator=rng)
+        exponential draw.  With keys ``shape + (2,)`` the two halves of
+        ``split(key)`` draw them (``jax.random.ball``'s key use); the
+        generalized normal is then ``normal * sqrt(1/2)``, the same law as the
+        JAX package's gamma-based sampler but not its bits."""
+        if is_key(rng):
+            keys = prng.split(rng)
+            g = prng.normal(keys[..., 0, :], 2, self.dtype) * math.sqrt(0.5)
+            e = prng.exponential(keys[..., 1, :], 1, self.dtype)[..., 0]
+        else:
+            g = torch.randn(shape + (2,), generator=rng, dtype=self.dtype, device=self.device) * math.sqrt(0.5)
+            e = torch.empty(shape, dtype=self.dtype, device=self.device).exponential_(generator=rng)
         return g / ((g.abs() ** 2).sum(-1) + e).sqrt()[..., None]
 
-    def init_state(self, env_properties, rng: torch.Generator = None, batch_shape=()):
+    def init_state(self, env_properties, rng=None, batch_shape=()):
         """Default or random initial state.  Random draws place ``i_dq``
         uniformly in the admissible current disc (rejected halves folded
         back, reference ``pmsm_env.py:402-427``) and derive the consistent
-        torque from the active magnetics model."""
+        torque from the active magnetics model.  ``rng``: ``None``, a
+        ``torch.Generator``, or keys ``batch_shape + (2,)``, used as the JAX
+        package uses them (two splits; the remaining key becomes the
+        state's)."""
         norms = env_properties.physical_normalizations
         shape = tuple(batch_shape)
         zeros = lambda: self._full(shape, 0.0)
+        key = self._full(shape, math.nan)
         if rng is None:
             phys = self.PhysicalState(
                 u_d_buffer=zeros(),
@@ -339,8 +362,15 @@ class PMSM(CoreEnvironment):
                 omega_el=self._fill(shape, (norms.omega_el.min + norms.omega_el.max) / 2),
             )
         else:
-            state_norm = torch.rand(shape + (2,), generator=rng, dtype=self.dtype, device=self.device) * 2 - 1
-            i_dq_norm = self._ball(rng, shape)
+            if is_key(rng):
+                first = prng.split(rng)
+                state_norm = prng.uniform(first[..., 1, :], 2, self.dtype, -1.0, 1.0)
+                second = prng.split(first[..., 0, :])
+                i_dq_norm = self._ball(second[..., 1, :], shape)
+                key = second[..., 0, :]
+            else:
+                state_norm = torch.rand(shape + (2,), generator=rng, dtype=self.dtype, device=self.device) * 2 - 1
+                i_dq_norm = self._ball(rng, shape)
             bounds = (norms.i_d.min, norms.i_d.max, norms.i_q.min, norms.i_q.max)
             i_max = torch.stack([self._fill(shape, abs(v)) for v in bounds]).amax(0)
             i_dq_rand = i_dq_norm * i_max[..., None]
@@ -365,7 +395,7 @@ class PMSM(CoreEnvironment):
             )
         return self.State(
             physical_state=phys,
-            PRNGKey=self._full(shape, math.nan),
+            PRNGKey=key,
             additions=self._pmsm_solver_additions(env_properties, phys),
             reference=self._nan_reference(shape),
         )
@@ -447,6 +477,71 @@ class PMSM(CoreEnvironment):
             ),
             reference=self.PhysicalState(**{f.name: self._full(shape, math.nan) for f in fields(self.PhysicalState)}),
         )
+
+    def _pmsm_sde_simulate_ahead(self, init_state, actions, properties, obs_stepsize, action_stepsize):
+        """Euler-Maruyama trajectory of the electrical subsystem (the
+        stochastic counterpart of :meth:`_ode_solver_simulate_ahead`,
+        one-stage solvers): :meth:`_sde_trajectory` with the current
+        increments on the raw carry (the angle is never perturbed), then the
+        angle wrapped and the torque of the perturbed currents at every save,
+        each save carrying its step's advanced key.  Returns ``(states,
+        eps_obs)``."""
+        init_phys = init_state.physical_state
+        f = self._pmsm_vector_field(properties.saturated, zoh_action(actions, action_stepsize))
+        args = (properties.static_params, init_phys.omega_el)
+        y0 = (init_phys.i_d, init_phys.i_q, init_phys.epsilon)
+        t1 = action_stepsize * actions.shape[0]
+        n_steps = int(t1 / obs_stepsize)
+        (i_d_t, i_q_t, eps_t), keys, eps_obs = self._sde_trajectory(
+            f, y0, args, self._require_noise_key(init_state), n_steps, obs_stepsize, self._noise_idx())
+        eps_t = wrap_angle(eps_t)
+        obs_len = n_steps + 1
+        shape = tuple(i_d_t.shape)
+        phys = self.PhysicalState(
+            u_d_buffer=self._full(shape, 0.0),
+            u_q_buffer=self._full(shape, 0.0),
+            epsilon=eps_t,
+            i_d=i_d_t,
+            i_q=i_q_t,
+            torque=self._torque(i_d_t, i_q_t, properties),
+            omega_el=self._tile_time(init_phys.omega_el, obs_len),
+        )
+        solver_state = self._solver.init(f, t1, t1 + self.tau, (i_d_t[-1], i_q_t[-1], eps_t[-1]), args)
+        states = self.State(
+            physical_state=phys,
+            PRNGKey=keys,
+            additions=self.Additions(
+                solver_state=self.repeat_values(solver_state, obs_len),
+                active_solver_state=torch.ones(shape, dtype=torch.bool, device=i_d_t.device),
+            ),
+            reference=self.PhysicalState(**{f.name: self._full(shape, math.nan) for f in fields(self.PhysicalState)}),
+        )
+        return states, eps_obs
+
+    def _state_from_normalized_physical(self, x_norm, env_properties, ref_norm=None):
+        """The state from normalized physical fields, built directly (the
+        observation re-encodes epsilon as cos/sin)."""
+        names = tuple(f.name for f in fields(self.PhysicalState))
+        batch_shape = tuple(x_norm.shape[:-1])
+        phys = self.PhysicalState(**{name: x_norm[..., i] for i, name in enumerate(names)})
+        ref = self._nan_reference(batch_shape)
+        for pos, name in enumerate(self.control_state if ref_norm is not None else ()):
+            setattr(ref, name, ref_norm[..., pos])
+        norm_state = self.State(physical_state=phys, PRNGKey=self._full(batch_shape, math.nan),
+                                additions=self._pmsm_solver_additions(env_properties, phys), reference=ref)
+        return self.denormalize_state(norm_state, env_properties)
+
+    def _apply_process_noise_eps(self, state, eps, env_properties):
+        """Euler-Maruyama current disturbance: ``sigma * sqrt(tau) * xi`` on
+        ``i_d``/``i_q``, and the torque recomputed from the perturbed currents
+        (tables or linear magnetics)."""
+        coef = self._noise_coef(self.tau)
+        phys = state.physical_state
+        cur = {"i_d": phys.i_d, "i_q": phys.i_q}
+        for j, (name, _) in enumerate(self._process_items):
+            cur[name] = cur[name] + coef[j] * eps[..., j]
+        torque = self._torque(cur["i_d"], cur["i_q"], env_properties)
+        return structures.replace(state, physical_state=structures.replace(phys, torque=torque, **cur))
 
     def fused_rollout(self, init_state, actions, obs_stride: int = None,
                       time_major: bool = False, strict: bool = False):
@@ -553,11 +648,20 @@ class PMSM(CoreEnvironment):
         """Trajectory simulation with the hexagon constraint and the deadtime
         shift of the action sequence (reference ``pmsm_env.py:746-801``) over
         time-major normalized actions; returns time-major ``(observations,
-        states, last_state)``."""
+        states, last_state)``.  A stochastic drive integrates the SDE
+        (:meth:`_pmsm_sde_simulate_ahead`; one-stage solvers only), the
+        constraint and the deadtime shift unchanged."""
         actions = self.constraint_denormalization_ahead(actions_tm, init_state, env_properties)
         deadtime = env_properties.static_params.deadtime
         acts_buf, actions_dead = self._delayed_voltages(init_state, actions, deadtime)
-        states = self._ode_solver_simulate_ahead(init_state, actions_dead, env_properties, obs_stepsize, action_stepsize)
+        if self._has_noise:
+            self._check_sde_solver()
+            states, eps_obs = self._pmsm_sde_simulate_ahead(init_state, actions_dead, env_properties, obs_stepsize,
+                                                            action_stepsize)
+        else:
+            states = self._ode_solver_simulate_ahead(init_state, actions_dead, env_properties, obs_stepsize,
+                                                     action_stepsize)
+            eps_obs = None
 
         with structures.copy_and_mutate(states) as states:
             # the reference's buffer patch, inverted ratio included: only
@@ -570,7 +674,8 @@ class PMSM(CoreEnvironment):
             states.physical_state.u_d_buffer = acts_m[..., 0]
             states.physical_state.u_q_buffer = acts_m[..., 1]
 
-        observations = self.generate_observation(states, env_properties)
+        observations = self._noisy_trajectory_observations(
+            self.generate_observation(states, env_properties), env_properties, eps_obs)
         return observations, states, self._index_time(states, -1)
 
     def _rew_trunc_term(self, states_tm, actions_tm, env_properties):
@@ -595,7 +700,8 @@ class PMSM(CoreEnvironment):
     def _advance_state(self, state, action, env_properties):
         """Deterministic drive update of one control step: the constrained
         action enters the buffer while the buffered voltage drives the plant
-        (reference ``pmsm_env.py:851-883``)."""
+        (reference ``pmsm_env.py:851-883``).  :meth:`CoreEnvironment._step`'s
+        noise hooks compose around it."""
         action = self.constraint_denormalization(action, state, env_properties)
         phys = state.physical_state
         action_buffer = torch.stack([phys.u_d_buffer, phys.u_q_buffer], dim=-1)
@@ -615,10 +721,6 @@ class PMSM(CoreEnvironment):
                 next_state.physical_state, u_d_buffer=updated_buffer[..., 0], u_q_buffer=updated_buffer[..., 1]
             ),
         )
-
-    def _step(self, state, action_norm, env_properties):
-        next_state = self._advance_state(state, action_norm, env_properties)
-        return self.generate_observation(next_state, env_properties), next_state
 
     # ------------------------------------------------------------------
     # observation / reconstruction / reward

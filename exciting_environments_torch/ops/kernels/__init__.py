@@ -20,7 +20,10 @@ def rollout_path(env, obs_stepsize: float = None, action_stepsize: float = None)
 
     sim_ahead = obs_stepsize is not None
     if isinstance(env, PMSM):
-        in_scope = supports_pmsm_fused(env) and (not sim_ahead or obs_stepsize == action_stepsize)
+        # a stochastic sim-ahead is the Euler-Maruyama loop; step mode takes
+        # the noise slab
+        in_scope = supports_pmsm_fused(env) and (
+            not sim_ahead or (obs_stepsize == action_stepsize and not env._has_noise))
         return "pmsm_fused" if in_scope else "scan"
     if sim_ahead:
         in_scope = supports_fused_sim_ahead(env, obs_stepsize, action_stepsize)

@@ -48,6 +48,7 @@ from .stepper import (
     _stage_rows,
     plain_step,
     supports_fused_rollout,
+    traj_keys,
 )
 
 MAX_REFS = 4
@@ -571,6 +572,63 @@ def fused_closed_loop(env, y0, policy, n_steps, *, tau=None, solver=None, props=
 # ---------------------------------------------------------------------------
 
 
+class ClosedLoopNoise:
+    """A stochastic environment's closed-loop draws (the JAX package's
+    ``env_fused_closed_loop`` pre-pass), from :meth:`CoreEnvironment._noise_slabs`
+    with stride 1, since the policy reads a measurement every step:
+
+    * ``slabs``: the kernel's keyword arguments, the pre-scaled process slab
+      and the sensor slab of the noisy columns, shifted one step (the policy
+      at step ``t`` sees step ``t - 1``'s post-step measurement; step 0 adds
+      zeros to the exact reset observation);
+    * the returned observations take their own steps' draws, the final
+      state the final keys and each save its step's advanced key.
+
+    Empty for a deterministic environment."""
+
+    def __init__(self, env, props, eps_proc=None, eps_obs=None, keys_steps=None, final_keys=None):
+        self.env, self.props = env, props
+        self.eps_obs, self.keys_steps, self.final_keys = eps_obs, keys_steps, final_keys
+        self.slabs = {}
+        if eps_proc is not None:
+            noise_tm, noise_idx = env._process_noise_slab(eps_proc)
+            self.slabs.update(proc_noise_tm=noise_tm, proc_noise_idx=noise_idx)
+        if eps_obs is not None:
+            sigmas = env._obs_noise_sigma_norm(props)
+            noisy = [(k, col) for k, (col, name) in enumerate(env._obs_noise_layout) if name in env._observation_noise]
+            scaled = torch.stack([sigmas[k] * eps_obs[..., k] for k, _ in noisy], dim=-1)  # (T, B, n)
+            self.slabs.update(obs_noise_tm=torch.cat([torch.zeros_like(scaled[:1]), scaled[:-1]]).contiguous(),
+                              obs_noise_cols=tuple(col for _, col in noisy))
+
+    def final_key(self, init_state):
+        return init_state.PRNGKey if self.final_keys is None else self.final_keys
+
+    def final_obs(self, obs):
+        """The final observation with the last step's sensor draw."""
+        return obs if self.eps_obs is None else self.env._apply_observation_noise_eps(obs, self.props, self.eps_obs[-1])
+
+    def save_keys(self, init_state, stride, n_saves):
+        """The key leaf of the batch-major saves (:func:`~.stepper.traj_keys`)."""
+        keys = None if self.keys_steps is None else self.keys_steps[stride - 1 :: stride]
+        return traj_keys(init_state.PRNGKey, keys, n_saves)
+
+    def save_obs(self, obs, stride):
+        """Batch-major saved observations ``(B, n_saves, obs_dim)`` with their
+        steps' sensor draws."""
+        if self.eps_obs is None:
+            return obs
+        eps = self.eps_obs[stride - 1 :: stride].transpose(0, 1)
+        return self.env._apply_observation_noise_eps(obs, self.props, eps, batch_major=True)
+
+
+def closed_loop_noise(env, init_state, n_steps, props) -> ClosedLoopNoise:
+    """:class:`ClosedLoopNoise` of ``env`` from ``init_state``'s keys."""
+    if not env._has_noise:
+        return ClosedLoopNoise(env, props)
+    eps_proc, eps_obs, keys_steps, final_keys = env._noise_slabs(env._require_noise_key(init_state), n_steps, 1)
+    return ClosedLoopNoise(env, props, eps_proc, eps_obs, keys_steps, final_keys)
+
+
 def supports_fused_closed_loop(env) -> bool:
     """Scope of the closed-loop kernel: the stepper's scope with a stage
     count the kernel is built for, scalar physical and action
@@ -600,6 +658,13 @@ def env_fused_closed_loop(env, init_state, policy, n_steps: int, obs_stride: int
     ``(obs_traj, actions_traj, traj_state, final_state)``.  With
     ``policy_carry`` each gains the final carry tuple as its last element.
     Raises out of scope: a closed loop has no open-loop fallback.
+
+    A stochastic environment streams its draws (:func:`closed_loop_noise`):
+    the policy acts on the noisy measurement of the step before (the exact
+    reset observation at step 0), the process increments follow each step,
+    and the returned observations, final and saved states carry their
+    steps' sensor draws and advanced keys, as
+    :func:`~exciting_environments_torch.utils.collect.tile_policy_scan`.
     """
     if return_traj_states and obs_stride is None:
         raise ValueError("return_traj_states requires obs_stride")
@@ -615,9 +680,10 @@ def env_fused_closed_loop(env, init_state, policy, n_steps: int, obs_stride: int
     ref_leaves = tuple(getattr(pn, name).normalize(getattr(init_state.reference, name))
                        for name in env.control_state)
     has_carry = policy_carry is not None
+    noise = closed_loop_noise(env, init_state, n_steps, props)
     result = fused_closed_loop(
         env, y0, policy, n_steps, props=props, ref_leaves=ref_leaves, traj_stride=obs_stride,
-        policy_params=policy_params, policy_carry=policy_carry,
+        policy_params=policy_params, policy_carry=policy_carry, **noise.slabs,
     )
     final_carry = None
     if obs_stride is None:
@@ -651,6 +717,7 @@ def env_fused_closed_loop(env, init_state, policy, n_steps: int, obs_stride: int
     final_state = structures.replace(
         init_state,
         physical_state=env.PhysicalState(**dict(zip(env._ode_state_fields, y_final))),
+        PRNGKey=noise.final_key(init_state),
         additions=env.Additions(
             solver_state=solver_carry,
             active_solver_state=torch.ones(env.batch_size, dtype=torch.bool, device=device),
@@ -658,21 +725,21 @@ def env_fused_closed_loop(env, init_state, policy, n_steps: int, obs_stride: int
     )
     tail = (final_carry,) if has_carry else ()
     if obs_stride is None:
-        return (env.generate_observation(final_state, props), final_state) + tail
+        return (noise.final_obs(env.generate_observation(final_state, props)), final_state) + tail
 
     n_saves = n_steps // obs_stride
     expand = lambda leaf: _broadcast_saves(leaf, n_saves)
     traj_state = structures.replace(
         final_state,
         physical_state=env.PhysicalState(**dict(zip(env._ode_state_fields, traj_state_t))),
-        PRNGKey=expand(init_state.PRNGKey),
+        PRNGKey=noise.save_keys(init_state, obs_stride, n_saves),
         additions=env.Additions(
             solver_state=None,
             active_solver_state=torch.ones((env.batch_size, n_saves), dtype=torch.bool, device=device),
         ),
         reference=structures.map_leaves(expand, init_state.reference),
     )
-    obs_traj = env.generate_observation(traj_state, env._props_for(props, 1))
+    obs_traj = noise.save_obs(env.generate_observation(traj_state, env._props_for(props, 1)), obs_stride)
     actions_traj = torch.stack(traj_act_t, dim=-1)
     if return_traj_states:
         return (obs_traj, actions_traj, traj_state, final_state) + tail

@@ -18,7 +18,10 @@ place); beside it lives the plain PyTorch version,
 
 The JAX function's quirks stay: it checks neither the solver nor
 ``env.fast_math``, runs in float32 whatever the state's dtype, and folds the
-parameters into the program, so per-batch parameters raise.  Its TPU
+parameters into the program, so per-batch parameters raise.  It is
+deterministic: it reads no process or sensor noise, and a stochastic
+pendulum's noise options and keys are ignored here (the exact paths,
+``fused_rollout`` and ``vmap_rollout``, draw them).  Its TPU
 conditions (``batch % 128``, ``n_steps % chunk``) are gone: any B and any T
 run, and ``chunk`` is accepted without effect on the result.
 """

@@ -37,6 +37,7 @@ from torch.autograd.function import once_differentiable
 
 from exciting_environments_torch.core import structures
 from exciting_environments_torch.ops.kernels import checkpoint as ck
+from exciting_environments_torch.ops.kernels.closed_loop import closed_loop_noise
 from exciting_environments_torch.models.pmsm.pmsm_env import wrap_angle
 from exciting_environments_torch.ops.kernels.pmsm_stepper import (
     N_CHANNELS,
@@ -827,6 +828,11 @@ def pmsm_fused_closed_loop(env, init_state, policy, n_steps: int, obs_stride: in
     ``final_state``.  With ``policy_carry`` each gains the final carry tuple
     as its last element.  Raises out of scope: a closed loop has no
     open-loop fallback.
+
+    A stochastic drive streams its draws as the classic closed loop does
+    (:func:`~exciting_environments_torch.ops.kernels.closed_loop.closed_loop_noise`):
+    the process half is the open loop's current slab, the sensor half the
+    noisy columns' slab shifted one step (a per-batch span's sigma as ``(B,)``).
     """
     if return_traj_states and obs_stride is None:
         raise ValueError("return_traj_states requires obs_stride")
@@ -854,9 +860,10 @@ def pmsm_fused_closed_loop(env, init_state, policy, n_steps: int, obs_stride: in
     ref_leaves = tuple(getattr(pn, name).normalize(getattr(init_state.reference, name))
                        for name in env.control_state)
     has_carry = policy_carry is not None
+    noise = closed_loop_noise(env, init_state, n_steps, props)
     final, u_last, final_carry, traj, _ = pmsm_closed_loop(
         env, state0, omega, policy, n_steps, props=props, ref_leaves=ref_leaves, traj_stride=obs_stride,
-        policy_params=policy_params, policy_carry=policy_carry, sched_lut=sched_lut,
+        policy_params=policy_params, policy_carry=policy_carry, sched_lut=sched_lut, **noise.slabs,
     )
     i_d, i_q, eps_final, buf_d, buf_q, torque = final
     batch = env.batch_size
@@ -865,6 +872,7 @@ def pmsm_fused_closed_loop(env, init_state, policy, n_steps: int, obs_stride: in
         init_state,
         physical_state=env.PhysicalState(u_d_buffer=buf_d, u_q_buffer=buf_q, epsilon=eps_final, i_d=i_d, i_q=i_q,
                                          torque=torque, omega_el=omega),
+        PRNGKey=noise.final_key(init_state),
         additions=env.Additions(
             solver_state=_pmsm_final_solver_state(env, props, i_d, i_q, eps_final, torch.stack(u_last, dim=-1),
                                                   omega),
@@ -873,7 +881,7 @@ def pmsm_fused_closed_loop(env, init_state, policy, n_steps: int, obs_stride: in
     )
     tail = (tuple(final_carry),) if has_carry else ()
     if obs_stride is None:
-        return (env.generate_observation(final_state, props), final_state) + tail
+        return (noise.final_obs(env.generate_observation(final_state, props)), final_state) + tail
 
     i_d_t, i_q_t, torque_t, ucd_t, ucq_t, a_d_t, a_q_t = (leaf.transpose(0, 1) for leaf in traj)
     n_saves = n_steps // obs_stride
@@ -890,12 +898,12 @@ def pmsm_fused_closed_loop(env, init_state, policy, n_steps: int, obs_stride: in
         final_state,
         physical_state=env.PhysicalState(u_d_buffer=buf_d_t, u_q_buffer=buf_q_t, epsilon=eps_saves, i_d=i_d_t,
                                          i_q=i_q_t, torque=torque_t, omega_el=expand(omega)),
-        PRNGKey=expand(init_state.PRNGKey),
+        PRNGKey=noise.save_keys(init_state, obs_stride, n_saves),
         additions=env.Additions(solver_state=None,
                                 active_solver_state=torch.ones((batch, n_saves), dtype=torch.bool, device=device)),
         reference=structures.map_leaves(expand, init_state.reference),
     )
-    obs_traj = env.generate_observation(traj_state, env._props_for(props, 1))
+    obs_traj = noise.save_obs(env.generate_observation(traj_state, env._props_for(props, 1)), obs_stride)
     actions_traj = torch.stack([a_d_t, a_q_t], dim=-1)
     if return_traj_states:
         return (obs_traj, actions_traj, traj_state, final_state) + tail

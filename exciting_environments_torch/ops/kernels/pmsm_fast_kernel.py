@@ -262,10 +262,16 @@ def pmsm_fast_fused_rollout(env, init_state, actions_norm, time_major: bool = Fa
 
     Returns:
         the final batched ``State`` (``omega_el`` broadcast to ``(B,)``, no
-        solver carry).  Out of scope it raises ``ValueError``.
+        solver carry).  Out of scope, and for a stochastic drive, it raises
+        ``ValueError``.
     """
     if not supports_pmsm_fused(env):
         raise ValueError("pmsm_fast_fused_rollout requires a drive in the fused kernels' scope")
+    if env._has_noise:
+        raise ValueError(
+            "pmsm_fast_fused_rollout integrates deterministically; stochastic drives go through the "
+            "exact fused kernel (env.fused_rollout) or vmap_rollout"
+        )
     consts, actions_tm, leaves = fast_inputs(env, init_state, actions_norm, time_major)
     if leaves["i_d"].device.type == "cuda":
         slab, batch_major = kernel_slab(actions_tm)

@@ -91,6 +91,7 @@ class PmsmArgs(ctypes.Structure):
         ("offsets", _c_void_p),
         ("state0", _c_void_p * 5),
         ("omega", _c_void_p),
+        ("noise", _c_void_p),
         ("out", _c_void_p * 6),
         ("u_last", _c_void_p * 2),
         ("traj", _c_void_p * 6),
@@ -106,6 +107,8 @@ class PmsmArgs(ctypes.Structure):
         ("use_next", _c_int * MAX_STAGES),
         ("sim_ahead", _c_int),
         ("batch_major", _c_int),
+        ("noise_idx", _c_int * 2),
+        ("n_noise", _c_int),
     ]
 
 
@@ -189,11 +192,24 @@ def plain_pmsm_step(env, solver, tau, props, omega, y, u, u_next=None):
     return tuple(_lincomb(yl, [k[j] for k in ks], b, tau) for j, yl in enumerate(y))
 
 
+def add_current_noise(y, noise_row, noise_idx):
+    """The process noise of one step on the currents ``y = (i_d, i_q)``:
+    column ``j`` of ``noise_row`` ``(B, n)`` added to current
+    ``noise_idx[j]``."""
+    if not noise_idx:
+        return y
+    y = list(y)
+    for j, idx in enumerate(noise_idx):
+        y[idx] = y[idx] + noise_row[:, j]
+    return tuple(y)
+
+
 def _current_loop(env, u_con_tm, i_d0, i_q0, omega, buf, deadtime, *, tau, solver, props, obs_stride,
-                  has_next):
+                  has_next, noise_tm=None, noise_idx=()):
     """The loop of :func:`plain_pmsm_step` over the constrained voltages
-    ``u_con_tm`` ``(T, B, 2)``; returns the final ``(i_d, i_q, torque)`` and
-    the saves ``(i_d, i_q, torque)`` (``None`` without ``obs_stride``)."""
+    ``u_con_tm`` ``(T, B, 2)``, each step's process noise added after it;
+    returns the final ``(i_d, i_q, torque)`` and the saves ``(i_d, i_q,
+    torque)`` (``None`` without ``obs_stride``)."""
     n_steps = u_con_tm.shape[0]
     y = (i_d0, i_q0)
     saves = []
@@ -201,6 +217,8 @@ def _current_loop(env, u_con_tm, i_d0, i_q0, omega, buf, deadtime, *, tau, solve
         u = _applied(u_con_tm, buf, deadtime, t)
         u_next = _applied(u_con_tm, buf, deadtime, min(t + 1, n_steps - 1)) if has_next else None
         y = plain_pmsm_step(env, solver, tau, props, omega, y, u, u_next)
+        if noise_idx:
+            y = add_current_noise(y, noise_tm[t], noise_idx)
         if obs_stride is not None and (t + 1) % obs_stride == 0:
             saves.append((y[0], y[1], env._torque(y[0], y[1], props)))
     final = (y[0], y[1], env._torque(y[0], y[1], props))
@@ -209,19 +227,23 @@ def _current_loop(env, u_con_tm, i_d0, i_q0, omega, buf, deadtime, *, tau, solve
 
 
 def plain_pmsm_rollout(env, actions, state0, omega, *, tau, solver=None, props=None, obs_stride=None,
-                       sim_ahead=False, batch_major=False):
+                       sim_ahead=False, batch_major=False, noise_tm=None, noise_idx=()):
     """The kernel's rollout in plain PyTorch (argument contract:
     :func:`pmsm_rollout`): the eager angle/constraint pre-pass over the whole
     slab, then the loop of :func:`plain_pmsm_step`, and the by-products the
     kernel writes (angles, buffers, the last applied voltage) taken from the
-    pre-pass.  Runs on any device and is differentiable by autograd;
-    :func:`pmsm_rollout` uses it for CPU tensors."""
+    pre-pass.  A process-noise slab ``noise_tm`` ``(T, B, n)`` is added to
+    the currents ``noise_idx`` after each step (step mode).  Runs on any
+    device and is differentiable by autograd; :func:`pmsm_rollout` uses it
+    for CPU tensors."""
     solver = env._solver if solver is None else solver
     props = env.env_properties if props is None else props
     deadtime = int(props.static_params.deadtime)
     acts_tm = actions.transpose(0, 1) if batch_major else actions
     n_steps = acts_tm.shape[0]
     i_d0, i_q0, eps0, buf_d0, buf_q0 = state0
+    if sim_ahead and noise_idx:
+        raise ValueError("process noise is step-mode only")
     if sim_ahead:
         # the constraint at the angles extrapolated with the env tau; the
         # solver accumulates the angle unwrapped and saves it wrapped
@@ -239,7 +261,7 @@ def plain_pmsm_rollout(env, actions, state0, omega, *, tau, solver=None, props=N
     buf = torch.stack((buf_d0, buf_q0), dim=-1)
     (i_d, i_q, torque), currents = _current_loop(
         env, u_con, i_d0, i_q0, omega, buf, deadtime, tau=tau, solver=solver, props=props, obs_stride=obs_stride,
-        has_next=sim_ahead and _needs_next_action(solver))
+        has_next=sim_ahead and _needs_next_action(solver), noise_tm=noise_tm, noise_idx=tuple(noise_idx))
     buf_final = (u_con[-1, :, 0], u_con[-1, :, 1]) if deadtime else (buf_d0, buf_q0)
     u_last = _applied(u_con, buf, deadtime, n_steps - 1)
     final = (i_d, i_q, torque, eps_post[-1], *buf_final)
@@ -278,7 +300,7 @@ def kernel_bands(props, batch) -> dict:
 
 
 def pmsm_kernel_rollout(env, actions, state0, omega, *, tau, solver=None, props=None, obs_stride=None,
-                        sim_ahead=False, batch_major=False):
+                        sim_ahead=False, batch_major=False, noise_tm=None, noise_idx=()):
     """Launch the CUDA PMSM kernel (argument contract: :func:`pmsm_rollout`).
     Outputs are allocated here; the launch is asynchronous on the current
     stream, and a refused launch raises.  Where autograd records the call
@@ -316,7 +338,18 @@ def pmsm_kernel_rollout(env, actions, state0, omega, *, tau, solver=None, props=
     bands = kernel_bands(props, batch)
     if bands is None:
         raise ValueError("the PMSM kernel takes scalar or (batch,) u_dc and action bands")
-    grads = [actions, *state0, omega]
+    noise_idx = tuple(noise_idx)
+    if (noise_tm is not None) != bool(noise_idx):
+        raise ValueError("noise_tm and noise_idx must be set together")
+    if noise_idx:
+        if sim_ahead:
+            raise ValueError("process noise is step-mode only")
+        if len(noise_idx) > 2 or not all(i in (0, 1) for i in noise_idx):
+            raise ValueError(f"noise_idx {noise_idx} must index the currents (0 = i_d, 1 = i_q)")
+        _check_leaf("noise_tm", noise_tm, dtype, device, (n_steps, batch, len(noise_idx)))
+        if not noise_tm.is_contiguous():
+            raise ValueError("the PMSM kernel reads a contiguous noise slab")
+    grads = [actions, *state0, omega] + ([noise_tm] if noise_tm is not None else [])
 
     args = PmsmArgs()
     keep = []  # tensors whose pointers the launch reads
@@ -352,7 +385,8 @@ def pmsm_kernel_rollout(env, actions, state0, omega, *, tau, solver=None, props=
             args.band_value[i] = leaf
     if torch.is_grad_enabled() and any(t.requires_grad for t in grads):
         return pmsm_rollout_vjp(env, actions, state0, omega, tau=tau, solver=solver, props=props,
-                                obs_stride=obs_stride, sim_ahead=sim_ahead, batch_major=batch_major)
+                                obs_stride=obs_stride, sim_ahead=sim_ahead, batch_major=batch_major,
+                                noise_tm=noise_tm, noise_idx=noise_idx)
     args.con_tau = float(env.tau)
     args.adv_scale = int(params.deadtime) + 0.5
     for i, (re, im) in enumerate(zip(ROTATION_RE.reshape(-1), ROTATION_IM.reshape(-1))):
@@ -390,6 +424,11 @@ def pmsm_kernel_rollout(env, actions, state0, omega, *, tau, solver=None, props=
     for i, leaf in enumerate(state0):
         args.state0[i] = ptr(leaf)
     args.omega = ptr(omega)
+    if noise_idx:
+        args.noise = ptr(noise_tm)
+        for j, idx in enumerate(noise_idx):
+            args.noise_idx[j] = idx
+        args.n_noise = len(noise_idx)
     args.batch = batch
     args.n_steps = n_steps
     args.n_stages = len(b)
@@ -427,17 +466,22 @@ class PmsmRolloutVJP(torch.autograd.Function):
     angle is the unwrapped sum the solver accumulates (rebuilt from the
     initial angle, since the saves hold it wrapped), and the constraint's
     angles are extrapolated from the initial one.  The table is a constant:
-    it gets no cotangent, as in the reference.  Inputs, after the
+    it gets no cotangent, as in the reference.  With a process-noise slab
+    the checkpoints hold the post-noise currents and a segment's replay adds
+    its rows after each step, so the slab's rows get their cotangents
+    (``g_noise`` of ``_pmsm_core_diff_bwd``).  Inputs, after the
     configuration: the action slab (either layout), the five state leaves,
-    ``omega`` and the floating tensor leaves of ``props``."""
+    ``omega``, the floating tensor leaves of ``props`` and the noise slab
+    (or ``None``)."""
 
     @staticmethod
     def forward(ctx, cfg, *tensors):
         ctx.set_materialize_grads(False)
-        (slab,), state0, (omega,), pt = cfg.split(tensors)
+        (slab,), state0, (omega,), pt, (noise,) = cfg.split(tensors)
         ckpt = ck.ckpt_stride(cfg.n_steps, cfg.obs_stride)
         kwargs = dict(tau=cfg.tau, solver=cfg.solver, props=ck.props_with(cfg.props, pt), obs_stride=ckpt,
-                      sim_ahead=cfg.sim_ahead, batch_major=cfg.batch_major)
+                      sim_ahead=cfg.sim_ahead, batch_major=cfg.batch_major, noise_tm=noise,
+                      noise_idx=cfg.noise_idx)
         if slab.device.type == "cuda":
             final, u_last, traj = pmsm_kernel_rollout(cfg.env, slab, state0, omega, **kwargs)
         else:
@@ -456,7 +500,7 @@ class PmsmRolloutVJP(torch.autograd.Function):
     def backward(ctx, *grads):
         cfg = ctx.cfg
         saved = ctx.saved_tensors
-        (slab,), state0, (omega,), pt = cfg.split(saved[: cfg.n_in])
+        (slab,), state0, (omega,), pt, (noise,) = cfg.split(saved[: cfg.n_in])
         saves = saved[cfg.n_in :]
         env, solver, tau, n_steps = cfg.env, cfg.solver, cfg.tau, cfg.n_steps
         deadtime = int(cfg.props.static_params.deadtime)
@@ -488,8 +532,10 @@ class PmsmRolloutVJP(torch.autograd.Function):
         acts_tm = slab.transpose(0, 1) if cfg.batch_major else slab
         has_next = cfg.sim_ahead and _needs_next_action(solver)
         needs = ctx.needs_input_grad[1:]
-        need_slab, need_eps0, need_omega, need_pt = needs[0], needs[3], needs[6], needs[7:]
+        need_slab, need_eps0, need_omega = needs[0], needs[3], needs[6]
+        need_pt, need_noise = needs[7 : 7 + len(pt)], needs[-1]
         g_acts = torch.zeros_like(acts_tm) if need_slab else None
+        g_noise = torch.zeros_like(noise) if need_noise else None
         g_eps0 = g_omega = None
         g_pt = [None] * len(pt)
         g_state = [g_id, g_iq, g_eps, g_bd, g_bq]
@@ -524,8 +570,8 @@ class PmsmRolloutVJP(torch.autograd.Function):
                 first_row = _constraint_denorm_batched(env, ck.props_with(cfg.props, pt), acts_tm[t0:r0],
                                                        (state0[2] + offsets[t0] * omega)[None], omega)
 
-            def replay(a, i_d, i_q, eps, bd, bq, eps0, om, row, *q, t0=t0, t1=t1, r0=r0, r1=r1, g_state=g_state,
-                       g_tqs=g_tqs, g_u=g_u, g_row=g_next_row):
+            def replay(a, i_d, i_q, eps, bd, bq, eps0, om, row, nz, *q, t0=t0, t1=t1, r0=r0, r1=r1,
+                       g_state=g_state, g_tqs=g_tqs, g_u=g_u, g_row=g_next_row):
                 props = ck.props_with(cfg.props, q)
                 rate = _eps_rate(solver, om)
                 if cfg.sim_ahead:
@@ -546,6 +592,8 @@ class PmsmRolloutVJP(torch.autograd.Function):
                     u = applied(t)
                     u_next = applied(min(t + 1, n_steps - 1)) if has_next else None
                     y = plain_pmsm_step(env, solver, tau, props, om, y, u, u_next)
+                    if nz is not None:
+                        y = add_current_noise(y, nz[t - t0], cfg.noise_idx)
                     e = e + tau * rate if cfg.sim_ahead else wrap_angle(e + tau * rate)
                 bufs = (u_con[t1 - 1 - t0, :, 0], u_con[t1 - 1 - t0, :, 1]) if deadtime else (bd, bq)
                 pairs = [(y[0], g_state[0]), (y[1], g_state[1]), (e, g_state[2]), (bufs[0], g_state[3]),
@@ -558,25 +606,28 @@ class PmsmRolloutVJP(torch.autograd.Function):
                 return pairs
 
             seg_inputs = [acts_tm[r0:r1], i_starts[0][s], i_starts[1][s], e_starts[s], b_starts[0][s],
-                          b_starts[1][s], state0[2], omega, first_row, *pt]
+                          b_starts[1][s], state0[2], omega, first_row, None if noise is None else noise[t0:t1], *pt]
             got = ck.segment_vjp(replay, seg_inputs, [need_slab, True, True, True, True, True,
-                                                      cfg.sim_ahead and need_eps0, need_omega, True, *need_pt],
+                                                      cfg.sim_ahead and need_eps0, need_omega, True, need_noise,
+                                                      *need_pt],
                                  seeds)
-            ga, gid, giq, ge, gbd, gbq, ge0, gom, g_next_row = got[:9]
+            ga, gid, giq, ge, gbd, gbq, ge0, gom, g_next_row, gn = got[:10]
             g_state = [gid, giq, ge, gbd, gbq]
             g_eps0 = ck.add(g_eps0, ge0)
             g_omega = ck.add(g_omega, gom)
-            g_pt = [ck.add(a, b) for a, b in zip(g_pt, got[9:])]
+            g_pt = [ck.add(a, b) for a, b in zip(g_pt, got[10:])]
             if ga is not None:
                 g_acts[r0:r1] += ga
+            if gn is not None:
+                g_noise[t0:t1] = gn
         g_eps0 = ck.add(g_eps0, g_state[2])
         if g_acts is not None and cfg.batch_major:
             g_acts = g_acts.transpose(0, 1)
-        return (None, g_acts, g_state[0], g_state[1], g_eps0, g_state[3], g_state[4], g_omega, *g_pt)
+        return (None, g_acts, g_state[0], g_state[1], g_eps0, g_state[3], g_state[4], g_omega, *g_pt, g_noise)
 
 
 def pmsm_rollout_vjp(env, actions, state0, omega, *, tau, solver=None, props=None, obs_stride=None,
-                     sim_ahead=False, batch_major=False):
+                     sim_ahead=False, batch_major=False, noise_tm=None, noise_idx=()):
     """The rollout through :class:`PmsmRolloutVJP` (arguments and returns as
     :func:`pmsm_rollout`, on any device)."""
     solver = env._solver if solver is None else solver
@@ -585,9 +636,10 @@ def pmsm_rollout_vjp(env, actions, state0, omega, *, tau, solver=None, props=Non
     if obs_stride is not None and n_steps % obs_stride:
         raise ValueError("n_steps must be divisible by obs_stride")
     pt = ck.prop_tensors(props)
-    cfg = ck.VJPConfig((1, 5, 1, len(pt)), env=env, n_steps=n_steps, tau=tau, solver=solver, props=props,
-                       obs_stride=obs_stride, sim_ahead=sim_ahead, batch_major=batch_major)
-    out = PmsmRolloutVJP.apply(cfg, actions, *state0, omega, *pt)
+    cfg = ck.VJPConfig((1, 5, 1, len(pt), 1), env=env, n_steps=n_steps, tau=tau, solver=solver, props=props,
+                       obs_stride=obs_stride, sim_ahead=sim_ahead, batch_major=batch_major,
+                       noise_idx=tuple(noise_idx))
+    out = PmsmRolloutVJP.apply(cfg, actions, *state0, omega, *pt, noise_tm)
     final, u_last = out[:6], out[6:8]
     if obs_stride is None:
         return final, u_last, None
@@ -596,7 +648,7 @@ def pmsm_rollout_vjp(env, actions, state0, omega, *, tau, solver=None, props=Non
 
 
 def pmsm_rollout(env, actions, state0, omega, *, tau, solver=None, props=None, obs_stride=None,
-                 sim_ahead=False, batch_major=False):
+                 sim_ahead=False, batch_major=False, noise_tm=None, noise_idx=()):
     """Roll the drive out over ``n_steps`` fixed-``tau`` solver steps from
     normalized actions: the kernel for CUDA tensors, :func:`plain_pmsm_rollout`
     for CPU tensors.
@@ -616,6 +668,9 @@ def pmsm_rollout(env, actions, state0, omega, *, tau, solver=None, props=None, o
         obs_stride: also return the state after every ``obs_stride``-th step.
         sim_ahead: sim-ahead mode (constraint at the extrapolated angles,
             unwrapped angle, ``c == 1`` stages read the next applied voltage).
+        noise_tm, noise_idx: step mode's process-noise slab, pre-scaled
+            increments ``(n_steps, B, len(noise_idx))`` added to the currents
+            ``noise_idx`` (0 = ``i_d``, 1 = ``i_q``) after each step.
 
     Returns:
         ``(final, u_last, traj)``: ``final`` the ``(B,)`` leaves ``(i_d, i_q,
@@ -626,7 +681,7 @@ def pmsm_rollout(env, actions, state0, omega, *, tau, solver=None, props=None, o
         ``None`` without ``obs_stride``.
     """
     kwargs = dict(tau=tau, solver=solver, props=props, obs_stride=obs_stride, sim_ahead=sim_ahead,
-                  batch_major=batch_major)
+                  batch_major=batch_major, noise_tm=noise_tm, noise_idx=tuple(noise_idx))
     if state0[0].device.type == "cuda":
         return pmsm_kernel_rollout(env, actions.contiguous(), state0, omega, **kwargs)
     if ck.records_grad(actions, state0, omega, kwargs, env.env_properties):
@@ -702,16 +757,25 @@ def _start(init_state):
 
 
 def pmsm_fused_rollout(env, init_state, actions_norm, obs_stride: int = None,
-                       time_major: bool = False, strict: bool = False):
+                       time_major: bool = False, strict: bool = False, return_traj_states: bool = False):
     """Fused rollout of a PMSM drive with the semantics of
     :meth:`PMSM.vmap_rollout`: normalized dq voltages ``(B, n_steps, 2)`` (or
     ``(n_steps, B, 2)`` with ``time_major=True``) in, ``(obs, final_state)``
     out, with ``obs`` ``(B, obs_dim)``, or ``(B, n_steps // obs_stride,
     obs_dim)`` with ``obs_stride`` set.  One kernel launch on the card.  Out
-    of scope it takes the loop (``strict=True`` raises instead)."""
+    of scope it takes the loop (``strict=True`` raises instead).
+
+    A stochastic drive's draws (:meth:`CoreEnvironment._noise_slabs`, either
+    mode) are made first: the pre-scaled current increments go to the
+    kernel as its noise slab, the sensor draws of the saved steps meet the
+    observations, and the final and saved states carry their advanced keys.
+    ``return_traj_states`` (with ``obs_stride``) returns ``(obs, traj_state,
+    final_state)``."""
     n_steps = actions_norm.shape[0] if time_major else actions_norm.shape[1]
+    if return_traj_states and obs_stride is None:
+        raise ValueError("return_traj_states requires obs_stride")
     if not supports_pmsm_fused(env):
-        if strict:
+        if strict or return_traj_states:
             raise ValueError(
                 "pmsm_fused_rollout out of kernel scope (per-batch or other deadtime, missing "
                 "tables, non-finite linear parameters, band shapes, or solver family); strict=True "
@@ -726,8 +790,11 @@ def pmsm_fused_rollout(env, init_state, actions_norm, obs_stride: int = None,
 
     props = env.env_properties
     state0, omega = _start(init_state)
+    noise_tm, noise_idx, eps_obs, keys_saves, final_keys = env._noise_streams(init_state, n_steps,
+                                                                              obs_stride or n_steps)
     final, u_last, traj = pmsm_rollout(env, actions_norm, state0, omega, tau=env.tau, props=props,
-                                       obs_stride=obs_stride, batch_major=not time_major)
+                                       obs_stride=obs_stride, batch_major=not time_major, noise_tm=noise_tm,
+                                       noise_idx=noise_idx)
     i_d, i_q, torque, eps_final, buf_d, buf_q = final
     final_state = structures.replace(
         init_state,
@@ -735,6 +802,7 @@ def pmsm_fused_rollout(env, init_state, actions_norm, obs_stride: int = None,
             u_d_buffer=buf_d, u_q_buffer=buf_q, epsilon=eps_final,
             i_d=i_d, i_q=i_q, torque=torque, omega_el=omega,
         ),
+        PRNGKey=init_state.PRNGKey if final_keys is None else final_keys,
         additions=env.Additions(
             solver_state=_pmsm_final_solver_state(env, props, i_d, i_q, eps_final, torch.stack(u_last, dim=-1),
                                                   omega),
@@ -743,13 +811,23 @@ def pmsm_fused_rollout(env, init_state, actions_norm, obs_stride: int = None,
     )
     obs_final = env.generate_observation(final_state, props)
     if obs_stride is None:
+        if eps_obs is not None:
+            obs_final = env._apply_observation_noise_eps(obs_final, props, eps_obs[-1])
         return obs_final, final_state
-    return _trajectory_observations(env, init_state, props, traj), final_state
+    obs, traj_state = _trajectory_observations(env, init_state, props, traj, keys_saves)
+    if eps_obs is not None:
+        obs = env._apply_observation_noise_eps(obs, props, eps_obs.transpose(0, 1), batch_major=True)
+    if return_traj_states:
+        return obs, structures.map_leaves(lambda leaf: leaf.movedim(0, 1) if leaf.ndim >= 2 else leaf,
+                                          traj_state), final_state
+    return obs, final_state
 
 
-def _trajectory_observations(env, init_state, props, traj):
+def _trajectory_observations(env, init_state, props, traj, keys_saves=None):
     """Every ``obs_stride``-th observation ``(B, n_saves, obs_dim)``, from the
-    kernel's saves (currents, torque, angles and, with deadtime, buffers)."""
+    kernel's saves (currents, torque, angles and, with deadtime, buffers),
+    and the time-major saved states; ``keys_saves`` ``(n_saves, B, 2)`` are
+    a stochastic drive's per-save keys."""
     phys = init_state.physical_state
     i_d_t, i_q_t, torque_t, eps_t, buf_d, buf_q = traj
     shape = tuple(i_d_t.shape)  # (n_saves, B)
@@ -762,12 +840,12 @@ def _trajectory_observations(env, init_state, props, traj):
             u_d_buffer=buf_d, u_q_buffer=buf_q, epsilon=eps_t,
             i_d=i_d_t, i_q=i_q_t, torque=torque_t, omega_el=tile(phys.omega_el),
         ),
-        PRNGKey=tile(init_state.PRNGKey),
+        PRNGKey=env._tile_time(init_state.PRNGKey, shape[0]) if keys_saves is None else keys_saves,
         additions=env.Additions(solver_state=None, active_solver_state=torch.ones(shape, dtype=torch.bool,
                                                                                    device=i_d_t.device)),
         reference=structures.map_leaves(tile, init_state.reference),
     )
-    return env.generate_observation(traj_state, props).movedim(0, 1)
+    return env.generate_observation(traj_state, props).movedim(0, 1), traj_state
 
 
 def pmsm_fused_sim_ahead(env, init_state, actions_norm, obs_stepsize: float, action_stepsize: float,
@@ -776,13 +854,14 @@ def pmsm_fused_sim_ahead(env, init_state, actions_norm, obs_stepsize: float, act
     for ``obs_stepsize == action_stepsize`` (one solver step per action
     interval, any explicit RK method).  Returns ``(observations (B, n_steps +
     1, obs_dim), last_state)``; the full ``states`` trajectory is not
-    materialized.  One kernel launch on the card.  Otherwise the loop, or a
-    raise with ``strict=True``."""
-    if obs_stepsize != action_stepsize or not supports_pmsm_fused(env):
+    materialized.  One kernel launch on the card.  Otherwise, and for a
+    stochastic drive (the Euler-Maruyama loop of ``vmap_sim_ahead``), the
+    loop, or a raise with ``strict=True``."""
+    if obs_stepsize != action_stepsize or not supports_pmsm_fused(env) or env._has_noise:
         if strict:
             raise ValueError(
-                "pmsm_fused_sim_ahead out of kernel scope (kernel support, or obs_stepsize != "
-                "action_stepsize, on which the reference PMSM sim_ahead itself fails); "
+                "pmsm_fused_sim_ahead out of kernel scope (kernel support, a stochastic drive, or "
+                "obs_stepsize != action_stepsize, on which the reference PMSM sim_ahead itself fails); "
                 "strict=True forbids the loop fallback"
             )
         if time_major:

@@ -593,11 +593,13 @@ def sim_ahead_ratio(obs_stepsize: float, action_stepsize: float):
 
 def supports_fused_rollout(env) -> bool:
     """Whether ``env`` is inside the stepper kernel's scope: a ported classic
-    environment with a kernel functor and an explicit RK solver.  Per-batch
-    leaves are validated to scalar or ``(batch_size,)`` at construction."""
+    environment with a kernel functor, no action-constraint hook and an
+    explicit RK solver.  Per-batch leaves are validated to scalar or
+    ``(batch_size,)`` at construction."""
     solver = env._solver
     return (
         getattr(env, "_kernel_env_id", None) is not None
+        and env._constrain_action_tuple is None
         and isinstance(solver, ExplicitRungeKutta)
         and len(_stage_rows(solver)[1]) <= MAX_STAGES
         and len(env._ode_state_fields) == env.physical_state_dim <= MAX_STATE
@@ -606,8 +608,14 @@ def supports_fused_rollout(env) -> bool:
 
 
 def supports_fused_sim_ahead(env, obs_stepsize: float, action_stepsize: float) -> bool:
-    """Kernel scope plus an integral stepsize ratio."""
-    return supports_fused_rollout(env) and sim_ahead_ratio(obs_stepsize, action_stepsize) is not None
+    """Kernel scope plus an integral stepsize ratio, for a deterministic
+    environment (a stochastic sim-ahead is the Euler-Maruyama loop of
+    :meth:`CoreEnvironment.vmap_sim_ahead`)."""
+    return (
+        supports_fused_rollout(env)
+        and not env._has_noise
+        and sim_ahead_ratio(obs_stepsize, action_stepsize) is not None
+    )
 
 
 def _final_solver_state(env, y_final, last_action_phys, props):
@@ -619,24 +627,45 @@ def _final_solver_state(env, y_final, last_action_phys, props):
 
 
 def _broadcast_saves(leaf, n_saves):
+    """A ``(B, ...)`` leaf repeated along a new save axis: ``(B, n_saves, ...)``."""
     leaf = torch.as_tensor(leaf)
-    return leaf[:, None].expand(leaf.shape[0], n_saves)
+    return leaf.unsqueeze(1).expand((leaf.shape[0], n_saves) + tuple(leaf.shape[1:]))
+
+
+def traj_keys(init_key, keys_saves, n_saves):
+    """The key leaf of batch-major trajectory saves ``(B, n_saves[, 2])``:
+    a stochastic rollout's per-save keys ``keys_saves`` ``(n_saves, B, 2)``
+    (each save carries its step's advanced key), else the initial key
+    repeated."""
+    if keys_saves is not None:
+        return keys_saves.transpose(0, 1)
+    return _broadcast_saves(init_key, n_saves)
 
 
 def env_fused_rollout(env, init_state, actions_norm, obs_stride: int = None,
-                      time_major: bool = False, strict: bool = False):
+                      time_major: bool = False, strict: bool = False, return_traj_states: bool = False):
     """Environment-level fused rollout: normalized actions in, ``(obs, state)``
     out, with the semantics of :meth:`CoreEnvironment.vmap_rollout`.  Falls
     back to the loop out of kernel scope (``strict=True`` raises instead).
 
     With ``obs_stride`` set, every ``obs_stride``-th observation is returned,
     shape ``(B, n_steps // obs_stride, obs_dim)``; otherwise only the final
-    observation ``(B, obs_dim)``.
+    observation ``(B, obs_dim)``.  ``return_traj_states`` (with
+    ``obs_stride``, in kernel scope) returns ``(obs, traj_state,
+    final_state)``, the saved states batch-major ``(B, n_saves)``.
+
+    A stochastic environment's draws (:meth:`CoreEnvironment._noise_slabs`,
+    either mode) are made first: the process increments, pre-scaled, go to
+    the kernel as its noise slab, the sensor draws of the saved steps meet
+    the observations, the final state carries the final keys and each saved
+    state its step's advanced key.
     """
     n_steps = actions_norm.shape[0] if time_major else actions_norm.shape[1]
     props = env.env_properties
+    if return_traj_states and obs_stride is None:
+        raise ValueError("return_traj_states requires obs_stride")
     if not supports_fused_rollout(env):
-        if strict:
+        if strict or return_traj_states:
             raise ValueError(
                 "env_fused_rollout out of kernel scope (environment without a kernel "
                 "functor, or solver family); strict=True forbids the loop fallback"
@@ -647,33 +676,41 @@ def env_fused_rollout(env, init_state, actions_norm, obs_stride: int = None,
         return (obs[:, -1] if obs_stride is None else obs), last_state
 
     y0 = tuple(getattr(init_state.physical_state, n) for n in env._ode_state_fields)
-    y_final, y_traj = fused_rollout(env, y0, actions_norm, tau=env.tau, props=props,
-                                    obs_stride=obs_stride, time_major=time_major)
+    # a stochastic environment: the loop's draws, made first and streamed
+    noise_tm, noise_idx, eps_obs, keys_saves, final_keys = env._noise_streams(init_state, n_steps,
+                                                                              obs_stride or n_steps)
+    y_final, y_traj = fused_rollout(env, y0, actions_norm, tau=env.tau, props=props, obs_stride=obs_stride,
+                                    time_major=time_major, noise_tm=noise_tm, noise_idx=noise_idx)
     last_action = env.denormalize_action(actions_norm[-1] if time_major else actions_norm[:, -1], props)
     batch = env.batch_size
     final_state = structures.replace(
         init_state,
         physical_state=env.PhysicalState(**dict(zip(env._ode_state_fields, y_final))),
+        PRNGKey=init_state.PRNGKey if final_keys is None else final_keys,
         additions=env.Additions(
             solver_state=_final_solver_state(env, y_final, last_action, props),
             active_solver_state=torch.ones(batch, dtype=torch.bool, device=y_final[0].device),
         ),
     )
     if obs_stride is None:
-        return env.generate_observation(final_state, props), final_state
+        obs = env.generate_observation(final_state, props)
+        return (obs if eps_obs is None else env._apply_observation_noise_eps(obs, props, eps_obs[-1])), final_state
 
     n_saves = n_steps // obs_stride
     traj_state = structures.replace(
         final_state,
         physical_state=env.PhysicalState(**dict(zip(env._ode_state_fields, y_traj))),
-        PRNGKey=_broadcast_saves(init_state.PRNGKey, n_saves),
+        PRNGKey=traj_keys(init_state.PRNGKey, keys_saves, n_saves),
         additions=env.Additions(
             solver_state=None,
             active_solver_state=torch.ones((batch, n_saves), dtype=torch.bool, device=y_final[0].device),
         ),
         reference=structures.map_leaves(lambda leaf: _broadcast_saves(leaf, n_saves), init_state.reference),
     )
-    return env.generate_observation(traj_state, env._props_for(props, 1)), final_state
+    obs = env.generate_observation(traj_state, env._props_for(props, 1))
+    if eps_obs is not None:
+        obs = env._apply_observation_noise_eps(obs, props, eps_obs.transpose(0, 1), batch_major=True)
+    return (obs, traj_state, final_state) if return_traj_states else (obs, final_state)
 
 
 def env_fused_sim_ahead(env, init_state, actions_norm, obs_stepsize: float, action_stepsize: float,

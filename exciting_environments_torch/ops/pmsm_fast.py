@@ -78,6 +78,11 @@ def fast_constants(env) -> dict:
         )
     if int(params.deadtime) not in (0, 1) or params.deadtime != int(params.deadtime):
         raise ValueError("the fast PMSM rollout takes a deadtime of 0 or 1")
+    if env._has_noise:
+        raise ValueError(
+            "the fast PMSM rollout integrates deterministically; stochastic drives go through "
+            "vmap_rollout or the exact fused kernel (env.fused_rollout)"
+        )
     if type(env._solver) is not Euler:
         raise ValueError("the fast PMSM rollout requires the Euler solver")
     saturated = bool(props.saturated)

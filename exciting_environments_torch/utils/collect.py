@@ -26,7 +26,15 @@ def tile_policy_scan(env, state, n_steps, policy_tile, policy_params, collect_tr
     step: ``policy(obs, step[, params])`` returns a tuple of normalized
     action columns; with ``policy_carry`` the stateful contract
     ``policy(obs, step, carry[, params]) -> (actions, carry)``.  The first
-    observation is the reset observation.  Deterministic environments only.
+    observation is the reset observation.
+
+    A stochastic environment consumes the whole rollout's draws
+    (:meth:`CoreEnvironment._noise_slabs` with stride 1, the slabs the
+    closed-loop kernels stream, in both noise modes): each step advances,
+    takes its process draws and its sensor draws, and carries its advanced
+    key, so the policy closes the loop over the noisy measurements and the
+    kernels stay draw for draw with it; in exact mode this is also a loop of
+    ``vmap_step``.
 
     ``sched_lut`` (a :class:`~exciting_environments_torch.ops.lut.ScheduledLUT`
     on a saturated PMSM's grid) mirrors the PMSM closed loop's scheduled
@@ -57,6 +65,8 @@ def tile_policy_scan(env, state, n_steps, policy_tile, policy_params, collect_tr
             vals = bilinear_gather(values, lut.x0, lut.dx, lut.y0, lut.dy, lut.nx, lut.ny, bi_d, bi_q)
             return tuple(vals[c] for c in range(values.shape[0]))
     pc = tuple(policy_carry) if has_carry else ()
+    if env._has_noise:
+        eps_proc, eps_obs, keys_steps, _ = env._noise_slabs(env._require_noise_key(state), n_steps, 1)
     obs_t, act_t, states = [], [], []
     for t in range(n_steps):
         cols = tuple(obs[:, i] for i in range(obs.shape[1]))
@@ -69,7 +79,12 @@ def tile_policy_scan(env, state, n_steps, policy_tile, policy_params, collect_tr
         else:
             a = policy_tile(cols, t, *extra)
         action = torch.stack(tuple(a), dim=-1)
-        obs, state = env.vmap_step(state, action)
+        if env._has_noise:
+            state = env._fast_noise_advance_eps(state, action, props, None if eps_proc is None else eps_proc[t])
+            obs = env._fast_noise_observe_eps(state, props, None if eps_obs is None else eps_obs[t])
+            state = structures.replace(state, PRNGKey=keys_steps[t])
+        else:
+            obs, state = env.vmap_step(state, action)
         if collect_trajectory:
             obs_t.append(obs)
             act_t.append(action)

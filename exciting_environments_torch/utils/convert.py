@@ -13,10 +13,11 @@ from dataclasses import fields
 import numpy as np
 import torch
 
+from exciting_environments_torch.core.env import resolve_device
 from exciting_environments_torch.utils import MinMaxNormalization
 
 
-def state_from_numpy(env, arrays: dict, reference: dict = None):
+def state_from_numpy(env, arrays: dict, reference: dict = None, keys=None):
     """Build ``env``'s batched ``State`` from physical-state leaves.
 
     Args:
@@ -24,11 +25,14 @@ def state_from_numpy(env, arrays: dict, reference: dict = None):
         arrays: ``{field: (B,) array}`` for every physical-state field.
         reference: optional ``{field: (B,) array}`` tracking references
             (NaN where missing).
+        keys: optional ``(B, 2)`` raw threefry keys (the JAX package's
+            ``uint32`` key data) that the state carries.
 
     Returns:
         A ``State`` on ``env.device`` in ``env.dtype`` with the fresh-state
         solver carry (from the environment's own ``_init_solver_additions``,
-        the PMSM's included) and the key placeholder of a reset.
+        the PMSM's included) and ``keys`` as int64 key words, or the key
+        placeholder of a key-less reset.
     """
     names = [f.name for f in fields(env.PhysicalState)]
     missing = set(names) - set(arrays)
@@ -42,7 +46,8 @@ def state_from_numpy(env, arrays: dict, reference: dict = None):
         setattr(ref, name, to_t(value))
     return env.State(
         physical_state=phys,
-        PRNGKey=env._full(batch_shape, math.nan),
+        PRNGKey=(env._full(batch_shape, math.nan) if keys is None
+                 else torch.as_tensor(np.asarray(keys).astype(np.int64)).to(env.device)),
         additions=env._init_solver_additions(env.env_properties, phys),
         reference=ref,
     )
@@ -116,10 +121,13 @@ def _to_numpy(value):
     return np.asarray(value, dtype=np.float64)
 
 
-def tree_from_numpy(tree, dtype=torch.float64, device="cpu"):
+def tree_from_numpy(tree, dtype=torch.float64, device=None):
     """A policy-parameter tree (dicts, lists and tuples of numpy values or
     scalars, such as gains trained by the JAX package) as the same structure
-    of tensors in ``dtype`` on ``device``."""
+    of tensors in ``dtype`` on ``device``: the CUDA device unless the caller
+    names another (``device="cpu"``), and a raise without a GPU, as every
+    entry point of the port resolves it (``core/env.py::resolve_device``)."""
+    device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: tree_from_numpy(v, dtype, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

@@ -17,12 +17,11 @@ Two policy families of ``csrc/pmsm_closed_loop.cu``, each a
 
 The tile factories linearize with ``torch.func`` in float64 on the CPU and iterate
 the Riccati equation in numpy float64, as the JAX package's factories do.  The
-environment-level PMSM noise options are not ported, so the observer's
-sensor and process levels come from ``measurement_std=``/``process_std=``,
-and a closed loop streams the sensor noise as a slab
-(:func:`~exciting_environments_torch.ops.kernels.pmsm_closed_loop.pmsm_closed_loop`,
-``obs_noise_tm``).  The induction-machine and EESM tiles wait for those
-environments.
+observer's process and sensor levels are the drive's own ``process_noise`` and
+``observation_noise``, each field overridable by ``process_std=`` and
+``measurement_std=`` as in the JAX package; a noisy drive's closed loop streams
+its draws into the kernel (``PMSM.fused_closed_loop``).  The induction-machine
+and EESM tiles wait for those environments.
 """
 
 from __future__ import annotations
@@ -35,8 +34,8 @@ from exciting_environments_torch.ops.lut import ScheduledLUT, bilinear_gather
 from exciting_environments_torch.ops.policies import KernelPolicy, KernelSpec
 
 _SENSOR_LEVELS = (
-    "the observer needs current-sensor noise levels: pass measurement_std={'i_d': ..., 'i_q': ...} "
-    "(the environment-level PMSM noise options are not ported yet)"
+    "the observer needs current-sensor noise levels: configure observation_noise={'i_d': ..., 'i_q': ...} "
+    "on the model or pass measurement_std"
 )
 
 
@@ -244,9 +243,13 @@ def _spans(model, who):
     return spans, aspans
 
 
-def _noise_levels(process_std, measurement_std):
-    pnoise = dict(process_std or {})
-    mnoise = dict(measurement_std or {})
+def _noise_levels(model, process_std, measurement_std):
+    """The observer's ``{"i_d", "i_q"}`` levels: the model's noise options,
+    overridden field by field by the explicit arguments."""
+    pnoise = dict(model._process_noise or {})
+    pnoise.update(process_std or {})
+    mnoise = dict(model._observation_noise or {})
+    mnoise.update(measurement_std or {})
     if not ("i_d" in mnoise and "i_q" in mnoise):
         raise ValueError(_SENSOR_LEVELS)
     return pnoise, mnoise
@@ -318,9 +321,10 @@ def make_pmsm_sensorless_current_tile(model, *, i_d_ref: float, i_q_ref: float, 
         omega_el: the frozen electrical speed [rad/s] (default mid-band).
         kp_d, kp_q, ki_d, ki_q: PI gains (default about 2 krad/s and an
             integral time of 5 ms).
-        process_std, measurement_std: ``{"i_d", "i_q"}`` noise levels
-            [physical units] for the observer's Q and R; the sensor levels
-            are required.
+        process_std, measurement_std: per-field overrides [physical units]
+            of the model's ``process_noise``/``observation_noise``, the
+            observer's Q and R; sensor levels for ``i_d`` and ``i_q`` are
+            required from one or the other.
         q_floor: diagonal process-covariance floor (normalized units^2).
 
     Returns:
@@ -345,7 +349,7 @@ def make_pmsm_sensorless_current_tile(model, *, i_d_ref: float, i_q_ref: float, 
     tau = float(model.tau)
     spans, aspans = _spans(model, who)
     omega_el = float(0.5 * (spans["omega_el"][0] + spans["omega_el"][1]) if omega_el is None else omega_el)
-    pnoise, mnoise = _noise_levels(process_std, measurement_std)
+    pnoise, mnoise = _noise_levels(model, process_std, measurement_std)
     solver = model._solver
 
     def ode(yy, act):
@@ -462,7 +466,7 @@ def make_pmsm_saturated_sensorless_current_tile(model, *, i_d_ref: float, i_q_re
     lut_vals = lut.values.detach().cpu().to(torch.float64)
     spans, aspans = _spans(model, who)
     omega_el = float(0.5 * (spans["omega_el"][0] + spans["omega_el"][1]) if omega_el is None else omega_el)
-    pnoise, mnoise = _noise_levels(process_std, measurement_std)
+    pnoise, mnoise = _noise_levels(model, process_std, measurement_std)
     (mn_d, mx_d), (mn_q, mx_q) = spans["i_d"], spans["i_q"]
 
     def phys_f(i_d, i_q, u_d, u_q):

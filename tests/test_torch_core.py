@@ -279,8 +279,12 @@ def test_property_validation_and_unported_options():
         P.Pendulum(batch_size=4, device="cpu", static_params={"l": [1, 2, 3, 4], "m": 1, "g": 9.81})
     with pytest.raises(ValueError, match="shape"):
         P.Pendulum(batch_size=4, device="cpu", static_params={"l": np.ones(3), "m": 1, "g": 9.81})
-    with pytest.raises(NotImplementedError, match="noise"):
-        P.Pendulum(device="cpu", process_noise={"omega": 0.1})
+    # the noise options are validated as in the JAX package
+    assert P.Pendulum(device="cpu", process_noise={"omega": 0.1})._has_noise
+    with pytest.raises(ValueError, match="not one of"):
+        P.Pendulum(device="cpu", process_noise={"bogus": 0.1})
+    with pytest.raises(ValueError, match="noise_mode"):
+        P.Pendulum(device="cpu", noise_mode="bogus")
     fast = P.Pendulum(device="cpu", fast_math=True)
     assert fast.fast_math and rollout_path(fast) == "fused"
     assert P.Pendulum(device="cpu", static_params={"l": np.float64(2.0), "m": 1, "g": 9.81}).env_properties.static_params.l == 2.0

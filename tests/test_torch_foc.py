@@ -4,16 +4,19 @@ package's tile factories and tiles.
 Float64 on the CPU; the gains and maps of both factories agree at 1e-10 (the
 same Riccati iteration in numpy over Jacobians from two autodiff systems),
 and each tile's ``forward`` follows the JAX ``policy_tile`` on random columns
-at 1e-12.  The saturated tile's settling test reuses the bounds of
+at 1e-12.  Both factories read the observer's levels from a noisy drive's
+``process_noise``/``observation_noise``, each field overridable by
+``process_std``/``measurement_std`` as in the JAX package.  The saturated
+tile's settling test reuses the bounds of
 tests/test_foc.py::test_pmsm_saturated_sensorless_tile_settles with a numpy
-sensor slab in place of the environment-level observation noise, which the
-port has not ported yet.
+sensor slab, and the noisy drive's own closed loop streams its draws.
 """
 
 import inspect
 import re
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -80,6 +83,44 @@ def test_saturated_tile_factory_matches_jax(deadtime):
     assert p_tile.n_obs == 18 and p_tile.n_carry == (6 if deadtime else 4)
     for a, b in zip(p_c0, j_c0):
         _close(a, b)
+
+
+@pytest.mark.parametrize("family", ["linear", "saturated"])
+def test_factories_read_the_environment_noise_levels(family):
+    """A drive built with noise: its levels feed the observer as the JAX
+    factories read them, an explicit argument overrides a field, and the
+    drive's own closed loop runs the tile on its sensor draws."""
+    noise = dict(process_noise={"i_d": 2.0}, observation_noise={"i_d": 5.0, "i_q": 4.0})
+    override = {"measurement_std": {"i_q": 3.0}}
+    if family == "linear":
+        params = dict(J.MotorVariant.DEFAULT.get_params().static_params.__dict__, deadtime=1)
+        je = J.PMSM(batch_size=8, motor_variant=J.MotorVariant.DEFAULT, static_params=params, **noise)
+        pe = P.PMSM(batch_size=8, motor_variant=P.MotorVariant.DEFAULT, static_params=params, **noise, **F64)
+        refs = dict(i_d_ref=-30.0, i_q_ref=60.0, omega_el=1200.0)
+        for extra in ({}, override):
+            j_tile, _ = jfoc.make_pmsm_sensorless_current_tile(je, **refs, **extra)
+            p_tile, _ = foc.make_pmsm_sensorless_current_tile(pe, **refs, **extra)
+            _close(p_tile.consts["K"], inspect.getclosurevars(j_tile).nonlocals["K"])
+        maker = foc.make_pmsm_sensorless_current_tile
+    else:
+        params = dict(J.MotorVariant.BRUSA.get_params().static_params.__dict__, deadtime=1,
+                      l_d=float("nan"), l_q=float("nan"), psi_p=float("nan"))
+        je = J.PMSM(batch_size=8, saturated=True, motor_variant=J.MotorVariant.BRUSA, static_params=params, **noise)
+        pe = P.PMSM(batch_size=8, saturated=True, motor_variant=P.MotorVariant.BRUSA, static_params=params, **noise,
+                    **F64)
+        refs = dict(i_d_ref=-100.0, i_q_ref=150.0, omega_el=1200.0)
+        for extra in ({}, override):
+            _, _, j_sched = jfoc.make_pmsm_saturated_sensorless_current_tile(je, **refs, **extra)
+            _, _, p_sched = foc.make_pmsm_saturated_sensorless_current_tile(pe, **refs, **extra)
+            _close(p_sched.values, j_sched.values)
+        maker = foc.make_pmsm_saturated_sensorless_current_tile
+    out = maker(pe, **refs)
+    tile, c0, sched = out if len(out) == 3 else (*out, None)
+    keys = torch.as_tensor(np.asarray(jax.random.split(jax.random.PRNGKey(3), 8)).astype(np.int64))
+    _, st = pe.vmap_reset(keys)
+    st.physical_state.omega_el = torch.full((8,), 1200.0, dtype=torch.float64)
+    obs, last, carry = pe.fused_closed_loop(st, tile, 16, policy_carry=c0, sched_lut=sched)
+    assert bool(torch.isfinite(obs).all()) and not torch.equal(last.PRNGKey, st.PRNGKey)
 
 
 def _random_columns(rng, n_obs, n, carry_n, sched=None):

@@ -1,6 +1,7 @@
 """The stepper, PMSM, closed-loop and PMSM closed-loop kernels, the fast-math
-flag in the first and third, and the fast pendulum and fast PMSM kernels
-against their plain versions on a CUDA card.
+flag in the first and third, the PMSM kernel's process-noise slab, and the
+fast pendulum and fast PMSM kernels against their plain versions on a CUDA
+card.
 
 The kernels have no CPU mode, so these tests carry the ``gpu`` marker and skip
 without a card.  The file imports neither JAX nor the JAX package, so on a
@@ -211,6 +212,78 @@ def test_pmsm_per_batch_parameters_match_plain_version():
         outp = PK.plain_pmsm_rollout(env, acts, state0, omega, **kw)
         for a, b in zip(_flat(outk), _flat(outp)):
             assert torch.equal(a, b)
+
+
+PMSM_NOISE_CASES = [
+    ("BRUSA", True, "euler", 0, None, (0, 1)),
+    ("BRUSA", True, "rk4", 1, 4, (1,)),
+    ("DEFAULT", False, "euler", 1, 2, (1, 0)),
+    ("DEFAULT", False, "rk4", 0, 8, (0,)),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant,saturated,solver,deadtime,stride,noise_idx", PMSM_NOISE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pmsm_noise_slab_matches_plain_version(variant, saturated, solver, deadtime, stride, noise_idx, dtype):
+    """The process-noise slab of a stochastic drive: added to the currents
+    after each step, before the save and the next gather, bit for bit with
+    the plain loop in both slab layouts; the slab's cotangent follows
+    autograd through the plain loop."""
+    _cuda()
+    params = dict(P.MotorVariant[variant].get_params().static_params.__dict__, deadtime=deadtime)
+    if saturated:
+        params.update(l_d=float("nan"), l_q=float("nan"), psi_p=float("nan"))
+    env = P.PMSM(batch_size=2048 + 45, saturated=saturated, motor_variant=P.MotorVariant[variant],
+                 solver=solver, static_params=params, dtype=dtype)
+    acts, state0, omega = _pmsm_inputs(env, 32, 9)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    noise = 0.5 * torch.randn((32, env.batch_size, len(noise_idx)), generator=gen, device="cuda", dtype=dtype)
+    kw = dict(tau=env.tau, obs_stride=stride, noise_tm=noise, noise_idx=noise_idx)
+    before = PK.KERNEL.launches["pmsm_step"]
+    outk = PK.pmsm_kernel_rollout(env, acts, state0, omega, **kw)
+    outp = PK.plain_pmsm_rollout(env, acts, state0, omega, **kw)
+    outb = PK.pmsm_kernel_rollout(env, acts.transpose(0, 1).contiguous(), state0, omega, batch_major=True, **kw)
+    quiet = PK.pmsm_kernel_rollout(env, acts, state0, omega, tau=env.tau, obs_stride=stride)
+    torch.cuda.synchronize()
+    assert PK.KERNEL.launches["pmsm_step"] == before + 3
+    for a, b, c in zip(_flat(outk), _flat(outp), _flat(outb)):
+        assert torch.equal(a, b) and torch.equal(c, b)
+    assert not torch.equal(outk[0][noise_idx[0]], quiet[0][noise_idx[0]])
+    with pytest.raises(ValueError, match="step-mode"):
+        PK.pmsm_kernel_rollout(env, acts, state0, omega, sim_ahead=True, **kw)
+    if dtype == torch.float64:
+        acts = (acts * 0.5).requires_grad_(True)
+        noise = noise.clone().requires_grad_(True)
+        start = tuple(leaf.clone().requires_grad_(True) for leaf in state0)
+        kw = dict(tau=env.tau, obs_stride=stride, noise_idx=noise_idx)
+        dev = _grad_deviation(lambda: PK.pmsm_kernel_rollout(env, acts, start, omega, noise_tm=noise, **kw),
+                              lambda: PK.plain_pmsm_rollout(env, acts, start, omega, noise_tm=noise, **kw),
+                              [acts, noise, *start])
+        assert dev <= GRAD_LIMIT[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("noise_mode", ["exact", "fast"])
+def test_pmsm_stochastic_drive_is_one_launch(noise_mode):
+    """A stochastic drive's fused rollout draws first and launches once; it
+    equals the eager step loop from the same keys, keys included."""
+    _cuda()
+    from exciting_environments_torch.ops import random as R
+
+    B = 1024
+    env = P.PMSM(batch_size=B, saturated=True, motor_variant=P.MotorVariant.BRUSA,
+                 process_noise={"i_d": 2.0, "i_q": 2.0}, observation_noise={"i_d": 0.5, "i_q": 0.5, "torque": 0.2},
+                 noise_mode=noise_mode, dtype=torch.float64)
+    _, state = env.vmap_reset(R.split(R.PRNGKey(0), B))
+    acts = 0.8 * torch.rand((B, 16, 2), generator=torch.Generator(device="cuda").manual_seed(1), device="cuda",
+                            dtype=torch.float64) - 0.4
+    PK.KERNEL.reset_counts()
+    obs, last = env.fused_rollout(state, acts, obs_stride=4, strict=True)
+    assert PK.KERNEL.launches["pmsm_step"] == 1
+    obs_r, last_r = env.vmap_rollout(state, acts, obs_stride=4)
+    assert torch.equal(last.PRNGKey, last_r.PRNGKey)
+    torch.testing.assert_close(obs, obs_r, rtol=1e-12, atol=1e-12)
 
 
 @pytest.mark.gpu

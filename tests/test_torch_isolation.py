@@ -26,7 +26,7 @@ def test_port_imports_no_jax():
         "import exciting_environments_torch.ops.kernels.pmsm_closed_loop, exciting_environments_torch.utils.foc\n"
         "import exciting_environments_torch.ops.fastmath, exciting_environments_torch.ops.pmsm_fast\n"
         "import exciting_environments_torch.ops.kernels.pendulum_fast\n"
-        "import exciting_environments_torch.ops.kernels.pmsm_fast_kernel\n"
+        "import exciting_environments_torch.ops.kernels.pmsm_fast_kernel, exciting_environments_torch.ops.random\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'exciting_environments_tpu'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"

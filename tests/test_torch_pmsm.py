@@ -321,8 +321,14 @@ def test_registry_convert_and_unported_options():
     assert P.EnvironmentRegistry.PMSM.value == J.EnvironmentRegistry.PMSM.value == "PMSM-v0"
     env = P.EnvironmentRegistry.PMSM.make(batch_size=3, **F64)
     assert type(env).__name__ == "PMSM" and env.obs_description.tolist()[:4] == ["i_d", "i_q", "omega_el", "torque"]
-    for kwargs in ({"process_noise": {"i_d": 1.0}}, {"observation_noise": {"i_d": 1.0}}, {"noise_mode": "fast"}):
-        with pytest.raises(NotImplementedError, match="noise"):
+    # the noise options are validated as in the JAX package: currents only
+    # take process noise, the measured columns sensor noise
+    for kwargs in ({"process_noise": {"i_d": 1.0}}, {"observation_noise": {"torque": 1.0}}, {"noise_mode": "fast"}):
+        assert P.PMSM(**kwargs, **F64)._noise_mode in ("exact", "fast")
+    for kwargs, match in (({"process_noise": {"epsilon": 1.0}}, "not one of"),
+                          ({"observation_noise": {"epsilon": 1.0}}, "not one of"),
+                          ({"noise_mode": "bogus"}, "noise_mode")):
+        with pytest.raises(ValueError, match=match):
             P.PMSM(**kwargs, **F64)
     pe = P.PMSM(batch_size=3, saturated=True, motor_variant=P.MotorVariant.BRUSA, solver="tsit5", **F64)
     norms = {f: (-1.0, 1.0) for f in FIELDS}

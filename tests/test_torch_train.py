@@ -161,7 +161,7 @@ def test_train_policy_matches_jax_reference_loop(case):
             carry_j, carry_t = (jnp.asarray(c0),), (torch.as_tensor(c0),)
     p_j, losses_j, final_j = _jax_train(je, js, law_j, jax.tree_util.tree_map(jnp.asarray, params), n_steps,
                                         ITERATIONS, policy_carry=carry_j)
-    res = train_policy(pe, law_p, tree_from_numpy(params), ps, n_steps=n_steps, iterations=ITERATIONS,
+    res = train_policy(pe, law_p, tree_from_numpy(params, device="cpu"), ps, n_steps=n_steps, iterations=ITERATIONS,
                        policy_carry=carry_t)
     assert isinstance(res, TrainResult) and res.losses.shape == (ITERATIONS,)
     _close(res.losses.numpy(), losses_j)
