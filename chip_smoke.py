@@ -10,8 +10,11 @@ Phases (any failure raises and the script exits non-zero):
 
 1. build the six kernel libraries (``exciting_environments_torch/csrc/
    stepper.cu``, ``pmsm_stepper.cu``, ``closed_loop.cu``,
-   ``pmsm_closed_loop.cu``, ``pendulum_fast.cu`` and ``pmsm_fast.cu``), one
-   nvcc each, started together, and report the build time and each compiler
+   ``pmsm_closed_loop.cu``, ``pendulum_fast.cu`` and ``pmsm_fast.cu``; the
+   stepper and closed-loop libraries with one translation unit per
+   environment, ``csrc/stepper/*.cu`` and ``csrc/closed_loop/*.cu``), one
+   nvcc per source, all started together, then one link per library, and
+   report the whole build time, the longest single nvcc and each compiler
    resource report;
 2. hold the stepper kernel against its plain PyTorch version on the card at
    B = 65,536, T = 64, float32, in every mode the port uses, and its action
@@ -114,7 +117,28 @@ Phases (any failure raises and the script exits non-zero):
     path no farther from the float64 exact path than 4 times the float32
     exact path is; a holding fleet that stays inside its current bands
     within 1e-3 in float32 over T = 256) and the kernel alone at T = 4,096;
-15. stochastic simulation (``phase_draws``, ``phase_noise_pendulum``,
+15. the five later environments (``phase_env_kernel_vs_plain``,
+    ``phase_env_golden``, ``phase_env_main``): VanDerPol, FluidTank,
+    Acrobot, InductionMachine and EESM through the stepper kernel in step
+    and sim-ahead modes against the plain version at B = 65,536, T = 64,
+    float32, tolerance 0.0 (VanDerPol Euler and RK4 with a per-batch ``mu``
+    plane from 0.5 to 20; FluidTank Euler and Heun with a quarter of the
+    tanks nearly empty and no inflow, so that both clips fire; Acrobot
+    Tsit5, Euler and ``fast_math=True``; the machines Euler and RK4 with
+    ``u_dc = 400``, a per-batch ``r_r`` or ``l_q`` and actions beyond the
+    inverter circle on part of the fleet; a float64 case, ragged B, the
+    batch-major slab and FluidTank's exact-mode process-noise slab); the
+    closed-loop kernel (the affine P/PD laws on Acrobot Tsit5, VanDerPol,
+    the induction machine with ``u_dc`` (RK4) and the EESM with ``u_dc``
+    (Euler, three actions), the (16, 16) actor on the induction machine,
+    ``obs_stride = 4``); the Acrobot and FluidTank golden fixtures in float64
+    through ``fused_rollout`` and ``fused_sim_ahead``, one launch each, at
+    the fixture tests' rtol 1e-16; and the main cases at full width (B =
+    65,536, T = 4,096, float32): ``env.fused_rollout`` of each environment
+    and ``env.fused_closed_loop`` with the Acrobot PD law and the induction
+    machine's PI law with ``u_dc``, each one launch, kernel vs plain at full
+    size, kernel and entry-point ms and the bound;
+16. stochastic simulation (``phase_draws``, ``phase_noise_pendulum``,
     ``phase_noise_pmsm``, ``phase_noise_closed_loops``): the threefry
     streams of ``ops/random.py`` on the card against the CPU at B = 65,536
     (keys, ``split``/``fold_in`` chains, both modes' slab keys and uniforms
@@ -133,17 +157,19 @@ Phases (any failure raises and the script exits non-zero):
     modes) likewise; and the closed loops on the environment's own slabs
     (PD and PI pendulum over T = 4,096, the actor collected over T = 64,
     BRUSA PI over T = 2,048), one launch each and 0.0 from the plain loop;
-16. the four exact kernels' VJPs (``phase_grad``): each entry point
+17. the four exact kernels' VJPs (``phase_grad``): each entry point
     (``kernel_rollout``, ``kernel_closed_loop``, ``pmsm_kernel_rollout``,
     ``kernel_pmsm_closed_loop``) with inputs that require grad, its launch
     then the checkpointed replay, against autograd through the plain loop on
     the card, within 1e-5 (float32) and 1e-12 (float64) of the reference's
-    max abs, over the CPU tests' cases at B = 4,096 (T = 16 or 13) and one
+    max abs, over the CPU tests' cases at B = 4,096 (T = 16 or 13; among
+    them ``RolloutVJP`` on Acrobot and ``ClosedLoopVJP`` on the induction
+    machine with ``u_dc``, its constraint active on part of the fleet) and one
     full-width float32 case per kernel (the pendulum over T = 1,024 with
     ``obs_stride`` 64; BRUSA over T = 256, the holding fleet for the stepper
     and the P law for the loop); every forward 0.0 from the plain version and
     one launch, and a call without grad allocating only its outputs;
-17. ``train_policy`` at B = 65,536 (``phase_train``): the noisy tracking
+18. ``train_policy`` at B = 65,536 (``phase_train``): the noisy tracking
     pendulum of tests/test_train.py (tau = 1e-2, T = 24, 10 iterations, its
     draws fixed by the state's keys), the tracking pendulum
     with the PD law over 1,024 steps and the PI law over 256 (10 iterations
@@ -152,7 +178,7 @@ Phases (any failure raises and the script exits non-zero):
     each loss must fall and the parameters stay finite; each iteration's
     kernel forward, backward replay and optimizer ms are logged, and a
     ``{"grads": [...]}`` line is printed;
-18. print the kernel table, the card's name and power limit, and last the
+19. print the kernel table, the card's name and power limit, and last the
     result line ``{"ok": true, "device": {...}}``.
 
 The anatomy of a redesigned kernel's case (``anatomy``): its registers,
@@ -669,12 +695,24 @@ def phase_trig():
 
 def ode_ops(env):
     """Operations of one vector-field evaluation, counted from
-    csrc/classic_envs.cuh: each add, multiply, divide, compare and each
-    sin/cos/sign call as one; with fast_math each poly_sin is 16 operations,
-    each wrap_angle_fast 5, the cosine's shift 1 and fast_sign 3."""
+    csrc/classic_envs.cuh: each add, multiply, divide, reciprocal, negation,
+    compare, clamp and each sin/cos/sign/sqrt call as one; with fast_math
+    each poly_sin is 16 operations, each wrap_angle_fast 5, the cosine's
+    shift 1 and fast_sign 3.  Ids: 0 Pendulum, 1 MassSpringDamper, 2
+    CartPole, 3 VanDerPol, 4 FluidTank, 5 Acrobot (one sine and three
+    cosine calls), 6 InductionMachine, 7 EESM."""
     if getattr(env, "fast_math", False):
-        return {0: 3 + 21, 1: 5, 2: 28 + 21 + 22 + 3}[env._kernel_env_id]
-    return {0: 4, 1: 5, 2: 31}[env._kernel_env_id]
+        return {0: 3 + 21, 1: 5, 2: 28 + 21 + 22 + 3, 3: 6, 4: 6, 5: 43 + 21 + 3 * 22, 6: 26,
+                7: 22}[env._kernel_env_id]
+    return {0: 4, 1: 5, 2: 31, 3: 6, 4: 6, 5: 47, 6: 26, 7: 22}[env._kernel_env_id]
+
+
+def constraint_ops(env):
+    """Operations of the action constraint per denormalized action row, and
+    of the post-step clip (FluidTank's clamp) per step."""
+    from exciting_environments_torch.ops.kernels.stepper import kernel_svm_limit
+
+    return (SVM_OPS if kernel_svm_limit(env) else 0), (TANK_CLIP_OPS if env._kernel_env_id == 4 else 0)
 
 
 def ops_per_step(env, solver, sim_ahead):
@@ -686,10 +724,11 @@ def ops_per_step(env, solver, sim_ahead):
     a_rows, b = _stage_rows(solver)
     n = len(env._ode_state_fields)
     comb = lambda coeffs: sum(2 - (c == 1.0) for c in coeffs if c != 0.0) + 1 if any(coeffs) else 0
-    per_step = 4 * env.action_dim * (2 if sim_ahead else 1)  # in-kernel denormalization
+    svm, clip = constraint_ops(env)
+    per_step = (4 * env.action_dim + svm) * (2 if sim_ahead else 1)  # in-kernel denormalization and constraint
     per_step += len(b) * ode_ops(env) + n * (sum(comb(r) for r in a_rows) + comb(b))
     if not sim_ahead:
-        per_step += 5 * len(env._angle_fields)  # wrap: add, fmod, compare, add, sub
+        per_step += 5 * len(env._angle_fields) + clip  # wrap: add, fmod, compare, add, sub
     return per_step
 
 
@@ -729,6 +768,14 @@ def phase_build(K):
     paths = K.build_all()
     K.KERNEL.lib()
     log(f"[build] {', '.join(p.name for p in paths.values())} ready in {time.perf_counter() - t0:.1f} s")
+    if K.BUILD_TIMES:
+        times = {k: v for k, v in K.BUILD_TIMES.items() if k != "total"}
+        longest = max(times, key=times.get)
+        log(f"[build] whole build {K.BUILD_TIMES['total']:.1f} s ({len(times)} nvcc processes, one per source "
+            f"and one link per library, the sources all started together); longest single nvcc: {longest} "
+            f"{times[longest]:.1f} s")
+        log("[build] nvcc seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in sorted(times.items(),
+                                                                                  key=lambda kv: -kv[1])))
     for path in paths.values():
         report = path.with_suffix(".log").read_text()
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", report)]
@@ -1376,8 +1423,9 @@ def cl_bound(env, spec, batch, n_steps, n_saves, n_carry, n_refs, n_obs_noise=0,
                          + n_saves * batch * (n + a + n_carry) + n_steps * batch * (n_obs_noise + n_proc_noise))
     a_rows, b = _stage_rows(env._solver)
     comb = lambda coeffs: sum(2 - (c == 1.0) for c in coeffs if c != 0.0) + 1 if any(coeffs) else 0
-    wrap = 5 * len(env._angle_fields)
-    per_step = 4 * n + n_obs_noise + cl_policy_ops(spec, a) + 4 * a
+    svm, clip = constraint_ops(env)
+    wrap = 5 * len(env._angle_fields) + clip
+    per_step = 4 * n + n_obs_noise + cl_policy_ops(spec, a) + 4 * a + svm
     per_step += len(b) * ode_ops(env) + n * (sum(comb(r) for r in a_rows) + comb(b)) + wrap
     per_step += (n_proc_noise + wrap) if n_proc_noise else 0
     ops = per_step * batch * n_steps
@@ -2412,6 +2460,329 @@ def phase_pmsm_fast(ex, PF, PMK):
 
 
 # ---------------------------------------------------------------------------
+# the five later environments (VanDerPol, FluidTank, Acrobot,
+# InductionMachine, EESM) through the stepper and closed-loop kernels, with
+# the machines' inverter circle computed in both
+# ---------------------------------------------------------------------------
+
+#: a per-batch parameter of each, and its range (tests/test_van_der_pol.py's
+#: stiffness sweep, tests/test_induction_machine.py's r_r, tests/test_eesm.py's l_q)
+ENV_SWEEPS = {"VanDerPol": ("mu", 0.5, 20.0), "FluidTank": ("c_d", 0.4, 0.8), "Acrobot": ("m_2", 0.5, 1.5),
+              "InductionMachine": ("r_r", 1.8, 3.2), "EESM": ("l_q", 3e-3, 6e-3)}
+MACHINES = ("InductionMachine", "EESM")
+U_DC = 400.0
+#: operations of one application of the inverter circle (csrc/classic_envs.cuh::svm_circle: two squares, add,
+#: sqrt, clamp, reciprocal, multiply, clamp, two multiplies) and of the tank's post-step clip
+SVM_OPS, TANK_CLIP_OPS = 10, 1
+
+
+def snake(name):
+    return re.sub(r"(?<=[a-z])(?=[A-Z])", "_", name).lower()
+
+
+def new_env(ex, name, batch, dtype=torch.float32, solver="euler", sweep=True, **kwargs):
+    """One of the five environments on the card; the machines with ``u_dc``,
+    and with ``sweep`` its parameter of ENV_SWEEPS as a per-batch plane."""
+    cls = getattr(ex, name)
+    if sweep:
+        field, lo, hi = ENV_SWEEPS[name]
+        kwargs["static_params"] = {**cls._default_static_params(),
+                                   field: torch.linspace(lo, hi, batch, device=DEVICE, dtype=torch.float64)}
+    if name in MACHINES:
+        kwargs.setdefault("u_dc", U_DC)
+    return make_env(cls, batch, dtype, solver=solver, **kwargs)
+
+
+def new_state(env, gen, drain=False):
+    """Random states: heights in [0, 3) (with ``drain`` a quarter of the
+    tanks nearly empty, below the height that one Euler step of outflow
+    overshoots), else the normalized band's inner half of [-2, 2)."""
+    lo, hi = (0.0, 3.0) if type(env).__name__ == "FluidTank" else (-2.0, 2.0)
+    y0 = [(torch.rand(env.batch_size, generator=gen, device=DEVICE, dtype=torch.float64) * (hi - lo) + lo)
+          for _ in env._ode_state_fields]
+    if drain:
+        y0[0][: env.batch_size // 4] *= 1e-9 / 3.0
+    return tuple(y.to(env.dtype) for y in y0)
+
+
+def new_actions(env, n_rows, gen, drain=False, lim=0.95):
+    """Actions in [-lim, lim) (for the machines beyond the inverter circle on
+    part of the fleet); with ``drain`` no inflow into the nearly empty tanks."""
+    acts = random_actions(env, n_rows, gen, lim)
+    if drain:
+        acts[:, : env.batch_size // 4] = -1.0
+    return acts
+
+
+def beyond_circle(env, acts):
+    """The share of action rows whose physical stator pair lies beyond the
+    inverter circle (0 for an environment without one)."""
+    from exciting_environments_torch.ops.kernels.stepper import kernel_svm_limit
+
+    lim = kernel_svm_limit(env)
+    if not lim:
+        return 0.0
+    u = env.denormalize_action(acts, env.env_properties)
+    return float(((u[..., 0] ** 2 + u[..., 1] ** 2).sqrt() > lim).double().mean())
+
+
+def phase_env_kernel_vs_plain(ex, K, CL):
+    """The five environments through the stepper kernel (step and sim-ahead
+    modes) and the closed-loop kernel against their plain versions, B =
+    65,536, T = 64, float32 unless stated, tolerance 0.0."""
+    from exciting_environments_torch.ops import random as prng
+    from exciting_environments_torch.utils.convert import actor_params_from_numpy
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 31)
+    B, T = B_MAIN, T_CHECK
+    # (label, env, rollout kwargs); "drain": the tank case whose clips fire
+    cases = []
+    for name, solvers in (("VanDerPol", ("euler", "rk4")), ("FluidTank", ("euler", "heun")),
+                          ("Acrobot", ("tsit5", "euler")), ("InductionMachine", ("euler", "rk4")),
+                          ("EESM", ("euler", "rk4"))):
+        for i, solver in enumerate(solvers):
+            # the first solver with the per-batch plane, the second with scalar parameters
+            env = new_env(ex, name, B, solver=solver, sweep=i == 0)
+            what = f"{snake(name)} {solver}{' per-batch ' + ENV_SWEEPS[name][0] if i == 0 else ''}"
+            what += f" u_dc={U_DC:g}" if name in MACHINES else ""
+            drain = {"drain": True} if name == "FluidTank" else {}
+            cases.append((f"{what} step", env, dict(obs_stride=4, **drain)))
+            cases.append((f"{what} sim-ahead ratio 2", env, dict(sim_ahead=True, hold=2, obs_stride=4, **drain)))
+    cases += [
+        ("acrobot tsit5 fast_math step", new_env(ex, "Acrobot", B, solver="tsit5", fast_math=True), {}),
+        ("acrobot rk4 fast_math sim-ahead", new_env(ex, "Acrobot", B, solver="rk4", fast_math=True),
+         dict(sim_ahead=True, obs_stride=8)),
+        ("eesm rk4 u_dc float64, batch-major slab", new_env(ex, "EESM", 4096 + 77, torch.float64, solver="rk4"),
+         dict(obs_stride=4, batch_major=True)),
+        ("induction_machine euler u_dc ragged B=1001, batch-major slab (element-wise copies)",
+         new_env(ex, "InductionMachine", 1001), dict(batch_major=True)),
+        ("eesm euler u_dc ragged B=1001 (three actions, element-wise copies)", new_env(ex, "EESM", 1001), {}),
+    ]
+    failures = []
+    for label, env, kw in cases:
+        kw = dict(kw)
+        drain = kw.pop("drain", False)
+        batch_major = kw.pop("batch_major", False)
+        hold = kw.get("hold", 1)
+        y0 = new_state(env, gen, drain)
+        acts = new_actions(env, T // hold, gen, drain)
+        slab = acts.transpose(0, 1).contiguous() if batch_major else acts
+        yk, tk = K.kernel_rollout(env, y0, slab, tau=env.tau, batch_major=batch_major, **kw)
+        yp, tp = K.plain_rollout(env, y0, acts, tau=env.tau, **kw)
+        torch.cuda.synchronize()
+        err = max(max_abs(yk, yp), max_abs(tk, tp) if tk is not None else 0.0)
+        ok = err == 0.0 and all(bool(torch.isfinite(y).all()) for y in yk)
+        extra = ""
+        if drain:
+            empty = int((yk[0] == 0).sum())
+            extra = f"; {empty} tanks empty at the end (the clips fired)"
+            ok = ok and (empty > 0 or kw.get("sim_ahead", False))
+        if type(env).__name__ in MACHINES:
+            extra = f"; {beyond_circle(env, acts):.1%} of the action rows beyond the inverter circle"
+        log(f"[envs vs plain] {label}: max abs deviation {err!r} (tolerance 0.0){extra} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(label)
+
+    # a process-noise slab from the environment: FluidTank, exact mode
+    tank = make_env(ex.FluidTank, B, process_noise={"height": 0.5})
+    _, state = tank.vmap_reset(prng.split(prng.PRNGKey(SEED, DEVICE), B))
+    state.physical_state.height[: B // 4] *= 1e-3  # nearly empty: the clip after the increments fires
+    noise_tm, noise_idx = tank._noise_streams(state, T, T)[:2]
+    y0 = (state.physical_state.height,)
+    acts = new_actions(tank, T, gen)
+    yk, _ = K.kernel_rollout(tank, y0, acts, tau=tank.tau, noise_tm=noise_tm, noise_idx=noise_idx)
+    yp, _ = K.plain_rollout(tank, y0, acts, tau=tank.tau, noise_tm=noise_tm, noise_idx=noise_idx)
+    obs_f, _ = tank.fused_rollout(state, acts, time_major=True, strict=True)
+    obs_l, _ = tank.vmap_rollout(state, acts.transpose(0, 1), T)
+    torch.cuda.synchronize()
+    err, err_l = max_abs(yk, yp), max_abs((obs_f,), (obs_l[:, -1],))
+    empty = int((yk[0] == 0).sum())
+    ok = err == 0.0 and err_l == 0.0 and float(yk[0].min()) >= 0.0 and empty > 0
+    log(f"[envs vs plain] fluid_tank exact-mode process-noise slab (sigma 0.5, a quarter of the tanks nearly "
+        f"empty): kernel vs plain {err!r}, fused_rollout vs vmap_rollout {err_l!r} (tolerance 0.0), {empty} tanks "
+        f"empty at the end {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("fluid_tank noise slab")
+
+    # the closed loop: affine laws (P/PD tracking one field), the actor on the machine, saves
+    im = new_env(ex, "InductionMachine", B, solver="rk4", control_state=["i_sd"])
+    actor, ids = ex.make_actor_tile(im)
+    weights = actor_params_from_numpy(im, actor_tree(5, n_action=2))
+    cl_cases = [
+        ("acrobot tsit5 PD", new_env(ex, "Acrobot", B, solver="tsit5", control_state=["theta_1"]),
+         ex.AffinePolicy([[-0.9, 0.0, -0.25, 0.0, 0.9]]), {"traj_stride": 1}),
+        ("van_der_pol euler PD", new_env(ex, "VanDerPol", B, control_state=["position"]),
+         ex.AffinePolicy([[-0.8, -0.3, 0.8]]), {}),
+        ("induction_machine rk4 u_dc P on both axes, bias beyond the circle", im,
+         ex.AffinePolicy([[-0.9, 0.0, 0.0, 0.0, 0.9], [0.0, -0.9, 0.0, 0.0, 0.0]], b=[0.6, 0.6]),
+         {"traj_stride": 1}),
+        ("eesm euler u_dc P, three actions", new_env(ex, "EESM", B, control_state=["i_d"]),
+         ex.AffinePolicy([[-0.9, 0.0, 0.0, 0.9], [0.0, -0.9, 0.0, 0.0], [0.0, 0.0, -0.5, 0.0]], b=[0.6, 0.6, 0.1]),
+         {"traj_stride": 1}),
+        ("induction_machine rk4 u_dc actor (16, 16)", im, actor,
+         {"traj_stride": 1, "policy_params": weights, "policy_carry": ids}),
+        ("induction_machine rk4 u_dc PI obs_stride=4", im,
+         ex.AffinePolicy([[-0.9, 0.0, 0.0, 0.0, 0.9], [0.0, -0.9, 0.0, 0.0, 0.0]], b=[0.3, 0.6],
+                         Ki=[[-0.02, 0.0, 0.0, 0.0, 0.02], [0.0, -0.02, 0.0, 0.0, 0.0]], clip=1.0),
+         {"traj_stride": 4, "policy_carry": tuple(torch.zeros(B, device=DEVICE) for _ in range(2))}),
+    ]
+    for label, env, policy, kw in cl_cases:
+        y0 = new_state(env, gen)
+        refs = tuple((torch.rand(env.batch_size, generator=gen, device=DEVICE, dtype=torch.float64) * 2 - 1)
+                     .to(env.dtype) for _ in env.control_state)
+        err, finite = cl_deviation(CL, env, policy, T, y0, refs, **kw)
+        extra = ""
+        if kw.get("traj_stride") == 1 and type(env).__name__ in MACHINES:
+            out = cl_run(CL, env, policy, T, y0, refs, True, **kw)
+            extra = f"; {beyond_circle(env, torch.stack(out[3], dim=-1)):.1%} of the actions beyond the circle"
+        ok = finite and err == 0.0
+        log(f"[envs closed loop vs plain] {label}: max abs deviation {err!r} (tolerance 0.0){extra} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(label)
+    if failures:
+        raise AssertionError(f"the five environments' kernels disagree with their plain versions: {failures}")
+
+
+def phase_env_golden(ex, K):
+    """The Acrobot and FluidTank golden fixtures (10,000 Euler steps) replayed
+    in float64 through the stepper kernel, in step mode (``fused_rollout``)
+    and in sim-ahead mode (``fused_sim_ahead``), one launch each, checked with
+    the fixture tests' own allclose at rtol 1e-16 (tests/envs/test_golden_replay.py,
+    tests/envs/test_golden_sim_ahead.py: the sim-ahead angles modulo the wrap)."""
+    from exciting_environments_torch.utils import load_sim_properties_from_json
+
+    failures = []
+    for name, fixture in (("Acrobot", "acrobot"), ("FluidTank", "fluid_tank")):
+        data = ROOT / "tests" / "envs" / fixture / "data"
+        params, action_norms, physical_norms, tau = load_sim_properties_from_json(data / "sim_properties.json")
+        env = getattr(ex, name)(batch_size=1, tau=tau, solver="euler", static_params=params,
+                                physical_normalizations=physical_norms, action_normalizations=action_norms,
+                                device=DEVICE, dtype=torch.float64)
+        stored = torch.as_tensor(np.load(data / "observations.npy"), device=DEVICE)
+        actions = torch.as_tensor(np.load(data / "actions.npy"), device=DEVICE)
+        state = env.generate_state_from_observation(stored[0][None], env.env_properties)
+        K.KERNEL.reset_counts()
+        obs, _ = env.fused_rollout(state, actions[None], obs_stride=1, strict=True)
+        step = torch.cat([stored[:1], obs[0]], dim=0)
+        obs_sa, _ = env.fused_sim_ahead(state, actions[None], tau, tau, strict=True)
+        torch.cuda.synchronize()
+        launches = dict(K.KERNEL.launches)
+        ok_step = bool(torch.allclose(step, stored, 1e-16))
+        diff = obs_sa[0] - stored
+        folded = diff - 2.0 * torch.round(diff / 2.0)
+        exact = diff.abs() < 1.0
+        ok_sa = bool(torch.allclose(folded, torch.zeros_like(folded), 1e-16)) and bool(
+            torch.allclose(torch.where(exact, diff, torch.zeros_like(diff)), torch.zeros_like(diff), 1e-16))
+        ok = ok_step and ok_sa and launches == {"step": 1, "sim_ahead": 1}
+        log(f"[envs golden] {fixture} fixture, {actions.shape[0]} float64 steps: step mode max abs deviation "
+            f"{float((step - stored).abs().max())!r}, allclose(rtol=1e-16) {ok_step}; sim-ahead mode max abs "
+            f"(modulo the wrap) {float(folded.abs().max())!r}, allclose {ok_sa}; launches {launches} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(fixture)
+    if failures:
+        raise AssertionError(f"golden replays through the kernel deviate from the fixtures: {failures}")
+
+
+def phase_env_main(ex, K, CL):
+    """The five environments' main cases at full width: ``env.fused_rollout``
+    of each (B = 65,536, T = 4,096, float32, Euler at its default tau; the
+    machines with u_dc = 400), and one ``env.fused_closed_loop`` per policy
+    family: the Acrobot PD law and the induction machine's PI law with u_dc;
+    each with the launch count set to 0 just before and read just after,
+    kernel vs plain at full size, kernel and entry-point ms, and the bound.
+    Returns the kernel table entries."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 32)
+    B, T = B_MAIN, T_MAIN
+    entries = []
+    for name in ("VanDerPol", "FluidTank", "Acrobot", "InductionMachine", "EESM"):
+        env = make_env(getattr(ex, name), B, **({"u_dc": U_DC} if name in MACHINES else {}))
+        _, state = env.vmap_reset(rng=gen)
+        acts = new_actions(env, T, gen)
+        slab_gb = acts.numel() * acts.element_size() / 1e9
+        K.KERNEL.reset_counts()
+        obs, last = env.fused_rollout(state, acts, time_major=True, strict=True)
+        torch.cuda.synchronize()
+        launches = K.KERNEL.launches["step"]
+        if launches != 1 or K.KERNEL.launches["sim_ahead"] != 0:
+            raise AssertionError(f"{name}: the main path made {dict(K.KERNEL.launches)} launches, not one")
+        if tuple(obs.shape) != (B, len(env.obs_description)) or not bool(torch.isfinite(obs).all()):
+            raise AssertionError(f"{name}: unexpected observations {tuple(obs.shape)} or non-finite values")
+        y0 = tuple(getattr(state.physical_state, f) for f in env._ode_state_fields)
+        kernel = lambda: K.kernel_rollout(env, y0, acts, tau=env.tau)
+        yk, _ = kernel()
+        t0 = time.perf_counter()
+        yp, _ = K.plain_rollout(env, y0, acts, tau=env.tau)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max_abs(yk, yp)
+        err_entry = max_abs(yk, tuple(getattr(last.physical_state, f) for f in env._ode_state_fields))
+        if err != 0.0 or err_entry != 0.0:
+            raise AssertionError(f"{name}: kernel disagrees with its plain version at the main size ({err!r}, "
+                                 f"entry point {err_entry!r})")
+        ms = time_ms(kernel)
+        entry_ms = time_ms(lambda: env.fused_rollout(state, acts, time_major=True, strict=True))
+        bound_ms, bound_by = bound(env, env._solver, B, T, T, 0, False)
+        extra = f", {beyond_circle(env, acts[:64]):.1%} of the first 64 rows beyond the inverter circle" \
+            if name in MACHINES else ""
+        log(f"[envs main] {name} B={B} T={T} tau={env.tau} float32 ({slab_gb:.3f} GB of actions{extra}): "
+            f"launches {launches}; kernel {ms!r} ms = {B * T / ms * 1e3:.4e} env-steps/s; env.fused_rollout "
+            f"{entry_ms!r} ms (kernel {ms / entry_ms:.1%}); bound {bound_ms!r} ms ({bound_by}, "
+            f"{ops_per_step(env, env._solver, False)} operations per step), {bound_ms / ms:.1%} of the bound; "
+            f"plain {plain_ms!r} ms (one run); max abs {err!r}")
+        entries.append(entry(f"stepper_step_{snake(name)}", launches, err, ms, plain_ms, bound_ms, bound_by, SOURCE,
+                             REPLACES))
+        del acts, obs, last, yk, yp
+        torch.cuda.empty_cache()
+
+    def cl_case(label, env, field, ref, policy, carry):
+        _, state = env.vmap_reset(rng=gen)
+        setattr(state.reference, field, ref)
+        y0 = tuple(getattr(state.physical_state, f) for f in env._ode_state_fields)
+        refs = (getattr(env.env_properties.physical_normalizations, field).normalize(ref),)
+        kw = dict(tau=env.tau, solver=env._solver, props=env.env_properties, ref_leaves=refs, policy_carry=carry)
+        CL.CL_KERNEL.reset_counts()
+        out = env.fused_closed_loop(state, policy, T, policy_carry=carry)
+        torch.cuda.synchronize()
+        launches = CL.CL_KERNEL.launches["closed_loop"]
+        obs = out[0]
+        if launches != 1 or tuple(obs.shape) != (B, len(env.obs_description)) or not bool(torch.isfinite(obs).all()):
+            raise AssertionError(f"{label}: {launches} launches, observations {tuple(obs.shape)}")
+        kernel = lambda: CL.kernel_closed_loop(env, y0, policy, T, **kw)
+        outk = cl_flat(kernel())
+        t0 = time.perf_counter()
+        outp = cl_flat(CL.plain_closed_loop(env, y0, policy, T, **kw))
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max_abs(outk, outp)
+        if err != 0.0:
+            raise AssertionError(f"{label}: kernel disagrees with its plain version at the main size ({err!r})")
+        ms = time_ms(kernel)
+        entry_ms = time_ms(lambda: env.fused_closed_loop(state, policy, T, policy_carry=carry))
+        spec = policy.kernel_spec(torch.float32, DEVICE)
+        (bound_ms, bound_by), per_step = cl_bound(env, spec, B, T, 0, len(carry or ()), 1)
+        log(f"[envs closed loop main] {label} B={B} T={T} tau={env.tau}: launches {launches}; kernel {ms!r} ms = "
+            f"{B * T / ms * 1e3:.4e} env-steps/s; env.fused_closed_loop {entry_ms!r} ms (kernel {ms / entry_ms:.1%}); "
+            f"bound {bound_ms!r} ms ({bound_by}, {per_step} operations per step), {bound_ms / ms:.1%} of the bound; "
+            f"plain {plain_ms!r} ms (one run); mean |ref - {field}| normalized "
+            f"{float((obs[:, -1] - obs[:, env._ode_state_fields.index(field)]).abs().mean()):.4f}")
+        return launches, err, ms, plain_ms, bound_ms, bound_by
+
+    acro = make_env(ex.Acrobot, B, control_state=["theta_1"])
+    got = cl_case("acrobot PD", acro, "theta_1", torch.linspace(-1.5, 1.5, B, device=DEVICE),
+                  ex.AffinePolicy([[-0.9, 0.0, -0.25, 0.0, 0.9]]), None)
+    entries.append(entry("closed_loop_acrobot_pd", *got, CL_SOURCE, CL_REPLACES))
+    im = make_env(ex.InductionMachine, B, control_state=["i_sd"], u_dc=U_DC)
+    pi = ex.AffinePolicy([[-0.9, 0.0, 0.0, 0.0, 0.9], [0.0, -0.9, 0.0, 0.0, 0.0]], b=[0.3, 0.6],
+                         Ki=[[-0.02, 0.0, 0.0, 0.0, 0.02], [0.0, -0.02, 0.0, 0.0, 0.0]], clip=1.0)
+    got = cl_case("induction_machine PI u_dc", im, "i_sd", torch.linspace(-10.0, 10.0, B, device=DEVICE), pi,
+                  tuple(torch.zeros(B, device=DEVICE) for _ in range(2)))
+    entries.append(entry("closed_loop_induction_machine_pi", *got, CL_SOURCE, CL_REPLACES))
+    return entries
+
+
+# ---------------------------------------------------------------------------
 # stochastic simulation: draw streams, noisy main paths, slabs from the
 # environment into every exact kernel
 # ---------------------------------------------------------------------------
@@ -2794,12 +3165,14 @@ def grad_inputs_stepper(ex, K, name, dtype, gen, batch, n_steps, stride=None, so
 
 
 def grad_inputs_cl(ex, CL, name, dtype, gen, batch, n_steps, stride=None, solver="euler", pi=False, noise=False,
-                   per_batch=False, actor=False):
+                   per_batch=False, actor=False, u_dc=None, bias=0.0):
     from exciting_environments_torch.utils.convert import actor_params_from_numpy
 
-    control = ["theta"] if name == "Pendulum" else ["deflection"]
+    control = [{"Pendulum": "theta", "CartPole": "deflection", "InductionMachine": "i_sd"}[name]]
     extra = dict(static_params={"l": 1.0 + torch.rand(batch, generator=gen, device=DEVICE), "m": 1.0,
                                 "g": 9.81}) if per_batch else {}
+    if u_dc is not None:
+        extra["u_dc"] = u_dc
     env = make_env(getattr(ex, name), batch, dtype, solver=solver, control_state=control, **extra)
     props = env.env_properties
     pt = [leaf(t) for t in CL.ck.prop_tensors(props)]
@@ -2815,12 +3188,16 @@ def grad_inputs_cl(ex, CL, name, dtype, gen, batch, n_steps, stride=None, solver
                   "log_std": tree["log_std"], "seed": tree["seed"]}
         grads_of = [t for layer in params["actor"] for t in layer.values()]
     else:
-        K0 = [[-0.9, -0.25] + [0.3] * (n - 2) + [0.9]]
-        policy = ex.AffinePolicy(K0, Ki=[[-0.02] + [0.0] * (n - 1) + [0.02]] if pi else None)
+        # the first action's law over the state and the reference, each
+        # further action's a P law on its own state column
+        a = env.action_dim
+        K0 = [[-0.9, -0.25] + [0.3] * (n - 2) + [0.9]] + [[0.0] * j + [-0.9] + [0.0] * (n - j) for j in range(1, a)]
+        Ki = [[-0.02] + [0.0] * (n - 1) + [0.02]] + [[0.0] * j + [-0.02] + [0.0] * (n - j) for j in range(1, a)]
+        policy = ex.AffinePolicy(K0, b=[bias] * a, Ki=Ki if pi else None)
         params = leaf(policy.flat_params().to(device=DEVICE, dtype=dtype))
         grads_of = [params]
         if pi:
-            carry = (leaf(0.1 * random_state(env, gen)[0]),)
+            carry = tuple(leaf(0.1 * random_state(env, gen)[0]) for _ in range(a))
             grads_of += list(carry)
     on = leaf(0.02 * torch.randn((n_steps, batch, 2), generator=gen, device=DEVICE, dtype=dtype)) if noise else None
     pn = leaf(0.02 * torch.randn((n_steps, batch, 1), generator=gen, device=DEVICE, dtype=dtype)) if noise else None
@@ -2918,6 +3295,7 @@ GRAD_CASES = [
                                                                         per_batch=True)),
     ("kernel_rollout", "pendulum rk4, batch-major slab", dict(name="Pendulum", solver="rk4", stride=4,
                                                              batch_major=True)),
+    ("kernel_rollout", "acrobot tsit5, saves every 4", dict(name="Acrobot", solver="tsit5", stride=4)),
     ("kernel_closed_loop", "pendulum euler PD, final only", dict(name="Pendulum")),
     ("kernel_closed_loop", "pendulum rk4 PD, saves every 8", dict(name="Pendulum", solver="rk4", stride=8)),
     ("kernel_closed_loop", "pendulum rk4 PD, prime T = 13", dict(name="Pendulum", solver="rk4", n_steps=13)),
@@ -2927,6 +3305,10 @@ GRAD_CASES = [
     ("kernel_closed_loop", "cart_pole tsit5 affine", dict(name="CartPole", solver="tsit5", stride=4)),
     ("kernel_closed_loop", "pendulum rk4 actor (16, 16) deterministic", dict(name="Pendulum", solver="rk4", stride=4,
                                                                              actor=True)),
+    # a bias of 0.8 on both axes: |u| up to 1.13 x 325 V against the circle's 231 V, so the constraint is
+    # active on part of the fleet
+    ("kernel_closed_loop", "induction machine rk4 PI, u_dc 400, beyond the circle on part of the fleet",
+     dict(name="InductionMachine", solver="rk4", stride=4, pi=True, u_dc=U_DC, bias=0.8)),
     ("pmsm_kernel_rollout", "BRUSA euler deadtime 1, final only", dict()),
     ("pmsm_kernel_rollout", "BRUSA euler deadtime 0, saves every 4", dict(deadtime=0, stride=4)),
     ("pmsm_kernel_rollout", "BRUSA euler, saves every 8", dict(stride=8)),
@@ -3181,6 +3563,9 @@ def main() -> int:
     kernels += phase_fast_flag(ex, K, CL)
     kernels += phase_pendulum_fast(ex, PFK)
     kernels += phase_pmsm_fast(ex, PF, PMK)
+    phase_env_kernel_vs_plain(ex, K, CL)
+    phase_env_golden(ex, K)
+    kernels += phase_env_main(ex, K, CL)
     phase_draws(ex)
     kernels += phase_noise_pendulum(ex, K)
     kernels += phase_noise_pmsm(ex, PK)

@@ -23,7 +23,18 @@ from exciting_environments_torch.core import spaces
 from exciting_environments_torch.core.classic import ClassicODEEnvironment
 from exciting_environments_torch.core.env import CoreEnvironment
 from exciting_environments_torch.core.registration import EnvironmentRegistry
-from exciting_environments_torch.models import PMSM, CartPole, MassSpringDamper, MotorVariant, Pendulum
+from exciting_environments_torch.models import (
+    EESM,
+    PMSM,
+    Acrobot,
+    CartPole,
+    FluidTank,
+    InductionMachine,
+    MassSpringDamper,
+    MotorVariant,
+    Pendulum,
+    VanDerPol,
+)
 from exciting_environments_torch.ops import solvers
 from exciting_environments_torch.ops.kernels import pendulum_fast_rollout
 from exciting_environments_torch.ops.lut import ScheduledLUT

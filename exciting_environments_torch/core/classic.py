@@ -24,6 +24,27 @@ from exciting_environments_torch.ops import fastmath
 from exciting_environments_torch.ops import random as prng
 
 
+def svm_circle(u_dc: float):
+    """The inverter limit of the induction machine and the EESM as an
+    action-constraint hook (:attr:`CoreEnvironment._constrain_action_tuple`):
+    the physical pair ``(u_d, u_q)``, components 0 and 1, is scaled into the
+    inscribed circle of the hexagon, ``|u| <= u_dc / sqrt(3)`` (the linear
+    region of space-vector modulation); further components pass unchanged.
+    The hook carries its radius as ``svm_limit``, by which the stepper and
+    closed-loop kernels recognise it and compute it in place
+    (``ops/kernels/stepper.py::kernel_svm_limit``)."""
+    lim = float(u_dc) / float(np.sqrt(3.0))
+
+    def hook(comps):
+        u_d, u_q = comps[0], comps[1]
+        mag = torch.sqrt(u_d * u_d + u_q * u_q)
+        scale = torch.clamp(lim / torch.clamp(mag, min=1e-12), max=1.0)
+        return (u_d * scale, u_q * scale) + tuple(comps[2:])
+
+    hook.svm_limit = lim
+    return hook
+
+
 class ClassicODEEnvironment(CoreEnvironment):
     """Base class for the hand-written physics models."""
 

@@ -545,9 +545,10 @@ class CoreEnvironment:
 
     #: optional state-independent constraint of the physical action: a
     #: callable ``(action components tuple) -> tuple`` applied after the
-    #: denormalization on every eager path (step, sim_ahead, the rewards).
-    #: The kernels take no such hook yet, so an environment that sets it is
-    #: out of their scope and runs the loops.
+    #: denormalization on every path (step, sim_ahead, the rewards, the
+    #: fused rollouts and closed loops).  The kernels compute the inverter
+    #: circle of :func:`~exciting_environments_torch.core.classic.svm_circle`
+    #: themselves; the plain versions run any hook, on CPU tensors.
     _constrain_action_tuple = None
 
     def _constrained_phys_action(self, action):

@@ -1,6 +1,6 @@
 """Environment registry (counterpart of
 ``exciting_environments_tpu/core/registration.py``): the same ``"<Name>-v0"``
-ids for the environments ported so far, behind an extensible id->class table."""
+ids for all nine environments, behind an extensible id->class table."""
 
 from __future__ import annotations
 
@@ -38,7 +38,8 @@ def _builtin(name: str) -> Callable:
     return resolver
 
 
-for _name in ("Pendulum", "CartPole", "MassSpringDamper", "PMSM"):
+for _name in ("Pendulum", "CartPole", "Acrobot", "MassSpringDamper", "FluidTank", "PMSM", "VanDerPol",
+              "InductionMachine", "EESM"):
     register(f"{_name}-v0", _builtin(_name))
 
 
@@ -48,7 +49,12 @@ class EnvironmentRegistry(Enum):
     CART_POLE = "CartPole-v0"
     MASS_SPRING_DAMPER = "MassSpringDamper-v0"
     PENDULUM = "Pendulum-v0"
+    FLUID_TANK = "FluidTank-v0"
     PMSM = "PMSM-v0"
+    ACROBOT = "Acrobot-v0"
+    VAN_DER_POL = "VanDerPol-v0"
+    INDUCTION_MACHINE = "InductionMachine-v0"
+    EESM = "EESM-v0"
 
     def make(self, **env_kwargs):
         """Instantiate the environment class behind this registry id."""

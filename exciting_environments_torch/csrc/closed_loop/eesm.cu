@@ -1,0 +1,6 @@
+// closed_loop.cuh's kernel over classic_envs.cuh::EESMEnv
+#include "../closed_loop.cuh"
+
+int closed_loop_eesm(const ClosedLoopArgs& args, int dtype, cudaStream_t stream) {
+    return launch_env_dtype<EESMEnv>(args, dtype, stream);
+}

@@ -1,0 +1,6 @@
+// closed_loop.cuh's kernel over classic_envs.cuh::InductionMachineEnv
+#include "../closed_loop.cuh"
+
+int closed_loop_induction_machine(const ClosedLoopArgs& args, int dtype, cudaStream_t stream) {
+    return launch_env_dtype<InductionMachineEnv>(args, dtype, stream);
+}

@@ -96,6 +96,41 @@ __device__ __forceinline__ T operator/(T x, const Divisor<T>& d) {
     return d.recip ? x * d.v : x / d.v;
 }
 
+// A Python number divided by a tensor.  Tensor.__rtruediv__ is
+// self.reciprocal() * other, on the CPU and on CUDA alike: the correctly
+// rounded reciprocal, then a multiply by the number rounded to the working
+// type (two roundings, where JAX divides once).  tests/test_torch_gpu.py
+// pins the rule on the card.
+template <typename T>
+__device__ __forceinline__ T rdiv(double x, T y) {
+    return (T(1) / y) * (T)x;
+}
+
+template <typename T>
+__device__ __forceinline__ Weak<T> wneg(const Weak<T>& x) {
+    Weak<T> r = x;
+    r.d = -x.d;
+    r.v = -x.v;
+    return r;
+}
+
+// x ** 2: a Python float's square, or a tensor's (PyTorch's pow by 2 is
+// x * x)
+template <typename T>
+__device__ __forceinline__ Weak<T> wsq(const Weak<T>& x) { return wmul(x, x); }
+
+// x / y under the eager rules: Python numbers divide in double; a tensor by
+// a number multiplies by the reciprocal (Divisor), a number by a tensor is
+// rdiv, a tensor by a tensor divides
+template <typename T>
+__device__ __forceinline__ Weak<T> wdiv(const Weak<T>& x, const Weak<T>& y) {
+    Weak<T> r;
+    r.py = x.py && y.py;
+    r.d = r.py ? x.d / y.d : 0.0;
+    r.v = r.py ? T(0) : (y.py ? x.v / divisor(y) : (x.py ? rdiv(x.d, y.v) : x.v / y.v));
+    return r;
+}
+
 // y + tau * sum_j coeffs[j] * ks[j][leaf], as the solvers' _weighted_increment
 // computes it: zero coefficients skipped, unit coefficients not multiplied,
 // left-to-right sum; no stage at all leaves y.
@@ -236,3 +271,11 @@ template <typename T>
 __device__ __forceinline__ T clampv(T x, T lo, T hi) {
     return x < lo ? lo : (x > hi ? hi : x);
 }
+
+// torch.clamp(x, min=lo) and torch.clamp(x, max=hi) as PyTorch's CUDA
+// kernel computes them: a NaN stays NaN, else fmax / fmin (which decide the
+// sign of a zero as PyTorch's kernel does)
+__device__ __forceinline__ float clamp_min(float x, float lo) { return isnan(x) ? x : fmaxf(x, lo); }
+__device__ __forceinline__ double clamp_min(double x, double lo) { return isnan(x) ? x : fmax(x, lo); }
+__device__ __forceinline__ float clamp_max(float x, float hi) { return isnan(x) ? x : fminf(x, hi); }
+__device__ __forceinline__ double clamp_max(double x, double hi) { return isnan(x) ? x : fmin(x, hi); }

@@ -46,8 +46,10 @@ from .stepper import (
     _check_leaf,
     _final_solver_state,
     _stage_rows,
+    kernel_env_scope,
+    kernel_svm_limit,
+    phys_action,
     plain_step,
-    supports_fused_rollout,
     traj_keys,
 )
 
@@ -78,6 +80,7 @@ class ClosedLoopArgs(ctypes.Structure):
         ("obs_max", _c_double * MAX_STATE),
         ("act_min", _c_double * MAX_ACTION),
         ("act_max", _c_double * MAX_ACTION),
+        ("svm_limit", _c_double),
         ("clip", _c_double),
         ("param_ptr", _c_void_p * MAX_PARAMS),
         ("y0", _c_void_p * MAX_STATE),
@@ -141,8 +144,9 @@ _PLAIN_CALLABLE_ON_CUDA = (
 def plain_cl_step(env, policy, y, c, t, refs, pparams=None, *, tau, solver, props, has_carry,
                   eo=None, ep=None, obs_cols=(), noise_idx=()):
     """One step of the kernel's computation in plain PyTorch over ``(B,)``
-    leaves: normalize -> [+ sensor noise] -> policy -> denormalize -> RK
-    step -> wrap/clip [-> + process noise -> wrap/clip].  ``eo``/``ep`` are
+    leaves: normalize -> [+ sensor noise] -> policy -> denormalize -> the
+    environment's action constraint -> RK step -> wrap/clip [-> + process
+    noise -> wrap/clip].  ``eo``/``ep`` are
     the step's noise rows ``(B, n)``.  Returns ``(y1, c1, a_norm)``
     (``c1 = ()`` for a stateless policy)."""
     pn = props.physical_normalizations
@@ -155,7 +159,7 @@ def plain_cl_step(env, policy, y, c, t, refs, pparams=None, *, tau, solver, prop
     args = (obs, t) + ((c,) if has_carry else ()) + ((pparams,) if pparams is not None else ())
     out = policy(*args)
     a_norm, c1 = (tuple(out[0]), tuple(out[1])) if has_carry else (tuple(out), ())
-    u = env.denormalize_action(torch.stack(a_norm, dim=-1), props)
+    u = phys_action(env, torch.stack(a_norm, dim=-1), props)
     y1 = plain_step(env, solver, tau, props.static_params, False, y, u, noise_row=ep, noise_idx=noise_idx)
     return y1, c1, a_norm
 
@@ -234,6 +238,10 @@ def kernel_closed_loop(env, y0, policy, n_steps, *, tau, solver, props, ref_leav
                          "reference limits")
     if n_carry != policy.n_carry:
         raise ValueError(f"{type(policy).__name__} carries {policy.n_carry} leaves, policy_carry has {n_carry}")
+    svm_limit = kernel_svm_limit(env)
+    if svm_limit is None:
+        raise ValueError("the closed-loop kernel computes no action constraint but the inverter circle "
+                         "(svm_circle); another hook runs the plain loop on CPU tensors only")
     for i, leaf in enumerate(y0):
         _check_leaf(f"state leaf {i}", leaf, dtype, device, (batch,))
     for i, leaf in enumerate(ref_leaves):
@@ -262,6 +270,7 @@ def kernel_closed_loop(env, y0, policy, n_steps, *, tau, solver, props, ref_leav
         return t.data_ptr()
 
     args.tau = float(tau)
+    args.svm_limit = svm_limit
     for s, row in enumerate(a_rows, start=1):
         for j, coef in enumerate(row):
             args.a[s][j] = float(coef)
@@ -630,12 +639,15 @@ def closed_loop_noise(env, init_state, n_steps, props) -> ClosedLoopNoise:
 
 
 def supports_fused_closed_loop(env) -> bool:
-    """Scope of the closed-loop kernel: the stepper's scope with a stage
-    count the kernel is built for, scalar physical and action
+    """Scope of the closed-loop kernel: the kernels' environment scope
+    (:func:`~.stepper.kernel_env_scope`) with a stage count the kernel is built for, scalar physical and action
     normalizations, the physical fields in the ODE's order (the kernel builds
     the observation from the integrated leaves), and at most ``MAX_REFS``
-    tracked references.  Any batch size is in scope."""
-    if not supports_fused_rollout(env):
+    tracked references.  Any batch size is in scope.  An action-constraint
+    hook other than the inverter circle is not checked here: the plain loop
+    runs it on CPU tensors, and on CUDA the launch raises before it runs, as
+    for a policy outside the compiled families."""
+    if not kernel_env_scope(env):
         return False
     props = env.env_properties
     norms = structures.leaves(props.physical_normalizations) + structures.leaves(props.action_normalizations)
@@ -710,7 +722,7 @@ def env_fused_closed_loop(env, init_state, policy, n_steps: int, obs_stride: int
             pol_args += (policy_params,) if policy_params is not None else ()
             out_last = policy(*pol_args)
             a_norm_last = out_last[0] if has_carry else out_last
-        a_phys_last = env.denormalize_action(torch.stack(tuple(a_norm_last), dim=-1), props)
+        a_phys_last = phys_action(env, torch.stack(tuple(a_norm_last), dim=-1), props)
         solver_carry = _final_solver_state(env, y_final, a_phys_last, props)
 
     device = y_final[0].device

@@ -112,7 +112,7 @@ def kernel_pendulum_fast_rollout(theta0, omega0, slab, *, tau, c_grav, inv_ml2, 
     if any(t.requires_grad for t in (theta0, omega0, slab)):
         raise NotImplementedError(
             "the fast pendulum kernel has no backward: it is forward-only, as the reference's "
-            "pendulum_fast kernel is (ROADMAP.md Queue 2 item 4)"
+            "kernel is (exciting_environments_tpu/ops/pallas/pendulum_fast.py:82 defines no VJP)"
         )
     keep = [t.contiguous() for t in (slab, theta0, omega0)]
     theta, omega = torch.empty_like(theta0), torch.empty_like(omega0)

@@ -173,7 +173,7 @@ def kernel_pmsm_fast_rollout(env, slab, leaves, consts, batch_major=False):
     if any(t.requires_grad for t in [slab, *leaves.values()]):
         raise NotImplementedError(
             "the fast PMSM kernel has no backward: it is forward-only, as the reference's "
-            "pmsm_fast_kernel is (ROADMAP.md Queue 2 item 4)"
+            "kernel is (exciting_environments_tpu/ops/pallas/pmsm_fast_kernel.py:217 defines no VJP)"
         )
     args, out, keep = pack_args(env, slab, leaves, consts, batch_major)
     dtype = leaves[LEAVES[0]].dtype

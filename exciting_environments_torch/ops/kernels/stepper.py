@@ -24,7 +24,10 @@ exact ``MinMaxNormalization.denormalize`` expression, so no pre-pass touches
 the action slab.  An environment made with ``fast_math=True`` runs the
 kernel's fast-math functors and angle wrap (the JAX kernel's ``fast_wrap``);
 the plain version follows through the environment's own ``_sin``/``_cos``/
-``_sign`` and ``_wrap_angles``.
+``_sign`` and ``_wrap_angles``.  The induction machine's and the EESM's
+inverter limit (``u_dc=``, :func:`~exciting_environments_torch.core.classic.svm_circle`)
+is computed in the kernel after the denormalization; the plain version
+applies the environment's hook there (:func:`phys_action`).
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 import torch
@@ -48,18 +52,23 @@ from . import checkpoint as ck
 
 MAX_STAGES = 7
 MAX_STATE = 4
-MAX_ACTION = 2
-MAX_PARAMS = 8
+MAX_ACTION = 3
+MAX_PARAMS = 9
 
 _PKG = Path(__file__).resolve().parents[2]
-#: CUDA sources; each ``csrc/<name>.cu`` builds into its own library
+#: CUDA sources: library ``<name>`` is ``csrc/<name>.cu`` and every
+#: ``csrc/<name>/*.cu`` (translation units compiled in parallel and linked
+#: into one library)
 CSRC = _PKG / "csrc"
 #: build directory of the kernel libraries (listed in .gitignore)
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+#: seconds of each ``nvcc`` of the last :func:`build_all` that compiled
+#: anything, by source (``"<library>.so"`` for a link), and the whole build
+BUILD_TIMES = {}
 
 _c_double = ctypes.c_double
 _c_void_p = ctypes.c_void_p
@@ -76,6 +85,7 @@ class StepperArgs(ctypes.Structure):
         ("param_value", _c_double * MAX_PARAMS),
         ("act_min_value", _c_double * MAX_ACTION),
         ("act_max_value", _c_double * MAX_ACTION),
+        ("svm_limit", _c_double),
         ("param_ptr", _c_void_p * MAX_PARAMS),
         ("act_min_ptr", _c_void_p * MAX_ACTION),
         ("act_max_ptr", _c_void_p * MAX_ACTION),
@@ -111,55 +121,90 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the kernels are built with the CUDA toolkit")
 
 
+def library_sources(name: str) -> list:
+    """The sources of library ``name``: ``csrc/<name>.cu``, then
+    ``csrc/<name>/*.cu`` in name order."""
+    return [CSRC / f"{name}.cu", *sorted((CSRC / name).glob("*.cu"))]
+
+
 def _library_path(name: str) -> Path:
-    """Content-hashed library path of ``csrc/<name>.cu``: the hash covers the
-    source, the shared headers and the compiler flags."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
-        digest.update(header.read_bytes())
+    """Content-hashed library path of library ``name``: the hash covers its
+    sources, the shared headers and the compiler flags."""
+    digest = hashlib.sha256()
+    for path in library_sources(name) + sorted(CSRC.glob("*.cuh")):
+        digest.update(path.relative_to(CSRC).as_posix().encode())
+        digest.update(path.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
 
 
+def _run_all(commands: dict, logs: Path) -> dict:
+    """Run ``{key: argv}`` together, each with its output in ``logs/<n>.log``;
+    returns ``{key: (returncode, output, seconds)}``."""
+    logs.mkdir()
+    procs, started = {}, {}
+    for i, (key, argv) in enumerate(commands.items()):
+        log = open(logs / f"{i}.log", "w")
+        started[key] = time.perf_counter()
+        procs[key] = (subprocess.Popen(argv, stdout=log, stderr=subprocess.STDOUT, text=True), log)
+    done = {}
+    while len(done) < len(procs):
+        for i, (key, (proc, log)) in enumerate(procs.items()):
+            if key not in done and proc.poll() is not None:
+                seconds = time.perf_counter() - started[key]
+                log.close()
+                done[key] = (proc.returncode, (logs / f"{i}.log").read_text(), seconds)
+        time.sleep(0.02)
+    return done
+
+
 def build_all(names=None) -> dict:
-    """Compile ``csrc/<name>.cu`` (every source by default) into
-    content-hashed shared libraries in :data:`BUILD_DIR`, one ``nvcc`` per
-    missing library, all started together.  The compiler's resource report
-    is kept beside each library as ``<name>.log``.  Returns ``{name: path}``."""
+    """Compile the kernel libraries (every ``csrc/<name>.cu`` by default) into
+    content-hashed shared libraries in :data:`BUILD_DIR`: one ``nvcc -c`` per
+    source of every missing library, all started together, then one link
+    per library.  The compiler's resource report is kept beside each library
+    as ``<name>.log``; the times go to :data:`BUILD_TIMES`.  A failed
+    compile or link raises.  Returns ``{name: path}``."""
     names = sorted(p.stem for p in CSRC.glob("*.cu")) if names is None else list(names)
     outs = {name: _library_path(name) for name in names}
     todo = {name: out for name, out in outs.items() if not out.exists()}
     if not todo:
         return outs
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    times = {}
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        procs = {
-            name: subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(Path(tmp) / out.name), str(CSRC / f"{name}.cu")],
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-            )
-            for name, out in todo.items()
-        }
-        failed = []
-        for name, proc in procs.items():
-            stdout, stderr = proc.communicate()
-            if proc.returncode != 0:
-                failed.append(f"nvcc failed to build {name}.cu:\n{stderr}")
-                continue
-            todo[name].with_suffix(".log").write_text(stdout + stderr)
-            os.replace(Path(tmp) / todo[name].name, todo[name])
+        tmp = Path(tmp)
+        objects = {name: [(src, tmp / f"{name}.{src.relative_to(CSRC).as_posix().replace('/', '.')}.o")
+                          for src in library_sources(name)] for name in todo}
+        compiled = _run_all({(name, src): [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                             for name, pairs in objects.items() for src, obj in pairs}, tmp / "compile")
+        failed = [f"nvcc failed to build {src.relative_to(CSRC)}:\n{out}"
+                  for (_, src), (rc, out, _) in compiled.items() if rc != 0]
         if failed:
             raise RuntimeError("\n".join(failed))
+        times.update({src.relative_to(CSRC).as_posix(): sec for (_, src), (_, _, sec) in compiled.items()})
+        linked = _run_all({name: [_nvcc(), "-shared", "-o", str(tmp / out.name), *(str(o) for _, o in objects[name])]
+                           for name, out in todo.items()}, tmp / "link")
+        for name, (rc, out, sec) in linked.items():
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed to link {name}:\n{out}")
+            times[f"{name}.so"] = sec
+            report = "".join(compiled[(name, src)][1] for src, _ in objects[name])
+            todo[name].with_suffix(".log").write_text(report)
+            os.replace(tmp / todo[name].name, todo[name])
+    BUILD_TIMES.clear()
+    BUILD_TIMES.update(times, total=time.perf_counter() - t0)
     return outs
 
 
 def build(name: str = "stepper") -> Path:
-    """Compile ``csrc/<name>.cu`` at first use; returns the library's path."""
+    """Compile library ``name`` at first use; returns its path."""
     return build_all([name])[name]
 
 
 class KernelLibrary:
-    """A kernel library built from ``csrc/<name>.cu`` and loaded with ctypes at
+    """A kernel library built from its sources (:func:`library_sources`) and loaded with ctypes at
     first use, with its launch counts (one per mode).  The library exports
     ``<entry>_launch(args*, dtype, stream)``, which returns the CUDA error of
     the launch, and ``<entry>_args_size()``, checked against ``args_type``."""
@@ -234,9 +279,26 @@ def _lincomb(yl, ks_leaf, coeffs, tau):
 # ---------------------------------------------------------------------------
 
 
+def phys_action(env, action_norm, props):
+    """A normalized action row ``(..., A)`` as the kernels take it: denormalized,
+    then the environment's action constraint (``_constrained_phys_action``;
+    the kernels compute the inverter circle of :func:`kernel_svm_limit`)."""
+    return env._constrained_phys_action(env.denormalize_action(action_norm, props))
+
+
+def kernel_svm_limit(env):
+    """The action constraint the stepper and closed-loop kernels compute for
+    ``env``: ``0.0`` without one, the radius of the inverter circle for the
+    hook of :func:`~exciting_environments_torch.core.classic.svm_circle`
+    (its ``svm_limit``), ``None`` for any other hook (out of the kernels'
+    scope; the plain versions run it on CPU tensors)."""
+    hook = env._constrain_action_tuple
+    return 0.0 if hook is None else getattr(hook, "svm_limit", None)
+
+
 def plain_step(env, solver, tau, params, sim_ahead, y, u, u_next=None, noise_row=None, noise_idx=()):
     """One step of the kernel's computation in plain PyTorch over ``(B,)``
-    state leaves and a physical action row ``u`` ``(B, A)``."""
+    state leaves and a physical (constrained) action row ``u`` ``(B, A)``."""
 
     def ode(yy, act):
         return env._ode(None, yy, params, lambda _t: _Components(act))
@@ -271,10 +333,8 @@ def plain_rollout(env, y0, actions_tm, *, tau, solver=None, props=None, obs_stri
     y = tuple(y0)
     saves = []
     for t in range(n_steps):
-        u = env.denormalize_action(actions_tm[t // hold], props)
-        u_next = (
-            env.denormalize_action(actions_tm[min((t + 1) // hold, n_rows - 1)], props) if has_next else None
-        )
+        u = phys_action(env, actions_tm[t // hold], props)
+        u_next = phys_action(env, actions_tm[min((t + 1) // hold, n_rows - 1)], props) if has_next else None
         y = plain_step(env, solver, tau, props.static_params, sim_ahead, y, u, u_next,
                        noise_row=None if noise_tm is None else noise_tm[t], noise_idx=noise_idx)
         if obs_stride is not None and (t + 1) % obs_stride == 0:
@@ -323,6 +383,9 @@ def kernel_rollout(env, y0, actions_tm, *, tau, solver=None, props=None, obs_str
         raise ValueError("configuration exceeds the kernel's stage/state/action/parameter limits")
     if n_action != env.action_dim:
         raise ValueError(f"actions must have {env.action_dim} components, got {n_action}")
+    svm_limit = kernel_svm_limit(env)
+    if svm_limit is None:
+        raise ValueError("the stepper kernel computes no action constraint but the inverter circle (svm_circle)")
     if obs_stride is not None and n_steps % obs_stride:
         raise ValueError("n_steps must be divisible by obs_stride")
     if noise_idx and sim_ahead:
@@ -344,6 +407,7 @@ def kernel_rollout(env, y0, actions_tm, *, tau, solver=None, props=None, obs_str
         return t.data_ptr()
 
     args.tau = float(tau)
+    args.svm_limit = svm_limit
     for s, row in enumerate(a_rows, start=1):
         for j, c in enumerate(row):
             args.a[s][j] = float(c)
@@ -486,9 +550,8 @@ class RolloutVJP(torch.autograd.Function):
                 y, (a,), q, (nz,) = cfg.split(leaves)
                 props = ck.props_with(cfg.props, q)
                 for t in range(t0, t1):
-                    u = env.denormalize_action(a[t // hold - r0], props)
-                    u_next = (env.denormalize_action(a[min((t + 1) // hold, n_rows - 1) - r0], props)
-                              if has_next else None)
+                    u = phys_action(env, a[t // hold - r0], props)
+                    u_next = phys_action(env, a[min((t + 1) // hold, n_rows - 1) - r0], props) if has_next else None
                     y = plain_step(env, cfg.solver, cfg.tau, props.static_params, cfg.sim_ahead, y, u, u_next,
                                    noise_row=None if nz is None else nz[t - t0], noise_idx=cfg.noise_idx)
                 return list(zip(y, g_y))
@@ -591,20 +654,28 @@ def sim_ahead_ratio(obs_stepsize: float, action_stepsize: float):
     return None
 
 
-def supports_fused_rollout(env) -> bool:
-    """Whether ``env`` is inside the stepper kernel's scope: a ported classic
-    environment with a kernel functor, no action-constraint hook and an
-    explicit RK solver.  Per-batch leaves are validated to scalar or
-    ``(batch_size,)`` at construction."""
+def kernel_env_scope(env) -> bool:
+    """Whether the kernels have ``env``'s vector field: a ported classic
+    environment with a kernel functor, an explicit RK solver and the
+    kernels' stage, state and action limits.  Per-batch leaves are validated
+    to scalar or ``(batch_size,)`` at construction."""
     solver = env._solver
     return (
         getattr(env, "_kernel_env_id", None) is not None
-        and env._constrain_action_tuple is None
         and isinstance(solver, ExplicitRungeKutta)
         and len(_stage_rows(solver)[1]) <= MAX_STAGES
         and len(env._ode_state_fields) == env.physical_state_dim <= MAX_STATE
         and env.action_dim <= MAX_ACTION
     )
+
+
+def supports_fused_rollout(env) -> bool:
+    """Whether ``env`` is inside the stepper kernel's scope: its vector field
+    (:func:`kernel_env_scope`) and no action constraint but the inverter
+    circle the kernel computes (:func:`kernel_svm_limit`).  Another hook
+    takes the loop (:meth:`CoreEnvironment.vmap_rollout`) on any device; the
+    plain version, called directly, runs any hook."""
+    return kernel_env_scope(env) and kernel_svm_limit(env) is not None
 
 
 def supports_fused_sim_ahead(env, obs_stepsize: float, action_stepsize: float) -> bool:
@@ -668,7 +739,8 @@ def env_fused_rollout(env, init_state, actions_norm, obs_stride: int = None,
         if strict or return_traj_states:
             raise ValueError(
                 "env_fused_rollout out of kernel scope (environment without a kernel "
-                "functor, or solver family); strict=True forbids the loop fallback"
+                "functor, solver family, or an action constraint the kernel does not "
+                "compute); strict=True forbids the loop fallback"
             )
         if time_major:
             actions_norm = actions_norm.transpose(0, 1)
@@ -681,7 +753,7 @@ def env_fused_rollout(env, init_state, actions_norm, obs_stride: int = None,
                                                                               obs_stride or n_steps)
     y_final, y_traj = fused_rollout(env, y0, actions_norm, tau=env.tau, props=props, obs_stride=obs_stride,
                                     time_major=time_major, noise_tm=noise_tm, noise_idx=noise_idx)
-    last_action = env.denormalize_action(actions_norm[-1] if time_major else actions_norm[:, -1], props)
+    last_action = phys_action(env, actions_norm[-1] if time_major else actions_norm[:, -1], props)
     batch = env.batch_size
     final_state = structures.replace(
         init_state,
@@ -751,7 +823,7 @@ def env_fused_sim_ahead(env, init_state, actions_norm, obs_stepsize: float, acti
     batch = env.batch_size
     n_saves = n_steps // obs_stride
     device = y_final[0].device
-    last_action = env.denormalize_action(actions_norm[-1] if time_major else actions_norm[:, -1], props)
+    last_action = phys_action(env, actions_norm[-1] if time_major else actions_norm[:, -1], props)
     nan_ref = lambda shape: structures.map_leaves(
         lambda leaf: torch.full(shape, float("nan"), dtype=y_final[0].dtype, device=device),
         init_state.reference,

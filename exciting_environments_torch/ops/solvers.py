@@ -197,7 +197,7 @@ def make_solver(name_or_solver):
         key = {"impliciteuler": "implicit_euler"}.get(key, key)
     if key == "implicit_euler":
         raise NotImplementedError(
-            "ImplicitEuler is not ported yet (ROADMAP.md, Queue 1 item 2)"
+            "ImplicitEuler (exciting_environments_tpu/ops/solvers.py:280) is not ported yet; see ROADMAP.md"
         )
     if key not in SOLVER_REGISTRY:
         raise ValueError(f"unknown solver {name_or_solver!r}; known names: {sorted(SOLVER_REGISTRY)}")

@@ -29,6 +29,15 @@ Cases:
     states of ``PMSM.fast_rollout``: every checkout of one semantics gives
     the same bits.
 
+``rings``
+    The two kernels that read their actions through the action ring of
+    ``csrc/action_ring.cuh``, at ``chip_smoke.py``'s main sizes in float32,
+    B = 65,536, T = 4,096: the fast pendulum (``kernel_pendulum_fast_rollout``,
+    one call and per call over ten back to back, on a time-major and a
+    batch-major slab; PERF.md section 6 row 5) and the stepper on the
+    pendulum (``kernel_rollout``, Euler, both layouts; row 1a).  Medians of
+    11 timings.
+
 ``no_grad_entries``
     The four exact kernels with no input that requires grad, at
     ``chip_smoke.py``'s main cases in float32, B = 65,536: the stepper on
@@ -153,8 +162,33 @@ def no_grad_entries(cs, ex) -> dict:
     return {"ms": times}
 
 
+def rings(cs, ex) -> dict:
+    import torch
+    from exciting_environments_torch.ops.kernels import pendulum_fast as PFK
+    from exciting_environments_torch.ops.kernels import stepper as K
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    time_ms = lambda fn, chain=1: cs.time_ms(fn, reps=11, chain=chain)
+    env = ex.Pendulum(batch_size=B, tau=1e-4, device="cuda")
+    _, state = env.vmap_reset(rng=gen)
+    acts_tm = cs.random_actions(env, 4096, gen)
+    acts_bm = acts_tm.transpose(0, 1).contiguous()
+    phys, consts = state.physical_state, PFK.fast_constants(env)
+    y0 = (phys.theta, phys.omega)
+    times = {}
+    for layout, slab, batch_major in (("time-major", acts_tm, False), ("batch-major", acts_bm, True)):
+        fast = lambda: PFK.kernel_pendulum_fast_rollout(phys.theta, phys.omega, slab[..., 0], batch_major=batch_major,
+                                                        **consts)
+        times[f"5 pendulum_fast {layout} one call"] = time_ms(fast)
+        times[f"5 pendulum_fast {layout} 10 back to back"] = time_ms(fast, chain=10)
+        times[f"1a kernel_rollout {layout}"] = time_ms(lambda: K.kernel_rollout(env, y0, slab, tau=env.tau,
+                                                                                batch_major=batch_major))
+    return {"ms": times}
+
+
 #: each case's kernel libraries and its run
 CASES = {
+    "rings": (("stepper", "pendulum_fast"), rings),
     "fast_fleets": (("pmsm_fast",), fast_fleets),
     "no_grad_entries": (("stepper", "closed_loop", "pmsm_stepper", "pmsm_closed_loop"), no_grad_entries),
 }

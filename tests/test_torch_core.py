@@ -313,7 +313,9 @@ DATA_ROOT = Path(__file__).parent / "envs"
 GOLDEN = [
     (P.EnvironmentRegistry.PENDULUM, "pendulum"),
     (P.EnvironmentRegistry.CART_POLE, "cartpole"),
+    (P.EnvironmentRegistry.ACROBOT, "acrobot"),
     (P.EnvironmentRegistry.MASS_SPRING_DAMPER, "mass_spring_damper"),
+    (P.EnvironmentRegistry.FLUID_TANK, "fluid_tank"),
 ]
 
 

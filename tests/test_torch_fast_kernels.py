@@ -5,10 +5,11 @@
   mirrored in numpy with the fast pendulum's schedule (tiles issued
   ``stages - 1`` ahead, full tiles read whole, the last one ragged), in the
   fast pendulum's geometry (128-byte tiles, two stages) and the stepper's
-  (64-byte tiles, three stages): every instance reads exactly the
-  time-major slab's value at every step, from either layout, in 16-byte or
-  element-wise pieces, for horizons that end inside a tile, rows that are
-  no 16-byte multiples and a ragged batch.
+  (64-byte tiles, three stages; one, two and the EESM's three actions):
+  every instance reads exactly the time-major slab's value at every step,
+  from either layout, in 16-byte or element-wise pieces, for horizons that
+  end inside a tile, rows that are no 16-byte multiples and a ragged
+  batch; the geometry of the existing rings is unchanged.
 * The fast PMSM kernel's row pointer (one action pair per load, one row
   ahead) visits the time-major slab's pairs in either layout.
 * The entry points hand a contiguous slab of either layout to the kernel
@@ -50,50 +51,60 @@ PENDULUM_FAST_RING, STEPPER_RING = (128, 2), (64, 3)
 
 
 def ring_geometry(n_action, itemsize, tile_bytes):
-    """action_ring.cuh's Ring: rows per tile K, K * A, the batch-major row
-    padding and the slot size, in elements."""
-    k = tile_bytes // (n_action * itemsize)
-    pad = 16 // itemsize
+    """action_ring.cuh's Ring: rows per tile K (rounded down so that K * A
+    values are whole 16-byte pieces), K * A, the batch-major row padding (one
+    16-byte piece, two where one would put neighbouring rows 32 words apart)
+    and the slot size, in elements."""
+    row = n_action * itemsize
+    unit = 16 // math.gcd(16, row)
+    k = tile_bytes // row // unit * unit
+    p16 = 16 // itemsize
+    pad = 2 * p16 if ((k * n_action + p16) * itemsize // 4) % 8 == 0 else p16
     return k, k * n_action, pad, THREADS * (k * n_action + pad)
+
+
+def element_piece(n_action, itemsize):
+    """Ring::E1: the action vector where cp.async copies its size, else one
+    value."""
+    return n_action if n_action * itemsize in (4, 8, 16) else 1
 
 
 def tile_copy(tid, e, b0, batch, n_rows, n_action, itemsize, tile_bytes, batch_major):
     """action_ring.cuh::tile_copy for thread ``tid``."""
     k, ka, pad, _ = ring_geometry(n_action, itemsize, tile_bytes)
-    line_elems = ka if batch_major else THREADS * n_action
-    pieces = line_elems // e
-    c = {"lines_per_pass": THREADS // pieces, "line0": tid // pieces, "pos_elem": (tid % pieces) * e}
-    c["n"] = (THREADS if batch_major else k) // c["lines_per_pass"]
+    lines = THREADS if batch_major else k
+    ppl = (ka if batch_major else THREADS * n_action) // e
+    c = {"e": e, "lines": lines, "ppl": ppl, "line0": tid // ppl, "pos0": tid % ppl, "dl": THREADS // ppl,
+         "dp": THREADS % ppl, "n": -(-lines * ppl // THREADS)}
     if batch_major:
-        c["src_line"] = n_rows * n_action * c["lines_per_pass"]
-        c["src"] = (b0 + c["line0"]) * n_rows * n_action + c["pos_elem"]
-        c["src_tile"] = ka
-        c["dst_line"] = (ka + pad) * c["lines_per_pass"]
-        c["dst"] = c["line0"] * (ka + pad) + c["pos_elem"]
+        c.update(src=b0 * n_rows * n_action, src_line=n_rows * n_action, src_tile=ka, dst_line=ka + pad)
     else:
-        c["src_line"] = batch * n_action * c["lines_per_pass"]
-        c["src"] = c["line0"] * batch * n_action + b0 * n_action + c["pos_elem"]
-        c["src_tile"] = k * batch * n_action
-        c["dst_line"] = THREADS * n_action * c["lines_per_pass"]
-        c["dst"] = c["line0"] * THREADS * n_action + c["pos_elem"]
+        c.update(src=b0 * n_action, src_line=batch * n_action, src_tile=k * batch * n_action,
+                 dst_line=THREADS * n_action)
     return c
 
 
 def issue_tile(slot, slab, c, e, tile, b0, batch, n_rows, n_action, itemsize, tile_bytes, batch_major):
     """action_ring.cuh::issue_tile for one thread: its pieces of ``e``
-    elements, zero-filled past the batch or the horizon."""
+    elements, zero-filled past the batch or the horizon (where the action
+    vector is a copy size, the kernel steps a pointer over the same
+    pieces)."""
     k = ring_geometry(n_action, itemsize, tile_bytes)[0]
     row0 = tile * k
     lines = batch - b0 if batch_major else n_rows - row0
-    pos_ok = (row0 * n_action + c["pos_elem"] < n_rows * n_action if batch_major
-              else b0 * n_action + c["pos_elem"] < batch * n_action)
-    src, dst, line = c["src"] + tile * c["src_tile"], c["dst"], c["line0"]
+    line_elems = (n_rows - row0) * n_action if batch_major else (batch - b0) * n_action
+    src = c["src"] + tile * c["src_tile"]
+    line, pos = c["line0"], c["pos0"]
     for _ in range(c["n"]):
-        ok = pos_ok and line < lines
-        slot[dst : dst + e] = slab[src : src + e] if ok else 0
-        src += c["src_line"]
-        dst += c["dst_line"]
-        line += c["lines_per_pass"]
+        if line < c["lines"]:
+            el = pos * e
+            ok = line < lines and el < line_elems
+            dst = line * c["dst_line"] + el
+            at = src + line * c["src_line"] + el
+            slot[dst : dst + e] = slab[at : at + e] if ok else 0
+        line, pos = line + c["dl"], pos + c["dp"]
+        if pos >= c["ppl"]:
+            line, pos = line + 1, pos - c["ppl"]
 
 
 def ring_reads(slab, batch, n_rows, n_action, itemsize, batch_major, ring=PENDULUM_FAST_RING, base_address=0):
@@ -105,7 +116,7 @@ def ring_reads(slab, batch, n_rows, n_action, itemsize, batch_major, ring=PENDUL
     n_tiles = -(-n_rows // k)
     line_elems = n_rows * n_action if batch_major else batch * n_action
     vec16 = base_address % 16 == 0 and (line_elems * itemsize) % 16 == 0  # action_ring.cuh::ring_vec16
-    e = 16 // itemsize if vec16 else n_action
+    e = 16 // itemsize if vec16 else element_piece(n_action, itemsize)
     out = np.full((n_rows, batch, n_action), np.nan)
     for b0 in range(0, batch, THREADS):
         shared = np.full(stages * size, np.nan)
@@ -139,14 +150,31 @@ RING_SHAPES = [(256, 64), (300, 99), (256, 100), (1000, 7)]
 @pytest.mark.parametrize("batch_major", [False, True], ids=["time_major", "batch_major"])
 @pytest.mark.parametrize("batch,n_rows", RING_SHAPES, ids=[f"B{b}_T{t}" for b, t in RING_SHAPES])
 @pytest.mark.parametrize("n_action,dtype,ring", [(1, torch.float32, PENDULUM_FAST_RING),
-                                                  (2, torch.float64, STEPPER_RING)],
-                         ids=["pendulum_fast_A1_f32", "stepper_A2_f64"])
+                                                  (2, torch.float64, STEPPER_RING),
+                                                  (3, torch.float32, STEPPER_RING),
+                                                  (3, torch.float64, STEPPER_RING)],
+                         ids=["pendulum_fast_A1_f32", "stepper_A2_f64", "stepper_A3_f32", "stepper_A3_f64"])
 def test_action_ring_reads_every_action_once_in_either_layout(batch_major, batch, n_rows, n_action, dtype, ring):
     itemsize = torch.empty((), dtype=dtype).element_size()
     acts_tm = np.arange(1, n_rows * batch * n_action + 1, dtype=np.float64).reshape(n_rows, batch, n_action)
     slab = np.ascontiguousarray(acts_tm.transpose(1, 0, 2) if batch_major else acts_tm).reshape(-1)
     got = ring_reads(slab, batch, n_rows, n_action, itemsize, batch_major, ring)
     np.testing.assert_array_equal(got, acts_tm)
+
+
+def test_action_ring_geometry_of_each_slab():
+    """Rows per tile and padding: the pendulum's and the two-action rings
+    as before the three-action ring came (16, 8, 8 and 4 rows of 64 bytes,
+    32 of 128), the three-action rows rounded to whole 16-byte lines, and
+    no padding that puts neighbouring batch-major rows on one bank."""
+    assert ring_geometry(1, 4, 64)[:3] == (16, 16, 4) and ring_geometry(1, 4, 128)[:3] == (32, 32, 4)
+    assert ring_geometry(2, 4, 64)[:3] == (8, 16, 4) and ring_geometry(1, 8, 64)[:3] == (8, 8, 2)
+    assert ring_geometry(2, 8, 64)[:3] == (4, 8, 2)
+    assert ring_geometry(3, 4, 64)[:3] == (4, 12, 8) and ring_geometry(3, 8, 64)[:3] == (2, 6, 4)
+    for a, item in ((1, 4), (2, 4), (3, 4), (1, 8), (2, 8), (3, 8)):
+        _, ka, pad, _ = ring_geometry(a, item, 64)
+        assert (ka * item) % 16 == 0 and ((ka + pad) * item // 4) % 8 != 0
+    assert [element_piece(a, 4) for a in (1, 2, 3)] == [1, 2, 1] and element_piece(3, 8) == 1
 
 
 @pytest.mark.parametrize("batch_major", [False, True], ids=["time_major", "batch_major"])

@@ -1,7 +1,8 @@
 """The stepper, PMSM, closed-loop and PMSM closed-loop kernels, the fast-math
-flag in the first and third, the PMSM kernel's process-noise slab, and the
-fast pendulum and fast PMSM kernels against their plain versions on a CUDA
-card.
+flag in the first and third, the PMSM kernel's process-noise slab, the five
+later environments (VanDerPol, FluidTank, Acrobot, InductionMachine, EESM)
+and the inverter circle in the stepper and closed-loop kernels, and the fast
+pendulum and fast PMSM kernels against their plain versions on a CUDA card.
 
 The kernels have no CPU mode, so these tests carry the ``gpu`` marker and skip
 without a card.  The file imports neither JAX nor the JAX package, so on a
@@ -136,6 +137,155 @@ def test_eager_scalar_division_is_a_reciprocal_multiply(dtype):
     # DEFAULT inductances
     for c in (1.1, 0.05, 0.3, 10.0, 1.0, 0.37e-3, 1.2e-3):
         assert torch.equal(x / c, x * torch.tensor(1.0 / c, dtype=dtype, device="cuda"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_eager_python_number_over_a_tensor_is_a_reciprocal_then_a_multiply(dtype):
+    """``c / x`` on the card is ``x.reciprocal() * c`` (Tensor.__rtruediv__),
+    the rule of eager_rules.cuh::rdiv that the inverter circle (``lim /
+    clamp(mag, 1e-12)``) and the acrobot (``d_22 / d_12``) mirror: bit for
+    bit, with the number rounded to the working type once."""
+    _cuda()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = (torch.rand(1 << 16, generator=gen, device="cuda", dtype=torch.float64) * 500 + 1e-3).to(dtype)
+    for c in (400.0 / 3 ** 0.5, 3.6, 1.0, 0.7):
+        assert torch.equal(c / x, torch.reciprocal(x) * torch.tensor(c, dtype=dtype, device="cuda"))
+        assert torch.equal(c / x, (1.0 / x) * c)
+
+
+NEW_ENVS = {
+    # name: (solvers, constructor arguments, per-batch parameter and its range)
+    "VanDerPol": (("euler", "rk4"), {}, ("mu", 0.5, 20.0)),
+    "FluidTank": (("euler", "heun"), {}, ("c_d", 0.4, 0.8)),
+    "Acrobot": (("tsit5", "euler"), {}, ("m_2", 0.5, 1.5)),
+    "InductionMachine": (("euler", "rk4"), {"u_dc": 400.0}, ("r_r", 1.8, 3.2)),
+    "EESM": (("euler", "rk4"), {"u_dc": 400.0}, ("l_q", 3e-3, 6e-3)),
+}
+
+
+def _new_env(name, solver, dtype, batch, fast_math=False, **extra):
+    _, kwargs, (field, lo, hi) = NEW_ENVS[name]
+    cls = getattr(P, name)
+    params = dict(cls._default_static_params())
+    params[field] = torch.linspace(lo, hi, batch, dtype=torch.float64).numpy()
+    return cls(batch_size=batch, solver=solver, dtype=dtype, static_params=params, fast_math=fast_math,
+               **kwargs, **extra)
+
+
+def _new_state(env, gen):
+    lo, hi = (0.0, 3.0) if type(env).__name__ == "FluidTank" else (-2.0, 2.0)
+    return tuple((torch.rand(env.batch_size, generator=gen, device="cuda", dtype=torch.float64) * (hi - lo) + lo)
+                 .to(env.dtype) for _ in env._ode_state_fields)
+
+
+NEW_CASES = [(n, s, m) for n, (solvers, _, _) in NEW_ENVS.items() for s in solvers for m in ("step", "sim_ahead")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,solver,mode", NEW_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_new_environment_stepper_kernel_matches_plain_version(name, solver, mode, dtype):
+    """Each new environment id in both modes, a per-batch parameter, the
+    machines with u_dc and actions to 0.95 of the band (beyond the inverter
+    circle on part of the fleet), a ragged B; 0.0 against the plain version."""
+    _cuda()
+    env = _new_env(name, solver, dtype, 4096 + 77)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    y0 = _new_state(env, gen)
+    hold = 2 if mode == "sim_ahead" else 1
+    acts = (torch.rand((32 // hold, env.batch_size, env.action_dim), generator=gen, device="cuda",
+                       dtype=torch.float64) * 1.9 - 0.95).to(dtype)
+    kw = dict(tau=env.tau, obs_stride=4, sim_ahead=mode == "sim_ahead", hold=hold)
+    before = dict(K.KERNEL.launches)
+    yk, tk = K.kernel_rollout(env, y0, acts, **kw)
+    yk_bm, _ = K.kernel_rollout(env, y0, acts.transpose(0, 1).contiguous(), batch_major=True, **kw)
+    yp, tp = K.plain_rollout(env, y0, acts, **kw)
+    torch.cuda.synchronize()
+    assert K.KERNEL.launches[mode] == before[mode] + 2
+    for a, b in zip(yk + tk + yk_bm, yp + tp + yp):
+        assert torch.equal(a, b)
+        assert bool(torch.isfinite(a).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_acrobot_fast_math_kernels_match_plain_version(dtype):
+    _cuda()
+    env = _new_env("Acrobot", "euler", dtype, 2048 + 3, fast_math=True, control_state=["theta_1"])
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    y0 = _new_state(env, gen)
+    acts = (torch.rand((32, env.batch_size, 1), generator=gen, device="cuda", dtype=torch.float64) * 1.8 - 0.9
+            ).to(dtype)
+    yk, tk = K.kernel_rollout(env, y0, acts, tau=env.tau, obs_stride=8)
+    yp, tp = K.plain_rollout(env, y0, acts, tau=env.tau, obs_stride=8)
+    refs = (torch.zeros(env.batch_size, device="cuda", dtype=dtype),)
+    kw = dict(tau=env.tau, solver=env._solver, props=env.env_properties, ref_leaves=refs, traj_stride=4)
+    pd = P.AffinePolicy([[-0.9, 0.0, -0.25, 0.0, 0.9]])
+    outk = CL.kernel_closed_loop(env, y0, pd, 32, **kw)
+    outp = CL.plain_closed_loop(env, y0, pd, 32, **kw)
+    torch.cuda.synchronize()
+    flat = lambda out: [t for part in out if part is not None for t in part]
+    for a, b in zip(yk + tk + tuple(flat(outk)), yp + tp + tuple(flat(outp))):
+        assert torch.equal(a, b)
+
+
+NEW_CL = {
+    # name: (solver, control field, gains over [state..., reference])
+    "VanDerPol": ("rk4", "position", [[-0.8, -0.3, 0.8]]),
+    "FluidTank": ("heun", "height", [[-0.9, 0.9]]),
+    "Acrobot": ("tsit5", "theta_1", [[-0.9, 0.0, -0.25, 0.0, 0.9]]),
+    "InductionMachine": ("rk4", "i_sd", [[-0.9, 0.0, 0.0, 0.0, 0.9], [0.0, -0.9, 0.0, 0.0, 0.0]]),
+    "EESM": ("euler", "i_d", [[-0.9, 0.0, 0.0, 0.9], [0.0, -0.9, 0.0, 0.0], [0.0, 0.0, -0.5, 0.0]]),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(NEW_CL))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_new_environment_closed_loop_kernel_matches_plain_version(name, dtype):
+    """The affine law on each new environment (the machines with u_dc and a
+    bias that drives part of the fleet beyond the inverter circle), saves
+    every 4 steps, 0.0 against the plain version, one launch."""
+    _cuda()
+    solver, field, gains = NEW_CL[name]
+    env = _new_env(name, solver, dtype, 2048 + 45, control_state=[field])
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    y0 = _new_state(env, gen)
+    refs = ((torch.rand(env.batch_size, generator=gen, device="cuda", dtype=torch.float64) * 2 - 1).to(dtype),)
+    policy = P.AffinePolicy(gains, b=[0.6] * env.action_dim)
+    kw = dict(tau=env.tau, solver=env._solver, props=env.env_properties, ref_leaves=refs, traj_stride=4)
+    before = CL.CL_KERNEL.launches["closed_loop"]
+    outk = CL.kernel_closed_loop(env, y0, policy, 32, **kw)
+    outp = CL.plain_closed_loop(env, y0, policy, 32, **kw)
+    torch.cuda.synchronize()
+    assert CL.CL_KERNEL.launches["closed_loop"] == before + 1
+    flat = lambda out: [t for part in out if part is not None for t in part]
+    for a, b in zip(flat(outk), flat(outp)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_an_uncompiled_constraint_hook_raises_before_a_launch():
+    """On CUDA tensors a constraint hook the kernels do not compute takes the
+    loop on the open loop and raises before any launch on the closed loop."""
+    _cuda()
+    env = P.InductionMachine(batch_size=256, control_state=["i_sd"])
+    env._constrain_action_tuple = lambda comps: (torch.clamp(comps[0], -100.0, 100.0), comps[1])
+    _, state = env.vmap_reset()
+    state.reference.i_sd = torch.zeros(256, device="cuda")
+    acts = torch.zeros((256, 8, 2), device="cuda")
+    K.KERNEL.reset_counts()
+    CL.CL_KERNEL.reset_counts()
+    assert not K.supports_fused_rollout(env)
+    obs, _ = env.fused_rollout(state, acts)
+    obs_l, _ = env.vmap_rollout(state, acts, 8)
+    assert torch.equal(obs, obs_l[:, -1])
+    with pytest.raises(ValueError, match="strict"):
+        env.fused_rollout(state, acts, strict=True)
+    with pytest.raises(ValueError, match="inverter circle"):
+        env.fused_closed_loop(state, P.AffinePolicy(np.zeros((2, 5))), 8)
+    assert K.KERNEL.launches == {"step": 0, "sim_ahead": 0} and CL.CL_KERNEL.launches == {"closed_loop": 0}
 
 
 PMSM_CASES = [

@@ -52,10 +52,17 @@ HEADERS = {
 def test_kernel_sources_share_their_headers_and_stand_alone(source):
     """Each kernel includes the shared headers (one gather, one affine law, one action ring),
     defines no copy of what they hold, and includes no PyTorch header (the
-    libraries have a plain C interface, loaded with ctypes)."""
-    text = (CSRC / source).read_text()
-    includes = set(re.findall(r'#include "([^"]+)"', text))
+    libraries have a plain C interface, loaded with ctypes).  A library split
+    into translation units (``<name>.cu``, its kernel in ``<name>.cuh``, one
+    ``<name>/<environment>.cu`` per environment) is read as one text."""
+    stem = source[: -len(".cu")]
+    own = CSRC / f"{stem}.cuh"
+    units = sorted((CSRC / stem).glob("*.cu"))
+    text = "".join(p.read_text() for p in [CSRC / source, *([own] if own.exists() else []), *units])
+    includes = set(re.findall(r'#include "([^"]+)"', text)) - {f"{stem}.cuh", f"../{stem}.cuh"}
     assert includes == set(HEADERS[source])
+    for unit in units:
+        assert set(re.findall(r'#include "([^"]+)"', unit.read_text())) == {f"../{stem}.cuh"}
     for header in ("pmsm_drive.cuh", "policy_laws.cuh", "fastmath.cuh", "action_ring.cuh"):
         for definition in re.findall(r"^struct (\w+) \{|^__device__ __forceinline__ \w+ (\w+)\(",
                                      (CSRC / header).read_text(), flags=re.M):
@@ -64,7 +71,8 @@ def test_kernel_sources_share_their_headers_and_stand_alone(source):
     assert not re.search(r"#include <(torch|ATen|c10|pybind11)", text)
 
 
-@pytest.mark.parametrize("name", ["Pendulum", "CartPole", "MassSpringDamper", "PMSM"])
+@pytest.mark.parametrize("name", ["Pendulum", "CartPole", "MassSpringDamper", "PMSM", "VanDerPol", "FluidTank",
+                                  "Acrobot", "InductionMachine", "EESM"])
 def test_default_device_is_cuda_and_never_falls_back(name):
     cls = getattr(P, name)
     if torch.cuda.is_available():

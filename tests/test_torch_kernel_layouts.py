@@ -10,7 +10,13 @@ on the CPU against the functions they replace.
   mirrored in numpy, equals ``torch.remainder(x, 2 pi)`` bit for bit: over
   every float32 in [pi, 4 pi), over seeded samples in [-4 pi, 4 pi), and on
   signed zeros, infinities, NaN and the neighbours of the range's ends.
+* The build layout: the stepper and closed-loop libraries are a source and
+  one translation unit per environment (``csrc/<library>/*.cu``), and each
+  library's content hash changes with any of its sources, any header and
+  the flags, and with nothing else.
 """
+
+import shutil
 
 import math
 
@@ -19,6 +25,7 @@ import pytest
 import torch
 
 import exciting_environments_torch as P
+from exciting_environments_torch.ops.kernels import stepper as K
 from exciting_environments_torch.ops.lut import bilinear_gather, interleave_channels, padded_channels
 from exciting_environments_torch.utils import foc
 
@@ -240,3 +247,46 @@ def test_pmsm_action_rows_are_read_in_place(batch_major):
         for r in range(T):
             at = start + r * row_stride
             assert torch.equal(slab[at : at + 2], acts_tm[r, b])
+
+
+# ---------------------------------------------------------------------------
+# the build layout
+# ---------------------------------------------------------------------------
+
+ENV_UNITS = ["acrobot", "cart_pole", "eesm", "fluid_tank", "induction_machine", "mass_spring_damper", "pendulum",
+             "van_der_pol"]
+
+
+@pytest.mark.parametrize("name", ["stepper", "closed_loop"])
+def test_split_libraries_have_one_translation_unit_per_environment(name):
+    sources = K.library_sources(name)
+    assert sources[0] == K.CSRC / f"{name}.cu"
+    assert [p.stem for p in sources[1:]] == ENV_UNITS
+    for unit in sources[1:]:
+        assert f'#include "../{name}.cuh"' in unit.read_text()
+    assert K.library_sources("pmsm_stepper") == [K.CSRC / "pmsm_stepper.cu"]
+
+
+def test_library_hash_covers_every_source_and_header(tmp_path, monkeypatch):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(K.CSRC, csrc)
+    monkeypatch.setattr(K, "CSRC", csrc)
+    base = {name: K._library_path(name) for name in ("stepper", "closed_loop", "pmsm_fast")}
+    assert len(set(base.values())) == 3
+    touched = [csrc / "closed_loop.cu", csrc / "closed_loop" / "eesm.cu", csrc / "classic_envs.cuh"]
+    for path in touched:
+        original = path.read_text()
+        path.write_text(original + "\n// changed\n")
+        assert K._library_path("closed_loop") != base["closed_loop"], path.name
+        path.write_text(original)
+        assert K._library_path("closed_loop") == base["closed_loop"]
+    # a unit of another library, or a file that is no source, leaves it alone
+    (csrc / "stepper" / "eesm.cu").write_text("// changed\n")
+    (csrc / "closed_loop" / "notes.txt").write_text("not a source\n")
+    assert K._library_path("closed_loop") == base["closed_loop"]
+    assert K._library_path("stepper") != base["stepper"]
+    # a new translation unit joins its library's hash
+    (csrc / "closed_loop" / "extra.cu").write_text("// a new unit\n")
+    assert K._library_path("closed_loop") != base["closed_loop"]
+    monkeypatch.setattr(K, "NVCC_FLAGS", K.NVCC_FLAGS + ("-lineinfo",))
+    assert K._library_path("pmsm_fast") != base["pmsm_fast"]

@@ -12,7 +12,8 @@ hooks agree at 1e-12.  Within the port, the fused path's plain version and
 the loop run the same operations and agree exactly (``array_equal``).
 Gradients through the noisy fused paths follow ``jax.grad`` to 1e-9 of the
 largest gradient, and the PMSM slab's cotangent follows autograd through
-the plain loop to 1e-12.  The FluidTank case waits for that environment.
+the plain loop to 1e-12.  The FluidTank's clipped stochastic sim-ahead
+agrees with the JAX package at the same tolerance.
 """
 
 import math
@@ -300,6 +301,29 @@ def test_other_classic_environments_match_jax(cls):
     po, pf = pe.fused_rollout(ps, ta, obs_stride=2)
     _close(po, jo)
     _key_eq(pf.PRNGKey, jf.PRNGKey)
+
+
+def test_stochastic_sim_ahead_clipped_env_stays_physical():
+    """The FluidTank's in-ODE clamp plus the clip of the saves keep the
+    stochastic trajectory finite and non-negative under large disturbances
+    (tests/test_noise.py:183), and it follows the JAX package from the same
+    keys; the fused rollout streams the same draws as the step loop."""
+    je = J.FluidTank(batch_size=32, process_noise={"height": 0.5})
+    pe = P.FluidTank(batch_size=32, process_noise={"height": 0.5}, **F64)
+    jk, tk = _keys(2, 32)
+    _, js = je.vmap_reset(jk)
+    _, ps = pe.vmap_reset(tk)
+    _close(ps.physical_state.height, js.physical_state.height)
+    ja, ta = _actions(0, 32, 50, lim=0.0)
+    obs, states, last = pe.vmap_sim_ahead(ps, ta, pe.tau, pe.tau)
+    assert torch.isfinite(obs).all() and float(obs.min()) >= -1e-12
+    jobs, _, jlast = je.vmap_sim_ahead(js, ja, je.tau, je.tau)
+    _close(obs, jobs)
+    _key_eq(last.PRNGKey, jlast.PRNGKey)
+    obs_l, last_l = pe.vmap_rollout(ps, ta, 10)
+    obs_f, last_f = env_fused_rollout(pe, ps, ta, obs_stride=10, strict=True)
+    assert torch.equal(obs_f, obs_l) and torch.equal(last_f.physical_state.height, last_l.physical_state.height)
+    assert float(last_f.physical_state.height.min()) >= 0.0
 
 
 def test_fused_traj_states_carry_advanced_keys():

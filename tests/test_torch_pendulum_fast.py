@@ -108,3 +108,23 @@ def test_per_batch_parameters_and_bad_shapes_raise():
         P.pendulum_fast_rollout(pe, state, torch.zeros((B, 4, 2)))
     with pytest.raises(ValueError, match="instances"):
         P.pendulum_fast_rollout(pe, state, torch.zeros((B + 1, 4, 1)))
+
+
+def test_a_noisy_pendulum_rolls_out_as_the_noiseless_one():
+    """The reference's pendulum_fast has no _has_noise check, so a stochastic
+    pendulum's noise options and keys are ignored: its fast rollout equals
+    the noiseless one bit for bit (the exact paths draw the noise)."""
+    from exciting_environments_torch.ops import random as prng
+
+    B, T = 64, 32
+    noisy = P.Pendulum(batch_size=B, tau=1e-4, device="cpu", dtype=torch.float32,
+                       process_noise={"omega": 0.5}, observation_noise={"theta": 0.02})
+    clean = P.Pendulum(batch_size=B, tau=1e-4, device="cpu", dtype=torch.float32)
+    _, state = noisy.vmap_reset(prng.split(prng.PRNGKey(0, "cpu"), B))
+    acts = torch.as_tensor(_actions(2, B, T))
+    th_n, om_n = P.pendulum_fast_rollout(noisy, state, acts)
+    th_c, om_c = P.pendulum_fast_rollout(clean, state, acts)
+    assert torch.equal(th_n, th_c) and torch.equal(om_n, om_c)
+    obs_exact, _ = noisy.fused_rollout(state, acts)  # the exact path does draw
+    obs_clean, _ = clean.fused_rollout(state, acts)
+    assert not torch.equal(obs_exact, obs_clean)

@@ -76,8 +76,9 @@ def test_hash_normal_matches_jax():
 
 def test_kernel_hash_constants_are_the_plain_versions():
     """The CUDA hash spells the plain version's signed int32 multipliers as
-    uint32 literals: read them from the source."""
-    src = (CSRC / "closed_loop.cu").read_text()
+    uint32 literals: read them from the source (the closed-loop kernel's
+    header, which its translation units share)."""
+    src = (CSRC / "closed_loop.cuh").read_text()
     body = src[src.index("uint32_t mix32"):src.index("// Policy functors")]
     literals = {int(h, 16) for h in re.findall(r"0x([0-9a-f]+)u", body)}
     expected = {c & 0xFFFFFFFF for c in (prl._M1, prl._M2, prl._KNUTH, prl._SALT, prl._SEED_MUL)}

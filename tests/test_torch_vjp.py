@@ -169,6 +169,11 @@ CL_CASES = {
     "pd-per-batch-l": dict(name="Pendulum", solver="euler", T=12, stride=6, per_batch=True),
     "pd-tsit5-cartpole": dict(name="CartPole", solver="tsit5", T=12, stride=4),
     "actor-16x16": dict(name="Pendulum", solver="rk4", T=12, stride=4, actor=True),
+    # the inverter circle binds on part of the fleet (a bias of 0.8 on both
+    # axes: |u| up to 1.13 x 325 V against 231 V)
+    "im-u_dc-rk4": dict(name="InductionMachine", solver="rk4", T=12, stride=4, control="i_sd", u_dc=400.0,
+                        bias=0.8),
+    "eesm-u_dc-euler": dict(name="EESM", solver="euler", T=12, stride=None, control="i_d", u_dc=400.0, bias=0.8),
 }
 
 
@@ -176,8 +181,9 @@ CL_CASES = {
 def test_closed_loop_vjp_matches_autograd_through_plain_loop(case):
     c = CL_CASES[case]
     rng = np.random.default_rng(len(case) + 10)
-    control = ["theta"] if c["name"] == "Pendulum" else ["deflection"]
+    control = [c.get("control", "theta" if c["name"] == "Pendulum" else "deflection")]
     extra = dict(static_params={"l": 1.0 + np.arange(B) / B, "g": 9.81, "m": 1}) if c.get("per_batch") else {}
+    extra.update({"u_dc": c["u_dc"]} if "u_dc" in c else {})
     env = getattr(P, c["name"])(batch_size=B, solver=c["solver"], control_state=control, **extra, **F64)
     props, pt = _props_leaves(env.env_properties)
     n_state = len(env._ode_state_fields)
@@ -192,8 +198,9 @@ def test_closed_loop_vjp_matches_autograd_through_plain_loop(case):
         carry0 = (torch.arange(B, dtype=torch.float64),)
         grads_of = ck.tensors(policy_params["actor"])
     else:
-        K0 = rng.uniform(-1.0, 1.0, (1, n_state + 1))
-        policy = P.AffinePolicy(K0, Ki=rng.uniform(-0.05, 0.05, (1, n_state + 1)) if c.get("pi") else None)
+        K0 = rng.uniform(-1.0, 1.0, (env.action_dim, n_state + 1))
+        policy = P.AffinePolicy(K0, b=np.full(env.action_dim, c.get("bias", 0.0)),
+                                Ki=rng.uniform(-0.05, 0.05, (1, n_state + 1)) if c.get("pi") else None)
         policy_params = _leaf(policy.flat_params().numpy())
         grads_of = [policy_params]
         if c.get("pi"):
@@ -439,6 +446,41 @@ def test_policy_gradient_matches_jax(family):
         params = torch.cat([torch.stack([-p_t["k1"], -p_t["k2"], p_t["k1"]]), torch.zeros(1, dtype=torch.float64)])
     obs, _, _ = pe.fused_closed_loop(ps, policy, T, obs_stride=1, policy_params=params)
     torch.mean((obs[:, :, 0] - obs[:, :, 2]) ** 2).backward()
+    for k in p_j:
+        _close_param(float(p_t[k].grad), float(g_j[k]))
+
+
+def test_policy_gradient_through_the_inverter_limit_matches_jax():
+    """The closed loop's VJP differentiates through the induction machine's
+    inverter circle (``u_dc``), as the reference's replay does: a P law on
+    both voltage axes whose bias drives part of the fleet beyond the circle,
+    against ``jax.grad`` of the JAX package's ``tile_policy_scan``."""
+    n, T = 64, 8
+    rng = np.random.default_rng(62)
+    x0 = {f: rng.uniform(-2, 2, n) for f in ("i_sd", "i_sq", "psi_rd", "psi_rq")}
+    refs = {"i_sd": np.linspace(-0.5, 0.5, n)}
+    je = J.InductionMachine(batch_size=n, control_state=["i_sd"], u_dc=400.0, solver="rk4")
+    pe = P.InductionMachine(batch_size=n, control_state=["i_sd"], u_dc=400.0, solver="rk4", **F64)
+    js, ps = _jax_state(je, x0, refs), state_from_numpy(pe, x0, reference=refs)
+
+    def j_law(obs, t, p):
+        return (p["kp"] * (obs[4] - obs[0]) + p["b"], p["kp"] * (0.0 - obs[1]) + 0.9 * p["b"])
+
+    def j_loss(p):
+        obs = j_tile_policy_scan(je, js, T, j_law, p, True)[0]
+        return jnp.mean((obs[:, :, 0] - obs[:, :, 4]) ** 2) + jnp.mean(obs[:, :, 1] ** 2)
+
+    p_j = {"kp": jnp.asarray(0.6), "b": jnp.asarray(0.75)}
+    g_j = jax.grad(j_loss)(p_j)
+    p_t = {k: torch.tensor(float(v), dtype=torch.float64, requires_grad=True) for k, v in p_j.items()}
+    z = torch.zeros((), dtype=torch.float64)
+    kp, bias = p_t["kp"], p_t["b"]
+    params = torch.stack([-kp, z, z, z, kp, z, -kp, z, z, z, bias, 0.9 * bias])
+    policy = P.AffinePolicy(np.zeros((2, 5)))
+    obs, acts, _ = pe.fused_closed_loop(ps, policy, T, obs_stride=1, policy_params=params)
+    u = (acts + 1) / 2 * 650.0 - 325.0
+    assert 0 < int((u.pow(2).sum(-1).sqrt() > 400.0 / math.sqrt(3.0)).sum()) < n * T  # binds on part
+    (torch.mean((obs[:, :, 0] - obs[:, :, 4]) ** 2) + torch.mean(obs[:, :, 1] ** 2)).backward()
     for k in p_j:
         _close_param(float(p_t[k].grad), float(g_j[k]))
 
