@@ -138,7 +138,22 @@ Phases (any failure raises and the script exits non-zero):
     and ``env.fused_closed_loop`` with the Acrobot PD law and the induction
     machine's PI law with ``u_dc``, each one launch, kernel vs plain at full
     size, kernel and entry-point ms and the bound;
-16. stochastic simulation (``phase_draws``, ``phase_noise_pendulum``,
+16. the machines' drive-control tiles in the closed-loop kernel
+    (``phase_foc``; ``utils/foc.py``'s FOC and sensorless FOC tiles of the
+    induction machine and the EESM's current tile, functors of
+    ``csrc/foc_laws.cuh``): each against the tile's plain version at
+    B = 4,096 and 4,141, T = 64, tolerance 0.0 (float32 and float64, Euler
+    and RK4, with and without saves, ``u_dc = 400``, the sensorless tile on
+    its environment's sensor slab in both noise modes and on a slab with
+    NaN flux columns, a quarter of each fleet starting cold); the refusal
+    of a tile over a per-batch parameter before a launch; the main cases
+    from a cold start at B = 65,536 x T = 4,096, float32, Euler (rows
+    2g-2i: the FOC tile, the sensorless tile on 0.3 A sensors with its
+    draws in fast mode, the EESM tile), one launch each through
+    ``env.fused_closed_loop``, kernel vs plain at full size, kernel and
+    entry-point ms and the bound; and control quality as the JAX tests
+    assert it, at B = 4,096;
+17. stochastic simulation (``phase_draws``, ``phase_noise_pendulum``,
     ``phase_noise_pmsm``, ``phase_noise_closed_loops``): the threefry
     streams of ``ops/random.py`` on the card against the CPU at B = 65,536
     (keys, ``split``/``fold_in`` chains, both modes' slab keys and uniforms
@@ -157,19 +172,20 @@ Phases (any failure raises and the script exits non-zero):
     modes) likewise; and the closed loops on the environment's own slabs
     (PD and PI pendulum over T = 4,096, the actor collected over T = 64,
     BRUSA PI over T = 2,048), one launch each and 0.0 from the plain loop;
-17. the four exact kernels' VJPs (``phase_grad``): each entry point
+18. the four exact kernels' VJPs (``phase_grad``): each entry point
     (``kernel_rollout``, ``kernel_closed_loop``, ``pmsm_kernel_rollout``,
     ``kernel_pmsm_closed_loop``) with inputs that require grad, its launch
     then the checkpointed replay, against autograd through the plain loop on
     the card, within 1e-5 (float32) and 1e-12 (float64) of the reference's
     max abs, over the CPU tests' cases at B = 4,096 (T = 16 or 13; among
     them ``RolloutVJP`` on Acrobot and ``ClosedLoopVJP`` on the induction
-    machine with ``u_dc``, its constraint active on part of the fleet) and one
+    machine with ``u_dc``, its constraint active on part of the fleet, and
+    ``ClosedLoopVJP`` through the induction machine's FOC tile) and one
     full-width float32 case per kernel (the pendulum over T = 1,024 with
     ``obs_stride`` 64; BRUSA over T = 256, the holding fleet for the stepper
     and the P law for the loop); every forward 0.0 from the plain version and
     one launch, and a call without grad allocating only its outputs;
-18. ``train_policy`` at B = 65,536 (``phase_train``): the noisy tracking
+19. ``train_policy`` at B = 65,536 (``phase_train``): the noisy tracking
     pendulum of tests/test_train.py (tau = 1e-2, T = 24, 10 iterations, its
     draws fixed by the state's keys), the tracking pendulum
     with the PD law over 1,024 steps and the PI law over 256 (10 iterations
@@ -178,7 +194,7 @@ Phases (any failure raises and the script exits non-zero):
     each loss must fall and the parameters stay finite; each iteration's
     kernel forward, backward replay and optimizer ms are logged, and a
     ``{"grads": [...]}`` line is printed;
-19. print the kernel table, the card's name and power limit, and last the
+20. print the kernel table, the card's name and power limit, and last the
     result line ``{"ok": true, "device": {...}}``.
 
 The anatomy of a redesigned kernel's case (``anatomy``): its registers,
@@ -786,7 +802,8 @@ def phase_build(K):
             f"{min(regs, default=0)}..{max(regs, default=0)}, static shared memory bytes {smem or [0]}, "
             f"non-zero stack frames: {sum(s > 0 for _, s, _ in frames)}")
         # by policy family where the kernel has one (closed_loop.cu), else all together
-        families = ("AffineLaw", "ActorLaw", "AffineAdapter", "SensorlessLaw", "ScheduledLaw")
+        families = ("AffineReg", "AffineGeneric", "ActorReg", "AffineLaw", "ActorLaw", "AffineAdapter",
+                    "SensorlessLaw", "ScheduledLaw", "SensorlessFocTile", "FocTile", "EesmCurrentTile")
         for family in sorted({next((f for f in families if f in n), "all") for n, _, _ in frames}):
             group = [(s, sp) for n, s, sp in frames if family == "all" or family in n]
             log(f"[build]   {family}: stack frames {min(s for s, _ in group)}..{max(s for s, _ in group)} bytes, "
@@ -1399,6 +1416,8 @@ def cl_policy_ops(spec, n_action):
     each add, multiply, compare, integer shift/xor/multiply, conversion and
     each tanh/exp/log/sqrt/cos call as one."""
     o = spec.options
+    if spec.policy_id in (4, 5, 6):  # the drive-control tiles
+        return tile_policy_ops(spec)
     if spec.policy_id == 0:  # AffineLaw
         per_action = 2 * spec.n_obs + (2 * spec.n_obs + 1) * o["has_integral"] + 2 * o["has_clip"]
         return n_action * per_action
@@ -2783,6 +2802,247 @@ def phase_env_main(ex, K, CL):
 
 
 # ---------------------------------------------------------------------------
+# the machines' drive-control tiles in the closed-loop kernel
+# (csrc/foc_laws.cuh)
+# ---------------------------------------------------------------------------
+
+#: the tiles' set points: benchmarks/r03/foc_in_kernel_device.py:33-45 and
+#: sensorless_foc_in_kernel_device.py:36-55 (IM), tests/test_eesm.py:220-223
+FOC_REFS = dict(psi_ref=0.7, torque_ref=8.0)
+EESM_REFS = dict(i_d_ref=2.0, i_q_ref=5.0, i_f_ref=4.0)
+IM_SENSORS = {"i_sd": 0.3, "i_sq": 0.3}
+#: operations of one step of csrc/foc_laws.cuh on the path of a flux above
+#: its floor, counted from the source (each add, multiply, division, square
+#: root, compare, select, clamp bound and conversion as one): FocLaw::act,
+#: the four denormalizations of a tile, and EesmCurrentTile::act
+FOC_LAW_OPS, DENORM_OPS, EESM_TILE_OPS = 93, 4, 61
+#: the fleet of the tiles' control-quality checks
+B_QUALITY = 4096
+
+
+def tile_policy_ops(spec):
+    """Operations of one drive-control tile evaluation (policy ids 4-6),
+    counted from csrc/foc_laws.cuh for this spec's flat vector: the
+    sensorless observer's innovation of each measured column (one subtract;
+    the JAX tile fixes which columns when it is traced, so the functor's
+    run-time pick of them is not counted), its non-zero gain, A and B terms
+    (a multiply and an add each) and the row sums."""
+    from exciting_environments_torch.utils.foc import SensorlessFocPolicy
+
+    if spec.policy_id == 4:
+        return FOC_LAW_OPS + 4 * DENORM_OPS
+    if spec.policy_id == 6:
+        return EESM_TILE_OPS
+    flat = spec.flat.double().cpu().numpy()
+    at = lambda name: int(flat[SensorlessFocPolicy.SLOTS.index(name)])
+    n_terms = sum(bin(at(mask)).count("1") for mask in ("K_MASK", "A_MASK", "B_MASK"))
+    return FOC_LAW_OPS + 4 * DENORM_OPS + at("N_MEAS") + 4 + 2 * n_terms + 8
+
+
+def tile_env(ex, kind, B, gen, dtype=torch.float32, solver="euler", u_dc=None, noise_mode="exact", seed=SEED + 40,
+             cold=True, cold_share=None):
+    """``(env, state, policy, carry)`` of one drive-control tile: the
+    induction machine with ``make_foc_tile`` (kind "foc") or, with 0.3 A
+    current sensors, ``make_sensorless_foc_tile`` ("sensorless"), or the EESM
+    with ``make_eesm_current_tile`` ("eesm").  ``cold``: zero currents and
+    flux; ``cold_share``: a random state with that leading share of the
+    fleet cold (both branches of the law's orientation)."""
+    extra = {} if u_dc is None else {"u_dc": u_dc}
+    if kind == "eesm":
+        env = make_env(ex.EESM, B, dtype, solver=solver, **extra)
+        policy, carry = ex.make_eesm_current_tile(env, **EESM_REFS)
+    else:
+        if kind == "sensorless":
+            extra.update(observation_noise=IM_SENSORS, noise_mode=noise_mode)
+        env = make_env(ex.InductionMachine, B, dtype, solver=solver, **extra)
+        make = ex.make_sensorless_foc_tile if kind == "sensorless" else ex.make_foc_tile
+        policy, carry = make(env, **FOC_REFS)
+    _, state = env.vmap_reset(noise_keys(B, seed)) if env._has_noise else env.vmap_reset(rng=gen)
+    phys = state.physical_state
+    if cold or cold_share:
+        mask = torch.ones(B, dtype=torch.bool, device=DEVICE) if cold else \
+            torch.arange(B, device=DEVICE) < int(B * cold_share)
+        for f in env._ode_state_fields:
+            setattr(phys, f, torch.where(mask, torch.zeros_like(getattr(phys, f)), getattr(phys, f)))
+    return env, state, policy, carry
+
+
+def phase_foc(ex, K, CL):
+    """The machines' drive-control tiles (``utils/foc.py``'s FocPolicy,
+    SensorlessFocPolicy and EesmCurrentPolicy, functors of csrc/foc_laws.cuh
+    in csrc/closed_loop.cu): kernel against the tile's plain version at
+    B = 4,096 and 4,141, T = 64, tolerance 0.0 (float32 and float64, Euler
+    and RK4, with and without saves, the EESM with u_dc = 400, the
+    sensorless tile on its environment's sensor slab in exact and fast mode
+    and on a slab whose flux columns are NaN, a quarter of each fleet
+    starting cold); the refusal of a per-batch static parameter before a
+    launch; the main cases at B = 65,536 x T = 4,096, float32, Euler, the
+    default tau, cold start (rows 2g-2i): the FOC tile, the sensorless tile
+    on 0.3 A sensors (the draws in fast mode; the kernel timed on the
+    pre-drawn slab) and the EESM's tile, each one launch through
+    ``env.fused_closed_loop``, kernel vs plain at full size, kernel and
+    entry-point ms and the bound; then control quality on the card as the
+    JAX tests assert it (B = 4,096): the FOC tile's flux within 5% of 0.7 Vs
+    and torque within 5% of 8 Nm after 4,000 steps, the sensorless tile's
+    flux within 3%, torque within 5% and belief flux within 5% of the true
+    flux after 12,000, the EESM's currents within 2% after 6,000 with every
+    action in [-1, 1] and the least torque above 1 Nm.  Returns the kernel
+    table entries."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 41)
+    units = {k: v for k, v in K.BUILD_TIMES.items() if k.startswith("closed_loop/")}
+    if units:
+        log("[foc] closed-loop units' nvcc seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in sorted(units.items())))
+    variants = {"foc": "foc", "sensorless": "sensorless_foc", "eesm": "eesm_current"}
+    cases = [
+        # (label, kind, dtype, solver, B, stride, u_dc, slab): slab "exact"/"fast" the environment's own draws,
+        # "nan_flux" a seeded slab over all four columns with NaN in the flux columns
+        ("foc euler", "foc", torch.float32, "euler", 4096, None, None, None),
+        ("foc rk4, saves every step, ragged B", "foc", torch.float32, "rk4", 4141, 1, None, None),
+        ("foc euler float64, saves every 4", "foc", torch.float64, "euler", 4096, 4, None, None),
+        ("foc rk4 float64", "foc", torch.float64, "rk4", 4141, None, None, None),
+        ("foc euler, u_dc 400, saves every 4", "foc", torch.float32, "euler", 4096, 4, U_DC, None),
+        ("sensorless euler, exact-mode slab, saves every step", "sensorless", torch.float32, "euler", 4096, 1, None,
+         "exact"),
+        ("sensorless rk4, fast-mode slab, ragged B", "sensorless", torch.float32, "rk4", 4141, None, None, "fast"),
+        ("sensorless euler float64, exact-mode slab, saves every 4", "sensorless", torch.float64, "euler", 4096, 4,
+         None, "exact"),
+        ("sensorless rk4 float64, fast-mode slab", "sensorless", torch.float64, "rk4", 4096, None, None, "fast"),
+        ("sensorless euler, NaN flux columns", "sensorless", torch.float32, "euler", 4096, 1, None, "nan_flux"),
+        ("eesm euler", "eesm", torch.float32, "euler", 4096, None, None, None),
+        ("eesm rk4, u_dc 400, saves every step", "eesm", torch.float32, "rk4", 4096, 1, U_DC, None),
+        ("eesm rk4 float64, u_dc 400, saves every 4", "eesm", torch.float64, "rk4", 4141, 4, U_DC, None),
+        ("eesm euler float64, ragged B", "eesm", torch.float64, "euler", 4141, None, None, None),
+    ]
+    for i, (label, kind, dtype, solver, B, stride, u_dc, slab) in enumerate(cases):
+        env, state, policy, carry = tile_env(ex, kind, B, gen, dtype, solver, u_dc,
+                                             noise_mode=slab if slab in ("exact", "fast") else "exact",
+                                             seed=SEED + 42 + i, cold=False, cold_share=0.25)
+        y0 = tuple(getattr(state.physical_state, f) for f in env._ode_state_fields)
+        kw = dict(traj_stride=stride, policy_carry=carry)
+        if slab in ("exact", "fast"):
+            kw.update(CL.closed_loop_noise(env, state, T_CHECK, env.env_properties).slabs)
+        elif slab == "nan_flux":
+            eps = 0.015 * torch.randn((T_CHECK, B, 4), generator=gen, device=DEVICE, dtype=torch.float64)
+            eps[..., 2:] = float("nan")
+            kw.update(obs_noise_tm=eps.to(dtype), obs_noise_cols=(0, 1, 2, 3))
+        variant = variants[kind]
+        before, before_v = CL.CL_KERNEL.launches["closed_loop"], CL.VARIANT_LAUNCHES[variant]
+        err, finite = cl_deviation(CL, env, policy, T_CHECK, y0, (), **kw)
+        launched = (CL.CL_KERNEL.launches["closed_loop"] - before, CL.VARIANT_LAUNCHES[variant] - before_v)
+        log(f"[foc kernel vs plain] {label}, B={B} T={T_CHECK}: max abs {err!r}, finite {finite}, "
+            f"launches {launched[0]} ({variant} {launched[1]})")
+        if err != 0.0 or not finite or launched != (1, 1):
+            raise AssertionError(f"{label}: the tile's kernel disagrees with its plain version ({err!r}), "
+                                 f"finite {finite}, launches {launched}")
+
+    # a tile folded from per-batch parameters runs on the CPU only
+    params = dict(ex.InductionMachine._default_static_params())
+    params["omega"] = np.linspace(200.0, 400.0, 256)
+    fleet = make_env(ex.InductionMachine, 256, static_params=params)
+    tile, carry = ex.make_foc_tile(fleet, **FOC_REFS)
+    _, fstate = fleet.vmap_reset(rng=gen)
+    before = CL.CL_KERNEL.launches["closed_loop"]
+    try:
+        fleet.fused_closed_loop(fstate, tile, 8, policy_carry=carry)
+    except ValueError as e:
+        log(f"[foc] per-batch omega refused before a launch: {str(e)[:100]}")
+    else:
+        raise AssertionError("a FOC tile over a per-batch omega was not refused on the card")
+    if CL.CL_KERNEL.launches["closed_loop"] != before:
+        raise AssertionError("the refused tile launched")
+
+    B, T = B_MAIN, T_MAIN
+    entries = []
+    mains = [("2g", "induction_machine_foc", "foc"), ("2h", "induction_machine_sensorless_foc", "sensorless"),
+             ("2i", "eesm_current", "eesm")]
+    for row, name, kind in mains:
+        env, state, policy, carry = tile_env(ex, kind, B, gen, noise_mode="fast", seed=SEED + 60)
+        y0 = tuple(getattr(state.physical_state, f) for f in env._ode_state_fields)
+        CL.CL_KERNEL.reset_counts()
+        out = env.fused_closed_loop(state, policy, T, policy_carry=carry)
+        torch.cuda.synchronize()
+        launches = CL.CL_KERNEL.launches["closed_loop"]
+        obs = out[0]
+        if launches != 1 or tuple(obs.shape) != (B, len(env.obs_description)) or not bool(torch.isfinite(obs).all()):
+            raise AssertionError(f"{name}: {launches} launches, observations {tuple(obs.shape)}")
+        noise = CL.closed_loop_noise(env, state, T, env.env_properties) if env._has_noise else None
+        slabs = noise.slabs if noise is not None else {}
+        kw = dict(tau=env.tau, solver=env._solver, props=env.env_properties, policy_carry=carry, **slabs)
+        kernel = lambda: CL.kernel_closed_loop(env, y0, policy, T, **kw)
+        outk = cl_flat(kernel())
+        entry_final = [getattr(out[1].physical_state, f) for f in env._ode_state_fields] + list(out[2])
+        t0 = time.perf_counter()
+        outp = cl_flat(CL.plain_closed_loop(env, y0, policy, T, **kw))
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err, err_entry = max_abs(outk, outp), max_abs(outk, entry_final)
+        if err != 0.0 or err_entry != 0.0:
+            raise AssertionError(f"{name}: kernel disagrees with its plain version at the main size ({err!r}, "
+                                 f"entry point {err_entry!r})")
+        del outp
+        ms = time_ms(kernel)
+        if noise is None:
+            entry_ms = time_ms(lambda: env.fused_closed_loop(state, policy, T, policy_carry=carry))
+            how = "env.fused_closed_loop"
+        else:
+            _, entry_ms = host_ms(lambda: env.fused_closed_loop(state, policy, T, policy_carry=carry), reps=1)
+            bare = {k: v for k, v in kw.items() if k not in slabs}
+            bare_ms = time_ms(lambda: CL.kernel_closed_loop(env, y0, policy, T, **bare))
+            how = (f"the kernel without the sensor slab {bare_ms!r} ms; env.fused_closed_loop with its fast-mode "
+                   "draws (one host-clock run)")
+        spec = policy.kernel_spec(torch.float32, DEVICE)
+        n_noise = len(slabs.get("obs_noise_cols", ()))
+        (bound_ms, bound_by), per_step = cl_bound(env, spec, B, T, 0, len(carry), 0, n_obs_noise=n_noise)
+        log(f"[foc main] row {row} {name} B={B} T={T} tau={env.tau} float32, cold start: launches {launches}; "
+            f"kernel {ms!r} ms = {B * T / ms * 1e3:.4e} env-steps/s; {how} {entry_ms!r} ms (kernel "
+            f"{ms / entry_ms:.1%}); bound {bound_ms!r} ms ({bound_by}, {per_step} operations per step, policy "
+            f"{cl_policy_ops(spec, env.action_dim)}), {bound_ms / ms:.1%} of the bound; plain {plain_ms!r} ms "
+            f"(one run); max abs {err!r}")
+        entries.append(entry(f"closed_loop_{name}", launches, err, ms, plain_ms, bound_ms, bound_by, CL_SOURCE,
+                             CL_REPLACES))
+        del out, outk, noise, slabs, kw
+        torch.cuda.empty_cache()
+
+    # control quality on the card (tests/test_foc.py:218-228, :289-310, tests/test_eesm.py:247-265)
+    bq = B_QUALITY
+    env, state, policy, carry = tile_env(ex, "foc", bq, gen)
+    _, last, _ = env.fused_closed_loop(state, policy, 4000, policy_carry=carry)
+    phys = last.physical_state
+    flux = torch.hypot(phys.psi_rd, phys.psi_rq)
+    torque = env.torque(last)
+    flux_err, torque_err = float((flux / 0.7 - 1).abs().max()), float((torque / 8.0 - 1).abs().max())
+    log(f"[foc quality] FOC tile B={bq} T=4000: flux {float(flux.mean()):.5f} Vs (worst relative error "
+        f"{flux_err:.4f}, limit 0.05), torque {float(torque.mean()):.4f} Nm (worst {torque_err:.4f}, limit 0.05)")
+    ok = flux_err <= 0.05 and torque_err <= 0.05
+    env, state, policy, carry = tile_env(ex, "sensorless", bq, gen, noise_mode="fast", seed=SEED + 61)
+    _, last, fcl = env.fused_closed_loop(state, policy, 12000, policy_carry=carry)
+    phys = last.physical_state
+    flux = torch.hypot(phys.psi_rd, phys.psi_rq)
+    belief = torch.hypot(fcl[2] * 1.5, fcl[3] * 1.5)
+    torque = env.torque(last)
+    errs = (float((flux / 0.7 - 1).abs().max()), float((torque / 8.0 - 1).abs().max()),
+            float((belief / flux - 1).abs().max()))
+    log(f"[foc quality] sensorless tile, 0.3 A sensors (fast mode), B={bq} T=12000: flux {float(flux.mean()):.5f} "
+        f"Vs (worst {errs[0]:.4f}, limit 0.03), torque {float(torque.mean()):.4f} Nm (worst {errs[1]:.4f}, limit "
+        f"0.05), belief flux against the true flux worst {errs[2]:.4f} (limit 0.05)")
+    ok = ok and errs[0] <= 0.03 and errs[1] <= 0.05 and errs[2] <= 0.05
+    env, state, policy, carry = tile_env(ex, "eesm", bq, gen, cold=False)
+    _, acts, last, _ = env.fused_closed_loop(state, policy, 6000, obs_stride=1, policy_carry=carry)
+    phys = last.physical_state
+    cur = {f: float((getattr(phys, f) / EESM_REFS[f"{f}_ref"] - 1).abs().max()) for f in ("i_d", "i_q", "i_f")}
+    act_max, torque_min = float(acts.abs().max()), float(env.torque(last).min())
+    log(f"[foc quality] EESM tile B={bq} T=6000 from a random reset: worst relative current errors {cur} (limit "
+        f"0.02), largest |action| {act_max!r}, least torque {torque_min:.4f} Nm (above 1)")
+    # |a| <= 1 up to the float32 rounding of u_max * (1 / u_max) on the clamp
+    one_ulp_above = float(np.nextafter(np.float32(1.0), np.float32(2.0)))
+    ok = (ok and max(cur.values()) <= 0.02 and act_max <= one_ulp_above and torque_min > 1.0
+          and bool(torch.isfinite(acts).all()))
+    if not ok:
+        raise AssertionError("a drive-control tile missed its control-quality checks on the card")
+    return entries
+
+
+# ---------------------------------------------------------------------------
 # stochastic simulation: draw streams, noisy main paths, slabs from the
 # environment into every exact kernel
 # ---------------------------------------------------------------------------
@@ -3165,7 +3425,7 @@ def grad_inputs_stepper(ex, K, name, dtype, gen, batch, n_steps, stride=None, so
 
 
 def grad_inputs_cl(ex, CL, name, dtype, gen, batch, n_steps, stride=None, solver="euler", pi=False, noise=False,
-                   per_batch=False, actor=False, u_dc=None, bias=0.0):
+                   per_batch=False, actor=False, u_dc=None, bias=0.0, foc_tile=False):
     from exciting_environments_torch.utils.convert import actor_params_from_numpy
 
     control = [{"Pendulum": "theta", "CartPole": "deflection", "InductionMachine": "i_sd"}[name]]
@@ -3179,9 +3439,16 @@ def grad_inputs_cl(ex, CL, name, dtype, gen, batch, n_steps, stride=None, solver
     props = CL.ck.props_with(props, pt)
     n = len(env._ode_state_fields)
     y0 = tuple(leaf(t) for t in random_state(env, gen))
-    refs = (leaf(random_state(env, gen)[0] * 0.8),)
+    refs = (random_state(env, gen)[0] * 0.8,)
+    refs = refs if foc_tile else tuple(leaf(r) for r in refs)  # the FOC tile does not read the reference
     carry = None
-    if actor:
+    if foc_tile:
+        # the induction machine's FOC tile: no policy parameters; the
+        # gradient in the state, the reference and the integrator planes
+        policy, carry = ex.make_foc_tile(env, **FOC_REFS)
+        carry = tuple(leaf(c) if i < 3 else c for i, c in enumerate(carry))
+        params, grads_of = None, list(carry[:3])
+    elif actor:
         policy, carry = ex.make_actor_tile(env, deterministic=True)
         tree = actor_params_from_numpy(env, actor_tree(n + 1))
         params = {"actor": [{k: leaf(v) for k, v in layer.items()} for layer in tree["actor"]],
@@ -3206,7 +3473,7 @@ def grad_inputs_cl(ex, CL, name, dtype, gen, batch, n_steps, stride=None, solver
               obs_noise_cols=(0, n) if noise else (), proc_noise_idx=(1,) if noise else ())
     run_k = lambda: CL.kernel_closed_loop(env, y0, policy, n_steps, **kw)
     run_p = lambda: CL.plain_closed_loop(env, y0, policy, n_steps, **kw)
-    inputs = [*y0, *refs, *grads_of, *pt] + ([on, pn] if noise else [])
+    inputs = [*y0, *(() if foc_tile else refs), *grads_of, *pt] + ([on, pn] if noise else [])
     return run_k, run_p, inputs, CL.CL_KERNEL, "closed_loop"
 
 
@@ -3309,6 +3576,8 @@ GRAD_CASES = [
     # active on part of the fleet
     ("kernel_closed_loop", "induction machine rk4 PI, u_dc 400, beyond the circle on part of the fleet",
      dict(name="InductionMachine", solver="rk4", stride=4, pi=True, u_dc=U_DC, bias=0.8)),
+    ("kernel_closed_loop", "induction machine euler FOC tile (utils/foc.py), saves every 4",
+     dict(name="InductionMachine", stride=4, foc_tile=True)),
     ("pmsm_kernel_rollout", "BRUSA euler deadtime 1, final only", dict()),
     ("pmsm_kernel_rollout", "BRUSA euler deadtime 0, saves every 4", dict(deadtime=0, stride=4)),
     ("pmsm_kernel_rollout", "BRUSA euler, saves every 8", dict(stride=8)),
@@ -3566,6 +3835,7 @@ def main() -> int:
     phase_env_kernel_vs_plain(ex, K, CL)
     phase_env_golden(ex, K)
     kernels += phase_env_main(ex, K, CL)
+    kernels += phase_foc(ex, K, CL)
     phase_draws(ex)
     kernels += phase_noise_pendulum(ex, K)
     kernels += phase_noise_pmsm(ex, PK)

@@ -9,7 +9,8 @@ Hopper GPU, and the closed loops (``fused_closed_loop``,
 ``RolloutCollector.collect_policy_fused``) with the policy inside
 ``csrc/closed_loop.cu`` (classic environments) or
 ``csrc/pmsm_closed_loop.cu`` (the PMSM drive, with the sensorless current
-tiles of ``utils/foc.py``).  The fast-math paths, tolerance-gated against
+tiles of ``utils/foc.py``); the induction machine's field-oriented tiles and
+the EESM's current tile of ``utils/foc.py`` run inside ``csrc/closed_loop.cu``.  The fast-math paths, tolerance-gated against
 the exact ones, run in their own kernels: ``pendulum_fast_rollout``
 (``csrc/pendulum_fast.cu``) and ``PMSM.fast_rollout``
 (``csrc/pmsm_fast.cu``); ``fast_math=True`` on the classic environments runs
@@ -42,7 +43,11 @@ from exciting_environments_torch.ops.policies import AffinePolicy
 from exciting_environments_torch.utils import MinMaxNormalization
 from exciting_environments_torch.utils.collect import RolloutCollector
 from exciting_environments_torch.utils.foc import (
+    make_eesm_current_tile,
+    make_foc_tile,
     make_pmsm_saturated_sensorless_current_tile,
     make_pmsm_sensorless_current_tile,
+    make_sensorless_foc,
+    make_sensorless_foc_tile,
 )
 from exciting_environments_torch.utils.rl_fused import make_actor_tile

@@ -24,7 +24,13 @@
 //   * the PPO actor of utils/rl_fused.py, a tanh MLP with a linear head, plus
 //     exp(log_std_j) * z with z a counter-hash normal draw of (instance id,
 //     step, action dim, seed), clamped to [-1, 1]: ActorReg<H1, H2> at
-//     compile-time hidden widths, ActorLaw at run-time ones.
+//     compile-time hidden widths, ActorLaw at run-time ones;
+//   * the drive-control tiles of utils/foc.py (foc_laws.cuh), compiled for
+//     their own machine only (in its unit, closed_loop/<environment>.cu,
+//     through launch_env_dtype's Tiles): the induction machine's
+//     field-oriented law on the true state (FocTile) and behind a stationary
+//     Kalman flux observer (SensorlessFocTile, eight carry planes), and the
+//     EESM's current PIs (EesmCurrentTile).
 // Their parameters arrive as one flat vector that each block copies into
 // shared memory once (the counterpart of the TPU's SMEM scalar path).  The
 // wrapper picks the instantiation (args.variant, ops/kernels/closed_loop.py::
@@ -76,7 +82,8 @@
 //
 // The build.  Eight environment functors (eleven with the fast-math ones)
 // x 2 working types x 4 stage counts x 5 policy instantiations make 440
-// kernels; each environment's are a translation unit of their own
+// kernels, and the machines' tiles 24 more (16 on the induction machine, 8
+// on the EESM); each environment's are a translation unit of their own
 // (closed_loop/<environment>.cu), compiled in parallel and linked with
 // closed_loop.cu's entry point into one library.
 
@@ -88,6 +95,7 @@
 
 #include "classic_envs.cuh"
 #include "eager_rules.cuh"
+#include "foc_laws.cuh"
 #include "policy_laws.cuh"
 
 #define MAX_STAGES 7
@@ -96,7 +104,7 @@
 #define MAX_PARAMS 9
 #define MAX_REFS 4
 #define MAX_OBS (MAX_STATE + MAX_REFS)
-#define MAX_CARRY 4
+#define MAX_CARRY 8
 #define MAX_LAYERS 4
 #define MAX_WIDTH 64
 #define MAX_POLICY_PARAMS 4096
@@ -113,6 +121,7 @@ struct ClosedLoopArgs {
     double act_max[MAX_ACTION];
     double svm_limit;                  // inverter circle radius on actions 0 and 1 (svm_circle), 0: none
     double clip;                       // affine law's clamp bound (with has_clip)
+    double frame_step;                 // FOC tiles: omega * tau, the fallback frame's angle per step
     const void* param_ptr[MAX_PARAMS];  // per-batch parameter (B,), or null
     const void* y0[MAX_STATE];          // (B,) per state leaf
     const void* carry0[MAX_CARRY];      // (B,) per policy-carry leaf
@@ -131,7 +140,7 @@ struct ClosedLoopArgs {
     int n_refs;
     int n_carry;
     int n_pp;
-    int policy_id;                      // 0 affine law, 1 actor
+    int policy_id;                      // 0 affine law, 1 actor, 4 FOC, 5 sensorless FOC, 6 EESM current
     int has_integral;                   // affine law: Ki follows K and b
     int has_clip;                       // affine law
     int deterministic;                  // actor: no exploration draw
@@ -148,7 +157,8 @@ struct ClosedLoopArgs {
     int variant;                        // the policy's instantiation (V_* below)
 };
 
-// The policy instantiations, in the order of ops/kernels/closed_loop.py::VARIANTS
+// The policy instantiations, in the order of ops/kernels/closed_loop.py::VARIANTS;
+// the drive-control tiles (4-6) carry their own, Tile::VARIANT
 enum { V_AFFINE = 0, V_AFFINE_GENERIC = 1, V_ACTOR_16_16 = 2, V_ACTOR_GENERIC = 3 };
 
 __device__ __forceinline__ float dexp(float x) { return expf(x); }
@@ -207,17 +217,19 @@ __device__ __forceinline__ void load4(const T* p, T (&v)[4]) {
 }
 
 // ---------------------------------------------------------------------------
-// Policy functors.  prepare(args, pp, carry) runs once per thread before the
-// loop and returns what the functor keeps in registers; act(p, args, pp,
-// obs, n_obs, t, carry, a) maps the observation registers obs (n_obs
-// columns) to the A normalized actions a and updates the carry in place.
-// pp is the flat parameter vector in shared memory.
+// Policy functors.  N_CARRY is the size of the kernel's carry register array;
+// prepare(args, pp, carry) runs once per thread before the loop and returns
+// what the functor keeps in registers; act(p, args, pp, obs, n_obs, t,
+// carry, a) maps the observation registers obs (n_obs columns) to the A
+// normalized actions a and updates the carry in place.  pp is the flat
+// parameter vector in shared memory.
 // ---------------------------------------------------------------------------
 
 // ops/policies.py::AffinePolicy at the compile-time observation width NOBS;
 // pp = K (A x NOBS), b (A), [Ki (A x NOBS)], loaded once into registers
 template <int NOBS>
 struct AffineReg {
+    static constexpr int N_CARRY = 4;
     template <typename T, int A>
     struct Prepared {
         T K[A][NOBS], b[A], Ki[A][NOBS];
@@ -276,6 +288,7 @@ struct AffineReg {
 // AffinePolicy at a run-time width: AffineLaw of policy_laws.cuh, which
 // reads the gains from shared memory
 struct AffineGeneric {
+    static constexpr int N_CARRY = 4;
     template <typename T, int A>
     struct Prepared {};
     template <typename T, int A>
@@ -297,6 +310,7 @@ struct AffineGeneric {
 template <int H1, int H2>
 struct ActorReg {
     static_assert(H1 % 4 == 0 && H2 % 4 == 0, "hidden widths are read in 16-byte vectors");
+    static constexpr int N_CARRY = 4;
     template <typename T, int A>
     struct Prepared {
         int n_in;
@@ -387,6 +401,7 @@ struct ActorReg {
 // The actor at run-time widths (up to MAX_LAYERS layers of MAX_WIDTH): its
 // activations are indexed at run time and live in local memory
 struct ActorLaw {
+    static constexpr int N_CARRY = 4;
     template <typename T, int A>
     struct Prepared {};
     template <typename T, int A>
@@ -443,6 +458,7 @@ __global__ void __launch_bounds__(THREADS) closed_loop_kernel(const __grid_const
     constexpr int N = Env::N_STATE;
     constexpr int A = Env::N_ACTION;
     constexpr int NO = N + MAX_REFS;  // observation registers: the state, then the references
+    constexpr int NC = Policy::N_CARRY;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     T* pp = reinterpret_cast<T*>(smem_raw);
     const T* pp_src = static_cast<const T*>(args.policy_params);
@@ -478,11 +494,11 @@ __global__ void __launch_bounds__(THREADS) closed_loop_kernel(const __grid_const
 #pragma unroll
     for (int r = 0; r < MAX_REFS; ++r) ref[r] = r < n_refs ? static_cast<const T*>(args.refs[r])[b] : T(0);
 
-    T y[N], c[MAX_CARRY];
+    T y[N], c[NC];
 #pragma unroll
     for (int i = 0; i < N; ++i) y[i] = static_cast<const T*>(args.y0[i])[b];
 #pragma unroll
-    for (int i = 0; i < MAX_CARRY; ++i) c[i] = i < n_carry ? static_cast<const T*>(args.carry0[i])[b] : T(0);
+    for (int i = 0; i < NC; ++i) c[i] = i < n_carry ? static_cast<const T*>(args.carry0[i])[b] : T(0);
 
     T tau = (T)args.tau;
     keep(tau);
@@ -581,7 +597,7 @@ __global__ void __launch_bounds__(THREADS) closed_loop_kernel(const __grid_const
 #pragma unroll
             for (int j = 0; j < A; ++j) static_cast<T*>(args.traj_action[j])[save_at] = a[j];
 #pragma unroll
-            for (int i = 0; i < MAX_CARRY; ++i)
+            for (int i = 0; i < NC; ++i)
                 if (i < n_carry) static_cast<T*>(args.traj_carry[i])[save_at] = c[i];
             save_at += batch;
         }
@@ -589,7 +605,7 @@ __global__ void __launch_bounds__(THREADS) closed_loop_kernel(const __grid_const
 #pragma unroll
     for (int i = 0; i < N; ++i) static_cast<T*>(args.y_out[i])[b] = y[i];
 #pragma unroll
-    for (int i = 0; i < MAX_CARRY; ++i)
+    for (int i = 0; i < NC; ++i)
         if (i < n_carry) static_cast<T*>(args.carry_out[i])[b] = c[i];
 }
 
@@ -619,8 +635,9 @@ static int launch_policy(const ClosedLoopArgs& args, cudaStream_t stream) {
 }
 
 // The instantiation the wrapper asked for; a request the policy does not fit
-// (family, width) is refused, never widened
-template <typename T, class Env>
+// (family, width) is refused, never widened.  Tiles: the drive-control tiles
+// compiled for this environment (the wrapper pairs them, KernelPolicy.env_ids)
+template <typename T, class Env, class... Tiles>
 static int launch_env(const ClosedLoopArgs& args, cudaStream_t stream) {
     constexpr int N = Env::N_STATE;
     const bool affine = args.policy_id == 0, actor = args.policy_id == 1;
@@ -637,15 +654,19 @@ static int launch_env(const ClosedLoopArgs& args, cudaStream_t stream) {
             return (int)cudaErrorInvalidValue;
         case V_ACTOR_GENERIC:
             return actor ? launch_policy<T, Env, ActorLaw>(args, stream) : (int)cudaErrorInvalidValue;
-        default:
-            return (int)cudaErrorInvalidValue;
+        default: {
+            int rc = (int)cudaErrorInvalidValue;
+            (void)((args.variant == Tiles::VARIANT && (rc = launch_policy<T, Env, Tiles>(args, stream), true)) ||
+                   ...);
+            return rc;
+        }
     }
 }
 
 // The instantiations of one environment functor in both working types
-template <class Env>
+template <class Env, class... Tiles>
 static int launch_env_dtype(const ClosedLoopArgs& args, int dtype, cudaStream_t stream) {
-    return dtype == 0 ? launch_env<float, Env>(args, stream) : launch_env<double, Env>(args, stream);
+    return dtype == 0 ? launch_env<float, Env, Tiles...>(args, stream) : launch_env<double, Env, Tiles...>(args, stream);
 }
 
 // One translation unit per environment, closed_loop/<environment>.cu, compiled in

@@ -14,8 +14,10 @@ tensors.
 The policy follows the JAX tile contract (``ops/policies.py``).  On the CPU
 any callable with that contract works; on CUDA only the families compiled
 into the kernel (:class:`~exciting_environments_torch.ops.policies.KernelPolicy`:
-``AffinePolicy``, the PPO ``ActorPolicy``), and any other callable raises
-before a launch.  The loop never runs eagerly on the card.
+``AffinePolicy``, the PPO ``ActorPolicy``, and on their own environments the
+induction machine's ``FocPolicy`` and ``SensorlessFocPolicy`` and the EESM's
+``EesmCurrentPolicy``), and any other callable raises before a launch.  The
+loop never runs eagerly on the card.
 
 Stochastic inputs are streamed slabs, as in the JAX kernel: a sensor-noise
 slab ``(T, B, len(obs_noise_cols))`` added to the indexed observation
@@ -55,7 +57,7 @@ from .stepper import (
 
 MAX_REFS = 4
 MAX_OBS = MAX_STATE + MAX_REFS
-MAX_CARRY = 4
+MAX_CARRY = 8
 MAX_LAYERS = 4
 MAX_WIDTH = 64
 MAX_POLICY_PARAMS = 4096
@@ -82,6 +84,7 @@ class ClosedLoopArgs(ctypes.Structure):
         ("act_max", _c_double * MAX_ACTION),
         ("svm_limit", _c_double),
         ("clip", _c_double),
+        ("frame_step", _c_double),
         ("param_ptr", _c_void_p * MAX_PARAMS),
         ("y0", _c_void_p * MAX_STATE),
         ("carry0", _c_void_p * MAX_CARRY),
@@ -123,16 +126,21 @@ CL_KERNEL = KernelLibrary("closed_loop", "closed_loop", ClosedLoopArgs, ("closed
 #: the kernel's policy instantiations, in ``ClosedLoopArgs.variant`` order:
 #: the affine law in registers at a compile-time observation width (the
 #: state plus 0 or 1 reference), the affine law at any width, the actor with
-#: two hidden layers of 16 in registers, the actor at any widths
-VARIANTS = ("affine", "affine_generic", "actor_16x16", "actor_generic")
+#: two hidden layers of 16 in registers, the actor at any widths, and (on
+#: their own environments only) the induction machine's FOC and sensorless
+#: FOC tiles and the EESM's current tile
+VARIANTS = ("affine", "affine_generic", "actor_16x16", "actor_generic", "foc", "sensorless_foc", "eesm_current")
+#: the variant of each family compiled for one kind of tile (policy_id 4-6)
+_TILE_VARIANTS = {4: "foc", 5: "sensorless_foc", 6: "eesm_current"}
 #: launches per instantiation, counted beside ``CL_KERNEL.launches``
 VARIANT_LAUNCHES = dict.fromkeys(VARIANTS, 0)
 
 _PLAIN_CALLABLE_ON_CUDA = (
     "on CUDA tensors the closed loop runs inside the kernel, which compiles in the "
-    "policy families AffinePolicy (ops/policies.py) and ActorPolicy (utils/rl_fused.py, "
-    "make_actor_tile); a plain callable runs the loop on the CPU only (an environment "
-    "made with device='cpu')"
+    "policy families AffinePolicy (ops/policies.py), ActorPolicy (utils/rl_fused.py, "
+    "make_actor_tile) and, on their own machines, the tiles of utils/foc.py (make_foc_tile and "
+    "make_sensorless_foc_tile on the InductionMachine, make_eesm_current_tile on the EESM); a "
+    "plain callable runs the loop on the CPU only (an environment made with device='cpu')"
 )
 
 
@@ -205,6 +213,8 @@ def kernel_variant(n_state: int, spec) -> str:
         return "affine" if spec.n_obs - n_state in (0, 1) else "affine_generic"
     if spec.policy_id == 1:
         return "actor_16x16" if tuple(spec.options["widths"][1:-1]) == (16, 16) else "actor_generic"
+    if spec.policy_id in _TILE_VARIANTS:
+        return _TILE_VARIANTS[spec.policy_id]
     raise ValueError(f"no closed-loop kernel family has policy_id {spec.policy_id}")
 
 
@@ -238,6 +248,9 @@ def kernel_closed_loop(env, y0, policy, n_steps, *, tau, solver, props, ref_leav
                          "reference limits")
     if n_carry != policy.n_carry:
         raise ValueError(f"{type(policy).__name__} carries {policy.n_carry} leaves, policy_carry has {n_carry}")
+    if policy.env_ids is not None and env._kernel_env_id not in policy.env_ids:
+        raise ValueError(f"{type(policy).__name__} is compiled into the closed-loop kernel for its own machine "
+                         f"only, not for {type(env).__name__}")
     svm_limit = kernel_svm_limit(env)
     if svm_limit is None:
         raise ValueError("the closed-loop kernel computes no action constraint but the inverter circle "

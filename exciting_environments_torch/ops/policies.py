@@ -16,10 +16,14 @@ columns, or ``(actions, carry)`` for a stateful policy (``n_carry > 0``).
 Any callable with that contract runs the closed loop on CPU tensors; on CUDA
 tensors only a :class:`KernelPolicy` does.
 
-The families: :class:`AffinePolicy` here (PD and PI tracking laws, in both
-kernels), ``utils/rl_fused.py::ActorPolicy`` (the PPO actor with
-counter-hash exploration, classic environments) and the sensorless PMSM
-tiles of ``utils/foc.py`` (the PMSM drive).
+The families, by ``policy_id``: 0 :class:`AffinePolicy` here (PD and PI
+tracking laws, in both kernels); 1 ``utils/rl_fused.py::ActorPolicy`` (the
+PPO actor with counter-hash exploration, classic environments); 2 and 3 the
+sensorless PMSM tiles of ``utils/foc.py`` (the PMSM drive); 4 and 5 the
+induction machine's field-oriented tiles of ``utils/foc.py``
+(``FocPolicy``, ``SensorlessFocPolicy`` with its stationary Kalman flux
+observer); 6 the EESM's current tile (``EesmCurrentPolicy``).  Families 4-6
+are compiled for their own environment only (``KernelPolicy.env_ids``).
 """
 
 from __future__ import annotations
@@ -47,12 +51,15 @@ class KernelPolicy(nn.Module):
     """A policy family with a functor in a closed-loop kernel.
 
     Subclasses set ``policy_id`` and ``n_carry`` (the number of ``(B,)``
-    carry leaves the policy threads from step to step) and implement
-    ``forward`` (the plain version) and :meth:`kernel_spec`.
+    carry leaves the policy threads from step to step), ``env_ids`` where
+    the family is compiled for some environments only (their
+    ``_kernel_env_id``; ``None``: every environment of the kernel), and
+    implement ``forward`` (the plain version) and :meth:`kernel_spec`.
     """
 
     policy_id: int = -1
     n_carry: int = 0
+    env_ids: tuple = None
 
     def kernel_spec(self, dtype: torch.dtype, device, params=None) -> KernelSpec:
         """The family id, options and flat parameters (in ``dtype`` on

@@ -16,6 +16,8 @@ bit (pure integer arithmetic), and so do the random bits under ``uniform``.
 ``uniform`` is exact too (a bit cast, one multiply and one add in the
 working precision); ``normal`` applies ``erfinv``, whose float32 and
 float64 implementations differ by a few ulps between XLA and PyTorch.
+On the CPU, ``erfinv`` runs in fixed slices on the calling thread, so a
+draw does not depend on the number of intra-op threads.
 
 Each call is plain PyTorch on the device of its keys, one eager operation
 after another (about 165 for one cipher evaluation); no ``torch.Generator``
@@ -126,13 +128,29 @@ def uniform(keys, n: int, dtype: torch.dtype, minval: float = 0.0, maxval: float
     return torch.clamp_min(_unit_floats(keys, n, dtype) * span + float(lo), float(lo))
 
 
+#: elements per ``erfinv`` call on the CPU: below the grain at which
+#: PyTorch's CPU kernel splits a call across its intra-op threads, whose
+#: float64 results have been seen to differ from the calling thread's by
+#: ~1e-8 relative
+CPU_ERFINV_SLICE = 1024
+
+
+def _erfinv(u: torch.Tensor) -> torch.Tensor:
+    """``torch.special.erfinv``; on the CPU in slices of
+    :data:`CPU_ERFINV_SLICE` elements, each on the calling thread."""
+    if u.device.type != "cpu" or u.numel() <= CPU_ERFINV_SLICE:
+        return torch.special.erfinv(u)
+    flat = u.contiguous().view(-1)
+    return torch.cat([torch.special.erfinv(s) for s in flat.split(CPU_ERFINV_SLICE)]).view(u.shape)
+
+
 def normal(keys, n: int, dtype: torch.dtype) -> torch.Tensor:
     """``jax.random.normal(key, (n,), dtype)`` per key: ``sqrt(2) *
     erfinv(u)`` with ``u`` uniform on ``(nextafter(-1, 0), 1)``."""
     nd = _np(dtype)
     lo = np.nextafter(nd(-1.0), nd(0.0), dtype=nd)
     u = uniform(keys, n, dtype, float(lo), 1.0)
-    return torch.special.erfinv(u) * float(nd(math.sqrt(2)))
+    return _erfinv(u) * float(nd(math.sqrt(2)))
 
 
 def exponential(keys, n: int, dtype: torch.dtype) -> torch.Tensor:

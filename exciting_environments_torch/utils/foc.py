@@ -1,8 +1,8 @@
-"""Sensorless current control of the PMSM drive inside the closed-loop kernel
-(counterpart of the PMSM tiles of ``exciting_environments_tpu/utils/foc.py``).
+"""Drive control inside the closed-loop kernels (counterpart of
+``exciting_environments_tpu/utils/foc.py``).
 
-Two policy families of ``csrc/pmsm_closed_loop.cu``, each a
-:class:`~exciting_environments_torch.ops.policies.KernelPolicy` whose
+Two policy families of ``csrc/pmsm_closed_loop.cu`` for the PMSM drive, each
+a :class:`~exciting_environments_torch.ops.policies.KernelPolicy` whose
 ``forward`` follows the JAX tile operation for operation:
 
 * :func:`make_pmsm_sensorless_current_tile` (:class:`SensorlessPolicy`): a
@@ -20,8 +20,27 @@ the Riccati equation in numpy float64, as the JAX package's factories do.  The
 observer's process and sensor levels are the drive's own ``process_noise`` and
 ``observation_noise``, each field overridable by ``process_std=`` and
 ``measurement_std=`` as in the JAX package; a noisy drive's closed loop streams
-its draws into the kernel (``PMSM.fused_closed_loop``).  The induction-machine
-and EESM tiles wait for those environments.
+its draws into the kernel (``PMSM.fused_closed_loop``).
+
+Three families of ``csrc/closed_loop.cu`` (functors in ``csrc/foc_laws.cuh``)
+for the induction machine and the EESM:
+
+* :func:`make_sensorless_foc` is the rotor-flux-oriented law of the
+  induction machine over a belief state (flux orientation, a cascaded flux
+  PI, magnetize-first torque gating, decoupled current PIs with
+  back-calculation anti-windup, the voltage-vector limit);
+  :func:`make_foc_tile` (:class:`FocPolicy`) runs it on the true state;
+* :func:`make_sensorless_foc_tile` (:class:`SensorlessFocPolicy`) runs it on
+  the belief of a stationary Kalman flux observer
+  (``utils/estimate.py::stationary_kalman_gain``) that reads only the
+  measured current columns;
+* :func:`make_eesm_current_tile` (:class:`EesmCurrentPolicy`): the EESM's
+  dq and field current PIs.
+
+Each tile's ``forward`` is its plain version; on CUDA tensors the kernel
+runs the functor, which folds the tile's Python-number constants into its
+flat parameters, so a tile built on per-batch parameters runs on the CPU
+only.
 """
 
 from __future__ import annotations
@@ -46,13 +65,35 @@ def _vector_scale(u_d, u_q, u_lim):
     return torch.clamp(u_lim / torch.clamp(u_mag, min=1e-9), max=1.0)
 
 
-class _SensorlessBase(KernelPolicy):
-    """A sensorless tile: Python-float constants, ``n_obs`` observation
-    columns, and (``delayed``, deadtime 1) the previous command carried as
-    two extra leaves.  ``SLOTS`` names the flat vector's entries in the
-    order of the functor's enum in ``csrc/pmsm_closed_loop.cu``."""
+class _SlotTile(KernelPolicy):
+    """A tile with Python-number constants and no ``policy_params``: its
+    flat vector is ``SLOTS`` in order (the order of its functor's enum),
+    valued by ``_slot_values()``, and ``_options()`` gives its
+    ``ClosedLoopArgs``/``PmsmClArgs`` fields."""
 
     SLOTS: tuple = ()
+
+    def _slot_values(self) -> dict:
+        raise NotImplementedError
+
+    def _options(self) -> dict:
+        return {}
+
+    def kernel_spec(self, dtype, device, params=None) -> KernelSpec:
+        if params is not None:
+            raise ValueError(f"{type(self).__name__} takes no policy_params")
+        values = self._slot_values()
+        flat = torch.tensor([float(values[name]) for name in self.SLOTS], dtype=torch.float64)
+        return KernelSpec(self.policy_id, self.n_obs, self._options(), flat.to(dtype=dtype, device=device).contiguous())
+
+    def extra_repr(self) -> str:
+        return f"n_obs={self.n_obs}"
+
+
+class _SensorlessBase(_SlotTile):
+    """A sensorless PMSM tile of ``csrc/pmsm_closed_loop.cu``: ``n_obs``
+    observation columns and (``delayed``, deadtime 1) the previous command
+    carried as two extra leaves."""
 
     def __init__(self, consts: dict, n_obs: int, delayed: bool):
         super().__init__()
@@ -61,16 +102,8 @@ class _SensorlessBase(KernelPolicy):
         self.delayed = bool(delayed)
         self.n_carry = 6 if self.delayed else 4
 
-    def _slot_values(self) -> dict:
-        raise NotImplementedError
-
-    def kernel_spec(self, dtype, device, params=None) -> KernelSpec:
-        if params is not None:
-            raise ValueError(f"{type(self).__name__} takes no policy_params")
-        values = self._slot_values()
-        flat = torch.tensor([values[name] for name in self.SLOTS], dtype=torch.float64)
-        return KernelSpec(self.policy_id, self.n_obs, {"delayed": int(self.delayed)},
-                          flat.to(dtype=dtype, device=device).contiguous())
+    def _options(self):
+        return {"delayed": int(self.delayed)}
 
     def extra_repr(self) -> str:
         return f"n_obs={self.n_obs}, delayed={self.delayed}"
@@ -544,3 +577,541 @@ def make_pmsm_saturated_sensorless_current_tile(model, *, i_d_ref: float, i_q_re
     n_base = 8 + len(model.control_state)  # standard columns + tracked references
     policy = ScheduledSensorlessPolicy(consts, n_base + 10, bool(deadtime))
     return policy, _carry0(model, spans, aspans, deadtime), sched_lut
+
+
+# ---------------------------------------------------------------------------
+# the induction machine's rotor-flux-oriented control and the EESM's current
+# tile (closed_loop.cu, csrc/foc_laws.cuh)
+# ---------------------------------------------------------------------------
+
+
+def _is_batched(v) -> bool:
+    return isinstance(v, torch.Tensor) and v.ndim != 0
+
+
+def _maybe_scalar(v):
+    """A scalar band or parameter as a Python float; a per-batch ``(B,)``
+    tensor stays a tensor."""
+    return v if _is_batched(v) else float(v)
+
+
+def _minimum(a, b):
+    if not (_is_batched(a) or _is_batched(b)):
+        return min(a, b)
+    if _is_batched(a) and _is_batched(b):
+        return torch.minimum(a, b)
+    t, s = (a, b) if _is_batched(a) else (b, a)
+    return torch.clamp(t, max=s)
+
+
+def _check_symmetric(model, axes, who, hint=""):
+    """Refuse an asymmetric action band: the vector limit and the ``u /
+    u_max`` normalization keep the command's direction only when the band is
+    linear through zero (``min == -max``)."""
+    as_np = lambda v: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+    for ax in axes:
+        norm = getattr(model.env_properties.action_normalizations, ax)
+        if not np.allclose(as_np(norm.min), -as_np(norm.max)):
+            raise ValueError(f"{who} needs a symmetric {ax} action band (min == -max){hint}; "
+                             f"got min={norm.min}, max={norm.max}")
+
+
+class FocLaw:
+    """The rotor-flux-oriented law of :func:`make_sensorless_foc`, over the
+    physical stator currents and rotor flux of a belief state:
+    ``law(i_sd, i_sq, psi_rd, psi_rq, carry, k) -> ((a_sd, a_sq), carry)``
+    with ``carry = (int_d, int_q, int_psi, free)``.  Its constants are Python
+    floats, or ``(B,)`` tensors for per-batch bands and parameters (the law
+    broadcasts).  ``SLOTS`` names the flat values the kernel's functor reads
+    (``csrc/foc_laws.cuh::FocLaw``), in its order."""
+
+    SLOTS = ("PSI_FLOOR", "PSI_STAR", "KP_PSI", "PSI_FF", "I_LO", "I_HI", "KIPSI_TAU", "AW_PSI", "I_MAX_SQ",
+             "TORQUE_REF", "TQ_GAIN", "HALF_PSI", "INV_QUARTER_PSI", "L_M", "TAU_R", "OMEGA", "KP", "SIGMA_LS", "K_R",
+             "U_LIM", "KI_TAU", "AW", "INV_UMAX_D", "INV_UMAX_Q")
+
+    def __init__(self, params, *, tau, psi_star, torque_ref, kp, ki, kp_psi, ki_psi, psi_floor, i_max, u_lim,
+                 u_max_d, u_max_q):
+        self.params = params
+        self.tau, self.psi_star, self.torque_ref = tau, psi_star, torque_ref
+        self.kp, self.ki, self.kp_psi, self.ki_psi, self.psi_floor = kp, ki, kp_psi, ki_psi, psi_floor
+        self.i_max, self.u_lim, self.u_max_d, self.u_max_q = i_max, u_lim, u_max_d, u_max_q
+
+    def __call__(self, i_sd_v, i_sq_v, psi_rd_v, psi_rq_v, carry, k):
+        params, tau = self.params, self.tau
+        psi_star, i_max, u_lim = self.psi_star, self.i_max, self.u_lim
+        kp, ki, kp_psi, ki_psi, psi_floor = self.kp, self.ki, self.kp_psi, self.ki_psi, self.psi_floor
+        k_r = params.l_m / params.l_r
+        # 1. orientation from the ESTIMATED flux; below the flux floor a frame
+        # rotating at the rotor speed (a static parameter)
+        psi_mag = torch.sqrt(psi_rd_v * psi_rd_v + psi_rq_v * psi_rq_v)
+        denom = torch.clamp(psi_mag, min=psi_floor)
+        theta_f = params.omega * tau * k
+        if not isinstance(theta_f, torch.Tensor):
+            theta_f = torch.full_like(psi_mag, theta_f)
+        use_est = psi_mag > psi_floor
+        cos_rho = torch.where(use_est, psi_rd_v / denom, torch.cos(theta_f))
+        sin_rho = torch.where(use_est, psi_rq_v / denom, torch.sin(theta_f))
+        # 2. estimated currents into the flux frame
+        i_d = cos_rho * i_sd_v + sin_rho * i_sq_v
+        i_q = cos_rho * i_sq_v - sin_rho * i_sd_v
+        # 3. current references: the outer flux PI and the torque relation,
+        # limited to the command circle (flux priority)
+        int_d, int_q, int_psi, free_c = carry
+        free = free_c > 0  # a bool carry, or the tiles' 1.0/0.0 plane
+        e_psi = psi_star - psi_mag
+        i_d_raw = psi_star / params.l_m + kp_psi * e_psi + int_psi
+        i_d_ref = torch.clamp(i_d_raw, -i_max, i_max)
+        # directional conditional integration while the inverter is railed,
+        # back-calculation against the achieved d-current
+        unwind = e_psi * i_d_raw < 0.0
+        int_psi = (int_psi + torch.where(free | unwind, ki_psi * tau * e_psi, 0.0)
+                   + (tau * ki_psi / kp_psi) * (i_d - i_d_raw))
+        i_q_cap = torch.sqrt(torch.clamp(i_max**2 - i_d_ref * i_d_ref, min=0.0))
+        i_q_ref = torch.clamp(self.torque_ref / (1.5 * params.p * k_r * denom), -i_q_cap, i_q_cap)
+        # 4. magnetize first: torque current once the estimated flux has built
+        gate = torch.clamp((psi_mag - 0.5 * psi_star) / (0.25 * psi_star), 0.0, 1.0)
+        i_q_ref = gate * i_q_ref
+        # 5. PI with the decoupling feedforward at the slip-adjusted speed
+        e_d = i_d_ref - i_d
+        e_q = i_q_ref - i_q
+        sigma_l_s = params.l_s - params.l_m * k_r
+        omega_s = params.omega + params.l_m * i_q / ((params.l_r / params.r_r) * denom)
+        u_d_unsat = kp * e_d + int_d - omega_s * sigma_l_s * i_q
+        u_q_unsat = kp * e_q + int_q + omega_s * (sigma_l_s * i_d + k_r * psi_mag)
+        # 6. voltage-vector limit, back-calculation anti-windup, back to the
+        # stationary frame, normalized onto the action band
+        u_mag = torch.sqrt(u_d_unsat * u_d_unsat + u_q_unsat * u_q_unsat)
+        scale = torch.clamp(u_lim / torch.clamp(u_mag, min=1e-9), max=1.0)
+        u_d = u_d_unsat * scale
+        u_q = u_q_unsat * scale
+        k_t = tau * ki / kp  # tracking gain: T_t = kp/ki (the PI's own T_i)
+        int_d = int_d + ki * tau * e_d + k_t * (u_d - u_d_unsat)
+        int_q = int_q + ki * tau * e_q + k_t * (u_q - u_q_unsat)
+        u_sd = cos_rho * u_d - sin_rho * u_q
+        u_sq = sin_rho * u_d + cos_rho * u_q
+        flag = (u_mag <= u_lim).to(free_c.dtype)
+        return (u_sd / self.u_max_d, u_sq / self.u_max_q), (int_d, int_q, int_psi, flag)
+
+    def slot_values(self, who) -> dict:
+        """The functor's flat values (Python floats), folded as the plain law
+        folds its Python numbers; per-batch constants refuse: the kernel
+        folds them into its program."""
+        p = self.params
+        consts = dict(tau=self.tau, psi_star=self.psi_star, i_max=self.i_max, u_lim=self.u_lim,
+                      u_max_d=self.u_max_d, u_max_q=self.u_max_q,
+                      **{n: getattr(p, n) for n in ("l_m", "l_r", "l_s", "r_r", "p", "omega")})
+        batched = sorted(n for n, v in consts.items() if _is_batched(v))
+        if batched:
+            raise ValueError(f"{who} on CUDA tensors needs scalar static params and normalizations (the kernel "
+                             f"folds them into its program); per-batch: {batched}.  The plain law runs them on "
+                             "CPU tensors")
+        c = {n: float(v) for n, v in consts.items()}
+        k_r = c["l_m"] / c["l_r"]
+        tau, psi_star, i_max = c["tau"], c["psi_star"], c["i_max"]
+        return {
+            "PSI_FLOOR": self.psi_floor, "PSI_STAR": psi_star, "KP_PSI": self.kp_psi, "PSI_FF": psi_star / c["l_m"],
+            "I_LO": -i_max, "I_HI": i_max, "KIPSI_TAU": self.ki_psi * tau, "AW_PSI": tau * self.ki_psi / self.kp_psi,
+            "I_MAX_SQ": i_max**2, "TORQUE_REF": float(self.torque_ref), "TQ_GAIN": 1.5 * c["p"] * k_r,
+            "HALF_PSI": 0.5 * psi_star, "INV_QUARTER_PSI": 1.0 / (0.25 * psi_star), "L_M": c["l_m"],
+            "TAU_R": c["l_r"] / c["r_r"], "OMEGA": c["omega"], "KP": self.kp, "SIGMA_LS": c["l_s"] - c["l_m"] * k_r,
+            "K_R": k_r, "U_LIM": c["u_lim"], "KI_TAU": self.ki * tau, "AW": tau * self.ki / self.kp,
+            "INV_UMAX_D": 1.0 / c["u_max_d"], "INV_UMAX_Q": 1.0 / c["u_max_q"],
+        }
+
+    def frame_step(self) -> float:
+        """``omega * tau``, the fallback frame's angle per step, in double:
+        the functor rounds ``frame_step * k`` to the working type."""
+        return float(self.params.omega) * float(self.tau)
+
+
+def make_sensorless_foc(model, *, psi_ref: float, torque_ref: float, kp: float = 40.0, ki: float = 8000.0,
+                        kp_psi: float = 10.0, ki_psi: float = 200.0, psi_floor: float = 0.05, i_max: float = None,
+                        field_weakening: bool = False, u_margin: float = 0.85):
+    """Rotor-flux-oriented PI current control of the
+    :class:`~exciting_environments_torch.models.induction_machine.InductionMachine`
+    over a belief state (``utils/foc.py:102`` of the JAX package).
+
+    The law (amplitude-invariant stationary-frame model): orientation on the
+    estimated flux ``psi_r / |psi_r|`` (below ``psi_floor`` a frame rotating
+    at the rotor speed), the stator current rotated into that frame, an outer
+    flux PI ``i_d* = psi*/L_m + PI(psi* - |psi|)`` with directional
+    conditional integration and back-calculation against the achieved
+    d-current, the torque current ``i_q* = T* / (1.5 p (L_m/L_r)
+    max(|psi|, psi_floor))`` limited to the remaining current circle and
+    gated open once the flux has built (magnetize first), decoupled current
+    PIs at the slip-adjusted synchronous speed with back-calculation
+    anti-windup, and the voltage-VECTOR limit.
+
+    Args:
+        model: the deterministic InductionMachine twin (its static params
+            give ``L_m``/``L_r``/``p``, its action band the voltage limit);
+            per-batch parameters and symmetric per-batch bands broadcast.
+        psi_ref: rotor-flux setpoint [Vs].
+        torque_ref: electromagnetic-torque setpoint [Nm].
+        kp / ki: current-loop PI gains [V/A], [V/(A s)].
+        kp_psi / ki_psi: outer flux-loop PI gains [A/Vs], [A/(Vs s)].
+        psi_floor: lower clamp [Vs] on the flux magnitude in the ``i_q*``
+            division and the orientation.
+        i_max: current-command limit [A] (default 90% of the ``i_sd`` band).
+        field_weakening: derate the flux setpoint above base speed,
+            ``psi* = min(psi_ref, u_margin * u_lim / (|omega| L_m/L_r))``.
+        u_margin: share of the voltage limit the back-EMF may take under
+            field weakening.
+
+    Returns:
+        ``(controller, carry0)``: ``controller(belief_state, carry, k) ->
+        (normalized_action (B, 2), carry)`` with ``carry = (int_d, int_q,
+        int_psi, free)`` (the integrators and the bool "voltage vector was
+        unsaturated" flag).  ``controller._law`` is the :class:`FocLaw` the
+        tiles share.
+    """
+    params = model.env_properties.static_params
+    tau = float(model.tau)
+    act_norms = model.env_properties.action_normalizations
+    _check_symmetric(model, ("u_sd", "u_sq"), "make_sensorless_foc",
+                     " to keep the voltage-vector limit orientation-preserving")
+    u_max_d = _maybe_scalar(act_norms.u_sd.max)
+    u_max_q = _maybe_scalar(act_norms.u_sq.max)
+    if i_max is None:
+        i_norm = model.env_properties.physical_normalizations.i_sd
+        lo, hi = _maybe_scalar(i_norm.min), _maybe_scalar(i_norm.max)
+        if not (_is_batched(lo) or _is_batched(hi)):
+            i_max = 0.9 * min(abs(lo), abs(hi))
+        else:
+            as_t = lambda v: v if _is_batched(v) else torch.full((model.batch_size,), v, dtype=model.dtype,
+                                                                  device=model.device)
+            i_max = 0.9 * torch.minimum(as_t(lo).abs(), as_t(hi).abs())
+    else:
+        i_max = _maybe_scalar(i_max)
+    B = model.batch_size
+    zeros = lambda: torch.zeros(B, dtype=model.dtype, device=model.device)
+    carry0 = (zeros(), zeros(), zeros(), torch.ones(B, dtype=torch.bool, device=model.device))
+
+    # stationary components of |u_dq| <= u_lim stay inside the band
+    u_lim = _minimum(u_max_d, u_max_q)
+    psi_star = psi_ref
+    if field_weakening:
+        omega, k_r0 = params.omega, params.l_m / params.l_r
+        if not _is_batched(omega) and not _is_batched(u_lim):
+            psi_star = min(psi_ref, u_margin * u_lim / (max(abs(float(omega)), 1e-6) * float(k_r0)))
+        else:
+            w = torch.clamp(omega.abs(), min=1e-6) if _is_batched(omega) else max(abs(float(omega)), 1e-6)
+            psi_star = torch.clamp(u_margin * u_lim / (w * k_r0), max=psi_ref)
+
+    law = FocLaw(params, tau=tau, psi_star=psi_star, torque_ref=torque_ref, kp=kp, ki=ki, kp_psi=kp_psi,
+                 ki_psi=ki_psi, psi_floor=psi_floor, i_max=i_max, u_lim=u_lim, u_max_d=u_max_d, u_max_q=u_max_q)
+
+    def controller(belief, carry, k):
+        phys = belief.physical_state
+        (a_d, a_q), carry = law(phys.i_sd, phys.i_sq, phys.psi_rd, phys.psi_rq, carry, k)
+        return torch.stack([a_d, a_q], dim=-1), carry
+
+    controller._law = law
+    return controller, carry0
+
+
+def _scalar_spans(model, what):
+    """The four state fields' scalar ``(min, max)`` normalizations."""
+    pn = model.env_properties.physical_normalizations
+    spans = tuple((getattr(pn, n).min, getattr(pn, n).max) for n in ("i_sd", "i_sq", "psi_rd", "psi_rq"))
+    if any(_is_batched(v) for span in spans for v in span):
+        raise ValueError(
+            f"{what} needs scalar physical normalizations (the fused closed-loop kernel folds them into the "
+            "program); per-batch bands only work through the belief-space controller"
+        )
+    return tuple((float(mn), float(mx)) for mn, mx in spans)
+
+
+def _denormalized(cols, spans):
+    """``(o + 1) / 2 * (mx - mn) + mn`` per column, the tiles' order."""
+    return tuple((o + 1) / 2 * (mx - mn) + mn for o, (mn, mx) in zip(cols, spans))
+
+
+def _span_slots(spans) -> dict:
+    out = {}
+    for i, (mn, mx) in enumerate(spans):
+        out[f"SPAN{i}"], out[f"MN{i}"] = mx - mn, mn
+    return out
+
+
+class FocPolicy(_SlotTile):
+    """The tile of :func:`make_foc_tile`: the :class:`FocLaw` on the
+    denormalized state columns; carry ``(int_d, int_q, int_psi, free)`` with
+    the flag as a 1.0/0.0 plane."""
+
+    policy_id = 4
+    n_carry = 4
+    env_ids = (6,)
+    SLOTS = FocLaw.SLOTS + ("SPAN0", "MN0", "SPAN1", "MN1", "SPAN2", "MN2", "SPAN3", "MN3")
+
+    def __init__(self, law: FocLaw, spans, n_obs: int):
+        super().__init__()
+        self.law, self.spans, self.n_obs = law, tuple(spans), int(n_obs)
+
+    def _slot_values(self):
+        return {**self.law.slot_values(type(self).__name__), **_span_slots(self.spans)}
+
+    def _options(self):
+        return {"frame_step": self.law.frame_step()}
+
+    def forward(self, obs, t, carry, params=None):
+        return self.law(*_denormalized(obs[:4], self.spans), tuple(carry), t)
+
+
+def make_foc_tile(model, **law_kwargs):
+    """The law of :func:`make_sensorless_foc` as a stateful tile policy of the
+    closed-loop kernel, on the true state (``utils/foc.py:323`` of the JAX
+    package): full-state FOC at fused closed-loop speed.
+
+    Args:
+        model: the :class:`InductionMachine` (scalar normalizations; on CUDA
+            also scalar static params, which the kernel folds in).
+        **law_kwargs: forwarded to :func:`make_sensorless_foc`
+            (``psi_ref``/``torque_ref`` required).
+
+    Returns:
+        ``(policy, carry0)`` for ``env.fused_closed_loop(...,
+        policy_carry=carry0)`` and ``RolloutCollector.collect_policy_fused``:
+        a :class:`FocPolicy` and ``(int_d, int_q, int_psi, free)``, the flag a
+        1.0/0.0 plane (kernel carries are floating point).
+    """
+    controller, carry0 = make_sensorless_foc(model, **law_kwargs)
+    spans = _scalar_spans(model, "make_foc_tile")
+    policy = FocPolicy(controller._law, spans, 4 + len(model.control_state))
+    return policy, carry0[:3] + (torch.ones(model.batch_size, dtype=model.dtype, device=model.device),)
+
+
+class SensorlessFocPolicy(_SlotTile):
+    """The tile of :func:`make_sensorless_foc_tile`: a stationary Kalman
+    observer on the measured columns, then the :class:`FocLaw` on its
+    corrected belief.  Carry: the 4 normalized predicted-belief planes, then
+    the law's 4 planes.  Terms whose gain, ``A`` or ``B`` coefficient is
+    exactly 0.0 are skipped (the kernel reads them from ``K_MASK``,
+    ``A_MASK`` and ``B_MASK``), and the sums start from 0.0 in index order,
+    as in the JAX tile."""
+
+    policy_id = 5
+    n_carry = 8
+    env_ids = (6,)
+    MAX_MEAS = 4
+    SLOTS = (FocLaw.SLOTS + ("SPAN0", "MN0", "SPAN1", "MN1", "SPAN2", "MN2", "SPAN3", "MN3", "N_MEAS")
+             + tuple(f"MIDX{k}" for k in range(4)) + tuple(f"ZCOL{k}" for k in range(4))
+             + tuple(f"K{i}{k}" for i in range(4) for k in range(4))
+             + tuple(f"A{i}{j}" for i in range(4) for j in range(4))
+             + tuple(f"B{i}{k}" for i in range(4) for k in range(2))
+             + tuple(f"C{i}" for i in range(4)) + ("K_MASK", "A_MASK", "B_MASK"))
+
+    def __init__(self, law: FocLaw, spans, n_obs: int, A, B, c, K, midx, zcols):
+        super().__init__()
+        self.law, self.spans, self.n_obs = law, tuple(spans), int(n_obs)
+        self.A = [[float(v) for v in row] for row in A]
+        self.B = [[float(v) for v in row] for row in B]
+        self.c = [float(v) for v in c]
+        self.K = [[float(v) for v in row] for row in K]
+        self.midx, self.zcols = [int(v) for v in midx], [int(v) for v in zcols]
+        if len(self.midx) > self.MAX_MEAS:
+            raise ValueError(f"at most {self.MAX_MEAS} measured fields")
+
+    def _slot_values(self):
+        n_meas = len(self.midx)
+        out = {**self.law.slot_values(type(self).__name__), **_span_slots(self.spans), "N_MEAS": n_meas}
+        for k in range(4):
+            out[f"MIDX{k}"] = self.midx[k] if k < n_meas else 0
+            out[f"ZCOL{k}"] = self.zcols[k] if k < n_meas else 0
+        K = [[self.K[i][k] if k < n_meas else 0.0 for k in range(4)] for i in range(4)]
+        for i in range(4):
+            out.update({f"K{i}{k}": K[i][k] for k in range(4)})
+            out.update({f"A{i}{j}": self.A[i][j] for j in range(4)})
+            out.update({f"B{i}{k}": self.B[i][k] for k in range(2)})
+            out[f"C{i}"] = self.c[i]
+        # the non-zero terms as bit masks (bit 4 i + k, 4 i + j, 2 i + k),
+        # taken from the Python doubles; below 2**16, exact in float32
+        nz = lambda m: sum(1 << b for b, v in enumerate(v for row in m for v in row) if v != 0.0)
+        out.update(K_MASK=nz(K), A_MASK=nz(self.A), B_MASK=nz(self.B))
+        return out
+
+    def _options(self):
+        return {"frame_step": self.law.frame_step()}
+
+    def forward(self, obs, t, carry, params=None):
+        K, A, Bm, cv, midx, zcols = self.K, self.A, self.B, self.c, self.midx, self.zcols
+        n, n_meas = 4, len(midx)
+        xh = carry[:n]  # predicted normalized belief x(t | t-1)
+        innov = tuple(obs[zcols[k]] - xh[midx[k]] for k in range(n_meas))
+        xc = tuple(xh[i] + sum((K[i][k] * innov[k] for k in range(n_meas) if K[i][k] != 0.0), 0.0)
+                   for i in range(n))
+        (a_d, a_q), foc_c = self.law(*_denormalized(xc, self.spans), tuple(carry[n:]), t)
+        # predict with the action the kernel is about to apply (normalized,
+        # what the observer's B was linearized against)
+        acts = (a_d, a_q)
+        xn = []
+        for i in range(n):
+            v = (cv[i] + sum((A[i][j] * xc[j] for j in range(n) if A[i][j] != 0.0), 0.0)
+                 + sum((Bm[i][k] * acts[k] for k in range(2) if Bm[i][k] != 0.0), 0.0))
+            xn.append(v if isinstance(v, torch.Tensor) else torch.full_like(a_d, v))
+        return acts, tuple(xn) + tuple(foc_c)
+
+
+def make_sensorless_foc_tile(model, *, measured_fields=("i_sd", "i_sq"), process_std=None, measurement_std=None,
+                             q_floor: float = 1e-8, **law_kwargs):
+    """Sensorless FOC inside the closed-loop kernel: a stationary Kalman flux
+    observer and the rotor-flux-oriented law in one stateful tile
+    (``utils/foc.py:382`` of the JAX package).
+
+    The tile reads only the measured observation columns (on a plant with
+    ``observation_noise`` the noisy sensor values the kernel streams),
+    corrects its predicted belief with the constant gain of
+    :func:`~exciting_environments_torch.utils.estimate.stationary_kalman_gain`,
+    runs the law on the corrected belief and predicts with ``A x + B u + c``
+    at the action it emits.
+
+    Args:
+        model: the :class:`InductionMachine` the loop runs on; its noise
+            configuration is the observer's Q and R.  Scalar normalizations
+            and static params.
+        measured_fields: the observation columns the tile reads.
+        process_std / measurement_std / q_floor: observer overrides, see
+            :func:`~exciting_environments_torch.utils.estimate.stationary_kalman_gain`.
+        **law_kwargs: forwarded to :func:`make_sensorless_foc`.
+
+    Returns:
+        ``(policy, carry0)``: a :class:`SensorlessFocPolicy` and its 8 carry
+        planes (the 4 normalized observer planes, then the law's 4).
+    """
+    from exciting_environments_torch.utils.estimate import stationary_kalman_gain
+
+    controller, carry0 = make_sensorless_foc(model, **law_kwargs)
+    spans = _scalar_spans(model, "make_sensorless_foc_tile")
+    sk = stationary_kalman_gain(model, measured_fields=tuple(measured_fields), process_std=process_std,
+                                measurement_std=measurement_std, q_floor=q_floor)
+    if sk.names != ("i_sd", "i_sq", "psi_rd", "psi_rq"):
+        raise ValueError("make_sensorless_foc_tile expects the InductionMachine state order "
+                         f"('i_sd', 'i_sq', 'psi_rd', 'psi_rq'); got {sk.names}")
+    policy = SensorlessFocPolicy(controller._law, spans, 4 + len(model.control_state), sk.A, sk.B, sk.c, sk.K,
+                                 sk.midx, sk.zidx)
+    full = lambda v: torch.full((model.batch_size,), v, dtype=model.dtype, device=model.device)
+    return policy, tuple(full(0.0) for _ in range(4)) + carry0[:3] + (full(1.0),)
+
+
+class EesmCurrentPolicy(_SlotTile):
+    """The tile of :func:`make_eesm_current_tile`: dq and field current PIs
+    with the decoupling feedforward, the stator voltage-vector limit and the
+    field voltage clip; carry ``(int_d, int_q, int_f)``."""
+
+    policy_id = 6
+    n_carry = 3
+    env_ids = (7,)
+    SLOTS = ("SPAN0", "MN0", "SPAN1", "MN1", "SPAN2", "MN2", "REF_D", "REF_Q", "REF_F", "KP", "KP_F", "FF_D", "FF_Q",
+             "FF_F", "W_LQ", "OMEGA", "L_D", "L_M", "U_LIM", "UF_LO", "UF_HI", "KI_TAU", "KIF_TAU", "AW", "AW_F",
+             "INV_UMAX_D", "INV_UMAX_Q", "INV_UMAX_F")
+
+    def __init__(self, consts: dict, spans, n_obs: int):
+        super().__init__()
+        self.consts, self.spans, self.n_obs = dict(consts), tuple(spans), int(n_obs)
+
+    def _slot_values(self):
+        c = self.consts
+        tau = c["tau"]
+        return {
+            **_span_slots(self.spans), "REF_D": c["i_d_ref"], "REF_Q": c["i_q_ref"], "REF_F": c["i_f_ref"],
+            "KP": c["kp"], "KP_F": c["kp_f"], "FF_D": c["r_s"] * c["i_d_ref"], "FF_Q": c["r_s"] * c["i_q_ref"],
+            "FF_F": c["r_f"] * c["i_f_ref"], "W_LQ": c["omega_el"] * c["l_q"], "OMEGA": c["omega_el"],
+            "L_D": c["l_d"], "L_M": c["l_m"], "U_LIM": c["u_lim"], "UF_LO": -c["u_max_f"], "UF_HI": c["u_max_f"],
+            "KI_TAU": c["ki"] * tau, "KIF_TAU": c["ki_f"] * tau, "AW": tau * c["ki"] / c["kp"],
+            "AW_F": tau * c["ki_f"] / c["kp_f"], "INV_UMAX_D": 1.0 / c["u_max_d"], "INV_UMAX_Q": 1.0 / c["u_max_q"],
+            "INV_UMAX_F": 1.0 / c["u_max_f"],
+        }
+
+    def forward(self, obs, t, carry, params=None):
+        c = self.consts
+        i_d_ref, i_q_ref, i_f_ref, r_s, r_f = c["i_d_ref"], c["i_q_ref"], c["i_f_ref"], c["r_s"], c["r_f"]
+        kp, ki, kp_f, ki_f, tau = c["kp"], c["ki"], c["kp_f"], c["ki_f"], c["tau"]
+        omega_el, l_d, l_q, l_m, u_max_f = c["omega_el"], c["l_d"], c["l_q"], c["l_m"], c["u_max_f"]
+        i_d, i_q, i_f = _denormalized(obs[:3], self.spans)
+        int_d, int_q, int_f = carry
+        e_d = i_d_ref - i_d
+        e_q = i_q_ref - i_q
+        e_f = i_f_ref - i_f
+        # decoupling feedforward: resistive drop at the setpoint, speed
+        # cross-terms on the measured currents
+        u_d_unsat = kp * e_d + int_d + r_s * i_d_ref - omega_el * l_q * i_q
+        u_q_unsat = kp * e_q + int_q + r_s * i_q_ref + omega_el * (l_d * i_d + l_m * i_f)
+        u_f_unsat = kp_f * e_f + int_f + r_f * i_f_ref
+        # stator voltage-vector limit, field per-axis clip
+        u_mag = torch.sqrt(u_d_unsat * u_d_unsat + u_q_unsat * u_q_unsat)
+        scale = torch.clamp(c["u_lim"] / torch.clamp(u_mag, min=1e-9), max=1.0)
+        u_d = u_d_unsat * scale
+        u_q = u_q_unsat * scale
+        u_f = torch.clamp(u_f_unsat, -u_max_f, u_max_f)
+        # back-calculation anti-windup (tracking time = the PI's own T_i)
+        int_d = int_d + ki * tau * e_d + (tau * ki / kp) * (u_d - u_d_unsat)
+        int_q = int_q + ki * tau * e_q + (tau * ki / kp) * (u_q - u_q_unsat)
+        int_f = int_f + ki_f * tau * e_f + (tau * ki_f / kp_f) * (u_f - u_f_unsat)
+        return (u_d / c["u_max_d"], u_q / c["u_max_q"], u_f / u_max_f), (int_d, int_q, int_f)
+
+
+def make_eesm_current_tile(model, *, i_d_ref: float, i_q_ref: float, i_f_ref: float, kp: float = None,
+                           ki: float = None, kp_f: float = None, ki_f: float = None):
+    """dq and field PI current control of the
+    :class:`~exciting_environments_torch.models.eesm.EESM` as a stateful tile
+    policy of the closed-loop kernel (``utils/foc.py:494`` of the JAX
+    package).
+
+    The rotor-frame model needs no orientation step; the q-axis feedforward
+    carries the field's back-EMF ``omega_el l_m i_f`` beside the speed
+    cross-terms.  Three PI integrators ride carry planes; the stator pair is
+    limited as a voltage vector and the field voltage per axis, both with
+    back-calculation anti-windup.  Default gains: ``kp = 2000 sigma_l_d``,
+    ``kp_f = 400 sigma_l_f`` with ``sigma_l_d = D / l_f``, ``sigma_l_f = D /
+    l_d``, integral times 5 ms and 20 ms.
+
+    Args:
+        model: the :class:`EESM` (scalar normalizations and static params).
+        i_d_ref / i_q_ref / i_f_ref: scalar current setpoints [A].
+        kp / ki, kp_f / ki_f: stator and field PI gains.
+
+    Returns:
+        ``(policy, carry0)``: an :class:`EesmCurrentPolicy` and ``(int_d,
+        int_q, int_f)`` zero planes.
+    """
+    who = "make_eesm_current_tile"
+
+    def _scalar(name):
+        v = getattr(model.env_properties.static_params, name)
+        if _is_batched(v):
+            raise ValueError(
+                f"{who} needs scalar static params (the kernel folds them into the program); {name} has shape "
+                f"{tuple(v.shape)} — run per-batch machines through vmap_step with a host-side law instead"
+            )
+        return float(v)
+
+    for _name, _v in (("i_d_ref", i_d_ref), ("i_q_ref", i_q_ref), ("i_f_ref", i_f_ref)):
+        if np.ndim(_v) != 0:
+            raise ValueError(f"{who} needs scalar setpoints (the kernel closes over them); {_name} has shape "
+                             f"{np.shape(_v)}")
+    r_s, r_f = _scalar("r_s"), _scalar("r_f")
+    l_d, l_q, l_f, l_m = _scalar("l_d"), _scalar("l_q"), _scalar("l_f"), _scalar("l_m")
+    omega_el = _scalar("omega_el")
+    tau = float(model.tau)
+    det = l_d * l_f - l_m * l_m
+    sigma_l_d, sigma_l_f = det / l_f, det / l_d
+    kp = 2000.0 * sigma_l_d if kp is None else kp
+    ki = kp / 5e-3 if ki is None else ki
+    kp_f = 400.0 * sigma_l_f if kp_f is None else kp_f
+    ki_f = kp_f / 20e-3 if ki_f is None else ki_f
+
+    _check_symmetric(model, ("u_d", "u_q", "u_f"), who)
+    an = model.env_properties.action_normalizations
+    u_max_d, u_max_q, u_max_f = float(an.u_d.max), float(an.u_q.max), float(an.u_f.max)
+    pn = model.env_properties.physical_normalizations
+    spans = tuple((getattr(pn, n).min, getattr(pn, n).max) for n in ("i_d", "i_q", "i_f"))
+    if any(_is_batched(v) for span in spans for v in span):
+        raise ValueError(f"{who} needs scalar physical normalizations (the fused closed-loop kernel folds them "
+                         "into the program)")
+    spans = tuple((float(mn), float(mx)) for mn, mx in spans)
+    consts = dict(i_d_ref=float(i_d_ref), i_q_ref=float(i_q_ref), i_f_ref=float(i_f_ref), r_s=r_s, r_f=r_f, l_d=l_d,
+                  l_q=l_q, l_m=l_m, omega_el=omega_el, tau=tau, kp=float(kp), ki=float(ki), kp_f=float(kp_f),
+                  ki_f=float(ki_f), u_max_d=u_max_d, u_max_q=u_max_q, u_max_f=u_max_f, u_lim=min(u_max_d, u_max_q))
+    policy = EesmCurrentPolicy(consts, spans, 3 + len(model.control_state))
+    zeros = lambda: torch.zeros(model.batch_size, dtype=model.dtype, device=model.device)
+    return policy, (zeros(), zeros(), zeros())

@@ -38,6 +38,16 @@ Cases:
     pendulum (``kernel_rollout``, Euler, both layouts; row 1a).  Medians of
     11 timings.
 
+``closed_loops``
+    The closed-loop kernel (``csrc/closed_loop.cu``) with the policy
+    families of its earlier rows, at ``chip_smoke.py``'s main cases in
+    float32, B = 65,536 (PERF.md section 6): the tracking pendulum with the
+    PD and the PI law over T = 4,096 (rows 2a, 2b), the (16, 16) actor with
+    saves every step over T = 64 at tau = 2e-2 (2c), the PD law with
+    ``fast_math=True`` (2d), the Acrobot PD law (2e) and the induction
+    machine's PI law with ``u_dc = 400`` (2f) over T = 4,096.  Medians of 11
+    timings of ``kernel_closed_loop``.
+
 ``no_grad_entries``
     The four exact kernels with no input that requires grad, at
     ``chip_smoke.py``'s main cases in float32, B = 65,536: the stepper on
@@ -162,6 +172,42 @@ def no_grad_entries(cs, ex) -> dict:
     return {"ms": times}
 
 
+def closed_loops(cs, ex) -> dict:
+    import torch
+    from exciting_environments_torch.ops.kernels import closed_loop as CL
+    from exciting_environments_torch.utils.convert import actor_params_from_numpy
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    times = {}
+
+    def run(row, env, policy, n_steps, field, ref, **kw):
+        _, state = env.vmap_reset(rng=gen)
+        y0 = tuple(getattr(state.physical_state, n) for n in env._ode_state_fields)
+        refs = (getattr(env.env_properties.physical_normalizations, field).normalize(ref),)
+        args = dict(tau=env.tau, solver=env._solver, props=env.env_properties, ref_leaves=refs, **kw)
+        times[row] = cs.time_ms(lambda: CL.kernel_closed_loop(env, y0, policy, n_steps, **args), reps=11)
+
+    zeros = lambda n: tuple(torch.zeros(B, device="cuda") for _ in range(n))
+    lin = torch.linspace(-1.5, 1.5, B, device="cuda")
+    pend = ex.Pendulum(batch_size=B, control_state=["theta"], device="cuda")
+    run("2a PD", pend, ex.AffinePolicy(cs.PD_GAINS), 4096, "theta", lin)
+    run("2b PI", pend, ex.AffinePolicy(**cs.PI_LAW), 4096, "theta", lin, policy_carry=zeros(1))
+    rl = ex.Pendulum(batch_size=B, tau=2e-2, control_state=["theta"], device="cuda")
+    actor, ids = ex.make_actor_tile(rl)
+    weights = actor_params_from_numpy(rl, cs.actor_tree(3))
+    run("2c actor, saves every step", rl, actor, 64, "theta", lin, traj_stride=1, policy_params=weights,
+        policy_carry=ids)
+    fast = ex.Pendulum(batch_size=B, control_state=["theta"], fast_math=True, device="cuda")
+    run("2d PD fast_math", fast, ex.AffinePolicy(cs.PD_GAINS), 4096, "theta", lin)
+    acro = ex.Acrobot(batch_size=B, control_state=["theta_1"], device="cuda")
+    run("2e Acrobot PD", acro, ex.AffinePolicy([[-0.9, 0.0, -0.25, 0.0, 0.9]]), 4096, "theta_1", lin)
+    im = ex.InductionMachine(batch_size=B, control_state=["i_sd"], u_dc=cs.U_DC, device="cuda")
+    pi = ex.AffinePolicy([[-0.9, 0.0, 0.0, 0.0, 0.9], [0.0, -0.9, 0.0, 0.0, 0.0]], b=[0.3, 0.6],
+                         Ki=[[-0.02, 0.0, 0.0, 0.0, 0.02], [0.0, -0.02, 0.0, 0.0, 0.0]], clip=1.0)
+    run("2f IM PI u_dc", im, pi, 4096, "i_sd", torch.linspace(-10.0, 10.0, B, device="cuda"), policy_carry=zeros(2))
+    return {"ms": times}
+
+
 def rings(cs, ex) -> dict:
     import torch
     from exciting_environments_torch.ops.kernels import pendulum_fast as PFK
@@ -189,6 +235,7 @@ def rings(cs, ex) -> dict:
 #: each case's kernel libraries and its run
 CASES = {
     "rings": (("stepper", "pendulum_fast"), rings),
+    "closed_loops": (("closed_loop",), closed_loops),
     "fast_fleets": (("pmsm_fast",), fast_fleets),
     "no_grad_entries": (("stepper", "closed_loop", "pmsm_stepper", "pmsm_closed_loop"), no_grad_entries),
 }

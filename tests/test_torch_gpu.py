@@ -1,7 +1,8 @@
 """The stepper, PMSM, closed-loop and PMSM closed-loop kernels, the fast-math
 flag in the first and third, the PMSM kernel's process-noise slab, the five
 later environments (VanDerPol, FluidTank, Acrobot, InductionMachine, EESM)
-and the inverter circle in the stepper and closed-loop kernels, and the fast
+and the inverter circle in the stepper and closed-loop kernels, the
+machines' drive-control tiles in the closed-loop kernel, and the fast
 pendulum and fast PMSM kernels against their plain versions on a CUDA card.
 
 The kernels have no CPU mode, so these tests carry the ``gpu`` marker and skip
@@ -588,6 +589,80 @@ def test_closed_loop_entry_points_launch_and_refuse():
                           lambda: CL.plain_closed_loop(env, y0, zero, 8, policy_params=gains, **kw), [gains])
     assert dev <= GRAD_LIMIT[torch.float32]
     assert CL.CL_KERNEL.launches == {"closed_loop": 4}
+
+
+def _machine_tile_case(kind, dtype, n_steps, batch=2048 + 45):
+    """(env, policy, y0, loop kwargs) of one drive-control tile case: a
+    random fleet whose first quarter starts cold (zero currents and flux,
+    the fallback frame of the FOC law), saves every 4 steps; the sensorless
+    tile on a sensor slab of 0.3 A, the EESM with u_dc = 400 and RK4."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    if kind == "eesm":
+        env = P.EESM(batch_size=batch, dtype=dtype, solver="rk4", u_dc=400.0)
+        policy, carry = P.make_eesm_current_tile(env, i_d_ref=2.0, i_q_ref=5.0, i_f_ref=4.0)
+        lims = (8.0, 8.0, 8.0)
+    else:
+        noise = {"observation_noise": {"i_sd": 0.3, "i_sq": 0.3}} if kind == "sensorless" else {}
+        env = P.InductionMachine(batch_size=batch, dtype=dtype, **noise)
+        make = P.make_sensorless_foc_tile if kind == "sensorless" else P.make_foc_tile
+        policy, carry = make(env, psi_ref=0.7, torque_ref=8.0)
+        lims = (8.0, 8.0, 1.2, 1.2)
+    cold = torch.arange(batch, device="cuda") < batch // 4
+    y0 = tuple(torch.where(cold, 0.0, (torch.rand(batch, generator=gen, device="cuda", dtype=torch.float64) * 2 - 1)
+                           * lim).to(dtype) for lim in lims)
+    loop = dict(traj_stride=4, policy_carry=carry)
+    if kind == "sensorless":
+        loop["obs_noise_tm"] = 0.015 * torch.randn((n_steps, batch, 2), generator=gen, device="cuda", dtype=dtype)
+        loop["obs_noise_cols"] = (0, 1)
+    return env, policy, y0, loop
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,variant", [("foc", "foc"), ("sensorless", "sensorless_foc"),
+                                          ("eesm", "eesm_current")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_machine_tile_kernel_matches_plain_version(kind, variant, dtype):
+    """Each drive-control tile's functor in csrc/closed_loop.cu against the
+    tile's forward in the plain loop: every output equal (0.0), one launch
+    of its own instantiation."""
+    _cuda()
+    n_steps = 64
+    env, policy, y0, loop = _machine_tile_case(kind, dtype, n_steps)
+    kw = dict(tau=env.tau, solver=env._solver, props=env.env_properties, **loop)
+    before, before_v = CL.CL_KERNEL.launches["closed_loop"], CL.VARIANT_LAUNCHES[variant]
+    outk = CL.kernel_closed_loop(env, y0, policy, n_steps, **kw)
+    outp = CL.plain_closed_loop(env, y0, policy, n_steps, **kw)
+    torch.cuda.synchronize()
+    assert CL.CL_KERNEL.launches["closed_loop"] == before + 1 and CL.VARIANT_LAUNCHES[variant] == before_v + 1
+    flat = lambda out: [t for part in out if part is not None for t in part]
+    assert len(flat(outk)) == len(flat(outp))
+    for a, b in zip(flat(outk), flat(outp)):
+        assert torch.equal(a, b)
+    assert all(bool(torch.isfinite(t).all()) for t in flat(outk))
+
+
+@pytest.mark.gpu
+def test_machine_tiles_refuse_before_a_launch():
+    """A tile built on a per-batch static parameter, or a tile on another
+    environment than its own, raises before any launch."""
+    _cuda()
+    params = dict(P.InductionMachine._default_static_params())
+    params["omega"] = torch.linspace(200.0, 400.0, 256, dtype=torch.float64).numpy()
+    fleet = P.InductionMachine(batch_size=256, static_params=params)
+    tile, carry = P.make_foc_tile(fleet, psi_ref=0.7, torque_ref=8.0)
+    _, state = fleet.vmap_reset()
+    before = dict(CL.CL_KERNEL.launches)
+    with pytest.raises(ValueError, match="per-batch"):
+        fleet.fused_closed_loop(state, tile, 8, policy_carry=carry)
+    eesm = P.EESM(batch_size=256)
+    e_tile, e_carry = P.make_eesm_current_tile(eesm, i_d_ref=2.0, i_q_ref=5.0, i_f_ref=4.0)
+    im = P.InductionMachine(batch_size=256, control_state=["i_sd"])
+    _, im_state = im.vmap_reset()
+    with pytest.raises(ValueError, match="own machine"):
+        CL.kernel_closed_loop(im, tuple(getattr(im_state.physical_state, n) for n in im._ode_state_fields),
+                              e_tile, 8, tau=im.tau, solver=im._solver, props=im.env_properties,
+                              ref_leaves=(im_state.physical_state.i_sd,), policy_carry=e_carry)
+    assert CL.CL_KERNEL.launches == before
 
 
 PCL_P = [[-0.6, 0, 0, 0, 0, 0, 0, 0, 0.6, 0], [0, -0.6, 0, 0, 0, 0, 0, 0, 0, 0.6]]

@@ -40,7 +40,7 @@ CSRC = ROOT / "exciting_environments_torch" / "csrc"
 #: the shared device headers each kernel source builds on
 HEADERS = {
     "stepper.cu": ("action_ring.cuh", "classic_envs.cuh", "eager_rules.cuh"),
-    "closed_loop.cu": ("classic_envs.cuh", "eager_rules.cuh", "policy_laws.cuh"),
+    "closed_loop.cu": ("classic_envs.cuh", "eager_rules.cuh", "foc_laws.cuh", "policy_laws.cuh"),
     "pmsm_stepper.cu": ("eager_rules.cuh", "pmsm_drive.cuh"),
     "pmsm_closed_loop.cu": ("eager_rules.cuh", "pmsm_drive.cuh", "policy_laws.cuh"),
     "pendulum_fast.cu": ("action_ring.cuh", "eager_rules.cuh", "fastmath.cuh"),
@@ -63,7 +63,7 @@ def test_kernel_sources_share_their_headers_and_stand_alone(source):
     assert includes == set(HEADERS[source])
     for unit in units:
         assert set(re.findall(r'#include "([^"]+)"', unit.read_text())) == {f"../{stem}.cuh"}
-    for header in ("pmsm_drive.cuh", "policy_laws.cuh", "fastmath.cuh", "action_ring.cuh"):
+    for header in ("pmsm_drive.cuh", "policy_laws.cuh", "foc_laws.cuh", "fastmath.cuh", "action_ring.cuh"):
         for definition in re.findall(r"^struct (\w+) \{|^__device__ __forceinline__ \w+ (\w+)\(",
                                      (CSRC / header).read_text(), flags=re.M):
             name = next(n for n in definition if n)

@@ -100,3 +100,28 @@ def test_key_contract():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             R.PRNGKey(0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cpu_normal_does_not_depend_on_the_thread_count(dtype):
+    """On the CPU ``normal``'s erfinv runs in slices on the calling thread:
+    a (16, 1,024, 4) sensor-slab-sized draw is bit for bit the same with one
+    intra-op thread and with several, and equals one erfinv call over the
+    whole draw on one thread."""
+    _, tk = _keys(12, 16 * 1024)
+    threads = torch.get_num_threads()
+    try:
+        torch.set_num_threads(1)
+        one = R.normal(tk, 4, dtype)
+        whole = torch.special.erfinv(R.uniform(tk, 4, dtype, float(np.nextafter(-1.0, 0.0, dtype=np.float64)
+                                                                   if dtype == torch.float64 else
+                                                                   np.nextafter(np.float32(-1), np.float32(0))),
+                                               1.0))
+        torch.set_num_threads(max(threads, 4))
+        many = [R.normal(tk, 4, dtype) for _ in range(3)]
+    finally:
+        torch.set_num_threads(threads)
+    for draw in many:
+        assert torch.equal(draw, one)
+    nd = np.float32 if dtype == torch.float32 else np.float64
+    assert torch.equal(one, whole * float(nd(np.sqrt(2))))
