@@ -12,7 +12,8 @@ Phases (any failure raises and the script exits non-zero):
    stepper.cu``, ``pmsm_stepper.cu``, ``closed_loop.cu``,
    ``pmsm_closed_loop.cu``, ``pendulum_fast.cu`` and ``pmsm_fast.cu``; the
    stepper and closed-loop libraries with one translation unit per
-   environment, ``csrc/stepper/*.cu`` and ``csrc/closed_loop/*.cu``), one
+   environment, ``csrc/stepper/*.cu`` and ``csrc/closed_loop/*.cu``, the
+   PMSM closed loop with its actor's in ``csrc/pmsm_closed_loop/actor.cu``), one
    nvcc per source, all started together, then one link per library, and
    report the whole build time, the longest single nvcc and each compiler
    resource report;
@@ -77,7 +78,10 @@ Phases (any failure raises and the script exits non-zero):
     deadtime 0 and 1, Euler, RK4 and Tsit5, saves every step and every 16,
     per-batch ``r_s``/``u_dc`` planes and an action band, both noise slabs,
     the linear sensorless tile at deadtime 0 and 1, the gain-scheduled
-    sensorless tile, a ragged B;
+    sensorless tile, a ragged B, and the PPO actor (family 1, ActorReg<16,
+    16> and ActorLaw at (24, 8)) exploring and deterministic, float32 and
+    float64, saturated and linear, Euler and RK4, with and without a sensor
+    slab;
 11. drive the PMSM closed-loop main cases at full width (saturated BRUSA,
     B = 65,536, float32, Euler, ``tau = 1e-4``, deadtime 1): A the P law and
     B the PI law through ``env.fused_closed_loop`` over T = 2,048; C the
@@ -194,7 +198,21 @@ Phases (any failure raises and the script exits non-zero):
     each loss must fall and the parameters stay finite; each iteration's
     kernel forward, backward replay and optimizer ms are logged, and a
     ``{"grads": [...]}`` line is printed;
-20. print the kernel table, the card's name and power limit, and last the
+20. the learning stack (``phase_rl``): ``train_ppo_fused`` with
+    ``collector="kernel"`` at B = 65,536 and ``chunk_steps`` 64, 3
+    iterations (benchmarks/r05/rl_profile_device.py's width) on the tracking
+    Pendulum (tau 2e-2) and on saturated BRUSA (``control_state=["i_d",
+    "i_q"]``): one launch per chunk (the counts set to 0 just before, read
+    just after), the first chunk's slabs equal to ``collector="scan"``'s at
+    0.0, finite metrics, each iteration's collection, transition and update
+    ms; the actor's PMSM kernel at that width against its plain version, its
+    time and bound (row 4e); then ``train_ppo`` at B = 4,096
+    (benchmarks/r03/ppo_device.py's config, 2 iterations) and ``train_sac``
+    at B = 4,096 (benchmarks/r03/sac_device.py's, 5 iterations:
+    ``learning_starts`` is one iteration's 2^15 transitions, so the first
+    collects with random actions and the updates start at its end), finite
+    metrics and env-steps/s;
+21. print the kernel table, the card's name and power limit, and last the
     result line ``{"ok": true, "device": {...}}``.
 
 The anatomy of a redesigned kernel's case (``anatomy``): its registers,
@@ -1663,6 +1681,8 @@ def pmsm_cl_ops_per_step(env, spec, n_refs, n_sched, n_obs_noise, n_proc_noise):
     if spec.policy_id == 0:
         o = spec.options
         policy = 2 * (2 * spec.n_obs + (2 * spec.n_obs + 1) * o["has_integral"] + 2 * o["has_clip"])
+    elif spec.policy_id == 1:  # the actor, counted as in csrc/closed_loop.cu
+        policy = cl_policy_ops(spec, 2)
     else:
         policy = SENSORLESS_LAW_OPS[spec.policy_id]
     hexagon = 65
@@ -1741,6 +1761,8 @@ def sensor_slab(env, n_steps, gen, sigma=SENSOR_SIGMA):
 def phase_pcl_kernel_vs_plain(ex, PCL):
     """PMSM closed-loop kernel against its plain version, B = 4,096, T = 64,
     float32 unless stated, tolerance 0.0."""
+    from exciting_environments_torch.utils.convert import actor_params_from_numpy
+
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
     B, T = B_PCL_CHECK, T_CHECK
     uni = lambda lo, hi: (lo + (hi - lo) * torch.rand(B, generator=gen, device=DEVICE, dtype=torch.float64)).float()
@@ -1779,11 +1801,27 @@ def phase_pcl_kernel_vs_plain(ex, PCL):
         ("BRUSA rk4 PI float64 (shared memory above 48 KB)", tracking(solver="rk4", dtype=torch.float64), pi_law,
          {"traj_stride": 8}, None),
         ("BRUSA euler P ragged B=1000", pmsm_env(ex, 1000, control_state=["i_d", "i_q"]), p_law, {}, None),
+        # the PPO actor (family 1): ActorReg<16, 16>, and ActorLaw at (24, 8)
+        ("BRUSA euler actor exploring, a save every step", tracking(), "actor", {"traj_stride": 1}, None),
+        ("BRUSA euler actor deterministic", tracking(), "actor deterministic", {"traj_stride": 1}, None),
+        ("BRUSA rk4 actor exploring float64, sensor slab", tracking(solver="rk4", dtype=torch.float64), "actor",
+         {"traj_stride": 1, "sensors": True}, None),
+        ("DEFAULT linear euler actor exploring, sensor slab", tracking("DEFAULT", False), "actor",
+         {"traj_stride": 1, "sensors": True}, None),
+        ("DEFAULT linear rk4 actor deterministic float64", tracking("DEFAULT", False, solver="rk4",
+                                                                    dtype=torch.float64), "actor deterministic",
+         {"traj_stride": 4}, None),
+        ("BRUSA euler actor (24, 8) exploring (ActorLaw)", tracking(), "actor 24x8", {"traj_stride": 1}, None),
     ]
     failures = []
     for label, env, policy, kw, omega in cases:
         kw = dict(kw)
-        if policy == "linear":
+        sensors = kw.pop("sensors", False)
+        if isinstance(policy, str) and policy.startswith("actor"):
+            hidden = (24, 8) if policy.endswith("24x8") else (16, 16)
+            policy, kw["policy_carry"] = ex.make_actor_tile(env, deterministic=policy.endswith("deterministic"))
+            kw["policy_params"] = actor_params_from_numpy(env, actor_tree(10, hidden, n_action=2, log_std=-1.0))
+        elif policy == "linear":
             policy, carry0 = ex.make_pmsm_sensorless_current_tile(
                 env, i_d_ref=-30.0, i_q_ref=60.0, omega_el=omega, measurement_std={"i_d": 5.0, "i_q": 5.0})
             kw["policy_carry"] = carry0
@@ -1792,7 +1830,7 @@ def phase_pcl_kernel_vs_plain(ex, PCL):
         elif policy.n_carry:
             kw["policy_carry"] = tuple(torch.zeros(env.batch_size, device=DEVICE, dtype=env.dtype) for _ in range(2))
         _, state0, omega_t, refs = pcl_inputs(env, gen, omega)
-        if policy.policy_id:
+        if policy.policy_id in (2, 3) or sensors:
             kw["obs_noise_tm"], kw["obs_noise_cols"] = sensor_slab(env, T, gen), (0, 1)
         for name in ("obs_noise_tm", "proc_noise_tm"):
             if name in kw:
@@ -3790,6 +3828,164 @@ def phase_train(ex, CL, PCL):
     return entries
 
 
+# ---------------------------------------------------------------------------
+# the learning stack: PPO with kernel collection, eager PPO and SAC
+# ---------------------------------------------------------------------------
+
+RL_B, RL_T, RL_ITERATIONS = 65536, 64, 3  # benchmarks/r05/rl_profile_device.py:34-35
+#: benchmarks/r03/ppo_device.py:23-24 and benchmarks/r03/sac_device.py:20-22
+PPO_B, PPO_CONFIG = 4096, dict(n_steps=128, n_epochs=4, n_minibatches=4, max_episode_steps=256)
+SAC_B, SAC_CONFIG = 4096, dict(n_steps=8, updates_per_iteration=8, update_batch_size=4096, buffer_capacity=2**19,
+                               learning_starts=2**15, max_episode_steps=256)
+
+
+class TimedCalls:
+    """Wraps functions of a module with host-clock timers (the card
+    synchronized before and after each call); ``ms[name]`` lists each
+    call's time.  Restores them on exit."""
+
+    def __init__(self, module, names):
+        self.module, self.names, self.ms, self.saved = module, names, {n: [] for n in names}, {}
+
+    def __enter__(self):
+        for name in self.names:
+            fn = self.saved[name] = getattr(self.module, name)
+
+            def timed(*a, _fn=fn, _name=name, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _fn(*a, **k)
+                torch.cuda.synchronize()
+                self.ms[_name].append((time.perf_counter() - t0) * 1e3)
+                return out
+            setattr(self.module, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.module, name, fn)
+
+
+def phase_rl(ex, CL, PCL):
+    """The model-free RL entry points at the JAX package's device-script
+    widths.  Kernel collection (``train_ppo_fused(collector="kernel")``, B =
+    65,536, ``chunk_steps`` 64, 3 iterations) on the tracking Pendulum and on
+    saturated BRUSA: one launch per chunk, the first chunk's slabs equal to
+    the scan collector's at 0.0, finite metrics and each iteration's
+    collection, transition and update ms; the PMSM actor kernel at that
+    width against its plain version, timed, with its bound (row 4e).  Then
+    the eager trainers at B = 4,096: ``train_ppo`` for 2 iterations and
+    ``train_sac`` for 5, finite metrics, env-steps/s.  Returns the kernel
+    table's entries."""
+    from exciting_environments_torch.ops import random as R
+    from exciting_environments_torch.utils import episodes, rl, rl_fused as RF, sac
+
+    entries, failures = [], []
+    cfg = RF.FusedPPOConfig(chunk_steps=RL_T)
+    envs = [
+        ("Pendulum", ex.Pendulum(batch_size=RL_B, tau=2e-2, control_state=["theta"], device=DEVICE)),
+        ("BRUSA", ex.PMSM(batch_size=RL_B, saturated=True, motor_variant=ex.MotorVariant.BRUSA,
+                          control_state=["i_d", "i_q"], device=DEVICE)),
+    ]
+    for label, env in envs:
+        key = R.PRNGKey(SEED, DEVICE)
+        # the first chunk as train_ppo_fused draws it: both collectors, the same actor and state
+        k_init, k_run = R.split(key)
+        params = RF.init_fused_agent(env, k_init, cfg)
+        _, k_it = R.split(k_run)
+        _, k_chunk = R.split(k_it)
+        _, state0 = episodes.reset_with_references(env, k_chunk)
+        tile, ids = RF.make_actor_tile(env)
+        actor = {"actor": params["actor"], "log_std": params["log_std"],
+                 "seed": torch.tensor(0.0, device=DEVICE)}
+        kernel_slabs = RF._collect_chunk(env, actor, state0, tile, ids, RL_T, "kernel")
+        scan_slabs = RF._collect_chunk(env, actor, state0, tile, ids, RL_T, "scan")
+        torch.cuda.synchronize()
+        chunk_err = max_abs(kernel_slabs[:2], scan_slabs[:2])
+        del kernel_slabs, scan_slabs
+
+        CL.CL_KERNEL.reset_counts()
+        PCL.PMSM_CL_KERNEL.reset_counts()
+        t0 = time.perf_counter()
+        with TimedCalls(RF, ("_collect_chunk", "_chunk_transitions", "_minibatch_updates")) as timer:
+            res = RF.train_ppo_fused(env, RL_ITERATIONS, key=key, config=cfg, collector="kernel")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = CL.CL_KERNEL.launches["closed_loop"] + PCL.PMSM_CL_KERNEL.launches["pmsm_closed_loop"]
+        for i in range(RL_ITERATIONS):
+            log(f"[rl] train_ppo_fused {label} iteration {i}: collection {timer.ms['_collect_chunk'][i]:.2f} ms, "
+                f"transitions {timer.ms['_chunk_transitions'][i]:.2f} ms, update "
+                f"{timer.ms['_minibatch_updates'][i]:.1f} ms; mean reward {float(res.metrics['mean_reward'][i])!r}")
+        finite = all(bool(torch.isfinite(v).all()) for v in res.metrics.values())
+        finite = finite and all(bool(torch.isfinite(t).all()) for t in rl.tree_leaves(res.params))
+        ok = finite and launches == RL_ITERATIONS * cfg.n_chunks and chunk_err == 0.0
+        steps = RL_ITERATIONS * RL_B * RL_T
+        log(f"[rl] train_ppo_fused {label} B={RL_B} chunk_steps={RL_T}, {RL_ITERATIONS} iterations: {launches} "
+            f"launches (one per chunk), first chunk kernel vs scan max abs {chunk_err!r} (tolerance 0.0), "
+            f"{wall:.2f} s = {steps / wall:.4e} env-steps/s, approx_kl {res.metrics['approx_kl'].tolist()} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"train_ppo_fused {label}")
+        if label != "BRUSA":
+            continue
+        # row 4e: the actor's PMSM kernel at the collection's width
+        pn = env.env_properties.physical_normalizations
+        phys = state0.physical_state
+        drive0 = (phys.i_d, phys.i_q, phys.epsilon, phys.u_d_buffer, phys.u_q_buffer)
+        refs = tuple(getattr(pn, n).normalize(getattr(state0.reference, n)) for n in env.control_state)
+        kw = dict(tau=env.tau, solver=env._solver, props=env.env_properties, ref_leaves=refs, traj_stride=1,
+                  policy_params=actor, policy_carry=ids)
+        kernel_fn = lambda: PCL.kernel_pmsm_closed_loop(env, drive0, phys.omega_el, tile, RL_T, **kw)
+        outk = cl_flat(kernel_fn())
+        t0 = time.perf_counter()
+        outp = cl_flat(PCL.plain_pmsm_closed_loop(env, drive0, phys.omega_el, tile, RL_T, **kw))
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max_abs(outk, outp)
+        del outk, outp
+        ms = time_ms(kernel_fn)
+        spec = tile.kernel_spec(torch.float32, DEVICE, actor)
+        (bound_ms, bound_by), per_step = pmsm_cl_bound(env, spec, RL_B, RL_T, RL_T, 1, 2)
+        log(f"[rl] pmsm_closed_loop_actor (row 4e), BRUSA B={RL_B} T={RL_T} float32, a save every step: kernel "
+            f"{ms!r} ms = {RL_B * RL_T / ms * 1e3:.4e} env-steps/s; bound {bound_ms!r} ms ({bound_by}, {per_step} "
+            f"operations per step and drive), {bound_ms / ms:.1%} of the bound; plain {plain_ms!r} ms (one run); "
+            f"max abs {err!r} (tolerance 0.0)")
+        if err != 0.0:
+            failures.append("pmsm_closed_loop_actor kernel vs plain")
+        entries.append(entry("pmsm_closed_loop_actor", launches, err, ms, plain_ms, bound_ms, bound_by, PCL_SOURCE,
+                             PCL_REPLACES))
+
+    # the eager trainers, Pendulum tracking at B = 4,096
+    for label, iterations, run in (
+        ("train_ppo", 2, lambda env, it: rl.train_ppo(env, it, key=R.PRNGKey(SEED, DEVICE),
+                                                      config=rl.PPOConfig(**PPO_CONFIG))),
+        ("train_sac", 5, lambda env, it: sac.train_sac(env, it, key=R.PRNGKey(SEED, DEVICE),
+                                                       config=sac.SACConfig(**SAC_CONFIG))),
+    ):
+        batch = PPO_B if label == "train_ppo" else SAC_B
+        n_steps = (PPO_CONFIG if label == "train_ppo" else SAC_CONFIG)["n_steps"]
+        env = ex.Pendulum(batch_size=batch, tau=2e-2, control_state=["theta"], device=DEVICE)
+        t0 = time.perf_counter()
+        res = run(env, iterations)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        finite = all(bool(torch.isfinite(v).all()) for v in res.metrics.values())
+        # SAC updates from the end of the first iteration that has stored
+        # learning_starts transitions (its policy acts from the next one)
+        expect = [(i + 1) * batch * n_steps >= SAC_CONFIG["learning_starts"] for i in range(iterations)]
+        updated = label == "train_ppo" or [bool(q != 0) for q in res.metrics["q_loss"]] == expect
+        steps = iterations * batch * n_steps
+        log(f"[rl] {label} Pendulum B={batch}, {iterations} iterations: {wall:.2f} s = {steps / wall:.4e} "
+            f"env-steps/s (host clock, setup included); metrics "
+            f"{ {k: [round(float(x), 6) for x in v] for k, v in res.metrics.items()} } "
+            f"{'ok' if finite and updated else 'FAIL'}")
+        if not (finite and updated):
+            failures.append(label)
+    if failures:
+        raise AssertionError(f"the learning stack failed: {failures}")
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3842,6 +4038,7 @@ def main() -> int:
     phase_noise_closed_loops(ex, CL, PCL)
     grads = phase_grad(ex, K, CL, PK, PCL)
     grads += phase_train(ex, CL, PCL)
+    kernels += phase_rl(ex, CL, PCL)
     if "jax" in sys.modules or any(m.startswith("exciting_environments_tpu") for m in sys.modules):
         raise AssertionError("the port pulled in JAX or the JAX package")
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")

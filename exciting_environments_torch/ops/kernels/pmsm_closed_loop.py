@@ -17,9 +17,10 @@ version only for CPU tensors.
 
 On CUDA tensors the policy is one of the families compiled into the kernel:
 :class:`~exciting_environments_torch.ops.policies.AffinePolicy` (P and PI
-laws) and the two sensorless tiles of ``utils/foc.py``.  Any other callable,
-the PPO actor included, raises before a launch; on CPU tensors any callable
-with the tile contract runs.
+laws), the PPO actor of ``utils/rl_fused.py`` (``ActorPolicy``, exploring or
+deterministic, the instance id in its carry) and the two sensorless tiles of
+``utils/foc.py``.  Any other callable raises before a launch; on CPU tensors
+any callable with the tile contract runs.
 
 Scalar bands and DC-link voltages fold into the arithmetic as Python numbers;
 per-batch ``(B,)`` leaves (:data:`PBN_FIELDS`, and the drive parameters of
@@ -37,7 +38,7 @@ from torch.autograd.function import once_differentiable
 
 from exciting_environments_torch.core import structures
 from exciting_environments_torch.ops.kernels import checkpoint as ck
-from exciting_environments_torch.ops.kernels.closed_loop import closed_loop_noise
+from exciting_environments_torch.ops.kernels.closed_loop import MAX_LAYERS, MAX_WIDTH, closed_loop_noise
 from exciting_environments_torch.models.pmsm.pmsm_env import wrap_angle
 from exciting_environments_torch.ops.kernels.pmsm_stepper import (
     N_CHANNELS,
@@ -66,11 +67,15 @@ MAX_REFS = 4
 MAX_OBS = N_BASE_OBS + MAX_REFS
 MAX_CARRY = 6
 MAX_SCHED = 10
-MAX_POLICY_PARAMS = 256
+#: the actor's budget (``utils/rl_fused.py::MAX_ACTOR_PARAMS``) and its seed
+MAX_POLICY_PARAMS = 2048 + 1
+#: dynamic shared memory of one block on the H100 (227 KB): the table, the
+#: flat parameters and the 16 sector rotations
+MAX_DYNAMIC_SMEM = 227 * 1024
 #: stage counts the kernel is instantiated for (FSAL last stage skipped)
 KERNEL_STAGES = (1, 2, 4, 6)
 #: policy families compiled into the kernel, by ``KernelSpec.policy_id``
-FAMILIES = {0: "AffinePolicy", 2: "SensorlessPolicy", 3: "ScheduledSensorlessPolicy"}
+FAMILIES = {0: "AffinePolicy", 1: "ActorPolicy", 2: "SensorlessPolicy", 3: "ScheduledSensorlessPolicy"}
 
 _c_double = ctypes.c_double
 _c_void_p = ctypes.c_void_p
@@ -134,6 +139,9 @@ class PmsmClArgs(ctypes.Structure):
         ("noise_idx", _c_int * 2),
         ("n_proc_noise", _c_int),
         ("traj_stride", _c_int),
+        ("deterministic", _c_int),
+        ("n_layers", _c_int),
+        ("widths", _c_int * (MAX_LAYERS + 1)),
     ]
 
 
@@ -141,8 +149,9 @@ PMSM_CL_KERNEL = KernelLibrary("pmsm_closed_loop", "pmsm_closed_loop", PmsmClArg
 
 _PLAIN_CALLABLE_ON_CUDA = (
     "on CUDA tensors the PMSM closed loop runs inside the kernel, which compiles in the policy "
-    "families AffinePolicy (ops/policies.py) and the sensorless tiles of utils/foc.py; a plain "
-    "callable runs the loop on the CPU only (an environment made with device='cpu')"
+    "families AffinePolicy (ops/policies.py), the PPO actor of utils/rl_fused.py and the sensorless "
+    "tiles of utils/foc.py; a plain callable runs the loop on the CPU only (an environment made with "
+    "device='cpu')"
 )
 
 
@@ -392,6 +401,9 @@ def kernel_pmsm_closed_loop(env, state0, omega, policy, n_steps, *, tau, solver,
         raise ValueError(f"{flat.numel()} policy parameters exceed the kernel's {MAX_POLICY_PARAMS}")
     if spec.n_obs != n_obs:
         raise ValueError(f"the policy reads {spec.n_obs} observation columns, the drive gives {n_obs}")
+    widths = spec.options.get("widths", ())
+    if widths and (len(widths) > MAX_LAYERS + 1 or max(widths) > MAX_WIDTH or widths[-1] != 2):
+        raise ValueError(f"actor widths {widths}: at most {MAX_LAYERS} layers of at most {MAX_WIDTH}, two actions")
 
     args = PmsmClArgs()
     keep = []  # tensors whose pointers the launch reads
@@ -464,6 +476,9 @@ def kernel_pmsm_closed_loop(env, state0, omega, policy, n_steps, *, tau, solver,
         args.x0, args.dx, args.y0, args.dy = lut.x0, lut.dx, lut.y0, lut.dy
         args.nx, args.ny = lut.nx, lut.ny
         smem_bytes += table.numel() * table.element_size()
+    if smem_bytes > MAX_DYNAMIC_SMEM:
+        raise ValueError(f"the table and {flat.numel()} policy parameters need {smem_bytes} B of shared memory, "
+                         f"above the {MAX_DYNAMIC_SMEM} B of one block")
     if n_sched:
         args.sched = ptr(sched_lut.interleaved(dtype, device))
         args.n_sched = n_sched
@@ -505,7 +520,11 @@ def kernel_pmsm_closed_loop(env, state0, omega, policy, n_steps, *, tau, solver,
     args.n_pp = flat.numel()
     args.policy_id = spec.policy_id
     for name, value in spec.options.items():
-        setattr(args, name, value)
+        if name == "widths":
+            for l, w in enumerate(value):
+                args.widths[l] = w
+        else:
+            setattr(args, name, value)
     args.traj_stride = traj_stride or 0
 
     PMSM_CL_KERNEL.launch(args, dtype, device, "pmsm_closed_loop",

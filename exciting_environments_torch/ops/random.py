@@ -1,18 +1,22 @@
 """Counter-based random numbers with the JAX package's key semantics: the
 ``threefry2x32`` cipher and the ``jax.random`` functions the environments
-draw from (``PRNGKey``, ``split``, ``fold_in``, ``uniform``, ``normal``,
-``exponential``), with ``jax_threefry_partitionable`` on.
+and the trainers draw from (``PRNGKey``, ``split``, ``fold_in``, ``uniform``,
+``normal``, ``exponential``, ``randint``, ``permutation``), with
+``jax_threefry_partitionable`` on.
 
 A key is an int64 tensor of shape ``(..., 2)`` holding two uint32 words, the
 counterpart of a raw ``uint32[2]`` JAX key; a batch of keys ``(B, 2)`` is the
 counterpart of ``jax.random.split(key, B)``.  Every function works
 elementwise over the leading axes of its keys: ``normal(keys, n)`` draws
 ``n`` values per key, the ``(..., n)`` result equal to ``vmap(lambda k:
-jax.random.normal(k, (n,)))(keys)``.  The words live in int64 so that no
+jax.random.normal(k, (n,)))(keys)``; a shape tuple in place of ``n``
+(``normal(key, (B, A))``) numbers the elements in row-major order, as
+``jax.random.normal(key, (B, A))`` does.  The words live in int64 so that no
 operation overflows or needs a logical shift on a signed 32-bit type.
 
 Exactness against ``jax.random``: ``split`` and ``fold_in`` agree bit for
-bit (pure integer arithmetic), and so do the random bits under ``uniform``.
+bit (pure integer arithmetic), and so do the random bits under ``uniform``,
+``randint`` and ``permutation``.
 ``uniform`` is exact too (a bit cast, one multiply and one add in the
 working precision); ``normal`` applies ``erfinv``, whose float32 and
 float64 implementations differ by a few ulps between XLA and PyTorch.
@@ -82,6 +86,18 @@ def _cipher_at(keys, counters_lo):
     return threefry2x32(k0, k1, torch.zeros_like(counters_lo), counters_lo)
 
 
+def _shape(n) -> tuple:
+    return (int(n),) if isinstance(n, (int, np.integer)) else tuple(int(d) for d in n)
+
+
+def _cipher_shaped(keys, shape: tuple):
+    """The cipher of every key at the row-major counters of ``shape``
+    (``iota_2x32_shape``; fewer than 2**32 elements): two words of shape
+    ``keys.shape[:-1] + shape``."""
+    count = torch.arange(math.prod(shape), dtype=torch.int64, device=keys.device).reshape(shape)
+    return _cipher_at(keys.reshape(keys.shape[:-1] + (1,) * len(shape) + (2,)), count)
+
+
 def split(keys, num: int = 2) -> torch.Tensor:
     """``jax.random.split`` of each key into ``num`` keys: ``(..., num, 2)``."""
     count = torch.arange(num, dtype=torch.int64, device=keys.device)
@@ -98,12 +114,11 @@ def fold_in(keys, data) -> torch.Tensor:
     return torch.stack([b0, b1], dim=-1)
 
 
-def _unit_floats(keys, n: int, dtype: torch.dtype):
-    """``n`` floats in ``[0, 1)`` per key from the partitionable random bits
-    of ``jax.random.uniform``: mantissa bits under the exponent of 1.0, minus
-    1.  Shape ``keys.shape[:-1] + (n,)``."""
-    count = torch.arange(n, dtype=torch.int64, device=keys.device)
-    b0, b1 = _cipher_at(keys[..., None, :], count)
+def _unit_floats(keys, n, dtype: torch.dtype):
+    """``n`` floats (or a shape of them) in ``[0, 1)`` per key from the
+    partitionable random bits of ``jax.random.uniform``: mantissa bits under
+    the exponent of 1.0, minus 1.  Shape ``keys.shape[:-1] + (n,)``."""
+    b0, b1 = _cipher_shaped(keys, _shape(n))
     if dtype == torch.float32:
         bits = ((b0 ^ b1) >> 9) | 0x3F800000
         return bits.to(torch.int32).view(torch.float32) - 1.0
@@ -118,8 +133,9 @@ def _np(dtype):
     return {torch.float32: np.float32, torch.float64: np.float64}[dtype]
 
 
-def uniform(keys, n: int, dtype: torch.dtype, minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
-    """``jax.random.uniform(key, (n,), dtype, minval, maxval)`` per key:
+def uniform(keys, n, dtype: torch.dtype, minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, (n,), dtype, minval, maxval)`` per key (``n``
+    an int or a shape):
     ``max(minval, f * (maxval - minval) + minval)`` with the bounds and their
     difference rounded to ``dtype`` first."""
     nd = _np(dtype)
@@ -144,8 +160,9 @@ def _erfinv(u: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.special.erfinv(s) for s in flat.split(CPU_ERFINV_SLICE)]).view(u.shape)
 
 
-def normal(keys, n: int, dtype: torch.dtype) -> torch.Tensor:
-    """``jax.random.normal(key, (n,), dtype)`` per key: ``sqrt(2) *
+def normal(keys, n, dtype: torch.dtype) -> torch.Tensor:
+    """``jax.random.normal(key, (n,), dtype)`` per key (``n`` an int or a
+    shape): ``sqrt(2) *
     erfinv(u)`` with ``u`` uniform on ``(nextafter(-1, 0), 1)``."""
     nd = _np(dtype)
     lo = np.nextafter(nd(-1.0), nd(0.0), dtype=nd)
@@ -153,6 +170,67 @@ def normal(keys, n: int, dtype: torch.dtype) -> torch.Tensor:
     return _erfinv(u) * float(nd(math.sqrt(2)))
 
 
-def exponential(keys, n: int, dtype: torch.dtype) -> torch.Tensor:
+def exponential(keys, n, dtype: torch.dtype) -> torch.Tensor:
     """``jax.random.exponential(key, (n,), dtype)`` per key: ``-log1p(-u)``."""
     return -torch.log1p(-uniform(keys, n, dtype))
+
+
+def random_bits(keys, n) -> torch.Tensor:
+    """``jax.random.bits(key, shape, uint32)`` per key: the two words of the
+    cipher xor-ed, uint32 values in int64.  ``n`` an int or a shape."""
+    b0, b1 = _cipher_shaped(keys, _shape(n))
+    return b0 ^ b1
+
+
+#: the largest span ``randint`` takes: every product of its reduction then
+#: stays below 2**62, exact in int64
+MAX_RANDINT_SPAN = 2**31
+
+
+def randint(keys, n, minval: int, maxval: int, dtype: torch.dtype = torch.int64) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval, dtype)`` per key
+    (``n`` an int or a shape): two draws of random bits, the higher one
+    folded by ``2**nbits % span`` and the lower one added, modulo the span
+    (biased where the span is no power of two, as in JAX).  ``dtype`` int64
+    (the JAX default under ``jax_enable_x64``: 64-bit draws) or int32 (32-bit
+    draws).  Spans up to :data:`MAX_RANDINT_SPAN`; ``maxval <= minval``
+    returns ``minval``."""
+    if dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"randint draws int32 or int64, got {dtype}")
+    minval, maxval = int(minval), int(maxval)
+    span = maxval - minval if maxval > minval else 1
+    if span > MAX_RANDINT_SPAN:
+        raise ValueError(f"randint takes spans up to 2**31, got {span}")
+    shape = _shape(n)
+    pair = split(keys)
+    hi0, hi1 = _cipher_shaped(pair[..., 0, :], shape)
+    lo0, lo1 = _cipher_shaped(pair[..., 1, :], shape)
+    if dtype == torch.int64:
+        # the 64-bit words (w0 << 32 | w1) modulo the span, by parts
+        word = 2**32 % span
+        higher = ((hi0 % span) * word + hi1 % span) % span
+        lower = ((lo0 % span) * word + lo1 % span) % span
+        mult = (word * word) % span
+        offset = (higher * mult + lower) % span
+    else:
+        # uint32 arithmetic: every product and sum wraps at 2**32
+        mult = ((2**16 % span) ** 2 & MASK32) % span
+        higher, lower = (hi0 ^ hi1) % span, (lo0 ^ lo1) % span
+        offset = ((((higher * mult) & MASK32) + lower) & MASK32) % span
+    return (offset + minval).to(dtype)
+
+
+def permutation(keys, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` per key: ``ceil(3 ln n / ln(2**32 -
+    1))`` rounds, each splitting the key, drawing 32 random bits per element
+    and sorting the running order by them, stably (ties keep their order, as
+    ``lax.sort_key_val`` does).  int64, shape ``keys.shape[:-1] + (n,)``."""
+    n = int(n)
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(np.iinfo(np.uint32).max)))
+    x = torch.arange(n, dtype=torch.int64, device=keys.device).expand(keys.shape[:-1] + (n,))
+    for _ in range(rounds):
+        pair = split(keys)
+        keys = pair[..., 0, :]
+        order = torch.sort(random_bits(pair[..., 1, :], n), dim=-1, stable=True).indices
+        x = torch.gather(x, -1, order)
+    return x

@@ -115,6 +115,34 @@ def actor_params_to_numpy(tree: dict) -> dict:
     }
 
 
+#: the top-level keys of the JAX package's agent trees: the PPO agent of
+#: ``utils/rl.py`` and the fused agent of ``utils/rl_fused.py`` (the same
+#: format, a smaller actor), and the SAC agent of ``utils/sac.py``
+AGENT_KEYS = {
+    "ppo": ("actor", "log_std", "critic"),
+    "sac": ("actor", "q1", "q2", "q1_target", "q2_target", "log_alpha"),
+}
+_MLPS = {"ppo": ("actor", "critic"), "sac": ("actor", "q1", "q2", "q1_target", "q2_target")}
+
+
+def agent_params_from_numpy(env, tree: dict) -> dict:
+    """The JAX package's agent parameters (the trees of ``init_agent``,
+    ``init_fused_agent`` and ``init_sac_agent`` and what their trainers
+    return, as numpy values) as the same structure of tensors on
+    ``env.device`` in ``env.dtype``, for ``utils/rl.py``,
+    ``utils/rl_fused.py`` and ``utils/sac.py``.  Each MLP is a list of
+    ``{"w": (m, n), "b": (n,)}`` layers (``x @ w + b``)."""
+    kind = next((k for k, keys in AGENT_KEYS.items() if set(tree) == set(keys)), None)
+    if kind is None:
+        raise ValueError(f"an agent tree has the keys {AGENT_KEYS['ppo']} or {AGENT_KEYS['sac']}, got {sorted(tree)}")
+    for name in _MLPS[kind]:
+        for layer in tree[name]:
+            w, b = np.shape(layer["w"]), np.shape(layer["b"])
+            if set(layer) != {"w", "b"} or len(w) != 2 or b != (w[1],):
+                raise ValueError(f"{name}: a layer is {{'w': (m, n), 'b': (n,)}}, got {sorted(layer)} {w} {b}")
+    return tree_from_numpy(tree, env.dtype, env.device)
+
+
 def _to_numpy(value):
     if isinstance(value, torch.Tensor):
         return value.detach().cpu().numpy().astype(np.float64)
@@ -136,8 +164,9 @@ def tree_from_numpy(tree, dtype=torch.float64, device=None):
 
 
 def tree_to_numpy(tree):
-    """The inverse of :func:`tree_from_numpy`: every tensor of the tree as a
-    float64 numpy array, for the JAX package (``jnp.asarray`` on each)."""
+    """The inverse of :func:`tree_from_numpy` (and of
+    :func:`agent_params_from_numpy`): every tensor of the tree as a float64
+    numpy array, for the JAX package (``jnp.asarray`` on each)."""
     if isinstance(tree, dict):
         return {k: tree_to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

@@ -1,4 +1,4 @@
-"""The in-kernel PPO actor (counterpart of the actor half of
+"""PPO with kernel-resident collection (counterpart of
 ``exciting_environments_tpu/utils/rl_fused.py``).
 
 The actor runs INSIDE the closed-loop kernel as a policy: a small tanh MLP
@@ -8,12 +8,28 @@ hash of ``(instance id, step, action dim, seed)`` — a murmur3 finalizer and
 Box–Muller — and the action is clamped to ``[-1, 1]``.  The hash is integer
 arithmetic, so the kernel and the plain version draw the same ``z``; the
 instance id rides the policy carry and ``seed`` (a float-encoded integer
-below 2**24) is streamed with the weights.
+below 2**24) is streamed with the weights.  Both closed-loop kernels build
+the actor in: ``csrc/closed_loop.cu`` for the classic environments and
+``csrc/pmsm_closed_loop.cu`` for the PMSM drive (``csrc/policy_laws.cuh``'s
+``ActorReg``/``ActorLaw``).
 
 Here: the hash (:func:`_mix32`, :func:`_hash_normal`) on ``torch.int32``,
-the MLP (:func:`_tile_mlp`), :class:`ActorPolicy` (the kernel's
-``ActorLaw`` functor's plain version) and :func:`make_actor_tile`.  The PPO
-trainer (``train_ppo_fused``) and ``init_fused_agent`` are not ported yet.
+the MLP (:func:`_tile_mlp`), :class:`ActorPolicy` (the functors' plain
+version), :func:`make_actor_tile`, :func:`init_fused_agent` and the trainer
+:func:`train_ppo_fused`.
+
+Episode semantics (as in the JAX package): episodes are exactly
+``chunk_steps`` long.  Every chunk starts from a fresh full-batch reset with
+fresh references and is truncated (value-bootstrapped) at its end; a
+mid-chunk termination ends the advantage accumulation, zeroes its bootstrap
+and masks the instance's later steps of the chunk out of the loss.  Rewards,
+flags, values and log-probabilities are computed after the chunk over the
+saved ``(B, T)`` slabs, and the unclipped sampled action is reconstructed
+exactly from the counter-based draw, so the update sees ``utils/rl.py``'s
+semantics.  ``collector="kernel"`` collects through the closed-loop kernel
+(its plain version on CPU tensors; out of the kernel's scope it raises,
+there is no quiet fallback), ``collector="scan"`` through the step loop
+``utils/collect.py::tile_policy_scan`` with the same draws.
 """
 
 from __future__ import annotations
@@ -23,9 +39,24 @@ from typing import NamedTuple
 
 import torch
 
+from exciting_environments_torch.ops import random as prng
 from exciting_environments_torch.ops.policies import KernelPolicy, KernelSpec
+from exciting_environments_torch.utils import episodes
+from exciting_environments_torch.utils.rl import (
+    ClippedAdam,
+    PPOResult,
+    _epoch_perms,
+    _gae,
+    _log_prob,
+    _metrics,
+    _minibatch_updates,
+    _mlp_apply,
+    _mlp_init,
+    tree_leaves,
+)
 
-__all__ = ["ActorPolicy", "FusedPPOConfig", "MAX_ACTOR_PARAMS", "make_actor_tile"]
+__all__ = ["ActorPolicy", "FusedPPOConfig", "MAX_ACTOR_PARAMS", "init_fused_agent", "make_actor_tile",
+           "train_ppo_fused"]
 
 # murmur3 finalizer constants as signed int32 (two's complement)
 _M1 = -2048144789  # 0x85ebca6b
@@ -182,3 +213,167 @@ def make_actor_tile(env, *, deterministic: bool = False):
     ``(B,)`` leaf of instance ids in ``env.dtype`` on ``env.device``."""
     carry0 = (torch.arange(env.batch_size, dtype=env.dtype, device=env.device),)
     return ActorPolicy(env.action_dim, deterministic=deterministic), carry0
+
+
+def init_fused_agent(env, key, config: FusedPPOConfig = FusedPPOConfig()):
+    """Initial parameter tree: the small in-kernel actor (and ``log_std``)
+    and the full-size critic, in ``utils/rl.py``'s format; raises for an
+    actor above :data:`MAX_ACTOR_PARAMS` (weights, biases and ``log_std``)."""
+    obs_dim, act_dim = len(env.obs_description), env.action_dim
+    k_a, k_c = prng.split(key)
+    d = dict(dtype=env.dtype, device=env.device)
+    params = {
+        "actor": _mlp_init(k_a, (obs_dim, *config.hidden, act_dim), final_scale=0.01, **d),
+        "log_std": torch.zeros(act_dim, **d),
+        "critic": _mlp_init(k_c, (obs_dim, *config.critic_hidden, 1), **d),
+    }
+    n_actor = sum(layer["w"].numel() + layer["b"].numel() for layer in params["actor"]) + act_dim
+    if n_actor > MAX_ACTOR_PARAMS:
+        raise ValueError(f"in-kernel actor has {n_actor} parameters (> {MAX_ACTOR_PARAMS}, the kernels' "
+                         "parameter budget): shrink config.hidden or use utils.rl.train_ppo")
+    return params
+
+
+def _collect_chunk(env, actor_params, state, tile, carry0, chunk_steps, collector):
+    """One chunk through the selected collector: ``(obs_traj, actions_traj,
+    traj_state)``, batch-major ``(B, T, ...)``, post-step."""
+    from exciting_environments_torch.ops.kernels import select_closed_loop
+    from exciting_environments_torch.utils.collect import tile_policy_scan
+
+    if collector == "kernel":
+        kernel, extra = select_closed_loop(env)
+        if kernel is None:
+            raise ValueError("env out of closed-loop kernel scope: use collector='scan'")
+        obs_t, acts_t, traj_state, _final, _fc = kernel(
+            env, state, tile, chunk_steps, obs_stride=1, policy_params=actor_params, return_traj_states=True,
+            policy_carry=carry0, **extra)
+    elif collector == "scan":
+        obs_t, acts_t, traj_state, _final, _fc = tile_policy_scan(
+            env, state, chunk_steps, tile, actor_params, True, policy_carry=carry0)
+    else:
+        raise ValueError(f"collector is 'kernel' or 'scan', got {collector!r}")
+    return obs_t, acts_t, traj_state
+
+
+def _chunk_transitions(env, params, state0, obs_t, acts_t, traj_state, seed):
+    """Post-hoc PPO quantities of one chunk, time-major: rewards and flags
+    from the saved states, values and log-probabilities over the ``(B, T)``
+    slabs, the unclipped sampled actions reconstructed from the counter
+    draw (``acts_t``, the applied clipped actions, feed only the reward), and
+    the post-terminal mask."""
+    B, T = obs_t.shape[:2]
+    props = env.env_properties
+    props1 = env._props_for(props, 1)
+    obs0 = env.generate_observation(state0, props)
+    obs_pre = torch.cat([obs0[:, None], obs_t[:, :-1]], dim=1)
+    reward = env.generate_reward(traj_state, acts_t, props1).reshape(B, T)
+    term = env.generate_terminated(traj_state, reward[..., None], props1).reshape(B, T, -1).any(dim=-1)
+    # post-terminal steps (the plant continued, the episode did not): masked
+    first = torch.ones((B, 1), dtype=torch.int64, device=term.device)
+    alive = torch.cumprod(torch.cat([first, (~term[:, :-1]).long()], dim=1), dim=1).bool()
+    term = term & alive
+    done = term.clone()
+    done[:, -1] = True  # the chunk's end truncates every episode
+    value = _mlp_apply(params["critic"], obs_pre)[..., 0]
+    next_value = _mlp_apply(params["critic"], obs_t)[..., 0]
+    mean = _mlp_apply(params["actor"], obs_pre)
+    idi = torch.arange(B, dtype=torch.int32, device=obs_t.device)[:, None]
+    t_grid = torch.arange(T, dtype=torch.int32, device=obs_t.device)[None, :]
+    seed_i = torch.as_tensor(seed).to(device=obs_t.device).to(torch.int32)
+    z = torch.stack([_hash_normal(idi, t_grid, j, seed_i, obs_pre.dtype) for j in range(env.action_dim)], dim=-1)
+    a_raw = mean + torch.exp(params["log_std"]) * z
+    logp = _log_prob(mean, params["log_std"], a_raw)
+    tm = lambda x: x.transpose(0, 1)
+    return {"obs": tm(obs_pre), "action": tm(a_raw), "logp": tm(logp), "value": tm(value),
+            "next_value": tm(next_value), "reward": tm(reward), "term": tm(term), "done": tm(done),
+            "mask": tm(alive.to(reward.dtype))}
+
+
+def _fused_loss(config, p, batch):
+    """The masked clipped-surrogate loss of one minibatch and its ``(pg,
+    v_loss, entropy, approx_kl)``."""
+    mean = _mlp_apply(p["actor"], batch["obs"])
+    logp = _log_prob(mean, p["log_std"], batch["action"])
+    value = _mlp_apply(p["critic"], batch["obs"])[..., 0]
+    ratio = torch.exp(logp - batch["logp"])
+    adv = batch["adv"]
+    m = batch["mask"]
+    w = m / (torch.sum(m) + 1e-8)
+    if config.normalize_advantage:
+        mu = torch.sum(adv * w)
+        var = torch.sum((adv - mu) ** 2 * w)
+        adv = (adv - mu) / (torch.sqrt(var) + 1e-8)
+    pg = torch.sum(w * torch.maximum(-adv * ratio, -adv * torch.clamp(ratio, 1.0 - config.clip_eps,
+                                                                      1.0 + config.clip_eps)))
+    v_loss = 0.5 * torch.sum(w * (value - batch["ret"]) ** 2)
+    entropy = torch.sum(p["log_std"] + 0.5 * math.log(2.0 * math.pi * math.e))
+    approx_kl = torch.sum(w * ((ratio - 1.0) - torch.log(ratio)))
+    return pg + config.vf_coef * v_loss - config.ent_coef * entropy, (pg, v_loss, entropy, approx_kl)
+
+
+def train_ppo_fused(env, iterations, key=None, config: FusedPPOConfig = FusedPPOConfig(), params=None,
+                    collector: str = "kernel", noise_seed: int = 0) -> PPOResult:
+    """PPO with chunked collection inside the closed-loop kernel (module
+    docstring).
+
+    Args:
+        env: a batched environment inside closed-loop kernel scope
+            (``collector="kernel"``; on CUDA tensors the PMSM drive and the
+            classic environments), or any environment (``collector="scan"``,
+            the same actor and draws through ``tile_policy_scan``).
+        iterations: PPO iterations, each ``n_chunks * chunk_steps *
+            batch_size`` environment steps.
+        key: a key of :mod:`~exciting_environments_torch.ops.random`
+            (default ``PRNGKey(0)`` on the environment's device).
+        config: :class:`FusedPPOConfig`.
+        params: warm-start parameter tree (default :func:`init_fused_agent`).
+        collector: ``"kernel"`` or ``"scan"``.
+        noise_seed: offset of the counter-based exploration stream (the
+            iteration and chunk indices are folded in).
+
+    Returns:
+        :class:`~exciting_environments_torch.utils.rl.PPOResult`.
+    """
+    if key is None:
+        key = prng.PRNGKey(0, env.device)
+    k_init, key = prng.split(key)
+    if params is None:
+        params = init_fused_agent(env, k_init, config)
+    B, T = env.batch_size, config.chunk_steps
+    N = config.n_chunks * T * B
+    if N % config.n_minibatches:
+        raise ValueError(f"n_chunks * chunk_steps * batch_size = {N} must be divisible by "
+                         f"n_minibatches = {config.n_minibatches}")
+    opt = ClippedAdam(tree_leaves(params), config.learning_rate, config.max_grad_norm)
+    loss_fn = lambda p, batch: _fused_loss(config, p, batch)
+    tile, carry0 = make_actor_tile(env)
+
+    def train_iteration(params, key, seeds):
+        k_perm, *k_chunks = prng.split(key, 1 + config.n_chunks)
+        chunks = []
+        with torch.no_grad():
+            for c, k_c in enumerate(k_chunks):
+                actor_params = {"actor": params["actor"], "log_std": params["log_std"], "seed": seeds[c]}
+                _, state0 = episodes.reset_with_references(env, k_c)
+                obs_t, acts_t, traj_state = _collect_chunk(env, actor_params, state0, tile, carry0, T, collector)
+                chunks.append(_chunk_transitions(env, params, state0, obs_t, acts_t, traj_state, seeds[c]))
+            traj = {k: torch.cat([ch[k] for ch in chunks], dim=0) for k in chunks[0]}
+            advs, rets = _gae(traj, config.gamma, config.gae_lambda)
+        data = {"obs": traj["obs"].reshape(N, -1), "action": traj["action"].reshape(N, -1),
+                "logp": traj["logp"].reshape(N), "adv": advs.reshape(N), "ret": rets.reshape(N),
+                "mask": traj["mask"].reshape(N)}
+        perms = _epoch_perms(k_perm, config.n_epochs, config.n_minibatches, N)
+        params, aux = _minibatch_updates(loss_fn, params, opt, data, perms)
+        mean_r = torch.sum(traj["reward"] * traj["mask"]) / torch.sum(traj["mask"])
+        return params, torch.cat([mean_r[None], aux.mean(dim=0)])
+
+    rows = []
+    for it in range(iterations):
+        key, k = prng.split(key)
+        # float-encoded hash seeds (exact below 2**24), one per chunk, folded
+        # from (experiment seed, iteration, chunk)
+        seeds = torch.tensor([(noise_seed + 131 * c + 524287 * it) % (1 << 24) for c in range(config.n_chunks)],
+                             dtype=env.dtype, device=env.device)
+        params, metrics = train_iteration(params, k, seeds)
+        rows.append(metrics)
+    return PPOResult(params=params, metrics=_metrics(rows))

@@ -1,4 +1,5 @@
-"""The stepper, PMSM, closed-loop and PMSM closed-loop kernels, the fast-math
+"""The stepper, PMSM, closed-loop and PMSM closed-loop kernels (the PPO actor
+in both closed loops), the fast-math
 flag in the first and third, the PMSM kernel's process-noise slab, the five
 later environments (VanDerPol, FluidTank, Acrobot, InductionMachine, EESM)
 and the inverter circle in the stepper and closed-loop kernels, the
@@ -748,9 +749,10 @@ def test_pmsm_closed_loop_entry_points_launch_and_refuse():
     assert PCL.PMSM_CL_KERNEL.launches == {"pmsm_closed_loop": 2}
     assert obs.is_cuda and obs.shape == (256, 10) and batch.rewards.shape == (256, 8, 1)
     assert bool(torch.isfinite(batch.observations).all())
-    actor, ids = P.make_actor_tile(env)
+    im = P.InductionMachine(batch_size=8)
+    foc_tile = P.make_foc_tile(im, psi_ref=0.7, torque_ref=8.0)[0]
     for policy, match in ((lambda obs, t: (-0.6 * obs[0], -0.6 * obs[1]), "plain callable"),
-                          (actor, "built with")):
+                          (foc_tile, "built with")):
         with pytest.raises(ValueError, match=match):
             env.fused_closed_loop(state, policy, 8)
     # inputs that require grad: the launch is the VJP's forward, and the
@@ -765,6 +767,59 @@ def test_pmsm_closed_loop_entry_points_launch_and_refuse():
                           [state0[0], gains])
     assert dev <= GRAD_LIMIT[torch.float32]
     assert PCL.PMSM_CL_KERNEL.launches == {"pmsm_closed_loop": 3}
+
+
+PCL_ACTOR_CASES = [
+    # (saturated, solver, hidden, deterministic, sensor slab)
+    (True, "euler", (16, 16), False, False),
+    (True, "euler", (16, 16), True, False),
+    (True, "rk4", (16, 16), False, True),
+    (False, "euler", (16, 16), False, False),
+    (False, "rk4", (24, 8), False, True),
+    (True, "euler", (24, 8), True, False),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("saturated,solver,hidden,deterministic,sensors", PCL_ACTOR_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pmsm_closed_loop_actor_matches_plain_version(saturated, solver, hidden, deterministic, sensors, dtype):
+    """The PPO actor compiled into csrc/pmsm_closed_loop.cu (ActorReg<16, 16>
+    and ActorLaw, family 1) against its plain version, bit for bit."""
+    _cuda()
+    from exciting_environments_torch.ops.kernels import pmsm_closed_loop as PCL
+    from exciting_environments_torch.utils.convert import actor_params_from_numpy
+
+    B, n_steps = 2048 + 37, 16
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    variant = P.MotorVariant.BRUSA if saturated else P.MotorVariant.DEFAULT
+    env = P.PMSM(batch_size=B, saturated=saturated, motor_variant=variant, control_state=["i_d", "i_q"],
+                 solver=solver, dtype=dtype)
+    _, state = env.vmap_reset(rng=gen)
+    phys = state.physical_state
+    rng = np.random.default_rng(5)
+    sizes = (10, *hidden, 2)
+    layers = [{"w": rng.normal(0.0, 1.0 / np.sqrt(m), (m, n)), "b": rng.normal(0.0, 0.1, n)}
+              for m, n in zip(sizes[:-1], sizes[1:])]
+    params = actor_params_from_numpy(env, {"actor": layers, "log_std": np.full(2, -1.0), "seed": 4321.0})
+    policy, ids = P.make_actor_tile(env, deterministic=deterministic)
+    loop = dict(traj_stride=1, policy_params=params, policy_carry=ids, ref_leaves=tuple(
+        (torch.rand(B, generator=gen, device="cuda", dtype=torch.float64) * 1.8 - 0.9).to(dtype) for _ in range(2)))
+    if sensors:
+        loop.update(obs_noise_tm=0.05 * torch.randn((n_steps, B, 2), generator=gen, device="cuda", dtype=dtype),
+                    obs_noise_cols=(0, 1))
+    kw = dict(tau=env.tau, solver=env._solver, props=env.env_properties, **loop)
+    state0 = (phys.i_d, phys.i_q, phys.epsilon, phys.u_d_buffer, phys.u_q_buffer)
+    before = PCL.PMSM_CL_KERNEL.launches["pmsm_closed_loop"]
+    outk = PCL.kernel_pmsm_closed_loop(env, state0, phys.omega_el, policy, n_steps, **kw)
+    outp = PCL.plain_pmsm_closed_loop(env, state0, phys.omega_el, policy, n_steps, **kw)
+    torch.cuda.synchronize()
+    assert PCL.PMSM_CL_KERNEL.launches["pmsm_closed_loop"] == before + 1
+    flat = lambda out: [t for part in out if part is not None for t in part]
+    assert len(flat(outk)) == len(flat(outp))
+    for a, b in zip(flat(outk), flat(outp)):
+        assert torch.equal(a, b)
+    assert float(outk[3][5].abs().max()) <= 1.0  # the clamped actions
 
 
 FAST_CASES = [

@@ -691,3 +691,29 @@ def test_tree_from_numpy_runs_on_the_card_by_default():
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tree_from_numpy(tree)
+
+
+def test_noise_works_through_the_learning_stack():
+    """step_with_flags and PPO consume vmap_step, so the stochastic env drops
+    in: train_ppo on the noisy tracking Pendulum at B = 8 gives finite
+    metrics, and the JAX package's within 1e-8 relative to each metric's
+    largest entry from the same key and initial parameters (the draws
+    follow the states' keys, which reset_with_references gives them)."""
+    from exciting_environments_tpu.utils import rl as jrl
+    from exciting_environments_torch.utils import rl as prl
+    from exciting_environments_torch.utils.convert import agent_params_from_numpy
+
+    kw = dict(batch_size=8, tau=2e-2, control_state=["theta"], process_noise={"omega": 0.2},
+              observation_noise={"theta": 0.02})
+    je, pe = J.Pendulum(**kw), P.Pendulum(**kw, **F64)
+    cfg = dict(n_steps=16, n_epochs=2, n_minibatches=4, max_episode_steps=32)
+    params = jrl.init_agent(je, jax.random.PRNGKey(1))
+    key = jax.random.PRNGKey(0)
+    res_p = prl.train_ppo(pe, iterations=2, key=torch.as_tensor(np.asarray(key).astype(np.int64)),
+                          config=prl.PPOConfig(**cfg),
+                          params=agent_params_from_numpy(pe, jax.tree_util.tree_map(np.asarray, params)))
+    res_j = jrl.train_ppo(je, iterations=2, key=key, config=jrl.PPOConfig(**cfg), params=params)
+    for name, v in res_p.metrics.items():
+        assert v.shape == (2,) and bool(torch.isfinite(v).all()), name
+        ref = np.asarray(res_j.metrics[name])
+        assert float(np.abs(v.numpy() - ref).max()) <= 1e-8 * float(np.abs(ref).max()), name

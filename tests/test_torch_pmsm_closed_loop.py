@@ -10,10 +10,15 @@ port's ``PMSM.fused_closed_loop`` is also held against its own
 tests/test_pallas_pmsm.py:511-513: the closed loop's hexagon takes the sector
 from a linear test where ``env.step`` takes ``atan2``.  The kernel itself
 runs only on a CUDA card: tests/test_torch_gpu.py holds it against this
-plain version there.
+plain version there.  The PPO actor (family 1) is held here by its
+registration and budget and by its VJP against autograd through the plain
+loop at 1e-12; tests/test_torch_rl_fused.py holds it against the Pallas
+kernel in interpret mode.
 """
 
 import math
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -407,6 +412,15 @@ def _cpu_call(pe, ps, policy, **kw):
                                        props=pe.env_properties, ref_leaves=refs, **kw)
 
 
+def _foc_tile():
+    """The induction machine's FOC tile (family 4), which the PMSM kernel is
+    not built with."""
+    from exciting_environments_torch.utils.foc import make_foc_tile
+
+    im = P.InductionMachine(batch_size=8, **F64)
+    return make_foc_tile(im, psi_ref=0.7, torque_ref=8.0)[0]
+
+
 def _err_env(**kw):
     pe = P.PMSM(batch_size=8, saturated=True, motor_variant=P.MotorVariant.BRUSA, control_state=["i_d", "i_q"],
                 **F64, **kw)
@@ -428,7 +442,7 @@ ERRORS = {
     "kernel wants CUDA tensors": (lambda pe, ps: _cpu_call(pe, ps, P.AffinePolicy(K_P)), ValueError, "CUDA tensors"),
     "plain callable on the kernel": (lambda pe, ps: _cpu_call(pe, ps, p_law), ValueError,
                                      "plain callable runs the loop on the CPU only"),
-    "family not built": (lambda pe, ps: _cpu_call(pe, ps, P.make_actor_tile(pe)[0]), ValueError, "built with"),
+    "family not built": (lambda pe, ps: _cpu_call(pe, ps, _foc_tile()), ValueError, "built with"),
 }
 
 
@@ -452,3 +466,79 @@ def test_out_of_scope_raises_and_select_returns_none():
         pe.fused_closed_loop(ps, p_law, 4)
     with pytest.raises(ValueError, match="scope"):
         P.RolloutCollector(pe).collect_policy_fused(p_law, ps, 4)
+
+
+# ---------------------------------------------------------------------------
+# the PPO actor as a compiled family of the PMSM kernel
+# ---------------------------------------------------------------------------
+
+CSRC = Path(__file__).resolve().parents[1] / "exciting_environments_torch" / "csrc"
+
+
+def test_actor_family_is_registered_and_budgeted():
+    """Family 1 is the actor (ActorReg<16, 16> and ActorLaw in
+    csrc/pmsm_closed_loop/actor.cu); its budget is the JAX gate's 2,048
+    parameters and the seed; the argument struct carries its options."""
+    from exciting_environments_torch.utils.rl_fused import MAX_ACTOR_PARAMS
+
+    assert PCL.FAMILIES[1] == "ActorPolicy" == P.make_actor_tile(P.Pendulum(batch_size=2, **F64))[0].__class__.__name__
+    assert PCL.MAX_POLICY_PARAMS == MAX_ACTOR_PARAMS + 1
+    header = (CSRC / "pmsm_closed_loop.cuh").read_text()
+    assert f"#define MAX_POLICY_PARAMS ({MAX_ACTOR_PARAMS} + 1)" in header
+    names = [f[0] for f in PCL.PmsmClArgs._fields_]
+    struct = header[header.index("struct PmsmClArgs {"):header.index("};", header.index("struct PmsmClArgs {"))]
+    for field in ("deterministic", "n_layers", "widths"):
+        assert field in names and re.search(rf"\b{field}\b", struct)
+    unit = (CSRC / "pmsm_closed_loop" / "actor.cu").read_text()
+    assert "ActorReg<16, 16>" in unit and "ActorLaw" in unit
+    assert "case 1:" in (CSRC / "pmsm_closed_loop.cu").read_text()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_actor_budget_fits_one_block_on_the_saturated_table(dtype):
+    """BRUSA's interleaved table plus 2,049 parameters and the 16 rotations
+    fit the 227 KB of one block, and the parameters start on a 16-byte
+    boundary after the table (ActorReg's 16-byte weight reads)."""
+    pe = P.PMSM(batch_size=8, saturated=True, motor_variant=P.MotorVariant.BRUSA, device="cpu", dtype=dtype)
+    table = pe._lut.interleaved()
+    table_bytes = table.numel() * table.element_size()
+    assert table_bytes % 16 == 0
+    assert table_bytes + (PCL.MAX_POLICY_PARAMS + 16) * table.element_size() <= PCL.MAX_DYNAMIC_SMEM
+
+
+def test_actor_vjp_matches_autograd_through_the_plain_loop():
+    """PmsmClosedLoopVJP replays the deterministic actor's plain forward: its
+    gradient in the weights, log_std and the initial currents equals autograd
+    through the plain loop (float64, saturated BRUSA, saves every 4 steps)."""
+    from exciting_environments_torch.utils.convert import actor_params_from_numpy
+
+    pe = P.PMSM(batch_size=B, saturated=True, motor_variant=P.MotorVariant.BRUSA, control_state=["i_d", "i_q"],
+                **F64)
+    rng = np.random.default_rng(8)
+    sizes = (10, 16, 16, 2)
+    layers = [{"w": rng.normal(0.0, 1.0 / np.sqrt(m), (m, n)), "b": rng.normal(0.0, 0.1, n)}
+              for m, n in zip(sizes[:-1], sizes[1:])]
+    _, ps = pe.vmap_reset(torch.Generator().manual_seed(3))
+    phys = ps.physical_state
+    refs = tuple(torch.as_tensor(rng.uniform(-0.9, 0.9, B)) for _ in range(2))
+    policy, ids = P.make_actor_tile(pe, deterministic=True)
+
+    def grads(run):
+        params = actor_params_from_numpy(pe, {"actor": layers, "log_std": np.full(2, -1.0), "seed": 5.0})
+        leaves = [params["actor"][0]["w"], params["actor"][2]["b"], params["log_std"]]
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        i_d = phys.i_d.clone().requires_grad_(True)
+        state0 = (i_d, phys.i_q, phys.epsilon, phys.u_d_buffer, phys.u_q_buffer)
+        out = run(pe, state0, phys.omega_el, policy, 8, tau=pe.tau, solver=pe._solver, props=pe.env_properties,
+                  ref_leaves=refs, traj_stride=4, policy_params=params, policy_carry=ids)
+        loss = sum((t ** 2).sum() for part in out if part is not None for t in part)
+        return torch.autograd.grad(loss, leaves + [i_d], allow_unused=True)
+
+    got = grads(PCL.pmsm_closed_loop)
+    want = grads(PCL.plain_pmsm_closed_loop)
+    # no draw: log_std has no effect (autograd through the plain loop leaves it unused)
+    assert want[2] is None and (got[2] is None or float(got[2].abs().max()) == 0.0)
+    for a, b in (got[0], want[0]), (got[1], want[1]), (got[3], want[3]):
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 1e-12 * max(scale, 1e-300)

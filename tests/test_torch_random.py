@@ -125,3 +125,63 @@ def test_cpu_normal_does_not_depend_on_the_thread_count(dtype):
         assert torch.equal(draw, one)
     nd = np.float32 if dtype == torch.float32 else np.float64
     assert torch.equal(one, whole * float(nd(np.sqrt(2))))
+
+
+# ---------------------------------------------------------------------------
+# what the trainers draw: permutation, randint, shaped draws
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [1, 2, 7, 1000, 70000, 4194304])
+def test_permutation_matches_jax_bit_for_bit(n):
+    """``ceil(3 ln n / ln(2**32 - 1))`` rounds: 0 at n = 1, 1 up to 2**10.7,
+    2 at 70,000, 3 at 2**22 (B = 65,536 x 64), where a round's ~2,000 tied
+    sort keys make the stable order decide the result."""
+    jk, _ = _keys(5, 1)
+    tk = torch.as_tensor(_words(jk[0]))
+    ours = R.permutation(tk, n)
+    np.testing.assert_array_equal(ours.numpy(), np.asarray(jax.random.permutation(jk[0], n)))
+    assert ours.dtype == torch.int64 and torch.equal(torch.sort(ours).values, torch.arange(n))
+
+
+def test_permutation_of_a_batch_of_keys_matches_vmap():
+    jk, tk = _keys(6, 4)
+    want = jax.vmap(lambda k: jax.random.permutation(k, 1000))(jk)
+    np.testing.assert_array_equal(R.permutation(tk, 1000).numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("span", [1, 3, 1000, 2**20 + 7, 2**31 - 3])
+@pytest.mark.parametrize("dtypes", [(jnp.int64, torch.int64), (jnp.int32, torch.int32)], ids=["int64", "int32"])
+def test_randint_matches_jax_bit_for_bit(span, dtypes):
+    jd, td = dtypes
+    jk, tk = _keys(7, 3)
+    lo = -2
+    want = jax.vmap(lambda k: jax.random.randint(k, (4000,), lo, lo + span, dtype=jd))(jk)
+    ours = R.randint(tk, 4000, lo, lo + span, td)
+    assert ours.dtype == td
+    np.testing.assert_array_equal(ours.numpy(), np.asarray(want))
+    assert int(ours.min()) >= lo and int(ours.max()) < lo + span
+
+
+def test_randint_contract():
+    _, tk = _keys(8, 2)
+    assert bool((R.randint(tk, 5, 3, 3) == 3).all())  # maxval <= minval returns minval
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        R.randint(tk, 5, 0, 2**31 + 1)
+    with pytest.raises(ValueError, match="int32 or int64"):
+        R.randint(tk, 5, 0, 10, torch.int16)
+
+
+@pytest.mark.parametrize("dtypes", DTYPES, ids=["float32", "float64"])
+def test_shaped_draws_number_their_elements_in_row_major_order(dtypes):
+    """``normal(key, (B, A))`` and ``uniform(key, (B, A), dtype, -1, 1)`` as
+    the trainers draw them (utils/rl.py, utils/sac.py)."""
+    jd, td = dtypes
+    jk, _ = _keys(4, 1)
+    tk = torch.as_tensor(_words(jk[0]))
+    np.testing.assert_allclose(R.normal(tk, (17, 3), td).numpy(), np.asarray(jax.random.normal(jk[0], (17, 3), jd)),
+                               rtol=0, atol=NORMAL_ATOL[td])
+    np.testing.assert_array_equal(R.uniform(tk, (17, 3), td, -1.0, 1.0).numpy(),
+                                  np.asarray(jax.random.uniform(jk[0], (17, 3), jd, -1.0, 1.0)))
+    np.testing.assert_array_equal(R.random_bits(tk, (5, 2)).numpy(),
+                                  np.asarray(jax.random.bits(jk[0], (5, 2), jnp.uint32)).astype(np.int64))
