@@ -212,7 +212,24 @@ Phases (any failure raises and the script exits non-zero):
     ``learning_starts`` is one iteration's 2^15 transitions, so the first
     collects with random actions and the updates start at its end), finite
     metrics and env-steps/s;
-21. print the kernel table, the card's name and power limit, and last the
+21. data generation (``phase_collect``) at the JAX package's device-script
+    widths, float32: ``RolloutCollector.collect_fused`` over an ``aprbs``
+    slab on the tracking Pendulum (B = 65,536, T = 2,048, one launch of the
+    stepper kernel, row 1k) and on a saturated BRUSA fleet whose ``r_s``
+    ``randomize_env`` draws (B = 65,536, T = 512, one launch of the PMSM
+    kernel, row 3e), each equal to the eager ``collect`` in every leaf, the
+    kernel with a save every step 0.0 from its plain version, and the
+    kernel, entry-point, ``_assemble_batch`` and whole-call ms; the noisy
+    Pendulum in fast noise mode (T = 256), ``collect_fused`` equal to
+    ``collect``; ``collect_policy`` with a Gaussian-exploration PD law (T =
+    256); ``adaptive_rollout`` of a Van der Pol fleet with ``mu`` over
+    1..300 (B = 8,192, 8 intervals of 5e-2) against a 64-times-finer
+    fixed-step Tsit5 ``fused_rollout`` (within 1e-3, no instance
+    incomplete), of a mass-spring-damper fleet with ``k`` over 1..1e6
+    (finite where one Euler step per tau is not) and the PMSM's own
+    interval loop on a per-batch ``r_s`` fleet (B = 1,024); every line with
+    the card's name and power limit;
+22. print the kernel table, the card's name and power limit, and last the
     result line ``{"ok": true, "device": {...}}``.
 
 The anatomy of a redesigned kernel's case (``anatomy``): its registers,
@@ -3986,6 +4003,366 @@ def phase_rl(ex, CL, PCL):
     return entries
 
 
+# ---------------------------------------------------------------------------
+# data generation: the collectors over kernels 1 and 3, adaptive integration
+# ---------------------------------------------------------------------------
+
+COLLECT_B = 65536
+COLLECT_T = 2048  # benchmarks/r03/collector_device.py:30
+BRUSA_COLLECT_T = 512  # benchmarks/r04/pmsm_pb_noise_device.py:50
+NOISE_COLLECT_T = POLICY_COLLECT_T = 256
+ADAPTIVE_B, ADAPTIVE_INTERVALS, ADAPTIVE_FINE = 8192, 8, 64  # benchmarks/r04/adaptive_device.py:93-101
+ADAPTIVE_PMSM_B = 1024
+BATCH_LEAVES = ("observations", "actions", "rewards", "terminated", "truncated")
+#: the stage evaluations of one Tsit5 attempt: seven stages, the first reused (FSAL)
+TSIT5_NEW_STAGES = 6
+
+
+def card_line():
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def leaf_deviation(a, b):
+    """The largest |a - b| over two leaves of one shape, a NaN on one side
+    only counting as infinite; booleans compare as 0/1."""
+    if a.shape != b.shape:
+        return math.inf
+    a, b = a.double(), b.double()
+    both_nan = torch.isnan(a) & torch.isnan(b)
+    d = torch.where(both_nan, torch.zeros_like(a), (a - b).abs())
+    return float(torch.nan_to_num(d, nan=math.inf).max()) if d.numel() else 0.0
+
+
+def collect_deviations(batch_f, final_f, batch_s, final_s, fields):
+    """Per leaf of the TrajectoryBatch and of the final state (``fields`` and
+    the keys), the deviation of the fused collector from the eager one."""
+    devs = {name: leaf_deviation(getattr(batch_f, name), getattr(batch_s, name)) for name in BATCH_LEAVES}
+    devs.update({f"final.{n}": leaf_deviation(getattr(final_f.physical_state, n), getattr(final_s.physical_state, n))
+                 for n in fields})
+    if isinstance(final_f.PRNGKey, torch.Tensor) and final_f.PRNGKey.dtype == torch.int64:
+        devs["final.PRNGKey"] = leaf_deviation(final_f.PRNGKey, final_s.PRNGKey)
+    return devs
+
+
+def scaled_failures(devs, batch_s, final_s, limit=1e-6):
+    """The leaves whose deviation is above ``limit`` times the leaf's largest
+    magnitude (a leaf that cannot reach 0.0 is held there)."""
+    bad = []
+    for name, dev in devs.items():
+        if dev == 0.0:
+            continue
+        ref = getattr(final_s.physical_state, name[6:]) if name.startswith("final.") and name != "final.PRNGKey" \
+            else (final_s.PRNGKey if name == "final.PRNGKey" else getattr(batch_s, name))
+        scale = float(torch.nan_to_num(ref.double().abs(), nan=0.0).max()) if ref.numel() else 0.0
+        if not dev <= limit * max(scale, 1e-30):
+            bad.append(name)
+    return bad
+
+
+def collect_bytes(env, batch, n_saved, table=0, n_params=0):
+    """What a collection must move once: the action slab and the initial
+    leaves read (per-batch parameters and a table too), then the saved
+    per-step states (``n_saved`` leaves of the action slab's type) and the
+    batch's observations, rewards and flags written, each leaf at the size
+    the run gave it."""
+    leaf_bytes = lambda t: t.numel() * t.element_size()
+    B, T = batch.actions.shape[:2]
+    itemsize = batch.actions.element_size()
+    n_state = len(env._ode_state_fields) if hasattr(env, "_ode_state_fields") else 6
+    read = leaf_bytes(batch.actions) + itemsize * ((n_state + n_params) * B + table)
+    written = itemsize * B * T * n_saved + sum(leaf_bytes(getattr(batch, n))
+                                               for n in ("observations", "rewards", "terminated", "truncated"))
+    return read + written
+
+
+def phase_collect(ex, K, PK):
+    """Data generation on the card at the JAX package's device-script
+    widths, float32, B = 65,536: ``RolloutCollector.collect_fused`` over an
+    ``aprbs`` slab on the tracking Pendulum (T = 2,048, one launch of
+    ``csrc/stepper.cu``, row 1k) and on a saturated BRUSA fleet with
+    ``r_s`` drawn by ``randomize_env`` (T = 512, one launch of
+    ``csrc/pmsm_stepper.cu``, row 3e), each equal to the eager ``collect``
+    in every leaf (0.0); the noisy Pendulum in fast noise mode (T = 256,
+    ``collect`` through ``_collect_fast_noise``); ``collect_policy`` with a
+    Gaussian-exploration PD law (T = 256); then ``adaptive_rollout`` of a
+    Van der Pol fleet with ``mu`` log-spaced over 1..300 (B = 8,192, tau
+    5e-2, 8 intervals, rtol 1e-6, atol 1e-8) against a 64-times-finer
+    fixed-step Tsit5 rollout through ``fused_rollout`` (one launch), the
+    mass-spring-damper fleet with ``k`` over 1..1e6, and the PMSM's own
+    interval loop on a per-batch ``r_s`` fleet (B = 1,024).  Returns the
+    kernel table's entries."""
+    from exciting_environments_torch.ops import adaptive as A
+    from exciting_environments_torch.ops import random as R
+    from exciting_environments_torch.ops.kernels import rollout_path
+    from exciting_environments_torch.ops.signals import aprbs
+    from exciting_environments_torch.utils import randomize
+    from exciting_environments_torch.utils.collect import RolloutCollector
+
+    card = card_line()
+    entries, failures = [], []
+    B = COLLECT_B
+
+    def log_c(msg):
+        log(f"[collect] {msg} ({card})")
+
+    def held(label, devs, batch_s, final_s):
+        worst = max(devs.values())
+        bad = scaled_failures(devs, batch_s, final_s)
+        nonzero = {k: v for k, v in devs.items() if v != 0.0}
+        log_c(f"{label}: collect_fused vs collect, largest deviation {worst!r}"
+              + (f", nonzero leaves {nonzero}" if nonzero else " (0.0 in every leaf)")
+              + (f", above 1e-6 of their scale: {bad}" if bad else ""))
+        if bad:
+            failures.append(f"{label} collect_fused vs collect")
+        return worst
+
+    # -- classic collection: the tracking Pendulum over an aprbs slab, row 1k
+    T = COLLECT_T
+    env = ex.Pendulum(batch_size=B, tau=1e-4, control_state=["theta"], device=DEVICE)
+    if rollout_path(env) != "fused":
+        raise AssertionError(f"the Pendulum left the stepper kernel's scope: {rollout_path(env)}")
+    _, s0 = env.vmap_reset(R.split(R.PRNGKey(SEED, DEVICE), B))
+    # benchmarks/r03/collector_device.py:40-47's references
+    s0.reference.theta = R.uniform(R.PRNGKey(SEED + 2, DEVICE), B, torch.float32, -math.pi, math.pi)
+    acts = aprbs(R.PRNGKey(SEED + 1, DEVICE), B, T, 1)
+    col = RolloutCollector(env)
+    K.KERNEL.reset_counts()
+    batch_f, final_f = col.collect_fused(s0, acts)
+    torch.cuda.synchronize()
+    launches = K.KERNEL.launches["step"]
+    if launches != 1 or sum(K.KERNEL.launches.values()) != 1:
+        raise AssertionError(f"collect_fused on the Pendulum made {K.KERNEL.launches} launches, not one")
+    t0 = time.perf_counter()
+    batch_s, final_s = col.collect(s0, acts)
+    torch.cuda.synchronize()
+    collect_ms = (time.perf_counter() - t0) * 1e3
+    err = held(f"Pendulum B={B} T={T}", collect_deviations(batch_f, final_f, batch_s, final_s, ("theta", "omega")),
+               batch_s, final_s)
+    del batch_s, final_s
+    y0 = tuple(getattr(s0.physical_state, n) for n in env._ode_state_fields)
+    kernel_fn = lambda: K.kernel_rollout(env, y0, acts, tau=env.tau, obs_stride=1, batch_major=True)
+    yk, tk = kernel_fn()
+    yp, tp = K.plain_rollout(env, y0, acts.transpose(0, 1), tau=env.tau, obs_stride=1)
+    torch.cuda.synchronize()
+    kernel_err = max(max_abs(yk, yp), max_abs(tk, tp))
+    del yk, tk, yp, tp
+    if kernel_err != 0.0:
+        failures.append("stepper kernel vs plain with a save every step")
+    obs_k, traj_k, fin_k = K.env_fused_rollout(env, s0, acts, obs_stride=1, return_traj_states=True)
+    kernel_ms = time_ms(kernel_fn)
+    entry_ms = time_ms(lambda: K.env_fused_rollout(env, s0, acts, obs_stride=1, return_traj_states=True))
+    assemble_ms = time_ms(lambda: col._assemble_batch(obs_k, acts, traj_k, fin_k))
+    del obs_k, traj_k, fin_k
+    ms = time_ms(lambda: col.collect_fused(s0, acts))
+    nbytes = collect_bytes(env, batch_f, 2)
+    bound_ms, bound_by = roofline(nbytes, ops_per_step(env, env._solver, False) * B * T)
+    log_c(f"row 1k Pendulum B={B} T={T} float32, aprbs slab: collect_fused {ms!r} ms = {B * T / ms * 1e3:.4e} "
+          f"env-steps/s (one launch); the kernel with a save every step {kernel_ms!r} ms (vs plain max abs "
+          f"{kernel_err!r}), env_fused_rollout with the trajectory {entry_ms!r} ms, _assemble_batch {assemble_ms!r} "
+          f"ms ({assemble_ms / ms:.1%} of the call); bound {bound_ms!r} ms ({bound_by}: {nbytes / 1e9:.3f} GB of "
+          f"slab, saved states, observations, rewards and flags), {bound_ms / ms:.1%} of it; eager collect "
+          f"{collect_ms!r} ms (one run) = {B * T / collect_ms * 1e3:.4e} env-steps/s")
+    entries.append(entry("stepper_collect", launches, err, ms, collect_ms, bound_ms, bound_by, SOURCE, REPLACES))
+    del batch_f, final_f, acts, s0
+
+    # -- a randomized saturated BRUSA fleet, row 3e
+    T = BRUSA_COLLECT_T
+    defaults = dict(ex.MotorVariant.BRUSA.get_params().static_params.__dict__)
+    fleet = randomize.randomize_env(ex.PMSM, R.PRNGKey(3, DEVICE), {"r_s": randomize.Uniform(15e-3, 21e-3)},
+                                    batch_size=B, defaults=defaults, saturated=True,
+                                    motor_variant=ex.MotorVariant.BRUSA, control_state=["i_d", "i_q"],
+                                    device=DEVICE)
+    if rollout_path(fleet) != "pmsm_fused":
+        raise AssertionError(f"the randomized BRUSA fleet left the PMSM kernel's scope: {rollout_path(fleet)}")
+    _, s0 = fleet.vmap_reset(R.split(R.PRNGKey(SEED, DEVICE), B))
+    s0.reference.i_d = torch.linspace(-200.0, -10.0, B, device=DEVICE)
+    s0.reference.i_q = torch.linspace(-150.0, 150.0, B, device=DEVICE)
+    acts = aprbs(R.PRNGKey(SEED + 4, DEVICE), B, T, 2, minval=-0.4, maxval=0.4)
+    col = RolloutCollector(fleet)
+    PK.KERNEL.reset_counts()
+    batch_f, final_f = col.collect_fused(s0, acts)
+    torch.cuda.synchronize()
+    launches = PK.KERNEL.launches["pmsm_step"]
+    if launches != 1 or sum(PK.KERNEL.launches.values()) != 1:
+        raise AssertionError(f"collect_fused on the BRUSA fleet made {PK.KERNEL.launches} launches, not one")
+    t0 = time.perf_counter()
+    batch_s, final_s = col.collect(s0, acts)
+    torch.cuda.synchronize()
+    collect_ms = (time.perf_counter() - t0) * 1e3
+    fields = ("i_d", "i_q", "epsilon", "torque", "u_d_buffer", "u_q_buffer")
+    err = held(f"randomized BRUSA B={B} T={T}", collect_deviations(batch_f, final_f, batch_s, final_s, fields),
+               batch_s, final_s)
+    del batch_s, final_s
+    state0, omega = PK._start(s0)
+    kernel_fn = lambda: PK.pmsm_kernel_rollout(fleet, acts, state0, omega, tau=fleet.tau, obs_stride=1,
+                                               batch_major=True)
+    outk = [t for part in kernel_fn() for t in (part or ()) if t is not None]
+    outp = [t for part in PK.plain_pmsm_rollout(fleet, acts, state0, omega, tau=fleet.tau, obs_stride=1,
+                                                batch_major=True) for t in (part or ()) if t is not None]
+    torch.cuda.synchronize()
+    kernel_err = max_abs(outk, outp)
+    del outk, outp
+    if kernel_err != 0.0:
+        failures.append("PMSM kernel vs plain with a save every step")
+    obs_k, traj_k, fin_k = PK.pmsm_fused_rollout(fleet, s0, acts, obs_stride=1, return_traj_states=True)
+    kernel_ms = time_ms(kernel_fn)
+    entry_ms = time_ms(lambda: PK.pmsm_fused_rollout(fleet, s0, acts, obs_stride=1, return_traj_states=True))
+    assemble_ms = time_ms(lambda: col._assemble_batch(obs_k, acts, traj_k, fin_k))
+    del obs_k, traj_k, fin_k
+    ms = time_ms(lambda: col.collect_fused(s0, acts))
+    table = fleet._lut.interleaved().numel()
+    nbytes = collect_bytes(fleet, batch_f, 6, table=table, n_params=1)
+    bound_ms, bound_by = roofline(nbytes, pmsm_ops(fleet, fleet._solver, T, T) * B)
+    log_c(f"row 3e randomized BRUSA (r_s per drive) B={B} T={T} float32, aprbs +-0.4: collect_fused {ms!r} ms = "
+          f"{B * T / ms * 1e3:.4e} env-steps/s (one launch); the kernel with a save every step {kernel_ms!r} ms "
+          f"(vs plain max abs {kernel_err!r}), pmsm_fused_rollout with the trajectory {entry_ms!r} ms, "
+          f"_assemble_batch {assemble_ms!r} ms ({assemble_ms / ms:.1%} of the call); bound {bound_ms!r} ms "
+          f"({bound_by}: {nbytes / 1e9:.3f} GB), {bound_ms / ms:.1%} of it; eager collect {collect_ms!r} ms "
+          f"(one run) = {B * T / collect_ms * 1e3:.4e} env-steps/s")
+    entries.append(entry("pmsm_stepper_collect", launches, err, ms, collect_ms, bound_ms, bound_by, PMSM_SOURCE,
+                         PMSM_REPLACES))
+    del batch_f, final_f, acts, s0
+
+    # -- fast-mode noise: collect consumes the rollout's slab, as the kernel
+    T = NOISE_COLLECT_T
+    env = ex.Pendulum(batch_size=B, tau=1e-4, control_state=["theta"], noise_mode="fast", device=DEVICE,
+                      **NOISE_PENDULUM)
+    _, s0 = env.vmap_reset(R.split(R.PRNGKey(SEED + 5, DEVICE), B))
+    s0.reference.theta = torch.linspace(-1.5, 1.5, B, device=DEVICE)
+    acts = aprbs(R.PRNGKey(SEED + 6, DEVICE), B, T, 1)
+    col = RolloutCollector(env)
+    K.KERNEL.reset_counts()
+    t0 = time.perf_counter()
+    batch_f, final_f = col.collect_fused(s0, acts)
+    torch.cuda.synchronize()
+    fused_ms = (time.perf_counter() - t0) * 1e3
+    if K.KERNEL.launches["step"] != 1 or sum(K.KERNEL.launches.values()) != 1:
+        raise AssertionError(f"collect_fused on the noisy Pendulum made {K.KERNEL.launches} launches, not one")
+    t0 = time.perf_counter()
+    batch_s, final_s = col.collect(s0, acts)
+    torch.cuda.synchronize()
+    collect_ms = (time.perf_counter() - t0) * 1e3
+    held(f"noisy Pendulum fast mode B={B} T={T}",
+         collect_deviations(batch_f, final_f, batch_s, final_s, ("theta", "omega")), batch_s, final_s)
+    log_c(f"noisy Pendulum fast mode: collect_fused {fused_ms!r} ms, eager collect {collect_ms!r} ms (one run "
+          f"each, the draws included)")
+    del batch_f, final_f, batch_s, final_s
+
+    # -- collect_policy: a Gaussian-exploration PD law drawing from each step's key
+    T = POLICY_COLLECT_T
+    env = ex.Pendulum(batch_size=B, tau=1e-4, control_state=["theta"], device=DEVICE)
+    _, s0 = env.vmap_reset(R.split(R.PRNGKey(SEED + 7, DEVICE), B))
+    s0.reference.theta = torch.linspace(-1.5, 1.5, B, device=DEVICE)
+
+    def explore(obs, key):
+        u = -0.9 * (obs[:, :1] - obs[:, 2:3]) - 0.25 * obs[:, 1:2]
+        return torch.clamp(u + 0.1 * R.normal(key, (B, 1), torch.float32), -1.0, 1.0)
+
+    t0 = time.perf_counter()
+    batch_p, _ = RolloutCollector(env).collect_policy(explore, s0, R.PRNGKey(SEED + 8, DEVICE), T)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    finite = all(bool(torch.isfinite(getattr(batch_p, n).float()).all()) for n in BATCH_LEAVES)
+    log_c(f"collect_policy Gaussian PD B={B} T={T}: {wall * 1e3:.1f} ms (host clock) = {B * T / wall:.4e} "
+          f"env-steps/s; mean reward {float(batch_p.rewards.mean())!r}; finite {finite}")
+    if not finite:
+        failures.append("collect_policy")
+    del batch_p
+
+    # -- adaptive integration: the stiff Van der Pol fleet
+    Ba, N = ADAPTIVE_B, ADAPTIVE_INTERVALS
+    mu = torch.exp(torch.linspace(math.log(1.0), math.log(300.0), Ba, device=DEVICE))
+    vdp = ex.VanDerPol(batch_size=Ba, tau=5e-2, static_params={"mu": mu}, device=DEVICE)
+    _, s0 = vdp.vmap_reset(R.split(R.PRNGKey(SEED, DEVICE), Ba))
+    acts = torch.full((Ba, N, 1), 0.1, device=DEVICE)
+    A.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, last_a, stats = A.adaptive_rollout(vdp, s0, acts, rtol=1e-6, atol=1e-8, max_steps_per_interval=4000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(A.COUNTS)
+    acc, rej = stats.accepted.double(), stats.rejected.double()
+    attempts = float((acc + rej).sum())
+    incomplete = int(stats.incomplete.sum())
+    fine = ex.VanDerPol(batch_size=Ba, tau=5e-2 / ADAPTIVE_FINE, static_params={"mu": mu}, solver="tsit5",
+                        device=DEVICE)
+    K.KERNEL.reset_counts()
+    _, last_fine = fine.fused_rollout(s0, torch.repeat_interleave(acts, ADAPTIVE_FINE, dim=1), strict=True)
+    torch.cuda.synchronize()
+    fine_launches = K.KERNEL.launches["step"]
+    dev = float((last_a.physical_state.position - last_fine.physical_state.position).abs().max())
+    dev_v = float((last_a.physical_state.velocity - last_fine.physical_state.velocity).abs().max())
+    # the velocity of a drive caught inside its relaxation jump is large and
+    # moves fast, so its deviation is held against the fine rollout's scale
+    v_scale = float(last_fine.physical_state.velocity.abs().max())
+    _, last_fx = vdp.fused_rollout(s0, acts, strict=True)
+    fx_dev = float(torch.nan_to_num((last_fx.physical_state.position - last_fine.physical_state.position).abs(),
+                                    nan=math.inf).max())
+    ok = (incomplete == 0 and dev <= 1e-3 and dev_v <= 1e-3 * v_scale and fine_launches == 1
+          and all(bool(torch.isfinite(v).all()) for v in (last_a.physical_state.position,
+                                                           last_a.physical_state.velocity)))
+    log_c(f"adaptive_rollout VanDerPol mu 1..300 B={Ba}, {N} intervals of 5e-2, rtol 1e-6, atol 1e-8, float32: "
+          f"{wall * 1e3:.1f} ms (host clock); accepted per instance min {int(acc.min())}, max {int(acc.max())}, "
+          f"mean {float(acc.mean()):.2f}, rejected mean {float(rej.mean()):.2f}, spread "
+          f"{float(acc.max() / acc.min().clamp(min=1)):.1f}x, incomplete {incomplete}; {counts['iterations']} loop "
+          f"iterations, {counts['syncs']} condition reads ({counts['syncs'] / N:.1f} per interval); "
+          f"{attempts * TSIT5_NEW_STAGES / wall:.4e} embedded-pair stages/s of accepted and rejected attempts, "
+          f"{counts['iterations'] * Ba * TSIT5_NEW_STAGES / wall:.4e} evaluated (masked lanes included); "
+          f"deviation from the {ADAPTIVE_FINE}x-fine Tsit5 fused_rollout ({fine_launches} launch): position "
+          f"{dev!r} (limit 1e-3), velocity {dev_v!r} (limit 1e-3 of the largest |velocity| {v_scale!r}); one "
+          f"fixed Euler step per tau: position {fx_dev!r} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("adaptive VanDerPol")
+
+    # -- adaptive integration: the stiff mass-spring-damper fleet, k over 1..1e6
+    ks = torch.exp(torch.linspace(0.0, math.log(1e6), Ba, device=DEVICE))
+    msd = ex.MassSpringDamper(batch_size=Ba, tau=2e-3, static_params={"k": ks, "d": 0.2, "m": 1.0}, device=DEVICE)
+    _, s0 = msd.vmap_reset(R.split(R.PRNGKey(SEED + 1, DEVICE), Ba))
+    acts = torch.full((Ba, N, 1), 0.05, device=DEVICE)
+    A.reset_counts()
+    t0 = time.perf_counter()
+    _, last_a, stats = A.adaptive_rollout(msd, s0, acts, rtol=1e-6, atol=1e-8, max_steps_per_interval=4000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _, last_fx = msd.fused_rollout(s0, acts, strict=True)
+    x_a = last_a.physical_state.deflection
+    x_fx = torch.nan_to_num(last_fx.physical_state.deflection.abs(), nan=math.inf)
+    adaptive_max, fixed_max = float(x_a.abs().max()), float(x_fx.max())
+    incomplete = int(stats.incomplete.sum())
+    ok = bool(torch.isfinite(x_a).all()) and incomplete == 0 and fixed_max > 10 * adaptive_max
+    log_c(f"adaptive_rollout MassSpringDamper k 1..1e6 B={Ba}, {N} intervals of 2e-3: {wall * 1e3:.1f} ms; accepted "
+          f"min {int(stats.accepted.min())}, max {int(stats.accepted.max())}, incomplete {incomplete}, "
+          f"{A.COUNTS['syncs'] / N:.1f} condition reads per interval; largest |deflection| adaptive "
+          f"{adaptive_max!r}, one fixed Euler step per tau {fixed_max!r} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("adaptive MassSpringDamper")
+
+    # -- the PMSM's own interval loop on a per-batch r_s fleet
+    Bp = ADAPTIVE_PMSM_B
+    drive = randomize.randomize_env(ex.PMSM, R.PRNGKey(3, DEVICE), {"r_s": randomize.Uniform(15e-3, 21e-3)},
+                                    batch_size=Bp, defaults=defaults, saturated=True,
+                                    motor_variant=ex.MotorVariant.BRUSA, device=DEVICE)
+    _, s0 = drive.vmap_reset(R.split(R.PRNGKey(SEED + 2, DEVICE), Bp))
+    acts = aprbs(R.PRNGKey(SEED + 9, DEVICE), Bp, N, 2, hold_min=1, hold_max=4, minval=-0.4, maxval=0.4)
+    A.reset_counts()
+    t0 = time.perf_counter()
+    obs, last_a, stats = A.adaptive_rollout(drive, s0, acts, rtol=1e-6, atol=1e-8)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    incomplete = int(stats.incomplete.sum())
+    ok = bool(torch.isfinite(obs).all()) and incomplete == 0
+    log_c(f"adaptive_rollout saturated BRUSA, r_s per drive, B={Bp}, {N} intervals: {wall * 1e3:.1f} ms; accepted "
+          f"min {int(stats.accepted.min())}, max {int(stats.accepted.max())}, rejected mean "
+          f"{float(stats.rejected.double().mean()):.2f}, incomplete {incomplete}, finite {ok}")
+    if not ok:
+        failures.append("adaptive PMSM")
+    if failures:
+        raise AssertionError(f"data generation failed: {failures}")
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4039,6 +4416,7 @@ def main() -> int:
     grads = phase_grad(ex, K, CL, PK, PCL)
     grads += phase_train(ex, CL, PCL)
     kernels += phase_rl(ex, CL, PCL)
+    kernels += phase_collect(ex, K, PK)
     if "jax" in sys.modules or any(m.startswith("exciting_environments_tpu") for m in sys.modules):
         raise AssertionError("the port pulled in JAX or the JAX package")
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")

@@ -14,8 +14,12 @@ the EESM's current tile of ``utils/foc.py`` run inside ``csrc/closed_loop.cu``. 
 the exact ones, run in their own kernels: ``pendulum_fast_rollout``
 (``csrc/pendulum_fast.cu``) and ``PMSM.fast_rollout``
 (``csrc/pmsm_fast.cu``); ``fast_math=True`` on the classic environments runs
-through the stepper and closed-loop kernels.  Entry points run on the CUDA
-device unless the caller passes ``device="cpu"``.
+through the stepper and closed-loop kernels.  Data generation: excitation
+signals (``ops/signals.py``), randomized fleets (``utils/randomize.py``),
+the collectors of ``utils/collect.py`` (``collect_fused`` through the
+stepper and PMSM kernels) and adaptive integration (``ops/adaptive.py``).
+Entry points run on the CUDA device unless the caller passes
+``device="cpu"``.
 """
 
 __version__ = "0.1.0"
@@ -40,7 +44,7 @@ from exciting_environments_torch.ops import solvers
 from exciting_environments_torch.ops.kernels import pendulum_fast_rollout
 from exciting_environments_torch.ops.lut import ScheduledLUT
 from exciting_environments_torch.ops.policies import AffinePolicy
-from exciting_environments_torch.utils import MinMaxNormalization
+from exciting_environments_torch.utils import MinMaxNormalization, randomize
 from exciting_environments_torch.utils.collect import RolloutCollector
 from exciting_environments_torch.utils.foc import (
     make_eesm_current_tile,

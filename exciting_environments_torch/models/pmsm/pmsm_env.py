@@ -579,6 +579,55 @@ class PMSM(CoreEnvironment):
 
         return pmsm_fast_fused_rollout(self, init_state, actions, time_major=time_major)
 
+    def _adaptive_rollout(self, init_state, actions_norm, rtol: float = 1e-6, atol: float = 1e-8, solver=None,
+                          dt0: float = None, max_steps_per_interval: int = 1_000, safety: float = 0.9,
+                          min_factor: float = 0.2, max_factor: float = 5.0, env_properties=None):
+        """Per-instance adaptive integration of the electrical subsystem across
+        a zero-order-hold action sequence (what
+        :func:`~exciting_environments_torch.ops.adaptive.adaptive_rollout`
+        runs for a drive).  Each control interval does what :meth:`step`
+        does: the hexagon constraint at the current state's deadtime-advanced
+        angle, the deadtime buffer swap, the integration of ``(i_d, i_q,
+        epsilon)`` with ``omega_el`` frozen (through the plain table gather),
+        then the angle wrap; the torque follows the final currents.  Only
+        the interval's integral is adaptive, its step proposal carried
+        across intervals.  Per-batch ``(B,)`` properties work, also through
+        ``env_properties``."""
+        from exciting_environments_torch.ops.adaptive import _hold_intervals
+
+        props = env_properties if env_properties is not None else self.env_properties
+        saturated = bool(props.saturated)
+        deadtime = int(props.static_params.deadtime)
+        batch = actions_norm.shape[0]
+        phys = init_state.physical_state
+        bc = lambda v: torch.as_tensor(v).expand(batch)
+        y = tuple(bc(v) for v in (phys.i_d, phys.i_q, phys.epsilon))
+        bufs = (bc(phys.u_d_buffer), bc(phys.u_q_buffer))
+        omega_el = bc(phys.omega_el)
+
+        def field(i, y):
+            nonlocal bufs
+            # the constraint at the current angle, as in step()
+            u_con = self._constrain(actions_norm[:, i], y[2], omega_el, props)
+            if deadtime > 0:
+                u_dq, bufs = torch.stack(bufs, dim=-1), (u_con[:, 0], u_con[:, 1])
+            else:
+                u_dq = u_con
+            return self._pmsm_vector_field(saturated, lambda t: u_dq)
+
+        y, stats = _hold_intervals(y, (props.static_params, omega_el), actions_norm.shape[1], float(self.tau), field,
+                                   lambda y: (y[0], y[1], wrap_angle(y[2])), rtol, atol, solver, dt0,
+                                   max_steps_per_interval, safety, min_factor, max_factor)
+        i_d, i_q, eps = y
+        final_state = structures.replace(
+            init_state,
+            physical_state=self.PhysicalState(u_d_buffer=bufs[0], u_q_buffer=bufs[1], epsilon=eps, i_d=i_d,
+                                              i_q=i_q, torque=self._torque(i_d, i_q, props), omega_el=omega_el),
+            additions=self.Additions(solver_state=None,
+                                     active_solver_state=torch.ones(batch, dtype=torch.bool, device=i_d.device)),
+        )
+        return self.generate_observation(final_state, props), final_state, stats
+
     def fused_closed_loop(self, init_state, policy, n_steps: int, obs_stride: int = None,
                           policy_params=None, return_traj_states: bool = False, policy_carry=None,
                           sched_lut=None):

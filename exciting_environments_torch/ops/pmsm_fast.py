@@ -21,7 +21,7 @@ the kernel in ``csrc/pmsm_fast.cu``
 :func:`pmsm_fast_rollout` wraps it at the environment level: it runs the
 loop eagerly on any device and is the reference that the kernel is held
 against.  Users call ``PMSM.fast_rollout``, which launches the kernel on
-CUDA tensors.  Scope: linear or LUT-saturated magnetics, scalar parameters
+CUDA tensors, or its linear-magnetics alias :func:`pmsm_linear_fast_rollout`.  Scope: linear or LUT-saturated magnetics, scalar parameters
 and action bounds, the Euler solver, deadtime 0 or 1; the rest raises
 ``ValueError``.
 """
@@ -231,3 +231,12 @@ def pmsm_fast_rollout(env, init_state, actions_norm, time_major: bool = False):
     )
     eps_final = fast_final_angle(eps, omega, consts, actions_tm.shape[0])
     return fast_final_state(env, init_state, leaves, i_d, i_q, eps_final, torque, buf_d, buf_q)
+
+
+def pmsm_linear_fast_rollout(env, init_state, actions_norm, time_major: bool = False):
+    """Linear-magnetics-only alias of ``PMSM.fast_rollout``: one launch of
+    ``csrc/pmsm_fast.cu`` on CUDA tensors, its plain version on CPU tensors.
+    Raises ``ValueError`` for a saturated drive."""
+    if env.env_properties.saturated:
+        raise ValueError("pmsm_linear_fast_rollout supports linear magnetics only")
+    return env.fast_rollout(init_state, actions_norm, time_major=time_major)

@@ -17,8 +17,8 @@ operation overflows or needs a logical shift on a signed 32-bit type.
 Exactness against ``jax.random``: ``split`` and ``fold_in`` agree bit for
 bit (pure integer arithmetic), and so do the random bits under ``uniform``,
 ``randint`` and ``permutation``.
-``uniform`` is exact too (a bit cast, one multiply and one add in the
-working precision); ``normal`` applies ``erfinv``, whose float32 and
+``uniform`` is exact too (a bit cast, then one fused multiply-add, as
+XLA computes it on the CPU); ``normal`` applies ``erfinv``, whose float32 and
 float64 implementations differ by a few ulps between XLA and PyTorch.
 On the CPU, ``erfinv`` runs in fixed slices on the calling thread, so a
 draw does not depend on the number of intra-op threads.
@@ -133,15 +133,54 @@ def _np(dtype):
     return {torch.float32: np.float32, torch.float64: np.float64}[dtype]
 
 
+#: Veltkamp's splitting constant for float64, ``2**27 + 1``
+_SPLIT = 134217729.0
+
+
+def _split(x):
+    """``x = hi + lo`` with ``hi`` holding the upper 26 significant bits."""
+    c = _SPLIT * x
+    hi = c - (c - x)
+    return hi, x - hi
+
+
+def fma(x, a: float, b: float):
+    """``x * a + b`` rounded once, as a fused multiply-add, for a tensor ``x``
+    and Python numbers ``a``, ``b`` representable in its dtype.  float32:
+    the exact product in float64, the sum rounded there and then to float32
+    (a double rounding, which can differ where the float64 sum lands on a
+    float32 tie).  float64: the product's exact error (Dekker's
+    two-product) and the sum's (Knuth's two-sum), added before the last
+    rounding (which can differ where that addition rounds).  Both match
+    XLA's fused result in every draw of tests/test_torch_random.py's check
+    (640,000 over four spans in both widths)."""
+    if x.dtype == torch.float32:
+        return (x.double() * a + b).float()
+    p = x * a
+    xh, xl = _split(x)
+    ah, al = _split(torch.tensor(a, dtype=torch.float64))
+    ah, al = float(ah), float(al)
+    e = ((xh * ah - p) + xh * al + xl * ah) + xl * al
+    s = p + b
+    v = s - p
+    t = (p - (s - v)) + (b - v)
+    return s + (t + e)
+
+
 def uniform(keys, n, dtype: torch.dtype, minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
     """``jax.random.uniform(key, (n,), dtype, minval, maxval)`` per key (``n``
     an int or a shape):
     ``max(minval, f * (maxval - minval) + minval)`` with the bounds and their
-    difference rounded to ``dtype`` first."""
+    difference rounded to ``dtype`` first.  XLA contracts the multiply and
+    the add into one fused multiply-add on the CPU; so does this function
+    (:func:`fma`) where the product can round, that is where the span is no
+    power of two."""
     nd = _np(dtype)
     lo, hi = nd(minval), nd(maxval)
     span = float(hi - lo)
-    return torch.clamp_min(_unit_floats(keys, n, dtype) * span + float(lo), float(lo))
+    f = _unit_floats(keys, n, dtype)
+    exact = span == 0.0 or math.frexp(span)[0] == 0.5
+    return torch.clamp_min(f * span + float(lo) if exact else fma(f, span, float(lo)), float(lo))
 
 
 #: elements per ``erfinv`` call on the CPU: below the grain at which
@@ -234,3 +273,33 @@ def permutation(keys, n: int) -> torch.Tensor:
         order = torch.sort(random_bits(pair[..., 1, :], n), dim=-1, stable=True).indices
         x = torch.gather(x, -1, order)
     return x
+
+
+def choice(keys, values, n, p=None) -> torch.Tensor:
+    """``jax.random.choice(key, values, shape, replace=True, p=p)`` per key
+    (``n`` an int or a shape).
+
+    Without ``p`` the indices are :func:`randint` draws over ``[0,
+    len(values))``; with ``p`` each sample is ``searchsorted(cumsum(p),
+    cumsum(p)[-1] * (1 - u), side="left")`` for one :func:`uniform` draw
+    ``u``.  ``values`` is a 1-D tensor (its device is the keys'); its dtype
+    stands for JAX's default dtypes: float64 values draw the 64-bit indices
+    of ``jax_enable_x64`` and ``p`` in float64, float32 values the 32-bit
+    indices and float32 ``p``.  The cumulative sum runs left to right in that
+    dtype, on the host (``p`` is a short host sequence)."""
+    values = torch.as_tensor(values, device=keys.device)
+    if values.ndim != 1 or values.numel() == 0:
+        raise ValueError(f"choice takes a non-empty 1-D tensor of values, got shape {tuple(values.shape)}")
+    wide = values.dtype in (torch.float64, torch.int64)
+    n_inputs = values.numel()
+    if p is None:
+        index = randint(keys, n, 0, n_inputs, torch.int64 if wide else torch.int32).long()
+    else:
+        fdtype = torch.float64 if wide else torch.float32
+        p_np = np.asarray(p.detach().cpu() if isinstance(p, torch.Tensor) else p, dtype=_np(fdtype))
+        if p_np.shape != (n_inputs,):
+            raise ValueError(f"p must be a 1-D vector of the values' length {n_inputs}, got shape {p_np.shape}")
+        p_cuml = torch.as_tensor(np.cumsum(p_np), device=keys.device)
+        r = p_cuml[-1] * (1 - uniform(keys, n, fdtype))
+        index = torch.searchsorted(p_cuml, r.contiguous())
+    return values[index]

@@ -1,12 +1,22 @@
-"""Closed-loop trajectory collection (counterpart of part of
-``exciting_environments_tpu/utils/collect.py``).
+"""Trajectory collection for RL and system-identification datasets
+(counterpart of ``exciting_environments_tpu/utils/collect.py``).
 
-:func:`tile_policy_scan` is the semantic reference of a closed loop: a Python
-loop of ``vmap_step`` driven by a tile-contract policy.  :class:`RolloutCollector`
-collects through the closed-loop kernel (:meth:`RolloutCollector.collect_policy_fused`)
-and evaluates rewards and flags on the kernel's per-step states.  The
-open-loop collectors (``collect``, ``collect_fused``) and the on-device
-policy loop ``collect_policy`` are not ported yet.
+:class:`RolloutCollector` gathers a :class:`TrajectoryBatch` (post-step
+observations, actions, rewards and flags, batch-major) and the final state:
+
+* open loop, from an action slab ``(B, T, A)`` (e.g. from
+  :mod:`exciting_environments_torch.ops.signals`): :meth:`~RolloutCollector.collect`,
+  the eager loop of the batched step, and :meth:`~RolloutCollector.collect_fused`,
+  one launch of the stepper kernel (``csrc/stepper.cu``) or of the PMSM
+  kernel (``csrc/pmsm_stepper.cu``) with the per-step states saved;
+* closed loop: :meth:`~RolloutCollector.collect_policy`, the eager loop of a
+  ``policy(obs, key)`` (stochastic exploration), and
+  :meth:`~RolloutCollector.collect_policy_fused`, the policy inside the
+  closed-loop kernel.
+
+Both fused collectors evaluate rewards and flags on the kernel's per-step
+states.  :func:`tile_policy_scan` is the semantic reference of a closed
+loop: a Python loop of ``vmap_step`` driven by a tile-contract policy.
 """
 
 from __future__ import annotations
@@ -15,6 +25,7 @@ import torch
 
 from exciting_environments_torch.core import structures
 from exciting_environments_torch.core.structures import dataclass
+from exciting_environments_torch.ops import random as prng
 from exciting_environments_torch.ops.lut import bilinear_gather
 
 
@@ -117,14 +128,116 @@ class RolloutCollector:
     def __init__(self, env):
         self.env = env
 
+    def _flags(self, state, action, props):
+        """Reward, terminated and truncated of post-step states under the
+        (normalized) actions that led to them."""
+        env = self.env
+        reward = env.generate_reward(state, action, props)
+        return reward, env.generate_terminated(state, reward, props), env.generate_truncated(state, props)
+
+    @staticmethod
+    def _batch(obs, actions, flags):
+        """The :class:`TrajectoryBatch` of per-step rows, stacked along time."""
+        reward, terminated, truncated = (torch.stack(rows, dim=1) for rows in zip(*flags))
+        return TrajectoryBatch(observations=torch.stack(obs, dim=1), actions=actions, rewards=reward,
+                               terminated=terminated, truncated=truncated)
+
+    def collect(self, state, actions):
+        """Open-loop collection, the eager loop of the batched step.
+
+        Args:
+            state: batched state (from ``vmap_reset``).
+            actions: normalized actions ``(B, T, A)``.
+
+        Returns:
+            ``(TrajectoryBatch, final_state)`` with post-step observations,
+            rewards and flags for each of the ``T`` steps.  A stochastic
+            environment in fast noise mode consumes the rollout's
+            time-parallel draws (:meth:`_collect_fast_noise`), the stream the
+            kernel of :meth:`collect_fused` takes.
+        """
+        env = self.env
+        if env._has_noise and env._noise_mode == "fast":
+            return self._collect_fast_noise(state, actions)
+        props = env.env_properties
+        obs, flags = [], []
+        for t in range(actions.shape[1]):
+            o, state = env.vmap_step(state, actions[:, t])
+            obs.append(o)
+            flags.append(self._flags(state, actions[:, t], props))
+        return self._batch(obs, actions, flags), state
+
+    def _collect_fast_noise(self, state, actions):
+        """:meth:`collect` for ``noise_mode="fast"``: the whole rollout's
+        draws first (:meth:`CoreEnvironment._noise_slabs`), then a loop that
+        consumes them; the final state carries the advanced keys."""
+        env = self.env
+        n_steps = actions.shape[1]
+        eps_proc, eps_obs, _, final_keys = env._noise_slabs(env._require_noise_key(state), n_steps, 1)
+        props = env.env_properties
+        obs, flags = [], []
+        for t in range(n_steps):
+            state = env._fast_noise_advance_eps(state, actions[:, t], props, None if eps_proc is None else eps_proc[t])
+            obs.append(env._fast_noise_observe_eps(state, props, None if eps_obs is None else eps_obs[t]))
+            flags.append(self._flags(state, actions[:, t], props))
+        return self._batch(obs, actions, flags), structures.replace(state, PRNGKey=final_keys)
+
+    def collect_fused(self, state, actions):
+        """Open-loop collection through the rollout kernels, with the contract
+        of :meth:`collect`: the per-step states come out of one launch of the
+        stepper kernel (``"fused"``) or the PMSM kernel (``"pmsm_fused"``),
+        each with a save every step, and rewards and flags are evaluated on
+        them.  On CPU tensors the kernels' plain versions run.
+
+        The dispatch is :func:`~exciting_environments_torch.ops.kernels.rollout_path`,
+        the environment's kernel scope: an environment outside it (``"scan"``)
+        goes to :meth:`collect`.  An environment inside it never does: on CUDA
+        tensors a kernel that fails to build or launch raises.
+        """
+        from exciting_environments_torch.ops.kernels import rollout_path
+        from exciting_environments_torch.ops.kernels.pmsm_stepper import pmsm_fused_rollout
+        from exciting_environments_torch.ops.kernels.stepper import env_fused_rollout
+
+        path = rollout_path(self.env)
+        if path == "scan":
+            return self.collect(state, actions)
+        run = pmsm_fused_rollout if path == "pmsm_fused" else env_fused_rollout
+        obs, traj_state, final_state = run(self.env, state, actions, obs_stride=1, return_traj_states=True)
+        return self._assemble_batch(obs, actions, traj_state, final_state)
+
+    def collect_policy(self, policy, state, rng, n_steps: int):
+        """Closed-loop collection with an eager policy.
+
+        Args:
+            policy: ``policy(obs, key) -> action``, from the batched
+                observation ``(B, obs_dim)`` and one key of
+                :mod:`~exciting_environments_torch.ops.random` to normalized
+                actions ``(B, A)``.
+            state: batched state (from ``vmap_reset``).
+            rng: a key; step ``t`` gets ``split(rng, n_steps)[t]``.
+            n_steps: horizon.
+
+        Returns:
+            ``(TrajectoryBatch, final_state)`` with the policy's actions.
+        """
+        env = self.env
+        props = env.env_properties
+        o = env.generate_observation(state, props)
+        keys = prng.split(rng, n_steps)
+        obs, acts, flags = [], [], []
+        for t in range(n_steps):
+            action = policy(o, keys[t])
+            o, state = env.vmap_step(state, action)
+            obs.append(o)
+            acts.append(action)
+            flags.append(self._flags(state, action, props))
+        return self._batch(obs, torch.stack(acts, dim=1), flags), state
+
     def _assemble_batch(self, obs, actions, traj_state, final_state):
         """Rewards and flags on the per-step states ``(B, T)`` of a
         trajectory, then the :class:`TrajectoryBatch`."""
         env = self.env
-        props = env._props_for(env.env_properties, 1)
-        reward = env.generate_reward(traj_state, actions, props)
-        terminated = env.generate_terminated(traj_state, reward, props)
-        truncated = env.generate_truncated(traj_state, props)
+        reward, terminated, truncated = self._flags(traj_state, actions, env._props_for(env.env_properties, 1))
         batch = TrajectoryBatch(observations=obs, actions=actions, rewards=reward,
                                 terminated=terminated, truncated=truncated)
         return batch, final_state

@@ -4,7 +4,9 @@ flag in the first and third, the PMSM kernel's process-noise slab, the five
 later environments (VanDerPol, FluidTank, Acrobot, InductionMachine, EESM)
 and the inverter circle in the stepper and closed-loop kernels, the
 machines' drive-control tiles in the closed-loop kernel, and the fast
-pendulum and fast PMSM kernels against their plain versions on a CUDA card.
+pendulum and fast PMSM kernels against their plain versions on a CUDA card;
+and ``RolloutCollector.collect_fused`` through the stepper and PMSM kernels
+against the eager ``collect`` on randomized fleets.
 
 The kernels have no CPU mode, so these tests carry the ``gpu`` marker and skip
 without a card.  The file imports neither JAX nor the JAX package, so on a
@@ -1194,3 +1196,80 @@ def test_closed_loop_instantiations_match_plain_version(kind, hidden, variant, d
     assert len(flat(outk)) == len(flat(outp))
     for a, b in zip(flat(outk), flat(outp)):
         assert torch.equal(a, b)
+
+
+def _randomized_fleet(kind, dtype):
+    from exciting_environments_torch.ops import random as R
+    from exciting_environments_torch.utils import randomize
+
+    key = R.PRNGKey(3, "cuda")
+    if kind == "pendulum":
+        env = randomize.randomize_env(P.Pendulum, key, {"l": randomize.Uniform(0.5, 2.0)}, batch_size=4096 + 77,
+                                      control_state=["theta"], dtype=dtype)
+        state = env.vmap_reset(R.split(R.PRNGKey(1, "cuda"), env.batch_size))[1]
+        state.reference.theta = torch.linspace(-1.5, 1.5, env.batch_size, device="cuda", dtype=dtype)
+        n_action, lim = 1, 0.9
+    else:
+        defaults = dict(P.MotorVariant.BRUSA.get_params().static_params.__dict__)
+        env = randomize.randomize_env(P.PMSM, key, {"r_s": randomize.Uniform(15e-3, 21e-3)}, batch_size=4096 + 77,
+                                      defaults=defaults, saturated=True, motor_variant=P.MotorVariant.BRUSA,
+                                      control_state=["i_d", "i_q"], dtype=dtype)
+        state = env.vmap_reset(R.split(R.PRNGKey(1, "cuda"), env.batch_size))[1]
+        state.reference.i_d = torch.linspace(-200.0, -10.0, env.batch_size, device="cuda", dtype=dtype)
+        state.reference.i_q = torch.linspace(-150.0, 150.0, env.batch_size, device="cuda", dtype=dtype)
+        n_action, lim = 2, 0.4
+    from exciting_environments_torch.ops.signals import aprbs
+
+    acts = aprbs(R.PRNGKey(2, "cuda"), env.batch_size, 24, n_action, hold_min=2, hold_max=9, minval=-lim,
+                 maxval=lim, dtype=dtype)
+    return env, state, acts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["pendulum", "brusa"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_collect_fused_equals_collect_on_a_randomized_fleet(kind, dtype):
+    """One launch of the stepper (randomized pendulum lengths) or PMSM kernel
+    (randomized BRUSA stator resistance) per call, and the batch and the
+    final state of the eager collector, bit for bit."""
+    _cuda()
+    from exciting_environments_torch.ops.kernels import rollout_path
+    from exciting_environments_torch.utils.collect import RolloutCollector
+
+    env, state, acts = _randomized_fleet(kind, dtype)
+    assert rollout_path(env) == ("fused" if kind == "pendulum" else "pmsm_fused")
+    lib, mode = (K.KERNEL, "step") if kind == "pendulum" else (PK.KERNEL, "pmsm_step")
+    col = RolloutCollector(env)
+    before = lib.launches[mode]
+    batch_f, final_f = col.collect_fused(state, acts)
+    torch.cuda.synchronize()
+    assert lib.launches[mode] == before + 1
+    batch_s, final_s = col.collect(state, acts)
+    assert lib.launches[mode] == before + 1
+    for name in ("observations", "actions", "rewards", "terminated", "truncated"):
+        a, b = getattr(batch_f, name), getattr(batch_s, name)
+        assert a.shape == b.shape and torch.equal(a, b), name
+    for name in env._ode_state_fields if kind == "pendulum" else ("i_d", "i_q", "epsilon", "torque", "u_d_buffer"):
+        assert torch.equal(getattr(final_f.physical_state, name), getattr(final_s.physical_state, name)), name
+
+
+@pytest.mark.gpu
+def test_collect_fused_raises_when_the_kernel_fails(monkeypatch):
+    """An in-scope environment on CUDA tensors never falls back to the eager
+    collector: a kernel that cannot be built or launched raises."""
+    _cuda()
+    from exciting_environments_torch.utils.collect import RolloutCollector
+
+    def fail():
+        raise RuntimeError("the kernel library failed to build")
+
+    def no_fallback(*args, **kwargs):
+        raise AssertionError("collect_fused fell back to collect")
+
+    for kind, lib in (("pendulum", K.KERNEL), ("brusa", PK.KERNEL)):
+        env, state, acts = _randomized_fleet(kind, torch.float32)
+        monkeypatch.setattr(lib, "lib", fail)
+        monkeypatch.setattr(RolloutCollector, "collect", no_fallback)
+        with pytest.raises(RuntimeError, match="failed to build"):
+            RolloutCollector(env).collect_fused(state, acts)
+        monkeypatch.undo()

@@ -29,6 +29,8 @@ def test_port_imports_no_jax():
         "import exciting_environments_torch.ops.kernels.pmsm_fast_kernel, exciting_environments_torch.ops.random\n"
         "import exciting_environments_torch.utils.episodes, exciting_environments_torch.utils.rl\n"
         "import exciting_environments_torch.utils.sac, exciting_environments_torch.utils.train\n"
+        "import exciting_environments_torch.ops.signals, exciting_environments_torch.utils.randomize\n"
+        "import exciting_environments_torch.ops.adaptive\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'exciting_environments_tpu'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"

@@ -1,7 +1,7 @@
 """Stochastic simulation in the port (process and sensor noise, both draw
 modes) against the JAX package from the same keys, on CPU tensors.
 
-The cases of tests/test_noise.py that need no unported module, each held
+The cases of tests/test_noise.py, each held
 both within the port (loop against fused path, step against sim-ahead) and
 against the JAX package.  Float64 throughout.  Tolerances: stochastic
 trajectories agree with the JAX package at rtol 1e-10 (atol 1e-12 on
@@ -32,6 +32,7 @@ from exciting_environments_tpu.utils.collect import tile_policy_scan as j_tile_p
 from exciting_environments_tpu.utils.train import default_tracking_loss as j_default_tracking_loss
 from exciting_environments_torch.core import structures
 from exciting_environments_torch.ops import random as R
+from exciting_environments_torch.ops.adaptive import adaptive_rollout
 from exciting_environments_torch.ops.kernels import pmsm_stepper as PK
 from exciting_environments_torch.ops.kernels import rollout_path
 from exciting_environments_torch.ops.kernels.closed_loop import env_fused_closed_loop
@@ -178,6 +179,9 @@ def test_deterministic_paths_guard():
     _, st_ms = env_ms.vmap_reset(_keys(0, B)[1])
     with pytest.raises(ValueError, match="one-stage"):
         env_ms.vmap_sim_ahead(st_ms, torch.zeros((B, 4, 1), dtype=torch.float64), TAU, TAU)
+    # the adaptive controller integrates deterministic dynamics only
+    with pytest.raises(ValueError, match="adaptive_rollout"):
+        adaptive_rollout(env, st, torch.zeros((B, 4, 1), dtype=torch.float64))
     _, nokey = env.vmap_reset()
     with pytest.raises(ValueError, match="PRNG"):
         env.vmap_step(nokey, torch.zeros((B, 1), dtype=torch.float64))

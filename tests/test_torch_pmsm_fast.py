@@ -237,3 +237,28 @@ def test_out_of_scope_drives_raise():
     _, state = env.vmap_reset()
     with pytest.raises(ValueError, match="fused kernels' scope"):
         pmsm_fast_fused_rollout(P.PMSM(batch_size=16, static_params=static, **F64), state, acts)
+
+
+@pytest.mark.parametrize("time_major", [False, True])
+def test_linear_fast_rollout_alias_matches_jax_and_refuses_saturation(time_major):
+    """``pmsm_linear_fast_rollout`` is ``PMSM.fast_rollout`` (the kernel on the
+    card, its plain version here) for linear magnetics, and raises for a
+    saturated drive, as the JAX package's alias does."""
+    B, T = 256, 16
+    je, pe = _pair("DEFAULT", False, B, deadtime=1)
+    js, ps = _states(je, pe, 5)
+    acts = _actions(6, B, T)
+    jacts = jnp.asarray(acts.transpose(1, 0, 2) if time_major else acts)
+    tacts = torch.as_tensor(acts).transpose(0, 1).contiguous() if time_major else torch.as_tensor(acts)
+    jl = jfast.pmsm_linear_fast_rollout(je, js, jacts, time_major=time_major)
+    pl = PF.pmsm_linear_fast_rollout(pe, ps, tacts, time_major=time_major)
+    _close_fields(pl, jl)
+    fl = pe.fast_rollout(ps, tacts, time_major=time_major)
+    for name in FIELDS:
+        assert torch.equal(getattr(fl.physical_state, name), getattr(pl.physical_state, name)), name
+    je_s, pe_s = _pair("BRUSA", True, B)
+    _, ps_s = _states(je_s, pe_s, 5)
+    with pytest.raises(ValueError, match="linear magnetics only"):
+        PF.pmsm_linear_fast_rollout(pe_s, ps_s, torch.as_tensor(acts))
+    with pytest.raises(ValueError, match="linear magnetics only"):
+        jfast.pmsm_linear_fast_rollout(je_s, _states(je_s, pe_s, 5)[0], jnp.asarray(acts))

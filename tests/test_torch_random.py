@@ -2,8 +2,10 @@
 ``jax.random`` (threefry2x32, partitionable), from the same key words.
 
 Tolerances: keys (``PRNGKey``, ``split``, ``fold_in``) and the cipher's
-words are compared bit for bit, and so is ``uniform`` (bit cast, one
-multiply and one add in the working precision).  ``normal`` and
+words are compared bit for bit, and so is ``uniform`` (bit cast, then the
+fused multiply-add that XLA computes on the CPU), over bounds whose span is
+a power of two and over bounds whose product rounds, and ``choice`` (with
+and without ``p``, over 1, 3 and 1,000 values, in both widths).  ``normal`` and
 ``exponential`` go through ``erfinv`` and ``log1p``, whose implementations
 differ between XLA and PyTorch by a few ulps: ``normal`` is held within
 1e-5 abs in float32 and 5e-14 abs in float64 (measured here: 5.0e-6 and
@@ -185,3 +187,57 @@ def test_shaped_draws_number_their_elements_in_row_major_order(dtypes):
                                   np.asarray(jax.random.uniform(jk[0], (17, 3), jd, -1.0, 1.0)))
     np.testing.assert_array_equal(R.random_bits(tk, (5, 2)).numpy(),
                                   np.asarray(jax.random.bits(jk[0], (5, 2), jnp.uint32)).astype(np.int64))
+
+
+@pytest.mark.parametrize("bounds", [(0.1, 0.2), (15e-3, 21e-3), (-0.4, 0.4), (-3e5, 7.1)])
+@pytest.mark.parametrize("dtypes", DTYPES, ids=["float32", "float64"])
+def test_uniform_over_any_span_is_the_fused_multiply_add(bounds, dtypes):
+    jd, td = dtypes
+    jk, tk = _keys(9, 4)
+    want = jax.vmap(lambda k: jax.random.uniform(k, (20000,), jd, *bounds))(jk)
+    np.testing.assert_array_equal(R.uniform(tk, 20000, td, *bounds).numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("n_values", [1, 3, 1000])
+@pytest.mark.parametrize("with_p", [False, True], ids=["uniform", "p"])
+@pytest.mark.parametrize("x64", [True, False], ids=["x64", "x32"])
+def test_choice_matches_jax_bit_for_bit(n_values, with_p, x64):
+    """``jax.random.choice(key, values, (n,), replace=True, p=p)`` in JAX's
+    default dtypes: float64 values and 64-bit indices under x64, float32 and
+    32-bit ones without (the port takes the width from the values).  Bit for
+    bit, but for float32 ``p`` over 1,000 values: XLA evaluates ``cumsum`` on
+    the CPU as a rewritten reduce-window whose float32 sums differ from the
+    sequential sum by a few ulps (892 of the 1,000 partial sums here), so a
+    draw within those ulps of a boundary takes the neighbouring value; at
+    most 4 of 4,096 draws, each one index away."""
+    rng = np.random.default_rng(n_values)
+    values = rng.uniform(-5, 5, n_values)
+    p = rng.uniform(0.1, 1.0, n_values) if with_p else None
+    if with_p:
+        p = p / p.sum()
+    td = torch.float64 if x64 else torch.float32
+    for seed in SEEDS[:3]:
+        jk = jax.random.PRNGKey(seed)
+        with jax.enable_x64(x64):
+            want = jax.random.choice(jk, jnp.asarray(values), (4096,), p=None if p is None else jnp.asarray(p))
+            want = np.asarray(want)
+        got = R.choice(torch.as_tensor(_words(jk)), torch.as_tensor(values, dtype=td), 4096, p=p)
+        assert got.dtype == td
+        if x64 or not with_p or n_values < 1000:
+            np.testing.assert_array_equal(got.numpy(), want)
+            continue
+        order = np.argsort(values.astype(np.float32))
+        index = lambda v: order[np.searchsorted(values.astype(np.float32)[order], v)]
+        apart = np.abs(index(got.numpy()) - index(want))
+        assert int((apart > 0).sum()) <= 4 and int(apart.max()) <= 1
+
+
+def test_choice_contract():
+    _, tk = _keys(3, 2)
+    vals = torch.tensor([1.0, 2.0, 4.0], dtype=torch.float64)
+    assert R.choice(tk, vals, (5, 7)).shape == (2, 5, 7)
+    assert set(R.choice(tk, vals, 500, p=[0.0, 1.0, 0.0]).unique().tolist()) == {2.0}
+    with pytest.raises(ValueError, match="1-D"):
+        R.choice(tk[0], torch.zeros((2, 2)), 3)
+    with pytest.raises(ValueError, match="length"):
+        R.choice(tk[0], vals, 3, p=[0.5, 0.5])

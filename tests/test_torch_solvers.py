@@ -3,8 +3,11 @@
 Inputs are made with numpy from a seed and fed to both sides in float64
 (the conftest enables JAX x64).  Tolerance rtol = atol = 1e-12: the XLA CPU
 backend contracts multiply-add chains into FMAs, PyTorch eager does not.
+The embedded pairs' ``step_with_error`` (solution, error estimate, last
+stage) agree at 1e-14.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -117,7 +120,77 @@ def test_make_solver_names_and_limits():
     solver = psolvers.RK4()
     assert psolvers.make_solver(solver) is solver
     assert psolvers.Euler().one_stage and not psolvers.Heun().one_stage
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        psolvers.make_solver("implicit_euler")
+    assert isinstance(psolvers.make_solver("implicit_euler"), psolvers.ImplicitEuler)
     with pytest.raises(ValueError, match="unknown solver"):
         psolvers.make_solver("leapfrog")
+
+
+def _decay(lib):
+    return lambda t, y, args: (-args[0] * y[0],)
+
+
+@pytest.mark.parametrize("name", ["tsit5", "dopri5"])
+@pytest.mark.parametrize("with_k0", [False, True], ids=["fresh", "k0"])
+def test_step_with_error_matches_jax(name, with_k0):
+    th, om = _y0(2)
+    js, ps = jsolvers.make_solver(name), psolvers.make_solver(name)
+    y_j = (jnp.asarray(th), jnp.asarray(om))
+    y_p = (torch.as_tensor(th), torch.as_tensor(om))
+    k_j = _field("jax")(0.0, y_j, 2.5) if with_k0 else None
+    k_p = _field("torch")(0.0, y_p, 2.5) if with_k0 else None
+    want = js.step_with_error(_field("jax"), 0.0, 0.05, y_j, 2.5, k0=k_j)
+    got = ps.step_with_error(_field("torch"), 0.0, 0.05, y_p, 2.5, k0=k_p)
+    for part_j, part_p in zip(want, got):
+        for a, b in zip(part_j, part_p):
+            np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-14, atol=1e-14)
+    # the error estimate is the difference to the embedded 4th-order solution
+    assert float(max(e.abs().max() for e in got[1])) > 0.0
+
+
+@pytest.mark.parametrize("name", ["euler", "midpoint", "heun", "rk4"])
+def test_step_with_error_needs_an_embedded_pair(name):
+    y = (torch.ones(3, dtype=torch.float64),)
+    with pytest.raises(ValueError, match="embedded"):
+        psolvers.make_solver(name).step_with_error(_decay("torch"), 0.0, 0.1, y, (1.0,))
+
+
+def test_implicit_euler_stiff_stability():
+    """Backward Euler stays stable on a stiff decay where explicit Euler blows up."""
+    y0 = (torch.ones((), dtype=torch.float64),)
+    h = 1e-3  # explicit Euler unstable: |1 - lam h| = 9 > 1
+    _, y_last = prollout.solve_trajectory(psolvers.ImplicitEuler(), _decay("torch"), y0, (1e4,), 50, h)
+    assert abs(float(y_last[0])) < 1.0
+    _, y_exp = prollout.solve_trajectory(psolvers.Euler(), _decay("torch"), y0, (1e4,), 50, h)
+    assert abs(float(y_exp[0])) > 1.0
+    _, y_jax = jrollout.solve_trajectory(jsolvers.ImplicitEuler(), _decay("jax"), (1.0,), (1e4,), 50, h)
+    np.testing.assert_allclose(float(y_last[0]), float(y_jax[0]), **TOL)
+
+
+def test_implicit_euler_registry_takes_diffrax_spelling():
+    class ImplicitEuler:  # diffrax spells it without the underscore
+        pass
+
+    assert isinstance(psolvers.make_solver(ImplicitEuler()), psolvers.ImplicitEuler)
+    assert psolvers.make_solver("implicit_euler").newton_iters == 4
+    assert isinstance(psolvers.make_solver(jsolvers.ImplicitEuler()), psolvers.ImplicitEuler)
+
+
+def test_implicit_euler_inside_environment_matches_jax():
+    """The batched Newton step (one (2, 2) Jacobian per instance) inside a
+    MassSpringDamper step, against the JAX package's vmapped one."""
+    import exciting_environments_torch as P
+    import exciting_environments_tpu as J
+
+    je = J.MassSpringDamper(batch_size=4, solver="implicit_euler", tau=1e-2)
+    pe = P.MassSpringDamper(batch_size=4, solver="implicit_euler", tau=1e-2, device="cpu", dtype=torch.float64)
+    jk = jax.random.split(jax.random.PRNGKey(0), 4)
+    _, js = je.vmap_reset(jk)
+    _, ps = pe.vmap_reset(torch.as_tensor(np.asarray(jk).astype(np.int64)))
+    for _ in range(20):
+        jo, js = je.vmap_step(js, 0.3 * jnp.ones((4, 1)))
+        po, ps = pe.vmap_step(ps, torch.full((4, 1), 0.3, dtype=torch.float64))
+    np.testing.assert_allclose(po.numpy(), np.asarray(jo), **TOL)
+    for name in ("deflection", "velocity"):
+        np.testing.assert_allclose(getattr(ps.physical_state, name).numpy(),
+                                   np.asarray(getattr(js.physical_state, name)), **TOL)
+    assert float(ps.physical_state.deflection.abs().max()) < 10.0
