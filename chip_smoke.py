@@ -229,7 +229,31 @@ Phases (any failure raises and the script exits non-zero):
     (finite where one Euler step per tau is not) and the PMSM's own
     interval loop on a per-batch ``r_s`` fleet (B = 1,024); every line with
     the card's name and power limit;
-22. print the kernel table, the card's name and power limit, and last the
+22. estimation, planning and output-feedback control (``phase_plan``),
+    float32, at the JAX package's device-script widths
+    (``benchmarks/r03/mpc_fused_device.py``, ``ofc_pmsm_device.py``,
+    ``estimate_pmsm_device.py``, ``foc_device.py``): ``run_mppi`` on
+    saturated BRUSA (B = 512 x 64 samples x horizon 16, 32 control steps,
+    the auto backend: one launch of the PMSM kernel per MPPI iteration, row
+    3f) and on the tracking Pendulum (B = 4,096 x 64 x 32, 16 steps,
+    ``fused=True``: one launch of the stepper kernel per iteration, row 1l),
+    each 0.0 from the scan backend from the same key (which launches
+    nothing), its kernel 0.0 from its plain version on one candidate sweep,
+    the kernel, the candidate rollout, one iteration and its draws, reward
+    and softmax timed, the bound from the bytes of the leaves it reads and
+    writes; ``tests/test_mpc.py:210``'s current control at B = 512;
+    ``run_ekf`` on the noisy linear drive (8 A sensors, B = 2,048 x T = 512,
+    the script's 2,048 steps cut to 512, the speed pinned at 600 rad/s) and ``run_ukf`` on the noisy
+    Pendulum (B = 2,048 x T = 300), each below the raw sensor's error and
+    its first 8 trajectories within ``FILTER_CPU_LIMIT`` of a float64 CPU
+    run; the sensorless FOC of the induction machine through
+    ``run_output_feedback_controller`` (B = 4,096 from rest, 4,000 steps,
+    flux within 6% and torque within 10% of their setpoints); and
+    ``run_output_feedback_mppi`` on the noisy linear drive in
+    ``ofc_pmsm_device.py``'s operating band (B = 512, horizon 8 x 32
+    samples, 64 steps) beating its zero plan; each with its wall time, time
+    per step and launches per step;
+23. print the kernel table, the card's name and power limit, and last the
     result line ``{"ok": true, "device": {...}}``.
 
 The anatomy of a redesigned kernel's case (``anatomy``): its registers,
@@ -4363,6 +4387,339 @@ def phase_collect(ex, K, PK):
     return entries
 
 
+# ---------------------------------------------------------------------------
+# estimation, planning and output-feedback control (utils/estimate.py,
+# utils/mpc.py, utils/ofc.py)
+# ---------------------------------------------------------------------------
+
+# benchmarks/r03/mpc_fused_device.py:54-68 (the PMSM and Pendulum sweeps),
+# ofc_pmsm_device.py:26-47, estimate_pmsm_device.py:27-33, foc_device.py
+PLAN_PMSM_B, PLAN_PMSM_STEPS = 512, 32
+PLAN_PMSM_CFG = dict(horizon=16, n_samples=64, temperature=0.05, noise_sigma=0.3, smoothing=0.5)
+PLAN_PENDULUM_B, PLAN_PENDULUM_STEPS = 4096, 16
+PLAN_PENDULUM_CFG = dict(horizon=32, n_samples=64, noise_sigma=0.5, smoothing=0.5)
+PLAN_TRACK_B, PLAN_TRACK_STEPS = 512, 40  # tests/test_mpc.py:210's drive
+PLAN_TRACK_CFG = dict(horizon=8, n_samples=32, temperature=0.02, noise_sigma=0.3, n_iterations=1, smoothing=0.3)
+FILTER_B, FILTER_T = 2048, 512  # estimate_pmsm_device.py:27-33's 2,048 steps cut to 512
+#: the drive's electrical speed in the filter case, pinned: under the
+#: script's open-loop excitation, explicit Euler's current dynamics diverge
+#: at the upper speeds of a random reset (normalized currents beyond 1e12
+#: within 512 steps), where float32 keeps no digit of the truth
+FILTER_OMEGA = 600.0
+UKF_T = 300  # tests/test_estimate.py:18
+FILTER_CPU_B = 8
+FOC_OFC_B, FOC_OFC_STEPS = 4096, 4000
+OFC_PMSM_B, OFC_PMSM_STEPS = 512, 64
+OFC_PMSM_CFG = dict(horizon=8, n_samples=32, temperature=0.02, noise_sigma=0.3, n_iterations=1, smoothing=0.3)
+#: float32 on the card against float64 on the CPU, per leaf, over the leaf's
+#: largest magnitude: the filters' float32 rounding over a few hundred steps
+FILTER_CPU_LIMIT = 1e-3
+
+
+def tensor_bytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def scaled_deviation(a, b):
+    """``max |a - b|`` over ``max |b|`` (both moved to the CPU in float64)."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def phase_plan(ex, K, PK):
+    """Estimation, planning and output-feedback control on the card, float32,
+    at the JAX package's device-script widths: MPPI through the fused backend
+    (one launch of ``csrc/pmsm_stepper.cu`` per iteration on saturated BRUSA,
+    B = 512 x 64 samples x 16 steps, row 3f; one launch of ``csrc/stepper.cu``
+    on the tracking Pendulum, B = 4,096 x 64 x 32, ``fused=True``, row 1l),
+    each against the scan backend from the same key (0.0 apart), its kernel
+    0.0 from its plain version on one sweep, the kernel, the candidate
+    rollout, one MPPI iteration and its parts timed; ``tests/test_mpc.py:210``'s
+    current control at B = 512; ``run_ekf`` on the noisy linear drive (B =
+    2,048 x T = 512, at ``FILTER_OMEGA``) and ``run_ukf`` on the noisy
+    Pendulum (B = 2,048 x T = 300),
+    the filtered error below the raw sensor's and the first 8 trajectories
+    against a float64 CPU run; the sensorless FOC of the induction machine
+    through ``run_output_feedback_controller`` (B = 4,096 x 4,000 steps,
+    flux and torque at their setpoints); and ``run_output_feedback_mppi`` on
+    the noisy linear drive in ``ofc_pmsm_device.py``'s operating band (B =
+    512 x 64 steps) beating its zero plan.
+    Returns the kernel table's entries."""
+    from exciting_environments_torch.ops import random as R
+    from exciting_environments_torch.utils import estimate, mpc, ofc
+    from exciting_environments_torch.utils.episodes import reset_with_references
+    from exciting_environments_torch.utils.foc import make_sensorless_foc
+
+    card = card_line()
+    entries, failures = [], []
+
+    def log_p(msg):
+        log(f"[plan] {msg} ({card})")
+
+    def launches():
+        return sum(K.KERNEL.launches.values()) + sum(PK.KERNEL.launches.values())
+
+    def reset_counts():
+        K.KERNEL.reset_counts()
+        PK.KERNEL.reset_counts()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # -- MPPI through the fused backend against the scan (rows 3f and 1l)
+    for row, name, lib, mode in (("3f", "brusa", PK, "pmsm_step"), ("1l", "pendulum", K, "step")):
+        if name == "brusa":
+            B, n_steps, cfg, fused = PLAN_PMSM_B, PLAN_PMSM_STEPS, mpc.MPPIConfig(**PLAN_PMSM_CFG), None
+            env = ex.PMSM(batch_size=B, saturated=True, motor_variant=ex.MotorVariant.BRUSA,
+                          control_state=["i_d", "i_q"], device=DEVICE)
+        else:
+            B, n_steps, cfg, fused = PLAN_PENDULUM_B, PLAN_PENDULUM_STEPS, mpc.MPPIConfig(**PLAN_PENDULUM_CFG), True
+            env = ex.Pendulum(batch_size=B, tau=2e-2, control_state=["theta"], device=DEVICE)
+        _, state = reset_with_references(env, R.PRNGKey(SEED + 20, DEVICE))
+        key = R.PRNGKey(SEED + 21, DEVICE)
+        label = f"row {row} MPPI {name} B={B} x {cfg.n_samples} samples x horizon {cfg.horizon}, {n_steps} steps"
+        reset_counts()
+        res_f, wall_f = timed(lambda: mpc.run_mppi(env, state, n_steps, key, cfg, fused=fused))
+        n_launch, n_all = lib.KERNEL.launches[mode], launches()
+        if n_launch != n_steps * cfg.n_iterations or n_all != n_launch:
+            failures.append(f"{label}: {n_launch} launches of {mode} and {n_all} in all, not one per iteration")
+        reset_counts()
+        res_s, wall_s = timed(lambda: mpc.run_mppi(env, state, n_steps, key, cfg, fused=False))
+        if launches():
+            failures.append(f"{label}: the scan backend launched a kernel")
+        devs = {n: leaf_deviation(getattr(res_f, n), getattr(res_s, n)) for n in ("actions", "rewards", "plan")}
+        if any(d != 0.0 for d in devs.values()):
+            failures.append(f"{label}: fused vs scan {devs}")
+        finite = all(bool(torch.isfinite(getattr(res_f, n)).all()) for n in ("actions", "rewards", "plan"))
+        if not finite:
+            failures.append(f"{label}: non-finite result")
+        # one sweep: the candidates of the first iteration, kernel against plain
+        K_s, H = cfg.n_samples, cfg.horizon
+        plan0 = torch.zeros((B, H, env.action_dim), dtype=env.dtype, device=DEVICE)
+        k_it = R.split(key, cfg.n_iterations)[0]
+        sigma = torch.as_tensor(cfg.noise_sigma, dtype=env.dtype, device=DEVICE).broadcast_to((env.action_dim,))
+        draws = lambda: mpc._smooth_noise(R.normal(k_it, (K_s, B, H, env.action_dim), env.dtype), cfg.smoothing)
+        cand = torch.clamp(plan0[None] + draws() * sigma, -1.0, 1.0)
+        big, state_big = mpc._tile_env(env, K_s), mpc._tile_state(state, K_s)
+        cand_flat = cand.reshape(K_s * B, H, env.action_dim)
+        if name == "brusa":
+            state0, omega = PK._start(state_big)
+            kernel_fn = lambda: PK.pmsm_kernel_rollout(big, cand_flat, state0, omega, tau=big.tau, obs_stride=1,
+                                                       batch_major=True)
+            plain_fn = lambda: PK.plain_pmsm_rollout(big, cand_flat, state0, omega, tau=big.tau, obs_stride=1,
+                                                     batch_major=True)
+            entry_fn = lambda: PK.pmsm_fused_rollout(big, state_big, cand_flat, obs_stride=1,
+                                                     return_traj_states=True, strict=True)
+            inputs = [cand_flat, *state0, omega, big._lut.interleaved()]
+            ops = pmsm_ops(big, big._solver, H, H) * K_s * B
+            source, replaces = PMSM_SOURCE, PMSM_REPLACES
+        else:
+            y0 = tuple(getattr(state_big.physical_state, n) for n in big._ode_state_fields)
+            kernel_fn = lambda: K.kernel_rollout(big, y0, cand_flat, tau=big.tau, obs_stride=1, batch_major=True)
+            plain_fn = lambda: K.plain_rollout(big, y0, cand_flat.transpose(0, 1), tau=big.tau, obs_stride=1)
+            entry_fn = lambda: K.env_fused_rollout(big, state_big, cand_flat, obs_stride=1, return_traj_states=True,
+                                                   strict=True)
+            inputs = [cand_flat, *y0]
+            ops = ops_per_step(big, big._solver, False) * K_s * B * H
+            source, replaces = SOURCE, REPLACES
+        flat = lambda out: [t for part in out if part is not None for t in part if t is not None]
+        outk, outp = flat(kernel_fn()), flat(plain_fn())
+        torch.cuda.synchronize()
+        kernel_err = max_abs(outk, outp)
+        if kernel_err != 0.0:
+            failures.append(f"{label}: kernel vs plain {kernel_err!r}")
+        nbytes = tensor_bytes(inputs) + tensor_bytes(outk)
+        bound_ms, bound_by = roofline(nbytes, ops)
+        del outp
+        use_fused = fused if fused is not None else name == "brusa"
+        kernel_ms = time_ms(kernel_fn)
+        kernel_ten_ms = time_ms(kernel_fn, chain=10)
+        entry_ms = time_ms(entry_fn)
+        plain_ms = time_ms(plain_fn, reps=1, warmup=0)
+        cost_ms = time_ms(lambda: mpc._candidate_costs(env, state, cand, None, True))
+        iteration_ms = time_ms(lambda: mpc.mppi_plan(env, state, plan0, key, cfg, fused=use_fused))
+        scan_iteration_ms = time_ms(lambda: mpc.mppi_plan(env, state, plan0, key, cfg, fused=False), reps=3)
+        draws_ms = time_ms(draws)
+        _, traj_state, _ = entry_fn()
+        props = big._props_for(big.env_properties, 1)
+        reward_ms = time_ms(lambda: -torch.sum(big.generate_reward(traj_state, cand_flat, props).reshape(K_s * B, -1),
+                                               dim=1))
+        costs = mpc._candidate_costs(env, state, cand, None, True)
+        cost_dev = leaf_deviation(costs, mpc._candidate_costs(env, state, cand, None, False))
+        if cost_dev != 0.0:
+            failures.append(f"{label}: the first iteration's costs, fused vs scan, {cost_dev!r}")
+        softmax_ms = time_ms(lambda: torch.einsum("kb,kbha->bha", torch.softmax(-costs / cfg.temperature, dim=0),
+                                                  cand))
+        del traj_state, cand, cand_flat, big, state_big
+        log_p(f"{label} float32: fused (kernel) {wall_f * 1e3:.1f} ms = {wall_f / n_steps * 1e3:.2f} ms per control "
+              f"step, {n_launch / n_steps:g} launches per step; scan {wall_s * 1e3:.1f} ms = "
+              f"{wall_s / n_steps * 1e3:.2f} ms per step, 0 launches (host clock, one run each); fused vs scan "
+              f"{devs}; one MPPI iteration: fused {iteration_ms!r} ms, scan {scan_iteration_ms!r} ms (CUDA events); "
+              f"its parts: draws and smoothing {draws_ms!r} ms, the candidate rollout {entry_ms!r} ms (the kernel "
+              f"alone {kernel_ms!r} ms, {kernel_ten_ms!r} ms per call over ten back to back), the eager reward {reward_ms!r} ms, softmax and weighted mean "
+              f"{softmax_ms!r} ms; the candidates' costs {cost_ms!r} ms (fused vs scan {cost_dev!r}); kernel vs "
+              f"plain max abs {kernel_err!r}, "
+              f"plain {plain_ms!r} ms; bound {bound_ms!r} ms ({bound_by}: {nbytes / 1e6:.1f} MB of candidates, "
+              f"start leaves{', table' if name == 'brusa' else ''} and saves; {ops:.4e} operations), "
+              f"{bound_ms / kernel_ms:.1%} of it")
+        entries.append(entry(f"{'pmsm_stepper' if name == 'brusa' else 'stepper'}_mppi", n_launch, kernel_err,
+                             kernel_ms, plain_ms, bound_ms, bound_by, source, replaces))
+        del res_f, res_s
+
+    # -- tests/test_mpc.py:210: MPPI current control of saturated BRUSA
+    B = PLAN_TRACK_B
+    env = ex.PMSM(batch_size=B, saturated=True, motor_variant=ex.MotorVariant.BRUSA, control_state=["i_d", "i_q"],
+                  tau=1e-4, device=DEVICE)
+    _, state = reset_with_references(env, R.PRNGKey(7, DEVICE))
+    cfg = mpc.MPPIConfig(**PLAN_TRACK_CFG)
+    reset_counts()
+    res, wall = timed(lambda: mpc.run_mppi(env, state, PLAN_TRACK_STEPS, R.PRNGKey(8, DEVICE), cfg))
+    n_launch = launches()
+    _, rew_zero, _ = mpc._rollout(env, state, torch.zeros((B, PLAN_TRACK_STEPS, 2), device=DEVICE))
+    settled, mean, zero = float(res.rewards[:, 20:].mean()), float(res.rewards.mean()), float(rew_zero.mean())
+    ok = settled > -0.05 and mean > zero + 1.0 and n_launch == PLAN_TRACK_STEPS
+    log_p(f"MPPI current control, saturated BRUSA B={B}, {PLAN_TRACK_STEPS} steps (auto: the PMSM kernel): "
+          f"{wall * 1e3:.1f} ms = {wall / PLAN_TRACK_STEPS * 1e3:.2f} ms per step, {n_launch / PLAN_TRACK_STEPS:g} "
+          f"launches per step; settled mean reward {settled!r} (> -0.05), mean {mean!r} against the zero plan's "
+          f"{zero!r} (+1.0 needed) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("MPPI current control")
+
+    # -- EKF and UKF: the noisy linear drive and the noisy Pendulum
+    B, T = FILTER_B, FILTER_T
+    sig = {"i_d": 8.0, "i_q": 8.0}
+    noisy = ex.PMSM(batch_size=B, saturated=False, observation_noise=sig, device=DEVICE)
+    clean = ex.PMSM(batch_size=B, saturated=False, device=DEVICE)
+    _, st = noisy.vmap_reset(R.split(R.PRNGKey(3, DEVICE), B))
+    st.physical_state.omega_el = torch.full((B,), FILTER_OMEGA, device=DEVICE)
+    t = torch.arange(T, device=DEVICE, dtype=torch.float64) * noisy.tau
+    acts = (0.15 * torch.stack([torch.sin(300.0 * t), torch.cos(300.0 * t)], dim=-1)).float()[None].expand(B, T, 2)
+    obs_noisy = noisy.vmap_rollout(st, acts)[0]
+    obs_true = clean.vmap_rollout(st, acts)[0]
+    names = ("u_d_buffer", "u_q_buffer", "epsilon", "i_d", "i_q", "torque", "omega_el")
+    fkw = dict(measured_fields=("i_d", "i_q", "omega_el"), process_std={"i_d": 1.0, "i_q": 1.0})
+    cpu_env = ex.PMSM(batch_size=FILTER_CPU_B, saturated=False, observation_noise=sig, device="cpu",
+                      dtype=torch.float64)
+    half = T // 2
+    reset_counts()
+    res, wall = timed(lambda: estimate.run_ekf(noisy, obs_noisy, acts, **fkw))
+    n_launch = launches()
+    ref = estimate.run_ekf(cpu_env, obs_noisy[:FILTER_CPU_B].cpu(), acts[:FILTER_CPU_B].cpu(), **fkw)
+    devs = {n: scaled_deviation(getattr(res, n)[:FILTER_CPU_B], getattr(ref, n)) for n in ("means", "covs")}
+    gains = {}
+    for field, col in (("i_d", 0), ("i_q", 1)):
+        err = lambda x: float(torch.sqrt(torch.mean((x - obs_true[:, half:, col]) ** 2)))
+        gains[field] = (err(res.means[:, half:, names.index(field)]), err(obs_noisy[:, half:, col]))
+    ok = (all(f < 0.6 * r for f, r in gains.values()) and all(d <= FILTER_CPU_LIMIT for d in devs.values())
+          and bool(torch.isfinite(res.means).all()) and n_launch == 0)
+    log_p(f"run_ekf noisy linear PMSM (8 A on i_d, i_q, omega_el {FILTER_OMEGA}) B={B} T={T} float32: "
+          f"{wall * 1e3:.1f} ms = {wall / T * 1e3:.2f} ms per filter step, {n_launch} launches; RMSE filtered / raw "
+          f"(normalized) "
+          + ", ".join(f"{k} {f:.3f} / {r:.3f}" for k, (f, r) in gains.items())
+          + f" (below 0.6x needed); first {FILTER_CPU_B} against the float64 CPU run {devs} (limit "
+          f"{FILTER_CPU_LIMIT}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("run_ekf on the drive")
+    del res
+    del obs_noisy, obs_true
+    pend = ex.Pendulum(batch_size=B, tau=2e-2, observation_noise={"theta": 0.08}, device=DEVICE)
+    pend_clean = ex.Pendulum(batch_size=B, tau=2e-2, device=DEVICE)
+    _, st = pend.vmap_reset(R.split(R.PRNGKey(7, DEVICE), B))
+    t = torch.arange(UKF_T, device=DEVICE, dtype=torch.float64) * 2e-2
+    acts = (0.3 * torch.sin(2.0 * t)).float()[None, :, None].expand(B, UKF_T, 1)
+    obs_noisy = pend.vmap_rollout(st, acts)[0]
+    obs_true = pend_clean.vmap_rollout(st, acts)[0]
+    pkw = dict(measured_fields=("theta",), process_std={"omega": 0.05})
+    res, wall = timed(lambda: estimate.run_ukf(pend, obs_noisy, acts, **pkw))
+    cpu_pend = ex.Pendulum(batch_size=FILTER_CPU_B, tau=2e-2, observation_noise={"theta": 0.08}, device="cpu",
+                           dtype=torch.float64)
+    ref = estimate.run_ukf(cpu_pend, obs_noisy[:FILTER_CPU_B].cpu(), acts[:FILTER_CPU_B].cpu(), **pkw)
+    devs = {n: scaled_deviation(getattr(res, n)[:FILTER_CPU_B], getattr(ref, n)) for n in ("means", "covs")}
+    half = UKF_T // 2
+    d = lambda a: a - 2.0 * torch.round(a / 2.0)
+    theta_f = float(torch.sqrt(torch.mean(d(res.means[:, half:, 0] - obs_true[:, half:, 0]) ** 2)))
+    theta_r = float(torch.sqrt(torch.mean(d(obs_noisy[:, half:, 0] - obs_true[:, half:, 0]) ** 2)))
+    omega_f = float(torch.sqrt(torch.mean((res.means[:, half:, 1] - obs_true[:, half:, 1]) ** 2)))
+    ok = theta_f < 0.7 * theta_r and omega_f < 0.06 and all(v <= FILTER_CPU_LIMIT for v in devs.values())
+    log_p(f"run_ukf noisy Pendulum (0.08 rad) B={B} T={UKF_T} float32: {wall * 1e3:.1f} ms = "
+          f"{wall / UKF_T * 1e3:.2f} ms per filter step ({5 * B} sigma points per step), 0 launches; theta RMSE "
+          f"filtered {theta_f:.4f} / raw {theta_r:.4f} (below 0.7x needed), omega {omega_f:.4f} (< 0.06); first "
+          f"{FILTER_CPU_B} against the float64 CPU run {devs} (limit {FILTER_CPU_LIMIT}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("run_ukf on the Pendulum")
+    del res, obs_noisy, obs_true
+
+    # -- output-feedback FOC of the induction machine (tests/test_foc.py:72)
+    B, n_steps = FOC_OFC_B, FOC_OFC_STEPS
+    plant = ex.InductionMachine(batch_size=B, observation_noise={"i_sd": 0.3, "i_sq": 0.3}, device=DEVICE)
+    model = ex.InductionMachine(batch_size=B, device=DEVICE)
+    _, st = plant.vmap_reset(R.split(R.PRNGKey(SEED, DEVICE), B))
+    for field in ("i_sd", "i_sq", "psi_rd", "psi_rq"):
+        setattr(st.physical_state, field, torch.zeros(B, device=DEVICE))
+    ctrl, carry0 = make_sensorless_foc(model, psi_ref=0.7, torque_ref=8.0)
+    reset_counts()
+    res, wall = timed(lambda: ofc.run_output_feedback_controller(
+        plant, model, st, n_steps, ctrl, controller_carry=carry0, measured_fields=("i_sd", "i_sq"),
+        process_std={"psi_rd": 0.02, "psi_rq": 0.02}, x0=torch.zeros(4, device=DEVICE),
+        return_trajectories=False))
+    phys = res.final_state.physical_state
+    psi = torch.sqrt(phys.psi_rd**2 + phys.psi_rq**2)
+    torque = model.torque(res.final_state)
+    psi_err, torque_err = float((psi / 0.7 - 1).abs().max()), float((torque / 8.0 - 1).abs().max())
+    free = float(res.plan[3].float().mean())
+    ok = psi_err <= 0.06 and torque_err <= 0.10 and launches() == 0
+    log_p(f"run_output_feedback_controller sensorless FOC, IM B={B} from rest, 0.3 A sensors, {n_steps} steps, "
+          f"float32: {wall * 1e3:.1f} ms = {wall / n_steps * 1e3:.3f} ms per control step, 0 launches; flux "
+          f"{float(psi.min())!r}..{float(psi.max())!r} Vs (largest relative error {psi_err:.4f}, limit 0.06), torque "
+          f"{float(torque.min())!r}..{float(torque.max())!r} Nm ({torque_err:.4f}, limit 0.10), inside the voltage "
+          f"circle at the end {free:.2%}, mean NLL "
+          f"{float(res.nll.mean())!r} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("output-feedback FOC")
+    del res
+
+    # -- output-feedback MPPI on the noisy linear drive (ofc_pmsm_device.py:26-47's
+    # operating band: zero currents, a fifth of the reset's speeds, 0.3 of its
+    # references; tests/test_ofc.py:136's checks)
+    B = OFC_PMSM_B
+    kw = dict(batch_size=B, control_state=["i_d", "i_q"], tau=1e-4, device=DEVICE)
+    plant = ex.PMSM(observation_noise={"i_d": 8.0, "i_q": 8.0}, **kw)
+    model = ex.PMSM(**kw)
+    _, st = reset_with_references(plant, R.PRNGKey(0, DEVICE))
+    st.physical_state.i_d = torch.zeros(B, device=DEVICE)
+    st.physical_state.i_q = torch.zeros(B, device=DEVICE)
+    st.physical_state.omega_el = 0.2 * st.physical_state.omega_el
+    st.reference.i_d = 0.3 * st.reference.i_d
+    st.reference.i_q = 0.3 * st.reference.i_q
+    fkw = dict(measured_fields=("i_d", "i_q", "omega_el"), process_std={"i_d": 1.0, "i_q": 1.0})
+    runs = {}
+    for n_it in (1, 0):
+        cfg = mpc.MPPIConfig(**dict(OFC_PMSM_CFG, n_iterations=n_it))
+        reset_counts()
+        runs[n_it] = timed(lambda: ofc.run_output_feedback_mppi(plant, model, st, OFC_PMSM_STEPS,
+                                                                R.PRNGKey(1, DEVICE), cfg, **fkw)) + (launches(),)
+    (res, wall, n_launch), (res0, _, _) = runs[1], runs[0]
+    finite = all(bool(torch.isfinite(getattr(res, n)).all())
+                 for n in ("observations", "actions", "rewards", "belief_means", "nll"))
+    mean, zero, settled = float(res.rewards.mean()), float(res0.rewards.mean()), float(res.rewards[:, 20:].mean())
+    # the test's margin (+0.5) is for its full-size references; on the 0.3-scaled
+    # band the loop must cut the zero plan's tracking loss to a quarter
+    ok = finite and -mean < 0.25 * -zero and settled > -0.1 and n_launch == 0
+    log_p(f"run_output_feedback_mppi noisy linear PMSM (8 A) B={B}, horizon 8 x 32 samples, {OFC_PMSM_STEPS} steps, "
+          f"float32: {wall * 1e3:.1f} ms = {wall / OFC_PMSM_STEPS * 1e3:.2f} ms per control step, 0 launches (the "
+          f"scan backend); mean reward {mean!r} against the zero plan's {zero!r} (a quarter of its loss at most), "
+          f"settled {settled!r} (> -0.1), finite {finite} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("output-feedback MPPI")
+    if failures:
+        raise AssertionError(f"planning failed: {failures}")
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4417,6 +4774,7 @@ def main() -> int:
     grads += phase_train(ex, CL, PCL)
     kernels += phase_rl(ex, CL, PCL)
     kernels += phase_collect(ex, K, PK)
+    kernels += phase_plan(ex, K, PK)
     if "jax" in sys.modules or any(m.startswith("exciting_environments_tpu") for m in sys.modules):
         raise AssertionError("the port pulled in JAX or the JAX package")
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")

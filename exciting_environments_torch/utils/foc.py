@@ -28,7 +28,9 @@ for the induction machine and the EESM:
 * :func:`make_sensorless_foc` is the rotor-flux-oriented law of the
   induction machine over a belief state (flux orientation, a cascaded flux
   PI, magnetize-first torque gating, decoupled current PIs with
-  back-calculation anti-windup, the voltage-vector limit);
+  back-calculation anti-windup, the voltage-vector limit), the controller
+  that ``utils/ofc.py::run_output_feedback_controller`` runs on its EKF's
+  belief;
   :func:`make_foc_tile` (:class:`FocPolicy`) runs it on the true state;
 * :func:`make_sensorless_foc_tile` (:class:`SensorlessFocPolicy`) runs it on
   the belief of a stationary Kalman flux observer
@@ -762,8 +764,9 @@ def make_sensorless_foc(model, *, psi_ref: float, torque_ref: float, kp: float =
         ``(controller, carry0)``: ``controller(belief_state, carry, k) ->
         (normalized_action (B, 2), carry)`` with ``carry = (int_d, int_q,
         int_psi, free)`` (the integrators and the bool "voltage vector was
-        unsaturated" flag).  ``controller._law`` is the :class:`FocLaw` the
-        tiles share.
+        unsaturated" flag), the contract of
+        :func:`~exciting_environments_torch.utils.ofc.run_output_feedback_controller`.
+        ``controller._law`` is the :class:`FocLaw` the tiles share.
     """
     params = model.env_properties.static_params
     tau = float(model.tau)

@@ -1273,3 +1273,87 @@ def test_collect_fused_raises_when_the_kernel_fails(monkeypatch):
         with pytest.raises(RuntimeError, match="failed to build"):
             RolloutCollector(env).collect_fused(state, acts)
         monkeypatch.undo()
+
+
+def _planning_case(kind, dtype, batch=64):
+    """A tracking Pendulum or a saturated BRUSA drive on the card with drawn
+    references, the kernel library that plans it, and its launch mode."""
+    from exciting_environments_torch.ops import random as R
+    from exciting_environments_torch.utils.episodes import reset_with_references
+
+    if kind == "pendulum":
+        env = P.Pendulum(batch_size=batch, tau=2e-2, control_state=["theta"], dtype=dtype)
+        lib, mode = K.KERNEL, "step"
+    else:
+        env = P.PMSM(batch_size=batch, saturated=True, motor_variant=P.MotorVariant.BRUSA,
+                     control_state=["i_d", "i_q"], dtype=dtype)
+        lib, mode = PK.KERNEL, "pmsm_step"
+    _, state = reset_with_references(env, R.PRNGKey(7, "cuda"))
+    return env, state, lib, mode
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["pendulum", "brusa"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fused_plan_equals_the_scan_plan_one_launch_per_iteration(kind, dtype):
+    """MPPI's fused backend folds the samples into one kernel rollout per
+    iteration (``fused=True``) and plans what the eager scan plans, bit for
+    bit; the scan launches nothing."""
+    _cuda()
+    from exciting_environments_torch.ops import random as R
+    from exciting_environments_torch.utils import mpc
+
+    env, state, lib, mode = _planning_case(kind, dtype)
+    cfg = mpc.MPPIConfig(horizon=8, n_samples=32, n_iterations=2, smoothing=0.5)
+    lib.reset_counts()
+    fused = mpc.run_mppi(env, state, 3, R.PRNGKey(1, "cuda"), cfg, fused=True)
+    torch.cuda.synchronize()
+    assert lib.launches[mode] == 3 * cfg.n_iterations and sum(lib.launches.values()) == lib.launches[mode]
+    lib.reset_counts()
+    scan = mpc.run_mppi(env, state, 3, R.PRNGKey(1, "cuda"), cfg, fused=False)
+    torch.cuda.synchronize()
+    assert sum(lib.launches.values()) == 0
+    for name in ("observations", "actions", "rewards", "plan"):
+        assert torch.equal(getattr(fused, name), getattr(scan, name)), name
+    assert fused.plan.device.type == "cuda" and fused.plan.dtype == dtype
+
+
+@pytest.mark.gpu
+def test_fused_plan_refuses_out_of_scope_before_a_launch():
+    _cuda()
+    from exciting_environments_torch.ops import random as R
+    from exciting_environments_torch.utils import mpc
+
+    env = P.Pendulum(batch_size=64, tau=2e-2, control_state=["theta"], solver="implicit_euler")
+    _, state = env.vmap_reset(R.split(R.PRNGKey(0, "cuda"), 64))
+    state.reference.theta = torch.zeros(64, device="cuda")
+    K.KERNEL.reset_counts()
+    with pytest.raises(ValueError, match="fused=True"):
+        mpc.run_mppi(env, state, 2, config=mpc.MPPIConfig(horizon=4, n_samples=8), fused=True)
+    assert sum(K.KERNEL.launches.values()) == 0
+
+
+@pytest.mark.gpu
+def test_filters_run_on_the_card_like_the_cpu():
+    """``run_ekf`` and ``run_ukf`` keep the environment's device: a float64
+    card run agrees with the CPU's on the same log to 1e-10 of each leaf's
+    scale."""
+    _cuda()
+    from exciting_environments_torch.ops import random as R
+    from exciting_environments_torch.utils import estimate
+
+    make = lambda device: P.Pendulum(batch_size=16, tau=2e-2, observation_noise={"theta": 0.08}, device=device,
+                                     dtype=torch.float64)
+    card = make("cuda")
+    _, st = card.vmap_reset(R.split(R.PRNGKey(7, "cuda"), 16))
+    acts = (0.3 * torch.sin(torch.arange(64, dtype=torch.float64) * 0.04))[None, :, None].expand(16, 64, 1)
+    obs = card.vmap_rollout(st, acts.cuda())[0]
+    kw = dict(measured_fields=("theta",), process_std={"omega": 0.05})
+    for run in (lambda env, o, a: estimate.run_ekf(env, o, a, smooth=True, **kw),
+                lambda env, o, a: estimate.run_ukf(env, o, a, **kw)):
+        on_card = run(card, obs, acts.cuda())
+        on_cpu = run(make("cpu"), obs.cpu(), acts)
+        assert on_card.means.device.type == "cuda"
+        for name in ("means", "covs", "nll"):
+            x, y = getattr(on_card, name).cpu(), getattr(on_cpu, name)
+            assert float((x - y).abs().max()) <= 1e-10 * float(y.abs().max()), name
