@@ -174,8 +174,8 @@ Phases (any failure raises and the script exits non-zero):
     65,536, T = 64), its angle, buffers and last voltage those of the
     noiseless run; the noisy saturated BRUSA main path (T = 256, both
     modes) likewise; and the closed loops on the environment's own slabs
-    (PD and PI pendulum over T = 4,096, the actor collected over T = 64,
-    BRUSA PI over T = 2,048), one launch each and 0.0 from the plain loop;
+    (PD and PI pendulum over T = 2,048, the actor collected over T = 64,
+    BRUSA PI over T = 1,024), one launch each and 0.0 from the plain loop;
 18. the four exact kernels' VJPs (``phase_grad``): each entry point
     (``kernel_rollout``, ``kernel_closed_loop``, ``pmsm_kernel_rollout``,
     ``kernel_pmsm_closed_loop``) with inputs that require grad, its launch
@@ -185,15 +185,15 @@ Phases (any failure raises and the script exits non-zero):
     them ``RolloutVJP`` on Acrobot and ``ClosedLoopVJP`` on the induction
     machine with ``u_dc``, its constraint active on part of the fleet, and
     ``ClosedLoopVJP`` through the induction machine's FOC tile) and one
-    full-width float32 case per kernel (the pendulum over T = 1,024 with
-    ``obs_stride`` 64; BRUSA over T = 256, the holding fleet for the stepper
+    full-width float32 case per kernel (the pendulum over T = 512 with
+    ``obs_stride`` 64; BRUSA over T = 128, the holding fleet for the stepper
     and the P law for the loop); every forward 0.0 from the plain version and
     one launch, and a call without grad allocating only its outputs;
 19. ``train_policy`` at B = 65,536 (``phase_train``): the noisy tracking
     pendulum of tests/test_train.py (tau = 1e-2, T = 24, 10 iterations, its
     draws fixed by the state's keys), the tracking pendulum
-    with the PD law over 1,024 steps and the PI law over 256 (10 iterations
-    each), saturated BRUSA with an affine P law over 128 steps (12
+    with the PD law over 1,024 steps (5 iterations) and the PI law over 256
+    (10), saturated BRUSA with an affine P law over 128 steps (6
     iterations, the clipped loss of benchmarks/r03/pmsm_policy_grad_device.py);
     each loss must fall and the parameters stay finite; each iteration's
     kernel forward, backward replay and optimizer ms are logged, and a
@@ -247,14 +247,33 @@ Phases (any failure raises and the script exits non-zero):
     Pendulum (B = 2,048 x T = 300), each below the raw sensor's error and
     its first 8 trajectories within ``FILTER_CPU_LIMIT`` of a float64 CPU
     run; the sensorless FOC of the induction machine through
-    ``run_output_feedback_controller`` (B = 4,096 from rest, 4,000 steps,
+    ``run_output_feedback_controller`` (B = 4,096 from rest, 3,000 steps,
     flux within 6% and torque within 10% of their setpoints); and
     ``run_output_feedback_mppi`` on the noisy linear drive in
     ``ofc_pmsm_device.py``'s operating band (B = 512, horizon 8 x 32
     samples, 64 steps) beating its zero plan; each with its wall time, time
     per step and launches per step;
-23. print the kernel table, the card's name and power limit, and last the
+23. iLQR and system identification (``phase_ident``) at the JAX package's
+    device-script widths, iteration counts cut: ``ilqr_plan`` on the
+    tracking Pendulum (B = 4,096, horizon 32, five step sizes, 4
+    iterations; the mean cost non-increasing and below its start, every
+    action in [-1, 1], no launch; an iteration's linearization, Hessians,
+    sweep and line search timed); ``fit_parameters`` on the Pendulum (8,192
+    starts x 8 segments of 32 steps = 65,536 rollouts, ``spread`` 0.5, 50
+    iterations; row 1m) and on the linear PMSM (``r_s``, ``l_d``, ``l_q``;
+    64 starts x 16 segments of 16 steps; row 3g): one launch of the stepper
+    or PMSM kernel in sim-ahead mode per iteration (and one for the final
+    check), the kernel 0.0 from its plain version on one sweep, the first
+    iteration's gradient within 1e-5 of autograd through the eager
+    ``vmap_sim_ahead``, the kernel, the forward, the VJP replay and the
+    iteration timed; ``fisher_information`` on the Pendulum (256 steps, one
+    launch over 514 sensitivity copies, against a float64 CPU run) and
+    ``optimize_excitation`` (48 steps x 40 iterations, eager, ``log det``
+    gain above 1);
+24. print the kernel table, the card's name and power limit, and last the
     result line ``{"ok": true, "device": {...}}``.
+
+``main`` prints each phase's seconds as a ``[time] <phase> <s>`` line.
 
 The anatomy of a redesigned kernel's case (``anatomy``): its registers,
 stack and spills from the build's ``-Xptxas -v`` report; the SASS
@@ -3340,11 +3359,17 @@ def phase_noise_pmsm(ex, PK):
     return entries
 
 
+#: the noisy closed loops' horizon, cut from T_MAIN (4,096) to keep the
+#: script's phases under ~700 s (BRUSA runs half of it)
+T_NOISE_CL = 2048
+
+
 def phase_noise_closed_loops(ex, CL, PCL):
     """The closed loops on the environment's own slabs: the noisy tracking
-    pendulum with the PD and the PI law over T = 4,096 (fast mode), the
-    exploring actor collected over T = 64 (exact mode, tau = 2e-2) and the
-    noisy saturated BRUSA with the PI law over T = 2,048 (fast mode), all at
+    pendulum with the PD and the PI law over ``T_NOISE_CL`` = 2,048 (fast
+    mode), the exploring actor collected over T = 64 (exact mode, tau =
+    2e-2) and the noisy saturated BRUSA with the PI law over 1,024 (fast
+    mode), all at
     B = 65,536: one launch per entry-point call, and the kernel against its
     plain version on the slabs the entry point streams (0.0)."""
     from exciting_environments_torch.utils.convert import actor_params_from_numpy
@@ -3382,11 +3407,12 @@ def phase_noise_closed_loops(ex, CL, PCL):
     env, state, y0, refs = pendulum("fast")
     pd, pi = ex.AffinePolicy(PD_GAINS), ex.AffinePolicy(**PI_LAW)
     c0 = (torch.zeros(B, device=DEVICE),)
-    noise = CL.closed_loop_noise(env, state, T_MAIN, env.env_properties)
+    noise = CL.closed_loop_noise(env, state, T_NOISE_CL, env.env_properties)
     for name, policy, carry in (("pendulum PD", pd, None), ("pendulum PI", pi, c0)):
         extra = {} if carry is None else {"policy_carry": carry}
-        case(name, CL.CL_KERNEL, "closed_loop", lambda: env.fused_closed_loop(state, policy, T_MAIN, **extra)[0],
-             lambda k: cl_run(CL, env, policy, T_MAIN, y0, refs, k, **noise.slabs, **extra), T_MAIN)
+        case(name, CL.CL_KERNEL, "closed_loop",
+             lambda: env.fused_closed_loop(state, policy, T_NOISE_CL, **extra)[0],
+             lambda k: cl_run(CL, env, policy, T_NOISE_CL, y0, refs, k, **noise.slabs, **extra), T_NOISE_CL)
     del noise
 
     rl_env, rl_state, rl_y0, rl_refs = pendulum("exact", tau=2e-2, seed=SEED + 34)
@@ -3411,7 +3437,7 @@ def phase_noise_closed_loops(ex, CL, PCL):
     omega = phys.omega_el
     law = ex.AffinePolicy(PCL_P, Ki=PCL_KI)
     dc0 = (torch.zeros(B, device=DEVICE), torch.zeros(B, device=DEVICE))
-    T_D = T_MAIN // 2
+    T_D = T_NOISE_CL // 2
     noise = CL.closed_loop_noise(drive, dstate, T_D, drive.env_properties)
     dkw = dict(ref_leaves=drefs, policy_carry=dc0, **noise.slabs)
     case("BRUSA PI", PCL.PMSM_CL_KERNEL, "pmsm_closed_loop",
@@ -3683,6 +3709,11 @@ GRAD_CASES = [
 ]
 
 
+#: the full-width gradient cases' horizons, cut from 1,024 and 256 to keep
+#: the script's phases under ~700 s (the replay is eager, ~linear in T)
+GRAD_FULL_T, GRAD_FULL_T_PMSM = 512, 128
+
+
 def phase_grad(ex, K, CL, PK, PCL):
     """The four VJPs on the card, float32 and float64: each case of
     GRAD_CASES at B = 4,096 (T = 16 unless stated), then one full-width case
@@ -3719,13 +3750,15 @@ def phase_grad(ex, K, CL, PK, PCL):
         for i, (entry_point, label, kw) in enumerate(GRAD_CASES):
             check(entry_point, label, dtype, kw, SEED + i)
     full = [
-        ("kernel_rollout", "Pendulum main case, obs_stride 64", dict(name="Pendulum", batch=B_MAIN, n_steps=1024,
-                                                                     stride=64)),
+        ("kernel_rollout", "Pendulum main case, obs_stride 64", dict(name="Pendulum", batch=B_MAIN,
+                                                                     n_steps=GRAD_FULL_T, stride=64)),
         ("kernel_closed_loop", "Pendulum PD tracking, obs_stride 64", dict(name="Pendulum", batch=B_MAIN,
-                                                                           n_steps=1024, stride=64)),
-        ("pmsm_kernel_rollout", "BRUSA holding fleet, obs_stride 16", dict(batch=B_MAIN, n_steps=T_PMSM, stride=16,
-                                                                          holding=True, batch_major=True)),
-        ("kernel_pmsm_closed_loop", "BRUSA P law, obs_stride 16", dict(batch=B_MAIN, n_steps=T_PMSM, stride=16)),
+                                                                           n_steps=GRAD_FULL_T, stride=64)),
+        ("pmsm_kernel_rollout", "BRUSA holding fleet, obs_stride 16", dict(batch=B_MAIN, n_steps=GRAD_FULL_T_PMSM,
+                                                                          stride=16, holding=True,
+                                                                          batch_major=True)),
+        ("kernel_pmsm_closed_loop", "BRUSA P law, obs_stride 16", dict(batch=B_MAIN, n_steps=GRAD_FULL_T_PMSM,
+                                                                       stride=16)),
     ]
     for entry_point, label, kw in full:
         check(entry_point, label, torch.float32, kw, SEED)
@@ -3784,14 +3817,19 @@ class TimedVJP:
             f.forward, f.backward = staticmethod(fwd), staticmethod(bwd)
 
 
+#: iterations of phase_train's two longest runs, cut from 10 and 12 to keep
+#: the script's phases under ~700 s (each iteration replays 1-2 s of VJP)
+TRAIN_PD_ITERS, TRAIN_BRUSA_ITERS = 5, 6
+
+
 def phase_train(ex, CL, PCL):
     """The README's training flow at full width: ``train_policy`` on the
     tracking pendulum (B = 65,536, references linspace(-1.5, 1.5)) with an
-    ``AffinePolicy`` PD law over 1,024 steps and 10 iterations, the PI law
-    over 256 steps and 10 iterations, and on saturated BRUSA (B = 65,536)
-    an ``AffinePolicy`` over the 10 columns from kd = kq = 0.3, 128 steps and
-    12 iterations with benchmarks/r03/pmsm_policy_grad_device.py's clipped
-    loss; each must end below its first loss with finite parameters.  Logs
+    ``AffinePolicy`` PD law over 1,024 steps and ``TRAIN_PD_ITERS``
+    iterations, the PI law over 256 steps and 10 iterations, and on
+    saturated BRUSA (B = 65,536) an ``AffinePolicy`` over the 10 columns
+    from kd = kq = 0.3, 128 steps and ``TRAIN_BRUSA_ITERS`` iterations with
+    benchmarks/r03/pmsm_policy_grad_device.py's clipped loss; each must end below its first loss with finite parameters.  Logs
     each iteration's forward, backward and optimizer ms.  Returns the
     entries of the ``grads`` line."""
     from exciting_environments_torch.utils.train import train_policy
@@ -3819,10 +3857,10 @@ def phase_train(ex, CL, PCL):
     k_drive = [[-0.3, 0, 0, 0, 0, 0, 0, 0, 0.3, 0], [0, -0.3, 0, 0, 0, 0, 0, 0, 0, 0.3]]
     runs = [
         ("noisy pendulum PD", noisy, nstate, ex.AffinePolicy([[-0.1, 0.0, 0.1]]), 24, 10, None, None),
-        ("pendulum PD", pend, pstate, ex.AffinePolicy(PD_GAINS), 1024, 10, None, None),
+        ("pendulum PD", pend, pstate, ex.AffinePolicy(PD_GAINS), 1024, TRAIN_PD_ITERS, None, None),
         ("pendulum PI", pend, pstate, ex.AffinePolicy(**PI_LAW), 256, 10,
          (torch.zeros(B_MAIN, device=DEVICE),), None),
-        ("BRUSA P", drive, dstate, ex.AffinePolicy(k_drive), 128, 12, None, clipped),
+        ("BRUSA P", drive, dstate, ex.AffinePolicy(k_drive), 128, TRAIN_BRUSA_ITERS, None, clipped),
     ]
     entries, failures = [], []
     for label, env, state, policy, n_steps, iterations, carry, loss_fn in runs:
@@ -4408,7 +4446,10 @@ FILTER_B, FILTER_T = 2048, 512  # estimate_pmsm_device.py:27-33's 2,048 steps cu
 FILTER_OMEGA = 600.0
 UKF_T = 300  # tests/test_estimate.py:18
 FILTER_CPU_B = 8
-FOC_OFC_B, FOC_OFC_STEPS = 4096, 4000
+#: the output-feedback FOC's steps, cut from tests/test_foc.py's 4,000 to
+#: keep the script's phases under ~700 s: from rest the flux needs ~0.3 s
+#: (tau_r ~ 103 ms) to come within the case's 6% of its setpoint
+FOC_OFC_B, FOC_OFC_STEPS = 4096, 3000
 OFC_PMSM_B, OFC_PMSM_STEPS = 512, 64
 OFC_PMSM_CFG = dict(horizon=8, n_samples=32, temperature=0.02, noise_sigma=0.3, n_iterations=1, smoothing=0.3)
 #: float32 on the card against float64 on the CPU, per leaf, over the leaf's
@@ -4440,7 +4481,7 @@ def phase_plan(ex, K, PK):
     Pendulum (B = 2,048 x T = 300),
     the filtered error below the raw sensor's and the first 8 trajectories
     against a float64 CPU run; the sensorless FOC of the induction machine
-    through ``run_output_feedback_controller`` (B = 4,096 x 4,000 steps,
+    through ``run_output_feedback_controller`` (B = 4,096 x 3,000 steps,
     flux and torque at their setpoints); and ``run_output_feedback_mppi`` on
     the noisy linear drive in ``ofc_pmsm_device.py``'s operating band (B =
     512 x 64 steps) beating its zero plan.
@@ -4720,6 +4761,236 @@ def phase_plan(ex, K, PK):
     return entries
 
 
+IDENT_ILQR_B, IDENT_ILQR_H, IDENT_ILQR_ITERS = 4096, 32, 4  # benchmarks/r03/ilqr_device.py:25-27 (4 and 64 there)
+IDENT_TAU, IDENT_TRUE = 1e-2, {"l": 1.3, "m": 0.8}  # benchmarks/r03/sysid_device.py:24-25
+#: benchmarks/r03/sysid_device.py:26: 8,192 starts, 256 steps, segments of
+#: 32; its 400 and 3,200 iterations cut to 50
+IDENT_FIT_STARTS, IDENT_FIT_T, IDENT_FIT_SEG, IDENT_FIT_ITERS = 8192, 256, 32, 50
+#: tests/test_sysid.py:165-182's drive: 256 steps, segments of 16; 64 starts, 50 iterations
+IDENT_PMSM_STARTS, IDENT_PMSM_T, IDENT_PMSM_SEG, IDENT_PMSM_ITERS = 64, 256, 16, 50
+IDENT_FIM_T = 256
+IDENT_EXC_T, IDENT_EXC_ITERS = 48, 40  # tests/test_sysid.py:185-190
+#: the first iteration's gradient, kernels' VJP against eager autograd, float32
+IDENT_GRAD_LIMIT = 1e-5
+#: the FIM on the card (float32) against a float64 CPU run, over its largest entry
+IDENT_FIM_LIMIT = 1e-4
+
+
+def phase_ident(ex, K, PK):
+    """iLQR and system identification on the card, float32 (docstring item
+    23).  Returns the kernel table's entries (rows 1m and 3g)."""
+    from exciting_environments_torch.core import structures
+    from exciting_environments_torch.ops import random as R
+    from exciting_environments_torch.ops.signals import aprbs
+    from exciting_environments_torch.utils import ilqr, sysid
+    from exciting_environments_torch.utils.episodes import reset_with_references
+
+    card = card_line()
+    entries, failures = [], []
+
+    def log_i(msg):
+        log(f"[ident] {msg} ({card})")
+
+    def launches():
+        return sum(K.KERNEL.launches.values()) + sum(PK.KERNEL.launches.values())
+
+    def reset_counts():
+        K.KERNEL.reset_counts()
+        PK.KERNEL.reset_counts()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # -- iLQR on the tracking Pendulum (no kernel: the line search applies
+    # time-varying feedback)
+    B, H, n_it = IDENT_ILQR_B, IDENT_ILQR_H, IDENT_ILQR_ITERS
+    env = ex.Pendulum(batch_size=B, tau=2e-2, control_state=["theta"], device=DEVICE)
+    _, state = reset_with_references(env, R.PRNGKey(SEED, DEVICE))
+    u0 = torch.zeros((B, H, 1), device=DEVICE)
+    ilqr.ilqr_plan(env, state, u0, iterations=1)  # warm-up
+    reset_counts()
+    res, wall = timed(lambda: ilqr.ilqr_plan(env, state, u0, iterations=n_it))
+    n_launch = launches()
+    costs = res.costs.double().cpu()
+    ok = (bool(torch.isfinite(costs).all()) and bool((torch.diff(costs) <= 0).all()) and costs[-1] < costs[0]
+          and bool((res.actions.abs() <= 1.0).all()) and n_launch == 0)
+    prob = ilqr._problem(env, state, 1e-4, None)
+    alphas = torch.tensor((1.0, 0.3, 0.1, 0.03, 0.01), device=DEVICE)
+    us = u0.transpose(0, 1)
+    xs, J = ilqr._rollout_cost(prob, us)
+    mu = torch.full((B,), 1e-3, device=DEVICE)
+    lin = ilqr._linearize(prob.f, xs, us)
+    quad = ilqr._grad_hessian(prob.stage, torch.cat([xs, us], dim=-1))
+    gains = ilqr._backward_sweep(*lin, *quad, mu)
+    parts = {
+        "linearization": time_ms(lambda: ilqr._linearize(prob.f, xs, us), reps=3),
+        "Hessians": time_ms(lambda: ilqr._grad_hessian(prob.stage, torch.cat([xs, us], dim=-1)), reps=3),
+        "sweep": time_ms(lambda: ilqr._backward_sweep(*lin, *quad, mu), reps=3),
+        "line search": time_ms(lambda: ilqr._line_search(prob, xs, us, *gains, alphas), reps=3),
+    }
+    iteration_ms = time_ms(lambda: ilqr._iteration(prob, xs, us, J, mu, alphas), reps=3)
+    log_i(f"ilqr_plan tracking Pendulum B={B} horizon {H}, {len(alphas)} step sizes, {n_it} iterations, float32: "
+          f"{wall * 1e3:.1f} ms = {wall / n_it * 1e3:.1f} ms per iteration (host clock, {n_launch} launches); one "
+          f"iteration {iteration_ms!r} ms (CUDA events): "
+          + ", ".join(f"{k} {v!r} ms" for k, v in parts.items())
+          + f"; mean cost {costs.tolist()} (non-increasing, below its start), actions within [-1, 1] "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("ilqr_plan")
+    del res, lin, quad, gains, xs
+
+    # -- multistart fits through the kernels: the Pendulum (row 1m) and the
+    # linear PMSM (row 3g)
+    def fit_case(row, env, true, guess, actions, starts, seg, iters, lib, mode, source, replaces):
+        props = structures.replace(env.env_properties,
+                                   static_params=structures.replace(env.env_properties.static_params, **true))
+        init_state = env.init_state(props)
+        recorded, _, _ = env.sim_ahead(init_state, actions, props, env.tau, env.tau)
+        kw = dict(init_state=init_state, n_starts=starts, segment_length=seg, spread=0.5)
+        sysid.fit_parameters(env, actions, recorded, guess, iterations=2, **kw)  # warm-up
+        label = (f"row {row} fit_parameters {type(env).__name__} {list(guess)}: {starts} starts x "
+                 f"{actions.shape[0] // seg} segments of {seg} steps, {iters} iterations")
+        reset_counts()
+        fit, fit_wall = timed(lambda: sysid.fit_parameters(env, actions, recorded, guess, iterations=iters, **kw))
+        n_launch, n_all = lib.KERNEL.launches[mode], launches()
+        if n_launch != iters + 1 or n_all != n_launch:
+            failures.append(f"{label}: {n_launch} launches of {mode} and {n_all} in all, not one per iteration "
+                            "and one for the final check")
+        rel = {n: abs(fit.params[n] - v) / v for n, v in true.items()}
+        hist = fit.losses.double().cpu()
+        if not (bool(torch.isfinite(hist).all()) and hist[-1] < hist[0] and math.isfinite(fit.final_loss)):
+            failures.append(f"{label}: the loss did not fall ({hist[0].item()!r} -> {hist[-1].item()!r})")
+        # the first iteration's gradient: the kernels' VJP against eager autograd
+        theta0, _, losses = sysid._fit_problem(env, actions, recorded, guess, init_state, env.tau, env.tau, starts,
+                                               0.5, None, "log", seg, R.PRNGKey(0, DEVICE))
+        grads = []
+        for eager in (False, True):
+            theta = theta0.detach().requires_grad_(True)
+            (g,) = torch.autograd.grad(losses(theta, eager=eager).sum(), theta)
+            grads.append(g)
+        grad_dev = scaled_deviation(grads[0], grads[1])
+        if not grad_dev <= IDENT_GRAD_LIMIT:
+            failures.append(f"{label}: gradient {grad_dev!r} from eager autograd")
+        # one sweep: the kernel against its plain version on the fit's batch
+        names = tuple(guess)
+        n_seg = actions.shape[0] // seg
+        values = torch.exp(theta0).repeat_interleave(n_seg, dim=0)
+        shadow = sysid._batched_env(env, names, values)
+        seg_states = sysid._with_first(env.generate_state_from_observation(
+            recorded[torch.arange(n_seg, device=DEVICE) * seg], env.env_properties), init_state)
+        states = sysid._tile_state(seg_states, starts)
+        acts = actions[: n_seg * seg].reshape(n_seg, seg, -1).repeat(starts, 1, 1)
+        N = starts * n_seg
+        if lib is PK:
+            state0, omega = PK._start(states)
+            kernel_fn = lambda: PK.pmsm_kernel_rollout(shadow, acts, state0, omega, tau=env.tau, obs_stride=1,
+                                                       sim_ahead=True, batch_major=True)
+            plain_fn = lambda: PK.plain_pmsm_rollout(shadow, acts, state0, omega, tau=env.tau, obs_stride=1,
+                                                     sim_ahead=True, batch_major=True)
+            inputs = [acts, *state0, omega] + [getattr(shadow.env_properties.static_params, n) for n in names]
+            ops = pmsm_ops(shadow, shadow._solver, seg, seg) * N
+        else:
+            y0 = tuple(getattr(states.physical_state, n) for n in shadow._ode_state_fields)
+            kernel_fn = lambda: K.kernel_rollout(shadow, y0, acts, tau=env.tau, obs_stride=1, sim_ahead=True,
+                                                 batch_major=True)
+            plain_fn = lambda: K.plain_rollout(shadow, y0, acts.transpose(0, 1), tau=env.tau, obs_stride=1,
+                                               sim_ahead=True)
+            inputs = [acts, *y0] + [getattr(shadow.env_properties.static_params, n) for n in names]
+            ops = ops_per_step(shadow, shadow._solver, True) * N * seg
+        flat = lambda out: [t for part in out if part is not None for t in part if t is not None]
+        with torch.no_grad():
+            outk, outp = flat(kernel_fn()), flat(plain_fn())
+            torch.cuda.synchronize()
+            kernel_err = max_abs(outk, outp)
+            if kernel_err != 0.0:
+                failures.append(f"{label}: kernel vs plain {kernel_err!r}")
+            nbytes = tensor_bytes(inputs) + tensor_bytes(outk)
+            bound_ms, bound_by = roofline(nbytes, ops)
+            del outp
+            kernel_ms = time_ms(kernel_fn)
+            kernel_ten_ms = time_ms(kernel_fn, chain=10)
+            plain_ms = time_ms(plain_fn, reps=1, warmup=0)
+            loss_ms = time_ms(lambda: losses(theta0))
+        theta = theta0.detach().requires_grad_(True)
+
+        def forward():
+            with torch.enable_grad():
+                return losses(theta).sum()
+
+        forward_ms = time_ms(forward, reps=3)
+        step_ms = time_ms(lambda: torch.autograd.grad(forward(), theta), reps=3)
+        iteration_ms = fit_wall / (iters + 1) * 1e3
+        log_i(f"{label}, float32: {fit_wall * 1e3:.1f} ms = {iteration_ms:.2f} ms per iteration (host clock), "
+              f"{n_launch} launches of {mode} ({iters} iterations and the final check); parameters "
+              + ", ".join(f"{n} {fit.params[n]!r} (true {v}, relative error {rel[n]:.3e})" for n, v in true.items())
+              + f"; loss {hist[0].item()!r} -> {fit.final_loss!r}; first gradient against eager autograd "
+              f"{grad_dev!r} (limit {IDENT_GRAD_LIMIT}); per iteration (CUDA events): the kernel {kernel_ms!r} ms "
+              f"({kernel_ten_ms!r} ms per call over ten back to back), "
+              f"the loss without grad {loss_ms!r} ms, the forward with saves {forward_ms!r} ms, forward and VJP "
+              f"replay {step_ms!r} ms (the replay {step_ms - forward_ms!r} ms), the rest (optimizer, "
+              f"best-iterate tracking, host) {iteration_ms - step_ms:.3f} ms; kernel vs plain max abs {kernel_err!r}, plain {plain_ms!r} ms; "
+              f"bound {bound_ms!r} ms ({bound_by}: {nbytes / 1e6:.1f} MB of slab, start leaves, per-batch "
+              f"parameters, finals and the saves every step that are the VJP's checkpoints; {ops:.4e} "
+              f"operations), {bound_ms / kernel_ms:.1%} of it")
+        entries.append(entry(f"{'pmsm_stepper' if lib is PK else 'stepper'}_sysid_fit", n_launch, kernel_err,
+                             kernel_ms, plain_ms, bound_ms, bound_by, source, replaces))
+
+    env = ex.Pendulum(batch_size=1, tau=IDENT_TAU, device=DEVICE)
+    actions = aprbs(R.PRNGKey(0, DEVICE), 1, IDENT_FIT_T, 1, hold_min=5, hold_max=20)[0]
+    fit_case("1m", env, IDENT_TRUE, {"l": 1.0, "m": 1.0}, actions, IDENT_FIT_STARTS, IDENT_FIT_SEG,
+             IDENT_FIT_ITERS, K, "sim_ahead", SOURCE, REPLACES)
+    drive = ex.PMSM(batch_size=1, device=DEVICE)
+    sp = drive.env_properties.static_params
+    true = {"r_s": float(sp.r_s) * 1.4, "l_d": float(sp.l_d) * 0.75, "l_q": float(sp.l_q) * 1.2}
+    guess = {"r_s": float(sp.r_s), "l_d": float(sp.l_d), "l_q": float(sp.l_q)}
+    actions = aprbs(R.PRNGKey(0, DEVICE), 1, IDENT_PMSM_T, 2, hold_min=3, hold_max=12)[0]
+    fit_case("3g", drive, true, guess, actions, IDENT_PMSM_STARTS, IDENT_PMSM_SEG, IDENT_PMSM_ITERS, PK,
+             "pmsm_sim_ahead", PMSM_SOURCE, PMSM_REPLACES)
+
+    # -- the Fisher information and D-optimal excitation on the Pendulum
+    env = ex.Pendulum(batch_size=1, tau=IDENT_TAU, device=DEVICE)
+    excitation = aprbs(R.PRNGKey(1, DEVICE), 1, IDENT_FIM_T, 1, hold_min=4, hold_max=12)[0]
+    reset_counts()
+    fim, fim_wall = timed(lambda: sysid.fisher_information(env, excitation, ("l", "m")))
+    n_launch = K.KERNEL.launches["sim_ahead"]
+    fim_ms = time_ms(lambda: sysid.fisher_information(env, excitation, ("l", "m")), reps=3)
+    cpu = ex.Pendulum(batch_size=1, tau=IDENT_TAU, device="cpu", dtype=torch.float64)
+    fim_cpu = sysid.fisher_information(cpu, excitation.double().cpu(), ("l", "m"))
+    fim_dev = scaled_deviation(fim.fim, fim_cpu.fim)
+    ok = (fim_dev <= IDENT_FIM_LIMIT and n_launch == 1 and float(torch.linalg.det(fim.fim.double())) > 0
+          and bool(torch.isfinite(fim.crlb).all()))
+    n_out = (IDENT_FIM_T + 1) * len(env.obs_description)
+    log_i(f"fisher_information Pendulum {IDENT_FIM_T} steps, ('l', 'm'), float32: {fim_ms!r} ms per call (CUDA "
+          f"events; first call {fim_wall * 1e3:.1f} ms host clock), {n_launch} launch of the stepper kernel over "
+          f"{n_out} sensitivity copies and their VJP; FIM {fim.fim.tolist()} against the float64 CPU run "
+          f"{fim_dev!r} (limit {IDENT_FIM_LIMIT}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("fisher_information")
+    init = 0.05 * R.normal(R.PRNGKey(2, DEVICE), (IDENT_EXC_T, 1), torch.float32)
+    before = sysid.fisher_information(env, init, ("l", "m"))
+    reset_counts()
+    exc, exc_wall = timed(lambda: sysid.optimize_excitation(env, ("l", "m"), IDENT_EXC_T, init_actions=init,
+                                                            iterations=IDENT_EXC_ITERS))
+    n_launch = launches()
+    gain = float(torch.linalg.slogdet(exc.fisher.fim.double())[1] - torch.linalg.slogdet(before.fim.double())[1])
+    obj = exc.objectives.double().cpu()
+    ok = (gain > 1.0 and bool(torch.isfinite(obj).all()) and obj[-1] > obj[0]
+          and float(exc.actions.abs().max()) <= 1.0)
+    log_i(f"optimize_excitation Pendulum {IDENT_EXC_T} steps x {IDENT_EXC_ITERS} iterations, D-criterion, float32 "
+          f"(eager vmap_sim_ahead, create_graph): {exc_wall * 1e3:.1f} ms = {exc_wall / IDENT_EXC_ITERS * 1e3:.1f} ms "
+          f"per iteration (host clock), {n_launch} launch (the final FIM); objective {obj[0].item()!r} -> "
+          f"{obj[-1].item()!r}, log det gain {gain!r} (> 1) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("optimize_excitation")
+    if failures:
+        raise AssertionError(f"identification failed: {failures}")
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4746,35 +5017,43 @@ def main() -> int:
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    phase_build(K)
-    phase_kernel_vs_plain(ex, K)
-    phase_golden(ex, K)
-    kernels = phase_main(ex, K)
-    phase_sector(PK)
-    phase_pmsm_kernel_vs_plain(ex, PK)
-    phase_pmsm_golden(ex, PK)
-    kernels += phase_pmsm_main(ex, PK)
-    phase_cl_kernel_vs_plain(ex, CL)
-    kernels += phase_cl_main(ex, CL)
-    phase_trig()
-    phase_pcl_kernel_vs_plain(ex, PCL)
-    kernels += phase_pcl_main(ex, PCL)
-    kernels += phase_fast_flag(ex, K, CL)
-    kernels += phase_pendulum_fast(ex, PFK)
-    kernels += phase_pmsm_fast(ex, PF, PMK)
-    phase_env_kernel_vs_plain(ex, K, CL)
-    phase_env_golden(ex, K)
-    kernels += phase_env_main(ex, K, CL)
-    kernels += phase_foc(ex, K, CL)
-    phase_draws(ex)
-    kernels += phase_noise_pendulum(ex, K)
-    kernels += phase_noise_pmsm(ex, PK)
-    phase_noise_closed_loops(ex, CL, PCL)
-    grads = phase_grad(ex, K, CL, PK, PCL)
-    grads += phase_train(ex, CL, PCL)
-    kernels += phase_rl(ex, CL, PCL)
-    kernels += phase_collect(ex, K, PK)
-    kernels += phase_plan(ex, K, PK)
+
+    def phase(fn, *args):
+        start = time.perf_counter()
+        out = fn(*args)
+        log(f"[time] {fn.__name__} {time.perf_counter() - start:.1f}")
+        return out
+
+    phase(phase_build, K)
+    phase(phase_kernel_vs_plain, ex, K)
+    phase(phase_golden, ex, K)
+    kernels = phase(phase_main, ex, K)
+    phase(phase_sector, PK)
+    phase(phase_pmsm_kernel_vs_plain, ex, PK)
+    phase(phase_pmsm_golden, ex, PK)
+    kernels += phase(phase_pmsm_main, ex, PK)
+    phase(phase_cl_kernel_vs_plain, ex, CL)
+    kernels += phase(phase_cl_main, ex, CL)
+    phase(phase_trig)
+    phase(phase_pcl_kernel_vs_plain, ex, PCL)
+    kernels += phase(phase_pcl_main, ex, PCL)
+    kernels += phase(phase_fast_flag, ex, K, CL)
+    kernels += phase(phase_pendulum_fast, ex, PFK)
+    kernels += phase(phase_pmsm_fast, ex, PF, PMK)
+    phase(phase_env_kernel_vs_plain, ex, K, CL)
+    phase(phase_env_golden, ex, K)
+    kernels += phase(phase_env_main, ex, K, CL)
+    kernels += phase(phase_foc, ex, K, CL)
+    phase(phase_draws, ex)
+    kernels += phase(phase_noise_pendulum, ex, K)
+    kernels += phase(phase_noise_pmsm, ex, PK)
+    phase(phase_noise_closed_loops, ex, CL, PCL)
+    grads = phase(phase_grad, ex, K, CL, PK, PCL)
+    grads += phase(phase_train, ex, CL, PCL)
+    kernels += phase(phase_rl, ex, CL, PCL)
+    kernels += phase(phase_collect, ex, K, PK)
+    kernels += phase(phase_plan, ex, K, PK)
+    kernels += phase(phase_ident, ex, K, PK)
     if "jax" in sys.modules or any(m.startswith("exciting_environments_tpu") for m in sys.modules):
         raise AssertionError("the port pulled in JAX or the JAX package")
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")

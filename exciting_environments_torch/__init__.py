@@ -18,8 +18,12 @@ through the stepper and closed-loop kernels.  Data generation: excitation
 signals (``ops/signals.py``), randomized fleets (``utils/randomize.py``),
 the collectors of ``utils/collect.py`` (``collect_fused`` through the
 stepper and PMSM kernels) and adaptive integration (``ops/adaptive.py``).
-Entry points run on the CUDA device unless the caller passes
-``device="cpu"``.
+Estimation, planning and identification: ``utils/estimate.py``,
+``utils/mpc.py``, ``utils/ofc.py``, ``utils/ilqr.py`` and ``utils/sysid.py``
+(whose multistart fits run through the stepper and PMSM kernels);
+``checkpoint`` saves states in the JAX package's ``.npz`` layout and
+``profiling`` traces and times.  Entry points run on the CUDA device unless
+the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"
@@ -44,7 +48,7 @@ from exciting_environments_torch.ops import solvers
 from exciting_environments_torch.ops.kernels import pendulum_fast_rollout
 from exciting_environments_torch.ops.lut import ScheduledLUT
 from exciting_environments_torch.ops.policies import AffinePolicy
-from exciting_environments_torch.utils import MinMaxNormalization, randomize
+from exciting_environments_torch.utils import MinMaxNormalization, checkpoint, profiling, randomize
 from exciting_environments_torch.utils.collect import RolloutCollector
 from exciting_environments_torch.utils.foc import (
     make_eesm_current_tile,

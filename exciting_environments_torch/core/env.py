@@ -941,9 +941,12 @@ class CoreEnvironment:
         state = self.vmap_init_state(rng)
         return self.generate_observation(state, self.env_properties), state
 
-    def vmap_generate_state_from_observation(self, obs):
-        """Batched observation -> state reconstruction."""
-        return self.generate_state_from_observation(obs, self.env_properties)
+    def vmap_generate_state_from_observation(self, obs, key=None):
+        """Batched observation -> state reconstruction; ``key`` (``(batch_size,
+        2)`` keys of :mod:`~exciting_environments_torch.ops.random`) becomes
+        the rebuilt state's ``PRNGKey``, so a noisy rollout can continue
+        from it."""
+        return self.generate_state_from_observation(obs, self.env_properties, key)
 
     # ------------------------------------------------------------------
     # abstract observation/reward hooks

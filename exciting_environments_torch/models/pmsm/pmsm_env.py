@@ -261,6 +261,15 @@ class PMSM(CoreEnvironment):
     # magnetics
     # ------------------------------------------------------------------
 
+    def generate_interpolators_and_lut(self, pmsm_lut):
+        """Reference-compatible LUT pipeline entry (``pmsm_env.py:316-363``):
+        NaN fill, edge padding and the per-quantity interpolators of a raw
+        measured LUT dict, on the environment's device in its dtype.
+        Returns ``(LUT_interpolators, pmsm_lut)`` as the reference does; the
+        interpolators are closures over the stacked bilinear gather."""
+        lut, processed = build_pmsm_lut(pmsm_lut, device=self.device, dtype=self.dtype)
+        return lut.as_dict(), processed
+
     def currents_to_torque(self, i_d, i_q, env_properties):
         """Linear-magnetics torque: 1.5 p (psi_p + (l_d - l_q) i_d) i_q."""
         params = env_properties.static_params
@@ -745,6 +754,12 @@ class PMSM(CoreEnvironment):
         truncated = self.generate_truncated(states_tm, env_properties)
         terminated = self.generate_terminated(states_without_init_state, reward, env_properties)
         return reward, truncated, terminated
+
+    def step(self, state, action, env_properties):
+        """One control step of one drive with actuation deadtime; returns
+        ``(observation, next_state)``.  The action parameter is named as in
+        the JAX package's ``PMSM.step``."""
+        return super().step(state, action, env_properties)
 
     def _advance_state(self, state, action, env_properties):
         """Deterministic drive update of one control step: the constrained

@@ -62,10 +62,15 @@ def t_dq_alpha_beta(eps):
 
 
 def _rotate(u, eps):
-    """``t_dq_alpha_beta(eps) @ u`` written out componentwise."""
+    """``t_dq_alpha_beta(eps) @ u`` written out componentwise.  XLA's dot
+    accumulates from ``+0``, so a zero phasor comes out as ``+0`` whatever
+    the signs of its products; the ``+ 0.0`` does the same (it changes no
+    other value).  The sign of that zero picks the hexagon sector through
+    ``atan2`` in :func:`apply_hex_constraint`, and with it the constraint's
+    derivative at the zero voltage."""
     cos, sin = torch.cos(eps), torch.sin(eps)
     a, b = u[..., 0], u[..., 1]
-    return torch.stack([cos * a + sin * b, -sin * a + cos * b], dim=-1)
+    return torch.stack([cos * a + sin * b + 0.0, -sin * a + cos * b + 0.0], dim=-1)
 
 
 def dq2albet(u_dq, eps):
@@ -98,6 +103,15 @@ def step_eps(eps, omega_el, tau, tau_scale=1.0):
     return eps + (eps > math.pi).to(eps.dtype) * (-2 * math.pi)
 
 
+def _clip(x, lo: float, hi: float):
+    """``jnp.clip`` with its derivative: ``minimum(maximum(x, lo), hi)``, so
+    that a value exactly on a bound passes half its cotangent (JAX's
+    ``max``/``min`` and ``torch.maximum``/``minimum`` split ties;
+    ``torch.clamp`` passes all of it).  The zero voltage lies on the
+    hexagon's lower edge, where the planners linearize a zero plan."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+
+
 def apply_hex_constraint(u_albet):
     """Clip alpha/beta voltage phasors ``(..., 2)`` into the inverter hexagon;
     returns ``(..., 2)`` (the JAX function returns a ``(1, 2)`` row per phasor).
@@ -115,8 +129,8 @@ def apply_hex_constraint(u_albet):
     rot_im = table_im[bits[0], bits[1], bits[2]]
     ra = a * rot_re - b * rot_im
     rb = a * rot_im + b * rot_re
-    ra = torch.clamp(ra, -2 / 3, 2 / 3)
-    rb = torch.clamp(rb, 0, 2 / 3 * math.sqrt(3))
+    ra = _clip(ra, -2 / 3, 2 / 3)
+    rb = _clip(rb, 0, 2 / 3 * math.sqrt(3))
     oa = ra * rot_re + rb * rot_im
     ob = rb * rot_re - ra * rot_im
     return torch.stack([oa, ob], dim=-1)

@@ -202,19 +202,20 @@ def _filter_setup(env, measured_fields, process_std, measurement_std):
     return names, n, midx_t, zidx_t, as_t(Q), as_t(R), as_t(periods)
 
 
-def _jacobian(f, x, u):
-    """``(f(x, u), F)`` for a batch of means ``x`` ``(B, n)``: ``F`` ``(B, n,
-    n)`` with ``F[b, k, i] = d f_k / d x_i`` at instance ``b``.
+def _jacobian(f, x, u, n_out: int = None):
+    """``(f(x, u), F)`` for a batch of means ``x`` ``(..., n)``: ``F`` ``(...,
+    n_out, n)`` with ``F[b, k, i] = d f_k / d x_i`` at instance ``b``
+    (``n_out`` outputs, default ``n``).
 
-    ``n`` vector-Jacobian products with one-hot cotangents, in one reverse
-    pass over an ``(n, B, n)`` copy of the mean (copy ``k`` seeds output
-    ``k``): the step is elementwise over the batch, so each instance's
-    ``(n, n)`` block is exact and the dense ``(n B)²`` Jacobian is never
+    ``n_out`` vector-Jacobian products with one-hot cotangents, in one
+    reverse pass over an ``(n_out, ..., n)`` copy of the mean (copy ``k``
+    seeds output ``k``): the step is elementwise over the batch, so each
+    instance's block is exact and the dense ``(n B)²`` Jacobian is never
     formed.  Reverse mode, as ``jax.jacobian``: eager forward-mode AD runs
     its zero-tangent arithmetic through Python decompositions, which made a
     forward-mode Jacobian 12-25 times the plain step on the CPU, against
     2-3 times here."""
-    n = x.shape[-1]
+    n = x.shape[-1] if n_out is None else n_out
     with torch.enable_grad():
         xs = x.detach().expand((n,) + tuple(x.shape)).clone().requires_grad_(True)
         out = f(xs, u.expand((n,) + tuple(u.shape)))

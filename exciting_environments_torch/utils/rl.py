@@ -43,7 +43,8 @@ import torch
 from exciting_environments_torch.ops import random as prng
 from exciting_environments_torch.utils import episodes
 
-__all__ = ["ClippedAdam", "PPOConfig", "PPOResult", "evaluate_policy", "init_agent", "policy_mean", "train_ppo"]
+__all__ = ["ClippedAdam", "PPOConfig", "PPOResult", "cosine_decay_schedule", "evaluate_policy", "init_agent",
+           "policy_mean", "train_ppo"]
 
 METRICS = ("mean_reward", "pg_loss", "value_loss", "entropy", "approx_kl")
 
@@ -114,9 +115,12 @@ class ClippedAdam:
     not below ``max_grad_norm``: ``g / norm * max_norm``), then Adam's
     moments ``(1 - b) * g**k + b * m``, the bias corrections
     ``1 - b**count`` and ``m_hat / (sqrt(v_hat) + eps)``, scaled by ``-lr``
-    and added.  ``max_grad_norm=None`` is plain ``optax.adam``."""
+    and added.  ``max_grad_norm=None`` is plain ``optax.adam``.  ``lr`` may
+    be a schedule, a callable of the number of earlier updates (0 for the
+    first), as optax's ``scale_by_learning_rate`` reads it, e.g.
+    :func:`cosine_decay_schedule`."""
 
-    def __init__(self, leaves, lr: float, max_grad_norm: float = None, b1: float = 0.9, b2: float = 0.999,
+    def __init__(self, leaves, lr, max_grad_norm: float = None, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8):
         self.lr, self.max_grad_norm, self.b1, self.b2, self.eps = lr, max_grad_norm, b1, b2, eps
         self.count = 0
@@ -133,13 +137,29 @@ class ClippedAdam:
         b1, b2 = self.b1, self.b2
         self.mu = [(1 - b1) * g + b1 * m for g, m in zip(grads, self.mu)]
         self.nu = [(1 - b2) * (g * g) + b2 * v for g, v in zip(grads, self.nu)]
+        lr = self.lr(self.count) if callable(self.lr) else self.lr
         self.count += 1
         c1, c2 = 1 - b1 ** self.count, 1 - b2 ** self.count
         out = []
         for p, m, v in zip(leaves, self.mu, self.nu):
             u = (m / c1) / (torch.sqrt(v / c2 + 0.0) + self.eps)
-            out.append(p + (-self.lr) * u)
+            out.append(p + (-lr) * u)
         return out
+
+
+def cosine_decay_schedule(init_value: float, decay_steps: int, alpha: float = 0.0):
+    """``optax.cosine_decay_schedule``: ``init_value * ((1 - alpha) * 0.5 *
+    (1 + cos(pi * min(count, decay_steps) / decay_steps)) + alpha)``, a
+    Python number per update count."""
+    if not decay_steps > 0:
+        raise ValueError(f"The cosine_decay_schedule requires positive decay_steps, got decay_steps={decay_steps}.")
+
+    def schedule(count):
+        count = min(float(count), float(decay_steps))
+        cosine_decay = 0.5 * (1 + math.cos(math.pi * count / decay_steps))
+        return init_value * ((1 - alpha) * cosine_decay + alpha)
+
+    return schedule
 
 
 # ---------------------------------------------------------------------------

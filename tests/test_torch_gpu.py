@@ -6,7 +6,11 @@ and the inverter circle in the stepper and closed-loop kernels, the
 machines' drive-control tiles in the closed-loop kernel, and the fast
 pendulum and fast PMSM kernels against their plain versions on a CUDA card;
 and ``RolloutCollector.collect_fused`` through the stepper and PMSM kernels
-against the eager ``collect`` on randomized fleets.
+against the eager ``collect`` on randomized fleets; the planners and
+filters; ``fit_parameters`` through the stepper and PMSM kernels in
+sim-ahead mode, ``ilqr_plan``, ``fisher_information`` and
+``optimize_excitation`` against the CPU, and checkpoints and profiling on
+the card.
 
 The kernels have no CPU mode, so these tests carry the ``gpu`` marker and skip
 without a card.  The file imports neither JAX nor the JAX package, so on a
@@ -1357,3 +1361,104 @@ def test_filters_run_on_the_card_like_the_cpu():
         for name in ("means", "covs", "nll"):
             x, y = getattr(on_card, name).cpu(), getattr(on_cpu, name)
             assert float((x - y).abs().max()) <= 1e-10 * float(y.abs().max()), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["pendulum", "pmsm"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fit_parameters_runs_one_kernel_launch_per_iteration(kind, dtype):
+    """``fit_parameters`` through the stepper (Pendulum) or PMSM kernel in
+    sim-ahead mode: one launch per iteration and one for the final check,
+    the first gradient equal to eager autograd through ``vmap_sim_ahead``
+    within GRAD_LIMIT, and the same loss curve as the CPU within the type's
+    rounding."""
+    _cuda()
+    from exciting_environments_torch.core import structures
+    from exciting_environments_torch.ops import random as R
+    from exciting_environments_torch.ops.signals import aprbs
+    from exciting_environments_torch.utils import sysid
+
+    if kind == "pendulum":
+        env, lib, mode = P.Pendulum(batch_size=1, tau=1e-2, dtype=dtype), K, "sim_ahead"
+        true, guess, n, seg, a_dim = {"l": 1.3, "m": 0.8}, {"l": 1.0, "m": 1.0}, 64, 16, 1
+    else:
+        env, lib, mode = P.PMSM(batch_size=1, dtype=dtype), PK, "pmsm_sim_ahead"
+        sp = env.env_properties.static_params
+        true = {"r_s": float(sp.r_s) * 1.4, "l_d": float(sp.l_d) * 0.75, "l_q": float(sp.l_q) * 1.2}
+        guess, n, seg, a_dim = {k: float(getattr(sp, k)) for k in true}, 64, 16, 2
+    props = structures.replace(env.env_properties, static_params=structures.replace(env.env_properties.static_params,
+                                                                                    **true))
+    actions = aprbs(R.PRNGKey(0, "cuda"), 1, n, a_dim, hold_min=3, hold_max=12, dtype=dtype)[0]
+    recorded, _, _ = env.sim_ahead(env.init_state(props), actions, props, env.tau, env.tau)
+    lib.KERNEL.reset_counts()
+    res = sysid.fit_parameters(env, actions, recorded, guess, n_starts=16, iterations=6, segment_length=seg)
+    assert lib.KERNEL.launches[mode] == 7 and sum(lib.KERNEL.launches.values()) == 7
+    assert bool(torch.isfinite(res.losses).all()) and float(res.losses[-1]) < float(res.losses[0])
+    theta0, _, losses = sysid._fit_problem(env, actions, recorded, guess, None, env.tau, env.tau, 16, 0.3, None,
+                                           "log", seg, R.PRNGKey(0, "cuda"))
+    grads = []
+    for eager in (False, True):
+        theta = theta0.detach().requires_grad_(True)
+        grads.append(torch.autograd.grad(losses(theta, eager=eager).sum(), theta)[0])
+    assert float((grads[0] - grads[1]).abs().max()) <= GRAD_LIMIT[dtype] * float(grads[1].abs().max())
+    cpu_env = (P.Pendulum(batch_size=1, tau=1e-2, device="cpu", dtype=dtype) if kind == "pendulum"
+               else P.PMSM(batch_size=1, device="cpu", dtype=dtype))
+    ref = sysid.fit_parameters(cpu_env, actions.cpu(), recorded.cpu(), guess, n_starts=16, iterations=6,
+                               segment_length=seg, key=R.PRNGKey(0, "cpu"))
+    scale = float(ref.losses.abs().max())
+    assert float((res.losses.cpu() - ref.losses).abs().max()) <= (1e-3 if dtype == torch.float32 else 1e-10) * scale
+
+
+@pytest.mark.gpu
+def test_ilqr_fisher_and_excitation_run_on_the_card():
+    """``ilqr_plan``, ``fisher_information`` (one stepper launch) and
+    ``optimize_excitation`` on CUDA tensors against the CPU in float64."""
+    _cuda()
+    from exciting_environments_torch.ops import random as R
+    from exciting_environments_torch.utils import ilqr, sysid
+    from exciting_environments_torch.utils.episodes import reset_with_references
+
+    out = {}
+    for device in ("cuda", "cpu"):
+        env = P.Pendulum(batch_size=8, tau=2e-2, control_state=["theta"], device=device, dtype=torch.float64)
+        _, state = reset_with_references(env, R.PRNGKey(1, device))
+        K.KERNEL.reset_counts()
+        plan = ilqr.ilqr_plan(env, state, torch.zeros((8, 16, 1), dtype=torch.float64, device=device), iterations=4)
+        assert sum(K.KERNEL.launches.values()) == 0
+        single = P.Pendulum(batch_size=1, tau=1e-2, device=device, dtype=torch.float64)
+        acts = 0.5 * torch.sin(torch.arange(64, dtype=torch.float64, device=device) / 5.0)[:, None]
+        fim = sysid.fisher_information(single, acts, ("l", "m"))
+        assert K.KERNEL.launches["sim_ahead"] == (1 if device == "cuda" else 0)
+        exc = sysid.optimize_excitation(single, ("l", "m"), 24, iterations=5)
+        out[device] = (plan.costs, plan.actions, fim.fim, exc.objectives)
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert float((a.cpu() - b).abs().max()) <= 1e-9 * float(b.abs().max())
+
+
+@pytest.mark.gpu
+def test_checkpoint_and_profiling_on_the_card(tmp_path):
+    """A state saved from the card loads onto the card and onto the CPU;
+    the profiler's trace holds device activity; the timer fences the card."""
+    _cuda()
+    from exciting_environments_torch.ops import random as R
+    from exciting_environments_torch.utils import checkpoint, profiling
+
+    env = P.Pendulum(batch_size=64)
+    _, state = env.vmap_reset(R.split(R.PRNGKey(0, "cuda"), 64))
+    _, state = env.vmap_step(state, 0.3 * torch.ones((64, 1), device="cuda"))
+    path = checkpoint.save_state(state, str(tmp_path / "s"))
+    back = checkpoint.load_state(env.vmap_init_state(R.split(R.PRNGKey(1, "cuda"), 64)), path)
+    assert back.physical_state.theta.device.type == "cuda"
+    assert torch.equal(back.physical_state.theta, state.physical_state.theta)
+    assert torch.equal(back.PRNGKey, state.PRNGKey)
+    cpu = P.Pendulum(batch_size=64, device="cpu")
+    on_cpu = checkpoint.load_state(cpu.vmap_init_state(R.split(R.PRNGKey(1, "cpu"), 64)), path)
+    assert torch.equal(on_cpu.physical_state.theta, state.physical_state.theta.cpu())
+    with profiling.trace(str(tmp_path / "trace")):
+        with profiling.annotate("steps"):
+            env.fused_rollout(state, torch.zeros((64, 32, 1), device="cuda"))
+    assert len(list((tmp_path / "trace").iterdir())) == 1
+    timer = profiling.Timer()
+    with timer.measure() as m:
+        m.block(env.fused_rollout(state, torch.zeros((64, 256, 1), device="cuda")))
+    assert timer.best > 0

@@ -32,6 +32,8 @@ def test_port_imports_no_jax():
         "import exciting_environments_torch.ops.signals, exciting_environments_torch.utils.randomize\n"
         "import exciting_environments_torch.ops.adaptive, exciting_environments_torch.utils.estimate\n"
         "import exciting_environments_torch.utils.mpc, exciting_environments_torch.utils.ofc\n"
+        "import exciting_environments_torch.utils.ilqr, exciting_environments_torch.utils.sysid\n"
+        "import exciting_environments_torch.utils.checkpoint, exciting_environments_torch.utils.profiling\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'exciting_environments_tpu'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"
