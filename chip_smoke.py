@@ -270,7 +270,24 @@ Phases (any failure raises and the script exits non-zero):
     launch over 514 sensitivity copies, against a float64 CPU run) and
     ``optimize_excitation`` (48 steps x 40 iterations, eager, ``log det``
     gain above 1);
-24. print the kernel table, the card's name and power limit, and last the
+24. the batch split (``phase_shard``, ``parallel/mesh.py``) over
+    ``make_batch_mesh(["cuda:0"] * 4)`` at B = 65,536, float32: the
+    Pendulum ``fused_rollout`` over T = 4,096 (kernel 1, row 1n), a
+    saturated BRUSA fleet with per-drive ``r_s`` over T = 256 (kernel 3,
+    row 3h), the PD closed loop over T = 4,096 (kernel 2, row 2j) and the
+    BRUSA PI closed loop with per-drive ``u_dc`` over T = 2,048 (kernel 4,
+    row 4f): four launches per split call (the counts set to 0 just before
+    it, read just after), every leaf 0.0 from the unsplit call and the final
+    states 0.0 from the plain versions, the split and unsplit entry points
+    timed (CUDA-event medians of 5) with their peak memory;
+25. the wrappers (``phase_wrappers``) at B = 65,536: ``GymWrapper`` on the
+    tracking Pendulum with references on over 1,000 steps, and the vector
+    step with NEXT_STEP autoreset (``utils/episodes.py::_autoreset_step``,
+    ``max_episode_steps = 200``) over 1,000 steps, ms per step with the
+    renewals and resets checked; ``GymnasiumVectorEnv`` and ``MujucoWrapper``
+    (B = 256, 20 steps, state on the card) where gymnasium and mujoco
+    import, else a line naming what was not driven;
+26. print the kernel table, the card's name and power limit, and last the
     result line ``{"ok": true, "device": {...}}``.
 
 ``main`` prints each phase's seconds as a ``[time] <phase> <s>`` line.
@@ -4991,6 +5008,274 @@ def phase_ident(ex, K, PK):
     return entries
 
 
+# ---------------------------------------------------------------------------
+# the batch split (parallel/mesh.py) and the wrappers
+# ---------------------------------------------------------------------------
+
+SHARD_DEVICES = ["cuda:0"] * 4  # four shards on the one card
+T_SHARD_PCL = 2048
+
+
+def tree_gap(a, b):
+    """max |a - b| over the leaves of two trees of one structure
+    (``leaf_deviation`` per tensor; other leaves must be equal)."""
+    from exciting_environments_torch.core import structures
+
+    la, lb = structures.leaves(a), structures.leaves(b)
+    if len(la) != len(lb):
+        raise AssertionError("the split and unsplit results have different structures")
+    gap = 0.0
+    for x, y in zip(la, lb):
+        if isinstance(x, torch.Tensor):
+            gap = max(gap, leaf_deviation(x, y) if x.dtype == y.dtype else math.inf)
+        elif x != y and not (x != x and y != y):
+            return math.inf
+    return gap
+
+
+def phase_shard(ex, K, PK, CL, PCL):
+    """The batch split over four shards of one card (``parallel/mesh.py``,
+    ``make_batch_mesh(["cuda:0"] * 4)``), B = 65,536, float32: the Pendulum
+    ``fused_rollout`` over T = 4,096 (kernel 1), a saturated BRUSA fleet with
+    per-drive ``r_s`` over T = 256 (kernel 3), the PD closed loop over
+    T = 4,096 (kernel 2) and the BRUSA PI closed loop with per-drive
+    ``u_dc`` over T = 2,048 (kernel 4).  Each split call makes one launch per
+    shard (the counts set to 0 just before it, read just after), equals the
+    unsplit call at 0.0 in every leaf and its plain version at 0.0; the split
+    and unsplit entry points are timed (CUDA-event medians of 5), with the
+    peak memory of each.  Returns the kernel table's rows 1n, 2j, 3h and 4f."""
+    from exciting_environments_torch.ops import random as R
+    from exciting_environments_torch.parallel import ShardedEnv, make_batch_mesh
+    from exciting_environments_torch.utils import randomize
+
+    card = card_line()
+    mesh = make_batch_mesh(SHARD_DEVICES)
+    n = mesh.size
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 60)
+    B = B_MAIN
+    entries = []
+
+    def log_s(msg):
+        log(f"[shard] {msg} ({card})")
+
+    def run_case(name, env, senv, split_fn, whole_fn, plain_fn, plain_ref, counter, mode, bound_ms, bound_by, source,
+                 replaces, n_steps):
+        counter.reset_counts()
+        split = split_fn(senv)
+        torch.cuda.synchronize()
+        launches = counter.launches[mode]
+        if launches != n:
+            raise AssertionError(f"{name}: the split call made {launches} {mode} launches, not {n}")
+        whole = whole_fn(env)
+        gap = tree_gap(split, whole)
+        t0 = time.perf_counter()
+        plain = plain_fn()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max_abs(plain_ref(split), plain)
+        del plain
+        if gap != 0.0 or err != 0.0:
+            raise AssertionError(f"{name}: split vs unsplit {gap!r}, split vs plain {err!r}")
+        split_ms = time_ms(lambda: split_fn(senv))
+        whole_ms = time_ms(lambda: whole_fn(env))
+        split_mem = extra_memory(lambda: split_fn(senv))
+        whole_mem = extra_memory(lambda: whole_fn(env))
+        log_s(f"{name}: {launches} launches ({launches // n} per shard); split {split_ms!r} ms, unsplit "
+              f"{whole_ms!r} ms ({split_ms / whole_ms:.3f} x); peak memory beyond the inputs split {split_mem} B, "
+              f"unsplit {whole_mem} B; split vs unsplit {gap!r}, vs plain {err!r}; plain {plain_ms!r} ms (one run); "
+              f"bound {bound_ms!r} ms ({bound_by}), {bound_ms / split_ms:.1%} of it; "
+              f"{B * n_steps / split_ms * 1e3:.4e} env-steps/s")
+        entries.append(entry(name, launches, err, split_ms, plain_ms, bound_ms, bound_by, source, replaces))
+
+    # kernel 1: the Pendulum's open loop, batch-major slab (each shard's rows read in place)
+    T = T_MAIN
+    env = ex.Pendulum(batch_size=B, tau=1e-4, device=DEVICE)
+    _, state = env.vmap_reset(rng=gen)
+    acts_bm = random_actions(env, T, gen).transpose(0, 1).contiguous()
+    senv = ShardedEnv(env, mesh)
+    y0 = tuple(getattr(state.physical_state, f) for f in env._ode_state_fields)
+    run_case("stepper_step_split4", env, senv, lambda e: e.fused_rollout(state, acts_bm, strict=True),
+             lambda e: e.fused_rollout(state, acts_bm, strict=True),
+             lambda: K.plain_rollout(env, y0, acts_bm.transpose(0, 1), tau=env.tau)[0],
+             lambda out: tuple(getattr(out[1].physical_state, f) for f in env._ode_state_fields), K.KERNEL, "step",
+             *bound(env, env._solver, B, T, T, 0, False), SOURCE, REPLACES, T)
+    del acts_bm
+
+    # kernel 3: a BRUSA fleet whose r_s differs per drive
+    Tp = T_PMSM
+    defaults = dict(ex.MotorVariant.BRUSA.get_params().static_params.__dict__)
+    fleet = randomize.randomize_env(ex.PMSM, R.PRNGKey(SEED + 61, DEVICE),
+                                    {"r_s": randomize.Uniform(15e-3, 21e-3)}, batch_size=B, defaults=defaults,
+                                    saturated=True, motor_variant=ex.MotorVariant.BRUSA, tau=1e-4, device=DEVICE)
+    r_s = fleet.env_properties.static_params.r_s
+    if not isinstance(r_s, torch.Tensor) or float(r_s.max() - r_s.min()) <= 0.0:
+        raise AssertionError("the fleet's r_s is not per drive")
+    pstate, acts_tm = pmsm_inputs(fleet, Tp, gen, lim=0.3)
+    pacts = acts_tm.transpose(0, 1).contiguous()
+    sfleet = ShardedEnv(fleet, mesh)
+    run_case("pmsm_step_split4", fleet, sfleet, lambda e: e.fused_rollout(pstate, pacts, strict=True),
+             lambda e: e.fused_rollout(pstate, pacts, strict=True),
+             lambda: PK.plain_pmsm_rollout(fleet, pacts, *PK._start(pstate), tau=fleet.tau, batch_major=True)[0],
+             lambda out: tuple(getattr(out[1].physical_state, f) for f in ("i_d", "i_q", "torque", "epsilon",
+                                                                          "u_d_buffer", "u_q_buffer")),
+             PK.KERNEL, "pmsm_step", *pmsm_bound(fleet, fleet._solver, B, Tp, 0), PMSM_SOURCE, PMSM_REPLACES, Tp)
+
+    # kernel 2: the PD tracking law over the pendulum
+    cenv = ex.Pendulum(batch_size=B, control_state=["theta"], device=DEVICE)
+    _, cstate = cenv.vmap_reset(rng=gen)
+    cstate.reference.theta = torch.linspace(-1.5, 1.5, B, device=DEVICE)
+    pd = ex.AffinePolicy(PD_GAINS)
+    cy0 = tuple(getattr(cstate.physical_state, f) for f in cenv._ode_state_fields)
+    ckw = dict(tau=cenv.tau, solver=cenv._solver, props=cenv.env_properties,
+               ref_leaves=(cenv.env_properties.physical_normalizations.theta.normalize(cstate.reference.theta),))
+    (cl_bound_ms, cl_bound_by), _ = cl_bound(cenv, pd.kernel_spec(torch.float32, DEVICE), B, T, 0, 0, 1)
+    run_case("closed_loop_pd_split4", cenv, ShardedEnv(cenv, mesh), lambda e: e.fused_closed_loop(cstate, pd, T),
+             lambda e: e.fused_closed_loop(cstate, pd, T),
+             lambda: cl_flat(CL.plain_closed_loop(cenv, cy0, pd, T, **ckw))[:2],
+             lambda out: tuple(getattr(out[1].physical_state, f) for f in cenv._ode_state_fields), CL.CL_KERNEL,
+             "closed_loop", cl_bound_ms, cl_bound_by, CL_SOURCE, CL_REPLACES, T)
+
+    # kernel 4: the PI current law over a BRUSA fleet whose DC link differs per drive
+    Tc = T_SHARD_PCL
+    u_dc = 350.0 + 100.0 * torch.rand(B, generator=gen, device=DEVICE)
+    penv = pmsm_env(ex, B, static={"u_dc": u_dc}, control_state=["i_d", "i_q"], tau=1e-4)
+    pcstate, state0, omega, refs = pcl_inputs(penv, gen)
+    pi_law = ex.AffinePolicy(PCL_P, Ki=PCL_KI)
+    c0 = tuple(torch.zeros(B, device=DEVICE) for _ in range(2))
+    pkw = dict(tau=penv.tau, solver=penv._solver, props=penv.env_properties, ref_leaves=refs, policy_carry=c0)
+    (pcl_bound_ms, pcl_bound_by), _ = pmsm_cl_bound(penv, pi_law.kernel_spec(torch.float32, DEVICE), B, Tc, 0, 2, 2)
+    run_case("pmsm_closed_loop_pi_split4", penv, ShardedEnv(penv, mesh),
+             lambda e: e.fused_closed_loop(pcstate, pi_law, Tc, policy_carry=c0),
+             lambda e: e.fused_closed_loop(pcstate, pi_law, Tc, policy_carry=c0),
+             lambda: cl_flat(PCL.plain_pmsm_closed_loop(penv, state0, omega, pi_law, Tc, **pkw))[:2],
+             lambda out: (out[1].physical_state.i_d, out[1].physical_state.i_q), PCL.PMSM_CL_KERNEL,
+             "pmsm_closed_loop", pcl_bound_ms, pcl_bound_by, PCL_SOURCE, PCL_REPLACES, Tc)
+    return entries
+
+
+def phase_wrappers(ex):
+    """The wrappers on the card, float32, B = 65,536: ``GymWrapper`` on the
+    tracking Pendulum with references on (hold steps 10..1,000) over 1,000
+    steps, and the vector step with NEXT_STEP autoreset
+    (``utils/episodes.py::_autoreset_step``, ``max_episode_steps = 200``) over
+    1,000 steps, each reading its flags on the host every step as
+    ``GymnasiumVectorEnv.step`` does; ms per step, the renewals and resets
+    counted and checked.  ``GymnasiumVectorEnv`` and ``MujucoWrapper`` (B =
+    256, 20 steps, state on the card) run where gymnasium and mujoco
+    import; where they do not, a line names what was not driven."""
+    from exciting_environments_torch.ops import random as R
+    from exciting_environments_torch.utils import episodes
+
+    card = card_line()
+    B, n_steps = B_MAIN, 1000
+
+    def log_w(msg):
+        log(f"[wrappers] {msg} ({card})")
+
+    env = ex.Pendulum(batch_size=B, tau=1e-4, control_state=["theta"], device=DEVICE)
+    gw = ex.GymWrapper(env=env, control_state=["theta"])
+    gw.reset(rng_env=R.split(R.PRNGKey(SEED, DEVICE), B), rng_ref=R.PRNGKey(SEED + 1, DEVICE))
+    action = torch.zeros(B, 1, device=DEVICE)
+    renewals = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        before = gw.reference_hold_steps
+        obs, reward, term, trunc = gw.step(action)
+        renewals += int((before[:, 0] == 0).sum())  # a host read per step, as a caller's loop makes
+    torch.cuda.synchronize()
+    gw_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    if tuple(obs.shape) != (B, 3) or tuple(reward.shape) != (B, 1) or not bool(torch.isfinite(obs).all()):
+        raise AssertionError(f"GymWrapper: unexpected step result {tuple(obs.shape)}, {tuple(reward.shape)}")
+    hold = gw.reference_hold_steps
+    if renewals < B or int(hold.min()) < -1 or int(hold.max()) >= 1000:
+        raise AssertionError(f"GymWrapper: {renewals} renewals, hold steps in [{int(hold.min())}, {int(hold.max())}]")
+    log_w(f"GymWrapper Pendulum B={B}, references on: {gw_ms!r} ms per step over {n_steps} steps, "
+          f"{renewals} reference renewals, {B / gw_ms * 1e3:.4e} env-steps/s")
+
+    limit = 200
+    _, state = episodes.reset_with_references(env, R.PRNGKey(SEED + 2, DEVICE))
+    autoreset = torch.zeros(B, dtype=torch.bool, device=DEVICE)
+    elapsed = torch.zeros(B, dtype=torch.int32, device=DEVICE)
+    keys = R.split(R.PRNGKey(SEED + 3, DEVICE), n_steps)
+    any_reset, reset_steps = False, 0
+    reset_reward = torch.zeros((), device=DEVICE)  # the largest |reward| of an instance on its reset step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(n_steps):
+        reset_steps += any_reset
+        was = autoreset
+        obs, reward, term, trunc, state, autoreset, elapsed = episodes._autoreset_step(
+            env, state, autoreset, any_reset, elapsed, action, keys[t], limit)
+        reset_reward = torch.maximum(reset_reward, torch.where(was, reward, 0.0).abs().max())
+        any_reset = bool(autoreset.any())  # the host copy GymnasiumVectorEnv.step reads
+    torch.cuda.synchronize()
+    vec_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    if (reset_steps < n_steps // limit - 1 or int(elapsed.max()) > limit or float(reset_reward) != 0.0
+            or not bool(torch.isfinite(obs).all())):
+        raise AssertionError(f"autoreset: {reset_steps} reset steps, elapsed up to {int(elapsed.max())}, "
+                             f"reward on a reset step {float(reset_reward)!r}")
+    log_w(f"_autoreset_step Pendulum B={B}, max_episode_steps={limit}: {vec_ms!r} ms per step over {n_steps} "
+          f"steps, {reset_steps} steps with a reset branch, {B / vec_ms * 1e3:.4e} env-steps/s")
+
+    b, n_small = 256, 20
+    try:
+        import gymnasium  # noqa: F401
+    except ImportError:
+        log_w("GymnasiumVectorEnv not driven: gymnasium does not import on this machine")
+    else:
+        venv = ex.GymnasiumVectorEnv(ex.Pendulum(batch_size=b, control_state=["theta"], device=DEVICE),
+                                     seed=SEED, max_episode_steps=8)
+        venv.reset(seed=SEED)
+        for _ in range(n_small):
+            o, r, te, tr, _ = venv.step(np.zeros((b, 1), np.float32))
+        if o.shape != (b, 3) or not np.isfinite(o).all():
+            raise AssertionError("GymnasiumVectorEnv: unexpected observations")
+        log_w(f"GymnasiumVectorEnv B={b}: {n_small} steps, state on {venv._state.physical_state.theta.device}")
+    try:
+        import mujoco
+    except ImportError:
+        log_w("MujucoWrapper not driven: mujoco does not import on this machine")
+    else:
+        mw = mujoco_pendulum(ex, mujoco, b)
+        obs, st = mw.vmap_reset(R.split(R.PRNGKey(SEED, DEVICE), b))
+        for _ in range(n_small):
+            obs, st = mw.vmap_step(st, 0.5 * torch.ones(b, 1, device=DEVICE))
+        if st.qpos.device.type != torch.device(DEVICE).type or not bool(torch.isfinite(obs).all()):
+            raise AssertionError("MujucoWrapper: state left the card or went non-finite")
+        log_w(f"MujucoWrapper B={b}: {n_small} steps, state on {st.qpos.device}")
+
+
+MUJOCO_PENDULUM_XML = """
+<mujoco>
+  <compiler angle="radian"/>
+  <option timestep="0.01"/>
+  <worldbody>
+    <body name="pole" pos="0 0 1">
+      <joint name="hinge" type="hinge" axis="0 1 0" limited="true" range="-1.5 1.5"/>
+      <geom type="capsule" size="0.04" fromto="0 0 0 0 0 0.5" mass="1"/>
+    </body>
+  </worldbody>
+  <actuator>
+    <motor name="torque" joint="hinge" ctrllimited="true" ctrlrange="-2 2"/>
+  </actuator>
+</mujoco>
+"""
+
+
+def mujoco_pendulum(ex, mujoco, batch):
+    """The MuJoCo wrapper over the tests' hinge pendulum, state on the card."""
+    from exciting_environments_torch.wrappers.mujoco import MujucoWrapper, dict_to_pytree_dataclass
+
+    model = mujoco.MjModel.from_xml_string(MUJOCO_PENDULUM_XML)
+    base = MujucoWrapper.__new__(MujucoWrapper)
+    phys = base.generate_physical_normalization_dataclasses.__get__(base)(model)
+    qvel, _ = dict_to_pytree_dataclass("qvel", {"hinge_angular_velocity": ex.MinMaxNormalization(-10.0, 10.0)})
+    return MujucoWrapper(model, physical_normalizations=MujucoWrapper.PhysicalNormalizations(qpos=phys.qpos,
+                                                                                              qvel=qvel),
+                         batch_size=batch, device=DEVICE)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5054,6 +5339,8 @@ def main() -> int:
     kernels += phase(phase_collect, ex, K, PK)
     kernels += phase(phase_plan, ex, K, PK)
     kernels += phase(phase_ident, ex, K, PK)
+    kernels += phase(phase_shard, ex, K, PK, CL, PCL)
+    phase(phase_wrappers, ex)
     if "jax" in sys.modules or any(m.startswith("exciting_environments_tpu") for m in sys.modules):
         raise AssertionError("the port pulled in JAX or the JAX package")
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")

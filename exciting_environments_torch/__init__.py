@@ -22,8 +22,11 @@ Estimation, planning and identification: ``utils/estimate.py``,
 ``utils/mpc.py``, ``utils/ofc.py``, ``utils/ilqr.py`` and ``utils/sysid.py``
 (whose multistart fits run through the stepper and PMSM kernels);
 ``checkpoint`` saves states in the JAX package's ``.npz`` layout and
-``profiling`` traces and times.  Entry points run on the CUDA device unless
-the caller passes ``device="cpu"``.
+``profiling`` traces and times.  The batch splits over devices with
+``parallel.ShardedEnv`` (one kernel launch per shard); ``GymWrapper``,
+``GymnasiumVectorEnv`` and ``MujucoWrapper`` are the stateful facades.
+Entry points run on the CUDA device unless the caller passes
+``device="cpu"``.
 """
 
 __version__ = "0.1.0"
@@ -59,3 +62,18 @@ from exciting_environments_torch.utils.foc import (
     make_sensorless_foc_tile,
 )
 from exciting_environments_torch.utils.rl_fused import make_actor_tile
+from exciting_environments_torch.wrappers.gym import GymWrapper
+
+
+def __getattr__(name):
+    # MujucoWrapper / GymnasiumVectorEnv import mujoco / gymnasium lazily so
+    # the core package stays usable without the optional extras.
+    if name == "MujucoWrapper":
+        from exciting_environments_torch.wrappers.mujoco import MujucoWrapper
+
+        return MujucoWrapper
+    if name == "GymnasiumVectorEnv":
+        from exciting_environments_torch.wrappers.gymnasium_vector import GymnasiumVectorEnv
+
+        return GymnasiumVectorEnv
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -48,6 +48,25 @@ def resolve_device(device) -> torch.device:
     return torch.device(device)
 
 
+def with_env_properties(env, env_properties):
+    """``env`` itself, or with an ``env_properties`` override a shallow copy
+    that reads those properties instead (the launchers' ``env_properties=``
+    argument: a shard's property slices).  Per-batch leaves of the override
+    must be ``(env.batch_size,)`` tensors."""
+    if env_properties is None:
+        return env
+    for leaf in structures.leaves(env_properties):
+        if isinstance(leaf, torch.Tensor) and leaf.ndim and tuple(leaf.shape) != (env.batch_size,):
+            raise ValueError(
+                f"env_properties override leaves must be scalars or of shape (batch_size,) = "
+                f"{(env.batch_size,)}, but {tuple(leaf.shape)} is given"
+            )
+    shadow = object.__new__(type(env))
+    shadow.__dict__.update(env.__dict__)
+    shadow.env_properties = env_properties
+    return shadow
+
+
 class _Components:
     """Indexable view of an action ``(..., A)``: ``[i]`` is component ``i``
     over all leading dimensions (the env ODEs index ``action(t)[dim]``)."""

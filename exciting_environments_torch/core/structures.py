@@ -117,3 +117,29 @@ def structure(obj):
     if isinstance(obj, (tuple, list)):
         return (type(obj).__name__,) + tuple(structure(v) for v in obj)
     return "*"
+
+
+def unflatten(template, flat):
+    """The inverse of :func:`leaves`: ``template``'s structure with its
+    leaves taken in order from ``flat`` (the counterpart of
+    ``jax.tree_util.tree_unflatten``)."""
+    it = iter(flat)
+
+    def build(node):
+        if node is None:
+            return None
+        if is_dataclass(node):
+            new = object.__new__(type(node))
+            for f in dataclasses.fields(node):
+                object.__setattr__(new, f.name, build(getattr(node, f.name)))
+            return new
+        if isinstance(node, tuple):
+            return tuple(build(v) for v in node)
+        if isinstance(node, list):
+            return [build(v) for v in node]
+        return next(it)
+
+    out = build(template)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the template has")
+    return out

@@ -12,12 +12,17 @@ def rollout_path(env, obs_stepsize: float = None, action_stepsize: float = None)
     ``fused_sim_ahead``) call on ``env`` selects: ``"pmsm_fused"`` for the
     PMSM drive kernel, ``"fused"`` for the stepper kernel (each its plain
     version on CPU tensors), ``"scan"`` for the Python-loop fallback
-    (``strict=True`` raises instead of taking it)."""
+    (``strict=True`` raises instead of taking it).  ``env`` may be a
+    :class:`~exciting_environments_torch.parallel.mesh.ShardedEnv`, whose
+    shards each take the path named."""
     from exciting_environments_torch.models.pmsm import PMSM
+    from exciting_environments_torch.parallel.mesh import ShardedEnv
 
     from .pmsm_stepper import supports_pmsm_fused
     from .stepper import supports_fused_rollout, supports_fused_sim_ahead
 
+    if isinstance(env, ShardedEnv):
+        env = env.env
     sim_ahead = obs_stepsize is not None
     if isinstance(env, PMSM):
         # a stochastic sim-ahead is the Euler-Maruyama loop; step mode takes
@@ -38,12 +43,17 @@ def select_closed_loop(env):
     with the PMSM closed-loop kernel for a PMSM drive in its scope, the
     generic closed-loop kernel for classic environments in its scope, and
     ``(None, {})`` otherwise (a closed loop has no open-loop fallback:
-    callers raise)."""
+    callers raise).  A :class:`~exciting_environments_torch.parallel.mesh.ShardedEnv`
+    is answered for its whole batch; its own ``fused_closed_loop`` launches
+    the kernel named once per shard."""
     from exciting_environments_torch.models.pmsm import PMSM
+    from exciting_environments_torch.parallel.mesh import ShardedEnv
 
     from .closed_loop import env_fused_closed_loop, supports_fused_closed_loop
     from .pmsm_closed_loop import pmsm_fused_closed_loop, supports_pmsm_fused_closed_loop
 
+    if isinstance(env, ShardedEnv):
+        env = env.env
     if isinstance(env, PMSM):
         return (pmsm_fused_closed_loop, {}) if supports_pmsm_fused_closed_loop(env) else (None, {})
     if not supports_fused_closed_loop(env):

@@ -37,6 +37,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from exciting_environments_torch.core import structures
+from exciting_environments_torch.core.env import with_env_properties
 from exciting_environments_torch.ops.kernels import checkpoint as ck
 from exciting_environments_torch.ops.kernels.closed_loop import MAX_LAYERS, MAX_WIDTH, closed_loop_noise
 from exciting_environments_torch.models.pmsm.pmsm_env import wrap_angle
@@ -830,7 +831,7 @@ def supports_pmsm_fused_closed_loop(env) -> bool:
 
 def pmsm_fused_closed_loop(env, init_state, policy, n_steps: int, obs_stride: int = None,
                            return_traj_states: bool = False, policy_params=None, policy_carry=None,
-                           sched_lut=None):
+                           sched_lut=None, env_properties=None):
     """Closed-loop PMSM rollout with the policy inside the drive kernel
     (:meth:`PMSM.fused_closed_loop`).
 
@@ -852,7 +853,10 @@ def pmsm_fused_closed_loop(env, init_state, policy, n_steps: int, obs_stride: in
     (:func:`~exciting_environments_torch.ops.kernels.closed_loop.closed_loop_noise`):
     the process half is the open loop's current slab, the sensor half the
     noisy columns' slab shifted one step (a per-batch span's sigma as ``(B,)``).
+    ``env_properties`` replaces ``env.env_properties`` for this launch (a
+    shard's property slices).
     """
+    env = with_env_properties(env, env_properties)
     if return_traj_states and obs_stride is None:
         raise ValueError("return_traj_states requires obs_stride")
     if not supports_pmsm_fused_closed_loop(env):

@@ -36,7 +36,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from exciting_environments_torch.core import structures
-from exciting_environments_torch.core.env import _Components
+from exciting_environments_torch.core.env import _Components, with_env_properties
 from exciting_environments_torch.models.pmsm.pmsm_env import (
     extrapolated_angles,
     extrapolation_offsets,
@@ -757,7 +757,8 @@ def _start(init_state):
 
 
 def pmsm_fused_rollout(env, init_state, actions_norm, obs_stride: int = None,
-                       time_major: bool = False, strict: bool = False, return_traj_states: bool = False):
+                       time_major: bool = False, strict: bool = False, return_traj_states: bool = False,
+                       env_properties=None):
     """Fused rollout of a PMSM drive with the semantics of
     :meth:`PMSM.vmap_rollout`: normalized dq voltages ``(B, n_steps, 2)`` (or
     ``(n_steps, B, 2)`` with ``time_major=True``) in, ``(obs, final_state)``
@@ -770,7 +771,9 @@ def pmsm_fused_rollout(env, init_state, actions_norm, obs_stride: int = None,
     kernel as its noise slab, the sensor draws of the saved steps meet the
     observations, and the final and saved states carry their advanced keys.
     ``return_traj_states`` (with ``obs_stride``) returns ``(obs, traj_state,
-    final_state)``."""
+    final_state)``.  ``env_properties`` replaces ``env.env_properties`` for
+    this launch (a shard's property slices)."""
+    env = with_env_properties(env, env_properties)
     n_steps = actions_norm.shape[0] if time_major else actions_norm.shape[1]
     if return_traj_states and obs_stride is None:
         raise ValueError("return_traj_states requires obs_stride")
@@ -849,14 +852,16 @@ def _trajectory_observations(env, init_state, props, traj, keys_saves=None):
 
 
 def pmsm_fused_sim_ahead(env, init_state, actions_norm, obs_stepsize: float, action_stepsize: float,
-                         time_major: bool = False, strict: bool = False):
+                         time_major: bool = False, strict: bool = False, env_properties=None):
     """Fused trajectory solve with the semantics of :meth:`PMSM.vmap_sim_ahead`
     for ``obs_stepsize == action_stepsize`` (one solver step per action
     interval, any explicit RK method).  Returns ``(observations (B, n_steps +
     1, obs_dim), last_state)``; the full ``states`` trajectory is not
     materialized.  One kernel launch on the card.  Otherwise, and for a
     stochastic drive (the Euler-Maruyama loop of ``vmap_sim_ahead``), the
-    loop, or a raise with ``strict=True``."""
+    loop, or a raise with ``strict=True``.  ``env_properties`` replaces
+    ``env.env_properties`` for this launch."""
+    env = with_env_properties(env, env_properties)
     if obs_stepsize != action_stepsize or not supports_pmsm_fused(env) or env._has_noise:
         if strict:
             raise ValueError(

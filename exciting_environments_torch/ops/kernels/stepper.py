@@ -45,7 +45,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from exciting_environments_torch.core import structures
-from exciting_environments_torch.core.env import _Components
+from exciting_environments_torch.core.env import _Components, with_env_properties
 from exciting_environments_torch.ops.solvers import ExplicitRungeKutta
 
 from . import checkpoint as ck
@@ -714,7 +714,8 @@ def traj_keys(init_key, keys_saves, n_saves):
 
 
 def env_fused_rollout(env, init_state, actions_norm, obs_stride: int = None,
-                      time_major: bool = False, strict: bool = False, return_traj_states: bool = False):
+                      time_major: bool = False, strict: bool = False, return_traj_states: bool = False,
+                      env_properties=None):
     """Environment-level fused rollout: normalized actions in, ``(obs, state)``
     out, with the semantics of :meth:`CoreEnvironment.vmap_rollout`.  Falls
     back to the loop out of kernel scope (``strict=True`` raises instead).
@@ -730,7 +731,11 @@ def env_fused_rollout(env, init_state, actions_norm, obs_stride: int = None,
     the kernel as its noise slab, the sensor draws of the saved steps meet
     the observations, the final state carries the final keys and each saved
     state its step's advanced key.
+
+    ``env_properties`` replaces ``env.env_properties`` for this launch (a
+    shard's property slices, :class:`~exciting_environments_torch.parallel.mesh.ShardedEnv`).
     """
+    env = with_env_properties(env, env_properties)
     n_steps = actions_norm.shape[0] if time_major else actions_norm.shape[1]
     props = env.env_properties
     if return_traj_states and obs_stride is None:
@@ -786,7 +791,8 @@ def env_fused_rollout(env, init_state, actions_norm, obs_stride: int = None,
 
 
 def env_fused_sim_ahead(env, init_state, actions_norm, obs_stepsize: float, action_stepsize: float,
-                        obs_stride: int = 1, time_major: bool = False, strict: bool = False):
+                        obs_stride: int = 1, time_major: bool = False, strict: bool = False,
+                        env_properties=None):
     """Fused trajectory solve with :meth:`CoreEnvironment.vmap_sim_ahead`
     semantics: the solver steps on the observation grid, each action is held
     for ``action_stepsize / obs_stepsize`` steps, the carry is never wrapped
@@ -795,7 +801,9 @@ def env_fused_sim_ahead(env, init_state, actions_norm, obs_stepsize: float, acti
     Returns ``(observations, last_state)`` with observations of shape
     ``(B, 1 + total_steps // obs_stride, obs_dim)`` (initial observation
     included).  The full ``states`` trajectory is not materialized.
+    ``env_properties`` replaces ``env.env_properties`` for this launch.
     """
+    env = with_env_properties(env, env_properties)
     ratio = sim_ahead_ratio(obs_stepsize, action_stepsize)
     props = env.env_properties
     if not supports_fused_sim_ahead(env, obs_stepsize, action_stepsize):

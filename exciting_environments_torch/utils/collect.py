@@ -197,11 +197,15 @@ class RolloutCollector:
         from exciting_environments_torch.ops.kernels import rollout_path
         from exciting_environments_torch.ops.kernels.pmsm_stepper import pmsm_fused_rollout
         from exciting_environments_torch.ops.kernels.stepper import env_fused_rollout
+        from exciting_environments_torch.parallel.mesh import ShardedEnv
 
         path = rollout_path(self.env)
         if path == "scan":
             return self.collect(state, actions)
-        run = pmsm_fused_rollout if path == "pmsm_fused" else env_fused_rollout
+        if isinstance(self.env, ShardedEnv):  # one launch per shard
+            run = type(self.env).fused_rollout
+        else:
+            run = pmsm_fused_rollout if path == "pmsm_fused" else env_fused_rollout
         obs, traj_state, final_state = run(self.env, state, actions, obs_stride=1, return_traj_states=True)
         return self._assemble_batch(obs, actions, traj_state, final_state)
 
@@ -254,14 +258,15 @@ class RolloutCollector:
         (:func:`~exciting_environments_torch.ops.kernels.select_closed_loop`).
         Raises when the environment is out of the kernel's scope."""
         from exciting_environments_torch.ops.kernels import select_closed_loop
+        from exciting_environments_torch.parallel.mesh import ShardedEnv
 
         env = self.env
         kernel, extra = select_closed_loop(env)
         kwargs = dict(obs_stride=1, return_traj_states=True, policy_params=policy_params,
                       policy_carry=policy_carry)
-        if kernel is None:
-            # out of kernel scope: the environment's own entry point raises
-            # its descriptive error
+        if kernel is None or isinstance(env, ShardedEnv):
+            # a batch split launches per shard; out of kernel scope the
+            # environment's own entry point raises its descriptive error
             out = env.fused_closed_loop(state, policy_tile, n_steps, **kwargs)
         else:
             out = kernel(env, state, policy_tile, n_steps, **kwargs, **extra)

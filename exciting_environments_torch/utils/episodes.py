@@ -13,10 +13,8 @@ an int64 tensor of shape ``(2,)`` on the environment's device.  A classic
 environment's draws equal the JAX package's bit for bit; the PMSM's keyed
 reset draws its current disc with other bits (its ``init_state``).
 
-Not ported: ``unwrap_sharded`` waits for the mesh facade
-(``parallel/mesh.py``), so the trainers take a plain environment; and
-``cached_jit``/``jitted_reset`` are caches of JAX compilations, which eager
-PyTorch has no counterpart of.
+Not ported: ``cached_jit``/``jitted_reset`` are caches of JAX compilations,
+which eager PyTorch has no counterpart of.
 """
 
 from __future__ import annotations
@@ -27,6 +25,19 @@ import torch
 
 from exciting_environments_torch.core import structures
 from exciting_environments_torch.ops import random as prng
+
+
+def unwrap_sharded(env):
+    """Split a possibly batch-split environment into ``(core_env, place)``.
+
+    ``place`` puts a whole-batch tree on the facade's first device (identity
+    for a plain environment).  The learning and planning loops run on the
+    whole-batch environment there, whose batch the shards share."""
+    from exciting_environments_torch.parallel.mesh import ShardedEnv
+
+    if isinstance(env, ShardedEnv):
+        return env.env, env.shard
+    return env, lambda tree: tree
 
 
 def draw_references(env, state, key):
@@ -92,3 +103,28 @@ def tree_where(mask, tree_a, tree_b):
     b = torch.as_tensor(tree_b, device=mask.device)
     m = mask.reshape(mask.shape + (1,) * (max(a.ndim, b.ndim) - 1))
     return torch.where(m, a, b)
+
+
+def _autoreset_step(env, state, autoreset, any_reset: bool, elapsed, action, key, max_episode_steps=None):
+    """One vector step with Gymnasium's NEXT_STEP autoreset, on the device.
+
+    The stepped branch is :func:`step_with_flags`; an instance whose
+    ``autoreset`` flag is set (it ended on the previous step) instead takes a
+    fresh reset with drawn references (:func:`reset_with_references` at
+    ``key``), reward 0, cleared flags and a zeroed episode counter.  The
+    caller passes ``any_reset``, ``autoreset.any()`` read from the host copy
+    of the previous step's flags, so that the reset draw runs only when some
+    instance needs it and no step waits on the device.
+
+    Returns ``(obs, reward, terminated, truncated, state, autoreset,
+    elapsed)``, the new ``autoreset`` being ``terminated | truncated``."""
+    obs, state, reward, term, trunc, elapsed = step_with_flags(env, state, action, elapsed, max_episode_steps)
+    if any_reset:
+        obs_r, state_r = reset_with_references(env, key)
+        state = tree_where(autoreset, state_r, state)
+        obs = torch.where(autoreset[:, None], obs_r, obs)
+        reward = torch.where(autoreset, torch.zeros((), dtype=reward.dtype, device=reward.device), reward)
+        term = term & ~autoreset
+        trunc = trunc & ~autoreset
+        elapsed = torch.where(autoreset, torch.zeros_like(elapsed), elapsed)
+    return obs, reward, term, trunc, state, term | trunc, elapsed

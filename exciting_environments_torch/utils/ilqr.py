@@ -34,8 +34,8 @@ The PMSM drive's linearizations include its inverter hexagon constraint and
 deadtime buffer swap.  No kernel runs here, as in the JAX package: the line
 search applies time-varying feedback that no kernel computes.
 
-Not ported: the ``ShardedEnv`` branch (``unwrap_sharded``) waits for the mesh
-facade (``parallel/mesh.py``); the planner takes a plain environment.
+A :class:`~exciting_environments_torch.parallel.mesh.ShardedEnv` plans as
+its whole batch on the facade's first device (``episodes.unwrap_sharded``).
 """
 
 from __future__ import annotations
@@ -44,7 +44,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from exciting_environments_torch.utils import mpc
+from exciting_environments_torch.utils import episodes, mpc
 from exciting_environments_torch.utils.estimate import (
     _angle_periods,
     _dynamics_fn,
@@ -267,6 +267,8 @@ def ilqr_plan(
         actions ``(batch_size, horizon, action_dim)`` and the batch-mean
         cost curve ``(iterations + 1,)`` (entry 0 = initial plan).
     """
+    env, place = episodes.unwrap_sharded(env)
+    state, actions = place(state), place(actions)
     if not hasattr(env, "_state_from_normalized_physical") or not hasattr(env, "_advance_state"):
         raise TypeError(
             "ilqr_plan needs a CoreEnvironment (state reconstruction and the "

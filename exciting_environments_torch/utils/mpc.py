@@ -37,10 +37,14 @@ variance kept.
 (``utils/rl.py::ClippedAdam``, optax's ``adam`` written out), the rollout
 differentiated by autograd through the eager loop.
 
-Not ported: the ``ShardedEnv`` branches (``_shard_mapped``, the
-``unwrap_sharded`` calls) wait for the mesh facade (``parallel/mesh.py``);
-the planners take a plain environment.  No ``interpret`` flag: on CPU
-tensors the fused entry points run their plain versions.
+A :class:`~exciting_environments_torch.parallel.mesh.ShardedEnv` plans on
+the fused backend shard by shard (:func:`_shard_mapped`: each shard's
+kernel launch over its own candidates, its draws from the key folded with
+the shard index, as the JAX package's ``shard_map`` body folds in the axis
+index); on the scan backend, and in :func:`optimize_actions`, it plans as
+its whole batch on the facade's first device (``episodes.unwrap_sharded``).
+No ``interpret`` flag: on CPU tensors the fused entry points run their plain
+versions.
 """
 
 from __future__ import annotations
@@ -185,10 +189,41 @@ def planning_path(env, config: MPPIConfig = MPPIConfig()) -> str:
     axis) or ``"scan"``.  The kernels' scope alone decides
     (:func:`~exciting_environments_torch.ops.kernels.rollout_path` of the
     tiled shadow): the port has no batch-tiling rule, and on CPU tensors the
-    fused entry points run their plain versions."""
+    fused entry points run their plain versions.
+
+    For a :class:`~exciting_environments_torch.parallel.mesh.ShardedEnv` the
+    question is asked of a shard's shadow; a fleet with per-batch
+    properties plans through the scan (the per-shard candidate sweep tiles
+    no property slices, as in the JAX package)."""
     from exciting_environments_torch.ops.kernels import rollout_path
 
+    if _is_sharded(env):
+        if any(isinstance(leaf, torch.Tensor) and leaf.ndim > 0
+               for leaf in structures.leaves(env.env.env_properties)):
+            return "scan"
+        env = env._local_shadow()
     return rollout_path(_tile_env(env, config.n_samples))
+
+
+def _is_sharded(env):
+    from exciting_environments_torch.parallel.mesh import ShardedEnv
+
+    return isinstance(env, ShardedEnv)
+
+
+def _shard_mapped(senv, core_fn, state, plan, key, *args):
+    """``core_fn(shadow, state, plan, key, *args)`` on every shard of a
+    :class:`~exciting_environments_torch.parallel.mesh.ShardedEnv`, each with
+    its rows and the key folded with its index (so the shards draw
+    decorrelated noise, and a split plan differs from the unsplit one by
+    construction); the outputs joined on the first device."""
+    from exciting_environments_torch.parallel.mesh import _concat
+
+    outs = [
+        core_fn(shadow, senv._split(state, i), senv._split(plan, i), prng.fold_in(key.to(shadow.device), i), *args)
+        for i, shadow in enumerate(senv._local_shadows())
+    ]
+    return _concat(outs, senv.mesh.devices[0])
 
 
 def _resolve_fused(env, config, fused):
@@ -294,6 +329,11 @@ def mppi_plan(env, state, plan, key, config: MPPIConfig = MPPIConfig(), cost_fn=
         The updated mean plan, same shape, inside ``[-1, 1]``.
     """
     use_fused = _resolve_fused(env, config, fused)
+    if _is_sharded(env) and use_fused:
+        _validate_plan(env.env, config, plan, cost_fn, state)
+        return _shard_mapped(env, _plan_core, state, plan, key, config, cost_fn, True)
+    env, place = episodes.unwrap_sharded(env)
+    state, plan = place(state), place(plan)
     _validate_plan(env, config, plan, cost_fn, state)
     return _plan_core(env, state, plan, key, config, cost_fn, use_fused)
 
@@ -306,7 +346,8 @@ def run_mppi(env, state, n_steps: int, key=None, config: MPPIConfig = MPPIConfig
     shifts the plan one slot (repeating its last entry).
 
     Args:
-        env: a batched environment.
+        env: a batched environment, or a ``ShardedEnv`` (on the fused
+            backend the whole loop runs shard by shard).
         state: batched initial state; with the default cost its references
             must be drawn (``utils.episodes.reset_with_references``), else
             a ``ValueError``.
@@ -321,12 +362,19 @@ def run_mppi(env, state, n_steps: int, key=None, config: MPPIConfig = MPPIConfig
         :class:`MPCResult`.
     """
     use_fused = _resolve_fused(env, config, fused)
+    sharded_fused = _is_sharded(env) and use_fused
+    senv = env
+    env, place = episodes.unwrap_sharded(env)
     if key is None:
         key = prng.PRNGKey(0, env.device)
     B, H, A = env.batch_size, config.horizon, env.action_dim
     if plan is None:
         plan = torch.zeros((B, H, A), dtype=env.dtype, device=env.device)
     _validate_plan(env, config, plan, cost_fn, state)
+    state, plan = place(state), place(plan)
+    if sharded_fused:
+        # the whole receding-horizon loop runs shard by shard
+        return MPCResult(*_shard_mapped(senv, _control_core, state, plan, key, config, cost_fn, True, n_steps))
     return MPCResult(*_control_core(env, state, plan, key, config, cost_fn, use_fused, n_steps))
 
 
@@ -371,6 +419,8 @@ def optimize_actions(env, state, actions, iterations: int, learning_rate: float 
     """
     from exciting_environments_torch.utils.rl import ClippedAdam
 
+    env, place = episodes.unwrap_sharded(env)
+    state, actions = place(state), place(actions)
     _check_cost_setup(env, cost_fn, state)
     B, A = env.batch_size, env.action_dim
     if actions.ndim != 3 or actions.shape[0] != B or actions.shape[2] != A:

@@ -345,6 +345,7 @@ def train_ppo(env, iterations, key=None, config: PPOConfig = PPOConfig(), params
     Returns:
         :class:`PPOResult`.
     """
+    env, _ = episodes.unwrap_sharded(env)
     if key is None:
         key = prng.PRNGKey(0, env.device)
     k_init, k_reset, key = prng.split(key, 3)
@@ -387,6 +388,7 @@ def train_ppo(env, iterations, key=None, config: PPOConfig = PPOConfig(), params
 def evaluate_policy(env, params, n_steps, key=None, max_episode_steps=None) -> float:
     """Mean per-step reward of the deterministic (mean-action) policy over a
     fresh ``n_steps`` x ``batch_size`` rollout."""
+    env, _ = episodes.unwrap_sharded(env)
     if key is None:
         key = prng.PRNGKey(0, env.device)
     k_reset, k_roll = prng.split(key)

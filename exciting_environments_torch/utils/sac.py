@@ -201,6 +201,7 @@ def train_sac(env, iterations, key=None, config: SACConfig = SACConfig(), params
     Returns:
         :class:`SACResult`.
     """
+    env, _ = episodes.unwrap_sharded(env)
     if key is None:
         key = prng.PRNGKey(0, env.device)
     k_init, k_reset, key = prng.split(key, 3)
@@ -277,6 +278,7 @@ def train_sac(env, iterations, key=None, config: SACConfig = SACConfig(), params
 def evaluate_sac(env, params, n_steps, key=None, max_episode_steps=None) -> float:
     """Mean per-step reward of the deterministic (tanh-mean) policy over a
     fresh ``n_steps`` x ``batch_size`` rollout."""
+    env, _ = episodes.unwrap_sharded(env)
     if key is None:
         key = prng.PRNGKey(0, env.device)
     k_reset, k_roll = prng.split(key)

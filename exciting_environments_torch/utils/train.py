@@ -77,7 +77,9 @@ def train_policy(env, policy, params, state, n_steps: int, iterations: int, opti
 
     Args:
         env: a classic environment or a PMSM drive inside closed-loop kernel
-            scope (:func:`~exciting_environments_torch.ops.kernels.select_closed_loop`).
+            scope (:func:`~exciting_environments_torch.ops.kernels.select_closed_loop`),
+            or a :class:`~exciting_environments_torch.parallel.mesh.ShardedEnv`
+            over one (one launch per shard).
         policy: a tile-contract policy; on CUDA a compiled family
             (``AffinePolicy`` flat gains, with or without ``Ki``, or a
             deterministic ``ActorPolicy``'s weights).
@@ -105,8 +107,14 @@ def train_policy(env, policy, params, state, n_steps: int, iterations: int, opti
     from exciting_environments_torch.ops.kernels import select_closed_loop
     from exciting_environments_torch.ops.kernels.closed_loop import _PLAIN_CALLABLE_ON_CUDA
     from exciting_environments_torch.ops.policies import KernelPolicy
+    from exciting_environments_torch.parallel.mesh import ShardedEnv
 
-    kernel, extra = select_closed_loop(env)
+    if isinstance(env, ShardedEnv):
+        # one launch of the closed-loop kernel per shard; the parameters'
+        # gradients sum over the shards
+        kernel, extra = (ShardedEnv.fused_closed_loop if env.closed_loop_in_scope() else None), {}
+    else:
+        kernel, extra = select_closed_loop(env)
     if kernel is None:
         raise ValueError(
             "train_policy requires closed-loop kernel scope (explicit RK solver with a kernel stage count, "

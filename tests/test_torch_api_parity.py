@@ -30,11 +30,9 @@ F64 = dict(device="cpu", dtype=torch.float64)
 
 #: JAX modules (relative to the package) with no counterpart yet
 PENDING = {
-    "wrappers": "GymWrapper, GymnasiumVectorEnv and MujucoWrapper: the next slice",
-    "parallel": "ShardedEnv and the metrics merge: the scale-out slice",
-    "io": "the dataset writer and loaders: the data-path slice",
-    "utils.fleet": "FleetRunner: the scale-out slice",
-    "io.__main__": "the dataset CLI: the data-path slice",
+    "io": "the dataset writer and loaders: the next slice",
+    "utils.fleet": "FleetRunner: the next slice",
+    "io.__main__": "the dataset CLI: the next slice",
 }
 #: JAX modules whose functions the port replaces by a module of another design
 REDESIGNED = {
@@ -47,7 +45,6 @@ TPU_ONLY_NAMES = {
     "pytree_dataclass": "JAX pytree registration; the port's containers are plain dataclasses",
     "cached_jit": "a jax.jit cache; the port runs eagerly",
     "jitted_reset": "a jax.jit-compiled reset; the port runs eagerly",
-    "unwrap_sharded": "ShardedEnv (parallel/mesh.py) is not ported yet; the planners take a plain environment",
 }
 #: JAX parameters the port drops everywhere
 TPU_ONLY_PARAMS = {
@@ -69,6 +66,21 @@ PORT_ADDITIONS = {
     ("ops.signals", "multisine"): ("dtype",),
     ("utils.randomize", "sample_field"): ("dtype",),
     ("utils.randomize", "sample_static_params"): ("dtype",),
+    ("parallel.metrics", "running_init"): ("device",),
+    ("parallel.metrics", "window_init"): ("device",),
+    ("wrappers.mujoco", "MujucoWrapper.__init__"): ("device", "dtype"),
+}
+#: parameters the port drops, by (module, qualified name): (JAX names, reason)
+PORT_DROPS = {
+    ("parallel.metrics", "across_mesh"): (("axis_name",), "one process drives every shard: the merge takes the "
+                                                          "per-shard accumulators, no collective's axis name"),
+    ("parallel.metrics", "psum_across"): (("mesh_axis",), "as above: the sum runs over per-shard values"),
+    ("parallel.mesh", "ShardedEnv.closed_loop_in_scope"): (("interpret",), "Pallas interpret mode"),
+}
+#: module constants whose value differs on purpose: (module, name): (port value, reason)
+PORT_VALUES = {
+    ("wrappers.mujoco", "MJX_AVAILABLE"): (False, "MJX (mujoco-mjx) is written in JAX; the port steps the C engine "
+                                                  "on the host (backend='cpu') and backend='mjx' raises"),
 }
 #: parameters renamed on purpose, by (module, qualified name): (JAX names, port names, reason)
 RENAMED = {
@@ -79,6 +91,8 @@ RENAMED = {
     ("core.spaces", "Box.sample"): (("rng",), ("generator",), "as above"),
     ("ops.lut", "StackedBilinearLUT.interpolate_all"): (("point",), ("px", "py"),
                                                         "the point's coordinates as two tensors of any shape"),
+    ("wrappers.mujoco", "MujucoWrapper.init_state"): (("vmap_helper",), ("batch_shape",), "as for the environments"),
+    ("wrappers.mujoco", "MujucoWrapper.reset"): (("vmap_helper",), ("batch_shape",), "as above"),
 }
 
 
@@ -121,8 +135,11 @@ def _expected(rel, qualname, jax_params):
     """The port's parameter list the JAX one implies: TPU-only parameters
     dropped, the listed renames and additions applied."""
     old, new = RENAMED.get((rel, qualname), ((), (), None))[:2]
+    dropped = PORT_DROPS.get((rel, qualname), ((), None))[0]
     out = []
     for p in jax_params:
+        if p in dropped:
+            continue
         if p in old:
             out += list(new) if p == old[0] else []
         elif p not in TPU_ONLY_PARAMS:
@@ -175,10 +192,31 @@ def test_the_allow_lists_name_real_differences():
         jm = _import("exciting_environments_tpu", rel)
         jf = getattr(getattr(jm, owner), meth) if owner else getattr(jm, meth)
         assert not set(added) & set(_params(jf)), (rel, qualname)
+    for (rel, qualname), (dropped, _why) in PORT_DROPS.items():
+        owner, _, meth = qualname.rpartition(".")
+        jm = _import("exciting_environments_tpu", rel)
+        jf = getattr(getattr(jm, owner), meth) if owner else getattr(jm, meth)
+        assert set(dropped) <= set(_params(jf)), (rel, qualname)
     listed = set(PENDING) | set(REDESIGNED)
     for rel in listed:
         assert (ROOT / "exciting_environments_tpu" / Path(*rel.split("."))).exists() or \
             (ROOT / "exciting_environments_tpu" / (Path(*rel.split(".")).as_posix() + ".py")).exists(), rel
+
+
+@pytest.mark.parametrize("rel,name", sorted(PORT_VALUES))
+def test_constants_that_differ_on_purpose(rel, name):
+    assert hasattr(_import("exciting_environments_tpu", rel), name)
+    assert getattr(_import("exciting_environments_torch", rel), name) == PORT_VALUES[(rel, name)][0]
+
+
+def test_top_level_exports_the_wrappers():
+    """``GymWrapper`` at the top level, ``MujucoWrapper`` and
+    ``GymnasiumVectorEnv`` through the lazy ``__getattr__``, as in the JAX
+    package."""
+    for name in ("GymWrapper", "MujucoWrapper", "GymnasiumVectorEnv"):
+        assert getattr(P, name).__name__ == getattr(J, name).__name__ == name
+    with pytest.raises(AttributeError):
+        P.NoSuchWrapper
 
 
 # ---------------------------------------------------------------------------

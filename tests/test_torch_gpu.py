@@ -1462,3 +1462,117 @@ def test_checkpoint_and_profiling_on_the_card(tmp_path):
     with timer.measure() as m:
         m.block(env.fused_rollout(state, torch.zeros((64, 256, 1), device="cuda")))
     assert timer.best > 0
+
+
+def _tree_equal(a, b):
+    from exciting_environments_torch.core import structures
+
+    la, lb = structures.leaves(a), structures.leaves(b)
+    assert len(la) == len(lb)
+    for x, y in zip(la, lb):
+        if isinstance(x, torch.Tensor):
+            assert x.shape == y.shape and x.dtype == y.dtype
+            assert torch.equal(x.nan_to_num(7.0) if x.is_floating_point() else x,
+                               y.nan_to_num(7.0) if y.is_floating_point() else y)
+        else:
+            assert x == y or (x != x and y != y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sharded_env_runs_kernels_1_to_4_per_shard_at_zero(dtype):
+    """``ShardedEnv`` over ``["cuda:0"] * 4``: the open-loop stepper and PMSM
+    kernels (per-drive ``r_s``), and the closed-loop and PMSM closed-loop
+    kernels (the PI law with a per-drive ``u_dc``), one launch per shard,
+    each split call equal to the unsplit call at 0.0 in every leaf."""
+    from exciting_environments_torch.ops.kernels import pmsm_closed_loop as PCL
+    from exciting_environments_torch.parallel import ShardedEnv, make_batch_mesh
+
+    _cuda()
+    mesh = make_batch_mesh(["cuda:0"] * 4)
+    B, T = 4096 + 4 * 19, 32
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    env = P.Pendulum(batch_size=B, dtype=dtype, static_params={"g": 9.81, "m": 1.0,
+                                                               "l": 1 + torch.rand(B, generator=gen, device="cuda")})
+    _, s = env.vmap_reset(rng=gen)
+    a = (torch.rand(B, T, 1, generator=gen, device="cuda") * 1.8 - 0.9).to(dtype)
+    senv = ShardedEnv(env, mesh)
+    K.KERNEL.reset_counts()
+    split = senv.fused_rollout(s, a, obs_stride=4, strict=True)
+    assert K.KERNEL.launches["step"] == 4
+    _tree_equal(split, env.fused_rollout(s, a, obs_stride=4, strict=True))
+    _tree_equal(senv.fused_rollout(s, a.transpose(0, 1), time_major=True, strict=True),
+                env.fused_rollout(s, a, strict=True))
+
+    var = P.MotorVariant.BRUSA
+    params = dict(var.get_params().static_params.__dict__, l_d=float("nan"), l_q=float("nan"), psi_p=float("nan"),
+                  r_s=0.015 + 0.006 * torch.rand(B, generator=gen, device="cuda"),
+                  u_dc=350.0 + 100.0 * torch.rand(B, generator=gen, device="cuda"))
+    drive = P.PMSM(batch_size=B, saturated=True, motor_variant=var, static_params=params, dtype=dtype,
+                   control_state=["i_d", "i_q"])
+    _, ds = drive.vmap_reset(rng=gen)
+    ds.reference.i_d = torch.linspace(-200.0, -10.0, B, device="cuda", dtype=dtype)
+    ds.reference.i_q = torch.linspace(-150.0, 150.0, B, device="cuda", dtype=dtype)
+    v = (torch.rand(B, T, 2, generator=gen, device="cuda") * 0.6 - 0.3).to(dtype)
+    sdrive = ShardedEnv(drive, mesh)
+    PK.KERNEL.reset_counts()
+    split = sdrive.fused_rollout(ds, v, strict=True)
+    assert PK.KERNEL.launches["pmsm_step"] == 4
+    _tree_equal(split, drive.fused_rollout(ds, v, strict=True))
+
+    tracking = P.Pendulum(batch_size=B, dtype=dtype, control_state=["theta"])
+    _, ts = tracking.vmap_reset(rng=gen)
+    ts.reference.theta = torch.linspace(-1.5, 1.5, B, device="cuda", dtype=dtype)
+    pi = P.AffinePolicy([[-0.9, -0.25, 0.9]], Ki=[[-2e-3, 0.0, 2e-3]], clip=1.0)
+    c0 = (torch.zeros(B, device="cuda", dtype=dtype),)
+    CL.CL_KERNEL.reset_counts()
+    split = ShardedEnv(tracking, mesh).fused_closed_loop(ts, pi, T, obs_stride=1, policy_carry=c0)
+    assert CL.CL_KERNEL.launches["closed_loop"] == 4
+    _tree_equal(split, tracking.fused_closed_loop(ts, pi, T, obs_stride=1, policy_carry=c0))
+
+    p_law = [[-0.6, 0, 0, 0, 0, 0, 0, 0, 0.6, 0], [0, -0.6, 0, 0, 0, 0, 0, 0, 0, 0.6]]
+    ki = [[-0.01, 0, 0, 0, 0, 0, 0, 0, 0.01, 0], [0, -0.01, 0, 0, 0, 0, 0, 0, 0, 0.01]]
+    dpi = P.AffinePolicy(p_law, Ki=ki)
+    dc0 = tuple(torch.zeros(B, device="cuda", dtype=dtype) for _ in range(2))
+    PCL.PMSM_CL_KERNEL.reset_counts()
+    split = sdrive.fused_closed_loop(ds, dpi, T, policy_carry=dc0)
+    assert PCL.PMSM_CL_KERNEL.launches["pmsm_closed_loop"] == 4
+    _tree_equal(split, drive.fused_closed_loop(ds, dpi, T, policy_carry=dc0))
+
+
+@pytest.mark.gpu
+def test_gym_wrapper_and_autoreset_step_on_the_card_follow_the_cpu():
+    """``GymWrapper`` (references on) and the vector step with autoreset on
+    the card against the same runs on the CPU, float64: hold steps, keys and
+    flags equal, observations and rewards within 1e-12 (CUDA's and the
+    CPU's ``sin`` may differ in the last bit)."""
+    from exciting_environments_torch.ops import random as R
+    from exciting_environments_torch.utils import episodes
+
+    _cuda()
+    B = 256
+    out = {}
+    for device in ("cpu", "cuda"):
+        env = P.Pendulum(batch_size=B, control_state=["theta"], device=device, dtype=torch.float64)
+        gw = P.GymWrapper(env=env, control_state=["theta"], ref_params={"hold_steps_min": 2, "hold_steps_max": 9})
+        gw.reset(rng_env=R.split(R.PRNGKey(0, device), B), rng_ref=R.PRNGKey(1, device))
+        rows = []
+        for t in range(30):
+            a = torch.full((B, 1), 0.3 * (-1) ** t, dtype=torch.float64, device=device)
+            rows.append([x.cpu() for x in gw.step(a)] + [gw.reference_hold_steps.cpu()])
+        _, state = episodes.reset_with_references(env, R.PRNGKey(2, device))
+        mask = torch.zeros(B, dtype=torch.bool, device=device)
+        elapsed = torch.zeros(B, dtype=torch.int32, device=device)
+        any_reset = False
+        for t, k in enumerate(R.split(R.PRNGKey(3, device), 30)):
+            a = torch.full((B, 1), 0.5, dtype=torch.float64, device=device)
+            o, r, te, tr, state, mask, elapsed = episodes._autoreset_step(env, state, mask, any_reset, elapsed, a, k, 7)
+            any_reset = bool(mask.any())
+            rows.append([o.cpu(), r.cpu(), te.cpu(), tr.cpu(), elapsed.cpu(), state.PRNGKey.cpu()])
+        out[device] = rows
+    for cpu_row, card_row in zip(out["cpu"], out["cuda"]):
+        for x, y in zip(cpu_row, card_row):
+            if x.is_floating_point():
+                np.testing.assert_allclose(y.numpy(), x.numpy(), rtol=1e-12, atol=1e-12)
+            else:
+                assert torch.equal(x, y)

@@ -34,6 +34,9 @@ def test_port_imports_no_jax():
         "import exciting_environments_torch.utils.mpc, exciting_environments_torch.utils.ofc\n"
         "import exciting_environments_torch.utils.ilqr, exciting_environments_torch.utils.sysid\n"
         "import exciting_environments_torch.utils.checkpoint, exciting_environments_torch.utils.profiling\n"
+        "import exciting_environments_torch.parallel, exciting_environments_torch.parallel.mesh\n"
+        "import exciting_environments_torch.parallel.metrics, exciting_environments_torch.wrappers.gym\n"
+        "import exciting_environments_torch.wrappers.gymnasium_vector, exciting_environments_torch.wrappers.mujoco\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'exciting_environments_tpu'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"

@@ -721,3 +721,34 @@ def test_noise_works_through_the_learning_stack():
         assert v.shape == (2,) and bool(torch.isfinite(v).all()), name
         ref = np.asarray(res_j.metrics[name])
         assert float(np.abs(v.numpy() - ref).max()) <= 1e-8 * float(np.abs(ref).max()), name
+
+
+def test_stateful_pi_law_under_noise_matches_the_scan_and_jax():
+    """A stateful PI law closes the loop over noisy measurements (sensor and
+    process noise): the closed loop's carry and states equal the port's own
+    ``tile_policy_scan`` draw for draw, and follow the JAX package's scan
+    (JAX ``tests/test_noise.py:343-358``; normals agree to ``erfinv``'s last
+    bits, ROADMAP Accepted)."""
+    B, T = 64, 16
+    kw = dict(tau=TAU, process_noise={"omega": 0.3}, observation_noise={"theta": 0.04})
+    je, pe = J.Pendulum(batch_size=B, **kw), P.Pendulum(batch_size=B, **kw, **F64)
+    jk, pk = _keys(0, B)
+    _, js = je.vmap_reset(jk)
+    _, ps = pe.vmap_reset(pk)
+
+    def pol_pi(obs, t, c):
+        i = c[0] + 0.05 * obs[0]
+        return (-0.8 * obs[0] - 0.1 * i,), (i,)
+
+    carry0 = (torch.zeros(B, dtype=torch.float64),)
+    obs_f, acts_f, _, last_f, fc_f = env_fused_closed_loop(pe, ps, pol_pi, T, obs_stride=1, return_traj_states=True,
+                                                           policy_carry=carry0)
+    obs_s, acts_s, _, last_s, fc_s = tile_policy_scan(pe, ps, T, pol_pi, None, collect_trajectory=True,
+                                                      policy_carry=carry0)
+    assert torch.equal(obs_f, obs_s) and torch.equal(acts_f, acts_s) and torch.equal(fc_f[0], fc_s[0])
+    assert torch.equal(last_f.PRNGKey, last_s.PRNGKey)
+    obs_j, acts_j, _, last_j, fc_j = j_tile_policy_scan(je, js, T, pol_pi, None, collect_trajectory=True,
+                                                        policy_carry=(jnp.zeros(B),))
+    np.testing.assert_allclose(obs_f.numpy(), np.asarray(obs_j), rtol=0, atol=1e-11)
+    np.testing.assert_allclose(fc_f[0].numpy(), np.asarray(fc_j[0]), rtol=0, atol=1e-11)
+    _key_eq(last_f.PRNGKey, last_j.PRNGKey)
