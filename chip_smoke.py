@@ -287,7 +287,21 @@ Phases (any failure raises and the script exits non-zero):
     renewals and resets checked; ``GymnasiumVectorEnv`` and ``MujucoWrapper``
     (B = 256, 20 steps, state on the card) where gymnasium and mujoco
     import, else a line naming what was not driven;
-26. print the kernel table, the card's name and power limit, and last the
+26. the fleet loop and the dataset path (``phase_fleet``, ``utils/fleet.py``,
+    ``io/``) at B = 65,536, float32: ``FleetRunner.run`` on the Pendulum,
+    16 chunks of 256 steps through kernel 1 (row 1o) into a native
+    ``ShardWriter`` with the actions and a checkpoint every 8 chunks, on
+    saturated BRUSA 4 chunks of 64 through kernel 3 (row 3i);
+    ``run_policy`` with the PD law (4 x 1,024, kernel 2, row 2k) and the
+    stateful PI law on BRUSA (4 x 512, kernel 4, row 4g); the runner over
+    ``["cuda:0"] * 4``; one launch per chunk (four split), every final
+    state 0.0 from direct calls and the plain versions, the shard read back
+    record by record, a resume from the chunk-8 checkpoint and a retried
+    chunk bit for bit with the straight run; ``DeviceLoader`` replaying the
+    shard through kernel 1 (GB/s against a synchronous read and copy, the
+    consumer's kernel time the prefetch hid), ``TorchShardDataset`` under
+    a two-worker ``DataLoader`` and the shard CLI;
+27. print the kernel table, the card's name and power limit, and last the
     result line ``{"ok": true, "device": {...}}``.
 
 ``main`` prints each phase's seconds as a ``[time] <phase> <s>`` line.
@@ -5276,6 +5290,438 @@ def mujoco_pendulum(ex, mujoco, batch):
                          batch_size=batch, device=DEVICE)
 
 
+# ---------------------------------------------------------------------------
+# the fleet loop (utils/fleet.py) and the dataset path (io/)
+# ---------------------------------------------------------------------------
+
+FLEET_CHUNKS, FLEET_T = 16, 256  # T = 4,096 in all, as row 1a
+FLEET_CKPT_EVERY = 8
+FLEET_PMSM_CHUNKS, FLEET_PMSM_T = 4, 64  # T = 256, as row 3a
+FLEET_CL_CHUNKS, FLEET_CL_T = 4, 1024  # T = 4,096, as row 2a
+FLEET_PCL_CHUNKS, FLEET_PCL_T = 4, 512  # T = 2,048, as row 4b
+FLEET_SPLIT_CHUNKS = 2
+
+
+FLEET_HEAD_ROWS = 64  # rows of a record's actions a DataLoader worker ships (its /dev/shm may be small)
+
+
+def fleet_record_head(name, tensors):
+    """A fleet record with its actions cut to their first rows."""
+    return {"final_obs": tensors["final_obs"], "actions": tensors["actions"][:FLEET_HEAD_ROWS].clone()}
+
+
+def chained_ms(fn):
+    """Device time of ``fn()`` (a chain of launches) between two CUDA events."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
+
+
+def phase_fleet(ex, K, PK, CL, PCL):
+    """The fleet loop and the dataset path on the card, float32, B = 65,536
+    (``utils/fleet.py``, ``io/``).  ``FleetRunner.run`` on the Pendulum, 16
+    chunks of 256 steps (kernel 1, row 1o) into a native ``ShardWriter``
+    with the actions (~1.08 GB) and a checkpoint every 8 chunks; on
+    saturated BRUSA, 4 chunks of 64 (kernel 3, row 3i); ``run_policy`` with
+    the PD law on the tracking Pendulum, 4 chunks of 1,024 (kernel 2, row
+    2k), and with the stateful PI law and its carry on BRUSA, 4 chunks of
+    512 (kernel 4, row 4g); the Pendulum runner over ``ShardedEnv(env,
+    make_batch_mesh(["cuda:0"] * 4))``, 2 chunks.  Gates: the path names, one
+    launch per chunk (four when split; the counts set to 0 just before each
+    run, read just after), every final state 0.0 from the same chunks driven
+    directly through the entry points and from the plain versions, the
+    summary's step count, the writer's native library, every shard record
+    equal to its chunk's ``final_obs`` and actions, a resume from the chunk-8
+    checkpoint and a retried chunk (a ``RuntimeError`` injected into chunk 3,
+    ``max_retries=1``) bit for bit with the straight run, and a plain
+    callable on the CUDA Pendulum raising before a launch.  Then the data
+    loop: ``DeviceLoader([shard], prefetch=2)`` replays every loaded action
+    chunk through kernel 1 from the start state and meets every recorded
+    ``final_obs`` at 0.0 (against the same loop over a synchronous read and
+    copy: the host->device rate and the share of the consumer's kernel time
+    the prefetch hid), the worker gone after an early ``break``, two records
+    through ``torch.utils.data.DataLoader(TorchShardDataset(shard),
+    num_workers=2)``, and the shard CLI's lines.  Returns rows 1o, 2k, 3i and
+    4g."""
+    import os
+    import tempfile
+    import threading
+
+    from torch.utils.data import DataLoader
+
+    from exciting_environments_torch.io import DeviceLoader, ShardIndex, ShardWriter, TorchShardDataset
+    from exciting_environments_torch.parallel import ShardedEnv, make_batch_mesh
+    from exciting_environments_torch.utils.fleet import FleetRunner
+
+    card = card_line()
+    B = B_MAIN
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 70)
+    entries = []
+
+    def log_f(msg):
+        log(f"[fleet] {msg} ({card})")
+
+    def require(ok, what):
+        if not ok:
+            raise AssertionError(f"phase_fleet: {what}")
+
+    def same_stats(a, b):
+        return all(torch.equal(getattr(a.obs_stats, f), getattr(b.obs_stats, f))
+                   for f in ("count", "mean", "m2", "min", "max"))
+
+    def traced(runner):
+        """Wrap ``runner``'s rollout call: per chunk, the host time of the call
+        and the device time between CUDA events around it."""
+        inner, spans = runner._rollout, []
+
+        def rollout(state, actions):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            h0 = time.perf_counter()
+            e0.record()
+            out = inner(state, actions)
+            e1.record()
+            spans.append((e0, e1, (time.perf_counter() - h0) * 1e3))
+            return out
+
+        runner._rollout = rollout
+        return spans
+
+    def span_medians(spans):
+        torch.cuda.synchronize()
+        return (statistics.median(h for _, _, h in spans), statistics.median(e0.elapsed_time(e1) for e0, e1, _ in spans))
+
+    def batch_major(env, n_steps, lim=0.9):
+        u = torch.rand((env.batch_size, n_steps, env.action_dim), generator=gen, device=DEVICE, dtype=torch.float64)
+        return ((u * 2 - 1) * lim).to(env.dtype)
+
+    def report(row, name, runner, n_chunks, n_steps, launches, err, ms, plain_ms, bound_ms, bound_by, source,
+               replaces, direct_ms):
+        summ = runner.summary()
+        require(summ["chunks"] == n_chunks and summ["env_steps"] == B * n_chunks * n_steps,
+                f"{name}: summary {summ['chunks']} chunks, {summ['env_steps']} env-steps")
+        bare = B * n_chunks * n_steps / direct_ms * 1e3
+        log_f(f"row {row} {name} ({runner.rollout_path if row in ('1o', '3i') else runner.closed_loop_path}): "
+              f"{n_chunks} chunks x {n_steps} steps, {launches} launches; env_steps_per_sec "
+              f"{summ['env_steps_per_sec']:.4e} (summary, mean chunk {summ['mean_chunk_seconds'] * 1e3!r} ms) vs "
+              f"{bare:.4e} for the {n_chunks} bare chained calls ({direct_ms!r} ms, events); one chunk's entry point "
+              f"{ms!r} ms, bound {bound_ms!r} ms ({bound_by}), plain {plain_ms!r} ms (one chunk); vs direct calls "
+              f"and plain {err!r}")
+        entries.append(entry(name, launches, err, ms, plain_ms, bound_ms, bound_by, source, replaces))
+
+    # -- row 1o: the Pendulum's open loop through kernel 1 into the shard --------------------------
+    n, T = FLEET_CHUNKS, FLEET_T
+    env = ex.Pendulum(batch_size=B, tau=1e-4, device=DEVICE)
+    _, s0 = env.vmap_reset(rng=gen)
+    slabs = [batch_major(env, T) for _ in range(n)]
+    fields = env._ode_state_fields
+
+    def direct(start, ks):
+        state, outs = start, []
+        for k in ks:
+            obs, state = env.fused_rollout(state, slabs[k], strict=True)
+            outs.append(obs)
+        return outs, state
+
+    direct(s0, range(2))  # warm: the timed chain below starts from loaded libraries and caches
+    direct_ms, (direct_obs, direct_final) = chained_ms(lambda: direct(s0, range(n)))
+    with tempfile.TemporaryDirectory() as tmp:
+        shard = os.path.join(tmp, "fleet.extpu")
+        writer = ShardWriter(shard)
+        require(writer.native, "the shard writer did not build its native library (the host has g++)")
+        runner = FleetRunner(env, writer=writer, write_actions=True, checkpoint_dir=tmp,
+                             checkpoint_every=FLEET_CKPT_EVERY)
+        require(runner.rollout_path == "fused", f"the Pendulum runner took {runner.rollout_path!r}")
+        sink_spans = traced(runner)
+        torch.cuda.synchronize()
+        K.KERNEL.reset_counts()
+        t0 = time.perf_counter()
+        final = runner.run(s0, lambda k: slabs[k], n, T)
+        launches = K.KERNEL.launches["step"]
+        written = writer.close()
+        sink_s = time.perf_counter() - t0
+        require(launches == n, f"the Pendulum runner made {launches} stepper launches for {n} chunks")
+        gap = tree_gap(final, direct_final)
+        y0 = tuple(getattr(s0.physical_state, f) for f in fields)
+        acts_tm = torch.cat([a.transpose(0, 1) for a in slabs])
+        t0 = time.perf_counter()
+        plain = K.plain_rollout(env, y0, acts_tm, tau=env.tau)[0]
+        torch.cuda.synchronize()
+        plain_full_ms = (time.perf_counter() - t0) * 1e3
+        err = max_abs(tuple(getattr(final.physical_state, f) for f in fields), plain)
+        del acts_tm, plain
+        require(gap == 0.0 and err == 0.0, f"the Pendulum runner vs direct calls {gap!r}, vs plain {err!r}")
+        t0 = time.perf_counter()
+        plain0 = K.plain_rollout(env, y0, slabs[0].transpose(0, 1), tau=env.tau)[0]
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        first = env.fused_rollout(s0, slabs[0], strict=True)[1]
+        err = max(err, max_abs(tuple(getattr(first.physical_state, f) for f in fields), plain0))
+        ms = time_ms(lambda: env.fused_rollout(s0, slabs[0], strict=True))
+
+        # the same run without the sink and checkpoints
+        bare_runner = FleetRunner(env)
+        bare_spans = traced(bare_runner)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bare_final = bare_runner.run(s0, lambda k: slabs[k], n, T)
+        torch.cuda.synchronize()
+        nosink_s = time.perf_counter() - t0
+        require(tree_gap(bare_final, final) == 0.0 and same_stats(bare_runner, runner),
+                "the run without the sink differs from the run with it")
+
+        def chunk_ms(r):  # the runner's own per-chunk spans (launch to the gate's sync), min/median/max
+            spans = sorted(float(x) * 1e3 for x in r.time_window.buffer[:n].cpu())
+            return f"{spans[0]:.3f}/{statistics.median(spans):.3f}/{spans[-1]:.3f}"
+
+        log_f(f"sink: the 16-chunk run with the native writer (actions and final_obs, {written} bytes, checkpoints "
+              f"every {FLEET_CKPT_EVERY} chunks) {sink_s * 1e3!r} ms against {nosink_s * 1e3!r} ms without "
+              f"({(sink_s - nosink_s) / n * 1e3:.3f} ms per chunk; {written / sink_s / 1e9:.3f} GB/s written over "
+              f"the whole run); chunk spans min/median/max {chunk_ms(runner)} ms with the sink, "
+              f"{chunk_ms(bare_runner)} ms without (env_steps_per_sec {runner.summary()['env_steps_per_sec']:.4e} "
+              f"and {bare_runner.summary()['env_steps_per_sec']:.4e}); median rollout call host/device ms "
+              f"{'/'.join(f'{x:.3f}' for x in span_medians(sink_spans))} with the sink, "
+              f"{'/'.join(f'{x:.3f}' for x in span_medians(bare_spans))} without; plain over all {n * T} steps "
+              f"{plain_full_ms!r} ms")
+
+        # every record read back through ShardIndex
+        with ShardIndex(shard) as idx:
+            require(idx.names == [f"chunk_{i:06d}" for i in range(1, n + 1)], f"shard records {idx.names}")
+            for i in range(n):
+                _, arrays = idx.entry(i)
+                require(np.array_equal(arrays["['final_obs']"], direct_obs[i].cpu().numpy())
+                        and np.array_equal(arrays["['actions']"], slabs[i].cpu().numpy()),
+                        f"shard record {i} differs from its chunk")
+
+        # resume from the chunk-8 checkpoint
+        require(FleetRunner.latest_checkpoint(tmp) == os.path.join(tmp, f"fleet_{n:06d}.npz"),
+                "the newest checkpoint is not the last chunk's")
+        resumed_runner = FleetRunner(env, checkpoint_dir=tmp)
+        resumed, done = resumed_runner.resume(s0, path=os.path.join(tmp, f"fleet_{FLEET_CKPT_EVERY:06d}.npz"))
+        require(done == FLEET_CKPT_EVERY, f"resume reports {done} chunks done")
+        resumed_final = resumed_runner.run(resumed, lambda k: slabs[k + done], n - done, T)
+        require(tree_gap(resumed_final, final) == 0.0 and same_stats(resumed_runner, runner)
+                and resumed_runner.env_steps == B * n * T, "the resumed run differs from the straight run")
+
+        # a transient failure in chunk 3, retried from the snapshot
+        flaky = FleetRunner(env)
+        rollout, calls = flaky._rollout, []
+
+        def failing(state, actions):
+            calls.append(1)
+            if len(calls) == 4:
+                raise RuntimeError("injected failure in chunk 3")
+            return rollout(state, actions)
+
+        flaky._rollout = failing
+        retried = flaky.run(s0, lambda k: slabs[k], n, T, max_retries=1)
+        require(len(calls) == n + 1 and tree_gap(retried, final) == 0.0 and same_stats(flaky, runner)
+                and flaky.summary()["env_steps"] == B * n * T, "the retried run differs from the clean run")
+        log_f(f"resume from chunk {done} and a retried chunk 3: 0.0 from the straight run (state and statistics)")
+        report("1o", "stepper_step_fleet", runner, n, T, launches, err, ms, plain_ms,
+               *bound(env, env._solver, B, T, T, 0, False), SOURCE, REPLACES, direct_ms)
+
+        # -- the data loop: the shard back onto the card, replayed through kernel 1 ------------------
+        def replay(batches, check_actions):
+            state, worst, nbytes = s0, 0.0, 0
+            for i, (name, batch) in enumerate(batches):
+                acts, rec = batch["['actions']"], batch["['final_obs']"]
+                require(acts.device.type == rec.device.type == torch.device(DEVICE).type, f"{name} is not on the card")
+                if check_actions:
+                    require(torch.equal(acts, slabs[i]) and torch.equal(rec, direct_obs[i]),
+                            f"{name}: a loaded leaf differs from the shard's bytes")
+                obs, state = env.fused_rollout(state, acts, strict=True)
+                worst = max(worst, leaf_deviation(obs, rec))
+                nbytes += acts.numel() * acts.element_size() + rec.numel() * rec.element_size()
+            torch.cuda.synchronize()
+            return worst, nbytes, state
+
+        def synchronous(path):
+            with ShardIndex(path) as idx:
+                for name, arrays in idx:
+                    yield name, {k: torch.from_numpy(np.array(v)).to(DEVICE) for k, v in arrays.items()}
+
+        replay(DeviceLoader([shard], prefetch=2, device=DEVICE), False)  # warm the pinned-memory cache
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        worst, nbytes, replayed = replay(DeviceLoader([shard], prefetch=2, device=DEVICE), False)
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        worst_sync, _, _ = replay(synchronous(shard), False)
+        sync_s = time.perf_counter() - t0
+        replay(DeviceLoader([shard], prefetch=2, device=DEVICE), True)
+        require(worst == 0.0 and worst_sync == 0.0 and tree_gap(replayed, final) == 0.0,
+                f"the replay from the loaded chunks misses the recorded final_obs ({worst!r}, {worst_sync!r})")
+        hidden = min(direct_ms, max(0.0, (sync_s - load_s) * 1e3)) / direct_ms
+        log_f(f"DeviceLoader(prefetch=2): {n} records, {nbytes} bytes host->device and replayed through kernel 1 in "
+              f"{load_s * 1e3!r} ms ({nbytes / load_s / 1e9:.3f} GB/s) against {sync_s * 1e3!r} ms "
+              f"({nbytes / sync_s / 1e9:.3f} GB/s) for a synchronous read and copy; the consumer's kernels "
+              f"{direct_ms!r} ms, {hidden:.1%} of it hidden by the prefetch; every final_obs met at 0.0")
+        before = {t.ident for t in threading.enumerate()}
+        for _ in DeviceLoader([shard], prefetch=2, device=DEVICE):
+            break
+        leaked = [t.name for t in threading.enumerate() if t.ident not in before]
+        require(not leaked, f"the loader's worker outlived an early break: {leaked}")
+
+        ds = TorchShardDataset(shard, transform=fleet_record_head)
+        it = iter(DataLoader(ds, batch_size=None, num_workers=2, multiprocessing_context="spawn"))
+        got = [next(it), next(it)]
+        del it
+        ds.close()
+        require(all(torch.equal(g["final_obs"], direct_obs[i].cpu())
+                    and torch.equal(g["actions"], slabs[i][:FLEET_HEAD_ROWS].cpu()) for i, g in enumerate(got)),
+                "DataLoader(TorchShardDataset) records differ from the chunks")
+        cli = subprocess.run([sys.executable, "-m", "exciting_environments_torch.io", shard], cwd=ROOT,
+                             capture_output=True, text=True, check=True, timeout=120).stdout.splitlines()
+        require(len(cli) == n + 2 and cli[0].endswith(f": {n} records"), f"the shard CLI printed {cli[:3]}")
+        log_f(f"DataLoader(TorchShardDataset, num_workers=2, spawn): 2 records equal to the chunks; the worker gone after "
+              f"an early break; python -m exciting_environments_torch.io:")
+        for line in [cli[0].replace(shard, "<shard>"), *cli[1:3], "  ...", cli[-1]]:
+            log(f"[fleet cli] {line}")
+    del slabs, direct_obs
+
+    # -- the split: the Pendulum runner over four shards of the card -------------------------------
+    slabs = [batch_major(env, T) for _ in range(FLEET_SPLIT_CHUNKS)]
+    split = FleetRunner(ShardedEnv(env, make_batch_mesh(SHARD_DEVICES)))
+    require(split.rollout_path == "sharded_fused", f"the split runner took {split.rollout_path!r}")
+    torch.cuda.synchronize()
+    K.KERNEL.reset_counts()
+    split_final = split.run(s0, lambda k: slabs[k], FLEET_SPLIT_CHUNKS, T)
+    split_launches = K.KERNEL.launches["step"]
+    whole = FleetRunner(env)
+    whole_final = whole.run(s0, lambda k: slabs[k], FLEET_SPLIT_CHUNKS, T)
+    require(split_launches == 4 * FLEET_SPLIT_CHUNKS and tree_gap(split_final, whole_final) == 0.0
+            and same_stats(split, whole), f"the split runner: {split_launches} launches, "
+                                          f"{tree_gap(split_final, whole_final)!r} from the unsplit runner")
+    log_f(f"ShardedEnv over {SHARD_DEVICES}: {FLEET_SPLIT_CHUNKS} chunks, {split_launches} launches (4 per chunk), "
+          f"0.0 from the unsplit runner; env_steps_per_sec {split.summary()['env_steps_per_sec']:.4e} split, "
+          f"{whole.summary()['env_steps_per_sec']:.4e} unsplit")
+    del slabs
+
+    # -- row 3i: saturated BRUSA through kernel 3 ----------------------------------------------------
+    n, T = FLEET_PMSM_CHUNKS, FLEET_PMSM_T
+    drive = pmsm_env(ex, B, tau=1e-4)
+    _, d0 = drive.vmap_reset(rng=gen)
+    vslabs = [batch_major(drive, T) for _ in range(n)]
+    pfields = ("i_d", "i_q", "torque", "epsilon", "u_d_buffer", "u_q_buffer")
+
+    def pdirect():
+        state = d0
+        for k in range(n):
+            _, state = drive.fused_rollout(state, vslabs[k], strict=True)
+        return state
+
+    pdirect()  # warm
+    pdirect_ms, pdirect_final = chained_ms(pdirect)
+    prunner = FleetRunner(drive)
+    require(prunner.rollout_path == "pmsm_fused", f"the BRUSA runner took {prunner.rollout_path!r}")
+    torch.cuda.synchronize()
+    PK.KERNEL.reset_counts()
+    pfinal = prunner.run(d0, lambda k: vslabs[k], n, T)
+    plaunches = PK.KERNEL.launches["pmsm_step"]
+    require(plaunches == n and tree_gap(pfinal, pdirect_final) == 0.0,
+            f"the BRUSA runner: {plaunches} launches, {tree_gap(pfinal, pdirect_final)!r} from direct calls")
+    t0 = time.perf_counter()
+    pplain = PK.plain_pmsm_rollout(drive, vslabs[0], *PK._start(d0), tau=drive.tau, batch_major=True)[0]
+    torch.cuda.synchronize()
+    pplain_ms = (time.perf_counter() - t0) * 1e3
+    pfirst = drive.fused_rollout(d0, vslabs[0], strict=True)[1]
+    perr = max_abs(tuple(getattr(pfirst.physical_state, f) for f in pfields), pplain)
+    require(perr == 0.0, f"BRUSA's first chunk vs plain {perr!r}")
+    pms = time_ms(lambda: drive.fused_rollout(d0, vslabs[0], strict=True))
+    report("3i", "pmsm_step_fleet", prunner, n, T, plaunches, perr, pms, pplain_ms,
+           *pmsm_bound(drive, drive._solver, B, T, 0), PMSM_SOURCE, PMSM_REPLACES, pdirect_ms)
+    del vslabs
+
+    # -- row 2k: the PD law on the tracking Pendulum through kernel 2 -------------------------------
+    n, T = FLEET_CL_CHUNKS, FLEET_CL_T
+    cenv = ex.Pendulum(batch_size=B, control_state=["theta"], device=DEVICE)
+    _, c0 = cenv.vmap_reset(rng=gen)
+    c0.reference.theta = torch.linspace(-1.5, 1.5, B, device=DEVICE)
+    pd = ex.AffinePolicy(PD_GAINS)
+
+    def cdirect():
+        state = c0
+        for _ in range(n):
+            _, state = cenv.fused_closed_loop(state, pd, T)
+        return state
+
+    cdirect()  # warm
+    cdirect_ms, cdirect_final = chained_ms(cdirect)
+    crunner = FleetRunner(cenv)
+    torch.cuda.synchronize()
+    CL.CL_KERNEL.reset_counts()
+    cfinal = crunner.run_policy(c0, pd, n, T)
+    claunches = CL.CL_KERNEL.launches["closed_loop"]
+    require(crunner.closed_loop_path == "closed_loop_fused" and claunches == n
+            and tree_gap(cfinal, cdirect_final) == 0.0,
+            f"the PD runner: {crunner.closed_loop_path!r}, {claunches} launches, "
+            f"{tree_gap(cfinal, cdirect_final)!r} from direct calls")
+    CL.CL_KERNEL.reset_counts()
+    try:
+        FleetRunner(cenv).run_policy(c0, lambda obs, t: (-0.5 * obs[0],), 1, T)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("phase_fleet: a plain callable on the CUDA Pendulum did not raise")
+    require(CL.CL_KERNEL.launches["closed_loop"] == 0, "the plain callable reached a launch")
+    cy0 = tuple(getattr(c0.physical_state, f) for f in cenv._ode_state_fields)
+    ckw = dict(tau=cenv.tau, solver=cenv._solver, props=cenv.env_properties,
+               ref_leaves=(cenv.env_properties.physical_normalizations.theta.normalize(c0.reference.theta),))
+    t0 = time.perf_counter()
+    cplain = cl_flat(CL.plain_closed_loop(cenv, cy0, pd, T, **ckw))[:2]
+    torch.cuda.synchronize()
+    cplain_ms = (time.perf_counter() - t0) * 1e3
+    cfirst = cenv.fused_closed_loop(c0, pd, T)[1]
+    cerr = max_abs(tuple(getattr(cfirst.physical_state, f) for f in cenv._ode_state_fields), cplain)
+    require(cerr == 0.0, f"the PD law's first chunk vs plain {cerr!r}")
+    cms = time_ms(lambda: cenv.fused_closed_loop(c0, pd, T))
+    (cl_bound_ms, cl_bound_by), _ = cl_bound(cenv, pd.kernel_spec(torch.float32, DEVICE), B, T, 0, 0, 1)
+    report("2k", "closed_loop_pd_fleet", crunner, n, T, claunches, cerr, cms, cplain_ms, cl_bound_ms, cl_bound_by,
+           CL_SOURCE, CL_REPLACES, cdirect_ms)
+
+    # -- row 4g: the stateful PI law and its carry on BRUSA through kernel 4 -------------------------
+    n, T = FLEET_PCL_CHUNKS, FLEET_PCL_T
+    penv = pmsm_env(ex, B, control_state=["i_d", "i_q"], tau=1e-4)
+    q0, qstate0, omega, refs = pcl_inputs(penv, gen)
+    pi_law = ex.AffinePolicy(PCL_P, Ki=PCL_KI)
+    carry0 = tuple(torch.zeros(B, device=DEVICE) for _ in range(2))
+
+    def qdirect():
+        state, carry = q0, carry0
+        for _ in range(n):
+            _, state, carry = penv.fused_closed_loop(state, pi_law, T, policy_carry=carry)
+        return state, carry
+
+    qdirect()  # warm
+    qdirect_ms, qdirect_final = chained_ms(qdirect)
+    qrunner = FleetRunner(penv)
+    torch.cuda.synchronize()
+    PCL.PMSM_CL_KERNEL.reset_counts()
+    qfinal = qrunner.run_policy(q0, pi_law, n, T, policy_carry=carry0)
+    qlaunches = PCL.PMSM_CL_KERNEL.launches["pmsm_closed_loop"]
+    require(qrunner.closed_loop_path == "pmsm_closed_loop_fused" and qlaunches == n
+            and tree_gap(qfinal, qdirect_final) == 0.0,
+            f"the PI runner: {qrunner.closed_loop_path!r}, {qlaunches} launches, "
+            f"{tree_gap(qfinal, qdirect_final)!r} from direct calls")
+    pkw = dict(tau=penv.tau, solver=penv._solver, props=penv.env_properties, ref_leaves=refs, policy_carry=carry0)
+    t0 = time.perf_counter()
+    qplain = cl_flat(PCL.plain_pmsm_closed_loop(penv, qstate0, omega, pi_law, T, **pkw))[:2]
+    torch.cuda.synchronize()
+    qplain_ms = (time.perf_counter() - t0) * 1e3
+    qfirst = penv.fused_closed_loop(q0, pi_law, T, policy_carry=carry0)[1]
+    qerr = max_abs((qfirst.physical_state.i_d, qfirst.physical_state.i_q), qplain)
+    require(qerr == 0.0, f"the PI law's first chunk vs plain {qerr!r}")
+    qms = time_ms(lambda: penv.fused_closed_loop(q0, pi_law, T, policy_carry=carry0))
+    (pcl_bound_ms, pcl_bound_by), _ = pmsm_cl_bound(penv, pi_law.kernel_spec(torch.float32, DEVICE), B, T, 0, 2, 2)
+    report("4g", "pmsm_closed_loop_pi_fleet", qrunner, n, T, qlaunches, qerr, qms, qplain_ms, pcl_bound_ms,
+           pcl_bound_by, PCL_SOURCE, PCL_REPLACES, qdirect_ms)
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5341,6 +5787,7 @@ def main() -> int:
     kernels += phase(phase_ident, ex, K, PK)
     kernels += phase(phase_shard, ex, K, PK, CL, PCL)
     phase(phase_wrappers, ex)
+    kernels += phase(phase_fleet, ex, K, PK, CL, PCL)
     if "jax" in sys.modules or any(m.startswith("exciting_environments_tpu") for m in sys.modules):
         raise AssertionError("the port pulled in JAX or the JAX package")
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")

@@ -14,9 +14,12 @@
 Keys of :mod:`~exciting_environments_torch.ops.random` (int64 ``(..., 2)``
 leaves named ``PRNGKey`` holding two uint32 words) are stored as ``uint32``,
 the raw JAX key; loading turns them back into int64 words.  A Python-scalar
-leaf (a fresh state's ``active_solver_state=False``) is stored broadcast
-over the batch shape, the shape of the container's first tensor leaf, as the
-JAX package's vmapped state holds it, and loads as a tensor.  Restored leaves
+field of a state (a fresh state's ``active_solver_state=False``) is stored
+broadcast over the state's batch shape, the shape of the first tensor leaf
+of the outermost dataclass that holds it, as the JAX package's vmapped
+state holds it, and loads as a tensor; a Python scalar outside any
+dataclass (a dict entry) is stored as a 0-d array, as the JAX package
+stores it.  Restored leaves
 are checked against the ``like`` template's key paths, shapes and dtypes
 with the JAX package's messages, and land on the template's devices.
 
@@ -113,19 +116,38 @@ def _is_key(path: str, leaf) -> bool:
             and leaf.shape[-1:] == (2,))
 
 
-def _batch_shape(items) -> tuple:
-    """The shape a Python-scalar leaf is stored with: that of the
-    container's first tensor leaf (a state's batch shape)."""
-    return next((tuple(leaf.shape) for _, leaf in items if isinstance(leaf, torch.Tensor)), ())
+def scalar_shapes(tree, shape=None) -> list:
+    """For each leaf of ``tree`` (in :func:`leaves_with_path` order), the
+    shape a Python-scalar leaf there takes in the JAX package's vmapped
+    tree: inside a dataclass (a state), the shape of the first tensor leaf
+    of the outermost dataclass that holds it (the state's batch shape);
+    outside any dataclass ``None`` (the scalar itself)."""
+    if tree is None:
+        return []
+    if structures.is_dataclass(tree):
+        if shape is None:
+            shape = next((tuple(leaf.shape) for _, leaf in leaves_with_path(tree)
+                          if isinstance(leaf, torch.Tensor)), ())
+        return [s for f in dataclasses.fields(tree) for s in scalar_shapes(getattr(tree, f.name), shape)]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [s for name in tree._fields for s in scalar_shapes(getattr(tree, name), shape)]
+    if isinstance(tree, (tuple, list)):
+        return [s for v in tree for s in scalar_shapes(v, shape)]
+    if isinstance(tree, dict):
+        return [s for k in sorted(tree) for s in scalar_shapes(tree[k], shape)]
+    return [shape]
 
 
-def _stored(path: str, leaf, batch_shape: tuple) -> np.ndarray:
+def _stored(path: str, leaf, batch_shape) -> np.ndarray:
     """The numpy array a leaf is saved as: a key as its uint32 words, a
-    Python scalar (a fresh state's ``active_solver_state=False``) broadcast
-    over the batch shape, as the JAX package's vmapped state holds it."""
+    Python scalar broadcast over ``batch_shape`` (a state's field, as the
+    JAX package's vmapped state holds it) or, with ``batch_shape=None``,
+    as a 0-d array."""
     if isinstance(leaf, torch.Tensor):
         arr = leaf.detach().cpu().numpy()
         return arr.astype(np.uint32) if _is_key(path, leaf) else arr
+    if batch_shape is None or np.ndim(leaf) != 0:
+        return np.asarray(leaf)
     return np.full(batch_shape, leaf)
 
 
@@ -150,10 +172,9 @@ def save_state(state, path: str, use_orbax: bool = None):
     """
     _refuse_orbax(use_orbax)
     items = leaves_with_path(state)
-    batch_shape = _batch_shape(items)
     arrays = {}
-    for i, (keypath, leaf) in enumerate(items):
-        arrays[f"leaf_{i}"] = _stored(keypath, leaf, batch_shape)
+    for i, ((keypath, leaf), shape) in enumerate(zip(items, scalar_shapes(state))):
+        arrays[f"leaf_{i}"] = _stored(keypath, leaf, shape)
         arrays[f"path_{i}"] = np.array(keypath)
     np.savez(_npz_path(path), n=np.array(len(items)), **arrays)
     return _npz_path(path)
@@ -175,10 +196,9 @@ def load_state(like, path: str, use_orbax: bool = None):
     expected = leaves_with_path(like)
     if n != len(expected):
         raise ValueError(f"checkpoint has {n} leaves, target structure has {len(expected)}")
-    batch_shape = _batch_shape(expected)
     device = next((leaf.device for _, leaf in expected if isinstance(leaf, torch.Tensor)), None)
     leaves = []
-    for i, (expected_path, like_leaf) in enumerate(expected):
+    for i, ((expected_path, like_leaf), shape) in enumerate(zip(expected, scalar_shapes(like))):
         stored_path = str(data[f"path_{i}"])
         if stored_path != expected_path:
             raise ValueError(
@@ -187,7 +207,7 @@ def load_state(like, path: str, use_orbax: bool = None):
         leaf = data[f"leaf_{i}"]
         # catch batch-size/dtype mismatches at load time instead of as an
         # opaque shape error later
-        like_arr = _stored(expected_path, like_leaf, batch_shape)
+        like_arr = _stored(expected_path, like_leaf, shape)
         shape, dtype = like_arr.shape, like_arr.dtype
         if leaf.shape != shape:
             raise ValueError(

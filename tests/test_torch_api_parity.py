@@ -29,11 +29,7 @@ ROOT = Path(__file__).resolve().parents[1]
 F64 = dict(device="cpu", dtype=torch.float64)
 
 #: JAX modules (relative to the package) with no counterpart yet
-PENDING = {
-    "io": "the dataset writer and loaders: the next slice",
-    "utils.fleet": "FleetRunner: the next slice",
-    "io.__main__": "the dataset CLI: the next slice",
-}
+PENDING = {}
 #: JAX modules whose functions the port replaces by a module of another design
 REDESIGNED = {
     "ops.pallas": "the Pallas kernels' launchers; the port's hand-written kernels have their own wrappers in "
@@ -69,6 +65,7 @@ PORT_ADDITIONS = {
     ("parallel.metrics", "running_init"): ("device",),
     ("parallel.metrics", "window_init"): ("device",),
     ("wrappers.mujoco", "MujucoWrapper.__init__"): ("device", "dtype"),
+    ("io.loader", "DeviceLoader.__init__"): ("device",),
 }
 #: parameters the port drops, by (module, qualified name): (JAX names, reason)
 PORT_DROPS = {

@@ -1576,3 +1576,144 @@ def test_gym_wrapper_and_autoreset_step_on_the_card_follow_the_cpu():
                 np.testing.assert_allclose(y.numpy(), x.numpy(), rtol=1e-12, atol=1e-12)
             else:
                 assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fleet_runner_kernel_paths_match_direct_calls(dtype, tmp_path):
+    """``FleetRunner`` on the card: the open loop through kernels 1 and 3 and
+    the closed loops through kernels 2 and 4 (the PD law, the stateful PI
+    law), one launch per chunk (four when split over ``["cuda:0"] * 4``),
+    each final state 0.0 from the same chunks driven directly through the
+    entry points; a plain callable on the in-scope environment raises before
+    a launch; a native shard written on the way reads back byte for byte."""
+    from exciting_environments_torch.io import ShardIndex, ShardWriter
+    from exciting_environments_torch.ops.kernels import pmsm_closed_loop as PCL
+    from exciting_environments_torch.parallel import ShardedEnv, make_batch_mesh
+    from exciting_environments_torch.utils.fleet import FleetRunner
+
+    _cuda()
+    B, T, n = 4096 + 4 * 19, 32, 3
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    env = P.Pendulum(batch_size=B, dtype=dtype)
+    _, s0 = env.vmap_reset(rng=gen)
+    slabs = [(torch.rand(B, T, 1, generator=gen, device="cuda") * 1.8 - 0.9).to(dtype) for _ in range(n)]
+    with ShardWriter(tmp_path / "f.extpu") as w:
+        assert w.native
+        runner = FleetRunner(env, writer=w, write_actions=True)
+        assert runner.rollout_path == "fused"
+        K.KERNEL.reset_counts()
+        final = runner.run(s0, lambda k: slabs[k], n, T)
+        assert K.KERNEL.launches["step"] == n
+    direct = s0
+    for k in range(n):
+        obs, direct = env.fused_rollout(direct, slabs[k], strict=True)
+    _tree_equal(final, direct)
+    with ShardIndex(tmp_path / "f.extpu") as idx:
+        name, arrays = idx.entry(n - 1)
+        assert name == f"chunk_{n:06d}"
+        assert np.array_equal(arrays["['final_obs']"], obs.cpu().numpy())
+        assert np.array_equal(arrays["['actions']"], slabs[-1].cpu().numpy())
+
+    split = FleetRunner(ShardedEnv(env, make_batch_mesh(["cuda:0"] * 4)))
+    assert split.rollout_path == "sharded_fused"
+    K.KERNEL.reset_counts()
+    _tree_equal(split.run(s0, lambda k: slabs[k], n, T), final)
+    assert K.KERNEL.launches["step"] == 4 * n
+
+    drive = P.PMSM(batch_size=B, saturated=True, motor_variant=P.MotorVariant.BRUSA, dtype=dtype)
+    _, d0 = drive.vmap_reset(rng=gen)
+    v = [(torch.rand(B, T, 2, generator=gen, device="cuda") * 0.6 - 0.3).to(dtype) for _ in range(n)]
+    prunner = FleetRunner(drive)
+    assert prunner.rollout_path == "pmsm_fused"
+    PK.KERNEL.reset_counts()
+    pfinal = prunner.run(d0, lambda k: v[k], n, T)
+    assert PK.KERNEL.launches["pmsm_step"] == n
+    direct = d0
+    for k in range(n):
+        _, direct = drive.fused_rollout(direct, v[k], strict=True)
+    _tree_equal(pfinal, direct)
+
+    tracking = P.Pendulum(batch_size=B, dtype=dtype, control_state=["theta"])
+    _, c0 = tracking.vmap_reset(rng=gen)
+    c0.reference.theta = torch.linspace(-1.5, 1.5, B, device="cuda", dtype=dtype)
+    pd = P.AffinePolicy(PD_GAINS)
+    crunner = FleetRunner(tracking)
+    CL.CL_KERNEL.reset_counts()
+    cfinal = crunner.run_policy(c0, pd, n, T)
+    assert crunner.closed_loop_path == "closed_loop_fused" and CL.CL_KERNEL.launches["closed_loop"] == n
+    direct = c0
+    for _ in range(n):
+        _, direct = tracking.fused_closed_loop(direct, pd, T)
+    _tree_equal(cfinal, direct)
+    CL.CL_KERNEL.reset_counts()
+    with pytest.raises(ValueError):
+        FleetRunner(tracking).run_policy(c0, lambda obs, t: (-0.5 * obs[0],), 1, T)
+    assert CL.CL_KERNEL.launches["closed_loop"] == 0
+
+    pdrive = P.PMSM(batch_size=B, saturated=True, motor_variant=P.MotorVariant.BRUSA, dtype=dtype,
+                    control_state=["i_d", "i_q"])
+    _, q0 = pdrive.vmap_reset(rng=gen)
+    q0.reference.i_d = torch.linspace(-200.0, -10.0, B, device="cuda", dtype=dtype)
+    q0.reference.i_q = torch.linspace(-150.0, 150.0, B, device="cuda", dtype=dtype)
+    pi_law = P.AffinePolicy([[-0.6, 0, 0, 0, 0, 0, 0, 0, 0.6, 0], [0, -0.6, 0, 0, 0, 0, 0, 0, 0, 0.6]],
+                            Ki=[[-0.01, 0, 0, 0, 0, 0, 0, 0, 0.01, 0], [0, -0.01, 0, 0, 0, 0, 0, 0, 0, 0.01]])
+    carry0 = tuple(torch.zeros(B, device="cuda", dtype=dtype) for _ in range(2))
+    qrunner = FleetRunner(pdrive)
+    PCL.PMSM_CL_KERNEL.reset_counts()
+    qfinal, qcarry = qrunner.run_policy(q0, pi_law, n, T, policy_carry=carry0)
+    assert qrunner.closed_loop_path == "pmsm_closed_loop_fused"
+    assert PCL.PMSM_CL_KERNEL.launches["pmsm_closed_loop"] == n
+    direct, carry = q0, carry0
+    for _ in range(n):
+        _, direct, carry = pdrive.fused_closed_loop(direct, pi_law, T, policy_carry=carry)
+    _tree_equal((qfinal, qcarry), (direct, carry))
+
+
+@pytest.mark.gpu
+def test_device_loader_copies_through_pinned_memory_on_a_copy_stream(tmp_path):
+    """``DeviceLoader`` onto ``cuda:0``: every leaf equal to the shard's
+    bytes, copied on a stream other than the consumer's with an event the
+    consumer's stream waits on; a consumer kernel reading the entry right
+    away sees the whole copy; an early break leaves no worker thread."""
+    import threading
+
+    from exciting_environments_torch.io import DeviceLoader, ShardIndex, ShardWriter
+
+    _cuda()
+    rng = np.random.default_rng(0)
+    arrays = [rng.normal(size=(4096, 257)).astype(np.float32) for _ in range(4)]
+    path = tmp_path / "d.extpu"
+    with ShardWriter(path) as w:
+        for i, a in enumerate(arrays):
+            w.append({"x": a, "k": np.arange(5, dtype=np.int64) + i}, name=f"e{i}")
+    copies = []
+    orig_to = torch.Tensor.to
+
+    def spy(self, *args, **kwargs):
+        out = orig_to(self, *args, **kwargs)
+        if out.is_cuda and not self.is_cuda:
+            copies.append((self.is_pinned(), kwargs.get("non_blocking", False), torch.cuda.current_stream().cuda_stream))
+        return out
+
+    torch.Tensor.to = spy
+    try:
+        sums = []
+        for name, batch in DeviceLoader([path], prefetch=2):
+            assert batch["['x']"].device == torch.device("cuda", 0)
+            sums.append(batch["['x']"].double().sum())  # a consumer kernel on the current stream
+            assert torch.equal(batch["['k']"].cpu(), torch.arange(5) + int(name[1:]))
+    finally:
+        torch.Tensor.to = orig_to
+    consumer = torch.cuda.current_stream().cuda_stream
+    assert len(copies) == 8 and all(pinned and nb and stream != consumer for pinned, nb, stream in copies)
+    for s, a in zip(sums, arrays):  # float64 sums of float32 data: equal up to the summation order
+        np.testing.assert_allclose(float(s), float(torch.as_tensor(a).double().sum()), rtol=1e-12)
+    before = {t.ident for t in threading.enumerate()}
+    for _ in DeviceLoader([path], prefetch=1):
+        break
+    assert not [t for t in threading.enumerate() if t.ident not in before]
+    with ShardIndex(path) as idx:
+        _, a0 = idx.entry(0)
+        _, b0 = next(iter(DeviceLoader([path])))
+        assert np.array_equal(b0["['x']"].cpu().numpy(), a0["['x']"])

@@ -37,6 +37,10 @@ def test_port_imports_no_jax():
         "import exciting_environments_torch.parallel, exciting_environments_torch.parallel.mesh\n"
         "import exciting_environments_torch.parallel.metrics, exciting_environments_torch.wrappers.gym\n"
         "import exciting_environments_torch.wrappers.gymnasium_vector, exciting_environments_torch.wrappers.mujoco\n"
+        "import exciting_environments_torch.utils.fleet, exciting_environments_torch.io\n"
+        "import exciting_environments_torch.io.dataset, exciting_environments_torch.io.loader\n"
+        "import exciting_environments_torch.io.native, exciting_environments_torch.io.torch_data\n"
+        "import exciting_environments_torch.io.__main__\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'exciting_environments_tpu'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"
