@@ -1,0 +1,7 @@
+"""``stepper_roofline``: the least time of ``csrc/stepper.cu``'s work per call
+(``work/stepper.py``, at the card's published peaks) over the kernel's
+device time per call, over the traced calls, in percent."""
+
+
+def read(trace):
+    return trace.roofline_pct("stepper")
