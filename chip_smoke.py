@@ -5474,7 +5474,7 @@ def phase_fleet(ex, K, PK, CL, PCL):
                 "the run without the sink differs from the run with it")
 
         def chunk_ms(r):  # the runner's own per-chunk spans (launch to the gate's sync), min/median/max
-            spans = sorted(float(x) * 1e3 for x in r.time_window.buffer[:n].cpu())
+            spans = sorted(x * 1e3 for x in list(r.time_window)[-n:])
             return f"{spans[0]:.3f}/{statistics.median(spans):.3f}/{spans[-1]:.3f}"
 
         log_f(f"sink: the 16-chunk run with the native writer (actions and final_obs, {written} bytes, checkpoints "

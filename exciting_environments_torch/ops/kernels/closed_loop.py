@@ -35,6 +35,7 @@ from torch.autograd.function import once_differentiable
 
 from exciting_environments_torch.core import structures
 from exciting_environments_torch.ops.policies import KernelPolicy
+from exciting_environments_torch.utils.profiling import annotate
 
 from . import checkpoint as ck
 
@@ -693,79 +694,81 @@ def env_fused_closed_loop(env, init_state, policy, n_steps: int, obs_stride: int
     """
     if return_traj_states and obs_stride is None:
         raise ValueError("return_traj_states requires obs_stride")
-    if not supports_fused_closed_loop(env):
-        raise ValueError(
-            "env_fused_closed_loop out of kernel scope (the stepper's scope, a kernel stage "
-            "count, scalar normalizations and the fields in ODE order are required)"
+    with annotate("ee.rollout.prepare"):
+        if not supports_fused_closed_loop(env):
+            raise ValueError(
+                "env_fused_closed_loop out of kernel scope (the stepper's scope, a kernel stage "
+                "count, scalar normalizations and the fields in ODE order are required)"
+            )
+        props = env.env_properties
+        pn = props.physical_normalizations
+        y0 = tuple(getattr(init_state.physical_state, n) for n in env._ode_state_fields)
+        # normalized tracked references, constant along the rollout
+        ref_leaves = tuple(getattr(pn, name).normalize(getattr(init_state.reference, name))
+                           for name in env.control_state)
+        has_carry = policy_carry is not None
+        noise = closed_loop_noise(env, init_state, n_steps, props)
+        result = fused_closed_loop(
+            env, y0, policy, n_steps, props=props, ref_leaves=ref_leaves, traj_stride=obs_stride,
+            policy_params=policy_params, policy_carry=policy_carry, **noise.slabs,
         )
-    props = env.env_properties
-    pn = props.physical_normalizations
-    y0 = tuple(getattr(init_state.physical_state, n) for n in env._ode_state_fields)
-    # normalized tracked references, constant along the rollout
-    ref_leaves = tuple(getattr(pn, name).normalize(getattr(init_state.reference, name))
-                       for name in env.control_state)
-    has_carry = policy_carry is not None
-    noise = closed_loop_noise(env, init_state, n_steps, props)
-    result = fused_closed_loop(
-        env, y0, policy, n_steps, props=props, ref_leaves=ref_leaves, traj_stride=obs_stride,
-        policy_params=policy_params, policy_carry=policy_carry, **noise.slabs,
-    )
-    final_carry = None
-    if obs_stride is None:
-        y_final, final_carry = result if has_carry else (result, None)
-        traj_state_t = traj_act_t = None
-    elif has_carry:
-        y_final, final_carry, traj_state_t, traj_act_t, _ = result
-    else:
-        y_final, traj_state_t, traj_act_t = result
-
-    # the FSAL solver carry of the scan path: under the last saved action in
-    # trajectory mode; in final-only mode the pre-final observation is gone,
-    # so under the policy's action at the FINAL state, step n_steps - 1 and
-    # (stateful) the post-final carry, evaluated with the plain forward
-    if not env._solver.fsal:
-        solver_carry = None
-    else:
-        if traj_act_t is not None:
-            a_norm_last = tuple(a[:, -1] for a in traj_act_t)
+    with annotate("ee.rollout.rebuild"):
+        final_carry = None
+        if obs_stride is None:
+            y_final, final_carry = result if has_carry else (result, None)
+            traj_state_t = traj_act_t = None
+        elif has_carry:
+            y_final, final_carry, traj_state_t, traj_act_t, _ = result
         else:
-            obs_last = tuple(getattr(pn, n).normalize(leaf)
-                             for n, leaf in zip(env._ode_state_fields, y_final)) + ref_leaves
-            pol_args = (obs_last, n_steps - 1) + ((final_carry,) if has_carry else ())
-            pol_args += (policy_params,) if policy_params is not None else ()
-            out_last = policy(*pol_args)
-            a_norm_last = out_last[0] if has_carry else out_last
-        a_phys_last = phys_action(env, torch.stack(tuple(a_norm_last), dim=-1), props)
-        solver_carry = _final_solver_state(env, y_final, a_phys_last, props)
+            y_final, traj_state_t, traj_act_t = result
 
-    device = y_final[0].device
-    final_state = structures.replace(
-        init_state,
-        physical_state=env.PhysicalState(**dict(zip(env._ode_state_fields, y_final))),
-        PRNGKey=noise.final_key(init_state),
-        additions=env.Additions(
-            solver_state=solver_carry,
-            active_solver_state=torch.ones(env.batch_size, dtype=torch.bool, device=device),
-        ),
-    )
-    tail = (final_carry,) if has_carry else ()
-    if obs_stride is None:
-        return (noise.final_obs(env.generate_observation(final_state, props)), final_state) + tail
+        # the FSAL solver carry of the scan path: under the last saved action in
+        # trajectory mode; in final-only mode the pre-final observation is gone,
+        # so under the policy's action at the FINAL state, step n_steps - 1 and
+        # (stateful) the post-final carry, evaluated with the plain forward
+        if not env._solver.fsal:
+            solver_carry = None
+        else:
+            if traj_act_t is not None:
+                a_norm_last = tuple(a[:, -1] for a in traj_act_t)
+            else:
+                obs_last = tuple(getattr(pn, n).normalize(leaf)
+                                 for n, leaf in zip(env._ode_state_fields, y_final)) + ref_leaves
+                pol_args = (obs_last, n_steps - 1) + ((final_carry,) if has_carry else ())
+                pol_args += (policy_params,) if policy_params is not None else ()
+                out_last = policy(*pol_args)
+                a_norm_last = out_last[0] if has_carry else out_last
+            a_phys_last = phys_action(env, torch.stack(tuple(a_norm_last), dim=-1), props)
+            solver_carry = _final_solver_state(env, y_final, a_phys_last, props)
 
-    n_saves = n_steps // obs_stride
-    expand = lambda leaf: _broadcast_saves(leaf, n_saves)
-    traj_state = structures.replace(
-        final_state,
-        physical_state=env.PhysicalState(**dict(zip(env._ode_state_fields, traj_state_t))),
-        PRNGKey=noise.save_keys(init_state, obs_stride, n_saves),
-        additions=env.Additions(
-            solver_state=None,
-            active_solver_state=torch.ones((env.batch_size, n_saves), dtype=torch.bool, device=device),
-        ),
-        reference=structures.map_leaves(expand, init_state.reference),
-    )
-    obs_traj = noise.save_obs(env.generate_observation(traj_state, env._props_for(props, 1)), obs_stride)
-    actions_traj = torch.stack(traj_act_t, dim=-1)
-    if return_traj_states:
-        return (obs_traj, actions_traj, traj_state, final_state) + tail
-    return (obs_traj, actions_traj, final_state) + tail
+        device = y_final[0].device
+        final_state = structures.replace(
+            init_state,
+            physical_state=env.PhysicalState(**dict(zip(env._ode_state_fields, y_final))),
+            PRNGKey=noise.final_key(init_state),
+            additions=env.Additions(
+                solver_state=solver_carry,
+                active_solver_state=torch.ones(env.batch_size, dtype=torch.bool, device=device),
+            ),
+        )
+        tail = (final_carry,) if has_carry else ()
+        if obs_stride is None:
+            return (noise.final_obs(env.generate_observation(final_state, props)), final_state) + tail
+
+        n_saves = n_steps // obs_stride
+        expand = lambda leaf: _broadcast_saves(leaf, n_saves)
+        traj_state = structures.replace(
+            final_state,
+            physical_state=env.PhysicalState(**dict(zip(env._ode_state_fields, traj_state_t))),
+            PRNGKey=noise.save_keys(init_state, obs_stride, n_saves),
+            additions=env.Additions(
+                solver_state=None,
+                active_solver_state=torch.ones((env.batch_size, n_saves), dtype=torch.bool, device=device),
+            ),
+            reference=structures.map_leaves(expand, init_state.reference),
+        )
+        obs_traj = noise.save_obs(env.generate_observation(traj_state, env._props_for(props, 1)), obs_stride)
+        actions_traj = torch.stack(traj_act_t, dim=-1)
+        if return_traj_states:
+            return (obs_traj, actions_traj, traj_state, final_state) + tail
+        return (obs_traj, actions_traj, final_state) + tail

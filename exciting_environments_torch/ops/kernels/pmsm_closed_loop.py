@@ -54,6 +54,7 @@ from exciting_environments_torch.ops.kernels.stepper import MAX_STAGES, KernelLi
 from exciting_environments_torch.ops.lut import bilinear_gather
 from exciting_environments_torch.ops.policies import KernelPolicy
 from exciting_environments_torch.ops.transforms import ROTATION_IM, ROTATION_RE, _rotation_tables
+from exciting_environments_torch.utils.profiling import annotate
 
 #: observation bands of the closed loop, in the order of the observation
 OBS_BAND_FIELDS = ("i_d", "i_q", "omega_el", "torque", "u_d_buffer", "u_q_buffer")
@@ -859,75 +860,77 @@ def pmsm_fused_closed_loop(env, init_state, policy, n_steps: int, obs_stride: in
     env = with_env_properties(env, env_properties)
     if return_traj_states and obs_stride is None:
         raise ValueError("return_traj_states requires obs_stride")
-    if not supports_pmsm_fused_closed_loop(env):
-        raise ValueError(
-            "pmsm_fused_closed_loop out of kernel scope (supports_pmsm_fused, a kernel stage count, "
-            "scalar-or-(batch,) bands and at most 4 tracked references are required)"
+    with annotate("ee.rollout.prepare"):
+        if not supports_pmsm_fused_closed_loop(env):
+            raise ValueError(
+                "pmsm_fused_closed_loop out of kernel scope (supports_pmsm_fused, a kernel stage count, "
+                "scalar-or-(batch,) bands and at most 4 tracked references are required)"
+            )
+        if sched_lut is not None:
+            if not bool(env.env_properties.saturated) or env._lut is None:
+                raise ValueError("sched_lut rides the saturated drive's LUT grid: construct the env with "
+                                 "saturated=True and a motor variant with tables")
+            lut = env._lut
+            if sched_lut.values.shape[1:] != (lut.nx, lut.ny):
+                raise ValueError(f"sched_lut values {sched_lut.values.shape[1:]} must live on the env LUT grid "
+                                 f"({lut.nx}, {lut.ny})")
+            if policy_carry is None:
+                raise ValueError("sched_lut indexes the gather by belief planes in the policy carry: pass policy_carry")
+        props = env.env_properties
+        pn = props.physical_normalizations
+        phys = init_state.physical_state
+        state0 = (phys.i_d, phys.i_q, phys.epsilon, phys.u_d_buffer, phys.u_q_buffer)
+        omega = phys.omega_el
+        # normalized tracked references, constant along the rollout
+        ref_leaves = tuple(getattr(pn, name).normalize(getattr(init_state.reference, name))
+                           for name in env.control_state)
+        has_carry = policy_carry is not None
+        noise = closed_loop_noise(env, init_state, n_steps, props)
+        final, u_last, final_carry, traj, _ = pmsm_closed_loop(
+            env, state0, omega, policy, n_steps, props=props, ref_leaves=ref_leaves, traj_stride=obs_stride,
+            policy_params=policy_params, policy_carry=policy_carry, sched_lut=sched_lut, **noise.slabs,
         )
-    if sched_lut is not None:
-        if not bool(env.env_properties.saturated) or env._lut is None:
-            raise ValueError("sched_lut rides the saturated drive's LUT grid: construct the env with "
-                             "saturated=True and a motor variant with tables")
-        lut = env._lut
-        if sched_lut.values.shape[1:] != (lut.nx, lut.ny):
-            raise ValueError(f"sched_lut values {sched_lut.values.shape[1:]} must live on the env LUT grid "
-                             f"({lut.nx}, {lut.ny})")
-        if policy_carry is None:
-            raise ValueError("sched_lut indexes the gather by belief planes in the policy carry: pass policy_carry")
-    props = env.env_properties
-    pn = props.physical_normalizations
-    phys = init_state.physical_state
-    state0 = (phys.i_d, phys.i_q, phys.epsilon, phys.u_d_buffer, phys.u_q_buffer)
-    omega = phys.omega_el
-    # normalized tracked references, constant along the rollout
-    ref_leaves = tuple(getattr(pn, name).normalize(getattr(init_state.reference, name))
-                       for name in env.control_state)
-    has_carry = policy_carry is not None
-    noise = closed_loop_noise(env, init_state, n_steps, props)
-    final, u_last, final_carry, traj, _ = pmsm_closed_loop(
-        env, state0, omega, policy, n_steps, props=props, ref_leaves=ref_leaves, traj_stride=obs_stride,
-        policy_params=policy_params, policy_carry=policy_carry, sched_lut=sched_lut, **noise.slabs,
-    )
-    i_d, i_q, eps_final, buf_d, buf_q, torque = final
-    batch = env.batch_size
-    device = i_d.device
-    final_state = structures.replace(
-        init_state,
-        physical_state=env.PhysicalState(u_d_buffer=buf_d, u_q_buffer=buf_q, epsilon=eps_final, i_d=i_d, i_q=i_q,
-                                         torque=torque, omega_el=omega),
-        PRNGKey=noise.final_key(init_state),
-        additions=env.Additions(
-            solver_state=_pmsm_final_solver_state(env, props, i_d, i_q, eps_final, torch.stack(u_last, dim=-1),
-                                                  omega),
-            active_solver_state=torch.ones(batch, dtype=torch.bool, device=device),
-        ),
-    )
-    tail = (tuple(final_carry),) if has_carry else ()
-    if obs_stride is None:
-        return (noise.final_obs(env.generate_observation(final_state, props)), final_state) + tail
+    with annotate("ee.rollout.rebuild"):
+        i_d, i_q, eps_final, buf_d, buf_q, torque = final
+        batch = env.batch_size
+        device = i_d.device
+        final_state = structures.replace(
+            init_state,
+            physical_state=env.PhysicalState(u_d_buffer=buf_d, u_q_buffer=buf_q, epsilon=eps_final, i_d=i_d, i_q=i_q,
+                                             torque=torque, omega_el=omega),
+            PRNGKey=noise.final_key(init_state),
+            additions=env.Additions(
+                solver_state=_pmsm_final_solver_state(env, props, i_d, i_q, eps_final, torch.stack(u_last, dim=-1),
+                                                      omega),
+                active_solver_state=torch.ones(batch, dtype=torch.bool, device=device),
+            ),
+        )
+        tail = (tuple(final_carry),) if has_carry else ()
+        if obs_stride is None:
+            return (noise.final_obs(env.generate_observation(final_state, props)), final_state) + tail
 
-    i_d_t, i_q_t, torque_t, ucd_t, ucq_t, a_d_t, a_q_t = (leaf.transpose(0, 1) for leaf in traj)
-    n_saves = n_steps // obs_stride
-    # the saved post-step angles: the state-independent replay of the open loop
-    eps_pre, eps_last = _eps_trajectory(phys.epsilon, omega, env.tau, n_steps, env._solver)
-    eps_post = torch.cat([eps_pre[1:], eps_last[None]], dim=0)
-    eps_saves = eps_post[obs_stride - 1 :: obs_stride].transpose(0, 1)
-    expand = lambda leaf: torch.as_tensor(leaf)[:, None].expand(batch, n_saves)
-    if int(props.static_params.deadtime):
-        buf_d_t, buf_q_t = ucd_t, ucq_t  # the buffer after step k holds u_con[k]
-    else:
-        buf_d_t, buf_q_t = expand(phys.u_d_buffer), expand(phys.u_q_buffer)
-    traj_state = structures.replace(
-        final_state,
-        physical_state=env.PhysicalState(u_d_buffer=buf_d_t, u_q_buffer=buf_q_t, epsilon=eps_saves, i_d=i_d_t,
-                                         i_q=i_q_t, torque=torque_t, omega_el=expand(omega)),
-        PRNGKey=noise.save_keys(init_state, obs_stride, n_saves),
-        additions=env.Additions(solver_state=None,
-                                active_solver_state=torch.ones((batch, n_saves), dtype=torch.bool, device=device)),
-        reference=structures.map_leaves(expand, init_state.reference),
-    )
-    obs_traj = noise.save_obs(env.generate_observation(traj_state, env._props_for(props, 1)), obs_stride)
-    actions_traj = torch.stack([a_d_t, a_q_t], dim=-1)
-    if return_traj_states:
-        return (obs_traj, actions_traj, traj_state, final_state) + tail
-    return (obs_traj, actions_traj, final_state) + tail
+        i_d_t, i_q_t, torque_t, ucd_t, ucq_t, a_d_t, a_q_t = (leaf.transpose(0, 1) for leaf in traj)
+        n_saves = n_steps // obs_stride
+        # the saved post-step angles: the state-independent replay of the open loop
+        eps_pre, eps_last = _eps_trajectory(phys.epsilon, omega, env.tau, n_steps, env._solver)
+        eps_post = torch.cat([eps_pre[1:], eps_last[None]], dim=0)
+        eps_saves = eps_post[obs_stride - 1 :: obs_stride].transpose(0, 1)
+        expand = lambda leaf: torch.as_tensor(leaf)[:, None].expand(batch, n_saves)
+        if int(props.static_params.deadtime):
+            buf_d_t, buf_q_t = ucd_t, ucq_t  # the buffer after step k holds u_con[k]
+        else:
+            buf_d_t, buf_q_t = expand(phys.u_d_buffer), expand(phys.u_q_buffer)
+        traj_state = structures.replace(
+            final_state,
+            physical_state=env.PhysicalState(u_d_buffer=buf_d_t, u_q_buffer=buf_q_t, epsilon=eps_saves, i_d=i_d_t,
+                                             i_q=i_q_t, torque=torque_t, omega_el=expand(omega)),
+            PRNGKey=noise.save_keys(init_state, obs_stride, n_saves),
+            additions=env.Additions(solver_state=None,
+                                    active_solver_state=torch.ones((batch, n_saves), dtype=torch.bool, device=device)),
+            reference=structures.map_leaves(expand, init_state.reference),
+        )
+        obs_traj = noise.save_obs(env.generate_observation(traj_state, env._props_for(props, 1)), obs_stride)
+        actions_traj = torch.stack([a_d_t, a_q_t], dim=-1)
+        if return_traj_states:
+            return (obs_traj, actions_traj, traj_state, final_state) + tail
+        return (obs_traj, actions_traj, final_state) + tail

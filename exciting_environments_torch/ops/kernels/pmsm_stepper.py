@@ -53,6 +53,7 @@ from exciting_environments_torch.ops.kernels.stepper import (
 )
 from exciting_environments_torch.ops.solvers import ExplicitRungeKutta
 from exciting_environments_torch.ops.transforms import ROTATION_IM, ROTATION_RE
+from exciting_environments_torch.utils.profiling import annotate
 
 #: static parameters the kernel reads, in its parameter-slot order
 PMSM_PARAMS = ("p", "r_s", "l_d", "l_q", "psi_p")
@@ -777,7 +778,19 @@ def pmsm_fused_rollout(env, init_state, actions_norm, obs_stride: int = None,
     n_steps = actions_norm.shape[0] if time_major else actions_norm.shape[1]
     if return_traj_states and obs_stride is None:
         raise ValueError("return_traj_states requires obs_stride")
-    if not supports_pmsm_fused(env):
+    with annotate("ee.rollout.prepare"):
+        in_scope = supports_pmsm_fused(env)
+        if in_scope:
+            if obs_stride is not None and n_steps % obs_stride:
+                raise ValueError("n_steps must be divisible by obs_stride")
+            props = env.env_properties
+            state0, omega = _start(init_state)
+            noise_tm, noise_idx, eps_obs, keys_saves, final_keys = env._noise_streams(init_state, n_steps,
+                                                                                      obs_stride or n_steps)
+            final, u_last, traj = pmsm_rollout(env, actions_norm, state0, omega, tau=env.tau, props=props,
+                                               obs_stride=obs_stride, batch_major=not time_major,
+                                               noise_tm=noise_tm, noise_idx=noise_idx)
+    if not in_scope:
         if strict or return_traj_states:
             raise ValueError(
                 "pmsm_fused_rollout out of kernel scope (per-batch or other deadtime, missing "
@@ -788,42 +801,34 @@ def pmsm_fused_rollout(env, init_state, actions_norm, obs_stride: int = None,
             actions_norm = actions_norm.transpose(0, 1)
         obs, last_state = env.vmap_rollout(init_state, actions_norm, obs_stride or n_steps)
         return (obs[:, -1] if obs_stride is None else obs), last_state
-    if obs_stride is not None and n_steps % obs_stride:
-        raise ValueError("n_steps must be divisible by obs_stride")
 
-    props = env.env_properties
-    state0, omega = _start(init_state)
-    noise_tm, noise_idx, eps_obs, keys_saves, final_keys = env._noise_streams(init_state, n_steps,
-                                                                              obs_stride or n_steps)
-    final, u_last, traj = pmsm_rollout(env, actions_norm, state0, omega, tau=env.tau, props=props,
-                                       obs_stride=obs_stride, batch_major=not time_major, noise_tm=noise_tm,
-                                       noise_idx=noise_idx)
-    i_d, i_q, torque, eps_final, buf_d, buf_q = final
-    final_state = structures.replace(
-        init_state,
-        physical_state=env.PhysicalState(
-            u_d_buffer=buf_d, u_q_buffer=buf_q, epsilon=eps_final,
-            i_d=i_d, i_q=i_q, torque=torque, omega_el=omega,
-        ),
-        PRNGKey=init_state.PRNGKey if final_keys is None else final_keys,
-        additions=env.Additions(
-            solver_state=_pmsm_final_solver_state(env, props, i_d, i_q, eps_final, torch.stack(u_last, dim=-1),
-                                                  omega),
-            active_solver_state=torch.ones(env.batch_size, dtype=torch.bool, device=i_d.device),
-        ),
-    )
-    obs_final = env.generate_observation(final_state, props)
-    if obs_stride is None:
+    with annotate("ee.rollout.rebuild"):
+        i_d, i_q, torque, eps_final, buf_d, buf_q = final
+        final_state = structures.replace(
+            init_state,
+            physical_state=env.PhysicalState(
+                u_d_buffer=buf_d, u_q_buffer=buf_q, epsilon=eps_final,
+                i_d=i_d, i_q=i_q, torque=torque, omega_el=omega,
+            ),
+            PRNGKey=init_state.PRNGKey if final_keys is None else final_keys,
+            additions=env.Additions(
+                solver_state=_pmsm_final_solver_state(env, props, i_d, i_q, eps_final, torch.stack(u_last, dim=-1),
+                                                      omega),
+                active_solver_state=torch.ones(env.batch_size, dtype=torch.bool, device=i_d.device),
+            ),
+        )
+        obs_final = env.generate_observation(final_state, props)
+        if obs_stride is None:
+            if eps_obs is not None:
+                obs_final = env._apply_observation_noise_eps(obs_final, props, eps_obs[-1])
+            return obs_final, final_state
+        obs, traj_state = _trajectory_observations(env, init_state, props, traj, keys_saves)
         if eps_obs is not None:
-            obs_final = env._apply_observation_noise_eps(obs_final, props, eps_obs[-1])
-        return obs_final, final_state
-    obs, traj_state = _trajectory_observations(env, init_state, props, traj, keys_saves)
-    if eps_obs is not None:
-        obs = env._apply_observation_noise_eps(obs, props, eps_obs.transpose(0, 1), batch_major=True)
-    if return_traj_states:
-        return obs, structures.map_leaves(lambda leaf: leaf.movedim(0, 1) if leaf.ndim >= 2 else leaf,
-                                          traj_state), final_state
-    return obs, final_state
+            obs = env._apply_observation_noise_eps(obs, props, eps_obs.transpose(0, 1), batch_major=True)
+        if return_traj_states:
+            return obs, structures.map_leaves(lambda leaf: leaf.movedim(0, 1) if leaf.ndim >= 2 else leaf,
+                                              traj_state), final_state
+        return obs, final_state
 
 
 def _trajectory_observations(env, init_state, props, traj, keys_saves=None):

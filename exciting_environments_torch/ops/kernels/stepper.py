@@ -47,6 +47,7 @@ from torch.autograd.function import once_differentiable
 from exciting_environments_torch.core import structures
 from exciting_environments_torch.core.env import _Components, with_env_properties
 from exciting_environments_torch.ops.solvers import ExplicitRungeKutta
+from exciting_environments_torch.utils.profiling import annotate
 
 from . import checkpoint as ck
 
@@ -207,12 +208,15 @@ class KernelLibrary:
     """A kernel library built from its sources (:func:`library_sources`) and loaded with ctypes at
     first use, with its launch counts (one per mode).  The library exports
     ``<entry>_launch(args*, dtype, stream)``, which returns the CUDA error of
-    the launch, and ``<entry>_args_size()``, checked against ``args_type``."""
+    the launch, and ``<entry>_args_size()``, checked against ``args_type``.
+    Each launch is the span ``ee.launch.<name>.<mode>`` on a profiler's
+    timeline, so a trace counts what :attr:`launches` counts."""
 
     def __init__(self, name: str, entry: str, args_type, modes):
         self.name, self.entry, self.args_type = name, entry, args_type
         self._lib = None
         self.launches = {mode: 0 for mode in modes}
+        self._spans = {mode: f"ee.launch.{name}.{mode}" for mode in modes}
 
     def reset_counts(self):
         for mode in self.launches:
@@ -236,7 +240,8 @@ class KernelLibrary:
         (it never runs, and only its return code reports it)."""
         stream = torch.cuda.current_stream(device).cuda_stream
         launch = getattr(self.lib(), f"{self.entry}_launch")
-        rc = launch(ctypes.byref(args), 0 if dtype == torch.float32 else 1, stream)
+        with annotate(self._spans[mode]):
+            rc = launch(ctypes.byref(args), 0 if dtype == torch.float32 else 1, stream)
         if rc != 0:
             raise RuntimeError(f"{self.name} kernel launch failed with CUDA error {rc}{detail}")
         self.launches[mode] += 1
@@ -740,7 +745,17 @@ def env_fused_rollout(env, init_state, actions_norm, obs_stride: int = None,
     props = env.env_properties
     if return_traj_states and obs_stride is None:
         raise ValueError("return_traj_states requires obs_stride")
-    if not supports_fused_rollout(env):
+    with annotate("ee.rollout.prepare"):
+        in_scope = supports_fused_rollout(env)
+        if in_scope:
+            y0 = tuple(getattr(init_state.physical_state, n) for n in env._ode_state_fields)
+            # a stochastic environment: the loop's draws, made first and streamed
+            noise_tm, noise_idx, eps_obs, keys_saves, final_keys = env._noise_streams(init_state, n_steps,
+                                                                                      obs_stride or n_steps)
+            y_final, y_traj = fused_rollout(env, y0, actions_norm, tau=env.tau, props=props,
+                                            obs_stride=obs_stride, time_major=time_major, noise_tm=noise_tm,
+                                            noise_idx=noise_idx)
+    if not in_scope:
         if strict or return_traj_states:
             raise ValueError(
                 "env_fused_rollout out of kernel scope (environment without a kernel "
@@ -752,42 +767,37 @@ def env_fused_rollout(env, init_state, actions_norm, obs_stride: int = None,
         obs, last_state = env.vmap_rollout(init_state, actions_norm, obs_stride or n_steps)
         return (obs[:, -1] if obs_stride is None else obs), last_state
 
-    y0 = tuple(getattr(init_state.physical_state, n) for n in env._ode_state_fields)
-    # a stochastic environment: the loop's draws, made first and streamed
-    noise_tm, noise_idx, eps_obs, keys_saves, final_keys = env._noise_streams(init_state, n_steps,
-                                                                              obs_stride or n_steps)
-    y_final, y_traj = fused_rollout(env, y0, actions_norm, tau=env.tau, props=props, obs_stride=obs_stride,
-                                    time_major=time_major, noise_tm=noise_tm, noise_idx=noise_idx)
-    last_action = phys_action(env, actions_norm[-1] if time_major else actions_norm[:, -1], props)
-    batch = env.batch_size
-    final_state = structures.replace(
-        init_state,
-        physical_state=env.PhysicalState(**dict(zip(env._ode_state_fields, y_final))),
-        PRNGKey=init_state.PRNGKey if final_keys is None else final_keys,
-        additions=env.Additions(
-            solver_state=_final_solver_state(env, y_final, last_action, props),
-            active_solver_state=torch.ones(batch, dtype=torch.bool, device=y_final[0].device),
-        ),
-    )
-    if obs_stride is None:
-        obs = env.generate_observation(final_state, props)
-        return (obs if eps_obs is None else env._apply_observation_noise_eps(obs, props, eps_obs[-1])), final_state
+    with annotate("ee.rollout.rebuild"):
+        last_action = phys_action(env, actions_norm[-1] if time_major else actions_norm[:, -1], props)
+        batch = env.batch_size
+        final_state = structures.replace(
+            init_state,
+            physical_state=env.PhysicalState(**dict(zip(env._ode_state_fields, y_final))),
+            PRNGKey=init_state.PRNGKey if final_keys is None else final_keys,
+            additions=env.Additions(
+                solver_state=_final_solver_state(env, y_final, last_action, props),
+                active_solver_state=torch.ones(batch, dtype=torch.bool, device=y_final[0].device),
+            ),
+        )
+        if obs_stride is None:
+            obs = env.generate_observation(final_state, props)
+            return (obs if eps_obs is None else env._apply_observation_noise_eps(obs, props, eps_obs[-1])), final_state
 
-    n_saves = n_steps // obs_stride
-    traj_state = structures.replace(
-        final_state,
-        physical_state=env.PhysicalState(**dict(zip(env._ode_state_fields, y_traj))),
-        PRNGKey=traj_keys(init_state.PRNGKey, keys_saves, n_saves),
-        additions=env.Additions(
-            solver_state=None,
-            active_solver_state=torch.ones((batch, n_saves), dtype=torch.bool, device=y_final[0].device),
-        ),
-        reference=structures.map_leaves(lambda leaf: _broadcast_saves(leaf, n_saves), init_state.reference),
-    )
-    obs = env.generate_observation(traj_state, env._props_for(props, 1))
-    if eps_obs is not None:
-        obs = env._apply_observation_noise_eps(obs, props, eps_obs.transpose(0, 1), batch_major=True)
-    return (obs, traj_state, final_state) if return_traj_states else (obs, final_state)
+        n_saves = n_steps // obs_stride
+        traj_state = structures.replace(
+            final_state,
+            physical_state=env.PhysicalState(**dict(zip(env._ode_state_fields, y_traj))),
+            PRNGKey=traj_keys(init_state.PRNGKey, keys_saves, n_saves),
+            additions=env.Additions(
+                solver_state=None,
+                active_solver_state=torch.ones((batch, n_saves), dtype=torch.bool, device=y_final[0].device),
+            ),
+            reference=structures.map_leaves(lambda leaf: _broadcast_saves(leaf, n_saves), init_state.reference),
+        )
+        obs = env.generate_observation(traj_state, env._props_for(props, 1))
+        if eps_obs is not None:
+            obs = env._apply_observation_noise_eps(obs, props, eps_obs.transpose(0, 1), batch_major=True)
+        return (obs, traj_state, final_state) if return_traj_states else (obs, final_state)
 
 
 def env_fused_sim_ahead(env, init_state, actions_norm, obs_stepsize: float, action_stepsize: float,

@@ -27,6 +27,7 @@ from exciting_environments_torch.core import structures
 from exciting_environments_torch.core.structures import dataclass
 from exciting_environments_torch.ops import random as prng
 from exciting_environments_torch.ops.lut import bilinear_gather
+from exciting_environments_torch.utils.profiling import annotate
 
 
 def tile_policy_scan(env, state, n_steps, policy_tile, policy_params, collect_trajectory: bool,
@@ -239,9 +240,11 @@ class RolloutCollector:
 
     def _assemble_batch(self, obs, actions, traj_state, final_state):
         """Rewards and flags on the per-step states ``(B, T)`` of a
-        trajectory, then the :class:`TrajectoryBatch`."""
+        trajectory, then the :class:`TrajectoryBatch` (the span
+        ``ee.collect.assemble`` under a profiler)."""
         env = self.env
-        reward, terminated, truncated = self._flags(traj_state, actions, env._props_for(env.env_properties, 1))
+        with annotate("ee.collect.assemble"):
+            reward, terminated, truncated = self._flags(traj_state, actions, env._props_for(env.env_properties, 1))
         batch = TrajectoryBatch(observations=obs, actions=actions, rewards=reward,
                                 terminated=terminated, truncated=truncated)
         return batch, final_state

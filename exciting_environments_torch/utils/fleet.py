@@ -19,7 +19,8 @@ simulation state so long sweeps resume after the process dies.
   :class:`~exciting_environments_torch.parallel.mesh.ShardedEnv`; closed
   loops through ``csrc/closed_loop.cu`` or ``csrc/pmsm_closed_loop.cu``;
 * metrics: :mod:`exciting_environments_torch.parallel.metrics` running
-  statistics over the observation channels plus a wall-time window;
+  statistics over the observation channels on the device, plus the last
+  chunks' wall times and step counts on the host;
 * sink: :class:`exciting_environments_torch.io.ShardWriter` (optional);
 * checkpoints: :mod:`exciting_environments_torch.utils.checkpoint`
   (optional), in the JAX package's ``.npz`` layout, so a fleet checkpoint
@@ -28,6 +29,16 @@ simulation state so long sweeps resume after the process dies.
 No fallback hides a kernel: a closed loop on an environment in a kernel's
 scope takes the kernel, and on CUDA a policy outside the compiled families
 raises before a launch.
+
+Under a profiler each chunk is the span ``ee.fleet.chunk`` (the chunks in
+order of their start times) holding ``ee.fleet.actions`` (:meth:`FleetRunner.run`'s
+action source), ``ee.fleet.rollout`` (the enqueue: the entry point's
+``ee.rollout.prepare``, ``ee.launch.<library>.<mode>`` and
+``ee.rollout.rebuild``), ``ee.fleet.stats``, ``ee.fleet.gate`` (the host's
+wait for the device), ``ee.fleet.readout`` and, where they run,
+``ee.fleet.sink``, ``ee.fleet.checkpoint`` and ``ee.fleet.hook``; elastic
+recovery's snapshots and restores are ``ee.fleet.snapshot``
+(:func:`~exciting_environments_torch.utils.profiling.annotate`).
 """
 
 from __future__ import annotations
@@ -35,19 +46,14 @@ from __future__ import annotations
 import logging
 import os
 import time
+from collections import deque
 from typing import Callable
 
 import torch
 
-from exciting_environments_torch.parallel.metrics import (
-    running_init,
-    running_summary,
-    running_update,
-    window_init,
-    window_mean,
-    window_push,
-)
+from exciting_environments_torch.parallel.metrics import running_init, running_summary, running_update
 from exciting_environments_torch.utils.checkpoint import _unflatten, leaves_with_path
+from exciting_environments_torch.utils.profiling import annotate
 
 # Exception types elastic recovery must NOT retry: these are deterministic,
 # the replayed chunk would raise the same way (the NaN gate's
@@ -175,10 +181,13 @@ class FleetRunner:
             ``checkpoint_every`` chunks; after a process death, a fresh
             runner picks up with :meth:`resume`.
         checkpoint_every: checkpoint period in chunks (0 disables).
-        window: wall-time window length for the throughput readout.
+        window: how many of the last chunks the throughput readout
+            averages over.
 
-    The statistics and windows live on the environment's device (a
-    ``ShardedEnv``'s first device) in float32.
+    The statistics live on the environment's device (a ``ShardedEnv``'s
+    first device) in float32; the last ``window`` chunks' wall times and
+    env-step counts (:attr:`time_window`, :attr:`steps_window`) are host
+    floats, so the readout adds no device work to a chunk.
     """
 
     def __init__(
@@ -206,11 +215,11 @@ class FleetRunner:
         self.obs_stats = running_init(
             shape=(len(self._base_env.obs_description),), dtype=torch.float32, device=self._device
         )
-        self.time_window = window_init(window, dtype=torch.float32, device=self._device)
+        self.time_window = deque(maxlen=window)
         # per-chunk env-step counts over the SAME window, so the throughput
         # readout stays correct when chunk sizes vary across the runner's
         # lifetime (mixed run()/run_policy() chunk_steps, resume())
-        self.steps_window = window_init(window, dtype=torch.float32, device=self._device)
+        self.steps_window = deque(maxlen=window)
         self.chunks_run = 0
         self.env_steps = 0
 
@@ -242,9 +251,11 @@ class FleetRunner:
         """
 
         def chunk(k, state):
-            actions = action_source(k)
+            with annotate("ee.fleet.actions"):
+                actions = action_source(k)
             t0 = time.perf_counter()  # the action source's work stays untimed
-            obs, state = self._rollout(state, actions)
+            with annotate("ee.fleet.rollout"):
+                obs, state = self._rollout(state, actions)
             record = {"final_obs": obs}
             if self.write_actions:
                 record["actions"] = actions
@@ -296,7 +307,8 @@ class FleetRunner:
 
             def chunk(k, state):
                 t0 = time.perf_counter()
-                obs, state = run_fn(state, chunk_steps, policy_params)
+                with annotate("ee.fleet.rollout"):
+                    obs, state = run_fn(state, chunk_steps, policy_params)
                 return obs, state, {"final_obs": obs}, t0
 
             return self._drive(state, n_chunks, chunk_steps, chunk, metric_hook, max_retries)
@@ -304,7 +316,8 @@ class FleetRunner:
         def chunk(k, state_pc):
             st, pc = state_pc
             t0 = time.perf_counter()
-            obs, st, pc = run_fn(st, chunk_steps, policy_params, tuple(pc))
+            with annotate("ee.fleet.rollout"):
+                obs, st, pc = run_fn(st, chunk_steps, policy_params, tuple(pc))
             return obs, (st, pc), {"final_obs": obs}, t0
 
         return self._drive(
@@ -316,13 +329,14 @@ class FleetRunner:
 
     def _snapshot(self, state):
         """Host copy of everything a rollback must restore: the simulation
-        state plus the loop's running statistics and counters (so a
-        replayed chunk is not double-counted)."""
+        state plus the loop's running statistics, throughput windows and
+        counters (so a replayed chunk is not double-counted)."""
         to_host = lambda tree: _map_tensors(lambda t: t.detach().to("cpu", copy=True), tree)
-        return (
-            to_host(state), to_host(self.obs_stats), to_host(self.time_window),
-            to_host(self.steps_window), self.chunks_run, self.env_steps,
-        )
+        with annotate("ee.fleet.snapshot"):
+            return (
+                to_host(state), to_host(self.obs_stats), self.time_window.copy(),
+                self.steps_window.copy(), self.chunks_run, self.env_steps,
+            )
 
     def _restore(self, snapshot):
         """Put a snapshot back on the device it came from (the environment's
@@ -330,12 +344,13 @@ class FleetRunner:
         from."""
         to_dev = lambda tree: _map_tensors(lambda t: t.to(self._device), tree)
         host_state, obs_stats, time_window, steps_window, chunks_run, env_steps = snapshot
-        self.obs_stats = to_dev(obs_stats)
-        self.time_window = to_dev(time_window)
-        self.steps_window = to_dev(steps_window)
-        self.chunks_run = chunks_run
-        self.env_steps = env_steps
-        return self._place(to_dev(host_state))
+        with annotate("ee.fleet.snapshot"):
+            self.obs_stats = to_dev(obs_stats)
+            self.time_window = time_window.copy()
+            self.steps_window = steps_window.copy()
+            self.chunks_run = chunks_run
+            self.env_steps = env_steps
+            return self._place(to_dev(host_state))
 
     def _place(self, state):
         """Put a host-restored state back on its execution layout: on a
@@ -440,8 +455,9 @@ class FleetRunner:
         retries = 0
         while k < n_chunks:
             try:
-                obs, new_state, record, t0 = chunk_fn(k, state)
-                self._after_chunk(k, obs, new_state, chunk_steps, t0, record, metric_hook)
+                with annotate("ee.fleet.chunk"):
+                    obs, new_state, record, t0 = chunk_fn(k, state)
+                    self._after_chunk(k, obs, new_state, chunk_steps, t0, record, metric_hook)
                 new_snapshot = self._snapshot(new_state) if snapshot is not None else None
             except _NON_RETRYABLE:
                 # deterministic: a replay would raise identically
@@ -466,20 +482,25 @@ class FleetRunner:
         # fence: fold the chunk's observations into the running statistics and
         # read back one flag, the one host sync per chunk.  The launches are
         # asynchronous, so the chunk's wall time is read after it.
-        self.obs_stats = running_update(self.obs_stats, obs, axis=(0,))
-        if not bool(torch.isfinite(self.obs_stats.mean).all()):
+        with annotate("ee.fleet.stats"):
+            self.obs_stats = running_update(self.obs_stats, obs, axis=(0,))
+        with annotate("ee.fleet.gate"):
+            finite = bool(torch.isfinite(self.obs_stats.mean).all())
+        if not finite:
             raise FloatingPointError(
                 f"fleet chunk {k}: non-finite observation statistics "
                 "(utils.profiling.debug_nans localizes them)"
             )
-        self.time_window = window_push(self.time_window, time.perf_counter() - t0)
-        chunk_env_steps = self._base_env.batch_size * chunk_steps
-        self.steps_window = window_push(self.steps_window, chunk_env_steps)
-        self.chunks_run += 1
-        self.env_steps += chunk_env_steps
+        with annotate("ee.fleet.readout"):
+            self.time_window.append(time.perf_counter() - t0)
+            chunk_env_steps = self._base_env.batch_size * chunk_steps
+            self.steps_window.append(chunk_env_steps)
+            self.chunks_run += 1
+            self.env_steps += chunk_env_steps
 
         if self.writer is not None:
-            self.writer.append(record, name=f"chunk_{self.chunks_run:06d}")
+            with annotate("ee.fleet.sink"):
+                self.writer.append(record, name=f"chunk_{self.chunks_run:06d}")
         if (
             self.checkpoint_dir
             and self.checkpoint_every
@@ -487,20 +508,23 @@ class FleetRunner:
         ):
             from exciting_environments_torch.utils.checkpoint import save_state
 
-            save_state(
-                self._ckpt_payload(state),
-                os.path.join(self.checkpoint_dir, f"fleet_{self.chunks_run:06d}"),
-            )
+            with annotate("ee.fleet.checkpoint"):
+                save_state(
+                    self._ckpt_payload(state),
+                    os.path.join(self.checkpoint_dir, f"fleet_{self.chunks_run:06d}"),
+                )
         if metric_hook is not None:
-            metric_hook(k, obs, state)
+            with annotate("ee.fleet.hook"):
+                metric_hook(k, obs, state)
 
     def summary(self) -> dict:
         """Loop readout: per-channel observation statistics plus throughput."""
         s = running_summary(self.obs_stats)
-        mean_chunk_seconds = float(window_mean(self.time_window))
+        mean = lambda window: sum(window) / max(len(window), 1)
+        mean_chunk_seconds = mean(self.time_window)
         # steps-per-chunk from the same recent window as the wall time: the
         # lifetime average is wrong whenever chunk sizes varied
-        steps_per_chunk = float(window_mean(self.steps_window))
+        steps_per_chunk = mean(self.steps_window)
         return {
             "chunks": self.chunks_run,
             "env_steps": self.env_steps,

@@ -5,7 +5,9 @@
   device is present, the device, written into ``logdir`` as a Chrome trace
   (open it in Perfetto or ``chrome://tracing``).
 * :func:`annotate` — a named region on the trace's timeline
-  (``torch.profiler.record_function``).
+  (``torch.profiler.record_function``) while a profiler records; one shared
+  ``contextlib.nullcontext()`` otherwise, so the program's spans cost a
+  flag check when nothing records.
 * :class:`Timer` / :func:`benchmark_steps_per_sec` — wall-clock timing that
   waits for the device before reading the clock: ``torch.cuda.synchronize``
   where a CUDA tensor was produced, nothing on the CPU, where PyTorch runs
@@ -49,8 +51,16 @@ def trace(logdir: str):
         prof.export_chrome_trace(os.path.join(logdir, f"trace_{os.getpid()}_{n}.json"))
 
 
+#: what :func:`annotate` returns while no profiler records
+_OFF = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """Named region on the profiler timeline (host and device)."""
+    """Named region on the profiler timeline (host and device).  While no
+    profiler records it is the shared :data:`_OFF`, a null context, and
+    costs a flag check instead of a ``record_function``'s setup."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
     return torch.profiler.record_function(name)
 
 

@@ -9,8 +9,8 @@ and ``RolloutCollector.collect_fused`` through the stepper and PMSM kernels
 against the eager ``collect`` on randomized fleets; the planners and
 filters; ``fit_parameters`` through the stepper and PMSM kernels in
 sim-ahead mode, ``ilqr_plan``, ``fisher_information`` and
-``optimize_excitation`` against the CPU, and checkpoints and profiling on
-the card.
+``optimize_excitation`` against the CPU, and checkpoints, profiling and the
+program's spans (one launch span per counted launch) on the card.
 
 The kernels have no CPU mode, so these tests carry the ``gpu`` marker and skip
 without a card.  The file imports neither JAX nor the JAX package, so on a
@@ -1717,3 +1717,104 @@ def test_device_loader_copies_through_pinned_memory_on_a_copy_stream(tmp_path):
         _, a0 = idx.entry(0)
         _, b0 = next(iter(DeviceLoader([path])))
         assert np.array_equal(b0["['x']"].cpu().numpy(), a0["['x']"])
+
+
+def _profiled(fn):
+    """``fn()`` under ``torch.profiler`` with the card's activity; returns
+    its events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return prof.events()
+
+
+def _host_spans(events):
+    """``(start, end, name)`` of the program's host spans, by start."""
+    return sorted((e.time_range.start, e.time_range.end, e.name) for e in events
+                  if e.name.startswith("ee.") and not str(e.device_type).endswith("CUDA"))
+
+
+@pytest.mark.gpu
+def test_fleet_launch_spans_count_the_launches(tmp_path):
+    """A profiled ``FleetRunner.run`` on the card: the ``ee.launch.stepper.step``
+    spans equal the increase of ``KERNEL.launches["step"]``; each chunk
+    holds the entry point's prepare, launch and rebuild inside its enqueue
+    and opens at most 12 spans with the sink, a checkpoint and the hook;
+    and no ``ee.*`` name is among the device events that
+    ``portbench/tracing.py`` keeps, so the benchmark's launch counts and
+    idle shares count no span."""
+    import sys
+    from pathlib import Path
+
+    from exciting_environments_torch.io import ShardWriter
+    from exciting_environments_torch.ops import random as R
+    from exciting_environments_torch.utils.fleet import FleetRunner
+
+    _cuda()
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from portbench.tracing import TraceSummary
+
+    B, T, n = 4096, 64, 4
+    env = P.Pendulum(batch_size=B)
+    _, s0 = env.vmap_reset(R.split(R.PRNGKey(0, "cuda"), B))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    slabs = [torch.rand((B, T, 1), device="cuda", generator=gen) * 2 - 1 for _ in range(n)]
+    (tmp_path / "ckpt").mkdir()
+    with ShardWriter(str(tmp_path / "run.extpu"), use_native=False) as writer:
+        runner = FleetRunner(env, writer=writer, checkpoint_dir=str(tmp_path / "ckpt"), checkpoint_every=1)
+        runner.run(s0, lambda k: slabs[k], 1, T)  # the library's load outside the trace
+        before = K.KERNEL.launches["step"]
+        events = _profiled(lambda: runner.run(s0, lambda k: slabs[k], n, T, metric_hook=lambda *a: None))
+    spans = _host_spans(events)
+    assert K.KERNEL.launches["step"] - before == n == sum(name == "ee.launch.stepper.step" for *_, name in spans)
+    chunks = [sp for sp in spans if sp[2] == "ee.fleet.chunk"]
+    assert len(chunks) == n
+    for c0, c1, _ in chunks:
+        names = [name for s, e, name in spans if c0 < s and e <= c1]
+        assert len(names) + 1 <= 12
+        assert names[:6] == ["ee.fleet.actions", "ee.fleet.rollout", "ee.rollout.prepare", "ee.launch.stepper.step",
+                             "ee.rollout.rebuild", "ee.fleet.stats"]
+        assert names[6:] == ["ee.fleet.gate", "ee.fleet.readout", "ee.fleet.sink", "ee.fleet.checkpoint",
+                             "ee.fleet.hook"]
+    kept = TraceSummary(events, {}).device
+    assert kept and not [name for *_, name in kept if name.startswith("ee.")]
+
+
+@pytest.mark.gpu
+def test_pmsm_entry_point_spans_on_the_card():
+    """The PMSM entry points' spans on the card, saturated BRUSA:
+    ``collect_fused`` records prepare, launch (one span per counted launch),
+    rebuild and assemble, in that order, and a ``run_policy`` chunk holds
+    the closed-loop kernel's prepare, launch and rebuild in its enqueue."""
+    from exciting_environments_torch.ops import random as R
+    from exciting_environments_torch.ops.kernels import pmsm_closed_loop as PCL
+    from exciting_environments_torch.utils.collect import RolloutCollector
+    from exciting_environments_torch.utils.fleet import FleetRunner
+
+    _cuda()
+    B, T = 1024, 32
+    env = P.PMSM(batch_size=B, saturated=True, motor_variant=P.MotorVariant.BRUSA, control_state=["i_d", "i_q"])
+    _, s0 = env.vmap_reset(R.split(R.PRNGKey(2, "cuda"), B))
+    s0.reference.i_d = torch.linspace(-200.0, -10.0, B, device="cuda")
+    s0.reference.i_q = torch.linspace(-150.0, 150.0, B, device="cuda")
+    actions = 0.01 * torch.ones((B, T, 2), device="cuda")
+    collector = RolloutCollector(env)
+    collector.collect_fused(s0, actions)
+    before = PK.KERNEL.launches["pmsm_step"]
+    names = [name for *_, name in _host_spans(_profiled(lambda: collector.collect_fused(s0, actions)))]
+    assert PK.KERNEL.launches["pmsm_step"] - before == 1
+    assert names == ["ee.rollout.prepare", "ee.launch.pmsm_stepper.pmsm_step", "ee.rollout.rebuild",
+                     "ee.collect.assemble"]
+
+    law = P.AffinePolicy([[-0.5, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.5, 0.0],
+                          [0.0, -0.5, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.5]])
+    runner = FleetRunner(env)
+    runner.run_policy(s0, law, 1, T)
+    before = PCL.PMSM_CL_KERNEL.launches["pmsm_closed_loop"]
+    names = [name for *_, name in _host_spans(_profiled(lambda: runner.run_policy(s0, law, 2, T)))]
+    assert PCL.PMSM_CL_KERNEL.launches["pmsm_closed_loop"] - before == 2
+    assert names.count("ee.launch.pmsm_closed_loop.pmsm_closed_loop") == 2
+    assert names[:5] == ["ee.fleet.chunk", "ee.fleet.rollout", "ee.rollout.prepare",
+                         "ee.launch.pmsm_closed_loop.pmsm_closed_loop", "ee.rollout.rebuild"]
