@@ -24,7 +24,12 @@ identical to repeated ``vmap_step`` calls) and sim-ahead mode
 (:func:`pmsm_fused_sim_ahead`, identical to ``vmap_sim_ahead`` for
 ``obs_stepsize == action_stepsize``: constraint at angles extrapolated with
 the env ``tau``, unwrapped angle accumulation, ``c == 1`` stages reading the
-next applied voltage, patched buffer columns).
+next applied voltage, patched buffer columns).  Step mode has a second
+instantiation for :meth:`RolloutCollector.collect_fused`, the collection's
+epilogue (:func:`pmsm_fused_collect`): the kernel writes each step's
+observation row, reward and flags in place of the saved states.  Its plain
+version is the eager rebuild from the saved states, which CPU tensors and
+collections outside :func:`supports_collect_epilogue` take.
 """
 
 from __future__ import annotations
@@ -53,6 +58,7 @@ from exciting_environments_torch.ops.kernels.stepper import (
 )
 from exciting_environments_torch.ops.solvers import ExplicitRungeKutta
 from exciting_environments_torch.ops.transforms import ROTATION_IM, ROTATION_RE
+from exciting_environments_torch.utils import MinMaxNormalization
 from exciting_environments_torch.utils.profiling import annotate
 
 #: static parameters the kernel reads, in its parameter-slot order
@@ -60,6 +66,12 @@ PMSM_PARAMS = ("p", "r_s", "l_d", "l_q", "psi_p")
 #: the constraint's leaves the kernel reads, in its band-slot order: the DC
 #: link and the (min, max) of the u_d and u_q action bands
 BAND_FIELDS = ("u_dc", "a_d_mn", "a_d_mx", "a_q_mn", "a_q_mx")
+#: the fields the collection's epilogue normalizes, in its band-slot order
+#: (each a ``(min, max)`` pair)
+OBS_FIELDS = ("i_d", "i_q", "omega_el", "torque", "u_d_buffer", "u_q_buffer")
+#: columns of the observation row the epilogue writes (with the two tracked
+#: references)
+N_OBS = 10
 N_CHANNELS = 6
 
 _c_double = ctypes.c_double
@@ -110,10 +122,24 @@ class PmsmArgs(ctypes.Structure):
         ("batch_major", _c_int),
         ("noise_idx", _c_int * 2),
         ("n_noise", _c_int),
+        ("obs_band_value", _c_double * (2 * len(OBS_FIELDS))),
+        ("obs_band_ptr", _c_void_p * (2 * len(OBS_FIELDS))),
+        ("refs", _c_void_p * 2),
+        ("obs", _c_void_p),
+        ("reward", _c_void_p),
+        ("terminated", _c_void_p),
+        ("truncated", _c_void_p),
+        ("collect", _c_int),
     ]
 
 
 KERNEL = KernelLibrary("pmsm_stepper", "pmsm", PmsmArgs, ("pmsm_step", "pmsm_sim_ahead"))
+
+#: fused PMSM collections (:meth:`RolloutCollector.collect_fused` on a
+#: drive) by path: ``"epilogue"`` where the kernel wrote the observations,
+#: rewards and flags (:func:`pmsm_fused_collect`), ``"eager"`` where they were
+#: rebuilt from its saved states
+COLLECT_PATHS = {"epilogue": 0, "eager": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -279,34 +305,62 @@ def plain_pmsm_rollout(env, actions, state0, omega, *, tau, solver=None, props=N
 # ---------------------------------------------------------------------------
 
 
-def kernel_bands(props, batch) -> dict:
-    """The constraint's leaves of ``props`` by :data:`BAND_FIELDS` name: a
-    Python number for a scalar leaf (it folds as Python folds it), a ``(B,)``
-    tensor for a per-batch one (a 0-d tensor is expanded to ``(B,)``);
-    ``None`` where a leaf has another shape (out of the kernel's scope)."""
-    an = props.action_normalizations
-    leaves = [props.static_params.u_dc] + [getattr(getattr(an, n), bound) for n in ("u_d", "u_q")
-                                           for bound in ("min", "max")]
-    bands = {}
-    for name, leaf in zip(BAND_FIELDS, leaves):
+def _kernel_leaves(leaves, batch):
+    """Band leaves as the kernel takes them: a Python number for a scalar
+    leaf (it folds as Python folds it), a ``(B,)`` tensor for a per-batch one
+    (a 0-d tensor is expanded to ``(B,)``); ``None`` where a leaf has another
+    shape (out of the kernel's scope)."""
+    out = []
+    for leaf in leaves:
         if not isinstance(leaf, torch.Tensor):
-            bands[name] = float(leaf)
+            out.append(float(leaf))
         elif leaf.ndim == 0:
-            bands[name] = leaf.expand(batch)
+            out.append(leaf.expand(batch))
         elif tuple(leaf.shape) == (batch,):
-            bands[name] = leaf
+            out.append(leaf)
         else:
             return None
-    return bands
+    return out
+
+
+def kernel_bands(props, batch) -> dict:
+    """The constraint's leaves of ``props`` by :data:`BAND_FIELDS` name, as
+    :func:`_kernel_leaves` takes them; ``None`` out of the kernel's scope."""
+    an = props.action_normalizations
+    leaves = _kernel_leaves([props.static_params.u_dc] + [getattr(getattr(an, n), bound) for n in ("u_d", "u_q")
+                                                          for bound in ("min", "max")], batch)
+    return None if leaves is None else dict(zip(BAND_FIELDS, leaves))
+
+
+def observation_bands(props, batch):
+    """The ``(min, max)`` leaves of the :data:`OBS_FIELDS` normalizations of
+    ``props``, flat in the epilogue's band-slot order, as
+    :func:`_kernel_leaves` takes them; ``None`` where a leaf has another shape
+    or a normalization is not :class:`MinMaxNormalization`'s own (out of the
+    epilogue's scope)."""
+    pn = props.physical_normalizations
+    norms = [getattr(pn, name) for name in OBS_FIELDS]
+    if any(getattr(type(n), "normalize", None) is not MinMaxNormalization.normalize for n in norms):
+        return None
+    return _kernel_leaves([bound for n in norms for bound in (n.min, n.max)], batch)
 
 
 def pmsm_kernel_rollout(env, actions, state0, omega, *, tau, solver=None, props=None, obs_stride=None,
-                        sim_ahead=False, batch_major=False, noise_tm=None, noise_idx=()):
+                        sim_ahead=False, batch_major=False, noise_tm=None, noise_idx=(), epilogue=None):
     """Launch the CUDA PMSM kernel (argument contract: :func:`pmsm_rollout`).
     Outputs are allocated here; the launch is asynchronous on the current
     stream, and a refused launch raises.  Where autograd records the call
     (grad mode on and an input that requires grad), the launch is the
-    forward of the checkpointed VJP (:class:`PmsmRolloutVJP`)."""
+    forward of the checkpointed VJP (:class:`PmsmRolloutVJP`).
+
+    ``epilogue``, the tracked ``(i_d, i_q)`` references (``(B,)`` or 0-d
+    tensors), asks for the collection's epilogue in step mode with
+    ``obs_stride``: the kernel then writes, in place of the saved states,
+    each save's :meth:`PMSM.generate_observation` row, current reward and
+    flags, and ``traj`` is ``(obs (n_saves, B, 10), reward, terminated,
+    truncated (n_saves, B))``, time-major.  It takes no autograd (raises
+    where autograd would record the call) and scalar or ``(B,)``
+    observation bands (:func:`observation_bands`)."""
     solver = env._solver if solver is None else solver
     props = env.env_properties if props is None else props
     params = props.static_params
@@ -351,6 +405,20 @@ def pmsm_kernel_rollout(env, actions, state0, omega, *, tau, solver=None, props=
         if not noise_tm.is_contiguous():
             raise ValueError("the PMSM kernel reads a contiguous noise slab")
     grads = [actions, *state0, omega] + ([noise_tm] if noise_tm is not None else [])
+    obs_bands = refs = None
+    if epilogue is not None:
+        if sim_ahead or obs_stride is None:
+            raise ValueError("the collection's epilogue runs in step mode with saves")
+        obs_bands = observation_bands(props, batch)
+        if obs_bands is None:
+            raise ValueError("the collection's epilogue takes scalar or (batch,) MinMaxNormalization bands")
+        refs = [leaf.expand(batch) if leaf.ndim == 0 else leaf for leaf in epilogue]
+        for name, leaf in zip(("i_d reference", "i_q reference"), refs):
+            _check_leaf(name, leaf, dtype, device, (batch,))
+        for i, leaf in enumerate(obs_bands):
+            if isinstance(leaf, torch.Tensor):
+                _check_leaf(f"observation band {OBS_FIELDS[i // 2]}", leaf, dtype, device, (batch,))
+        grads += refs + [leaf for leaf in obs_bands if isinstance(leaf, torch.Tensor)]
 
     args = PmsmArgs()
     keep = []  # tensors whose pointers the launch reads
@@ -385,6 +453,8 @@ def pmsm_kernel_rollout(env, actions, state0, omega, *, tau, solver=None, props=
         else:
             args.band_value[i] = leaf
     if torch.is_grad_enabled() and any(t.requires_grad for t in grads):
+        if epilogue is not None:
+            raise ValueError("the collection's epilogue is not differentiable: autograd records this call")
         return pmsm_rollout_vjp(env, actions, state0, omega, tau=tau, solver=solver, props=props,
                                 obs_stride=obs_stride, sim_ahead=sim_ahead, batch_major=batch_major,
                                 noise_tm=noise_tm, noise_idx=noise_idx)
@@ -412,7 +482,19 @@ def pmsm_kernel_rollout(env, actions, state0, omega, *, tau, solver=None, props=
     out = [new(batch) for _ in range(6)]
     u_last = [new(batch), new(batch)]
     traj = None
-    if obs_stride is not None:
+    if epilogue is not None:
+        n_saves = n_steps // obs_stride
+        flag = lambda: torch.empty((n_saves, batch), dtype=torch.bool, device=device)
+        traj = (new(n_saves, batch, N_OBS), new(n_saves, batch), flag(), flag())
+        args.obs, args.reward, args.terminated, args.truncated = (t.data_ptr() for t in traj)
+        for i, leaf in enumerate(obs_bands):
+            if isinstance(leaf, torch.Tensor):
+                args.obs_band_ptr[i] = ptr(leaf)
+            else:
+                args.obs_band_value[i] = leaf
+        args.refs[0], args.refs[1] = ptr(refs[0]), ptr(refs[1])
+        args.collect = 1
+    elif obs_stride is not None:
         n_saves = n_steps // obs_stride
         traj = [new(n_saves, batch) if i < 4 or deadtime else None for i in range(6)]
         for i, t in enumerate(traj):
@@ -803,20 +885,7 @@ def pmsm_fused_rollout(env, init_state, actions_norm, obs_stride: int = None,
         return (obs[:, -1] if obs_stride is None else obs), last_state
 
     with annotate("ee.rollout.rebuild"):
-        i_d, i_q, torque, eps_final, buf_d, buf_q = final
-        final_state = structures.replace(
-            init_state,
-            physical_state=env.PhysicalState(
-                u_d_buffer=buf_d, u_q_buffer=buf_q, epsilon=eps_final,
-                i_d=i_d, i_q=i_q, torque=torque, omega_el=omega,
-            ),
-            PRNGKey=init_state.PRNGKey if final_keys is None else final_keys,
-            additions=env.Additions(
-                solver_state=_pmsm_final_solver_state(env, props, i_d, i_q, eps_final, torch.stack(u_last, dim=-1),
-                                                      omega),
-                active_solver_state=torch.ones(env.batch_size, dtype=torch.bool, device=i_d.device),
-            ),
-        )
+        final_state = _final_state(env, init_state, props, final, u_last, omega, final_keys)
         obs_final = env.generate_observation(final_state, props)
         if obs_stride is None:
             if eps_obs is not None:
@@ -829,6 +898,94 @@ def pmsm_fused_rollout(env, init_state, actions_norm, obs_stride: int = None,
             return obs, structures.map_leaves(lambda leaf: leaf.movedim(0, 1) if leaf.ndim >= 2 else leaf,
                                               traj_state), final_state
         return obs, final_state
+
+
+def _final_state(env, init_state, props, final, u_last, omega, final_keys):
+    """The final ``State`` of a step-mode launch from its final leaves
+    ``(i_d, i_q, torque, epsilon, u_d_buffer, u_q_buffer)``, the last applied
+    voltage and, for a stochastic drive, the advanced keys."""
+    i_d, i_q, torque, eps_final, buf_d, buf_q = final
+    return structures.replace(
+        init_state,
+        physical_state=env.PhysicalState(
+            u_d_buffer=buf_d, u_q_buffer=buf_q, epsilon=eps_final,
+            i_d=i_d, i_q=i_q, torque=torque, omega_el=omega,
+        ),
+        PRNGKey=init_state.PRNGKey if final_keys is None else final_keys,
+        additions=env.Additions(
+            solver_state=_pmsm_final_solver_state(env, props, i_d, i_q, eps_final, torch.stack(u_last, dim=-1),
+                                                  omega),
+            active_solver_state=torch.ones(env.batch_size, dtype=torch.bool, device=i_d.device),
+        ),
+    )
+
+
+#: the methods whose arithmetic the epilogue mirrors
+_EPILOGUE_METHODS = ("generate_observation", "generate_reward", "generate_truncated", "generate_terminated",
+                     "current_reward_func", "normalize_state")
+
+
+def supports_collect_epilogue(env) -> bool:
+    """Whether a fused collection over ``env`` is inside the epilogue's scope
+    (:func:`pmsm_fused_collect`), by what the environment shows: a
+    :class:`PMSM` (not a batch split) inside :func:`supports_pmsm_fused`,
+    with the class's own observation, reward, flag and normalization
+    methods, ``control_state == ["i_d", "i_q"]`` (the current reward), no
+    observation noise, and scalar or ``(B,)`` :class:`MinMaxNormalization`
+    bands.  :meth:`RolloutCollector.collect_fused` takes the epilogue only
+    where this holds, the tensors are CUDA tensors and autograd does not
+    record the call (:func:`collect_epilogue_engages`)."""
+    from exciting_environments_torch.models.pmsm import PMSM
+
+    if not isinstance(env, PMSM) or any(getattr(type(env), name) is not getattr(PMSM, name) or name in vars(env)
+                                        for name in _EPILOGUE_METHODS):
+        return False
+    if list(env.control_state) != ["i_d", "i_q"] or env._observation_noise:
+        return False
+    return supports_pmsm_fused(env) and observation_bands(env.env_properties, env.batch_size) is not None
+
+
+def collect_epilogue_engages(env, init_state, actions) -> bool:
+    """Whether :meth:`RolloutCollector.collect_fused` takes the epilogue on
+    these inputs: :func:`supports_collect_epilogue`, CUDA tensors, the
+    tracked references ``(B,)`` or 0-d tensors of the state's dtype, and no
+    autograd recording (on CPU tensors, or where autograd records, the eager
+    rebuild runs)."""
+    if not supports_collect_epilogue(env):
+        return False
+    state0, omega = _start(init_state)
+    refs = (init_state.reference.i_d, init_state.reference.i_q)
+    if state0[0].device.type != "cuda" or not all(
+            isinstance(r, torch.Tensor) and r.dtype == state0[0].dtype and r.shape in ((), (env.batch_size,))
+            for r in refs):
+        return False
+    return not ck.records_grad(actions, state0, omega, refs, env.env_properties)
+
+
+def pmsm_fused_collect(env, init_state, actions_norm):
+    """A fused collection's step-mode launch with the kernel's epilogue:
+    normalized dq voltages ``(B, n_steps, 2)`` in, ``(obs, reward,
+    terminated, truncated, final_state)`` out, with the contract of
+    ``pmsm_fused_rollout(..., obs_stride=1, return_traj_states=True)``
+    followed by :meth:`RolloutCollector._assemble_batch`: post-step
+    observations ``(B, n_steps, 10)``, rewards and the two flags ``(B,
+    n_steps, 1)``, bit for bit, as views of the kernel's time-major outputs
+    with the eager path's shapes and strides.  One launch; no state plane
+    is saved.  Scope: :func:`collect_epilogue_engages` (a process-noise
+    slab is streamed as in :func:`pmsm_fused_rollout`)."""
+    n_steps = actions_norm.shape[1]
+    with annotate("ee.rollout.prepare"):
+        props = env.env_properties
+        state0, omega = _start(init_state)
+        noise_tm, noise_idx, _, _, final_keys = env._noise_streams(init_state, n_steps, n_steps)
+        final, u_last, outputs = pmsm_kernel_rollout(
+            env, actions_norm.contiguous(), state0, omega, tau=env.tau, props=props, obs_stride=1,
+            batch_major=True, noise_tm=noise_tm, noise_idx=noise_idx,
+            epilogue=(init_state.reference.i_d, init_state.reference.i_q))
+    with annotate("ee.rollout.rebuild"):
+        final_state = _final_state(env, init_state, props, final, u_last, omega, final_keys)
+        obs, reward, terminated, truncated = (leaf.movedim(0, 1) for leaf in outputs)
+        return obs, reward[..., None], terminated[..., None], truncated[..., None], final_state
 
 
 def _trajectory_observations(env, init_state, props, traj, keys_saves=None):

@@ -15,8 +15,10 @@ observations, actions, rewards and flags, batch-major) and the final state:
   closed-loop kernel.
 
 Both fused collectors evaluate rewards and flags on the kernel's per-step
-states.  :func:`tile_policy_scan` is the semantic reference of a closed
-loop: a Python loop of ``vmap_step`` driven by a tile-contract policy.
+states, but for a PMSM drive in the open loop, whose kernel writes them
+itself (:meth:`~RolloutCollector.collect_fused`).  :func:`tile_policy_scan`
+is the semantic reference of a closed loop: a Python loop of ``vmap_step``
+driven by a tile-contract policy.
 """
 
 from __future__ import annotations
@@ -185,28 +187,47 @@ class RolloutCollector:
 
     def collect_fused(self, state, actions):
         """Open-loop collection through the rollout kernels, with the contract
-        of :meth:`collect`: the per-step states come out of one launch of the
-        stepper kernel (``"fused"``) or the PMSM kernel (``"pmsm_fused"``),
-        each with a save every step, and rewards and flags are evaluated on
-        them.  On CPU tensors the kernels' plain versions run.
+        of :meth:`collect`: one launch of the stepper kernel (``"fused"``) or
+        the PMSM kernel (``"pmsm_fused"``) per call.
+
+        On a PMSM drive inside
+        :func:`~exciting_environments_torch.ops.kernels.pmsm_stepper.supports_collect_epilogue`
+        (the class's own observation, reward and flags, the current reward of
+        ``control_state = ["i_d", "i_q"]``, no observation noise), on CUDA
+        tensors and where autograd does not record the call, the observations,
+        rewards and flags come out of the kernel itself, written at each step
+        by its epilogue (:func:`~exciting_environments_torch.ops.kernels.pmsm_stepper.pmsm_fused_collect`),
+        bit for bit with the eager path.  Otherwise, and on CPU tensors (the
+        kernels' plain versions), the kernel saves the state of every step and
+        the observations, rewards and flags are evaluated on those states.
+        ``pmsm_stepper.COLLECT_PATHS`` counts a drive's collections by path.
 
         The dispatch is :func:`~exciting_environments_torch.ops.kernels.rollout_path`,
         the environment's kernel scope: an environment outside it (``"scan"``)
         goes to :meth:`collect`.  An environment inside it never does: on CUDA
         tensors a kernel that fails to build or launch raises.
         """
+        from exciting_environments_torch.ops.kernels import pmsm_stepper as pk
         from exciting_environments_torch.ops.kernels import rollout_path
-        from exciting_environments_torch.ops.kernels.pmsm_stepper import pmsm_fused_rollout
         from exciting_environments_torch.ops.kernels.stepper import env_fused_rollout
         from exciting_environments_torch.parallel.mesh import ShardedEnv
 
         path = rollout_path(self.env)
         if path == "scan":
             return self.collect(state, actions)
+        if path == "pmsm_fused":
+            if pk.collect_epilogue_engages(self.env, state, actions):
+                pk.COLLECT_PATHS["epilogue"] += 1
+                obs, reward, terminated, truncated, final_state = pk.pmsm_fused_collect(self.env, state, actions)
+                with annotate("ee.collect.assemble"):
+                    batch = TrajectoryBatch(observations=obs, actions=actions, rewards=reward,
+                                            terminated=terminated, truncated=truncated)
+                return batch, final_state
+            pk.COLLECT_PATHS["eager"] += 1
         if isinstance(self.env, ShardedEnv):  # one launch per shard
             run = type(self.env).fused_rollout
         else:
-            run = pmsm_fused_rollout if path == "pmsm_fused" else env_fused_rollout
+            run = pk.pmsm_fused_rollout if path == "pmsm_fused" else env_fused_rollout
         obs, traj_state, final_state = run(self.env, state, actions, obs_stride=1, return_traj_states=True)
         return self._assemble_batch(obs, actions, traj_state, final_state)
 

@@ -25,6 +25,7 @@ import exciting_environments_tpu as J
 from exciting_environments_torch.core import structures
 from exciting_environments_torch.ops import random as R
 from exciting_environments_torch.ops.kernels import rollout_path
+from exciting_environments_torch.utils import MinMaxNormalization
 from exciting_environments_torch.utils import randomize as PR
 from exciting_environments_torch.utils.collect import RolloutCollector
 from exciting_environments_torch.utils.convert import state_from_numpy
@@ -189,3 +190,115 @@ def test_collect_policy_matches_jax():
     other, _ = RolloutCollector(pe).collect_policy(policy, ps, R.PRNGKey(6, "cpu"), 12)
     assert not torch.equal(other.actions, batch.actions)
     assert float(batch.actions.abs().max()) <= 1.0
+
+
+def _brusa_config(batch=16, cls=P.PMSM, **overrides):
+    """The benchmark's ``pmsm_brusa`` configuration (``portbench/configs``)
+    at a small batch on the CPU, with per-drive ``r_s`` as its cell draws
+    it; ``overrides`` go to the constructor."""
+    import json
+    from pathlib import Path
+
+    cfg = json.loads((Path(__file__).parents[1] / "portbench" / "configs" / "pmsm_brusa.json").read_text())
+    kw = dict(cfg["kwargs"], motor_variant=P.MotorVariant[cfg["kwargs"]["motor_variant"]])
+    params = {**vars(P.MotorVariant.BRUSA.get_params().static_params), **cfg["static_params"],
+              "r_s": torch.linspace(0.015, 0.021, batch, dtype=torch.float32)}
+    return cls(batch_size=batch, device="cpu", dtype=getattr(torch, cfg["dtype"]),
+                  **{**kw, "static_params": params, **overrides})
+
+
+def test_the_benchmark_configuration_is_inside_the_collect_epilogue():
+    """The benchmark's drive is inside the epilogue's scope; on CPU tensors
+    a collection still does not engage it."""
+    from exciting_environments_torch.ops.kernels import pmsm_stepper as PK
+
+    env = _brusa_config()
+    assert PK.supports_collect_epilogue(env)
+    _, st = env.vmap_reset()
+    assert not PK.collect_epilogue_engages(env, st, torch.zeros((16, 4, 2)))
+
+
+class _OwnReward(P.PMSM):
+    def generate_reward(self, state, action, env_properties):
+        return 2 * super().generate_reward(state, action, env_properties)
+
+
+class _OwnNormalization(MinMaxNormalization):
+    def normalize(self, denormalized_value):
+        return super().normalize(denormalized_value) * 0.5
+
+
+def _out_of_epilogue(case):
+    from exciting_environments_torch.parallel.mesh import ShardedEnv, make_batch_mesh
+
+    if case == "pendulum":
+        return P.Pendulum(batch_size=16, control_state=["theta"], device="cpu", dtype=torch.float32)
+    if case == "sharded":
+        return ShardedEnv(_brusa_config(), make_batch_mesh(["cpu"] * 2))
+    if case == "own_reward":
+        return _brusa_config(cls=_OwnReward)
+    if case == "own_observation":
+        env = _brusa_config()
+        env.generate_observation = lambda state, props: P.PMSM.generate_observation(env, state, props)
+        return env
+    if case == "own_normalization":
+        norms = dict(vars(P.MotorVariant.BRUSA.get_params().physical_normalizations))
+        norms["torque"] = _OwnNormalization(min=-200, max=200)
+        return _brusa_config(physical_normalizations=norms)
+    overrides = {"torque_reward": dict(control_state=["torque"]),
+                 "both_rewards": dict(control_state=["i_d", "i_q", "torque"]),
+                 "swapped_references": dict(control_state=["i_q", "i_d"]),
+                 "observation_noise": dict(observation_noise={"i_d": 0.01}),
+                 "deadtime_2": dict(static_params={**vars(P.MotorVariant.BRUSA.get_params().static_params),
+                                                   "deadtime": 2})}[case]
+    return _brusa_config(**overrides)
+
+
+@pytest.mark.parametrize("case", ["pendulum", "sharded", "own_reward", "own_observation", "own_normalization",
+                                  "torque_reward", "both_rewards", "swapped_references", "observation_noise",
+                                  "deadtime_2"])
+def test_collect_epilogue_scope_excludes(case):
+    """Outside the epilogue's scope: another environment, a batch split,
+    another reward, observation or normalization, another ``control_state``,
+    observation noise, or a drive outside the kernel's own scope."""
+    from exciting_environments_torch.ops.kernels import pmsm_stepper as PK
+
+    assert not PK.supports_collect_epilogue(_out_of_epilogue(case))
+
+
+def test_observation_bands_take_scalars_and_batch_leaves():
+    """The epilogue's bands: Python numbers for scalar leaves, the ``(B,)``
+    tensor of a per-drive one, in :data:`OBS_FIELDS` order."""
+    from exciting_environments_torch.ops.kernels import pmsm_stepper as PK
+
+    norms = dict(vars(P.MotorVariant.BRUSA.get_params().physical_normalizations))
+    i_d_min = torch.linspace(-250.0, -220.0, 16)
+    norms["i_d"] = MinMaxNormalization(min=i_d_min, max=0)
+    env = _brusa_config(physical_normalizations=norms)
+    bands = PK.observation_bands(env.env_properties, 16)
+    assert len(bands) == 2 * len(PK.OBS_FIELDS) and torch.equal(bands[0], i_d_min)
+    assert bands[1:4] == [0.0, -250.0, 250.0] and all(isinstance(b, float) for b in bands[1:])
+    assert PK.supports_collect_epilogue(env)
+
+
+@pytest.mark.parametrize("saturated", [True, False])
+def test_collect_fused_on_cpu_takes_the_eager_rebuild(saturated):
+    """On CPU tensors ``collect_fused`` rebuilds from the plain version's
+    states, counted under ``"eager"``, and equals ``collect``."""
+    from exciting_environments_torch.ops.kernels import pmsm_stepper as PK
+
+    env = _brusa_config(batch=8, saturated=saturated)
+    assert PK.supports_collect_epilogue(env)
+    _, st = env.vmap_reset(R.split(R.PRNGKey(3, "cpu"), 8))
+    st.reference.i_d = torch.linspace(-200.0, -10.0, 8)
+    st.reference.i_q = torch.linspace(-150.0, 150.0, 8)
+    acts = torch.as_tensor(np.random.default_rng(0).uniform(-0.3, 0.3, (8, 5, 2)), dtype=torch.float32)
+    col = RolloutCollector(env)
+    paths = dict(PK.COLLECT_PATHS)
+    batch_f, final_f = col.collect_fused(st, acts)
+    assert PK.COLLECT_PATHS == {"epilogue": paths["epilogue"], "eager": paths["eager"] + 1}
+    batch_s, final_s = col.collect(st, acts)
+    _equal(batch_f, batch_s)
+    assert batch_f.observations.shape == (8, 5, 10) and batch_f.rewards.shape == (8, 5, 1)
+    for name in ("i_d", "i_q", "epsilon", "u_d_buffer", "u_q_buffer"):
+        assert torch.equal(getattr(final_f.physical_state, name), getattr(final_s.physical_state, name)), name

@@ -1279,6 +1279,112 @@ def test_collect_fused_raises_when_the_kernel_fails(monkeypatch):
         monkeypatch.undo()
 
 
+COLLECTED = ("observations", "actions", "rewards", "terminated", "truncated")
+
+
+def _epilogue_case(case, dtype, **overrides):
+    """A BRUSA fleet for the collection's epilogue with keyed starts, drawn
+    (i_d, i_q) references and an APRBS slab of 24 steps (23 for ``odd_t``),
+    B = 4,173: ``ragged`` 1,000 drives (not a multiple of 128), ``deadtime0``,
+    ``linear`` (unsaturated), ``batch_band`` (per-drive (B,) i_d and torque
+    bands), ``process_noise`` (exact mode on i_q); ``overrides`` go to the
+    constructor."""
+    from exciting_environments_torch.ops import random as R
+    from exciting_environments_torch.ops.signals import aprbs
+    from exciting_environments_torch.utils import MinMaxNormalization
+
+    batch, steps = (1000 if case == "ragged" else 4096 + 77), (23 if case == "odd_t" else 24)
+    brusa = P.MotorVariant.BRUSA.get_params()
+    kw = dict(saturated=case != "linear", motor_variant=P.MotorVariant.BRUSA, control_state=["i_d", "i_q"])
+    if case == "deadtime0":
+        kw["static_params"] = {**vars(brusa.static_params), "deadtime": 0}
+    if case == "batch_band":
+        line = lambda lo, hi: torch.linspace(lo, hi, batch, device="cuda", dtype=dtype)
+        norms = dict(vars(brusa.physical_normalizations))
+        norms["i_d"] = MinMaxNormalization(min=line(-250.0, -220.0), max=0)
+        norms["torque"] = MinMaxNormalization(min=-200, max=line(150.0, 250.0))
+        kw["physical_normalizations"] = norms
+    if case == "process_noise":
+        kw["process_noise"] = {"i_q": 0.5}
+    env = P.PMSM(batch_size=batch, dtype=dtype, **{**kw, **overrides})
+    state = env.vmap_reset(R.split(R.PRNGKey(1, "cuda"), batch))[1]
+    state.reference.i_d = torch.linspace(-200.0, -10.0, batch, device="cuda", dtype=dtype)
+    state.reference.i_q = torch.linspace(-150.0, 150.0, batch, device="cuda", dtype=dtype)
+    state.reference.torque = torch.linspace(-100.0, 100.0, batch, device="cuda", dtype=dtype)
+    acts = aprbs(R.PRNGKey(2, "cuda"), batch, steps, 2, hold_min=2, hold_max=9, minval=-0.4, maxval=0.4, dtype=dtype)
+    return env, state, acts
+
+
+def _eager_rebuild(env, state, acts):
+    """The collection as the eager path builds it: the kernel's saved states,
+    then the observations, rewards and flags evaluated on them."""
+    from exciting_environments_torch.utils.collect import RolloutCollector
+
+    obs, traj_state, final = PK.pmsm_fused_rollout(env, state, acts, obs_stride=1, return_traj_states=True)
+    return RolloutCollector(env)._assemble_batch(obs, acts, traj_state, final)
+
+
+def _same_collection(got, want):
+    """Two ``(TrajectoryBatch, final_state)`` equal bit for bit, with the same
+    shapes, dtypes and strides."""
+    for name in COLLECTED:
+        a, b = getattr(got[0], name).detach(), getattr(want[0], name).detach()
+        assert (a.shape, a.dtype, a.stride()) == (b.shape, b.dtype, b.stride()), name
+        assert torch.equal(a, b), name
+    for name in ("i_d", "i_q", "epsilon", "torque", "u_d_buffer", "u_q_buffer", "omega_el"):
+        assert torch.equal(getattr(got[1].physical_state, name), getattr(want[1].physical_state, name)), name
+    assert torch.equal(got[1].PRNGKey, want[1].PRNGKey)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["ragged", "odd_t", "deadtime0", "linear", "batch_band", "process_noise"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_collect_epilogue_equals_the_eager_rebuild(case, dtype):
+    """``collect_fused`` on a drive inside the epilogue's scope: one
+    ``pmsm_step`` launch whose epilogue writes the observations, rewards and
+    flags, counted under ``"epilogue"``, bit for bit with the eager rebuild
+    from the saved states, in its shapes and strides."""
+    _cuda()
+    from exciting_environments_torch.utils.collect import RolloutCollector
+
+    env, state, acts = _epilogue_case(case, dtype)
+    assert PK.supports_collect_epilogue(env)
+    paths, launches = dict(PK.COLLECT_PATHS), PK.KERNEL.launches["pmsm_step"]
+    got = RolloutCollector(env).collect_fused(state, acts)
+    torch.cuda.synchronize()
+    assert PK.COLLECT_PATHS == {"epilogue": paths["epilogue"] + 1, "eager": paths["eager"]}
+    assert PK.KERNEL.launches["pmsm_step"] == launches + 1
+    _same_collection(got, _eager_rebuild(env, state, acts))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["torque_reward", "observation_noise", "grad"])
+def test_collect_fused_outside_the_epilogue_takes_the_eager_rebuild(case):
+    """Out of the epilogue's scope (a torque reward, observation noise, or an
+    input that autograd records) ``collect_fused`` rebuilds from the saved
+    states, counted under ``"eager"``, and still equals the eager path (the
+    epilogue's result where only autograd differs)."""
+    _cuda()
+    from exciting_environments_torch.utils.collect import RolloutCollector
+
+    kw = {"torque_reward": dict(control_state=["torque"]),
+          "observation_noise": dict(observation_noise={"i_d": 0.01}), "grad": {}}[case]
+    env, state, acts = _epilogue_case("ragged", torch.float32, **kw)
+    col = RolloutCollector(env)
+    want = _eager_rebuild(env, state, acts) if case != "grad" else col.collect_fused(state, acts)
+    assert PK.supports_collect_epilogue(env) == (case == "grad")
+    paths, launches = dict(PK.COLLECT_PATHS), PK.KERNEL.launches["pmsm_step"]
+    if case == "grad":
+        acts = acts.clone().requires_grad_(True)
+    with torch.enable_grad():
+        got = col.collect_fused(state, acts)
+    torch.cuda.synchronize()
+    assert PK.COLLECT_PATHS == {"epilogue": paths["epilogue"], "eager": paths["eager"] + 1}
+    assert PK.KERNEL.launches["pmsm_step"] == launches + 1
+    assert got[0].observations.requires_grad == (case == "grad")
+    _same_collection(got, want)
+
+
 def _planning_case(kind, dtype, batch=64):
     """A tracking Pendulum or a saturated BRUSA drive on the card with drawn
     references, the kernel library that plans it, and its launch mode."""
