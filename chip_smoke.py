@@ -149,14 +149,17 @@ Phases (any failure raises and the script exits non-zero):
     B = 4,096 and 4,141, T = 64, tolerance 0.0 (float32 and float64, Euler
     and RK4, with and without saves, ``u_dc = 400``, the sensorless tile on
     its environment's sensor slab in both noise modes and on a slab with
-    NaN flux columns, a quarter of each fleet starting cold); the refusal
-    of a tile over a per-batch parameter before a launch; the main cases
-    from a cold start at B = 65,536 x T = 4,096, float32, Euler (rows
-    2g-2i: the FOC tile, the sensorless tile on 0.3 A sensors with its
-    draws in fast mode, the EESM tile), one launch each through
-    ``env.fused_closed_loop``, kernel vs plain at full size, kernel and
-    entry-point ms and the bound; and control quality as the JAX tests
-    assert it, at B = 4,096;
+    NaN flux columns, a quarter of each fleet starting cold); both FOC
+    tiles on per-drive speeds and torque setpoints (the benchmark cell's
+    machine and traffic), float32 and float64, ragged B, tolerance 0.0,
+    before and after the setpoints change; the refusal of a tile over a
+    per-batch parameter before a launch; the main cases from a cold start
+    at B = 65,536 x T = 4,096, float32, Euler (rows 2g-2i: the FOC tile,
+    the sensorless tile on 0.3 A sensors with its draws in fast mode, the
+    EESM tile) and the benchmark cell's chunk (the per-drive sensorless
+    tile at T = 2,048), one launch each through ``env.fused_closed_loop``,
+    kernel vs plain at full size, kernel and entry-point ms and the bound;
+    and control quality as the JAX tests assert it, at B = 4,096;
 17. stochastic simulation (``phase_draws``, ``phase_noise_pendulum``,
     ``phase_noise_pmsm``, ``phase_noise_closed_loops``): the threefry
     streams of ``ops/random.py`` on the card against the CPU at B = 65,536
@@ -341,6 +344,8 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 DEVICE = "cuda"
 B_MAIN, T_MAIN = 65536, 4096
+#: the steps of one chunk of the benchmark cell scim-sensorless-foc-fleet-t2048
+T_SCIM = 2048
 T_CHECK = 64
 T_PMSM, T_PMSM_LONG = 256, 4096
 SOURCE = "exciting_environments_torch/csrc/stepper.cu"
@@ -1538,7 +1543,8 @@ def cl_policy_ops(spec, n_action):
 
 def cl_bound(env, spec, batch, n_steps, n_saves, n_carry, n_refs, n_obs_noise=0, n_proc_noise=0, itemsize=4):
     """Least time for the closed-loop kernel's work: its inputs (state,
-    references, carry, per-batch parameters, policy parameters, noise slabs)
+    references, carry, per-batch parameters, policy parameters and per-drive
+    planes, noise slabs)
     read once and its outputs (final state and carry, saves) written once,
     over the memory rate; or its operations over the float32 rate (integer
     operations counted at that rate too), whichever is larger."""
@@ -1547,7 +1553,7 @@ def cl_bound(env, spec, batch, n_steps, n_saves, n_carry, n_refs, n_obs_noise=0,
     n, a = len(env._ode_state_fields), env.action_dim
     params = env.env_properties.static_params
     n_pb = sum(isinstance(getattr(params, p), torch.Tensor) for p in env._kernel_params)
-    nbytes = itemsize * (batch * (2 * n + n_refs + 2 * n_carry + n_pb) + spec.flat.numel()
+    nbytes = itemsize * (batch * (2 * n + n_refs + 2 * n_carry + n_pb + len(spec.planes)) + spec.flat.numel()
                          + n_saves * batch * (n + a + n_carry) + n_steps * batch * (n_obs_noise + n_proc_noise))
     a_rows, b = _stage_rows(env._solver)
     comb = lambda coeffs: sum(2 - (c == 1.0) for c in coeffs if c != 0.0) + 1 if any(coeffs) else 0
@@ -2996,6 +3002,46 @@ def tile_env(ex, kind, B, gen, dtype=torch.float32, solver="euler", u_dc=None, n
     return env, state, policy, carry
 
 
+#: the configuration and traffic of the benchmark cell scim-sensorless-foc-fleet-t2048: gym-electric-motor's
+#: squirrel-cage machine, each drive at its own speed and torque setpoint
+SCIM_CONFIG = ROOT / "portbench" / "configs" / "scim_gem.json"
+SCIM_TRAFFIC = ROOT / "portbench" / "traffic" / "foc-operating-points-t2048.json"
+
+
+def drive_env(ex, kind, B, gen, dtype=torch.float32, solver="euler", noise_mode=None, seed=SEED + 70,
+              cold_share=1.0):
+    """``(env, state, policy, carry)`` of a fleet whose drives each hold
+    their own operating point, on the benchmark cell's machine, law and
+    traffic (``SCIM_CONFIG``, ``SCIM_TRAFFIC``): per-drive speed and torque
+    setpoint drawn uniformly over the traffic's ranges, ``make_foc_tile``
+    (kind "foc") or ``make_sensorless_foc_tile`` ("sensorless", one Kalman
+    filter per drive on the configuration's sensor levels; ``noise_mode``:
+    the plant's own current sensors at those levels, for a slab).  The
+    leading ``cold_share`` of the fleet starts cold, the rest from a random
+    reset."""
+    cfg, mix = json.loads(SCIM_CONFIG.read_text()), json.loads(SCIM_TRAFFIC.read_text())
+    uniform = lambda lo, hi: (lo + (hi - lo) * torch.rand(B, generator=gen, device=DEVICE, dtype=torch.float64))
+    omega = uniform(*mix["params"]["omega"]).to(dtype)
+    torque = uniform(*mix["setpoints"]["torque"]).to(dtype)
+    params = {**ex.InductionMachine._default_static_params(), **cfg["static_params"], "omega": omega}
+    bands = {name: ex.MinMaxNormalization(min=lo, max=hi) for name, (lo, hi) in cfg["action_normalizations"].items()}
+    kw = {**cfg["kwargs"], "solver": solver}
+    if noise_mode is not None:
+        kw.update(observation_noise=cfg["sensor_std"], noise_mode=noise_mode)
+    env = make_env(ex.InductionMachine, B, dtype, static_params=params, action_normalizations=bands, **kw)
+    if kind == "sensorless":
+        policy, carry = ex.make_sensorless_foc_tile(env, torque_ref=torque, measurement_std=cfg["sensor_std"],
+                                                    **cfg["law"])
+    else:
+        policy, carry = ex.make_foc_tile(env, torque_ref=torque, **cfg["law"])
+    _, state = env.vmap_reset(noise_keys(B, seed)) if env._has_noise else env.vmap_reset(rng=gen)
+    phys = state.physical_state
+    mask = torch.arange(B, device=DEVICE) < int(B * cold_share)
+    for f in env._ode_state_fields:
+        setattr(phys, f, torch.where(mask, torch.zeros_like(getattr(phys, f)), getattr(phys, f)))
+    return env, state, policy, carry
+
+
 def phase_foc(ex, K, CL):
     """The machines' drive-control tiles (``utils/foc.py``'s FocPolicy,
     SensorlessFocPolicy and EesmCurrentPolicy, functors of csrc/foc_laws.cuh
@@ -3004,13 +3050,18 @@ def phase_foc(ex, K, CL):
     and RK4, with and without saves, the EESM with u_dc = 400, the
     sensorless tile on its environment's sensor slab in exact and fast mode
     and on a slab whose flux columns are NaN, a quarter of each fleet
-    starting cold); the refusal of a per-batch static parameter before a
-    launch; the main cases at B = 65,536 x T = 4,096, float32, Euler, the
-    default tau, cold start (rows 2g-2i): the FOC tile, the sensorless tile
-    on 0.3 A sensors (the draws in fast mode; the kernel timed on the
-    pre-drawn slab) and the EESM's tile, each one launch through
-    ``env.fused_closed_loop``, kernel vs plain at full size, kernel and
-    entry-point ms and the bound; then control quality on the card as the
+    starting cold); both FOC tiles on per-drive operating points (the
+    benchmark cell's machine, law and traffic: ``drive_env``), float32 and
+    float64, ragged B, a quarter cold, tolerance 0.0 with one launch of the
+    per-drive variant, and again after the setpoints are written in place;
+    the refusal of a per-batch static parameter before a launch; the main
+    cases at B = 65,536 x T = 4,096, float32, Euler, the default tau, cold
+    start (rows 2g-2i): the FOC tile, the sensorless tile on 0.3 A sensors
+    (the draws in fast mode; the kernel timed on the pre-drawn slab) and the
+    EESM's tile, each one launch through ``env.fused_closed_loop``, kernel
+    vs plain at full size, kernel and entry-point ms and the bound; the
+    benchmark cell's chunk (the per-drive sensorless tile, B = 65,536 x
+    T = 2,048, cold start) likewise; then control quality on the card as the
     JAX tests assert it (B = 4,096): the FOC tile's flux within 5% of 0.7 Vs
     and torque within 5% of 8 Nm after 4,000 steps, the sensorless tile's
     flux within 3%, torque within 5% and belief flux within 5% of the true
@@ -3064,9 +3115,49 @@ def phase_foc(ex, K, CL):
             raise AssertionError(f"{label}: the tile's kernel disagrees with its plain version ({err!r}), "
                                  f"finite {finite}, launches {launched}")
 
-    # a tile folded from per-batch parameters runs on the CPU only
+    # per-drive operating points (the benchmark cell's machine, law and traffic): the tile against its plain
+    # version, then again after its torque setpoints are written in place, which re-packs the kernel's planes
+    drive_cases = [
+        # (label, kind, dtype, solver, B, stride, noise mode of a sensor slab)
+        ("foc per drive, ragged B", "foc", torch.float32, "euler", 4141, None, None),
+        ("foc per drive float64, rk4, saves every 4, ragged B", "foc", torch.float64, "rk4", 4141, 4, None),
+        ("sensorless per drive, saves every step, ragged B", "sensorless", torch.float32, "euler", 4141, 1, None),
+        ("sensorless per drive float64, ragged B", "sensorless", torch.float64, "euler", 4141, None, None),
+        ("sensorless per drive, exact-mode slab, saves every 4", "sensorless", torch.float32, "euler", 4096, 4,
+         "exact"),
+    ]
+    for i, (label, kind, dtype, solver, B, stride, slab) in enumerate(drive_cases):
+        env, state, policy, carry = drive_env(ex, kind, B, gen, dtype, solver, noise_mode=slab, seed=SEED + 71 + i,
+                                              cold_share=0.25)
+        y0 = tuple(getattr(state.physical_state, f) for f in env._ode_state_fields)
+        kw = dict(traj_stride=stride, policy_carry=carry)
+        if slab is not None:
+            kw.update(CL.closed_loop_noise(env, state, T_CHECK, env.env_properties).slabs)
+        variant = variants[kind] + "_per_drive"
+        for when in ("built", "setpoints written in place"):
+            if when != "built":
+                policy.law.torque_ref.mul_(-0.5)
+            before, before_v = CL.CL_KERNEL.launches["closed_loop"], CL.VARIANT_LAUNCHES[variant]
+            err, finite = cl_deviation(CL, env, policy, T_CHECK, y0, (), **kw)
+            launched = (CL.CL_KERNEL.launches["closed_loop"] - before, CL.VARIANT_LAUNCHES[variant] - before_v)
+            log(f"[foc kernel vs plain] {label} ({when}), B={B} T={T_CHECK}: max abs {err!r}, finite {finite}, "
+                f"launches {launched[0]} ({variant} {launched[1]})")
+            if err != 0.0 or not finite or launched != (1, 1):
+                raise AssertionError(f"{label} ({when}): the per-drive tile's kernel disagrees with its plain "
+                                     f"version ({err!r}), finite {finite}, launches {launched}")
+
+    # the per-drive observer folds all of A but the speed's cross terms, which holds for explicit Euler alone
+    try:
+        drive_env(ex, "sensorless", 256, gen, solver="rk4")
+    except ValueError as e:
+        log(f"[foc] a per-drive sensorless tile under rk4 refused when built: {str(e)[:100]}")
+    else:
+        raise AssertionError("a per-drive sensorless tile under rk4 was built")
+
+    # a tile folded from a per-batch machine parameter runs on the CPU only
+    # (a per-batch speed and torque setpoint run per drive in the kernel)
     params = dict(ex.InductionMachine._default_static_params())
-    params["omega"] = np.linspace(200.0, 400.0, 256)
+    params["l_m"] = np.linspace(0.2, 0.225, 256)
     fleet = make_env(ex.InductionMachine, 256, static_params=params)
     tile, carry = ex.make_foc_tile(fleet, **FOC_REFS)
     _, fstate = fleet.vmap_reset(rng=gen)
@@ -3074,9 +3165,9 @@ def phase_foc(ex, K, CL):
     try:
         fleet.fused_closed_loop(fstate, tile, 8, policy_carry=carry)
     except ValueError as e:
-        log(f"[foc] per-batch omega refused before a launch: {str(e)[:100]}")
+        log(f"[foc] per-batch l_m refused before a launch: {str(e)[:100]}")
     else:
-        raise AssertionError("a FOC tile over a per-batch omega was not refused on the card")
+        raise AssertionError("a FOC tile over a per-batch l_m was not refused on the card")
     if CL.CL_KERNEL.launches["closed_loop"] != before:
         raise AssertionError("the refused tile launched")
 
@@ -3131,6 +3222,46 @@ def phase_foc(ex, K, CL):
                              CL_REPLACES))
         del out, outk, noise, slabs, kw
         torch.cuda.empty_cache()
+
+    # the benchmark cell's chunk: the per-drive sensorless tile over its fleet from a cold start, B = 65,536 x
+    # 2,048 steps, float32, Euler
+    name, T = "induction_machine_sensorless_foc_per_drive", T_SCIM
+    env, state, policy, carry = drive_env(ex, "sensorless", B, gen)
+    y0 = tuple(getattr(state.physical_state, f) for f in env._ode_state_fields)
+    CL.CL_KERNEL.reset_counts()
+    before_v = CL.VARIANT_LAUNCHES["sensorless_foc_per_drive"]
+    out = env.fused_closed_loop(state, policy, T, policy_carry=carry)
+    torch.cuda.synchronize()
+    launches = (CL.CL_KERNEL.launches["closed_loop"], CL.VARIANT_LAUNCHES["sensorless_foc_per_drive"] - before_v)
+    if launches != (1, 1) or not bool(torch.isfinite(out[0]).all()):
+        raise AssertionError(f"{name}: launches {launches}, finite {bool(torch.isfinite(out[0]).all())}")
+    kw = dict(tau=env.tau, solver=env._solver, props=env.env_properties, policy_carry=carry)
+    kernel = lambda: CL.kernel_closed_loop(env, y0, policy, T, **kw)
+    outk = cl_flat(kernel())
+    entry_final = [getattr(out[1].physical_state, f) for f in env._ode_state_fields] + list(out[2])
+    t0 = time.perf_counter()
+    outp = cl_flat(CL.plain_closed_loop(env, y0, policy, T, **kw))
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err, err_entry = max_abs(outk, outp), max_abs(outk, entry_final)
+    if err != 0.0 or err_entry != 0.0:
+        raise AssertionError(f"{name}: kernel disagrees with its plain version at the cell's size ({err!r}, "
+                             f"entry point {err_entry!r})")
+    del outp
+    ms = time_ms(kernel)
+    entry_ms = time_ms(lambda: env.fused_closed_loop(state, policy, T, policy_carry=carry))
+    spec = policy.kernel_spec(torch.float32, DEVICE)
+    (bound_ms, bound_by), per_step = cl_bound(env, spec, B, T, 0, len(carry), 0)
+    log(f"[foc main] {name} (the cell scim-sensorless-foc-fleet-t2048's chunk) B={B} T={T} tau={env.tau} float32, "
+        f"cold start, {len(spec.planes)} per-drive planes: launches {launches[0]}; kernel {ms!r} ms = "
+        f"{B * T / ms * 1e3:.4e} env-steps/s; env.fused_closed_loop {entry_ms!r} ms (kernel {ms / entry_ms:.1%}); "
+        f"bound {bound_ms!r} ms ({bound_by}, {per_step} operations per step, policy "
+        f"{cl_policy_ops(spec, env.action_dim)}), {bound_ms / ms:.1%} of the bound; plain {plain_ms!r} ms (one "
+        f"run); max abs {err!r}")
+    entries.append(entry(f"closed_loop_{name}", launches[0], err, ms, plain_ms, bound_ms, bound_by, CL_SOURCE,
+                         CL_REPLACES))
+    del out, outk
+    torch.cuda.empty_cache()
 
     # control quality on the card (tests/test_foc.py:218-228, :289-310, tests/test_eesm.py:247-265)
     bq = B_QUALITY

@@ -31,7 +31,9 @@
 //     through launch_env_dtype's Tiles): the induction machine's
 //     field-oriented law on the true state (FocTile) and behind a stationary
 //     Kalman flux observer (SensorlessFocTile, eight carry planes), and the
-//     EESM's current PIs (EesmCurrentTile).
+//     EESM's current PIs (EesmCurrentTile); the two FOC tiles also read
+//     each drive's speed, torque setpoint and observer gains from per-drive
+//     planes (FocDriveTile, SensorlessFocDriveTile).
 // Their parameters arrive as one flat vector that each block copies into
 // shared memory once (the counterpart of the TPU's SMEM scalar path).  The
 // wrapper picks the instantiation (args.variant, ops/kernels/closed_loop.py::
@@ -83,7 +85,7 @@
 //
 // The build.  Eight environment functors (eleven with the fast-math ones)
 // x 2 working types x 4 stage counts x 5 policy instantiations make 440
-// kernels, and the machines' tiles 24 more (16 on the induction machine, 8
+// kernels, and the machines' tiles 40 more (32 on the induction machine, 8
 // on the EESM); each environment's are a translation unit of their own
 // (closed_loop/<environment>.cu), compiled in parallel and linked with
 // closed_loop.cu's entry point into one library.
@@ -106,6 +108,7 @@
 #define MAX_OBS (MAX_STATE + MAX_REFS)
 #define MAX_CARRY 8
 #define MAX_POLICY_PARAMS 4096
+#define MAX_POLICY_PLANES 16
 
 // Mirrored field for field by ClosedLoopArgs in ops/kernels/closed_loop.py.
 struct ClosedLoopArgs {
@@ -153,6 +156,9 @@ struct ClosedLoopArgs {
     int env_id;
     int fast;                           // the environment's fast_math (FastMath functors and wrap)
     int variant;                        // the policy's instantiation (V_* below)
+    // appended after every earlier field, whose offsets stay as they were
+    const void* policy_planes[MAX_POLICY_PLANES];  // per-drive policy constants, (B,) each
+    int n_planes;
 };
 
 // The policy instantiations, in the order of ops/kernels/closed_loop.py::VARIANTS;

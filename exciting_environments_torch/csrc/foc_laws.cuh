@@ -1,6 +1,8 @@
 // Drive-control tiles of the closed-loop kernel (closed_loop.cuh) for the
 // induction machine and the EESM: the functors of utils/foc.py's FocPolicy
-// (id 4), SensorlessFocPolicy (id 5) and EesmCurrentPolicy (id 6).  They run
+// (id 4), SensorlessFocPolicy (id 5) and EesmCurrentPolicy (id 6), and the
+// two FOC tiles of a fleet whose drives each hold their own operating point
+// (FocDriveTile, SensorlessFocDriveTile).  They run
 // inside the closed loop of exciting_environments_tpu/ops/pallas/stepper.py::
 // _make_closed_loop_kernel, which traces the JAX package's Python tiles
 // (utils/foc.py::make_foc_tile, make_sensorless_foc_tile,
@@ -38,6 +40,20 @@
 // A or B coefficient is exactly 0.0 (the bit masks of the flat vector,
 // from the Python doubles) and sums from 0.0 in index order: a NaN in a column
 // the tile does not measure never reaches the action.
+//
+// Per drive.  A fleet spread over the torque-speed plane gives each drive its
+// own speed omega and torque setpoint, and the sensorless tile one Kalman
+// filter per drive at that drive's speed.  Those constants arrive as (B,)
+// planes (ClosedLoopArgs.policy_planes, in the order of the Python classes'
+// PLANES); prepare loads the drive's values into registers once, and act
+// reads them there: FocDriveTile and SensorlessFocDriveTile run the folded
+// tiles' bodies (FocTile::run, SensorlessFocTile::observe) on a DrivePoint
+// and, for the observer, on gains read from registers.  The plain tile computes them on tensors, so the rules
+// change with them: the torque current is a true division, T* / (TQ_GAIN
+// denom), and the fallback frame's angle is the plane omega * tau (rounded
+// to the working type, as the tensor product is) times k.  Every other
+// constant stays folded in the flat vector, read as the folded tiles read
+// it.  The observer's masks hold a term that is non-zero for some drive.
 
 #pragma once
 
@@ -78,8 +94,10 @@ struct FocLaw {
            HALF_PSI, INV_QUARTER_PSI, L_M, TAU_R, OMEGA, KP, SIGMA_LS, K_R, U_LIM, KI_TAU, AW, INV_UMAX_D,
            INV_UMAX_Q, N_SLOTS };
 
-    template <typename T>
-    __device__ __forceinline__ static void act(const T* pp, double frame_step, T i_sd, T i_sq, T psi_rd, T psi_rq,
+    // pt: the operating point (FoldedPoint, DrivePoint below): the fallback
+    // frame's angle, the torque current before its clamp and the speed
+    template <typename T, class Point>
+    __device__ __forceinline__ static void act(const T* pp, const Point& pt, T i_sd, T i_sq, T psi_rd, T psi_rq,
                                                T* c, int k, T& a_sd, T& a_sq) {
         // 1. orientation on the flux; below the floor a frame rotating at the
         // rotor speed
@@ -91,7 +109,7 @@ struct FocLaw {
             cos_rho = psi_rd / denom;
             sin_rho = psi_rq / denom;
         } else {
-            const T theta = (T)(frame_step * (double)k);
+            const T theta = pt.theta(k);
             cos_rho = dcos(theta);
             sin_rho = dsin(theta);
         }
@@ -109,14 +127,14 @@ struct FocLaw {
         const T int_psi1 =
             (int_psi + ((unrailed || unwind) ? pp[KIPSI_TAU] * e_psi : T(0))) + pp[AW_PSI] * (i_d - i_d_raw);
         const T i_q_cap = dsqrt(clamp_min(pp[I_MAX_SQ] - i_d_ref * i_d_ref, T(0)));
-        const T i_q_raw = (T(1) / (pp[TQ_GAIN] * denom)) * pp[TORQUE_REF];
+        const T i_q_raw = pt.torque_current(pp, denom);
         // 4. magnetize first
         const T gate = clamp_scalars((psi_mag - pp[HALF_PSI]) * pp[INV_QUARTER_PSI], T(0), T(1));
         const T i_q_ref = gate * clamp_tensors(i_q_raw, -i_q_cap, i_q_cap);
         // 5. the current PIs with the decoupling feedforward
         const T e_d = i_d_ref - i_d;
         const T e_q = i_q_ref - i_q;
-        const T omega_s = (pp[L_M] * i_q) / (pp[TAU_R] * denom) + pp[OMEGA];
+        const T omega_s = (pp[L_M] * i_q) / (pp[TAU_R] * denom) + pt.omega(pp);
         const T u_d_unsat = (pp[KP] * e_d + int_d) - (omega_s * pp[SIGMA_LS]) * i_q;
         const T u_q_unsat = (pp[KP] * e_q + int_q) + omega_s * (pp[SIGMA_LS] * i_d + pp[K_R] * psi_mag);
         // 6. the voltage-vector limit, back-calculation, back to the
@@ -134,6 +152,52 @@ struct FocLaw {
     }
 };
 
+// The folded operating point: the speed and torque setpoint from the flat
+// vector, the fallback frame's angle per step (double) from the launch
+template <typename T>
+struct FoldedPoint {
+    double frame_step;
+    __device__ __forceinline__ T theta(int k) const { return (T)(frame_step * (double)k); }
+    // a Python number over a tensor: reciprocal(y) * x
+    __device__ __forceinline__ T torque_current(const T* pp, T denom) const {
+        return (T(1) / (pp[FocLaw::TQ_GAIN] * denom)) * pp[FocLaw::TORQUE_REF];
+    }
+    __device__ __forceinline__ T omega(const T* pp) const { return pp[FocLaw::OMEGA]; }
+};
+
+// One drive's operating point, from its planes: speed, torque setpoint and
+// omega * tau in the working type
+template <typename T>
+struct DrivePoint {
+    T w, torque, frame;
+    __device__ __forceinline__ T theta(int k) const { return frame * (T)k; }
+    // a tensor over a tensor: a true division
+    __device__ __forceinline__ T torque_current(const T* pp, T denom) const {
+        return torque / (pp[FocLaw::TQ_GAIN] * denom);
+    }
+    __device__ __forceinline__ T omega(const T*) const { return w; }
+};
+
+// The thread's instance, as closed_loop_kernel computes it
+__device__ __forceinline__ long long foc_instance() { return (long long)blockIdx.x * blockDim.x + threadIdx.x; }
+
+// Element b of per-drive plane i
+template <typename T, class Args>
+__device__ __forceinline__ T drive_plane(const Args& args, int i, long long b) {
+    return static_cast<const T*>(args.policy_planes[i])[b];
+}
+
+// The drive's operating point from the planes OMEGA, TORQUE_REF, FRAME_STEP
+// (0-2), pinned in registers
+template <typename T, class Args>
+__device__ __forceinline__ DrivePoint<T> drive_point(const Args& args, long long b) {
+    DrivePoint<T> pt{drive_plane<T>(args, 0, b), drive_plane<T>(args, 1, b), drive_plane<T>(args, 2, b)};
+    keep(pt.w);
+    keep(pt.torque);
+    keep(pt.frame);
+    return pt;
+}
+
 // (o + 1) / 2 * (mx - mn) + mn with the span and min at pp[at], pp[at + 1]
 template <typename T>
 __device__ __forceinline__ T denormalized(T o, const T* pp, int at) {
@@ -147,19 +211,54 @@ struct FocTile {
     enum { SPAN0 = FocLaw::N_SLOTS, MN0, SPAN1, MN1, SPAN2, MN2, SPAN3, MN3, N_SLOTS };
     template <typename T, int A>
     struct Prepared {
-        double frame_step;
+        FoldedPoint<T> pt;
     };
     template <typename T, int A, class Args>
     __device__ __forceinline__ static Prepared<T, A> prepare(const Args& args, const T*, const T*) {
-        return {args.frame_step};
+        return {{args.frame_step}};
     }
     template <typename T, int A, int NO, class Args>
     __device__ __forceinline__ static void act(const Prepared<T, A>& p, const Args&, const T* pp, const T (&obs)[NO],
                                                int, int t, T* c, T (&a)[A]) {
+        run(p.pt, pp, obs, t, c, a);
+    }
+    // the law at the operating point pt (FoldedPoint, DrivePoint)
+    template <typename T, int A, int NO, class Point>
+    __device__ __forceinline__ static void run(const Point& pt, const T* pp, const T (&obs)[NO], int t, T* c,
+                                               T (&a)[A]) {
         static_assert(A == 2 && NO >= 4, "the induction machine's tile");
-        FocLaw::act(pp, p.frame_step, denormalized(obs[0], pp, SPAN0), denormalized(obs[1], pp, SPAN1),
+        FocLaw::act(pp, pt, denormalized(obs[0], pp, SPAN0), denormalized(obs[1], pp, SPAN1),
                     denormalized(obs[2], pp, SPAN2), denormalized(obs[3], pp, SPAN3), c, t, a[0], a[1]);
     }
+};
+
+// utils/foc.py::FocPolicy on a per-drive law: FocTile's flat vector (its
+// OMEGA and TORQUE_REF slots unread), the drive's point from its planes.
+// Planes: FocLaw.PLANES.
+struct FocDriveTile {
+    static constexpr int VARIANT = 7, N_CARRY = 4;
+    enum { OMEGA, TORQUE_REF, FRAME_STEP, N_PLANES };
+    template <typename T, int A>
+    struct Prepared {
+        DrivePoint<T> pt;
+    };
+    template <typename T, int A, class Args>
+    __device__ __forceinline__ static Prepared<T, A> prepare(const Args& args, const T*, const T*) {
+        return {drive_point<T>(args, foc_instance())};
+    }
+    template <typename T, int A, int NO, class Args>
+    __device__ __forceinline__ static void act(const Prepared<T, A>& p, const Args&, const T* pp, const T (&obs)[NO],
+                                               int, int t, T* c, T (&a)[A]) {
+        FocTile::run(p.pt, pp, obs, t, c, a);
+    }
+};
+
+// The observer's measured columns (at most M) and the bit masks of its
+// non-zero K, A and B terms, pinned in registers
+template <int M>
+struct ObserverIndex {
+    unsigned n_meas, midx[M], zcol[M];
+    unsigned k_nz, a_nz, b_nz;  // bit 4 i + k, 4 i + j, 2 i + k
 };
 
 // utils/foc.py::SensorlessFocPolicy: the stationary Kalman observer on the
@@ -171,48 +270,67 @@ struct SensorlessFocTile {
     static constexpr int VARIANT = 5, N_CARRY = 8;
     enum { SPAN0 = FocLaw::N_SLOTS, MN0, SPAN1, MN1, SPAN2, MN2, SPAN3, MN3, N_MEAS, MIDX0, ZCOL0 = MIDX0 + 4,
            K0 = ZCOL0 + 4, A0 = K0 + 16, B0 = A0 + 16, C0 = B0 + 8, K_MASK = C0 + 4, A_MASK, B_MASK, N_SLOTS };
+    // the observer's K and A, from the flat vector
+    template <typename T>
+    struct Gains {
+        __device__ __forceinline__ T k(const T* pp, int i, int m) const { return pp[K0 + 4 * i + m]; }
+        __device__ __forceinline__ T a(const T* pp, int i, int j) const { return pp[A0 + 4 * i + j]; }
+    };
     template <typename T, int A>
     struct Prepared {
-        double frame_step;
-        unsigned n_meas, midx[4], zcol[4];
-        unsigned k_nz, a_nz, b_nz;  // bit 4 i + k, 4 i + j, 2 i + k
+        FoldedPoint<T> pt;
+        Gains<T> g;
+        ObserverIndex<4> ix;
     };
+    template <int M, typename T>
+    __device__ __forceinline__ static ObserverIndex<M> index(const T* pp) {
+        ObserverIndex<M> ix;
+        ix.n_meas = (unsigned)pp[N_MEAS];
+        keep(ix.n_meas);
+#pragma unroll
+        for (int k = 0; k < M; ++k) {
+            ix.midx[k] = (unsigned)pp[MIDX0 + k];
+            ix.zcol[k] = (unsigned)pp[ZCOL0 + k];
+            keep(ix.midx[k]);
+            keep(ix.zcol[k]);
+        }
+        ix.k_nz = (unsigned)pp[K_MASK];
+        ix.a_nz = (unsigned)pp[A_MASK];
+        ix.b_nz = (unsigned)pp[B_MASK];
+        keep(ix.k_nz);
+        keep(ix.a_nz);
+        keep(ix.b_nz);
+        return ix;
+    }
     template <typename T, int A, class Args>
     __device__ __forceinline__ static Prepared<T, A> prepare(const Args& args, const T* pp, const T*) {
         Prepared<T, A> p;
-        p.frame_step = args.frame_step;
-        p.n_meas = (unsigned)pp[N_MEAS];
-        keep(p.n_meas);
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-            p.midx[k] = (unsigned)pp[MIDX0 + k];
-            p.zcol[k] = (unsigned)pp[ZCOL0 + k];
-            keep(p.midx[k]);
-            keep(p.zcol[k]);
-        }
-        p.k_nz = (unsigned)pp[K_MASK];
-        p.a_nz = (unsigned)pp[A_MASK];
-        p.b_nz = (unsigned)pp[B_MASK];
-        keep(p.k_nz);
-        keep(p.a_nz);
-        keep(p.b_nz);
+        p.pt.frame_step = args.frame_step;
+        p.ix = index<4>(pp);
         return p;
     }
     template <typename T, int A, int NO, class Args>
     __device__ __forceinline__ static void act(const Prepared<T, A>& p, const Args&, const T* pp, const T (&obs)[NO],
                                                int, int t, T* c, T (&a)[A]) {
+        observe(p.pt, p.g, p.ix, pp, obs, t, c, a);
+    }
+    // the observer with the gains g (Gains, SensorlessFocDriveTile::Gains)
+    // and the law at the operating point pt
+    template <typename T, int A, int NO, int M, class Point, class G>
+    __device__ __forceinline__ static void observe(const Point& pt, const G& g, const ObserverIndex<M>& ix,
+                                                   const T* pp, const T (&obs)[NO], int t, T* c, T (&a)[A]) {
         static_assert(A == 2 && NO >= 4, "the induction machine's tile");
         // innovations of the measured columns against the predicted belief
         // (indices picked by value: no register array is indexed at run time)
-        T innov[4];
+        T innov[M];
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
+        for (int k = 0; k < M; ++k) {
             T z = obs[0], xm = c[0];
-            if ((unsigned)k < p.n_meas) {
+            if ((unsigned)k < ix.n_meas) {
 #pragma unroll
                 for (int j = 1; j < 4; ++j) {
-                    if (p.zcol[k] == (unsigned)j) z = obs[j];
-                    if (p.midx[k] == (unsigned)j) xm = c[j];
+                    if (ix.zcol[k] == (unsigned)j) z = obs[j];
+                    if (ix.midx[k] == (unsigned)j) xm = c[j];
                 }
             }
             innov[k] = z - xm;
@@ -223,11 +341,11 @@ struct SensorlessFocTile {
         for (int i = 0; i < 4; ++i) {
             T acc = T(0);
 #pragma unroll
-            for (int k = 0; k < 4; ++k)
-                if ((p.k_nz >> (4 * i + k)) & 1u) acc = acc + pp[K0 + 4 * i + k] * innov[k];
+            for (int k = 0; k < M; ++k)
+                if ((ix.k_nz >> (4 * i + k)) & 1u) acc = acc + g.k(pp, i, k) * innov[k];
             xc[i] = c[i] + acc;
         }
-        FocLaw::act(pp, p.frame_step, denormalized(xc[0], pp, SPAN0), denormalized(xc[1], pp, SPAN1),
+        FocLaw::act(pp, pt, denormalized(xc[0], pp, SPAN0), denormalized(xc[1], pp, SPAN1),
                     denormalized(xc[2], pp, SPAN2), denormalized(xc[3], pp, SPAN3), c + 4, t, a[0], a[1]);
         // predict with the emitted actions: (sum_A + c) + sum_B
 #pragma unroll
@@ -235,12 +353,66 @@ struct SensorlessFocTile {
             T sa = T(0), sb = T(0);
 #pragma unroll
             for (int j = 0; j < 4; ++j)
-                if ((p.a_nz >> (4 * i + j)) & 1u) sa = sa + pp[A0 + 4 * i + j] * xc[j];
+                if ((ix.a_nz >> (4 * i + j)) & 1u) sa = sa + g.a(pp, i, j) * xc[j];
 #pragma unroll
             for (int k = 0; k < 2; ++k)
-                if ((p.b_nz >> (2 * i + k)) & 1u) sb = sb + pp[B0 + 2 * i + k] * a[k];
+                if ((ix.b_nz >> (2 * i + k)) & 1u) sb = sb + pp[B0 + 2 * i + k] * a[k];
             c[i] = (sa + pp[C0 + i]) + sb;
         }
+    }
+};
+
+// utils/foc.py::SensorlessFocPolicy with one filter per drive:
+// SensorlessFocTile's observer on at most two measured columns with the
+// drive's gain K (planes K00-K31) and the A entries that its speed moves
+// (planes A03, A12, A23, A32; every other A entry, B and c from
+// SensorlessFocTile's flat vector), then the law at the drive's point.
+// Planes: SensorlessFocPolicy.PLANES.
+struct SensorlessFocDriveTile {
+    static constexpr int VARIANT = 8, N_CARRY = 8;
+    enum { OMEGA, TORQUE_REF, FRAME_STEP, K00, K01, K10, K11, K20, K21, K30, K31, A03, A12, A23, A32, N_PLANES };
+    // the plane of A entry (i, j) among A03-A32, or -1: the flat vector's
+    __device__ __forceinline__ static int drive_a(int i, int j) {
+        return i == 0 && j == 3 ? 0 : i == 1 && j == 2 ? 1 : i == 2 && j == 3 ? 2 : i == 3 && j == 2 ? 3 : -1;
+    }
+    // the drive's K and speed-dependent A entries, in registers
+    template <typename T>
+    struct Gains {
+        T kk[4][2], aa[4];
+        __device__ __forceinline__ T k(const T*, int i, int m) const { return kk[i][m]; }
+        __device__ __forceinline__ T a(const T* pp, int i, int j) const {
+            const int d = drive_a(i, j);
+            return d >= 0 ? aa[d < 0 ? 0 : d] : pp[SensorlessFocTile::A0 + 4 * i + j];
+        }
+    };
+    template <typename T, int A>
+    struct Prepared {
+        DrivePoint<T> pt;
+        Gains<T> g;
+        ObserverIndex<2> ix;
+    };
+    template <typename T, int A, class Args>
+    __device__ __forceinline__ static Prepared<T, A> prepare(const Args& args, const T* pp, const T*) {
+        Prepared<T, A> p;
+        const long long b = foc_instance();
+        p.pt = drive_point<T>(args, b);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+            for (int k = 0; k < 2; ++k) {
+                p.g.kk[i][k] = drive_plane<T>(args, K00 + 2 * i + k, b);
+                keep(p.g.kk[i][k]);
+            }
+            p.g.aa[i] = drive_plane<T>(args, A03 + i, b);
+            keep(p.g.aa[i]);
+        }
+        p.ix = SensorlessFocTile::index<2>(pp);
+        return p;
+    }
+    template <typename T, int A, int NO, class Args>
+    __device__ __forceinline__ static void act(const Prepared<T, A>& p, const Args&, const T* pp, const T (&obs)[NO],
+                                               int, int t, T* c, T (&a)[A]) {
+        SensorlessFocTile::observe(p.pt, p.g, p.ix, pp, obs, t, c, a);
     }
 };
 

@@ -15,8 +15,9 @@ The policy follows the JAX tile contract (``ops/policies.py``).  On the CPU
 any callable with that contract works; on CUDA only the families compiled
 into the kernel (:class:`~exciting_environments_torch.ops.policies.KernelPolicy`:
 ``AffinePolicy``, the PPO ``ActorPolicy``, and on their own environments the
-induction machine's ``FocPolicy`` and ``SensorlessFocPolicy`` and the EESM's
-``EesmCurrentPolicy``), and any other callable raises before a launch.  The
+induction machine's ``FocPolicy`` and ``SensorlessFocPolicy``, on scalar or
+per-drive operating points, and the EESM's ``EesmCurrentPolicy``), and any
+other callable raises before a launch.  The
 loop never runs eagerly on the card.
 
 Stochastic inputs are streamed slabs, as in the JAX kernel: a sensor-noise
@@ -62,6 +63,7 @@ MAX_CARRY = 8
 MAX_LAYERS = 4
 MAX_WIDTH = 64
 MAX_POLICY_PARAMS = 4096
+MAX_POLICY_PLANES = 16
 #: stage counts the kernel is instantiated for (FSAL last stage skipped):
 #: Euler 1, Midpoint and Heun 2, RK4 4, Tsit5 and Dopri5 6
 KERNEL_STAGES = (1, 2, 4, 6)
@@ -119,6 +121,8 @@ class ClosedLoopArgs(ctypes.Structure):
         ("env_id", _c_int),
         ("fast", _c_int),
         ("variant", _c_int),
+        ("policy_planes", _c_void_p * MAX_POLICY_PLANES),
+        ("n_planes", _c_int),
     ]
 
 
@@ -129,8 +133,10 @@ CL_KERNEL = KernelLibrary("closed_loop", "closed_loop", ClosedLoopArgs, ("closed
 #: state plus 0 or 1 reference), the affine law at any width, the actor with
 #: two hidden layers of 16 in registers, the actor at any widths, and (on
 #: their own environments only) the induction machine's FOC and sensorless
-#: FOC tiles and the EESM's current tile
-VARIANTS = ("affine", "affine_generic", "actor_16x16", "actor_generic", "foc", "sensorless_foc", "eesm_current")
+#: FOC tiles and the EESM's current tile, then the two FOC tiles reading each
+#: drive's speed, torque setpoint (and observer gains) from per-drive planes
+VARIANTS = ("affine", "affine_generic", "actor_16x16", "actor_generic", "foc", "sensorless_foc", "eesm_current",
+            "foc_per_drive", "sensorless_foc_per_drive")
 #: the variant of each family compiled for one kind of tile (policy_id 4-6)
 _TILE_VARIANTS = {4: "foc", 5: "sensorless_foc", 6: "eesm_current"}
 #: launches per instantiation, counted beside ``CL_KERNEL.launches``
@@ -205,6 +211,14 @@ def plain_closed_loop(env, y0, policy, n_steps, *, tau, solver, props, ref_leave
 # ---------------------------------------------------------------------------
 
 
+def policy_spec(policy, dtype, device, params=None):
+    """``policy.kernel_spec(dtype, device, params)`` inside the program's span
+    ``ee.policy.spec``: what a launch packs of its policy (the flat slots and
+    the per-drive planes; a tile packs them once and hands them out again)."""
+    with annotate("ee.policy.spec"):
+        return policy.kernel_spec(dtype, device, params)
+
+
 def kernel_variant(n_state: int, spec) -> str:
     """The instantiation of ``csrc/closed_loop.cu`` that runs a policy's
     :class:`~exciting_environments_torch.ops.policies.KernelSpec` over an
@@ -215,7 +229,11 @@ def kernel_variant(n_state: int, spec) -> str:
     if spec.policy_id == 1:
         return "actor_16x16" if tuple(spec.options["widths"][1:-1]) == (16, 16) else "actor_generic"
     if spec.policy_id in _TILE_VARIANTS:
-        return _TILE_VARIANTS[spec.policy_id]
+        variant = _TILE_VARIANTS[spec.policy_id] + ("_per_drive" if spec.planes else "")
+        if variant not in VARIANTS:
+            raise ValueError(f"no closed-loop kernel instantiation reads per-drive planes for policy_id "
+                             f"{spec.policy_id}")
+        return variant
     raise ValueError(f"no closed-loop kernel family has policy_id {spec.policy_id}")
 
 
@@ -263,7 +281,7 @@ def kernel_closed_loop(env, y0, policy, n_steps, *, tau, solver, props, ref_leav
     for i, leaf in enumerate(carry0):
         _check_leaf(f"policy carry leaf {i}", leaf, dtype, device, (batch,))
 
-    spec = policy.kernel_spec(dtype, device, policy_params)
+    spec = policy_spec(policy, dtype, device, policy_params)
     flat = spec.flat
     grads = [*y0, *ref_leaves, *carry0, flat]
     n_obs = n_state + n_refs
@@ -274,6 +292,10 @@ def kernel_closed_loop(env, y0, policy, n_steps, *, tau, solver, props, ref_leav
     widths = spec.options.get("widths", ())
     if widths and (len(widths) > MAX_LAYERS + 1 or max(widths) > MAX_WIDTH):
         raise ValueError(f"actor widths {widths}: at most {MAX_LAYERS} layers of at most {MAX_WIDTH}")
+    if len(spec.planes) > MAX_POLICY_PLANES:
+        raise ValueError(f"{len(spec.planes)} per-drive policy planes exceed the kernel's {MAX_POLICY_PLANES}")
+    for i, plane in enumerate(spec.planes):
+        _check_leaf(f"policy plane {i}", plane, dtype, device, (batch,))
 
     args = ClosedLoopArgs()
     keep = []  # tensors whose pointers the launch reads
@@ -360,6 +382,9 @@ def kernel_closed_loop(env, y0, policy, n_steps, *, tau, solver, props, ref_leav
     for r, leaf in enumerate(ref_leaves):
         args.refs[r] = ptr(leaf)
     args.policy_params = ptr(flat) if flat.numel() else None
+    for i, plane in enumerate(spec.planes):
+        args.policy_planes[i] = ptr(plane)
+    args.n_planes = len(spec.planes)
     args.batch = batch
     args.n_steps = n_steps
     args.n_stages = len(b)

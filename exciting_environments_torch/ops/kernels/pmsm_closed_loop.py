@@ -39,7 +39,7 @@ from torch.autograd.function import once_differentiable
 from exciting_environments_torch.core import structures
 from exciting_environments_torch.core.env import with_env_properties
 from exciting_environments_torch.ops.kernels import checkpoint as ck
-from exciting_environments_torch.ops.kernels.closed_loop import MAX_LAYERS, MAX_WIDTH, closed_loop_noise
+from exciting_environments_torch.ops.kernels.closed_loop import MAX_LAYERS, MAX_WIDTH, closed_loop_noise, policy_spec
 from exciting_environments_torch.models.pmsm.pmsm_env import wrap_angle
 from exciting_environments_torch.ops.kernels.pmsm_stepper import (
     N_CHANNELS,
@@ -395,7 +395,10 @@ def kernel_pmsm_closed_loop(env, state0, omega, policy, n_steps, *, tau, solver,
         _check_leaf(f"reference {i}", leaf, dtype, device, (batch,))
     for i, leaf in enumerate(carry0):
         _check_leaf(f"policy carry leaf {i}", leaf, dtype, device, (batch,))
-    spec = policy.kernel_spec(dtype, device, policy_params)
+    spec = policy_spec(policy, dtype, device, policy_params)
+    if spec.planes:
+        raise ValueError(f"{type(policy).__name__} reads per-drive planes, which the PMSM closed-loop kernel "
+                         "does not take")
     flat = spec.flat
     grads = [*state0, omega, *ref_leaves, *carry0, flat]
     n_obs = N_BASE_OBS + n_refs + n_sched

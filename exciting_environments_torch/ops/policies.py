@@ -38,13 +38,16 @@ from torch import nn
 class KernelSpec(NamedTuple):
     """What the closed-loop kernel needs of a policy: its family id
     (``ClosedLoopArgs.policy_id``), the number of observation columns it
-    reads, the values of the family's own ``ClosedLoopArgs`` fields, and the
-    flat parameter vector in the layout its functor reads."""
+    reads, the values of the family's own ``ClosedLoopArgs`` fields, the
+    flat parameter vector in the layout its functor reads, and the
+    per-drive planes (``(B,)`` each, ``ClosedLoopArgs.policy_planes``) of a
+    family that reads some constants per drive (empty for the others)."""
 
     policy_id: int
     n_obs: int
     options: dict
     flat: torch.Tensor
+    planes: tuple = ()
 
 
 class KernelPolicy(nn.Module):

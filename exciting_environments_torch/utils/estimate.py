@@ -11,7 +11,9 @@
   environment, extracted with ``torch.func.jacrev`` in float64 and iterated
   to the Riccati fixed point in numpy float64; the observer that
   ``utils/foc.py::make_sensorless_foc_tile`` runs inside the closed-loop
-  kernel.
+  kernel.  :func:`stationary_kalman_gains` is the same gain for a fleet
+  whose static parameters differ per instance (one plant model per
+  instance), solved for all at once by the doubling algorithm.
 
 The filters run ONE batched program over all trajectories, where the JAX
 package ``vmap``s one filter per trajectory: the mean is ``(B, n)``, the
@@ -50,7 +52,7 @@ import torch
 
 from exciting_environments_torch.core import structures
 
-__all__ = ["FilterResult", "StationaryKalman", "run_ekf", "run_ukf", "stationary_kalman_gain"]
+__all__ = ["FilterResult", "StationaryKalman", "run_ekf", "run_ukf", "stationary_kalman_gain", "stationary_kalman_gains"]
 
 
 def _phys_names(env) -> tuple:
@@ -521,8 +523,9 @@ def stationary_kalman_gain(env, *, measured_fields=None, process_std=None, measu
     (one ``K``-correction and one ``A x + B u`` predict per step).
 
     The transition is the environment's OWN step, differentiated with
-    ``torch.func.jacrev`` in float64 at the origin (an explicit solver of a
-    linear ODE is itself linear, so the matrices are exact), and linearity is
+    ``torch.func.jacrev`` in float64 at the zero state and an action just
+    off zero (:func:`_linearized_action`; an explicit solver of a linear ODE
+    is itself linear, so the matrices are exact), and linearity is
     verified: the step at a probe point is compared with the affine model,
     and a nonlinear environment raises.
 
@@ -553,7 +556,7 @@ def stationary_kalman_gain(env, *, measured_fields=None, process_std=None, measu
     f = _make_dynamics(_float64_twin(env), env_properties)
     x0 = torch.zeros(n, dtype=torch.float64)
     u0 = torch.zeros(env.action_dim, dtype=torch.float64)
-    jac_x, jac_u = torch.func.jacrev(f, argnums=(0, 1))(x0, u0)
+    jac_x, jac_u = torch.func.jacrev(f, argnums=(0, 1))(x0, _linearized_action(u0))
     A, B = jac_x.numpy().astype(np.float64), jac_u.numpy().astype(np.float64)
     c = f(x0, u0).numpy().astype(np.float64)
     # verify linearity at a generic probe point (a nonlinear env would make
@@ -587,3 +590,121 @@ def stationary_kalman_gain(env, *, measured_fields=None, process_std=None, measu
     S = P[np.ix_(midx, midx)] + R
     K = np.linalg.solve(S.T, P[:, midx].T).T
     return StationaryKalman(A=A, B=B, c=c, K=K, P=P, midx=midx, zidx=zidx, names=names)
+
+
+def _linearized_action(u0):
+    """The action the gains linearize at: just off zero, where an inverter
+    circle's magnitude ``sqrt(u_d^2 + u_q^2)`` has no derivative (its
+    backward is 0/0 there).  Inside the circle the step is linear in the
+    action, so its Jacobians are those at zero."""
+    return u0 + 1e-3
+
+
+#: the doubling stops once no entry of ``P`` moved by more than this share
+#: of its largest entry, and raises after this many doublings
+_DOUBLING_TOL = 1e-15
+_MAX_DOUBLINGS = 64
+
+
+def _doubling_riccati(A, G, Q):
+    """The stabilizing solution ``P`` of the filter-form Riccati equation
+    ``P = A (P - P H' (H P H' + R)^-1 H P) A' + Q`` for a batch ``(N, n, n)``
+    by the structure-preserving doubling algorithm (Chu, Fan and Lin, 2005),
+    with ``G = H' R^-1 H``: each doubling squares the closed loop, so the
+    iterate converges quadratically where the fixed-point iteration of
+    :func:`stationary_kalman_gain` converges at the closed loop's own rate."""
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    Ak, Gk, Hk = A.mT, G, Q
+    for _ in range(_MAX_DOUBLINGS):
+        W = eye + Gk @ Hk
+        WiA = torch.linalg.solve(W, Ak)  # W^-1 A_k
+        WiG = torch.linalg.solve(W, Gk)  # W^-1 G_k
+        H_next = Hk + Ak.mT @ Hk @ WiA
+        Gk = Gk + Ak @ WiG @ Ak.mT
+        Ak = Ak @ WiA
+        done = float((H_next - Hk).abs().amax()) <= _DOUBLING_TOL * float(H_next.abs().amax())
+        Hk = H_next
+        if done:
+            return Hk
+    raise ValueError(f"the doubling Riccati solve did not converge in {_MAX_DOUBLINGS} doublings: the Q/R "
+                     "configuration does not admit a stationary Kalman gain for every instance")
+
+
+def stationary_kalman_gains(env, *, measured_fields=None, process_std=None, measurement_std=None,
+                            q_floor: float = 1e-8) -> StationaryKalman:
+    """:func:`stationary_kalman_gain` for a fleet whose static parameters
+    are ``(B,)`` leaves: one steady-state Kalman filter per instance, at that
+    instance's parameters, solved for all at once.
+
+    The one-step transition of every instance is linearized in one reverse
+    pass through the environment's own step (float64 on the CPU, the
+    parameters' values as the environment holds them), and its linearity is
+    verified per instance as in :func:`stationary_kalman_gain`.  The
+    predicted-form Riccati equations are solved by doubling
+    (:func:`_doubling_riccati`, tens of batched ``(B, n, n)`` solves), not by
+    iterating each instance's fixed point.
+
+    Args:
+        env: a linear environment whose normalizations and noise levels are
+            scalars; its static parameters may be ``(B,)`` leaves.
+        measured_fields / process_std / measurement_std / q_floor: as in
+            :func:`stationary_kalman_gain`.
+
+    Returns:
+        :class:`StationaryKalman` with per-instance ``A`` ``(B, n, n)``, ``B``
+        ``(B, n, m)``, ``c`` ``(B, n)``, ``K`` ``(B, n, n_meas)`` and ``P``
+        ``(B, n, n)`` (numpy float64); ``midx``, ``zidx`` and ``names`` as the
+        scalar version.
+    """
+    props = env.env_properties
+    norms = structures.leaves(props.physical_normalizations) + structures.leaves(props.action_normalizations)
+    if any(isinstance(leaf, torch.Tensor) and leaf.ndim != 0 for leaf in norms):
+        raise ValueError("stationary_kalman_gains needs scalar normalizations; only static parameters may be "
+                         "per instance")
+    batch = env.batch_size
+    as64 = lambda v: (v.detach().to("cpu", torch.float64).expand(batch).contiguous()
+                      if isinstance(v, torch.Tensor) else v)
+    fleet_params = structures.map_leaves(as64, props.static_params)
+    fleet_props = structures.replace(props, static_params=fleet_params)
+    first = lambda v: float(v[0]) if isinstance(v, torch.Tensor) else v
+    one_props = structures.replace(props, static_params=structures.map_leaves(first, fleet_params))
+    names, n, midx, zidx, Q, R, periods = _resolve_setup(env, one_props, measured_fields, process_std,
+                                                         measurement_std)
+    if bool(np.any(periods > 0)):
+        raise ValueError(
+            "stationary_kalman_gains needs a linear env; angle-wrapped fields "
+            f"{tuple(getattr(env, '_angle_fields', ()))} make the step nonlinear"
+        )
+    f = _make_dynamics(_float64_twin(env), fleet_props)
+    m = env.action_dim
+    with torch.enable_grad():
+        xs = torch.zeros((n, batch, n), dtype=torch.float64, requires_grad=True)
+        us = _linearized_action(torch.zeros((n, batch, m), dtype=torch.float64)).requires_grad_(True)
+        out = f(xs, us)
+        k = torch.arange(n)
+        rows_x, rows_u = torch.autograd.grad(out[k, :, k].sum(), (xs, us))
+    A, Bm = rows_x.movedim(0, 1), rows_u.movedim(0, 1)  # (B, n, n), (B, n, m)
+    with torch.no_grad():
+        c = f(torch.zeros((batch, n), dtype=torch.float64), torch.zeros((batch, m), dtype=torch.float64))
+        xp = torch.linspace(0.13, 0.29, n, dtype=torch.float64)
+        up = torch.linspace(-0.41, 0.37, m, dtype=torch.float64)
+        probe = f(xp.expand(batch, n), up.expand(batch, m))
+        affine = A @ xp + Bm @ up + c
+        err = (probe - affine).abs().amax(dim=-1)
+        scale = (affine - xp).abs().amax(dim=-1) + 1e-12
+        if bool((err > 1e-3 * scale).any()):
+            worst = int(torch.argmax(err / scale))
+            raise ValueError(f"stationary_kalman_gains needs a linear env: instance {worst}'s step deviates from "
+                             f"its linearization by {float(err[worst]):.3e} at a probe point")
+        Qn = torch.as_tensor(Q + q_floor * np.eye(n), dtype=torch.float64)
+        H = torch.zeros((len(midx), n), dtype=torch.float64)
+        H[torch.arange(len(midx)), torch.as_tensor(midx)] = 1.0
+        Rt = torch.as_tensor(R, dtype=torch.float64)
+        G = H.T @ torch.linalg.solve(Rt, H)
+        P = _doubling_riccati(A, G.expand(batch, n, n), Qn.expand(batch, n, n))
+        P = 0.5 * (P + P.mT)
+        mi = torch.as_tensor(midx)
+        S = P[:, mi][:, :, mi] + Rt
+        K = torch.linalg.solve(S.mT, P[:, :, mi].mT).mT
+    return StationaryKalman(A=A.numpy(), B=Bm.numpy(), c=c.numpy(), K=K.numpy(), P=P.numpy(), midx=midx,
+                            zidx=zidx, names=names)

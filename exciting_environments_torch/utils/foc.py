@@ -41,18 +41,32 @@ for the induction machine and the EESM:
 
 Each tile's ``forward`` is its plain version; on CUDA tensors the kernel
 runs the functor, which folds the tile's Python-number constants into its
-flat parameters, so a tile built on per-batch parameters runs on the CPU
-only.
+flat parameters.  The two FOC tiles also run a fleet whose drives each hold
+their own operating point: a ``(B,)`` ``omega`` static parameter and a
+``(B,)`` ``torque_ref`` reach the kernel as per-drive planes (with, for the
+sensorless tile, one stationary Kalman filter per drive, at that drive's
+speed), and every other constant stays folded.  Other per-batch constants
+(``psi_ref``, field weakening at per-drive speeds, per-batch bands and
+machine parameters) run through the plain tile on CPU tensors only.
 """
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 
+from exciting_environments_torch.core import structures
 from exciting_environments_torch.ops.kernels.stepper import _lincomb, _stage_rows
 from exciting_environments_torch.ops.lut import ScheduledLUT, bilinear_gather
 from exciting_environments_torch.ops.policies import KernelPolicy, KernelSpec
+
+#: the stationary Kalman gains the tile factories solved in this process:
+#: ``solves`` (one per tile, however many chunks it runs) and ``drives`` (the
+#: instances they were solved for: one for a scalar solve, the fleet for a
+#: per-drive one)
+GAIN_SOLVES = {"solves": 0, "drives": 0}
 
 _SENSOR_LEVELS = (
     "the observer needs current-sensor noise levels: configure observation_noise={'i_d': ..., 'i_q': ...} "
@@ -70,10 +84,20 @@ def _vector_scale(u_d, u_q, u_lim):
 class _SlotTile(KernelPolicy):
     """A tile with Python-number constants and no ``policy_params``: its
     flat vector is ``SLOTS`` in order (the order of its functor's enum),
-    valued by ``_slot_values()``, and ``_options()`` gives its
-    ``ClosedLoopArgs``/``PmsmClArgs`` fields."""
+    valued by ``_slot_values()``, ``_options()`` gives its
+    ``ClosedLoopArgs``/``PmsmClArgs`` fields and ``_planes()`` its per-drive
+    planes (``PLANES`` in order), computed from the tensors of
+    ``_plane_sources()``.  The spec is packed once and handed out again
+    while the working type, the device, the slot values, the options and the
+    plane sources (the same tensors, not written in place) stay as they
+    were: a fleet loop's launches reuse it, and a constant changed between
+    launches re-packs it."""
 
     SLOTS: tuple = ()
+
+    def __init__(self):
+        super().__init__()
+        self._packed = None  # (key, plane sources, spec)
 
     def _slot_values(self) -> dict:
         raise NotImplementedError
@@ -81,12 +105,32 @@ class _SlotTile(KernelPolicy):
     def _options(self) -> dict:
         return {}
 
+    def _planes(self) -> tuple:
+        return ()
+
+    def _plane_sources(self) -> tuple:
+        return ()
+
     def kernel_spec(self, dtype, device, params=None) -> KernelSpec:
         if params is not None:
             raise ValueError(f"{type(self).__name__} takes no policy_params")
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
         values = self._slot_values()
+        options = self._options()
+        sources = self._plane_sources()
+        key = (dtype, device, values, options, tuple(t._version for t in sources))
+        packed = self._packed
+        if (packed is not None and packed[0] == key and len(packed[1]) == len(sources)
+                and all(a is b for a, b in zip(packed[1], sources))):
+            return packed[2]
         flat = torch.tensor([float(values[name]) for name in self.SLOTS], dtype=torch.float64)
-        return KernelSpec(self.policy_id, self.n_obs, self._options(), flat.to(dtype=dtype, device=device).contiguous())
+        planes = tuple(p.to(dtype=dtype, device=device).contiguous() for p in self._planes())
+        spec = KernelSpec(self.policy_id, self.n_obs, options, flat.to(dtype=dtype, device=device).contiguous(),
+                          planes)
+        self._packed = (key, sources, spec)
+        return spec
 
     def extra_repr(self) -> str:
         return f"n_obs={self.n_obs}"
@@ -694,26 +738,39 @@ class FocLaw:
         flag = (u_mag <= u_lim).to(free_c.dtype)
         return (u_sd / self.u_max_d, u_sq / self.u_max_q), (int_d, int_q, int_psi, flag)
 
+    PLANES = ("OMEGA", "TORQUE_REF", "FRAME_STEP")
+
+    def per_drive(self) -> bool:
+        """Whether the law reads its speed and torque setpoint per drive
+        (the copy :func:`_drive_law` makes)."""
+        return _is_batched(self.params.omega) and _is_batched(self.torque_ref)
+
     def slot_values(self, who) -> dict:
         """The functor's flat values (Python floats), folded as the plain law
-        folds its Python numbers; per-batch constants refuse: the kernel
-        folds them into its program."""
+        folds its Python numbers; per-batch constants refuse (the kernel
+        folds them into its program), but for a per-drive law's speed and
+        torque setpoint, which the functor reads from :meth:`planes` (their
+        slots hold 0.0)."""
         p = self.params
         consts = dict(tau=self.tau, psi_star=self.psi_star, i_max=self.i_max, u_lim=self.u_lim,
-                      u_max_d=self.u_max_d, u_max_q=self.u_max_q,
+                      u_max_d=self.u_max_d, u_max_q=self.u_max_q, torque_ref=self.torque_ref,
                       **{n: getattr(p, n) for n in ("l_m", "l_r", "l_s", "r_r", "p", "omega")})
+        if self.per_drive():
+            consts.update(omega=0.0, torque_ref=0.0)
         batched = sorted(n for n, v in consts.items() if _is_batched(v))
         if batched:
-            raise ValueError(f"{who} on CUDA tensors needs scalar static params and normalizations (the kernel "
-                             f"folds them into its program); per-batch: {batched}.  The plain law runs them on "
-                             "CPU tensors")
+            raise ValueError(f"{who} on CUDA tensors reads per drive only the speed (static param omega) and "
+                             f"torque_ref; the kernel folds every other constant into its program, so per-batch "
+                             f"psi_ref, field weakening at per-drive speeds, per-batch bands and per-batch machine "
+                             f"parameters refuse there (per-batch: {batched}).  The plain law runs them on CPU "
+                             "tensors")
         c = {n: float(v) for n, v in consts.items()}
         k_r = c["l_m"] / c["l_r"]
         tau, psi_star, i_max = c["tau"], c["psi_star"], c["i_max"]
         return {
             "PSI_FLOOR": self.psi_floor, "PSI_STAR": psi_star, "KP_PSI": self.kp_psi, "PSI_FF": psi_star / c["l_m"],
             "I_LO": -i_max, "I_HI": i_max, "KIPSI_TAU": self.ki_psi * tau, "AW_PSI": tau * self.ki_psi / self.kp_psi,
-            "I_MAX_SQ": i_max**2, "TORQUE_REF": float(self.torque_ref), "TQ_GAIN": 1.5 * c["p"] * k_r,
+            "I_MAX_SQ": i_max**2, "TORQUE_REF": c["torque_ref"], "TQ_GAIN": 1.5 * c["p"] * k_r,
             "HALF_PSI": 0.5 * psi_star, "INV_QUARTER_PSI": 1.0 / (0.25 * psi_star), "L_M": c["l_m"],
             "TAU_R": c["l_r"] / c["r_r"], "OMEGA": c["omega"], "KP": self.kp, "SIGMA_LS": c["l_s"] - c["l_m"] * k_r,
             "K_R": k_r, "U_LIM": c["u_lim"], "KI_TAU": self.ki * tau, "AW": tau * self.ki / self.kp,
@@ -722,8 +779,39 @@ class FocLaw:
 
     def frame_step(self) -> float:
         """``omega * tau``, the fallback frame's angle per step, in double:
-        the functor rounds ``frame_step * k`` to the working type."""
-        return float(self.params.omega) * float(self.tau)
+        the functor rounds ``frame_step * k`` to the working type (0.0 for a
+        per-drive law, whose step is the plane ``FRAME_STEP``)."""
+        return 0.0 if self.per_drive() else float(self.params.omega) * float(self.tau)
+
+    def planes(self) -> tuple:
+        """A per-drive law's planes (``PLANES``): each drive's speed, torque
+        setpoint and ``omega * tau`` in the law's working type, as its plain
+        version computes the fallback frame's step on tensors (``()`` for a
+        folded law)."""
+        if not self.per_drive():
+            return ()
+        return (self.params.omega, self.torque_ref, self.params.omega * self.tau)
+
+    def plane_sources(self) -> tuple:
+        """The tensors :meth:`planes` computes from."""
+        return (self.params.omega, self.torque_ref) if self.per_drive() else ()
+
+
+def _drive_law(law: FocLaw, model):
+    """The tiles' copy of ``law`` for a fleet whose speed or torque setpoint
+    differs per drive: both as ``(B,)`` leaves in the model's type on its
+    device (a scalar broadcast), so that the plain tile computes what the
+    per-drive functor computes; ``law`` itself where both are scalars."""
+    p = law.params
+    if not (_is_batched(p.omega) or _is_batched(law.torque_ref)):
+        return law
+    plane = lambda v: (v.to(dtype=model.dtype, device=model.device) if isinstance(v, torch.Tensor)
+                       else torch.full((), float(v), dtype=model.dtype, device=model.device)
+                       ).expand(model.batch_size).contiguous()
+    out = copy.copy(law)
+    out.params = structures.replace(p, omega=plane(p.omega))
+    out.torque_ref = plane(law.torque_ref)
+    return out
 
 
 def make_sensorless_foc(model, *, psi_ref: float, torque_ref: float, kp: float = 40.0, ki: float = 8000.0,
@@ -840,12 +928,14 @@ def _span_slots(spans) -> dict:
 class FocPolicy(_SlotTile):
     """The tile of :func:`make_foc_tile`: the :class:`FocLaw` on the
     denormalized state columns; carry ``(int_d, int_q, int_psi, free)`` with
-    the flag as a 1.0/0.0 plane."""
+    the flag as a 1.0/0.0 plane.  A per-drive law (:func:`_drive_law`) hands
+    the kernel its ``FocLaw.PLANES``."""
 
     policy_id = 4
     n_carry = 4
     env_ids = (6,)
     SLOTS = FocLaw.SLOTS + ("SPAN0", "MN0", "SPAN1", "MN1", "SPAN2", "MN2", "SPAN3", "MN3")
+    PLANES = FocLaw.PLANES
 
     def __init__(self, law: FocLaw, spans, n_obs: int):
         super().__init__()
@@ -856,6 +946,12 @@ class FocPolicy(_SlotTile):
 
     def _options(self):
         return {"frame_step": self.law.frame_step()}
+
+    def _planes(self):
+        return self.law.planes()
+
+    def _plane_sources(self):
+        return self.law.plane_sources()
 
     def forward(self, obs, t, carry, params=None):
         return self.law(*_denormalized(obs[:4], self.spans), tuple(carry), t)
@@ -868,9 +964,10 @@ def make_foc_tile(model, **law_kwargs):
 
     Args:
         model: the :class:`InductionMachine` (scalar normalizations; on CUDA
-            also scalar static params, which the kernel folds in).
+            scalar static params but ``omega``, which may be per drive).
         **law_kwargs: forwarded to :func:`make_sensorless_foc`
-            (``psi_ref``/``torque_ref`` required).
+            (``psi_ref``/``torque_ref`` required; ``torque_ref`` may be a
+            ``(B,)`` tensor).
 
     Returns:
         ``(policy, carry0)`` for ``env.fused_closed_loop(...,
@@ -880,7 +977,7 @@ def make_foc_tile(model, **law_kwargs):
     """
     controller, carry0 = make_sensorless_foc(model, **law_kwargs)
     spans = _scalar_spans(model, "make_foc_tile")
-    policy = FocPolicy(controller._law, spans, 4 + len(model.control_state))
+    policy = FocPolicy(_drive_law(controller._law, model), spans, 4 + len(model.control_state))
     return policy, carry0[:3] + (torch.ones(model.batch_size, dtype=model.dtype, device=model.device),)
 
 
@@ -889,59 +986,124 @@ class SensorlessFocPolicy(_SlotTile):
     observer on the measured columns, then the :class:`FocLaw` on its
     corrected belief.  Carry: the 4 normalized predicted-belief planes, then
     the law's 4 planes.  Terms whose gain, ``A`` or ``B`` coefficient is
-    exactly 0.0 are skipped (the kernel reads them from ``K_MASK``,
-    ``A_MASK`` and ``B_MASK``), and the sums start from 0.0 in index order,
-    as in the JAX tile."""
+    exactly 0.0 (for every drive) are skipped (the kernel reads them from
+    ``K_MASK``, ``A_MASK`` and ``B_MASK``), and the sums start from 0.0 in
+    index order, as in the JAX tile.
+
+    Per drive (a per-drive law, one filter per drive): ``K`` ``(B, 4,
+    n_meas)`` and ``A`` ``(B, 4, 4)``, whose entries :data:`DRIVE_A` (the
+    speed's cross terms) are planes and every other entry one value for the
+    fleet; ``B`` and ``c`` are one for the fleet.  The planes are the law's
+    ``FocLaw.PLANES``, then ``K_PLANES``, then ``A_PLANES``."""
 
     policy_id = 5
     n_carry = 8
     env_ids = (6,)
     MAX_MEAS = 4
-    SLOTS = (FocLaw.SLOTS + ("SPAN0", "MN0", "SPAN1", "MN1", "SPAN2", "MN2", "SPAN3", "MN3", "N_MEAS")
-             + tuple(f"MIDX{k}" for k in range(4)) + tuple(f"ZCOL{k}" for k in range(4))
-             + tuple(f"K{i}{k}" for i in range(4) for k in range(4))
-             + tuple(f"A{i}{j}" for i in range(4) for j in range(4))
-             + tuple(f"B{i}{k}" for i in range(4) for k in range(2))
-             + tuple(f"C{i}" for i in range(4)) + ("K_MASK", "A_MASK", "B_MASK"))
+    #: the per-drive tile's measured fields at most, and its ``A`` entries
+    #: that the speed moves (row, column)
+    MAX_DRIVE_MEAS = 2
+    DRIVE_A = ((0, 3), (1, 2), (2, 3), (3, 2))
+    _MIDX_SLOTS = tuple(f"MIDX{k}" for k in range(4))
+    _ZCOL_SLOTS = tuple(f"ZCOL{k}" for k in range(4))
+    _K_SLOTS = tuple(f"K{i}{k}" for i in range(4) for k in range(4))
+    _A_SLOTS = tuple(f"A{i}{j}" for i in range(4) for j in range(4))
+    _B_SLOTS = tuple(f"B{i}{k}" for i in range(4) for k in range(2))
+    _C_SLOTS = tuple(f"C{i}" for i in range(4))
+    SLOTS = (FocLaw.SLOTS + ("SPAN0", "MN0", "SPAN1", "MN1", "SPAN2", "MN2", "SPAN3", "MN3", "N_MEAS") + _MIDX_SLOTS
+             + _ZCOL_SLOTS + _K_SLOTS + _A_SLOTS + _B_SLOTS + _C_SLOTS + ("K_MASK", "A_MASK", "B_MASK"))
+    K_PLANES = ("K00", "K01", "K10", "K11", "K20", "K21", "K30", "K31")
+    A_PLANES = ("A03", "A12", "A23", "A32")
+    PLANES = FocLaw.PLANES + K_PLANES + A_PLANES
 
     def __init__(self, law: FocLaw, spans, n_obs: int, A, B, c, K, midx, zcols):
         super().__init__()
         self.law, self.spans, self.n_obs = law, tuple(spans), int(n_obs)
-        self.A = [[float(v) for v in row] for row in A]
-        self.B = [[float(v) for v in row] for row in B]
-        self.c = [float(v) for v in c]
-        self.K = [[float(v) for v in row] for row in K]
         self.midx, self.zcols = [int(v) for v in midx], [int(v) for v in zcols]
         if len(self.midx) > self.MAX_MEAS:
             raise ValueError(f"at most {self.MAX_MEAS} measured fields")
+        A, B, c, K = (np.asarray(m, dtype=np.float64) for m in (A, B, c, K))
+        self.drive = law.per_drive()
+        if not self.drive:
+            self.A = [[float(v) for v in row] for row in A]
+            self.B = [[float(v) for v in row] for row in B]
+            self.c = [float(v) for v in c]
+            self.K = [[float(v) for v in row] for row in K]
+            nz = lambda m: [[v != 0.0 for v in row] for row in m]
+            self.k_nz, self.a_nz, self.b_nz = nz(self.K), nz(self.A), nz(self.B)
+            return
+        # one filter per drive: K and the speed's A entries become planes in
+        # the law's working type on its device, the rest one value
+        if len(self.midx) > self.MAX_DRIVE_MEAS:
+            raise ValueError(f"the per-drive sensorless tile measures at most {self.MAX_DRIVE_MEAS} fields")
+        omega = law.params.omega
+        n_drive = omega.shape[0]
+        A, B, c, K = (np.broadcast_to(m, (n_drive,) + m.shape[-nd:]) for m, nd in ((A, 2), (B, 2), (c, 1), (K, 2)))
+        plane = lambda v: torch.as_tensor(np.ascontiguousarray(v), dtype=torch.float64).to(dtype=omega.dtype,
+                                                                                            device=omega.device)
+        shared = np.ones((4, 4), dtype=bool)
+        for i, j in self.DRIVE_A:
+            shared[i, j] = False
+        for name, m, mask in (("A", A, shared), ("B", B, None), ("c", c, None)):
+            fixed = m if mask is None else m[:, mask]
+            if not (fixed == fixed[:1]).all():
+                raise ValueError(f"the per-drive sensorless tile folds the observer's {name} but for the speed's "
+                                 f"cross terms {self.DRIVE_A}: it differs between drives here (only omega may be "
+                                 "per drive, and only explicit Euler's transition moves no other entry with it)")
+        self.A = [[plane(A[:, i, j]) if not shared[i, j] else float(A[0, i, j]) for j in range(4)] for i in range(4)]
+        self.B = [[float(v) for v in row] for row in B[0]]
+        self.c = [float(v) for v in c[0]]
+        self.K = [[plane(K[:, i, k]) for k in range(K.shape[-1])] for i in range(4)]
+        self.k_nz = [[bool((K[:, i, k] != 0.0).any()) for k in range(K.shape[-1])] for i in range(4)]
+        self.a_nz = [[bool((A[:, i, j] != 0.0).any()) for j in range(4)] for i in range(4)]
+        self.b_nz = [[v != 0.0 for v in row] for row in self.B]
 
     def _slot_values(self):
+        # read at every launch (kernel_spec compares them with the packed
+        # spec's), so written without per-slot string formatting
         n_meas = len(self.midx)
+        pad = (0,) * (4 - n_meas)
         out = {**self.law.slot_values(type(self).__name__), **_span_slots(self.spans), "N_MEAS": n_meas}
-        for k in range(4):
-            out[f"MIDX{k}"] = self.midx[k] if k < n_meas else 0
-            out[f"ZCOL{k}"] = self.zcols[k] if k < n_meas else 0
-        K = [[self.K[i][k] if k < n_meas else 0.0 for k in range(4)] for i in range(4)]
-        for i in range(4):
-            out.update({f"K{i}{k}": K[i][k] for k in range(4)})
-            out.update({f"A{i}{j}": self.A[i][j] for j in range(4)})
-            out.update({f"B{i}{k}": self.B[i][k] for k in range(2)})
-            out[f"C{i}"] = self.c[i]
+        out.update(zip(self._MIDX_SLOTS, (*self.midx, *pad)))
+        out.update(zip(self._ZCOL_SLOTS, (*self.zcols, *pad)))
+        # a per-drive coefficient's slot holds 0.0: the functor reads its plane
+        fold = lambda v: v if isinstance(v, float) else 0.0
+        out.update(zip(self._K_SLOTS, [fold(row[k]) if k < n_meas else 0.0 for row in self.K for k in range(4)]))
+        out.update(zip(self._A_SLOTS, [fold(v) for row in self.A for v in row]))
+        out.update(zip(self._B_SLOTS, [v for row in self.B for v in row]))
+        out.update(zip(self._C_SLOTS, self.c))
         # the non-zero terms as bit masks (bit 4 i + k, 4 i + j, 2 i + k),
-        # taken from the Python doubles; below 2**16, exact in float32
-        nz = lambda m: sum(1 << b for b, v in enumerate(v for row in m for v in row) if v != 0.0)
-        out.update(K_MASK=nz(K), A_MASK=nz(self.A), B_MASK=nz(self.B))
+        # taken from the Python doubles (per drive: non-zero for some drive);
+        # below 2**16, exact in float32
+        bits = lambda flags: sum(1 << b for b, v in enumerate(flags) if v)
+        out["K_MASK"] = bits([k < n_meas and row[k] for row in self.k_nz for k in range(4)])
+        out["A_MASK"] = bits([v for row in self.a_nz for v in row])
+        out["B_MASK"] = bits([v for row in self.b_nz for v in row])
         return out
 
     def _options(self):
         return {"frame_step": self.law.frame_step()}
+
+    def _planes(self):
+        if not self.drive:
+            return ()
+        zero = torch.zeros_like(self.law.params.omega)
+        n_meas = len(self.midx)
+        k_planes = tuple(self.K[i][k] if k < n_meas else zero for i in range(4) for k in range(self.MAX_DRIVE_MEAS))
+        return self.law.planes() + k_planes + tuple(self.A[i][j] for i, j in self.DRIVE_A)
+
+    def _plane_sources(self):
+        if not self.drive:
+            return ()
+        return self.law.plane_sources() + tuple(k for row in self.K for k in row) + tuple(
+            self.A[i][j] for i, j in self.DRIVE_A)
 
     def forward(self, obs, t, carry, params=None):
         K, A, Bm, cv, midx, zcols = self.K, self.A, self.B, self.c, self.midx, self.zcols
         n, n_meas = 4, len(midx)
         xh = carry[:n]  # predicted normalized belief x(t | t-1)
         innov = tuple(obs[zcols[k]] - xh[midx[k]] for k in range(n_meas))
-        xc = tuple(xh[i] + sum((K[i][k] * innov[k] for k in range(n_meas) if K[i][k] != 0.0), 0.0)
+        xc = tuple(xh[i] + sum((K[i][k] * innov[k] for k in range(n_meas) if self.k_nz[i][k]), 0.0)
                    for i in range(n))
         (a_d, a_q), foc_c = self.law(*_denormalized(xc, self.spans), tuple(carry[n:]), t)
         # predict with the action the kernel is about to apply (normalized,
@@ -949,8 +1111,8 @@ class SensorlessFocPolicy(_SlotTile):
         acts = (a_d, a_q)
         xn = []
         for i in range(n):
-            v = (cv[i] + sum((A[i][j] * xc[j] for j in range(n) if A[i][j] != 0.0), 0.0)
-                 + sum((Bm[i][k] * acts[k] for k in range(2) if Bm[i][k] != 0.0), 0.0))
+            v = (cv[i] + sum((A[i][j] * xc[j] for j in range(n) if self.a_nz[i][j]), 0.0)
+                 + sum((Bm[i][k] * acts[k] for k in range(2) if self.b_nz[i][k]), 0.0))
             xn.append(v if isinstance(v, torch.Tensor) else torch.full_like(a_d, v))
         return acts, tuple(xn) + tuple(foc_c)
 
@@ -966,13 +1128,19 @@ def make_sensorless_foc_tile(model, *, measured_fields=("i_sd", "i_sq"), process
     corrects its predicted belief with the constant gain of
     :func:`~exciting_environments_torch.utils.estimate.stationary_kalman_gain`,
     runs the law on the corrected belief and predicts with ``A x + B u + c``
-    at the action it emits.
+    at the action it emits.  On a fleet whose ``omega`` is a ``(B,)`` static
+    parameter every drive gets its own filter at its own speed
+    (:func:`~exciting_environments_torch.utils.estimate.stationary_kalman_gains`,
+    solved once here); with it, or with a ``(B,)`` ``torque_ref``, the
+    kernel reads each drive's operating point from per-drive planes.
 
     Args:
         model: the :class:`InductionMachine` the loop runs on; its noise
             configuration is the observer's Q and R.  Scalar normalizations
-            and static params.
-        measured_fields: the observation columns the tile reads.
+            and static params but ``omega``, which may be per drive.
+        measured_fields: the observation columns the tile reads (at most two
+            with per-drive planes, which also need explicit Euler: another
+            solver's transition moves every entry of ``A`` with the speed).
         process_std / measurement_std / q_floor: observer overrides, see
             :func:`~exciting_environments_torch.utils.estimate.stationary_kalman_gain`.
         **law_kwargs: forwarded to :func:`make_sensorless_foc`.
@@ -981,17 +1149,22 @@ def make_sensorless_foc_tile(model, *, measured_fields=("i_sd", "i_sq"), process
         ``(policy, carry0)``: a :class:`SensorlessFocPolicy` and its 8 carry
         planes (the 4 normalized observer planes, then the law's 4).
     """
-    from exciting_environments_torch.utils.estimate import stationary_kalman_gain
+    from exciting_environments_torch.utils.estimate import stationary_kalman_gain, stationary_kalman_gains
 
     controller, carry0 = make_sensorless_foc(model, **law_kwargs)
     spans = _scalar_spans(model, "make_sensorless_foc_tile")
-    sk = stationary_kalman_gain(model, measured_fields=tuple(measured_fields), process_std=process_std,
-                                measurement_std=measurement_std, q_floor=q_floor)
+    static = model.env_properties.static_params
+    per_drive = [f for f in ("r_s", "r_r", "l_m", "l_s", "l_r", "p", "omega") if _is_batched(getattr(static, f))]
+    solve = stationary_kalman_gains if per_drive == ["omega"] else stationary_kalman_gain
+    sk = solve(model, measured_fields=tuple(measured_fields), process_std=process_std,
+               measurement_std=measurement_std, q_floor=q_floor)
+    GAIN_SOLVES["solves"] += 1
+    GAIN_SOLVES["drives"] += model.batch_size if solve is stationary_kalman_gains else 1
     if sk.names != ("i_sd", "i_sq", "psi_rd", "psi_rq"):
         raise ValueError("make_sensorless_foc_tile expects the InductionMachine state order "
                          f"('i_sd', 'i_sq', 'psi_rd', 'psi_rq'); got {sk.names}")
-    policy = SensorlessFocPolicy(controller._law, spans, 4 + len(model.control_state), sk.A, sk.B, sk.c, sk.K,
-                                 sk.midx, sk.zidx)
+    policy = SensorlessFocPolicy(_drive_law(controller._law, model), spans, 4 + len(model.control_state), sk.A,
+                                 sk.B, sk.c, sk.K, sk.midx, sk.zidx)
     full = lambda v: torch.full((model.batch_size,), v, dtype=model.dtype, device=model.device)
     return policy, tuple(full(0.0) for _ in range(4)) + carry0[:3] + (full(1.0),)
 

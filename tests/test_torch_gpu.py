@@ -650,11 +650,12 @@ def test_machine_tile_kernel_matches_plain_version(kind, variant, dtype):
 
 @pytest.mark.gpu
 def test_machine_tiles_refuse_before_a_launch():
-    """A tile built on a per-batch static parameter, or a tile on another
+    """A tile built on a per-batch static parameter that the kernel folds
+    (here l_m; a per-batch speed runs per drive), or a tile on another
     environment than its own, raises before any launch."""
     _cuda()
     params = dict(P.InductionMachine._default_static_params())
-    params["omega"] = torch.linspace(200.0, 400.0, 256, dtype=torch.float64).numpy()
+    params["l_m"] = torch.linspace(0.2, 0.225, 256, dtype=torch.float64).numpy()
     fleet = P.InductionMachine(batch_size=256, static_params=params)
     tile, carry = P.make_foc_tile(fleet, psi_ref=0.7, torque_ref=8.0)
     _, state = fleet.vmap_reset()
@@ -670,6 +671,88 @@ def test_machine_tiles_refuse_before_a_launch():
                               e_tile, 8, tau=im.tau, solver=im._solver, props=im.env_properties,
                               ref_leaves=(im_state.physical_state.i_sd,), policy_carry=e_carry)
     assert CL.CL_KERNEL.launches == before
+
+
+#: gym-electric-motor's default squirrel-cage machine
+GEM_PARAMS = dict(r_s=2.9338, r_r=1.355, l_m=0.14375, l_s=0.14962, l_r=0.14962, p=2.0)
+
+
+def _drive_fleet_case(kind, dtype, batch=2048 + 45):
+    """(env, policy, y0, loop kwargs) of one per-drive tile case:
+    gym-electric-motor's machine behind a 560 V DC link, each drive at its
+    own speed over +-628.3 rad/s and torque setpoint over +-4.38 Nm (the
+    sensorless tile with one filter per drive), a quarter starting cold (the
+    fallback frame), saves every 4 steps."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    draw = lambda lim: ((torch.rand(batch, generator=gen, device="cuda", dtype=torch.float64) * 2 - 1) * lim)
+    params = {**P.InductionMachine._default_static_params(), **GEM_PARAMS, "omega": draw(628.3).to(dtype)}
+    env = P.InductionMachine(batch_size=batch, dtype=dtype, static_params=params, u_dc=560.0)
+    law = dict(psi_ref=0.4, torque_ref=draw(4.38).to(dtype), i_max=5.5, kp_psi=40.0, ki_psi=800.0)
+    if kind == "sensorless":
+        policy, carry = P.make_sensorless_foc_tile(env, measurement_std={"i_sd": 0.055, "i_sq": 0.055}, **law)
+    else:
+        policy, carry = P.make_foc_tile(env, **law)
+    cold = torch.arange(batch, device="cuda") < batch // 4
+    y0 = tuple(torch.where(cold, 0.0, draw(lim)).to(dtype) for lim in (5.0, 5.0, 0.6, 0.6))
+    return env, policy, y0, dict(traj_stride=4, policy_carry=carry)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,variant", [("foc", "foc_per_drive"), ("sensorless", "sensorless_foc_per_drive")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_per_drive_tile_kernel_matches_plain_version(kind, variant, dtype):
+    """Each FOC tile on a fleet whose drives hold their own speed and torque
+    setpoint (and observer gains): the per-drive functor of
+    csrc/closed_loop.cu against the per-drive tile's forward in the plain
+    loop on CUDA tensors, ragged B, every output equal (0.0), one launch of
+    the per-drive instantiation reading the tile's planes."""
+    _cuda()
+    n_steps = 64
+    env, policy, y0, loop = _drive_fleet_case(kind, dtype)
+    kw = dict(tau=env.tau, solver=env._solver, props=env.env_properties, **loop)
+    spec = policy.kernel_spec(dtype, torch.device("cuda"))
+    assert len(spec.planes) == len(policy.PLANES) and CL.kernel_variant(4, spec) == variant
+    before, before_v = CL.CL_KERNEL.launches["closed_loop"], CL.VARIANT_LAUNCHES[variant]
+    outk = CL.kernel_closed_loop(env, y0, policy, n_steps, **kw)
+    outp = CL.plain_closed_loop(env, y0, policy, n_steps, **kw)
+    torch.cuda.synchronize()
+    assert CL.CL_KERNEL.launches["closed_loop"] == before + 1 and CL.VARIANT_LAUNCHES[variant] == before_v + 1
+    flat = lambda out: [t for part in out if part is not None for t in part]
+    assert len(flat(outk)) == len(flat(outp))
+    for a, b in zip(flat(outk), flat(outp)):
+        assert torch.equal(a, b)
+    assert all(bool(torch.isfinite(t).all()) for t in flat(outk))
+
+
+@pytest.mark.gpu
+def test_per_drive_fleet_runs_one_launch_a_chunk_and_packs_once():
+    """FleetRunner.run_policy over a per-drive sensorless fleet through
+    env_fused_closed_loop: one closed_loop launch of the per-drive
+    instantiation a chunk, no gain solved and nothing packed again after the
+    tile was built, and each chunk equal to the plain loop from the same
+    state (0.0)."""
+    from exciting_environments_torch.utils import foc
+    from exciting_environments_torch.utils.fleet import FleetRunner
+
+    _cuda()
+    env, policy, y0, loop = _drive_fleet_case("sensorless", torch.float32)
+    _, state = env.vmap_reset()
+    state = P.core.structures.replace(state, physical_state=env.PhysicalState(**dict(zip(env._ode_state_fields, y0))))
+    solves = dict(foc.GAIN_SOLVES)
+    spec = policy.kernel_spec(torch.float32, torch.device("cuda"))
+    runner = FleetRunner(env)
+    before = CL.CL_KERNEL.launches["closed_loop"], CL.VARIANT_LAUNCHES["sensorless_foc_per_drive"]
+    final, carry = runner.run_policy(state, policy, 3, 32, policy_carry=loop["policy_carry"])
+    torch.cuda.synchronize()
+    assert CL.CL_KERNEL.launches["closed_loop"] - before[0] == 3
+    assert CL.VARIANT_LAUNCHES["sensorless_foc_per_drive"] - before[1] == 3
+    assert foc.GAIN_SOLVES == solves and policy.kernel_spec(torch.float32, torch.device("cuda")) is spec
+    kw = dict(tau=env.tau, solver=env._solver, props=env.env_properties)
+    y, c = y0, loop["policy_carry"]
+    for _ in range(3):
+        y, c, *_ = CL.plain_closed_loop(env, y, policy, 32, policy_carry=c, **kw)
+    for a, b in zip(tuple(getattr(final.physical_state, n) for n in env._ode_state_fields) + tuple(carry), y + c):
+        assert torch.equal(a, b)
 
 
 PCL_P = [[-0.6, 0, 0, 0, 0, 0, 0, 0, 0.6, 0], [0, -0.6, 0, 0, 0, 0, 0, 0, 0, 0.6]]
@@ -1893,7 +1976,8 @@ def test_pmsm_entry_point_spans_on_the_card():
     """The PMSM entry points' spans on the card, saturated BRUSA:
     ``collect_fused`` records prepare, launch (one span per counted launch),
     rebuild and assemble, in that order, and a ``run_policy`` chunk holds
-    the closed-loop kernel's prepare, launch and rebuild in its enqueue."""
+    the closed-loop kernel's prepare (the policy's spec inside it), launch
+    and rebuild in its enqueue."""
     from exciting_environments_torch.ops import random as R
     from exciting_environments_torch.ops.kernels import pmsm_closed_loop as PCL
     from exciting_environments_torch.utils.collect import RolloutCollector
@@ -1922,5 +2006,5 @@ def test_pmsm_entry_point_spans_on_the_card():
     names = [name for *_, name in _host_spans(_profiled(lambda: runner.run_policy(s0, law, 2, T)))]
     assert PCL.PMSM_CL_KERNEL.launches["pmsm_closed_loop"] - before == 2
     assert names.count("ee.launch.pmsm_closed_loop.pmsm_closed_loop") == 2
-    assert names[:5] == ["ee.fleet.chunk", "ee.fleet.rollout", "ee.rollout.prepare",
+    assert names[:6] == ["ee.fleet.chunk", "ee.fleet.rollout", "ee.rollout.prepare", "ee.policy.spec",
                          "ee.launch.pmsm_closed_loop.pmsm_closed_loop", "ee.rollout.rebuild"]

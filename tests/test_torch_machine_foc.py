@@ -522,8 +522,10 @@ def test_flat_layouts_match_the_functors_enums(struct, policy):
 def test_kernel_specs_variants_and_per_batch_refusal():
     """Each tile's kernel_spec: its family id, the variant of
     csrc/closed_loop.cu (the functor's VARIANT), a flat vector of its SLOTS and (FOC) omega * tau
-    in double; a tile built on per-batch static params runs on the CPU but
-    refuses a kernel spec (the kernel folds the constants in)."""
+    in double; a tile built on a per-batch speed takes the per-drive variant
+    with the law's planes, and a tile built on another per-batch static
+    param runs on the CPU but refuses a kernel spec (the kernel folds the
+    constants in)."""
     im = P.InductionMachine(batch_size=8, **F64, observation_noise={"i_sd": 0.3, "i_sq": 0.3})
     eesm = P.EESM(batch_size=8, **F64)
     for (tile, _), pid, variant, env in (
@@ -547,9 +549,239 @@ def test_kernel_specs_variants_and_per_batch_refusal():
     tile, carry0 = foc.make_foc_tile(fleet, psi_ref=PSI_REF, torque_ref=TORQUE_REF)
     out = fleet.fused_closed_loop(state_from_numpy(fleet, _cold(fleet)), tile, 4, policy_carry=carry0)
     assert bool(torch.isfinite(out[0]).all())
+    spec = tile.kernel_spec(torch.float32, "cpu")
+    assert CL.kernel_variant(4, spec) == "foc_per_drive" and spec.options["frame_step"] == 0.0
+    omega = fleet.env_properties.static_params.omega
+    assert [p.dtype for p in spec.planes] == [torch.float32] * 3
+    assert torch.equal(spec.planes[0], omega.float()) and bool((spec.planes[1] == TORQUE_REF).all())
+    assert torch.equal(spec.planes[2], (omega * fleet.tau).float())
+    sp["r_r"] = np.linspace(2.0, 2.6, 8)
+    tile, carry0 = foc.make_foc_tile(P.InductionMachine(batch_size=8, static_params=sp, **F64), psi_ref=PSI_REF,
+                                     torque_ref=TORQUE_REF)
     with pytest.raises(ValueError, match="per-batch"):
         tile.kernel_spec(torch.float32, "cpu")
     sp_e = P.EESM._default_static_params()
     sp_e["l_q"] = np.linspace(3e-3, 6e-3, 8)
     with pytest.raises(ValueError, match="scalar static params"):
         foc.make_eesm_current_tile(P.EESM(batch_size=8, static_params=sp_e, **F64), **EESM_REFS)
+
+
+# ---------------------------------------------------------------------------
+# per-drive operating points: each drive's speed and torque setpoint, and one
+# stationary Kalman filter per drive at its speed
+# ---------------------------------------------------------------------------
+
+#: gym-electric-motor's default squirrel-cage machine with a 560 V DC link
+GEM_PARAMS = dict(r_s=2.9338, r_r=1.355, l_m=0.14375, l_s=0.14962, l_r=0.14962, p=2.0)
+GEM_SENSOR = {"i_sd": 0.055, "i_sq": 0.055}
+DRIVE_OMEGA = (-600.0, -120.0, 45.0, 610.0)
+DRIVE_TORQUE = (3.9, -1.2, 2.5, -4.2)
+DRIVE_LAW = dict(psi_ref=0.4, i_max=5.5, kp_psi=40.0, ki_psi=800.0)
+
+
+def _gem(batch, omega, **kw):
+    return P.InductionMachine(batch_size=batch, static_params={**P.InductionMachine._default_static_params(),
+                                                               **GEM_PARAMS, "omega": omega}, u_dc=560.0,
+                              **F64, **kw)
+
+
+def _drive_tile(kind, env, torque, **kw):
+    if kind == "foc":
+        return foc.make_foc_tile(env, torque_ref=torque, **DRIVE_LAW, **kw)
+    return foc.make_sensorless_foc_tile(env, torque_ref=torque, measurement_std=GEM_SENSOR, **DRIVE_LAW, **kw)
+
+
+def test_stationary_kalman_gains_equal_the_scalar_gain_at_each_drives_speed_float64():
+    """The batched doubling solve against stationary_kalman_gain at each
+    drive's speed: A, B, c at rtol 1e-10, atol 1e-12 (one linearization, so
+    they agree bit for bit here), K and P to 1e-10 of their largest entry
+    once the scalar fixed point is iterated to convergence (its default
+    tolerance, 1e-13 absolute, stops within ~1e-7 of it at these sensor
+    levels); with the inverter circle the gains are finite (the linearization
+    sits off the circle's zero-action kink)."""
+    omega = np.asarray(DRIVE_OMEGA)
+    fleet = _gem(4, omega)
+    meas = dict(measured_fields=("i_sd", "i_sq"), measurement_std=GEM_SENSOR)
+    sk = estimate.stationary_kalman_gains(fleet, **meas)
+    assert sk.A.shape == (4, 4, 4) and sk.B.shape == (4, 4, 2) and sk.K.shape == (4, 4, 2)
+    for b, w in enumerate(omega):
+        one = estimate.stationary_kalman_gain(_gem(1, float(w)), **meas, tol=1e-22, max_iters=10**7)
+        for name in ("A", "B", "c"):
+            _close(getattr(sk, name)[b], getattr(one, name))
+        for name in ("K", "P"):
+            ref = getattr(one, name)
+            assert np.abs(getattr(sk, name)[b] - ref).max() <= 1e-10 * np.abs(ref).max()
+        assert np.isfinite(one.K).all() and tuple(one.midx) == tuple(sk.midx)
+    varies = np.argwhere((sk.A != sk.A[:1]).any(axis=0))
+    assert sorted(map(tuple, varies)) == sorted(foc.SensorlessFocPolicy.DRIVE_A)
+
+
+@pytest.mark.parametrize("kind", ["foc", "sensorless"])
+def test_per_drive_tile_equals_a_scalar_tile_per_drive_float64(kind):
+    """A fleet of four drives, each at its own speed and torque setpoint,
+    under the per-drive tile, against four one-drive fleets under the scalar
+    tile built at that drive's speed and setpoint (the sensorless one with
+    the scalar gain iterated to convergence): observation and carry after
+    300 steps from a cold start (the fallback frame and the magnetizing
+    transient) at rtol 1e-10, atol 1e-12."""
+    fleet = _gem(4, np.asarray(DRIVE_OMEGA))
+    tile, carry0 = _drive_tile(kind, fleet, torch.tensor(DRIVE_TORQUE, dtype=torch.float64))
+    assert tile.law.per_drive() and len(tile.kernel_spec(torch.float64, "cpu").planes) == len(tile.PLANES)
+    obs, _, carry = fleet.fused_closed_loop(state_from_numpy(fleet, _cold(fleet)), tile, 300, policy_carry=carry0)
+    for b, (w, t_ref) in enumerate(zip(DRIVE_OMEGA, DRIVE_TORQUE)):
+        one = _gem(1, w)
+        one_tile, one_carry = _drive_tile(kind, one, t_ref)
+        assert not one_tile.law.per_drive()
+        if kind == "sensorless":
+            sk = estimate.stationary_kalman_gain(one, measured_fields=("i_sd", "i_sq"), measurement_std=GEM_SENSOR,
+                                                 tol=1e-22, max_iters=10**7)
+            one_tile.K = [[float(v) for v in row] for row in sk.K]
+        one_obs, _, one_c = one.fused_closed_loop(state_from_numpy(one, _cold(one)), one_tile, 300,
+                                                  policy_carry=one_carry)
+        _close(obs[b], one_obs[0])
+        for leaf, one_leaf in zip(carry, one_c):
+            _close(leaf[b], one_leaf[0])
+
+
+def test_per_drive_law_matches_jax_float64():
+    """The per-drive tile's law (speed and torque setpoint per drive) against
+    the JAX package's make_sensorless_foc controller, which broadcasts
+    per-batch constants, on random belief states and carries at the steps 0
+    and 37: actions and carries at rtol 1e-10, atol 1e-12."""
+    b = 8
+    omega, torque = np.linspace(-628.3, 628.3, b), np.linspace(-4.38, 4.38, b)
+    sp = {**J.InductionMachine._default_static_params(), **GEM_PARAMS}
+    je = J.InductionMachine(batch_size=b, static_params={**sp, "omega": jnp.asarray(omega)})
+    pe = P.InductionMachine(batch_size=b, static_params={**sp, "omega": omega}, **F64)
+    jctl, _ = jfoc.make_sensorless_foc(je, torque_ref=jnp.asarray(torque), **DRIVE_LAW)
+    tile, _ = foc.make_foc_tile(pe, torque_ref=torch.as_tensor(torque), **DRIVE_LAW)
+    js, ps = _states(je, pe, _belief(pe, 21, 20.0))
+    for k, seed in ((0, 22), (37, 23)):
+        jc, pc = _carry(pe, seed)
+        ja, jn = jctl(js, jc, k)
+        phys = ps.physical_state
+        pa, pn = tile.law(phys.i_sd, phys.i_sq, phys.psi_rd, phys.psi_rq, pc, k)
+        _close(torch.stack(pa, dim=-1), ja)
+        for p_leaf, j_leaf in zip(pn, jn):
+            _close(p_leaf.to(torch.float64), np.asarray(j_leaf, dtype=np.float64))
+
+
+def test_per_drive_tiles_refuse_what_the_kernel_folds():
+    """A per-drive psi_ref, field weakening at per-drive speeds, a per-batch
+    action band or a per-batch machine parameter: the plain tile runs on CPU
+    tensors (where the closed loop's scope holds: scalar bands), the kernel
+    spec refuses and names them; a per-batch state band, and one filter per
+    drive under RK4, refuse when the tile is built."""
+    omega = np.asarray(DRIVE_OMEGA)
+    torque = torch.tensor(DRIVE_TORQUE, dtype=torch.float64)
+    fleet = _gem(4, omega)
+    cases = [
+        dict(env=fleet, kw=dict(psi_ref=torch.full((4,), 0.4, dtype=torch.float64))),
+        dict(env=fleet, kw=dict(psi_ref=0.4, field_weakening=True)),
+        dict(env=_gem(4, omega, action_normalizations={
+            "u_sd": PNorm(min=-torch.linspace(300.0, 323.0, 4), max=torch.linspace(300.0, 323.0, 4)),
+            "u_sq": PNorm(min=-323.0, max=323.0)}), kw=dict(psi_ref=0.4)),
+    ]
+    sp = {**P.InductionMachine._default_static_params(), **GEM_PARAMS, "omega": omega, "r_r": np.linspace(1.3, 1.4, 4)}
+    cases.append(dict(env=P.InductionMachine(batch_size=4, static_params=sp, u_dc=560.0, **F64), kw=dict(psi_ref=0.4)))
+    for case in cases:
+        tile, carry0 = foc.make_foc_tile(case["env"], torque_ref=torque, i_max=5.5, **case["kw"])
+        env = case["env"]
+        if CL.supports_fused_closed_loop(env):
+            out = env.fused_closed_loop(state_from_numpy(env, _cold(env)), tile, 3, policy_carry=carry0)
+            assert bool(torch.isfinite(out[0]).all())
+        with pytest.raises(ValueError, match="per-batch psi_ref, field weakening at per-drive speeds"):
+            tile.kernel_spec(torch.float32, "cpu")
+    with pytest.raises(ValueError, match="scalar physical normalizations"):
+        foc.make_sensorless_foc_tile(_gem(4, omega, physical_normalizations={
+            "i_sd": PNorm(min=-torch.linspace(19.0, 20.0, 4), max=torch.linspace(19.0, 20.0, 4)),
+            "i_sq": PNorm(min=-20.0, max=20.0), "psi_rd": PNorm(min=-1.5, max=1.5),
+            "psi_rq": PNorm(min=-1.5, max=1.5)}), torque_ref=torque, measurement_std=GEM_SENSOR, psi_ref=0.4)
+    # one filter per drive needs explicit Euler: RK4's transition moves every entry of A with the speed
+    with pytest.raises(ValueError, match="only explicit Euler"):
+        foc.make_sensorless_foc_tile(_gem(4, omega, solver="rk4"), torque_ref=torque, measurement_std=GEM_SENSOR,
+                                     psi_ref=0.4)
+
+
+@pytest.mark.parametrize("struct,policy", [("FocDriveTile", foc.FocPolicy),
+                                           ("SensorlessFocDriveTile", foc.SensorlessFocPolicy)])
+def test_per_drive_planes_match_the_functors_enums(struct, policy):
+    """The per-drive functor's planes enum is the Python class's PLANES in
+    order, its VARIANT is the per-drive variant's index, and its flat vector
+    is the folded tile's (the per-drive class is the folded class with
+    planes)."""
+    enum = _enum_slots("foc_laws.cuh", struct)
+    planes = foc.FocLaw.PLANES if policy is foc.FocPolicy else policy.PLANES
+    assert enum["N_PLANES"] == len(planes)
+    assert [name for name, _ in sorted(enum.items(), key=lambda kv: kv[1]) if name != "N_PLANES"] == list(planes)
+    variant = {"FocDriveTile": "foc_per_drive", "SensorlessFocDriveTile": "sensorless_foc_per_drive"}[struct]
+    declared = re.search(r"struct %s \{\s*static constexpr int VARIANT = (\d+)," % struct,
+                         (CSRC / "foc_laws.cuh").read_text())
+    assert int(declared.group(1)) == CL.VARIANTS.index(variant)
+    assert len(planes) <= CL.MAX_POLICY_PLANES
+    fleet = _gem(4, np.asarray(DRIVE_OMEGA))
+    tile, _ = _drive_tile("foc" if policy is foc.FocPolicy else "sensorless", fleet,
+                          torch.tensor(DRIVE_TORQUE, dtype=torch.float64))
+    spec = tile.kernel_spec(torch.float64, "cpu")
+    assert CL.kernel_variant(4, spec) == variant and spec.flat.numel() == len(policy.SLOTS)
+    if policy is foc.SensorlessFocPolicy:
+        names = policy.PLANES
+        for i in range(4):
+            for k in range(2):
+                assert torch.equal(spec.planes[names.index(f"K{i}{k}")], tile.K[i][k])
+        for i, j in policy.DRIVE_A:
+            assert torch.equal(spec.planes[names.index(f"A{i}{j}")], tile.A[i][j])
+        flat = dict(zip(policy.SLOTS, spec.flat.tolist()))
+        assert all(flat[f"K{i}{k}"] == 0.0 for i in range(4) for k in range(4))
+        assert flat["OMEGA"] == flat["TORQUE_REF"] == 0.0 and flat["A_MASK"] == float(
+            sum(1 << (4 * i + j) for i in range(4) for j in range(4) if tile.a_nz[i][j]))
+
+
+def test_gain_solves_once_per_tile_and_packs_once():
+    """One sensorless tile costs one gain solve (of every drive), however
+    many chunks the fleet loop runs it for, and its kernel spec is packed
+    once while its constants stay as they are: every later launch gets the
+    same flat vector and planes."""
+    from exciting_environments_torch.utils.fleet import FleetRunner
+
+    fleet = _gem(4, np.asarray(DRIVE_OMEGA))
+    before = dict(foc.GAIN_SOLVES)
+    tile, carry0 = _drive_tile("sensorless", fleet, torch.tensor(DRIVE_TORQUE, dtype=torch.float64))
+    assert foc.GAIN_SOLVES == {"solves": before["solves"] + 1, "drives": before["drives"] + 4}
+    packs = []
+    planes = tile._planes
+    tile._planes = lambda: packs.append(1) or planes()
+    runner = FleetRunner(fleet)
+    runner.run_policy(state_from_numpy(fleet, _cold(fleet)), tile, 3, 16, policy_carry=carry0)
+    specs = [tile.kernel_spec(torch.float64, "cpu") for _ in range(3)]
+    assert all(s is specs[0] for s in specs) and len(packs) == 1
+    assert foc.GAIN_SOLVES == {"solves": before["solves"] + 1, "drives": before["drives"] + 4}
+    one, _ = _drive_tile("sensorless", _gem(1, 300.0), 2.0)
+    assert foc.GAIN_SOLVES == {"solves": before["solves"] + 2, "drives": before["drives"] + 5}
+
+
+@pytest.mark.parametrize("kind", ["foc", "sensorless"])
+def test_kernel_spec_repacks_after_a_constant_changes(kind):
+    """A tile's packed spec follows its constants: a per-drive torque
+    setpoint written in place, a plane replaced by another tensor, a folded
+    constant changed, and (scalar tile) a changed setpoint each give a
+    spec that holds the new values; nothing changed gives the same spec."""
+    fleet = _gem(4, np.asarray(DRIVE_OMEGA))
+    tile, _ = _drive_tile(kind, fleet, torch.tensor(DRIVE_TORQUE, dtype=torch.float64))
+    first = tile.kernel_spec(torch.float32, "cpu")
+    assert tile.kernel_spec(torch.float32, "cpu") is first
+    tile.law.torque_ref.mul_(-0.5)
+    spec = tile.kernel_spec(torch.float32, "cpu")
+    assert spec is not first and torch.equal(spec.planes[1], (-0.5 * torch.tensor(DRIVE_TORQUE)).float())
+    assert tile.kernel_spec(torch.float32, "cpu") is spec
+    tile.law.torque_ref = torch.full((4,), 1.25, dtype=torch.float64)
+    spec = tile.kernel_spec(torch.float32, "cpu")
+    assert bool((spec.planes[1] == 1.25).all())
+    tile.law.psi_star = 0.45
+    spec = tile.kernel_spec(torch.float32, "cpu")
+    assert float(spec.flat[tile.SLOTS.index("PSI_STAR")]) == np.float32(0.45)
+    one, _ = _drive_tile(kind, _gem(1, 300.0), 2.0)
+    assert one.kernel_spec(torch.float64, "cpu").flat[one.SLOTS.index("TORQUE_REF")] == 2.0
+    one.law.torque_ref = -3.0
+    assert one.kernel_spec(torch.float64, "cpu").flat[one.SLOTS.index("TORQUE_REF")] == -3.0
+    assert one.kernel_spec(torch.float32, "cpu").flat.dtype == torch.float32

@@ -9,7 +9,9 @@ the hook where they run), at most 12 spans a chunk, told apart by their
 start times; the entry points record ``ee.rollout.prepare`` and
 ``ee.rollout.rebuild`` (``ee.launch.*`` comes with a launch, on the card:
 ``tests/test_torch_gpu.py``); ``collect_fused`` records
-``ee.collect.assemble``.  The runner's throughput
+``ee.collect.assemble``; the two closed-loop wrappers pack their policy
+inside ``ee.policy.spec`` (``ops/kernels/closed_loop.py::policy_spec``).
+The runner's throughput
 readout is host floats: no device operation inside ``ee.fleet.readout``, and
 elastic recovery rolls it back with the rest of the loop's bookkeeping.
 """
@@ -174,3 +176,57 @@ def test_collect_fused_records_prepare_rebuild_and_assemble(model):
     assert batch.observations.shape[:2] == (BATCH, STEPS)
     names = [sp[2] for sp in _ee_spans(prof)]
     assert names == ["ee.rollout.prepare", "ee.rollout.rebuild", "ee.collect.assemble"]
+
+
+def test_policy_spec_opens_one_span_around_the_kernel_spec():
+    """``policy_spec`` is the policy's kernel spec inside one
+    ``ee.policy.spec`` span, and opens nothing else; a tile hands out the
+    spec it packed first."""
+    from exciting_environments_torch.ops.kernels import closed_loop as CL
+    from exciting_environments_torch.utils import foc
+
+    env = P.InductionMachine(batch_size=BATCH, **F64)
+    tile, _ = foc.make_foc_tile(env, psi_ref=0.7, torque_ref=torch.linspace(-8.0, 8.0, BATCH, dtype=torch.float64))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        specs = [CL.policy_spec(tile, torch.float32, "cpu") for _ in range(3)]
+    assert [name for *_, name in _ee_spans(prof)] == ["ee.policy.spec"] * 3
+    assert all(s is specs[0] for s in specs) and len(specs[0].planes) == 3
+    assert specs[0] is tile.kernel_spec(torch.float32, "cpu")
+
+
+@pytest.mark.gpu
+def test_closed_loop_wrappers_open_one_policy_spec_span_a_launch():
+    """On the card: each launch of either closed-loop wrapper
+    (``kernel_closed_loop``, ``kernel_pmsm_closed_loop``) opens one
+    ``ee.policy.spec`` span, before its ``ee.launch`` span."""
+    from exciting_environments_torch.ops.kernels import closed_loop as CL
+    from exciting_environments_torch.ops.kernels import pmsm_closed_loop as PCL
+    from exciting_environments_torch.utils import foc
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels have no CPU mode")
+    B = 256
+    im = P.InductionMachine(batch_size=B)
+    tile, carry = foc.make_foc_tile(im, psi_ref=0.7, torque_ref=torch.linspace(-8.0, 8.0, B, device="cuda"))
+    y0 = tuple(torch.zeros(B, device="cuda") for _ in im._ode_state_fields)
+    drive = P.PMSM(batch_size=B, saturated=True, motor_variant=P.MotorVariant.BRUSA, control_state=["i_d", "i_q"])
+    _, st = drive.vmap_reset()
+    phys = st.physical_state
+    refs = (torch.full((B,), -0.5, device="cuda"), torch.zeros(B, device="cuda"))
+    pi = P.AffinePolicy([[-0.6] + [0] * 7 + [0.6, 0], [0, -0.6] + [0] * 7 + [0.6]])
+    state0 = (phys.i_d, phys.i_q, phys.epsilon, phys.u_d_buffer, phys.u_q_buffer)
+    calls = [lambda: CL.kernel_closed_loop(im, y0, tile, 8, tau=im.tau, solver=im._solver, props=im.env_properties,
+                                           policy_carry=carry),
+             lambda: PCL.kernel_pmsm_closed_loop(drive, state0, phys.omega_el, pi, 8, tau=drive.tau,
+                                                 solver=drive._solver, props=drive.env_properties, ref_leaves=refs)]
+    for call in calls:
+        call()  # the library's load outside the trace
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                call()
+            torch.cuda.synchronize()
+        host = [e for e in prof.events() if not str(e.device_type).endswith("CUDA")]  # not the device's copies
+        names = [e.name for e in sorted(host, key=lambda e: e.time_range.start)
+                 if e.name.startswith(("ee.policy.spec", "ee.launch."))]
+        assert names == ["ee.policy.spec", names[1]] * 3 and names[1].startswith("ee.launch.")
