@@ -39,7 +39,7 @@ from exciting_environments_torch.ops.policies import KernelPolicy
 from exciting_environments_torch.utils.profiling import annotate
 
 from . import checkpoint as ck
-
+from .plans import Key, PlanCache, Pointers
 from .stepper import (
     MAX_ACTION,
     MAX_PARAMS,
@@ -141,6 +141,12 @@ VARIANTS = ("affine", "affine_generic", "actor_16x16", "actor_generic", "foc", "
 _TILE_VARIANTS = {4: "foc", 5: "sensorless_foc", 6: "eesm_current"}
 #: launches per instantiation, counted beside ``CL_KERNEL.launches``
 VARIANT_LAUNCHES = dict.fromkeys(VARIANTS, 0)
+#: launches of each closed-loop wrapper through a kept launch plan (``hits``)
+#: and through its full path (``misses``): a fleet run of n chunks makes
+#: n - 1 hits (``ops/kernels/plans.py``)
+LAUNCH_PLANS = {name: {"hits": 0, "misses": 0} for name in ("closed_loop", "pmsm_closed_loop")}
+#: the launch plans of :func:`kernel_closed_loop`
+PLANS = PlanCache(LAUNCH_PLANS["closed_loop"])
 
 _PLAIN_CALLABLE_ON_CUDA = (
     "on CUDA tensors the closed loop runs inside the kernel, which compiles in the "
@@ -237,6 +243,49 @@ def kernel_variant(n_state: int, spec) -> str:
     raise ValueError(f"no closed-loop kernel family has policy_id {spec.policy_id}")
 
 
+def _chunk_args(args, y0, carry0, ref_leaves, obs_noise_tm, proc_noise_tm, n_steps, traj_stride, n_action):
+    """Write one launch's per-chunk pointers into ``args``: the start leaves,
+    the references, the carry, the noise slabs and the outputs, allocated
+    here.  Returns the wrapper's outputs and the tensors the launch reads."""
+    dtype, device, batch = y0[0].dtype, y0[0].device, y0[0].shape[0]
+    ptr = Pointers()
+    new = lambda: torch.empty(batch, dtype=dtype, device=device)
+    y_out = [new() for _ in y0]
+    c_out = [new() for _ in carry0]
+    outputs = [(args.y_out, y_out), (args.carry_out, c_out)]
+    if traj_stride is not None:
+        n_saves = n_steps // traj_stride
+        new_traj = lambda: torch.empty((n_saves, batch), dtype=dtype, device=device)
+        traj_state = [new_traj() for _ in y0]
+        traj_action = [new_traj() for _ in range(n_action)]
+        traj_carry = [new_traj() for _ in carry0]
+        outputs += [(args.traj_state, traj_state), (args.traj_action, traj_action), (args.traj_carry, traj_carry)]
+    # each field read of a ctypes array makes a new view: one per field
+    for field, tensors in outputs:
+        for i, t in enumerate(tensors):
+            field[i] = t.data_ptr()
+    for field, leaves in ((args.y0, y0), (args.carry0, carry0), (args.refs, ref_leaves)):
+        for i, leaf in enumerate(leaves):
+            field[i] = ptr(leaf)
+    args.obs_noise = None if obs_noise_tm is None else ptr(obs_noise_tm)
+    args.proc_noise = None if proc_noise_tm is None else ptr(proc_noise_tm)
+    if traj_stride is None:
+        return (tuple(y_out), tuple(c_out), None, None, None), ptr.keep
+    return (tuple(y_out), tuple(c_out), tuple(traj_state), tuple(traj_action), tuple(traj_carry)), ptr.keep
+
+
+def _plan_key(env, props, solver, policy, policy_params, tau, n_steps, traj_stride, dtype, device, batch, n_state,
+              n_refs, n_carry, obs_noise_cols, proc_noise_idx, has_obs_noise, has_proc_noise) -> Key:
+    """What :func:`kernel_closed_loop`'s checks and static fields read."""
+    key = Key().env(env, props, solver)
+    key.obj(policy)
+    key.leaf(policy_params)
+    key.leaf(tau)
+    key.values(n_steps, traj_stride, dtype, device, batch, n_state, n_refs, n_carry, tuple(obs_noise_cols),
+               tuple(proc_noise_idx), has_obs_noise, has_proc_noise)
+    return key
+
+
 def kernel_closed_loop(env, y0, policy, n_steps, *, tau, solver, props, ref_leaves=(), traj_stride=None,
                        policy_params=None, policy_carry=None, obs_noise_tm=None, proc_noise_tm=None,
                        obs_noise_cols=(), proc_noise_idx=()):
@@ -245,16 +294,42 @@ def kernel_closed_loop(env, y0, policy, n_steps, *, tau, solver, props, ref_leav
     Outputs are allocated here; the launch is asynchronous on the current
     stream.  Where autograd records the call (grad mode on and an input
     that requires grad), the launch is the forward of the checkpointed VJP
-    (:class:`ClosedLoopVJP`)."""
+    (:class:`ClosedLoopVJP`).
+
+    A launch whose static inputs (everything but the start leaves, the
+    references, the carry and the noise slabs) are those of a kept launch
+    plan (:data:`PLANS`) checks only its per-chunk leaves and the policy's
+    spec, and writes only the per-chunk pointers into a copy of the plan's
+    struct: the kernel gets the same bytes as from the full path."""
     y0 = tuple(y0)
     dtype, device = y0[0].dtype, y0[0].device
     batch = y0[0].shape[0]
-    a_rows, b = _stage_rows(solver)
     n_state, n_action = len(y0), env.action_dim
     n_refs = len(ref_leaves)
     carry0 = tuple(policy_carry) if policy_carry is not None else ()
     n_carry = len(carry0)
+    key = None  # no plan for a policy that packs a new spec every launch, or no kernel policy
+    if getattr(policy, "spec_packs", None) is not None:
+        key = _plan_key(env, props, solver, policy, policy_params, tau, n_steps, traj_stride, dtype, device, batch,
+                        n_state, n_refs, n_carry, obs_noise_cols, proc_noise_idx, obs_noise_tm is not None,
+                        proc_noise_tm is not None)
+    leaves = (*y0, *ref_leaves, *carry0)
 
+    def launch(args, variant):
+        CL_KERNEL.launch(args, dtype, device, "closed_loop", detail=f" ({variant} instantiation)")
+        VARIANT_LAUNCHES[variant] += 1
+
+    outputs, spec = PLANS.launch(
+        key, leaves, ((obs_noise_tm, (n_steps, batch, len(obs_noise_cols))),
+                      (proc_noise_tm, (n_steps, batch, len(proc_noise_idx)))),
+        policy, lambda: policy_spec(policy, dtype, device, policy_params), ClosedLoopArgs,
+        lambda args: _chunk_args(args, y0, carry0, ref_leaves, obs_noise_tm, proc_noise_tm, n_steps, traj_stride,
+                                 n_action),
+        launch)
+    if outputs is not None:
+        return outputs
+
+    a_rows, b = _stage_rows(solver)
     if not isinstance(policy, KernelPolicy):
         raise ValueError(_PLAIN_CALLABLE_ON_CUDA)
     if device.type != "cuda":
@@ -281,9 +356,10 @@ def kernel_closed_loop(env, y0, policy, n_steps, *, tau, solver, props, ref_leav
     for i, leaf in enumerate(carry0):
         _check_leaf(f"policy carry leaf {i}", leaf, dtype, device, (batch,))
 
-    spec = policy_spec(policy, dtype, device, policy_params)
+    if spec is None:
+        spec = policy_spec(policy, dtype, device, policy_params)
     flat = spec.flat
-    grads = [*y0, *ref_leaves, *carry0, flat]
+    static_grads = []  # the static tensors autograd could record
     n_obs = n_state + n_refs
     if flat.numel() > MAX_POLICY_PARAMS:
         raise ValueError(f"{flat.numel()} policy parameters exceed the kernel's {MAX_POLICY_PARAMS}")
@@ -298,12 +374,7 @@ def kernel_closed_loop(env, y0, policy, n_steps, *, tau, solver, props, ref_leav
         _check_leaf(f"policy plane {i}", plane, dtype, device, (batch,))
 
     args = ClosedLoopArgs()
-    keep = []  # tensors whose pointers the launch reads
-
-    def ptr(t):
-        t = t.contiguous()
-        keep.append(t)
-        return t.data_ptr()
+    ptr = Pointers()  # the static fields' tensors, alive until the launch
 
     args.tau = float(tau)
     args.svm_limit = svm_limit
@@ -316,7 +387,7 @@ def kernel_closed_loop(env, y0, policy, n_steps, *, tau, solver, props, ref_leav
         leaf = getattr(props.static_params, name)
         if isinstance(leaf, torch.Tensor):
             _check_leaf(f"parameter {name}", leaf, dtype, device, (batch,))
-            grads.append(leaf)
+            static_grads.append(leaf)
             args.param_ptr[i] = ptr(leaf)
         else:
             args.param_value[i] = float(leaf)
@@ -338,8 +409,6 @@ def kernel_closed_loop(env, y0, policy, n_steps, *, tau, solver, props, ref_leav
         if len(obs_noise_cols) > MAX_OBS or not all(0 <= col < n_obs for col in obs_noise_cols):
             raise ValueError(f"obs_noise_cols {obs_noise_cols} out of the {n_obs} observation columns")
         _check_leaf("obs_noise_tm", obs_noise_tm, dtype, device, (n_steps, batch, len(obs_noise_cols)))
-        grads.append(obs_noise_tm)
-        args.obs_noise = ptr(obs_noise_tm)
         for j, col in enumerate(obs_noise_cols):
             args.obs_cols[j] = col
         args.n_obs_noise = len(obs_noise_cols)
@@ -347,40 +416,16 @@ def kernel_closed_loop(env, y0, policy, n_steps, *, tau, solver, props, ref_leav
         if len(proc_noise_idx) > MAX_STATE or not all(0 <= i < n_state for i in proc_noise_idx):
             raise ValueError(f"proc_noise_idx {proc_noise_idx} out of the {n_state} state leaves")
         _check_leaf("proc_noise_tm", proc_noise_tm, dtype, device, (n_steps, batch, len(proc_noise_idx)))
-        grads.append(proc_noise_tm)
-        args.proc_noise = ptr(proc_noise_tm)
         for j, idx in enumerate(proc_noise_idx):
             args.noise_idx[j] = idx
         args.n_proc_noise = len(proc_noise_idx)
+    grads = [*leaves, flat, *static_grads] + [t for t in (obs_noise_tm, proc_noise_tm) if t is not None]
     if torch.is_grad_enabled() and any(t.requires_grad for t in grads):
         return closed_loop_vjp(env, y0, policy, n_steps, tau=tau, solver=solver, props=props, ref_leaves=ref_leaves,
                                traj_stride=traj_stride, policy_params=policy_params, policy_carry=policy_carry,
                                obs_noise_tm=obs_noise_tm, proc_noise_tm=proc_noise_tm,
                                obs_noise_cols=obs_noise_cols, proc_noise_idx=proc_noise_idx)
 
-    new = lambda: torch.empty(batch, dtype=dtype, device=device)
-    y_out = [new() for _ in y0]
-    c_out = [new() for _ in carry0]
-    if traj_stride is not None:
-        n_saves = n_steps // traj_stride
-        new_traj = lambda: torch.empty((n_saves, batch), dtype=dtype, device=device)
-        traj_state = [new_traj() for _ in y0]
-        traj_action = [new_traj() for _ in range(n_action)]
-        traj_carry = [new_traj() for _ in carry0]
-        for i, t in enumerate(traj_state):
-            args.traj_state[i] = t.data_ptr()
-        for j, t in enumerate(traj_action):
-            args.traj_action[j] = t.data_ptr()
-        for i, t in enumerate(traj_carry):
-            args.traj_carry[i] = t.data_ptr()
-    for i, leaf in enumerate(y0):
-        args.y0[i] = ptr(leaf)
-        args.y_out[i] = y_out[i].data_ptr()
-    for i, leaf in enumerate(carry0):
-        args.carry0[i] = ptr(leaf)
-        args.carry_out[i] = c_out[i].data_ptr()
-    for r, leaf in enumerate(ref_leaves):
-        args.refs[r] = ptr(leaf)
     args.policy_params = ptr(flat) if flat.numel() else None
     for i, plane in enumerate(spec.planes):
         args.policy_planes[i] = ptr(plane)
@@ -403,12 +448,13 @@ def kernel_closed_loop(env, y0, policy, n_steps, *, tau, solver, props, ref_leav
     args.fast = int(getattr(env, "fast_math", False))
     variant = kernel_variant(n_state, spec)
     args.variant = VARIANTS.index(variant)
+    static = ClosedLoopArgs.from_buffer_copy(args)
 
-    CL_KERNEL.launch(args, dtype, device, "closed_loop", detail=f" ({variant} instantiation)")
-    VARIANT_LAUNCHES[variant] += 1
-    if traj_stride is None:
-        return tuple(y_out), tuple(c_out), None, None, None
-    return tuple(y_out), tuple(c_out), tuple(traj_state), tuple(traj_action), tuple(traj_carry)
+    outputs, chunk_keep = _chunk_args(args, y0, carry0, ref_leaves, obs_noise_tm, proc_noise_tm, n_steps,
+                                      traj_stride, n_action)
+    launch(args, variant)
+    PLANS.missed(key, static, policy, ptr, grads=static_grads, extra=variant)
+    return outputs
 
 
 # ---------------------------------------------------------------------------
@@ -720,7 +766,8 @@ def env_fused_closed_loop(env, init_state, policy, n_steps: int, obs_stride: int
     if return_traj_states and obs_stride is None:
         raise ValueError("return_traj_states requires obs_stride")
     with annotate("ee.rollout.prepare"):
-        if not supports_fused_closed_loop(env):
+        scope = Key().env(env, env.env_properties, env._solver)
+        if not PLANS.in_scope(scope, lambda: supports_fused_closed_loop(env)):
             raise ValueError(
                 "env_fused_closed_loop out of kernel scope (the stepper's scope, a kernel stage "
                 "count, scalar normalizations and the fields in ODE order are required)"

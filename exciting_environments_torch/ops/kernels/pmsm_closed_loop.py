@@ -39,8 +39,15 @@ from torch.autograd.function import once_differentiable
 from exciting_environments_torch.core import structures
 from exciting_environments_torch.core.env import with_env_properties
 from exciting_environments_torch.ops.kernels import checkpoint as ck
-from exciting_environments_torch.ops.kernels.closed_loop import MAX_LAYERS, MAX_WIDTH, closed_loop_noise, policy_spec
+from exciting_environments_torch.ops.kernels.closed_loop import (
+    LAUNCH_PLANS,
+    MAX_LAYERS,
+    MAX_WIDTH,
+    closed_loop_noise,
+    policy_spec,
+)
 from exciting_environments_torch.models.pmsm.pmsm_env import wrap_angle
+from exciting_environments_torch.ops.kernels.plans import Key, PlanCache, Pointers
 from exciting_environments_torch.ops.kernels.pmsm_stepper import (
     N_CHANNELS,
     PMSM_PARAMS,
@@ -148,6 +155,9 @@ class PmsmClArgs(ctypes.Structure):
 
 
 PMSM_CL_KERNEL = KernelLibrary("pmsm_closed_loop", "pmsm_closed_loop", PmsmClArgs, ("pmsm_closed_loop",))
+#: the launch plans of :func:`kernel_pmsm_closed_loop`, counted in
+#: ``LAUNCH_PLANS["pmsm_closed_loop"]`` (``ops/kernels/plans.py``)
+PLANS = PlanCache(LAUNCH_PLANS["pmsm_closed_loop"])
 
 _PLAIN_CALLABLE_ON_CUDA = (
     "on CUDA tensors the PMSM closed loop runs inside the kernel, which compiles in the policy "
@@ -337,6 +347,56 @@ def plain_pmsm_closed_loop(env, state0, omega, policy, n_steps, *, tau, solver, 
 # ---------------------------------------------------------------------------
 
 
+def _chunk_args(args, state0, omega, carry0, ref_leaves, obs_noise_tm, proc_noise_tm, n_steps, traj_stride):
+    """Write one launch's per-chunk pointers into ``args``: the start leaves,
+    ``omega``, the references, the carry, the noise slabs and the outputs,
+    allocated here.  Returns the wrapper's outputs and the tensors the
+    launch reads."""
+    dtype, device, batch = omega.dtype, omega.device, omega.shape[0]
+    ptr = Pointers()
+    new = lambda: torch.empty(batch, dtype=dtype, device=device)
+    out = [new() for _ in range(6)]
+    u_last = [new(), new()]
+    c_out = [new() for _ in carry0]
+    # each field read of a ctypes array makes a new view: one per field
+    for field, tensors in ((args.out, out), (args.u_last, u_last), (args.carry_out, c_out)):
+        for i, t in enumerate(tensors):
+            field[i] = t.data_ptr()
+    traj = traj_carry = None
+    if traj_stride is not None:
+        n_saves = n_steps // traj_stride
+        new_traj = lambda: torch.empty((n_saves, batch), dtype=dtype, device=device)
+        traj = [new_traj() for _ in range(7)]
+        traj_carry = [new_traj() for _ in carry0]
+        for field, tensors in ((args.traj, traj), (args.traj_carry, traj_carry)):
+            for i, t in enumerate(tensors):
+                field[i] = t.data_ptr()
+    for field, leaves in ((args.state0, state0), (args.carry0, carry0), (args.refs, ref_leaves)):
+        for i, leaf in enumerate(leaves):
+            field[i] = ptr(leaf)
+    args.omega = ptr(omega)
+    args.obs_noise = None if obs_noise_tm is None else ptr(obs_noise_tm)
+    args.proc_noise = None if proc_noise_tm is None else ptr(proc_noise_tm)
+    if traj_stride is None:
+        return (tuple(out), tuple(u_last), tuple(c_out), None, None), ptr.keep
+    return (tuple(out), tuple(u_last), tuple(c_out), tuple(traj), tuple(traj_carry)), ptr.keep
+
+
+def _plan_key(env, props, solver, policy, policy_params, sched_lut, tau, n_steps, traj_stride, dtype, device, batch,
+              n_refs, n_carry, obs_noise_cols, proc_noise_idx, has_obs_noise, has_proc_noise) -> Key:
+    """What :func:`kernel_pmsm_closed_loop`'s checks and static fields read."""
+    key = Key().env(env, props, solver)
+    lut = getattr(env, "_lut", None)
+    key.leaf(None if lut is None else lut.values)
+    key.obj(policy)
+    key.leaf(policy_params)
+    key.obj(sched_lut)
+    key.leaf(tau)
+    key.values(n_steps, traj_stride, dtype, device, batch, n_refs, n_carry, tuple(obs_noise_cols),
+               tuple(proc_noise_idx), has_obs_noise, has_proc_noise)
+    return key
+
+
 def kernel_pmsm_closed_loop(env, state0, omega, policy, n_steps, *, tau, solver, props, ref_leaves=(),
                             traj_stride=None, policy_params=None, policy_carry=None, obs_noise_tm=None,
                             proc_noise_tm=None, obs_noise_cols=(), proc_noise_idx=(), sched_lut=None):
@@ -345,17 +405,42 @@ def kernel_pmsm_closed_loop(env, state0, omega, policy, n_steps, *, tau, solver,
     Every check runs before the launch; outputs are allocated here and the
     launch is asynchronous on the current stream.  Where autograd records
     the call (grad mode on and an input that requires grad), the launch is
-    the forward of the checkpointed VJP (:class:`PmsmClosedLoopVJP`)."""
+    the forward of the checkpointed VJP (:class:`PmsmClosedLoopVJP`).
+
+    A launch whose static inputs (everything but the start leaves, the
+    references, the carry and the noise slabs) are those of a kept launch
+    plan (:data:`PLANS`) checks only its per-chunk leaves and the policy's
+    spec, and writes only the per-chunk pointers into a copy of the plan's
+    struct: the kernel gets the same bytes as from the full path."""
     state0 = tuple(state0)
     dtype, device = state0[0].dtype, state0[0].device
     batch = state0[0].shape[0]
+    carry0 = tuple(policy_carry) if policy_carry is not None else ()
+    n_refs = len(ref_leaves)
+    n_carry = len(carry0)
+    key = None  # no plan for a policy that packs a new spec every launch, or no kernel policy
+    if getattr(policy, "spec_packs", None) is not None:
+        key = _plan_key(env, props, solver, policy, policy_params, sched_lut, tau, n_steps, traj_stride, dtype,
+                        device, batch, n_refs, n_carry, obs_noise_cols, proc_noise_idx, obs_noise_tm is not None,
+                        proc_noise_tm is not None)
+    leaves = (*state0, omega, *ref_leaves, *carry0)
+
+    def launch(args, detail):
+        PMSM_CL_KERNEL.launch(args, dtype, device, "pmsm_closed_loop", detail=detail)
+
+    outputs, spec = PLANS.launch(
+        key, leaves, ((obs_noise_tm, (n_steps, batch, len(obs_noise_cols))),
+                      (proc_noise_tm, (n_steps, batch, len(proc_noise_idx)))),
+        policy, lambda: policy_spec(policy, dtype, device, policy_params), PmsmClArgs,
+        lambda args: _chunk_args(args, state0, omega, carry0, ref_leaves, obs_noise_tm, proc_noise_tm, n_steps,
+                                 traj_stride),
+        launch)
+    if outputs is not None:
+        return outputs
+
     params = props.static_params
     saturated = bool(props.saturated)
     a_rows, b = _stage_rows(solver)
-    n_refs = len(ref_leaves)
-    carry0 = tuple(policy_carry) if policy_carry is not None else ()
-    n_carry = len(carry0)
-
     if not isinstance(policy, KernelPolicy):
         raise ValueError(_PLAIN_CALLABLE_ON_CUDA)
     if policy.policy_id not in FAMILIES:
@@ -395,12 +480,13 @@ def kernel_pmsm_closed_loop(env, state0, omega, policy, n_steps, *, tau, solver,
         _check_leaf(f"reference {i}", leaf, dtype, device, (batch,))
     for i, leaf in enumerate(carry0):
         _check_leaf(f"policy carry leaf {i}", leaf, dtype, device, (batch,))
-    spec = policy_spec(policy, dtype, device, policy_params)
+    if spec is None:
+        spec = policy_spec(policy, dtype, device, policy_params)
     if spec.planes:
         raise ValueError(f"{type(policy).__name__} reads per-drive planes, which the PMSM closed-loop kernel "
                          "does not take")
     flat = spec.flat
-    grads = [*state0, omega, *ref_leaves, *carry0, flat]
+    static_grads = []  # the static tensors autograd could record
     n_obs = N_BASE_OBS + n_refs + n_sched
     if flat.numel() > MAX_POLICY_PARAMS:
         raise ValueError(f"{flat.numel()} policy parameters exceed the kernel's {MAX_POLICY_PARAMS}")
@@ -411,12 +497,7 @@ def kernel_pmsm_closed_loop(env, state0, omega, policy, n_steps, *, tau, solver,
         raise ValueError(f"actor widths {widths}: at most {MAX_LAYERS} layers of at most {MAX_WIDTH}, two actions")
 
     args = PmsmClArgs()
-    keep = []  # tensors whose pointers the launch reads
-
-    def ptr(t):
-        t = t.contiguous()
-        keep.append(t)
-        return t.data_ptr()
+    ptr = Pointers()  # the static fields' tensors, alive until the launch
 
     args.tau = float(tau)
     for s, row in enumerate(a_rows, start=1):
@@ -431,14 +512,14 @@ def kernel_pmsm_closed_loop(env, state0, omega, policy, n_steps, *, tau, solver,
         leaf = getattr(params, name)
         if isinstance(leaf, torch.Tensor):
             _check_leaf(f"parameter {name}", leaf, dtype, device, (batch,))
-            grads.append(leaf)
+            static_grads.append(leaf)
             args.param_ptr[i] = ptr(leaf)
         else:
             args.param_value[i] = float(leaf)
     for i, (name, leaf) in enumerate(cl_bands(props).items()):
         if isinstance(leaf, torch.Tensor):
             _check_leaf(f"band {name}", leaf, dtype, device, (batch,))
-            grads.append(leaf)
+            static_grads.append(leaf)
             args.band_ptr[i] = ptr(leaf)
         else:
             args.band_value[i] = leaf
@@ -452,8 +533,6 @@ def kernel_pmsm_closed_loop(env, state0, omega, policy, n_steps, *, tau, solver,
         if len(obs_noise_cols) > MAX_OBS or not all(0 <= col < base for col in obs_noise_cols):
             raise ValueError(f"obs_noise_cols {obs_noise_cols} out of the {base} observation columns")
         _check_leaf("obs_noise_tm", obs_noise_tm, dtype, device, (n_steps, batch, len(obs_noise_cols)))
-        grads.append(obs_noise_tm)
-        args.obs_noise = ptr(obs_noise_tm)
         for j, col in enumerate(obs_noise_cols):
             args.obs_cols[j] = col
         args.n_obs_noise = len(obs_noise_cols)
@@ -461,11 +540,10 @@ def kernel_pmsm_closed_loop(env, state0, omega, policy, n_steps, *, tau, solver,
         if len(proc_noise_idx) > 2 or not all(i in (0, 1) for i in proc_noise_idx):
             raise ValueError(f"proc_noise_idx {proc_noise_idx} must index the currents (0 = i_d, 1 = i_q)")
         _check_leaf("proc_noise_tm", proc_noise_tm, dtype, device, (n_steps, batch, len(proc_noise_idx)))
-        grads.append(proc_noise_tm)
-        args.proc_noise = ptr(proc_noise_tm)
         for j, idx in enumerate(proc_noise_idx):
             args.noise_idx[j] = idx
         args.n_proc_noise = len(proc_noise_idx)
+    grads = [*leaves, flat, *static_grads] + [t for t in (obs_noise_tm, proc_noise_tm) if t is not None]
     if torch.is_grad_enabled() and any(t.requires_grad for t in grads):
         return pmsm_closed_loop_vjp(env, state0, omega, policy, n_steps, tau=tau, solver=solver, props=props,
                                     ref_leaves=ref_leaves, traj_stride=traj_stride, policy_params=policy_params,
@@ -473,47 +551,23 @@ def kernel_pmsm_closed_loop(env, state0, omega, policy, n_steps, *, tau, solver,
                                     proc_noise_tm=proc_noise_tm, obs_noise_cols=obs_noise_cols,
                                     proc_noise_idx=proc_noise_idx, sched_lut=sched_lut)
     smem_bytes = (flat.numel() + 16) * flat.element_size()
+    tables = []
     if saturated:
         lut = env._lut
         _check_leaf("LUT", lut.values, dtype, device, (N_CHANNELS, lut.nx, lut.ny))
-        table = lut.interleaved()
-        args.lut = ptr(table)
+        tables.append(lut.interleaved())
+        args.lut = ptr(tables[-1])
         args.x0, args.dx, args.y0, args.dy = lut.x0, lut.dx, lut.y0, lut.dy
         args.nx, args.ny = lut.nx, lut.ny
-        smem_bytes += table.numel() * table.element_size()
+        smem_bytes += tables[-1].numel() * tables[-1].element_size()
     if smem_bytes > MAX_DYNAMIC_SMEM:
         raise ValueError(f"the table and {flat.numel()} policy parameters need {smem_bytes} B of shared memory, "
                          f"above the {MAX_DYNAMIC_SMEM} B of one block")
     if n_sched:
-        args.sched = ptr(sched_lut.interleaved(dtype, device))
+        tables.append(sched_lut.interleaved(dtype, device))
+        args.sched = ptr(tables[-1])
         args.n_sched = n_sched
         args.sched_c0, args.sched_c1 = sched_lut.carry_idx
-
-    new = lambda: torch.empty(batch, dtype=dtype, device=device)
-    out = [new() for _ in range(6)]
-    u_last = [new(), new()]
-    c_out = [new() for _ in carry0]
-    for i in range(6):
-        args.out[i] = out[i].data_ptr()
-    args.u_last[0], args.u_last[1] = u_last[0].data_ptr(), u_last[1].data_ptr()
-    traj = traj_carry = None
-    if traj_stride is not None:
-        n_saves = n_steps // traj_stride
-        new_traj = lambda: torch.empty((n_saves, batch), dtype=dtype, device=device)
-        traj = [new_traj() for _ in range(7)]
-        traj_carry = [new_traj() for _ in carry0]
-        for i, t in enumerate(traj):
-            args.traj[i] = t.data_ptr()
-        for i, t in enumerate(traj_carry):
-            args.traj_carry[i] = t.data_ptr()
-    for i, leaf in enumerate(state0):
-        args.state0[i] = ptr(leaf)
-    args.omega = ptr(omega)
-    for i, leaf in enumerate(carry0):
-        args.carry0[i] = ptr(leaf)
-        args.carry_out[i] = c_out[i].data_ptr()
-    for r, leaf in enumerate(ref_leaves):
-        args.refs[r] = ptr(leaf)
     args.policy_params = ptr(flat) if flat.numel() else None
     args.batch = batch
     args.n_steps = n_steps
@@ -531,12 +585,14 @@ def kernel_pmsm_closed_loop(env, state0, omega, policy, n_steps, *, tau, solver,
         else:
             setattr(args, name, value)
     args.traj_stride = traj_stride or 0
+    static = PmsmClArgs.from_buffer_copy(args)
 
-    PMSM_CL_KERNEL.launch(args, dtype, device, "pmsm_closed_loop",
-                          detail=f" (dynamic shared memory asked: {smem_bytes} B)")
-    if traj_stride is None:
-        return tuple(out), tuple(u_last), tuple(c_out), None, None
-    return tuple(out), tuple(u_last), tuple(c_out), tuple(traj), tuple(traj_carry)
+    outputs, chunk_keep = _chunk_args(args, state0, omega, carry0, ref_leaves, obs_noise_tm, proc_noise_tm, n_steps,
+                                      traj_stride)
+    detail = f" (dynamic shared memory asked: {smem_bytes} B)"
+    launch(args, detail)
+    PLANS.missed(key, static, policy, ptr, grads=static_grads, hold=tables, extra=detail)
+    return outputs
 
 
 def kernel_sincos(x: torch.Tensor):
@@ -864,7 +920,8 @@ def pmsm_fused_closed_loop(env, init_state, policy, n_steps: int, obs_stride: in
     if return_traj_states and obs_stride is None:
         raise ValueError("return_traj_states requires obs_stride")
     with annotate("ee.rollout.prepare"):
-        if not supports_pmsm_fused_closed_loop(env):
+        scope = Key().env(env, env.env_properties, env._solver)
+        if not PLANS.in_scope(scope, lambda: supports_pmsm_fused_closed_loop(env)):
             raise ValueError(
                 "pmsm_fused_closed_loop out of kernel scope (supports_pmsm_fused, a kernel stage count, "
                 "scalar-or-(batch,) bands and at most 4 tracked references are required)"

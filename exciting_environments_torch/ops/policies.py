@@ -50,6 +50,17 @@ class KernelSpec(NamedTuple):
     planes: tuple = ()
 
 
+def resolved_device(device) -> torch.device:
+    """``device`` as a ``torch.device`` with its index (``"cuda"`` is the
+    current card), so that a spec asked for on ``cuda`` and launched on
+    ``cuda:0`` is the same spec."""
+    if type(device) is not torch.device:
+        device = torch.device(device)
+    if device.index is None and device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 class KernelPolicy(nn.Module):
     """A policy family with a functor in a closed-loop kernel.
 
@@ -57,12 +68,18 @@ class KernelPolicy(nn.Module):
     carry leaves the policy threads from step to step), ``env_ids`` where
     the family is compiled for some environments only (their
     ``_kernel_env_id``; ``None``: every environment of the kernel), and
-    implement ``forward`` (the plain version) and :meth:`kernel_spec`.
+    implement ``forward`` (the plain version) and :meth:`kernel_spec`; one
+    that keeps its spec counts each one it packs in ``spec_packs``.
     """
 
     policy_id: int = -1
     n_carry: int = 0
     env_ids: tuple = None
+    #: how many specs :meth:`kernel_spec` has packed, for a family that
+    #: hands out the spec it packed last while nothing it reads changed (a
+    #: launch plan, ``ops/kernels/plans.py``, knows its spec by this count);
+    #: ``None`` for a family that packs a new spec every launch
+    spec_packs: int = None
 
     def kernel_spec(self, dtype: torch.dtype, device, params=None) -> KernelSpec:
         """The family id, options and flat parameters (in ``dtype`` on
@@ -104,6 +121,12 @@ class AffinePolicy(KernelPolicy):
     ``policy_params``: a flat vector ``[K.ravel(), b, Ki.ravel()]`` of the
     same sizes (the kernel's layout), which makes the loop differentiable in
     them on the CPU.
+
+    :meth:`kernel_spec` keeps one spec per working type and device, its
+    flat gains placed there, and packs again only where the buffers or the
+    ``policy_params`` tensor (by identity and ``_version``) or ``clip``
+    changed; gains that autograd records, or ``policy_params`` that is no
+    tensor, are packed every launch.
     """
 
     policy_id = 0
@@ -128,6 +151,8 @@ class AffinePolicy(KernelPolicy):
         self.n_action, self.n_obs = n_action, n_obs
         self.n_carry = n_action if Ki is not None else 0
         self.clip = None if clip is None else float(clip)
+        self.spec_packs = 0
+        self._specs = {}  # (dtype, device) -> (key, sources, spec)
 
     def flat_params(self) -> torch.Tensor:
         """The constructor's gains as the flat ``policy_params`` vector."""
@@ -176,12 +201,25 @@ class AffinePolicy(KernelPolicy):
         return flat
 
     def kernel_spec(self, dtype, device, params=None) -> KernelSpec:
+        device = resolved_device(device)
+        sources = (self.K, self.b, self.Ki) if params is None else (params,)
+        keeps = (params is None or isinstance(params, torch.Tensor)) and not (
+            torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in sources))
+        if keeps:
+            key = (self.clip,) + tuple(None if t is None else (t._version, t.data_ptr()) for t in sources)
+            kept = self._specs.get((dtype, device))
+            if kept is not None and kept[0] == key and all(a is b for a, b in zip(kept[1], sources)):
+                return kept[2]
         options = {
             "has_integral": int(self.Ki is not None),
             "has_clip": int(self.clip is not None),
             "clip": 0.0 if self.clip is None else self.clip,
         }
-        return KernelSpec(self.policy_id, self.n_obs, options, self._flat(params, dtype, device).contiguous())
+        spec = KernelSpec(self.policy_id, self.n_obs, options, self._flat(params, dtype, device).contiguous())
+        self.spec_packs += 1
+        if keeps:
+            self._specs[(dtype, device)] = (key, sources, spec)
+        return spec
 
     def extra_repr(self) -> str:
         return (f"n_action={self.n_action}, n_obs={self.n_obs}, integral={self.Ki is not None}, "

@@ -60,7 +60,7 @@ import torch
 from exciting_environments_torch.core import structures
 from exciting_environments_torch.ops.kernels.stepper import _lincomb, _stage_rows
 from exciting_environments_torch.ops.lut import ScheduledLUT, bilinear_gather
-from exciting_environments_torch.ops.policies import KernelPolicy, KernelSpec
+from exciting_environments_torch.ops.policies import KernelPolicy, KernelSpec, resolved_device
 
 #: the stationary Kalman gains the tile factories solved in this process:
 #: ``solves`` (one per tile, however many chunks it runs) and ``drives`` (the
@@ -81,23 +81,52 @@ def _vector_scale(u_d, u_q, u_lim):
     return torch.clamp(u_lim / torch.clamp(u_mag, min=1e-9), max=1.0)
 
 
+def _frozen(value):
+    """``value`` with its lists as tuples: a constant held in a tile changes
+    only by a set of one of the tile's attributes."""
+    return tuple(_frozen(v) for v in value) if isinstance(value, (list, tuple)) else value
+
+
+def _tokens(leaves) -> tuple:
+    """``leaves`` as a packed spec's key compares them: a tensor by identity,
+    ``_version`` and data pointer (the packed spec holds it, so no other
+    tensor takes its identity), a Python number or tuple by value."""
+    return tuple((id(t), t._version, t.data_ptr()) if isinstance(t, torch.Tensor) else t for t in leaves)
+
+
 class _SlotTile(KernelPolicy):
     """A tile with Python-number constants and no ``policy_params``: its
     flat vector is ``SLOTS`` in order (the order of its functor's enum),
     valued by ``_slot_values()``, ``_options()`` gives its
     ``ClosedLoopArgs``/``PmsmClArgs`` fields and ``_planes()`` its per-drive
     planes (``PLANES`` in order), computed from the tensors of
-    ``_plane_sources()``.  The spec is packed once and handed out again
-    while the working type, the device, the slot values, the options and the
-    plane sources (the same tensors, not written in place) stay as they
-    were: a fleet loop's launches reuse it, and a constant changed between
-    launches re-packs it."""
+    ``_plane_sources()``.
+
+    The spec is packed once and handed out again while the working type,
+    the device, the tile's constants and the plane sources (the same
+    tensors, not written in place) stay as they were: a fleet loop's
+    launches reuse it, and a constant changed between launches re-packs it
+    (``spec_packs`` counts the packs).  Each launch checks this in O(1),
+    without reading the slot values: every set of one of the tile's
+    attributes counts in ``_edits``, its containers of constants are tuples,
+    ``_constants()`` gives what it reads beyond its own attributes (a dict
+    of constants' values, or a law's :meth:`FocLaw.constants`), compared by
+    value, and ``_watched()`` the tensors it packs from, whose versions are
+    compared (a counted set is the only way to replace one)."""
 
     SLOTS: tuple = ()
+    #: the attributes whose sets change no constant
+    _BOOKKEEPING = frozenset(("_packed", "_edits", "spec_packs"))
 
     def __init__(self):
         super().__init__()
-        self._packed = None  # (key, plane sources, spec)
+        self.spec_packs = 0
+        self._packed = None  # (key, (watched tensor, version, data pointer), spec)
+
+    def __setattr__(self, name, value):
+        super().__setattr__(name, value)
+        if name not in self._BOOKKEEPING:
+            object.__setattr__(self, "_edits", self.__dict__.get("_edits", 0) + 1)
 
     def _slot_values(self) -> dict:
         raise NotImplementedError
@@ -111,25 +140,30 @@ class _SlotTile(KernelPolicy):
     def _plane_sources(self) -> tuple:
         return ()
 
+    def _constants(self) -> tuple:
+        return ()
+
+    def _watched(self) -> tuple:
+        return self._plane_sources()
+
     def kernel_spec(self, dtype, device, params=None) -> KernelSpec:
         if params is not None:
             raise ValueError(f"{type(self).__name__} takes no policy_params")
-        device = torch.device(device)
-        if device.type == "cuda" and device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
-        values = self._slot_values()
-        options = self._options()
-        sources = self._plane_sources()
-        key = (dtype, device, values, options, tuple(t._version for t in sources))
+        device = resolved_device(device)
+        constants = self._constants()
+        key = (dtype, device, self.__dict__.get("_edits", 0)) + _tokens(constants)
         packed = self._packed
-        if (packed is not None and packed[0] == key and len(packed[1]) == len(sources)
-                and all(a is b for a, b in zip(packed[1], sources))):
+        if packed is not None and packed[0] == key and all(
+                t._version == version and t.data_ptr() == ptr for t, version, ptr in packed[1]):
             return packed[2]
+        values = self._slot_values()
         flat = torch.tensor([float(values[name]) for name in self.SLOTS], dtype=torch.float64)
         planes = tuple(p.to(dtype=dtype, device=device).contiguous() for p in self._planes())
-        spec = KernelSpec(self.policy_id, self.n_obs, options, flat.to(dtype=dtype, device=device).contiguous(),
-                          planes)
-        self._packed = (key, sources, spec)
+        spec = KernelSpec(self.policy_id, self.n_obs, self._options(),
+                          flat.to(dtype=dtype, device=device).contiguous(), planes)
+        watched = self._watched() + tuple(c for c in constants if isinstance(c, torch.Tensor))
+        self._packed = (key, tuple((t, t._version, t.data_ptr()) for t in watched), spec)
+        self.spec_packs += 1
         return spec
 
     def extra_repr(self) -> str:
@@ -143,13 +177,16 @@ class _SensorlessBase(_SlotTile):
 
     def __init__(self, consts: dict, n_obs: int, delayed: bool):
         super().__init__()
-        self.consts = dict(consts)
+        self.consts = {name: _frozen(v) for name, v in consts.items()}
         self.n_obs = int(n_obs)
         self.delayed = bool(delayed)
         self.n_carry = 6 if self.delayed else 4
 
     def _options(self):
         return {"delayed": int(self.delayed)}
+
+    def _constants(self):
+        return tuple(self.consts.values())
 
     def extra_repr(self) -> str:
         return f"n_obs={self.n_obs}, delayed={self.delayed}"
@@ -675,12 +712,33 @@ class FocLaw:
              "TORQUE_REF", "TQ_GAIN", "HALF_PSI", "INV_QUARTER_PSI", "L_M", "TAU_R", "OMEGA", "KP", "SIGMA_LS", "K_R",
              "U_LIM", "KI_TAU", "AW", "INV_UMAX_D", "INV_UMAX_Q")
 
+    #: the machine parameters the functor's slots fold: :meth:`slot_values`
+    #: reads them and :meth:`constants` watches them
+    FOLDED_PARAMS = ("l_m", "l_r", "l_s", "r_r", "p", "omega")
+
     def __init__(self, params, *, tau, psi_star, torque_ref, kp, ki, kp_psi, ki_psi, psi_floor, i_max, u_lim,
                  u_max_d, u_max_q):
         self.params = params
         self.tau, self.psi_star, self.torque_ref = tau, psi_star, torque_ref
         self.kp, self.ki, self.kp_psi, self.ki_psi, self.psi_floor = kp, ki, kp_psi, ki_psi, psi_floor
         self.i_max, self.u_lim, self.u_max_d, self.u_max_q = i_max, u_lim, u_max_d, u_max_q
+
+    def __setattr__(self, name, value):
+        object.__setattr__(self, name, value)
+        if name != "_edits":
+            object.__setattr__(self, "_edits", self.__dict__.get("_edits", 0) + 1)
+
+    def constants(self) -> tuple:
+        """What the tiles' slot values, options and planes read of the law
+        beyond its tensors: the count of its attribute sets and the machine
+        parameters it folds (:data:`FOLDED_PARAMS`, read from a parameter set
+        the environment shares, whose fields change without a set here)."""
+        return (self._edits,) + tuple(getattr(self.params, n) for n in self.FOLDED_PARAMS)
+
+    def tensors(self) -> tuple:
+        """The law's tensor attributes: a write in place changes a slot or a
+        plane without a set."""
+        return tuple(v for v in vars(self).values() if isinstance(v, torch.Tensor))
 
     def __call__(self, i_sd_v, i_sq_v, psi_rd_v, psi_rq_v, carry, k):
         params, tau = self.params, self.tau
@@ -754,7 +812,7 @@ class FocLaw:
         p = self.params
         consts = dict(tau=self.tau, psi_star=self.psi_star, i_max=self.i_max, u_lim=self.u_lim,
                       u_max_d=self.u_max_d, u_max_q=self.u_max_q, torque_ref=self.torque_ref,
-                      **{n: getattr(p, n) for n in ("l_m", "l_r", "l_s", "r_r", "p", "omega")})
+                      **{n: getattr(p, n) for n in self.FOLDED_PARAMS})
         if self.per_drive():
             consts.update(omega=0.0, torque_ref=0.0)
         batched = sorted(n for n, v in consts.items() if _is_batched(v))
@@ -939,13 +997,19 @@ class FocPolicy(_SlotTile):
 
     def __init__(self, law: FocLaw, spans, n_obs: int):
         super().__init__()
-        self.law, self.spans, self.n_obs = law, tuple(spans), int(n_obs)
+        self.law, self.spans, self.n_obs = law, _frozen(spans), int(n_obs)
 
     def _slot_values(self):
         return {**self.law.slot_values(type(self).__name__), **_span_slots(self.spans)}
 
     def _options(self):
         return {"frame_step": self.law.frame_step()}
+
+    def _constants(self):
+        return self.law.constants()
+
+    def _watched(self):
+        return self._plane_sources() + self.law.tensors()
 
     def _planes(self):
         return self.law.planes()
@@ -1018,18 +1082,18 @@ class SensorlessFocPolicy(_SlotTile):
 
     def __init__(self, law: FocLaw, spans, n_obs: int, A, B, c, K, midx, zcols):
         super().__init__()
-        self.law, self.spans, self.n_obs = law, tuple(spans), int(n_obs)
-        self.midx, self.zcols = [int(v) for v in midx], [int(v) for v in zcols]
+        self.law, self.spans, self.n_obs = law, _frozen(spans), int(n_obs)
+        self.midx, self.zcols = tuple(int(v) for v in midx), tuple(int(v) for v in zcols)
         if len(self.midx) > self.MAX_MEAS:
             raise ValueError(f"at most {self.MAX_MEAS} measured fields")
         A, B, c, K = (np.asarray(m, dtype=np.float64) for m in (A, B, c, K))
         self.drive = law.per_drive()
         if not self.drive:
-            self.A = [[float(v) for v in row] for row in A]
-            self.B = [[float(v) for v in row] for row in B]
-            self.c = [float(v) for v in c]
-            self.K = [[float(v) for v in row] for row in K]
-            nz = lambda m: [[v != 0.0 for v in row] for row in m]
+            self.A = tuple(tuple(float(v) for v in row) for row in A)
+            self.B = tuple(tuple(float(v) for v in row) for row in B)
+            self.c = tuple(float(v) for v in c)
+            self.K = tuple(tuple(float(v) for v in row) for row in K)
+            nz = lambda m: tuple(tuple(v != 0.0 for v in row) for row in m)
             self.k_nz, self.a_nz, self.b_nz = nz(self.K), nz(self.A), nz(self.B)
             return
         # one filter per drive: K and the speed's A entries become planes in
@@ -1050,17 +1114,16 @@ class SensorlessFocPolicy(_SlotTile):
                 raise ValueError(f"the per-drive sensorless tile folds the observer's {name} but for the speed's "
                                  f"cross terms {self.DRIVE_A}: it differs between drives here (only omega may be "
                                  "per drive, and only explicit Euler's transition moves no other entry with it)")
-        self.A = [[plane(A[:, i, j]) if not shared[i, j] else float(A[0, i, j]) for j in range(4)] for i in range(4)]
-        self.B = [[float(v) for v in row] for row in B[0]]
-        self.c = [float(v) for v in c[0]]
-        self.K = [[plane(K[:, i, k]) for k in range(K.shape[-1])] for i in range(4)]
-        self.k_nz = [[bool((K[:, i, k] != 0.0).any()) for k in range(K.shape[-1])] for i in range(4)]
-        self.a_nz = [[bool((A[:, i, j] != 0.0).any()) for j in range(4)] for i in range(4)]
-        self.b_nz = [[v != 0.0 for v in row] for row in self.B]
+        self.A = tuple(tuple(plane(A[:, i, j]) if not shared[i, j] else float(A[0, i, j]) for j in range(4))
+                       for i in range(4))
+        self.B = tuple(tuple(float(v) for v in row) for row in B[0])
+        self.c = tuple(float(v) for v in c[0])
+        self.K = tuple(tuple(plane(K[:, i, k]) for k in range(K.shape[-1])) for i in range(4))
+        self.k_nz = tuple(tuple(bool((K[:, i, k] != 0.0).any()) for k in range(K.shape[-1])) for i in range(4))
+        self.a_nz = tuple(tuple(bool((A[:, i, j] != 0.0).any()) for j in range(4)) for i in range(4))
+        self.b_nz = tuple(tuple(v != 0.0 for v in row) for row in self.B)
 
     def _slot_values(self):
-        # read at every launch (kernel_spec compares them with the packed
-        # spec's), so written without per-slot string formatting
         n_meas = len(self.midx)
         pad = (0,) * (4 - n_meas)
         out = {**self.law.slot_values(type(self).__name__), **_span_slots(self.spans), "N_MEAS": n_meas}
@@ -1083,6 +1146,12 @@ class SensorlessFocPolicy(_SlotTile):
 
     def _options(self):
         return {"frame_step": self.law.frame_step()}
+
+    def _constants(self):
+        return self.law.constants()
+
+    def _watched(self):
+        return self._plane_sources() + self.law.tensors()
 
     def _planes(self):
         if not self.drive:
@@ -1183,7 +1252,10 @@ class EesmCurrentPolicy(_SlotTile):
 
     def __init__(self, consts: dict, spans, n_obs: int):
         super().__init__()
-        self.consts, self.spans, self.n_obs = dict(consts), tuple(spans), int(n_obs)
+        self.consts, self.spans, self.n_obs = dict(consts), _frozen(spans), int(n_obs)
+
+    def _constants(self):
+        return tuple(self.consts.values())
 
     def _slot_values(self):
         c = self.consts

@@ -822,6 +822,134 @@ def test_pmsm_closed_loop_kernel_matches_plain_version(kind, dtype):
         assert torch.equal(a, b)
 
 
+def _plan_fleet(kind, dtype):
+    """(env, policy, start state, carry, the wrapper's plan cache) of a fleet
+    whose chunks run one closed-loop wrapper: the saturated BRUSA drive under
+    the PI law (``kernel_pmsm_closed_loop``), or the per-drive sensorless FOC
+    fleet (``kernel_closed_loop``); ragged B."""
+    from exciting_environments_torch.core import structures
+    from exciting_environments_torch.ops.kernels import pmsm_closed_loop as PCL
+
+    if kind == "foc":
+        env, policy, y0, loop = _drive_fleet_case("sensorless", dtype)
+        _, state = env.vmap_reset()
+        state = structures.replace(state, physical_state=env.PhysicalState(**dict(zip(env._ode_state_fields, y0))))
+        return env, policy, state, loop["policy_carry"], CL.PLANS
+    B = 2048 + 45
+    env = P.PMSM(batch_size=B, saturated=True, motor_variant=P.MotorVariant.BRUSA, dtype=dtype,
+                 control_state=["i_d", "i_q"])
+    _, state = env.vmap_reset(rng=torch.Generator(device="cuda").manual_seed(21))
+    state.reference.i_d = torch.linspace(-200.0, -10.0, B, device="cuda", dtype=dtype)
+    state.reference.i_q = torch.linspace(-150.0, 150.0, B, device="cuda", dtype=dtype)
+    policy = P.AffinePolicy(PCL_P, Ki=PCL_KI)
+    return env, policy, state, tuple(torch.zeros(B, device="cuda", dtype=dtype) for _ in range(2)), PCL.PLANS
+
+
+def _uncached_chunks(env, policy, state, carry, plans, n, steps):
+    """``n`` chunks of the entry point, each launched through the wrapper's
+    full path (its plans dropped before every launch)."""
+    for _ in range(n):
+        plans.clear()
+        _, state, carry = env.fused_closed_loop(state, policy, steps, policy_carry=carry)
+    return state, tuple(carry)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["pi", "foc"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_launch_plans_equal_uncached_launches_bit_for_bit(kind, dtype):
+    """Four chunks of FleetRunner.run_policy, the last three through the
+    launch plan the first one kept (``LAUNCH_PLANS``: 1 miss, 3 hits), equal
+    four chunks each launched through the wrapper's full path, every state
+    and carry leaf bit for bit."""
+    from exciting_environments_torch.utils.fleet import FleetRunner
+
+    _cuda()
+    env, policy, state, carry, plans = _plan_fleet(kind, dtype)
+    plans.clear()
+    before = dict(plans.counts)
+    final, final_c = FleetRunner(env).run_policy(state, policy, 4, 32, policy_carry=carry)
+    torch.cuda.synchronize()
+    assert plans.counts["hits"] - before["hits"] == 3 and plans.counts["misses"] - before["misses"] == 1
+    before = dict(plans.counts)
+    ref, ref_c = _uncached_chunks(env, policy, state, carry, plans, 4, 32)
+    assert plans.counts["hits"] == before["hits"] and plans.counts["misses"] - before["misses"] == 4
+    _tree_equal((final, final_c), (ref, ref_c))
+    assert all(bool(torch.isfinite(t).all()) for t in final_c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["pi", "foc"])
+def test_a_launch_plan_follows_a_policy_changed_between_chunks(kind):
+    """A FOC setpoint plane written in place, or the PI law's gains written
+    in place, between two chunks of one runner: the chunk after it packs
+    the policy's spec again and misses the plan, and the result equals a
+    fresh runner's over the same chunks (every launch through the full
+    path), bit for bit."""
+    from exciting_environments_torch.utils.fleet import FleetRunner
+
+    _cuda()
+    env, policy, state, carry, plans = _plan_fleet(kind, torch.float32)
+    change = (lambda: policy.law.torque_ref.mul_(-0.5)) if kind == "foc" else (lambda: policy.K.mul_(0.5))
+    undo = (lambda: policy.law.torque_ref.mul_(-2.0)) if kind == "foc" else (lambda: policy.K.mul_(2.0))
+    plans.clear()
+    before = dict(plans.counts)
+    runner = FleetRunner(env)
+    mid, mid_c = runner.run_policy(state, policy, 2, 32, policy_carry=carry)
+    change()
+    final, final_c = runner.run_policy(mid, policy, 2, 32, policy_carry=mid_c)
+    torch.cuda.synchronize()
+    assert plans.counts["hits"] - before["hits"] == 2 and plans.counts["misses"] - before["misses"] == 2
+    undo()
+    ref, ref_c = _uncached_chunks(env, policy, state, carry, plans, 2, 32)
+    change()
+    ref, ref_c = _uncached_chunks(env, policy, ref, ref_c, plans, 2, 32)
+    _tree_equal((final, final_c), (ref, ref_c))
+
+
+@pytest.mark.gpu
+def test_a_launch_plan_leaves_grad_recording_to_the_vjp():
+    """With a plan kept for the same static inputs, a call whose start
+    leaves require grad still runs the checkpointed VJP, in both wrappers:
+    its outputs carry the VJP's backward, and the gradient equals the one
+    with no plan kept."""
+    from exciting_environments_torch.ops.kernels import pmsm_closed_loop as PCL
+
+    _cuda()
+    B, T = 256 + 3, 16
+    drive = P.PMSM(batch_size=B, saturated=True, motor_variant=P.MotorVariant.BRUSA, control_state=["i_d", "i_q"])
+    _, st = drive.vmap_reset(rng=torch.Generator(device="cuda").manual_seed(22))
+    phys = st.physical_state
+    refs = (torch.full((B,), -0.5, device="cuda"), torch.zeros(B, device="cuda"))
+    pi = P.AffinePolicy(PCL_P)
+    pend = P.Pendulum(batch_size=B, control_state=["theta"])
+    _, pst = pend.vmap_reset(rng=torch.Generator(device="cuda").manual_seed(23))
+    pd = P.AffinePolicy(PD_GAINS)
+    cases = [
+        (PCL.PLANS, "PmsmClosedLoopVJP",
+         lambda s0: PCL.kernel_pmsm_closed_loop(drive, s0, phys.omega_el, pi, T, tau=drive.tau, solver=drive._solver,
+                                                props=drive.env_properties, ref_leaves=refs)[0],
+         (phys.i_d, phys.i_q, phys.epsilon, phys.u_d_buffer, phys.u_q_buffer)),
+        (CL.PLANS, "ClosedLoopVJP",
+         lambda s0: CL.kernel_closed_loop(pend, s0, pd, T, tau=pend.tau, solver=pend._solver,
+                                          props=pend.env_properties, ref_leaves=(torch.zeros(B, device="cuda"),))[0],
+         tuple(getattr(pst.physical_state, n) for n in pend._ode_state_fields)),
+    ]
+    for plans, name, run, leaves in cases:
+        grads = []
+        for keep_plan in (False, True):
+            plans.clear()
+            if keep_plan:
+                run(leaves)  # no leaf requires grad: the full path keeps a plan
+                assert len(plans) == 1
+            s0 = tuple(t.detach().clone().requires_grad_(True) for t in leaves)
+            out = run(s0)
+            assert out[0].grad_fn is not None and name in type(out[0].grad_fn).__name__
+            grads.append(torch.autograd.grad(sum(o.sum() for o in out), s0))
+        for a, b in zip(*grads):
+            assert torch.equal(a, b)
+
+
 @pytest.mark.gpu
 def test_pmsm_closed_loop_entry_points_launch_and_refuse():
     _cuda()

@@ -198,7 +198,9 @@ def test_policy_spec_opens_one_span_around_the_kernel_spec():
 def test_closed_loop_wrappers_open_one_policy_spec_span_a_launch():
     """On the card: each launch of either closed-loop wrapper
     (``kernel_closed_loop``, ``kernel_pmsm_closed_loop``) opens one
-    ``ee.policy.spec`` span, before its ``ee.launch`` span."""
+    ``ee.policy.spec`` span, before its ``ee.launch`` span, also where it
+    launches through a kept launch plan (the span then times the plan's
+    check of the policy's spec)."""
     from exciting_environments_torch.ops.kernels import closed_loop as CL
     from exciting_environments_torch.ops.kernels import pmsm_closed_loop as PCL
     from exciting_environments_torch.utils import foc
@@ -219,13 +221,15 @@ def test_closed_loop_wrappers_open_one_policy_spec_span_a_launch():
                                            policy_carry=carry),
              lambda: PCL.kernel_pmsm_closed_loop(drive, state0, phys.omega_el, pi, 8, tau=drive.tau,
                                                  solver=drive._solver, props=drive.env_properties, ref_leaves=refs)]
-    for call in calls:
-        call()  # the library's load outside the trace
+    for call, plans in zip(calls, (CL.PLANS, PCL.PLANS)):
+        call()  # the library's load outside the trace; the launch plan kept
         torch.cuda.synchronize()
+        hits = plans.counts["hits"]
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(3):
                 call()
             torch.cuda.synchronize()
+        assert plans.counts["hits"] == hits + 3  # every traced launch through the plan
         host = [e for e in prof.events() if not str(e.device_type).endswith("CUDA")]  # not the device's copies
         names = [e.name for e in sorted(host, key=lambda e: e.time_range.start)
                  if e.name.startswith(("ee.policy.spec", "ee.launch."))]
