@@ -1,5 +1,13 @@
-"""Hand-written Hopper kernels and their dispatch rules (counterpart of
-``exciting_environments_tpu/ops/pallas/__init__.py``)."""
+"""Hand-written Hopper kernels and the one place that picks among them
+(counterpart of ``exciting_environments_tpu/ops/pallas/__init__.py``).
+
+Each call kind has one scope rule: :func:`rollout_path` for the open loop
+(step mode, or sim-ahead with stepsizes given) and :func:`closed_loop_path`
+for the policy-in-kernel closed loop.  Callers ask the rule for the route and
+launch through the environment's own entry point (``fused_rollout``,
+``fused_sim_ahead``, ``fused_closed_loop`` of ``CoreEnvironment``, ``PMSM``
+or, per shard, ``ShardedEnv``); :func:`traj_rollout` names the open-loop
+entry point that also returns the saved states."""
 
 from __future__ import annotations
 
@@ -18,17 +26,17 @@ def rollout_path(env, obs_stepsize: float = None, action_stepsize: float = None)
     from exciting_environments_torch.models.pmsm import PMSM
     from exciting_environments_torch.parallel.mesh import ShardedEnv
 
-    from .pmsm_stepper import supports_pmsm_fused
+    from .pmsm_stepper import supports_pmsm_fused, supports_pmsm_fused_sim_ahead
     from .stepper import supports_fused_rollout, supports_fused_sim_ahead
 
     if isinstance(env, ShardedEnv):
         env = env.env
     sim_ahead = obs_stepsize is not None
     if isinstance(env, PMSM):
-        # a stochastic sim-ahead is the Euler-Maruyama loop; step mode takes
-        # the noise slab
-        in_scope = supports_pmsm_fused(env) and (
-            not sim_ahead or (obs_stepsize == action_stepsize and not env._has_noise))
+        if sim_ahead:
+            in_scope = supports_pmsm_fused_sim_ahead(env, obs_stepsize, action_stepsize)
+        else:
+            in_scope = supports_pmsm_fused(env)
         return "pmsm_fused" if in_scope else "scan"
     if sim_ahead:
         in_scope = supports_fused_sim_ahead(env, obs_stepsize, action_stepsize)
@@ -37,25 +45,39 @@ def rollout_path(env, obs_stepsize: float = None, action_stepsize: float = None)
     return "fused" if in_scope else "scan"
 
 
-def select_closed_loop(env):
-    """The closed-loop dispatch rule shared by
-    :meth:`RolloutCollector.collect_policy_fused`: ``(kernel_fn, extra_kwargs)``
-    with the PMSM closed-loop kernel for a PMSM drive in its scope, the
-    generic closed-loop kernel for classic environments in its scope, and
-    ``(None, {})`` otherwise (a closed loop has no open-loop fallback:
-    callers raise).  A :class:`~exciting_environments_torch.parallel.mesh.ShardedEnv`
-    is answered for its whole batch; its own ``fused_closed_loop`` launches
-    the kernel named once per shard."""
+def traj_rollout(env):
+    """The open-loop entry point that returns the saved states
+    (``return_traj_states=True``), by the class test of :func:`rollout_path`:
+    a ``ShardedEnv``'s own ``fused_rollout`` (one launch per shard),
+    ``pmsm_fused_rollout`` for a PMSM drive, ``env_fused_rollout``
+    otherwise.  Each is called as ``entry(env, init_state, actions_norm,
+    **kwargs)``; the caller asks :func:`rollout_path` for the scope."""
     from exciting_environments_torch.models.pmsm import PMSM
     from exciting_environments_torch.parallel.mesh import ShardedEnv
 
-    from .closed_loop import env_fused_closed_loop, supports_fused_closed_loop
-    from .pmsm_closed_loop import pmsm_fused_closed_loop, supports_pmsm_fused_closed_loop
+    from . import pmsm_stepper, stepper
+
+    if isinstance(env, ShardedEnv):
+        return ShardedEnv.fused_rollout
+    return pmsm_stepper.pmsm_fused_rollout if isinstance(env, PMSM) else stepper.env_fused_rollout
+
+
+def closed_loop_path(env):
+    """Which closed-loop kernel ``env.fused_closed_loop`` launches:
+    ``"pmsm_closed_loop_fused"`` (a PMSM drive in its kernel's scope),
+    ``"closed_loop_fused"`` (another environment in the generic kernel's
+    scope; each its plain version on CPU tensors) or ``None`` (a closed loop
+    has no open-loop fallback: ``fused_closed_loop`` raises).  A
+    :class:`~exciting_environments_torch.parallel.mesh.ShardedEnv` is
+    answered for its whole batch; it launches the kernel named per shard."""
+    from exciting_environments_torch.models.pmsm import PMSM
+    from exciting_environments_torch.parallel.mesh import ShardedEnv
+
+    from .closed_loop import supports_fused_closed_loop
+    from .pmsm_closed_loop import supports_pmsm_fused_closed_loop
 
     if isinstance(env, ShardedEnv):
         env = env.env
     if isinstance(env, PMSM):
-        return (pmsm_fused_closed_loop, {}) if supports_pmsm_fused_closed_loop(env) else (None, {})
-    if not supports_fused_closed_loop(env):
-        return None, {}
-    return env_fused_closed_loop, {}
+        return "pmsm_closed_loop_fused" if supports_pmsm_fused_closed_loop(env) else None
+    return "closed_loop_fused" if supports_fused_closed_loop(env) else None

@@ -824,6 +824,14 @@ def supports_pmsm_fused(env) -> bool:
     return isinstance(env._solver, ExplicitRungeKutta) and len(_stage_rows(env._solver)[1]) <= MAX_STAGES
 
 
+def supports_pmsm_fused_sim_ahead(env, obs_stepsize: float, action_stepsize: float) -> bool:
+    """:func:`supports_pmsm_fused` for equal stepsizes (on which the
+    reference PMSM ``sim_ahead`` itself fails otherwise) and a deterministic
+    drive (a stochastic sim-ahead is the Euler-Maruyama loop of
+    ``vmap_sim_ahead``; step mode takes the noise slab)."""
+    return obs_stepsize == action_stepsize and not env._has_noise and supports_pmsm_fused(env)
+
+
 def _pmsm_final_solver_state(env, props, i_d, i_q, eps, u_last, omega):
     """The scan path's final solver carry: ``f(tau, y)`` under the last applied
     voltage for FSAL methods, ``None`` otherwise."""
@@ -1024,7 +1032,7 @@ def pmsm_fused_sim_ahead(env, init_state, actions_norm, obs_stepsize: float, act
     loop, or a raise with ``strict=True``.  ``env_properties`` replaces
     ``env.env_properties`` for this launch."""
     env = with_env_properties(env, env_properties)
-    if obs_stepsize != action_stepsize or not supports_pmsm_fused(env) or env._has_noise:
+    if not supports_pmsm_fused_sim_ahead(env, obs_stepsize, action_stepsize):
         if strict:
             raise ValueError(
                 "pmsm_fused_sim_ahead out of kernel scope (kernel support, a stochastic drive, or "

@@ -283,9 +283,7 @@ class ShardedEnv:
         :func:`~exciting_environments_torch.ops.kernels.stepper.env_fused_rollout`'s
         contract.  Out of kernel scope the split loop runs instead
         (``strict=True`` raises)."""
-        from exciting_environments_torch.models.pmsm import PMSM
-        from exciting_environments_torch.ops.kernels.pmsm_stepper import pmsm_fused_rollout
-        from exciting_environments_torch.ops.kernels.stepper import env_fused_rollout
+        from exciting_environments_torch.ops.kernels import traj_rollout
 
         n_steps = actions_norm.shape[0] if time_major else actions_norm.shape[1]
         if not self._fused_in_scope():
@@ -301,7 +299,7 @@ class ShardedEnv:
                 actions_norm = actions_norm.transpose(0, 1)
             obs, last = self.vmap_rollout(init_state, actions_norm, obs_stride or n_steps)
             return (obs if obs_stride is not None else obs[:, -1]), last
-        launch = pmsm_fused_rollout if isinstance(self.env, PMSM) else env_fused_rollout
+        launch = traj_rollout(self.env)
         return self._per_shard(
             lambda s, st, a: launch(s, st, a, obs_stride=obs_stride, time_major=time_major, strict=True,
                                     return_traj_states=return_traj_states),
@@ -313,10 +311,6 @@ class ShardedEnv:
         """The fused trajectory solve per shard (``vmap_sim_ahead``
         semantics, ``(observations, last_state)``).  Out of scope the split
         ``vmap_sim_ahead`` runs instead (``strict=True`` raises)."""
-        from exciting_environments_torch.models.pmsm import PMSM
-        from exciting_environments_torch.ops.kernels.pmsm_stepper import pmsm_fused_sim_ahead
-        from exciting_environments_torch.ops.kernels.stepper import env_fused_sim_ahead
-
         if not self._fused_in_scope(obs_stepsize, action_stepsize):
             if strict:
                 raise ValueError("fused_sim_ahead out of scope for this sharded env; strict=True forbids the "
@@ -325,26 +319,20 @@ class ShardedEnv:
                 actions_norm = actions_norm.transpose(0, 1)
             obs, _, last = self.vmap_sim_ahead(init_state, actions_norm, obs_stepsize, action_stepsize)
             return obs[:, ::obs_stride], last
-
-        if isinstance(self.env, PMSM):
-            def launch(s, st, a):
-                obs, last = pmsm_fused_sim_ahead(s, st, a, obs_stepsize, action_stepsize, time_major=time_major,
-                                                 strict=True)
-                return obs[:, ::obs_stride], last
-        else:
-            def launch(s, st, a):
-                return env_fused_sim_ahead(s, st, a, obs_stepsize, action_stepsize, obs_stride=obs_stride,
-                                           time_major=time_major, strict=True)
-        return self._per_shard(launch, init_state, actions_norm, dims=(0, 1 if time_major else 0))
+        return self._per_shard(
+            lambda s, st, a: s.fused_sim_ahead(st, a, obs_stepsize, action_stepsize, obs_stride=obs_stride,
+                                               time_major=time_major, strict=True),
+            init_state, actions_norm, dims=(0, 1 if time_major else 0),
+        )
 
     def closed_loop_in_scope(self) -> bool:
         """Whether :meth:`fused_closed_loop` covers this environment per
         shard: the closed-loop kernels' scope
-        (:func:`~exciting_environments_torch.ops.kernels.select_closed_loop`),
+        (:func:`~exciting_environments_torch.ops.kernels.closed_loop_path`),
         which holds for every shard when it holds for the whole batch."""
-        from exciting_environments_torch.ops.kernels import select_closed_loop
+        from exciting_environments_torch.ops.kernels import closed_loop_path
 
-        return select_closed_loop(self.env)[0] is not None
+        return closed_loop_path(self.env) is not None
 
     def fused_closed_loop(self, init_state, policy, n_steps: int, obs_stride: int = None, policy_params=None,
                           return_traj_states: bool = False, policy_carry=None, sched_lut=None):
@@ -354,18 +342,15 @@ class ShardedEnv:
         ``policy_params`` reach every shard (their gradients sum over the
         shards).  Raises out of scope: a closed loop has no open-loop
         fallback."""
-        from exciting_environments_torch.ops.kernels import select_closed_loop
-
-        kernel, extra = select_closed_loop(self.env)
-        if kernel is None:
+        if not self.closed_loop_in_scope():
             raise ValueError("fused_closed_loop out of scope for this sharded env (closed-loop kernel scope)")
-        if sched_lut is not None:
-            extra = dict(extra, sched_lut=sched_lut)
+        # only the PMSM drive's entry point takes the scheduled gather
+        sched = {} if sched_lut is None else dict(sched_lut=sched_lut)
 
         def launch(s, st, carry):
-            return kernel(s, st, policy, n_steps, obs_stride=obs_stride,
-                          policy_params=_to(policy_params, s.device),
-                          return_traj_states=return_traj_states, policy_carry=carry, **extra)
+            return s.fused_closed_loop(st, policy, n_steps, obs_stride=obs_stride,
+                                       policy_params=_to(policy_params, s.device),
+                                       return_traj_states=return_traj_states, policy_carry=carry, **sched)
 
         carry = None if policy_carry is None else tuple(policy_carry)
         return self._per_shard(launch, init_state, carry)

@@ -208,9 +208,7 @@ class RolloutCollector:
         tensors a kernel that fails to build or launch raises.
         """
         from exciting_environments_torch.ops.kernels import pmsm_stepper as pk
-        from exciting_environments_torch.ops.kernels import rollout_path
-        from exciting_environments_torch.ops.kernels.stepper import env_fused_rollout
-        from exciting_environments_torch.parallel.mesh import ShardedEnv
+        from exciting_environments_torch.ops.kernels import rollout_path, traj_rollout
 
         path = rollout_path(self.env)
         if path == "scan":
@@ -224,11 +222,8 @@ class RolloutCollector:
                                             terminated=terminated, truncated=truncated)
                 return batch, final_state
             pk.COLLECT_PATHS["eager"] += 1
-        if isinstance(self.env, ShardedEnv):  # one launch per shard
-            run = type(self.env).fused_rollout
-        else:
-            run = pk.pmsm_fused_rollout if path == "pmsm_fused" else env_fused_rollout
-        obs, traj_state, final_state = run(self.env, state, actions, obs_stride=1, return_traj_states=True)
+        obs, traj_state, final_state = traj_rollout(self.env)(self.env, state, actions, obs_stride=1,
+                                                              return_traj_states=True)
         return self._assemble_batch(obs, actions, traj_state, final_state)
 
     def collect_policy(self, policy, state, rng, n_steps: int):
@@ -278,22 +273,12 @@ class RolloutCollector:
         kernel's per-step states.  Returns ``(TrajectoryBatch,
         final_state)`` with post-step observations and the policy's
         normalized actions, plus the final carry with ``policy_carry``.
-        A PMSM drive runs on its own closed-loop kernel
-        (:func:`~exciting_environments_torch.ops.kernels.select_closed_loop`).
-        Raises when the environment is out of the kernel's scope."""
-        from exciting_environments_torch.ops.kernels import select_closed_loop
-        from exciting_environments_torch.parallel.mesh import ShardedEnv
-
-        env = self.env
-        kernel, extra = select_closed_loop(env)
-        kwargs = dict(obs_stride=1, return_traj_states=True, policy_params=policy_params,
-                      policy_carry=policy_carry)
-        if kernel is None or isinstance(env, ShardedEnv):
-            # a batch split launches per shard; out of kernel scope the
-            # environment's own entry point raises its descriptive error
-            out = env.fused_closed_loop(state, policy_tile, n_steps, **kwargs)
-        else:
-            out = kernel(env, state, policy_tile, n_steps, **kwargs, **extra)
+        The environment's own ``fused_closed_loop`` picks the kernel (a PMSM
+        drive its own, a batch split one launch per shard;
+        :func:`~exciting_environments_torch.ops.kernels.closed_loop_path`)
+        and raises when the environment is out of the kernels' scope."""
+        out = self.env.fused_closed_loop(state, policy_tile, n_steps, obs_stride=1, return_traj_states=True,
+                                         policy_params=policy_params, policy_carry=policy_carry)
         obs, actions, traj_state, final_state = out[:4]
         assembled = self._assemble_batch(obs, actions, traj_state, final_state)
         return assembled + (out[4],) if policy_carry is not None else assembled

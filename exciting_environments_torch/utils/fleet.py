@@ -10,14 +10,17 @@ to disk through the asynchronous shard writer, and checkpoint the
 simulation state so long sweeps resume after the process dies.
 :class:`FleetRunner` composes these subsystems:
 
-* execution, by the kernels' scope alone (the rule of
-  :func:`~exciting_environments_torch.ops.kernels.rollout_path`; on CPU
-  tensors the fused entry points run their plain versions): the PMSM drive
-  kernel (``csrc/pmsm_stepper.cu``), the stepper kernel
-  (``csrc/stepper.cu``), ``vmap_rollout`` for an environment outside both,
-  or the same per shard through a
-  :class:`~exciting_environments_torch.parallel.mesh.ShardedEnv`; closed
-  loops through ``csrc/closed_loop.cu`` or ``csrc/pmsm_closed_loop.cu``;
+* execution, by the kernels' scope alone: the loop asks
+  :func:`~exciting_environments_torch.ops.kernels.rollout_path` (or, for a
+  closed loop, :func:`~exciting_environments_torch.ops.kernels.closed_loop_path`)
+  for the route and launches through the environment's own
+  ``fused_rollout`` or ``fused_closed_loop``, which picks the PMSM drive
+  kernel (``csrc/pmsm_stepper.cu``, ``csrc/pmsm_closed_loop.cu``) or the
+  generic one (``csrc/stepper.cu``, ``csrc/closed_loop.cu``), once per
+  shard through a
+  :class:`~exciting_environments_torch.parallel.mesh.ShardedEnv` (on CPU
+  tensors the plain versions); out of scope, ``vmap_rollout`` or
+  :func:`~exciting_environments_torch.utils.collect.tile_policy_scan`;
 * metrics: :mod:`exciting_environments_torch.parallel.metrics` running
   statistics over the observation channels on the device, plus the last
   chunks' wall times and step counts on the host;
@@ -89,32 +92,25 @@ def _select_rollout(env_or_sharded):
     ``"fused"``, ``"scan"`` (probe ahead of time with
     :func:`~exciting_environments_torch.ops.kernels.rollout_path`)."""
     from exciting_environments_torch.ops.kernels import rollout_path
-    from exciting_environments_torch.parallel.mesh import ShardedEnv
+    from exciting_environments_torch.utils.episodes import unwrap_sharded
 
-    if isinstance(env_or_sharded, ShardedEnv):
-        senv = env_or_sharded
-
-        def run(state, actions):
-            # one launch per shard in scope; the split loop out of it
-            return senv.fused_rollout(state, actions)
-
-        return run, senv.env, "sharded_fused" if senv._fused_in_scope() else "sharded_scan"
-
-    env = env_or_sharded
-    path = rollout_path(env)
+    env, _ = unwrap_sharded(env_or_sharded)
+    path = rollout_path(env_or_sharded)
     if path != "scan":
 
         def run(state, actions):
-            # the PMSM drive kernel or the stepper kernel, one launch
-            return env.fused_rollout(state, actions, strict=True)
+            # the PMSM drive kernel or the stepper kernel: one launch, or one per shard
+            return env_or_sharded.fused_rollout(state, actions, strict=True)
 
-        return run, env, path
+    else:
 
-    def run(state, actions):
-        obs, last = env.vmap_rollout(state, actions, actions.shape[1])
-        return obs[:, -1], last
+        def run(state, actions):
+            obs, last = env_or_sharded.vmap_rollout(state, actions, actions.shape[1])
+            return obs[:, -1], last
 
-    return run, env, "scan"
+    if env is not env_or_sharded:
+        path = "sharded_scan" if path == "scan" else "sharded_fused"
+    return run, env, path
 
 
 def _select_closed_loop(env_or_sharded, policy):
@@ -122,49 +118,38 @@ def _select_closed_loop(env_or_sharded, policy):
     policy_carry]) -> (final_obs, final_state[, final_carry])`` plus the
     base environment and the path's name: one of ``"sharded_closed_loop"``,
     ``"pmsm_closed_loop_fused"``, ``"closed_loop_fused"``,
-    ``"closed_loop_scan"``.
+    ``"closed_loop_scan"`` (probe ahead of time with
+    :func:`~exciting_environments_torch.ops.kernels.closed_loop_path`).
 
     The policy keeps the tile contract everywhere, ``policy(obs_tuple,
     step[, carry][, params]) -> action component tuple``, so the same policy
     runs in a kernel and, for an environment outside the kernels' scope,
-    over ``(B,)`` observation columns in
+    over ``(B,)`` observation columns of the whole batch in
     :func:`~exciting_environments_torch.utils.collect.tile_policy_scan`.
     An environment in scope always takes the kernel: on CUDA tensors a
     policy outside the compiled families raises there, before a launch; on
     CPU tensors the kernels' plain versions run any callable.
     """
-    from exciting_environments_torch.models.pmsm import PMSM
-    from exciting_environments_torch.ops.kernels import select_closed_loop
-    from exciting_environments_torch.parallel.mesh import ShardedEnv
+    from exciting_environments_torch.ops.kernels import closed_loop_path
     from exciting_environments_torch.utils.collect import tile_policy_scan
+    from exciting_environments_torch.utils.episodes import unwrap_sharded
 
-    if isinstance(env_or_sharded, ShardedEnv):
-        senv = env_or_sharded
-        if senv.closed_loop_in_scope():
+    env, _ = unwrap_sharded(env_or_sharded)
+    path = closed_loop_path(env_or_sharded)
+    if path is None:
 
-            def run(state, n_steps, policy_params, policy_carry=None):
-                return senv.fused_closed_loop(state, policy, n_steps, policy_params=policy_params,
-                                              policy_carry=policy_carry)
+        def run(state, n_steps, policy_params, policy_carry=None):
+            return tile_policy_scan(env, state, n_steps, policy, policy_params, collect_trajectory=False,
+                                    policy_carry=policy_carry)
 
-            return run, senv.env, "sharded_closed_loop"
-        env = senv.env
-    else:
-        env = env_or_sharded
-        kernel, extra = select_closed_loop(env)
-        if kernel is not None:
+        return run, env, "closed_loop_scan"
 
-            def run(state, n_steps, policy_params, policy_carry=None):
-                return kernel(env, state, policy, n_steps, policy_params=policy_params,
-                              policy_carry=policy_carry, **extra)
-
-            return run, env, "pmsm_closed_loop_fused" if isinstance(env, PMSM) else "closed_loop_fused"
-
-    # outside the kernels' scope: the tile policy over (B,) observation columns
     def run(state, n_steps, policy_params, policy_carry=None):
-        return tile_policy_scan(env, state, n_steps, policy, policy_params, collect_trajectory=False,
-                                policy_carry=policy_carry)
+        # one launch of the PMSM or the generic closed-loop kernel, or one per shard
+        return env_or_sharded.fused_closed_loop(state, policy, n_steps, policy_params=policy_params,
+                                                policy_carry=policy_carry)
 
-    return run, env, "closed_loop_scan"
+    return run, env, path if env is env_or_sharded else "sharded_closed_loop"
 
 
 class FleetRunner:
@@ -356,11 +341,9 @@ class FleetRunner:
         """Put a host-restored state back on its execution layout: on a
         ``ShardedEnv``, its first device, where it keeps whole trees and
         splits them at each call."""
-        from exciting_environments_torch.parallel.mesh import ShardedEnv
+        from exciting_environments_torch.utils.episodes import unwrap_sharded
 
-        if isinstance(self.env, ShardedEnv):
-            return self.env.shard(state)
-        return state
+        return unwrap_sharded(self.env)[1](state)
 
     # -- checkpoint / resume (process-death recovery) --------------------------
 

@@ -249,18 +249,15 @@ def _candidate_costs(env, state, cand, cost_fn, use_fused):
     """The costs ``(K, B)`` of candidates ``cand`` ``(K, B, H, A)``: one
     rollout of the ``K * B`` tiled instances, through the kernel or the eager
     step loop."""
-    from exciting_environments_torch.models.pmsm import PMSM
-    from exciting_environments_torch.ops.kernels.pmsm_stepper import pmsm_fused_rollout
-    from exciting_environments_torch.ops.kernels.stepper import env_fused_rollout
+    from exciting_environments_torch.ops.kernels import traj_rollout
 
     K, B, H, A = cand.shape
     big = _tile_env(env, K)
     state_big = _tile_state(state, K)
     cand_flat = cand.reshape(K * B, H, A)
     if use_fused:
-        rollout = pmsm_fused_rollout if isinstance(env, PMSM) else env_fused_rollout
-        obs, traj_state, _ = rollout(big, state_big, cand_flat, obs_stride=1, return_traj_states=True,
-                                     strict=True)
+        obs, traj_state, _ = traj_rollout(big)(big, state_big, cand_flat, obs_stride=1, return_traj_states=True,
+                                               strict=True)
         if cost_fn is None:
             reward = big.generate_reward(traj_state, cand_flat, big._props_for(big.env_properties, 1))
             return -_horizon_sum(reward.reshape(K * B, H)).reshape(K, B)

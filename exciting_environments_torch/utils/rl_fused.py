@@ -237,16 +237,17 @@ def init_fused_agent(env, key, config: FusedPPOConfig = FusedPPOConfig()):
 def _collect_chunk(env, actor_params, state, tile, carry0, chunk_steps, collector):
     """One chunk through the selected collector: ``(obs_traj, actions_traj,
     traj_state)``, batch-major ``(B, T, ...)``, post-step."""
-    from exciting_environments_torch.ops.kernels import select_closed_loop
+    from exciting_environments_torch.ops.kernels import closed_loop_path
     from exciting_environments_torch.utils.collect import tile_policy_scan
 
     if collector == "kernel":
-        kernel, extra = select_closed_loop(env)
-        if kernel is None:
+        if closed_loop_path(env) is None:
             raise ValueError("env out of closed-loop kernel scope: use collector='scan'")
-        obs_t, acts_t, traj_state, _final, _fc = kernel(
-            env, state, tile, chunk_steps, obs_stride=1, policy_params=actor_params, return_traj_states=True,
-            policy_carry=carry0, **extra)
+        # a batch split runs here as one launch over its whole batch, not one per shard
+        whole, _ = episodes.unwrap_sharded(env)
+        obs_t, acts_t, traj_state, _final, _fc = whole.fused_closed_loop(
+            state, tile, chunk_steps, obs_stride=1, policy_params=actor_params, return_traj_states=True,
+            policy_carry=carry0)
     elif collector == "scan":
         obs_t, acts_t, traj_state, _final, _fc = tile_policy_scan(
             env, state, chunk_steps, tile, actor_params, True, policy_carry=carry0)

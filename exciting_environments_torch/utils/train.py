@@ -77,7 +77,7 @@ def train_policy(env, policy, params, state, n_steps: int, iterations: int, opti
 
     Args:
         env: a classic environment or a PMSM drive inside closed-loop kernel
-            scope (:func:`~exciting_environments_torch.ops.kernels.select_closed_loop`),
+            scope (:func:`~exciting_environments_torch.ops.kernels.closed_loop_path`),
             or a :class:`~exciting_environments_torch.parallel.mesh.ShardedEnv`
             over one (one launch per shard).
         policy: a tile-contract policy; on CUDA a compiled family
@@ -104,18 +104,11 @@ def train_policy(env, policy, params, state, n_steps: int, iterations: int, opti
         beats the final loss (drive landscapes oscillate under Adam).
         Raises out of closed-loop kernel scope: there is no scan fallback.
     """
-    from exciting_environments_torch.ops.kernels import select_closed_loop
+    from exciting_environments_torch.ops.kernels import closed_loop_path
     from exciting_environments_torch.ops.kernels.closed_loop import _PLAIN_CALLABLE_ON_CUDA
     from exciting_environments_torch.ops.policies import KernelPolicy
-    from exciting_environments_torch.parallel.mesh import ShardedEnv
 
-    if isinstance(env, ShardedEnv):
-        # one launch of the closed-loop kernel per shard; the parameters'
-        # gradients sum over the shards
-        kernel, extra = (ShardedEnv.fused_closed_loop if env.closed_loop_in_scope() else None), {}
-    else:
-        kernel, extra = select_closed_loop(env)
-    if kernel is None:
+    if closed_loop_path(env) is None:
         raise ValueError(
             "train_policy requires closed-loop kernel scope (explicit RK solver with a kernel stage count, "
             "scalar normalizations for classic environments, at most 4 tracked references)"
@@ -129,7 +122,9 @@ def train_policy(env, policy, params, state, n_steps: int, iterations: int, opti
     opt = (optimizer or _adam)(leaves)
 
     def loss(p):
-        out = kernel(env, state, policy, n_steps, obs_stride=1, policy_params=p, policy_carry=policy_carry, **extra)
+        # one launch of the closed-loop kernel, or one per shard of a batch
+        # split (the parameters' gradients sum over the shards)
+        out = env.fused_closed_loop(state, policy, n_steps, obs_stride=1, policy_params=p, policy_carry=policy_carry)
         return loss_fn(out[0], out[1])
 
     losses = []

@@ -24,7 +24,7 @@ from exciting_environments_tpu.core import structures as jstructures
 from exciting_environments_tpu.ops.pallas import stepper as jstepper
 from exciting_environments_tpu.utils.collect import tile_policy_scan as j_tile_policy_scan
 from exciting_environments_torch.ops.kernels import closed_loop as CL
-from exciting_environments_torch.ops.kernels import select_closed_loop
+from exciting_environments_torch.ops.kernels import closed_loop_path
 from exciting_environments_torch.utils.collect import tile_policy_scan
 from exciting_environments_torch.utils.convert import state_from_numpy
 
@@ -279,8 +279,8 @@ def test_out_of_scope_and_errors():
     wide = P.Pendulum(batch_size=8, control_state=["theta"],
                       action_normalizations={"torque": P.MinMaxNormalization(min=-20, max=np.full(8, 30.0))}, **F64)
     assert not CL.supports_fused_closed_loop(wide)
-    assert select_closed_loop(wide) == (None, {})
-    assert select_closed_loop(pe)[0] is CL.env_fused_closed_loop
+    assert closed_loop_path(wide) is None
+    assert closed_loop_path(pe) == "closed_loop_fused"
     with pytest.raises(ValueError, match="scope"):
         wide.fused_closed_loop(ps, pd_pendulum, 4)
     with pytest.raises(ValueError, match="requires obs_stride"):

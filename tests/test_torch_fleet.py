@@ -40,6 +40,7 @@ from exciting_environments_tpu.utils.fleet import FleetRunner as JFleetRunner
 from exciting_environments_torch.core import structures
 from exciting_environments_torch.io import ShardWriter, read_shard
 from exciting_environments_torch.ops import random as R
+from exciting_environments_torch.ops.kernels import closed_loop_path, rollout_path
 from exciting_environments_torch.parallel import ShardedEnv, make_batch_mesh
 from exciting_environments_torch.utils.checkpoint import leaves_with_path
 from exciting_environments_torch.utils.collect import tile_policy_scan
@@ -178,6 +179,75 @@ def test_fleet_select_fallback():
     _, state = env.vmap_reset()
     obs, last = run(state, torch.full((24, 4, 1), 0.2, dtype=torch.float64))
     assert obs.shape == (24, 2)
+
+
+#: every route by environment and call kind: the scope rule's answer (which a
+#: batch split shares), then the name FleetRunner reports for the plain and
+#: for the split environment
+ROUTES = {
+    ("pendulum", "rollout"): ("fused", "fused", "sharded_fused"),
+    ("pendulum", "sim_ahead_equal"): ("fused",),
+    ("pendulum", "sim_ahead_unequal"): ("fused",),
+    ("pendulum", "sim_ahead_noisy"): ("scan",),
+    ("pendulum", "closed_loop"): ("closed_loop_fused", "closed_loop_fused", "sharded_closed_loop"),
+    ("pmsm", "rollout"): ("pmsm_fused", "pmsm_fused", "sharded_fused"),
+    ("pmsm", "sim_ahead_equal"): ("pmsm_fused",),
+    ("pmsm", "sim_ahead_unequal"): ("scan",),
+    ("pmsm", "sim_ahead_noisy"): ("scan",),
+    ("pmsm", "closed_loop"): ("pmsm_closed_loop_fused", "pmsm_closed_loop_fused", "sharded_closed_loop"),
+    ("out_of_scope", "rollout"): ("scan", "scan", "sharded_scan"),
+    ("out_of_scope", "sim_ahead_equal"): ("scan",),
+    ("out_of_scope", "sim_ahead_unequal"): ("scan",),
+    ("out_of_scope", "sim_ahead_noisy"): ("scan",),
+    ("out_of_scope", "closed_loop"): (None, "closed_loop_scan", "closed_loop_scan"),
+}
+
+
+def _route_env(kind, noisy):
+    if kind == "pmsm":
+        noise = dict(process_noise={"i_d": 2.0, "i_q": 2.0}) if noisy else {}
+        return P.PMSM(batch_size=4, saturated=True, motor_variant=P.MotorVariant.BRUSA,
+                      control_state=["i_d", "i_q"], **noise, **F64)
+    noise = dict(process_noise={"omega": 0.3}) if noisy else {}
+    solver = dict(solver="implicit_euler") if kind == "out_of_scope" else {}
+    return P.Pendulum(batch_size=4, control_state=["theta"], **solver, **noise, **F64)
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["plain", "sharded"])
+@pytest.mark.parametrize("kind,call", sorted(ROUTES))
+def test_one_rule_names_every_route(kind, call, split):
+    """rollout_path and closed_loop_path name the route of every call kind,
+    for the whole batch of a split as for the plain environment, and the
+    environment's own entry point agrees with them: with ``strict=True`` (a
+    closed loop always) it raises exactly where the rule says the kernels do
+    not reach.  A PMSM sim-ahead needs equal stepsizes and no noise, a
+    pendulum's an integral stepsize ratio and no noise."""
+    env = _route_env(kind, noisy=call == "sim_ahead_noisy")
+    target = ShardedEnv(env, make_batch_mesh(["cpu"] * 2)) if split else env
+    route = ROUTES[kind, call]
+    _, state = target.vmap_reset(_keys(30, 4))
+    actions = torch.zeros((4, 2, env.action_dim), dtype=torch.float64)
+    if call == "closed_loop":
+        policy = lambda obs, t: tuple(0.0 * obs[0] for _ in range(env.action_dim))
+        assert closed_loop_path(target) == route[0]
+        assert _select_closed_loop(target, policy)[2] == route[2 if split else 1]
+        in_scope = route[0] is not None
+        launch = lambda: target.fused_closed_loop(state, policy, 2)
+    elif call == "rollout":
+        assert rollout_path(target) == route[0]
+        assert FleetRunner(target).rollout_path == route[2 if split else 1]
+        in_scope = route[0] != "scan"
+        launch = lambda: target.fused_rollout(state, actions, strict=True)
+    else:
+        obs_stepsize = env.tau / 2 if call == "sim_ahead_unequal" else env.tau
+        assert rollout_path(target, obs_stepsize, env.tau) == route[0]
+        in_scope = route[0] != "scan"
+        launch = lambda: target.fused_sim_ahead(state, actions, obs_stepsize, env.tau, strict=True)
+    if in_scope:
+        assert launch()[0].shape[0] == 4
+    else:
+        with pytest.raises(ValueError, match="scope"):
+            launch()
 
 
 def test_fleet_runner_closed_loop_fused():

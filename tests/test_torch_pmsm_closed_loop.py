@@ -33,7 +33,7 @@ from exciting_environments_tpu.utils import foc as jfoc
 from exciting_environments_tpu.utils.collect import RolloutCollector as JCollector
 from exciting_environments_torch.core import structures
 from exciting_environments_torch.ops.kernels import pmsm_closed_loop as PCL
-from exciting_environments_torch.ops.kernels import select_closed_loop
+from exciting_environments_torch.ops.kernels import closed_loop_path
 from exciting_environments_torch.utils.collect import tile_policy_scan
 from exciting_environments_torch.utils.convert import scheduled_lut_from_numpy, state_from_numpy
 
@@ -384,7 +384,7 @@ def test_plain_version_tracks_the_step_loop_to_rounding():
 def test_collect_policy_fused_on_the_pmsm_matches_jax():
     je, pe = _pair()
     js, ps = _states(je, pe, 22)
-    assert select_closed_loop(pe) == (PCL.pmsm_fused_closed_loop, {})
+    assert closed_loop_path(pe) == "pmsm_closed_loop_fused"
     c0 = (np.zeros(B), np.zeros(B))
     jb, jl, jc = JCollector(je).collect_policy_fused(pi_law, js, T, policy_carry=tuple(jnp.asarray(v) for v in c0))
     pb, pl, pc = P.RolloutCollector(pe).collect_policy_fused(
@@ -461,7 +461,7 @@ def test_out_of_scope_raises_and_select_returns_none():
                 control_state=["i_d", "i_q", "torque", "omega_el", "epsilon"], **F64)
     _, ps = pe.vmap_reset()
     assert not PCL.supports_pmsm_fused_closed_loop(pe)
-    assert select_closed_loop(pe) == (None, {})
+    assert closed_loop_path(pe) is None
     with pytest.raises(ValueError, match="scope"):
         pe.fused_closed_loop(ps, p_law, 4)
     with pytest.raises(ValueError, match="scope"):
