@@ -84,7 +84,9 @@ Phases (any failure raises and the script exits non-zero):
     slab;
 11. drive the PMSM closed-loop main cases at full width (saturated BRUSA,
     B = 65,536, float32, Euler, ``tau = 1e-4``, deadtime 1): A the P law and
-    B the PI law through ``env.fused_closed_loop`` over T = 2,048; C the
+    B the PI law through ``env.fused_closed_loop`` over T = 2,048 (both
+    pruned to the currents' columns, and again with their gains given at
+    call time, which builds every column); C the
     gain-scheduled sensorless tile at ``omega_el = 1200`` with a 3 A sensor
     slab drawn on the card through ``pmsm_closed_loop`` over T = 2,048, with
     its settling error and belief RMSE; D the PI law through
@@ -717,7 +719,9 @@ SASS_CASES = [
      [(r"0\.1591549",), ()]),
     ("3a", "pmsm_stepper", r"pmsm_kernel<float, 1, true>", [(r"2\.094395",), (r"6\.2831854",), ()]),
     ("3b", "pmsm_stepper", r"pmsm_kernel<float, 4, true>", [(r"2\.094395",), (r"6\.2831854",), ()]),
-    ("4a/4b/4d", "pmsm_closed_loop", r"pmsm_closed_loop_kernel<float, 1, true, AffineAdapter>", [()]),
+    ("4a/4b/4d", "pmsm_closed_loop", (r"pmsm_closed_loop_kernel<float, 1, true, AffineCurrentsReg>",
+                                      r"pmsm_closed_loop_kernel<float, 1, true, AffineAdapter>"), [()]),
+    ("4a-all/4b-all", "pmsm_closed_loop", r"pmsm_closed_loop_kernel<float, 1, true, AffineAdapter>", [()]),
     ("4c", "pmsm_closed_loop", r"pmsm_closed_loop_kernel<float, 1, true, ScheduledLaw>",
      [(r"^LDG\.E\.128\.CONSTANT",), (r"^LDG\.E\.CONSTANT",)]),
     ("5", "pendulum_fast", r"pendulum_fast_kernel", [(r"0\.1591549",), ()]),
@@ -1889,6 +1893,9 @@ def phase_pcl_kernel_vs_plain(ex, PCL):
          None),
         ("BRUSA euler PI per-batch r_s, u_dc and u_d max", brusa_pb, pi_law, {"traj_stride": 1}, None),
         ("BRUSA euler PI sensor and process slabs", tracking(), pi_law, {"traj_stride": 1, **noise}, None),
+        ("BRUSA rk4 PI, its gains at call time (every column built), sensor slab on the torque",
+         tracking(solver="rk4"), pi_law, {"traj_stride": 1, "policy_params": pi_law.flat_params().float().to(DEVICE),
+                                          "obs_noise_tm": noise["obs_noise_tm"], "obs_noise_cols": (3, 9)}, None),
         ("DEFAULT linear sensorless tile deadtime 0", sensorless_env(0), "linear", {"traj_stride": 1},
          OMEGA_SENSORLESS),
         ("DEFAULT linear rk4 sensorless tile deadtime 1", sensorless_env(1, "rk4"), "linear", {"traj_stride": 4},
@@ -1963,8 +1970,8 @@ def phase_pcl_main(ex, PCL):
         f"collection over T={T_D}")
     entries = []
 
-    def run_case(name, drive, kernel_fn, plain_fn, check, bound_args, n_steps, row, law="AffineAdapter",
-                 vias=((),)):
+    def run_case(name, drive, kernel_fn, plain_fn, check, bound_args, n_steps, row, law="AffineCurrentsReg",
+                 vias=((),), full=None):
         PCL.PMSM_CL_KERNEL.reset_counts()
         out = drive()
         torch.cuda.synchronize()
@@ -1993,6 +2000,25 @@ def phase_pcl_main(ex, PCL):
         anatomy(f"{row} {name}", build("pmsm_closed_loop"), rf"pmsm_closed_loop_kernel<float, 1, true, {law}[,>]",
                 ms, env_ms, B, n_steps, drive, "pmsm_closed_loop_kernel", vias=vias)
         entries.append(entry(name, launches, err, ms, plain_ms, bound_ms, bound_by, PCL_SOURCE, PCL_REPLACES))
+        if full is None:
+            return
+        # the same gains given at call time: the instantiation that builds every column
+        full_kernel, full_drive = full
+        before = PCL.VARIANT_LAUNCHES["affine_all"]
+        err_full = max_abs(cl_flat(full_kernel()), outk)
+        torch.cuda.synchronize()
+        if PCL.VARIANT_LAUNCHES["affine_all"] != before + 1 or err_full != 0.0:
+            raise AssertionError(f"{name}: the full law's launch ({PCL.VARIANT_LAUNCHES['affine_all'] - before}) "
+                                 f"disagrees with the pruned one ({err_full!r})")
+        ms_full, env_ms_full = time_ms(full_kernel), time_ms(full_drive)
+        log(f"[pmsm closed loop main] {name} affine_all (every column built): kernel {ms_full!r} ms against the "
+            f"pruned {ms!r} ms ({ms / ms_full:.3f}x the time); entry point {env_ms_full!r} ms; {bound_ms / ms_full:.1%} "
+            f"of the bound; max abs from the pruned launch {err_full!r}")
+        anatomy(f"{row}-all {name}", build("pmsm_closed_loop"),
+                r"pmsm_closed_loop_kernel<float, 1, true, AffineAdapter[,>]", ms_full, env_ms_full, B, n_steps,
+                full_drive, "pmsm_closed_loop_kernel")
+        entries.append(entry(f"{name}_affine_all", 1, err_full, ms_full, plain_ms, bound_ms, bound_by, PCL_SOURCE,
+                             PCL_REPLACES))
 
     def check_final(out, n_extra=0):
         obs = out[0]
@@ -2005,15 +2031,21 @@ def phase_pcl_main(ex, PCL):
             f"q {float(err_q):.3f} A")
 
     kw = dict(tau=env.tau, solver=env._solver, props=env.env_properties, ref_leaves=refs)
+    p_gains, pi_gains = (law.flat_params().float().to(DEVICE) for law in (p_law, pi_law))
     run_case("pmsm_closed_loop_p", lambda: env.fused_closed_loop(state, p_law, T),
              lambda: PCL.kernel_pmsm_closed_loop(env, state0, omega, p_law, T, **kw),
              lambda: PCL.plain_pmsm_closed_loop(env, state0, omega, p_law, T, **kw), check_final,
-             (env, p_law.kernel_spec(torch.float32, DEVICE), B, T, 0, 0, 2), T, "4a")
+             (env, p_law.kernel_spec(torch.float32, DEVICE), B, T, 0, 0, 2), T, "4a",
+             full=(lambda: PCL.kernel_pmsm_closed_loop(env, state0, omega, p_law, T, policy_params=p_gains, **kw),
+                   lambda: env.fused_closed_loop(state, p_law, T, policy_params=p_gains)))
     c0 = zeros2()
     run_case("pmsm_closed_loop_pi", lambda: env.fused_closed_loop(state, pi_law, T, policy_carry=c0),
              lambda: PCL.kernel_pmsm_closed_loop(env, state0, omega, pi_law, T, policy_carry=c0, **kw),
              lambda: PCL.plain_pmsm_closed_loop(env, state0, omega, pi_law, T, policy_carry=c0, **kw),
-             lambda out: check_final(out, 1), (env, pi_law.kernel_spec(torch.float32, DEVICE), B, T, 0, 2, 2), T, "4b")
+             lambda out: check_final(out, 1), (env, pi_law.kernel_spec(torch.float32, DEVICE), B, T, 0, 2, 2), T, "4b",
+             full=(lambda: PCL.kernel_pmsm_closed_loop(env, state0, omega, pi_law, T, policy_carry=c0,
+                                                       policy_params=pi_gains, **kw),
+                   lambda: env.fused_closed_loop(state, pi_law, T, policy_carry=c0, policy_params=pi_gains)))
 
     # C: gain-scheduled sensorless control, the fleet pinned at omega_el = 1200 rad/s
     senv = ex.PMSM(batch_size=B, saturated=True, motor_variant=ex.MotorVariant.BRUSA, tau=1e-4, device=DEVICE)
@@ -2046,7 +2078,7 @@ def phase_pcl_main(ex, PCL):
     run_case("pmsm_closed_loop_sensorless", lambda: PCL.pmsm_closed_loop(senv, s_state0, s_omega, tile, T, **skw),
              lambda: sensorless(True), lambda: sensorless(False), check_sensorless,
              (senv, tile.kernel_spec(torch.float32, DEVICE), B, T, 0, 6, 0, 10, 2), T, "4c",
-             "ScheduledLaw", SASS_CASES[4][3])
+             "ScheduledLaw", sass_case("4c")[2])
     del slab, skw
 
     # D: the PI law collected with rewards and flags, a save every step

@@ -1,19 +1,10 @@
 // The plain C entry points of the pmsm_closed_loop library, loaded with
-// ctypes, and the instantiations of the older policy families: the kernel,
+// ctypes, and the instantiations of the two sensorless families: the kernel,
 // its launchers and the actor's adapter are in pmsm_closed_loop.cuh, the
-// actor's instantiations in pmsm_closed_loop/actor.cu.
+// affine law's instantiations in pmsm_closed_loop/affine.cu, the actor's in
+// pmsm_closed_loop/actor.cu.
 
 #include "pmsm_closed_loop.cuh"
-
-struct AffineAdapter {
-    static constexpr bool SCHEDULED = false;  // reads no scheduled gather
-    static constexpr bool PREPARES = false;
-    template <typename T>
-    __device__ __forceinline__ static void act(const PmsmClArgs& args, const T* pp, const T* obs, int n_obs,
-                                               const T*, int t, T* c, T* a) {
-        AffineLaw::template act<T, 2, MAX_OBS>(args, pp, obs, n_obs, t, c, a);
-    }
-};
 
 // The inscribed-circle vector limit of both sensorless tiles: the scale
 // torch.clamp(u_lim / torch.clamp(|u|, min=1e-9), max=1.0), with the
@@ -33,6 +24,7 @@ __device__ __forceinline__ T vector_scale(T u_d, T u_q, T u_lim) {
 struct SensorlessLaw {
     static constexpr bool SCHEDULED = false;
     static constexpr bool PREPARES = false;
+    static constexpr int COLUMNS = COLS_ALL;
     enum { K00, K01, K10, K11, A00, A01, A10, A11, B00, B01, B10, B11, C0, C1, SPAN_D, MN_D, SPAN_Q, MN_Q,
            REF_D, REF_Q, KP_D, KP_Q, FF_D, FF_Q, W_LQ, OMEGA, L_D, PSI_P, U_LIM, KITAU_D, KITAU_Q, AW_D, AW_Q,
            AMN_D, AINV_D, AMN_Q, AINV_Q, N_SLOTS };
@@ -79,6 +71,7 @@ struct SensorlessLaw {
 struct ScheduledLaw {
     static constexpr bool SCHEDULED = true;
     static constexpr bool PREPARES = false;
+    static constexpr int COLUMNS = COLS_ALL;
     enum { SPAN_D, MN_D, SPAN_Q, MN_Q, BANDWIDTH, INV_TI, REF_D, REF_Q, FF_D, FF_Q, OMEGA, U_LIM, TAU, TAU_TI,
            AMN_D, AINV_D, AMN_Q, AINV_Q, ASPAN_D, ASPAN_Q, R_S, INV_SPAN_D, INV_SPAN_Q, N_SLOTS };
     template <typename T>
@@ -141,9 +134,8 @@ static int launch_dtype(const PmsmClArgs& args, cudaStream_t stream) {
     switch (args.policy_id) {
         case 1:  // the PPO actor, any magnetics and stage count (pmsm_closed_loop/actor.cu)
             return pmsm_closed_loop_actor(args, sizeof(T) == 4 ? 0 : 1, stream);
-        case 0:
-            return args.saturated ? launch_stages<T, true, AffineAdapter>(args, stream)
-                                  : launch_stages<T, false, AffineAdapter>(args, stream);
+        case 0:  // AffinePolicy, any magnetics and stage count (pmsm_closed_loop/affine.cu)
+            return pmsm_closed_loop_affine(args, sizeof(T) == 4 ? 0 : 1, stream);
         case 2:  // built for linear magnetics, any stage count
             if (args.saturated) return (int)cudaErrorInvalidValue;
             return launch_stages<T, false, SensorlessLaw>(args, stream);
@@ -181,7 +173,7 @@ extern "C" int pmsm_closed_loop_sincos(const float* x, float* s, float* c, long 
 extern "C" int pmsm_closed_loop_args_size() { return (int)sizeof(PmsmClArgs); }
 
 // The fixed slot count of a slot family's flat vector; 0 for the families
-// whose vector has a run-time length (AffineLaw, the actor); -1 for a family
+// whose vector has a run-time length (AffinePolicy, the actor); -1 for a family
 // the kernel is not built with.
 extern "C" int pmsm_closed_loop_slots(int policy_id) {
     switch (policy_id) {

@@ -23,8 +23,9 @@
 // voltage (for an FSAL solver's final carry) and the carry.
 //
 // The policy families are compiled in as functors (ops/policies.py,
-// utils/foc.py and utils/rl_fused.py hold their plain versions): AffineLaw
-// (policy_laws.cuh, the P and PI laws), SensorlessLaw (a constant-gain
+// utils/foc.py and utils/rl_fused.py hold their plain versions): the P
+// and PI laws (pmsm_closed_loop/affine.cu: AffineAdapter over policy_laws.cuh's
+// AffineLaw, AffineCurrentsReg), SensorlessLaw (a constant-gain
 // Kalman current observer and a decoupled PI on its belief, linear
 // magnetics), ScheduledLaw (the gain-scheduled observer and PI of the
 // saturated drive, which reads the scheduled gather), both in
@@ -34,7 +35,8 @@
 // flat parameters are copied into shared memory once per block, after the
 // table, where they start on a 16-byte boundary (the table is a whole
 // number of 8-channel points): ActorReg reads its weights as 16-byte
-// vectors.
+// vectors, AffineCurrentsReg loads its gains from there into registers
+// once per thread.
 //
 // What bounds it on an H100: operations.  Without saves or slabs a drive
 // reads its state, parameters and references once and writes its finals
@@ -68,11 +70,30 @@
 // TPU kernel's (8, 128) tiles, time chunks, revisited output blocks, VMEM
 // budgets, SMEM scalar tree and one-hot gathers have no counterpart.
 //
+// A functor names the observation columns it reads (COLUMNS), and the step
+// builds no other.  The affine law has two instantiations.  AffineAdapter
+// reads every column, its gains from shared memory each step (held in
+// registers they cost the kernel its occupancy: pmsm_closed_loop/affine.cu).
+// AffineCurrentsReg reads i_d, i_q, omega and the references, its gains in
+// registers, so that a step computes neither the torque (only for a save)
+// nor sincosf(eps) nor the buffers' normalizations nor the sensor noise on
+// those columns, and the control chain (observation, law, hexagon, the
+// deadtime buffer) no longer waits on the torque's gather.  The host picks
+// it where every gain of K and Ki on columns 3-7 is zero
+// (pmsm_closed_loop.py::kernel_variant, once a launch plan), and the full
+// law for gains it cannot read without waiting on the card.  Exact: a
+// skipped term is 0 * x with x finite wherever the currents are (the
+// torque, cos/sin, the buffers), and adding +-0 to a sum changes it not at
+// all, or only the sign of a zero sum; the other terms keep
+// AffinePolicy.forward's order.
+//
 // The build: the kernel and its launchers are this header; pmsm_closed_loop.cu
-// instantiates the three older families (26 kernels) and holds the C entry
-// points, pmsm_closed_loop/actor.cu the actor (2 widths x 2 types x 4 stage
-// counts x 2 magnetics = 32 kernels), compiled in parallel and linked into
-// one library.
+// instantiates the two sensorless families (10 kernels) and holds the C
+// entry points, pmsm_closed_loop/affine.cu the affine law (2 column sets x
+// 2 types x 4 stage counts x 2 magnetics = 32 kernels),
+// pmsm_closed_loop/actor.cu the actor (2 widths x 2 types x 4 stage counts
+// x 2 magnetics = 32 kernels), compiled in parallel and linked into one
+// library.
 //
 // Exactness: every operation mirrors the plain version
 // (ops/kernels/pmsm_closed_loop.py::plain_pmsm_cl_step with the policies'
@@ -118,7 +139,7 @@ struct PmsmClArgs {
     double band_value[N_BANDS];        // scalar band (band_ptr null)
     double adv_scale;                  // deadtime + 0.5
     double rot_re[8], rot_im[8];       // ops/transforms.py ROTATION_RE/IM at [b0][b1][b2]
-    double clip;                       // AffineLaw clamp bound (with has_clip)
+    double clip;                       // AffinePolicy's clamp bound (with has_clip)
     const void* param_ptr[N_PARAMS];   // per-batch parameter (B,), or null
     const void* band_ptr[N_BANDS];     // per-batch band (B,), or null
     const void* lut;                   // (nx, ny, 8) interleaved, saturated only
@@ -147,9 +168,9 @@ struct PmsmClArgs {
     int n_pp;
     int n_sched;                       // 0 or MAX_SCHED
     int sched_c0, sched_c1;            // carry leaves of the normalized belief currents
-    int policy_id;                     // 0 AffineLaw, 1 the actor, 2 SensorlessLaw, 3 ScheduledLaw
-    int has_integral;                  // AffineLaw: Ki follows K and b
-    int has_clip;                      // AffineLaw
+    int policy_id;                     // 0 AffinePolicy, 1 the actor, 2 SensorlessLaw, 3 ScheduledLaw
+    int has_integral;                  // AffinePolicy: Ki follows K and b
+    int has_clip;                      // AffinePolicy
     int delayed;                       // sensorless laws: the applied voltage is last step's command
     int obs_cols[MAX_OBS];
     int n_obs_noise;
@@ -160,13 +181,24 @@ struct PmsmClArgs {
     int deterministic;                 // actor: no exploration draw
     int n_layers;                      // actor: hidden layers + head
     int widths[MAX_LAYERS + 1];        // actor: n_obs, hidden widths..., n_action
+    int affine_columns;                // AffinePolicy: COLS_ALL or COLS_CURRENTS (pmsm_closed_loop/affine.cu)
 };
+
+// The observation columns a policy functor reads (its COLUMNS): every column,
+// or i_d, i_q, omega and the references (columns 0-2 and from N_BASE_OBS on),
+// so that a step builds neither the torque nor cos/sin eps nor the buffers
+enum { COLS_ALL = 0, COLS_CURRENTS = 1 };
+
+__host__ __device__ constexpr bool column_read(int cols, int i) {
+    return cols == COLS_ALL || i < 3 || i >= N_BASE_OBS;
+}
 
 // ---------------------------------------------------------------------------
 // Policy functors: act(args, pp, obs, n_obs, sv, t, carry, a), with sv the
 // scheduled gather's channels, runs per step.  A functor with PREPARES has a
 // prepare(args, pp, carry) that runs once per thread before the time loop
 // and returns what it keeps in registers, and act takes that first.
+// COLUMNS names the observation columns act reads; the kernel builds no other.
 // ---------------------------------------------------------------------------
 
 struct Unprepared {};
@@ -186,6 +218,7 @@ template <class Law>
 struct ActorAdapter {
     static constexpr bool SCHEDULED = false;
     static constexpr bool PREPARES = true;
+    static constexpr int COLUMNS = COLS_ALL;
     template <typename T>
     using Prepared = typename Law::template Prepared<T, 2>;
     template <typename T>
@@ -383,29 +416,34 @@ __global__ void __launch_bounds__(128) pmsm_closed_loop_kernel(const __grid_cons
     for (int i = 0; i < MAX_CARRY; ++i) c[i] = i < args.n_carry ? static_cast<const T*>(args.carry0[i])[b] : T(0);
     T u_app_d = T(0), u_app_q = T(0);
     const auto pol = prepare_policy<Policy>(args, pp, c);
+    constexpr int COLS = Policy::COLUMNS;
 
     for (int t = 0; t < args.n_steps; ++t) {
-        // 1. torque from the currents; the gather feeds the first RK stage
+        // 1. torque from the currents; the gather feeds the first RK stage.
+        // A policy that reads no torque column gets it only for a save
         T vals[N_CHANNELS];
-        T trq;
-        if (SAT) {
-            gather<true>(lut, k, i_d, i_q, vals);
-            trq = saturated_torque(vals, k, i_d, i_q);
-        } else {
-            trq = linear_torque(k, i_d, i_q);
-        }
+        if (SAT) gather<true>(lut, k, i_d, i_q, vals);
         // the pending save's torque: this state is step t - 1's post-step state
-        if (saves && until_save == traj_stride && t > 0) static_cast<T*>(args.traj[2])[save_at - batch] = trq;
+        const bool save_trq = saves && until_save == traj_stride && t > 0;
+        T trq = T(0);
+        if (column_read(COLS, 3) || save_trq)
+            trq = SAT ? saturated_torque(vals, k, i_d, i_q) : linear_torque(k, i_d, i_q);
+        if (save_trq) static_cast<T*>(args.traj[2])[save_at - batch] = trq;
 
-        // 2. observation (+ sensor noise)
+        // 2. observation (+ sensor noise), the columns the policy reads
         T obs[MAX_OBS];
         obs[0] = normalize(bd, 0, i_d);
         obs[1] = normalize(bd, 1, i_q);
         obs[2] = obs_omega;
-        obs[3] = normalize(bd, 3, trq);
-        sincos_pair(eps, obs[5], obs[4]);
-        obs[6] = normalize(bd, 4, buf_d);
-        obs[7] = normalize(bd, 5, buf_q);
+        if constexpr (COLS == COLS_ALL) {
+            obs[3] = normalize(bd, 3, trq);
+            sincos_pair(eps, obs[5], obs[4]);
+            obs[6] = normalize(bd, 4, buf_d);
+            obs[7] = normalize(bd, 5, buf_q);
+        } else {
+#pragma unroll
+            for (int i = 3; i < N_BASE_OBS; ++i) obs[i] = T(0);  // read by no gain
+        }
 #pragma unroll
         for (int r = 0; r < MAX_REFS; ++r) obs[N_BASE_OBS + r] = ref[r];
         if (n_obs_noise > 0) {
@@ -415,7 +453,7 @@ __global__ void __launch_bounds__(128) pmsm_closed_loop_kernel(const __grid_cons
             for (int i = 0; i < MAX_OBS; ++i) {
 #pragma unroll
                 for (int j = 0; j < MAX_OBS; ++j)
-                    if ((feed[i] >> j) & 1u) obs[i] = obs[i] + __ldg(obs_noise + j);
+                    if (column_read(COLS, i) && ((feed[i] >> j) & 1u)) obs[i] = obs[i] + __ldg(obs_noise + j);
             }
             obs_noise += batch * n_obs_noise;
         }
@@ -558,3 +596,8 @@ static int launch_stages(const PmsmClArgs& args, cudaStream_t stream) {
 // where the widths are (n_obs, 16, 16, 2), ActorLaw otherwise; dtype 0
 // float32, 1 float64
 int pmsm_closed_loop_actor(const PmsmClArgs& args, int dtype, cudaStream_t stream);
+
+// AffinePolicy's instantiations, pmsm_closed_loop/affine.cu, by
+// args.affine_columns: AffineAdapter over every column, AffineCurrentsReg
+// over the currents' columns; dtype 0 float32, 1 float64
+int pmsm_closed_loop_affine(const PmsmClArgs& args, int dtype, cudaStream_t stream);

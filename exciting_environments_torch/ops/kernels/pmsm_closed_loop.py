@@ -85,6 +85,17 @@ MAX_DYNAMIC_SMEM = 227 * 1024
 KERNEL_STAGES = (1, 2, 4, 6)
 #: policy families compiled into the kernel, by ``KernelSpec.policy_id``
 FAMILIES = {0: "AffinePolicy", 1: "ActorPolicy", 2: "SensorlessPolicy", 3: "ScheduledSensorlessPolicy"}
+#: the kernel's instantiations by family (:func:`kernel_variant`): the affine
+#: law reading every observation column, or the currents' columns only
+#: (``csrc/pmsm_closed_loop/affine.cu``), the actor and the sensorless tiles
+VARIANTS = ("affine_all", "affine_currents", "actor", "sensorless", "scheduled")
+#: launches of each instantiation
+VARIANT_LAUNCHES = dict.fromkeys(VARIANTS, 0)
+#: the instantiation of each family but the affine law's
+_FAMILY_VARIANTS = {1: "actor", 2: "sensorless", 3: "scheduled"}
+#: the observation columns that ``"affine_currents"`` builds no value for:
+#: the torque, cos/sin eps and the two buffers
+SKIPPED_COLUMNS = slice(3, N_BASE_OBS)
 
 _c_double = ctypes.c_double
 _c_void_p = ctypes.c_void_p
@@ -151,6 +162,7 @@ class PmsmClArgs(ctypes.Structure):
         ("deterministic", _c_int),
         ("n_layers", _c_int),
         ("widths", _c_int * (MAX_LAYERS + 1)),
+        ("affine_columns", _c_int),
     ]
 
 
@@ -347,6 +359,25 @@ def plain_pmsm_closed_loop(env, state0, omega, policy, n_steps, *, tau, solver, 
 # ---------------------------------------------------------------------------
 
 
+def kernel_variant(policy, policy_params=None) -> str:
+    """The instantiation a launch of ``policy`` (a family of :data:`FAMILIES`)
+    takes (:data:`VARIANTS`).  An :class:`~exciting_environments_torch.ops.policies.AffinePolicy`
+    takes ``"affine_currents"`` where its own gains ``K`` and ``Ki``, held on
+    the CPU, are zero in every column of :data:`SKIPPED_COLUMNS`: a skipped
+    term is ``0 * x`` with ``x`` finite wherever the currents are, and adding
+    it changes no nonzero sum, so the launch equals the plain version.  Gains
+    given at call time (``policy_params``) or held on a card take
+    ``"affine_all"``: reading them would wait on the card.  A launch plan
+    keeps the answer, so it is asked once a spec, not once a chunk."""
+    if policy.policy_id != 0:
+        return _FAMILY_VARIANTS[policy.policy_id]
+    gains = [g for g in (policy.K, policy.Ki) if g is not None]
+    if policy_params is not None or any(g.device.type != "cpu" for g in gains):
+        return "affine_all"
+    read_only_currents = not any(bool(g[:, SKIPPED_COLUMNS].ne(0).any()) for g in gains)
+    return "affine_currents" if read_only_currents else "affine_all"
+
+
 def _chunk_args(args, state0, omega, carry0, ref_leaves, obs_noise_tm, proc_noise_tm, n_steps, traj_stride):
     """Write one launch's per-chunk pointers into ``args``: the start leaves,
     ``omega``, the references, the carry, the noise slabs and the outputs,
@@ -411,7 +442,9 @@ def kernel_pmsm_closed_loop(env, state0, omega, policy, n_steps, *, tau, solver,
     references, the carry and the noise slabs) are those of a kept launch
     plan (:data:`PLANS`) checks only its per-chunk leaves and the policy's
     spec, and writes only the per-chunk pointers into a copy of the plan's
-    struct: the kernel gets the same bytes as from the full path."""
+    struct: the kernel gets the same bytes as from the full path, and the
+    same instantiation (:func:`kernel_variant`, counted in
+    :data:`VARIANT_LAUNCHES`)."""
     state0 = tuple(state0)
     dtype, device = state0[0].dtype, state0[0].device
     batch = state0[0].shape[0]
@@ -425,8 +458,10 @@ def kernel_pmsm_closed_loop(env, state0, omega, policy, n_steps, *, tau, solver,
                         proc_noise_tm is not None)
     leaves = (*state0, omega, *ref_leaves, *carry0)
 
-    def launch(args, detail):
-        PMSM_CL_KERNEL.launch(args, dtype, device, "pmsm_closed_loop", detail=detail)
+    def launch(args, extra):
+        variant, detail = extra
+        PMSM_CL_KERNEL.launch(args, dtype, device, "pmsm_closed_loop", detail=f" ({variant} instantiation){detail}")
+        VARIANT_LAUNCHES[variant] += 1
 
     outputs, spec = PLANS.launch(
         key, leaves, ((obs_noise_tm, (n_steps, batch, len(obs_noise_cols))),
@@ -585,13 +620,15 @@ def kernel_pmsm_closed_loop(env, state0, omega, policy, n_steps, *, tau, solver,
         else:
             setattr(args, name, value)
     args.traj_stride = traj_stride or 0
+    variant = kernel_variant(policy, policy_params)
+    args.affine_columns = int(variant == "affine_currents")
     static = PmsmClArgs.from_buffer_copy(args)
 
     outputs, chunk_keep = _chunk_args(args, state0, omega, carry0, ref_leaves, obs_noise_tm, proc_noise_tm, n_steps,
                                       traj_stride)
-    detail = f" (dynamic shared memory asked: {smem_bytes} B)"
-    launch(args, detail)
-    PLANS.missed(key, static, policy, ptr, grads=static_grads, hold=tables, extra=detail)
+    extra = (variant, f" (dynamic shared memory asked: {smem_bytes} B)")
+    launch(args, extra)
+    PLANS.missed(key, static, policy, ptr, grads=static_grads, hold=tables, extra=extra)
     return outputs
 
 

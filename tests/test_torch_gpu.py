@@ -822,6 +822,124 @@ def test_pmsm_closed_loop_kernel_matches_plain_version(kind, dtype):
         assert torch.equal(a, b)
 
 
+#: observation noise columns of the pruned-law cases: none, columns the
+#: pruned law reads (i_d, the q reference), columns it skips (torque, a
+#: buffer), one of each
+PRUNED_NOISE = {"none": (), "kept": (0, 9), "skipped": (3, 6), "both": (1, 5)}
+PRUNED_CASES = [(law, solver, deadtime, stride, noise) for law in ("p", "pi") for solver in ("euler", "rk4")
+                for deadtime in (0, 1) for stride in (None, 1) for noise in ("none", "kept", "skipped")]
+PRUNED_CASES += [("pi", "euler", 1, 4, "both"), ("p", "rk4", 0, 2, "both")]
+
+
+def _pruned_case(solver, deadtime, noise, n_steps, dtype=torch.float32):
+    """(env, state0, omega, loop kwargs) of a saturated BRUSA fleet tracking
+    current references, the linear inductances NaN (read by no saturated
+    path); ragged B."""
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    B = 2048 + 45
+    params = dict(P.MotorVariant.BRUSA.get_params().static_params.__dict__, deadtime=deadtime, l_d=float("nan"),
+                  l_q=float("nan"), psi_p=float("nan"))
+    env = P.PMSM(batch_size=B, saturated=True, motor_variant=P.MotorVariant.BRUSA, static_params=params,
+                 dtype=dtype, solver=solver, control_state=["i_d", "i_q"])
+    _, state = env.vmap_reset(rng=gen)
+    phys = state.physical_state
+    loop = {"ref_leaves": tuple((torch.rand(B, generator=gen, device="cuda", dtype=torch.float64) * 1.8 - 0.9).to(dtype)
+                                for _ in range(2))}
+    cols = PRUNED_NOISE[noise]
+    if cols:
+        loop["obs_noise_tm"] = 0.05 * torch.randn((n_steps, B, len(cols)), generator=gen, device="cuda", dtype=dtype)
+        loop["obs_noise_cols"] = cols
+    state0 = (phys.i_d, phys.i_q, phys.epsilon, phys.u_d_buffer, phys.u_q_buffer)
+    return env, state0, phys.omega_el, loop
+
+
+def _pcl_equal_plain(env, policy, state0, omega, n_steps, variant, **loop):
+    """One kernel launch against the plain version, every output under
+    ``torch.equal``, and the instantiation it ran."""
+    from exciting_environments_torch.ops.kernels import pmsm_closed_loop as PCL
+
+    kw = dict(tau=env.tau, solver=env._solver, props=env.env_properties, **loop)
+    if policy.n_carry:
+        kw["policy_carry"] = tuple(torch.zeros(env.batch_size, device="cuda", dtype=env.dtype) for _ in range(2))
+    before = dict(PCL.VARIANT_LAUNCHES)
+    outk = PCL.kernel_pmsm_closed_loop(env, state0, omega, policy, n_steps, **kw)
+    outp = PCL.plain_pmsm_closed_loop(env, state0, omega, policy, n_steps, **kw)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in PCL.VARIANT_LAUNCHES.items() if v != before[k]} == {variant: 1}
+    flat = lambda out: [t for part in out if part is not None for t in part]
+    assert len(flat(outk)) == len(flat(outp))
+    for a, b in zip(flat(outk), flat(outp)):
+        assert torch.equal(a, b)
+    assert all(bool(torch.isfinite(t).all()) for t in flat(outk))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("law,solver,deadtime,stride,noise", PRUNED_CASES)
+def test_pruned_affine_law_matches_plain_version(law, solver, deadtime, stride, noise):
+    """The P and PI laws on the currents and references take the pruned
+    instantiation (no torque, cos/sin eps or buffer column built, the torque
+    only for a save) and equal the plain version bit for bit: deadtime 0
+    and 1, Euler and RK4, saves off, every step (the torque save included)
+    and sparser, sensor noise on columns the law reads and on columns it
+    skips."""
+    _cuda()
+    n_steps = 32
+    env, state0, omega, loop = _pruned_case(solver, deadtime, noise, n_steps)
+    policy = P.AffinePolicy(PCL_P, Ki=PCL_KI if law == "pi" else None)
+    _pcl_equal_plain(env, policy, state0, omega, n_steps, "affine_currents", traj_stride=stride, **loop)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("matrix", ["K", "Ki"])
+@pytest.mark.parametrize("col", [3, 4, 5, 6, 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_a_gain_on_a_skipped_column_takes_the_full_law(matrix, col, dtype):
+    """One nonzero gain on the torque, cos/sin eps or a buffer column (of K
+    or of Ki) takes the instantiation that builds every column, and it
+    equals the plain version bit for bit; so do the pruned law's own gains
+    given at call time."""
+    _cuda()
+    n_steps = 32
+    env, state0, omega, loop = _pruned_case("euler", 1, "skipped", n_steps, dtype)
+    gains = {"K": [list(r) for r in PCL_P], "Ki": [list(r) for r in PCL_KI]}
+    gains[matrix][1][col] = 0.05
+    policy = P.AffinePolicy(gains["K"], Ki=gains["Ki"], clip=1.0)
+    _pcl_equal_plain(env, policy, state0, omega, n_steps, "affine_all", traj_stride=1, **loop)
+    if matrix == "K" and col == 3:
+        pi = P.AffinePolicy(PCL_P, Ki=PCL_KI)
+        params = pi.flat_params().to("cuda", dtype)
+        _pcl_equal_plain(env, pi, state0, omega, n_steps, "affine_all", policy_params=params, **loop)
+
+
+@pytest.mark.gpu
+def test_a_pi_fleet_runs_the_pruned_law_every_chunk_and_chooses_it_once(monkeypatch):
+    """FleetRunner.run_policy over n chunks of the PI law: n launches of the
+    pruned instantiation, the choice made once (on the plan's miss), and
+    the result equal to n chunks of the full law (the same gains given at
+    call time), bit for bit."""
+    from exciting_environments_torch.ops.kernels import pmsm_closed_loop as PCL
+    from exciting_environments_torch.utils.fleet import FleetRunner
+
+    _cuda()
+    n = 5
+    env, policy, state, carry, plans = _plan_fleet("pi", torch.float32)
+    plans.clear()
+    choose = PCL.kernel_variant
+    chosen = []
+    monkeypatch.setattr(PCL, "kernel_variant", lambda *a: chosen.append(1) or choose(*a))
+    before = dict(PCL.VARIANT_LAUNCHES)
+    final, final_c = FleetRunner(env).run_policy(state, policy, n, 32, policy_carry=carry)
+    torch.cuda.synchronize()
+    assert PCL.VARIANT_LAUNCHES["affine_currents"] - before["affine_currents"] == n and len(chosen) == 1
+    assert PCL.VARIANT_LAUNCHES["affine_all"] == before["affine_all"]
+    params = policy.flat_params().to("cuda", torch.float32)
+    ref, ref_c = state, carry
+    for _ in range(n):
+        _, ref, ref_c = env.fused_closed_loop(ref, policy, 32, policy_carry=ref_c, policy_params=params)
+    assert PCL.VARIANT_LAUNCHES["affine_all"] - before["affine_all"] == n
+    _tree_equal((final, final_c), (ref, tuple(ref_c)))
+
+
 def _plan_fleet(kind, dtype):
     """(env, policy, start state, carry, the wrapper's plan cache) of a fleet
     whose chunks run one closed-loop wrapper: the saturated BRUSA drive under

@@ -371,3 +371,32 @@ def test_the_entry_points_run_their_plain_loops_through_the_scope_memo_on_the_cp
     env.env_properties.static_params.deadtime = 2
     with pytest.raises(ValueError, match="out of kernel scope"):
         env.fused_closed_loop(state, pi, 4)
+
+
+def test_a_kept_plan_launches_its_instantiation_every_chunk_without_choosing_again(monkeypatch):
+    """The full path picks the affine law's instantiation once and keeps it
+    in its plan; every launch through the plan runs and counts that
+    instantiation (``VARIANT_LAUNCHES``) without reading the gains again.
+    On the CPU the launch is a stand-in; the card runs the real one
+    (``tests/test_torch_gpu.py``)."""
+    env, pi = _drive(), P.AffinePolicy(PI_K, Ki=PI_KI)
+    n_steps = 64
+    _, state = env.vmap_reset()
+    phys = state.physical_state
+    state0 = tuple(t.float() for t in (phys.i_d, phys.i_q, phys.epsilon, phys.u_d_buffer, phys.u_q_buffer))
+    omega, refs, carry = phys.omega_el.float(), (torch.zeros(B),) * 2, (torch.zeros(B),) * 2
+    pi.kernel_spec(torch.float32, CPU)
+    PCL.PLANS.clear()
+    kept = PCL.PmsmClArgs(affine_columns=1)
+    assert PCL.PLANS.keep(_pmsm_key(env, pi), kept, pi, extra=(PCL.kernel_variant(pi), ""))
+    launched, chosen = [], []
+    monkeypatch.setattr(PCL.PMSM_CL_KERNEL, "launch", lambda args, *a, **k: launched.append(args.affine_columns))
+    monkeypatch.setattr(PCL, "kernel_variant", lambda *a: chosen.append(1) or "affine_all")
+    before = dict(PCL.VARIANT_LAUNCHES)
+    for _ in range(3):
+        PCL.kernel_pmsm_closed_loop(env, state0, omega, pi, n_steps, tau=env.tau, solver=env._solver,
+                                    props=env.env_properties, ref_leaves=refs, policy_carry=carry)
+    PCL.PLANS.clear()
+    assert launched == [1, 1, 1] and chosen == []
+    assert PCL.VARIANT_LAUNCHES["affine_currents"] - before["affine_currents"] == 3
+    assert PCL.VARIANT_LAUNCHES["affine_all"] == before["affine_all"]

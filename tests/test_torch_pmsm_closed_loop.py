@@ -542,3 +542,72 @@ def test_actor_vjp_matches_autograd_through_the_plain_loop():
     for a, b in (got[0], want[0]), (got[1], want[1]), (got[3], want[3]):
         scale = float(b.abs().max())
         assert float((a - b).abs().max()) <= 1e-12 * max(scale, 1e-300)
+
+
+# ---------------------------------------------------------------------------
+# the affine law's instantiations, chosen on the host from its gains
+# ---------------------------------------------------------------------------
+
+
+def _with(gains, col, value=0.3):
+    """``gains`` with ``value`` at ``(0, col)``."""
+    out = [list(row) for row in gains]
+    out[0][col] = value
+    return out
+
+
+NEG_ZERO = [[-0.0 if g == 0 else g for g in row] for row in K_I]
+SKIPPED = range(3, 8)  # torque, cos eps, sin eps, the two buffers
+CHOICE_CASES = {
+    "PI law on the currents and references": (dict(K=K_P, Ki=K_I), None, "affine_currents"),
+    "P law (no Ki)": (dict(K=K_P), None, "affine_currents"),
+    "P law with a clamp and a speed gain": (dict(K=_with(K_P, 2), clip=1.0), None, "affine_currents"),
+    "negative zeros on the skipped columns": (dict(K=NEG_ZERO, Ki=NEG_ZERO), None, "affine_currents"),
+    **{f"K nonzero in column {c}": (dict(K=_with(K_P, c), Ki=K_I), None, "affine_all") for c in SKIPPED},
+    **{f"Ki nonzero in column {c}": (dict(K=K_P, Ki=_with(K_I, c)), None, "affine_all") for c in SKIPPED},
+    "P law with a torque gain": (dict(K=_with(K_P, 3)), None, "affine_all"),
+    "a NaN gain on a skipped column": (dict(K=_with(K_P, 6, float("nan"))), None, "affine_all"),
+    "gains given at call time (policy_params)": (dict(K=K_P, Ki=K_I), "flat", "affine_all"),
+}
+
+
+@pytest.mark.parametrize("case", list(CHOICE_CASES))
+def test_the_affine_launch_builds_only_the_columns_its_gains_read(case):
+    """The host picks ``affine_currents`` exactly where every gain of K and
+    Ki on the torque, cos/sin eps and the buffers is zero, and the gains are
+    its own: then the plain law is blind to what those columns hold (any
+    finite values give its actions and carry under ``torch.equal``), which
+    is why the pruned launch that builds none of them equals it."""
+    gains, params, want = CHOICE_CASES[case]
+    policy = P.AffinePolicy(gains["K"], Ki=gains.get("Ki"), clip=gains.get("clip"))
+    params = policy.flat_params() if params == "flat" else None
+    assert PCL.kernel_variant(policy, params) == want
+    assert PCL.VARIANTS.index(want) in (0, 1) and policy.policy_id == 0
+    if want != "affine_currents":
+        return
+    gen = torch.Generator().manual_seed(12)
+    obs = [torch.randn(64, generator=gen, dtype=torch.float32) for _ in range(10)]
+    filled = [torch.randn(64, generator=gen, dtype=torch.float32) * 1e3 if i in SKIPPED else x
+              for i, x in enumerate(obs)]
+    zeroed = [torch.zeros(64) if i in SKIPPED else x for i, x in enumerate(obs)]
+    carry = (torch.randn(64, generator=gen),) * 2 if policy.n_carry else ()
+    outs = [policy(o, 0, carry) if carry else policy(o, 0) for o in (filled, zeroed)]
+    flat = lambda out: [t for part in (out if carry else (out,)) for t in part]
+    for a, b in zip(*map(flat, outs)):
+        assert torch.equal(a, b)
+
+
+def test_the_other_families_keep_one_instantiation_each_and_the_struct_ends_with_the_column_set():
+    """The actor and the two sensorless tiles are not pruned; the argument
+    struct carries the affine law's column set last, as the header declares
+    it, and the header's rule reads every column but 3-7 when pruned."""
+    tile = lambda policy_id: type("Tile", (), {"policy_id": policy_id})()
+    assert PCL.kernel_variant(P.make_actor_tile(P.Pendulum(batch_size=2, **F64))[0]) == "actor"
+    assert PCL.kernel_variant(tile(2)) == "sensorless" and PCL.kernel_variant(tile(3)) == "scheduled"
+    assert set(PCL.VARIANT_LAUNCHES) == set(PCL.VARIANTS)
+    assert PCL.PmsmClArgs._fields_[-1][0] == "affine_columns"
+    header = (CSRC / "pmsm_closed_loop.cuh").read_text()
+    struct = header[header.index("struct PmsmClArgs {"):header.index("};", header.index("struct PmsmClArgs {"))]
+    assert struct.rstrip().splitlines()[-1].split()[:2] == ["int", "affine_columns;"]
+    assert "return cols == COLS_ALL || i < 3 || i >= N_BASE_OBS;" in header
+    assert PCL.SKIPPED_COLUMNS == slice(3, PCL.N_BASE_OBS)
