@@ -724,6 +724,8 @@ SASS_CASES = [
     ("4a-all/4b-all", "pmsm_closed_loop", r"pmsm_closed_loop_kernel<float, 1, true, AffineAdapter>", [()]),
     ("4c", "pmsm_closed_loop", r"pmsm_closed_loop_kernel<float, 1, true, ScheduledLaw>",
      [(r"^LDG\.E\.128\.CONSTANT",), (r"^LDG\.E\.CONSTANT",)]),
+    ("4h", "pmsm_closed_loop", r"pmsm_closed_loop_kernel<float, 1, true, ScheduledDriveLaw>",
+     [(r"^LDG\.E\.128\.CONSTANT",), (r"^LDG\.E\.CONSTANT",)]),
     ("5", "pendulum_fast", r"pendulum_fast_kernel", [(r"0\.1591549",), ()]),
     ("6", "pmsm_fast", r"pmsm_fast_kernel<float, true, 1>", [()]),
 ]
@@ -1776,8 +1778,11 @@ def pmsm_cl_ops_per_step(env, spec, n_refs, n_sched, n_obs_noise, n_proc_noise):
 
     gather = lambda nc: 4 + 2 + 4 + 2 + 2 + nc * 11
     saturated = bool(env.env_properties.saturated)
-    torque = gather(6) + 4 if saturated else 4
-    obs = 5 * 4 + 2 + n_obs_noise  # five normalized columns (omega once per run), cos, sin
+    # the per-drive scheduled tile (ScheduledDriveLaw) reads i_d and i_q only: no torque (its gather feeds the
+    # first stage), no cos/sin eps, no buffer column
+    currents = spec.policy_id == 3 and bool(spec.planes)
+    torque = (gather(6) if currents else gather(6) + 4) if saturated else 4
+    obs = (2 * 4 if currents else 5 * 4 + 2) + n_obs_noise  # normalized columns (omega once per run), cos, sin
     sched = (8 + gather(n_sched)) if n_sched else 0
     if spec.policy_id == 0:
         o = spec.options
@@ -1838,7 +1843,9 @@ def pcl_inputs(env, gen, omega=None):
     _, state = env.vmap_reset(rng=gen)
     B = env.batch_size
     phys = state.physical_state
-    if omega is not None:
+    if isinstance(omega, torch.Tensor):
+        phys.omega_el = omega.clone()
+    elif omega is not None:
         phys.omega_el = torch.full((B,), omega, device=DEVICE, dtype=env.dtype)
     state.reference.i_d = torch.linspace(-200.0, -10.0, B, device=DEVICE, dtype=env.dtype)
     state.reference.i_q = torch.linspace(-150.0, 150.0, B, device=DEVICE, dtype=env.dtype)
@@ -1881,6 +1888,12 @@ def phase_pcl_kernel_vs_plain(ex, PCL):
     sched_tile, sched_c0, sched_lut = ex.make_pmsm_saturated_sensorless_current_tile(
         sched_env, i_d_ref=-100.0, i_q_ref=150.0, omega_el=OMEGA_SENSORLESS,
         measurement_std={"i_d": SENSOR_SIGMA, "i_q": SENSOR_SIGMA})
+    # the same tile per drive: 7 speed slices, per-drive references
+    drive_env = pmsm_env(ex, B, control_state=["i_d", "i_q"])
+    drive_omega = torch.linspace(0.0, 1000.0, 7, device=DEVICE)[torch.randint(0, 7, (B,), generator=gen, device=DEVICE)]
+    drive_tile, drive_c0, drive_lut = ex.make_pmsm_saturated_sensorless_current_tile(
+        drive_env, i_d_ref=uni(-200.0, -10.0), i_q_ref=uni(-150.0, 150.0), omega_el=drive_omega,
+        measurement_std={"i_d": 2.5, "i_q": 2.5})
     # (label, env, policy, loop kwargs, pinned omega)
     cases = [
         ("BRUSA euler P deadtime 1, a save every step", tracking(), p_law, {"traj_stride": 1}, None),
@@ -1902,6 +1915,8 @@ def phase_pcl_kernel_vs_plain(ex, PCL):
          OMEGA_SENSORLESS),
         ("BRUSA scheduled sensorless tile deadtime 1", sched_env, sched_tile, {"traj_stride": 1, "sched_lut": sched_lut},
          OMEGA_SENSORLESS),
+        ("BRUSA scheduled sensorless tile per drive, 7 speed slices", drive_env, drive_tile,
+         {"traj_stride": 1, "sched_lut": drive_lut}, drive_omega),
         ("BRUSA rk4 PI float64 (shared memory above 48 KB)", tracking(solver="rk4", dtype=torch.float64), pi_law,
          {"traj_stride": 8}, None),
         ("BRUSA euler P ragged B=1000", pmsm_env(ex, 1000, control_state=["i_d", "i_q"]), p_law, {}, None),
@@ -1931,6 +1946,8 @@ def phase_pcl_kernel_vs_plain(ex, PCL):
             kw["policy_carry"] = carry0
         elif policy is sched_tile:
             kw["policy_carry"] = sched_c0
+        elif policy is drive_tile:
+            kw["policy_carry"] = drive_c0
         elif policy.n_carry:
             kw["policy_carry"] = tuple(torch.zeros(env.batch_size, device=DEVICE, dtype=env.dtype) for _ in range(2))
         _, state0, omega_t, refs = pcl_inputs(env, gen, omega)
@@ -2080,6 +2097,41 @@ def phase_pcl_main(ex, PCL):
              (senv, tile.kernel_spec(torch.float32, DEVICE), B, T, 0, 6, 0, 10, 2), T, "4c",
              "ScheduledLaw", sass_case("4c")[2])
     del slab, skw
+
+    # H: the same tile per drive over the speed x current plane (the benchmark cell
+    # pmsm-brusa-sched-sensorless-fleet-t2048): 32 speed slices over 0..1,000 rad/s,
+    # references over -200..-10 A and -150..150 A, a cold observer, no sensor slab
+    denv = ex.PMSM(batch_size=B, saturated=True, motor_variant=ex.MotorVariant.BRUSA, tau=1e-4,
+                   control_state=["i_d", "i_q"], device=DEVICE)
+    draw = lambda lo, hi: (lo + (hi - lo) * torch.rand(B, generator=gen, device=DEVICE, dtype=torch.float64)).float()
+    d_omega = torch.linspace(0.0, 1000.0, 32, device=DEVICE)[torch.randint(0, 32, (B,), generator=gen, device=DEVICE)]
+    d_ref = (draw(-200.0, -10.0), draw(-150.0, 150.0))
+    t_solve = time.perf_counter()
+    dtile, dc0, dsched = ex.make_pmsm_saturated_sensorless_current_tile(
+        denv, i_d_ref=d_ref[0], i_q_ref=d_ref[1], omega_el=d_omega, measurement_std={"i_d": 2.5, "i_q": 2.5})
+    log(f"[pmsm closed loop main] per-drive sensorless: {dsched.n_slices} speed slices solved in "
+        f"{time.perf_counter() - t_solve:.2f} s")
+    d_state, d_state0, _, _ = pcl_inputs(denv, gen, d_omega)
+    d_state.reference.i_d, d_state.reference.i_q = d_ref
+    pnd = denv.env_properties.physical_normalizations
+    d_refs = (pnd.i_d.normalize(d_ref[0]), pnd.i_q.normalize(d_ref[1]))
+    dkw_cl = dict(policy_carry=dc0, sched_lut=dsched, ref_leaves=d_refs)
+
+    def check_drive(out):
+        final, _, carry, _, _ = out
+        err_d = (final[0].double() - d_ref[0].double()).abs()
+        err_q = (final[1].double() - d_ref[1].double()).abs()
+        log(f"[pmsm closed loop main]   per-drive sensorless after {T} steps: mean |error| d {float(err_d.mean()):.4f} A, "
+            f"q {float(err_q.mean()):.4f} A, largest {float(torch.maximum(err_d, err_q).max()):.4f} A")
+        if not (bool(torch.isfinite(final[0]).all()) and float(torch.maximum(err_d, err_q).max()) < 1.0):
+            raise AssertionError("the per-drive sensorless fleet did not settle on its references")
+
+    per_drive = lambda kernel: pcl_run(PCL, denv, dtile, T, d_state0, d_omega, kernel, **dkw_cl)
+    run_case("pmsm_closed_loop_sensorless_per_drive",
+             lambda: PCL.pmsm_closed_loop(denv, d_state0, d_omega, dtile, T, **dkw_cl),
+             lambda: per_drive(True), lambda: per_drive(False), check_drive,
+             (denv, dtile.kernel_spec(torch.float32, DEVICE), B, T, 0, 6, 2, 10), T, "4h",
+             "ScheduledDriveLaw", sass_case("4h")[2])
 
     # D: the PI law collected with rewards and flags, a save every step
     collector = ex.RolloutCollector(env)

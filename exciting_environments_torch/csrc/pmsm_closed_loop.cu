@@ -1,5 +1,6 @@
 // The plain C entry points of the pmsm_closed_loop library, loaded with
-// ctypes, and the instantiations of the two sensorless families: the kernel,
+// ctypes, and the instantiations of the two sensorless families (the
+// scheduled one scalar, ScheduledLaw, and per drive, ScheduledDriveLaw): the kernel,
 // its launchers and the actor's adapter are in pmsm_closed_loop.cuh, the
 // affine law's instantiations in pmsm_closed_loop/affine.cu, the actor's in
 // pmsm_closed_loop/actor.cu.
@@ -67,16 +68,29 @@ struct SensorlessLaw {
 // utils/foc.py::make_pmsm_saturated_sensorless_current_tile
 // (ScheduledSensorlessPolicy); the slots of pp are SCHEDULED_SLOTS there.
 // sv = L_dd, L_dq, L_qd, L_qq, Psi_d, Psi_q, K00, K01, K10, K11 gathered at
-// the belief.
+// the belief.  The law is written once, in law(), for the drive's operating
+// point op: ScheduledLaw reads op from the slots (one for the fleet),
+// ScheduledDriveLaw from the drive's planes.
 struct ScheduledLaw {
     static constexpr bool SCHEDULED = true;
+    static constexpr bool SLICED = false;  // one table for every drive
     static constexpr bool PREPARES = false;
     static constexpr int COLUMNS = COLS_ALL;
     enum { SPAN_D, MN_D, SPAN_Q, MN_Q, BANDWIDTH, INV_TI, REF_D, REF_Q, FF_D, FF_Q, OMEGA, U_LIM, TAU, TAU_TI,
            AMN_D, AINV_D, AMN_Q, AINV_Q, ASPAN_D, ASPAN_Q, R_S, INV_SPAN_D, INV_SPAN_Q, N_SLOTS };
+    // the references, the feedforwards r_s * i_ref and the speed
+    template <typename T>
+    struct OperatingPoint {
+        T ref_d, ref_q, ff_d, ff_q, omega;
+    };
     template <typename T>
     __device__ __forceinline__ static void act(const PmsmClArgs& args, const T* pp, const T* obs, int,
                                                const T* sv, int, T* c, T* a) {
+        law(OperatingPoint<T>{pp[REF_D], pp[REF_Q], pp[FF_D], pp[FF_Q], pp[OMEGA]}, args, pp, obs, sv, c, a);
+    }
+    template <typename T>
+    __device__ __forceinline__ static void law(const OperatingPoint<T>& op, const PmsmClArgs& args, const T* pp,
+                                               const T* obs, const T* sv, T* c, T* a) {
         const T xh_d = c[0], xh_q = c[1], int_d = c[2], int_q = c[3];
         const T l_dd = sv[0], l_dq = sv[1], l_qd = sv[2], l_qq = sv[3], psi_d = sv[4], psi_q = sv[5];
         const T k00 = sv[6], k01 = sv[7], k10 = sv[8], k11 = sv[9];
@@ -92,10 +106,10 @@ struct ScheduledLaw {
         const T kp_q = pp[BANDWIDTH] * l_qq;
         const T ki_d = kp_d * pp[INV_TI];
         const T ki_q = kp_q * pp[INV_TI];
-        const T e_d = pp[REF_D] - i_d;
-        const T e_q = pp[REF_Q] - i_q;
-        const T ud_unsat = kp_d * e_d + int_d + pp[FF_D] - pp[OMEGA] * psi_q;
-        const T uq_unsat = kp_q * e_q + int_q + pp[FF_Q] + pp[OMEGA] * psi_d;
+        const T e_d = op.ref_d - i_d;
+        const T e_q = op.ref_q - i_q;
+        const T ud_unsat = kp_d * e_d + int_d + op.ff_d - op.omega * psi_q;
+        const T uq_unsat = kp_q * e_q + int_q + op.ff_q + op.omega * psi_d;
         // 3. inscribed-circle limit, back-calculation anti-windup
         const T s = vector_scale(ud_unsat, uq_unsat, pp[U_LIM]);
         const T u_d = ud_unsat * s;
@@ -112,8 +126,8 @@ struct ScheduledLaw {
         const T det = l_dd * l_qq - l_dq * l_qd;
         const T inv_dd = l_qq / det, inv_dq = -l_dq / det;
         const T inv_qd = -l_qd / det, inv_qq = l_dd / det;
-        const T rhs_d = u_ap_d - pp[R_S] * i_d + pp[OMEGA] * psi_q;
-        const T rhs_q = u_ap_q - pp[R_S] * i_q - pp[OMEGA] * psi_d;
+        const T rhs_d = u_ap_d - pp[R_S] * i_d + op.omega * psi_q;
+        const T rhs_q = u_ap_q - pp[R_S] * i_q - op.omega * psi_d;
         const T i_d1 = i_d + pp[TAU] * (inv_dd * rhs_d + inv_dq * rhs_q);
         const T i_q1 = i_q + pp[TAU] * (inv_qd * rhs_d + inv_qq * rhs_q);
         c[0] = (T)2 * (i_d1 - pp[MN_D]) * pp[INV_SPAN_D] - T(1);
@@ -129,6 +143,47 @@ struct ScheduledLaw {
     }
 };
 
+// ScheduledLaw for a fleet whose drives each hold their own operating point
+// (ScheduledSensorlessPolicy with per_drive): the references, the
+// feedforwards r_s * i_ref and the speed come from the planes (B,)
+// ScheduledSensorlessPolicy.PLANES, and the drive gathers its own slice of
+// the schedule (one slice per distinct speed), loaded once per thread into
+// registers with the slice's base; every other constant from the slots.  It
+// reads i_d and i_q of the observation only (COLS_CURRENTS): a step builds
+// no torque, no cos/sin eps and no buffer column.  The law is ScheduledLaw's.
+struct ScheduledDriveLaw {
+    static constexpr bool SCHEDULED = true;
+    static constexpr bool SLICED = true;
+    static constexpr bool PREPARES = true;
+    static constexpr int COLUMNS = COLS_CURRENTS;
+    enum { P_REF_D, P_REF_Q, P_FF_D, P_FF_Q, P_OMEGA, N_PLANES };
+    template <typename T>
+    struct Prepared {
+        ScheduledLaw::OperatingPoint<T> op;
+        const T* sched;
+    };
+    template <typename T>
+    __device__ __forceinline__ static Prepared<T> prepare(const PmsmClArgs& args, const T*, const T*) {
+        // the thread's drive, as pmsm_closed_loop_kernel computes it
+        const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+        const auto plane = [&](int i) { return static_cast<const T*>(args.policy_planes[i])[b]; };
+        Prepared<T> p{{plane(P_REF_D), plane(P_REF_Q), plane(P_FF_D), plane(P_FF_Q), plane(P_OMEGA)},
+                      static_cast<const T*>(args.sched) +
+                          (long long)static_cast<const int*>(args.sched_slices)[b] * args.slice_elems};
+        keep(p.op.ref_d);
+        keep(p.op.ref_q);
+        keep(p.op.ff_d);
+        keep(p.op.ff_q);
+        keep(p.op.omega);
+        return p;
+    }
+    template <typename T>
+    __device__ __forceinline__ static void act(const Prepared<T>& p, const PmsmClArgs& args, const T* pp,
+                                               const T (&obs)[MAX_OBS], int, const T* sv, int, T* c, T (&a)[2]) {
+        ScheduledLaw::law(p.op, args, pp, obs, sv, c, a);
+    }
+};
+
 template <typename T>
 static int launch_dtype(const PmsmClArgs& args, cudaStream_t stream) {
     switch (args.policy_id) {
@@ -139,9 +194,12 @@ static int launch_dtype(const PmsmClArgs& args, cudaStream_t stream) {
         case 2:  // built for linear magnetics, any stage count
             if (args.saturated) return (int)cudaErrorInvalidValue;
             return launch_stages<T, false, SensorlessLaw>(args, stream);
-        case 3:  // built for the saturated drive with a one-stage solver
+        case 3:  // built for the saturated drive with a one-stage solver; per drive with planes and slices
             if (!args.saturated || args.n_stages != 1 || args.n_sched != MAX_SCHED) return (int)cudaErrorInvalidValue;
-            return launch_one<T, 1, true, ScheduledLaw>(args, stream);
+            if (args.n_planes == 0 && args.sched_slices == nullptr) return launch_one<T, 1, true, ScheduledLaw>(args, stream);
+            if (args.n_planes != ScheduledDriveLaw::N_PLANES || args.sched_slices == nullptr || args.slice_elems <= 0)
+                return (int)cudaErrorInvalidValue;
+            return launch_one<T, 1, true, ScheduledDriveLaw>(args, stream);
         default:
             return (int)cudaErrorInvalidValue;
     }

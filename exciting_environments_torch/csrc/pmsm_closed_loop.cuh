@@ -28,8 +28,10 @@
 // AffineLaw, AffineCurrentsReg), SensorlessLaw (a constant-gain
 // Kalman current observer and a decoupled PI on its belief, linear
 // magnetics), ScheduledLaw (the gain-scheduled observer and PI of the
-// saturated drive, which reads the scheduled gather), both in
-// pmsm_closed_loop.cu, and the PPO actor (policy_laws.cuh's ActorReg<16, 16>
+// saturated drive, which reads the scheduled gather) and ScheduledDriveLaw
+// (the same per drive: its references, feedforwards and speed from per-drive
+// planes, its own slice of the schedule), in pmsm_closed_loop.cu, and the
+// PPO actor (policy_laws.cuh's ActorReg<16, 16>
 // for the default hidden widths, ActorLaw at others; the instance id rides
 // carry plane 0, t is the step index), in pmsm_closed_loop/actor.cu.  Their
 // flat parameters are copied into shared memory once per block, after the
@@ -59,7 +61,9 @@
 // 128-thread blocks per SM).  The scheduled maps (10 channels, 71,232 B
 // interleaved to 12) are read from device memory through the read-only
 // data cache, three 16-byte loads per corner; a fleet near its setpoints
-// gathers a few cells, which stay in L1.  Per step there is one sincosf
+// gathers a few cells, which stay in L1.  Per drive the schedule is one such
+// table per distinct speed, one after the other, and a drive gathers from
+// its own (args.sched_slices, args.slice_elems).  Per step there is one sincosf
 // per distinct angle (the observation's and the hexagon's, with cos(-x) ==
 // cos(x) and sin(-x) == -sin(x), which the card checked for every float32
 // |x| < 2^7; float64 keeps the literal calls), no fmod loop (floored_mod's
@@ -88,7 +92,7 @@
 // AffinePolicy.forward's order.
 //
 // The build: the kernel and its launchers are this header; pmsm_closed_loop.cu
-// instantiates the two sensorless families (10 kernels) and holds the C
+// instantiates the two sensorless families (12 kernels) and holds the C
 // entry points, pmsm_closed_loop/affine.cu the affine law (2 column sets x
 // 2 types x 4 stage counts x 2 magnetics = 32 kernels),
 // pmsm_closed_loop/actor.cu the actor (2 widths x 2 types x 4 stage counts
@@ -120,6 +124,7 @@
 #define MAX_OBS (N_BASE_OBS + MAX_REFS)
 #define MAX_CARRY 6
 #define MAX_SCHED 10
+#define MAX_POLICY_PLANES 5
 #define N_BANDS 17
 #define MAX_POLICY_PARAMS (2048 + 1)  // the actor's budget (utils/rl_fused.py::MAX_ACTOR_PARAMS) and its seed
 
@@ -168,7 +173,7 @@ struct PmsmClArgs {
     int n_pp;
     int n_sched;                       // 0 or MAX_SCHED
     int sched_c0, sched_c1;            // carry leaves of the normalized belief currents
-    int policy_id;                     // 0 AffinePolicy, 1 the actor, 2 SensorlessLaw, 3 ScheduledLaw
+    int policy_id;                     // 0 AffinePolicy, 1 the actor, 2 SensorlessLaw, 3 ScheduledLaw or ScheduledDriveLaw
     int has_integral;                  // AffinePolicy: Ki follows K and b
     int has_clip;                      // AffinePolicy
     int delayed;                       // sensorless laws: the applied voltage is last step's command
@@ -181,6 +186,12 @@ struct PmsmClArgs {
     int deterministic;                 // actor: no exploration draw
     int n_layers;                      // actor: hidden layers + head
     int widths[MAX_LAYERS + 1];        // actor: n_obs, hidden widths..., n_action
+    // the per-drive scheduled tile (ScheduledDriveLaw)
+    const void* policy_planes[MAX_POLICY_PLANES];  // (B,) REF_D, REF_Q, FF_D, FF_Q, OMEGA, or null
+    const void* sched_slices;          // (B,) int32: each drive's slice of sched, or null
+    long long slice_elems;             // elements of one slice of sched (nx * ny * 12)
+    int n_planes;                      // 0 or MAX_POLICY_PLANES
+    int n_slices;                      // slices of sched (0: one table)
     int affine_columns;                // AffinePolicy: COLS_ALL or COLS_CURRENTS (pmsm_closed_loop/affine.cu)
 };
 
@@ -209,6 +220,16 @@ __device__ __forceinline__ auto prepare_policy(const PmsmClArgs& args, const T* 
         return Policy::template prepare<T>(args, pp, c);
     else
         return Unprepared{};
+}
+
+// The scheduled maps a thread gathers from: the launch's one table, or for a
+// SCHEDULED functor with SLICED its drive's slice (the base its prepare keeps)
+template <class Policy, typename T, class Prepared>
+__device__ __forceinline__ const T* sched_table(const PmsmClArgs& args, const Prepared& pol) {
+    if constexpr (Policy::SCHEDULED) {
+        if constexpr (Policy::SLICED) return pol.sched;
+    }
+    return static_cast<const T*>(args.sched);
 }
 
 // utils/rl_fused.py::ActorPolicy on the drive's observation (eight columns,
@@ -357,7 +378,6 @@ __global__ void __launch_bounds__(128) pmsm_closed_loop_kernel(const __grid_cons
 
     const Drive<T> k = prepare<T>(args, b);  // pmsm_drive.cuh
     const Bands<T> bd = bands<T>(args, b);
-    const T* __restrict__ sched = static_cast<const T*>(args.sched);
     T tau = (T)args.tau;
     keep(tau);
     const T omega = k.omega;
@@ -416,6 +436,7 @@ __global__ void __launch_bounds__(128) pmsm_closed_loop_kernel(const __grid_cons
     for (int i = 0; i < MAX_CARRY; ++i) c[i] = i < args.n_carry ? static_cast<const T*>(args.carry0[i])[b] : T(0);
     T u_app_d = T(0), u_app_q = T(0);
     const auto pol = prepare_policy<Policy>(args, pp, c);
+    const T* __restrict__ sched = sched_table<Policy, T>(args, pol);
     constexpr int COLS = Policy::COLUMNS;
 
     for (int t = 0; t < args.n_steps; ++t) {
@@ -459,7 +480,7 @@ __global__ void __launch_bounds__(128) pmsm_closed_loop_kernel(const __grid_cons
         }
 
         // 3. the scheduled gather at the denormalized belief currents (the
-        // launcher pairs the maps with the ScheduledLaw family)
+        // launcher pairs the maps with the scheduled family's functors)
         T sv[MAX_SCHED];
         if constexpr (Policy::SCHEDULED) {
             T bc0 = c[0], bc1 = c[1];

@@ -58,7 +58,6 @@ from exciting_environments_torch.ops.kernels.pmsm_stepper import (
     supports_pmsm_fused,
 )
 from exciting_environments_torch.ops.kernels.stepper import MAX_STAGES, KernelLibrary, _check_leaf, _stage_rows
-from exciting_environments_torch.ops.lut import bilinear_gather
 from exciting_environments_torch.ops.policies import KernelPolicy
 from exciting_environments_torch.ops.transforms import ROTATION_IM, ROTATION_RE, _rotation_tables
 from exciting_environments_torch.utils.profiling import annotate
@@ -87,12 +86,16 @@ KERNEL_STAGES = (1, 2, 4, 6)
 FAMILIES = {0: "AffinePolicy", 1: "ActorPolicy", 2: "SensorlessPolicy", 3: "ScheduledSensorlessPolicy"}
 #: the kernel's instantiations by family (:func:`kernel_variant`): the affine
 #: law reading every observation column, or the currents' columns only
-#: (``csrc/pmsm_closed_loop/affine.cu``), the actor and the sensorless tiles
-VARIANTS = ("affine_all", "affine_currents", "actor", "sensorless", "scheduled")
+#: (``csrc/pmsm_closed_loop/affine.cu``), the actor, the sensorless tiles, and
+#: the scheduled tile whose drives each hold their own operating point
+VARIANTS = ("affine_all", "affine_currents", "actor", "sensorless", "scheduled", "scheduled_drive")
 #: launches of each instantiation
 VARIANT_LAUNCHES = dict.fromkeys(VARIANTS, 0)
 #: the instantiation of each family but the affine law's
 _FAMILY_VARIANTS = {1: "actor", 2: "sensorless", 3: "scheduled"}
+#: per-drive planes of the per-drive scheduled tile
+#: (``ScheduledSensorlessPolicy.PLANES``, ``csrc/pmsm_closed_loop.cu::ScheduledDriveLaw``)
+MAX_POLICY_PLANES = 5
 #: the observation columns that ``"affine_currents"`` builds no value for:
 #: the torque, cos/sin eps and the two buffers
 SKIPPED_COLUMNS = slice(3, N_BASE_OBS)
@@ -162,6 +165,11 @@ class PmsmClArgs(ctypes.Structure):
         ("deterministic", _c_int),
         ("n_layers", _c_int),
         ("widths", _c_int * (MAX_LAYERS + 1)),
+        ("policy_planes", _c_void_p * MAX_POLICY_PLANES),
+        ("sched_slices", _c_void_p),
+        ("slice_elems", ctypes.c_longlong),
+        ("n_planes", _c_int),
+        ("n_slices", _c_int),
         ("affine_columns", _c_int),
     ]
 
@@ -262,20 +270,14 @@ def hex_constrain(a_d, a_q, eps, omega, tau, act_norms, u_dc, deadtime):
 # ---------------------------------------------------------------------------
 
 
-def _sched_config(sched_lut, dtype, device):
-    """``(values, c0, c1)`` of a scheduled gather, or ``None``."""
-    if sched_lut is None:
-        return None
-    return (sched_lut.tensor(dtype, device),) + sched_lut.carry_idx
-
-
 def plain_pmsm_cl_step(env, policy, state, carry, t, refs, pparams=None, *, tau, solver, props, omega, bands,
                        deadtime, has_carry, eo=None, ep=None, obs_cols=(), noise_idx=(), sched=None):
     """One step of the kernel's computation in plain PyTorch over ``(B,)``
     leaves.  ``state`` is ``(i_d, i_q, eps, u_d_buffer, u_q_buffer)``,
     ``bands`` the effective ``(obs_norms, act_norms, u_dc)``
     (:func:`eff_cl_norms`), ``eo``/``ep`` the step's noise rows ``(B, n)``
-    and ``sched`` the scheduled gather ``(values, c0, c1)``.  Returns
+    and ``sched`` the :class:`~exciting_environments_torch.ops.lut.ScheduledLUT`
+    gathered at the belief currents, or ``None``.  Returns
     ``(state1, carry1, (a_d, a_q, u_con_d, u_con_q), u_applied)`` with
     ``carry1 = ()`` for a stateless policy."""
     i_d, i_q, eps, bd, bq = state
@@ -296,13 +298,11 @@ def plain_pmsm_cl_step(env, policy, state, carry, t, refs, pparams=None, *, tau,
             obs[col] = obs[col] + eo[..., j]
         obs = tuple(obs)
     if sched is not None:
-        values, c0, c1 = sched
-        lut = env._lut
+        c0, c1 = sched.carry_idx
         (mn0, mx0), (mn1, mx1) = obs_norms[0], obs_norms[1]
         bi_d = (carry[c0] + 1) / 2 * (mx0 - mn0) + mn0
         bi_q = (carry[c1] + 1) / 2 * (mx1 - mn1) + mn1
-        vals = bilinear_gather(values, lut.x0, lut.dx, lut.y0, lut.dy, lut.nx, lut.ny, bi_d, bi_q)
-        obs = obs + tuple(vals[c] for c in range(values.shape[0]))
+        obs = obs + tuple(sched.gather(bi_d.dtype, bi_d.device, env._lut, bi_d, bi_q).unbind(0))
     args = (obs, t) + ((carry,) if has_carry else ()) + ((pparams,) if pparams is not None else ())
     out = policy(*args)
     a, carry1 = (tuple(out[0]), tuple(out[1])) if has_carry else (tuple(out), ())
@@ -332,7 +332,6 @@ def plain_pmsm_closed_loop(env, state0, omega, policy, n_steps, *, tau, solver, 
     state, carry = tuple(state0), tuple(policy_carry) if has_carry else ()
     deadtime = int(props.static_params.deadtime)
     bands = eff_cl_norms(cl_bands(props))
-    sched = _sched_config(sched_lut, state[0].dtype, state[0].device)
     u_app = (state[3], state[4])
     saves = []
     for t in range(n_steps):
@@ -341,7 +340,7 @@ def plain_pmsm_closed_loop(env, state0, omega, policy, n_steps, *, tau, solver, 
             omega=omega, bands=bands, deadtime=deadtime, has_carry=has_carry,
             eo=None if obs_noise_tm is None else obs_noise_tm[t],
             ep=None if proc_noise_tm is None else proc_noise_tm[t],
-            obs_cols=obs_noise_cols, noise_idx=proc_noise_idx, sched=sched,
+            obs_cols=obs_noise_cols, noise_idx=proc_noise_idx, sched=sched_lut,
         )
         if traj_stride is not None and (t + 1) % traj_stride == 0:
             i_d, i_q = state[0], state[1]
@@ -369,6 +368,8 @@ def kernel_variant(policy, policy_params=None) -> str:
     given at call time (``policy_params``) or held on a card take
     ``"affine_all"``: reading them would wait on the card.  A launch plan
     keeps the answer, so it is asked once a spec, not once a chunk."""
+    if policy.policy_id == 3 and getattr(policy, "per_drive", False):
+        return "scheduled_drive"
     if policy.policy_id != 0:
         return _FAMILY_VARIANTS[policy.policy_id]
     gains = [g for g in (policy.K, policy.Ki) if g is not None]
@@ -422,6 +423,7 @@ def _plan_key(env, props, solver, policy, policy_params, sched_lut, tau, n_steps
     key.obj(policy)
     key.leaf(policy_params)
     key.obj(sched_lut)
+    key.leaf(None if sched_lut is None else sched_lut.slice_plane(device))
     key.leaf(tau)
     key.values(n_steps, traj_stride, dtype, device, batch, n_refs, n_carry, tuple(obs_noise_cols),
                tuple(proc_noise_idx), has_obs_noise, has_proc_noise)
@@ -502,9 +504,12 @@ def kernel_pmsm_closed_loop(env, state0, omega, policy, n_steps, *, tau, solver,
     if sched_lut is not None:
         if policy.policy_id != 3:
             raise ValueError("the kernel's scheduled gather feeds the ScheduledSensorlessPolicy family only")
-        if sched_lut.values.shape != (MAX_SCHED, env._lut.nx, env._lut.ny):
+        if sched_lut.values.shape[-3:] != (MAX_SCHED, env._lut.nx, env._lut.ny):
             raise ValueError(f"the kernel gathers {MAX_SCHED} scheduled channels on the drive's grid, got "
                              f"{sched_lut.values.shape}")
+        if bool(sched_lut.n_slices) != getattr(policy, "per_drive", False):
+            raise ValueError("a per-drive ScheduledSensorlessPolicy takes the per-drive ScheduledLUT of its "
+                             "factory (a slice per speed and each drive's slice), and a scalar one a single table")
         if not all(0 <= c < n_carry for c in sched_lut.carry_idx):
             raise ValueError(f"sched_lut carry_idx {sched_lut.carry_idx} out of the {n_carry} carry leaves")
         n_sched = MAX_SCHED
@@ -517,9 +522,14 @@ def kernel_pmsm_closed_loop(env, state0, omega, policy, n_steps, *, tau, solver,
         _check_leaf(f"policy carry leaf {i}", leaf, dtype, device, (batch,))
     if spec is None:
         spec = policy_spec(policy, dtype, device, policy_params)
-    if spec.planes:
+    if spec.planes and policy.policy_id != 3:
         raise ValueError(f"{type(policy).__name__} reads per-drive planes, which the PMSM closed-loop kernel "
-                         "does not take")
+                         "takes for the per-drive ScheduledSensorlessPolicy (make_pmsm_saturated_sensorless_"
+                         "current_tile) only")
+    if len(spec.planes) not in (0, MAX_POLICY_PLANES):
+        raise ValueError(f"the per-drive scheduled tile reads {MAX_POLICY_PLANES} planes, got {len(spec.planes)}")
+    for i, plane in enumerate(spec.planes):
+        _check_leaf(f"policy plane {i}", plane, dtype, device, (batch,))
     flat = spec.flat
     static_grads = []  # the static tensors autograd could record
     n_obs = N_BASE_OBS + n_refs + n_sched
@@ -599,10 +609,23 @@ def kernel_pmsm_closed_loop(env, state0, omega, policy, n_steps, *, tau, solver,
         raise ValueError(f"the table and {flat.numel()} policy parameters need {smem_bytes} B of shared memory, "
                          f"above the {MAX_DYNAMIC_SMEM} B of one block")
     if n_sched:
-        tables.append(sched_lut.interleaved(dtype, device))
-        args.sched = ptr(tables[-1])
+        sched_table = sched_lut.interleaved(dtype, device)
+        tables.append(sched_table)
+        args.sched = ptr(sched_table)
         args.n_sched = n_sched
         args.sched_c0, args.sched_c1 = sched_lut.carry_idx
+    if sched_lut is not None and sched_lut.n_slices:
+        slices = sched_lut.slice_plane(device)
+        _check_leaf("sched_lut slices", slices, torch.int32, device, (batch,))
+        if not 0 <= int(slices.min()) <= int(slices.max()) < sched_lut.n_slices:
+            raise ValueError(f"sched_lut slices out of its {sched_lut.n_slices} slices")
+        tables.append(slices)
+        args.sched_slices = ptr(slices)
+        args.n_slices = sched_lut.n_slices
+        args.slice_elems = sched_table[0].numel()
+    for i, plane in enumerate(spec.planes):
+        args.policy_planes[i] = ptr(plane)
+    args.n_planes = len(spec.planes)
     args.policy_params = ptr(flat) if flat.numel() else None
     args.batch = batch
     args.n_steps = n_steps
@@ -751,7 +774,6 @@ class PmsmClosedLoopVJP(torch.autograd.Function):
         else:
             b_starts = tuple(leaf[None].expand((n_seg,) + tuple(leaf.shape)) for leaf in state0[3:5])
         c_starts = ck.starts(carry0, tc)
-        sched = _sched_config(cfg.sched_lut, omega.dtype, omega.device)
         needs = ctx.needs_input_grad[1:]
         i_refs = 6
         i_pp = i_refs + len(refs) + nc
@@ -800,7 +822,7 @@ class PmsmClosedLoopVJP(torch.autograd.Function):
                         env, cfg.policy, state, c, t0 + k, rf, pparams, tau=cfg.tau, solver=cfg.solver, props=props,
                         omega=om, bands=bands, deadtime=deadtime, has_carry=nc > 0,
                         eo=None if eo is None else eo[k], ep=None if ep is None else ep[k], obs_cols=cfg.obs_cols,
-                        noise_idx=cfg.noise_idx, sched=sched)
+                        noise_idx=cfg.noise_idx, sched=cfg.sched_lut)
                 pairs = [*zip(state, g_state), *zip(c, g_c), *zip((ucd, ucq, a_d, a_q), g_aux), *zip(u_app, g_u)]
                 return pairs + [(env._torque(state[0], state[1], props), g) for g in g_tqs]
 
@@ -935,8 +957,10 @@ def pmsm_fused_closed_loop(env, init_state, policy, n_steps: int, obs_stride: in
     The policy sees :meth:`PMSM.generate_observation`'s columns (normalized
     ``i_d, i_q, omega_el, torque``, raw ``cos/sin eps``, normalized buffers),
     then the normalized tracked references and, with ``sched_lut``, the
-    scheduled channels.  Its action is constrained into the hexagon and
-    applied with :meth:`PMSM.step`'s deadtime semantics.
+    scheduled channels (without it, the schedule the policy holds, as
+    :func:`~exciting_environments_torch.utils.foc.make_pmsm_saturated_sensorless_current_tile`'s
+    tile does).  Its action is constrained into the hexagon and applied with
+    :meth:`PMSM.step`'s deadtime semantics.
 
     Returns ``(obs, final_state)``, or with ``obs_stride`` ``(obs_traj,
     actions_traj, final_state)`` with ``obs_traj`` ``(B, n_saves, obs_dim)``
@@ -956,6 +980,8 @@ def pmsm_fused_closed_loop(env, init_state, policy, n_steps: int, obs_stride: in
     env = with_env_properties(env, env_properties)
     if return_traj_states and obs_stride is None:
         raise ValueError("return_traj_states requires obs_stride")
+    if sched_lut is None:
+        sched_lut = getattr(policy, "sched_lut", None)
     with annotate("ee.rollout.prepare"):
         scope = Key().env(env, env.env_properties, env._solver)
         if not PLANS.in_scope(scope, lambda: supports_pmsm_fused_closed_loop(env)):
@@ -968,9 +994,12 @@ def pmsm_fused_closed_loop(env, init_state, policy, n_steps: int, obs_stride: in
                 raise ValueError("sched_lut rides the saturated drive's LUT grid: construct the env with "
                                  "saturated=True and a motor variant with tables")
             lut = env._lut
-            if sched_lut.values.shape[1:] != (lut.nx, lut.ny):
-                raise ValueError(f"sched_lut values {sched_lut.values.shape[1:]} must live on the env LUT grid "
+            if sched_lut.values.shape[-2:] != (lut.nx, lut.ny):
+                raise ValueError(f"sched_lut values {sched_lut.values.shape[-2:]} must live on the env LUT grid "
                                  f"({lut.nx}, {lut.ny})")
+            if sched_lut.n_slices and tuple(sched_lut.slices.shape) != (env.batch_size,):
+                raise ValueError(f"sched_lut slices {tuple(sched_lut.slices.shape)} must hold one slice per drive "
+                                 f"({env.batch_size},)")
             if policy_carry is None:
                 raise ValueError("sched_lut indexes the gather by belief planes in the policy carry: pass policy_carry")
         props = env.env_properties

@@ -55,16 +55,30 @@ def bilinear_gather(values, x0, dx, y0, dy, nx, ny, px, py):
     working type, direct indexing of the four corners, and the blend summed
     left to right.
     """
+    return _bilinear(lambda i, j: values[:, i, j], x0, dx, y0, dy, nx, ny, px, py)
+
+
+def sliced_bilinear_gather(values, slices, x0, dx, y0, dy, nx, ny, px, py):
+    """:func:`bilinear_gather` from a stack of tables ``(n_slices, C, nx,
+    ny)``, each point from its own: ``slices`` is an integer tensor of the
+    points' shape.  The same operations in the same order."""
+    slices = slices.long()
+    return _bilinear(lambda i, j: values[slices, :, i, j].movedim(-1, 0), x0, dx, y0, dy, nx, ny, px, py)
+
+
+def _bilinear(corner, x0, dx, y0, dy, nx, ny, px, py):
+    """The gather's arithmetic, ``corner(ix, iy)`` giving the ``(C,) + S``
+    values of the cell corners."""
     fx = (px - x0) / dx
     fy = (py - y0) / dy
     ix = torch.clamp(torch.floor(fx), 0, nx - 2).long()
     iy = torch.clamp(torch.floor(fy), 0, ny - 2).long()
     wx = fx - ix
     wy = fy - iy
-    v00 = values[:, ix, iy]
-    v01 = values[:, ix, iy + 1]
-    v10 = values[:, ix + 1, iy]
-    v11 = values[:, ix + 1, iy + 1]
+    v00 = corner(ix, iy)
+    v01 = corner(ix, iy + 1)
+    v10 = corner(ix + 1, iy)
+    v11 = corner(ix + 1, iy + 1)
     return (
         v00 * (1 - wx) * (1 - wy)
         + v01 * (1 - wx) * wy
@@ -84,7 +98,11 @@ def interleave_channels(values: torch.Tensor) -> torch.Tensor:
     """A stacked ``(C, nx, ny)`` table as ``(nx, ny, C_pad)``: the channels of
     one grid point contiguous, zero-padded to :func:`padded_channels`.  The
     layout the PMSM closed-loop kernel gathers from (a few 16-byte loads per
-    cell corner in place of ``C`` scalar loads); the values are unchanged."""
+    cell corner in place of ``C`` scalar loads); the values are unchanged.
+    A stack of slices ``(S, C, nx, ny)`` becomes ``S`` such tables one after
+    the other, ``(S, nx, ny, C_pad)``."""
+    if values.ndim == 4:
+        return torch.stack([interleave_channels(v) for v in values])
     c, nx, ny = values.shape
     out = torch.zeros((nx, ny, padded_channels(c)), dtype=values.dtype, device=values.device)
     out[..., :c] = values.permute(1, 2, 0)
@@ -149,22 +167,45 @@ class ScheduledLUT:
     them to the observation the policy sees; the gain-scheduled sensorless
     tile (``utils/foc.py``) reads its Kalman gains and magnetics this way.
 
+    A fleet whose drives read different maps holds a stack of slices and
+    each drive's slice: ``values`` ``(S, C, nx, ny)`` and ``slices`` ``(B,)``
+    (the per-drive form of
+    :func:`~exciting_environments_torch.utils.foc.make_pmsm_saturated_sensorless_current_tile`,
+    one slice per distinct speed).
+
     Args:
         values: stacked channel maps ``(C, nx, ny)`` (numpy or a tensor) on
-            exactly the grid of the environment's ``_lut``.
+            exactly the grid of the environment's ``_lut``, or with
+            ``slices`` a stack of them ``(S, C, nx, ny)``.
         carry_idx: ``(c0, c1)``, the positions of the NORMALIZED belief
             currents ``(i_d, i_q)`` in the policy carry; the loop
             denormalizes them with the ``i_d``/``i_q`` observation bands.
+        slices: ``(B,)`` integer tensor, each drive's slice of ``values``
+            (held as int32 on its device), or ``None``.
     """
 
-    def __init__(self, values, carry_idx=(0, 1)):
+    def __init__(self, values, carry_idx=(0, 1), slices=None):
         if isinstance(values, torch.Tensor):
             values = values.detach().cpu().numpy()
         self.values = np.asarray(values, dtype=np.float64)
-        if self.values.ndim != 3:
-            raise ValueError("ScheduledLUT values must be (C, nx, ny)")
+        if self.values.ndim != (3 if slices is None else 4):
+            raise ValueError("ScheduledLUT values must be (C, nx, ny), or (S, C, nx, ny) with slices")
         self.carry_idx = (int(carry_idx[0]), int(carry_idx[1]))
+        self.slices = None
+        if slices is not None:
+            slices = torch.as_tensor(slices)
+            if slices.ndim != 1 or slices.dtype.is_floating_point or slices.dtype == torch.bool:
+                raise ValueError(f"ScheduledLUT slices must be a (B,) integer tensor, got {slices.dtype} "
+                                 f"{tuple(slices.shape)}")
+            if slices.numel() and not (0 <= int(slices.min()) and int(slices.max()) < self.values.shape[0]):
+                raise ValueError(f"ScheduledLUT slices must index the {self.values.shape[0]} slices of values")
+            self.slices = slices.to(torch.int32).contiguous()
         self._placed = {}
+
+    @property
+    def n_slices(self) -> int:
+        """The slices of a per-drive stack; 0 for one table."""
+        return 0 if self.slices is None else self.values.shape[0]
 
     def tensor(self, dtype: torch.dtype, device) -> torch.Tensor:
         """The maps as a contiguous tensor in ``dtype`` on ``device`` (copied
@@ -181,6 +222,24 @@ class ScheduledLUT:
         if key not in self._placed:
             self._placed[key] = interleave_channels(self.tensor(dtype, device))
         return self._placed[key]
+
+    def slice_plane(self, device) -> torch.Tensor:
+        """``slices`` on ``device`` (copied there once), or ``None``."""
+        if self.slices is None:
+            return None
+        key = ("slices", torch.device(device))
+        if key not in self._placed:
+            self._placed[key] = self.slices.to(device)
+        return self._placed[key]
+
+    def gather(self, dtype, device, lut, px, py):
+        """Every channel at the points ``(px, py)`` on ``lut``'s grid, each
+        drive from its own slice: ``(C,) + px.shape``."""
+        values = self.tensor(dtype, device)
+        if self.slices is None:
+            return bilinear_gather(values, lut.x0, lut.dx, lut.y0, lut.dy, lut.nx, lut.ny, px, py)
+        return sliced_bilinear_gather(values, self.slice_plane(device), lut.x0, lut.dx, lut.y0, lut.dy, lut.nx, lut.ny,
+                                      px, py)
 
 
 SATURATED_QUANTITIES = ("L_dd", "L_dq", "L_qd", "L_qq", "Psi_d", "Psi_q")

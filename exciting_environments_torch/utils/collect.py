@@ -28,7 +28,6 @@ import torch
 from exciting_environments_torch.core import structures
 from exciting_environments_torch.core.structures import dataclass
 from exciting_environments_torch.ops import random as prng
-from exciting_environments_torch.ops.lut import bilinear_gather
 from exciting_environments_torch.utils.profiling import annotate
 
 
@@ -53,8 +52,10 @@ def tile_policy_scan(env, state, n_steps, policy_tile, policy_params, collect_tr
     ``sched_lut`` (a :class:`~exciting_environments_torch.ops.lut.ScheduledLUT`
     on a saturated PMSM's grid) mirrors the PMSM closed loop's scheduled
     gather: its channels, gathered at the denormalized belief currents held
-    in the carry leaves ``sched_lut.carry_idx``, are appended to the
-    observation columns the policy sees.
+    in the carry leaves ``sched_lut.carry_idx`` (each drive from its own
+    slice of a per-drive stack), are appended to the observation columns the
+    policy sees; without it, those of the schedule the policy holds
+    (``policy_tile.sched_lut``), where it holds one.
 
     Returns ``(final_obs, final_state)``, or with ``collect_trajectory`` the
     batch-major ``(obs, actions, traj_states, final_state)`` with post-step
@@ -66,18 +67,18 @@ def tile_policy_scan(env, state, n_steps, policy_tile, policy_params, collect_tr
     obs = env.generate_observation(state, props)
     has_carry = policy_carry is not None
     sched_cols = None
+    if sched_lut is None:
+        sched_lut = getattr(policy_tile, "sched_lut", None)
     if sched_lut is not None:
         if not has_carry:
             raise ValueError("sched_lut requires a stateful policy (policy_carry)")
         lut, pn = env._lut, props.physical_normalizations
-        values = sched_lut.tensor(obs.dtype, obs.device)
         c0, c1 = sched_lut.carry_idx
 
         def sched_cols(pc):
             bi_d = (pc[c0] + 1) / 2 * (pn.i_d.max - pn.i_d.min) + pn.i_d.min
             bi_q = (pc[c1] + 1) / 2 * (pn.i_q.max - pn.i_q.min) + pn.i_q.min
-            vals = bilinear_gather(values, lut.x0, lut.dx, lut.y0, lut.dy, lut.nx, lut.ny, bi_d, bi_q)
-            return tuple(vals[c] for c in range(values.shape[0]))
+            return tuple(sched_lut.gather(obs.dtype, obs.device, lut, bi_d, bi_q).unbind(0))
     pc = tuple(policy_carry) if has_carry else ()
     if env._has_noise:
         eps_proc, eps_obs, keys_steps, _ = env._noise_slabs(env._require_noise_key(state), n_steps, 1)

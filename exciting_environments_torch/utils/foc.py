@@ -15,7 +15,7 @@ a :class:`~exciting_environments_torch.ops.policies.KernelPolicy` whose
   gathers from a :class:`~exciting_environments_torch.ops.lut.ScheduledLUT`
   at the belief currents every step.
 
-The tile factories linearize with ``torch.func`` in float64 on the CPU and iterate
+The tile factories linearize with autograd in float64 on the CPU and iterate
 the Riccati equation in numpy float64, as the JAX package's factories do.  The
 observer's process and sensor levels are the drive's own ``process_noise`` and
 ``observation_noise``, each field overridable by ``process_std=`` and
@@ -61,12 +61,18 @@ from exciting_environments_torch.core import structures
 from exciting_environments_torch.ops.kernels.stepper import _lincomb, _stage_rows
 from exciting_environments_torch.ops.lut import ScheduledLUT, bilinear_gather
 from exciting_environments_torch.ops.policies import KernelPolicy, KernelSpec, resolved_device
+from exciting_environments_torch.utils.profiling import annotate
 
 #: the stationary Kalman gains the tile factories solved in this process:
 #: ``solves`` (one per tile, however many chunks it runs) and ``drives`` (the
 #: instances they were solved for: one for a scalar solve, the fleet for a
 #: per-drive one)
 GAIN_SOLVES = {"solves": 0, "drives": 0}
+#: the gain schedules the saturated tile factory solved in this process:
+#: ``slices`` (one per distinct speed), ``points`` (grid points over those
+#: slices) and ``drives`` (one for a scalar tile, the fleet for a per-drive
+#: one)
+SCHEDULE_SOLVES = {"slices": 0, "points": 0, "drives": 0}
 
 _SENSOR_LEVELS = (
     "the observer needs current-sensor noise levels: configure observation_noise={'i_d': ..., 'i_q': ...} "
@@ -260,25 +266,49 @@ class SensorlessPolicy(_SensorlessBase):
 class ScheduledSensorlessPolicy(_SensorlessBase):
     """The tile of :func:`make_pmsm_saturated_sensorless_current_tile`: it
     reads the ten scheduled channels (six magnetics maps, four Kalman gains)
-    after the ``n_base`` standard columns; carry as :class:`SensorlessPolicy`."""
+    after the ``n_base`` standard columns; carry as :class:`SensorlessPolicy`.
+
+    Per drive (``per_drive``): the references ``i_d_ref``, ``i_q_ref``, the
+    feedforwards ``ff_d = r_s * i_d_ref``, ``ff_q`` and ``omega_el`` are
+    ``(B,)`` tensors, handed to the kernel as :data:`PLANES` (their slots
+    hold 0.0), and the schedule is a per-drive :class:`ScheduledLUT`.  The
+    tile holds its factory's schedule (``sched_lut``), which the closed loop
+    gathers where it is given none."""
 
     policy_id = 3
     SLOTS = ("SPAN_D", "MN_D", "SPAN_Q", "MN_Q", "BANDWIDTH", "INV_TI", "REF_D", "REF_Q", "FF_D", "FF_Q", "OMEGA",
              "U_LIM", "TAU", "TAU_TI", "AMN_D", "AINV_D", "AMN_Q", "AINV_Q", "ASPAN_D", "ASPAN_Q", "R_S",
              "INV_SPAN_D", "INV_SPAN_Q")
+    #: the per-drive tile's planes, in the order of ``ScheduledDriveLaw``'s
+    PLANES = ("REF_D", "REF_Q", "FF_D", "FF_Q", "OMEGA")
+    _PLANE_CONSTS = ("i_d_ref", "i_q_ref", "ff_d", "ff_q", "omega_el")
+
+    def __init__(self, consts: dict, n_obs: int, delayed: bool, sched_lut: ScheduledLUT = None):
+        super().__init__(consts, n_obs, delayed)
+        self.per_drive = "ff_d" in self.consts
+        self.sched_lut = sched_lut
 
     def _slot_values(self):
         c = self.consts
-        return {
+        out = {
             "SPAN_D": c["mx_d"] - c["mn_d"], "MN_D": c["mn_d"], "SPAN_Q": c["mx_q"] - c["mn_q"], "MN_Q": c["mn_q"],
-            "BANDWIDTH": c["bandwidth"], "INV_TI": 1.0 / c["t_i"], "REF_D": c["i_d_ref"], "REF_Q": c["i_q_ref"],
-            "FF_D": c["r_s"] * c["i_d_ref"], "FF_Q": c["r_s"] * c["i_q_ref"], "OMEGA": c["omega_el"],
+            "BANDWIDTH": c["bandwidth"], "INV_TI": 1.0 / c["t_i"],
             "U_LIM": c["u_lim"], "TAU": c["tau"], "TAU_TI": c["tau"] / c["t_i"],
             "AMN_D": c["amn_d"], "AINV_D": 1.0 / (c["amx_d"] - c["amn_d"]),
             "AMN_Q": c["amn_q"], "AINV_Q": 1.0 / (c["amx_q"] - c["amn_q"]),
             "ASPAN_D": c["amx_d"] - c["amn_d"], "ASPAN_Q": c["amx_q"] - c["amn_q"], "R_S": c["r_s"],
             "INV_SPAN_D": 1.0 / (c["mx_d"] - c["mn_d"]), "INV_SPAN_Q": 1.0 / (c["mx_q"] - c["mn_q"]),
         }
+        if self.per_drive:  # the functor reads these from the planes
+            return {**out, **dict.fromkeys(self.PLANES, 0.0)}
+        return {**out, "REF_D": c["i_d_ref"], "REF_Q": c["i_q_ref"], "FF_D": c["r_s"] * c["i_d_ref"],
+                "FF_Q": c["r_s"] * c["i_q_ref"], "OMEGA": c["omega_el"]}
+
+    def _planes(self):
+        return self._plane_sources()
+
+    def _plane_sources(self):
+        return tuple(self.consts[n] for n in self._PLANE_CONSTS) if self.per_drive else ()
 
     def forward(self, obs, t, carry, params=None):
         c = self.consts
@@ -286,6 +316,7 @@ class ScheduledSensorlessPolicy(_SensorlessBase):
         amn_d, amx_d, amn_q, amx_q = c["amn_d"], c["amx_d"], c["amn_q"], c["amx_q"]
         i_d_ref, i_q_ref, r_s, omega_el = c["i_d_ref"], c["i_q_ref"], c["r_s"], c["omega_el"]
         bandwidth, t_i, tau = c["bandwidth"], c["t_i"], c["tau"]
+        ff_d, ff_q = (c["ff_d"], c["ff_q"]) if self.per_drive else (r_s * i_d_ref, r_s * i_q_ref)
         n_base = self.n_obs - 10
         xh_d, xh_q, int_d, int_q = carry[:4]
         (l_dd, l_dq, l_qd, l_qq, psi_d, psi_q, k00, k01, k10, k11) = obs[n_base : n_base + 10]
@@ -303,8 +334,8 @@ class ScheduledSensorlessPolicy(_SensorlessBase):
         ki_q = kp_q / t_i
         e_d = i_d_ref - i_d
         e_q = i_q_ref - i_q
-        u_d_unsat = kp_d * e_d + int_d + r_s * i_d_ref - omega_el * psi_q
-        u_q_unsat = kp_q * e_q + int_q + r_s * i_q_ref + omega_el * psi_d
+        u_d_unsat = kp_d * e_d + int_d + ff_d - omega_el * psi_q
+        u_q_unsat = kp_q * e_q + int_q + ff_q + omega_el * psi_d
         # 3. inscribed-circle vector limit, back-calculation anti-windup
         scale = _vector_scale(u_d_unsat, u_q_unsat, c["u_lim"])
         u_d = u_d_unsat * scale
@@ -526,7 +557,111 @@ def make_pmsm_sensorless_current_tile(model, *, i_d_ref: float, i_q_ref: float, 
     return policy, _carry0(model, spans, aspans, deadtime)
 
 
-def make_pmsm_saturated_sensorless_current_tile(model, *, i_d_ref: float, i_q_ref: float, omega_el: float = None,
+def _inv2(M):
+    """The inverses of a stack of 2 x 2 matrices ``(..., 2, 2)``."""
+    a, b = M[..., 0, 0], M[..., 0, 1]
+    c, d = M[..., 1, 0], M[..., 1, 1]
+    det = a * d - b * c
+    out = np.empty_like(M)
+    out[..., 0, 0] = d / det
+    out[..., 0, 1] = -b / det
+    out[..., 1, 0] = -c / det
+    out[..., 1, 1] = a / det
+    return out
+
+
+def _schedule_gains(lut, lut_vals, spans, r_s, tau, omegas, Q, R, riccati_tol):
+    """The normalized Kalman-gain maps ``(S, 4, nx, ny)`` of the saturated
+    drive at each speed of ``omegas`` ``(S,)``: at every point of the LUT grid
+    the normalized one-Euler-step current map, linearized through
+    ``bilinear_gather`` (autograd, float64), and the per-point stationary
+    Riccati equation iterated to a step below ``riccati_tol``.
+    The map's Jacobian is affine in the speed, ``A0 + omega A1``: one speed
+    takes it at that speed, several take ``A0`` and ``A1`` once.  Every slice
+    and point is solved in one batch; a slice stops where its own step falls
+    below the tolerance, as a scalar solve at its speed would."""
+    (mn_d, mx_d), (mn_q, mx_q) = spans["i_d"], spans["i_q"]
+    gx = np.asarray(lut.x0) + np.asarray(lut.dx) * np.arange(lut.nx)
+    gy = np.asarray(lut.y0) + np.asarray(lut.dy) * np.arange(lut.ny)
+    gdn = 2.0 * (gx - mn_d) / (mx_d - mn_d) - 1.0
+    gqn = 2.0 * (gy - mn_q) / (mx_q - mn_q) - 1.0
+    pts = torch.as_tensor(np.stack([np.repeat(gdn, lut.ny), np.tile(gqn, lut.nx)], axis=-1))  # x-major
+
+    def jacobian(omega_el, speed_part=False):
+        """The pointwise map's ``(N, 2, 2)`` Jacobian at ``omega_el``, or
+        (``speed_part``) that of its term in ``omega_el`` per unit speed."""
+        def norm_step(xn):  # (N, 2) -> (N, 2), pointwise
+            i_d = (xn[:, 0] + 1.0) / 2.0 * (mx_d - mn_d) + mn_d
+            i_q = (xn[:, 1] + 1.0) / 2.0 * (mx_q - mn_q) + mn_q
+            vals = bilinear_gather(lut_vals, lut.x0, lut.dx, lut.y0, lut.dy, lut.nx, lut.ny, i_d, i_q)
+            l_dd, l_dq, l_qd, l_qq, psi_d, psi_q = (vals[c] for c in range(6))
+            det = l_dd * l_qq - l_dq * l_qd
+            inv_dd, inv_dq = l_qq / det, -l_dq / det
+            inv_qd, inv_qq = -l_qd / det, l_dd / det
+            if speed_part:
+                return torch.stack([2.0 * tau * (inv_dd * psi_q - inv_dq * psi_d) / (mx_d - mn_d),
+                                    2.0 * tau * (inv_qd * psi_q - inv_qq * psi_d) / (mx_q - mn_q)], dim=-1)
+            rhs_d = 0.0 - r_s * i_d + omega_el * psi_q
+            rhs_q = 0.0 - r_s * i_q - omega_el * psi_d
+            i_d1 = i_d + tau * (inv_dd * rhs_d + inv_dq * rhs_q)
+            i_q1 = i_q + tau * (inv_qd * rhs_d + inv_qq * rhs_q)
+            return torch.stack([2.0 * (i_d1 - mn_d) / (mx_d - mn_d) - 1.0,
+                                2.0 * (i_q1 - mn_q) / (mx_q - mn_q) - 1.0], dim=-1)
+
+        # the map is pointwise, so one pullback per output row gives that
+        # row of every point's 2x2 Jacobian
+        x = pts.clone().requires_grad_(True)
+        with torch.enable_grad():
+            out = norm_step(x)
+            rows = [torch.autograd.grad(out[:, i].sum(), x, retain_graph=True)[0] for i in range(2)]
+        return torch.stack(rows, dim=1).numpy()  # A[n, i, j] = d out_i / d in_j
+
+    n_s, n_p = len(omegas), pts.shape[0]
+    if n_s == 1:
+        A = jacobian(float(omegas[0]))[None]
+    else:
+        A = jacobian(0.0)[None] + np.asarray(omegas, dtype=np.float64)[:, None, None, None] * jacobian(1.0, True)[None]
+    At = np.swapaxes(A, -1, -2)
+    P = np.broadcast_to(Q, A.shape).copy()
+    live = np.ones(n_s, dtype=bool)
+    for _ in range(200_000):
+        Kp = P @ _inv2(P + R)
+        P_next = A @ (P - Kp @ P) @ At + Q
+        step = np.abs(P_next - P).reshape(n_s, -1).max(axis=1)
+        P = np.where(live[:, None, None, None], P_next, P)
+        live &= step >= riccati_tol
+        if not live.any():
+            break
+    else:
+        raise ValueError(
+            "per-grid-point stationary Riccati iteration did not converge - the Q/R configuration does not "
+            "admit stationary gains on this operating range (check the noise levels and q_floor)"
+        )
+    K = P @ _inv2(P + R)  # (S, N, 2, 2), normalized-coordinate gains
+    return K.reshape(n_s, lut.nx, lut.ny, 2, 2).transpose(0, 3, 4, 1, 2).reshape(n_s, 4, lut.nx, lut.ny)
+
+
+#: the most distinct speeds a per-drive schedule holds (one slice each)
+MAX_SCHEDULE_SLICES = 256
+
+
+def _drive_planes(model, who, **values):
+    """The per-drive form's operating point: each value a Python number or a
+    ``(B,)`` tensor on the model's dtype and device, as ``(B,)`` tensors."""
+    out = {}
+    for name, v in values.items():
+        if isinstance(v, torch.Tensor) and v.ndim != 0:
+            if (tuple(v.shape) != (model.batch_size,) or v.dtype != model.dtype
+                    or resolved_device(v.device) != resolved_device(model.device)):
+                raise ValueError(f"{who}: a per-drive {name} is a ({model.batch_size},) tensor of {model.dtype} on "
+                                 f"{model.device}; got {v.dtype} {tuple(v.shape)} on {v.device}")
+            out[name] = v.detach()
+        else:
+            out[name] = torch.full((model.batch_size,), float(v), dtype=model.dtype, device=model.device)
+    return out
+
+
+def make_pmsm_saturated_sensorless_current_tile(model, *, i_d_ref, i_q_ref, omega_el=None,
                                                 bandwidth: float = 2000.0, t_i: float = 5e-3,
                                                 process_std: dict = None, measurement_std: dict = None,
                                                 q_floor: float = 1e-6, riccati_tol: float = 1e-13):
@@ -534,8 +669,8 @@ def make_pmsm_saturated_sensorless_current_tile(model, *, i_d_ref: float, i_q_re
     inside the closed-loop kernel (``utils/foc.py:946`` of the JAX package).
 
     At every point of the drive's own LUT grid the normalized one-Euler-step
-    current map is linearized through ``bilinear_gather`` (``torch.func.vjp``,
-    float64) and the per-point stationary Riccati equation is iterated,
+    current map is linearized through ``bilinear_gather`` (autograd, float64)
+    and the per-point stationary Riccati equation is iterated,
     giving four Kalman-gain maps on the magnetics grid.  Stacked with the six
     magnetics maps they form the :class:`ScheduledLUT` that the closed loop
     gathers at the belief currents every step; the tile assimilates with the
@@ -543,11 +678,27 @@ def make_pmsm_saturated_sensorless_current_tile(model, *, i_d_ref: float, i_q_re
     L_diff``) with the saturated back-EMF feedforward, limits to the
     inscribed circle and predicts with one Euler step of the saturated ODE.
 
+    Per drive: where ``i_d_ref``, ``i_q_ref`` or ``omega_el`` is a ``(B,)``
+    tensor (on the model's dtype and device; the others then hold for every
+    drive), each drive runs at its own operating point.  The gain maps
+    depend on the speed through the observer's transition, so the schedule
+    is solved once for each DISTINCT speed (at most
+    :data:`MAX_SCHEDULE_SLICES`, all in one batch, the span
+    ``ee.sched.solve``, counted in :data:`SCHEDULE_SOLVES`) and the
+    :class:`ScheduledLUT` holds one slice of ten maps per speed, ``(S, 10,
+    nx, ny)``, with ``slices``, the ``(B,)`` int32 plane of each drive's
+    slice.  Each slice equals the scalar factory's maps at its speed: the
+    gains are exact at the speeds the fleet holds and are not interpolated
+    between them, so a fleet whose speeds lie on a grid keeps the slices
+    few.  The references, the feedforwards ``r_s * i_ref`` and the speed
+    reach the kernel as per-drive planes.
+
     Args:
         model: a saturated PMSM (LUT magnetics) with scalar properties,
             ``deadtime`` in {0, 1} and a one-stage solver.
-        i_d_ref, i_q_ref: current setpoints [A].
-        omega_el: frozen electrical speed [rad/s] (default mid-band).
+        i_d_ref, i_q_ref: current setpoints [A], numbers or ``(B,)``.
+        omega_el: frozen electrical speed [rad/s], a number or ``(B,)``
+            (default mid-band).
         bandwidth: current-loop bandwidth [rad/s].
         t_i: PI integral time [s].
         process_std, measurement_std: observer noise levels, as in
@@ -557,9 +708,13 @@ def make_pmsm_saturated_sensorless_current_tile(model, *, i_d_ref: float, i_q_re
 
     Returns:
         ``(policy, carry0, sched_lut)``: pass all three to the closed loop
-        (``policy_carry=carry0, sched_lut=sched_lut``); the carry is as in
+        (``policy_carry=carry0, sched_lut=sched_lut``; the policy holds
+        ``sched_lut`` too, which the closed loop reads where it is given
+        none, so ``FleetRunner.run_policy`` needs only the carry); the carry is as in
         :func:`make_pmsm_sensorless_current_tile` and
-        ``sched_lut.carry_idx == (0, 1)``.
+        ``sched_lut.carry_idx == (0, 1)``.  Per drive the policy's
+        ``per_drive`` is true and ``sched_lut.slices`` holds each drive's
+        slice.
     """
     who = "make_pmsm_saturated_sensorless_current_tile"
     props = model.env_properties
@@ -581,84 +736,44 @@ def make_pmsm_saturated_sensorless_current_tile(model, *, i_d_ref: float, i_q_re
     lut = model._lut
     lut_vals = lut.values.detach().cpu().to(torch.float64)
     spans, aspans = _spans(model, who)
-    omega_el = float(0.5 * (spans["omega_el"][0] + spans["omega_el"][1]) if omega_el is None else omega_el)
+    if omega_el is None:
+        omega_el = 0.5 * (spans["omega_el"][0] + spans["omega_el"][1])
+    per_drive = any(isinstance(v, torch.Tensor) and v.ndim != 0 for v in (i_d_ref, i_q_ref, omega_el))
     pnoise, mnoise = _noise_levels(model, process_std, measurement_std)
-    (mn_d, mx_d), (mn_q, mx_q) = spans["i_d"], spans["i_q"]
-
-    def phys_f(i_d, i_q, u_d, u_q):
-        vals = bilinear_gather(lut_vals, lut.x0, lut.dx, lut.y0, lut.dy, lut.nx, lut.ny, i_d, i_q)
-        l_dd, l_dq, l_qd, l_qq, psi_d, psi_q = (vals[c] for c in range(6))
-        det = l_dd * l_qq - l_dq * l_qd
-        inv_dd, inv_dq = l_qq / det, -l_dq / det
-        inv_qd, inv_qq = -l_qd / det, l_dd / det
-        rhs_d = u_d - r_s * i_d + omega_el * psi_q
-        rhs_q = u_q - r_s * i_q - omega_el * psi_d
-        return (inv_dd * rhs_d + inv_dq * rhs_q, inv_qd * rhs_d + inv_qq * rhs_q)
-
-    def norm_step(xn):  # (N, 2) -> (N, 2), pointwise
-        i_d = (xn[:, 0] + 1.0) / 2.0 * (mx_d - mn_d) + mn_d
-        i_q = (xn[:, 1] + 1.0) / 2.0 * (mx_q - mn_q) + mn_q
-        f_d, f_q = phys_f(i_d, i_q, 0.0, 0.0)
-        i_d1 = i_d + tau * f_d
-        i_q1 = i_q + tau * f_q
-        return torch.stack([2.0 * (i_d1 - mn_d) / (mx_d - mn_d) - 1.0, 2.0 * (i_q1 - mn_q) / (mx_q - mn_q) - 1.0],
-                           dim=-1)
-
-    gx = np.asarray(lut.x0) + np.asarray(lut.dx) * np.arange(lut.nx)
-    gy = np.asarray(lut.y0) + np.asarray(lut.dy) * np.arange(lut.ny)
-    gdn = 2.0 * (gx - mn_d) / (mx_d - mn_d) - 1.0
-    gqn = 2.0 * (gy - mn_q) / (mx_q - mn_q) - 1.0
-    pts = torch.as_tensor(np.stack([np.repeat(gdn, lut.ny), np.tile(gqn, lut.nx)], axis=-1))  # x-major
-    # the map is pointwise, so one pullback per output row gives that row of
-    # every point's 2x2 Jacobian
-    _, pullback = torch.func.vjp(norm_step, pts)
-    rows = []
-    for i in range(2):
-        e = torch.zeros_like(pts)
-        e[:, i] = 1.0
-        rows.append(pullback(e)[0])
-    A = torch.stack(rows, dim=1).numpy()  # (N, 2, 2): A[n, i, j] = d out_i / d in_j
-
     Q, R = _qr(spans, pnoise, mnoise, tau, q_floor)
-
-    def inv2(M):
-        a, b = M[:, 0, 0], M[:, 0, 1]
-        c, d = M[:, 1, 0], M[:, 1, 1]
-        det = a * d - b * c
-        out = np.empty_like(M)
-        out[:, 0, 0] = d / det
-        out[:, 0, 1] = -b / det
-        out[:, 1, 0] = -c / det
-        out[:, 1, 1] = a / det
-        return out
-
-    N = A.shape[0]
-    At = np.transpose(A, (0, 2, 1))
-    P = np.broadcast_to(Q, (N, 2, 2)).copy()
-    for _ in range(200_000):
-        Kp = P @ inv2(P + R[None])
-        P_next = A @ (P - Kp @ P) @ At + Q
-        if np.max(np.abs(P_next - P)) < riccati_tol:
-            P = P_next
-            break
-        P = P_next
-    else:
-        raise ValueError(
-            "per-grid-point stationary Riccati iteration did not converge - the Q/R configuration does not "
-            "admit stationary gains on this operating range (check the noise levels and q_floor)"
-        )
-    K = P @ inv2(P + R[None])  # (N, 2, 2), normalized-coordinate gains
-    k_maps = K.reshape(lut.nx, lut.ny, 2, 2).transpose(2, 3, 0, 1).reshape(4, lut.nx, lut.ny)
-    sched_lut = ScheduledLUT(np.concatenate([lut_vals.numpy(), k_maps], axis=0), carry_idx=(0, 1))
-
+    (mn_d, mx_d), (mn_q, mx_q) = spans["i_d"], spans["i_q"]
     (amn_d, amx_d), (amn_q, amx_q) = aspans["u_d"], aspans["u_q"]
     consts = dict(
         mn_d=mn_d, mx_d=mx_d, mn_q=mn_q, mx_q=mx_q, amn_d=amn_d, amx_d=amx_d, amn_q=amn_q, amx_q=amx_q,
-        i_d_ref=float(i_d_ref), i_q_ref=float(i_q_ref), r_s=r_s, omega_el=omega_el, bandwidth=float(bandwidth),
-        t_i=float(t_i), tau=tau, u_lim=_u_lim(aspans, u_dc),
+        r_s=r_s, bandwidth=float(bandwidth), t_i=float(t_i), tau=tau, u_lim=_u_lim(aspans, u_dc),
     )
+    if per_drive:
+        planes = _drive_planes(model, who, i_d_ref=i_d_ref, i_q_ref=i_q_ref, omega_el=omega_el)
+        speeds, slices = torch.unique(planes["omega_el"], return_inverse=True)
+        if speeds.numel() > MAX_SCHEDULE_SLICES:
+            raise ValueError(f"{who}: the fleet holds {speeds.numel()} distinct speeds, and a per-drive schedule "
+                             f"holds at most {MAX_SCHEDULE_SLICES} (one slice of ten maps per speed): put the "
+                             "drives' speeds on a grid")
+        omegas = speeds.detach().cpu().to(torch.float64).numpy()
+        # the feedforwards as the plain tile would compute them on the planes
+        consts.update(planes, ff_d=r_s * planes["i_d_ref"], ff_q=r_s * planes["i_q_ref"])
+    else:
+        omegas = np.array([float(omega_el)])
+        consts.update(i_d_ref=float(i_d_ref), i_q_ref=float(i_q_ref), omega_el=float(omega_el))
+    with annotate("ee.sched.solve"):
+        k_maps = _schedule_gains(lut, lut_vals, spans, r_s, tau, omegas, Q, R, riccati_tol)
+    SCHEDULE_SOLVES["slices"] += len(omegas)
+    SCHEDULE_SOLVES["points"] += k_maps[0, 0].size * len(omegas)
+    SCHEDULE_SOLVES["drives"] += model.batch_size if per_drive else 1
+    magnetics = np.broadcast_to(lut_vals.numpy(), (len(omegas),) + tuple(lut_vals.shape))
+    values = np.concatenate([magnetics, k_maps], axis=1)
+    if per_drive:
+        sched_lut = ScheduledLUT(values, carry_idx=(0, 1), slices=slices.to(torch.int32))
+    else:
+        sched_lut = ScheduledLUT(values[0], carry_idx=(0, 1))
+
     n_base = 8 + len(model.control_state)  # standard columns + tracked references
-    policy = ScheduledSensorlessPolicy(consts, n_base + 10, bool(deadtime))
+    policy = ScheduledSensorlessPolicy(consts, n_base + 10, bool(deadtime), sched_lut)
     return policy, _carry0(model, spans, aspans, deadtime), sched_lut
 
 
