@@ -697,13 +697,19 @@ def anatomy(row, lib, kernel_re, ms, entry_ms, batch, n_steps, entry_fn, kernel_
         f"point by CUDA events {ms!r} / {entry_ms!r} ms = {ms / entry_ms:.1%}; profiler: {traced}")
 
 
+#: 16-byte shared-memory loads of a step of the staged per-drive scheduled
+#: tile (row 4h): the magnetics gather's two a corner and the staged
+#: schedule's three, so its hot path passes the staged gather, not the
+#: device-memory fallback beside it
+STAGED_STEP_LDS = 4 * (2 + 3)
 #: the redesigned kernels' main cases: (rows, library, demangled-name regex
 #: or alternatives (this tree's name first, then an earlier tree's), the hot
 #: path's via alternatives, tried in turn).  Rows sharing an instantiation
 #: share an entry.  Step mode passes through the angle wrap (its 2 pi, or
 #: the fast wrap's 1 / (2 pi)), sim-ahead RK4 also reads the next action row
 #: (a second LDS in the tiled stepper), the scheduled tile gathers its maps
-#: (16-byte read-only loads, or the parent's scalar ones), the PMSM stepper
+#: (16-byte read-only loads, or the parent's scalar ones; per drive, the
+#: staged 16-byte shared-memory loads first), the PMSM stepper
 #: passes through its constraint's sector test (2/3 pi)
 SASS_CASES = [
     ("1a", "stepper", r"stepper_kernel<float, PendulumEnv<ExactMath>, 1[,>]", [(r"6\.2831854",), ()]),
@@ -725,7 +731,7 @@ SASS_CASES = [
     ("4c", "pmsm_closed_loop", r"pmsm_closed_loop_kernel<float, 1, true, ScheduledLaw>",
      [(r"^LDG\.E\.128\.CONSTANT",), (r"^LDG\.E\.CONSTANT",)]),
     ("4h", "pmsm_closed_loop", r"pmsm_closed_loop_kernel<float, 1, true, ScheduledDriveLaw>",
-     [(r"^LDG\.E\.128\.CONSTANT",), (r"^LDG\.E\.CONSTANT",)]),
+     [(r"^LDS\.128",) * STAGED_STEP_LDS, (r"^LDG\.E\.128\.CONSTANT",), (r"^LDG\.E\.CONSTANT",)]),
     ("5", "pendulum_fast", r"pendulum_fast_kernel", [(r"0\.1591549",), ()]),
     ("6", "pmsm_fast", r"pmsm_fast_kernel<float, true, 1>", [()]),
 ]
@@ -2132,6 +2138,7 @@ def phase_pcl_main(ex, PCL):
              lambda: per_drive(True), lambda: per_drive(False), check_drive,
              (denv, dtile.kernel_spec(torch.float32, DEVICE), B, T, 0, 6, 2, 10), T, "4h",
              "ScheduledDriveLaw", sass_case("4h")[2])
+    log(f"[pmsm closed loop main] per-drive sensorless: slice staging over the row's launches {PCL.SLICE_STAGING}")
 
     # D: the PI law collected with rewards and flags, a save every step
     collector = ex.RolloutCollector(env)

@@ -147,10 +147,12 @@ struct ScheduledLaw {
 // (ScheduledSensorlessPolicy with per_drive): the references, the
 // feedforwards r_s * i_ref and the speed come from the planes (B,)
 // ScheduledSensorlessPolicy.PLANES, and the drive gathers its own slice of
-// the schedule (one slice per distinct speed), loaded once per thread into
-// registers with the slice's base; every other constant from the slots.  It
-// reads i_d and i_q of the observation only (COLS_CURRENTS): a step builds
-// no torque, no cos/sin eps and no buffer column.  The law is ScheduledLaw's.
+// the schedule (one slice per distinct speed; the kernel stages a block's
+// slices in shared memory where its launch ordered the drives by slice),
+// loaded once per thread into registers with the slice's index; every other
+// constant from the slots.  It reads i_d and i_q of the observation only
+// (COLS_CURRENTS): a step builds no torque, no cos/sin eps and no buffer
+// column.  The law is ScheduledLaw's.
 struct ScheduledDriveLaw {
     static constexpr bool SCHEDULED = true;
     static constexpr bool SLICED = true;
@@ -160,16 +162,17 @@ struct ScheduledDriveLaw {
     template <typename T>
     struct Prepared {
         ScheduledLaw::OperatingPoint<T> op;
-        const T* sched;
+        int slice;  // the drive's slice of the schedule
+        int slot;   // its slot among the block's staged slices, or -1
     };
     template <typename T>
     __device__ __forceinline__ static Prepared<T> prepare(const PmsmClArgs& args, const T*, const T*) {
         // the thread's drive, as pmsm_closed_loop_kernel computes it
-        const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+        const long long b = drive_of(args, (long long)blockIdx.x * blockDim.x + threadIdx.x);
         const auto plane = [&](int i) { return static_cast<const T*>(args.policy_planes[i])[b]; };
-        Prepared<T> p{{plane(P_REF_D), plane(P_REF_Q), plane(P_FF_D), plane(P_FF_Q), plane(P_OMEGA)},
-                      static_cast<const T*>(args.sched) +
-                          (long long)static_cast<const int*>(args.sched_slices)[b] * args.slice_elems};
+        const int slice = static_cast<const int*>(args.sched_slices)[b];
+        Prepared<T> p{{plane(P_REF_D), plane(P_REF_Q), plane(P_FF_D), plane(P_FF_Q), plane(P_OMEGA)}, slice,
+                      staged_slot(args, slice)};
         keep(p.op.ref_d);
         keep(p.op.ref_q);
         keep(p.op.ff_d);

@@ -59,20 +59,33 @@
 // ny, 8): each corner of a gather is two 16-byte loads from one address
 // (ops/lut.py::interleave_channels, 47,488 B for BRUSA in float32, four
 // 128-thread blocks per SM).  The scheduled maps (10 channels, 71,232 B
-// interleaved to 12) are read from device memory through the read-only
-// data cache, three 16-byte loads per corner; a fleet near its setpoints
-// gathers a few cells, which stay in L1.  Per drive the schedule is one such
+// interleaved to 12) are gathered in three 16-byte loads per corner.  One
+// table for the fleet (ScheduledLaw) is read from device memory through the
+// read-only data cache; a fleet near its setpoints gathers a few cells,
+// which stay in L1.  Per drive (ScheduledDriveLaw) the schedule is one such
 // table per distinct speed, one after the other, and a drive gathers from
-// its own (args.sched_slices, args.slice_elems).  Per step there is one sincosf
-// per distinct angle (the observation's and the hexagon's, with cos(-x) ==
-// cos(x) and sin(-x) == -sin(x), which the card checked for every float32
-// |x| < 2^7; float64 keeps the literal calls), no fmod loop (floored_mod's
-// exact fast path), and the run-time constants (the sector rotations in
-// shared memory, the angle's advance and rate, the tableau, the step size)
-// are computed once.  Slabs are read time-major (T, B, n) and saves written
-// time-major (n_saves, B); any B works (the ragged edge is masked).  The
-// TPU kernel's (8, 128) tiles, time chunks, revisited output blocks, VMEM
-// budgets, SMEM scalar tree and one-hot gathers have no counterpart.
+// its own (args.sched_slices, args.slice_elems); 32 slices are 2.3 MB, which
+// a fleet spread over them would read from L2 at every step.  So its launch
+// orders the drives by slice once per launch plan (args.perm: thread
+// position p serves drive perm[p], a stable sort), sizes the blocks so that
+// the fleet is one wave (512 threads, one block an SM at B = 65,536) and
+// has each block copy the slices its range spans (args.block_slices, up to
+// n_staged of them: two BRUSA slices beside the table, 190 KB) into shared
+// memory after the rotations.  A drive whose slice is staged gathers from shared
+// memory, any other from device memory as before (many small slices, a slice
+// larger than what the table leaves, as in float64, or no tiling).  Each
+// drive's arithmetic and table values are the same on either path; only the
+// thread that runs it and where its loads come from change.  Per step there is
+// one sincosf per distinct angle (the observation's and the hexagon's, with
+// cos(-x) == cos(x) and sin(-x) == -sin(x), which the card checked for every
+// float32 |x| < 2^7; float64 keeps the literal calls), no fmod loop
+// (floored_mod's exact fast path), and the run-time constants (the sector
+// rotations in shared memory, the angle's advance and rate, the tableau, the
+// step size) are computed once.  Slabs are read time-major (T, B, n) and saves
+// written time-major (n_saves, B); any B works (the ragged edge is
+// masked).  The TPU kernel's (8, 128) tiles, time chunks, revisited output
+// blocks, VMEM budgets, SMEM scalar tree and one-hot gathers have no
+// counterpart.
 //
 // A functor names the observation columns it reads (COLUMNS), and the step
 // builds no other.  The affine law has two instantiations.  AffineAdapter
@@ -192,6 +205,11 @@ struct PmsmClArgs {
     long long slice_elems;             // elements of one slice of sched (nx * ny * 12)
     int n_planes;                      // 0 or MAX_POLICY_PLANES
     int n_slices;                      // slices of sched (0: one table)
+    // the staged path of a SLICED functor (ops/kernels/pmsm_closed_loop.py::slice_tiling)
+    const void* perm;                  // (B,) int32: thread position p serves drive perm[p], or null
+    const void* block_slices;          // (blocks, n_staged) int32: the slices a block stages, -1 for none
+    int n_staged;                      // slices a block stages in shared memory (0: none, the global path)
+    int block_threads;                 // threads of a block on the staged path (0: THREADS)
     int affine_columns;                // AffinePolicy: COLS_ALL or COLS_CURRENTS (pmsm_closed_loop/affine.cu)
 };
 
@@ -214,6 +232,26 @@ __host__ __device__ constexpr bool column_read(int cols, int i) {
 
 struct Unprepared {};
 
+// A SCHEDULED functor with SLICED gathers its drive's own slice of the
+// schedule: its launch may order the drives by slice and stage each block's
+// slices in shared memory (the kernel's staged path)
+template <class Policy>
+__host__ __device__ constexpr bool sliced() {
+    if constexpr (Policy::SCHEDULED)
+        return Policy::SLICED;
+    else
+        return false;
+}
+
+// Threads of a block: THREADS, or up to SLICED_THREADS on a SLICED functor's
+// staged path in float32 (one block an SM; float64 keeps THREADS)
+static constexpr int THREADS = 128;
+static constexpr int SLICED_THREADS = 512;
+template <typename T, class Policy>
+struct BlockShape {
+    static constexpr int MAX_THREADS = sliced<Policy>() && sizeof(T) == 4 ? SLICED_THREADS : THREADS;
+};
+
 template <class Policy, typename T>
 __device__ __forceinline__ auto prepare_policy(const PmsmClArgs& args, const T* pp, const T* c) {
     if constexpr (Policy::PREPARES)
@@ -222,14 +260,29 @@ __device__ __forceinline__ auto prepare_policy(const PmsmClArgs& args, const T* 
         return Unprepared{};
 }
 
-// The scheduled maps a thread gathers from: the launch's one table, or for a
-// SCHEDULED functor with SLICED its drive's slice (the base its prepare keeps)
+// The scheduled maps a thread gathers from in device memory: the launch's one
+// table, or for a SLICED functor its drive's slice (the index its prepare keeps)
 template <class Policy, typename T, class Prepared>
 __device__ __forceinline__ const T* sched_table(const PmsmClArgs& args, const Prepared& pol) {
-    if constexpr (Policy::SCHEDULED) {
-        if constexpr (Policy::SLICED) return pol.sched;
-    }
-    return static_cast<const T*>(args.sched);
+    if constexpr (sliced<Policy>())
+        return static_cast<const T*>(args.sched) + (long long)pol.slice * args.slice_elems;
+    else
+        return static_cast<const T*>(args.sched);
+}
+
+// The drive at thread position p: p, or on the staged path the drive the
+// launch's permutation puts there (a SLICED functor's launch)
+__device__ __forceinline__ long long drive_of(const PmsmClArgs& args, long long p) {
+    return args.perm != nullptr ? (long long)static_cast<const int*>(args.perm)[p] : p;
+}
+
+// The slot of slice s among the slices this block staged, or -1
+__device__ __forceinline__ int staged_slot(const PmsmClArgs& args, int s) {
+    const int* slots = static_cast<const int*>(args.block_slices) + (long long)blockIdx.x * args.n_staged;
+    int slot = -1;
+    for (int j = 0; j < args.n_staged; ++j)
+        if (__ldg(slots + j) == s) slot = j;
+    return slot;
 }
 
 // utils/rl_fused.py::ActorPolicy on the drive's observation (eight columns,
@@ -346,14 +399,37 @@ __device__ __forceinline__ void hex_constrain(const Bands<T>& k, const T* rot, T
 #define MAX_SCHED_PAD 12
 
 // Dynamic shared memory of one block, in elements of T: the interleaved
-// magnetics table (16-byte aligned, first), the policy's flat parameters and
-// the 16 sector rotations.
+// magnetics table (16-byte aligned, first), the policy's flat parameters,
+// the 16 sector rotations and, on the staged path, the block's slices of the
+// schedule (16-byte aligned, slot after slot).
 __host__ __device__ __forceinline__ size_t lut_elems(const PmsmClArgs& args, bool sat) {
     return sat ? (size_t)N_CHANNELS_PAD * args.nx * args.ny : 0;
 }
+// The staged slices start after the rotations, at the next 16-byte boundary
+template <typename T>
+__host__ __device__ __forceinline__ size_t staged_offset(const PmsmClArgs& args, bool sat) {
+    const size_t n = lut_elems(args, sat) + (size_t)args.n_pp + 16;
+    return (n + Vec16<T>::N - 1) / Vec16<T>::N * Vec16<T>::N;
+}
+template <typename T>
+__device__ __forceinline__ T* staged_slices(unsigned char* smem_raw, const PmsmClArgs& args, bool sat) {
+    return reinterpret_cast<T*>(smem_raw) + staged_offset<T>(args, sat);
+}
+
+// Copy n elements of T in 16-byte pieces (n a multiple of Vec16<T>::N), the
+// block's threads in turn
+template <typename T>
+__device__ __forceinline__ void copy_block(T* dst, const void* src, size_t n) {
+    using V = typename Vec16<T>::type;
+    const V* from = static_cast<const V*>(src);
+    V* to = reinterpret_cast<V*>(dst);
+    const int nv = (int)(n / Vec16<T>::N);
+    for (int i = threadIdx.x; i < nv; i += blockDim.x) to[i] = from[i];
+}
 
 template <typename T, int NS, bool SAT, class Policy>
-__global__ void __launch_bounds__(128) pmsm_closed_loop_kernel(const __grid_constant__ PmsmClArgs args) {
+__global__ void __launch_bounds__(BlockShape<T, Policy>::MAX_THREADS)
+    pmsm_closed_loop_kernel(const __grid_constant__ PmsmClArgs args) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     T* lut = reinterpret_cast<T*>(smem_raw);
     T* pp = lut + lut_elems(args, SAT);
@@ -370,10 +446,24 @@ __global__ void __launch_bounds__(128) pmsm_closed_loop_kernel(const __grid_cons
             V* dst = reinterpret_cast<V*>(lut);
             for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = tab[i];
         }
+        if constexpr (sliced<Policy>()) {
+            // the block's slices of the schedule, slot after slot
+            T* stage = staged_slices<T>(smem_raw, args, SAT);
+            const int* slots = static_cast<const int*>(args.block_slices) + (long long)blockIdx.x * args.n_staged;
+            for (int j = 0; j < args.n_staged; ++j) {
+                const int s = slots[j];
+                if (s >= 0)
+                    copy_block(stage + (size_t)j * args.slice_elems,
+                               static_cast<const T*>(args.sched) + (long long)s * args.slice_elems,
+                               (size_t)args.slice_elems);
+            }
+        }
         __syncthreads();
     }
-    const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    // the thread's drive: its position, or on the staged path perm's drive there
+    long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (b >= args.batch) return;
+    if constexpr (sliced<Policy>()) b = drive_of(args, b);
     const long long batch = args.batch;
 
     const Drive<T> k = prepare<T>(args, b);  // pmsm_drive.cuh
@@ -491,7 +581,16 @@ __global__ void __launch_bounds__(128) pmsm_closed_loop_kernel(const __grid_cons
             }
             const T bi_d = (bc0 + T(1)) * (T)0.5 * bd.obs_dspan[0] + bd.obs_dlo[0];
             const T bi_q = (bc1 + T(1)) * (T)0.5 * bd.obs_dspan[1] + bd.obs_dlo[1];
-            gather_il<MAX_SCHED, MAX_SCHED_PAD, true>(sched, k, bi_d, bi_q, sv);
+            if constexpr (sliced<Policy>()) {
+                // the drive's slice from shared memory where its block staged it
+                if (pol.slot >= 0)
+                    gather_il<MAX_SCHED, MAX_SCHED_PAD, false>(
+                        staged_slices<T>(smem_raw, args, SAT) + (long long)pol.slot * args.slice_elems, k, bi_d, bi_q, sv);
+                else
+                    gather_il<MAX_SCHED, MAX_SCHED_PAD, true>(sched, k, bi_d, bi_q, sv);
+            } else {
+                gather_il<MAX_SCHED, MAX_SCHED_PAD, true>(sched, k, bi_d, bi_q, sv);
+            }
         }
 
         // 4. the policy
@@ -580,12 +679,23 @@ __global__ void __launch_bounds__(128) pmsm_closed_loop_kernel(const __grid_cons
 // Host entry point (plain C interface, loaded with ctypes)
 // ---------------------------------------------------------------------------
 
-static constexpr int THREADS = 128;
 static constexpr size_t STATIC_SMEM_LIMIT = 48 * 1024;
 
 template <typename T, int NS, bool SAT, class Policy>
 static int launch_one(const PmsmClArgs& args, cudaStream_t stream) {
-    const size_t smem = (lut_elems(args, SAT) + (size_t)args.n_pp + 16) * sizeof(T);
+    // a SLICED functor's staged path: the host's slice tiling (perm,
+    // block_slices) sizes the blocks and the slices each stages
+    int threads = THREADS;
+    size_t smem = (lut_elems(args, SAT) + (size_t)args.n_pp + 16) * sizeof(T);
+    if constexpr (sliced<Policy>()) {
+        if (args.block_threads > 0) {
+            if (args.perm == nullptr || args.block_slices == nullptr || args.n_staged < 1 ||
+                args.block_threads % 32 != 0 || args.block_threads > BlockShape<T, Policy>::MAX_THREADS)
+                return (int)cudaErrorInvalidValue;
+            threads = args.block_threads;
+            smem = (staged_offset<T>(args, SAT) + (size_t)args.n_staged * (size_t)args.slice_elems) * sizeof(T);
+        }
+    }
     if (smem > STATIC_SMEM_LIMIT) {
         // above 48 KB a launch is refused unless the kernel opts in
         const cudaError_t err = cudaFuncSetAttribute(pmsm_closed_loop_kernel<T, NS, SAT, Policy>,
@@ -595,8 +705,8 @@ static int launch_one(const PmsmClArgs& args, cudaStream_t stream) {
             return (int)err;
         }
     }
-    const unsigned blocks = (unsigned)((args.batch + THREADS - 1) / THREADS);
-    pmsm_closed_loop_kernel<T, NS, SAT, Policy><<<blocks, THREADS, smem, stream>>>(args);
+    const unsigned blocks = (unsigned)((args.batch + threads - 1) / threads);
+    pmsm_closed_loop_kernel<T, NS, SAT, Policy><<<blocks, threads, smem, stream>>>(args);
     return (int)cudaGetLastError();
 }
 

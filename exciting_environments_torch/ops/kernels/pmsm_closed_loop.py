@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -99,6 +100,22 @@ MAX_POLICY_PLANES = 5
 #: the observation columns that ``"affine_currents"`` builds no value for:
 #: the torque, cos/sin eps and the two buffers
 SKIPPED_COLUMNS = slice(3, N_BASE_OBS)
+#: threads of a block on the kernel's global path (its ``THREADS``)
+THREADS = 128
+#: slices of the schedule a block stages in shared memory at most (each
+#: drive looks its slice up among them once)
+MAX_STAGED = 4
+#: threads of a block on the staged path at most, by dtype (the kernel's
+#: ``BlockShape``): float32 one block of 16 warps an SM, as the global
+#: path's four of 128 threads; float64 the global path's 128
+STAGED_THREADS = {torch.float32: 512, torch.float64: 128}
+#: the per-drive scheduled tile's launches (``"scheduled_drive"``): through
+#: the staged path (the drives ordered by slice, each block's slices in
+#: shared memory) or the global path (every slice read from device memory);
+#: over all of them the blocks, the drives whose slice was staged, all
+#: drives, and the idle lanes in the last warp of each block's range
+SLICE_STAGING = dict.fromkeys(("staged_launches", "global_launches", "blocks", "staged_drives", "drives",
+                               "idle_lanes"), 0)
 
 _c_double = ctypes.c_double
 _c_void_p = ctypes.c_void_p
@@ -170,6 +187,10 @@ class PmsmClArgs(ctypes.Structure):
         ("slice_elems", ctypes.c_longlong),
         ("n_planes", _c_int),
         ("n_slices", _c_int),
+        ("perm", _c_void_p),
+        ("block_slices", _c_void_p),
+        ("n_staged", _c_int),
+        ("block_threads", _c_int),
         ("affine_columns", _c_int),
     ]
 
@@ -358,6 +379,75 @@ def plain_pmsm_closed_loop(env, state0, omega, policy, n_steps, *, tau, solver, 
 # ---------------------------------------------------------------------------
 
 
+class SliceTiling(NamedTuple):
+    """The staged path's launch shape (:func:`slice_tiling`)."""
+
+    perm: torch.Tensor  #: ``(B,)`` int32: thread position ``p`` serves drive ``perm[p]``
+    block_slices: torch.Tensor  #: ``(blocks, n_staged)`` int32: the slices each block stages, -1 for none
+    threads: int  #: threads of a block
+    staged: int  #: drives whose slice their block stages
+
+    @property
+    def blocks(self) -> int:
+        return self.block_slices.shape[0]
+
+    @property
+    def n_staged(self) -> int:
+        return self.block_slices.shape[1]
+
+
+def slice_tiling(slices, n_slices, slice_bytes, free_bytes, n_sm, max_threads=STAGED_THREADS[torch.float32]):
+    """How the per-drive scheduled tile's launch stages its schedule:
+    ``slices`` ``(B,)`` holds each drive's slice of ``n_slices`` of
+    ``slice_bytes`` each, ``free_bytes`` is the shared memory a block has
+    after the magnetics table, the flat parameters and the rotations, and
+    ``n_sm`` the card's SMs.
+
+    The drives are sorted by slice, stably (``perm``).  Blocks of
+    ``threads`` (whole warps, at most ``max_threads``: the fewest that make
+    the fleet one wave over ``n_sm``) cover contiguous ranges of that order,
+    with no range padded to a slice's end.  Each block stages the slices
+    that hold most of its drives (the lower slice first on a tie), as many
+    as fit ``free_bytes`` (at most :data:`MAX_STAGED`) and no more than a
+    block spans; a drive of any other slice reads it from device memory.
+    ``None`` where not one slice fits: the launch takes the global path.
+    Computed on the slices' device, with two reads back to the host."""
+    batch = slices.shape[0]
+    fit = min(MAX_STAGED, free_bytes // slice_bytes) if slice_bytes > 0 else 0
+    if fit <= 0 or batch == 0:
+        return None
+    per_sm = -(-batch // n_sm)
+    threads = min(max_threads, max(32, -(-per_sm // 32) * 32))
+    blocks = -(-batch // threads)
+    device = slices.device
+    by_slice, order = torch.sort(slices, stable=True)
+    block = torch.arange(batch, device=device) // threads
+    counts = torch.bincount(block * n_slices + by_slice.long(), minlength=blocks * n_slices).view(blocks, n_slices)
+    n_staged = min(fit, int((counts > 0).sum(1).max()))
+    # most drives first, then the lower slice: every score of a row differs
+    score = counts * n_slices + (n_slices - 1 - torch.arange(n_slices, device=device))
+    top = score.topk(n_staged, dim=1).indices
+    held = counts.gather(1, top)
+    block_slices = torch.where(held > 0, top, -1).to(torch.int32).contiguous()
+    return SliceTiling(order.to(torch.int32), block_slices, threads, int(held.sum()))
+
+
+def _count_staging(tiling: SliceTiling | None, batch: int):
+    """Count one launch of the per-drive scheduled tile in
+    :data:`SLICE_STAGING`: ``tiling`` ``None`` for the global path.  Either
+    path's blocks are whole warps over contiguous ranges, so only the last
+    block's last warp has idle lanes."""
+    if tiling is None:
+        SLICE_STAGING["global_launches"] += 1
+        SLICE_STAGING["blocks"] += -(-batch // THREADS)
+    else:
+        SLICE_STAGING["staged_launches"] += 1
+        SLICE_STAGING["blocks"] += tiling.blocks
+        SLICE_STAGING["staged_drives"] += tiling.staged
+    SLICE_STAGING["drives"] += batch
+    SLICE_STAGING["idle_lanes"] += -batch % 32
+
+
 def kernel_variant(policy, policy_params=None) -> str:
     """The instantiation a launch of ``policy`` (a family of :data:`FAMILIES`)
     takes (:data:`VARIANTS`).  An :class:`~exciting_environments_torch.ops.policies.AffinePolicy`
@@ -446,7 +536,9 @@ def kernel_pmsm_closed_loop(env, state0, omega, policy, n_steps, *, tau, solver,
     spec, and writes only the per-chunk pointers into a copy of the plan's
     struct: the kernel gets the same bytes as from the full path, and the
     same instantiation (:func:`kernel_variant`, counted in
-    :data:`VARIANT_LAUNCHES`)."""
+    :data:`VARIANT_LAUNCHES`).  The per-drive scheduled tile's plan also
+    keeps its slice tiling (:func:`slice_tiling`, counted in
+    :data:`SLICE_STAGING`), so the drives are sorted by slice once a plan."""
     state0 = tuple(state0)
     dtype, device = state0[0].dtype, state0[0].device
     batch = state0[0].shape[0]
@@ -461,9 +553,11 @@ def kernel_pmsm_closed_loop(env, state0, omega, policy, n_steps, *, tau, solver,
     leaves = (*state0, omega, *ref_leaves, *carry0)
 
     def launch(args, extra):
-        variant, detail = extra
+        variant, detail, *tiling = extra  # the per-drive scheduled tile's slice tiling, or None
         PMSM_CL_KERNEL.launch(args, dtype, device, "pmsm_closed_loop", detail=f" ({variant} instantiation){detail}")
         VARIANT_LAUNCHES[variant] += 1
+        if variant == "scheduled_drive":
+            _count_staging(tiling[0], batch)
 
     outputs, spec = PLANS.launch(
         key, leaves, ((obs_noise_tm, (n_steps, batch, len(obs_noise_cols))),
@@ -623,6 +717,23 @@ def kernel_pmsm_closed_loop(env, state0, omega, policy, n_steps, *, tau, solver,
         args.sched_slices = ptr(slices)
         args.n_slices = sched_lut.n_slices
         args.slice_elems = sched_table[0].numel()
+    variant = kernel_variant(policy, policy_params)
+    tiling = None
+    if variant == "scheduled_drive":
+        # the staged path: the drives ordered by slice, each block's slices
+        # after the rotations (16-byte aligned), where one fits (the global
+        # path where none does)
+        card = torch.cuda.get_device_properties(device)
+        limit = min(MAX_DYNAMIC_SMEM, getattr(card, "shared_memory_per_block_optin", MAX_DYNAMIC_SMEM))
+        slice_bytes = sched_table[0].numel() * sched_table.element_size()
+        staged_at = -(-smem_bytes // 16) * 16
+        tiling = slice_tiling(slices, sched_lut.n_slices, slice_bytes, limit - staged_at, card.multi_processor_count,
+                              STAGED_THREADS[dtype])
+    if tiling is not None:
+        tables += [tiling.perm, tiling.block_slices]
+        args.perm, args.block_slices = ptr(tiling.perm), ptr(tiling.block_slices)
+        args.n_staged, args.block_threads = tiling.n_staged, tiling.threads
+        smem_bytes = staged_at + tiling.n_staged * slice_bytes
     for i, plane in enumerate(spec.planes):
         args.policy_planes[i] = ptr(plane)
     args.n_planes = len(spec.planes)
@@ -643,13 +754,15 @@ def kernel_pmsm_closed_loop(env, state0, omega, policy, n_steps, *, tau, solver,
         else:
             setattr(args, name, value)
     args.traj_stride = traj_stride or 0
-    variant = kernel_variant(policy, policy_params)
     args.affine_columns = int(variant == "affine_currents")
     static = PmsmClArgs.from_buffer_copy(args)
 
     outputs, chunk_keep = _chunk_args(args, state0, omega, carry0, ref_leaves, obs_noise_tm, proc_noise_tm, n_steps,
                                       traj_stride)
-    extra = (variant, f" (dynamic shared memory asked: {smem_bytes} B)")
+    detail = f" (dynamic shared memory asked: {smem_bytes} B)"
+    if tiling is not None:
+        detail += f" (staged: {tiling.blocks} blocks of {tiling.threads} threads, {tiling.n_staged} slices a block)"
+    extra = (variant, detail, tiling)
     launch(args, extra)
     PLANS.missed(key, static, policy, ptr, grads=static_grads, hold=tables, extra=extra)
     return outputs

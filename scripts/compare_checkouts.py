@@ -48,6 +48,20 @@ Cases:
     machine's PI law with ``u_dc = 400`` (2f) over T = 4,096.  Medians of 11
     timings of ``kernel_closed_loop``.
 
+``sched_ladder``
+    The PMSM closed-loop kernel (``csrc/pmsm_closed_loop.cu``) with the
+    gain-scheduled sensorless tile of ``utils/foc.py`` at the benchmark cell
+    ``pmsm-brusa-sched-sensorless-fleet-t2048``'s size, float32, B = 65,536,
+    T = 2,048, from drawn starts with a cold observer: the scalar tile at one
+    operating point (500 rad/s, -100 A, 50 A; ``ScheduledLaw``), and the
+    per-drive tile (``ScheduledDriveLaw``) at that point, over one slice with
+    the references spread, over 32 speed slices at one reference, and over 32
+    slices with the references spread (the cell's case; speeds over 0..1,000
+    rad/s, references over -200..-10 A and -150..150 A).  Medians of 5
+    timings of ``kernel_pmsm_closed_loop``, and a digest of each case's
+    outputs, which every checkout of one semantics gives alike.  A checkout
+    that counts ``SLICE_STAGING`` prints it.
+
 ``no_grad_entries``
     The four exact kernels with no input that requires grad, at
     ``chip_smoke.py``'s main cases in float32, B = 65,536: the stepper on
@@ -232,12 +246,60 @@ def rings(cs, ex) -> dict:
     return {"ms": times}
 
 
+def sched_ladder(cs, ex) -> dict:
+    import torch
+    from exciting_environments_torch.ops.kernels import pmsm_closed_loop as PCL
+
+    T, n_speeds = 2048, 32
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    env = ex.PMSM(batch_size=B, saturated=True, motor_variant=ex.MotorVariant.BRUSA, tau=1e-4,
+                  control_state=["i_d", "i_q"], device="cuda")
+    draw = lambda lo, hi: (lo + (hi - lo) * torch.rand(B, generator=gen, device="cuda", dtype=torch.float64)).float()
+    speeds = torch.linspace(0.0, 1000.0, n_speeds, device="cuda")
+    spread_omega = speeds[torch.randint(0, n_speeds, (B,), generator=gen, device="cuda")]
+    spread_refs = (draw(-200.0, -10.0), draw(-150.0, 150.0))
+    full = lambda v: torch.full((B,), v, device="cuda")
+    point = (500.0, -100.0, 50.0)
+    cases = {
+        "scalar tile, one point": None,
+        "per drive, one point": (full(point[0]), (full(point[1]), full(point[2]))),
+        "per drive, one slice, references spread": (full(point[0]), spread_refs),
+        "per drive, 32 slices, one reference": (spread_omega, (full(point[1]), full(point[2]))),
+        "per drive, 32 slices, references spread (the cell)": (spread_omega, spread_refs),
+    }
+    sensors = {"i_d": 2.5, "i_q": 2.5}
+    pn = env.env_properties.physical_normalizations
+    times, digests = {}, {}
+    for name, case in cases.items():
+        omega, refs = case if case is not None else (full(point[0]), (full(point[1]), full(point[2])))
+        if case is None:
+            tile, carry0, sched = ex.make_pmsm_saturated_sensorless_current_tile(
+                env, i_d_ref=point[1], i_q_ref=point[2], omega_el=point[0], measurement_std=sensors)
+        else:
+            tile, carry0, sched = ex.make_pmsm_saturated_sensorless_current_tile(
+                env, i_d_ref=refs[0], i_q_ref=refs[1], omega_el=omega, measurement_std=sensors)
+        _, state0, _, _ = cs.pcl_inputs(env, gen, omega)
+        kw = dict(tau=env.tau, solver=env._solver, props=env.env_properties, policy_carry=carry0, sched_lut=sched,
+                  ref_leaves=(pn.i_d.normalize(refs[0]), pn.i_q.normalize(refs[1])))
+        call = lambda: PCL.kernel_pmsm_closed_loop(env, state0, omega, tile, T, **kw)
+        times[name] = cs.time_ms(call)
+        final, u_last, carry, _, _ = call()
+        digest = hashlib.sha256()
+        for leaf in (*final, *u_last, *carry):
+            digest.update(leaf.contiguous().cpu().numpy().tobytes())
+        digests[name] = digest.hexdigest()[:16]
+    staging = dict(getattr(PCL, "SLICE_STAGING", {}))
+    return {"digest": " ".join(f"{k[:24]}={v}" for k, v in digests.items()), "slice_staging": staging,
+            "ms": times}
+
+
 #: each case's kernel libraries and its run
 CASES = {
     "rings": (("stepper", "pendulum_fast"), rings),
     "closed_loops": (("closed_loop",), closed_loops),
     "fast_fleets": (("pmsm_fast",), fast_fleets),
     "no_grad_entries": (("stepper", "closed_loop", "pmsm_stepper", "pmsm_closed_loop"), no_grad_entries),
+    "sched_ladder": (("pmsm_closed_loop",), sched_ladder),
 }
 
 
@@ -291,7 +353,8 @@ def main() -> int:
             return 1
         run = json.loads(out.stdout.strip().splitlines()[-1])
         runs.append(run)
-        print(f"[run {i + 1}] {c}" + (f" digest {run['digest']}" if "digest" in run else ""), flush=True)
+        print(f"[run {i + 1}] {c}" + (f" digest {run['digest']}" if "digest" in run else "")
+              + (f" slice staging {run['slice_staging']}" if run.get("slice_staging") else ""), flush=True)
         for key, ms in run["ms"].items():
             print(f"    {key}: {ms!r} ms", flush=True)
     for key in runs[0]["ms"]:

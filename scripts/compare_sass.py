@@ -1,6 +1,6 @@
 """Compare the SASS that two checkouts compile from kernel translation units.
 
-    python3 scripts/compare_sass.py CHECKOUT_A CHECKOUT_B UNIT [UNIT ...]
+    python3 scripts/compare_sass.py [--diff N] CHECKOUT_A CHECKOUT_B UNIT [UNIT ...]
 
 Each CHECKOUT is a directory holding an ``exciting_environments_torch``
 package (a ``git archive`` of a commit, or the working tree); each UNIT a
@@ -10,13 +10,15 @@ of both checkouts is compiled to a cubin with the build's flags
 report), all ``nvcc`` processes started together, then disassembled with
 ``cuobjdump -sass``.  Per unit it prints the kernels found in both, how many
 of them differ (instructions compared with their addresses stripped) and the
-kernels found in one checkout only; the last line is one JSON object with
-the counts.  Exits 1 when a kernel found in both differs.  Needs the CUDA
+kernels found in one checkout only (with ``--diff N``, the first N lines
+of each differing kernel's unified diff); the last line is one JSON object
+with the counts.  Exits 1 when a kernel found in both differs.  Needs the CUDA
 toolkit, not a card.
 """
 
 from __future__ import annotations
 
+import difflib
 import json
 import re
 import subprocess
@@ -41,6 +43,9 @@ def sass_functions(cubin: Path) -> dict:
 
 
 def main(argv) -> int:
+    show = 0
+    if argv[:1] == ["--diff"]:
+        show, argv = int(argv[1]), argv[2:]
     if len(argv) < 3:
         print(__doc__, file=sys.stderr)
         return 2
@@ -75,8 +80,10 @@ def main(argv) -> int:
                              "only_b": len(set(b) - set(a))}
             print(f"{unit}: {len(both)} kernels in both, {len(changed)} differing; {len(set(a) - set(b))} only in "
                   f"A, {len(set(b) - set(a))} only in B", flush=True)
-            for name in changed[:5]:
-                print(f"  differs: {name}")
+            for name in changed:
+                print(f"  differs: {name}: {len(a[name])} -> {len(b[name])} instructions")
+                for line in list(difflib.unified_diff(a[name], b[name], lineterm="", n=1))[2:2 + show]:
+                    print(f"    {line}")
     print(json.dumps({"sass": results}))
     return 1 if differ else 0
 

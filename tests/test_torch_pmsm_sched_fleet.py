@@ -11,9 +11,12 @@ scalar tile built at each drive's speed and references, within 1e-10 (the
 scalar factory's fixed point stops at a step of 1e-13, not at its limit);
 the slices against the JAX package's scalar factory at two speeds; the
 refusals; the counter ``foc.SCHEDULE_SOLVES`` and the span
-``ee.sched.solve``; ``FleetRunner.run_policy`` with the schedule.  The tests
-marked ``gpu`` hold the kernel to the plain per-drive tile, 0.0, and row
-4c's scalar launch to its plain version.  Only the JAX comparison imports
+``ee.sched.solve``; ``FleetRunner.run_policy`` with the schedule; the staged
+launch's slice tiling (``pmsm_closed_loop.py::slice_tiling``) as a pure
+function.  The tests marked ``gpu`` hold the kernel to the plain per-drive
+tile, 0.0, on the global path and on the staged path (B = 65,536, with the
+counts of ``SLICE_STAGING``), a fleet run to one tiling a launch plan, and
+row 4c's scalar launch to its plain version.  Only the JAX comparison imports
 JAX, inside its test, so on the card the file runs with
 ``--noconftest``."""
 
@@ -222,6 +225,80 @@ def test_refusals():
         env.fused_closed_loop(state, tile, 2, policy_carry=c0, sched_lut=short)
 
 
+def _shared_memory(dtype):
+    """``(slice_bytes, free_bytes)`` of the per-drive tile's launch on the
+    BRUSA grid in ``dtype``: one interleaved slice of the schedule, and the
+    shared memory a block has left after the magnetics table, the tile's flat
+    slots and the 16 rotations, from the next 16-byte boundary."""
+    lut = _env(2)._lut
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    n_slots = len(foc.ScheduledSensorlessPolicy.SLOTS)
+    used = (lut.nx * lut.ny * 8 + n_slots + 16) * itemsize
+    return lut.nx * lut.ny * 12 * itemsize, PCL.MAX_DYNAMIC_SMEM - -(-used // 16) * 16
+
+
+def _slice_draw(batch, n_slices, weights=None, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    if weights is None:
+        return torch.randint(0, n_slices, (batch,), generator=gen, dtype=torch.int32)
+    return torch.multinomial(torch.as_tensor(weights, dtype=torch.float64), batch, replacement=True,
+                             generator=gen).to(torch.int32)
+
+
+#: name: (drives, slices, weights of the slices or None for uniform, dtype,
+#: SMs, (threads, blocks) expected, staged share expected: 1.0 every drive,
+#: "some" above 0 and below 1, None the global path)
+TILINGS = {
+    "cell": (65536, 32, None, torch.float32, 132, (512, 128), 1.0),
+    "200_slices": (65536, 200, None, torch.float32, 132, (512, 128), "some"),
+    "float64": (65536, 32, None, torch.float64, 132, None, None),
+    "uneven_ragged": (4141, 7, [1, 1, 1, 1, 1, 1, 300], torch.float32, 132, (32, 130), "some"),
+    "one_slice": (1000, 1, None, torch.float32, 132, (32, 32), 1.0),
+    "two_waves": (200000, 32, None, torch.float32, 132, (512, 391), 1.0),
+}
+
+
+@pytest.mark.parametrize("case", list(TILINGS))
+def test_the_slice_tiling_orders_every_drive_once_and_stages_what_fits(case):
+    """``slice_tiling`` as a pure function of the slice plane, the slice's
+    size, the free shared memory and the SM count: every drive once, ties in
+    drive order, each block's staged slices within its shared memory and
+    among the slices of its range, one wave where the fleet allows, and the
+    staged share recounted here from the blocks' ranges."""
+    batch, n_slices, weights, dtype, n_sm, shape, share = TILINGS[case]
+    slices = _slice_draw(batch, n_slices, weights)
+    slice_bytes, free_bytes = _shared_memory(dtype)
+    tiling = PCL.slice_tiling(slices, n_slices, slice_bytes, free_bytes, n_sm, PCL.STAGED_THREADS[dtype])
+    if share is None:
+        assert tiling is None and free_bytes < slice_bytes
+        return
+    perm = tiling.perm
+    assert perm.dtype == torch.int32 and torch.equal(perm.sort().values, torch.arange(batch, dtype=torch.int32))
+    ordered = slices[perm.long()]
+    assert bool((ordered[1:] >= ordered[:-1]).all())
+    ties = ordered[1:] == ordered[:-1]
+    assert bool((perm[1:][ties] > perm[:-1][ties]).all())
+    assert (tiling.threads, tiling.blocks) == shape and tiling.threads % 32 == 0
+    assert (tiling.blocks - 1) * tiling.threads < batch <= tiling.blocks * tiling.threads
+    if batch <= n_sm * PCL.STAGED_THREADS[dtype]:
+        assert tiling.blocks <= n_sm
+    assert 1 <= tiling.n_staged <= PCL.MAX_STAGED and tiling.n_staged * slice_bytes <= free_bytes
+    assert tiling.block_slices.dtype == torch.int32 and tiling.block_slices.is_contiguous()
+    staged = 0
+    for blk, row in enumerate(tiling.block_slices.tolist()):
+        mine = ordered[blk * tiling.threads:(blk + 1) * tiling.threads]
+        present = set(mine.tolist())
+        held = [s for s in row if s >= 0]
+        assert len(set(held)) == len(held) and set(held) <= present
+        assert len(held) == min(tiling.n_staged, len(present))
+        staged += sum(int((mine == s).sum()) for s in held)
+    assert tiling.staged == staged
+    if share == 1.0:
+        assert staged == batch
+    else:
+        assert 0 < staged < batch
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -263,6 +340,102 @@ def test_the_per_drive_kernel_is_the_plain_per_drive_tile(dtype, stride):
     want = _flat(PCL.plain_pmsm_closed_loop(env, state0, om, tile, T, **kw))
     assert all(bool(torch.isfinite(t).all()) for t in got)
     assert _max_abs(got, want) == 0.0
+
+
+@pytest.fixture(scope="module")
+def big_fleet():
+    """B = 65,536 float32 drives over 32 speeds drawn unevenly (slice s
+    weighs 1 + s), the tile solved once on the card."""
+    _cuda()
+    batch = 65536
+    env = _env(batch, torch.float32, "cuda")
+    i_d, i_q, _ = _operating_points(batch, (0.0,), torch.float32, "cuda", seed=11)
+    speeds = torch.linspace(0.0, 1000.0, 32, dtype=torch.float64)
+    pick = _slice_draw(batch, 32, [1 + s for s in range(32)], seed=12).long()
+    omega = speeds[pick].to(torch.float32).cuda()
+    tile, carry0, sched = foc.make_pmsm_saturated_sensorless_current_tile(
+        env, i_d_ref=i_d, i_q_ref=i_q, omega_el=omega, measurement_std=SENSORS)
+    return env, (i_d, i_q, omega), tile, carry0, sched
+
+
+def _spread_schedule(sched, n_slices, seed):
+    """``sched``'s slices copied out to ``n_slices`` slices, each drive moved
+    to a copy of its own slice: the same maps a drive, over many small
+    slices."""
+    n = sched.n_slices
+    values = np.concatenate([sched.values] * -(-n_slices // n))[:n_slices]
+    gen = torch.Generator().manual_seed(seed)
+    old = sched.slices.cpu().long()
+    copies = (n_slices - old + n - 1) // n  # copies of slice s below n_slices
+    moved = old + n * (torch.rand(old.shape, generator=gen, dtype=torch.float64) * copies).long()
+    return ScheduledLUT(values, sched.carry_idx, slices=moved.to(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_slices", [32, 200])
+@pytest.mark.parametrize("stride", [None, 1], ids=["finals", "saves"])
+def test_the_staged_kernel_is_the_plain_per_drive_tile(big_fleet, n_slices, stride):
+    """B = 65,536 over 32 uneven slices, and the same maps over 200 slices,
+    T = 64, float32: the staged launch equals the plain per-drive tile, 0.0,
+    and ``SLICE_STAGING`` counts one staged launch with the staged share
+    that ``slice_tiling`` gives for the card (a few drives read device
+    memory at 32 uneven slices, more at 200)."""
+    env, (i_d, i_q, omega), tile, carry0, sched = big_fleet
+    if n_slices != sched.n_slices:
+        sched = _spread_schedule(sched, n_slices, seed=13)
+    state0, om, kw = _loop_inputs(env, _start(env, i_d, i_q, omega, seed=14))
+    kw.update(policy_carry=carry0, sched_lut=sched, traj_stride=stride)
+    card = torch.cuda.get_device_properties("cuda")
+    slice_bytes, free_bytes = _shared_memory(torch.float32)
+    want_tiling = PCL.slice_tiling(sched.slices, n_slices, slice_bytes, free_bytes, card.multi_processor_count)
+    PCL.PLANS.clear()
+    before = dict(PCL.SLICE_STAGING)
+    got = _flat(PCL.kernel_pmsm_closed_loop(env, state0, om, tile, T, **kw))
+    torch.cuda.synchronize()
+    moved = {k: PCL.SLICE_STAGING[k] - before[k] for k in before}
+    assert moved == {"staged_launches": 1, "global_launches": 0, "blocks": want_tiling.blocks,
+                     "staged_drives": want_tiling.staged, "drives": env.batch_size, "idle_lanes": 0}
+    # slice 0 holds ~124 drives, so a few blocks span three slices at 32
+    share = want_tiling.staged / env.batch_size
+    assert (0.99 < share < 1.0) if n_slices == 32 else (0.0 < share < 0.99)
+    want = _flat(PCL.plain_pmsm_closed_loop(env, state0, om, tile, T, **kw))
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    assert _max_abs(got, want) == 0.0
+
+
+@pytest.mark.gpu
+def test_a_fleet_run_sorts_its_drives_once_and_float64_takes_the_global_path(big_fleet, monkeypatch):
+    """``FleetRunner.run_policy`` over 3 chunks: one plan miss builds the
+    slice tiling, two hits reuse it, and the three launches are staged; the
+    same fleet in float64 (142 KB slices beside a 95 KB table) launches on
+    the global path."""
+    env, (i_d, i_q, omega), tile, carry0, _ = big_fleet
+    built = []
+    tiling = PCL.slice_tiling
+    monkeypatch.setattr(PCL, "slice_tiling", lambda *a, **k: built.append(1) or tiling(*a, **k))
+    PCL.PLANS.clear()
+    plans, staging = dict(PCL.LAUNCH_PLANS["pmsm_closed_loop"]), dict(PCL.SLICE_STAGING)
+    state = _start(env, i_d, i_q, omega, seed=15)
+    FleetRunner(env).run_policy(state, tile, 3, 16, policy_carry=carry0)
+    torch.cuda.synchronize()
+    assert len(built) == 1
+    assert PCL.LAUNCH_PLANS["pmsm_closed_loop"]["misses"] - plans["misses"] == 1
+    assert PCL.LAUNCH_PLANS["pmsm_closed_loop"]["hits"] - plans["hits"] == 2
+    assert PCL.SLICE_STAGING["staged_launches"] - staging["staged_launches"] == 3
+    assert PCL.SLICE_STAGING["global_launches"] == staging["global_launches"]
+
+    batch = 4096
+    env64 = _env(batch, torch.float64, "cuda")
+    i_d, i_q, omega = _operating_points(batch, tuple(np.linspace(0.0, 1000.0, 7)), torch.float64, "cuda", seed=16)
+    tile64, c64, sched64 = foc.make_pmsm_saturated_sensorless_current_tile(
+        env64, i_d_ref=i_d, i_q_ref=i_q, omega_el=omega, measurement_std=SENSORS)
+    state0, om, kw = _loop_inputs(env64, _start(env64, i_d, i_q, omega, seed=17))
+    before = dict(PCL.SLICE_STAGING)
+    PCL.kernel_pmsm_closed_loop(env64, state0, om, tile64, 8, policy_carry=c64, sched_lut=sched64, **kw)
+    torch.cuda.synchronize()
+    assert PCL.SLICE_STAGING["global_launches"] - before["global_launches"] == 1
+    assert PCL.SLICE_STAGING["staged_launches"] == before["staged_launches"]
+    assert PCL.SLICE_STAGING["staged_drives"] == before["staged_drives"]
 
 
 @pytest.mark.gpu
