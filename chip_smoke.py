@@ -8,9 +8,10 @@ toolkit:
 
 Phases (any failure raises and the script exits non-zero):
 
-1. build the six kernel libraries (``exciting_environments_torch/csrc/
+1. build the eight kernel libraries (``exciting_environments_torch/csrc/
    stepper.cu``, ``pmsm_stepper.cu``, ``closed_loop.cu``,
-   ``pmsm_closed_loop.cu``, ``pendulum_fast.cu`` and ``pmsm_fast.cu``; the
+   ``pmsm_closed_loop.cu``, ``pmsm_closed_loop_adjoint.cu``,
+   ``pmsm_angles.cu``, ``pendulum_fast.cu`` and ``pmsm_fast.cu``; the
    stepper and closed-loop libraries with one translation unit per
    environment, ``csrc/stepper/*.cu`` and ``csrc/closed_loop/*.cu``, the
    PMSM closed loop with its actor's in ``csrc/pmsm_closed_loop/actor.cu``), one
@@ -201,8 +202,13 @@ Phases (any failure raises and the script exits non-zero):
     (10), saturated BRUSA with an affine P law over 128 steps (6
     iterations, the clipped loss of benchmarks/r03/pmsm_policy_grad_device.py);
     each loss must fall and the parameters stay finite; each iteration's
-    kernel forward, backward replay and optimizer ms are logged, and a
-    ``{"grads": [...]}`` line is printed;
+    kernel forward, backward (the BRUSA law's through the adjoint kernel,
+    ``BACKWARD_PATHS`` logged; the others' an eager replay) and optimizer ms
+    are logged, and a ``{"grads": [...]}`` line is printed; then the adjoint
+    kernel alone (``phase_adjoint``, row 4i) at the tuning cell's size,
+    against its plain version and the eager replay of one backward, its
+    launches counted, and the angle kernel ``csrc/pmsm_angles.cu`` (row 4j)
+    at that size against the eager ``_eps_trajectory``, bit for bit;
 20. the learning stack (``phase_rl``): ``train_ppo_fused`` with
     ``collector="kernel"`` at B = 65,536 and ``chunk_steps`` 64, 3
     iterations (benchmarks/r05/rl_profile_device.py's width) on the tracking
@@ -4144,7 +4150,10 @@ def phase_train(ex, CL, PCL):
         launches = CL.CL_KERNEL.launches["closed_loop"] + PCL.PMSM_CL_KERNEL.launches["pmsm_closed_loop"]
         for i in range(iterations):
             log(f"[train] {label} iteration {i}: loss {float(res.losses[i])!r}, kernel forward "
-                f"{timer.fwd_ms[i]:.2f} ms, backward replay {timer.bwd_ms[i]:.1f} ms, optimizer {opt_ms[i]:.3f} ms")
+                f"{timer.fwd_ms[i]:.2f} ms, backward {timer.bwd_ms[i]:.1f} ms, optimizer {opt_ms[i]:.3f} ms")
+        if env is drive:
+            # its backwards take the adjoint kernel (a save every step, the affine law, Euler)
+            log(f"[train] {label}: backward paths so far {PCL.BACKWARD_PATHS}")
         finite = bool(torch.isfinite(res.params).all()) and bool(torch.isfinite(res.losses).all())
         ok = res.final_loss < float(res.losses[0]) and finite and launches == iterations + 1
         log(f"[train] {label}, B={env.batch_size} T={n_steps}: loss {float(res.losses[0])!r} -> {res.final_loss!r}, "
@@ -4158,6 +4167,132 @@ def phase_train(ex, CL, PCL):
     if failures:
         raise AssertionError(f"training did not lower the loss: {failures}")
     return entries
+
+
+ADJ_SOURCE = "exciting_environments_torch/csrc/pmsm_closed_loop_adjoint.cu"
+ADJ_REPLACES = "exciting_environments_tpu/ops/pallas/pmsm_stepper.py:2394 (_pmsm_cl_core_bwd, a jax.vjp replay)"
+#: per drive-step of csrc/pmsm_closed_loop_adjoint.cu without the law, the law's at 10 columns with its
+#: integrator, and once a drive at the end (portbench/configs/pmsm_brusa_tune.json's count)
+ADJ_OPS, ADJ_LAW_OPS, ADJ_OPS_FINAL = 408, 156, 160
+
+
+def phase_adjoint(ex, PCL):
+    """Row 4i: the PMSM closed loop's adjoint kernel at the tuning cell's size
+    (B = 65,536 saturated BRUSA drives, T = 256, float32, the dense PI law a
+    few steps off the PI cell's gains), on the forward kernel's saves and
+    the five cotangent planes a tracking loss hands it: its time (CUDA
+    events), its bound, its deviation from ``plain_pmsm_cl_adjoint`` on the
+    card, two launches bit for bit, the launches of one call (counted after
+    a reset); then one whole backward through the adjoint and one through
+    the eager replay (a reference requiring grad takes it), each on the host
+    clock, and ``BACKWARD_PATHS``; then row 4j (:func:`phase_angles_row`)."""
+    from exciting_environments_torch.ops.kernels import pmsm_closed_loop_adjoint as PCA
+
+    B, T = B_MAIN, 256
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 29)
+    env = ex.PMSM(batch_size=B, saturated=True, motor_variant=ex.MotorVariant.BRUSA, tau=1e-4,
+                  control_state=["i_d", "i_q"], device=DEVICE)
+    draw = lambda lo, hi, shape=(B,): lo + (hi - lo) * torch.rand(shape, generator=gen, device=DEVICE)
+    state0 = (draw(-200.0, -10.0), draw(-150.0, 150.0), draw(-3.14, 3.14), torch.zeros(B, device=DEVICE),
+              torch.zeros(B, device=DEVICE))
+    omega = draw(0.0, 1000.0)
+    pn = env.env_properties.physical_normalizations
+    refs = (pn.i_d.normalize(draw(-200.0, -10.0)), pn.i_q.normalize(draw(-150.0, 150.0)))
+    law = ex.AffinePolicy(PCL_P, Ki=PCL_KI)
+    flat = (law.flat_params().to(DEVICE) + 0.01 * torch.randn(42, generator=gen, device=DEVICE, dtype=torch.float64)
+            ).float()
+    carry0 = (torch.zeros(B, device=DEVICE), torch.zeros(B, device=DEVICE))
+    kw = dict(tau=env.tau, solver=env._solver, props=env.env_properties, ref_leaves=refs)
+    _, _, _, traj, _ = PCL.kernel_pmsm_closed_loop(env, state0, omega, law, T, traj_stride=1, policy_params=flat,
+                                                   policy_carry=carry0, **kw)
+    planes = tuple(draw(-1e-7, 1e-7, (T, B)) if i < 5 else None for i in range(7))
+    cot = PCL.AdjointCotangents(planes, (None, None), (None,) * 6, (None, None), (None, None))
+    adjoint = lambda: PCA.kernel_pmsm_cl_adjoint(env, law, flat, state0, omega, refs, carry0, traj, cot,
+                                                 tau=env.tau, props=env.env_properties)
+    got = adjoint()
+    PCA.PMSM_CL_ADJOINT_KERNEL.reset_counts()
+    again = adjoint()
+    launches = PCA.PMSM_CL_ADJOINT_KERNEL.launches["adjoint"]
+    flat_out = lambda out: [*out[0], *out[1], out[2]]
+    same = all(torch.equal(a, b) for a, b in zip(flat_out(got), flat_out(again)))
+    ms = time_ms(adjoint)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eps_starts = PCL._eps_starts(state0[2], omega, env.tau, env._solver, T, 1)
+    want = PCL.plain_pmsm_cl_adjoint(env, law, flat, state0, omega, refs, carry0, traj, eps_starts, cot,
+                                     tau=env.tau, props=env.env_properties)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max(float((a.double() - b.double()).abs().max()) / float(b.double().abs().max())
+              for a, b in zip(flat_out(got), flat_out(want)))
+    ops = ((ADJ_OPS + ADJ_LAW_OPS) * T + ADJ_OPS_FINAL) * B
+    nbytes = 4 * (B * T * (6 + 5) + B * (8 + 7) + 2 * 42 + 8904)
+    bound_ms, bound_by = roofline(nbytes, ops)
+    log(f"[adjoint] B={B} T={T}: kernel {ms!r} ms (bound {bound_ms!r} ms by {bound_by}, {ops} operations, {nbytes} "
+        f"bytes), {launches} launch(es) a call, relative deviation from the plain version {err!r}, two launches bit "
+        f"for bit: {same}; the plain version {plain_ms:.1f} ms")
+
+    def backward(replay):
+        st = tuple(x.clone().requires_grad_(i == 0) for i, x in enumerate(state0))
+        gains = flat.clone().requires_grad_(True)
+        rf = tuple(r.clone().requires_grad_(replay) for r in refs)
+        out = PCL.pmsm_closed_loop_vjp(env, st, omega, law, T, tau=env.tau, solver=env._solver,
+                                       props=env.env_properties, ref_leaves=rf, traj_stride=1, policy_params=gains,
+                                       policy_carry=carry0)
+        loss = sum((o * p).sum() for o, p in zip(out[3][:5], planes))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, gains.grad
+
+    backward(False)
+    adj_ms, g_adj = backward(False)
+    replay_ms, g_rep = backward(True)
+    gap = float((g_adj.double() - g_rep.double()).abs().max()) / float(g_rep.double().abs().max())
+    log(f"[adjoint] a whole backward through the adjoint {adj_ms:.2f} ms, through the eager replay {replay_ms:.1f} "
+        f"ms ({replay_ms / adj_ms:.0f}x); gains' gradient gap {gap!r}; backward paths {PCL.BACKWARD_PATHS}")
+    if not (same and launches == 1 and err < 1e-3 and gap < 1e-3):
+        raise AssertionError("the adjoint kernel disagrees with its plain version or the replay, is not "
+                             "reproducible, or takes other than one launch")
+    return [entry("pmsm_closed_loop_adjoint", launches, err, ms, replay_ms, bound_ms, bound_by, ADJ_SOURCE,
+                  ADJ_REPLACES), phase_angles_row(env, state0[2], omega, T)]
+
+
+ANGLES_SOURCE = "exciting_environments_torch/csrc/pmsm_angles.cu"
+ANGLES_REPLACES = "exciting_environments_torch/ops/kernels/pmsm_stepper.py::_eps_trajectory (an eager loop)"
+#: per drive-step of csrc/pmsm_angles.cu: the increment's add, wrap_angle's add, sign and range compares, subtract
+ANGLES_OPS = 6
+
+
+def phase_angles_row(env, eps0, omega, T):
+    """Row 4j: ``csrc/pmsm_angles.cu`` at the tuning cell's size (its
+    rebuild of the observation's angles each call), against the eager
+    ``_eps_trajectory`` it replaces, which it must match bit for bit: its
+    launches in one call (counted after a reset), its time (CUDA events),
+    its bound, and the eager loop's time as the plain ms."""
+    from exciting_environments_torch.ops.kernels import pmsm_angles as PA
+    from exciting_environments_torch.ops.kernels.pmsm_stepper import _eps_trajectory
+
+    B = eps0.shape[0]
+    run = lambda: PA.angle_trajectory(eps0, omega, env.tau, T, env._solver)
+    run()
+    PA.PMSM_ANGLES_KERNEL.reset_counts()
+    seq, final = run()
+    launches = PA.PMSM_ANGLES_KERNEL.launches["angles"]
+    want_seq, want_final = _eps_trajectory(eps0, omega, env.tau, T, env._solver)
+    err = max(float((seq.double() - want_seq.double()).abs().max()),
+              float((final.double() - want_final.double()).abs().max()))
+    ms = time_ms(run)
+    plain_ms = time_ms(lambda: _eps_trajectory(eps0, omega, env.tau, T, env._solver))
+    ops, nbytes = (ANGLES_OPS * T + 1) * B, 4 * B * (T + 3)
+    bound_ms, bound_by = roofline(nbytes, ops)
+    log(f"[angles] B={B} T={T} float32: kernel {ms!r} ms (bound {bound_ms!r} ms by {bound_by}, {ops} operations, "
+        f"{nbytes} bytes), {launches} launch(es) a call, largest deviation from the eager loop {err!r}; the eager "
+        f"loop {plain_ms!r} ms")
+    if not (err == 0.0 and launches == 1):
+        raise AssertionError("the angle kernel differs from the eager recurrence, or takes other than one launch")
+    return entry("pmsm_angles", launches, err, ms, plain_ms, bound_ms, bound_by, ANGLES_SOURCE, ANGLES_REPLACES)
 
 
 # ---------------------------------------------------------------------------
@@ -6003,6 +6138,7 @@ def main() -> int:
     phase(phase_noise_closed_loops, ex, CL, PCL)
     grads = phase(phase_grad, ex, K, CL, PK, PCL)
     grads += phase(phase_train, ex, CL, PCL)
+    kernels += phase(phase_adjoint, ex, PCL)
     kernels += phase(phase_rl, ex, CL, PCL)
     kernels += phase(phase_collect, ex, K, PK)
     kernels += phase(phase_plan, ex, K, PK)

@@ -12,6 +12,10 @@ with the same saves and no graph), and its backward walks the segments in
 reverse, replays each one through the plain step under autograd
 (:func:`segment_vjp`) and carries the state's and the carry's cotangents
 across segment boundaries.  Only one segment's graph is alive at a time.
+One backward is a kernel instead: ``PmsmClosedLoopVJP``'s, where the forward
+ran on CUDA with 1-step segments under the affine law, explicit Euler and no
+noise or schedule, launches ``csrc/pmsm_closed_loop_adjoint.cu``
+(``ops/kernels/pmsm_closed_loop_adjoint.py``) and replays nothing.
 """
 
 from __future__ import annotations
@@ -41,7 +45,9 @@ def ckpt_stride(n_steps: int, traj_stride) -> int:
     ``traj_stride`` (or of ``n_steps`` without one) that minimizes
     ``n_steps / d + d``, the checkpoint saves plus one segment's replay,
     with ties going to the smaller divisor.  A divisor of the save stride
-    makes the user's saves a slice of the checkpoints."""
+    makes the user's saves a slice of the checkpoints; ``traj_stride=1``
+    (``obs_stride=1``, as ``train_policy`` asks) gives 1-step segments, a
+    checkpoint every step, which the PMSM closed loop's adjoint kernel reads."""
     base = traj_stride if traj_stride is not None else n_steps
     divisors = set()
     for d in range(1, int(base ** 0.5) + 1):

@@ -49,6 +49,7 @@ from exciting_environments_torch.ops.kernels.closed_loop import (
 )
 from exciting_environments_torch.models.pmsm.pmsm_env import wrap_angle
 from exciting_environments_torch.ops.kernels.plans import Key, PlanCache, Pointers
+from exciting_environments_torch.ops.kernels.pmsm_angles import angle_trajectory
 from exciting_environments_torch.ops.kernels.pmsm_stepper import (
     N_CHANNELS,
     PMSM_PARAMS,
@@ -116,6 +117,11 @@ STAGED_THREADS = {torch.float32: 512, torch.float64: 128}
 #: drives, and the idle lanes in the last warp of each block's range
 SLICE_STAGING = dict.fromkeys(("staged_launches", "global_launches", "blocks", "staged_drives", "drives",
                                "idle_lanes"), 0)
+#: the backwards of :class:`PmsmClosedLoopVJP`: ``"adjoint"`` counts those that
+#: launched ``csrc/pmsm_closed_loop_adjoint.cu``, ``"replay"`` those that
+#: replayed the plain step, by the reason
+#: (:func:`~.pmsm_closed_loop_adjoint.adjoint_scope`)
+BACKWARD_PATHS = {"adjoint": 0, "replay": {}}
 
 _c_double = ctypes.c_double
 _c_void_p = ctypes.c_void_p
@@ -375,6 +381,233 @@ def plain_pmsm_closed_loop(env, state0, omega, policy, n_steps, *, tau, solver, 
 
 
 # ---------------------------------------------------------------------------
+# the hand-derived reverse sweep (the adjoint kernel's plain version)
+# ---------------------------------------------------------------------------
+
+
+class AdjointCotangents(NamedTuple):
+    """The cotangents of :class:`PmsmClosedLoopVJP`'s outputs that the reverse
+    sweep takes, ``None`` for zero: ``traj`` the seven per-step saves ``(T,
+    B)`` (``i_d, i_q, torque, u_con_d, u_con_q, a_d, a_q``), ``traj_carry``
+    the carry's saves, ``final`` the six final leaves ``(B,)`` (``i_d, i_q,
+    eps, u_d_buffer, u_q_buffer, torque``), ``u_last`` the two applied
+    voltages of the last step and ``carry`` the final carry."""
+
+    traj: tuple
+    traj_carry: tuple
+    final: tuple
+    u_last: tuple
+    carry: tuple
+
+
+def _gather_with_slopes(lut, px, py):
+    """:func:`~exciting_environments_torch.ops.lut.bilinear_gather` of every
+    channel at ``(px, py)`` with its slopes along both coordinates: ``(v,
+    dv/dpx, dv/dpy)``, ``(C, B)`` each.  The cell index carries no gradient,
+    as in autograd through the gather."""
+    fx = (px - lut.x0) / lut.dx
+    fy = (py - lut.y0) / lut.dy
+    ix = torch.clamp(torch.floor(fx), 0, lut.nx - 2).long()
+    iy = torch.clamp(torch.floor(fy), 0, lut.ny - 2).long()
+    wx, wy = fx - ix, fy - iy
+    v = lut.values
+    v00, v01, v10, v11 = v[:, ix, iy], v[:, ix, iy + 1], v[:, ix + 1, iy], v[:, ix + 1, iy + 1]
+    vals = v00 * (1 - wx) * (1 - wy) + v01 * (1 - wx) * wy + v10 * wx * (1 - wy) + v11 * wx * wy
+    slope_x = ((v10 - v00) * (1 - wy) + (v11 - v01) * wy) / lut.dx
+    slope_y = ((v01 - v00) * (1 - wx) + (v11 - v10) * wx) / lut.dy
+    return vals, slope_x, slope_y
+
+
+def plain_pmsm_cl_adjoint(env, policy, flat, state0, omega, ref_leaves, carry0, traj, eps_starts,
+                          cot: AdjointCotangents, *, tau, props):
+    """The reverse sweep of :func:`plain_pmsm_closed_loop` under
+    :class:`~exciting_environments_torch.ops.policies.AffinePolicy` (gains
+    ``flat``, no clip) and explicit Euler, without noise or schedule, by hand
+    and without autograd: the plain version of ``csrc/pmsm_closed_loop_adjoint.cu``,
+    operation for operation in its order.
+
+    ``traj`` holds the forward's saves of every step ``(T, B)`` (``i_d, i_q,
+    torque, u_con_d, u_con_q, a_d, a_q``) and ``eps_starts`` the pre-step
+    angles ``(T, B)`` (:func:`_eps_starts` with 1-step segments).  Each step
+    is taken backwards from its start (the saved currents of the step
+    before, the angle, with deadtime the saved constrained voltages as
+    buffers): it recomputes the gather and its slopes, the torque, the
+    observation and the hexagon, then pulls the cotangents back through the
+    Euler step (the 2x2 inverse of the differential inductances, the gathers'
+    slopes), the deadtime buffers, the hexagon (clamp ties pass, as
+    ``torch.clamp``'s gradient does; the sector and the table's cell carry
+    none), the observation's normalization and the affine law with its
+    integrator.  The parameters' gradient is summed per drive over the steps,
+    then over the drives in float64.
+
+    Returns ``(g_state0, g_carry0, g_flat)``: the cotangents of the five
+    start leaves, of the carry and of ``flat`` (in the working dtype)."""
+    with torch.no_grad():
+        return _plain_adjoint(env, policy, flat, state0, omega, ref_leaves, carry0, traj, eps_starts, cot, tau,
+                              props)
+
+
+def _plain_adjoint(env, policy, flat, state0, omega, ref_leaves, carry0, traj, eps_starts, cot, tau, props):
+    n_steps = traj[0].shape[0]
+    params = props.static_params
+    saturated = bool(props.saturated)
+    deadtime = int(params.deadtime)
+    obs_norms, act_norms, u_dc = eff_cl_norms(cl_bands(props))
+    n_obs = N_BASE_OBS + len(ref_leaves)
+    integral = policy.Ki is not None
+    K = flat[: 2 * n_obs].reshape(2, n_obs)
+    Ki = flat[2 * n_obs + 2 :].reshape(2, n_obs) if integral else None
+    zero = torch.zeros_like(omega)
+    z = lambda g: zero if g is None else g
+    at = lambda seq, t: zero if seq is None else seq[t]
+    p15 = 1.5 * params.p
+    slope = lambda i: 2 / (obs_norms[i][1] - obs_norms[i][0])  # d normalize / dx
+    (mnd, mxd), (mnq, mxq) = act_norms
+    half_dc = u_dc / 2
+    scale = 1 / half_dc
+    table_re, table_im = _rotation_tables(omega.device)
+    s120 = float(np.sqrt(3.0) / 2)
+
+    def torque_vjp(i_d, i_q, l_tau):
+        """The torque's cotangent ``l_tau`` pulled back onto the currents,
+        its gather included."""
+        if saturated:
+            vals, sx, sy = _gather_with_slopes(env._lut, i_d, i_q)
+            l_pd, l_pq = p15 * i_q * l_tau, -(p15 * i_d * l_tau)
+            return (-(p15 * vals[5] * l_tau) + l_pd * sx[4] + l_pq * sx[5],
+                    p15 * vals[4] * l_tau + l_pd * sy[4] + l_pq * sy[5])
+        dl = params.l_d - params.l_q
+        return p15 * dl * i_q * l_tau, p15 * (params.psi_p + dl * i_d) * l_tau
+
+    l_id, l_iq, l_eps, l_bd, l_bq = (z(g) for g in cot.final[:5])
+    l_c = [z(g) for g in cot.carry] if integral else []
+    # the final torque and the last save's torque both read the final state
+    l_tau = z(cot.final[5]) + at(cot.traj[2], n_steps - 1)
+    d_id, d_iq = torque_vjp(traj[0][-1], traj[1][-1], l_tau)
+    l_id, l_iq = l_id + d_id, l_iq + d_iq
+    g_K = [[zero] * n_obs for _ in range(2)]
+    g_b = [zero, zero]
+    g_Ki = [[zero] * n_obs for _ in range(2)]
+    for t in reversed(range(n_steps)):
+        # the saves of step t are its post-step currents, voltages, actions, carry
+        l_id, l_iq = l_id + at(cot.traj[0], t), l_iq + at(cot.traj[1], t)
+        l_c = [c + at(cot.traj_carry[j], t) for j, c in enumerate(l_c)]
+        i_d, i_q = (state0[0], state0[1]) if t == 0 else (traj[0][t - 1], traj[1][t - 1])
+        bd, bq = (state0[3], state0[4]) if (t == 0 or not deadtime) else (traj[3][t - 1], traj[4][t - 1])
+        u_app = (bd, bq) if deadtime else (traj[3][t], traj[4][t])
+        eps = eps_starts[t]
+        a = (traj[5][t], traj[6][t])
+
+        # the step's values again: the gather, the torque, the observation
+        if saturated:
+            vals, sx, sy = _gather_with_slopes(env._lut, i_d, i_q)
+            torque = p15 * (vals[4] * i_q - vals[5] * i_d)
+        else:
+            torque = p15 * (params.psi_p + (params.l_d - params.l_q) * i_d) * i_q
+        obs = [2 * (x - obs_norms[i][0]) / (obs_norms[i][1] - obs_norms[i][0]) - 1
+               for i, x in ((0, i_d), (1, i_q), (2, omega), (3, torque))]
+        obs += [torch.cos(eps), torch.sin(eps)]
+        obs += [2 * (x - obs_norms[i][0]) / (obs_norms[i][1] - obs_norms[i][0]) - 1 for i, x in ((4, bd), (5, bq))]
+        obs += list(ref_leaves)
+
+        # the Euler step: i1 = i + tau f(i, u_app)
+        l_fd, l_fq = tau * l_id, tau * l_iq
+        if saturated:
+            l_dd, l_dq, l_qd, l_qq, psi_d, psi_q = vals
+            det = l_dd * l_qq - l_dq * l_qd
+            inv_dd, inv_dq, inv_qd, inv_qq = l_qq / det, -l_dq / det, -l_qd / det, l_dd / det
+            rhs_d = u_app[0] - params.r_s * i_d + omega * psi_q
+            rhs_q = u_app[1] - params.r_s * i_q - omega * psi_d
+            l_rd = inv_dd * l_fd + inv_qd * l_fq
+            l_rq = inv_dq * l_fd + inv_qq * l_fq
+            # the inverse's entries, then the determinant (d (1/det) = -1/det^2)
+            e_dd, e_dq, e_qd, e_qq = rhs_d * l_fd, rhs_q * l_fd, rhs_d * l_fq, rhs_q * l_fq
+            l_det = -(e_dd * inv_dd + e_dq * inv_dq + e_qd * inv_qd + e_qq * inv_qq) / det
+            l_vals = [e_qq / det + l_det * l_qq, -(e_dq / det) - l_det * l_qd, -(e_qd / det) - l_det * l_dq,
+                      e_dd / det + l_det * l_dd, -(omega * l_rq), omega * l_rd]
+            l_id = l_id - params.r_s * l_rd
+            l_iq = l_iq - params.r_s * l_rq
+            l_ud, l_uq = l_rd, l_rq
+        else:
+            l_ud, l_uq = l_fd / params.l_d, l_fq / params.l_q
+            l_id = l_id - params.r_s * l_ud - omega * params.l_d * l_uq
+            l_iq = l_iq + omega * params.l_q * l_ud - params.r_s * l_uq
+        if t == n_steps - 1:
+            l_ud, l_uq = l_ud + z(cot.u_last[0]), l_uq + z(cot.u_last[1])
+
+        # the deadtime buffers: with deadtime the buffers drive the step and
+        # take the constrained voltages; without, the voltages drive it
+        if deadtime:
+            l_ucd, l_ucq = at(cot.traj[3], t) + l_bd, at(cot.traj[4], t) + l_bq
+            l_bd, l_bq = l_ud, l_uq
+        else:
+            l_ucd, l_ucq = at(cot.traj[3], t) + l_ud, at(cot.traj[4], t) + l_uq
+
+        # the hexagon at the deadtime-advanced angle, recomputed
+        nd = ((a[0] + 1) / 2 * (mxd - mnd) + mnd) * scale
+        nq = ((a[1] + 1) / 2 * (mxq - mnq) + mnq) * scale
+        adv = (eps + omega * tau * (deadtime + 0.5)) % (2 * math.pi)
+        adv = adv + (adv > math.pi).to(adv.dtype) * (-2 * math.pi)
+        ca, sa, cb, sb = torch.cos(-adv), torch.sin(-adv), torch.cos(adv), torch.sin(adv)
+        alpha = ca * nd + sa * nq
+        beta = -sa * nd + ca * nq
+        b0 = (beta >= 0).long()
+        b1 = (-0.5 * beta - s120 * alpha >= 0).long()
+        b2 = (-0.5 * beta + s120 * alpha >= 0).long()
+        re, im = table_re[b0, b1, b2].to(alpha.dtype), table_im[b0, b1, b2].to(alpha.dtype)
+        ra = alpha * re - beta * im
+        rb = alpha * im + beta * re
+        pass_a = (ra >= -2 / 3) & (ra <= 2 / 3)
+        pass_b = (rb >= 0) & (rb <= float(2 / 3 * np.sqrt(3.0)))
+        oa = torch.clamp(ra, -2 / 3, 2 / 3) * re + torch.clamp(rb, 0, float(2 / 3 * np.sqrt(3.0))) * im
+        ob = torch.clamp(rb, 0, float(2 / 3 * np.sqrt(3.0))) * re - torch.clamp(ra, -2 / 3, 2 / 3) * im
+        l_oa = half_dc * (cb * l_ucd - sb * l_ucq)
+        l_ob = half_dc * (sb * l_ucd + cb * l_ucq)
+        l_adv = -sb * (half_dc * (oa * l_ucd + ob * l_ucq)) + cb * (half_dc * (ob * l_ucd - oa * l_ucq))
+        l_ra = torch.where(pass_a, re * l_oa - im * l_ob, zero)
+        l_rb = torch.where(pass_b, im * l_oa + re * l_ob, zero)
+        l_alpha = re * l_ra + im * l_rb
+        l_beta = -im * l_ra + re * l_rb
+        l_nd, l_nq = ca * l_alpha - sa * l_beta, sa * l_alpha + ca * l_beta
+        l_adv = l_adv + sa * (nd * l_alpha + nq * l_beta) - ca * (nq * l_alpha - nd * l_beta)
+        l_a = [at(cot.traj[5], t) + l_nd * scale * ((mxd - mnd) / 2),
+               at(cot.traj[6], t) + l_nq * scale * ((mxq - mnq) / 2)]
+
+        # the affine law: a = b + K obs (+ c1), c1 = c + Ki obs
+        l_obs = [K[0, i] * l_a[0] + K[1, i] * l_a[1] for i in range(n_obs)]
+        if integral:
+            l_c = [c + la for c, la in zip(l_c, l_a)]
+            l_obs = [lo + Ki[0, i] * l_c[0] + Ki[1, i] * l_c[1] for i, lo in enumerate(l_obs)]
+        for j in range(2):
+            g_b[j] = g_b[j] + l_a[j]
+            for i in range(n_obs):
+                g_K[j][i] = g_K[j][i] + l_a[j] * obs[i]
+                if integral:
+                    g_Ki[j][i] = g_Ki[j][i] + l_c[j] * obs[i]
+
+        # the observation: normalized currents, torque and buffers, cos/sin eps
+        l_id = l_id + l_obs[0] * slope(0)
+        l_iq = l_iq + l_obs[1] * slope(1)
+        l_eps = l_eps + l_adv - torch.sin(eps) * l_obs[4] + torch.cos(eps) * l_obs[5]
+        l_bd = l_bd + l_obs[6] * slope(4)
+        l_bq = l_bq + l_obs[7] * slope(5)
+        # the torque of this state: the observation's, and the save of the step before
+        l_tau = l_obs[3] * slope(3) + (at(cot.traj[2], t - 1) if t else zero)
+        if saturated:
+            l_vals[4] = l_vals[4] + p15 * i_q * l_tau
+            l_vals[5] = l_vals[5] - p15 * i_d * l_tau
+            l_id = l_id - p15 * vals[5] * l_tau + sum(lv * s for lv, s in zip(l_vals, sx))
+            l_iq = l_iq + p15 * vals[4] * l_tau + sum(lv * s for lv, s in zip(l_vals, sy))
+        else:
+            d_id, d_iq = torque_vjp(i_d, i_q, l_tau)
+            l_id, l_iq = l_id + d_id, l_iq + d_iq
+
+    per_drive = [*g_K[0], *g_K[1], *g_b] + ([*g_Ki[0], *g_Ki[1]] if integral else [])
+    g_flat = torch.stack([p.to(torch.float64).sum() for p in per_drive]).to(flat.dtype)
+    return (l_id, l_iq, l_eps, l_bd, l_bq), tuple(l_c), g_flat
+
+
+# ---------------------------------------------------------------------------
 # the kernel's wrapper
 # ---------------------------------------------------------------------------
 
@@ -467,6 +700,35 @@ def kernel_variant(policy, policy_params=None) -> str:
         return "affine_all"
     read_only_currents = not any(bool(g[:, SKIPPED_COLUMNS].ne(0).any()) for g in gains)
     return "affine_currents" if read_only_currents else "affine_all"
+
+
+def pack_drive(args, props, dtype, device, batch, ptr) -> list:
+    """Write the drive's fields of a :class:`PmsmClArgs` (its parameters and
+    bands, scalar or ``(B,)``, each ``(B,)`` leaf checked; the hexagon's
+    advance of the angle; the sector rotations) into ``args``, the pointers
+    through ``ptr`` (:class:`~.plans.Pointers`).  Returns the ``(B,)``
+    leaves, in field order."""
+    params = props.static_params
+    per_batch = []
+    for i, name in enumerate(PMSM_PARAMS):
+        leaf = getattr(params, name)
+        if isinstance(leaf, torch.Tensor):
+            _check_leaf(f"parameter {name}", leaf, dtype, device, (batch,))
+            per_batch.append(leaf)
+            args.param_ptr[i] = ptr(leaf)
+        else:
+            args.param_value[i] = float(leaf)
+    for i, (name, leaf) in enumerate(cl_bands(props).items()):
+        if isinstance(leaf, torch.Tensor):
+            _check_leaf(f"band {name}", leaf, dtype, device, (batch,))
+            per_batch.append(leaf)
+            args.band_ptr[i] = ptr(leaf)
+        else:
+            args.band_value[i] = leaf
+    args.adv_scale = int(params.deadtime) + 0.5
+    for i, (re, im) in enumerate(zip(ROTATION_RE.reshape(-1), ROTATION_IM.reshape(-1))):
+        args.rot_re[i], args.rot_im[i] = float(re), float(im)
+    return per_batch
 
 
 def _chunk_args(args, state0, omega, carry0, ref_leaves, obs_noise_tm, proc_noise_tm, n_steps, traj_stride):
@@ -647,24 +909,7 @@ def kernel_pmsm_closed_loop(env, state0, omega, policy, n_steps, *, tau, solver,
     for j, coef in enumerate(solver.b):
         args.rate_b[j] = float(coef)
     args.n_rate = len(solver.b)
-    for i, name in enumerate(PMSM_PARAMS):
-        leaf = getattr(params, name)
-        if isinstance(leaf, torch.Tensor):
-            _check_leaf(f"parameter {name}", leaf, dtype, device, (batch,))
-            static_grads.append(leaf)
-            args.param_ptr[i] = ptr(leaf)
-        else:
-            args.param_value[i] = float(leaf)
-    for i, (name, leaf) in enumerate(cl_bands(props).items()):
-        if isinstance(leaf, torch.Tensor):
-            _check_leaf(f"band {name}", leaf, dtype, device, (batch,))
-            static_grads.append(leaf)
-            args.band_ptr[i] = ptr(leaf)
-        else:
-            args.band_value[i] = leaf
-    args.adv_scale = int(params.deadtime) + 0.5
-    for i, (re, im) in enumerate(zip(ROTATION_RE.reshape(-1), ROTATION_IM.reshape(-1))):
-        args.rot_re[i], args.rot_im[i] = float(re), float(im)
+    static_grads += pack_drive(args, props, dtype, device, batch, ptr)
     if (obs_noise_tm is not None) != bool(obs_noise_cols) or (proc_noise_tm is not None) != bool(proc_noise_idx):
         raise ValueError("each noise slab and its columns must be set together")
     if obs_noise_tm is not None:
@@ -829,8 +1074,18 @@ class PmsmClosedLoopVJP(torch.autograd.Function):
     Forward: the kernel on CUDA tensors, :func:`plain_pmsm_closed_loop` on
     CPU tensors, both on detached inputs and with saves every
     :func:`~.checkpoint.ckpt_stride` steps; the user's saves are a slice of
-    them.  Backward: the segments in reverse, each replayed through
+    them.  Its span is ``ee.vjp.forward``, the backward's ``ee.vjp.backward``.
+
+    Backward, where the forward ran the kernel with a save every step and the
+    rest is in the adjoint's scope
+    (:func:`~.pmsm_closed_loop_adjoint.adjoint_scope`: ``AffinePolicy``
+    without clip, explicit Euler, no noise slab or schedule, no cotangent
+    wanted for ``omega``, the references or the properties' tensors): one
+    launch of ``csrc/pmsm_closed_loop_adjoint.cu``, whose plain version is
+    :func:`plain_pmsm_cl_adjoint`; ``None`` cotangents go to it as null
+    pointers.  Otherwise: the segments in reverse, each replayed through
     :func:`plain_pmsm_cl_step` from its checkpoint (``_pmsm_cl_core_bwd``).
+    :data:`BACKWARD_PATHS` counts both, the replay by its reason.
     A segment starts from the saved currents, the angle of the
     state-independent recurrence and, with deadtime, the saved constrained
     voltages as buffers (the initial buffers without).  The saved torque and
@@ -843,31 +1098,55 @@ class PmsmClosedLoopVJP(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, cfg, *tensors):
-        ctx.set_materialize_grads(False)
-        state0, (omega,), refs, carry0, pp, pt, (on,), (pn,) = cfg.split(tensors)
-        ckpt = ck.ckpt_stride(cfg.n_steps, cfg.traj_stride)
-        kwargs = dict(tau=cfg.tau, solver=cfg.solver, props=ck.props_with(cfg.props, pt), ref_leaves=refs,
-                      traj_stride=ckpt, policy_params=cfg.rebuild(pp), policy_carry=carry0 if cfg.n_carry else None,
-                      obs_noise_tm=on, proc_noise_tm=pn, obs_noise_cols=cfg.obs_cols, proc_noise_idx=cfg.noise_idx,
-                      sched_lut=cfg.sched_lut)
-        run = kernel_pmsm_closed_loop if omega.device.type == "cuda" else plain_pmsm_closed_loop
-        final, u_last, final_c, traj, tc = run(cfg.env, state0, omega, cfg.policy, cfg.n_steps, **kwargs)
-        ctx.cfg = cfg
-        ctx.save_for_backward(*tensors[: cfg.n_in], *traj, *tc)
-        out = tuple(final) + tuple(u_last) + tuple(final_c)
-        if cfg.traj_stride is not None:
-            at = slice(cfg.traj_stride // ckpt - 1, None, cfg.traj_stride // ckpt)
-            out += tuple(leaf[at] for leaf in (*traj, *tc))
-        return out
+        with annotate("ee.vjp.forward"):
+            ctx.set_materialize_grads(False)
+            state0, (omega,), refs, carry0, pp, pt, (on,), (pn,) = cfg.split(tensors)
+            ckpt = ck.ckpt_stride(cfg.n_steps, cfg.traj_stride)
+            kwargs = dict(tau=cfg.tau, solver=cfg.solver, props=ck.props_with(cfg.props, pt), ref_leaves=refs,
+                          traj_stride=ckpt, policy_params=cfg.rebuild(pp),
+                          policy_carry=carry0 if cfg.n_carry else None, obs_noise_tm=on, proc_noise_tm=pn,
+                          obs_noise_cols=cfg.obs_cols, proc_noise_idx=cfg.noise_idx, sched_lut=cfg.sched_lut)
+            run = kernel_pmsm_closed_loop if omega.device.type == "cuda" else plain_pmsm_closed_loop
+            final, u_last, final_c, traj, tc = run(cfg.env, state0, omega, cfg.policy, cfg.n_steps, **kwargs)
+            ctx.cfg = cfg
+            ctx.save_for_backward(*tensors[: cfg.n_in], *traj, *tc)
+            out = tuple(final) + tuple(u_last) + tuple(final_c)
+            if cfg.traj_stride is not None:
+                at = slice(cfg.traj_stride // ckpt - 1, None, cfg.traj_stride // ckpt)
+                out += tuple(leaf[at] for leaf in (*traj, *tc))
+            return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, *grads):
+        with annotate("ee.vjp.backward"):
+            return PmsmClosedLoopVJP._backward(ctx, grads)
+
+    @staticmethod
+    def _backward(ctx, grads):
+        from exciting_environments_torch.ops.kernels.pmsm_closed_loop_adjoint import adjoint_scope, \
+            kernel_pmsm_cl_adjoint
+
         cfg = ctx.cfg
         saved = ctx.saved_tensors
         state0, (omega,), refs, carry0, pp, pt, (on,), (pn,) = cfg.split(saved[: cfg.n_in])
         traj, tc = saved[cfg.n_in : cfg.n_in + 7], saved[cfg.n_in + 7 :]
         env, nc = cfg.env, cfg.n_carry
+        needs = ctx.needs_input_grad[1:]
+        n_refs = len(refs)
+        # the speed, the references and the properties' tensors
+        side = (needs[5], *needs[6 : 6 + n_refs], *needs[6 + n_refs + nc + 1 : 6 + n_refs + nc + 1 + len(pt)])
+        reason = adjoint_scope(omega.device, cfg.policy, cfg.solver, cfg.n_steps, cfg.traj_stride,
+                               on is not None or pn is not None, cfg.sched_lut, any(side))
+        if not reason:
+            BACKWARD_PATHS["adjoint"] += 1
+            saves = grads[8 + nc :] if cfg.traj_stride is not None else (None,) * (7 + nc)
+            cot = AdjointCotangents(tuple(saves[:7]), tuple(saves[7:]), tuple(grads[:6]), tuple(grads[6:8]),
+                                    tuple(grads[8 : 8 + nc]))
+            g_state, g_c, g_flat = kernel_pmsm_cl_adjoint(env, cfg.policy, pp[0], state0, omega, refs, carry0, traj,
+                                                          cot, tau=cfg.tau, props=ck.props_with(cfg.props, pt))
+            return (None, *g_state, None, *(None,) * n_refs, *g_c, g_flat, *(None,) * len(pt), None, None)
+        BACKWARD_PATHS["replay"][reason] = BACKWARD_PATHS["replay"].get(reason, 0) + 1
         deadtime = int(cfg.props.static_params.deadtime)
         ckpt = ck.ckpt_stride(cfg.n_steps, cfg.traj_stride)
         n_seg = cfg.n_steps // ckpt
@@ -887,7 +1166,6 @@ class PmsmClosedLoopVJP(torch.autograd.Function):
         else:
             b_starts = tuple(leaf[None].expand((n_seg,) + tuple(leaf.shape)) for leaf in state0[3:5])
         c_starts = ck.starts(carry0, tc)
-        needs = ctx.needs_input_grad[1:]
         i_refs = 6
         i_pp = i_refs + len(refs) + nc
         i_pt = i_pp + len(pp)
@@ -1150,8 +1428,9 @@ def pmsm_fused_closed_loop(env, init_state, policy, n_steps: int, obs_stride: in
 
         i_d_t, i_q_t, torque_t, ucd_t, ucq_t, a_d_t, a_q_t = (leaf.transpose(0, 1) for leaf in traj)
         n_saves = n_steps // obs_stride
-        # the saved post-step angles: the state-independent replay of the open loop
-        eps_pre, eps_last = _eps_trajectory(phys.epsilon, omega, env.tau, n_steps, env._solver)
+        # the saved post-step angles: the state-independent replay of the open
+        # loop, one launch on the card
+        eps_pre, eps_last = angle_trajectory(phys.epsilon, omega, env.tau, n_steps, env._solver)
         eps_post = torch.cat([eps_pre[1:], eps_last[None]], dim=0)
         eps_saves = eps_post[obs_stride - 1 :: obs_stride].transpose(0, 1)
         expand = lambda leaf: torch.as_tensor(leaf)[:, None].expand(batch, n_saves)

@@ -2,12 +2,17 @@
 (counterpart of ``exciting_environments_tpu/utils/train.py``).
 
 The closed loops are differentiable in their policy parameters: on CUDA
-tensors the forward is one launch of the closed-loop kernel and the
-backward a checkpointed replay of its plain step
+tensors the forward is one launch of the closed-loop kernel with a save
+every step (``obs_stride=1``).  The backward of a PMSM drive under
+``AffinePolicy`` (no clip) with explicit Euler and no noise is one launch of
+the hand-written adjoint ``csrc/pmsm_closed_loop_adjoint.cu``; every other
+backward, and every one on CPU tensors, is a replay of the kernel's plain
+step under autograd, one step a segment
 (``ops/kernels/closed_loop.py::ClosedLoopVJP``,
-``ops/kernels/pmsm_closed_loop.py::PmsmClosedLoopVJP``).  That turns
-controller tuning into plain gradient descent with the forward pass at
-kernel speed.  :func:`train_policy` picks the kernel, runs the descent and
+``ops/kernels/pmsm_closed_loop.py::PmsmClosedLoopVJP``; ``BACKWARD_PATHS``
+counts the PMSM's).  That turns controller tuning into plain gradient
+descent with the forward pass, and for the PMSM's PI and P laws the
+backward too, at kernel speed.  :func:`train_policy` picks the kernel, runs the descent and
 keeps the best iterate.
 
 On CUDA tensors the policy is one of the families compiled into the kernel

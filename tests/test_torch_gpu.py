@@ -2254,3 +2254,207 @@ def test_pmsm_entry_point_spans_on_the_card():
     assert names.count("ee.launch.pmsm_closed_loop.pmsm_closed_loop") == 2
     assert names[:6] == ["ee.fleet.chunk", "ee.fleet.rollout", "ee.rollout.prepare", "ee.policy.spec",
                          "ee.launch.pmsm_closed_loop.pmsm_closed_loop", "ee.rollout.rebuild"]
+
+
+# ---------------------------------------------------------------------------
+# csrc/pmsm_closed_loop_adjoint.cu: the PMSM closed loop's reverse sweep
+# ---------------------------------------------------------------------------
+
+
+def _adjoint_case(dtype, deadtime, integral, saturated=True, B=2048 + 37, T=24, seed=41, dense=True):
+    """A drive fleet, a dense affine law, the forward's saves of every step
+    (the kernel's launch) and seeded cotangents on every output (the
+    carry's saves left ``None``): the arguments of ``kernel_pmsm_cl_adjoint``
+    and of its plain version."""
+    from exciting_environments_torch.ops.kernels import pmsm_closed_loop as PCL
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    u = lambda lo, hi, shape=(B,): (torch.rand(shape, generator=gen, device="cuda", dtype=torch.float64)
+                                     * (hi - lo) + lo).to(dtype)
+    variant = P.MotorVariant.BRUSA if saturated else P.MotorVariant.DEFAULT
+    params = dict(variant.get_params().static_params.__dict__, deadtime=deadtime)
+    env = P.PMSM(batch_size=B, saturated=saturated, motor_variant=variant, static_params=params,
+                 control_state=["i_d", "i_q"], dtype=dtype)
+    state0 = (u(-150, 0), u(-150, 150), u(-3, 3), u(-80, 80), u(-80, 80))
+    omega, refs = u(0, 1000), (u(-0.8, 0.0), u(-0.5, 0.5))
+    rng = np.random.default_rng(seed)
+    K = 3 * np.asarray(PCL_P) + (rng.normal(0, 0.05, (2, 10)) if dense else 0)
+    policy = P.AffinePolicy(K, b=rng.normal(0, 0.1, 2) if dense else None,
+                            Ki=(np.asarray(PCL_KI) + rng.normal(0, 0.002, (2, 10))) if integral else None)
+    flat = policy.flat_params().to(device="cuda", dtype=dtype)
+    carry0 = (u(-0.1, 0.1), u(-0.1, 0.1)) if integral else ()
+    kw = dict(tau=env.tau, solver=env._solver, props=env.env_properties, ref_leaves=refs, traj_stride=1,
+              policy_params=flat, policy_carry=carry0 if integral else None)
+    _, _, _, traj, _ = PCL.kernel_pmsm_closed_loop(env, state0, omega, policy, T, **kw)
+    plane = lambda: u(0.5, 1.5, (T, B))
+    cot = PCL.AdjointCotangents(tuple(plane() for _ in range(7)), (None, None) if integral else (),
+                                tuple(u(0.5, 1.5) for _ in range(6)), (u(0.5, 1.5), None),
+                                tuple(u(0.5, 1.5) for _ in carry0))
+    return env, policy, flat, state0, omega, refs, carry0, traj, cot
+
+
+ADJOINT_CASES = [(1, True, True), (0, True, True), (1, False, True), (0, False, True), (1, True, False),
+                 (0, False, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("deadtime,integral,saturated", ADJOINT_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pmsm_cl_adjoint_matches_its_plain_version(deadtime, integral, saturated, dtype):
+    """The adjoint kernel against ``plain_pmsm_cl_adjoint`` on the same saves
+    and cotangents: float64 to 1e-12 of each cotangent's largest magnitude,
+    float32 within the tuning cell's ``grad_gap`` limit; the sums bit for
+    bit from one launch to the next."""
+    import json
+    from pathlib import Path
+
+    from exciting_environments_torch.ops.kernels import pmsm_closed_loop as PCL
+    from exciting_environments_torch.ops.kernels import pmsm_closed_loop_adjoint as PCA
+
+    _cuda()
+    env, policy, flat, state0, omega, refs, carry0, traj, cot = _adjoint_case(dtype, deadtime, integral, saturated)
+    kw = dict(tau=env.tau, props=env.env_properties)
+    eps_starts = PCL._eps_starts(state0[2], omega, env.tau, env._solver, traj[0].shape[0], 1)
+    got = PCA.kernel_pmsm_cl_adjoint(env, policy, flat, state0, omega, refs, carry0, traj, cot, **kw)
+    want = PCL.plain_pmsm_cl_adjoint(env, policy, flat, state0, omega, refs, carry0, traj, eps_starts, cot, **kw)
+    cell = Path(__file__).resolve().parents[1] / "portbench" / "workloads" / "pmsm-brusa-pi-tune-t256.json"
+    limit = 1e-12 if dtype == torch.float64 else json.loads(cell.read_text())["limits"]["grad_gap"]
+    flat_out = lambda out: [*out[0], *out[1], out[2]]
+    for a, b in zip(flat_out(got), flat_out(want)):
+        assert float((a.double() - b.double()).abs().max()) <= limit * float(b.double().abs().max())
+    again = PCA.kernel_pmsm_cl_adjoint(env, policy, flat, state0, omega, refs, carry0, traj, cot, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(flat_out(got), flat_out(again)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pmsm_vjp_backward_takes_one_adjoint_launch(dtype):
+    """A training step's backward through ``fused_closed_loop`` (a save every
+    step, the gains and the start state requiring grad): one forward launch,
+    one adjoint launch, counted in ``BACKWARD_PATHS``; the gradients agree
+    with the eager replay that an out-of-scope input (a reference requiring
+    grad) takes, float64 to 1e-12, float32 within the cell's limit."""
+    import json
+    from pathlib import Path
+
+    from exciting_environments_torch.ops.kernels import pmsm_closed_loop as PCL
+    from exciting_environments_torch.ops.kernels import pmsm_closed_loop_adjoint as PCA
+    from exciting_environments_torch.utils.train import default_tracking_loss
+
+    _cuda()
+    B, T = 4096 + 5, 32
+    env = P.PMSM(batch_size=B, saturated=True, motor_variant=P.MotorVariant.BRUSA, control_state=["i_d", "i_q"],
+                 dtype=dtype)
+    _, state = env.vmap_reset(rng=torch.Generator(device="cuda").manual_seed(7))
+    state.reference.i_d = torch.linspace(-200.0, -10.0, B, device="cuda", dtype=dtype)
+    state.reference.i_q = torch.linspace(-150.0, 150.0, B, device="cuda", dtype=dtype)
+    policy = P.AffinePolicy(PCL_P, Ki=PCL_KI)
+    loss_fn = default_tracking_loss(env)
+    grads = []
+    for replay in (False, True):
+        gains = policy.flat_params().to(device="cuda", dtype=dtype).requires_grad_(True)
+        i_d0 = state.physical_state.i_d.detach().clone().requires_grad_(True)
+        st = P.core.structures.replace(state, physical_state=P.core.structures.replace(state.physical_state, i_d=i_d0))
+        if replay:
+            st.reference.i_q = st.reference.i_q.detach().clone().requires_grad_(True)
+        carry = tuple(torch.zeros(B, device="cuda", dtype=dtype) for _ in range(2))
+        before = (PCL.PMSM_CL_KERNEL.launches["pmsm_closed_loop"], PCA.PMSM_CL_ADJOINT_KERNEL.launches["adjoint"],
+                  PCL.BACKWARD_PATHS["adjoint"], PCL.BACKWARD_PATHS["replay"].get("inputs", 0))
+        obs, acts, *_ = env.fused_closed_loop(st, policy, T, obs_stride=1, policy_params=gains, policy_carry=carry)
+        loss = loss_fn(obs, acts)
+        grads.append(torch.autograd.grad(loss, (gains, i_d0)))
+        after = (PCL.PMSM_CL_KERNEL.launches["pmsm_closed_loop"], PCA.PMSM_CL_ADJOINT_KERNEL.launches["adjoint"],
+                 PCL.BACKWARD_PATHS["adjoint"], PCL.BACKWARD_PATHS["replay"].get("inputs", 0))
+        assert [a - b for a, b in zip(after, before)] == ([1, 0, 0, 1] if replay else [1, 1, 1, 0])
+    cell = Path(__file__).resolve().parents[1] / "portbench" / "workloads" / "pmsm-brusa-pi-tune-t256.json"
+    limit = 1e-12 if dtype == torch.float64 else json.loads(cell.read_text())["limits"]["grad_gap"]
+    for a, b in zip(*grads):
+        assert float((a - b).abs().max()) <= limit * float(b.abs().max())
+
+
+@pytest.mark.gpu
+def test_pmsm_adjoint_routes_out_of_scope_calls_to_the_replay():
+    """Each input the adjoint is not built for takes the replay, counted by
+    its reason: a clipped law, RK4, a process-noise slab, checkpoints two
+    steps apart."""
+    from exciting_environments_torch.ops.kernels import pmsm_closed_loop as PCL
+
+    _cuda()
+    B, T = 256, 8
+    for reason, solver, clip, noise, stride in (("family", "euler", 1.0, False, 1), ("solver", "rk4", None, False, 1),
+                                                ("noise", "euler", None, True, 1), ("segments", "euler", None, False, 4)):
+        env = P.PMSM(batch_size=B, saturated=True, motor_variant=P.MotorVariant.BRUSA, solver=solver,
+                     control_state=["i_d", "i_q"])
+        _, st = env.vmap_reset(rng=torch.Generator(device="cuda").manual_seed(3))
+        law = P.AffinePolicy(PCL_P, clip=clip)
+        gains = law.flat_params().float().cuda().requires_grad_(True)
+        kw = dict(tau=env.tau, solver=env._solver, props=env.env_properties, traj_stride=stride, policy_params=gains,
+                  ref_leaves=(torch.zeros(B, device="cuda"),) * 2)
+        if noise:
+            kw.update(proc_noise_tm=torch.zeros((T, B, 1), device="cuda"), proc_noise_idx=(0,))
+        phys = st.physical_state
+        before = dict(PCL.BACKWARD_PATHS["replay"]), PCL.BACKWARD_PATHS["adjoint"]
+        out = PCL.kernel_pmsm_closed_loop(env, (phys.i_d, phys.i_q, phys.epsilon, phys.u_d_buffer, phys.u_q_buffer),
+                                          phys.omega_el, law, T, **kw)
+        torch.autograd.grad(out[0][0].sum() + out[3][0].sum(), gains)
+        assert PCL.BACKWARD_PATHS["replay"].get(reason, 0) == before[0].get(reason, 0) + 1, reason
+        assert PCL.BACKWARD_PATHS["adjoint"] == before[1]
+
+
+@pytest.mark.gpu
+def test_train_policy_lowers_its_loss_through_the_adjoint():
+    """The tuning cell's size: ``train_policy`` over 65,536 saturated BRUSA
+    drives, the PI law from the PI cell's gains, 256 steps, 12 iterations,
+    every backward one adjoint launch; at an Adam lr that descends, 3e-4,
+    the loss ends below its first value with every gain finite."""
+    from exciting_environments_torch.ops.kernels import pmsm_closed_loop as PCL
+    from exciting_environments_torch.ops.kernels import pmsm_closed_loop_adjoint as PCA
+    from exciting_environments_torch.utils.train import train_policy
+
+    _cuda()
+    B = 65536
+    env = P.PMSM(batch_size=B, saturated=True, motor_variant=P.MotorVariant.BRUSA, control_state=["i_d", "i_q"])
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    u = lambda lo, hi: torch.rand(B, generator=gen, device="cuda") * (hi - lo) + lo
+    _, state = env.vmap_reset(rng=gen)
+    phys = P.core.structures.replace(state.physical_state, i_d=u(-200, -10), i_q=u(-150, 150), epsilon=u(-3.1, 3.1),
+                                     omega_el=u(0, 1000))
+    state = P.core.structures.replace(state, physical_state=phys)
+    state.reference.i_d, state.reference.i_q = u(-200, -10), u(-150, 150)
+    policy = P.AffinePolicy(PCL_P, Ki=PCL_KI)
+    carry = tuple(torch.zeros(B, device="cuda") for _ in range(2))
+    before = PCA.PMSM_CL_ADJOINT_KERNEL.launches["adjoint"], PCL.BACKWARD_PATHS["adjoint"]
+    # the default lr 0.1 (the cell's) makes the 42 raw gains' loop unstable after one step
+    adam = lambda params: torch.optim.Adam(params, lr=3e-4)
+    result = train_policy(env, policy, policy.flat_params().float().cuda(), state, 256, 12, optimizer=adam,
+                          policy_carry=carry)
+    assert PCA.PMSM_CL_ADJOINT_KERNEL.launches["adjoint"] - before[0] == 12
+    assert PCL.BACKWARD_PATHS["adjoint"] - before[1] == 12
+    assert result.losses[-1] < result.losses[0] and result.final_loss < float(result.losses[0])
+    assert bool(torch.isfinite(result.params).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("solver", ["euler", "rk4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_angle_trajectory_kernel_matches_the_eager_loop(solver, dtype):
+    """``csrc/pmsm_angles.cu`` gives ``_eps_trajectory``'s angles bit for bit,
+    in one launch; a leaf that requires grad keeps the eager loop."""
+    from exciting_environments_torch.ops.kernels import pmsm_angles as PA
+    from exciting_environments_torch.ops.kernels.pmsm_stepper import _eps_trajectory
+    from exciting_environments_torch.ops.solvers import RK4, Euler
+
+    _cuda()
+    B, T = 4096 + 7, 300
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    eps0 = ((torch.rand(B, generator=gen, device="cuda", dtype=torch.float64) * 2 - 1) * 3.2).to(dtype)
+    omega = ((torch.rand(B, generator=gen, device="cuda", dtype=torch.float64) * 2 - 1) * 3000).to(dtype)
+    method = Euler() if solver == "euler" else RK4()
+    before = PA.PMSM_ANGLES_KERNEL.launches["angles"]
+    seq, final = PA.angle_trajectory(eps0, omega, 1e-4, T, method)
+    want_seq, want_final = _eps_trajectory(eps0, omega, 1e-4, T, method)
+    assert PA.PMSM_ANGLES_KERNEL.launches["angles"] == before + 1
+    assert torch.equal(seq, want_seq) and torch.equal(final, want_final)
+    leaf = eps0.clone().requires_grad_(True)
+    seq_g, _ = PA.angle_trajectory(leaf, omega, 1e-4, 8, method)
+    assert PA.PMSM_ANGLES_KERNEL.launches["angles"] == before + 1 and seq_g.requires_grad

@@ -59,6 +59,9 @@ HEADERS = {
     "pmsm_closed_loop.cu": ("eager_rules.cuh", "pmsm_drive.cuh", "policy_laws.cuh"),
     "pendulum_fast.cu": ("action_ring.cuh", "eager_rules.cuh", "fastmath.cuh"),
     "pmsm_fast.cu": ("eager_rules.cuh", "fastmath.cuh", "pmsm_drive.cuh"),
+    # the closed loop's adjoint recomputes each step with the forward kernel's own functions
+    "pmsm_closed_loop_adjoint.cu": ("pmsm_closed_loop.cuh",),
+    "pmsm_angles.cu": ("eager_rules.cuh",),
 }
 
 
